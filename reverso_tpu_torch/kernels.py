@@ -1,0 +1,137 @@
+"""Builds and binds the hand-written CUDA kernels in `csrc/`.
+
+All kernels compile with `nvcc` for `sm_90a` into one shared library with a
+plain C interface, loaded through ctypes. The build runs at first use and
+again whenever a source is newer than the library, so a fresh checkout
+needs nothing but the CUDA toolkit. Each `extern "C"` launcher takes raw
+device pointers, ints and PyTorch's current stream, launches without
+synchronising, and returns `cudaGetLastError()`; `check()` raises on any
+non-zero status.
+
+Nothing here runs at import: importing the package needs neither a card
+nor a compiler.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libreverso_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+UNSUPPORTED = -1
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, dtype, stream
+    "rv_flash_heads": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # x, w1, b1, w2, b2, out, T, W, H, act, dtype, stream
+    "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # db, q, D, Q, n_valid, k, n_splits, part_s, part_i, out_s, out_i, dtype, stream
+    "rv_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = 0.0   # wall time of the last build in this process (0 if cached)
+
+# Kernel launches per wrapper: each wrapper adds one right where it
+# launches its kernel, and nowhere else, so a run can show which kernels
+# its main path went through.
+launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0}
+# Shape-rule dispatches of CUDA tensors to a plain version (k above the
+# top-k kernel's cap).
+plain_dispatches = {"topk_above_cap": 0}
+
+
+def reset_counts() -> None:
+    for d in (launches, plain_dispatches):
+        for key in d:
+            d[key] = 0
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh"))
+    return any(os.path.getmtime(p) > built for p in deps)
+
+
+def build(force: bool = False) -> str:
+    """Compile `csrc/*.cu` into `_build/libreverso_kernels.so` if it is
+    missing or older than a source. Returns the library path."""
+    global build_seconds
+    if not force and not _stale():
+        return LIB_PATH
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)   # atomic: a concurrent build never sees a torn file
+    build_seconds = time.perf_counter() - t0
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(name: str, status: int) -> None:
+    if status == UNSUPPORTED:
+        raise ValueError(f"{name}: shape or dtype not supported by the kernel")
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Device, dtype and layout checks shared by the kernel wrappers."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

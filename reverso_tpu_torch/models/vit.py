@@ -1,0 +1,302 @@
+"""Vision transformer (PE-Core / CLIP family) in PyTorch.
+
+A config-driven tower covering both the PE-Core layout (2D RoPE, attention
+pooling, LayerScale) and the HF CLIP layout (absolute positions, CLS
+pooling, quick-GELU, pre-LN, no patch bias), with the JAX package's
+numerics: fp32 parameters cast to the activation dtype at use, fp32
+LayerNorms cast back to the activation dtype, attention through the
+heads-in-lanes kernel and the MLP through the fused kernel. Images come in
+NHWC, as in the JAX package (NCHW is accepted too).
+
+Module and parameter names follow the flax tree (`block{i}` becomes
+`blocks.{i}`), so `models.convert` maps one onto the other.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import ModelConfig
+from ..ops.attention import attention_ref, flash_attention_heads
+from ..ops.fused_mlp import fused_mlp
+from ..ops.rope import rope_2d_tables
+
+# sequences the heads-in-lanes kernel takes (ViT-L/14-336 is 577 tokens);
+# the same bound as the reference dispatch
+_HEADS_KERNEL_MAX_S = 1032
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax `lecun_normal`: truncated normal (+-2 sigma) with variance
+    1/fan_in after truncation."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+class Linear(nn.Module):
+    """Dense layer with fp32 params used in the activation dtype."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        _lecun_normal_(self.weight, self.weight.shape[1], gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm computed in `compute_dtype` (fp32 by default), cast back
+    to the input dtype."""
+
+    def __init__(self, dim: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=1e-5)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        return F.layer_norm(x.to(cd), self.normalized_shape,
+                            self.weight.to(cd), self.bias.to(cd),
+                            self.eps).to(x.dtype)
+
+
+class MHA(nn.Module):
+    """Multi-head self-attention with optional 2D RoPE."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.q_proj, self.k_proj = Linear(w, w), Linear(w, w)
+        self.v_proj, self.out_proj = Linear(w, w), Linear(w, w)
+
+    def forward(self, x, rope=None, kv_valid: Optional[int] = None):
+        cfg = self.cfg
+        h = cfg.num_heads
+        hd = cfg.width // h
+        if x.shape[1] > _HEADS_KERNEL_MAX_S or hd % 4:
+            raise NotImplementedError(
+                "only the heads-in-lanes attention kernel is ported "
+                f"(S <= {_HEADS_KERNEL_MAX_S}, head_dim % 4 == 0; got "
+                f"S={x.shape[1]}, head_dim={hd})")
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        cos, sin = rope if rope is not None else (None, None)
+        o = flash_attention_heads(q, k, v, heads=h, cos=cos, sin=sin,
+                                  kv_valid=kv_valid)
+        return self.out_proj(o)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, act: str = "gelu"):
+        super().__init__()
+        hidden = int(cfg.width * cfg.mlp_ratio)
+        self.act = act
+        self.fc1 = Linear(cfg.width, hidden)
+        self.fc2 = Linear(hidden, cfg.width)
+
+    def forward(self, x):
+        dt = x.dtype
+        return fused_mlp(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+                         self.fc2.weight.to(dt), self.fc2.bias.to(dt),
+                         act=self.act)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init: float):
+        super().__init__()
+        self.init = init
+        self.gamma = nn.Parameter(torch.full((dim,), float(init)))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, act: str = "gelu"):
+        super().__init__()
+        norm_dtype = getattr(torch, cfg.norm_dtype)
+        self.ln1 = LayerNorm(cfg.width, norm_dtype)
+        self.attn = MHA(cfg)
+        self.ln2 = LayerNorm(cfg.width, norm_dtype)
+        self.mlp = MLP(cfg, act)
+        if cfg.layer_scale_init is not None:
+            self.ls1 = LayerScale(cfg.width, cfg.layer_scale_init)
+            self.ls2 = LayerScale(cfg.width, cfg.layer_scale_init)
+        else:
+            self.ls1 = self.ls2 = None
+
+    def forward(self, x, rope=None, kv_valid: Optional[int] = None):
+        y = self.attn(self.ln1(x), rope, kv_valid)
+        if self.ls1 is not None:
+            y = self.ls1(y)
+        x = x + y
+        y = self.mlp(self.ln2(x))
+        if self.ls2 is not None:
+            y = self.ls2(y)
+        return x + y
+
+
+class AttentionPool(nn.Module):
+    """Probe attention pooling (PE-Core head): a learned query attends over
+    all tokens; `mask_bias` [B, 1, S] masks pad tokens."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        w = cfg.width
+        self.cfg = cfg
+        self.probe = nn.Parameter(torch.zeros(1, 1, w))
+        self.q_proj, self.k_proj = Linear(w, w), Linear(w, w)
+        self.v_proj, self.out_proj = Linear(w, w), Linear(w, w)
+        self.ln = LayerNorm(w)
+
+    def forward(self, x, mask_bias=None):   # [B, S, W] -> [B, W]
+        h = self.cfg.num_heads
+        b, s, w = x.shape
+        hd = w // h
+        xq = self.probe.to(x.dtype).expand(b, 1, w)
+        split = lambda t: t.reshape(b, t.shape[1], h, hd).transpose(1, 2)
+        q, k, v = (split(self.q_proj(xq)), split(self.k_proj(x)),
+                   split(self.v_proj(x)))
+        o = attention_ref(q, k, v, mask_bias=mask_bias)
+        o = self.out_proj(o.transpose(1, 2).reshape(b, 1, w))
+        return self.ln(o)[:, 0, :]
+
+
+class VisionTransformer(nn.Module):
+    """Config-driven ViT producing image embeddings.
+
+    forward returns the final embedding [B, embed_dim] before
+    normalization (PerceptionEncoder L2-normalizes)."""
+
+    def __init__(self, cfg: ModelConfig, *, act: str = "gelu",
+                 use_ln_pre: bool = False, patch_bias: bool = True,
+                 pad_seq: bool = False):
+        super().__init__()
+        if cfg.quant != "none":
+            raise NotImplementedError(
+                f"quant={cfg.quant!r}: the int8 fused-MLP kernel is not ported yet")
+        if act not in ("gelu", "quick_gelu"):
+            raise ValueError(f"unsupported activation {act!r}")
+        self.cfg = cfg
+        self.act = act
+        self.pad_seq = pad_seq
+        w = cfg.width
+        p = cfg.patch_size
+        self.patch_embed = nn.Conv2d(3, w, p, stride=p, bias=patch_bias)
+        self.cls_token = (nn.Parameter(torch.zeros(1, 1, w))
+                          if cfg.use_cls_token else None)
+        self.pos_embed = (nn.Parameter(torch.zeros(1, cfg.seq_len, w))
+                          if cfg.use_abs_pos else None)
+        self.ln_pre = LayerNorm(w) if use_ln_pre else None
+        self.blocks = nn.ModuleList(Block(cfg, act) for _ in range(cfg.depth))
+        self.ln_post = LayerNorm(w) if cfg.use_ln_post else None
+        if cfg.pool_type == "attn":
+            self.attn_pool = AttentionPool(cfg)
+        elif cfg.pool_type not in ("cls", "mean"):
+            raise ValueError(cfg.pool_type)
+        self.proj = Linear(w, cfg.embed_dim, bias=False)
+        self._rope_cache: dict = {}
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """The flax initialisers: lecun-normal kernels, zero biases, unit
+        LayerNorms, N(0, 0.02) for cls/pos/probe and `layer_scale_init`
+        for gamma, drawn in module order from `gen` (a CPU generator:
+        initialise before moving to the device)."""
+        for m in self.modules():
+            if isinstance(m, Linear):
+                m.reset_parameters(gen)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, LayerScale):
+                m.gamma.fill_(m.init)
+            elif isinstance(m, AttentionPool):
+                m.probe.normal_(0.0, 0.02, generator=gen)
+        conv = self.patch_embed
+        _lecun_normal_(conv.weight, conv.weight[0].numel(), gen)
+        if conv.bias is not None:
+            conv.bias.zero_()
+        for prm in (self.cls_token, self.pos_embed):
+            if prm is not None:
+                prm.normal_(0.0, 0.02, generator=gen)
+
+    def _rope(self, seq: int, device: torch.device):
+        """(cos, sin) device tables for a `seq`-long (maybe padded) sequence;
+        pad rows get the identity rotation."""
+        key = (seq, device)
+        if key not in self._rope_cache:
+            cfg = self.cfg
+            hd = cfg.width // cfg.num_heads
+            cos, sin = rope_2d_tables(cfg.grid_size, hd, cls_token=cfg.use_cls_token)
+            pad = seq - cos.shape[0]
+            if pad > 0:
+                cos = np.concatenate([cos, np.ones((pad, hd), np.float32)])
+                sin = np.concatenate([sin, np.zeros((pad, hd), np.float32)])
+            self._rope_cache[key] = (torch.from_numpy(cos).to(device),
+                                     torch.from_numpy(sin).to(device))
+        return self._rope_cache[key]
+
+    def forward(self, images, *, return_tokens: bool = False,
+                region_masks=None):
+        if region_masks is not None:
+            raise NotImplementedError("region pooling is not ported yet")
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        x = images.to(dtype)
+        if x.shape[-1] == 3:
+            x = x.permute(0, 3, 1, 2)          # NHWC -> NCHW for the conv
+        b = x.shape[0]
+        conv = self.patch_embed
+        bias = None if conv.bias is None else conv.bias.to(dtype)
+        x = F.conv2d(x, conv.weight.to(dtype), bias, stride=conv.stride)
+        x = x.flatten(2).transpose(1, 2)       # [B, P, W], row-major grid
+
+        if self.cls_token is not None:
+            x = torch.cat([self.cls_token.to(dtype).expand(b, 1, cfg.width), x], 1)
+        if self.pos_embed is not None:
+            x = x + self.pos_embed.to(dtype)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
+
+        s_valid = x.shape[1]
+        kv_valid = None
+        if self.pad_seq:
+            s_pad = -(-s_valid // 128) * 128
+            if s_pad != s_valid:
+                x = F.pad(x, (0, 0, 0, s_pad - s_valid))
+                kv_valid = s_valid
+        rope = self._rope(x.shape[1], x.device) if cfg.use_rope else None
+        for blk in self.blocks:
+            x = blk(x, rope, kv_valid)
+
+        tokens = x
+        if cfg.pool_type == "attn":
+            tokens_n = self.ln_post(tokens) if self.ln_post is not None else tokens
+            vbias = None
+            if kv_valid is not None:
+                pos = torch.arange(tokens_n.shape[1], device=x.device)
+                vbias = torch.where(pos < kv_valid, 0.0, -1e9).expand(
+                    b, 1, tokens_n.shape[1])
+            pooled = self.attn_pool(tokens_n, vbias)
+        else:
+            pooled = (tokens[:, 0, :] if cfg.pool_type == "cls"
+                      else tokens[:, :s_valid].mean(dim=1))
+            if self.ln_post is not None:
+                pooled = self.ln_post(pooled)
+        pooled = self.proj(pooled)
+        if return_tokens:
+            return pooled, tokens[:, :s_valid]
+        return pooled

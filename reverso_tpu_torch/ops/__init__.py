@@ -1,0 +1,9 @@
+from .attention import (
+    attention_ref,
+    flash_attention_heads,
+    flash_attention_heads_ref,
+)
+from .fused_mlp import fused_mlp, mlp_ref
+from .norm import l2_normalize
+from .rope import apply_rope_2d, rope_2d_tables
+from .topk import apply_score_threshold, cosine_topk, cosine_topk_ref

@@ -1,0 +1,116 @@
+"""Multi-head attention: the heads-in-lanes CUDA kernel and its plain version.
+
+`flash_attention_heads` consumes [B, S, W] activations with the heads
+sliced out of the width, applies 2D RoPE to q and k and honours
+`kv_valid`; on a CUDA tensor it launches `csrc/flash_heads.cu`, on a CPU
+tensor it runs `flash_attention_heads_ref`. `attention_ref` is the plain
+[B, H, S, D] attention the pooling head and the CPU split-head path use.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import kernels
+from .rope import rotate
+
+
+def attention_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
+                  mask_bias=None):
+    """Plain attention. q, k, v: [B, H, S, D] (kv may have S_kv != S_q).
+
+    Scores accumulate in fp32 from the dtype-rounded inputs, softmax is
+    fp32, and p is rounded to the input dtype before the PV product.
+    `mask_bias` [B, S_q, S_kv] is added to the scaled scores."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if kv_valid is not None:
+        s[..., kv_valid:] = float("-inf")
+    if mask_bias is not None:
+        s = s + mask_bias[:, None].float()
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def _split(t: torch.Tensor, heads: int) -> torch.Tensor:   # [B,S,W] -> [B,H,S,hd]
+    b, s, w = t.shape
+    return t.reshape(b, s, heads, w // heads).transpose(1, 2)
+
+
+def flash_attention_heads_ref(q, k, v, *, heads: int, cos=None, sin=None,
+                              scale: Optional[float] = None,
+                              kv_valid: Optional[int] = None):
+    """Plain version of the heads-in-lanes kernel, [B, S, W] in and out.
+
+    Same rounding points as the kernel: q and k rotate in fp32 with the
+    scale folded into q, round to the activation dtype, score in fp32;
+    p rounds to the dtype for the PV product while the row sum stays fp32.
+    """
+    b, s, w = q.shape
+    hd = w // heads
+    scale = float(scale) if scale is not None else hd ** -0.5
+    qh, kh, vh = _split(q, heads), _split(k, heads), _split(v, heads)
+    if cos is not None:
+        qh = rotate(qh, cos, sin, scale)
+        kh = rotate(kh, cos, sin)
+        sc = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    else:
+        sc = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    kv = s if kv_valid is None else min(int(kv_valid), s)
+    if kv < s:
+        sc[..., kv:] = float("-inf")
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(q.dtype).float(), vh.float()) / l
+    return o.to(q.dtype).transpose(1, 2).reshape(b, s, w)
+
+
+def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
+                          scale: Optional[float] = None,
+                          kv_valid: Optional[int] = None):
+    """Attention over [B, S, W] with heads sliced from the width and
+    optional in-kernel 2D RoPE (cos/sin [S, head_dim] tables).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos,
+                                         sin=sin, scale=scale,
+                                         kv_valid=kv_valid)
+    b, s, w = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if w % heads or (w // heads) % 4:
+        raise ValueError(f"width {w} must split into {heads} heads of a "
+                         f"multiple of 4")
+    if q.dtype not in kernels.DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_heads: unsupported dtypes "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    hd = w // heads
+    scale = float(scale) if scale is not None else hd ** -0.5
+    kv = s if kv_valid is None else max(0, min(int(kv_valid), s))
+    use_rope = cos is not None
+    if use_rope:
+        cos_t = torch.as_tensor(cos, dtype=torch.float32, device=q.device).contiguous()
+        sin_t = torch.as_tensor(sin, dtype=torch.float32, device=q.device).contiguous()
+        if cos_t.shape != (s, hd) or sin_t.shape != (s, hd):
+            raise ValueError(f"rope tables must be [{s}, {hd}], got "
+                             f"{tuple(cos_t.shape)} / {tuple(sin_t.shape)}")
+        tables = (cos_t, sin_t)
+    else:
+        tables = ()
+    kernels.require_cuda("flash_attention_heads", q, k, v, *tables)
+    o = torch.empty_like(q)
+    cos_p = tables[0].data_ptr() if use_rope else None
+    sin_p = tables[1].data_ptr() if use_rope else None
+    with torch.cuda.device(q.device):   # launch on the tensors' card
+        status = kernels.lib().rv_flash_heads(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p, o.data_ptr(),
+            b, s, w, heads, kv, scale, int(use_rope),
+            kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
+    kernels.check("flash_attention_heads", status)
+    kernels.launches["flash_heads"] += 1
+    return o

@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need an NVIDIA Hopper card and nvcc; elsewhere they skip. Run on
+the card with
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+They cover the small and ragged shapes (test-tiny widths, odd S and N,
+fp32 and bf16); chip_smoke.py covers the full PE-Core-L14-336 shapes.
+"""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, dtype, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+# fp32: sums in another order (and online softmax); bf16: one output ulp
+TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,heads,kv_valid,rope", [
+    (2, 17, 64, 4, None, True),       # test-tiny: hd 16, S = 17
+    (3, 37, 64, 4, 23, True),
+    (2, 145, 128, 4, None, False),    # hd 32, CLIP family
+    (1, 577, 1024, 16, 300, True),    # PE-L14 widths
+    (2, 50, 384, 4, None, True),      # hd 96
+])
+def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import (flash_attention_heads,
+                                                  flash_attention_heads_ref)
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    q, k, v = (_randn(gen, b, s, w, dtype=dtype) for _ in range(3))
+    cos = sin = None
+    if rope:
+        cos = np.ones((s, w // heads), np.float32)
+        sin = np.zeros_like(cos)
+        grid = int(np.sqrt(s - 1))
+        c, sn = rope_2d_tables(grid, w // heads)
+        cos[:len(c)], sin[:len(c)] = c[:s], sn[:s]
+    n0 = kernels.launches["flash_heads"]
+    out = flash_attention_heads(q, k, v, heads=heads, cos=cos, sin=sin,
+                                kv_valid=kv_valid)
+    assert kernels.launches["flash_heads"] == n0 + 1
+    ref = flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin,
+                                    kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,w,hid,act", [
+    (50, 64, 256, "gelu"),            # test-tiny
+    (33, 64, 256, "quick_gelu"),
+    (577, 1024, 4096, "gelu"),        # PE-L14 widths
+    (100, 1536, 8960, "gelu"),        # PE-G14 widths: 16-row tiles
+])
+def test_fused_mlp_kernel(dev, dtype, t, w, hid, act):
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    x = _randn(gen, t, w, dtype=dtype)
+    w1, b1 = _randn(gen, hid, w, dtype=dtype, scale=w ** -0.5), _randn(gen, hid, dtype=dtype, scale=0.1)
+    w2, b2 = _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5), _randn(gen, w, dtype=dtype, scale=0.1)
+    out = fused_mlp(x, w1, b1, w2, b2, act=act)
+    ref = mlp_ref(x, w1, b1, w2, b2, act=act)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else TOLS[dtype]
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,q,k,n_valid", [
+    (1000, 64, 7, 10, None),
+    (4096, 128, 70, 5, 3001),     # two query tiles, n_valid < N
+    (300, 32, 4, 20, 12),         # k > n_valid
+    (5000, 96, 3, 128, None),     # k at the cap
+])
+def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    db = torch.randn(n, d, generator=gen, device="cuda")
+    db = (db / db.norm(dim=1, keepdim=True)).to(dtype)
+    db[n // 2] = db[1]                      # a duplicate: tie -> lower row
+    qs = torch.cat([db[1:2], _randn(gen, q - 1, d, dtype=dtype)])
+    s, i = cosine_topk(db, qs, k, n_valid=n_valid)
+    rs, ri = cosine_topk_ref(db, qs, k, n_valid=n_valid)
+    fin = torch.isfinite(rs)
+    assert torch.equal(fin, torch.isfinite(s))
+    assert float((torch.where(fin, s - rs, 0)).abs().max()) <= 1e-4
+    # ids equal where the ranked scores are clear of their neighbours
+    gap = torch.diff(torch.where(fin, rs, -1e9), dim=1).abs()
+    inf = torch.full((q, 1), float("inf"), device="cuda")
+    clear = (torch.cat([inf, gap], 1) > 1e-4) & (torch.cat([gap, inf], 1) > 1e-4)
+    assert torch.equal(torch.where(clear, i, -2), torch.where(clear, ri, -2))
+    assert torch.equal(i[~fin], torch.full_like(i[~fin], -1))
+    if n_valid is None or n_valid > n // 2:
+        assert i[0, :2].tolist() == [1, n // 2]

@@ -1,0 +1,119 @@
+"""Packaging contracts of the PyTorch port (`reverso_tpu_torch`).
+
+* it imports and runs the direct-embed build + search with `jax` blocked;
+* its host modules are byte-identical copies of the JAX package's;
+* no device fallback: asking for CUDA without a card raises, and a kernel
+  wrapper given a tensor that is neither on the CPU nor on a CUDA card
+  raises instead of running the plain version;
+* chip_smoke.py refuses to run without a card.
+"""
+import filecmp
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "reverso_tpu_torch")
+HOST_COPIES = ("config.py", "utils/logging.py", "store/persist.py",
+               "detect/regions.py", "viz.py", "ingest/images.py",
+               "ingest/pipeline.py")
+
+
+def _run(code: str, cwd: str, timeout: int = 120):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    proc = _run(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        import os, numpy as np
+        from PIL import Image
+        from reverso_tpu_torch.compat import SimpleReverso
+        from reverso_tpu_torch.config import MODEL_PRESETS, StoreConfig, default_config
+        from reverso_tpu_torch.models.pe import PerceptionEncoder
+        root = {str(tmp_path)!r}
+        folder = os.path.join(root, "images"); os.makedirs(folder)
+        rng = np.random.default_rng(0)
+        for j in range(6):
+            Image.fromarray(rng.integers(0, 256, (40, 40, 3), dtype=np.uint8)).save(
+                os.path.join(folder, f"{{j}}.png"))
+        cfg = default_config().replace(model=MODEL_PRESETS["test-tiny"],
+                                       store=StoreConfig(root_dir=os.path.join(root, "db")))
+        sr = SimpleReverso(cfg, encoder=PerceptionEncoder(cfg.model, device="cpu"))
+        text = sr.create_database(folder, "demo", use_direct_pe=True)
+        assert "ready for searching" in text, text
+        print(sr.load_database("demo"))
+        sr.process_image_direct_pe(Image.open(os.path.join(folder, "3.png")))
+        text, items = sr.search_similar(0.0, 3)
+        assert items[0]["filename"] == "3.png", text
+        assert not [m for m in sys.modules if m.split(".")[0] == "reverso_tpu"]
+        print("OK", len(items))
+    """, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "OK 3" in proc.stdout
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copies_are_byte_identical(rel):
+    assert filecmp.cmp(os.path.join(REPO, "reverso_tpu", rel),
+                       os.path.join(PORT, rel), shallow=False)
+
+
+def test_port_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|reverso_tpu)\b", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    offenders = [f for f in files if pattern.search(open(f).read())]
+    assert offenders == []
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+    from reverso_tpu_torch.store import DeviceIndex
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PerceptionEncoder(MODEL_PRESETS["test-tiny"], device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceIndex(torch.zeros(4, 8).numpy(), device="cuda")
+
+
+def test_wrappers_never_fall_back_for_device_tensors():
+    from reverso_tpu_torch.ops import cosine_topk, flash_attention_heads, fused_mlp
+
+    m = lambda *shape: torch.empty(*shape, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_heads(m(1, 5, 16), m(1, 5, 16), m(1, 5, 16), heads=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp(m(3, 8), m(16, 8), m(16), m(8, 16), m(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        cosine_topk(m(10, 8), m(2, 8), 3)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for cwd in (REPO, str(tmp_path)):
+        script = os.path.join(REPO, "chip_smoke.py")
+        if cwd != REPO:    # alone in a directory, without the package
+            alone = tmp_path / "chip_smoke.py"
+            alone.write_text(open(script).read())
+            script = str(alone)
+        proc = subprocess.run([sys.executable, script], cwd=cwd,
+                              capture_output=True, text=True, timeout=120,
+                              env=dict(os.environ, PYTHONPATH=""))
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

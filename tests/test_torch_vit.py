@@ -1,0 +1,149 @@
+"""Parity of the PyTorch port's vision tower with the JAX package's.
+
+The JAX tower's params (seeded flax init, or a real HF CLIP state dict
+through `convert_vision_tower`) go through the port's parameter bridge, so
+both packages run the same weights on the same numpy images. The JAX side
+runs its heads-in-lanes Pallas attention in interpret mode, as
+tests/test_vit.py does on the CPU.
+"""
+import dataclasses
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from reverso_tpu.config import MODEL_PRESETS
+from reverso_tpu.models.convert import convert_vision_tower
+from reverso_tpu.models.pe import PerceptionEncoder as JaxEncoder
+from reverso_tpu.models.vit import VisionTransformer as JaxViT
+from reverso_tpu_torch.models import (PerceptionEncoder, VisionTransformer,
+                                      flax_params_from_vision,
+                                      vision_params_from_flax)
+from reverso_tpu_torch.models import pe as tpe
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = MODEL_PRESETS["test-tiny"]
+FAMILIES = {
+    "pe": TINY,
+    "clip": dataclasses.replace(TINY, use_rope=False, pool_type="cls",
+                                layer_scale_init=None),
+}
+
+
+def _jax_params(enc):
+    return jax.tree_util.tree_map(np.asarray, enc.params)
+
+
+def _images(n=3, seed=1):
+    return np.random.default_rng(seed).standard_normal((n, 32, 32, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("family", ["pe", "clip"])
+def test_bridge_round_trip(family):
+    cfg = FAMILIES[family]
+    params = _jax_params(JaxEncoder(cfg, family=family, seed=3))
+    sd = vision_params_from_flax(params, cfg)
+    # names and shapes are exactly the port module's
+    port = VisionTransformer(cfg, **tpe._FAMILY_KW[family])
+    ref_sd = port.state_dict()
+    assert set(sd) == set(ref_sd)
+    assert all(sd[k].shape == ref_sd[k].shape for k in sd)
+    back = flax_params_from_vision(sd)
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(flat_b[path], leaf)
+
+
+@pytest.mark.parametrize("family", ["pe", "clip"])
+@pytest.mark.parametrize("pad_seq", [False, True])
+def test_encode_image_fp32_matches_jax(family, pad_seq):
+    cfg = dataclasses.replace(FAMILIES[family], dtype="float32")
+    imgs = _images()
+    jenc = JaxEncoder(cfg, family=family, seed=0, use_flash=True)
+    if pad_seq:
+        kw = dict(tpe._FAMILY_KW[family])
+        vit = JaxViT(cfg, use_flash=True, pad_seq=True, **kw)
+        out = vit.apply({"params": jenc.params}, imgs)
+        ref = np.asarray(out / np.linalg.norm(out, axis=1, keepdims=True))
+    else:
+        ref = np.asarray(jenc.encode_image(imgs))
+    tenc = PerceptionEncoder(cfg, family=family, params=_jax_params(jenc),
+                             device="cpu", pad_seq=pad_seq)
+    out = tenc.encode_image(imgs)
+    assert out.shape == (3, cfg.embed_dim) and out.dtype == np.float32
+    # fp32 both sides: normalized embeddings agree to summation order
+    assert np.abs(out - ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("family", ["pe", "clip"])
+def test_encode_image_bf16_matches_jax(family):
+    cfg = FAMILIES[family]
+    assert cfg.dtype == "bfloat16"
+    imgs = _images(4, seed=2)
+    jenc = JaxEncoder(cfg, family=family, seed=1, use_flash=True)
+    ref = np.asarray(jenc.encode_image(imgs))
+    out = PerceptionEncoder(cfg, family=family, params=_jax_params(jenc),
+                            device="cpu").encode_image(imgs)
+    # bf16 rounds at other places in the two frameworks
+    assert float((out * ref).sum(1).min()) >= 0.999
+
+
+def test_golden_fixture_through_bridge():
+    """The frozen HF CLIP state dict + image_embeds: JAX converter ->
+    bridge -> port reproduces the torch original's embeddings."""
+    from reverso_tpu.config import ModelConfig
+
+    data = np.load(os.path.join(REPO, "tests", "fixtures", "hf_clip_tiny_golden.npz"))
+    arch = json.loads(bytes(data["config"]).decode())
+    cfg = ModelConfig(name="golden-tiny", use_rope=False, pool_type="cls",
+                      layer_scale_init=None, dtype="float32",
+                      **{k: arch[k] for k in ("width", "depth", "num_heads",
+                                              "image_size", "patch_size",
+                                              "embed_dim", "mlp_ratio")})
+    sd = {k[4:]: data[k] for k in data.files if k.startswith("sd::")}
+    params = convert_vision_tower(sd, cfg, scheme="hf_clip")
+    enc = PerceptionEncoder(cfg, family="clip", params=params, device="cpu")
+    ours = enc.encode_image(data["pixels"])
+    ref = data["image_embeds"]
+    ref = ref / np.linalg.norm(ref, axis=1, keepdims=True)
+    assert float((ours * ref).sum(1).min()) >= 0.9999
+
+
+def test_seeded_init_follows_flax_initialisers():
+    cfg = dataclasses.replace(TINY, dtype="float32")
+    a = PerceptionEncoder(cfg, seed=5, device="cpu")
+    b = PerceptionEncoder(cfg, seed=5, device="cpu")
+    c = PerceptionEncoder(cfg, seed=6, device="cpu")
+    sa, sb, sc = (e.module.state_dict() for e in (a, b, c))
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["blocks.0.attn.q_proj.weight"],
+                           sc["blocks.0.attn.q_proj.weight"])
+    w = sa["blocks.0.mlp.fc1.weight"]            # lecun normal, fan_in = width
+    assert abs(float(w.std()) - cfg.width ** -0.5) < 0.1 * cfg.width ** -0.5
+    assert float(w.abs().max()) <= 2 * cfg.width ** -0.5 / 0.8796 + 1e-6
+    assert torch.all(sa["blocks.0.mlp.fc1.bias"] == 0)
+    assert torch.all(sa["blocks.0.ls1.gamma"] == cfg.layer_scale_init)
+    assert torch.all(sa["blocks.1.ln2.weight"] == 1)
+    assert abs(float(sa["pos_embed"].std()) - 0.02) < 0.004
+    emb = a.encode_image(_images(2))
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-5)
+
+
+def test_region_masks_not_ported():
+    enc = PerceptionEncoder(TINY, device="cpu")
+    with pytest.raises(NotImplementedError):
+        enc.module(torch.zeros(1, 32, 32, 3), region_masks=torch.ones(1, 1, 16))
+
+
+def test_long_sequences_not_ported():
+    """Past the heads-in-lanes kernel's S <= 1032 the JAX package takes
+    the full-sequence flash kernel, which is not ported yet."""
+    from reverso_tpu_torch.models.vit import MHA
+
+    with pytest.raises(NotImplementedError, match="S=1033"):
+        MHA(TINY)(torch.zeros(1, 1033, TINY.width))
