@@ -1,11 +1,13 @@
 """Reverso in PyTorch for NVIDIA Hopper GPUs.
 
 The port of `reverso_tpu` (JAX/flax with Pallas kernels for the TPU): the
-same engine surface, store format and search contract, with the model in
-PyTorch and every kernel on the main path (flash attention with 2D RoPE,
-the fused MLP, exact top-k) hand-written in CUDA C++ for sm_90a
-(`csrc/`, built by `kernels.py` at first use). CPU tensors run each
-kernel's plain PyTorch version.
+same engine surface, store format and search contract, with the models
+(PE-Core / CLIP towers, GroundingDINO, SAM) in PyTorch and every kernel on
+the direct-embed and region paths (flash attention with 2D RoPE, the fused
+MLP, exact top-k, flash attention with SAM's rel-pos bias, multi-scale
+deformable attention) hand-written in CUDA C++ for sm_90a (`csrc/`, built
+by `kernels.py` at first use). CPU tensors run each kernel's plain
+PyTorch version; entry points run on CUDA unless given `device="cpu"`.
 """
 
 __version__ = "0.1.0"

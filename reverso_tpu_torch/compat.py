@@ -5,8 +5,9 @@ runs against this class unchanged — same method names, same argument
 orders and defaults, same return conventions (status strings with the
 reference's emoji, `(embeddings, metadata)` tuples, `(results_text,
 items)` search results). Underneath it is the PyTorch engine: batched
-embedding on the card, device-resident exact top-k through the CUDA
-kernel, working checkpoints.
+detection and embedding, device-resident exact top-k through the CUDA
+kernel, working checkpoints. It runs on the card unless the caller asks
+for the CPU (`device="cpu"`).
 """
 from __future__ import annotations
 
@@ -20,9 +21,9 @@ class SimpleReverso:
     """Reference-compatible facade (reference core_system.py:44)."""
 
     def __init__(self, config: Optional[EngineConfig] = None, *,
-                 encoder=None, detector=None):
+                 encoder=None, detector=None, device=None):
         self._engine = Reverso(config or default_config(), encoder=encoder,
-                               detector=detector)
+                               detector=detector, device=device)
 
     # the reference exposes these as instance state; mirror them
     @property

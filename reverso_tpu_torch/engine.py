@@ -1,15 +1,19 @@
-"""Reverso: the engine facade, direct-embed subset.
+"""Reverso: the engine facade, direct-embed and region paths.
 
-The reference app's core loop in its direct-embed form: image folder ->
-PE-Core embeddings -> durable store -> exact cosine top-k. Database
-management, `create_database` through the shared ingest pipeline,
-`process_image_direct_pe`, `search_similar` and `search_batch` carry the
-JAX package's method bodies and status strings; the model runs in
-PyTorch and the search through the CUDA top-k kernel.
+The reference app's core loop: image folder -> (GroundingDINO + SAM
+regions ->) PE-Core embeddings -> durable store -> exact cosine top-k.
+Database management, `create_database` through the shared ingest
+pipeline, `process_image_direct_pe`, `detect_regions`,
+`extract_embeddings` (compat mode: each region carries its image's
+global embedding, as the reference does), `search_similar` and
+`search_batch` carry the JAX package's method bodies and status strings;
+the models run in PyTorch and the search through the CUDA top-k kernel.
 
-Parts of the JAX engine not ported yet (region detection, payload
-filters, the micro-batching searcher, approximate indexes, named-space
-deletions) raise rather than run a different path.
+Everything runs on one device: CUDA unless the caller asks for the CPU
+(`device="cpu"`, or an encoder built on the CPU). Parts of the JAX engine
+not ported yet (ROI pooling, payload filters, the micro-batching
+searcher, approximate indexes, named-space deletions) raise rather than
+run a different path.
 """
 from __future__ import annotations
 
@@ -20,10 +24,10 @@ from typing import Optional
 import numpy as np
 
 from .config import EngineConfig, default_config
-from .detect.regions import Regions
+from .detect.regions import Regions, parse_prompts
 from .ingest.images import preprocess_pil
-from .ingest.pipeline import build_database, direct_pe_metadata
-from .models.pe import PerceptionEncoder
+from .ingest.pipeline import build_database, direct_pe_metadata, region_metadata
+from .models.pe import PerceptionEncoder, resolve_device
 from .store import (
     VectorStore, DeviceIndex, StoreError, StoreLockedError,
     list_databases as _list_databases,
@@ -49,10 +53,14 @@ class Reverso:
                  encoder: Optional[PerceptionEncoder] = None,
                  detector=None, device=None):
         self.config = config or default_config()
-        # encoder is LAZY: store-only flows never pay the model build
+        # encoder is LAZY: store-only flows never pay the model build;
+        # the device is settled now, so a machine without CUDA fails here
+        # unless the caller asked for the CPU
+        if device is None and encoder is not None:
+            device = encoder.device
+        self.device = resolve_device(device)
         self._encoder = encoder
         self.detector = detector
-        self.device = device
         self.metrics = Metrics()
 
         self._store: Optional[VectorStore] = None
@@ -184,8 +192,7 @@ class Reverso:
                 np.asarray(store.vectors(using)),
                 dtype=self.config.store.dtype,
                 distance=store.distance,
-                device=self.encoder.device if self._encoder is not None
-                else self.device)
+                device=self.device)
             self._indexes[using] = (key, index)
             return index
 
@@ -223,20 +230,51 @@ class Reverso:
         self.region_metadata_list = [meta]
         return emb, [meta]
 
-    def _no_region_path(self):
+    def _check_region_mode(self) -> None:
+        if self.config.ingest.region_embed_mode == "region":
+            raise NotImplementedError(
+                "region_embed_mode='region' (ROI pooling) is not ported yet; "
+                "use region_embed_mode='compat'")
+
+    def detect_regions(self, image, text_prompt: Optional[str] = None) -> int:
+        """Prompt-conditioned region detection (reference core_system.py:237-318)."""
         if self.detector is None:
             raise RuntimeError(
                 "no detector configured; construct Reverso(detector=...) or "
                 "use process_image_direct_pe")
-        raise NotImplementedError("the region path is not ported yet")
-
-    def detect_regions(self, image, text_prompt: Optional[str] = None) -> int:
-        """Prompt-conditioned region detection."""
-        self._no_region_path()
+        prompts = parse_prompts(text_prompt, self.config.detector.default_prompt)
+        arr = to_rgb_array(image)
+        self.detected_regions = self.detector.detect(arr, prompts)
+        self.region_embeddings = None
+        self.region_metadata_list = []
+        log.info(f"found {len(self.detected_regions)} regions for prompts {prompts}")
+        return len(self.detected_regions)
 
     def extract_embeddings(self, image):
-        """Embed detected regions."""
-        self._no_region_path()
+        """Embed detected regions (reference core_system.py:320-429): every
+        region carries the global image embedding, exactly what the
+        reference does (core_system.py:406)."""
+        self._check_region_mode()
+        regions = self.detected_regions
+        if regions is None or len(regions) == 0:
+            return [], []
+        px, (w, h) = self._preprocess(image)
+        n = min(len(regions), self.config.ingest.max_regions)
+        emb = np.asarray(self.encoder.encode_image(px))[0]
+        vecs, metas = [], []
+        for i in range(n):
+            meta = region_metadata(regions, i)
+            if meta is None:
+                continue
+            if meta["bbox"] is None:
+                meta["bbox"] = [0, 0, w, h]
+            vecs.append(emb)
+            metas.append(meta)
+        self.region_embeddings = (np.stack(vecs) if vecs
+                                  else np.zeros((0, self.encoder.embed_dim),
+                                                np.float32))
+        self.region_metadata_list = metas
+        return list(self.region_embeddings), metas
 
     def search_similar(self, similarity_threshold: Optional[float] = None,
                        max_results: Optional[int] = None,
@@ -307,6 +345,8 @@ class Reverso:
                         resume_from_checkpoint: bool = False,
                         include_subfolders: bool = False) -> str:
         """Build a searchable database from a folder."""
+        if not use_direct_pe:
+            self._check_region_mode()
         self._set_store(None)  # release any handle on the target store
         result = build_database(
             self.encoder, folder_path, database_name,

@@ -1,9 +1,10 @@
 """Builds and binds the hand-written CUDA kernels in `csrc/`.
 
-All kernels compile with `nvcc` for `sm_90a` into one shared library with a
-plain C interface, loaded through ctypes. The build runs at first use and
-again whenever a source is newer than the library, so a fresh checkout
-needs nothing but the CUDA toolkit. Each `extern "C"` launcher takes raw
+Each `csrc/*.cu` compiles with its own `nvcc` for `sm_90a`, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded through ctypes. The build runs at first use and again
+whenever a source is newer than the library, so a fresh checkout needs
+nothing but the CUDA toolkit. Each `extern "C"` launcher takes raw
 device pointers, ints and PyTorch's current stream, launches without
 synchronising, and returns `cudaGetLastError()`; `check()` raises on any
 non-zero status.
@@ -27,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libreverso_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,6 +42,10 @@ _SIGNATURES = {
     "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # db, q, D, Q, n_valid, k, n_splits, part_s, part_i, out_s, out_i, dtype, stream
     "rv_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, dtype, stream
+    "rv_flash_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # value, levels, loc, attw, out, B, Lv, Lq, H, D, L, P, dtype, stream
+    "rv_ms_deform": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -50,7 +55,11 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # Kernel launches per wrapper: each wrapper adds one right where it
 # launches its kernel, and nowhere else, so a run can show which kernels
 # its main path went through.
-launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0}
+# `flash_attn` and `flash_attn_relbias` count the one flash kernel's two
+# modes apart: plain (the ViT past the heads-in-lanes envelope) and with
+# SAM's decomposed rel-pos bias.
+launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
+            "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0}
 # Shape-rule dispatches of CUDA tensors to a plain version (k above the
 # top-k kernel's cap).
 plain_dispatches = {"topk_above_cap": 0}
@@ -84,19 +93,41 @@ def _stale() -> bool:
 
 def build(force: bool = False) -> str:
     """Compile `csrc/*.cu` into `_build/libreverso_kernels.so` if it is
-    missing or older than a source. Returns the library path."""
+    missing or older than a source: one `nvcc -c` per source, all running
+    at once, then one link. Returns the library path."""
     global build_seconds
     if not force and not _stale():
         return LIB_PATH
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    objs, errors = [], []
+    for cmd, obj, proc in jobs:
+        out, err = proc.communicate()
+        objs.append(obj)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{out}\n{err}")
+    tmp = f"{LIB_PATH}.{tag}"
+    if not errors:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            errors.append(f"link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, LIB_PATH)   # atomic: a concurrent build never sees a torn file
     build_seconds = time.perf_counter() - t0
     return LIB_PATH

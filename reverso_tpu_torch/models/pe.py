@@ -30,13 +30,13 @@ IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` picks CUDA when present, else the CPU. An explicit CUDA device
-    without CUDA raises: the tower never runs silently on the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    """`None` means CUDA; without CUDA it raises, as an explicit CUDA device
+    does. Only an explicit `device="cpu"` runs on the CPU: nothing falls
+    back to it quietly."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
+        raise RuntimeError(f"device {device} requested but CUDA is not available "
+                           f"(pass device='cpu' to run on the CPU)")
     return device
 
 

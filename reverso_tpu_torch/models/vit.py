@@ -5,8 +5,9 @@ pooling, LayerScale) and the HF CLIP layout (absolute positions, CLS
 pooling, quick-GELU, pre-LN, no patch bias), with the JAX package's
 numerics: fp32 parameters cast to the activation dtype at use, fp32
 LayerNorms cast back to the activation dtype, attention through the
-heads-in-lanes kernel and the MLP through the fused kernel. Images come in
-NHWC, as in the JAX package (NCHW is accepted too).
+heads-in-lanes kernel (or, past its envelope, the [B, H, S, D] flash
+kernel) and the MLP through the fused kernel. Images come in NHWC, as in
+the JAX package (NCHW is accepted too).
 
 Module and parameter names follow the flax tree (`block{i}` becomes
 `blocks.{i}`), so `models.convert` maps one onto the other.
@@ -22,9 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.attention import attention_ref, flash_attention_heads
+from ..ops.attention import attention_ref, flash_attention, flash_attention_heads
 from ..ops.fused_mlp import fused_mlp
-from ..ops.rope import rope_2d_tables
+from ..ops.rope import apply_rope_2d, rope_2d_tables
 
 # sequences the heads-in-lanes kernel takes (ViT-L/14-336 is 577 tokens);
 # the same bound as the reference dispatch
@@ -85,17 +86,21 @@ class MHA(nn.Module):
     def forward(self, x, rope=None, kv_valid: Optional[int] = None):
         cfg = self.cfg
         h = cfg.num_heads
-        hd = cfg.width // h
-        if x.shape[1] > _HEADS_KERNEL_MAX_S or hd % 4:
-            raise NotImplementedError(
-                "only the heads-in-lanes attention kernel is ported "
-                f"(S <= {_HEADS_KERNEL_MAX_S}, head_dim % 4 == 0; got "
-                f"S={x.shape[1]}, head_dim={hd})")
+        b, s, w = x.shape
+        hd = w // h
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         cos, sin = rope if rope is not None else (None, None)
-        o = flash_attention_heads(q, k, v, heads=h, cos=cos, sin=sin,
-                                  kv_valid=kv_valid)
-        return self.out_proj(o)
+        if s <= _HEADS_KERNEL_MAX_S and hd % 4 == 0:
+            # heads-in-lanes kernel: no head transposes, RoPE in-kernel
+            o = flash_attention_heads(q, k, v, heads=h, cos=cos, sin=sin,
+                                      kv_valid=kv_valid)
+            return self.out_proj(o)
+        split = lambda t: t.reshape(b, s, h, hd).transpose(1, 2)
+        q, k, v = split(q), split(k), split(v)
+        if rope is not None:
+            q, k = apply_rope_2d(q, cos, sin), apply_rope_2d(k, cos, sin)
+        o = flash_attention(q, k, v, kv_valid=kv_valid)
+        return self.out_proj(o.transpose(1, 2).reshape(b, s, w))
 
 
 class MLP(nn.Module):

@@ -1,8 +1,10 @@
 from .attention import (
     attention_ref,
+    flash_attention,
     flash_attention_heads,
     flash_attention_heads_ref,
 )
+from .deformable import ms_deform_attn, ms_deform_attn_ref
 from .fused_mlp import fused_mlp, mlp_ref
 from .norm import l2_normalize
 from .rope import apply_rope_2d, rope_2d_tables

@@ -1,10 +1,14 @@
-"""Multi-head attention: the heads-in-lanes CUDA kernel and its plain version.
+"""Multi-head attention: two CUDA kernels and their plain versions.
 
 `flash_attention_heads` consumes [B, S, W] activations with the heads
 sliced out of the width, applies 2D RoPE to q and k and honours
 `kv_valid`; on a CUDA tensor it launches `csrc/flash_heads.cu`, on a CPU
-tensor it runs `flash_attention_heads_ref`. `attention_ref` is the plain
-[B, H, S, D] attention the pooling head and the CPU split-head path use.
+tensor it runs `flash_attention_heads_ref`.
+
+`flash_attention` is attention over [B, H, S, D] with `kv_valid` and an
+optional SAM-style decomposed relative-position bias; on a CUDA tensor it
+launches `csrc/flash_attn.cu`, on a CPU tensor it runs `attention_ref`,
+the plain [B, H, S, D] attention the pooling head also uses.
 """
 from __future__ import annotations
 
@@ -16,16 +20,28 @@ from .. import kernels
 from .rope import rotate
 
 
+def rel_bias_dense(bias_h: torch.Tensor, bias_w: torch.Tensor,
+                   grid: int) -> torch.Tensor:
+    """[..., Sq, G] row and column parts -> the [..., Sq, G*G] bias
+    bias[q, k] = bias_h[q, k // G] + bias_w[q, k % G], in fp32."""
+    dense = bias_h.float()[..., :, None] + bias_w.float()[..., None, :]
+    return dense.reshape(*bias_h.shape[:-1], grid * grid)
+
+
 def attention_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
-                  mask_bias=None):
+                  mask_bias=None, rel_bias=None):
     """Plain attention. q, k, v: [B, H, S, D] (kv may have S_kv != S_q).
 
     Scores accumulate in fp32 from the dtype-rounded inputs, softmax is
     fp32, and p is rounded to the input dtype before the PV product.
-    `mask_bias` [B, S_q, S_kv] is added to the scaled scores."""
+    `mask_bias` [B, S_q, S_kv] is added to the scaled scores;
+    `rel_bias=(bias_h [B, H, Sq, G], bias_w [B, H, Sq, G], G)` adds
+    bias_h[q, k // G] + bias_w[q, k % G] for keys on a G x G grid."""
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if rel_bias is not None:
+        s = s + rel_bias_dense(*rel_bias)
     if kv_valid is not None:
         s[..., kv_valid:] = float("-inf")
     if mask_bias is not None:
@@ -113,4 +129,54 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
             kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.check("flash_attention_heads", status)
     kernels.launches["flash_heads"] += 1
+    return o
+
+
+def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
+                    scale: Optional[float] = None, rel_bias=None):
+    """Attention over [B, H, S, D] (kv may have S_kv != S_q); keys at or
+    past `kv_valid` are masked.
+
+    rel_bias=(bias_h [B, H, Sq, G], bias_w [B, H, Sq, G], G) adds SAM's
+    decomposed relative-position bias bias_h[q, k // G] + bias_w[q, k % G]
+    for keys on a G x G grid (S_kv == G * G); the kernel adds it inside the
+    tile, so the [Sq, S_kv] bias never exists on the card.
+
+    CPU tensors run `attention_ref`; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, kv_valid=kv_valid, scale=scale,
+                             rel_bias=rel_bias)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if k.shape != (b, h, skv, d) or v.shape != k.shape:
+        raise ValueError(f"q/k/v shapes disagree: {q.shape} {k.shape} {v.shape}")
+    if q.dtype not in kernels.DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: unsupported dtypes "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    scale = float(scale) if scale is not None else d ** -0.5
+    kv = skv if kv_valid is None else max(0, min(int(kv_valid), skv))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if rel_bias is not None:
+        bias_h, bias_w, grid = rel_bias
+        grid = int(grid)
+        if skv != grid * grid:
+            raise ValueError(f"rel_bias grid {grid} needs {grid * grid} keys, "
+                             f"got {skv}")
+        biases = tuple(t.to(torch.float32).contiguous() for t in (bias_h, bias_w))
+        if any(t.shape != (b, h, sq, grid) for t in biases):
+            raise ValueError(f"rel_bias parts must be [{b}, {h}, {sq}, {grid}]")
+    else:
+        grid, biases = 0, ()
+    kernels.require_cuda("flash_attention", q, k, v, *biases)
+    o = torch.empty_like(q)
+    bh_p = biases[0].data_ptr() if biases else None
+    bw_p = biases[1].data_ptr() if biases else None
+    with torch.cuda.device(q.device):   # launch on the tensors' card
+        status = kernels.lib().rv_flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p, o.data_ptr(),
+            b * h, sq, skv, d, grid, kv, scale, kernels.DTYPE_CODES[q.dtype],
+            kernels.stream_ptr(q.device))
+    kernels.check("flash_attention", status)
+    kernels.launches["flash_attn_relbias" if grid else "flash_attn"] += 1
     return o

@@ -113,3 +113,73 @@ def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
     assert torch.equal(i[~fin], torch.full_like(i[~fin], -1))
     if n_valid is None or n_valid > n // 2:
         assert i[0, :2].tolist() == [1, n // 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,skv,d,kv_valid", [
+    (2, 3, 37, 37, 16, None),         # ragged S, one partial tile
+    (1, 4, 200, 131, 6, 100),         # S_kv != S_q, head_dim % 4 != 0
+    (2, 16, 1297, 1297, 64, None),    # PE-L14 at 504 px
+    (1, 2, 130, 130, 80, 129),        # head_dim 80
+])
+def test_flash_attn_kernel(dev, dtype, b, h, sq, skv, d, kv_valid):
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import attention_ref, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(sq + d)
+    q = _randn(gen, b, h, sq, d, dtype=dtype)
+    k, v = (_randn(gen, b, h, skv, d, dtype=dtype) for _ in range(2))
+    n0 = kernels.launches["flash_attn"]
+    out = flash_attention(q, k, v, kv_valid=kv_valid)
+    assert kernels.launches["flash_attn"] == n0 + 1
+    ref = attention_ref(q, k, v, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,g,d,sq,kv_valid", [
+    (2, 3, 8, 16, 64, None),
+    (1, 2, 14, 32, 150, 190),         # Sq not a multiple of the tile, kv_valid < S
+    (1, 12, 64, 64, 4096, None),      # SAM ViT-B global layer
+])
+def test_flash_attn_relbias_kernel(dev, dtype, b, h, g, d, sq, kv_valid):
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import attention_ref, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(g * d)
+    q = _randn(gen, b, h, sq, d, dtype=dtype)
+    k, v = (_randn(gen, b, h, g * g, d, dtype=dtype) for _ in range(2))
+    bh, bw = (_randn(gen, b, h, sq, g, dtype=torch.float32, scale=0.5) for _ in range(2))
+    n0 = kernels.launches["flash_attn_relbias"]
+    out = flash_attention(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
+    assert kernels.launches["flash_attn_relbias"] == n0 + 1
+    ref = attention_ref(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
+    torch.cuda.synchronize()
+    assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,shapes,lq,h,d,p", [
+    (2, ((9, 13), (5, 7), (3, 4), (2, 2)), 11, 4, 8, 4),    # widths not multiples of 8
+    (1, ((100, 100), (50, 50), (25, 25), (13, 13)), 900, 8, 32, 4),   # DINO decoder
+])
+def test_ms_deform_kernel(dev, dtype, b, shapes, lq, h, d, p):
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.deformable import ms_deform_attn, ms_deform_attn_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(lq)
+    lv = sum(hl * wl for hl, wl in shapes)
+    value = _randn(gen, b, lv, h, d, dtype=dtype)
+    # points outside the map on every side
+    loc = torch.rand(b, lq, h, len(shapes), p, 2, generator=gen, device="cuda") * 1.6 - 0.3
+    w = torch.rand(b, lq, h, len(shapes), p, generator=gen, device="cuda")
+    w = w / w.sum(dim=(-2, -1), keepdim=True)
+    n0 = kernels.launches["ms_deform"]
+    out = ms_deform_attn(value, shapes, loc, w)
+    assert kernels.launches["ms_deform"] == n0 + 1
+    ref = ms_deform_attn_ref(value, shapes, loc, w)
+    torch.cuda.synchronize()
+    # fp32: sums in another order; bf16: one output ulp (both sum in fp32)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((out.float() - ref.float()).abs().max()) <= tol

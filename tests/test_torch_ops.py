@@ -12,11 +12,13 @@ import jax.numpy as jnp
 import torch
 
 from reverso_tpu.ops import attention as jattn
+from reverso_tpu.ops import deformable as jdeform
 from reverso_tpu.ops import fused_mlp as jmlp
 from reverso_tpu.ops import rope as jrope
 from reverso_tpu.ops import topk as jtopk
 from reverso_tpu_torch import kernels
 from reverso_tpu_torch.ops import attention as tattn
+from reverso_tpu_torch.ops import deformable as tdeform
 from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
 from reverso_tpu_torch.ops import norm as tnorm
 from reverso_tpu_torch.ops import rope as trope
@@ -74,6 +76,71 @@ def test_attention_ref_matches_jax():
         out = tattn.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
                                   torch.from_numpy(v), kv_valid=kv_valid).numpy()
         np.testing.assert_allclose(out, ref, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sq,skv,kv_valid", [(19, 19, None), (19, 19, 11), (23, 13, 9)])
+def test_flash_attention_matches_jax(sq, skv, kv_valid):
+    """K7's entry on CPU tensors (its plain version) against the JAX
+    whole-sequence Pallas kernel in interpret mode and attention_xla."""
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, 3, sq, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 3, skv, 16)).astype(np.float32) for _ in range(2))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref = np.asarray(jattn.flash_attention(jq, jk, jv, kv_valid=kv_valid, interpret=True))
+    xla = np.asarray(jattn.attention_xla(jq, jk, jv, kv_valid=kv_valid))
+    out = tattn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), kv_valid=kv_valid).numpy()
+    # fp32 on both sides; sums in another order
+    np.testing.assert_allclose(out, ref, atol=3e-5, rtol=1e-4)
+    np.testing.assert_allclose(out, xla, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sq,kv_valid", [(64, None), (40, 50)])
+def test_flash_attention_rel_bias_matches_jax(sq, kv_valid):
+    """K6's entry with SAM's decomposed rel-pos bias on CPU tensors against
+    the JAX tiled Pallas kernel in interpret mode; Sq = 40 is not a
+    multiple of the tile and kv_valid = 50 masks keys of the 8 x 8 grid."""
+    rng = np.random.default_rng(8)
+    b, h, g, d = 2, 3, 8, 16
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, g * g, d)).astype(np.float32) for _ in range(2))
+    bh, bw = ((rng.standard_normal((b, h, sq, g)) * 0.3).astype(np.float32)
+              for _ in range(2))
+    ref = np.asarray(jattn.flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), kv_valid=kv_valid,
+        rel_bias=(jnp.asarray(bh), jnp.asarray(bw), g), interpret=True))
+    t = [torch.from_numpy(a) for a in (q, k, v, bh, bw)]
+    out = tattn.flash_attention(*t[:3], kv_valid=kv_valid,
+                                rel_bias=(t[3], t[4], g)).numpy()
+    # fp32 on both sides; the TPU kernel adds the bias through a selector
+    # matmul at HIGHEST precision: sums in another order
+    np.testing.assert_allclose(out, ref, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ms_deform_attn_ref_matches_jax(seed):
+    """K8's entry on CPU tensors (its plain version) against the JAX
+    patch-gather reference and the Pallas hat-matrix kernel in interpret
+    mode: four levels with widths that are not multiples of 8, sampling
+    points outside the map on every side."""
+    rng = np.random.default_rng(seed)
+    shapes = ((9, 13), (5, 7), (3, 4), (2, 2))
+    lv = sum(hl * wl for hl, wl in shapes)
+    value = rng.standard_normal((2, lv, 4, 8)).astype(np.float32)
+    locs = rng.uniform(-0.3, 1.3, (2, 11, 4, 4, 4, 2)).astype(np.float32)
+    w = rng.uniform(0, 1, (2, 11, 4, 4, 4)).astype(np.float32)
+    w /= w.sum(axis=(-2, -1), keepdims=True)
+    jv, jl, jw = jnp.asarray(value), jnp.asarray(locs), jnp.asarray(w)
+    patch = np.asarray(jdeform.ms_deform_attn(jv, shapes, jl, jw, impl="patch"))
+    pallas = np.asarray(jdeform.ms_deform_attn_pallas(jv, shapes, jl, jw, q_tile=8,
+                                                      interpret=True))
+    out = tdeform.ms_deform_attn(torch.from_numpy(value), shapes,
+                                 torch.from_numpy(locs), torch.from_numpy(w)).numpy()
+    assert out.shape == (2, 11, 32)
+    # fp32 on both sides: the same gathers (patch), or dense hat products
+    # in another order (Pallas)
+    np.testing.assert_allclose(out, patch, atol=1e-6)
+    np.testing.assert_allclose(out, pallas, atol=2e-6)
 
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])

@@ -1,6 +1,7 @@
 """Packaging contracts of the PyTorch port (`reverso_tpu_torch`).
 
-* it imports and runs the direct-embed build + search with `jax` blocked;
+* it imports and runs the direct-embed and region builds + search with
+  `jax` blocked;
 * its host modules are byte-identical copies of the JAX package's;
 * no device fallback: asking for CUDA without a card raises, and a kernel
   wrapper given a tensor that is neither on the CPU nor on a CUDA card
@@ -20,8 +21,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "reverso_tpu_torch")
 HOST_COPIES = ("config.py", "utils/logging.py", "store/persist.py",
-               "detect/regions.py", "viz.py", "ingest/images.py",
-               "ingest/pipeline.py")
+               "detect/regions.py", "detect/wordpiece.py", "viz.py",
+               "ingest/images.py", "ingest/pipeline.py")
 
 
 def _run(code: str, cwd: str, timeout: int = 120):
@@ -49,13 +50,38 @@ def test_port_runs_with_jax_blocked(tmp_path):
                 os.path.join(folder, f"{{j}}.png"))
         cfg = default_config().replace(model=MODEL_PRESETS["test-tiny"],
                                        store=StoreConfig(root_dir=os.path.join(root, "db")))
-        sr = SimpleReverso(cfg, encoder=PerceptionEncoder(cfg.model, device="cpu"))
+        sr = SimpleReverso(cfg, encoder=PerceptionEncoder(cfg.model, device="cpu"),
+                           device="cpu")
         text = sr.create_database(folder, "demo", use_direct_pe=True)
         assert "ready for searching" in text, text
         print(sr.load_database("demo"))
         sr.process_image_direct_pe(Image.open(os.path.join(folder, "3.png")))
         text, items = sr.search_similar(0.0, 3)
         assert items[0]["filename"] == "3.png", text
+
+        # the region path: a seeded tiny GroundingDINO + SAM
+        from reverso_tpu_torch.config import DetectorConfig
+        from reverso_tpu_torch.detect.grounded import GroundedSamDetector
+        from reverso_tpu_torch.detect.wordpiece import WordPieceTokenizer
+        from reverso_tpu_torch.models.groundingdino import tiny_test_config
+        from reverso_tpu_torch.models.sam import tiny_sam_config
+        import reverso_tpu_torch.models.swin, reverso_tpu_torch.models.text
+        import reverso_tpu_torch.ops.deformable
+        vocab = os.path.join(root, "vocab.txt")
+        open(vocab, "w").write(chr(10).join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", ".", "person", "car"]))
+        det = GroundedSamDetector(
+            tokenizer=WordPieceTokenizer(vocab), seed=1, device="cpu",
+            cfg=DetectorConfig(box_threshold=0.0, text_threshold=0.0, max_regions=2),
+            dino_cfg=tiny_test_config(), sam_cfg=tiny_sam_config(), dino_size=64,
+            text_len=8)
+        sr = SimpleReverso(cfg, encoder=PerceptionEncoder(cfg.model, device="cpu"),
+                           detector=det, device="cpu")
+        text = sr.create_database(folder, "regions", text_prompt="person . car")
+        assert "ready for searching" in text, text
+        assert sr.detect_regions(Image.open(os.path.join(folder, "3.png"))) > 0
+        sr.extract_embeddings(Image.open(os.path.join(folder, "3.png")))
+        text, items = sr.search_similar(-1.0, 3)
+        assert items and items[0]["filename"] == "3.png", text
         assert not [m for m in sys.modules if m.split(".")[0] == "reverso_tpu"]
         print("OK", len(items))
     """, cwd=str(tmp_path))
@@ -92,7 +118,9 @@ def test_cuda_without_a_card_raises():
 
 
 def test_wrappers_never_fall_back_for_device_tensors():
-    from reverso_tpu_torch.ops import cosine_topk, flash_attention_heads, fused_mlp
+    from reverso_tpu_torch.ops import (cosine_topk, flash_attention,
+                                       flash_attention_heads, fused_mlp,
+                                       ms_deform_attn)
 
     m = lambda *shape: torch.empty(*shape, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -101,6 +129,14 @@ def test_wrappers_never_fall_back_for_device_tensors():
         fused_mlp(m(3, 8), m(16, 8), m(16), m(8, 16), m(8))
     with pytest.raises(ValueError, match="CUDA"):
         cosine_topk(m(10, 8), m(2, 8), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(m(1, 2, 5, 8), m(1, 2, 5, 8), m(1, 2, 5, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(m(1, 2, 4, 8), m(1, 2, 4, 8), m(1, 2, 4, 8),
+                        rel_bias=(m(1, 2, 4, 2), m(1, 2, 4, 2), 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        ms_deform_attn(m(1, 5, 2, 4), ((1, 2), (1, 3)), m(1, 3, 2, 2, 1, 2),
+                       m(1, 3, 2, 2, 1))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -52,7 +52,8 @@ def built(tmp_path_factory):
     params = jax.tree_util.tree_map(np.asarray, jenc.params)
     jax_eng = JaxReverso(_config(root, "jax_db"), encoder=jenc)
     port = SimpleReverso(_config(root, "port_db"),
-                         encoder=PerceptionEncoder(CFG, params=params, device="cpu"))
+                         encoder=PerceptionEncoder(CFG, params=params, device="cpu"),
+                         device="cpu")
     jt = jax_eng.create_database(folder, "slice", use_direct_pe=True)
     pt = port.create_database(folder, "slice", use_direct_pe=True)
     assert "ready for searching" in jt and "ready for searching" in pt
@@ -113,7 +114,8 @@ def test_each_package_opens_the_others_store(built):
         assert [p["filename"] for p in po] == [f"im_{j:02d}.png" for j in range(12)]
     # the port's engine searches the JAX-built store
     eng = Reverso(_config(root, "jax_db"),
-                  encoder=PerceptionEncoder(CFG, params=built["params"], device="cpu"))
+                  encoder=PerceptionEncoder(CFG, params=built["params"], device="cpu"),
+                  device="cpu")
     assert eng.load_database("slice") == "✅ Loaded database: slice"
     q = np.asarray(JaxStore.open(os.path.join(root, "jax_db"), "slice").vectors())[4]
     s, i = eng.search_batch(q, 3)
@@ -122,15 +124,16 @@ def test_each_package_opens_the_others_store(built):
 
 def test_port_engine_surface(built, tmp_path):
     eng = Reverso(_config(str(tmp_path), "db"),
-                  encoder=PerceptionEncoder(CFG, params=built["params"], device="cpu"))
+                  encoder=PerceptionEncoder(CFG, params=built["params"], device="cpu"),
+                  device="cpu")
     assert eng.list_databases() == []
     assert eng.load_database("nope") == "❌ Database not found: nope"
     text, items = eng.search_similar(0.5, 5, embeddings=None)
     assert text.startswith("❌ No query embeddings") and items == []
     with pytest.raises(RuntimeError, match="no detector configured"):
         eng.detect_regions(np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(RuntimeError, match="no detector configured"):
-        eng.extract_embeddings(np.zeros((8, 8, 3), np.uint8))
+    # nothing detected yet: no region embeddings (the JAX engine's answer)
+    assert eng.extract_embeddings(np.zeros((8, 8, 3), np.uint8)) == ([], [])
     eng.create_database(built["folder"], "copy", use_direct_pe=True)
     assert eng.list_databases() == ["copy"]
     with pytest.raises(NotImplementedError):

@@ -140,10 +140,22 @@ def test_region_masks_not_ported():
         enc.module(torch.zeros(1, 32, 32, 3), region_masks=torch.ones(1, 1, 16))
 
 
-def test_long_sequences_not_ported():
-    """Past the heads-in-lanes kernel's S <= 1032 the JAX package takes
-    the full-sequence flash kernel, which is not ported yet."""
-    from reverso_tpu_torch.models.vit import MHA
-
-    with pytest.raises(NotImplementedError, match="S=1033"):
-        MHA(TINY)(torch.zeros(1, 1033, TINY.width))
+@pytest.mark.parametrize("family,image_size,width", [
+    ("pe", 264, 64),     # S = 33 * 33 + 1 = 1090 > 1032, RoPE
+    ("clip", 32, 72),    # head_dim 18: not a multiple of 4
+])
+def test_long_sequences_not_ported(family, image_size, width):
+    """Past the heads-in-lanes kernel's envelope (S > 1032 or head_dim % 4
+    != 0) attention takes the [B, H, S, D] flash kernel, as the JAX
+    package's dispatch does; on the CPU its plain version. The tower
+    agrees with the JAX tower's plain (`use_flash=False`) path."""
+    cfg = dataclasses.replace(FAMILIES[family], dtype="float32",
+                              image_size=image_size, width=width)
+    imgs = np.random.default_rng(4).standard_normal(
+        (2, image_size, image_size, 3)).astype(np.float32)
+    jenc = JaxEncoder(cfg, family=family, seed=2, use_flash=False)
+    ref = np.asarray(jenc.encode_image(imgs))
+    out = PerceptionEncoder(cfg, family=family, params=_jax_params(jenc),
+                            device="cpu").encode_image(imgs)
+    # fp32 both sides: normalized embeddings agree to summation order
+    assert np.abs(out - ref).max() <= 1e-5
