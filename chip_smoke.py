@@ -14,7 +14,9 @@ of which catches a failure:
      working dtype: max abs error against a stated tolerance, CUDA-event
      times of the kernel, its plain version and (where one PyTorch call
      computes the same function) that call, and the least time the card
-     could take (`bound_ms`);
+     could take (`bound_ms`); the capacity kernels at 1,000,000 x 1024
+     (masked bf16, int8 with ids and scores equal bit for bit, packed
+     binary) and the IVF probed scan at 1024 clusters, nprobe 16;
   4. depth-reduced full-width towers on the card (kernels) against the
      same weights on the CPU (plain versions), fp32: PE-Core-L14-336 at
      depth 2; GroundingDINO-tiny with 1 encoder and 1 decoder layer at
@@ -30,7 +32,14 @@ of which catches a failure:
      GroundingDINO-tiny + SAM ViT-B detector (fp32) builds a database from
      32 synthetic 640x480 / 480x640 images with `create_database(...,
      use_direct_pe=False)`, then answers `detect_regions` +
-     `extract_embeddings` + `search_similar` queries.
+     `extract_embeddings` + `search_similar` queries;
+  7. the capacity indexes and filtered search through `Reverso` on a
+     1,000,000 x 1024 store of clustered rows with payloads: payload
+     filters and `count` (bf16), vectors deleted with
+     `VectorStore.delete_vector_rows`, int8, binary + rescore, IVF at the
+     defaults (built, cached, reloaded) and IVF int8 with spill and
+     balance, each held against the exact plain search of its subset;
+     recall@10 against exact fp32 for the approximate ones.
 
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). The line before the last is the card's
@@ -53,7 +62,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -99,8 +108,8 @@ def topk_agree(ref_s, ref_i, s, i, tol: float) -> None:
     check(np.array_equal(fin, np.isfinite(s)), "top-k: -inf slots differ")
     check(np.array_equal(np.where(fin, 0, ref_i), np.where(fin, 0, i)),
           "top-k: empty slots must hold idx -1")
-    check(np.abs(np.where(fin, ref_s - s, 0)).max() <= tol,
-          f"top-k scores differ by {np.abs(np.where(fin, ref_s - s, 0)).max()}")
+    diff = np.abs(np.where(fin, ref_s, 0) - np.where(fin, s, 0)).max()
+    check(diff <= tol, f"top-k scores differ by {diff}")
     r = np.where(fin, ref_s, -1e9)
     pad = np.full((r.shape[0], 1), np.inf)
     gap_up = np.concatenate([pad, -np.diff(r, axis=1)], axis=1)
@@ -773,6 +782,383 @@ def region_run(root: str) -> dict:
     return launches
 
 
+def ivf_layout(torch, gen, n: int, n_cl: int, q: int, nprobe: int):
+    """A random compact IVF layout of n rows in n_cl clusters and, per
+    query, nprobe distinct probed clusters: (offsets, counts, base, cnt)."""
+    counts = torch.bincount(torch.randint(0, n_cl, (n,), generator=gen, device="cuda"),
+                            minlength=n_cl)
+    offsets = torch.cumsum(counts, 0) - counts
+    probes = torch.stack([torch.randperm(n_cl, generator=gen, device="cuda")[:nprobe]
+                          for _ in range(q)])
+    return offsets, counts, offsets[probes].int().contiguous(), counts[probes].int().contiguous()
+
+
+def ivf_bound(torch, base, cnt, d: int, itemsize: int, digits: int, dtype: str):
+    """K11's bound from this run's probes: the rows of the distinct probed
+    clusters read once, 2 * d operations per probed row (per digit)."""
+    pairs = torch.stack([base.reshape(-1), cnt.reshape(-1)], 1).unique(dim=0)
+    nbytes = float(pairs[:, 1].sum()) * d * itemsize + base.shape[0] * d * 2
+    ops = 2.0 * digits * float(cnt.sum()) * d
+    return bound(nbytes, ops, dtype) + (nbytes, ops)
+
+
+def capacity_kernel_checks(torch, gen) -> dict:
+    """K2, K9, K10 at 1M x 1024 (Q = 256) and K11 at 1024 clusters, nprobe
+    16, Q = 1 and 64, bf16 and int8, against their plain versions on the
+    card, plus small ragged cases."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.binary import binary_topk, binary_topk_ref, pack_signs
+    from reverso_tpu_torch.ops.ivf_scan import ivf_probe_scan, ivf_probe_scan_ref
+    from reverso_tpu_torch.ops.topk import (cosine_topk, cosine_topk_int8_exact,
+                                            cosine_topk_int8_ref, cosine_topk_ref,
+                                            int8_query_digits, quantize_db_int8)
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rows = {}
+    n, d, q, k = 1_000_000, 1024, 256, 10
+    x = torch.randn(n, d, generator=gen, device=dev)
+    x /= x.norm(dim=1, keepdim=True)
+    x[777_777] = x[3]                                       # a tie: lower row first
+    qf = x[torch.arange(q, device=dev) * 3001].clone()
+    qf += 0.05 * torch.randn(qf.shape, generator=gen, device=dev)
+    qf /= qf.norm(dim=1, keepdim=True)
+    qf[0] = x[3]
+    mask = torch.rand(n, generator=gen, device=dev) >= 0.3  # 30% of the rows masked
+    mask[3] = mask[777_777] = True
+
+    # K2: masked bf16 scan
+    db, qs = x.to(bf16), qf.to(bf16)
+    tol = 1e-4   # fp32 sums of exact bf16 products, in another order
+    s, i = cosine_topk(db, qs, k, row_mask=mask)
+    rs, ri = cosine_topk_ref(db, qs, k, row_mask=mask)
+    topk_agree(rs, ri, s, i, tol)
+    check(bool(mask[i.long()].all()), "K2 returned a masked row")
+    check(i[0, :2].tolist() == [3, 777_777], f"K2 tie order {i[0, :2].tolist()}")
+    err = float((s - rs).abs().max())
+    small = db[:1000].clone()
+    none = torch.zeros(1000, dtype=torch.bool, device=dev)
+    s2, i2 = cosine_topk(small, qs[:5], 20, row_mask=none)
+    check(bool((i2 == -1).all()) and bool(torch.isneginf(s2).all()),
+          "K2: every row masked must give (-inf, -1)")
+    some = none.clone()
+    some[[3, 500, 999]] = True
+    s2, i2 = cosine_topk(small, qs[:5], 20, n_valid=999, row_mask=some)
+    r2s, r2i = cosine_topk_ref(small, qs[:5], 20, n_valid=999, row_mask=some)
+    topk_agree(r2s, r2i, s2, i2, tol)
+    check(bool((i2[:, 2:] == -1).all()), "K2: k > kept rows must pad with -1")
+    rows["topk_masked"] = dict(
+        source="reverso_tpu_torch/csrc/topk_stream.cu",
+        replaces="reverso_tpu/ops/topk.py:458",
+        max_abs_err=err, shape="N=1,000,000 d=1024 Q=256 k=10 bf16, 30% of rows masked",
+        ms=cuda_ms(lambda: cosine_topk(db, qs, k, row_mask=mask)),
+        plain_ms=cuda_ms(lambda: cosine_topk_ref(db, qs, k, row_mask=mask), iters=3),
+        library="none: no single PyTorch call (a matmul, a masked fill and a topk)",
+        library_ms=None)
+    rows["topk_masked"]["bound_ms"], rows["topk_masked"]["bound_by"] = bound(
+        n * d * 2 + n + q * d * 2 + q * k * 8, 2 * q * n * d, "bfloat16")
+    print(f"topk_masked: max abs score err {err} (tol {tol})", flush=True)
+    del db
+
+    # K9: int8 rows, ids and scores equal to the plain version's bit for bit
+    v8, scale = quantize_db_int8(x)
+    for m in (None, mask):
+        s, i = cosine_topk_int8_exact(v8, scale, qf, k, row_mask=m)
+        rs, ri = cosine_topk_int8_ref(v8, scale, qf, k, row_mask=m)
+        torch.cuda.synchronize()
+        check(torch.equal(i, ri) and torch.equal(s, rs),
+              f"K9 (mask {m is not None}) differs from its plain version: ids "
+              f"{int((i != ri).sum())}, max score diff {float((s - rs).abs().max())}")
+    check(i[0, :2].tolist() == [3, 777_777], f"K9 tie order {i[0, :2].tolist()}")
+    s2, i2 = cosine_topk_int8_exact(v8[:1001], scale, qf[:70], 40, n_valid=30)
+    r2s, r2i = cosine_topk_int8_ref(v8[:1001], scale, qf[:70], 40, n_valid=30)
+    check(torch.equal(i2, r2i) and torch.equal(s2, r2s), "K9 ragged case differs")
+    rows["topk_int8"] = dict(
+        source="reverso_tpu_torch/csrc/topk_stream.cu",
+        replaces="reverso_tpu/ops/topk.py:420",
+        max_abs_err=0.0, shape="N=1,000,000 d=1024 Q=256 k=10 int8 (two query digits)",
+        ms=cuda_ms(lambda: cosine_topk_int8_exact(v8, scale, qf, k)),
+        plain_ms=cuda_ms(lambda: cosine_topk_int8_ref(v8, scale, qf, k), iters=3),
+        library="none: no single PyTorch call (int8 products need two matmuls)",
+        library_ms=None)
+    rows["topk_int8"]["bound_ms"], rows["topk_int8"]["bound_by"] = bound(
+        n * d + 2 * q * d + q * k * 8, 2 * 2 * q * n * d, "int8")
+    print("topk_int8: ids and scores equal the plain version's bit for bit", flush=True)
+    del v8
+
+    # K10: packed signs (128 MB), k_fetch = 30
+    center = x.mean(0)
+    packed = torch.cat([pack_signs(x[lo:lo + 65536] - center) for lo in range(0, n, 65536)])
+    kf = 30
+    btol = 2e-4   # fp32 sums of 1024 exact +-bf16(q_i) terms in another order
+    s, i = binary_topk(packed, qf, kf, d, row_mask=mask)
+    rs, ri = binary_topk_ref(packed, qf, kf, d, row_mask=mask)
+    topk_agree(rs, ri, s, i, btol)
+    s, i = binary_topk(packed, qf, kf, d)
+    rs, ri = binary_topk_ref(packed, qf, kf, d)
+    topk_agree(rs, ri, s, i, btol)
+    err = float((s - rs).abs().max())
+    s2, i2 = binary_topk(packed[:1000], qf[:3], 20, d, row_mask=none)
+    check(bool((i2 == -1).all()), "K10: every row masked must give -1")
+    rows["topk_binary"] = dict(
+        source="reverso_tpu_torch/csrc/topk_stream.cu",
+        replaces="reverso_tpu/ops/topk.py:399",
+        max_abs_err=err, shape="N=1,000,000 x 128 B packed (d=1024) Q=256 k=30",
+        ms=cuda_ms(lambda: binary_topk(packed, qf, kf, d)),
+        plain_ms=cuda_ms(lambda: binary_topk_ref(packed, qf, kf, d), iters=2),
+        library="none: no single PyTorch call (unpack, a matmul and a topk)",
+        library_ms=None)
+    rows["topk_binary"]["bound_ms"], rows["topk_binary"]["bound_by"] = bound(
+        n * d // 8 + q * d * 2 + q * kf * 8, 2 * q * n * d, "bfloat16")
+    print(f"topk_binary: max abs score err {err} (tol {btol})", flush=True)
+    del packed
+
+    # K11: 1024 clusters, nprobe 16; a row duplicated into a second cluster
+    # (a spill copy) and an empty cluster probed
+    n_cl, nprobe = 1024, 16
+    offsets, counts, base, cnt = ivf_layout(torch, gen, n, n_cl, 64, nprobe)
+    sorted_bf16 = x.to(bf16)
+    v8, scale = quantize_db_int8(x)
+    ivf = {}
+    for qn in (1, 64):
+        qq = qf[:qn]
+        q_hi, q_lo, c2 = int8_query_digits(qq)
+        qdig, rsc = torch.stack([q_hi, q_lo]), c2 * scale
+        for mode, args in (("bf16", (sorted_bf16, qq.to(bf16), None, None)),
+                           ("int8", (v8, qq, qdig, rsc))):
+            kw = dict(k=k, cmax=int(counts.max()), int8=mode == "int8")
+            fn = lambda a=args, b=base[:qn], c=cnt[:qn]: ivf_probe_scan(*a, b, c, **kw)
+            s, pos = fn()
+            rs, rpos = ivf_probe_scan_ref(*args, base[:qn], cnt[:qn], **kw)
+            if mode == "int8":
+                check(torch.equal(pos, rpos) and torch.equal(s, rs),
+                      f"K11 int8 Q={qn} differs from its plain version")
+            else:
+                topk_agree(rs, rpos, s, pos, tol)
+            b_ms, b_by, nbytes, ops = ivf_bound(
+                torch, base[:qn], cnt[:qn], d, 1 if mode == "int8" else 2,
+                2 if mode == "int8" else 1, "int8" if mode == "int8" else "bfloat16")
+            ivf[(mode, qn)] = dict(
+                ms=cuda_ms(fn, iters=10), err=float((s - rs).abs().max()),
+                plain_ms=cuda_ms(lambda a=args, b=base[:qn], c=cnt[:qn]:
+                                 ivf_probe_scan_ref(*a, b, c, **kw), iters=2),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
+            print(f"ivf_scan {mode} Q={qn}: {json.dumps(ivf[(mode, qn)])}", flush=True)
+    # masked, an empty cluster and a spill duplicate, small
+    lay = torch.tensor([0, 1, 37, 300, 5, 64], device=dev)
+    offs = torch.cumsum(lay, 0) - lay
+    mat = x[:int(lay.sum())].to(bf16).clone()
+    mat[int(offs[4])] = mat[int(offs[3]) + 7]                  # spill copy
+    b2 = offs[torch.tensor([[0, 3, 4, 1], [2, 5, 3, 4]], device=dev)].int()
+    c2_ = lay[torch.tensor([[0, 3, 4, 1], [2, 5, 3, 4]], device=dev)].int()
+    msk = torch.rand(mat.shape[0], generator=gen, device=dev) < 0.8
+    q2 = torch.stack([mat[int(offs[3]) + 7], mat[0]]).contiguous()
+    kw = dict(k=20, cmax=300, int8=False, mask_sorted=msk)
+    s2, p2 = ivf_probe_scan(mat, q2, None, None, b2, c2_, **kw)
+    r2s, r2p = ivf_probe_scan_ref(mat, q2, None, None, b2, c2_, **kw)
+    topk_agree(r2s, r2p, s2, p2, tol)
+    main = ivf[("bf16", 64)]
+    rows["ivf_scan"] = dict(
+        source="reverso_tpu_torch/csrc/ivf_scan.cu",
+        replaces="reverso_tpu/ops/ivf_scan.py:70",
+        max_abs_err=max(v["err"] for v in ivf.values()),
+        shape="1M x 1024 in 1024 clusters, nprobe 16, Q=64, k=10, bf16 "
+              f"(Q=1 bf16 {ivf[('bf16', 1)]['ms']:.4f} ms, Q=64 int8 "
+              f"{ivf[('int8', 64)]['ms']:.4f} ms, Q=1 int8 {ivf[('int8', 1)]['ms']:.4f} ms)",
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        library="none: no single PyTorch call (a gather, a batched matmul and a topk)",
+        library_ms=None)
+    del x, sorted_bf16, v8
+    return rows
+
+
+def capacity_data(n: int, d: int, seed: int):
+    """Chunks of `n` clustered unit rows (4,096 centers plus noise) from a
+    numpy seed, with their payloads."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((4096, d), dtype=np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    for lo in range(0, n, 65536):
+        m = min(65536, n - lo)
+        x = centers[rng.integers(0, 4096, m)]
+        x += rng.standard_normal((m, d), dtype=np.float32) * np.float32(0.6 / np.sqrt(d))
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        conf = rng.random(m)
+        yield x, [{"folder": (lo + j) % 10, "confidence": float(conf[j])}
+                  for j in range(m)]
+
+
+def capacity_run(root: str) -> dict:
+    """The capacity indexes and filtered search through `Reverso` on the
+    card, on a 1,000,000 x 1024 store: (a) bf16 exact with payload filters
+    and count; (b) deleted vectors; (c) int8; (d) binary + rescore; (e) IVF
+    at the defaults, built, cached and reloaded; (f) IVF int8 with spill
+    and balance."""
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import SearchConfig, StoreConfig, default_config
+    from reverso_tpu_torch.engine import Reverso
+    from reverso_tpu_torch.ops.topk import cosine_topk_int8_ref, cosine_topk_ref
+    from reverso_tpu_torch.store import VectorStore
+
+    n, d, k = 1_000_000, 1024, 10
+    t0 = time.perf_counter()
+    with VectorStore.create(root, "capacity", d) as store:
+        for x, pays in capacity_data(n, d, seed=3):
+            store.append(x, pays)
+    store_s = time.perf_counter() - t0
+    vecs = np.asarray(VectorStore.open(root, "capacity").vectors())
+    qsel = np.arange(64) * 15_601
+    rng = np.random.default_rng(4)
+    queries = vecs[qsel] + rng.standard_normal((64, d), dtype=np.float32) * np.float32(0.02)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    print(f"capacity store: {n} x {d} in {store_s:.1f} s", flush=True)
+
+    def engine(dtype="bfloat16", **search):
+        cfg = default_config().replace(
+            store=StoreConfig(root_dir=root, dtype=dtype),
+            search=dataclasses.replace(SearchConfig(), **search))
+        eng = Reverso(cfg, device="cuda")
+        check("Loaded" in eng.load_database("capacity"), "load_database failed")
+        return eng
+
+    def timed_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            lat.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(lat))
+
+    q_dev = torch.from_numpy(queries).cuda()
+    out = {"store_s": store_s}
+    kernels.reset_counts()
+    # (a) bf16 exact, filtered; the gate: the exact plain scan of the subset
+    eng = engine()
+    folder3 = np.arange(n) % 10 == 3
+    index = eng._get_index()
+    for filt in ({"folder": 3}, "confidence>=0.5"):
+        mask = eng._filter_mask(filt)
+        s, i = eng.search_batch(queries, k, filter=filt)
+        rs, ri = cosine_topk_ref(index.matrix, q_dev, k, row_mask=torch.from_numpy(mask).cuda())
+        topk_agree(rs, ri, torch.from_numpy(s), torch.from_numpy(i), 1e-4)
+        check(bool(mask[i[i >= 0]].all()), f"filter {filt} let a row through")
+    check(eng.count(filter={"folder": 3}) == int(folder3.sum()), "count(folder=3)")
+    text, items = eng.search_similar(0.0, 5, embeddings=queries, query_index=3,
+                                     filter={"folder": 3})
+    check(len(items) == 5 and all(it["payload"]["folder"] == 3 for it in items),
+          f"search_similar(filter=) gave {text}")
+    out["filtered_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k,
+                                                                    filter={"folder": 3}))
+    print(f"(a) filtered bf16: count(folder=3) {eng.count(filter={'folder': 3})}, "
+          f"count(confidence>=0.5) {eng.count(filter='confidence>=0.5')}", flush=True)
+    del eng, index
+
+    # (b) 1% of the rows deleted with VectorStore.delete_vector_rows
+    gone = np.random.default_rng(5).choice(n, n // 100, replace=False)
+    gone = np.union1d(gone, qsel[:8])                      # some queries' own rows
+    with VectorStore.open(root, "capacity", writable=True) as w:
+        w.delete_vector_rows(gone.tolist())
+    presence = np.ones(n, bool)
+    presence[gone] = False
+    pres_dev = torch.from_numpy(presence).cuda()
+    eng = engine()
+    s, i = eng.search_batch(queries, k)
+    rs, ri = cosine_topk_ref(eng._get_index()._ix.matrix, q_dev, k, row_mask=pres_dev)
+    topk_agree(rs, ri, torch.from_numpy(s), torch.from_numpy(i), 1e-4)
+    check(bool(presence[i[i >= 0]].all()), "a deleted vector came back")
+    bf16_matrix = eng._get_index()._ix.matrix
+    out["deleted_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+    del eng
+
+    # exact fp32 top-10 of the remaining rows: the recall reference
+    f32 = torch.empty((n, d), device="cuda")
+    for lo in range(0, n, 65536):
+        f32[lo:lo + 65536] = torch.from_numpy(np.array(vecs[lo:lo + 65536]))
+    _, exact_i = cosine_topk_ref(f32, q_dev, k, row_mask=pres_dev)
+    exact_i = exact_i.cpu().numpy()
+    del f32
+
+    def recall(ids):
+        return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids, exact_i)]))
+
+    # (c) int8, with and without a filter: ids equal the plain K9's
+    eng = engine("int8")
+    ix = eng._get_index()._ix
+    for filt in (None, {"folder": 3}):
+        mask = presence if filt is None else presence & eng._filter_mask(filt)
+        s, i = eng.search_batch(queries, k, filter=filt)
+        rs, ri = cosine_topk_int8_ref(ix.matrix, ix.scale, q_dev, k,
+                                      row_mask=torch.from_numpy(mask).cuda())
+        check(np.array_equal(i, ri.cpu().numpy()) and np.array_equal(s, rs.cpu().numpy()),
+              f"int8 engine (filter {filt}) differs from the plain K9")
+    out["int8_recall10"] = recall(eng.search_batch(queries, k)[1])
+    out["int8_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+    del eng, ix
+
+    # (d) binary + rescore (oversampling 3)
+    eng = engine("binary")
+    s, i = eng.search_batch(queries, k)
+    check(bool(presence[i[i >= 0]].all()), "binary: a deleted vector came back")
+    out["binary_rescore_recall10"] = recall(i)
+    out["binary_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+    del eng
+
+    # (e) IVF at the defaults: build + cache, then reload from the cache
+    ivf_cfg = dict(index="ivf")
+    t0 = time.perf_counter()
+    eng = engine(**ivf_cfg)
+    eng._get_index()
+    out["ivf_build_s"] = time.perf_counter() - t0
+    s, i = eng.search_batch(queries, k)
+    out["ivf_recall10_nprobe16"] = recall(i)
+    out["ivf_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+    out["ivf_search1_ms"] = timed_ms(lambda: eng.search_batch(queries[:1], k))
+    ivf = eng._get_index()._ix._ivf
+    check(ivf.n_clusters == 1024, f"IVF clusters {ivf.n_clusters}")
+    s_all, i_all = ivf.search(queries, k, nprobe=ivf.n_clusters, row_mask=presence)
+    rs, ri = cosine_topk_ref(bf16_matrix, q_dev, k, row_mask=pres_dev)
+    topk_agree(rs, ri, s_all, i_all, 1e-4)
+    cache = [f for f in os.listdir(os.path.join(root, "capacity", "index"))
+             if f.startswith("ivf_c1024_")]
+    check(len(cache) == 1, f"IVF cache files {cache}")
+    del eng, ivf
+    t0 = time.perf_counter()
+    eng = engine(**ivf_cfg)
+    eng._get_index()
+    out["ivf_reload_s"] = time.perf_counter() - t0
+    check(np.array_equal(eng.search_batch(queries, k)[1], i), "reloaded IVF ids differ")
+    del eng
+
+    # (f) IVF int8 with spill 0.1 and balance 2.0, filtered too
+    t0 = time.perf_counter()
+    eng = engine("int8", index="ivf", ivf_spill=0.1, ivf_balance=2.0)
+    ivf = eng._get_index()._ix._ivf
+    out["ivf_int8_build_s"] = time.perf_counter() - t0
+    s, i = eng.search_batch(queries, k)
+    for row in i:
+        real = row[row >= 0]
+        check(len(set(real.tolist())) == len(real), "spill dedup returned an id twice")
+    out["ivf_int8_spill_recall10_nprobe16"] = recall(i)
+    s, i = eng.search_batch(queries, k, filter={"folder": 3})
+    check(bool((i[i >= 0] % 10 == 3).all()), "filtered IVF let a row through")
+    out["ivf_int8_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+    out["ivf_int8"] = dict(n_clusters=ivf.n_clusters, n_spill=ivf.n_spill, cmax=ivf.cmax)
+    del eng, ivf
+    launches = dict(kernels.launches)
+    print(f"launches on the capacity path: {launches}; plain dispatches "
+          f"{kernels.plain_dispatches}", flush=True)
+    for name in ("topk_masked", "topk_int8", "topk_binary", "ivf_scan"):
+        check(launches[name] > 0, f"kernel {name} never launched on the capacity path")
+    check(all(v == 0 for v in kernels.plain_dispatches.values()),
+          "a capacity search took a plain shape rule")
+    print(f"capacity slice: {json.dumps(out)}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -808,6 +1194,8 @@ def main() -> int:
     rows = phase("kernels (PR 1)", kernel_checks, torch, gen)
     rows.update(phase("kernels (region, long ViT)", region_kernel_checks, torch, gen))
     torch.cuda.empty_cache()
+    rows.update(phase("kernels (capacity)", capacity_kernel_checks, torch, gen))
+    torch.cuda.empty_cache()
     phase("tower parity", tower_check)
     long_launches = phase("vit 504 parity", vit_long_check)
     with tempfile.TemporaryDirectory() as root:
@@ -815,11 +1203,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         direct_launches = phase("direct-embed slice", slice_run, root)
         region_launches = phase("region slice", region_run, root)
+        torch.cuda.empty_cache()
+        capacity_launches = phase("capacity slice", capacity_run, root)
 
     # each kernel's launches on its own path
     path_of = {"flash_heads": direct_launches, "fused_mlp": direct_launches,
                "topk_stream": direct_launches, "flash_attn": long_launches,
-               "flash_attn_relbias": region_launches, "ms_deform": region_launches}
+               "flash_attn_relbias": region_launches, "ms_deform": region_launches,
+               "topk_masked": capacity_launches, "topk_int8": capacity_launches,
+               "topk_binary": capacity_launches, "ivf_scan": capacity_launches}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -6,6 +6,8 @@
 // fp32 intermediate to the activation dtype before the next product.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -15,6 +17,8 @@ namespace rv {
 // dtype codes shared with kernels.py
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;          // int8 rows, two int8 query digits
+constexpr int kBinaryPacked = 3;  // sign bits, planar-packed uint8 rows
 
 // launcher status for a shape the kernel was not instantiated for
 constexpr int kUnsupported = -1;

@@ -6,14 +6,17 @@ Database management, `create_database` through the shared ingest
 pipeline, `process_image_direct_pe`, `detect_regions`,
 `extract_embeddings` (compat mode: each region carries its image's
 global embedding, as the reference does), `search_similar` and
-`search_batch` carry the JAX package's method bodies and status strings;
-the models run in PyTorch and the search through the CUDA top-k kernel.
+`search_batch` (with payload `filter=`), `count` and the index routing of
+`_get_index` — the exact index in bf16/fp32/int8, binary quantization
+with rescore, IVF, deleted vectors — carry the JAX package's method bodies
+and status strings; the models run in PyTorch and the searches through the
+CUDA top-k and IVF kernels.
 
 Everything runs on one device: CUDA unless the caller asks for the CPU
 (`device="cpu"`, or an encoder built on the CPU). Parts of the JAX engine
-not ported yet (ROI pooling, payload filters, the micro-batching
-searcher, approximate indexes, named-space deletions) raise rather than
-run a different path.
+not ported yet (ROI pooling, the micro-batching searcher, PQ, the host and
+multivector indexes, euclid/manhattan, point mutations, meshes) raise
+rather than run a different path.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from .ingest.images import preprocess_pil
 from .ingest.pipeline import build_database, direct_pe_metadata, region_metadata
 from .models.pe import PerceptionEncoder, resolve_device
 from .store import (
-    VectorStore, DeviceIndex, StoreError, StoreLockedError,
+    VectorStore, BinaryIndex, DeviceIndex, IVFIndex, StoreError, StoreLockedError,
     list_databases as _list_databases,
     delete_database as _delete_database,
     unlock_database as _unlock_database,
@@ -39,6 +42,162 @@ from .utils.profiling import Metrics
 from .viz import visualize_detections as _viz, render_result_thumbnail, to_rgb_array
 
 log = get_logger("engine")
+
+
+def load_or_build_ivf(store, vectors: np.ndarray, scfg, dtype: str,
+                      *, space: str = "", device=None):
+    """Load, extend, or build the store's IVF index for one vector
+    space, persisting the k-means result next to the store.
+
+    The cache is keyed on (space, clusters, count, mutation_epoch,
+    spill, balance), in the JAX package's file names and format, so a
+    cache written by either package serves the other. The epoch only
+    moves when existing rows are rewritten (truncate), so a cache whose
+    epoch matches but whose count is SMALLER covers an intact prefix —
+    new rows are assigned to the cached centroids (extend) instead of
+    retraining k-means."""
+    count = store.count
+    cache_dir = os.path.join(store.path, "index")
+    sp = f"_sp{round(scfg.ivf_spill * 1000)}" if scfg.ivf_spill else ""
+    if scfg.ivf_balance:
+        sp += f"_b{round(scfg.ivf_balance * 100)}"
+    stem = (f"ivf_{space}_c{scfg.ivf_clusters}" if space
+            else f"ivf_c{scfg.ivf_clusters}")
+    tail = f"_{store.mutation_epoch}{sp}.npz"
+    cache = os.path.join(cache_dir, f"{stem}_{count}{tail}")
+    ivf = None
+    if os.path.exists(cache):
+        ivf = IVFIndex.load_cache(vectors, cache, dtype=dtype, device=device)
+    dirty = ivf is None
+    if ivf is None and os.path.isdir(cache_dir):
+        for f in sorted(os.listdir(cache_dir), reverse=True):
+            # exactly the digit count between stem_ and tail: another
+            # space whose name nests into this stem must not serve
+            if (f.startswith(stem + "_") and f.endswith(tail)
+                    and f[len(stem) + 1:-len(tail)].isdigit()):
+                ivf = IVFIndex.extend_cache(
+                    vectors, os.path.join(cache_dir, f), dtype=dtype,
+                    device=device)
+                if ivf is not None:
+                    break
+    if ivf is None:
+        ivf = IVFIndex(vectors, n_clusters=min(scfg.ivf_clusters, count),
+                       dtype=dtype, spill=scfg.ivf_spill,
+                       balance=scfg.ivf_balance, device=device)
+    if dirty:
+        # prune only THIS config's stale caches (any count/epoch)
+        def _same_cfg(f: str) -> bool:
+            if not (f.startswith(stem + "_") and f.endswith(".npz")):
+                return False
+            parts = f[len(stem) + 1:-4].split("_", 2)
+            if len(parts) < 2 or not (parts[0].isdigit()
+                                      and parts[1].isdigit()):
+                return False
+            extra = parts[2] if len(parts) > 2 else ""
+            return ("_" + extra if extra else "") == sp
+        try:
+            if os.path.isdir(cache_dir):
+                for old in os.listdir(cache_dir):
+                    if _same_cfg(old):
+                        os.remove(os.path.join(cache_dir, old))
+            ivf.save_cache(cache)
+        except OSError:
+            pass      # read-only store: rebuild per process
+    return ivf
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+class _IVFSearchAdapter:
+    """DeviceIndex-shaped facade over IVFIndex (approximate mode).
+    `impl` (SearchConfig.ivf_impl) names a TPU choice; a CUDA index
+    launches the probed-scan kernel whatever it says."""
+
+    def __init__(self, ivf, nprobe: int, impl: str = "auto"):
+        self._ivf = ivf
+        self.nprobe = nprobe
+        self.impl = impl
+        self.n_valid = ivf.n
+
+    def search(self, queries, k: int, *, row_mask=None, **_):
+        return self._ivf.search(queries, k, nprobe=self.nprobe,
+                                impl=self.impl, row_mask=row_mask)
+
+
+class _BinaryRescoreAdapter:
+    """DeviceIndex-shaped facade over the binary CANDIDATE index:
+    oversampled packed scan on the device + exact f32 rescore of the
+    candidates against the full-precision rows on the host — qdrant's
+    quantization search semantics (`rescore`/`oversampling` params).
+    Final results are the exact (-score, idx) order of the candidate set;
+    with rescore disabled the raw proxy scores surface."""
+
+    def __init__(self, bindex, vectors: np.ndarray, *,
+                 oversampling: float = 3.0, rescore: bool = True):
+        self._b = bindex
+        self._v = vectors          # host f32 rows (mmap-backed is fine)
+        self.oversampling = max(1.0, float(oversampling))
+        self.rescore = rescore
+        self.n_valid = bindex.n_valid
+
+    def search(self, queries, k: int, *, row_mask=None, **_):
+        import math as _math
+
+        q = np.asarray(_host(queries), np.float32)
+        if q.ndim == 1:
+            q = q[None]
+        if self.n_valid == 0:
+            return (np.full((len(q), k), -np.inf, np.float32),
+                    np.full((len(q), k), -1, np.int32))
+        k_fetch = min(max(k, int(_math.ceil(k * self.oversampling))),
+                      self.n_valid)
+        s, i = (_host(a) for a in self._b.search(q, k_fetch, row_mask=row_mask))
+        if not self.rescore:
+            out_s = np.full((len(q), k), -np.inf, np.float32)
+            out_i = np.full((len(q), k), -1, np.int32)
+            w = min(k, k_fetch)
+            out_s[:, :w] = s[:, :w]
+            out_i[:, :w] = i[:, :w]
+            return out_s, out_i
+        safe = np.clip(i, 0, None)
+        cand = np.asarray(self._v[safe.ravel()], np.float32) \
+            .reshape(len(q), k_fetch, -1)                  # [Q, kf, d]
+        scores = np.einsum("qkd,qd->qk", cand, q).astype(np.float32)
+        scores[i < 0] = -np.inf
+        tie_id = np.where(i < 0, np.iinfo(np.int32).max, i)
+        order = np.lexsort((tie_id, -scores), axis=1)[:, :k]
+        out_s = np.full((len(q), k), -np.inf, np.float32)
+        out_i = np.full((len(q), k), -1, np.int32)
+        w = order.shape[1]
+        out_s[:, :w] = np.take_along_axis(scores, order, axis=1)
+        out_i[:, :w] = np.take_along_axis(i, order, axis=1)
+        out_i[np.isneginf(out_s)] = -1
+        return out_s, out_i
+
+
+class _PresenceMaskedIndex:
+    """Facade over any dense index that excludes deleted vectors: the
+    store records delete_vectors rows in a mask file
+    (VectorStore.deleted_rows) and this wrapper folds the mask into every
+    scan's `row_mask`, at the one choke point (_get_index)."""
+
+    def __init__(self, index, presence: np.ndarray):
+        self._ix = index
+        self._presence = presence            # [count] bool, False = deleted
+
+    def _and(self, row_mask):
+        if row_mask is None:
+            return self._presence
+        m = np.array(row_mask, dtype=bool, copy=True)
+        n = min(len(m), len(self._presence))
+        m[:n] &= self._presence[:n]
+        return m
+
+    def search(self, queries, k: int, **kw):
+        kw["row_mask"] = self._and(kw.get("row_mask"))
+        return self._ix.search(queries, k, **kw)
 
 
 class Reverso:
@@ -74,6 +233,8 @@ class Reverso:
         self.region_embeddings: Optional[np.ndarray] = None
         self.region_metadata_list: list[dict] = []
 
+        self._filter_cols = None
+        self._filter_cols_key = None
         self._stop_event = threading.Event()
         self._index_lock = threading.Lock()
 
@@ -178,23 +339,101 @@ class Reverso:
                     f"unknown vector space {using!r} (have "
                     f"{sorted(store.spaces()) + sorted(store.sparse) + sorted(store.multi)})")
             scfg = self.config.search
-            if scfg.index != "exact" or self.config.store.dtype not in (
-                    "bfloat16", "float32"):
+            dtype = self.config.store.dtype
+            if scfg.index not in ("exact", "ivf"):
                 raise NotImplementedError(
-                    f"index={scfg.index!r} / dtype="
-                    f"{self.config.store.dtype!r}: only the exact bf16/fp32 "
-                    f"index is ported")
-            if store.deleted_rows(using).size:
+                    f"index={scfg.index!r} is not ported yet (the native host "
+                    f"index: the surface slice, ROADMAP queue 1 item 17)")
+            if dtype == "pq":
                 raise NotImplementedError(
-                    "stores with deleted vectors need filtered search, "
-                    "which is not ported yet")
-            index = DeviceIndex(
-                np.asarray(store.vectors(using)),
-                dtype=self.config.store.dtype,
-                distance=store.distance,
-                device=self.device)
+                    "dtype='pq' is not ported yet (PQ: the XLA-only ops, "
+                    "ROADMAP queue 1 item 16)")
+            if store.distance not in ("cosine", "dot"):
+                raise NotImplementedError(
+                    f"distance={store.distance!r} is not ported yet "
+                    f"(euclid/manhattan: ROADMAP queue 1 item 16)")
+            count = store.count
+            vectors = np.asarray(store.vectors(using))
+            if scfg.index == "ivf" and count > scfg.ivf_clusters * 4:
+                # IVF probes dense clusters: "binary" is a mode of the
+                # exact index, not an IVF cell dtype — coerce to bf16
+                ivf_dtype = "bfloat16" if dtype == "binary" else dtype
+                ivf = load_or_build_ivf(store, vectors, scfg, ivf_dtype,
+                                        space=using, device=self.device)
+                index = _IVFSearchAdapter(ivf, scfg.ivf_nprobe,
+                                          impl=scfg.ivf_impl)
+            elif dtype == "binary":
+                # packed candidate scan + exact f32 rescore of the top
+                # oversampling*k ids against the on-disk rows
+                index = _BinaryRescoreAdapter(
+                    BinaryIndex(vectors, device=self.device), vectors,
+                    oversampling=scfg.binary_oversampling,
+                    rescore=scfg.binary_rescore)
+            else:
+                index = DeviceIndex(vectors, dtype=dtype,
+                                    distance=store.distance,
+                                    device=self.device,
+                                    int8_quantile=scfg.int8_quantile)
+            gone = store.deleted_rows(using)
+            if gone.size:
+                # per-point delete_vectors mask, folded into every scan
+                # (a delete bumps vector_version, so this entry rebuilds)
+                presence = np.ones(count, np.bool_)
+                presence[gone] = False
+                index = _PresenceMaskedIndex(index, presence)
             self._indexes[using] = (key, index)
             return index
+
+    def _payload_columns(self):
+        """Cached columnar payload view for the loaded store, keyed on
+        (count, data_version): filters against an unchanged store evaluate
+        in vectorized numpy with no IO."""
+        from .store.filter import PayloadColumns
+
+        store = self._store
+        if store is None:
+            raise StoreError("no database loaded")
+        store.refresh()
+        key = (store.count, store.data_version)
+        with self._index_lock:
+            if self._filter_cols is None or self._filter_cols_key != key:
+                self._filter_cols = PayloadColumns(store)
+                self._filter_cols_key = key
+            return self._filter_cols
+
+    def _filter_mask(self, filter_spec) -> Optional[np.ndarray]:
+        """Evaluate a payload filter (dict/string/Filter; see
+        `store.filter`) against the loaded store -> [count] bool mask.
+        Returns None for an empty filter."""
+        from .store.filter import evaluate_filter, parse_filter
+
+        filt = parse_filter(filter_spec)
+        if filt.is_empty():
+            return None
+        cols = self._payload_columns()
+        cols.ensure(sorted(filt.keys()))
+        return evaluate_filter(filt, cols)
+
+    def count(self, filter=None) -> int:
+        """Number of stored points, optionally restricted to a payload
+        filter (qdrant's count API role)."""
+        store = self._store
+        if store is None:
+            raise StoreError("no database loaded")
+        store.refresh()
+        mask = self._filter_mask(filter) if filter is not None else None
+        return store.count if mask is None else int(mask.sum())
+
+    def delete_vectors(self, *args, **kwargs):
+        raise NotImplementedError(
+            "delete_vectors is not ported yet (point mutations: the surface "
+            "slice, ROADMAP queue 1 item 17); VectorStore.delete_vector_rows "
+            "writes the same mask")
+
+    def update_vectors(self, *args, **kwargs):
+        raise NotImplementedError(
+            "update_vectors is not ported yet (point mutations: the surface "
+            "slice, ROADMAP queue 1 item 17)")
 
     # -- query path -------------------------------------------------------
 
@@ -203,15 +442,17 @@ class Reverso:
         """Bulk search: [B, d] query embeddings in ONE kernel launch.
 
         Returns host arrays (scores [B, k], ids [B, k]) with the usual
-        (-score, idx) order and -1 padding."""
-        if filter is not None:
-            raise NotImplementedError("payload filters are not ported yet")
+        (-score, idx) order and -1 padding. `filter` restricts results to
+        rows whose payload matches (see `store.filter` for the
+        qdrant-shaped spec); filtered scans are exact over the matching
+        subset. `using` selects a named vector space ('' = default)."""
         k = self.config.search.top_k if k is None else int(k)
         q = np.asarray(embeddings, np.float32)
         if q.ndim == 1:
             q = q[None]
-        scores, ids = self._get_index(using).search(q, k)
-        return scores.cpu().numpy(), ids.cpu().numpy()
+        mask = self._filter_mask(filter) if filter is not None else None
+        scores, ids = self._get_index(using).search(q, k, row_mask=mask)
+        return _host(scores), _host(ids)
 
     def _preprocess(self, image) -> tuple[np.ndarray, tuple[int, int]]:
         from PIL import Image as PILImage
@@ -280,14 +521,19 @@ class Reverso:
                        max_results: Optional[int] = None,
                        query_index: int = 0, *,
                        embeddings=_USE_ENGINE_STATE,
+                       use_batcher: bool = False,
                        filter=None, using: str = ""):
         """Search the loaded database with a previously extracted
         embedding. Returns (text, items).
 
         `embeddings` overrides the engine's last-query state with an
-        explicit [R, d] array, making the call stateless."""
-        if filter is not None:
-            raise NotImplementedError("payload filters are not ported yet")
+        explicit [R, d] array, making the call stateless. `filter`
+        (dict/string; see `store.filter`) restricts results to rows whose
+        payload matches, e.g. `{"folder": 3}` or `"confidence>=0.5"`."""
+        if use_batcher:
+            raise NotImplementedError(
+                "the micro-batching searcher is not ported yet (serve.py: "
+                "ROADMAP queue 1 item 18)")
         cfg = self.config.search
         threshold = cfg.score_threshold if similarity_threshold is None else similarity_threshold
         k = cfg.top_k if max_results is None else max_results
@@ -304,8 +550,9 @@ class Reverso:
         query_index = min(query_index, len(embs) - 1)
         query = embs[query_index]
 
-        scores, ids = self._get_index(using).search(query, k)
-        scores, ids = scores[0].cpu().numpy(), ids[0].cpu().numpy()
+        mask = self._filter_mask(filter) if filter is not None else None
+        scores, ids = self._get_index(using).search(query, k, row_mask=mask)
+        scores, ids = _host(scores)[0], _host(ids)[0]
         hits = [(float(s), int(i)) for s, i in zip(scores, ids)
                 if i >= 0 and s >= threshold]
         if not hits:

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT8, BINARY_PACKED = 2, 3   # top-k / IVF modes: int8 digits, packed sign bits
 UNSUPPORTED = -1
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,8 +41,11 @@ _SIGNATURES = {
     "rv_flash_heads": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # x, w1, b1, w2, b2, out, T, W, H, act, dtype, stream
     "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # db, q, D, Q, n_valid, k, n_splits, part_s, part_i, out_s, out_i, dtype, stream
-    "rv_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # db, q, mask, D, Q, n_valid, k, n_splits, part_s, part_i, out_s, out_i, mode, stream
+    "rv_topk_stream": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # mat, q, row_scale, base, cnt, mask, D, Q, nprobe, k, part_s, part_w,
+    # out_s, out_pos, mode, stream
+    "rv_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, dtype, stream
     "rv_flash_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # value, levels, loc, attw, out, B, Lv, Lq, H, D, L, P, dtype, stream
@@ -57,12 +61,17 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # its main path went through.
 # `flash_attn` and `flash_attn_relbias` count the one flash kernel's two
 # modes apart: plain (the ViT past the heads-in-lanes envelope) and with
-# SAM's decomposed rel-pos bias.
+# SAM's decomposed rel-pos bias; `topk_stream`, `topk_masked`, `topk_int8`
+# and `topk_binary` the top-k kernel's modes: bf16/fp32 rows without and
+# with a row mask, int8 rows (masked or not), packed sign bits.
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
-            "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0}
-# Shape-rule dispatches of CUDA tensors to a plain version (k above the
-# top-k kernel's cap).
-plain_dispatches = {"topk_above_cap": 0}
+            "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
+            "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0}
+# Shape-rule dispatches of CUDA tensors to a plain version: k above the
+# top-k kernel's cap; int8 k above the cap or d above the exactness bound
+# (1040); binary k above the cap; an IVF fetch (2k under spill) above it.
+plain_dispatches = {"topk_above_cap": 0, "int8_above_cap_or_wide": 0,
+                    "binary_above_cap": 0, "ivf_fetch_above_cap": 0}
 
 
 def reset_counts() -> None:

@@ -1,17 +1,20 @@
-"""Exact cosine top-k search: the streaming CUDA kernel and its plain version.
+"""Exact top-k search: the streaming CUDA kernel and its plain versions.
 
-The database is a device-resident [N, d] matrix of L2-normalized vectors
-(bf16 or fp32 storage, fp32 accumulation). Results are ordered by
-(-score, index): ties go to the lower row, rows at or past `n_valid` never
-score, and slots beyond the valid rows come back as (score -inf, idx -1).
-On a CUDA tensor `cosine_topk` launches `csrc/topk_stream.cu`, whose two
-passes never materialize the [Q, N] score matrix; on a CPU tensor it runs
-`cosine_topk_ref`.
+The database is a device-resident [N, d] matrix: L2-normalized bf16 or
+fp32 rows (fp32 accumulation), or int8 rows with one global scale, scored
+exactly against a two-digit int8 split of each query. Results are ordered
+by (-score, index): ties go to the lower row, rows at or past `n_valid`
+and rows whose `row_mask` entry is False never score, and slots beyond the
+scoring rows come back as (score -inf, idx -1). On a CUDA tensor
+`cosine_topk` and `cosine_topk_int8_exact` launch `csrc/topk_stream.cu`,
+whose two passes never materialize the [Q, N] score matrix; on a CPU
+tensor they run `cosine_topk_ref` / `cosine_topk_int8_ref`.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -19,10 +22,14 @@ from ..utils.logging import get_logger
 
 log = get_logger("ops.topk")
 
-# k cap of the CUDA kernel (TOPK_KMAX in csrc/topk_stream.cu)
+# k cap of the CUDA kernel (TOPK_KMAX in csrc/topk_select.cuh)
 K_CAP = 128
 _QUERY_TILE = 64   # TOPK_QT in csrc/topk_stream.cu
 _ROW_TILE = 64     # TOPK_RT
+# int8 exactness: every digit's dot (and each partial sum) is an integer of
+# magnitude <= d * 127^2, exact in fp32 only below 2^24, i.e. d <= 1040
+INT8_D_MAX = (2 ** 24 - 1) // (127 * 127)
+_CHUNK_ROWS = 65536   # rows per step of the chunked plain scans
 
 
 def _select_topk(scores: torch.Tensor, k: int):
@@ -40,21 +47,15 @@ def _select_topk(scores: torch.Tensor, k: int):
     return s.gather(1, order), cols.gather(1, order)
 
 
-def cosine_topk_ref(db: torch.Tensor, queries: torch.Tensor, k: int,
-                    n_valid: Optional[int] = None):
-    """Exact top-k by full score materialization.
-
-    db: [N, d] L2-normalized. queries: [Q, d] L2-normalized.
-    Returns (scores [Q, k] f32, idx [Q, k] int32), ordered by (-score, idx).
-    """
-    n = db.shape[0]
-    scores = torch.matmul(queries.to(db.dtype).float(), db.float().t())
-    if n_valid is not None and n_valid < n:
-        scores[:, max(int(n_valid), 0):] = float("-inf")
-    q = scores.shape[0]
+def _finish(scores: torch.Tensor, k: int, ids: Optional[torch.Tensor] = None):
+    """(-score, column)-ordered top-k of [Q, N] scores with the repo-wide
+    padding: -inf slots hold -1, slots past N are (-inf, -1). `ids` [Q, N]
+    maps columns to row ids (default: the column itself)."""
+    q, n = scores.shape
     k_eff = min(k, n)
     if k_eff > 0:
-        top_s, top_i = _select_topk(scores, k_eff)
+        top_s, cols = _select_topk(scores, k_eff)
+        top_i = cols if ids is None else ids.gather(1, cols)
         top_i = torch.where(torch.isneginf(top_s), -1, top_i)
     else:
         top_s = scores.new_empty((q, 0))
@@ -65,55 +66,264 @@ def cosine_topk_ref(db: torch.Tensor, queries: torch.Tensor, k: int,
     return top_s.float(), top_i.to(torch.int32)
 
 
-def _topk_cuda(db: torch.Tensor, queries: torch.Tensor, k: int, n_valid: int):
-    n, d = db.shape
-    q = queries.shape[0]
-    if db.dtype not in kernels.DTYPE_CODES:
-        raise ValueError(f"cosine_topk: unsupported dtype {db.dtype}")
-    kernels.require_cuda("cosine_topk", db, queries)
+def _mask_scores(scores: torch.Tensor, n_valid: Optional[int], row_mask,
+                 col0: int = 0) -> torch.Tensor:
+    """-inf into the columns (rows col0 .. col0 + width) at or past n_valid
+    and where row_mask is False."""
+    width = scores.shape[1]
+    if n_valid is not None and n_valid < col0 + width:
+        scores[:, max(int(n_valid) - col0, 0):] = float("-inf")
+    if row_mask is not None:
+        keep = row_mask[col0:col0 + width].bool()
+        scores.masked_fill_(~keep[None, :], float("-inf"))
+    return scores
+
+
+def as_row_mask(row_mask, n: int, device) -> Optional[torch.Tensor]:
+    """A [>= n or < n] bool mask (host array or tensor) -> [n] uint8 on
+    `device`; entries past the given mask are False."""
+    if row_mask is None:
+        return None
+    m = torch.as_tensor(np.asarray(row_mask, bool) if not isinstance(
+        row_mask, torch.Tensor) else row_mask).to(device=device, dtype=torch.uint8)
+    if m.shape[0] < n:
+        m = torch.cat([m, m.new_zeros(n - m.shape[0])])
+    return m[:n].contiguous()
+
+
+def cosine_topk_ref(db: torch.Tensor, queries: torch.Tensor, k: int,
+                    n_valid: Optional[int] = None, row_mask=None):
+    """Exact top-k by full score materialization.
+
+    db: [N, d] L2-normalized. queries: [Q, d] L2-normalized. `row_mask`
+    ([N] bool/uint8) excludes rows: the result equals the exact scan over
+    the subset. Returns (scores [Q, k] f32, idx [Q, k] int32), ordered by
+    (-score, idx).
+    """
+    scores = torch.matmul(queries.to(db.dtype).float(), db.float().t())
+    return _finish(_mask_scores(scores, n_valid, row_mask), k)
+
+
+def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
+                 k: int, n_valid: int, mode: int, row_mask=None):
+    """Launch csrc/topk_stream.cu in `mode`; returns (scores, idx) [Q, k]."""
+    kernels.require_cuda(name, db, q, *([row_mask] if row_mask is not None else []))
+    d = db.shape[1]
+    qn = q.shape[-2]
     dev = db.device
-    out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    if q == 0:
+    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    if qn == 0:
         return out_s, out_i
     # about two waves of CTAs over the SMs, split along the rows
-    n_q_tiles = -(-q // _QUERY_TILE)
+    n_q_tiles = -(-qn // _QUERY_TILE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_row_tiles = max(1, -(-n_valid // _ROW_TILE))
     n_splits = max(1, min(-(-2 * sms // n_q_tiles), n_row_tiles))
-    part_s = torch.empty((n_splits, q, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_splits, q, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(db.device):   # launch on the tensors' card
+    part_s = torch.empty((n_splits, qn, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_splits, qn, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):   # launch on the tensors' card
         status = kernels.lib().rv_topk_stream(
-            db.data_ptr(), queries.data_ptr(), d, q, n_valid, k, n_splits,
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), kernels.DTYPE_CODES[db.dtype],
-            kernels.stream_ptr(dev))
-    kernels.check("cosine_topk", status)
-    kernels.launches["topk_stream"] += 1
+            db.data_ptr(), q.data_ptr(),
+            row_mask.data_ptr() if row_mask is not None else None,
+            d, qn, n_valid, k, n_splits, part_s.data_ptr(), part_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), mode, kernels.stream_ptr(dev))
+    kernels.check(name, status)
+    kernels.launches[counter] += 1
     return out_s, out_i
 
 
 def cosine_topk(db: torch.Tensor, queries: torch.Tensor, k: int,
-                n_valid: Optional[int] = None):
+                n_valid: Optional[int] = None, row_mask=None):
     """Fused exact cosine top-k; same contract as `cosine_topk_ref`.
 
-    Queries are cast to the database dtype. Above the kernel's k cap
-    (K_CAP) a CUDA search takes the plain version — a shape rule, logged
-    and counted in `kernels.plain_dispatches`."""
+    Queries are cast to the database dtype. With `row_mask` a CUDA search
+    runs the kernel's masked mode (K2). Above the kernel's k cap (K_CAP) a
+    CUDA search takes the plain version — a shape rule, logged and counted
+    in `kernels.plain_dispatches`."""
     n, d = db.shape
     queries = queries.to(db.dtype)
     if queries.ndim != 2 or queries.shape[1] != d:
         raise ValueError(f"queries {tuple(queries.shape)} do not match db "
                          f"{tuple(db.shape)}")
     n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
+    mask = as_row_mask(row_mask, n, db.device)
     if db.device.type == "cpu":
-        return cosine_topk_ref(db, queries, k, n_valid=n_valid)
+        return cosine_topk_ref(db, queries, k, n_valid=n_valid, row_mask=mask)
     if k > K_CAP:
         log.info(f"k={k} above the top-k kernel cap {K_CAP}: plain scan")
         kernels.plain_dispatches["topk_above_cap"] += 1
-        return cosine_topk_ref(db, queries, k, n_valid=n_valid)
-    return _topk_cuda(db, queries.contiguous(), k, n_valid)
+        return cosine_topk_ref(db, queries, k, n_valid=n_valid, row_mask=mask)
+    if db.dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"cosine_topk: unsupported dtype {db.dtype}")
+    return _launch_topk("cosine_topk", "topk_masked" if mask is not None else "topk_stream",
+                        db, queries.contiguous(), k, n_valid,
+                        kernels.DTYPE_CODES[db.dtype], mask)
+
+
+# ---------------------------------------------------------------------------
+# int8-stored exact search (K9)
+# ---------------------------------------------------------------------------
+
+def quantize_db_int8(db):
+    """Symmetric global int8 quantization of an embedding matrix.
+
+    Returns (v8 [N, d] int8, scale 0-d f32) with db ~= scale * v8. The int8
+    matrix IS the stored database: searches are exact with respect to it.
+    Rounds `db * (127 / amax)` (an fp32 multiply by the inverse, as the
+    JAX package does: a division can land one ulp off at halfway points)."""
+    db32 = torch.as_tensor(db).float()
+    amax = torch.clamp(db32.abs().max(), min=1e-30)
+    inv = 127.0 / amax
+    v8 = torch.clamp(torch.round(db32 * inv), -127, 127).to(torch.int8)
+    return v8, amax / 127.0
+
+
+def int8_clip_bound(values: np.ndarray, quantile: float) -> np.float32:
+    """Host-side clipping bound for symmetric int8 quantization.
+
+    `quantile == 0` (the default everywhere) returns the exact abs-max
+    — nothing clips. With 0 < quantile < 1, returns that abs-value
+    quantile over a deterministic stride sample of the matrix, the
+    role of qdrant ScalarQuantization's `quantile` parameter: long-tail
+    outliers saturate to +-127 and the remaining 254 steps resolve the
+    bulk of the distribution more finely. The int8-exact search
+    contract is unaffected either way — scores are exact with respect
+    to the STORED int8 rows, however they were rounded."""
+    a = np.abs(np.asarray(values, np.float32))
+    if quantile and a.size:
+        if not 0.0 < quantile < 1.0:
+            raise ValueError(
+                f"int8 quantile must be in (0, 1), got {quantile}")
+        flat = a.reshape(-1)
+        stride = max(1, flat.size // (1 << 22))   # deterministic sample
+        bound = np.quantile(flat[::stride], quantile)
+        return np.float32(max(bound, 1e-30))
+    return np.float32(max(a.max(initial=0.0), 1e-30))
+
+
+def int8_query_digits(queries: torch.Tensor):
+    """Two-digit int8 query decomposition for the exact int8 scans.
+
+    q ~= c1*q_hi + c2*q_lo with c1 = 254*c2 (c1 from the per-query abs-max,
+    1e-30 floored): two s8 dots combine to an exact ~15-bit-query-precision
+    f32 score. Scales are PER-QUERY — positive scaling leaves each row's
+    (-score, idx) order untouched, so the scans rank unscaled combined dots
+    and the caller restores true scores with row_scale = c2 * db_scale.
+    fp32 divisions and separately rounded multiply and subtract, as the
+    JAX package computes them eagerly.
+    Returns (q_hi [Q, d] i8, q_lo [Q, d] i8, c2 [Q, 1] f32)."""
+    qs32 = queries.float()
+    c1 = torch.clamp(qs32.abs().amax(dim=1, keepdim=True), min=1e-30) / 127.0
+    c2 = c1 / 254.0
+    q_hi = torch.clamp(torch.round(qs32 / c1), -127, 127).to(torch.int8)
+    resid = qs32 - q_hi.float() * c1
+    q_lo = torch.clamp(torch.round(resid / c2), -127, 127).to(torch.int8)
+    return q_hi, q_lo, c2
+
+
+def int8_combine(s_hi: torch.Tensor, s_lo: torch.Tensor) -> torch.Tensor:
+    """f32(s_hi) * 254 + f32(s_lo), rounded after the multiply and again
+    after the add (two eager ops: nothing contracts them into one FMA)."""
+    return s_hi.float() * 254.0 + s_lo.float()
+
+
+def _int8_dots(db_i8: torch.Tensor, q_hi: torch.Tensor, q_lo: torch.Tensor):
+    """Exact [Q, N] digit dots as fp32 integers: every partial sum is an
+    integer of magnitude below 2^24 (d <= INT8_D_MAX), so fp32 sums are
+    exact in any order."""
+    rows = db_i8.float()
+    return q_hi.float() @ rows.t(), q_lo.float() @ rows.t()
+
+
+def _scale(scores: torch.Tensor, idx: torch.Tensor, c2, db_scale):
+    """Unscaled (-score, idx)-ordered int8 results -> true scores."""
+    row_scale = c2 * torch.as_tensor(db_scale, dtype=torch.float32, device=c2.device)
+    scores = scores * row_scale
+    return scores, torch.where(torch.isneginf(scores), -1, idx)
+
+
+def _check_int8(db_i8: torch.Tensor, k: int) -> None:
+    if db_i8.dtype != torch.int8:
+        raise ValueError(f"int8 scan needs an int8 matrix, got {db_i8.dtype}")
+    if k > K_CAP:
+        raise ValueError(f"int8-exact scan supports k <= {K_CAP}")
+    if db_i8.shape[1] > INT8_D_MAX:
+        raise ValueError(
+            f"int8-exact scan requires d <= {INT8_D_MAX} for exact f32 partials "
+            f"(got d={db_i8.shape[1]}); use cosine_topk_int8_xla for larger dims")
+
+
+def cosine_topk_int8_ref(db_i8: torch.Tensor, db_scale, queries: torch.Tensor,
+                         k: int, n_valid: Optional[int] = None, row_mask=None):
+    """Plain version of the int8-exact kernel (K9): the same two-digit math.
+
+    Ranks the unscaled combined dots f32(hi) * 254 + f32(lo) by (-score,
+    idx) over the rows below n_valid that row_mask keeps, then scales each
+    query's scores by c2 * db_scale. Returns (scores [Q, k] f32, idx int32)."""
+    _check_int8(db_i8, k)
+    q_hi, q_lo, c2 = int8_query_digits(queries)
+    s_hi, s_lo = _int8_dots(db_i8, q_hi, q_lo)
+    mask = as_row_mask(row_mask, db_i8.shape[0], db_i8.device)
+    s, i = _finish(_mask_scores(int8_combine(s_hi, s_lo), n_valid, mask), k)
+    return _scale(s, i, c2, db_scale)
+
+
+def cosine_topk_int8_exact(db_i8: torch.Tensor, db_scale, queries: torch.Tensor,
+                           k: int, n_valid: Optional[int] = None, row_mask=None):
+    """Exact cosine top-k over an int8-stored database (K9).
+
+    db_i8 [N, d] int8 with d <= INT8_D_MAX and its `quantize_db_int8`
+    scale; queries [Q, d] in any float dtype (used in fp32). Same contract
+    as `cosine_topk_ref`; scores are deterministic f32 cosines against the
+    dequantized stored rows. A CUDA matrix launches the kernel's int8 mode,
+    a CPU one runs `cosine_topk_int8_ref`."""
+    _check_int8(db_i8, k)
+    n, d = db_i8.shape
+    if queries.ndim != 2 or queries.shape[1] != d:
+        raise ValueError(f"queries {tuple(queries.shape)} do not match db "
+                         f"{tuple(db_i8.shape)}")
+    n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
+    if db_i8.device.type == "cpu":
+        return cosine_topk_int8_ref(db_i8, db_scale, queries, k, n_valid, row_mask)
+    q_hi, q_lo, c2 = int8_query_digits(queries)
+    digits = torch.stack([q_hi, q_lo]).contiguous()
+    s, i = _launch_topk("cosine_topk_int8_exact", "topk_int8", db_i8, digits, k,
+                        n_valid, kernels.INT8, as_row_mask(row_mask, n, db_i8.device))
+    return _scale(s, i, c2, db_scale)
+
+
+def cosine_topk_int8_xla(db_i8: torch.Tensor, db_scale, queries: torch.Tensor,
+                         k: int, n_valid: Optional[int] = None, row_mask=None, *,
+                         chunk: int = _CHUNK_ROWS):
+    """Exact top-k over an int8 database, any k and d: fp32 queries against
+    the rows dequantized one chunk at a time (`rows * scale`), with a
+    running (-score, idx) top-k, so the full fp32 matrix never exists. The
+    counterpart of the JAX package's `cosine_topk_int8_xla`; the index
+    takes it above the kernel's k cap or past d = INT8_D_MAX."""
+    n, d = db_i8.shape
+    q32 = queries.float()
+    scale = torch.as_tensor(db_scale, dtype=torch.float32, device=db_i8.device)
+    mask = as_row_mask(row_mask, n, db_i8.device)
+    n_valid = n if n_valid is None else int(n_valid)
+    k_eff = min(k, n)
+    top_s = q32.new_empty((q32.shape[0], 0))
+    top_i = torch.empty((q32.shape[0], 0), dtype=torch.int64, device=q32.device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        s = q32 @ (db_i8[lo:hi].float() * scale).t()
+        s = _mask_scores(s, n_valid, mask, lo)
+        # the carry (lower ids) precedes the chunk: column order is id order
+        all_s = torch.cat([top_s, s], 1)
+        all_i = torch.cat([top_i, torch.arange(lo, hi, device=q32.device)
+                           .expand(q32.shape[0], -1)], 1)
+        top_s, cols = _select_topk(all_s, min(k_eff, all_s.shape[1]))
+        top_i = all_i.gather(1, cols)
+    top_i = torch.where(torch.isneginf(top_s), -1, top_i)
+    if k_eff < k:
+        top_s = torch.cat([top_s, top_s.new_full((q32.shape[0], k - k_eff), float("-inf"))], 1)
+        top_i = torch.cat([top_i, top_i.new_full((q32.shape[0], k - k_eff), -1)], 1)
+    return top_s, top_i.to(torch.int32)
 
 
 def apply_score_threshold(scores: torch.Tensor, idx: torch.Tensor,

@@ -11,4 +11,11 @@ from .persist import (
     delete_alias,
     resolve_alias,
 )
-from .index import DeviceIndex
+from .index import BinaryIndex, DeviceIndex
+from .ivf import IVFIndex
+from .filter import (
+    Filter,
+    FilterError,
+    parse_filter,
+    payload_mask,
+)

@@ -183,3 +183,161 @@ def test_ms_deform_kernel(dev, dtype, b, shapes, lq, h, d, p):
     # fp32: sums in another order; bf16: one output ulp (both sum in fp32)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def _assert_topk_close(s, i, rs, ri, tol):
+    """Kernel top-k against the plain version: the same -inf slots (idx
+    -1), scores within `tol`, ids equal where the plain version's ranked
+    scores are more than `tol` from their neighbours."""
+    fin = torch.isfinite(rs)
+    assert torch.equal(fin, torch.isfinite(s))
+    assert torch.equal(i[~fin], torch.full_like(i[~fin], -1))
+    assert float((torch.where(fin, s - rs, 0)).abs().max()) <= tol
+    gap = torch.diff(torch.where(fin, rs, -1e9), dim=1).abs()
+    inf = torch.full((rs.shape[0], 1), float("inf"), device=rs.device)
+    clear = (torch.cat([inf, gap], 1) > tol) & (torch.cat([gap, inf], 1) > tol)
+    assert torch.equal(torch.where(clear, i, -2), torch.where(clear, ri, -2))
+
+
+def _unit_rows(gen, n, d):
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    return x / x.norm(dim=1, keepdim=True)
+
+
+# ragged shapes: N not a multiple of the 64-row tile, Q not a multiple of
+# the 64-query tile, d not a multiple of 128 (or of 16), k > n_valid,
+# every row masked
+MASKED_CASES = [
+    (1000, 64, 7, 10, None, 0.3),
+    (4099, 200, 70, 5, 3001, 0.5),
+    (300, 96, 4, 40, 20, 0.3),        # k > n_valid
+    (513, 128, 65, 10, None, 0.0),    # every row masked
+    (5000, 1024, 3, 128, None, 0.7),  # k at the cap
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,q,k,n_valid,keep", MASKED_CASES)
+def test_topk_masked_kernel(dev, dtype, n, d, q, k, n_valid, keep):
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(n + d)
+    db = _unit_rows(gen, n, d).to(dtype)
+    db[n // 2] = db[1]                       # a duplicate: tie -> lower row
+    mask = torch.rand(n, generator=gen, device="cuda") < keep
+    mask[1] = mask[n // 2] = keep > 0
+    qs = torch.cat([db[1:2], _unit_rows(gen, q - 1, d).to(dtype)])
+    n0 = kernels.launches["topk_masked"]
+    s, i = cosine_topk(db, qs, k, n_valid=n_valid, row_mask=mask)
+    assert kernels.launches["topk_masked"] == n0 + 1
+    rs, ri = cosine_topk_ref(db, qs, k, n_valid=n_valid, row_mask=mask)
+    torch.cuda.synchronize()
+    _assert_topk_close(s, i, rs, ri, 1e-4)    # fp32 sums in another order
+    kept = mask.clone()
+    if n_valid is not None:
+        kept[n_valid:] = False
+    assert bool(kept[i[i >= 0].long()].all()), "a masked row came back"
+    if keep == 0.0:
+        assert bool((i == -1).all()) and bool(torch.isneginf(s).all())
+    elif n_valid is None or n_valid > n // 2:
+        assert i[0, :2].tolist() == [1, n // 2]
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid,keep", MASKED_CASES + [
+    (2000, 1040, 9, 10, None, None),  # the exactness bound on d
+    (1500, 77, 66, 16, 1400, None),   # d not a multiple of 16: byte copies
+])
+def test_topk_int8_kernel(dev, n, d, q, k, n_valid, keep):
+    """K9 against its plain version: ids and scores equal bit for bit."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.topk import (cosine_topk_int8_exact,
+                                            cosine_topk_int8_ref, quantize_db_int8)
+
+    gen = torch.Generator(device="cuda").manual_seed(3 * n + d)
+    x = _unit_rows(gen, n, d)
+    x[n // 2] = x[1]
+    v8, scale = quantize_db_int8(x)
+    qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d)])
+    mask = None if keep is None else torch.rand(n, generator=gen, device="cuda") < keep
+    n0 = kernels.launches["topk_int8"]
+    s, i = cosine_topk_int8_exact(v8, scale, qs, k, n_valid=n_valid, row_mask=mask)
+    assert kernels.launches["topk_int8"] == n0 + 1
+    rs, ri = cosine_topk_int8_ref(v8, scale, qs, k, n_valid=n_valid, row_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri)
+    assert torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid,keep", [
+    (1000, 1024, 7, 30, None, None),
+    (4099, 200, 70, 5, 3001, 0.5),    # d/8 = 25-byte planes
+    (300, 96, 4, 40, 20, 0.3),        # k > n_valid
+    (513, 128, 65, 10, None, 0.0),    # every row masked
+    (5000, 768, 3, 128, None, 0.7),
+])
+def test_topk_binary_kernel(dev, n, d, q, k, n_valid, keep):
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.binary import binary_topk, binary_topk_ref, pack_signs
+
+    gen = torch.Generator(device="cuda").manual_seed(5 * n + d)
+    x = _unit_rows(gen, n, d)
+    x[n // 2] = x[1]
+    packed = pack_signs(x - x.mean(0))
+    qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d)])
+    mask = None if keep is None else torch.rand(n, generator=gen, device="cuda") < keep
+    n0 = kernels.launches["topk_binary"]
+    s, i = binary_topk(packed, qs, k, d, n_valid=n_valid, row_mask=mask)
+    assert kernels.launches["topk_binary"] == n0 + 1
+    rs, ri = binary_topk_ref(packed, qs, k, d, n_valid=n_valid, row_mask=mask)
+    torch.cuda.synchronize()
+    # sums of exact +-bf16(q_i) products in another order
+    _assert_topk_close(s, i, rs, ri, 1e-4)
+    if keep == 0.0:
+        assert bool((i == -1).all())
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("q,nprobe,k,masked", [
+    (1, 4, 10, False),
+    (5, 16, 20, True),
+    (3, 16, 128, False),    # k at the cap
+])
+def test_ivf_scan_kernel(dev, mode, q, nprobe, k, masked):
+    """K11 against the probe loop: ragged clusters (sizes 0, 1, 37, ...),
+    d = 200 (not a multiple of 128), probes of empty clusters."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.ivf_scan import ivf_probe_scan, ivf_probe_scan_ref
+    from reverso_tpu_torch.ops.topk import int8_query_digits, quantize_db_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(q * nprobe + k)
+    d, n_cl = 200, 24
+    counts = torch.randint(0, 300, (n_cl,), generator=gen, device="cuda")
+    counts[:3] = torch.tensor([0, 1, 37], device="cuda")
+    offsets = torch.cumsum(counts, 0) - counts
+    m = int(counts.sum())
+    x = _unit_rows(gen, m, d)
+    x[5] = x[4]                                   # a tie inside one cluster
+    qs = _unit_rows(gen, q, d)
+    probes = torch.stack([torch.randperm(n_cl, generator=gen, device="cuda")[:nprobe]
+                          for _ in range(q)])
+    probes[0, 0] = 0                              # an empty cluster
+    base, cnt = offsets[probes].int(), counts[probes].int()
+    mask = (torch.rand(m, generator=gen, device="cuda") < 0.6) if masked else None
+    kw = dict(k=k, cmax=int(counts.max()), mask_sorted=mask)
+    if mode == "int8":
+        mat, scale = quantize_db_int8(x)
+        q_hi, q_lo, c2 = int8_query_digits(qs)
+        args = (mat, qs, torch.stack([q_hi, q_lo]), c2 * scale, base, cnt)
+    else:
+        dtype = getattr(torch, mode)
+        args = (x.to(dtype), qs.to(dtype), None, None, base, cnt)
+    n0 = kernels.launches["ivf_scan"]
+    s, pos = ivf_probe_scan(*args, int8=mode == "int8", **kw)
+    assert kernels.launches["ivf_scan"] == n0 + 1
+    rs, rpos = ivf_probe_scan_ref(*args, int8=mode == "int8", **kw)
+    torch.cuda.synchronize()
+    if mode == "int8":      # exact s32 dots and the same two roundings
+        assert torch.equal(pos, rpos) and torch.equal(s, rs)
+    else:
+        _assert_topk_close(s, pos, rs, rpos, 1e-4)

@@ -22,7 +22,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "reverso_tpu_torch")
 HOST_COPIES = ("config.py", "utils/logging.py", "store/persist.py",
                "detect/regions.py", "detect/wordpiece.py", "viz.py",
-               "ingest/images.py", "ingest/pipeline.py")
+               "ingest/images.py", "ingest/pipeline.py", "store/filter.py",
+               "store/text.py", "native.py")
 
 
 def _run(code: str, cwd: str, timeout: int = 120):
@@ -58,6 +59,16 @@ def test_port_runs_with_jax_blocked(tmp_path):
         sr.process_image_direct_pe(Image.open(os.path.join(folder, "3.png")))
         text, items = sr.search_similar(0.0, 3)
         assert items[0]["filename"] == "3.png", text
+        # the capacity slice: a payload filter, the int8 IVF and binary indexes
+        emb = sr._engine.region_embeddings
+        _, ids = sr._engine.search_batch(emb, 3, filter=dict(filename="3.png"))
+        assert ids[0].tolist()[:1] != [-1] and (ids[:, 1:] == -1).all(), ids
+        from reverso_tpu_torch.store import BinaryIndex, IVFIndex
+        vecs = rng.standard_normal((64, 32)).astype(np.float32)
+        ivf = IVFIndex(vecs, n_clusters=4, dtype="int8", spill=0.1, balance=1.5,
+                       device="cpu")
+        assert ivf.search(vecs[:2], 3, nprobe=4)[1][:, 0].tolist() == [0, 1]
+        assert BinaryIndex(vecs, device="cpu").search(vecs[:1], 3)[1].shape == (1, 3)
 
         # the region path: a seeded tiny GroundingDINO + SAM
         from reverso_tpu_torch.config import DetectorConfig
@@ -121,6 +132,9 @@ def test_wrappers_never_fall_back_for_device_tensors():
     from reverso_tpu_torch.ops import (cosine_topk, flash_attention,
                                        flash_attention_heads, fused_mlp,
                                        ms_deform_attn)
+    from reverso_tpu_torch.ops.binary import binary_topk
+    from reverso_tpu_torch.ops.ivf_scan import ivf_probe_scan
+    from reverso_tpu_torch.ops.topk import cosine_topk_int8_exact
 
     m = lambda *shape: torch.empty(*shape, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -137,6 +151,15 @@ def test_wrappers_never_fall_back_for_device_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ms_deform_attn(m(1, 5, 2, 4), ((1, 2), (1, 3)), m(1, 3, 2, 2, 1, 2),
                        m(1, 3, 2, 2, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        cosine_topk(m(10, 8), m(2, 8), 3, row_mask=m(10).bool())
+    with pytest.raises(ValueError, match="CUDA"):
+        cosine_topk_int8_exact(m(10, 8).to(torch.int8), 0.01, m(2, 8), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        binary_topk(m(10, 1).to(torch.uint8), m(2, 8), 3, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ivf_probe_scan(m(10, 8), m(2, 8), None, None, m(2, 3).int(), m(2, 3).int(),
+                       k=3, cmax=4, int8=False)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -136,6 +136,7 @@ def test_port_engine_surface(built, tmp_path):
     assert eng.extract_embeddings(np.zeros((8, 8, 3), np.uint8)) == ([], [])
     eng.create_database(built["folder"], "copy", use_direct_pe=True)
     assert eng.list_databases() == ["copy"]
-    with pytest.raises(NotImplementedError):
-        eng.search_batch(np.zeros(CFG.embed_dim, np.float32), 3, filter={"a": 1})
+    # a payload filter no row matches: an empty page, as the JAX engine
+    _, ids = eng.search_batch(np.zeros(CFG.embed_dim, np.float32), 3, filter={"a": 1})
+    assert (ids == -1).all() and eng.count(filter={"a": 1}) == 0
     assert eng.delete_database("copy") == "✅ Deleted database: copy"
