@@ -16,13 +16,22 @@ of which catches a failure:
      computes the same function) that call, and the least time the card
      could take (`bound_ms`); the capacity kernels at 1,000,000 x 1024
      (masked bf16, int8 with ids and scores equal bit for bit, packed
-     binary) and the IVF probed scan at 1024 clusters, nprobe 16;
+     binary) and the IVF probed scan at 1024 clusters, nprobe 16; the
+     int8 MLP (T = 4616 and 1000, 1024 -> 4096 -> 1024, gelu and
+     quick_gelu, and a ragged case) and the two-stage int8 search's
+     candidate scan (1M x 1024 int8 rows with row scales, Q = 256,
+     k_fetch 40, ids and scores equal bit for bit, ragged cases);
   4. depth-reduced full-width towers on the card (kernels) against the
      same weights on the CPU (plain versions), fp32: PE-Core-L14-336 at
-     depth 2; GroundingDINO-tiny with 1 encoder and 1 decoder layer at
-     800 px; SAM ViT-B with 3 layers (global layer 2) at 1024 px;
-     PE-Core-L14 at 504 px (S = 1297, past the heads-in-lanes kernel:
-     the ViT's long-sequence path, whose kernel launches it counts);
+     depth 2 (its embeddings and, through `encode_regions`, its ROI
+     region embeddings); GroundingDINO-tiny with 1 encoder and 1 decoder
+     layer at 800 px; SAM ViT-B with 3 layers (global layer 2) at
+     1024 px; PE-Core-L14 at 504 px (S = 1297, past the heads-in-lanes
+     kernel: the ViT's long-sequence path, whose kernel launches it
+     counts);
+  4b. the two-stage int8 search at op level (`cosine_topk_int8` over the
+     1M x 1024 rows, Q = 256, k = 10, overfetch 4): the plain pipeline's
+     ids, recall@10 against exact fp32;
   5. the direct-embed path at full width: `SimpleReverso` with the
      default PE-Core-L14-336 config (seeded random init, bf16, batch 64)
      builds a database from 256 synthetic images with
@@ -33,6 +42,13 @@ of which catches a failure:
      32 synthetic 640x480 / 480x640 images with `create_database(...,
      use_direct_pe=False)`, then answers `detect_regions` +
      `extract_embeddings` + `search_similar` queries;
+  5b. the int8 embedding tower: the direct-embed build of phase 5 again
+     with `ModelConfig.quant="int8"` (same images, seed and weights),
+     held against the bf16 build (min cosine, top-10 overlap);
+  6b. ROI pooling: the region build of phase 6 again with
+     `region_embed_mode="region"` (masks pooled onto the patch grid,
+     masked attention pooling), then `detect_regions` +
+     `extract_embeddings` + `search_similar`;
   7. the capacity indexes and filtered search through `Reverso` on a
      1,000,000 x 1024 store of clustered rows with payloads: payload
      filters and `count` (bf16), vectors deleted with
@@ -365,17 +381,152 @@ def region_kernel_checks(torch, gen) -> dict:
     return rows
 
 
+def int8_kernel_checks(torch, gen):
+    """K5 (the int8 MLP) and K12 (the per-row-scale int8 candidate scan)
+    against their plain versions on the card. Returns the kernel rows and
+    K12's 1M x 1024 data for the two-stage search's path."""
+    from reverso_tpu_torch.ops.fused_mlp import (fused_mlp_int8, mlp_int8_plain,
+                                                 mlp_int8_ref, quantize_mlp_weights)
+    from reverso_tpu_torch.ops.quant import int_dot, quantize_rows_int8
+    from reverso_tpu_torch.ops.topk_int8 import (quantize_queries, quantize_rows,
+                                                 topk_int8_rows, topk_int8_rows_ref)
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16)
+
+    # K5: bit for bit where the plain version's rounding is the kernel's; a
+    # rare hidden-quantum flip otherwise: under 0.2% of elements beyond one
+    # output rounding, none beyond two hidden quanta times the largest W2
+    errs, flips = [], []
+    for t, w, hid, act in ((4616, 1024, 4096, "gelu"), (4616, 1024, 4096, "quick_gelu"),
+                           (1000, 1024, 4096, "gelu"), (77, 72, 200, "gelu")):
+        x = randn(t, w)
+        w1, b1 = randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.02)
+        w2, b2 = randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.02)
+        qw = quantize_mlp_weights(w1, b1, w2, b2, bf16)
+        out = fused_mlp_int8(x, qw, act=act)
+        ref = mlp_int8_ref(x, w1, b1, w2, b2, act=act)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        loose = diff > 2 ** -8 * (1 + ref.float().abs())
+        errs.append(float(diff.max()))
+        flips.append(int((diff > 0).sum()))
+        check(float(loose.float().mean()) < 0.002,
+              f"fused_mlp_int8 T={t} W={w} H={hid} {act}: {int(loose.sum())} elements off")
+        if loose.any():
+            x8, xs = quantize_rows_int8(x)
+            h_amax = max(float((int_dot(x8, qw.w1[lo:lo + 512]).float()
+                                * (xs * qw.s1[lo:lo + 512]) + qw.b1[lo:lo + 512]).abs().max())
+                         for lo in range(0, hid, 512)) * 1.2
+            quantum = 2 * h_amax / 127 * float((qw.w2.float().abs() * qw.s2[:, None]).max())
+            check(float(diff[loose].max()) <= quantum + 2 ** -7 * (1 + float(ref.abs().max())),
+                  f"fused_mlp_int8 T={t} {act}: a difference beyond two hidden quanta")
+        if (t, act) == (4616, "gelu"):
+            main = (x, qw)
+    x, qw = main
+    t, w, hid = 4616, 1024, 4096
+    rows["fused_mlp_int8"] = dict(
+        source="reverso_tpu_torch/csrc/fused_mlp.cu",
+        replaces="reverso_tpu/ops/fused_mlp.py:92",
+        max_abs_err=max(errs), shape="T=4616 1024->4096->1024 bf16 gelu, int8 products",
+        ms=cuda_ms(lambda: fused_mlp_int8(x, qw, act="gelu")),
+        plain_ms=cuda_ms(lambda: mlp_int8_plain(x, qw, "gelu")),
+        library="none: no single PyTorch call (torch._int_mm twice, with the "
+                "per-chunk re-quantization between them)",
+        library_ms=None)
+    rows["fused_mlp_int8"]["bound_ms"], rows["fused_mlp_int8"]["bound_by"] = bound(
+        2 * t * w * 2 + 2 * w * hid + (hid + w) * 8, 4 * t * w * hid, "int8")
+    print(f"fused_mlp_int8: max abs err {errs}, elements differing from the plain "
+          f"version {flips}", flush=True)
+    del x, qw, main
+
+    # K12 stage 1: 1M x 1024 int8 rows with row scales, Q = 256, k_fetch 40
+    n, d, q, kf = 1_000_000, 1024, 256, 40
+    xf = torch.randn(n, d, generator=gen, device=dev)
+    xf /= xf.norm(dim=1, keepdim=True)
+    xf[777_777] = xf[3]                                     # a tie: lower row first
+    qf = xf[torch.arange(q, device=dev) * 3001].clone()
+    qf += 0.05 * torch.randn(qf.shape, generator=gen, device=dev)
+    qf /= qf.norm(dim=1, keepdim=True)
+    qf[0] = xf[3]
+    v8, sc = quantize_rows(xf)
+    q8, qs = quantize_queries(qf)
+    s, i = topk_int8_rows(v8, sc, q8, qs, kf)
+    rs, ri = topk_int8_rows_ref(v8, sc, q8, qs, kf)
+    torch.cuda.synchronize()
+    check(torch.equal(i, ri) and torch.equal(s, rs),
+          f"K12 differs from its plain version: ids {int((i != ri).sum())}, max score "
+          f"diff {float((s - rs).abs().max())}")
+    check(i[0, :2].tolist() == [3, 777_777], f"K12 tie order {i[0, :2].tolist()}")
+    for nv, kk, qn in ((30, 40, 70), (999, 128, 65), (1001, 10, 3)):   # k > n_valid; ragged
+        s2, i2 = topk_int8_rows(v8[:1001], sc[:1001], q8[:qn], qs[:qn], kk, n_valid=nv)
+        r2s, r2i = topk_int8_rows_ref(v8[:1001], sc[:1001], q8[:qn], qs[:qn], kk, n_valid=nv)
+        check(torch.equal(i2, r2i) and torch.equal(s2, r2s),
+              f"K12 ragged case n_valid={nv} k={kk} differs")
+    check(bool((i2[:, :3] >= 0).all()) and bool((i2 < 1001).all()), "K12 ragged ids")
+    rows["topk_int8_rows"] = dict(
+        source="reverso_tpu_torch/csrc/topk_stream.cu",
+        replaces="reverso_tpu/ops/topk_int8.py:47",
+        max_abs_err=0.0,
+        shape="N=1,000,000 d=1024 int8 + f32 row scales, Q=256, k_fetch=40 (k=10, overfetch 4)",
+        ms=cuda_ms(lambda: topk_int8_rows(v8, sc, q8, qs, kf)),
+        plain_ms=cuda_ms(lambda: topk_int8_rows_ref(v8, sc, q8, qs, kf), iters=3),
+        library="none: no single PyTorch call (an int8 matmul, two scalings and a topk)",
+        library_ms=None)
+    rows["topk_int8_rows"]["bound_ms"], rows["topk_int8_rows"]["bound_by"] = bound(
+        n * d + n * 4 + q * d + q * 4 + q * kf * 8, 2 * q * n * d, "int8")
+    print("topk_int8_rows: ids and scores equal the plain version's bit for bit", flush=True)
+    return rows, (xf, v8, sc, qf)
+
+
+def int8_search_run(torch, data) -> dict:
+    """The two-stage int8 search at op level (`cosine_topk_int8`, no engine
+    path routes to it): 1M x 1024, Q = 256, k = 10, overfetch 4, with a
+    bf16 full-precision copy for the rescore. Returns its launches."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.topk import cosine_topk_ref
+    from reverso_tpu_torch.ops.topk_int8 import (cosine_topk_int8, quantize_queries,
+                                                 rescore, topk_int8_rows_ref)
+
+    xf, v8, sc, qf = data
+    full = xf.to(torch.bfloat16)
+    kernels.reset_counts()
+    s, i = cosine_topk_int8(v8, sc, full, qf, 10)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches["topk_int8_rows"] > 0, "K12 never launched on the two-stage search")
+    _, cand = topk_int8_rows_ref(v8, sc, *quantize_queries(qf), 40)
+    rs, ri = rescore(full, qf, cand, 10)
+    check(torch.equal(i, ri) and torch.equal(s, rs),
+          "two-stage search differs from its plain pipeline")
+    _, exact = cosine_topk_ref(xf, qf, 10)
+    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in
+                            zip(i.cpu().tolist(), exact.cpu().tolist())]))
+    check(recall >= 0.95, f"two-stage int8 recall@10 {recall} < 0.95")
+    check(i[0, :2].tolist() == [3, 777_777], f"two-stage tie order {i[0, :2].tolist()}")
+    ms = cuda_ms(lambda: cosine_topk_int8(v8, sc, full, qf, 10))
+    print(f"two-stage int8 search: recall@10 vs exact fp32 {recall}, {ms:.4f} ms per "
+          f"Q=256 batch, launches {launches['topk_int8_rows']}", flush=True)
+    return launches
+
+
 def tower_check() -> None:
-    """Depth-2 PE-Core-L14-336, fp32: kernels on the card vs plain on CPU."""
+    """Depth-2 PE-Core-L14-336, fp32: kernels on the card vs plain on CPU,
+    the embeddings and the ROI region embeddings of `encode_regions`."""
     from reverso_tpu_torch.config import MODEL_PRESETS
     from reverso_tpu_torch.models.pe import PerceptionEncoder
 
     cfg = dataclasses.replace(MODEL_PRESETS["PE-Core-L14-336"], depth=2,
                               dtype="float32")
-    imgs = np.random.default_rng(1).standard_normal(
-        (2, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
-    gpu = PerceptionEncoder(cfg, seed=3, device="cuda").encode_image(imgs)
-    cpu = PerceptionEncoder(cfg, seed=3, device="cpu").encode_image(imgs)
+    rng = np.random.default_rng(1)
+    imgs = rng.standard_normal((2, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    gpu_enc = PerceptionEncoder(cfg, seed=3, device="cuda")
+    cpu_enc = PerceptionEncoder(cfg, seed=3, device="cpu")
+    gpu, cpu = gpu_enc.encode_image(imgs), cpu_enc.encode_image(imgs)
     err = float(np.abs(gpu - cpu).max())
     cos = float((gpu * cpu).sum(1).min())
     print(f"tower depth-2 fp32 card vs cpu: max abs err {err}, min cosine {cos}",
@@ -383,6 +534,24 @@ def tower_check() -> None:
     check(gpu.shape == (2, cfg.embed_dim) and np.isfinite(gpu).all(),
           "tower output shape/finite")
     check(err <= 1e-4 and cos >= 0.99999, "tower: card and CPU disagree")
+    # ROI pooling: pixel masks (a box, scattered pixels, an empty mask) and
+    # soft pooled ones, the 24 x 24 grid
+    g = cfg.grid_size
+    masks = np.zeros((2, 4, cfg.image_size, cfg.image_size), np.float32)
+    masks[:, 0, 20:200, 50:300] = 1
+    masks[:, 1] = rng.random((2, cfg.image_size, cfg.image_size)) < 0.2
+    masks[:, 3, 300:, :] = 1
+    pooled = rng.random((2, 3, g * g)).astype(np.float32)
+    pooled *= pooled > 0.5
+    for m in (masks, pooled):
+        (gg, gr), (cg, cr) = gpu_enc.encode_regions(imgs, m), cpu_enc.encode_regions(imgs, m)
+        err = max(float(np.abs(gg - cg).max()), float(np.abs(gr - cr).max()))
+        print(f"encode_regions depth-2 fp32 card vs cpu, masks {m.shape}: max abs err {err}",
+              flush=True)
+        check(gr.shape == (2, m.shape[1], cfg.embed_dim) and np.isfinite(gr).all(),
+              "encode_regions shape/finite")
+        check(err <= 1e-4, "encode_regions: card and CPU disagree")
+        check(float(np.abs(gr[:, 0] - gr[:, 1]).max()) > 1e-3, "regions pool alike")
 
 
 def vit_long_check() -> dict:
@@ -591,6 +760,73 @@ def slice_run(root: str) -> dict:
     return launches
 
 
+def int8_slice_run(root: str) -> dict:
+    """The direct-embed path with `ModelConfig.quant="int8"`: the same 256
+    images, seed and weights as `slice_run`'s bf16 build, held against it."""
+    from PIL import Image
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.compat import SimpleReverso
+    from reverso_tpu_torch.config import StoreConfig, default_config
+    from reverso_tpu_torch.engine import Reverso
+    from reverso_tpu_torch.store import VectorStore
+
+    folder = os.path.join(root, "images")
+    cfg = default_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, quant="int8"),
+                      store=StoreConfig(root_dir=os.path.join(root, "db_int8")))
+    sr = SimpleReverso(cfg, device="cuda")
+    engine = sr._engine
+    check(all(blk.mlp.quant for blk in engine.encoder.module.blocks),
+          "quant='int8' did not reach the tower's MLPs")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    transcript = sr.create_database(folder, "smoke_int8", use_direct_pe=True)
+    build_s = time.perf_counter() - t0
+    check("ready for searching" in transcript, f"int8 build failed:\n{transcript}")
+    print(sr.load_database("smoke_int8"), flush=True)
+    tie_tol = 5e-3
+    for j in (0, 101):
+        fname = f"img_{j:04d}.png"
+        sr.process_image_direct_pe(Image.open(os.path.join(folder, fname)))
+        text, items = sr.search_similar(0.0, 5)
+        own = [it for it in items if it["filename"] == fname]
+        check(bool(own) and own[0]["score"] >= items[0]["score"] - tie_tol,
+              f"int8 {fname}: own row not at rank 0 within {tie_tol}:\n{text}")
+    launches = dict(kernels.launches)
+    print(f"launches on the int8 direct-embed path: {launches}", flush=True)
+    check(launches["fused_mlp_int8"] > 0, "fused_mlp_int8 never launched on the int8 path")
+    check(launches["fused_mlp"] == 0, "the int8 tower launched the bf16 MLP kernel")
+    for name in ("flash_heads", "topk_stream"):
+        check(launches[name] > 0, f"kernel {name} never launched on the int8 path")
+
+    def by_name(root_dir, db):
+        st = VectorStore.open(root_dir, db)
+        names = [p["filename"] for p in st.payloads(list(range(st.count)))]
+        return np.asarray(st.vectors())[np.argsort(names)], sorted(names)
+
+    v8, names8 = by_name(cfg.store.root_dir, "smoke_int8")
+    vb, names_b = by_name(os.path.join(root, "db"), "smoke")
+    check(names8 == names_b and np.isfinite(v8).all(), "int8 store rows")
+    cos = (v8 * vb).sum(1)
+    # each image's top-10 in its own store, the int8 build against the bf16 one
+    qsel = np.arange(0, 256, 4)
+    top8 = np.argsort(-(v8[qsel] @ v8.T), axis=1, kind="stable")[:, :10]
+    topb = np.argsort(-(vb[qsel] @ vb.T), axis=1, kind="stable")[:, :10]
+    overlap = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(top8, topb)]))
+    bf16_cfg = default_config().replace(store=StoreConfig(root_dir=os.path.join(root, "db")))
+    bf16_engine = Reverso(bf16_cfg, device="cuda")
+    bf16_engine.load_database("smoke")
+    _, ids8 = engine.search_batch(v8[qsel], 10)
+    _, idsb = bf16_engine.search_batch(vb[qsel], 10)
+    engine_overlap = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids8, idsb)]))
+    out = dict(min_cosine_vs_bf16=float(cos.min()), mean_cosine_vs_bf16=float(cos.mean()),
+               top10_overlap_vs_bf16=overlap, engine_top10_overlap_vs_bf16=engine_overlap,
+               build_s=build_s, embed_img_s=engine.metrics.rate("embed"))
+    print(f"int8 slice: {json.dumps(out)}", flush=True)
+    check(float(cos.min()) >= 0.98, f"int8 rows drift from the bf16 build: {cos.min()}")
+    return launches
+
+
 def make_photos(folder: str, n: int, seed: int) -> None:
     """`n` seeded PNGs of mixed orientation (640x480 and 480x640)."""
     from PIL import Image
@@ -779,6 +1015,82 @@ def region_run(root: str) -> dict:
                append_s=m.seconds.get("append", 0.0),
                dino_batch4_ms=dino_ms, sam_batch4_8boxes_ms=sam_ms, rows=int(vecs.shape[0]))
     print(f"region slice: {json.dumps(out)}", flush=True)
+    return launches, det
+
+
+def roi_run(root: str, det) -> dict:
+    """ROI pooling at full width: `region_embed_mode="region"` over the same
+    32 photos and seeded detector as `region_run`."""
+    from PIL import Image
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.compat import SimpleReverso
+    from reverso_tpu_torch.config import StoreConfig, default_config
+    from reverso_tpu_torch.store import VectorStore
+
+    folder = os.path.join(root, "photos")
+    n_img, max_regions = 32, det.cfg.max_regions
+    cfg = default_config()
+    cfg = cfg.replace(store=StoreConfig(root_dir=os.path.join(root, "roi_db")),
+                      detector=det.cfg,
+                      ingest=dataclasses.replace(cfg.ingest, region_embed_mode="region"))
+    sr = SimpleReverso(cfg, detector=det, device="cuda")
+    engine = sr._engine
+    engine.encoder
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    transcript = sr.create_database(folder, "roi", text_prompt="person . car . building")
+    build_s = time.perf_counter() - t0
+    check("ready for searching" in transcript, f"ROI build failed:\n{transcript}")
+    print(sr.load_database("roi"), flush=True)
+    store = VectorStore.open(cfg.store.root_dir, "roi")
+    vecs = np.asarray(store.vectors())
+    check(vecs.shape == (n_img * max_regions, cfg.model.embed_dim) and np.isfinite(vecs).all(),
+          f"stored ROI vectors {vecs.shape}")
+    check(np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-3),
+          "stored ROI vectors are not unit norm")
+    names = [p["filename"] for p in store.payloads(list(range(store.count)))]
+    distinct = {nm: len({tuple(np.round(v, 4)) for v, m in zip(vecs, names) if m == nm})
+                for nm in set(names)}
+    tie_tol = 5e-3
+    per_query = []
+    for j in (0, 5, 18, 31):
+        fname = f"photo_{j:03d}.png"
+        img = Image.open(os.path.join(folder, fname))
+        n = sr.detect_regions(img, "person . car . building")
+        embs, metas = sr.extract_embeddings(img)
+        check(len(embs) == n == max_regions, f"{fname}: {len(embs)} ROI embeddings")
+        e = np.stack(embs)
+        per_query.append(len({tuple(np.round(v, 4)) for v in e}))
+        text, items = sr.search_similar(0.0, max_regions)
+        own = [it for it in items if it["filename"] == fname]
+        check(bool(own) and own[0]["score"] >= items[0]["score"] - tie_tol,
+              f"ROI {fname}: own rows not at rank 0 within {tie_tol}:\n{text}")
+    # The PE pool attends over a mask's support (patch cells with any mask
+    # pixel), so regions whose masks touch the same cells pool alike; this
+    # random-init SAM's masks may touch every cell. The same ROI query with
+    # eight horizontal bands as the masks: one embedding per distinct support.
+    regions = engine.detected_regions
+    cover = [float(np.mean(m)) for m in regions.masks]
+    bands = np.zeros_like(regions.masks)
+    h = bands.shape[1]
+    for r in range(len(bands)):
+        bands[r, r * h // len(bands):(r + 1) * h // len(bands)] = True
+    engine.detected_regions = dataclasses.replace(regions, masks=bands)
+    e = np.stack(sr.extract_embeddings(img)[0])
+    supports = len({tuple(r) for r in engine.encoder.pool_masks([bands], max_regions)[0] > 0})
+    distinct_embs = len({tuple(np.round(v, 4)) for v in e})
+    launches = dict(kernels.launches)
+    print(f"launches on the ROI path: {launches}", flush=True)
+    for name in ("ms_deform", "flash_attn_relbias", "flash_heads", "fused_mlp", "topk_stream"):
+        check(launches[name] > 0, f"kernel {name} never launched on the ROI path")
+    out = dict(build_s=build_s, rows=int(vecs.shape[0]),
+               distinct_rows_per_image_min=min(distinct.values()),
+               distinct_rows_per_image_max=max(distinct.values()),
+               distinct_query_regions=per_query, last_query_mask_cover=cover,
+               band_mask_supports=supports, band_mask_distinct_embeddings=distinct_embs,
+               roi_embed_img_s=engine.metrics.rate("roi_embed"))
+    print(f"roi slice: {json.dumps(out)}", flush=True)
+    check(distinct_embs == supports >= 2, "distinct regions gave one embedding")
     return launches
 
 
@@ -1196,13 +1508,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.update(phase("kernels (capacity)", capacity_kernel_checks, torch, gen))
     torch.cuda.empty_cache()
+    int8_rows, int8_data = phase("kernels (int8)", int8_kernel_checks, torch, gen)
+    rows.update(int8_rows)
+    two_stage_launches = phase("two-stage int8 search", int8_search_run, torch, int8_data)
+    del int8_data
+    torch.cuda.empty_cache()
     phase("tower parity", tower_check)
     long_launches = phase("vit 504 parity", vit_long_check)
     with tempfile.TemporaryDirectory() as root:
         phase("detector parity", detector_parity, root)
         torch.cuda.empty_cache()
         direct_launches = phase("direct-embed slice", slice_run, root)
-        region_launches = phase("region slice", region_run, root)
+        int8_launches = phase("int8 direct-embed slice", int8_slice_run, root)
+        region_launches, det = phase("region slice", region_run, root)
+        phase("ROI slice", roi_run, root, det)
+        del det
         torch.cuda.empty_cache()
         capacity_launches = phase("capacity slice", capacity_run, root)
 
@@ -1211,9 +1531,20 @@ def main() -> int:
                "topk_stream": direct_launches, "flash_attn": long_launches,
                "flash_attn_relbias": region_launches, "ms_deform": region_launches,
                "topk_masked": capacity_launches, "topk_int8": capacity_launches,
-               "topk_binary": capacity_launches, "ivf_scan": capacity_launches}
+               "topk_binary": capacity_launches, "ivf_scan": capacity_launches,
+               "fused_mlp_int8": int8_launches, "topk_int8_rows": two_stage_launches}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
+    # the order to redesign kernels in: first those one PyTorch call beats,
+    # by how many times; then the rest by launches x (ms - bound_ms)
+    behind = sorted(((r["ms"] / r["library_ms"], name) for name, r in rows.items()
+                     if r["library_ms"] and r["ms"] > r["library_ms"]), reverse=True)
+    slow = {name for _, name in behind}
+    rest = sorted(((path_of[name][name] * (r["ms"] - r["bound_ms"]), name)
+                   for name, r in rows.items() if name not in slow), reverse=True)
+    print("redesign order: behind one PyTorch call "
+          f"{[(name, round(f, 2)) for f, name in behind]}; then by launches x "
+          f"(ms - bound_ms) {[(name, round(v, 1)) for v, name in rest]}", flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape", "library")
     print(json.dumps({"kernels": [

@@ -406,7 +406,386 @@ static int launch_fused_mlp_tc(const void* x, const void* w1, const void* b1,
     return (int)cudaGetLastError();
 }
 
+// ---- int8 variant (K5) ------------------------------------------------------
+//
+// Replaces: reverso_tpu/ops/fused_mlp.py::_fused_mlp_int8_kernel (entry
+// fused_mlp(quant=True), ModelConfig.quant="int8"). x [T, W] (bf16 or fp32)
+// is quantized per row, W1 [Hp, Wp] and W2 [Wn, Hp] arrive quantized per
+// output unit and zero-padded (ops/fused_mlp.py::_kernel_weights), s1/s2
+// are their f32 scales, b1/b2 the dtype-rounded biases in f32.
+//
+// What bounds it on the H100: 4 * T * W * H int8 operations (77.4 G at
+// T = 4616, W = 1024, H = 4096: 0.039 ms at 1979 TOP/s) against 2 * T * W
+// activation elements and 2 * W * H weight bytes: operations.
+//
+// What the design does about it:
+//   * one CTA owns BM = 32 rows (16 for W > 1024): it quantizes its x rows
+//     once into shared memory (per-row amax, `127 / amax` divided once,
+//     round half to even, clamp to +-127) and keeps a [BM, W] fp32
+//     accumulator there (128 KB at W = 1024);
+//   * the hidden dimension streams in 512-wide chunks, the reference's
+//     re-quantization unit: s8 tensor-core products (WMMA 16x16x16, s32
+//     accumulate) of the resident x8 against W1 tiles streaming through a
+//     two-stage cp.async ring give the chunk's exact s32 h; each element is
+//     dequantized as f32(s32) * (xs * s1) + b1, activated, and parked as
+//     fp32 in shared memory (64 KB), so each row's amax over the chunk is
+//     exact before the chunk is re-quantized to int8;
+//   * the second product streams W2 tiles the same way, 128 output columns
+//     at a time; each warp owns one 16-column slice, dequantizes its s32
+//     tile and adds it to the accumulator as acc + f32(s32) * (hs * s2);
+//   * every multiply and add is written __fmul_rn / __fadd_rn: nvcc would
+//     contract a*b+c into one FMA, one rounding fewer than the reference,
+//     and an ulp at a rounding boundary flips an int8 quantum;
+//   * gelu is the Abramowitz & Stegun erf polynomial of the reference's
+//     int8 kernel, not erff (they differ by up to 1.5e-7);
+//   * shared memory is one union for the W1 ring, the fp32 h chunk and
+//     (h8, the W2 ring, the per-warp s32 tiles): 230 KB at BM = 32,
+//     W = 1024, so one CTA per SM. No wgmma, no TMA: a simple kernel.
+constexpr int Q8_CHUNK = 512;            // hidden re-quantization unit
+constexpr int Q8_LDH = Q8_CHUNK + 4;     // fp32 row stride of the h chunk
+constexpr int Q8_BK1 = 64;               // bytes of W per first-product stage
+constexpr int Q8_BN = 128;               // output columns per second-product block
+constexpr int Q8_BK2 = 128;              // hidden bytes per second-product stage
+constexpr int Q8_WARPS = MLP_THREADS / 32;
+constexpr int Q8_STAGE1 = Q8_CHUNK * Q8_BK1;   // bytes
+constexpr int Q8_STAGE2 = Q8_BN * Q8_BK2;      // bytes
+
+// the reference's constants, as its Python floats rounded to f32
+constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
+constexpr float kSqrtHalf = static_cast<float>(0.7071067811865476);
+constexpr float kErfP = static_cast<float>(0.3275911);
+constexpr float kErfA1 = static_cast<float>(0.254829592);
+constexpr float kErfA2 = static_cast<float>(-0.284496736);
+constexpr float kErfA3 = static_cast<float>(1.421413741);
+constexpr float kErfA4 = static_cast<float>(-1.453152027);
+constexpr float kErfA5 = static_cast<float>(1.061405429);
+constexpr float kQuickGeluScale = static_cast<float>(1.702);
+
+__host__ __device__ inline int round_up(int a, int b) { return ceil_div(a, b) * b; }
+
+// gelu with erf from A&S 7.1.26, op for op as the reference: every product
+// and sum rounded on its own
+__device__ __forceinline__ float gelu_as(float x) {
+    const float z = __fmul_rn(x, kSqrtHalf);
+    const float sign = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
+    const float az = fabsf(z);
+    const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(kErfP, az)));
+    float p = __fadd_rn(kErfA4, __fmul_rn(t, kErfA5));
+    p = __fadd_rn(kErfA3, __fmul_rn(t, p));
+    p = __fadd_rn(kErfA2, __fmul_rn(t, p));
+    p = __fadd_rn(kErfA1, __fmul_rn(t, p));
+    p = __fmul_rn(t, p);
+    const float erf = __fmul_rn(sign, __fsub_rn(1.f, __fmul_rn(p, expf(__fmul_rn(-az, az)))));
+    return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, erf));
+}
+
+__device__ __forceinline__ float q8_act(float x, int act) {
+    if (act == kGelu) return gelu_as(x);
+    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(kQuickGeluScale, x))));
+    return __fmul_rn(x, sig);
+}
+
+// round(v * inv) half to even, clamped to +-127
+__device__ __forceinline__ int quant8(float v, float inv) {
+    return static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    return v;
+}
+
+struct Q8Layout {   // byte offsets into dynamic shared memory
+    size_t acc, xq, xs, hs, hinv, u, total;
+};
+
+__host__ __device__ inline Q8Layout q8_layout(int BM, int W) {
+    Q8Layout L;
+    size_t o = 0;
+    L.acc = o;  o += align128((size_t)BM * W * sizeof(float));
+    L.xq = o;   o += align128((size_t)BM * round_up(W, Q8_BK1));
+    L.xs = o;   o += align128(BM * sizeof(float));
+    L.hs = o;   o += align128(BM * sizeof(float));
+    L.hinv = o; o += align128(BM * sizeof(float));
+    // union: the W1 ring | the fp32 h chunk | h8 + the W2 ring + s32 tiles
+    const size_t u1 = 2 * (size_t)Q8_STAGE1;
+    const size_t u2 = (size_t)BM * Q8_LDH * sizeof(float);
+    const size_t u3 = (size_t)BM * Q8_CHUNK + 2 * (size_t)Q8_STAGE2 +
+                      (size_t)Q8_WARPS * BM * 16 * sizeof(int);
+    L.u = o;    o += align128(u1 > u2 ? (u1 > u3 ? u1 : u3) : (u2 > u3 ? u2 : u3));
+    L.total = o;
+    return L;
+}
+
+// W1[c0 : c0+CHUNK, k0 : k0+BK1] -> one stage, [BK1/16][CHUNK][16 B]
+__device__ __forceinline__ void q8_load_w1(signed char* st, const signed char* w1,
+                                           int c0, int k0, int Wp, int tid) {
+    for (int v = tid; v < Q8_CHUNK * (Q8_BK1 / 16); v += MLP_THREADS) {
+        const int n = v / (Q8_BK1 / 16), kc = v % (Q8_BK1 / 16);
+        cp_async16(st + ((size_t)kc * Q8_CHUNK + n) * 16,
+                   w1 + (size_t)(c0 + n) * Wp + k0 + kc * 16, true);
+    }
+    cp_async_commit();
+}
+
+// W2[n0 : n0+BN, h0 : h0+BK2] -> one stage, [BK2/16][BN][16 B]
+__device__ __forceinline__ void q8_load_w2(signed char* st, const signed char* w2,
+                                           int n0, int h0, int Hp, int tid) {
+    for (int v = tid; v < Q8_BN * (Q8_BK2 / 16); v += MLP_THREADS) {
+        const int n = v / (Q8_BK2 / 16), kc = v % (Q8_BK2 / 16);
+        cp_async16(st + ((size_t)kc * Q8_BN + n) * 16,
+                   w2 + (size_t)(n0 + n) * Hp + h0 + kc * 16, true);
+    }
+    cp_async_commit();
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(MLP_THREADS)
+fused_mlp_int8_kernel(const T* __restrict__ x, const signed char* __restrict__ w1,
+                      const float* __restrict__ s1, const float* __restrict__ b1,
+                      const signed char* __restrict__ w2, const float* __restrict__ s2,
+                      const float* __restrict__ b2, T* __restrict__ out, int T_rows,
+                      int W, int H, int act) {
+    using namespace nvcuda;
+    constexpr int RF = BM / 16;                                // row fragments
+    constexpr int NG = BM * Q8_CHUNK / 4 / MLP_THREADS;        // 4-byte groups per thread
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    const Q8Layout L = q8_layout(BM, W);
+    const int Wp = round_up(W, Q8_BK1), Hp = round_up(H, Q8_CHUNK), Wn = round_up(W, Q8_BN);
+    float* acc = reinterpret_cast<float*>(smem_raw + L.acc);               // [BM][W]
+    signed char* xq = reinterpret_cast<signed char*>(smem_raw + L.xq);     // [Wp/16][BM][16]
+    float* xs = reinterpret_cast<float*>(smem_raw + L.xs);
+    float* hs = reinterpret_cast<float*>(smem_raw + L.hs);
+    float* hinv = reinterpret_cast<float*>(smem_raw + L.hinv);
+    unsigned char* u = smem_raw + L.u;
+    signed char* w1st = reinterpret_cast<signed char*>(u);                 // 2 W1 stages
+    int* h32 = reinterpret_cast<int*>(u);                                  // [BM][LDH]
+    float* hf = reinterpret_cast<float*>(u);                               // [BM][LDH]
+    signed char* hq = reinterpret_cast<signed char*>(u);                   // [CHUNK/16][BM][16]
+    signed char* w2st = hq + BM * Q8_CHUNK;                                // 2 W2 stages
+    int* ytile = reinterpret_cast<int*>(w2st + 2 * Q8_STAGE2);             // [warps][BM][16]
+
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int row0 = blockIdx.x * BM;
+
+    for (int idx = tid; idx < BM * W; idx += MLP_THREADS) acc[idx] = 0.f;
+    // x rows -> int8, one warp per row
+    for (int r = warp; r < BM; r += Q8_WARPS) {
+        const int gr = row0 + r;
+        const T* xr = x + (size_t)gr * W;
+        float amax = 0.f;
+        if (gr < T_rows)
+            for (int c = lane; c < W; c += 32) amax = fmaxf(amax, fabsf(to_f<T>(xr[c])));
+        amax = fmaxf(warp_max(amax), 1e-30f);
+        const float inv = __fdiv_rn(127.f, amax);
+        if (lane == 0) xs[r] = __fmul_rn(amax, kInv127);
+        for (int c = lane; c < Wp; c += 32) {
+            const float v = (gr < T_rows && c < W) ? to_f<T>(xr[c]) : 0.f;
+            xq[((c / 16) * BM + r) * 16 + c % 16] = static_cast<signed char>(quant8(v, inv));
+        }
+    }
+
+    const int nK1 = Wp / Q8_BK1;
+    const int nK2 = Q8_CHUNK / Q8_BK2;
+    const int steps2 = (Wn / Q8_BN) * nK2;
+    for (int c0 = 0; c0 < Hp; c0 += Q8_CHUNK) {
+        // ---- h32 = x8 @ W1[c0:c0+CHUNK]^T: warp w owns hidden columns w*64.. ---
+        wmma::fragment<wmma::accumulator, 16, 16, 16, int> hfr[RF][4];
+#pragma unroll
+        for (int fr = 0; fr < RF; ++fr)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) wmma::fill_fragment(hfr[fr][j], 0);
+        __syncthreads();   // x8 written; the last chunk is done with the union
+        q8_load_w1(w1st, w1, c0, 0, Wp, tid);
+        for (int s = 0; s < nK1; ++s) {
+            if (s + 1 < nK1) {
+                q8_load_w1(w1st + ((s + 1) & 1) * Q8_STAGE1, w1, c0, (s + 1) * Q8_BK1, Wp, tid);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            const signed char* st = w1st + (s & 1) * Q8_STAGE1;
+#pragma unroll
+            for (int kc = 0; kc < Q8_BK1 / 16; ++kc) {
+                const int gkc = s * (Q8_BK1 / 16) + kc;
+                wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> afr[RF];
+#pragma unroll
+                for (int fr = 0; fr < RF; ++fr)
+                    wmma::load_matrix_sync(afr[fr], xq + ((size_t)gkc * BM + fr * 16) * 16, 16);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bfr;
+                    wmma::load_matrix_sync(
+                        bfr, st + ((size_t)kc * Q8_CHUNK + (warp * 4 + j) * 16) * 16, 16);
+#pragma unroll
+                    for (int fr = 0; fr < RF; ++fr)
+                        wmma::mma_sync(hfr[fr][j], afr[fr], bfr, hfr[fr][j]);
+                }
+            }
+            __syncthreads();   // this stage is refilled two steps later
+        }
+#pragma unroll
+        for (int fr = 0; fr < RF; ++fr)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                wmma::store_matrix_sync(h32 + fr * 16 * Q8_LDH + (warp * 4 + j) * 16,
+                                        hfr[fr][j], Q8_LDH, wmma::mem_row_major);
+        __syncthreads();
+        // ---- dequantize, bias, activation, in place as fp32 -------------------
+        for (int idx = tid; idx < BM * Q8_CHUNK; idx += MLP_THREADS) {
+            const int r = idx / Q8_CHUNK, c = idx % Q8_CHUNK, gc = c0 + c;
+            const int o = r * Q8_LDH + c;
+            float v = 0.f;
+            if (gc < H) {
+                v = __fmul_rn(__int2float_rn(h32[o]), __fmul_rn(xs[r], s1[gc]));
+                v = q8_act(__fadd_rn(v, b1[gc]), act);
+            }
+            hf[o] = v;
+        }
+        __syncthreads();
+        // ---- each row's amax over the chunk -> its scale and inverse ----------
+        for (int r = warp; r < BM; r += Q8_WARPS) {
+            float m = 0.f;
+            for (int c = lane; c < Q8_CHUNK; c += 32) m = fmaxf(m, fabsf(hf[r * Q8_LDH + c]));
+            m = fmaxf(warp_max(m), 1e-30f);
+            if (lane == 0) {
+                hs[r] = __fmul_rn(m, kInv127);
+                hinv[r] = __fdiv_rn(127.f, m);
+            }
+        }
+        __syncthreads();
+        // ---- h -> int8 in registers, then over the fp32 chunk as h8 ----------
+        unsigned packed[NG];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+            const int e = (tid + g * MLP_THREADS) * 4;
+            const int r = e / Q8_CHUNK, c = e % Q8_CHUNK;
+            const float4 v = *reinterpret_cast<const float4*>(hf + r * Q8_LDH + c);
+            const float inv = hinv[r];
+            packed[g] = (quant8(v.x, inv) & 0xff) | ((quant8(v.y, inv) & 0xff) << 8) |
+                        ((quant8(v.z, inv) & 0xff) << 16) |
+                        (static_cast<unsigned>(quant8(v.w, inv) & 0xff) << 24);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+            const int e = (tid + g * MLP_THREADS) * 4;
+            const int r = e / Q8_CHUNK, c = e % Q8_CHUNK;
+            *reinterpret_cast<unsigned*>(hq + ((c / 16) * BM + r) * 16 + c % 16) = packed[g];
+        }
+        // ---- acc += dequant(h8 @ W2[:, c0:c0+CHUNK]^T): warp w owns columns
+        //      w*16.. of each 128-wide block ---------------------------------
+        q8_load_w2(w2st, w2, 0, c0, Hp, tid);
+        wmma::fragment<wmma::accumulator, 16, 16, 16, int> yfr[RF];
+        int* yt = ytile + warp * BM * 16;
+        for (int g = 0; g < steps2; ++g) {
+            const int nb = g / nK2, ks = g % nK2;
+            if (ks == 0) {
+#pragma unroll
+                for (int fr = 0; fr < RF; ++fr) wmma::fill_fragment(yfr[fr], 0);
+            }
+            if (g + 1 < steps2) {
+                const int nb1 = (g + 1) / nK2, ks1 = (g + 1) % nK2;
+                q8_load_w2(w2st + ((g + 1) & 1) * Q8_STAGE2, w2, nb1 * Q8_BN,
+                           c0 + ks1 * Q8_BK2, Hp, tid);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();   // the stage landed; h8 complete
+            const signed char* st = w2st + (g & 1) * Q8_STAGE2;
+#pragma unroll
+            for (int kc = 0; kc < Q8_BK2 / 16; ++kc) {
+                const int gkc = ks * (Q8_BK2 / 16) + kc;
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bfr;
+                wmma::load_matrix_sync(bfr, st + ((size_t)kc * Q8_BN + warp * 16) * 16, 16);
+#pragma unroll
+                for (int fr = 0; fr < RF; ++fr) {
+                    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> afr;
+                    wmma::load_matrix_sync(afr, hq + ((size_t)gkc * BM + fr * 16) * 16, 16);
+                    wmma::mma_sync(yfr[fr], afr, bfr, yfr[fr]);
+                }
+            }
+            if (ks == nK2 - 1) {
+#pragma unroll
+                for (int fr = 0; fr < RF; ++fr)
+                    wmma::store_matrix_sync(yt + fr * 16 * 16, yfr[fr], 16, wmma::mem_row_major);
+                __syncwarp();
+                const int n0 = nb * Q8_BN + warp * 16;
+                for (int e = lane; e < BM * 16; e += 32) {
+                    const int r = e / 16, n = n0 + e % 16;
+                    if (n < W) {
+                        float* a = acc + (size_t)r * W + n;
+                        *a = __fadd_rn(*a, __fmul_rn(__int2float_rn(yt[e]), __fmul_rn(hs[r], s2[n])));
+                    }
+                }
+                __syncwarp();
+            }
+            __syncthreads();   // this stage is refilled two steps later
+        }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < BM * W; idx += MLP_THREADS) {
+        const int r = idx / W, n = idx % W;
+        const int gr = row0 + r;
+        if (gr < T_rows) out[(size_t)gr * W + n] = from_f<T>(__fadd_rn(acc[idx], b2[n]));
+    }
+}
+
+template <typename T, int BM>
+static int launch_fused_mlp_int8(const void* x, const void* w1, const void* s1,
+                                 const void* b1, const void* w2, const void* s2,
+                                 const void* b2, void* out, int T_rows, int W, int H,
+                                 int act, cudaStream_t stream) {
+    const size_t smem = q8_layout(BM, W).total;
+    cudaError_t err = cudaFuncSetAttribute(fused_mlp_int8_kernel<T, BM>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_mlp_int8_kernel<T, BM><<<ceil_div(T_rows, BM), MLP_THREADS, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const signed char*>(w1),
+        static_cast<const float*>(s1), static_cast<const float*>(b1),
+        static_cast<const signed char*>(w2), static_cast<const float*>(s2),
+        static_cast<const float*>(b2), static_cast<T*>(out), T_rows, W, H, act);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int dispatch_int8(const void* x, const void* w1, const void* s1, const void* b1,
+                         const void* w2, const void* s2, const void* b2, void* out,
+                         int T_rows, int W, int H, int act, cudaStream_t stream) {
+    constexpr size_t kMaxSmem = 232448;
+    if (q8_layout(32, W).total <= kMaxSmem)
+        return launch_fused_mlp_int8<T, 32>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W, H,
+                                            act, stream);
+    if (q8_layout(16, W).total <= kMaxSmem)
+        return launch_fused_mlp_int8<T, 16>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W, H,
+                                            act, stream);
+    return kUnsupported;
+}
+
 }  // namespace rv
+
+extern "C" int rv_fused_mlp_int8(const void* x, const void* w1, const void* s1,
+                                 const void* b1, const void* w2, const void* s2,
+                                 const void* b2, void* out, int T_rows, int W, int H,
+                                 int act, int dtype, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (act != rv::kGelu && act != rv::kQuickGelu) return rv::kUnsupported;
+    // the padded weights' rows start on 16-byte boundaries only from aligned bases
+    if (reinterpret_cast<uintptr_t>(w1) % 16 != 0 || reinterpret_cast<uintptr_t>(w2) % 16 != 0)
+        return rv::kUnsupported;
+    if (dtype == rv::kBFloat16)
+        return rv::dispatch_int8<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W,
+                                                H, act, st);
+    if (dtype == rv::kFloat32)
+        return rv::dispatch_int8<float>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W, H, act,
+                                        st);
+    return rv::kUnsupported;
+}
 
 extern "C" int rv_fused_mlp(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out,

@@ -8,13 +8,19 @@
 //     split into two int8 digits, exact s32 dots (K9);
 //   * its binary mode (entry ops/binary.py::binary_topk_pallas): planar
 //     sign-packed uint8 rows unpacked to +-1 and scored against the bf16
-//     query (K10).
-// Every mode takes the optional [N] uint8 row mask.
+//     query (K10);
+// and reverso_tpu/ops/topk_int8.py::_topk_int8_kernel (entry
+// cosine_topk_int8): int8 rows with per-row f32 scales against one int8
+// digit per query with a per-query scale, the candidate stage of the
+// two-stage search (K12, `rv_topk_int8_rows`).
+// Every mode but K12 takes the optional [N] uint8 row mask.
 //
 // What bounds it on the H100 (published SXM peaks, 700 W), at 1M x 1024,
 // Q = 256: bf16 reads 2.05 GB (0.61 ms at 3.35 TB/s) for 524 GFLOP (0.53 ms
 // at 989 TFLOP/s); int8 reads 1.02 GB (0.31 ms) for 1.05 T int8 operations
-// in two digits (0.53 ms at 1979 TOP/s); binary reads 128 MB (0.04 ms) for
+// in two digits (0.53 ms at 1979 TOP/s); K12 reads 1.02 GB of rows and
+// 4 MB of row scales (0.31 ms) for 0.52 T int8 operations in one digit
+// (0.26 ms), so bytes; binary reads 128 MB (0.04 ms) for
 // 524 GFLOP against the unpacked +-1 rows (0.53 ms). The database is read
 // once per 64-query tile, and the per-tile k-select is serial work on the
 // CUDA cores.
@@ -37,6 +43,10 @@
 //     two roundings (__fmul_rn, __fadd_rn: nvcc would contract a*b+c into
 //     one FMA, one rounding, and the scores would differ from the
 //     reference in the last bit). The per-query scale is applied outside;
+//   * K12: the exact s32 dot on the same s8 tensor-core path, then
+//     (f32(dot) * q_scale) * row_scale with __fmul_rn, the reference's two
+//     roundings in its order (on the TPU the dot ran bf16 on upcast int8,
+//     exact for d <= 1040; the s32 dot is exact for any d);
 //   * binary: the packed [RT, W] row tile is staged once, and each d step
 //     unpacks its [RT, 64] slice to +-1 bf16 (plane j of dim t = j*W + b
 //     is bit j of byte b, so no interleave) for the bf16 WMMA path;
@@ -328,21 +338,23 @@ __host__ __device__ inline size_t topk_i8_smem(int k) {
     return topk_tc_state_bytes(k) + 2 * (size_t)I8_STAGE + 2 * SC_BYTES + TOPK_RT;
 }
 
-// op 0/1: query digit planes, op 2: rows. `vec` (D % 16 == 0 and 16-byte
-// aligned bases) copies with cp.async; otherwise byte by byte, zero past D.
+// ops 0 .. ND-1: query digit planes, op ND: rows. `vec` (D % 16 == 0 and
+// 16-byte aligned bases) copies with cp.async; otherwise byte by byte, zero
+// past D.
+template <int ND>
 __device__ __forceinline__ void i8_load_stage(signed char* stage,
                                               const signed char* qd,
                                               const signed char* db, int q0,
                                               int Q, int r0, int nr, int k0,
                                               int D, bool vec, int tid) {
-    for (int v = tid; v < 3 * TOPK_RT * I8_CH; v += TOPK_THREADS) {
+    for (int v = tid; v < (ND + 1) * TOPK_RT * I8_CH; v += TOPK_THREADS) {
         const int op = v / (TOPK_RT * I8_CH), rem = v % (TOPK_RT * I8_CH);
         const int r = rem / I8_CH, kc = rem % I8_CH;
         signed char* dst = stage + ((op * I8_CH + kc) * TOPK_RT + r) * 16;
         const int gk = k0 + kc * 16;
-        const bool row_ok = op < 2 ? q0 + r < Q : r < nr;
-        const signed char* src = op < 2 ? qd + ((size_t)op * Q + q0 + r) * D + gk
-                                        : db + (size_t)(r0 + r) * D + gk;
+        const bool row_ok = op < ND ? q0 + r < Q : r < nr;
+        const signed char* src = op < ND ? qd + ((size_t)op * Q + q0 + r) * D + gk
+                                         : db + (size_t)(r0 + r) * D + gk;
         if (vec) {
             const bool ok = row_ok && gk < D;
             cp_async16(dst, ok ? src : db, ok);
@@ -353,9 +365,15 @@ __device__ __forceinline__ void i8_load_stage(signed char* stage,
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// ND = 2: K9, two query digits, scored f32(hi) * 254 + f32(lo) (the caller
+// scales); ND = 1: K12, one query digit against rows with their own scales,
+// scored (f32(dot) * q_scale[q]) * row_scale[r], rounded after each multiply.
+template <int ND>
 __global__ void __launch_bounds__(TOPK_THREADS)
 topk_scan_i8_kernel(const signed char* __restrict__ db,
                     const signed char* __restrict__ qd,
+                    const float* __restrict__ q_scale,
+                    const float* __restrict__ row_scale,
                     const unsigned char* __restrict__ mask, int D, int Q,
                     int n_valid, int k, int rows_per_split, bool vec,
                     float* __restrict__ part_s, int* __restrict__ part_i) {
@@ -382,8 +400,8 @@ topk_scan_i8_kernel(const signed char* __restrict__ db,
 
     init_state(st_s, st_i, k, tid);
     if (steps > 0)
-        i8_load_stage(ring, qd, db, q0, Q, r_begin, min(TOPK_RT, r_end - r_begin), 0,
-                      D, vec, tid);
+        i8_load_stage<ND>(ring, qd, db, q0, Q, r_begin, min(TOPK_RT, r_end - r_begin), 0,
+                          D, vec, tid);
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc_hi[2], acc_lo[2];
     for (int g = 0; g < steps; ++g) {
@@ -401,8 +419,8 @@ topk_scan_i8_kernel(const signed char* __restrict__ db,
         if (g + 1 < steps) {
             const int t1 = (g + 1) / nK, s1 = (g + 1) % nK;
             const int r1 = r_begin + t1 * TOPK_RT;
-            i8_load_stage(ring + ((g + 1) & 1) * I8_STAGE, qd, db, q0, Q, r1,
-                          min(TOPK_RT, r_end - r1), s1 * I8_BK, D, vec, tid);
+            i8_load_stage<ND>(ring + ((g + 1) & 1) * I8_STAGE, qd, db, q0, Q, r1,
+                              min(TOPK_RT, r_end - r1), s1 * I8_BK, D, vec, tid);
             asm volatile("cp.async.wait_group 1;\n" ::);
         } else {
             asm volatile("cp.async.wait_group 0;\n" ::);
@@ -413,14 +431,15 @@ topk_scan_i8_kernel(const signed char* __restrict__ db,
         for (int kc = 0; kc < I8_CH; ++kc) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a_hi, a_lo;
             wmma::load_matrix_sync(a_hi, st + ((0 * I8_CH + kc) * TOPK_RT + fq * 16) * 16, 16);
-            wmma::load_matrix_sync(a_lo, st + ((1 * I8_CH + kc) * TOPK_RT + fq * 16) * 16, 16);
+            if (ND == 2)
+                wmma::load_matrix_sync(a_lo, st + ((1 * I8_CH + kc) * TOPK_RT + fq * 16) * 16, 16);
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
                 wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bfr;
                 wmma::load_matrix_sync(
-                    bfr, st + ((2 * I8_CH + kc) * TOPK_RT + (fr0 + j) * 16) * 16, 16);
+                    bfr, st + ((ND * I8_CH + kc) * TOPK_RT + (fr0 + j) * 16) * 16, 16);
                 wmma::mma_sync(acc_hi[j], a_hi, bfr, acc_hi[j]);
-                wmma::mma_sync(acc_lo[j], a_lo, bfr, acc_lo[j]);
+                if (ND == 2) wmma::mma_sync(acc_lo[j], a_lo, bfr, acc_lo[j]);
             }
         }
         if (s == nK - 1) {
@@ -428,16 +447,23 @@ topk_scan_i8_kernel(const signed char* __restrict__ db,
             for (int j = 0; j < 2; ++j) {
                 const int o = fq * 16 * TC_LDS + (fr0 + j) * 16;
                 wmma::store_matrix_sync(dot_hi + o, acc_hi[j], TC_LDS, wmma::mem_row_major);
-                wmma::store_matrix_sync(dot_lo + o, acc_lo[j], TC_LDS, wmma::mem_row_major);
+                if (ND == 2)
+                    wmma::store_matrix_sync(dot_lo + o, acc_lo[j], TC_LDS, wmma::mem_row_major);
             }
             __syncwarp();
             // the warp's own 16 x 32 block: exact s32 dots -> one f32 score,
-            // rounded after the multiply and again after the add
+            // rounded after each multiply and add
             for (int e = lane; e < 16 * 32; e += 32) {
-                const int o = (fq * 16 + e / 32) * TC_LDS + fr0 * 16 + e % 32;
+                const int qq = fq * 16 + e / 32, rr = fr0 * 16 + e % 32;
+                const int o = qq * TC_LDS + rr;
                 const float hi = __int2float_rn(dot_hi[o]);
-                const float lo = __int2float_rn(dot_lo[o]);
-                sc[o] = __fadd_rn(__fmul_rn(hi, 254.f), lo);
+                if (ND == 2) {
+                    sc[o] = __fadd_rn(__fmul_rn(hi, 254.f), __int2float_rn(dot_lo[o]));
+                } else {
+                    const float qsc = q0 + qq < Q ? q_scale[q0 + qq] : 0.f;
+                    const float rsc = rr < nr ? row_scale[r0 + rr] : 0.f;
+                    sc[o] = __fmul_rn(__fmul_rn(hi, qsc), rsc);
+                }
             }
             __syncthreads();
             kselect_tile(sc, TC_LDS, st_s, st_i, k, nr, r0, q0, Q, warp, lane,
@@ -569,6 +595,14 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_s,
     }
 }
 
+static int launch_merge(const float* part_s, const int* part_i, int Q, int k,
+                        int n_splits, void* out_s, void* out_i, cudaStream_t stream) {
+    topk_merge_kernel<<<Q, 32, n_splits * sizeof(int), stream>>>(
+        part_s, part_i, Q, k, n_splits, static_cast<float*>(out_s),
+        static_cast<int*>(out_i));
+    return (int)cudaGetLastError();
+}
+
 template <typename Kernel, typename... Args>
 static int launch_smem(Kernel kernel, size_t smem, int Q, int n_splits,
                        cudaStream_t stream, Args... args) {
@@ -622,10 +656,10 @@ static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
     else if (mode == kInt8) {
         const bool vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(db) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(q) % 16 == 0;
-        status = launch_smem(topk_scan_i8_kernel, topk_i8_smem(k), Q, n_splits, stream,
+        status = launch_smem(topk_scan_i8_kernel<2>, topk_i8_smem(k), Q, n_splits, stream,
                              static_cast<const signed char*>(db),
-                             static_cast<const signed char*>(q), mask, D, Q, n_valid,
-                             k, rows_per_split, vec, part_s, part_i);
+                             static_cast<const signed char*>(q), nullptr, nullptr, mask,
+                             D, Q, n_valid, k, rows_per_split, vec, part_s, part_i);
     }
     else if (mode == kBinaryPacked && D <= BIN_WMAX)
         status = launch_smem(topk_scan_bin_kernel, topk_bin_smem(k, D), Q, n_splits,
@@ -635,10 +669,30 @@ static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
     else
         return kUnsupported;
     if (status != 0) return status;
-    topk_merge_kernel<<<Q, 32, n_splits * sizeof(int), stream>>>(
-        part_s, part_i, Q, k, n_splits, static_cast<float*>(out_s),
-        static_cast<int*>(out_i));
-    return (int)cudaGetLastError();
+    return launch_merge(part_s, part_i, Q, k, n_splits, out_s, out_i, stream);
+}
+
+// K12's stage 1: int8 rows [n_valid.., D] with per-row f32 scales against
+// one int8 digit per query [Q, D] with per-query f32 scales.
+static int launch_topk_int8_rows(const void* db, const void* q, const void* q_scale,
+                                 const void* row_scale, int D, int Q, int n_valid, int k,
+                                 int n_splits, void* part_s_v, void* part_i_v, void* out_s,
+                                 void* out_i, cudaStream_t stream) {
+    if (k < 1 || k > TOPK_KMAX || n_splits < 1 || D < 1) return kUnsupported;
+    auto* part_s = static_cast<float*>(part_s_v);
+    auto* part_i = static_cast<int*>(part_i_v);
+    int rows_per_split = ceil_div(max(n_valid, 1), n_splits);
+    rows_per_split = ceil_div(rows_per_split, TOPK_RT) * TOPK_RT;
+    const bool vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(db) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    const int status = launch_smem(
+        topk_scan_i8_kernel<1>, topk_i8_smem(k), Q, n_splits, stream,
+        static_cast<const signed char*>(db), static_cast<const signed char*>(q),
+        static_cast<const float*>(q_scale), static_cast<const float*>(row_scale),
+        static_cast<const unsigned char*>(nullptr), D, Q, n_valid, k, rows_per_split, vec,
+        part_s, part_i);
+    if (status != 0) return status;
+    return launch_merge(part_s, part_i, Q, k, n_splits, out_s, out_i, stream);
 }
 
 }  // namespace rv
@@ -649,4 +703,13 @@ extern "C" int rv_topk_stream(const void* db, const void* q, const void* mask,
                               int mode, void* stream) {
     return rv::launch_topk(db, q, mask, D, Q, n_valid, k, n_splits, part_s, part_i,
                            out_s, out_i, mode, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rv_topk_int8_rows(const void* db, const void* q, const void* q_scale,
+                                 const void* row_scale, int D, int Q, int n_valid, int k,
+                                 int n_splits, void* part_s, void* part_i, void* out_s,
+                                 void* out_i, void* stream) {
+    return rv::launch_topk_int8_rows(db, q, q_scale, row_scale, D, Q, n_valid, k, n_splits,
+                                     part_s, part_i, out_s, out_i,
+                                     static_cast<cudaStream_t>(stream));
 }

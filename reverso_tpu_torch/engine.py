@@ -5,7 +5,8 @@ regions ->) PE-Core embeddings -> durable store -> exact cosine top-k.
 Database management, `create_database` through the shared ingest
 pipeline, `process_image_direct_pe`, `detect_regions`,
 `extract_embeddings` (compat mode: each region carries its image's
-global embedding, as the reference does), `search_similar` and
+global embedding, as the reference does; region mode: masked ROI pooling
+of each region from one forward), `search_similar` and
 `search_batch` (with payload `filter=`), `count` and the index routing of
 `_get_index` — the exact index in bf16/fp32/int8, binary quantization
 with rescore, IVF, deleted vectors — carry the JAX package's method bodies
@@ -14,9 +15,9 @@ CUDA top-k and IVF kernels.
 
 Everything runs on one device: CUDA unless the caller asks for the CPU
 (`device="cpu"`, or an encoder built on the CPU). Parts of the JAX engine
-not ported yet (ROI pooling, the micro-batching searcher, PQ, the host and
-multivector indexes, euclid/manhattan, point mutations, meshes) raise
-rather than run a different path.
+not ported yet (the micro-batching searcher, PQ, the host and multivector
+indexes, euclid/manhattan, point mutations, meshes) raise rather than run
+a different path.
 """
 from __future__ import annotations
 
@@ -471,12 +472,6 @@ class Reverso:
         self.region_metadata_list = [meta]
         return emb, [meta]
 
-    def _check_region_mode(self) -> None:
-        if self.config.ingest.region_embed_mode == "region":
-            raise NotImplementedError(
-                "region_embed_mode='region' (ROI pooling) is not ported yet; "
-                "use region_embed_mode='compat'")
-
     def detect_regions(self, image, text_prompt: Optional[str] = None) -> int:
         """Prompt-conditioned region detection (reference core_system.py:237-318)."""
         if self.detector is None:
@@ -492,16 +487,27 @@ class Reverso:
         return len(self.detected_regions)
 
     def extract_embeddings(self, image):
-        """Embed detected regions (reference core_system.py:320-429): every
-        region carries the global image embedding, exactly what the
-        reference does (core_system.py:406)."""
-        self._check_region_mode()
+        """Embed detected regions (reference core_system.py:320-429).
+
+        ingest.region_embed_mode selects "compat" (every region carries
+        the global image embedding, exactly what the reference does,
+        core_system.py:406) or "region" (masked ROI pooling)."""
         regions = self.detected_regions
         if regions is None or len(regions) == 0:
             return [], []
         px, (w, h) = self._preprocess(image)
         n = min(len(regions), self.config.ingest.max_regions)
-        emb = np.asarray(self.encoder.encode_image(px))[0]
+        use_roi = (self.config.ingest.region_embed_mode == "region"
+                   and regions.masks is not None and n > 0)
+        if use_roi:
+            # masks pool onto the patch grid on the host; the region count
+            # pads to a power of two, the bucket the batched ingest uses
+            rb = 1 << (n - 1).bit_length()
+            pooled = self.encoder.pool_masks([regions.masks[:n]], rb)
+            _, region_embs = self.encoder.encode_regions(px, pooled)
+            region_embs = np.asarray(region_embs)[0][:n]
+        else:
+            emb = np.asarray(self.encoder.encode_image(px))[0]
         vecs, metas = [], []
         for i in range(n):
             meta = region_metadata(regions, i)
@@ -509,7 +515,7 @@ class Reverso:
                 continue
             if meta["bbox"] is None:
                 meta["bbox"] = [0, 0, w, h]
-            vecs.append(emb)
+            vecs.append(region_embs[i] if use_roi else emb)
             metas.append(meta)
         self.region_embeddings = (np.stack(vecs) if vecs
                                   else np.zeros((0, self.encoder.embed_dim),
@@ -592,8 +598,6 @@ class Reverso:
                         resume_from_checkpoint: bool = False,
                         include_subfolders: bool = False) -> str:
         """Build a searchable database from a folder."""
-        if not use_direct_pe:
-            self._check_region_mode()
         self._set_store(None)  # release any handle on the target store
         result = build_database(
             self.encoder, folder_path, database_name,

@@ -41,6 +41,11 @@ _SIGNATURES = {
     "rv_flash_heads": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # x, w1, b1, w2, b2, out, T, W, H, act, dtype, stream
     "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w1, s1, b1, w2, s2, b2, out, T, W, H, act, dtype, stream
+    "rv_fused_mlp_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # db, q, q_scale, row_scale, D, Q, n_valid, k, n_splits, part_s, part_i,
+    # out_s, out_i, stream
+    "rv_topk_int8_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # db, q, mask, D, Q, n_valid, k, n_splits, part_s, part_i, out_s, out_i, mode, stream
     "rv_topk_stream": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     # mat, q, row_scale, base, cnt, mask, D, Q, nprobe, k, part_s, part_w,
@@ -63,10 +68,13 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # modes apart: plain (the ViT past the heads-in-lanes envelope) and with
 # SAM's decomposed rel-pos bias; `topk_stream`, `topk_masked`, `topk_int8`
 # and `topk_binary` the top-k kernel's modes: bf16/fp32 rows without and
-# with a row mask, int8 rows (masked or not), packed sign bits.
+# with a row mask, int8 rows (masked or not), packed sign bits;
+# `topk_int8_rows` its per-row-scale int8 candidate scan (the two-stage
+# search's first stage); `fused_mlp_int8` the MLP's int8 mode.
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
-            "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0}
+            "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
+            "fused_mlp_int8": 0, "topk_int8_rows": 0}
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the
 # top-k kernel's cap; int8 k above the cap or d above the exactness bound
 # (1040); binary k above the cap; an IVF fetch (2k under spill) above it.

@@ -6,8 +6,11 @@ pooling, quick-GELU, pre-LN, no patch bias), with the JAX package's
 numerics: fp32 parameters cast to the activation dtype at use, fp32
 LayerNorms cast back to the activation dtype, attention through the
 heads-in-lanes kernel (or, past its envelope, the [B, H, S, D] flash
-kernel) and the MLP through the fused kernel. Images come in NHWC, as in
-the JAX package (NCHW is accepted too).
+kernel) and the MLP through the fused kernel (its int8 mode under
+`ModelConfig.quant="int8"`; the projections stay in the activation dtype,
+as in the JAX package). Images come in NHWC, as in the JAX package (NCHW
+is accepted too). With `region_masks` the tower also pools masked ROI
+region embeddings from the same forward.
 
 Module and parameter names follow the flax tree (`block{i}` becomes
 `blocks.{i}`), so `models.convert` maps one onto the other.
@@ -24,7 +27,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.attention import attention_ref, flash_attention, flash_attention_heads
-from ..ops.fused_mlp import fused_mlp
+from ..ops.fused_mlp import fused_mlp, fused_mlp_int8, quantize_mlp_weights
 from ..ops.rope import apply_rope_2d, rope_2d_tables
 
 # sequences the heads-in-lanes kernel takes (ViT-L/14-336 is 577 tokens);
@@ -104,15 +107,31 @@ class MHA(nn.Module):
 
 
 class MLP(nn.Module):
+    """The block MLP through the fused kernel; `quant=True` takes its int8
+    mode, with the weights quantized once per activation dtype and device
+    (the JAX package quantizes them on every call: the same numbers) and
+    quantized again after any change to the parameters."""
+
     def __init__(self, cfg: ModelConfig, act: str = "gelu"):
         super().__init__()
         hidden = int(cfg.width * cfg.mlp_ratio)
         self.act = act
+        self.quant = cfg.quant == "int8"
         self.fc1 = Linear(cfg.width, hidden)
         self.fc2 = Linear(hidden, cfg.width)
+        self._int8 = {}   # a cache, not state: the state dict is the bf16 tower's
+
+    def _int8_weights(self, dtype: torch.dtype):
+        prms = (self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
+        key = (dtype,) + tuple((p.device, p.data_ptr(), p._version) for p in prms)
+        if key not in self._int8:
+            self._int8 = {key: quantize_mlp_weights(*prms, dtype)}
+        return self._int8[key]
 
     def forward(self, x):
         dt = x.dtype
+        if self.quant:
+            return fused_mlp_int8(x, self._int8_weights(dt), act=self.act)
         return fused_mlp(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt),
                          self.fc2.weight.to(dt), self.fc2.bias.to(dt),
                          act=self.act)
@@ -155,7 +174,12 @@ class Block(nn.Module):
 
 class AttentionPool(nn.Module):
     """Probe attention pooling (PE-Core head): a learned query attends over
-    all tokens; `mask_bias` [B, 1, S] masks pad tokens."""
+    all tokens, [B, S, W] -> [B, W].
+
+    With `mask_bias` [B, R, S] the probe fills R query slots, each attending
+    under its own additive bias (pad tokens, or a region's mask), and the
+    result is [B, R, W]: R region embeddings in one call, sharing the
+    pooling head's weights. Scores and softmax are fp32."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -166,17 +190,18 @@ class AttentionPool(nn.Module):
         self.v_proj, self.out_proj = Linear(w, w), Linear(w, w)
         self.ln = LayerNorm(w)
 
-    def forward(self, x, mask_bias=None):   # [B, S, W] -> [B, W]
+    def forward(self, x, mask_bias=None):   # [B, S, W] -> [B, W] | [B, R, W]
         h = self.cfg.num_heads
         b, s, w = x.shape
         hd = w // h
-        xq = self.probe.to(x.dtype).expand(b, 1, w)
+        r = 1 if mask_bias is None else mask_bias.shape[1]
+        xq = self.probe.to(x.dtype).expand(b, r, w)
         split = lambda t: t.reshape(b, t.shape[1], h, hd).transpose(1, 2)
         q, k, v = (split(self.q_proj(xq)), split(self.k_proj(x)),
                    split(self.v_proj(x)))
         o = attention_ref(q, k, v, mask_bias=mask_bias)
-        o = self.out_proj(o.transpose(1, 2).reshape(b, 1, w))
-        return self.ln(o)[:, 0, :]
+        o = self.ln(self.out_proj(o.transpose(1, 2).reshape(b, r, w)))
+        return o[:, 0, :] if mask_bias is None else o
 
 
 class VisionTransformer(nn.Module):
@@ -189,9 +214,8 @@ class VisionTransformer(nn.Module):
                  use_ln_pre: bool = False, patch_bias: bool = True,
                  pad_seq: bool = False):
         super().__init__()
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={cfg.quant!r}: the int8 fused-MLP kernel is not ported yet")
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"unsupported quant {cfg.quant!r}")
         if act not in ("gelu", "quick_gelu"):
             raise ValueError(f"unsupported activation {act!r}")
         self.cfg = cfg
@@ -256,8 +280,10 @@ class VisionTransformer(nn.Module):
 
     def forward(self, images, *, return_tokens: bool = False,
                 region_masks=None):
-        if region_masks is not None:
-            raise NotImplementedError("region pooling is not ported yet")
+        """Returns the embedding [B, embed_dim] (before normalization), with
+        `return_tokens` also the tokens [B, S, W]. `region_masks` [B, R, P]
+        (patch-grid weights, no CLS slot) adds the masked ROI region
+        embeddings [B, R, embed_dim]: (pooled, regions[, tokens])."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         x = images.to(dtype)
@@ -288,20 +314,57 @@ class VisionTransformer(nn.Module):
             x = blk(x, rope, kv_valid)
 
         tokens = x
+        region_emb = None
         if cfg.pool_type == "attn":
             tokens_n = self.ln_post(tokens) if self.ln_post is not None else tokens
-            vbias = None
-            if kv_valid is not None:
+            if kv_valid is None:
+                pooled = self.attn_pool(tokens_n)
+            else:
                 pos = torch.arange(tokens_n.shape[1], device=x.device)
                 vbias = torch.where(pos < kv_valid, 0.0, -1e9).expand(
                     b, 1, tokens_n.shape[1])
-            pooled = self.attn_pool(tokens_n, vbias)
+                pooled = self.attn_pool(tokens_n, vbias)[:, 0, :]
+            if region_masks is not None:
+                rbias = self._region_bias(region_masks)
+                pad = tokens_n.shape[1] - rbias.shape[-1]
+                if pad > 0:      # padded sequence: pad tokens never attend
+                    rbias = F.pad(rbias, (0, pad), value=-1e9)
+                region_emb = self.attn_pool(tokens_n, rbias)
         else:
             pooled = (tokens[:, 0, :] if cfg.pool_type == "cls"
                       else tokens[:, :s_valid].mean(dim=1))
             if self.ln_post is not None:
                 pooled = self.ln_post(pooled)
+            if region_masks is not None:
+                region_emb = self._masked_mean(tokens[:, :s_valid], region_masks)
         pooled = self.proj(pooled)
+        if region_emb is not None:
+            region_emb = self.proj(region_emb)
+            if return_tokens:
+                return pooled, region_emb, tokens[:, :s_valid]
+            return pooled, region_emb
         if return_tokens:
             return pooled, tokens[:, :s_valid]
         return pooled
+
+    def _region_bias(self, region_masks: torch.Tensor) -> torch.Tensor:
+        """[B, R, P] weights -> an additive attention bias over the token
+        sequence: 0 on the mask's support (m > 0), -1e9 elsewhere and on the
+        CLS slot. An empty mask falls back to uniform, so pooling stays
+        finite (callers drop empty regions)."""
+        m = region_masks.float()
+        empty = m.sum(dim=-1, keepdim=True) <= 0
+        m = torch.where(empty, torch.ones_like(m), m)
+        bias = torch.where(m > 0, 0.0, -1e9)
+        if self.cfg.use_cls_token:
+            bias = F.pad(bias, (1, 0), value=-1e9)
+        return bias
+
+    def _masked_mean(self, tokens: torch.Tensor, region_masks: torch.Tensor):
+        """The cls and mean pools' regions: token means weighted by the
+        mask's values, in fp32, cast back to the tokens' dtype."""
+        if self.cfg.use_cls_token:
+            tokens = tokens[:, 1:, :]
+        w = region_masks.float()
+        denom = torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-6)
+        return torch.matmul(w / denom, tokens.float()).to(tokens.dtype)

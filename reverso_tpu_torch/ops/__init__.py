@@ -5,7 +5,7 @@ from .attention import (
     flash_attention_heads_ref,
 )
 from .deformable import ms_deform_attn, ms_deform_attn_ref
-from .fused_mlp import fused_mlp, mlp_ref
+from .fused_mlp import fused_mlp, fused_mlp_int8, mlp_int8_ref, mlp_ref
 from .norm import l2_normalize
 from .rope import apply_rope_2d, rope_2d_tables
 from .topk import apply_score_threshold, cosine_topk, cosine_topk_ref

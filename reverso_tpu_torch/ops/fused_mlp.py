@@ -1,19 +1,39 @@
-"""Fused transformer MLP: the CUDA kernel and its plain version.
+"""Fused transformer MLP: the CUDA kernels and their plain versions.
 
 y = act(x @ W1^T + b1) @ W2^T + b2 with weights in PyTorch Linear layout
 (W1 [H, W], W2 [W, H]). On a CUDA tensor `fused_mlp` launches
 `csrc/fused_mlp.cu`, which streams the hidden dimension in chunks and
 never writes the [T, H] hidden tensor to device memory; on a CPU tensor
 it runs `mlp_ref`.
+
+`fused_mlp(..., quant=True)` is the int8 mode (`ModelConfig.quant="int8"`):
+x is quantized per row, the weights per output unit (after the cast to
+x's dtype), both products run s8 x s8 -> s32, and the hidden activation
+is re-quantized per (row, 512-wide hidden chunk): the chunk is part of
+the function, not a tiling choice. The order of the arithmetic is
+`f32(s32) * (xs * s1) + b1`, the activation, the quantization, then
+`acc += f32(s32) * (hs * s2)` chunk by chunk in hidden order, and
+`(acc + b2)` cast to x's dtype. gelu is the Abramowitz & Stegun erf
+polynomial here, as in the JAX package's int8 kernel: one ulp at a
+rounding boundary flips an int8 quantum. `mlp_int8_ref` spells that out;
+`fused_mlp_int8` takes weights quantized once (`quantize_mlp_weights`)
+and launches the int8 kernel on a CUDA tensor.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .quant import int_dot, quantize_rows_int8, quantize_weight_int8
 
 ACT_CODES = {"gelu": 0, "quick_gelu": 1}
+# the int8 mode's hidden re-quantization unit (the JAX kernel's hidden_tile)
+HIDDEN_CHUNK = 512
+# padding units of the int8 kernel's weights (csrc/fused_mlp.cu Q8_*)
+_Q8_BK1, _Q8_BN = 64, 128
 
 
 def _act(h: torch.Tensor, act: str) -> torch.Tensor:
@@ -33,19 +53,28 @@ def mlp_ref(x, w1, b1, w2, b2, act: str = "gelu"):
     return y.to(x.dtype)
 
 
-def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu"):
-    """Fused MLP over [..., T, W] inputs (leading dims flattened).
-
-    The kernel's output is as wide as its input, so the MLP must be
-    square: W1 [H, W], W2 [W, H]."""
+def _check_square(x, w1, w2) -> int:
     width = x.shape[-1]
     if w1.shape[1] != width or w2.shape[0] != width \
             or w1.shape[0] != w2.shape[1]:
         raise ValueError(
             f"fused_mlp requires a square MLP (w1 [H, {width}], "
             f"w2 [{width}, H]); got w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    return width
+
+
+def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False):
+    """Fused MLP over [..., T, W] inputs (leading dims flattened).
+
+    The kernel's output is as wide as its input, so the MLP must be
+    square: W1 [H, W], W2 [W, H]. `quant=True` runs the int8 mode, with
+    the weights quantized on this call (the tower quantizes once and
+    calls `fused_mlp_int8`)."""
+    width = _check_square(x, w1, w2)
     if act not in ACT_CODES:
         raise ValueError(act)
+    if quant:
+        return fused_mlp_int8(x, quantize_mlp_weights(w1, b1, w2, b2, x.dtype), act=act)
     shape = x.shape
     x2 = x.reshape(-1, width)
     if x.device.type == "cpu":
@@ -67,4 +96,124 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu"):
             kernels.stream_ptr(x.device))
     kernels.check("fused_mlp", status)
     kernels.launches["fused_mlp"] += 1
+    return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# int8 mode (K5)
+# ---------------------------------------------------------------------------
+
+def gelu_exactish(x: torch.Tensor) -> torch.Tensor:
+    """erf-based gelu through the Abramowitz & Stegun 7.1.26 polynomial
+    (|err| <= 1.5e-7 in erf), op for op as the JAX package's int8 kernel
+    and csrc/fused_mlp.cu compute it."""
+    z = x * 0.7071067811865476
+    sign = torch.sign(z)
+    az = z.abs()
+    t = 1.0 / (1.0 + 0.3275911 * az)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+               + t * (-1.453152027 + t * 1.061405429))))
+    erf = sign * (1.0 - poly * torch.exp(-az * az))
+    return 0.5 * x * (1.0 + erf)
+
+
+def _act_int8(h: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "gelu":
+        return gelu_exactish(h)
+    if act == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
+    raise ValueError(act)
+
+
+class Int8MLPWeights(NamedTuple):
+    """An MLP's weights quantized per output unit, in Linear layout."""
+    w1: torch.Tensor   # [H, W] int8
+    s1: torch.Tensor   # [H] f32
+    b1: torch.Tensor   # [H] f32 (dtype-rounded)
+    w2: torch.Tensor   # [W, H] int8
+    s2: torch.Tensor   # [W] f32
+    b2: torch.Tensor   # [W] f32 (dtype-rounded)
+
+
+def quantize_mlp_weights(w1, b1, w2, b2, dtype) -> Int8MLPWeights:
+    """The weights cast to the activation dtype first, as the JAX tower
+    does, then quantized per output unit; biases rounded to the dtype and
+    widened to f32."""
+    w1_8, s1 = quantize_weight_int8(w1.to(dtype))
+    w2_8, s2 = quantize_weight_int8(w2.to(dtype))
+    return Int8MLPWeights(w1_8, s1, b1.to(dtype).float(), w2_8, s2,
+                          b2.to(dtype).float())
+
+
+def mlp_int8_plain(x2: torch.Tensor, qw: Int8MLPWeights, act: str) -> torch.Tensor:
+    """The int8 contract on [T, W] rows, chunk by chunk in hidden order."""
+    hid = qw.w1.shape[0]
+    x8, xs = quantize_rows_int8(x2)                       # [T, W], [T, 1]
+    acc = None
+    for lo in range(0, hid, HIDDEN_CHUNK):
+        hi = min(hid, lo + HIDDEN_CHUNK)
+        h = int_dot(x8, qw.w1[lo:hi]).float() * (xs * qw.s1[lo:hi]) + qw.b1[lo:hi]
+        h8, hs = quantize_rows_int8(_act_int8(h, act))
+        term = int_dot(h8, qw.w2[:, lo:hi]).float() * (hs * qw.s2)
+        acc = term if acc is None else acc + term
+    if acc is None:
+        acc = x2.new_zeros((x2.shape[0], qw.w2.shape[0]), dtype=torch.float32)
+    return (acc + qw.b2).to(x2.dtype)
+
+
+def mlp_int8_ref(x, w1, b1, w2, b2, act: str = "gelu"):
+    """Plain version of the int8 mode from the raw weights: quantize them
+    (after the cast to x's dtype), then the chunked int8 contract. The s32
+    products are exact (an int32 matmul on the CPU; on the card fp32
+    matmuls of integer-valued operands, every partial sum below 2^24)."""
+    width = _check_square(x, w1, w2)
+    shape = x.shape
+    qw = quantize_mlp_weights(w1, b1, w2, b2, x.dtype)
+    return mlp_int8_plain(x.reshape(-1, width), qw, act).reshape(shape)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _kernel_weights(qw: Int8MLPWeights):
+    """The int8 kernel's weight layout: W1 [Hp, Wp] and W2 [Wn, Hp] with
+    zero padding to whole 512-wide hidden chunks, 64-byte reduction steps
+    and 128-wide output blocks (pad units compute zeros)."""
+    hid, width = qw.w1.shape
+    hp, wp, wn = (_round_up(hid, HIDDEN_CHUNK), _round_up(width, _Q8_BK1),
+                  _round_up(width, _Q8_BN))
+    pad = lambda t, *p: F.pad(t, p).contiguous() if any(p) else t.contiguous()
+    return (pad(qw.w1, 0, wp - width, 0, hp - hid), pad(qw.s1, 0, hp - hid),
+            pad(qw.b1, 0, hp - hid), pad(qw.w2, 0, hp - hid, 0, wn - width),
+            pad(qw.s2, 0, wn - width), qw.b2.contiguous())
+
+
+def fused_mlp_int8(x, qw: Int8MLPWeights, *, act: str = "gelu"):
+    """The int8 mode over [..., T, W] with weights from
+    `quantize_mlp_weights`. CPU tensors run the plain version; CUDA
+    tensors launch the int8 kernel (K5)."""
+    width = _check_square(x, qw.w1, qw.w2)
+    if act not in ACT_CODES:
+        raise ValueError(act)
+    shape = x.shape
+    x2 = x.reshape(-1, width)
+    if x.device.type == "cpu":
+        return mlp_int8_plain(x2, qw, act).reshape(shape)
+    if x.dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"fused_mlp_int8: unsupported dtype {x.dtype}")
+    x2 = x2.contiguous()
+    w1, s1, b1, w2, s2, b2 = _kernel_weights(qw)
+    kernels.require_cuda("fused_mlp_int8", x2, w1, s1, b1, w2, s2, b2)
+    out = torch.empty_like(x2)
+    if x2.shape[0] == 0:
+        return out.reshape(shape)
+    with torch.cuda.device(x.device):   # launch on the tensors' card
+        status = kernels.lib().rv_fused_mlp_int8(
+            x2.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            x2.shape[0], width, qw.w1.shape[0], ACT_CODES[act],
+            kernels.DTYPE_CODES[x.dtype], kernels.stream_ptr(x.device))
+    kernels.check("fused_mlp_int8", status)
+    kernels.launches["fused_mlp_int8"] += 1
     return out.reshape(shape)

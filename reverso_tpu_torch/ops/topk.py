@@ -104,6 +104,15 @@ def cosine_topk_ref(db: torch.Tensor, queries: torch.Tensor, k: int,
     return _finish(_mask_scores(scores, n_valid, row_mask), k)
 
 
+def scan_splits(dev: torch.device, qn: int, n_valid: int) -> int:
+    """Row splits of a streaming top-k launch: about two waves of CTAs
+    over the SMs, split along the rows."""
+    n_q_tiles = -(-qn // _QUERY_TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_row_tiles = max(1, -(-n_valid // _ROW_TILE))
+    return max(1, min(-(-2 * sms // n_q_tiles), n_row_tiles))
+
+
 def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
                  k: int, n_valid: int, mode: int, row_mask=None):
     """Launch csrc/topk_stream.cu in `mode`; returns (scores, idx) [Q, k]."""
@@ -115,11 +124,7 @@ def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     if qn == 0:
         return out_s, out_i
-    # about two waves of CTAs over the SMs, split along the rows
-    n_q_tiles = -(-qn // _QUERY_TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_row_tiles = max(1, -(-n_valid // _ROW_TILE))
-    n_splits = max(1, min(-(-2 * sms // n_q_tiles), n_row_tiles))
+    n_splits = scan_splits(dev, qn, n_valid)
     part_s = torch.empty((n_splits, qn, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, qn, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):   # launch on the tensors' card

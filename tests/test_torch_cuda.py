@@ -341,3 +341,91 @@ def test_ivf_scan_kernel(dev, mode, q, nprobe, k, masked):
         assert torch.equal(pos, rpos) and torch.equal(s, rs)
     else:
         _assert_topk_close(s, pos, rs, rpos, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,w,hid,act", [
+    (50, 64, 256, "gelu"),            # test-tiny: one partial 512-wide chunk
+    (33, 160, 640, "quick_gelu"),     # a second, partial chunk
+    (77, 72, 200, "gelu"),            # W not a multiple of 16, H of 8
+    (577, 1024, 4096, "gelu"),        # PE-L14 widths
+    (40, 1536, 8960, "gelu"),         # PE-G14 widths: 16-row tiles
+])
+def test_fused_mlp_int8_kernel(dev, dtype, t, w, hid, act):
+    """K5 against its plain version: the same int8 contract rounding for
+    rounding, so equal bit for bit wherever the plain version's gelu
+    (torch's exp on the card) is the kernel's; the bound allows a rare
+    hidden-quantum flip: under 0.2% of elements beyond 1e-5 and none
+    beyond two hidden quanta at the output."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.fused_mlp import (fused_mlp_int8, mlp_int8_ref,
+                                                 quantize_mlp_weights)
+    from reverso_tpu_torch.ops.quant import int_dot, quantize_rows_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(t + w)
+    x = _randn(gen, t, w, dtype=dtype)
+    w1, b1 = _randn(gen, hid, w, dtype=dtype, scale=w ** -0.5), _randn(gen, hid, dtype=dtype, scale=0.1)
+    w2, b2 = _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5), _randn(gen, w, dtype=dtype, scale=0.1)
+    qw = quantize_mlp_weights(w1, b1, w2, b2, dtype)
+    n0 = kernels.launches["fused_mlp_int8"]
+    out = fused_mlp_int8(x, qw, act=act)
+    assert kernels.launches["fused_mlp_int8"] == n0 + 1
+    ref = mlp_int8_ref(x, w1, b1, w2, b2, act=act)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    ulp = 1e-5 if dtype == torch.float32 else 2 ** -7     # one output rounding
+    loose = diff > ulp * (1 + ref.float().abs())
+    assert float(loose.float().mean()) < 0.002
+    if loose.any():   # a flip moves an output by at most 2 hidden quanta x max |W2|
+        x8, xs = quantize_rows_int8(x)
+        h_amax = max(float((int_dot(x8, qw.w1[lo:lo + 512]).float() * (xs * qw.s1[lo:lo + 512])
+                            + qw.b1[lo:lo + 512]).abs().max()) * 1.2
+                     for lo in range(0, hid, 512))
+        quantum = 2 * h_amax / 127 * float((qw.w2.float().abs() * qw.s2[:, None]).max())
+        assert float(diff[loose].max()) <= quantum + ulp * (1 + float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid", [
+    (1000, 64, 7, 40, None),
+    (4099, 200, 70, 20, 3001),        # two query tiles, n_valid < N
+    (300, 96, 4, 128, 20),            # k at the cap, k > n_valid
+    (1500, 77, 66, 16, 1400),         # d not a multiple of 16: byte copies
+    (2000, 1040, 9, 10, None),
+])
+def test_topk_int8_rows_kernel(dev, n, d, q, k, n_valid):
+    """K12's stage 1 against its plain version: exact s32 dots and the
+    same two roundings, so ids and scores equal bit for bit; a duplicate
+    row ties to the lower id."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.topk_int8 import (quantize_queries, quantize_rows,
+                                                 topk_int8_rows, topk_int8_rows_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(7 * n + d)
+    x = _unit_rows(gen, n, d) * (torch.rand(n, 1, generator=gen, device="cuda") + 0.5)
+    x[n // 2] = x[1]
+    v8, sc = quantize_rows(x)
+    q8, qs = quantize_queries(torch.cat([x[1:2], _unit_rows(gen, q - 1, d)]))
+    n0 = kernels.launches["topk_int8_rows"]
+    s, i = topk_int8_rows(v8, sc, q8, qs, k, n_valid=n_valid)
+    assert kernels.launches["topk_int8_rows"] == n0 + 1
+    rs, ri = topk_int8_rows_ref(v8, sc, q8, qs, k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    if n_valid is None or n_valid > n // 2:
+        assert i[0, :2].tolist() == [1, n // 2]
+
+
+def test_cosine_topk_int8_on_the_card(dev):
+    """The two-stage search on the card equals the same search on the CPU
+    (stage 1 bit for bit; the rescore sums in another order)."""
+    from reverso_tpu_torch.ops.topk_int8 import cosine_topk_int8, quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    db = _unit_rows(gen, 5000, 256)
+    qs = db[:9] + 0.02 * _unit_rows(gen, 9, 256)
+    v8, sc = quantize_rows(db)
+    s, i = cosine_topk_int8(v8, sc, db.to(torch.bfloat16), qs, 10, n_valid=4800)
+    cs, ci = cosine_topk_int8(v8.cpu(), sc.cpu(), db.to(torch.bfloat16).cpu(), qs.cpu(), 10,
+                              n_valid=4800)
+    _assert_topk_close(s.cpu(), i.cpu(), cs, ci, 1e-5)
+    assert i[:, 0].tolist() == list(range(9))

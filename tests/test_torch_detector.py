@@ -249,13 +249,39 @@ def test_region_query_matches_jax(region_dbs):
     assert t_items[0]["filename"] == "im_02.png"
 
 
-def test_roi_mode_is_not_ported(region_dbs):
+def test_roi_mode_builds_like_jax(region_dbs, params, vocab_path, monkeypatch):
+    """region_embed_mode="region" through the seeded tiny detector: the
+    port's masked-ROI build equals the JAX package's (its pooling without
+    OpenCV, and its reference mask path) row for row, and its rows are the
+    masked pools, not compat mode's global embeddings (the masks of this
+    random-init detector cover whole images at 64 px, so one image's
+    regions pool alike; tests/test_torch_roi.py has distinct masks)."""
+    import reverso_tpu.models.pe as jax_pe
+
+    monkeypatch.setattr(jax_pe, "cv2", None)
     port = region_dbs["port"]
+    root, folder = region_dbs["root"], region_dbs["folder"]
+    roi = lambda c: c.replace(ingest=dataclasses.replace(c.ingest, region_embed_mode="region"))
     cfg = port._engine.config
-    port._engine.config = cfg.replace(ingest=dataclasses.replace(
-        cfg.ingest, region_embed_mode="region"))
+    port._engine.config = roi(cfg)
     try:
-        with pytest.raises(NotImplementedError, match="ROI pooling"):
-            port.create_database(region_dbs["folder"], "roi")
+        assert "ready for searching" in port.create_database(folder, "roi",
+                                                             text_prompt="person . car")
     finally:
         port._engine.config = cfg
+    jdet = _jax_detector(params, vocab_path, monkeypatch, logits=True)
+    jenc = region_dbs["jax"].encoder
+    jax_eng = JaxReverso(roi(_config(root, "jax_db")), encoder=jenc, detector=jdet)
+    assert "ready for searching" in jax_eng.create_database(folder, "roi",
+                                                            text_prompt="person . car")
+    js = JaxStore.open(os.path.join(root, "jax_db"), "roi")
+    ts = VectorStore.open(os.path.join(root, "port_db"), "roi")
+    assert ts.count == js.count > 6
+    key = lambda p: (p["filename"], p["detection_index"])
+    jp = sorted(range(js.count), key=lambda r: key(js.payloads([r])[0]))
+    tp = sorted(range(ts.count), key=lambda r: key(ts.payloads([r])[0]))
+    jv, tv = np.asarray(js.vectors())[jp], np.asarray(ts.vectors())[tp]
+    assert np.abs(jv - tv).max() <= 1e-4
+    cs = VectorStore.open(os.path.join(root, "port_db"), "regions")
+    cp = sorted(range(cs.count), key=lambda r: key(cs.payloads([r])[0]))
+    assert np.abs(np.asarray(cs.vectors())[cp] - tv).max() > 1e-3   # not compat's rows

@@ -93,6 +93,18 @@ def test_port_runs_with_jax_blocked(tmp_path):
         sr.extract_embeddings(Image.open(os.path.join(folder, "3.png")))
         text, items = sr.search_similar(-1.0, 3)
         assert items and items[0]["filename"] == "3.png", text
+        # ROI pooling, the int8 tower and the two-stage int8 search
+        import dataclasses, torch
+        sr._engine.config = cfg.replace(ingest=dataclasses.replace(
+            cfg.ingest, region_embed_mode="region"))
+        sr.detect_regions(Image.open(os.path.join(folder, "3.png")))
+        embs, _ = sr.extract_embeddings(Image.open(os.path.join(folder, "3.png")))
+        assert len(embs) > 0 and np.isfinite(np.stack(embs)).all()
+        enc8 = PerceptionEncoder(cfg.model, device="cpu", quant="int8")
+        assert np.isfinite(enc8.encode_image(np.zeros((1, 32, 32, 3), np.float32))).all()
+        from reverso_tpu_torch.ops.topk_int8 import cosine_topk_int8, quantize_rows
+        v = torch.from_numpy(vecs)
+        assert cosine_topk_int8(*quantize_rows(v), v, v[:2], 3)[1][:, 0].tolist() == [0, 1]
         assert not [m for m in sys.modules if m.split(".")[0] == "reverso_tpu"]
         print("OK", len(items))
     """, cwd=str(tmp_path))
@@ -134,7 +146,9 @@ def test_wrappers_never_fall_back_for_device_tensors():
                                        ms_deform_attn)
     from reverso_tpu_torch.ops.binary import binary_topk
     from reverso_tpu_torch.ops.ivf_scan import ivf_probe_scan
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp_int8, quantize_mlp_weights
     from reverso_tpu_torch.ops.topk import cosine_topk_int8_exact
+    from reverso_tpu_torch.ops.topk_int8 import cosine_topk_int8, topk_int8_rows
 
     m = lambda *shape: torch.empty(*shape, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -160,6 +174,16 @@ def test_wrappers_never_fall_back_for_device_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ivf_probe_scan(m(10, 8), m(2, 8), None, None, m(2, 3).int(), m(2, 3).int(),
                        k=3, cmax=4, int8=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp(m(3, 8), m(16, 8), m(16), m(8, 16), m(8), quant=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_int8(m(3, 8), quantize_mlp_weights(m(16, 8), m(16), m(8, 16), m(8),
+                                                     torch.float32))
+    i8 = m(10, 8).to(torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_int8_rows(i8, m(10), m(2, 8).to(torch.int8), m(2), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        cosine_topk_int8(i8, m(10), m(10, 8), m(2, 8), 3)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

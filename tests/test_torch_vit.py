@@ -134,10 +134,27 @@ def test_seeded_init_follows_flax_initialisers():
     np.testing.assert_allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-5)
 
 
-def test_region_masks_not_ported():
-    enc = PerceptionEncoder(TINY, device="cpu")
-    with pytest.raises(NotImplementedError):
-        enc.module(torch.zeros(1, 32, 32, 3), region_masks=torch.ones(1, 1, 16))
+@pytest.mark.parametrize("family", ["pe", "clip"])
+def test_region_masks_pool_regions_like_jax(family):
+    """The tower's `region_masks` [B, R, P]: (pooled, regions[, tokens])
+    from one forward, as the JAX tower returns them, fp32."""
+    cfg = dataclasses.replace(FAMILIES[family], dtype="float32")
+    imgs = _images(2, seed=6)
+    masks = np.random.default_rng(6).random((2, 3, cfg.num_patches)).astype(np.float32)
+    masks[:, 0] *= masks[:, 0] > 0.5
+    jenc = JaxEncoder(cfg, family=family, seed=2, use_flash=True)
+    vit = JaxViT(cfg, use_flash=True, **tpe._FAMILY_KW[family])
+    jp, jr, jt = map(np.asarray, vit.apply({"params": jenc.params}, imgs,
+                                           region_masks=masks, return_tokens=True))
+    enc = PerceptionEncoder(cfg, family=family, params=_jax_params(jenc), device="cpu")
+    with torch.inference_mode():
+        tp, tr, tt = enc.module(torch.from_numpy(imgs), region_masks=torch.from_numpy(masks),
+                                return_tokens=True)
+        tp2, tr2 = enc.module(torch.from_numpy(imgs), region_masks=torch.from_numpy(masks))
+    assert tr.shape == (2, 3, cfg.embed_dim) and tt.shape == (2, cfg.seq_len, cfg.width)
+    assert torch.equal(tp, tp2) and torch.equal(tr, tr2)
+    for a, b in ((tp, jp), (tr, jr), (tt, jt)):
+        assert np.abs(a.numpy() - b).max() <= 1e-4 * max(1.0, float(np.abs(b).max()))
 
 
 @pytest.mark.parametrize("family,image_size,width", [
