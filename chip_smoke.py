@@ -14,7 +14,11 @@ of which catches a failure:
      working dtype: max abs error against a stated tolerance, CUDA-event
      times of the kernel, its plain version and (where one PyTorch call
      computes the same function) that call, and the least time the card
-     could take (`bound_ms`); the capacity kernels at 1,000,000 x 1024
+     could take (`bound_ms`); the attention kernels in bf16 on the tensor
+     cores (K3 with RoPE and its whole PyTorch route beside it, K7) and in
+     fp32 on the CUDA cores, and both bf16 kernels at edge shapes (S 1 to
+     129, kv_valid 0 to S - 1, head dims 16 to 128, S_kv != S_q, B * H 1
+     and 1024); the capacity kernels at 1,000,000 x 1024
      (masked bf16, int8 with ids and scores equal bit for bit, packed
      binary) and the IVF probed scan at 1024 clusters, nprobe 16; the
      int8 MLP (T = 4616 and 1000, 1024 -> 4096 -> 1024, gelu and
@@ -27,8 +31,9 @@ of which catches a failure:
      region embeddings); GroundingDINO-tiny with 1 encoder and 1 decoder
      layer at 800 px; SAM ViT-B with 3 layers (global layer 2) at
      1024 px; PE-Core-L14 at 504 px (S = 1297, past the heads-in-lanes
-     kernel: the ViT's long-sequence path, whose kernel launches it
-     counts);
+     kernel: the ViT's long-sequence path); then PE-Core-L14 at 504 px in
+     bf16 at full depth, B = 8, against the same weights in fp32 on the
+     card (every block's attention on the tensor-core K7);
   4b. the two-stage int8 search at op level (`cosine_topk_int8` over the
      1M x 1024 rows, Q = 256, k = 10, overfetch 4): the plain pipeline's
      ids, recall@10 against exact fp32;
@@ -36,7 +41,8 @@ of which catches a failure:
      default PE-Core-L14-336 config (seeded random init, bf16, batch 64)
      builds a database from 256 synthetic images with
      `use_direct_pe=True`, answers `process_image_direct_pe` +
-     `search_similar` queries and a 64-query `search_batch`;
+     `search_similar` queries and a 64-query `search_batch`, and profiles
+     one B = 64 forward of the tower (device time by kernel);
   6. the region path at full width: `SimpleReverso` with a seeded
      GroundingDINO-tiny + SAM ViT-B detector (fp32) builds a database from
      32 synthetic 640x480 / 480x640 images with `create_database(...,
@@ -91,11 +97,15 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
-    """Mean device time of `fn` in ms, by CUDA events over `iters` calls."""
+    """Mean device time of `fn` in ms, by CUDA events over `iters` calls.
+    The card first sleeps for about 2 ms, so the host queues every call
+    before the first one runs: a call shorter than its own host overhead
+    is timed on the device, not at the host's launch rate."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)   # clock cycles
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -141,7 +151,7 @@ def kernel_checks(torch, gen) -> dict:
     from reverso_tpu_torch.ops.attention import (flash_attention_heads,
                                                   flash_attention_heads_ref)
     from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
-    from reverso_tpu_torch.ops.rope import rope_2d_tables
+    from reverso_tpu_torch.ops.rope import apply_rope_2d, rope_2d_tables
     from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
 
     dev = torch.device("cuda")
@@ -152,38 +162,91 @@ def kernel_checks(torch, gen) -> dict:
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     # K3: PE-L14 attention, B=8, S=577, W=1024, 16 heads, RoPE; kv_valid < S;
-    # and the CLIP family's cos=None form
+    # and the CLIP family's cos=None form. bf16 takes the tensor-core kernel
+    # (csrc/flash_tc.cuh); the RoPE tables are on the card, as the tower
+    # passes them (vit.py caches them per device)
     b, s, w, heads = 8, 577, 1024, 16
-    cos, sin = rope_2d_tables(24, w // heads, cls_token=True)
+    hd = w // heads
+    cos_np, sin_np = rope_2d_tables(24, hd, cls_token=True)
+    cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
     q, k, v = randn(b, s, w), randn(b, s, w), randn(b, s, w)
     tol = 2e-2   # bf16 output (8-bit mantissa) and online vs one-pass softmax
     errs = []
     for kv_valid, c, sn in ((None, cos, sin), (300, cos, sin), (None, None, None)):
         kw = dict(heads=heads, cos=c, sin=sn, kv_valid=kv_valid)
+        t0 = kernels.launches["flash_heads_tc"]
         out = flash_attention_heads(q, k, v, **kw)
+        check(kernels.launches["flash_heads_tc"] == t0 + 1, "flash_heads: not the tensor-core kernel")
         ref = flash_attention_heads_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         errs.append(max_err(out, ref))
         check(errs[-1] <= tol, f"flash_heads kv_valid={kv_valid} rope={c is not None}: "
                                f"max abs err {errs[-1]} > {tol}")
     kw = dict(heads=heads, cos=cos, sin=sin)
-    hd = w // heads
     split = lambda t: t.reshape(b, s, heads, hd).transpose(1, 2).contiguous()
+    merge = lambda t: t.transpose(1, 2).reshape(b, s, w)
     qh, kh, vh = split(q), split(k), split(v)
+    t0 = kernels.launches["flash_heads_tc"]
+    ms = cuda_ms(lambda: flash_attention_heads(q, k, v, **kw))
+    check(kernels.launches["flash_heads_tc"] == t0 + 6, "flash_heads timing: not the tensor-core kernel")
     rows["flash_heads"] = dict(
-        source="reverso_tpu_torch/csrc/flash_heads.cu",
+        source="reverso_tpu_torch/csrc/flash_tc.cuh",
         replaces="reverso_tpu/ops/attention.py:337",
         max_abs_err=max(errs), shape="B=8 S=577 W=1024 H=16 bf16 RoPE",
-        ms=cuda_ms(lambda: flash_attention_heads(q, k, v, **kw)),
-        ms_no_rope=cuda_ms(lambda: flash_attention_heads(q, k, v, heads=heads)),
-        plain_ms=cuda_ms(lambda: flash_attention_heads_ref(q, k, v, **kw)),
+        ms=ms, plain_ms=cuda_ms(lambda: flash_attention_heads_ref(q, k, v, **kw)),
         library="F.scaled_dot_product_attention on [B, H, S, D] (no RoPE)",
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
     rows["flash_heads"]["bound_ms"], rows["flash_heads"]["bound_by"] = bound(
         4 * b * s * w * 2 + 2 * s * hd * 4, 4 * b * heads * s * s * hd, "bfloat16")
-    del qh, kh, vh
-    print(f"flash_heads: max abs err {errs} (tol {tol}); no-RoPE mode "
-          f"{rows['flash_heads'].pop('ms_no_rope'):.4f} ms", flush=True)
+    # beside it: the no-RoPE mode, the whole PyTorch route (split, RoPE,
+    # SDPA, merge), the CUDA-core kernel on the same bf16 inputs (a
+    # direct launch, not counted), and the RoPE tables passed as numpy
+    # arrays (copied to the card on every call, as the first version of
+    # this row timed it)
+    no_rope_ms = cuda_ms(lambda: flash_attention_heads(q, k, v, heads=heads))
+    route_ms = cuda_ms(lambda: merge(F.scaled_dot_product_attention(
+        apply_rope_2d(split(q), cos, sin), apply_rope_2d(split(k), cos, sin), split(v))))
+    o = torch.empty_like(q)
+    lib = kernels.lib()
+    cuda_core_ms = cuda_ms(lambda: lib.rv_flash_heads(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), o.data_ptr(),
+        b, s, w, heads, s, hd ** -0.5, 1, kernels.DTYPE_CODES[bf16], kernels.stream_ptr(dev)))
+    check(max_err(o, flash_attention_heads(q, k, v, **kw)) <= tol, "the CUDA-core kernel disagrees")
+    numpy_tables_ms = cuda_ms(lambda: flash_attention_heads(q, k, v, heads=heads, cos=cos_np,
+                                                            sin=sin_np))
+    del qh, kh, vh, o
+    print(f"flash_heads: max abs err {errs} (tol {tol}); no-RoPE mode {no_rope_ms:.4f} ms; "
+          f"PyTorch route (split, apply_rope_2d, SDPA, merge) {route_ms:.4f} ms; the "
+          f"CUDA-core kernel {cuda_core_ms:.4f} ms; numpy RoPE tables {numpy_tables_ms:.4f} ms",
+          flush=True)
+
+    # the fp32 CUDA-core kernel (the fp32 tower): B=2, S=577, W=1024, RoPE
+    tol32 = 2e-5   # fp32: sums in another order, online vs one-pass softmax
+    q32, k32, v32 = (randn(2, s, w, dtype=torch.float32) for _ in range(3))
+    errs = []
+    for kv_valid in (None, 300):
+        t0 = kernels.launches["flash_heads_tc"]
+        out = flash_attention_heads(q32, k32, v32, **kw, kv_valid=kv_valid)
+        check(kernels.launches["flash_heads_tc"] == t0, "fp32 took the tensor-core kernel")
+        ref = flash_attention_heads_ref(q32, k32, v32, **kw, kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        errs.append(max_err(out, ref))
+        check(errs[-1] <= tol32, f"flash_heads fp32 kv_valid={kv_valid}: max abs err "
+                                 f"{errs[-1]} > {tol32}")
+    split2 = lambda t: t.reshape(2, s, heads, hd).transpose(1, 2).contiguous()
+    qh, kh, vh = split2(q32), split2(k32), split2(v32)
+    rows["flash_heads_f32"] = dict(
+        source="reverso_tpu_torch/csrc/flash_heads.cu",
+        replaces="reverso_tpu/ops/attention.py:337",
+        max_abs_err=max(errs), shape="B=2 S=577 W=1024 H=16 fp32 RoPE (depth-2 tower parity)",
+        ms=cuda_ms(lambda: flash_attention_heads(q32, k32, v32, **kw)),
+        plain_ms=cuda_ms(lambda: flash_attention_heads_ref(q32, k32, v32, **kw)),
+        library="F.scaled_dot_product_attention on [B, H, S, D] (no RoPE, fp32)",
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+    rows["flash_heads_f32"]["bound_ms"], rows["flash_heads_f32"]["bound_by"] = bound(
+        4 * 2 * s * w * 4 + 2 * s * hd * 4, 4 * 2 * heads * s * s * hd, "float32")
+    print(f"flash_heads fp32: max abs err {errs} (tol {tol32})", flush=True)
+    del q32, k32, v32, qh, kh, vh
 
     # K4: PE-L14 MLP, T=8*577, 1024 -> 4096 -> 1024, gelu and quick_gelu
     t, hid = 8 * 577, 4096
@@ -309,35 +372,66 @@ def region_kernel_checks(torch, gen) -> dict:
     print(f"flash_attn rel-bias: max abs err {errs} (tol {tol})", flush=True)
     del q, k, v, bh, bw, main
 
-    # K7: PE-L14 at 504 px, B=8 H=16 S=1297 D=64, bf16 (the tower's
-    # dtype); ragged: S_kv != S_q, head_dim 6, kv_valid < S_kv
+    # K7: PE-L14 at 504 px, B=8 H=16 S=1297 D=64, bf16 (the tower's dtype),
+    # on the tensor-core kernel; the same shape in fp32 on the CUDA-core
+    # kernel (the fp32 tower parity phase's)
+    from reverso_tpu_torch import kernels
     tol = 2e-2   # bf16 output (8-bit mantissa); p rounds before vs after normalizing
-    errs = []
-    for b, h, sq, skv, d, kv_valid in ((8, 16, 1297, 1297, 64, None),
-                                       (1, 4, 200, 131, 6, 100)):
-        q = randn(b, h, sq, d, dtype=bf16)
-        k, v = randn(b, h, skv, d, dtype=bf16), randn(b, h, skv, d, dtype=bf16)
-        out = flash_attention(q, k, v, kv_valid=kv_valid)
-        ref = attention_ref(q, k, v, kv_valid=kv_valid)
-        torch.cuda.synchronize()
-        errs.append(max_err(out, ref))
-        check(errs[-1] <= tol, f"flash_attn {q.shape}: max abs err {errs[-1]} > {tol}")
-        if sq == 1297:
-            main = (q, k, v)
-    q, k, v = main
     b, h, s, d = 8, 16, 1297, 64
+    q, k, v = (randn(b, h, s, d, dtype=bf16) for _ in range(3))
+    t0 = kernels.launches["flash_attn_tc"]
+    out = flash_attention(q, k, v)
+    check(kernels.launches["flash_attn_tc"] == t0 + 1, "flash_attn: not the tensor-core kernel")
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    check(err <= tol, f"flash_attn {q.shape}: max abs err {err} > {tol}")
+    t0 = kernels.launches["flash_attn_tc"]
+    ms = cuda_ms(lambda: flash_attention(q, k, v))
+    check(kernels.launches["flash_attn_tc"] == t0 + 6, "flash_attn timing: not the tensor-core kernel")
     rows["flash_attn"] = dict(
-        source="reverso_tpu_torch/csrc/flash_attn.cu",
+        source="reverso_tpu_torch/csrc/flash_tc.cuh",
         replaces="reverso_tpu/ops/attention.py:48",
-        max_abs_err=max(errs), shape="B=8 H=16 S=1297 D=64 bf16 (PE-L14 at 504 px)",
-        ms=cuda_ms(lambda: flash_attention(q, k, v)),
-        plain_ms=cuda_ms(lambda: attention_ref(q, k, v)),
+        max_abs_err=err, shape="B=8 H=16 S=1297 D=64 bf16 (PE-L14 at 504 px)",
+        ms=ms, plain_ms=cuda_ms(lambda: attention_ref(q, k, v)),
         library="F.scaled_dot_product_attention",
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     rows["flash_attn"]["bound_ms"], rows["flash_attn"]["bound_by"] = bound(
         4 * b * h * s * d * 2, 4 * b * h * s * s * d, "bfloat16")
-    print(f"flash_attn: max abs err {errs} (tol {tol})", flush=True)
-    del q, k, v, main
+    o = torch.empty_like(q)
+    lib = kernels.lib()
+    cuda_core_ms = cuda_ms(lambda: lib.rv_flash_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, o.data_ptr(), b * h, s, s, d, 0,
+        s, d ** -0.5, kernels.DTYPE_CODES[bf16], kernels.stream_ptr(dev)))
+    check(max_err(o, out) <= tol, "the CUDA-core kernel disagrees")
+    print(f"flash_attn: max abs err {err} (tol {tol}); the CUDA-core kernel on the same "
+          f"bf16 inputs {cuda_core_ms:.4f} ms", flush=True)
+    del q, k, v, o, out, ref
+
+    tol32 = 2e-5
+    q, k, v = (randn(2, h, s, d, dtype=f32) for _ in range(3))
+    errs = []
+    for kv_valid in (None, 1000):
+        t0 = kernels.launches["flash_attn_tc"]
+        out = flash_attention(q, k, v, kv_valid=kv_valid)
+        check(kernels.launches["flash_attn_tc"] == t0, "fp32 took the tensor-core kernel")
+        ref = attention_ref(q, k, v, kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        errs.append(max_err(out, ref))
+        check(errs[-1] <= tol32, f"flash_attn fp32 kv_valid={kv_valid}: max abs err "
+                                 f"{errs[-1]} > {tol32}")
+    rows["flash_attn_f32"] = dict(
+        source="reverso_tpu_torch/csrc/flash_attn.cu",
+        replaces="reverso_tpu/ops/attention.py:48",
+        max_abs_err=max(errs), shape="B=2 H=16 S=1297 D=64 fp32 (depth-2 504 px parity)",
+        ms=cuda_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=cuda_ms(lambda: attention_ref(q, k, v)),
+        library="F.scaled_dot_product_attention (fp32)",
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+    rows["flash_attn_f32"]["bound_ms"], rows["flash_attn_f32"]["bound_by"] = bound(
+        4 * 2 * h * s * d * 4, 4 * 2 * h * s * s * d, "float32")
+    print(f"flash_attn fp32: max abs err {errs} (tol {tol32})", flush=True)
+    del q, k, v
 
     # K8: GroundingDINO-tiny's encoder at 800 px, B=4, Lq=Lv=13,294, H=8,
     # D=32, L=P=4, fp32 (the detector's dtype); its decoder (Lq=900); and a
@@ -379,6 +473,76 @@ def region_kernel_checks(torch, gen) -> dict:
         11 * b * lv * h * n_l * p * d, "float32")
     print(f"ms_deform: max abs err {errs} (tol {tol})", flush=True)
     return rows
+
+
+def rope_tables(s: int, hd: int):
+    """[s, hd] fp32 RoPE tables: the 2D grid's rows (class token first),
+    identity rows past them."""
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+    cos, sin = np.ones((s, hd), np.float32), np.zeros((s, hd), np.float32)
+    c, sn = rope_2d_tables(int(np.sqrt(max(s - 1, 0))), hd)
+    cos[:len(c)], sin[:len(c)] = c[:s], sn[:s]
+    return cos, sin
+
+
+def attention_edge_checks(torch, gen) -> None:
+    """K3 and K7 at ragged and edge shapes against their plain versions:
+    S in {1, 63, 64, 65, 129}, kv_valid in {1, 63, 64, 65, S - 1} and 0
+    (NaN, as the plain versions), head dims 16, 32, 64, 96, 128, S_kv !=
+    S_q, B * H = 1 and 1024; bf16 on the tensor-core kernel, and a head
+    dim of 6 on the CUDA-core kernel."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import (attention_ref, flash_attention,
+                                                  flash_attention_heads,
+                                                  flash_attention_heads_ref)
+
+    bf16, tol = torch.bfloat16, 2e-2
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+
+    def close(out, ref, what):
+        nan = torch.isnan(ref)
+        check(torch.equal(torch.isnan(out), nan), f"{what}: NaN where the plain version has none")
+        diff = (out.float() - ref.float())[~nan].abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        check(err <= tol, f"{what}: max abs err {err} > {tol}")
+        return err
+
+    # (B, S, W, heads, kv_valid, RoPE)
+    heads_cases = ([(1, n, 128, 2, None, True) for n in (1, 63, 64, 65, 129)]
+                   + [(2, 129, 128, 2, kv, True) for kv in (1, 63, 64, 65, 128, 0)]
+                   + [(2, 129, 4 * hd, 4, 100, hd != 32) for hd in (16, 32, 64, 96, 128)]
+                   + [(1, 65, 64, 1, None, True), (64, 65, 1024, 16, None, True)])
+    errs = []
+    for b, s, w, heads, kv, rope in heads_cases:
+        q, k, v = randn(b, s, w), randn(b, s, w), randn(b, s, w)
+        cos, sin = rope_tables(s, w // heads) if rope else (None, None)
+        kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv)
+        t0 = kernels.launches["flash_heads_tc"]
+        out = flash_attention_heads(q, k, v, **kw)
+        check(kernels.launches["flash_heads_tc"] == t0 + 1,
+              f"flash_heads {(b, s, w, heads)}: not the tensor-core kernel")
+        errs.append(close(out, flash_attention_heads_ref(q, k, v, **kw),
+                          f"flash_heads B={b} S={s} W={w} heads={heads} kv_valid={kv}"))
+    # (B, H, S_q, S_kv, D, kv_valid)
+    attn_cases = ([(1, 2, n, n, 64, None) for n in (1, 63, 64, 65, 129)]
+                  + [(1, 2, 129, 129, 64, kv) for kv in (1, 63, 64, 65, 128, 0)]
+                  + [(1, 2, 129, 129, d, 100) for d in (16, 32, 64, 96, 128)]
+                  + [(1, 4, 200, 131, 64, 100), (1, 2, 65, 129, 64, None),
+                     (1, 1, 65, 65, 64, None), (64, 16, 65, 65, 64, None),
+                     (1, 4, 200, 131, 6, 100)])
+    for b, h, sq, skv, d, kv in attn_cases:
+        q, k, v = randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d)
+        t0 = kernels.launches["flash_attn_tc"]
+        out = flash_attention(q, k, v, kv_valid=kv)
+        check(kernels.launches["flash_attn_tc"] == t0 + (d % 16 == 0),
+              f"flash_attn {(b, h, sq, skv, d)}: wrong kernel")
+        errs.append(close(out, attention_ref(q, k, v, kv_valid=kv),
+                          f"flash_attn B={b} H={h} Sq={sq} Skv={skv} D={d} kv_valid={kv}"))
+    torch.cuda.synchronize()
+    print(f"attention edge cases: {len(heads_cases)} heads-in-lanes and {len(attn_cases)} "
+          f"[B, H, S, D] shapes within {tol}, max abs err {max(errs)}", flush=True)
 
 
 def int8_kernel_checks(torch, gen):
@@ -514,9 +678,11 @@ def int8_search_run(torch, data) -> dict:
     return launches
 
 
-def tower_check() -> None:
+def tower_check() -> dict:
     """Depth-2 PE-Core-L14-336, fp32: kernels on the card vs plain on CPU,
-    the embeddings and the ROI region embeddings of `encode_regions`."""
+    the embeddings and the ROI region embeddings of `encode_regions`.
+    Returns the card forward's kernel launches."""
+    from reverso_tpu_torch import kernels
     from reverso_tpu_torch.config import MODEL_PRESETS
     from reverso_tpu_torch.models.pe import PerceptionEncoder
 
@@ -526,7 +692,12 @@ def tower_check() -> None:
     imgs = rng.standard_normal((2, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
     gpu_enc = PerceptionEncoder(cfg, seed=3, device="cuda")
     cpu_enc = PerceptionEncoder(cfg, seed=3, device="cpu")
-    gpu, cpu = gpu_enc.encode_image(imgs), cpu_enc.encode_image(imgs)
+    kernels.reset_counts()
+    gpu = gpu_enc.encode_image(imgs)
+    launches = dict(kernels.launches)
+    check(launches["flash_heads"] == cfg.depth and launches["flash_heads_tc"] == 0,
+          "the fp32 tower's attention did not take the CUDA-core kernel")
+    cpu = cpu_enc.encode_image(imgs)
     err = float(np.abs(gpu - cpu).max())
     cos = float((gpu * cpu).sum(1).min())
     print(f"tower depth-2 fp32 card vs cpu: max abs err {err}, min cosine {cos}",
@@ -552,6 +723,7 @@ def tower_check() -> None:
               "encode_regions shape/finite")
         check(err <= 1e-4, "encode_regions: card and CPU disagree")
         check(float(np.abs(gr[:, 0] - gr[:, 1]).max()) > 1e-3, "regions pool alike")
+    return launches
 
 
 def vit_long_check() -> dict:
@@ -578,6 +750,41 @@ def vit_long_check() -> dict:
     check(gpu.shape == (2, cfg.embed_dim) and np.isfinite(gpu).all(), "vit 504 shape")
     check(err <= 1e-4, "vit 504: card and CPU disagree")
     check(launches["flash_attn"] == cfg.depth, "vit 504 did not take the flash kernel")
+    return launches
+
+
+def vit_long_bf16() -> dict:
+    """PE-Core-L14 at 504 px (S = 1297), bf16, full depth (24 blocks),
+    B = 8, seeded random init: every block's attention takes K7 on the
+    tensor cores. Held against the same weights in fp32 on the card (min
+    cosine of the embeddings). Returns the bf16 forward's launches."""
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+
+    cfg = dataclasses.replace(MODEL_PRESETS["PE-Core-L14-336"], image_size=504)
+    check(cfg.seq_len == 1297 and cfg.depth == 24 and cfg.dtype == "bfloat16",
+          f"PE-L14 at 504 px: S {cfg.seq_len}, depth {cfg.depth}, {cfg.dtype}")
+    imgs = np.random.default_rng(6).standard_normal((8, 504, 504, 3)).astype(np.float32)
+    enc = PerceptionEncoder(cfg, seed=8, device="cuda")
+    kernels.reset_counts()
+    emb = enc.encode_image(imgs)
+    launches = dict(kernels.launches)
+    check(launches["flash_attn_tc"] == 24 and launches["flash_attn"] == 24
+          and launches["flash_heads"] == 0,
+          f"PE-L14 504 px bf16: attention launches {launches}")
+    x = torch.from_numpy(imgs).cuda()
+    with torch.inference_mode():
+        fwd_ms = sync_ms(torch, lambda: enc.module(x))
+    del enc
+    f32 = PerceptionEncoder(dataclasses.replace(cfg, dtype="float32"), seed=8,
+                            device="cuda").encode_image(imgs)
+    cos = (emb * f32).sum(1)
+    print(f"vit 504 px (S=1297) bf16 full depth, B=8: min cosine vs fp32 {float(cos.min())}, "
+          f"mean {float(cos.mean())}; forward {fwd_ms:.3f} ms; launches {launches}", flush=True)
+    check(emb.shape == (8, cfg.embed_dim) and np.isfinite(emb).all(), "vit 504 bf16 shape")
+    check(float(cos.min()) >= 0.99, f"vit 504 bf16 drifts from fp32: {cos.min()}")
     return launches
 
 
@@ -746,6 +953,17 @@ def slice_run(root: str) -> dict:
     print(f"launches on the direct-embed path: {launches}", flush=True)
     for name in ("flash_heads", "fused_mlp", "topk_stream"):
         check(launches[name] > 0, f"kernel {name} never launched on the direct-embed path")
+    check(launches["flash_heads_tc"] == launches["flash_heads"],
+          "a bf16 attention of the direct-embed path missed the tensor-core kernel")
+
+    # one B=64 forward of the tower (input already on the card), profiled
+    import torch
+    enc = engine.encoder
+    x = torch.randn(64, enc.cfg.image_size, enc.cfg.image_size, 3,
+                    generator=torch.Generator().manual_seed(9)).cuda()
+    with torch.inference_mode():
+        prof = profiled(torch, lambda: enc.module(x))
+    print(f"profiled B=64 PE-Core-L14-336 forward: {json.dumps(prof)}", flush=True)
 
     lat = []
     for _ in range(10):
@@ -853,24 +1071,26 @@ def sync_ms(torch, fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-# kernel-name patterns of the region path's device time, in match order
-KERNEL_GROUPS = (("ms_deform (K8)", "ms_deform"), ("flash_attn (K6/K7)", "flash_attn"),
-                 ("flash_heads (K3)", "flash_heads"), ("fused_mlp (K4)", "fused_mlp"),
+# kernel-name patterns of device time, in match order
+KERNEL_GROUPS = (("ms_deform (K8)", "ms_deform"), ("flash_tc (K3/K7, bf16)", "flash_tc"),
+                 ("flash_attn (K6/K7, CUDA cores)", "flash_attn"),
+                 ("flash_heads (K3, CUDA cores)", "flash_heads"), ("fused_mlp (K4/K5)", "fused_mlp"),
                  ("topk (K1)", "topk"), ("convolution", "conv"),
                  ("matmul", "gemm"), ("matmul", "cutlass"), ("matmul", "Kernel2"))
 
 
-def profile_detect(torch, det, images, prompts) -> dict:
-    """One profiled `detect_batch` of a DINO and a SAM batch: device busy
-    share of the host wall and device time by kernel group."""
+def profiled(torch, fn) -> dict:
+    """One profiled call of `fn` (after a warm-up call): device busy share
+    of the host wall, device time by kernel group and each group's share
+    of the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    det.detect_batch(images, prompts)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        det.detect_batch(images, prompts)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict = {}
@@ -886,9 +1106,10 @@ def profile_detect(torch, det, images, prompts) -> dict:
     for start, stop in sorted(spans):          # union of device intervals
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy / 1e3,
-                busy_share=busy / 1e3 / wall_ms,
-                kernel_ms={k: round(v, 3) for k, v in sorted(groups.items())})
+    busy_ms = busy / 1e3
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+                kernel_ms={k: round(v, 3) for k, v in sorted(groups.items())},
+                kernel_share={k: round(v / busy_ms, 4) for k, v in sorted(groups.items())})
 
 
 def region_run(root: str) -> dict:
@@ -1007,7 +1228,7 @@ def region_run(root: str) -> dict:
     nh = torch.tensor([p[1][0] for p in preps], device="cuda")
     nw = torch.tensor([p[1][1] for p in preps], device="cuda")
     sam_ms = sync_ms(torch, lambda: det._sam_fwd(sam_in, boxes, nh, nw))
-    prof = profile_detect(torch, det, imgs, ["person", "car", "building"])
+    prof = profiled(torch, lambda: det.detect_batch(imgs, ["person", "car", "building"]))
     print(f"profiled detect_batch of 4 images: {json.dumps(prof)}", flush=True)
     m = engine.metrics
     out = dict(build_s=build_s, detect_img_s=m.rate("detect"), embed_img_s=m.rate("embed"),
@@ -1505,6 +1726,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase("kernels (PR 1)", kernel_checks, torch, gen)
     rows.update(phase("kernels (region, long ViT)", region_kernel_checks, torch, gen))
+    phase("attention edge cases", attention_edge_checks, torch, gen)
     torch.cuda.empty_cache()
     rows.update(phase("kernels (capacity)", capacity_kernel_checks, torch, gen))
     torch.cuda.empty_cache()
@@ -1513,8 +1735,10 @@ def main() -> int:
     two_stage_launches = phase("two-stage int8 search", int8_search_run, torch, int8_data)
     del int8_data
     torch.cuda.empty_cache()
-    phase("tower parity", tower_check)
+    tower_launches = phase("tower parity", tower_check)
     long_launches = phase("vit 504 parity", vit_long_check)
+    long_bf16_launches = phase("vit 504 bf16 full depth", vit_long_bf16)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         phase("detector parity", detector_parity, root)
         torch.cuda.empty_cache()
@@ -1526,13 +1750,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         capacity_launches = phase("capacity slice", capacity_run, root)
 
-    # each kernel's launches on its own path
-    path_of = {"flash_heads": direct_launches, "fused_mlp": direct_launches,
-               "topk_stream": direct_launches, "flash_attn": long_launches,
-               "flash_attn_relbias": region_launches, "ms_deform": region_launches,
-               "topk_masked": capacity_launches, "topk_int8": capacity_launches,
-               "topk_binary": capacity_launches, "ivf_scan": capacity_launches,
-               "fused_mlp_int8": int8_launches, "topk_int8_rows": two_stage_launches}
+    # each kernel's launches on its own path: the bf16 attention rows count
+    # the tensor-core kernel's launches, the fp32 rows the CUDA-core kernel's
+    path_of = {"flash_heads": direct_launches["flash_heads_tc"],
+               "flash_heads_f32": tower_launches["flash_heads"],
+               "fused_mlp": direct_launches["fused_mlp"],
+               "topk_stream": direct_launches["topk_stream"],
+               "flash_attn": long_bf16_launches["flash_attn_tc"],
+               "flash_attn_f32": long_launches["flash_attn"],
+               "flash_attn_relbias": region_launches["flash_attn_relbias"],
+               "ms_deform": region_launches["ms_deform"],
+               "topk_masked": capacity_launches["topk_masked"],
+               "topk_int8": capacity_launches["topk_int8"],
+               "topk_binary": capacity_launches["topk_binary"],
+               "ivf_scan": capacity_launches["ivf_scan"],
+               "fused_mlp_int8": int8_launches["fused_mlp_int8"],
+               "topk_int8_rows": two_stage_launches["topk_int8_rows"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     # the order to redesign kernels in: first those one PyTorch call beats,
@@ -1540,7 +1773,7 @@ def main() -> int:
     behind = sorted(((r["ms"] / r["library_ms"], name) for name, r in rows.items()
                      if r["library_ms"] and r["ms"] > r["library_ms"]), reverse=True)
     slow = {name for _, name in behind}
-    rest = sorted(((path_of[name][name] * (r["ms"] - r["bound_ms"]), name)
+    rest = sorted(((path_of[name] * (r["ms"] - r["bound_ms"]), name)
                    for name, r in rows.items() if name not in slow), reverse=True)
     print("redesign order: behind one PyTorch call "
           f"{[(name, round(f, 2)) for f, name in behind]}; then by launches x "
@@ -1549,7 +1782,7 @@ def main() -> int:
             "shape", "library")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
-             launches=path_of[name][name], **{k: r[k] for k in keys})
+             launches=path_of[name], **{k: r[k] for k in keys})
         for name, r in rows.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,42 +1,48 @@
 // Flash attention over [B, H, S, D] with an optional decomposed relative-
-// position bias (SAM's global layers).
+// position bias (SAM's global layers): two kernels.
 //
 // Replaces: reverso_tpu/ops/attention.py::_flash_kernel (the tiled kernel,
-// used with rel_bias by SAM's global layers) and ::_flash_fullseq_kernel
-// (the whole-sequence kernel, used by ViT attention past the heads-in-lanes
-// kernel's S <= 1032 envelope or at head_dim % 4 != 0). Both sit behind
-// flash_attention(); on the card one kernel with an optional bias serves
-// both, since the fullseq/tiled split only existed to fit the TPU's VMEM.
+// pallas_call at :229, used with rel_bias by SAM's global layers) and
+// ::_flash_fullseq_kernel (the whole-sequence kernel, pallas_call at :98,
+// used by ViT attention past the heads-in-lanes kernel's S <= 1032 envelope
+// or at head_dim % 4 != 0). Both sit behind flash_attention(); the
+// fullseq/tiled split only existed to fit the TPU's VMEM.
 //
-// What bounds it on the H100: at SAM ViT-B's global layers (B = 4, H = 12,
-// S = 4096, D = 64, fp32) the work is 4 * B * H * S^2 * D = 206 GFLOP
-// against ~300 MB of q/k/v/o/bias read or written once: arithmetic bounds
-// it. This version computes on the CUDA cores in fp32 (published H100 SXM
-// peak 67 TFLOP/s at 700 W), which keeps the detector's fp32 results exact
-// to fp32 rounding; tensor-core tiles (wgmma, TMA) are later work.
+// What bounds them on the H100: products. At PE-L14 at 504 px (B = 8,
+// H = 16, S = 1297, D = 64, bf16) the work is 4 * B * H * S^2 * D = 55 GFLOP
+// against 85 MB of q/k/v/o (0.056 ms at 989 TFLOP/s against 0.025 ms of
+// bytes); at SAM ViT-B's global layers (B = 4, H = 12, S = 4096, D = 64,
+// fp32) 206 GFLOP against ~300 MB.
 //
-// What the design does about it:
-//   * one CTA of 256 threads per (64-query tile, batch*head); the q tile is
-//     read once, scaled in fp32 and kept in shared memory, and the
-//     [Sq, Skv] scores never leave the CTA;
-//   * K/V stream through 64-key shared-memory tiles (zero-padded up to the
-//     template head width, so any D <= 128 runs);
-//   * register tiles: each thread scores 4 queries x 4 keys (two 16-byte
-//     shared loads per 16 FMAs, against one per 4 with a query row per
-//     thread) and accumulates 4 queries x D/16 output columns from the p
-//     tile (a 4 x 8 tile over 128 threads measured slower on the H100);
-//   * online softmax with an fp32 running max and sum per row, reduced
-//     across the 16 threads of a row with warp shuffles; keys at or past
-//     kv_valid are never multiplied;
-//   * the rel-pos bias bias[q, k] = bh[q, k / G] + bw[q, k % G] is added to
-//     each score inside the tile from the CTA's [G, 64] row and column bias
-//     tiles, staged once in shared memory, so the [Sq, Skv] bias never
-//     reaches device memory (the TPU built it with a 0/1 selector matmul on
-//     the MXU; here it is two shared loads and adds).
+//   * bf16, D % 16 == 0, D <= 128, no bias: rv_flash_attn_tc, the
+//     tensor-core core of flash_tc.cuh (wgmma for QK^T and PV, P kept in
+//     registers between them, K/V through TMA into a four-stage mbarrier
+//     ring, a 3-D [BH, S, D] tensor map so a ragged tile zero-fills
+//     instead of reading the next head);
+//   * fp32, the rel-pos bias, and bf16 at other head dims: rv_flash_attn
+//     below, on the CUDA cores in fp32 (published H100 SXM peak 67 TFLOP/s
+//     at 700 W), which keeps the detector's fp32 results exact to fp32
+//     rounding:
+//       - one CTA of 256 threads per (64-query tile, batch*head); the q tile
+//         is read once, scaled in fp32 and kept in shared memory, and the
+//         [Sq, Skv] scores never leave the CTA;
+//       - K/V stream through 64-key shared-memory tiles (zero-padded up to
+//         the template head width, so any D <= 128 runs);
+//       - register tiles: each thread scores 4 queries x 4 keys and
+//         accumulates 4 queries x D/16 output columns from the p tile;
+//       - online softmax with an fp32 running max and sum per row, reduced
+//         across the 16 threads of a row with warp shuffles; keys at or past
+//         kv_valid are never multiplied;
+//       - the rel-pos bias bias[q, k] = bh[q, k / G] + bw[q, k % G] is added
+//         to each score inside the tile from the CTA's [G, 64] row and
+//         column bias tiles, staged once in shared memory, so the [Sq, Skv]
+//         bias never reaches device memory (the TPU built it with a 0/1
+//         selector matmul on the MXU; here it is two shared loads and adds).
 // Rounding follows the plain version up to where p is rounded: p is rounded
 // to the input dtype before the PV product while the row sum uses the fp32
 // p, and the output is divided by the row sum at the end.
 #include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace rv {
 
@@ -269,4 +275,13 @@ extern "C" int rv_flash_attn(const void* q, const void* k, const void* v,
     if (dtype == rv::kFloat32)
         return rv::dispatch_d<float>(q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, st);
     return rv::kUnsupported;
+}
+
+// bf16 q [BH, Sq, D], k/v [BH, Skv, D], D % 16 == 0, D <= 128, no bias: the
+// tensor-core core (flash_tc.cuh)
+extern "C" int rv_flash_attn_tc(const void* q, const void* k, const void* v, void* o,
+                                int BH, int Sq, int Skv, int D, int kv_valid,
+                                float scale, void* stream) {
+    return rv::tc::dispatch<false>(D, q, k, v, o, nullptr, nullptr, 0, D, BH, BH, Sq, Skv,
+                                   kv_valid, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,29 +1,43 @@
-// Heads-in-lanes flash attention with in-kernel 2D RoPE.
+// Heads-in-lanes flash attention with in-kernel 2D RoPE: two kernels.
 //
 // Replaces: reverso_tpu/ops/attention.py::_flash_heads_kernel (entry
-// flash_attention_heads), the attention of every ViT block.
+// flash_attention_heads, pallas_call at :467), the attention of every ViT
+// block.
 //
 // What bounds it on the H100: at PE-Core-L14-336 shapes (S = 577, hd = 64)
 // the [S, S] score work dominates (4 * B * H * S^2 * hd = 87 GFLOP per layer
 // at B = 64) against 4 * B * S * W activation elements read or written
-// once. This version computes on the CUDA cores in fp32 (published H100 SXM
-// peak 67 TFLOP/s at 700 W), so arithmetic bounds it; the tensor cores are
-// later work.
+// once; on the tensor cores (989 TFLOP/s bf16) bytes and products bound it
+// alike at B = 8 (0.0114 ms of bytes, 0.0110 ms of products), so what is
+// left is the per-tile latency: the softmax between the two products,
+// the RoPE pass on every K tile, and the wave tail of 640 CTAs on 132 SMs.
 //
-// What the design does about it:
-//   * one CTA per (query tile, head, batch) reads its head's columns straight
-//     out of [B, S, W] with stride W: no head transposes through HBM;
-//   * one query row per thread: q is rotated in fp32 with the scale folded
-//     in, rounded to the activation dtype and kept in registers with an fp32
-//     accumulator, so the [S, S] scores never leave the CTA;
-//   * K/V tiles of 64 keys are staged in shared memory, k rotated and
-//     rounded as it is staged, and read by every thread as float4 broadcasts;
-//   * online softmax with an fp32 running max and sum per row;
-//   * keys at or past kv_valid, and the ragged tail of S, are never scored:
-//     the key loop stops at kv_valid and masks the last tile explicitly.
+//   * bf16 with hd % 16 == 0 and hd <= 128: rv_flash_heads_tc, the
+//     tensor-core core of flash_tc.cuh (wgmma for both products, K/V
+//     through TMA into a six-stage mbarrier ring, heads read straight
+//     out of [B, S, W] through a 3-D tensor map with a one-head box, q
+//     rotated once per CTA and each K tile rotated in shared memory by
+//     three producer warps in turn while the consumers work on earlier
+//     tiles; the rotation's fp32 table reads are what keep it behind
+//     SDPA without RoPE, see PERF.md);
+//   * fp32, and bf16 at other head dims: rv_flash_heads below, on the CUDA
+//     cores in fp32 (published H100 SXM peak 67 TFLOP/s at 700 W), which
+//     keeps the fp32 tower exact to fp32 rounding:
+//       - one CTA per (query tile, head, batch) reads its head's columns
+//         straight out of [B, S, W] with stride W: no head transposes;
+//       - one query row per thread: q is rotated in fp32 with the scale
+//         folded in, rounded to the activation dtype and kept in registers
+//         with an fp32 accumulator, so the [S, S] scores never leave the CTA;
+//       - K/V tiles of 64 keys are staged in shared memory, k rotated and
+//         rounded as it is staged, and read by every thread as float4
+//         broadcasts;
+//       - online softmax with an fp32 running max and sum per row;
+//       - keys at or past kv_valid, and the ragged tail of S, are never
+//         scored: the key loop stops at kv_valid and masks the last tile.
 // Rounding follows the reference: p is rounded to the activation dtype
 // before the PV product while the row sum uses the fp32 p.
 #include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace rv {
 
@@ -203,4 +217,18 @@ extern "C" int rv_flash_heads(const void* q, const void* k, const void* v,
     if (dtype == rv::kFloat32)
         return rv::dispatch_hd<float>(q, k, v, cos_t, sin_t, o, B, S, W, heads, kv_valid, scale, use_rope, st);
     return rv::kUnsupported;
+}
+
+// bf16, hd % 16 == 0, hd <= 128: the tensor-core core (flash_tc.cuh)
+extern "C" int rv_flash_heads_tc(const void* q, const void* k, const void* v,
+                                 const void* cos_t, const void* sin_t, void* o,
+                                 int B, int S, int W, int heads, int kv_valid,
+                                 float scale, int use_rope, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (heads <= 0 || W % heads) return rv::kUnsupported;
+    if (use_rope)
+        return rv::tc::dispatch<true>(W / heads, q, k, v, o, cos_t, sin_t, 1, W, B, heads,
+                                      S, S, kv_valid, scale, st);
+    return rv::tc::dispatch<false>(W / heads, q, k, v, o, nullptr, nullptr, 1, W, B, heads,
+                                   S, S, kv_valid, scale, st);
 }

@@ -1,0 +1,800 @@
+// One bf16 flash-attention core on Hopper's tensor cores, shared by the
+// [B, H, S, D] kernel (K7, flash_attn.cu) and the heads-in-lanes kernel
+// with 2D RoPE (K3, flash_heads.cu).
+//
+// Contract (reverso_tpu/ops/attention.py:48-75 and :337-403): non-causal
+// attention over bf16 q, k, v with fp32 accumulation; keys at or past
+// kv_valid score -inf. Without RoPE the score is f32(q.k) * scale; with
+// RoPE q is rotated in fp32 with the scale folded in and rounded to bf16,
+// k is rotated and rounded to bf16, and the score is f32(q_rot.k_rot).
+// p = exp(s - m) in fp32, the row sum l adds the fp32 p, p rounds to bf16
+// for the PV product, and the output is acc / l rounded to bf16. The
+// softmax is online: p is rounded against the running max, and the fp32
+// accumulator is rescaled when the max moves (the one point where the
+// kernel knowingly differs from the one-pass reference;
+// tests/test_torch_flash_tc.py measures it).
+//
+// Design:
+//   * a CTA holds NWG consumer warpgroups of 64 query rows each and one
+//     producer warpgroup. One producer thread brings the q tile and a ring
+//     of STAGES K/V tiles through TMA (cp.async.bulk.tensor, 3-D tensor
+//     maps, mbarrier completion); the consumers wait on the ring's "full"
+//     barriers and release a stage through its "empty" barrier;
+//   * the maps are 3-D ([BH, S, D] for K7, [B, S, W] for K3 with a box of
+//     one head's columns), so a tile past a head's last row is zero-filled
+//     by the hardware and never reads the next head; the ragged last query
+//     and key tiles need no padded copies in device memory;
+//   * S = Q K^T is wgmma m64nBKk16 with Q and K in shared memory, both
+//     K-major (K is stored [BK][D]); O += P V is wgmma m64nDk16 with P
+//     taken from the S accumulator's registers, converted to bf16 in place
+//     (the accumulator layout of m64nN is the register-A layout of k16),
+//     and V the B operand in its MN-major (transposed) mode;
+//   * tiles are stored in swizzle atoms of 64, 32 or 16 columns (128-, 64-
+//     or 32-byte swizzle, the widest that divides D): D = 96 is three
+//     32-column atoms, D = 16 one 16-column atom;
+//   * with RoPE, each consumer warpgroup rotates its q rows once in the
+//     prologue, and producer warps 1-3 take the landed K tiles in turn and
+//     rotate each in place (fp32 math, bf16 result) before they arrive on
+//     the stage's "rotated" barrier, while the consumers work on earlier
+//     tiles; warp 0 only starts TMA loads, so no load waits on a rotation.
+//
+// What bounds it on the H100 at the main paths' shapes: bytes and
+// products alike for K3 (B = 8, S = 577, hd 64: 0.0114 ms of bytes, 0.0110
+// ms of products at 3.35 TB/s and 989 TFLOP/s), products for K7 (B = 8,
+// S = 1297: 0.056 ms); what the card spends above that is per-tile
+// latency (the softmax between the products, which the loop overlaps
+// with the PV product) and, with RoPE, the rotation pass and its fp32
+// table reads (8 bytes per bf16 element of K, per CTA).
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace rv {
+namespace tc {
+
+constexpr int kWgThreads = 128;   // threads of a warpgroup
+constexpr int kQRows = 64;        // query rows of a consumer warpgroup (wgmma M)
+constexpr int kRotWarps = 3;      // producer warps 1-3: the RoPE pass on K tiles
+constexpr int kMapError = -2;     // launcher status: a tensor map could not be encoded
+
+// ---- PTX: shared-memory barriers, TMA, wgmma --------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "LAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\n"
+        "bra LAB_WAIT;\n"
+        "DONE:\n"
+        "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory -> visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout (1: 128 B, 2: 64 B, 3: 32 B)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// S = A B^T, A and B K-major in shared memory, 64 x N fp32 accumulator;
+// scale_d = 0 overwrites the accumulator
+template <int N> struct WgmmaSS;
+// D += A B, A (bf16 pairs, the k16 register fragment) in registers, B
+// MN-major (transposed) in shared memory
+template <int N> struct WgmmaRS;
+
+template <> struct WgmmaSS<64> {
+    static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <> struct WgmmaSS<128> {
+    static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+            "%64, %65, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <> struct WgmmaRS<16> {
+    static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct WgmmaRS<32> {
+    static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct WgmmaRS<48> {
+    static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+            "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct WgmmaRS<64> {
+    static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct WgmmaRS<80> {
+    static __device__ __forceinline__ void run(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+            "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct WgmmaRS<96> {
+    static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+            "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct WgmmaRS<112> {
+    static __device__ __forceinline__ void run(float (&d)[56], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+            "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct WgmmaRS<128> {
+    static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+            "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+// ---- tile geometry -----------------------------------------------------------
+
+// A tile of R rows x HD bf16 columns is stored as HD / ATOM atoms of
+// [R][ATOM], each swizzled as TMA writes it (the widest of 128-, 64- and
+// 32-byte swizzle whose atom divides the head dim).
+template <int HD>
+struct Geo {
+    static constexpr int ATOM = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+    static constexpr int ATOM_BYTES = ATOM * 2;
+    static constexpr int NATOM = HD / ATOM;
+    static constexpr uint64_t LAYOUT = ATOM_BYTES == 128 ? 1 : ATOM_BYTES == 64 ? 2 : 3;
+};
+
+// the byte a swizzled atom keeps (row, byte-in-row) at: 16-byte chunks XOR
+// the row bits (Swizzle<3|2|1, 4, 3>), with atoms 1024-byte aligned
+template <int ATOM_BYTES>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+    constexpr uint32_t mask = ATOM_BYTES / 16 - 1;
+    return off ^ ((off >> 3) & (mask << 4));
+}
+
+template <int HD>
+__device__ __forceinline__ uint32_t tile_offset(int rows, int r, int c) {
+    using G = Geo<HD>;
+    return (uint32_t)((c / G::ATOM) * rows * G::ATOM_BYTES)
+         + swizzle<G::ATOM_BYTES>((uint32_t)(r * G::ATOM_BYTES + (c % G::ATOM) * 2));
+}
+
+// Rotate rows [0, n_rows) of a [ROWS][HD] tile in place by the 2D RoPE
+// tables' rows row0.. (quarter-split axial rotate [a, b | c, e] ->
+// x * cos + [-b, a | -e, c] * sin), times `mul`, in fp32 with the plain
+// version's roundings, rounded to bf16. NT threads share the tile; each
+// loads a batch of its units (pairs of 4 or 8 columns) before it computes
+// and stores any, so the table reads overlap.
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void rope_tile(uint8_t* tile, int n_rows, int row0,
+                                          const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t, float mul, int tid) {
+    constexpr int QH = HD / 4;
+    constexpr int VEC = QH % 8 == 0 ? 8 : 4;       // columns per unit (one 16- or 8-byte load)
+    constexpr int PER_HALF = QH / VEC;
+    constexpr int UNITS = 2 * PER_HALF;            // per row: (a, b) and (c, e) pairs
+    constexpr int ITERS = (ROWS * UNITS + NT - 1) / NT;
+    constexpr int BATCH = ITERS < 2 ? ITERS : 2;  // units in flight per thread (registers)
+    using Raw = typename std::conditional<VEC == 8, uint4, uint2>::type;
+#pragma unroll 1
+    for (int it0 = 0; it0 < ITERS; it0 += BATCH) {
+        Raw xl[BATCH], xh[BATCH];
+        float4 cl[BATCH][VEC / 4], sl[BATCH][VEC / 4], ch[BATCH][VEC / 4], sh[BATCH][VEC / 4];
+        uint32_t off_lo[BATCH], off_hi[BATCH];
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+            const int idx = tid + (it0 + b) * NT;
+            if (idx >= n_rows * UNITS) continue;
+            const int r = idx / UNITS, u = idx - r * UNITS;
+            const int c_lo = (u / PER_HALF) * 2 * QH + (u % PER_HALF) * VEC;
+            const int c_hi = c_lo + QH;
+            off_lo[b] = tile_offset<HD>(ROWS, r, c_lo);
+            off_hi[b] = tile_offset<HD>(ROWS, r, c_hi);
+            xl[b] = *reinterpret_cast<const Raw*>(tile + off_lo[b]);
+            xh[b] = *reinterpret_cast<const Raw*>(tile + off_hi[b]);
+            const float4* cs = reinterpret_cast<const float4*>(cos_t + (size_t)(row0 + r) * HD);
+            const float4* sn = reinterpret_cast<const float4*>(sin_t + (size_t)(row0 + r) * HD);
+#pragma unroll
+            for (int e = 0; e < VEC / 4; ++e) {
+                cl[b][e] = __ldg(cs + c_lo / 4 + e);
+                sl[b][e] = __ldg(sn + c_lo / 4 + e);
+                ch[b][e] = __ldg(cs + c_hi / 4 + e);
+                sh[b][e] = __ldg(sn + c_hi / 4 + e);
+            }
+        }
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+            if (tid + (it0 + b) * NT >= n_rows * UNITS) continue;
+            const __nv_bfloat16* a16 = reinterpret_cast<const __nv_bfloat16*>(&xl[b]);
+            const __nv_bfloat16* b16 = reinterpret_cast<const __nv_bfloat16*>(&xh[b]);
+            const float* clf = reinterpret_cast<const float*>(cl[b]);
+            const float* slf = reinterpret_cast<const float*>(sl[b]);
+            const float* chf = reinterpret_cast<const float*>(ch[b]);
+            const float* shf = reinterpret_cast<const float*>(sh[b]);
+            Raw yl, yh;
+            __nv_bfloat16* ya = reinterpret_cast<__nv_bfloat16*>(&yl);
+            __nv_bfloat16* yb = reinterpret_cast<__nv_bfloat16*>(&yh);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+                const float a = __bfloat162float(a16[e]), bv = __bfloat162float(b16[e]);
+                const float na = __fadd_rn(__fmul_rn(a, clf[e]), __fmul_rn(-bv, slf[e]));
+                const float nb = __fadd_rn(__fmul_rn(bv, chf[e]), __fmul_rn(a, shf[e]));
+                ya[e] = __float2bfloat16(__fmul_rn(na, mul));
+                yb[e] = __float2bfloat16(__fmul_rn(nb, mul));
+            }
+            *reinterpret_cast<Raw*>(tile + off_lo[b]) = yl;
+            *reinterpret_cast<Raw*>(tile + off_hi[b]) = yh;
+        }
+    }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- the kernel ----------------------------------------------------------------
+
+struct Params {
+    __nv_bfloat16* o;
+    const float* cos_t;     // [S, HD] fp32 (RoPE only)
+    const float* sin_t;
+    int s_q, kv_valid;      // query rows per (batch, head); keys that score
+    int lanes;              // 1: [B, S, W], grid (q tiles, heads, B); 0: [BH, S, D], grid (q tiles, BH)
+    int row_stride;         // output row stride in elements (W or D)
+    float score_mul;        // log2(e) * scale; log2(e) with RoPE (scale folded into q)
+    float q_scale;          // RoPE: the softmax scale folded into q
+};
+
+template <int HD, int BK, int NWG, int STAGES>
+struct Smem {
+    static constexpr int Q_BYTES = NWG * kQRows * HD * 2;
+    static constexpr int KV_BYTES = BK * HD * 2;    // one K or V tile
+    static constexpr int BYTES = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+};
+
+// keeps the compiler from moving reads or writes of wgmma operands across
+// the asynchronous product (the registers are the hardware's until the
+// wait_group that covers it)
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_operand(uint32_t (&r)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x on the SFU; 2^-inf = 0
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// S = Q K^T of one tile, started (not waited for): HD / 16 k16 steps
+template <int HD, int BK>
+__device__ __forceinline__ void qk_tile(float (&sc)[BK / 2], uint32_t q_addr, uint32_t k_addr) {
+    using G = Geo<HD>;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+        const int a = kk * 16 / G::ATOM;
+        const uint32_t kin = (kk * 16 % G::ATOM) * 2;
+        const uint64_t da = gmma_desc(q_addr + a * kQRows * G::ATOM_BYTES + kin, 16,
+                                      8 * G::ATOM_BYTES, G::LAYOUT);
+        const uint64_t db = gmma_desc(k_addr + a * BK * G::ATOM_BYTES + kin, 16,
+                                      8 * G::ATOM_BYTES, G::LAYOUT);
+        WgmmaSS<BK>::run(sc, da, db, kk > 0);
+    }
+}
+
+// Online softmax of one score tile, in place, for rows g and g + 8 of a
+// warp's 16 (thread t holds columns 8n + 2t, 8n + 2t + 1 of each 8-column
+// block n): keys at or past kv_valid score -inf; the running maxima m (in
+// units of log2: scores times `mul` = log2(e) * scale) move to the tile's,
+// c = 2^(m_old - m_new), sc becomes p = 2^(s * mul - m) in fp32, and rs
+// its row sums.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float mul, int kb,
+                                             int kv_valid, int t, float& m0, float& m1,
+                                             float& c0, float& c1, float& rs0, float& rs1) {
+    if (kb + BK > kv_valid) {
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                if (kb + 8 * n + 2 * t + e >= kv_valid)
+                    sc[4 * n + e] = sc[4 * n + 2 + e] = -CUDART_INF_F;
+    }
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * n + 0], sc[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // mul > 0: max(s) * mul is max(s * mul) exactly
+    const float mn0 = fmaxf(m0, mx0 * mul), mn1 = fmaxf(m1, mx1 * mul);
+    c0 = ex2(m0 - mn0);
+    c1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    rs0 = rs1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+        sc[4 * n + 0] = ex2(fmaf(sc[4 * n + 0], mul, -mn0));
+        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], mul, -mn0));
+        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], mul, -mn1));
+        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], mul, -mn1));
+        rs0 += sc[4 * n + 0] + sc[4 * n + 1];
+        rs1 += sc[4 * n + 2] + sc[4 * n + 3];
+    }
+}
+
+// p rounded to bf16 into the k16 register fragments of the PV product:
+// fragment n / 2 takes registers 0, 1 from block 2kk and 2, 3 from 2kk + 1
+// (the m64nN accumulator layout is the k16 register-A layout)
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(sc[4 * n + 0], sc[4 * n + 1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+    }
+}
+
+// O += P V of one tile, started: BK / 16 k16 steps, V MN-major (its rows
+// are the keys, D contiguous)
+template <int HD, int BK>
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 2], const uint32_t (&pa)[BK / 16][4],
+                                        uint32_t v_addr) {
+    using G = Geo<HD>;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = gmma_desc(v_addr + kk * 16 * G::ATOM_BYTES, BK * G::ATOM_BYTES,
+                                      8 * G::ATOM_BYTES, G::LAYOUT);
+        WgmmaRS<HD>::run(o, pa[kk], dv);
+    }
+}
+
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 2], float c0, float c1) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+        o[4 * n + 0] *= c0;
+        o[4 * n + 1] *= c0;
+        o[4 * n + 2] *= c1;
+        o[4 * n + 3] *= c1;
+    }
+}
+
+// producer: wait until tile j's stage is free, then bring its K and V
+// tiles (every atom of the head's columns) onto the stage's full barrier
+template <int HD, int BK, int STAGES>
+__device__ __forceinline__ void load_kv(int j, uint8_t* ks, uint8_t* vs, uint64_t* full,
+                                        uint64_t* empty, const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, int col0, int z) {
+    using G = Geo<HD>;
+    constexpr int KV_BYTES = BK * HD * 2;
+    const int s = j % STAGES;
+    mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[s], 2 * KV_BYTES);
+#pragma unroll
+    for (int a = 0; a < G::NATOM; ++a) {
+        const int off = s * KV_BYTES + a * BK * G::ATOM_BYTES;
+        tma_load_3d(ks + off, kmap, &full[s], col0 + a * G::ATOM, j * BK, z);
+        tma_load_3d(vs + off, vmap, &full[s], col0 + a * G::ATOM, j * BK, z);
+    }
+}
+
+template <int HD, int BK, int NWG, int STAGES, bool ROPE>
+__global__ void __launch_bounds__((NWG + 1) * kWgThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const Params p) {
+    using G = Geo<HD>;
+    using L = Smem<HD, BK, NWG, STAGES>;
+    static_assert(HD % 16 == 0 && HD <= 128 && BK % 16 == 0, "tile shape");
+    static_assert(!ROPE || STAGES % kRotWarps == 0, "each rotating warp owns its stages");
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* base = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint8_t* qs = base;                                // [NWG][NATOM][64][ATOM]
+    uint8_t* ks = qs + L::Q_BYTES;                     // [STAGES][NATOM][BK][ATOM]
+    uint8_t* vs = ks + STAGES * L::KV_BYTES;
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + STAGES * L::KV_BYTES);
+    uint64_t* full = qbar + 1;      // K and V of a stage landed (TMA bytes)
+    uint64_t* empty = full + STAGES;  // every consumer warp is done with a stage
+    uint64_t* rot = empty + STAGES;   // RoPE: the stage's K tile is rotated
+
+    const int wg = threadIdx.x / kWgThreads;
+    const int tid = threadIdx.x % kWgThreads;
+    const int q0 = blockIdx.x * NWG * kQRows;
+    const int col0 = p.lanes ? blockIdx.y * HD : 0;
+    const int z = p.lanes ? blockIdx.z : blockIdx.y;
+    const int n_tiles = ceil_div(p.kv_valid, BK);
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], NWG * 4);
+            mbar_init(&rot[s], 32);
+        }
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (wg == NWG) {
+        // ---- producer warpgroup ----
+        if (tid == 0) {
+            mbar_expect_tx(qbar, L::Q_BYTES);
+            for (int g = 0; g < NWG; ++g)
+#pragma unroll
+                for (int a = 0; a < G::NATOM; ++a)
+                    tma_load_3d(qs + (g * G::NATOM + a) * kQRows * G::ATOM_BYTES, &qmap, qbar,
+                                col0 + a * G::ATOM, q0 + g * kQRows, z);
+        }
+        // warp 0 loads, as far ahead as the ring allows. With RoPE, warps
+        // 1-3 take the landed K tiles in turn (warp w rotates tiles j with
+        // j % 3 == w - 1, in place: the stages j % STAGES it owns), so three
+        // tiles rotate at once, each warp's L2 reads of the tables
+        // overlapping the others'
+        const int warp = tid / 32;
+        if (tid == 0) {
+            for (int j = 0; j < n_tiles; ++j)
+                load_kv<HD, BK, STAGES>(j, ks, vs, full, empty, &kmap, &vmap, col0, z);
+        } else if (ROPE && warp > 0) {
+            for (int j = warp - 1; j < n_tiles; j += kRotWarps) {
+                const int s = j % STAGES;
+                mbar_wait(&full[s], (j / STAGES) & 1);
+                rope_tile<HD, BK, 32>(ks + s * L::KV_BYTES, min(BK, p.kv_valid - j * BK), j * BK,
+                                      p.cos_t, p.sin_t, 1.f, tid % 32);
+                fence_proxy_async();
+                mbar_arrive(&rot[s]);
+            }
+        }
+    } else {
+        // ---- consumer warpgroup: 64 query rows ----
+        const int warp = tid / 32, lane = tid % 32;
+        const int g = lane / 4, t = lane % 4;
+        uint8_t* my_q = qs + wg * G::NATOM * kQRows * G::ATOM_BYTES;
+        float o[HD / 2];
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+        float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+        mbar_wait(qbar, 0);
+        if constexpr (ROPE) {
+            const int row0 = q0 + wg * kQRows;
+            rope_tile<HD, kQRows, kWgThreads>(my_q, min(kQRows, p.s_q - row0), row0, p.cos_t,
+                                              p.sin_t, p.q_scale, tid);
+            fence_proxy_async();
+            named_bar_sync(1 + wg, kWgThreads);
+        }
+        const uint32_t q_addr = smem_addr(my_q);
+        auto wait_tile = [&](int j) {
+            const uint32_t ph = (j / STAGES) & 1;
+            mbar_wait(&full[j % STAGES], ph);
+            if constexpr (ROPE) mbar_wait(&rot[j % STAGES], ph);
+        };
+        auto k_addr = [&](int j) { return smem_addr(ks + (j % STAGES) * L::KV_BYTES); };
+        auto v_addr = [&](int j) { return smem_addr(vs + (j % STAGES) * L::KV_BYTES); };
+        auto release = [&](int j) {   // this warp is done with tile j's stage
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[j % STAGES]);
+        };
+
+        // The loop keeps the tensor cores fed: with P_j in registers it
+        // starts S_{j+1} = Q K_{j+1}^T, then O += P_j V_j, and runs tile
+        // j + 1's softmax while the PV product is in flight; only the
+        // rescale of O and the packing of P_{j+1} wait for it. No wgmma is
+        // started under a branch (the last tile is peeled), so ptxas keeps
+        // the products asynchronous.
+        float sc[BK / 2];
+        uint32_t pa[BK / 16][4];
+        float c0, c1, rs0, rs1;
+        if (n_tiles > 0) {
+            wait_tile(0);
+            wgmma_fence();
+            qk_tile<HD, BK>(sc, q_addr, k_addr(0));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operand(sc);
+            softmax_tile<BK>(sc, p.score_mul, 0, p.kv_valid, t, m0, m1, c0, c1, rs0, rs1);
+            l0 = rs0;
+            l1 = rs1;
+            pack_p<BK>(sc, pa);
+            for (int j = 0; j + 1 < n_tiles; ++j) {
+                wait_tile(j + 1);
+                wgmma_fence();
+                qk_tile<HD, BK>(sc, q_addr, k_addr(j + 1));
+                wgmma_commit();
+                pv_tile<HD, BK>(o, pa, v_addr(j));
+                wgmma_commit();
+                wgmma_wait<1>();
+                fence_operand(sc);
+                softmax_tile<BK>(sc, p.score_mul, (j + 1) * BK, p.kv_valid, t, m0, m1, c0, c1,
+                                 rs0, rs1);
+                wgmma_wait<0>();
+                fence_operand(o);
+                release(j);
+                l0 = l0 * c0 + rs0;
+                l1 = l1 * c1 + rs1;
+                rescale<HD>(o, c0, c1);
+                pack_p<BK>(sc, pa);
+            }
+            wgmma_fence();
+            pv_tile<HD, BK>(o, pa, v_addr(n_tiles - 1));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operand(o);
+            release(n_tiles - 1);
+        }
+
+        // epilogue: acc / l (the quad's partial sums added), rounded to bf16
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+        const int r0 = q0 + wg * kQRows + warp * 16 + g;
+        __nv_bfloat16* ob = p.o + (size_t)z * p.s_q * p.row_stride + col0;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+            const int c = 8 * n + 2 * t;
+            if (r0 < p.s_q)
+                *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * p.row_stride + c) =
+                    pack_bf16(o[4 * n + 0] / l0, o[4 * n + 1] / l0);
+            if (r0 + 8 < p.s_q)
+                *reinterpret_cast<uint32_t*>(ob + (size_t)(r0 + 8) * p.row_stride + c) =
+                    pack_bf16(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
+        }
+    }
+}
+
+// ---- host side -------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
+// library links without -lcuda
+static inline EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &res);
+#else
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
+#endif
+        if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+    return fn;
+}
+
+// a 3-D bf16 map over [d2][d1][d0] (d0 contiguous), box [1][rows][ATOM],
+// swizzled as the wgmma descriptors read it; out-of-bounds rows read zero
+template <int HD>
+static inline bool make_map(CUtensorMap* map, const void* ptr, int d0, int d1, int d2,
+                            int rows) {
+    using G = Geo<HD>;
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+    const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)G::ATOM, (cuuint32_t)rows, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    const CUtensorMapSwizzle sw = G::ATOM_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : G::ATOM_BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tile choice (measured on the H100, see PERF.md): 64-key tiles (128-key
+// tiles measured slower: twice the score registers). Without RoPE one
+// consumer warpgroup (64 query rows) per CTA and a ring of four stages:
+// twice the CTAs of 128-row tiles fill the 132 SMs more evenly. With RoPE
+// two consumer warpgroups (128 rows) share each K tile's rotation, which
+// halves the RoPE pass's table reads per query row, and a ring of six
+// stages gives the three rotating warps room to run ahead. The ring's
+// depth is a multiple of the rotating warps, so each warp owns the same
+// stages throughout and waits on every phase of their barriers in order
+// (a parity wait cannot tell a phase from the one two before it).
+constexpr int kBK = 64;
+template <bool ROPE> struct Tiles {
+    static constexpr int NWG = ROPE ? 2 : 1;
+    static constexpr int STAGES = ROPE ? 6 : 4;
+};
+
+// q [Z][s_q][d0], k and v [Z][s_kv][d0] bf16; `lanes` = 1 reads head y's
+// HD columns at y * HD of d0 = W (grid.z = batch), 0 reads d0 = HD
+// (grid.y = batch * head)
+template <int HD, bool ROPE>
+static int launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
+                  const void* sin_t, int lanes, int d0, int z, int heads, int s_q, int s_kv,
+                  int kv_valid, float scale, cudaStream_t stream) {
+    constexpr int NWG = Tiles<ROPE>::NWG, STAGES = Tiles<ROPE>::STAGES, BK = kBK;
+    using L = Smem<HD, BK, NWG, STAGES>;
+    CUtensorMap qm, km, vm;
+    if (!make_map<HD>(&qm, q, d0, s_q, z, kQRows) || !make_map<HD>(&km, k, d0, s_kv, z, BK)
+        || !make_map<HD>(&vm, v, d0, s_kv, z, BK))
+        return kMapError;
+    auto kernel = flash_tc_kernel<HD, BK, NWG, STAGES, ROPE>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    constexpr float kLog2e = 1.4426950408889634f;
+    Params p;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.cos_t = static_cast<const float*>(cos_t);
+    p.sin_t = static_cast<const float*>(sin_t);
+    p.s_q = s_q;
+    p.kv_valid = kv_valid;
+    p.lanes = lanes;
+    p.row_stride = d0;
+    p.score_mul = ROPE ? kLog2e : kLog2e * scale;
+    p.q_scale = scale;
+    dim3 grid(ceil_div(s_q, NWG * kQRows), lanes ? heads : z, lanes ? z : 1);
+    kernel<<<grid, (NWG + 1) * kWgThreads, L::BYTES, stream>>>(qm, km, vm, p);
+    return (int)cudaGetLastError();
+}
+
+template <bool ROPE>
+static int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
+                    const void* cos_t, const void* sin_t, int lanes, int d0, int z, int heads,
+                    int s_q, int s_kv, int kv_valid, float scale, cudaStream_t st) {
+#define RV_TC_CASE(HD) \
+    case HD: return launch<HD, ROPE>(q, k, v, o, cos_t, sin_t, lanes, d0, z, heads, s_q, s_kv, kv_valid, scale, st);
+    switch (hd) {
+        RV_TC_CASE(16) RV_TC_CASE(32) RV_TC_CASE(48) RV_TC_CASE(64)
+        RV_TC_CASE(80) RV_TC_CASE(96) RV_TC_CASE(112) RV_TC_CASE(128)
+        default: return kUnsupported;
+    }
+#undef RV_TC_CASE
+}
+
+}  // namespace tc
+}  // namespace rv

@@ -34,11 +34,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 INT8, BINARY_PACKED = 2, 3   # top-k / IVF modes: int8 digits, packed sign bits
 UNSUPPORTED = -1
+MAP_ERROR = -2   # a TMA tensor map could not be encoded (csrc/flash_tc.cuh)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, dtype, stream
     "rv_flash_heads": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, stream
+    "rv_flash_heads_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, w1, b1, w2, b2, out, T, W, H, act, dtype, stream
     "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w1, s1, b1, w2, s2, b2, out, T, W, H, act, dtype, stream
@@ -53,6 +56,8 @@ _SIGNATURES = {
     "rv_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, dtype, stream
     "rv_flash_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, BH, Sq, Skv, D, kv_valid, scale, stream
+    "rv_flash_attn_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # value, levels, loc, attw, out, B, Lv, Lq, H, D, L, P, dtype, stream
     "rv_ms_deform": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -71,10 +76,14 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # with a row mask, int8 rows (masked or not), packed sign bits;
 # `topk_int8_rows` its per-row-scale int8 candidate scan (the two-stage
 # search's first stage); `fused_mlp_int8` the MLP's int8 mode.
+# `flash_heads` and `flash_attn` count every launch of their mode;
+# `flash_heads_tc` and `flash_attn_tc` only those that went to the bf16
+# tensor-core kernels (csrc/flash_tc.cuh).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
-            "fused_mlp_int8": 0, "topk_int8_rows": 0}
+            "fused_mlp_int8": 0, "topk_int8_rows": 0, "flash_heads_tc": 0,
+            "flash_attn_tc": 0}
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the
 # top-k kernel's cap; int8 k above the cap or d above the exactness bound
 # (1040); binary k above the cap; an IVF fetch (2k under spill) above it.
@@ -171,6 +180,8 @@ def stream_ptr(device: torch.device) -> int:
 def check(name: str, status: int) -> None:
     if status == UNSUPPORTED:
         raise ValueError(f"{name}: shape or dtype not supported by the kernel")
+    if status == MAP_ERROR:
+        raise RuntimeError(f"{name}: the TMA tensor map could not be encoded")
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
 

@@ -1,14 +1,19 @@
-"""Multi-head attention: two CUDA kernels and their plain versions.
+"""Multi-head attention: CUDA kernels and their plain versions.
 
 `flash_attention_heads` consumes [B, S, W] activations with the heads
 sliced out of the width, applies 2D RoPE to q and k and honours
-`kv_valid`; on a CUDA tensor it launches `csrc/flash_heads.cu`, on a CPU
-tensor it runs `flash_attention_heads_ref`.
+`kv_valid`; on a CPU tensor it runs `flash_attention_heads_ref`.
 
 `flash_attention` is attention over [B, H, S, D] with `kv_valid` and an
-optional SAM-style decomposed relative-position bias; on a CUDA tensor it
-launches `csrc/flash_attn.cu`, on a CPU tensor it runs `attention_ref`,
-the plain [B, H, S, D] attention the pooling head also uses.
+optional SAM-style decomposed relative-position bias; on a CPU tensor it
+runs `attention_ref`, the plain [B, H, S, D] attention the pooling head
+also uses.
+
+On a CUDA tensor each launches one of two hand-written kernels, by the
+rule in `attention_route`: bf16 at a head dim the tensor cores take
+(`csrc/flash_tc.cuh` through `rv_flash_heads_tc` / `rv_flash_attn_tc`),
+otherwise the fp32 CUDA-core kernels (`csrc/flash_heads.cu`,
+`csrc/flash_attn.cu`), which also carry SAM's rel-pos bias.
 """
 from __future__ import annotations
 
@@ -18,6 +23,22 @@ import torch
 
 from .. import kernels
 from .rope import rotate
+
+
+def attention_route(device_type: str, dtype: torch.dtype, head_dim: int,
+                    rel_bias: bool = False) -> str:
+    """Which implementation serves an attention call: "plain" for CPU
+    tensors; on the card "tensor_core" for bf16 with head_dim % 16 == 0,
+    head_dim <= 128 and no rel-pos bias (wgmma takes k16 steps of bf16 and
+    the kernel keeps at most 128 accumulator columns), else "cuda_core"
+    (fp32, SAM's rel-pos bias, and bf16 at other head dims). A rule
+    between two kernels by dtype and shape, not a fallback."""
+    if device_type == "cpu":
+        return "plain"
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128
+            and not rel_bias):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def rel_bias_dense(bias_h: torch.Tensor, bias_w: torch.Tensor,
@@ -90,12 +111,15 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
     """Attention over [B, S, W] with heads sliced from the width and
     optional in-kernel 2D RoPE (cos/sin [S, head_dim] tables).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    `attention_route` picks."""
+    b, s, w = q.shape
+    route = attention_route(q.device.type, q.dtype,
+                            w // heads if heads and w % heads == 0 else 0)
+    if route == "plain":
         return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos,
                                          sin=sin, scale=scale,
                                          kv_valid=kv_valid)
-    b, s, w = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     if w % heads or (w // heads) % 4:
@@ -119,16 +143,28 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
     else:
         tables = ()
     kernels.require_cuda("flash_attention_heads", q, k, v, *tables)
+    tc = route == "tensor_core"
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, *tables)):
+        # TMA maps and the RoPE pass's float4 table reads
+        raise ValueError("flash_attention_heads: tensors must be 16-byte aligned")
     o = torch.empty_like(q)
     cos_p = tables[0].data_ptr() if use_rope else None
     sin_p = tables[1].data_ptr() if use_rope else None
     with torch.cuda.device(q.device):   # launch on the tensors' card
-        status = kernels.lib().rv_flash_heads(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p, o.data_ptr(),
-            b, s, w, heads, kv, scale, int(use_rope),
-            kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
+        if tc:
+            status = kernels.lib().rv_flash_heads_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
+                o.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
+                kernels.stream_ptr(q.device))
+        else:
+            status = kernels.lib().rv_flash_heads(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
+                o.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
+                kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.check("flash_attention_heads", status)
     kernels.launches["flash_heads"] += 1
+    if tc:
+        kernels.launches["flash_heads_tc"] += 1
     return o
 
 
@@ -142,11 +178,13 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
     for keys on a G x G grid (S_kv == G * G); the kernel adds it inside the
     tile, so the [Sq, S_kv] bias never exists on the card.
 
-    CPU tensors run `attention_ref`; CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
+    CPU tensors run `attention_ref`; CUDA tensors launch the kernel
+    `attention_route` picks."""
+    b, h, sq, d = q.shape
+    route = attention_route(q.device.type, q.dtype, d, rel_bias is not None)
+    if route == "plain":
         return attention_ref(q, k, v, kv_valid=kv_valid, scale=scale,
                              rel_bias=rel_bias)
-    b, h, sq, d = q.shape
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
         raise ValueError(f"q/k/v shapes disagree: {q.shape} {k.shape} {v.shape}")
@@ -169,14 +207,24 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
     else:
         grid, biases = 0, ()
     kernels.require_cuda("flash_attention", q, k, v, *biases)
+    tc = route == "tensor_core"
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned (TMA)")
     o = torch.empty_like(q)
     bh_p = biases[0].data_ptr() if biases else None
     bw_p = biases[1].data_ptr() if biases else None
     with torch.cuda.device(q.device):   # launch on the tensors' card
-        status = kernels.lib().rv_flash_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p, o.data_ptr(),
-            b * h, sq, skv, d, grid, kv, scale, kernels.DTYPE_CODES[q.dtype],
-            kernels.stream_ptr(q.device))
+        if tc:
+            status = kernels.lib().rv_flash_attn_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                b * h, sq, skv, d, kv, scale, kernels.stream_ptr(q.device))
+        else:
+            status = kernels.lib().rv_flash_attn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p,
+                o.data_ptr(), b * h, sq, skv, d, grid, kv, scale,
+                kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.check("flash_attention", status)
     kernels.launches["flash_attn_relbias" if grid else "flash_attn"] += 1
+    if tc:
+        kernels.launches["flash_attn_tc"] += 1
     return o

@@ -31,6 +31,20 @@ def _randn(gen, *shape, dtype, scale=1.0):
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+def _assert_close(out, ref, tol):
+    """Max abs error within `tol`, NaN exactly where the plain version has
+    NaN (kv_valid = 0 leaves every row without a key)."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    diff = (out.float() - ref.float())[~nan].abs()
+    assert diff.numel() == 0 or float(diff.max()) <= tol
+
+
+def _uses_tensor_cores(dtype, head_dim):
+    """The wrappers' dispatch rule (ops/attention.py::attention_route)."""
+    return dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,w,heads,kv_valid,rope", [
     (2, 17, 64, 4, None, True),       # test-tiny: hd 16, S = 17
@@ -38,6 +52,14 @@ TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (2, 145, 128, 4, None, False),    # hd 32, CLIP family
     (1, 577, 1024, 16, 300, True),    # PE-L14 widths
     (2, 50, 384, 4, None, True),      # hd 96
+    (1, 1, 64, 1, None, True),        # S = 1, B * H = 1
+    (2, 63, 128, 4, 1, True),         # hd 32, one valid key
+    (1, 64, 256, 2, 63, True),        # hd 128, one full key tile
+    (2, 65, 384, 4, 64, False),       # hd 96, a ragged tile past kv_valid
+    (1, 129, 512, 4, 65, True),       # hd 128, kv_valid one past a tile
+    (1, 129, 1024, 16, 128, True),    # kv_valid = S - 1
+    (64, 33, 1024, 16, None, True),   # B * H = 1024
+    (1, 70, 256, 4, 0, True),         # kv_valid = 0: NaN, as the plain version
 ])
 def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     from reverso_tpu_torch import kernels
@@ -54,14 +76,16 @@ def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
         grid = int(np.sqrt(s - 1))
         c, sn = rope_2d_tables(grid, w // heads)
         cos[:len(c)], sin[:len(c)] = c[:s], sn[:s]
-    n0 = kernels.launches["flash_heads"]
+    n0, t0 = kernels.launches["flash_heads"], kernels.launches["flash_heads_tc"]
     out = flash_attention_heads(q, k, v, heads=heads, cos=cos, sin=sin,
                                 kv_valid=kv_valid)
     assert kernels.launches["flash_heads"] == n0 + 1
+    tc = _uses_tensor_cores(dtype, w // heads)
+    assert kernels.launches["flash_heads_tc"] == t0 + int(tc)
     ref = flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin,
                                     kv_valid=kv_valid)
     torch.cuda.synchronize()
-    assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
+    _assert_close(out, ref, TOLS[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -121,6 +145,15 @@ def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
     (1, 4, 200, 131, 6, 100),         # S_kv != S_q, head_dim % 4 != 0
     (2, 16, 1297, 1297, 64, None),    # PE-L14 at 504 px
     (1, 2, 130, 130, 80, 129),        # head_dim 80
+    (1, 1, 1, 1, 64, None),           # S = 1, B * H = 1
+    (2, 2, 63, 63, 32, 1),            # one valid key
+    (1, 3, 64, 64, 128, 63),          # hd 128, one full tile
+    (1, 2, 65, 65, 96, 64),           # hd 96
+    (1, 2, 129, 129, 64, 65),
+    (2, 2, 129, 100, 16, 99),         # S_kv != S_q, kv_valid = S_kv - 1
+    (1, 2, 50, 200, 64, None),        # S_kv > S_q
+    (64, 16, 65, 65, 64, None),       # B * H = 1024
+    (1, 2, 70, 70, 64, 0),            # kv_valid = 0: NaN, as the plain version
 ])
 def test_flash_attn_kernel(dev, dtype, b, h, sq, skv, d, kv_valid):
     from reverso_tpu_torch import kernels
@@ -129,12 +162,13 @@ def test_flash_attn_kernel(dev, dtype, b, h, sq, skv, d, kv_valid):
     gen = torch.Generator(device="cuda").manual_seed(sq + d)
     q = _randn(gen, b, h, sq, d, dtype=dtype)
     k, v = (_randn(gen, b, h, skv, d, dtype=dtype) for _ in range(2))
-    n0 = kernels.launches["flash_attn"]
+    n0, t0 = kernels.launches["flash_attn"], kernels.launches["flash_attn_tc"]
     out = flash_attention(q, k, v, kv_valid=kv_valid)
     assert kernels.launches["flash_attn"] == n0 + 1
+    assert kernels.launches["flash_attn_tc"] == t0 + int(_uses_tensor_cores(dtype, d))
     ref = attention_ref(q, k, v, kv_valid=kv_valid)
     torch.cuda.synchronize()
-    assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
+    _assert_close(out, ref, TOLS[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -151,9 +185,10 @@ def test_flash_attn_relbias_kernel(dev, dtype, b, h, g, d, sq, kv_valid):
     q = _randn(gen, b, h, sq, d, dtype=dtype)
     k, v = (_randn(gen, b, h, g * g, d, dtype=dtype) for _ in range(2))
     bh, bw = (_randn(gen, b, h, sq, g, dtype=torch.float32, scale=0.5) for _ in range(2))
-    n0 = kernels.launches["flash_attn_relbias"]
+    n0, t0 = kernels.launches["flash_attn_relbias"], kernels.launches["flash_attn_tc"]
     out = flash_attention(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
     assert kernels.launches["flash_attn_relbias"] == n0 + 1
+    assert kernels.launches["flash_attn_tc"] == t0     # the bias takes the CUDA-core kernel
     ref = attention_ref(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
     torch.cuda.synchronize()
     assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]

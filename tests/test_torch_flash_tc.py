@@ -1,0 +1,180 @@
+"""The bf16 tensor-core flash-attention core (K3 and K7 on the card): what
+the CPU can hold of it.
+
+* the wrappers' dispatch rule (`ops/attention.py::attention_route`) for
+  every preset's head dim, both dtypes and the rel-pos bias;
+* the ctypes argument lists in `kernels._SIGNATURES` against the
+  `extern "C"` launchers under `csrc/`, parsed from the sources;
+* the basis of the card's bf16 tolerance: a numpy emulation of the
+  kernel's per-tile rounding (online softmax, p rounded to bf16 against
+  the running max, 64-key tiles) against the JAX package's Pallas kernels
+  in interpret mode at S = 577 (heads in lanes, RoPE) and S = 1297.
+
+The kernels themselves run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reverso_tpu.ops import attention as jattn
+from reverso_tpu_torch import kernels
+from reverso_tpu_torch.config import MODEL_PRESETS
+from reverso_tpu_torch.ops import attention as tattn
+from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+TOL_BF16 = 2e-2      # the card's bf16 tolerance (chip_smoke.py, test_torch_cuda.py)
+KERNEL_BK = 64       # keys per tile of csrc/flash_tc.cuh (kBK)
+
+
+@pytest.mark.parametrize("preset", sorted(MODEL_PRESETS))
+def test_route_for_every_preset_head_dim(preset):
+    cfg = MODEL_PRESETS[preset]
+    hd = cfg.width // cfg.num_heads
+    route = tattn.attention_route
+    on_tensor_cores = hd % 16 == 0 and hd <= 128
+    assert route("cuda", torch.bfloat16, hd) == (
+        "tensor_core" if on_tensor_cores else "cuda_core")
+    assert route("cuda", torch.float32, hd) == "cuda_core"
+    assert route("cuda", torch.bfloat16, hd, rel_bias=True) == "cuda_core"
+    assert route("cuda", torch.float32, hd, rel_bias=True) == "cuda_core"
+    for dtype in (torch.bfloat16, torch.float32):
+        for bias in (False, True):
+            assert route("cpu", dtype, hd, rel_bias=bias) == "plain"
+    # every shipped preset's bf16 tower runs on the tensor cores
+    assert on_tensor_cores
+
+
+@pytest.mark.parametrize("hd,expected", [
+    (6, "cuda_core"), (8, "cuda_core"), (16, "tensor_core"), (48, "tensor_core"),
+    (80, "tensor_core"), (96, "tensor_core"), (128, "tensor_core"),
+    (120, "cuda_core"), (144, "cuda_core"), (256, "cuda_core"),
+])
+def test_route_head_dims(hd, expected):
+    assert tattn.attention_route("cuda", torch.bfloat16, hd) == expected
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """bf16 CPU tensors at a tensor-core head dim run the plain versions
+    and count no launch."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 9, 16)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    before = dict(kernels.launches)
+    out = tattn.flash_attention(q, k, v, kv_valid=7)
+    assert torch.equal(out, tattn.attention_ref(q, k, v, kv_valid=7))
+    x = q.transpose(1, 2).reshape(1, 9, 32)
+    out = tattn.flash_attention_heads(x, x, x, heads=2)
+    assert torch.equal(out, tattn.flash_attention_heads_ref(x, x, x, heads=2))
+    assert kernels.launches == before
+    assert {"flash_heads_tc", "flash_attn_tc"} <= set(kernels.launches)
+
+
+def _launchers():
+    """{name: [ctypes type per argument]} of every `extern "C"` launcher."""
+    pat = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
+    found = {}
+    for path in kernels.sources():
+        for name, args in pat.findall(open(path).read()):
+            types = []
+            for arg in args.split(","):
+                arg = " ".join(arg.split())
+                types.append(kernels._P if "*" in arg else
+                             kernels._F if arg.startswith("float") else kernels._I)
+            found[name] = types
+    return found
+
+
+def test_signatures_match_the_launchers():
+    found = _launchers()
+    assert {"rv_flash_heads_tc", "rv_flash_attn_tc"} <= set(found)
+    assert set(found) == set(kernels._SIGNATURES)
+    for name, types in found.items():
+        assert kernels._SIGNATURES[name] == types, name
+
+
+def _bf16(x):
+    """Round float32 to bfloat16 (nearest even), kept as float32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _rotate(x, cos, sin, mul):
+    """The kernel's fp32 RoPE: x * cos + [-b, a | -e, c] * sin, times mul."""
+    qh = x.shape[-1] // 4
+    a, b, c, e = (x[..., i * qh:(i + 1) * qh] for i in range(4))
+    half = np.concatenate([-b, a, -e, c], axis=-1)
+    return _bf16((x * cos + half * sin) * np.float32(mul))
+
+
+def _online_tiles(q, k, v, score_mul, kv_valid, bk=KERNEL_BK):
+    """The kernel's arithmetic on one head: [S, D] bf16-valued float32 in,
+    bf16-valued out. Scores in fp32 times log2(e) * scale, per bk-key tile
+    a running max m, p = exp2(t - m) rounded to bf16 for the PV product
+    against that running max, the fp32 row sum and accumulator rescaled by
+    exp2(m_old - m_new) when the max moves, acc / l at the end."""
+    sq = q.shape[0]
+    m = np.full((sq, 1), -np.inf, np.float32)
+    l = np.zeros((sq, 1), np.float32)
+    acc = np.zeros((sq, v.shape[1]), np.float32)
+    for lo in range(0, kv_valid, bk):
+        hi = min(lo + bk, kv_valid)
+        t = (q @ k[lo:hi].T).astype(np.float32) * np.float32(score_mul)
+        m_new = np.maximum(m, t.max(axis=1, keepdims=True))
+        corr = np.exp2(m - m_new)
+        p = np.exp2(t - m_new)
+        l = l * corr + p.sum(axis=1, keepdims=True)
+        acc = acc * corr + _bf16(p) @ v[lo:hi]
+        m = m_new
+    return _bf16(acc / l)
+
+
+def test_online_rounding_heads_in_lanes_rope():
+    """K3's shape (S = 577, hd 64, RoPE, B = 1, 2 heads) with kv_valid = S
+    and 300: the emulated kernel against the JAX kernel."""
+    rng = np.random.default_rng(11)
+    s, heads, hd = 577, 2, 64
+    q, k, v = (_bf16(rng.standard_normal((1, s, heads * hd)).astype(np.float32))
+               for _ in range(3))
+    cos, sin = rope_2d_tables(24, hd, cls_token=True)
+    scale = hd ** -0.5
+    errs = []
+    for kv_valid in (s, 300):
+        ref = np.asarray(jattn.flash_attention_heads(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), heads=heads, cos=cos,
+            sin=sin, kv_valid=kv_valid, interpret=True).astype(jnp.float32))
+        out = np.empty_like(ref)
+        for h in range(heads):
+            cols = slice(h * hd, (h + 1) * hd)
+            qr = _rotate(q[0, :, cols], cos, sin, scale)
+            kr = _rotate(k[0, :, cols], cos, sin, 1.0)
+            out[0, :, cols] = _online_tiles(qr, kr, v[0, :, cols], np.log2(np.e), kv_valid)
+        errs.append(float(np.abs(out - ref).max()))
+    print(f"K3 online-softmax rounding vs the JAX kernel: max abs err {errs} "
+          f"(tolerance {TOL_BF16})")
+    assert max(errs) < TOL_BF16
+
+
+def test_online_rounding_long_sequence():
+    """K7's shape (S = 1297, D 64, B = 1, 2 heads) with kv_valid = S and
+    1000: the emulated kernel against the JAX kernel."""
+    rng = np.random.default_rng(12)
+    s, h, d = 1297, 2, 64
+    q, k, v = (_bf16(rng.standard_normal((1, h, s, d)).astype(np.float32))
+               for _ in range(3))
+    mul = np.log2(np.e) * d ** -0.5
+    errs = []
+    for kv_valid in (s, 1000):
+        ref = np.asarray(jattn.flash_attention(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), kv_valid=kv_valid,
+            interpret=True).astype(jnp.float32))
+        out = np.stack([_online_tiles(q[0, i], k[0, i], v[0, i], mul, kv_valid)
+                        for i in range(h)])[None]
+        errs.append(float(np.abs(out - ref).max()))
+    print(f"K7 online-softmax rounding vs the JAX kernel: max abs err {errs} "
+          f"(tolerance {TOL_BF16})")
+    assert max(errs) < TOL_BF16

@@ -141,6 +141,7 @@ def test_cuda_without_a_card_raises():
 
 
 def test_wrappers_never_fall_back_for_device_tensors():
+    from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops import (cosine_topk, flash_attention,
                                        flash_attention_heads, fused_mlp,
                                        ms_deform_attn)
@@ -159,6 +160,14 @@ def test_wrappers_never_fall_back_for_device_tensors():
         cosine_topk(m(10, 8), m(2, 8), 3)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(m(1, 2, 5, 8), m(1, 2, 5, 8), m(1, 2, 5, 8))
+    # bf16 at a tensor-core head dim: the route of flash_attn_tc / flash_heads_tc
+    b16 = lambda *shape: m(*shape).to(torch.bfloat16)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(b16(1, 2, 5, 16), b16(1, 2, 5, 16), b16(1, 2, 5, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_heads(b16(1, 5, 32), b16(1, 5, 32), b16(1, 5, 32), heads=2)
+    assert kernels.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(m(1, 2, 4, 8), m(1, 2, 4, 8), m(1, 2, 4, 8),
                         rel_bias=(m(1, 2, 4, 2), m(1, 2, 4, 2), 2))
