@@ -11,17 +11,21 @@
 // What bounds them on the H100: products. At PE-L14 at 504 px (B = 8,
 // H = 16, S = 1297, D = 64, bf16) the work is 4 * B * H * S^2 * D = 55 GFLOP
 // against 85 MB of q/k/v/o (0.056 ms at 989 TFLOP/s against 0.025 ms of
-// bytes); at SAM ViT-B's global layers (B = 4, H = 12, S = 4096, D = 64,
-// fp32) 206 GFLOP against ~300 MB.
+// bytes); at SAM ViT-B's global layers (B = 4, H = 12, S = 4096, D = 64)
+// 206 GFLOP against ~300 MB of fp32 q/k/v/o (0.208 ms at the bf16 rate).
 //
-//   * bf16, D % 16 == 0, D <= 128, no bias: rv_flash_attn_tc, the
-//     tensor-core core of flash_tc.cuh (wgmma for QK^T and PV, P kept in
-//     registers between them, K/V through TMA into a four-stage mbarrier
-//     ring, a 3-D [BH, S, D] tensor map so a ragged tile zero-fills
-//     instead of reading the next head);
-//   * fp32, the rel-pos bias, and bf16 at other head dims: rv_flash_attn
-//     below, on the CUDA cores in fp32 (published H100 SXM peak 67 TFLOP/s
-//     at 700 W), which keeps the detector's fp32 results exact to fp32
+//   * D % 16 == 0, D <= 128, and bf16 without a bias or either dtype with
+//     SAM's rel-pos bias: rv_flash_attn_tc, the tensor-core core of
+//     flash_tc.cuh (wgmma for QK^T and PV, P kept in registers between
+//     them, K/V through TMA into a four-stage mbarrier ring, a 3-D [BH, S,
+//     D] tensor map so a ragged tile zero-fills instead of reading the next
+//     head; the bias added to the score fragments inside the tile). The
+//     rel-pos bias takes bf16 operands in either dtype because the TPU
+//     kernel does (one bf16 MXU pass for its fp32 inputs); fp32 callers
+//     pass bf16 copies and get an fp32 output;
+//   * fp32 without a bias, and other head dims with or without it:
+//     rv_flash_attn below, on the CUDA cores in fp32 (published H100 SXM
+//     peak 67 TFLOP/s at 700 W), which keeps the fp32 towers exact to fp32
 //     rounding:
 //       - one CTA of 256 threads per (64-query tile, batch*head); the q tile
 //         is read once, scaled in fp32 and kept in shared memory, and the
@@ -277,11 +281,25 @@ extern "C" int rv_flash_attn(const void* q, const void* k, const void* v,
     return rv::kUnsupported;
 }
 
-// bf16 q [BH, Sq, D], k/v [BH, Skv, D], D % 16 == 0, D <= 128, no bias: the
-// tensor-core core (flash_tc.cuh)
-extern "C" int rv_flash_attn_tc(const void* q, const void* k, const void* v, void* o,
-                                int BH, int Sq, int Skv, int D, int kv_valid,
-                                float scale, void* stream) {
+// bf16 q [BH, Sq, D], k/v [BH, Skv, D], D % 16 == 0, D <= 128: the
+// tensor-core core (flash_tc.cuh). G > 0 adds the rel-pos bias from bh/bw
+// [BH, Sq, G] fp32 (Skv == G * G); out_dtype (kFloat32 or kBFloat16) is the
+// output's type.
+extern "C" int rv_flash_attn_tc(const void* q, const void* k, const void* v,
+                                const void* bh, const void* bw, void* o, int BH, int Sq,
+                                int Skv, int D, int G, int kv_valid, float scale,
+                                int out_dtype, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (out_dtype != rv::kFloat32 && out_dtype != rv::kBFloat16) return rv::kUnsupported;
+    const int out_f32 = out_dtype == rv::kFloat32;
+    if (G == rv::tc::kBK)   // SAM: a 64-key tile is one row of the key lattice
+        return rv::tc::dispatch<false, rv::tc::kBiasRow>(D, q, k, v, o, nullptr, nullptr, 0, D,
+                                                         BH, BH, Sq, Skv, kv_valid, scale, st,
+                                                         bh, bw, G, out_f32);
+    if (G > 0)
+        return rv::tc::dispatch<false, rv::tc::kBiasAny>(D, q, k, v, o, nullptr, nullptr, 0, D,
+                                                         BH, BH, Sq, Skv, kv_valid, scale, st,
+                                                         bh, bw, G, out_f32);
     return rv::tc::dispatch<false>(D, q, k, v, o, nullptr, nullptr, 0, D, BH, BH, Sq, Skv,
-                                   kv_valid, scale, static_cast<cudaStream_t>(stream));
+                                   kv_valid, scale, st, nullptr, nullptr, 0, out_f32);
 }

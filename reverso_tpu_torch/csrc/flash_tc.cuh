@@ -1,18 +1,25 @@
 // One bf16 flash-attention core on Hopper's tensor cores, shared by the
-// [B, H, S, D] kernel (K7, flash_attn.cu) and the heads-in-lanes kernel
-// with 2D RoPE (K3, flash_heads.cu).
+// [B, H, S, D] kernel (K7, flash_attn.cu), the heads-in-lanes kernel with
+// 2D RoPE (K3, flash_heads.cu) and the [B, H, S, D] kernel with SAM's
+// decomposed relative-position bias (K6, flash_attn.cu).
 //
-// Contract (reverso_tpu/ops/attention.py:48-75 and :337-403): non-causal
-// attention over bf16 q, k, v with fp32 accumulation; keys at or past
-// kv_valid score -inf. Without RoPE the score is f32(q.k) * scale; with
-// RoPE q is rotated in fp32 with the scale folded in and rounded to bf16,
-// k is rotated and rounded to bf16, and the score is f32(q_rot.k_rot).
+// Contract (reverso_tpu/ops/attention.py:48-75, :131-200 and :337-403):
+// non-causal attention over bf16 q, k, v with fp32 accumulation; keys at
+// or past kv_valid score -inf. Without RoPE the score is f32(q.k) * scale;
+// with RoPE q is rotated in fp32 with the scale folded in and rounded to
+// bf16, k is rotated and rounded to bf16, and the score is
+// f32(q_rot.k_rot). With the rel-pos bias (the TPU kernel's one bf16 MXU
+// pass, `dot_prec = DEFAULT if rel_grid`) the score is f32(q.k) * scale +
+// (bh[q, k / G] + bw[q, k % G]) with the bias in fp32, added inside the
+// tile (the [Sq, Skv] bias never exists); ops/attention.py folds the scale
+// into q as the TPU kernel does (bf16(q * scale)) and passes scale 1.
 // p = exp(s - m) in fp32, the row sum l adds the fp32 p, p rounds to bf16
-// for the PV product, and the output is acc / l rounded to bf16. The
-// softmax is online: p is rounded against the running max, and the fp32
-// accumulator is rescaled when the max moves (the one point where the
-// kernel knowingly differs from the one-pass reference;
-// tests/test_torch_flash_tc.py measures it).
+// for the PV product, and the output is acc / l rounded to bf16, or
+// stored as fp32 (the bias mode's fp32 callers). The softmax is online: p
+// is rounded against the running max, and the fp32 accumulator is
+// rescaled when the max moves (the one point where the kernel knowingly
+// differs from the one-pass reference; tests/test_torch_flash_tc.py
+// measures it).
 //
 // Design:
 //   * a CTA holds NWG consumer warpgroups of 64 query rows each and one
@@ -20,10 +27,10 @@
 //     of STAGES K/V tiles through TMA (cp.async.bulk.tensor, 3-D tensor
 //     maps, mbarrier completion); the consumers wait on the ring's "full"
 //     barriers and release a stage through its "empty" barrier;
-//   * the maps are 3-D ([BH, S, D] for K7, [B, S, W] for K3 with a box of
-//     one head's columns), so a tile past a head's last row is zero-filled
-//     by the hardware and never reads the next head; the ragged last query
-//     and key tiles need no padded copies in device memory;
+//   * the maps are 3-D ([BH, S, D] for K6/K7, [B, S, W] for K3 with a box
+//     of one head's columns), so a tile past a head's last row is
+//     zero-filled by the hardware and never reads the next head; the ragged
+//     last query and key tiles need no padded copies in device memory;
 //   * S = Q K^T is wgmma m64nBKk16 with Q and K in shared memory, both
 //     K-major (K is stored [BK][D]); O += P V is wgmma m64nDk16 with P
 //     taken from the S accumulator's registers, converted to bf16 in place
@@ -36,136 +43,39 @@
 //     prologue, and producer warps 1-3 take the landed K tiles in turn and
 //     rotate each in place (fp32 math, bf16 result) before they arrive on
 //     the stage's "rotated" barrier, while the consumers work on earlier
-//     tiles; warp 0 only starts TMA loads, so no load waits on a rotation.
+//     tiles; warp 0 only starts TMA loads, so no load waits on a rotation;
+//   * with the bias at SAM's G = 64, a 64-key tile is one row of the key
+//     lattice, so the bw terms of a thread's 16 columns are the same in
+//     every tile: they sit in shared memory (which keeps the kernel within
+//     the 128 registers a thread that two CTAs an SM allow) and start each
+//     S accumulator, so the product lands on them; bh is one value per row and tile, loaded
+//     before the tile's product, that joins the running max and the
+//     exponent's offset. The softmax then runs as without the bias. Other
+//     G add each key's bh and bw after the product (kBiasAny).
 //
 // What bounds it on the H100 at the main paths' shapes: bytes and
 // products alike for K3 (B = 8, S = 577, hd 64: 0.0114 ms of bytes, 0.0110
 // ms of products at 3.35 TB/s and 989 TFLOP/s), products for K7 (B = 8,
-// S = 1297: 0.056 ms); what the card spends above that is per-tile
-// latency (the softmax between the products, which the loop overlaps
-// with the PV product) and, with RoPE, the rotation pass and its fp32
-// table reads (8 bytes per bf16 element of K, per CTA).
+// S = 1297: 0.056 ms) and K6 (B = 4, H = 12, S = 4096: 206 GFLOP, 0.208
+// ms); what the card spends above that is per-tile latency (the softmax
+// between the products, which the loop overlaps with the PV product) and,
+// with RoPE, the rotation pass and its fp32 table reads (8 bytes per bf16
+// element of K, per CTA).
 #pragma once
-
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace rv {
 namespace tc {
 
-constexpr int kWgThreads = 128;   // threads of a warpgroup
 constexpr int kQRows = 64;        // query rows of a consumer warpgroup (wgmma M)
 constexpr int kRotWarps = 3;      // producer warps 1-3: the RoPE pass on K tiles
-constexpr int kMapError = -2;     // launcher status: a tensor map could not be encoded
 
-// ---- PTX: shared-memory barriers, TMA, wgmma --------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(smem_addr(bar)) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "LAB_WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-        "@P1 bra DONE;\n"
-        "bra LAB_WAIT;\n"
-        "DONE:\n"
-        "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// generic-proxy writes to shared memory -> visible to wgmma and TMA
-__device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5}], [%2];\n"
-        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-           "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle layout (1: 128 B, 2: 64 B, 3: 32 B)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-// S = A B^T, A and B K-major in shared memory, 64 x N fp32 accumulator;
-// scale_d = 0 overwrites the accumulator
-template <int N> struct WgmmaSS;
 // D += A B, A (bf16 pairs, the k16 register fragment) in registers, B
 // MN-major (transposed) in shared memory
 template <int N> struct WgmmaRS;
-
-template <> struct WgmmaSS<64> {
-    static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-            "%32, %33, p, 1, 1, 0, 0;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-            : "l"(a), "l"(b), "r"(scale_d));
-    }
-};
-
-template <> struct WgmmaSS<128> {
-    static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-            "%64, %65, p, 1, 1, 0, 0;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-            : "l"(a), "l"(b), "r"(scale_d));
-    }
-};
 
 template <> struct WgmmaRS<16> {
     static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
@@ -360,43 +270,38 @@ __device__ __forceinline__ void rope_tile(uint8_t* tile, int n_rows, int row0,
     }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // ---- the kernel ----------------------------------------------------------------
 
 struct Params {
-    __nv_bfloat16* o;
+    void* o;                // bf16, or fp32 with out_f32
     const float* cos_t;     // [S, HD] fp32 (RoPE only)
     const float* sin_t;
+    const float* bh;        // [BH, s_q, grid] fp32 (rel-pos bias only): bias_h[q, k / grid]
+    const float* bw;        // [BH, s_q, grid]: bias_w[q, k % grid]
+    int grid;               // keys on a grid x grid lattice (rel-pos bias only)
+    int out_f32;            // store the output as fp32 (else bf16)
     int s_q, kv_valid;      // query rows per (batch, head); keys that score
     int lanes;              // 1: [B, S, W], grid (q tiles, heads, B); 0: [BH, S, D], grid (q tiles, BH)
     int row_stride;         // output row stride in elements (W or D)
     float score_mul;        // log2(e) * scale; log2(e) with RoPE (scale folded into q)
-    float q_scale;          // RoPE: the softmax scale folded into q
+    float q_scale;          // the softmax scale (RoPE: folded into q; bias: divides the bias)
 };
 
-template <int HD, int BK, int NWG, int STAGES>
+// rel-pos bias modes: none; every tile one row of the key lattice (G ==
+// BK); any lattice width G (each key's lattice row and column computed)
+constexpr int kBiasNone = 0, kBiasRow = 1, kBiasAny = 2;
+
+template <int HD, int BK, int NWG, int STAGES, int BIAS>
 struct Smem {
     static constexpr int Q_BYTES = NWG * kQRows * HD * 2;
     static constexpr int KV_BYTES = BK * HD * 2;    // one K or V tile
-    static constexpr int BYTES = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+    // rel-pos bias: each consumer thread's bw terms of its BK / 2 fragment
+    // positions (the same in every tile when a tile is one lattice row)
+    static constexpr int BW_BYTES = BIAS == kBiasRow ? NWG * kWgThreads * (BK / 2) * 4 : 0;
+    static constexpr int BYTES =
+        1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BW_BYTES + 8 * (1 + 3 * STAGES);
 };
 
-// keeps the compiler from moving reads or writes of wgmma operands across
-// the asynchronous product (the registers are the hardware's until the
-// wait_group that covers it)
-template <int N>
-__device__ __forceinline__ void fence_operand(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void fence_operand(uint32_t (&r)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 __device__ __forceinline__ float ex2(float x) {   // 2^x on the SFU; 2^-inf = 0
     float y;
@@ -404,8 +309,10 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x on the SFU; 2^-inf = 0
     return y;
 }
 
-// S = Q K^T of one tile, started (not waited for): HD / 16 k16 steps
-template <int HD, int BK>
+// S = Q K^T of one tile, started (not waited for): HD / 16 k16 steps;
+// ONTO adds the products to the values already in sc (the bias mode's
+// column terms), else the first step overwrites them
+template <int HD, int BK, bool ONTO = false>
 __device__ __forceinline__ void qk_tile(float (&sc)[BK / 2], uint32_t q_addr, uint32_t k_addr) {
     using G = Geo<HD>;
 #pragma unroll
@@ -416,20 +323,22 @@ __device__ __forceinline__ void qk_tile(float (&sc)[BK / 2], uint32_t q_addr, ui
                                       8 * G::ATOM_BYTES, G::LAYOUT);
         const uint64_t db = gmma_desc(k_addr + a * BK * G::ATOM_BYTES + kin, 16,
                                       8 * G::ATOM_BYTES, G::LAYOUT);
-        WgmmaSS<BK>::run(sc, da, db, kk > 0);
+        WgmmaSS<BK>::run(sc, da, db, ONTO || kk > 0);
     }
 }
 
 // Online softmax of one score tile, in place, for rows g and g + 8 of a
 // warp's 16 (thread t holds columns 8n + 2t, 8n + 2t + 1 of each 8-column
 // block n): keys at or past kv_valid score -inf; the running maxima m (in
-// units of log2: scores times `mul` = log2(e) * scale) move to the tile's,
-// c = 2^(m_old - m_new), sc becomes p = 2^(s * mul - m) in fp32, and rs
-// its row sums.
-template <int BK>
+// units of log2: scores times `mul` = log2(e) * scale, plus with ROW_TERMS
+// the rows' terms ha, hb, the bias mode's bh * log2(e)) move to the tile's,
+// c = 2^(m_old - m_new), sc becomes p = 2^(s * mul + h - m) in fp32, and
+// rs its row sums.
+template <int BK, bool ROW_TERMS = false>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float mul, int kb,
                                              int kv_valid, int t, float& m0, float& m1,
-                                             float& c0, float& c1, float& rs0, float& rs1) {
+                                             float& c0, float& c1, float& rs0, float& rs1,
+                                             float ha = 0.f, float hb = 0.f) {
     if (kb + BK > kv_valid) {
 #pragma unroll
         for (int n = 0; n < BK / 8; ++n)
@@ -449,18 +358,21 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float mul, int
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     // mul > 0: max(s) * mul is max(s * mul) exactly
-    const float mn0 = fmaxf(m0, mx0 * mul), mn1 = fmaxf(m1, mx1 * mul);
+    const float mn0 = fmaxf(m0, ROW_TERMS ? fmaf(mx0, mul, ha) : mx0 * mul);
+    const float mn1 = fmaxf(m1, ROW_TERMS ? fmaf(mx1, mul, hb) : mx1 * mul);
     c0 = ex2(m0 - mn0);
     c1 = ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
+    // the exponent's offsets (finite: tile 0 holds key 0)
+    const float o0 = ROW_TERMS ? ha - mn0 : -mn0, o1 = ROW_TERMS ? hb - mn1 : -mn1;
     rs0 = rs1 = 0.f;
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
-        sc[4 * n + 0] = ex2(fmaf(sc[4 * n + 0], mul, -mn0));
-        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], mul, -mn0));
-        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], mul, -mn1));
-        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], mul, -mn1));
+        sc[4 * n + 0] = ex2(fmaf(sc[4 * n + 0], mul, o0));
+        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], mul, o0));
+        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], mul, o1));
+        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], mul, o1));
         rs0 += sc[4 * n + 0] + sc[4 * n + 1];
         rs1 += sc[4 * n + 2] + sc[4 * n + 3];
     }
@@ -490,6 +402,41 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 2], const uint32_t (&pa)
                                       8 * G::ATOM_BYTES, G::LAYOUT);
         WgmmaRS<HD>::run(o, pa[kk], dv);
     }
+}
+
+// SAM's decomposed relative-position bias at a lattice width G other than
+// BK (a tile spans parts of lattice rows): each in-range key's lattice row
+// and column are computed and its bias added to the product, divided by
+// the softmax scale (1 when ops/attention.py folded it into q), so that
+// softmax_tile's s * mul is (q.k * scale + bh[q, k / G] + bw[q, k % G]) *
+// log2(e); rows a = g and b = g + 8 of the warp's 16, thread t's columns
+// 8n + 2t and 8n + 2t + 1
+template <int BK>
+__device__ __forceinline__ void add_bias_keys(float (&sc)[BK / 2], float inv_scale, int kb,
+                                              int kv_valid, int grid, const float* bh_a,
+                                              const float* bh_b, const float* bw_a,
+                                              const float* bw_b, int t) {
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int key = kb + 8 * n + 2 * t + e;
+            if (key < kv_valid) {   // the rest score -inf in the softmax
+                const int ky = key / grid, kx = key - ky * grid;
+                sc[4 * n + e] =
+                    fmaf(__ldg(bh_a + ky) + __ldg(bw_a + kx), inv_scale, sc[4 * n + e]);
+                sc[4 * n + 2 + e] =
+                    fmaf(__ldg(bh_b + ky) + __ldg(bw_b + kx), inv_scale, sc[4 * n + 2 + e]);
+            }
+        }
+}
+
+// two adjacent output columns of one row: fp32, or bf16 packed
+__device__ __forceinline__ void store_pair(void* o, bool f32, size_t idx, float a, float b) {
+    if (f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(o) + idx) = make_float2(a, b);
+    else
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(o) + idx) = pack_bf16(a, b);
 }
 
 template <int HD>
@@ -522,22 +469,28 @@ __device__ __forceinline__ void load_kv(int j, uint8_t* ks, uint8_t* vs, uint64_
     }
 }
 
-template <int HD, int BK, int NWG, int STAGES, bool ROPE>
-__global__ void __launch_bounds__((NWG + 1) * kWgThreads, 1)
+// SAM's bias mode (one consumer warpgroup, head dim 64) is held to two CTAs
+// an SM (at most 128 registers a thread), as the bias-free kernel is
+template <int HD, int BK, int NWG, int STAGES, bool ROPE, int BIAS>
+__global__ void __launch_bounds__((NWG + 1) * kWgThreads,
+                                  BIAS == kBiasRow && NWG == 1 && HD <= 64 ? 2 : 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, const Params p) {
     using G = Geo<HD>;
-    using L = Smem<HD, BK, NWG, STAGES>;
+    using L = Smem<HD, BK, NWG, STAGES, BIAS>;
+    constexpr float kLog2e = 1.4426950408889634f;
     static_assert(HD % 16 == 0 && HD <= 128 && BK % 16 == 0, "tile shape");
     static_assert(!ROPE || STAGES % kRotWarps == 0, "each rotating warp owns its stages");
+    static_assert(!(ROPE && BIAS), "RoPE and the rel-pos bias are separate modes");
     extern __shared__ uint8_t smem_raw[];
     uint8_t* base = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
     uint8_t* qs = base;                                // [NWG][NATOM][64][ATOM]
     uint8_t* ks = qs + L::Q_BYTES;                     // [STAGES][NATOM][BK][ATOM]
     uint8_t* vs = ks + STAGES * L::KV_BYTES;
-    uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + STAGES * L::KV_BYTES);
+    float4* bws = reinterpret_cast<float4*>(vs + STAGES * L::KV_BYTES);   // [NWG][BK / 8][128]
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + STAGES * L::KV_BYTES + L::BW_BYTES);
     uint64_t* full = qbar + 1;      // K and V of a stage landed (TMA bytes)
     uint64_t* empty = full + STAGES;  // every consumer warp is done with a stage
     uint64_t* rot = empty + STAGES;   // RoPE: the stage's K tile is rotated
@@ -598,6 +551,57 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
         float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+        float c0, c1, rs0, rs1;
+
+        // rel-pos bias: this thread's rows r0 and r0 + 8 (rows past s_q read
+        // row s_q - 1 and are never stored). When a tile is one lattice row
+        // (kBiasRow), the bw terms of the thread's columns are the same in
+        // every tile: they go to shared memory once (divided by the scale;
+        // the thread's own float4 slots, so no barrier) and start each S
+        // accumulator, so the product lands on them; bh is one value per
+        // row and tile, loaded ahead of the tile's product, that joins the
+        // running max and the exponent's offset in log2 units.
+        const int r0 = q0 + wg * kQRows + warp * 16 + g;
+        float sc[BK / 2];
+        float4* bw4 = bws + wg * (BK / 8) * kWgThreads + tid;   // [BK / 8] at stride 128
+        size_t off_a = 0, off_b = 0;
+        float ha = 0.f, hb = 0.f;
+        if constexpr (BIAS != kBiasNone) {
+            off_a = ((size_t)z * p.s_q + min(r0, p.s_q - 1)) * p.grid;
+            off_b = ((size_t)z * p.s_q + min(r0 + 8, p.s_q - 1)) * p.grid;
+        }
+        if constexpr (BIAS == kBiasRow) {
+            const float inv = 1.f / p.q_scale;
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n) {
+                const int c = 8 * n + 2 * t;
+                const float2 wa = __ldg(reinterpret_cast<const float2*>(p.bw + off_a + c));
+                const float2 wb = __ldg(reinterpret_cast<const float2*>(p.bw + off_b + c));
+                bw4[n * kWgThreads] = make_float4(wa.x * inv, wa.y * inv, wb.x * inv, wb.y * inv);
+            }
+        }
+        auto bias_rows = [&](int j) {   // tile j's bh terms, loaded ahead of its product
+            if constexpr (BIAS == kBiasRow) {
+                ha = __ldg(p.bh + off_a + j) * kLog2e;
+                hb = __ldg(p.bh + off_b + j) * kLog2e;
+#pragma unroll
+                for (int n = 0; n < BK / 8; ++n) {   // the S accumulator starts at bw / scale
+                    const float4 w = bw4[n * kWgThreads];
+                    sc[4 * n + 0] = w.x;
+                    sc[4 * n + 1] = w.y;
+                    sc[4 * n + 2] = w.z;
+                    sc[4 * n + 3] = w.w;
+                }
+            }
+        };
+        // tile j's scores -> p (fp32), the running max and row sums
+        auto softmax = [&](int j) {
+            if constexpr (BIAS == kBiasAny)
+                add_bias_keys<BK>(sc, 1.f / p.q_scale, j * BK, p.kv_valid, p.grid,
+                                  p.bh + off_a, p.bh + off_b, p.bw + off_a, p.bw + off_b, t);
+            softmax_tile<BK, BIAS == kBiasRow>(sc, p.score_mul, j * BK, p.kv_valid, t, m0, m1,
+                                               c0, c1, rs0, rs1, ha, hb);
+        };
 
         mbar_wait(qbar, 0);
         if constexpr (ROPE) {
@@ -626,31 +630,30 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         // rescale of O and the packing of P_{j+1} wait for it. No wgmma is
         // started under a branch (the last tile is peeled), so ptxas keeps
         // the products asynchronous.
-        float sc[BK / 2];
         uint32_t pa[BK / 16][4];
-        float c0, c1, rs0, rs1;
         if (n_tiles > 0) {
+            bias_rows(0);
             wait_tile(0);
             wgmma_fence();
-            qk_tile<HD, BK>(sc, q_addr, k_addr(0));
+            qk_tile<HD, BK, BIAS == kBiasRow>(sc, q_addr, k_addr(0));
             wgmma_commit();
             wgmma_wait<0>();
             fence_operand(sc);
-            softmax_tile<BK>(sc, p.score_mul, 0, p.kv_valid, t, m0, m1, c0, c1, rs0, rs1);
+            softmax(0);
             l0 = rs0;
             l1 = rs1;
             pack_p<BK>(sc, pa);
             for (int j = 0; j + 1 < n_tiles; ++j) {
+                bias_rows(j + 1);
                 wait_tile(j + 1);
                 wgmma_fence();
-                qk_tile<HD, BK>(sc, q_addr, k_addr(j + 1));
+                qk_tile<HD, BK, BIAS == kBiasRow>(sc, q_addr, k_addr(j + 1));
                 wgmma_commit();
                 pv_tile<HD, BK>(o, pa, v_addr(j));
                 wgmma_commit();
                 wgmma_wait<1>();
                 fence_operand(sc);
-                softmax_tile<BK>(sc, p.score_mul, (j + 1) * BK, p.kv_valid, t, m0, m1, c0, c1,
-                                 rs0, rs1);
+                softmax(j + 1);
                 wgmma_wait<0>();
                 fence_operand(o);
                 release(j);
@@ -668,49 +671,28 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         }
 
         // epilogue: acc / l (the quad's partial sums added), rounded to bf16
+        // or stored as fp32
         l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
         l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
         l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
         l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        const int r0 = q0 + wg * kQRows + warp * 16 + g;
-        __nv_bfloat16* ob = p.o + (size_t)z * p.s_q * p.row_stride + col0;
+        const size_t ob = (size_t)z * p.s_q * p.row_stride + col0;
+        const bool f32 = p.out_f32 != 0;
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n) {
             const int c = 8 * n + 2 * t;
             if (r0 < p.s_q)
-                *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * p.row_stride + c) =
-                    pack_bf16(o[4 * n + 0] / l0, o[4 * n + 1] / l0);
+                store_pair(p.o, f32, ob + (size_t)r0 * p.row_stride + c, o[4 * n + 0] / l0,
+                           o[4 * n + 1] / l0);
             if (r0 + 8 < p.s_q)
-                *reinterpret_cast<uint32_t*>(ob + (size_t)(r0 + 8) * p.row_stride + c) =
-                    pack_bf16(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
+                store_pair(p.o, f32, ob + (size_t)(r0 + 8) * p.row_stride + c,
+                           o[4 * n + 2] / l1, o[4 * n + 3] / l1);
         }
     }
 }
 
 // ---- host side -------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
-// library links without -lcuda
-static inline EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = nullptr;
-    if (fn == nullptr) {
-        void* ptr = nullptr;
-        cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                         cudaEnableDefault, &res);
-#else
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
-#endif
-        if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
-    }
-    return fn;
-}
 
 // a 3-D bf16 map over [d2][d1][d0] (d0 contiguous), box [1][rows][ATOM],
 // swizzled as the wgmma descriptors read it; out-of-bounds rows read zero
@@ -751,26 +733,32 @@ template <bool ROPE> struct Tiles {
 
 // q [Z][s_q][d0], k and v [Z][s_kv][d0] bf16; `lanes` = 1 reads head y's
 // HD columns at y * HD of d0 = W (grid.z = batch), 0 reads d0 = HD
-// (grid.y = batch * head)
-template <int HD, bool ROPE>
+// (grid.y = batch * head). BIAS: bh, bw [Z][s_q][grid] fp32 (lanes = 0).
+// out_f32: the output is fp32, else bf16.
+template <int HD, bool ROPE, int BIAS>
 static int launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                   const void* sin_t, int lanes, int d0, int z, int heads, int s_q, int s_kv,
-                  int kv_valid, float scale, cudaStream_t stream) {
+                  int kv_valid, float scale, cudaStream_t stream, const void* bh, const void* bw,
+                  int rel_grid, int out_f32) {
     constexpr int NWG = Tiles<ROPE>::NWG, STAGES = Tiles<ROPE>::STAGES, BK = kBK;
-    using L = Smem<HD, BK, NWG, STAGES>;
+    using L = Smem<HD, BK, NWG, STAGES, BIAS>;
     CUtensorMap qm, km, vm;
     if (!make_map<HD>(&qm, q, d0, s_q, z, kQRows) || !make_map<HD>(&km, k, d0, s_kv, z, BK)
         || !make_map<HD>(&vm, v, d0, s_kv, z, BK))
         return kMapError;
-    auto kernel = flash_tc_kernel<HD, BK, NWG, STAGES, ROPE>;
+    auto kernel = flash_tc_kernel<HD, BK, NWG, STAGES, ROPE, BIAS>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return (int)err;
     constexpr float kLog2e = 1.4426950408889634f;
     Params p;
-    p.o = static_cast<__nv_bfloat16*>(o);
+    p.o = o;
     p.cos_t = static_cast<const float*>(cos_t);
     p.sin_t = static_cast<const float*>(sin_t);
+    p.bh = static_cast<const float*>(bh);
+    p.bw = static_cast<const float*>(bw);
+    p.grid = rel_grid;
+    p.out_f32 = out_f32;
     p.s_q = s_q;
     p.kv_valid = kv_valid;
     p.lanes = lanes;
@@ -782,12 +770,17 @@ static int launch(const void* q, const void* k, const void* v, void* o, const vo
     return (int)cudaGetLastError();
 }
 
-template <bool ROPE>
+template <bool ROPE, int BIAS = kBiasNone>
 static int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
                     const void* cos_t, const void* sin_t, int lanes, int d0, int z, int heads,
-                    int s_q, int s_kv, int kv_valid, float scale, cudaStream_t st) {
+                    int s_q, int s_kv, int kv_valid, float scale, cudaStream_t st,
+                    const void* bh = nullptr, const void* bw = nullptr, int rel_grid = 0,
+                    int out_f32 = 0) {
+    if (BIAS && (lanes || rel_grid <= 0 || (long long)rel_grid * rel_grid < kv_valid
+                 || (BIAS == kBiasRow) != (rel_grid == kBK)))
+        return kUnsupported;
 #define RV_TC_CASE(HD) \
-    case HD: return launch<HD, ROPE>(q, k, v, o, cos_t, sin_t, lanes, d0, z, heads, s_q, s_kv, kv_valid, scale, st);
+    case HD: return launch<HD, ROPE, BIAS>(q, k, v, o, cos_t, sin_t, lanes, d0, z, heads, s_q, s_kv, kv_valid, scale, st, bh, bw, rel_grid, out_f32);
     switch (hd) {
         RV_TC_CASE(16) RV_TC_CASE(32) RV_TC_CASE(48) RV_TC_CASE(64)
         RV_TC_CASE(80) RV_TC_CASE(96) RV_TC_CASE(112) RV_TC_CASE(128)

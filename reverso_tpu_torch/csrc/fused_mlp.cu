@@ -4,33 +4,31 @@
 // fused_mlp), the MLP of every ViT block. Weights come in PyTorch Linear
 // layout: W1 [H, W], W2 [W, H].
 //
-// What bounds it on the H100: 4 * T * W * H FLOPs (620 GFLOP per PE-L14
-// layer at B = 64) against 2 * T * W activation elements and 2 * W * H
-// weight elements; the unfused form also writes and reads the [T, H] hidden
-// tensor (4x the activation) through HBM. So it is compute-bound, and the
-// rate comes from the tensor cores.
+// What bounds it on the H100: 4 * T * W * H FLOPs (77.4 GFLOP at T = 4616,
+// PE-L14's 1024 -> 4096 -> 1024: 0.078 ms at 989 TFLOP/s) against 2 * T * W
+// activation elements and 2 * W * H weight elements (27.6 MB, 0.008 ms at
+// 3.35 TB/s). So it is compute-bound, and the rate comes from the tensor
+// cores.
 //
-// What the design does about it:
-//   * one CTA owns BM = 32 rows and the full output width in an fp32
-//     accumulator in shared memory (32 x 1024 x 4 B = 128 KB at W = 1024);
-//   * the hidden dimension streams in BH-wide chunks: each chunk computes
-//     h = act(x_tile @ W1[c]^T + b1[c]) with fp32 accumulation, rounds it to
-//     T like the reference, parks it in shared memory and adds
-//     h @ W2[:, c]^T into the accumulator. The [T, H] hidden tensor never
-//     reaches HBM;
-//   * bf16 (the working dtype): warp-level tensor-core products (WMMA
-//     16x16x16, bf16 in, fp32 accumulate) on tiles that stream in through
-//     two-stage cp.async rings, so copies overlap the products; each CTA
-//     still re-reads the weights from L2, which bounds this version well
-//     below the tensor cores' rate;
-//   * fp32 (parity mode) and widths the tensor-core tiling does not take:
-//     fp32 FMAs on the CUDA cores, operand tiles staged as fp32 with padded
-//     rows and a register micro-tile per thread.
+// Three kernels, chosen by dtype and shape (ops/fused_mlp.py::mlp_route):
+//   * bf16 with W % 8 == 0 and H % 8 == 0 (every preset): two launches of
+//     one wgmma + TMA GEMM kernel with fused epilogues (rv_fused_mlp_tc,
+//     below), h = bf16(act(x W1^T + b1)) written to a bf16 scratch and read
+//     back by the second product;
+//   * fp32 (the parity mode) and bf16 at other widths (rv_fused_mlp): one
+//     CTA owns BM = 32 rows (16 at wider W) and the full output width in
+//     an fp32 accumulator in shared memory (128 KB at W = 1024); the hidden
+//     dimension streams in 64-wide chunks, each computing h = act(x_tile @
+//     W1[c]^T + b1[c]) with fp32 FMAs on the CUDA cores, rounded to T like
+//     the reference, and adding h @ W2[:, c]^T into the accumulator, so the
+//     [T, H] hidden tensor never reaches HBM;
+//   * the int8 mode (K5, rv_fused_mlp_int8), further below.
 // gelu is the exact erf form (erff); the reference kernel's A&S polynomial
 // differs from it by at most 1.5e-7 in erf.
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace rv {
 
@@ -195,36 +193,258 @@ static int dispatch_bm(const void* x, const void* w1, const void* b1,
     return kUnsupported;
 }
 
-// ---- bf16 tensor-core variant ----------------------------------------------
-// Operand tiles stream in with cp.async into two-stage rings, so the next
-// tile's copy overlaps the current tile's tensor-core products.
-constexpr int TC_BM = 32;            // rows per CTA
-constexpr int TC_BH = 128;           // hidden chunk
-constexpr int TC_BK = 64;            // reduction step of the first product
-constexpr int TC_BN = 64;            // output-column block of the second product
-constexpr int TC_LDX = TC_BK + 8;    // bf16 row stride of the x / W1 tiles
-constexpr int TC_LDH = TC_BH + 8;    // bf16 row stride of the h / W2 tiles
-constexpr int TC_P1_STAGE = (TC_BM + TC_BH) * TC_LDX;   // bf16 per x+W1 stage
-constexpr int TC_W2_STAGE = TC_BN * TC_LDH;             // bf16 per W2 stage
+// ---- bf16 on the tensor cores: two wgmma GEMMs -------------------------------
+//
+// The MLP as two launches of one hand-written GEMM kernel, C = epilogue(A
+// B^T), A [M, K] and B [N, K] bf16 row-major, so both operands are K-major
+// (PyTorch's Linear layout: no transposes):
+//   GEMM 1: h = bf16(act(x W1^T + b1)), [T, H], scratch the wrapper allocates;
+//   GEMM 2: y = bf16(h W2^T + b2), [T, W].
+// The reference rounds h to bf16 before the second product too
+// (reverso_tpu/ops/fused_mlp.py:81), so its round trip through device
+// memory changes no result; it costs 2 * T * H * 2 bytes (75.6 MB at
+// T = 4616, H = 4096: 0.023 ms at 3.35 TB/s against the products' 0.078 ms
+// at 989 TFLOP/s), and the products, not the bytes, bound the MLP.
+//
+// Design of one CTA (one 128 x BN tile of C):
+//   * a producer warp, one thread of which brings 128 x 64 A tiles and
+//     BN x 64 B tiles through TMA (2-D tensor maps, 128-byte swizzle,
+//     mbarrier completion) into a ring of STAGES stages; rows past M (T =
+//     4616 = 36 * 128 + 8), columns past N and a K past the last whole
+//     step read zeros from the hardware, so nothing is padded in memory;
+//   * two consumer warpgroups of 64 rows each run wgmma m64nBNk16 (bf16 in,
+//     fp32 accumulate, both operands from shared memory) over the ring,
+//     with one product group in flight while the stage before it is
+//     released to the producer;
+//   * a consumer's accumulator takes BN / 2 registers a thread (ptxas: 154
+//     registers a thread at BN = 256, 90 at BN = 128, no spills);
+//   * the epilogue parks the fp32 tile in the ring's shared memory, then
+//     each thread adds the fp32 bias to 8 adjacent columns of a row,
+//     applies the activation (GEMM 1), rounds to bf16 and stores 16 bytes;
+//     rows past M and columns past N are masked. (Applying the activation
+//     straight from the accumulator fragments unrolled erff over all 128
+//     registers of a thread: GEMM 1 took 0.227 ms at T = 4616 against 0.101
+//     without the activation, scripts/mlp_tc_probe.py on the H100.)
+namespace mlp_tc {
 
-struct TcLayout {   // byte offsets into dynamic shared memory
-    size_t acc, p1, hb, w2s, total;
+using namespace tc;
+
+constexpr int kBM = 128;     // rows of a CTA tile: two consumer warpgroups of 64
+constexpr int kBK = 64;      // reduction step: one 128-byte swizzle atom of bf16
+constexpr int kNoAct = -1;   // GEMM 2: the bias only
+
+constexpr int kThreads = 2 * kWgThreads + 32;   // two consumer warpgroups, one producer warp
+
+// A tile shape: BN output columns, a ring of STAGES stages
+template <int BN, int STAGES>
+struct GemmCfg {
+    static constexpr int kBN = BN, kStages = STAGES;
+    static constexpr int A_BYTES = kBM * kBK * 2;
+    static constexpr int B_BYTES = BN * kBK * 2;
+    static constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 16 * STAGES;
+    static_assert(SMEM <= 232448, "shared memory of a CTA");
+    static_assert(BN % 64 == 0 && BN <= 256, "wgmma N and the TMA box");
 };
 
-__host__ __device__ inline size_t align128(size_t b) { return (b + 127) / 128 * 128; }
-
-__host__ __device__ inline TcLayout tc_layout(int W) {
-    TcLayout L;
-    size_t o = 0;
-    L.acc = o; o += align128((size_t)TC_BM * W * sizeof(float));
-    // two x+W1 stages; the fp32 h staging tile reuses this space after the
-    // first product
-    L.p1 = o;  o += align128(2 * (size_t)TC_P1_STAGE * 2);
-    L.hb = o;  o += align128((size_t)TC_BM * TC_LDH * 2);
-    L.w2s = o; o += align128(2 * (size_t)TC_W2_STAGE * 2);
-    L.total = o;
-    return L;
+// gelu through the Abramowitz & Stegun 7.1.26 erf (|err| <= 1.5e-7), as the
+// TPU kernel computes it (reverso_tpu/ops/fused_mlp.py:47), with the SFU's
+// reciprocal and exponential; quick_gelu as x * sigmoid(1.702 x). Within a
+// few 1e-7 of the exact forms, far below h's bf16 rounding.
+__device__ __forceinline__ float act_fast(float x, int act) {
+    if (act == kQuickGelu) return x * __fdividef(1.f, 1.f + __expf(-1.702f * x));
+    const float z = x * 0.70710678118654752f, az = fabsf(z);
+    const float t = __fdividef(1.f, fmaf(0.3275911f, az, 1.f));
+    float poly = fmaf(t, 1.061405429f, -1.453152027f);
+    poly = fmaf(t, poly, 1.421413741f);
+    poly = fmaf(t, poly, -0.284496736f);
+    poly = fmaf(t, poly, 0.254829592f) * t;
+    const float erf = copysignf(fmaf(-poly, __expf(-az * az), 1.f), z);
+    const float hx = 0.5f * x;
+    return fmaf(hx, erf, hx);
 }
+
+template <class Cfg>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ CUtensorMap bmap,
+                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ c,
+                       int m, int n, int k, int act) {
+    constexpr int BN = Cfg::kBN, STAGES = Cfg::kStages;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* base = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint8_t* as = base;                           // [STAGES][128][64] bf16, swizzled
+    uint8_t* bs = as + STAGES * Cfg::A_BYTES;     // [STAGES][BN][64]
+    uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * Cfg::B_BYTES);
+    uint64_t* empty = full + STAGES;              // the consumers' 8 warps are done
+
+    const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
+    const int n_k = ceil_div(k, kBK);
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);
+        }
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {
+        // ---- producer warp: lane 0 keeps the ring full ----
+        if (tid == 0) {
+            for (int j = 0; j < n_k; ++j) {
+                const int s = j % STAGES;
+                mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+                mbar_expect_tx(&full[s], Cfg::A_BYTES + Cfg::B_BYTES);
+                tma_load_2d(as + s * Cfg::A_BYTES, &amap, &full[s], j * kBK, m0);
+                tma_load_2d(bs + s * Cfg::B_BYTES, &bmap, &full[s], j * kBK, n0);
+            }
+        }
+        return;
+    }
+
+    // ---- consumer warpgroup: rows m0 + 64 wg .. + 64 ----
+    const int warp = tid / 32, lane = tid % 32;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const uint32_t a0 = smem_addr(as) + wg * 64 * kBK * 2;
+    const uint32_t b0 = smem_addr(bs);
+    for (int j = 0; j < n_k; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&full[s], (j / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)   // k16 steps: 32 bytes into the swizzled rows
+            WgmmaSS<BN>::run(acc, gmma_desc(a0 + s * Cfg::A_BYTES + kk * 32, 16, 1024, 1),
+                             gmma_desc(b0 + s * Cfg::B_BYTES + kk * 32, 16, 1024, 1), 1);
+        wgmma_commit();
+        wgmma_wait<1>();   // step j - 1's products are done: release its stage
+        if (j > 0) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[(j - 1) % STAGES]);
+        }
+    }
+    wgmma_wait<0>();
+    fence_operand(acc);
+
+    // ---- epilogue ----
+    // (1) both consumer warpgroups are done with the ring (every stage was
+    // loaded and consumed), so it takes the fp32 tile, [128][BN + 8] (the
+    // pad keeps a warp's fragment stores off shared bank conflicts)
+    constexpr int LDC = BN + 8;
+    static_assert(kBM * LDC * 4 <= STAGES * (Cfg::A_BYTES + Cfg::B_BYTES), "C tile fits the ring");
+    float* ct = reinterpret_cast<float*>(base);
+    named_bar_sync(1, 2 * kWgThreads);
+    {
+        const int r = wg * 64 + warp * 16 + lane / 4, t = lane % 4;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+            const int col = 8 * i + 2 * t;
+            *reinterpret_cast<float2*>(ct + r * LDC + col) = make_float2(acc[4 * i], acc[4 * i + 1]);
+            *reinterpret_cast<float2*>(ct + (r + 8) * LDC + col) =
+                make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+        }
+    }
+    named_bar_sync(1, 2 * kWgThreads);
+    // (2) each thread takes 8 adjacent columns of a row at a time: fp32 bias,
+    // activation, bf16, one 16-byte store (a warp writes whole row
+    // segments); a short loop, so the activation's code stays small
+    constexpr int TPR = BN / 8;                 // threads per row
+    constexpr int ROWS = 2 * kWgThreads / TPR;  // rows per pass
+    const int ctid = wg * kWgThreads + tid;
+    const int c8 = (ctid % TPR) * 8, col = n0 + c8;
+    if (col >= n) return;   // n % 8 == 0: a group of 8 is in or out whole
+    float bv[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const float2 b2 =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col + 2 * e));
+        bv[2 * e] = b2.x;
+        bv[2 * e + 1] = b2.y;
+    }
+#pragma unroll 2
+    for (int r = ctid / TPR; r < kBM && m0 + r < m; r += ROWS) {
+        const float4 lo = *reinterpret_cast<const float4*>(ct + r * LDC + c8);
+        const float4 hi = *reinterpret_cast<const float4*>(ct + r * LDC + c8 + 4);
+        float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            v[e] += bv[e];
+            if (act != kNoAct) v[e] = act_fast(v[e], act);
+        }
+        uint4 out;
+        out.x = pack_bf16(v[0], v[1]);
+        out.y = pack_bf16(v[2], v[3]);
+        out.z = pack_bf16(v[4], v[5]);
+        out.w = pack_bf16(v[6], v[7]);
+        *reinterpret_cast<uint4*>(c + (size_t)(m0 + r) * n + col) = out;
+    }
+}
+
+// a 2-D bf16 map over [rows][cols] (cols contiguous, cols % 8 == 0), box
+// [box_rows][64], 128-byte swizzle as the wgmma descriptors read it;
+// out-of-bounds elements read zero
+static bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows) {
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+    const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// C [m, n] = epilogue(A [m, k] B [n, k]^T) with one tile config
+template <class Cfg>
+static int launch_gemm(const void* a, const void* b, const void* bias, void* c, int m, int n,
+                       int k, int act, cudaStream_t stream) {
+    CUtensorMap am, bm;
+    if (!make_map_2d(&am, a, k, m, kBM) || !make_map_2d(&bm, b, k, n, Cfg::kBN))
+        return kMapError;
+    auto kernel = fused_mlp_wgmma_kernel<Cfg>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(ceil_div(n, Cfg::kBN), ceil_div(m, kBM));
+    kernel<<<grid, kThreads, Cfg::SMEM, stream>>>(
+        am, bm, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(c), m, n,
+        k, act);
+    return (int)cudaGetLastError();
+}
+
+// Tiles (measured on the H100 with scripts/mlp_tc_probe.py; PERF.md has
+// the times): 128 x 256 where that grid fills the 132 SMs at least four
+// times over (the wider tile reads fewer operand bytes from L2 per
+// product), 128 x 128 otherwise (more CTAs, fewer idle SMs in the last
+// wave). PE-L14 at T = 4616: GEMM 1 (N = 4096) has 592 wide tiles and
+// takes them; GEMM 2 (N = 1024) would have only 148, 1.12 waves, and takes
+// 296 narrow ones; at T = 36,928 (B = 64) both take wide tiles.
+using GemmWide = GemmCfg<256, 4>;
+using GemmNarrow = GemmCfg<128, 4>;
+
+static int launch_mlp_gemm(const void* a, const void* b, const void* bias, void* c, int m,
+                           int n, int k, int act, cudaStream_t stream) {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const long long wide_tiles = (long long)ceil_div(m, kBM) * ceil_div(n, GemmWide::kBN);
+    if (wide_tiles >= 4LL * sms)
+        return launch_gemm<GemmWide>(a, b, bias, c, m, n, k, act, stream);
+    return launch_gemm<GemmNarrow>(a, b, bias, c, m, n, k, act, stream);
+}
+
+}  // namespace mlp_tc
 
 // 16-byte asynchronous global->shared copy; `ok == false` zero-fills the
 // destination without reading (src must still be a valid address).
@@ -242,169 +462,7 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// x[row0 : row0+BM, k0 : k0+BK] and W1[c0 : c0+BH, k0 : k0+BK] -> one stage
-__device__ __forceinline__ void tc_load_p1(__nv_bfloat16* stage,
-                                           const __nv_bfloat16* x,
-                                           const __nv_bfloat16* w1, int row0,
-                                           int c0, int k0, int T_rows, int W,
-                                           int H, int tid) {
-    __nv_bfloat16* xs = stage;
-    __nv_bfloat16* w1s = stage + TC_BM * TC_LDX;
-    for (int v = tid; v < TC_BM * TC_BK / 8; v += MLP_THREADS) {
-        const int r = v / (TC_BK / 8), k8 = (v % (TC_BK / 8)) * 8;
-        const int gr = row0 + r, gk = k0 + k8;
-        const bool ok = gr < T_rows && gk < W;
-        cp_async16(xs + r * TC_LDX + k8, ok ? x + (size_t)gr * W + gk : x, ok);
-    }
-    for (int v = tid; v < TC_BH * TC_BK / 8; v += MLP_THREADS) {
-        const int c = v / (TC_BK / 8), k8 = (v % (TC_BK / 8)) * 8;
-        const int gc = c0 + c, gk = k0 + k8;
-        const bool ok = gc < H && gk < W;
-        cp_async16(w1s + c * TC_LDX + k8, ok ? w1 + (size_t)gc * W + gk : w1, ok);
-    }
-    cp_async_commit();
-}
-
-// W2[nb : nb+BN, c0 : c0+BH] -> one stage, [n][c] with row stride LDH
-__device__ __forceinline__ void tc_load_w2(__nv_bfloat16* stage,
-                                           const __nv_bfloat16* w2, int nb,
-                                           int c0, int W, int H, int tid) {
-    for (int v = tid; v < TC_BN * TC_BH / 8; v += MLP_THREADS) {
-        const int n = v / (TC_BH / 8), k8 = (v % (TC_BH / 8)) * 8;
-        const int gn = nb + n, gc = c0 + k8;
-        const bool ok = gn < W && gc < H;
-        cp_async16(stage + n * TC_LDH + k8, ok ? w2 + (size_t)gn * H + gc : w2, ok);
-    }
-    cp_async_commit();
-}
-
-__global__ void __launch_bounds__(MLP_THREADS)
-fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w1,
-                    const __nv_bfloat16* __restrict__ b1,
-                    const __nv_bfloat16* __restrict__ w2,
-                    const __nv_bfloat16* __restrict__ b2,
-                    __nv_bfloat16* __restrict__ out, int T_rows, int W, int H,
-                    int act) {
-    using namespace nvcuda;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const TcLayout L = tc_layout(W);
-    float* acc = reinterpret_cast<float*>(smem_raw + L.acc);                 // [BM][W]
-    __nv_bfloat16* p1 = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.p1);   // 2 stages
-    float* hf = reinterpret_cast<float*>(smem_raw + L.p1);                   // [BM][BH]
-    __nv_bfloat16* hb = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.hb);   // [BM][LDH]
-    __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.w2s); // 2 stages
-
-    const int tid = threadIdx.x;
-    const int warp = tid / 32;          // 8 warps
-    const int row0 = blockIdx.x * TC_BM;
-    const int nK = ceil_div(W, TC_BK);
-    const int nN = ceil_div(W, TC_BN);
-
-    for (int idx = tid; idx < TC_BM * W; idx += MLP_THREADS) acc[idx] = 0.f;
-
-    for (int c0 = 0; c0 < H; c0 += TC_BH) {
-        // ---- h = x_tile @ W1[c0:c0+BH]^T: warp w owns hidden columns w*16.. --
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> hfrag[2];
-        wmma::fill_fragment(hfrag[0], 0.f);
-        wmma::fill_fragment(hfrag[1], 0.f);
-        tc_load_p1(p1, x, w1, row0, c0, 0, T_rows, W, H, tid);
-        for (int s = 0; s < nK; ++s) {
-            if (s + 1 < nK) {
-                tc_load_p1(p1 + ((s + 1) & 1) * TC_P1_STAGE, x, w1, row0, c0,
-                           (s + 1) * TC_BK, T_rows, W, H, tid);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();
-            const __nv_bfloat16* xs = p1 + (s & 1) * TC_P1_STAGE;
-            const __nv_bfloat16* w1s = xs + TC_BM * TC_LDX;
-#pragma unroll
-            for (int kk = 0; kk < TC_BK; kk += 16) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bfr;
-                wmma::load_matrix_sync(bfr, w1s + warp * 16 * TC_LDX + kk, TC_LDX);
-#pragma unroll
-                for (int fr = 0; fr < 2; ++fr) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> afr;
-                    wmma::load_matrix_sync(afr, xs + fr * 16 * TC_LDX + kk, TC_LDX);
-                    wmma::mma_sync(hfrag[fr], afr, bfr, hfrag[fr]);
-                }
-            }
-            __syncthreads();   // this stage is refilled two steps later
-        }
-        // prefetch the first W2 block while h is finished
-        tc_load_w2(w2s, w2, 0, c0, W, H, tid);
-#pragma unroll
-        for (int fr = 0; fr < 2; ++fr)
-            wmma::store_matrix_sync(hf + fr * 16 * TC_BH + warp * 16, hfrag[fr],
-                                    TC_BH, wmma::mem_row_major);
-        __syncthreads();
-        // ---- bias + activation in fp32, rounded to bf16 ----------------------
-        for (int idx = tid; idx < TC_BM * TC_BH; idx += MLP_THREADS) {
-            const int r = idx / TC_BH, c = idx % TC_BH;
-            const int gc = c0 + c;
-            const float hv = (gc < H) ? mlp_act(hf[idx] + __bfloat162float(b1[gc]), act) : 0.f;
-            hb[r * TC_LDH + c] = __float2bfloat16(hv);
-        }
-
-        // ---- acc += h @ W2[:, c0:c0+BH]^T: warp w owns one 16x16 tile -------
-        const int fr = warp / 4, fc = warp % 4;
-        for (int t = 0; t < nN; ++t) {
-            if (t + 1 < nN) {
-                tc_load_w2(w2s + ((t + 1) & 1) * TC_W2_STAGE, w2, (t + 1) * TC_BN,
-                           c0, W, H, tid);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();   // W2 stage landed; hb complete
-            const __nv_bfloat16* ws = w2s + (t & 1) * TC_W2_STAGE;
-            const int n0 = t * TC_BN + fc * 16;
-            if (n0 < W) {
-                wmma::fragment<wmma::accumulator, 16, 16, 16, float> afrag;
-                float* ap = acc + (size_t)fr * 16 * W + n0;
-                wmma::load_matrix_sync(afrag, ap, W, wmma::mem_row_major);
-#pragma unroll
-                for (int kk = 0; kk < TC_BH; kk += 16) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> afr;
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bfr;
-                    wmma::load_matrix_sync(afr, hb + fr * 16 * TC_LDH + kk, TC_LDH);
-                    wmma::load_matrix_sync(bfr, ws + fc * 16 * TC_LDH + kk, TC_LDH);
-                    wmma::mma_sync(afrag, afr, bfr, afrag);
-                }
-                wmma::store_matrix_sync(ap, afrag, W, wmma::mem_row_major);
-            }
-            __syncthreads();   // this stage is refilled two steps later
-        }
-    }
-    for (int idx = tid; idx < TC_BM * W; idx += MLP_THREADS) {
-        const int r = idx / W, n = idx % W;
-        const int gr = row0 + r;
-        if (gr < T_rows)
-            out[(size_t)gr * W + n] = __float2bfloat16(acc[idx] + __bfloat162float(b2[n]));
-    }
-}
-
-static bool tc_supported(int W, int H) {
-    return W % 16 == 0 && H % 8 == 0 && tc_layout(W).total <= 232448;
-}
-
-static int launch_fused_mlp_tc(const void* x, const void* w1, const void* b1,
-                               const void* w2, const void* b2, void* out,
-                               int T_rows, int W, int H, int act,
-                               cudaStream_t stream) {
-    const size_t smem = tc_layout(W).total;
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mlp_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    using bf = __nv_bfloat16;
-    fused_mlp_tc_kernel<<<ceil_div(T_rows, TC_BM), MLP_THREADS, smem, stream>>>(
-        static_cast<const bf*>(x), static_cast<const bf*>(w1),
-        static_cast<const bf*>(b1), static_cast<const bf*>(w2),
-        static_cast<const bf*>(b2), static_cast<bf*>(out), T_rows, W, H, act);
-    return (int)cudaGetLastError();
-}
+__host__ __device__ inline size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
 // ---- int8 variant (K5) ------------------------------------------------------
 //
@@ -787,17 +845,31 @@ extern "C" int rv_fused_mlp_int8(const void* x, const void* w1, const void* s1,
     return rv::kUnsupported;
 }
 
+// fp32, and bf16 at widths the tensor-core GEMMs do not take: the CUDA-core
+// kernel (rows of the output in shared memory, h never leaves the CTA)
 extern "C" int rv_fused_mlp(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out,
                             int T_rows, int W, int H, int act, int dtype,
                             void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (act != rv::kGelu && act != rv::kQuickGelu) return rv::kUnsupported;
-    if (dtype == rv::kBFloat16 && rv::tc_supported(W, H))
-        return rv::launch_fused_mlp_tc(x, w1, b1, w2, b2, out, T_rows, W, H, act, st);
     if (dtype == rv::kBFloat16)
         return rv::dispatch_bm<__nv_bfloat16>(x, w1, b1, w2, b2, out, T_rows, W, H, act, st);
     if (dtype == rv::kFloat32)
         return rv::dispatch_bm<float>(x, w1, b1, w2, b2, out, T_rows, W, H, act, st);
     return rv::kUnsupported;
+}
+
+// bf16, W % 8 == 0, H % 8 == 0 (TMA's 16-byte row strides), 16-byte aligned
+// x, weights, h and out, 4-byte aligned biases: the two wgmma GEMMs through
+// h [T, H] bf16, scratch of the caller's
+extern "C" int rv_fused_mlp_tc(const void* x, const void* w1, const void* b1,
+                               const void* w2, const void* b2, void* h, void* out,
+                               int T_rows, int W, int H, int act, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (act != rv::kGelu && act != rv::kQuickGelu) return rv::kUnsupported;
+    if (T_rows <= 0 || W <= 0 || H <= 0 || W % 8 || H % 8) return rv::kUnsupported;
+    const int status = rv::mlp_tc::launch_mlp_gemm(x, w1, b1, h, T_rows, H, W, act, st);
+    if (status != 0) return status;
+    return rv::mlp_tc::launch_mlp_gemm(h, w2, b2, out, T_rows, W, H, rv::mlp_tc::kNoAct, st);
 }

@@ -345,10 +345,6 @@ class Reverso:
                 raise NotImplementedError(
                     f"index={scfg.index!r} is not ported yet (the native host "
                     f"index: the surface slice, ROADMAP queue 1 item 17)")
-            if dtype == "pq":
-                raise NotImplementedError(
-                    "dtype='pq' is not ported yet (PQ: the XLA-only ops, "
-                    "ROADMAP queue 1 item 16)")
             if store.distance not in ("cosine", "dot"):
                 raise NotImplementedError(
                     f"distance={store.distance!r} is not ported yet "
@@ -356,13 +352,17 @@ class Reverso:
             count = store.count
             vectors = np.asarray(store.vectors(using))
             if scfg.index == "ivf" and count > scfg.ivf_clusters * 4:
-                # IVF probes dense clusters: "binary" is a mode of the
-                # exact index, not an IVF cell dtype — coerce to bf16
-                ivf_dtype = "bfloat16" if dtype == "binary" else dtype
+                # IVF probes dense clusters: "binary" and "pq" are modes
+                # of the exact index, not IVF cell dtypes — coerce to bf16
+                ivf_dtype = "bfloat16" if dtype in ("binary", "pq") else dtype
                 ivf = load_or_build_ivf(store, vectors, scfg, ivf_dtype,
                                         space=using, device=self.device)
                 index = _IVFSearchAdapter(ivf, scfg.ivf_nprobe,
                                           impl=scfg.ivf_impl)
+            elif dtype == "pq":
+                raise NotImplementedError(
+                    "dtype='pq' is not ported yet (PQ: the XLA-only ops, "
+                    "ROADMAP queue 1 item 16)")
             elif dtype == "binary":
                 # packed candidate scan + exact f32 rescore of the top
                 # oversampling*k ids against the on-disk rows

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "rv_flash_heads_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, w1, b1, w2, b2, out, T, W, H, act, dtype, stream
     "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, h, out, T, W, H, act, stream
+    "rv_fused_mlp_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w1, s1, b1, w2, s2, b2, out, T, W, H, act, dtype, stream
     "rv_fused_mlp_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # db, q, q_scale, row_scale, D, Q, n_valid, k, n_splits, part_s, part_i,
@@ -56,8 +58,8 @@ _SIGNATURES = {
     "rv_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, dtype, stream
     "rv_flash_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, o, BH, Sq, Skv, D, kv_valid, scale, stream
-    "rv_flash_attn_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, out_dtype, stream
+    "rv_flash_attn_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # value, levels, loc, attw, out, B, Lv, Lq, H, D, L, P, dtype, stream
     "rv_ms_deform": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -76,14 +78,16 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # with a row mask, int8 rows (masked or not), packed sign bits;
 # `topk_int8_rows` its per-row-scale int8 candidate scan (the two-stage
 # search's first stage); `fused_mlp_int8` the MLP's int8 mode.
-# `flash_heads` and `flash_attn` count every launch of their mode;
-# `flash_heads_tc` and `flash_attn_tc` only those that went to the bf16
-# tensor-core kernels (csrc/flash_tc.cuh).
+# `flash_heads`, `flash_attn`, `flash_attn_relbias` and `fused_mlp` count
+# every launch of their mode; `flash_heads_tc`, `flash_attn_tc` and
+# `flash_attn_relbias_tc` only those that went to the tensor-core
+# attention core (csrc/flash_tc.cuh), `fused_mlp_tc` the MLP calls that
+# went to the two wgmma GEMMs (one count per MLP call, not per GEMM).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
             "fused_mlp_int8": 0, "topk_int8_rows": 0, "flash_heads_tc": 0,
-            "flash_attn_tc": 0}
+            "flash_attn_tc": 0, "flash_attn_relbias_tc": 0, "fused_mlp_tc": 0}
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the
 # top-k kernel's cap; int8 k above the cap or d above the exactness bound
 # (1040); binary k above the cap; an IVF fetch (2k under spill) above it.

@@ -10,10 +10,18 @@ runs `attention_ref`, the plain [B, H, S, D] attention the pooling head
 also uses.
 
 On a CUDA tensor each launches one of two hand-written kernels, by the
-rule in `attention_route`: bf16 at a head dim the tensor cores take
-(`csrc/flash_tc.cuh` through `rv_flash_heads_tc` / `rv_flash_attn_tc`),
-otherwise the fp32 CUDA-core kernels (`csrc/flash_heads.cu`,
-`csrc/flash_attn.cu`), which also carry SAM's rel-pos bias.
+rule in `attention_route`: at a head dim the tensor cores take, bf16 and
+SAM's rel-pos bias in either dtype go to `csrc/flash_tc.cuh` (through
+`rv_flash_heads_tc` / `rv_flash_attn_tc`); fp32 without the bias and
+other head dims to the fp32 CUDA-core kernels (`csrc/flash_heads.cu`,
+`csrc/flash_attn.cu`, the latter with the bias too).
+
+The bias mode on the tensor cores computes what the TPU kernel computes
+(reverso_tpu/ops/attention.py:148-200: one bf16 MXU pass for fp32 inputs,
+the bias added in fp32): bf16(q * scale), bf16(k), bf16(p) and bf16(v)
+with fp32 sums and an fp32 bias; `attention_bf16_ref` spells that out. On
+the CPU `flash_attention` keeps `attention_ref`, exact in fp32, which is
+what the JAX package computes on the CPU.
 """
 from __future__ import annotations
 
@@ -28,15 +36,17 @@ from .rope import rotate
 def attention_route(device_type: str, dtype: torch.dtype, head_dim: int,
                     rel_bias: bool = False) -> str:
     """Which implementation serves an attention call: "plain" for CPU
-    tensors; on the card "tensor_core" for bf16 with head_dim % 16 == 0,
-    head_dim <= 128 and no rel-pos bias (wgmma takes k16 steps of bf16 and
-    the kernel keeps at most 128 accumulator columns), else "cuda_core"
-    (fp32, SAM's rel-pos bias, and bf16 at other head dims). A rule
-    between two kernels by dtype and shape, not a fallback."""
+    tensors; on the card "tensor_core" for head_dim % 16 == 0 and
+    head_dim <= 128 (wgmma takes k16 steps of bf16 and the kernel keeps at
+    most 128 accumulator columns) with bf16 inputs, or with SAM's rel-pos
+    bias in either dtype (the TPU kernel computes the bias mode in one
+    bf16 pass for fp32 inputs too); else "cuda_core" (fp32 without the
+    bias, and other head dims). A rule between two kernels by dtype and
+    shape, not a fallback."""
     if device_type == "cpu":
         return "plain"
-    if (dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128
-            and not rel_bias):
+    if (head_dim % 16 == 0 and head_dim <= 128
+            and (dtype == torch.bfloat16 or rel_bias)):
         return "tensor_core"
     return "cuda_core"
 
@@ -69,6 +79,29 @@ def attention_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
         s = s + mask_bias[:, None].float()
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def attention_bf16_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
+                       rel_bias=None):
+    """Plain version of the tensor-core [B, H, S, D] attention in either
+    dtype, the TPU kernel's contract for SAM's bias mode: bf16(q * scale),
+    bf16(k) and bf16(v) whatever the input dtype, scores summed in fp32,
+    the fp32 bias of `rel_bias` added, a one-pass softmax with p = exp(s -
+    max) rounded to bf16 for the PV product while the row sum stays fp32,
+    o = (p v) / l in the input dtype. Used by the tests and `chip_smoke.py`
+    against the kernel; no path of the port calls it."""
+    bf16 = torch.bfloat16
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    qs = (q.float() * scale).to(bf16).float()
+    s = torch.matmul(qs, k.to(bf16).float().transpose(-1, -2))
+    if rel_bias is not None:
+        s = s + rel_bias_dense(*rel_bias)
+    if kv_valid is not None:
+        s[..., kv_valid:] = float("-inf")
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    return (torch.matmul(p.to(bf16).float(), v.to(bf16).float()) / l).to(q.dtype)
 
 
 def _split(t: torch.Tensor, heads: int) -> torch.Tensor:   # [B,S,W] -> [B,H,S,hd]
@@ -176,7 +209,9 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
     rel_bias=(bias_h [B, H, Sq, G], bias_w [B, H, Sq, G], G) adds SAM's
     decomposed relative-position bias bias_h[q, k // G] + bias_w[q, k % G]
     for keys on a G x G grid (S_kv == G * G); the kernel adds it inside the
-    tile, so the [Sq, S_kv] bias never exists on the card.
+    tile, so the [Sq, S_kv] bias never exists on the card. On the tensor
+    cores (either dtype) the products take bf16 operands, as the TPU
+    kernel's do (`attention_bf16_ref`); the output keeps q's dtype.
 
     CPU tensors run `attention_ref`; CUDA tensors launch the kernel
     `attention_route` picks."""
@@ -208,16 +243,25 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
         grid, biases = 0, ()
     kernels.require_cuda("flash_attention", q, k, v, *biases)
     tc = route == "tensor_core"
-    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: tensors must be 16-byte aligned (TMA)")
     o = torch.empty_like(q)
     bh_p = biases[0].data_ptr() if biases else None
     bw_p = biases[1].data_ptr() if biases else None
+    if tc and grid:
+        # the TPU kernel's operands: bf16(q * scale) (the scale folded in
+        # before the rounding; a bf16 product rounds its fp32 value once),
+        # bf16 k and v; the kernel's scale is then 1
+        bf16 = torch.bfloat16
+        q = (q * scale).to(bf16)
+        k, v = k.to(bf16), v.to(bf16)
+        scale = 1.0
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned (TMA)")
     with torch.cuda.device(q.device):   # launch on the tensors' card
         if tc:
             status = kernels.lib().rv_flash_attn_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                b * h, sq, skv, d, kv, scale, kernels.stream_ptr(q.device))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p, o.data_ptr(),
+                b * h, sq, skv, d, grid, kv, scale, kernels.DTYPE_CODES[o.dtype],
+                kernels.stream_ptr(q.device))
         else:
             status = kernels.lib().rv_flash_attn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p,
@@ -226,5 +270,5 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
     kernels.check("flash_attention", status)
     kernels.launches["flash_attn_relbias" if grid else "flash_attn"] += 1
     if tc:
-        kernels.launches["flash_attn_tc"] += 1
+        kernels.launches["flash_attn_relbias_tc" if grid else "flash_attn_tc"] += 1
     return o

@@ -1,10 +1,13 @@
 """Fused transformer MLP: the CUDA kernels and their plain versions.
 
 y = act(x @ W1^T + b1) @ W2^T + b2 with weights in PyTorch Linear layout
-(W1 [H, W], W2 [W, H]). On a CUDA tensor `fused_mlp` launches
-`csrc/fused_mlp.cu`, which streams the hidden dimension in chunks and
-never writes the [T, H] hidden tensor to device memory; on a CPU tensor
-it runs `mlp_ref`.
+(W1 [H, W], W2 [W, H]). On a CPU tensor `fused_mlp` runs `mlp_ref`; on a
+CUDA tensor it launches one of two kernels of `csrc/fused_mlp.cu`, by the
+rule in `mlp_route`: bf16 at widths TMA takes goes to two wgmma + TMA GEMMs
+with fused epilogues (h = bf16(act(x W1^T + b1)) through a bf16 scratch
+of [T, H], then y = bf16(h W2^T + b2)); fp32 and other widths to the
+CUDA-core kernel, which streams the hidden dimension in chunks and never
+writes h to device memory.
 
 `fused_mlp(..., quant=True)` is the int8 mode (`ModelConfig.quant="int8"`):
 x is quantized per row, the weights per output unit (after the cast to
@@ -53,6 +56,19 @@ def mlp_ref(x, w1, b1, w2, b2, act: str = "gelu"):
     return y.to(x.dtype)
 
 
+def mlp_route(device_type: str, dtype: torch.dtype, width: int, hidden: int) -> str:
+    """Which implementation serves a fused MLP call: "plain" for CPU
+    tensors; on the card "tensor_core" for bf16 with width % 8 == 0 and
+    hidden % 8 == 0 (TMA's 16-byte row strides; every preset), else
+    "cuda_core" (fp32, and bf16 at other widths). A rule between two
+    kernels by dtype and shape, not a fallback."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.bfloat16 and width % 8 == 0 and hidden % 8 == 0:
+        return "tensor_core"
+    return "cuda_core"
+
+
 def _check_square(x, w1, w2) -> int:
     width = x.shape[-1]
     if w1.shape[1] != width or w2.shape[0] != width \
@@ -77,7 +93,9 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False):
         return fused_mlp_int8(x, quantize_mlp_weights(w1, b1, w2, b2, x.dtype), act=act)
     shape = x.shape
     x2 = x.reshape(-1, width)
-    if x.device.type == "cpu":
+    hidden = w1.shape[0]
+    route = mlp_route(x.device.type, x.dtype, width, hidden)
+    if route == "plain":
         return mlp_ref(x2, w1, b1, w2, b2, act=act).reshape(shape)
     if x.dtype not in kernels.DTYPE_CODES or any(
             t.dtype != x.dtype for t in (w1, b1, w2, b2)):
@@ -88,14 +106,28 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False):
     out = torch.empty_like(x2)
     if x2.shape[0] == 0:
         return out.reshape(shape)
+    tc = route == "tensor_core"
+    if tc and (any(t.data_ptr() % 16 for t in (x2, w1, w2))
+               or any(t.data_ptr() % 4 for t in (b1, b2))):
+        raise ValueError("fused_mlp: x and the weights must be 16-byte aligned "
+                         "(TMA), the biases 4-byte aligned")
     with torch.cuda.device(x.device):   # launch on the tensors' card
-        status = kernels.lib().rv_fused_mlp(
-            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), x2.shape[0], width, w1.shape[0],
-            ACT_CODES[act], kernels.DTYPE_CODES[x.dtype],
-            kernels.stream_ptr(x.device))
+        if tc:
+            h = torch.empty((x2.shape[0], hidden), dtype=x.dtype, device=x.device)
+            status = kernels.lib().rv_fused_mlp_tc(
+                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), h.data_ptr(), out.data_ptr(), x2.shape[0], width,
+                hidden, ACT_CODES[act], kernels.stream_ptr(x.device))
+        else:
+            status = kernels.lib().rv_fused_mlp(
+                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), out.data_ptr(), x2.shape[0], width, hidden,
+                ACT_CODES[act], kernels.DTYPE_CODES[x.dtype],
+                kernels.stream_ptr(x.device))
     kernels.check("fused_mlp", status)
     kernels.launches["fused_mlp"] += 1
+    if tc:
+        kernels.launches["fused_mlp_tc"] += 1
     return out.reshape(shape)
 
 

@@ -2,17 +2,21 @@
 """Variants of the bf16 tensor-core flash core (`reverso_tpu_torch/csrc/
 flash_tc.cuh`) timed on one card.
 
-    python3 scripts/flash_tc_probe.py
+    python3 scripts/flash_tc_probe.py [variant ...]
 
 Builds the shipped kernels and edited copies of `csrc/` (each in a
 temporary directory, with its own build) and times, with each, K3 (B = 8,
 S = 577, W = 1024, 16 heads, RoPE tables on the card, and its no-RoPE
-mode) and K7 (B = 8, H = 16, S = 1297, D = 64, bf16) beside SDPA, by CUDA
-events after a device sleep (`chip_smoke.py::cuda_ms`, 30 calls). The
-variants are the tile shapes the core did not take and two diagnostics of
-the RoPE pass: every key reading the tables' row 0 (they stay in L1; the
-results are wrong) and K tiles left unrotated. Prints the card and one
-JSON line per variant. Needs a CUDA card and nvcc.
+mode), K7 (B = 8, H = 16, S = 1297, D = 64, bf16) and K6 (SAM's global
+layer, B = 4, H = 12, S = 4096, D = 64, G = 64, with the rel-pos bias:
+fp32 inputs with the wrapper's bf16 casts, bf16 inputs, the kernel alone
+on bf16 operands, and the same kernel launch without the bias) beside
+SDPA, by CUDA events after a device sleep (`chip_smoke.py::cuda_ms`, 30
+calls). The variants are the tile shapes the core did not take and two
+diagnostics of the RoPE pass (every key reading the tables' row 0: they
+stay in L1, the results are wrong; K tiles left unrotated). Names on the
+command line pick variants (default: all). Prints the card and one JSON line per variant.
+Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -81,6 +85,27 @@ def run_variant(name: str) -> dict:
                                        iters=30)
         out["k3_sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
                                     iters=30)
+        del q, k, v, qh, kh, vh
+        b, h, s, d, g = 4, 12, 4096, 64, 64
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda") for _ in range(3))
+        bias = tuple(torch.randn(b, h, s, g, generator=gen, device="cuda") * 0.5
+                     for _ in range(2)) + (g,)
+        out["k6_ms"] = cuda_ms(lambda: flash_attention(q, k, v, rel_bias=bias), iters=30)
+        q16, k16, v16 = (t.to(bf16) for t in (q, k, v))
+        out["k6_bf16_ms"] = cuda_ms(lambda: flash_attention(q16, k16, v16, rel_bias=bias),
+                                    iters=30)
+        # the kernel alone: bf16(q * scale) made once, as the wrapper makes it per call
+        qs, o = (q * d ** -0.5).to(bf16), torch.empty_like(q)
+        lib = kernels.lib()
+        out["k6_kernel_ms"] = cuda_ms(lambda: lib.rv_flash_attn_tc(
+            qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), bias[0].data_ptr(),
+            bias[1].data_ptr(), o.data_ptr(), b * h, s, s, d, g, s, 1.0,
+            kernels.DTYPE_CODES[torch.float32], kernels.stream_ptr(q.device)), iters=30)
+        out["k6_no_bias_kernel_ms"] = cuda_ms(lambda: lib.rv_flash_attn_tc(
+            qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), None, None, o.data_ptr(), b * h, s,
+            s, d, 0, s, 1.0, kernels.DTYPE_CODES[torch.float32], kernels.stream_ptr(q.device)),
+            iters=30)
+        out["k7_rate_ms_at_k6_flops"] = out["k7_ms"] * (b * h * s * s) / (8 * 16 * 1297 ** 2)
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -100,7 +125,7 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     rc = 0
-    for name in VARIANTS:   # one process each: a fresh library per build
+    for name in sys.argv[1:] or VARIANTS:   # one process each: a fresh library per build
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--variant", name],
                               capture_output=True, text=True, timeout=300)
         lines = proc.stdout.strip().splitlines()

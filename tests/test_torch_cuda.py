@@ -93,16 +93,24 @@ def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     (50, 64, 256, "gelu"),            # test-tiny
     (33, 64, 256, "quick_gelu"),
     (577, 1024, 4096, "gelu"),        # PE-L14 widths
-    (100, 1536, 8960, "gelu"),        # PE-G14 widths: 16-row tiles
+    (100, 1536, 8960, "gelu"),        # PE-G14 widths: 16-row CUDA-core tiles
+    (1000, 1024, 4096, "quick_gelu"),  # T % 128 != 0: a ragged GEMM row tile
+    (130, 72, 200, "gelu"),           # W, H % 8 == 0 but not whole GEMM tiles
+    (40, 68, 252, "gelu"),            # W % 8 != 0: bf16 on the CUDA-core kernel
 ])
 def test_fused_mlp_kernel(dev, dtype, t, w, hid, act):
+    from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
 
     gen = torch.Generator(device="cuda").manual_seed(t)
     x = _randn(gen, t, w, dtype=dtype)
     w1, b1 = _randn(gen, hid, w, dtype=dtype, scale=w ** -0.5), _randn(gen, hid, dtype=dtype, scale=0.1)
     w2, b2 = _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5), _randn(gen, w, dtype=dtype, scale=0.1)
+    n0, t0 = kernels.launches["fused_mlp"], kernels.launches["fused_mlp_tc"]
     out = fused_mlp(x, w1, b1, w2, b2, act=act)
+    assert kernels.launches["fused_mlp"] == n0 + 1
+    tc = dtype == torch.bfloat16 and w % 8 == 0 and hid % 8 == 0
+    assert kernels.launches["fused_mlp_tc"] == t0 + int(tc)
     ref = mlp_ref(x, w1, b1, w2, b2, act=act)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else TOLS[dtype]
@@ -176,22 +184,39 @@ def test_flash_attn_kernel(dev, dtype, b, h, sq, skv, d, kv_valid):
     (2, 3, 8, 16, 64, None),
     (1, 2, 14, 32, 150, 190),         # Sq not a multiple of the tile, kv_valid < S
     (1, 12, 64, 64, 4096, None),      # SAM ViT-B global layer
+    (1, 2, 64, 64, 100, 4000),        # G = 64 (one lattice row a tile), kv_valid < S
+    (1, 2, 8, 40, 70, 60),            # head dim 40: the CUDA-core kernel
 ])
 def test_flash_attn_relbias_kernel(dev, dtype, b, h, g, d, sq, kv_valid):
+    """The rel-pos bias takes the tensor-core core in either dtype at head
+    dims % 16 == 0 (<= 128), with bf16 operands as the TPU kernel: held
+    against `attention_bf16_ref` within 2e-2 (bf16 output: one output
+    ulp; fp32 output: p rounded against the running max, not the final
+    one) and against the fp32 `attention_ref` within 2e-2 (the operands'
+    bf16 rounding). Other head dims take the CUDA-core kernel, held
+    against `attention_ref` at the fp32 / bf16 tolerances."""
     from reverso_tpu_torch import kernels
-    from reverso_tpu_torch.ops.attention import attention_ref, flash_attention
+    from reverso_tpu_torch.ops.attention import (attention_bf16_ref, attention_ref,
+                                                  flash_attention)
 
     gen = torch.Generator(device="cuda").manual_seed(g * d)
     q = _randn(gen, b, h, sq, d, dtype=dtype)
     k, v = (_randn(gen, b, h, g * g, d, dtype=dtype) for _ in range(2))
     bh, bw = (_randn(gen, b, h, sq, g, dtype=torch.float32, scale=0.5) for _ in range(2))
-    n0, t0 = kernels.launches["flash_attn_relbias"], kernels.launches["flash_attn_tc"]
+    counts = ("flash_attn_relbias", "flash_attn_relbias_tc", "flash_attn_tc")
+    before = [kernels.launches[c] for c in counts]
     out = flash_attention(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
-    assert kernels.launches["flash_attn_relbias"] == n0 + 1
-    assert kernels.launches["flash_attn_tc"] == t0     # the bias takes the CUDA-core kernel
+    tc = _uses_tensor_cores(torch.bfloat16, d)
+    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [1, int(tc), 0]
+    assert out.dtype == dtype
     ref = attention_ref(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
     torch.cuda.synchronize()
-    assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
+    if tc:
+        ref16 = attention_bf16_ref(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
+        assert float((out.float() - ref16.float()).abs().max()) <= 2e-2
+        assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+    else:
+        assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

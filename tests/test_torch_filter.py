@@ -120,6 +120,22 @@ def test_ivf_cache_is_shared_between_packages(store_root):
             for f in os.listdir(cache)} == stamp, "the port rebuilt the cache"
 
 
+def test_pq_store_searches_through_ivf(store_root):
+    """store.dtype="pq" with index="ivf": both packages coerce the IVF's
+    cells to bf16 and search, with the same ids (only the exact pq index
+    is unported)."""
+    root, q, _ = store_root
+    search = dict(index="ivf", ivf_clusters=16, ivf_nprobe=4)
+    jax_eng, port = _engines(root, "pq", **search)
+    jax_eng.load_database("db")
+    port.load_database("db")
+    js, ji = (np.asarray(a) for a in jax_eng.search_batch(q, 10))
+    ts, ti = port.search_batch(q, 10)
+    np.testing.assert_array_equal(ti, ji)
+    fin = np.isfinite(js)
+    np.testing.assert_allclose(ts[fin], js[fin], atol=1e-6)
+
+
 def test_unported_paths_name_their_slice(store_root):
     root, q, _ = store_root
     for dtype, search in (("pq", {}), ("float32", dict(index="host"))):

@@ -1,14 +1,17 @@
-"""The bf16 tensor-core flash-attention core (K3 and K7 on the card): what
-the CPU can hold of it.
+"""The tensor-core kernels (K3, K6 and K7 on the flash core, K4 on the
+wgmma GEMMs): what the CPU can hold of them.
 
-* the wrappers' dispatch rule (`ops/attention.py::attention_route`) for
-  every preset's head dim, both dtypes and the rel-pos bias;
+* the wrappers' dispatch rules (`ops/attention.py::attention_route`,
+  `ops/fused_mlp.py::mlp_route`) for every preset's widths, both dtypes
+  and the rel-pos bias;
 * the ctypes argument lists in `kernels._SIGNATURES` against the
   `extern "C"` launchers under `csrc/`, parsed from the sources;
 * the basis of the card's bf16 tolerance: a numpy emulation of the
   kernel's per-tile rounding (online softmax, p rounded to bf16 against
   the running max, 64-key tiles) against the JAX package's Pallas kernels
-  in interpret mode at S = 577 (heads in lanes, RoPE) and S = 1297.
+  in interpret mode at S = 577 (heads in lanes, RoPE), S = 1297, and S =
+  256 with SAM's rel-pos bias (bf16 operands, fp32 bias), and the bias
+  mode's plain version (`attention_bf16_ref`) against the emulation.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -24,6 +27,7 @@ from reverso_tpu.ops import attention as jattn
 from reverso_tpu_torch import kernels
 from reverso_tpu_torch.config import MODEL_PRESETS
 from reverso_tpu_torch.ops import attention as tattn
+from reverso_tpu_torch.ops.fused_mlp import mlp_route
 from reverso_tpu_torch.ops.rope import rope_2d_tables
 
 TOL_BF16 = 2e-2      # the card's bf16 tolerance (chip_smoke.py, test_torch_cuda.py)
@@ -39,8 +43,12 @@ def test_route_for_every_preset_head_dim(preset):
     assert route("cuda", torch.bfloat16, hd) == (
         "tensor_core" if on_tensor_cores else "cuda_core")
     assert route("cuda", torch.float32, hd) == "cuda_core"
-    assert route("cuda", torch.bfloat16, hd, rel_bias=True) == "cuda_core"
-    assert route("cuda", torch.float32, hd, rel_bias=True) == "cuda_core"
+    # the rel-pos bias takes the tensor cores in either dtype (the TPU
+    # kernel's one bf16 pass)
+    assert route("cuda", torch.bfloat16, hd, rel_bias=True) == (
+        "tensor_core" if on_tensor_cores else "cuda_core")
+    assert route("cuda", torch.float32, hd, rel_bias=True) == (
+        "tensor_core" if on_tensor_cores else "cuda_core")
     for dtype in (torch.bfloat16, torch.float32):
         for bias in (False, True):
             assert route("cpu", dtype, hd, rel_bias=bias) == "plain"
@@ -55,6 +63,34 @@ def test_route_for_every_preset_head_dim(preset):
 ])
 def test_route_head_dims(hd, expected):
     assert tattn.attention_route("cuda", torch.bfloat16, hd) == expected
+    # SAM's rel-pos bias: the same head dims, in either dtype; fp32 without
+    # the bias stays on the CUDA cores
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tattn.attention_route("cuda", dtype, hd, rel_bias=True) == expected
+    assert tattn.attention_route("cuda", torch.float32, hd) == "cuda_core"
+
+
+@pytest.mark.parametrize("preset", sorted(MODEL_PRESETS))
+def test_mlp_route_for_every_preset(preset):
+    """Every preset's bf16 MLP takes the wgmma GEMMs; fp32 the CUDA-core
+    kernel; CPU tensors the plain version."""
+    cfg = MODEL_PRESETS[preset]
+    width, hidden = cfg.width, int(cfg.width * cfg.mlp_ratio)
+    assert mlp_route("cuda", torch.bfloat16, width, hidden) == "tensor_core"
+    assert mlp_route("cuda", torch.float32, width, hidden) == "cuda_core"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert mlp_route("cpu", dtype, width, hidden) == "plain"
+
+
+@pytest.mark.parametrize("width,hidden,expected", [
+    (64, 256, "tensor_core"), (1024, 4096, "tensor_core"), (1536, 8960, "tensor_core"),
+    (72, 200, "tensor_core"), (8, 8, "tensor_core"),
+    (68, 256, "cuda_core"), (64, 250, "cuda_core"), (77, 200, "cuda_core"),
+])
+def test_mlp_route_widths(width, hidden, expected):
+    """TMA's 16-byte row strides: width and hidden multiples of 8."""
+    assert mlp_route("cuda", torch.bfloat16, width, hidden) == expected
+    assert mlp_route("cuda", torch.float32, width, hidden) == "cuda_core"
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -90,7 +126,7 @@ def _launchers():
 
 def test_signatures_match_the_launchers():
     found = _launchers()
-    assert {"rv_flash_heads_tc", "rv_flash_attn_tc"} <= set(found)
+    assert {"rv_flash_heads_tc", "rv_flash_attn_tc", "rv_fused_mlp_tc"} <= set(found)
     assert set(found) == set(kernels._SIGNATURES)
     for name, types in found.items():
         assert kernels._SIGNATURES[name] == types, name
@@ -111,26 +147,31 @@ def _rotate(x, cos, sin, mul):
     return _bf16((x * cos + half * sin) * np.float32(mul))
 
 
-def _online_tiles(q, k, v, score_mul, kv_valid, bk=KERNEL_BK):
+def _online_tiles(q, k, v, score_mul, kv_valid, bk=KERNEL_BK, bias=None, out_bf16=True):
     """The kernel's arithmetic on one head: [S, D] bf16-valued float32 in,
-    bf16-valued out. Scores in fp32 times log2(e) * scale, per bk-key tile
-    a running max m, p = exp2(t - m) rounded to bf16 for the PV product
-    against that running max, the fp32 row sum and accumulator rescaled by
-    exp2(m_old - m_new) when the max moves, acc / l at the end."""
+    bf16-valued out (or fp32 with out_bf16=False). Scores in fp32 (plus
+    the fp32 `bias` [Sq, Skv], if given) times log2(e) * scale, per
+    bk-key tile a running max m, p = exp2(t - m) rounded to bf16 for the
+    PV product against that running max, the fp32 row sum and accumulator
+    rescaled by exp2(m_old - m_new) when the max moves, acc / l at the
+    end."""
     sq = q.shape[0]
     m = np.full((sq, 1), -np.inf, np.float32)
     l = np.zeros((sq, 1), np.float32)
     acc = np.zeros((sq, v.shape[1]), np.float32)
     for lo in range(0, kv_valid, bk):
         hi = min(lo + bk, kv_valid)
-        t = (q @ k[lo:hi].T).astype(np.float32) * np.float32(score_mul)
+        t = (q @ k[lo:hi].T).astype(np.float32)
+        if bias is not None:
+            t = t + bias[:, lo:hi]
+        t = t * np.float32(score_mul)
         m_new = np.maximum(m, t.max(axis=1, keepdims=True))
         corr = np.exp2(m - m_new)
         p = np.exp2(t - m_new)
         l = l * corr + p.sum(axis=1, keepdims=True)
         acc = acc * corr + _bf16(p) @ v[lo:hi]
         m = m_new
-    return _bf16(acc / l)
+    return _bf16(acc / l) if out_bf16 else acc / l
 
 
 def test_online_rounding_heads_in_lanes_rope():
@@ -178,3 +219,75 @@ def test_online_rounding_long_sequence():
     print(f"K7 online-softmax rounding vs the JAX kernel: max abs err {errs} "
           f"(tolerance {TOL_BF16})")
     assert max(errs) < TOL_BF16
+
+
+def _relbias_case(seed, d, g, sq, kv_valid):
+    """bf16-valued q, k, v [1, 2, S, d] (S = g * g keys) and fp32 bias
+    parts [1, 2, sq, g]; the emulated kernel per head (bf16(q * scale),
+    the bias added to the fp32 scores, log2(e) as the score multiplier)."""
+    rng = np.random.default_rng(seed)
+    skv = g * g
+    q = _bf16(rng.standard_normal((1, 2, sq, d)).astype(np.float32))
+    k, v = (_bf16(rng.standard_normal((1, 2, skv, d)).astype(np.float32)) for _ in range(2))
+    bh, bw = (rng.standard_normal((1, 2, sq, g)).astype(np.float32) * 0.5 for _ in range(2))
+    return q, k, v, bh, bw
+
+
+def _emulate_relbias(q, k, v, bh, bw, g, kv_valid, out_bf16):
+    scale = np.float32(q.shape[-1] ** -0.5)
+    out = []
+    for h in range(q.shape[1]):
+        bias = (bh[0, h][:, :, None] + bw[0, h][:, None, :]).reshape(bh.shape[2], g * g)
+        out.append(_online_tiles(_bf16(q[0, h] * scale), k[0, h], v[0, h], np.log2(np.e),
+                                 kv_valid, bias=bias, out_bf16=out_bf16))
+    return np.stack(out)[None]
+
+
+@pytest.mark.parametrize("dtype,d,g,sq,kv_valid", [
+    ("bfloat16", 32, 16, 256, 256),   # the TPU's bf16 contract, one 256-key JAX tile
+    ("bfloat16", 32, 16, 200, 190),   # ragged q rows, keys past kv_valid
+    ("float32", 64, 16, 256, 256),    # fp32 inputs holding bf16 values: only p's rounding differs
+])
+def test_online_rounding_rel_bias(dtype, d, g, sq, kv_valid):
+    """K6's bias mode (SAM's decomposed rel-pos bias, G = 16, S = 256):
+    the emulated kernel (64-key tiles, bf16 q * scale, k, p, v, the fp32
+    bias) against the JAX kernel in interpret mode. With bf16 inputs the
+    JAX kernel computes the TPU's bf16 contract (p rounded against its
+    256-key tile's running max); with fp32 inputs it computes in fp32 on
+    the CPU, which here differs only by p's bf16 rounding (q, k, v hold
+    bf16 values and the scale 1/8 is exact)."""
+    q, k, v, bh, bw = _relbias_case(13 + d, d, g, sq, kv_valid)
+    jdt = getattr(jnp, dtype)
+    ref = np.asarray(jattn.flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), kv_valid=kv_valid,
+        rel_bias=(jnp.asarray(bh), jnp.asarray(bw), g), interpret=True).astype(jnp.float32))
+    out = _emulate_relbias(q, k, v, bh, bw, g, kv_valid, out_bf16=dtype == "bfloat16")
+    err = float(np.abs(out - ref).max())
+    print(f"K6 bias mode ({dtype}, d {d}, kv_valid {kv_valid}) vs the JAX kernel: "
+          f"max abs err {err} (tolerance {TOL_BF16})")
+    assert err < TOL_BF16
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bf16_operand_plain_version(dtype):
+    """`attention_bf16_ref`, the plain version the card holds K6 against,
+    against the emulated kernel: both round q * scale, k, p and v to bf16
+    and keep the sums and the bias in fp32; p is rounded against the final
+    max there and the running max in the kernel."""
+    g, d, sq, kv_valid = 16, 64, 256, 250
+    q, k, v, bh, bw = _relbias_case(29, d, g, sq, kv_valid)
+    t = lambda a: torch.from_numpy(a).to(dtype)
+    out = tattn.attention_bf16_ref(t(q), t(k), t(v), kv_valid=kv_valid,
+                                   rel_bias=(torch.from_numpy(bh), torch.from_numpy(bw), g))
+    assert out.dtype == dtype
+    emu = _emulate_relbias(q, k, v, bh, bw, g, kv_valid, out_bf16=dtype == torch.bfloat16)
+    err = float((out.float() - torch.from_numpy(emu)).abs().max())
+    # the same function on bf16 inputs and on fp32 inputs holding their values
+    other = tattn.attention_bf16_ref(*(t(a).to(torch.float32 if dtype == torch.bfloat16
+                                                  else torch.bfloat16) for a in (q, k, v)),
+                                     kv_valid=kv_valid,
+                                     rel_bias=(torch.from_numpy(bh), torch.from_numpy(bw), g))
+    print(f"attention_bf16_ref ({dtype}) vs the emulated kernel: max abs err {err} "
+          f"(tolerance {TOL_BF16})")
+    assert err < TOL_BF16
+    assert float((other.float() - out.float()).abs().max()) <= 2 ** -7
