@@ -16,8 +16,10 @@ of which catches a failure:
      computes the same function) that call, and the least time the card
      could take (`bound_ms`); the MLP (K4) on its two wgmma GEMMs at
      T = 4616, 1000 and 36,928 with the cuBLAS route of three calls
-     beside it; the attention kernels in bf16 on the tensor
-     cores (K3 with RoPE and its whole PyTorch route beside it, K7), SAM's
+     beside it, and in fp32 on the CUDA cores at the depth-2 tower's
+     T = 1154 with the fp32 cuBLAS route; the attention kernels in bf16
+     on the tensor cores (K3 with RoPE and its whole PyTorch route beside
+     it, K7), SAM's
      rel-pos bias attention (K6) on the tensor cores in fp32 and bf16
      against its bf16-operand and fp32 plain versions, with SDPA and a
      materialized mask in both dtypes beside it, and the CUDA-core
@@ -27,8 +29,8 @@ of which catches a failure:
      and 1024); the capacity kernels at 1,000,000 x 1024
      (masked bf16, int8 with ids and scores equal bit for bit, packed
      binary) and the IVF probed scan at 1024 clusters, nprobe 16; the
-     int8 MLP (T = 4616 and 1000, 1024 -> 4096 -> 1024, gelu and
-     quick_gelu, and a ragged case) and the two-stage int8 search's
+     int8 MLP (K5: T = 4616, 1000, 36,928 and 577, 1024 -> 4096 -> 1024,
+     gelu and quick_gelu, and a ragged case) and the two-stage int8 search's
      candidate scan (1M x 1024 int8 rows with row scales, Q = 256,
      k_fetch 40, ids and scores equal bit for bit, ragged cases);
   4. depth-reduced full-width towers on the card (kernels) against the
@@ -57,10 +59,15 @@ of which catches a failure:
      use_direct_pe=False)`, then answers `detect_regions` +
      `extract_embeddings` + `search_similar` queries, and holds 8 photos'
      detections on the default route against SAM's CUDA-core route
-     (boxes equal, the share of mask pixels that agree);
+     (boxes equal, the share of mask pixels that agree); K8's inputs at
+     each shape the path ran it at are captured (the model's own sampling
+     locations), and K8 is held against its plain version and timed on
+     them;
   5b. the int8 embedding tower: the direct-embed build of phase 5 again
      with `ModelConfig.quant="int8"` (same images, seed and weights),
-     held against the bf16 build (min cosine, top-10 overlap);
+     held against the bf16 build (min cosine, top-10 overlap), one
+     profiled B = 64 forward of the int8 tower, and K5 timed at each shape
+     the path ran it at (`kernels.shape_launches`);
   6b. ROI pooling: the region build of phase 6 again with
      `region_embed_mode="region"` (masks pooled onto the patch grid,
      masked attention pooling), then `detect_regions` +
@@ -74,9 +81,11 @@ of which catches a failure:
      recall@10 against exact fp32 for the approximate ones.
 
 Every kernel must have launched on its path (counts reset just before a
-path and read just after it). The line before the last is the card's
-name and power limit, the one before that a JSON object with one entry
-per kernel; the last line is {"ok": true, "device": {...}}.
+path and read just after it). A "redesign order" line ranks the kernels
+by launches x (ms - bound_ms), summed over the shapes a path ran K5 and
+K8 at. The line before the last is the card's name and power limit, the
+one before that a JSON object with one entry per kernel; the last line
+is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -105,6 +114,22 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5_bound(t: int, w: int, hid: int) -> tuple[float, str]:
+    """K5's least time at [T, W] -> H -> W: x read and y written in bf16,
+    both int8 weights and the f32 scales and biases read once; 4 T W H int8
+    operations."""
+    return bound(2 * t * w * 2 + 2 * w * hid + (hid + w) * 8, 4 * t * w * hid, "int8")
+
+
+def k8_bound(b: int, lv: int, lq: int, h: int, d: int, n_l: int, p: int,
+             itemsize: int = 4) -> tuple[float, str]:
+    """K8's least time: the value map and the output once in the value
+    dtype, the fp32 locations and weights once; 11 operations per sample
+    and channel (three lerps and one FMA) at the fp32 rate."""
+    return bound((b * lv + b * lq) * h * d * itemsize + b * lq * h * n_l * p * 3 * 4,
+                 11 * b * lq * h * n_l * p * d, "float32")
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
@@ -173,6 +198,29 @@ def cuda_core_relbias():
         return route(device_type, dtype, head_dim, rel_bias)
 
     with mock.patch.object(attn, "attention_route", forced):
+        yield
+
+
+@contextlib.contextmanager
+def captured_deform(store: dict):
+    """GroundingDINO's `ms_deform_attn` wrapped inside this script only:
+    the first call at each shape keeps a copy of its inputs (the model's
+    own sampling locations and weights) in `store`, under the key the
+    wrapper counts launches by (`kernels.shape_launches`)."""
+    import importlib
+    from unittest import mock
+    gd = importlib.import_module("reverso_tpu_torch.models.groundingdino")
+    orig = gd.ms_deform_attn
+
+    def capture(value, shapes, loc, weights):
+        shp = [(int(hl), int(wl)) for hl, wl in shapes]
+        key = (value.shape[0], loc.shape[1], tuple(shp), value.shape[2], value.shape[3],
+               loc.shape[4], str(value.dtype))
+        if key not in store:
+            store[key] = (value.clone(), shp, loc.clone(), weights.clone())
+        return orig(value, shapes, loc, weights)
+
+    with mock.patch.object(gd, "ms_deform_attn", capture):
         yield
 
 
@@ -333,7 +381,36 @@ def kernel_checks(torch, gen) -> dict:
           f"ms; T=36928: {r['ms_b64']:.4f} ms (cuBLAS route {r['library_route_ms_b64']:.4f}, "
           f"bound {r['bound_ms_b64']:.4f}); h round trip at the HBM rate "
           f"{r['h_roundtrip_bound_ms']:.4f} ms", flush=True)
-    del x, x64, w1, b1, w2, b2
+
+    # K4 in fp32 on the CUDA-core kernel (the fp32 tower's parity phase):
+    # T = 2 * 577, the depth-2 tower's forward (`tower_check`), with the
+    # cuBLAS route of three fp32 calls beside it
+    f32, t32 = torch.float32, 2 * 577
+    w1f, b1f, w2f, b2f = (p.float() for p in (w1, b1, w2, b2))
+    x32 = randn(t32, w, dtype=f32)
+    n0, t0 = kernels.launches["fused_mlp"], kernels.launches["fused_mlp_tc"]
+    out = fused_mlp(x32, w1f, b1f, w2f, b2f, act="gelu")
+    check(kernels.launches["fused_mlp"] == n0 + 1 and kernels.launches["fused_mlp_tc"] == t0,
+          "fused_mlp fp32: not the CUDA-core kernel")
+    tol32 = 1e-4   # fp32: sums in another order, erff against the plain version's gelu
+    err = max_err(out, mlp_ref(x32, w1f, b1f, w2f, b2f, act="gelu"))
+    check(err <= tol32, f"fused_mlp fp32: max abs err {err} > {tol32}")
+    route32 = lambda xx: F.linear(F.gelu(F.linear(xx, w1f, b1f)), w2f, b2f)
+    rows["fused_mlp_f32"] = dict(
+        source="reverso_tpu_torch/csrc/fused_mlp.cu",
+        replaces="reverso_tpu/ops/fused_mlp.py:63",
+        max_abs_err=err, shape="T=1154 1024->4096->1024 fp32 gelu on the CUDA cores "
+                              "(depth-2 tower parity)",
+        ms=cuda_ms(lambda: fused_mlp(x32, w1f, b1f, w2f, b2f, act="gelu")),
+        plain_ms=cuda_ms(lambda: mlp_ref(x32, w1f, b1f, w2f, b2f, act="gelu")),
+        library="none: no single PyTorch call", library_ms=None,
+        library_route="F.linear, F.gelu, F.linear (cuBLAS fp32, three calls)",
+        library_route_ms=cuda_ms(lambda: route32(x32)))
+    rows["fused_mlp_f32"]["bound_ms"], rows["fused_mlp_f32"]["bound_by"] = bound(
+        (2 * t32 * w + 2 * hid * w + hid + w) * 4, 4 * t32 * w * hid, "float32")
+    print(f"fused_mlp fp32: max abs err {err} (tol {tol32}); cuBLAS route "
+          f"{rows['fused_mlp_f32']['library_route_ms']:.4f} ms", flush=True)
+    del x, x64, w1, b1, w2, b2, x32, w1f, b1f, w2f, b2f, out
 
     # K1: 1M x 1024 bf16 (n_valid 1,000,000 of 1,048,576 rows), Q=256, k=10
     db = torch.randn(1 << 20, w, generator=gen, device=dev)
@@ -597,10 +674,8 @@ def region_kernel_checks(torch, gen) -> dict:
         plain_ms=cuda_ms(lambda: ms_deform_attn_ref(value, shapes, loc, wt), iters=2),
         library="none: no single PyTorch call (grid_sample per level and a sum)",
         library_ms=None)
-    # 11 operations per sample and channel: three lerps and one FMA
-    rows["ms_deform"]["bound_ms"], rows["ms_deform"]["bound_by"] = bound(
-        (2 * b * lv * h * d + b * lv * h * n_l * p * 3) * 4,
-        11 * b * lv * h * n_l * p * d, "float32")
+    rows["ms_deform"]["bound_ms"], rows["ms_deform"]["bound_by"] = k8_bound(
+        b, lv, lv, h, d, n_l, p)
     print(f"ms_deform: max abs err {errs} (tol {tol})", flush=True)
     return rows
 
@@ -695,9 +770,11 @@ def int8_kernel_checks(torch, gen):
     # K5: bit for bit where the plain version's rounding is the kernel's; a
     # rare hidden-quantum flip otherwise: under 0.2% of elements beyond one
     # output rounding, none beyond two hidden quanta times the largest W2
-    errs, flips = [], []
+    # (T = 36,928 and 577: the int8 path's own shapes, B = 64 and one image)
+    errs, flips, timed = [], [], {}
     for t, w, hid, act in ((4616, 1024, 4096, "gelu"), (4616, 1024, 4096, "quick_gelu"),
-                           (1000, 1024, 4096, "gelu"), (77, 72, 200, "gelu")):
+                           (1000, 1024, 4096, "gelu"), (77, 72, 200, "gelu"),
+                           (36928, 1024, 4096, "gelu"), (577, 1024, 4096, "gelu")):
         x = randn(t, w)
         w1, b1 = randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.02)
         w2, b2 = randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.02)
@@ -719,11 +796,12 @@ def int8_kernel_checks(torch, gen):
             quantum = 2 * h_amax / 127 * float((qw.w2.float().abs() * qw.s2[:, None]).max())
             check(float(diff[loose].max()) <= quantum + 2 ** -7 * (1 + float(ref.abs().max())),
                   f"fused_mlp_int8 T={t} {act}: a difference beyond two hidden quanta")
-        if (t, act) == (4616, "gelu"):
-            main = (x, qw)
-    x, qw = main
+        if act == "gelu" and w == 1024 and t != 1000:
+            timed[t] = (x, qw)
+        del diff, loose, out, ref
+    x, qw = timed[4616]
     t, w, hid = 4616, 1024, 4096
-    rows["fused_mlp_int8"] = dict(
+    r = rows["fused_mlp_int8"] = dict(
         source="reverso_tpu_torch/csrc/fused_mlp.cu",
         replaces="reverso_tpu/ops/fused_mlp.py:92",
         max_abs_err=max(errs), shape="T=4616 1024->4096->1024 bf16 gelu, int8 products",
@@ -731,12 +809,20 @@ def int8_kernel_checks(torch, gen):
         plain_ms=cuda_ms(lambda: mlp_int8_plain(x, qw, "gelu")),
         library="none: no single PyTorch call (torch._int_mm twice, with the "
                 "per-chunk re-quantization between them)",
-        library_ms=None)
-    rows["fused_mlp_int8"]["bound_ms"], rows["fused_mlp_int8"]["bound_by"] = bound(
-        2 * t * w * 2 + 2 * w * hid + (hid + w) * 8, 4 * t * w * hid, "int8")
+        library_ms=None,
+        # h8 written and read back as int8 between the GEMMs, at the HBM rate
+        h8_roundtrip_bound_ms=2 * t * hid / HBM_BYTES_S * 1e3)
+    r["bound_ms"], r["bound_by"] = k5_bound(t, w, hid)
+    for tt in (36928, 577):
+        xx, qq = timed[tt]
+        r[f"ms_t{tt}"] = cuda_ms(lambda: fused_mlp_int8(xx, qq, act="gelu"))
+        r[f"bound_ms_t{tt}"] = k5_bound(tt, w, hid)[0]
     print(f"fused_mlp_int8: max abs err {errs}, elements differing from the plain "
-          f"version {flips}", flush=True)
-    del x, qw, main
+          f"version {flips}; T=36928 {r['ms_t36928']:.4f} ms (bound "
+          f"{r['bound_ms_t36928']:.4f}), T=577 {r['ms_t577']:.4f} ms (bound "
+          f"{r['bound_ms_t577']:.4f}); h8 round trip at the HBM rate "
+          f"{r['h8_roundtrip_bound_ms']:.4f} ms", flush=True)
+    del x, qw, xx, qq, timed
 
     # K12 stage 1: 1M x 1024 int8 rows with row scales, Q = 256, k_fetch 40
     n, d, q, kf = 1_000_000, 1024, 256, 40
@@ -1169,7 +1255,9 @@ def int8_slice_run(root: str) -> dict:
         check(bool(own) and own[0]["score"] >= items[0]["score"] - tie_tol,
               f"int8 {fname}: own row not at rank 0 within {tie_tol}:\n{text}")
     launches = dict(kernels.launches)
-    print(f"launches on the int8 direct-embed path: {launches}", flush=True)
+    k5_shapes = {k: n for k, n in kernels.shape_launches.items() if k[0] == "fused_mlp_int8"}
+    print(f"launches on the int8 direct-embed path: {launches}; K5 by shape "
+          f"{[(k[1], n) for k, n in k5_shapes.items()]}", flush=True)
     check(launches["fused_mlp_int8"] > 0, "fused_mlp_int8 never launched on the int8 path")
     check(launches["fused_mlp"] == 0, "the int8 tower launched the bf16 MLP kernel")
     for name in ("flash_heads", "topk_stream"):
@@ -1200,7 +1288,61 @@ def int8_slice_run(root: str) -> dict:
                build_s=build_s, embed_img_s=engine.metrics.rate("embed"))
     print(f"int8 slice: {json.dumps(out)}", flush=True)
     check(float(cos.min()) >= 0.98, f"int8 rows drift from the bf16 build: {cos.min()}")
-    return launches
+
+    # one B=64 forward of the int8 tower (input already on the card), profiled
+    import torch
+    enc = engine.encoder
+    x = torch.randn(64, enc.cfg.image_size, enc.cfg.image_size, 3,
+                    generator=torch.Generator().manual_seed(9)).cuda()
+    with torch.inference_mode():
+        prof = profiled(torch, lambda: enc.module(x))
+    print(f"profiled B=64 PE-Core-L14-336 int8 forward: {json.dumps(prof)}", flush=True)
+    return launches, k5_shapes
+
+
+def k5_path_shapes(torch, shape_launches: dict) -> list:
+    """K5 at each shape the int8 path ran it at: its launches there, and
+    its ms and bound on seeded inputs and weights of that shape."""
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp_int8, quantize_mlp_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = []
+    for (_, (t, w, hid, dtype)), n in sorted(shape_launches.items()):
+        dt = getattr(torch, dtype.split(".")[-1])
+        randn = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device="cuda")
+                                           * scale).to(dt)
+        qw = quantize_mlp_weights(randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.02),
+                                  randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.02), dt)
+        x = randn(t, w)
+        out.append(dict(shape=f"T={t} W={w} H={hid} {dtype}", launches=n,
+                        ms=cuda_ms(lambda: fused_mlp_int8(x, qw)),
+                        bound_ms=k5_bound(t, w, hid)[0]))
+    return out
+
+
+def k8_path_shapes(torch, shape_launches: dict, inputs: dict) -> list:
+    """K8 at each shape the region path ran it at, on that path's own
+    inputs (the first call at each shape, captured by `captured_deform`):
+    its launches there, max abs error against the plain version (1e-5 in
+    fp32, as the uniform row), ms and bound."""
+    from reverso_tpu_torch.ops.deformable import ms_deform_attn, ms_deform_attn_ref
+
+    out = []
+    for key, n in sorted(shape_launches.items(), key=lambda kv: -kv[0][1][1]):
+        _, (b, lq, shapes, h, d, p, dtype) = key
+        value, shp, loc, wt = inputs[key[1]]
+        got = ms_deform_attn(value, shp, loc, wt)
+        err = max_err(got, ms_deform_attn_ref(value, shp, loc, wt))
+        tol = 1e-5 if dtype == "torch.float32" else 2e-2
+        check(err <= tol, f"ms_deform on the path's inputs B={b} Lq={lq}: max abs err {err}")
+        lv = value.shape[1]
+        out.append(dict(shape=f"B={b} Lq={lq} Lv={lv} levels {list(shapes)} H={h} D={d} "
+                              f"P={p} {dtype} (the model's locations)",
+                        launches=n, max_abs_err=err,
+                        ms=cuda_ms(lambda: ms_deform_attn(value, shp, loc, wt)),
+                        bound_ms=k8_bound(b, lv, lq, h, d, len(shp), p,
+                                          value.element_size())[0]))
+    return out
 
 
 def make_photos(folder: str, n: int, seed: int) -> None:
@@ -1222,10 +1364,12 @@ def make_photos(folder: str, n: int, seed: int) -> None:
 # rows the redesign order lists apart: kernels a PR already redesigned
 # (by PR), rows whose library call computes another function, and rows
 # that run only on the fp32 parity phases
-REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused_mlp": 6}
+REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused_mlp": 6,
+              "fused_mlp_int8": 7, "ms_deform": 7}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE"}
 PARITY_ONLY = {"flash_heads_f32": "fp32 parity phases only",
+               "fused_mlp_f32": "fp32 parity phases only",
                "flash_attn_f32": "fp32 parity phases only",
                "flash_attn_relbias_f32": "fp32 parity phases only (SAM on the CUDA-core route)"}
 
@@ -1246,7 +1390,8 @@ KERNEL_GROUPS = (("ms_deform (K8)", "ms_deform"),
                  ("flash_attn (K6/K7, CUDA cores)", "flash_attn"),
                  ("flash_heads (K3, CUDA cores)", "flash_heads"),
                  ("fused_mlp_wgmma (K4, tensor cores)", "fused_mlp_wgmma"),
-                 ("fused_mlp (K4 CUDA cores, K5)", "fused_mlp"),
+                 ("fused_mlp_int8 (K5: q8 quantizer, GEMMs)", "mlp_q8"),
+                 ("fused_mlp (K4, CUDA cores)", "fused_mlp"),
                  ("topk (K1)", "topk"), ("convolution", "conv"),
                  ("matmul", "gemm"), ("matmul", "cutlass"), ("matmul", "nvjet"),
                  ("matmul", "Kernel2"))
@@ -1336,6 +1481,11 @@ def region_run(root: str) -> dict:
     det._dino_fwd = timed("dino", det._dino_fwd)
     det._sam_fwd = timed("sam", det._sam_fwd)
     engine.encoder.encode_image = timed("pe", engine.encoder.encode_image)
+    # K8's inputs at each shape the path runs it at (a copy of the first
+    # call's, a few per build)
+    deform_inputs: dict = {}
+    capturing = captured_deform(deform_inputs)
+    capturing.__enter__()
     kernels.reset_counts()
     t0 = time.perf_counter()
     transcript = sr.create_database(folder, "regions", text_prompt="person . car . building")
@@ -1382,7 +1532,10 @@ def region_run(root: str) -> dict:
         print(f"{fname}: {n} regions, rank-0 {items[0]['filename']} "
               f"{items[0]['score']:.6f}, own {own[0]['score']:.6f}", flush=True)
     launches = dict(kernels.launches)
-    print(f"launches on the region path: {launches}", flush=True)
+    k8_shapes = {k: n for k, n in kernels.shape_launches.items() if k[0] == "ms_deform"}
+    capturing.__exit__(None, None, None)
+    print(f"launches on the region path: {launches}; K8 by shape "
+          f"{[(k[1], n) for k, n in k8_shapes.items()]}", flush=True)
     for name in ("ms_deform", "flash_attn_relbias", "flash_heads", "fused_mlp",
                  "topk_stream"):
         check(launches[name] > 0, f"kernel {name} never launched on the region path")
@@ -1430,7 +1583,7 @@ def region_run(root: str) -> dict:
                dino_batch4_ms=dino_ms, sam_batch4_8boxes_ms=sam_ms, rows=int(vecs.shape[0]),
                mask_agreement_vs_cuda_core=mask_agreement)
     print(f"region slice: {json.dumps(out)}", flush=True)
-    return launches, det
+    return launches, det, k8_shapes, deform_inputs
 
 
 def roi_run(root: str, det) -> dict:
@@ -1940,8 +2093,13 @@ def main() -> int:
         sam_cc_launches = phase("detector parity", detector_parity, root)
         torch.cuda.empty_cache()
         direct_launches = phase("direct-embed slice", slice_run, root)
-        int8_launches = phase("int8 direct-embed slice", int8_slice_run, root)
-        region_launches, det = phase("region slice", region_run, root)
+        int8_launches, k5_shapes = phase("int8 direct-embed slice", int8_slice_run, root)
+        rows["fused_mlp_int8"]["by_shape"] = phase("K5 at the int8 path's shapes",
+                                                   k5_path_shapes, torch, k5_shapes)
+        region_launches, det, k8_shapes, deform_inputs = phase("region slice", region_run, root)
+        rows["ms_deform"]["by_shape"] = phase("K8 at the region path's shapes", k8_path_shapes,
+                                              torch, k8_shapes, deform_inputs)
+        del deform_inputs
         phase("ROI slice", roi_run, root, det)
         del det
         torch.cuda.empty_cache()
@@ -1953,6 +2111,7 @@ def main() -> int:
     path_of = {"flash_heads": direct_launches["flash_heads_tc"],
                "flash_heads_f32": tower_launches["flash_heads"],
                "fused_mlp": direct_launches["fused_mlp_tc"],
+               "fused_mlp_f32": tower_launches["fused_mlp"],
                "topk_stream": direct_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
                "flash_attn_f32": long_launches["flash_attn"],
@@ -1967,10 +2126,21 @@ def main() -> int:
                "topk_int8_rows": two_stage_launches["topk_int8_rows"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
+    for name in ("fused_mlp_int8", "ms_deform"):
+        print(f"{name} at its path's shapes: {json.dumps(rows[name]['by_shape'])}", flush=True)
+
     # the order to redesign kernels in: first those one PyTorch call beats,
-    # by how many times; then the rest by launches x (ms - bound_ms). Listed
-    # apart: rows a PR already redesigned, rows whose library call computes
-    # another function, and rows that run only on the parity phases
+    # by how many times; then the rest by launches x (ms - bound_ms), summed
+    # over the shapes a path ran a kernel at where the run timed each
+    # (`by_shape`: K5, K8), else at the row's shape. Listed apart: rows
+    # already redesigned, rows whose library call computes another
+    # function, and rows that run only on the parity phases
+    def cost(name):
+        r = rows[name]
+        if "by_shape" in r:
+            return sum(e["launches"] * (e["ms"] - e["bound_ms"]) for e in r["by_shape"])
+        return path_of[name] * (r["ms"] - r["bound_ms"])
+
     apart = {}
     for name in rows:
         why = (f"redesigned in PR {REDESIGNED[name]}" if name in REDESIGNED
@@ -1981,12 +2151,11 @@ def main() -> int:
     behind = sorted(((r["ms"] / r["library_ms"], name) for name, r in ranked.items()
                      if r["library_ms"] and r["ms"] > r["library_ms"]), reverse=True)
     slow = {name for _, name in behind}
-    rest = sorted(((path_of[name] * (r["ms"] - r["bound_ms"]), name)
-                   for name, r in ranked.items() if name not in slow), reverse=True)
+    rest = sorted(((cost(name), name) for name in ranked if name not in slow), reverse=True)
     print("redesign order: behind one PyTorch call "
           f"{[(name, round(f, 2)) for f, name in behind]}; then by launches x "
-          f"(ms - bound_ms) {[(name, round(v, 1)) for v, name in rest]}; apart "
-          f"{[(name, why, round(rows[name]['ms'] / rows[name]['library_ms'], 2) if rows[name]['library_ms'] else None, round(path_of[name] * (rows[name]['ms'] - rows[name]['bound_ms']), 1)) for name, why in apart.items()]}",
+          f"(ms - bound_ms), by shape where timed {[(name, round(v, 1)) for v, name in rest]}; "
+          f"apart {[(name, why, round(rows[name]['ms'] / rows[name]['library_ms'], 2) if rows[name]['library_ms'] else None, round(cost(name), 1)) for name, why in apart.items()]}",
           flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape", "library")

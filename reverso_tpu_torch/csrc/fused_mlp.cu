@@ -22,11 +22,12 @@
 //     W1[c]^T + b1[c]) with fp32 FMAs on the CUDA cores, rounded to T like
 //     the reference, and adding h @ W2[:, c]^T into the accumulator, so the
 //     [T, H] hidden tensor never reaches HBM;
-//   * the int8 mode (K5, rv_fused_mlp_int8), further below.
+//   * the int8 mode (K5, rv_fused_mlp_int8): x quantized per row, then two
+//     s8 wgmma + TMA GEMMs, the first re-quantizing h per (row, 512-wide
+//     chunk) in its epilogue, the second dequantizing per chunk; further
+//     below.
 // gelu is the exact erf form (erff); the reference kernel's A&S polynomial
 // differs from it by at most 1.5e-7 in erf.
-#include <mma.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -446,67 +447,70 @@ static int launch_mlp_gemm(const void* a, const void* b, const void* bias, void*
 
 }  // namespace mlp_tc
 
-// 16-byte asynchronous global->shared copy; `ok == false` zero-fills the
-// destination without reading (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-    const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    const int n = ok ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(saddr), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__host__ __device__ inline size_t align128(size_t b) { return (b + 127) / 128 * 128; }
-
 // ---- int8 variant (K5) ------------------------------------------------------
 //
 // Replaces: reverso_tpu/ops/fused_mlp.py::_fused_mlp_int8_kernel (entry
 // fused_mlp(quant=True), ModelConfig.quant="int8"). x [T, W] (bf16 or fp32)
-// is quantized per row, W1 [Hp, Wp] and W2 [Wn, Hp] arrive quantized per
-// output unit and zero-padded (ops/fused_mlp.py::_kernel_weights), s1/s2
-// are their f32 scales, b1/b2 the dtype-rounded biases in f32.
+// is quantized per row; W1 [H, Wp] and W2 [W, Hp] arrive quantized per
+// output unit with K zero-padded to 16-byte rows (Wp, Hp: W, H rounded up
+// to 16; ops/fused_mlp.py::_kernel_weights pads nothing at any preset's
+// widths); s1/s2 are their f32 scales, b1/b2 the dtype-rounded biases in
+// f32.
+//
+// The contract (ops/fused_mlp.py::mlp_int8_plain): h = act(f32(x8 W1^T) *
+// (xs * s1) + b1), re-quantized per (row, 512-wide hidden chunk); y = the
+// sum over chunks, in chunk order, of f32(h8_c W2_c^T) * (hs_c * s2), then
+// + b2, cast to x's dtype. The s32 products are exact in any order, so the
+// tensor cores may reorder them; every f32 operation is __fmul_rn /
+// __fadd_rn / __fdiv_rn in the reference's order (nvcc would contract a*b+c
+// into one FMA, one rounding fewer, and an ulp at a rounding boundary flips
+// an int8 quantum), and gelu is the reference int8 kernel's Abramowitz &
+// Stegun erf polynomial, not erff.
 //
 // What bounds it on the H100: 4 * T * W * H int8 operations (77.4 G at
 // T = 4616, W = 1024, H = 4096: 0.039 ms at 1979 TOP/s) against 2 * T * W
-// activation elements and 2 * W * H weight bytes: operations.
+// activation elements and 2 * W * H weight bytes: operations, so the rate
+// comes from s8 wgmma.
 //
-// What the design does about it:
-//   * one CTA owns BM = 32 rows (16 for W > 1024): it quantizes its x rows
-//     once into shared memory (per-row amax, `127 / amax` divided once,
-//     round half to even, clamp to +-127) and keeps a [BM, W] fp32
-//     accumulator there (128 KB at W = 1024);
-//   * the hidden dimension streams in 512-wide chunks, the reference's
-//     re-quantization unit: s8 tensor-core products (WMMA 16x16x16, s32
-//     accumulate) of the resident x8 against W1 tiles streaming through a
-//     two-stage cp.async ring give the chunk's exact s32 h; each element is
-//     dequantized as f32(s32) * (xs * s1) + b1, activated, and parked as
-//     fp32 in shared memory (64 KB), so each row's amax over the chunk is
-//     exact before the chunk is re-quantized to int8;
-//   * the second product streams W2 tiles the same way, 128 output columns
-//     at a time; each warp owns one 16-column slice, dequantizes its s32
-//     tile and adds it to the accumulator as acc + f32(s32) * (hs * s2);
-//   * every multiply and add is written __fmul_rn / __fadd_rn: nvcc would
-//     contract a*b+c into one FMA, one rounding fewer than the reference,
-//     and an ulp at a rounding boundary flips an int8 quantum;
-//   * gelu is the Abramowitz & Stegun erf polynomial of the reference's
-//     int8 kernel, not erff (they differ by up to 1.5e-7);
-//   * shared memory is one union for the W1 ring, the fp32 h chunk and
-//     (h8, the W2 ring, the per-warp s32 tiles): 230 KB at BM = 32,
-//     W = 1024, so one CTA per SM. No wgmma, no TMA: a simple kernel.
-constexpr int Q8_CHUNK = 512;            // hidden re-quantization unit
-constexpr int Q8_LDH = Q8_CHUNK + 4;     // fp32 row stride of the h chunk
-constexpr int Q8_BK1 = 64;               // bytes of W per first-product stage
-constexpr int Q8_BN = 128;               // output columns per second-product block
-constexpr int Q8_BK2 = 128;              // hidden bytes per second-product stage
-constexpr int Q8_WARPS = MLP_THREADS / 32;
-constexpr int Q8_STAGE1 = Q8_CHUNK * Q8_BK1;   // bytes
-constexpr int Q8_STAGE2 = Q8_BN * Q8_BK2;      // bytes
+// Three launches on the caller's stream, through scratch the wrapper
+// allocates (x8 [T, Wp] and h8 [T, Hp] int8, xs [T] and hs [T, ceil(H /
+// 512)] f32):
+//   1. q8_quant_rows_kernel: a warp per row quantizes x into x8 (amax,
+//      127 / amax divided once, round half to even, clamp to +-127; the
+//      pad columns zero) and its scale into xs;
+//   2. q8_gemm1_kernel, one CTA per (64 rows, one 512-wide hidden chunk):
+//      the chunk is the re-quantization unit, so one CTA holds every column
+//      a row's amax needs. A producer warp brings 64-row x8 tiles and
+//      512-row W1 tiles (two 256-row boxes), 128 bytes of K each, through
+//      TMA (128-byte swizzle) into a 3-stage mbarrier ring; two consumer
+//      warpgroups, one per 256 columns, share the x8 tile and run wgmma
+//      m64n256k32 s8 x s8 -> s32 (128 s32 registers a thread). After the
+//      last product the s32 tile is parked in the ring's shared memory;
+//      then each warp takes whole rows, two at a time, so a row's amax is
+//      one warp reduction: lane l holds columns 4l + 128g (g < 4;
+//      conflict-free 16-byte shared loads, and each h8 store is a warp's
+//      128 contiguous bytes). Pass 1 dequantizes, adds b1 and activates,
+//      four columns of both rows at a time, writing the fp32 values back in
+//      place; pass 2 quantizes them with the row's 127 / amax into h8, and
+//      lane 0 writes hs. The exact activation is bound by instruction
+//      throughput and runs after the products, one CTA an SM: at
+//      T = 36,928 it is 0.44 of GEMM 1's 1.07 ms (NVIDIA H100 80GB HBM3,
+//      700 W; scripts/mlp_q8_probe.py);
+//   3. q8_gemm2_kernel, one CTA per 128 x BN tile of y: h8 and W2 tiles
+//      through a 6-stage TMA ring, two consumer warpgroups of 64 rows on
+//      wgmma m64nBNk32. After a chunk's last step (4 steps of 128 bytes; a
+//      partial last chunk has fewer) the warpgroup waits for its products
+//      and drains the s32 accumulator into an fp32 one, term = f32(s32) *
+//      (hs * s2), the first chunk's term starting the sum and later ones
+//      added, then resets it; the producer keeps the next stages' loads in
+//      flight across the drain. The epilogue parks the fp32 tile in the
+//      ring's shared memory, adds b2 and stores x's dtype, 8 columns (16
+//      bytes in bf16) a thread.
+// h8 goes through device memory: 2 * T * Hp bytes (37.8 MB at T = 4616,
+// H = 4096: 0.011 ms at 3.35 TB/s). Rows past T, columns past W or H and
+// K past the last whole step read zeros from TMA, so nothing but K's
+// 16-byte row pitch is padded in memory.
+constexpr int Q8_CHUNK = 512;   // hidden re-quantization unit
 
 // the reference's constants, as its Python floats rounded to f32
 constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
@@ -554,294 +558,471 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
-struct Q8Layout {   // byte offsets into dynamic shared memory
-    size_t acc, xq, xs, hs, hinv, u, total;
+// four int8 quanta packed low byte first
+__device__ __forceinline__ unsigned pack_q8(int a, int b, int c, int d) {
+    return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) |
+           (static_cast<unsigned>(d & 0xff) << 24);
+}
+
+namespace mlp_q8 {
+
+using namespace tc;
+
+constexpr int kBK = 128;                        // K bytes a stage: one 128-byte swizzle atom
+constexpr int kStepsPerChunk = Q8_CHUNK / kBK;  // steps of GEMM 2 between drains
+constexpr int kThreads = 2 * kWgThreads + 32;   // two consumer warpgroups, one producer warp
+constexpr int kQuantWarps = 8;                  // rows a block of the x quantizer takes
+
+// GEMM 1: 64 rows x one whole 512-wide chunk
+constexpr int G1_BM = 64;
+constexpr int G1_STAGES = 3;
+constexpr int G1_A_BYTES = G1_BM * kBK;                  // 8 KB
+constexpr int G1_B_BYTES = Q8_CHUNK * kBK;               // 64 KB: two 256-row boxes
+constexpr int G1_RING = G1_STAGES * (G1_A_BYTES + G1_B_BYTES);
+constexpr int G1_SMEM = 1024 + G1_RING + 16 * G1_STAGES;
+constexpr int G1_LDC = Q8_CHUNK + 8;                     // s32 tile row pitch (words)
+static_assert(G1_SMEM <= 232448, "shared memory of a CTA");
+static_assert((G1_BM * G1_LDC + 2 * Q8_CHUNK) * 4 <= G1_RING, "epilogue tiles fit the ring");
+
+// GEMM 2: 128 rows x BN output columns
+template <int BN>
+struct Gemm2Cfg {
+    static constexpr int kBN = BN, kBM = 128, kStages = 6;
+    static constexpr int A_BYTES = kBM * kBK;
+    static constexpr int B_BYTES = BN * kBK;
+    static constexpr int RING = kStages * (A_BYTES + B_BYTES);
+    static constexpr int SMEM = 1024 + RING + 16 * kStages + BN * 4;
+    static constexpr int LDC = BN + 8;                   // fp32 tile row pitch
+    static_assert(SMEM <= 232448, "shared memory of a CTA");
+    static_assert(kBM * LDC * 4 <= RING, "the fp32 tile fits the ring");
+    static_assert(BN % 64 == 0 && BN <= 128, "two accumulator sets a thread");
 };
 
-__host__ __device__ inline Q8Layout q8_layout(int BM, int W) {
-    Q8Layout L;
-    size_t o = 0;
-    L.acc = o;  o += align128((size_t)BM * W * sizeof(float));
-    L.xq = o;   o += align128((size_t)BM * round_up(W, Q8_BK1));
-    L.xs = o;   o += align128(BM * sizeof(float));
-    L.hs = o;   o += align128(BM * sizeof(float));
-    L.hinv = o; o += align128(BM * sizeof(float));
-    // union: the W1 ring | the fp32 h chunk | h8 + the W2 ring + s32 tiles
-    const size_t u1 = 2 * (size_t)Q8_STAGE1;
-    const size_t u2 = (size_t)BM * Q8_LDH * sizeof(float);
-    const size_t u3 = (size_t)BM * Q8_CHUNK + 2 * (size_t)Q8_STAGE2 +
-                      (size_t)Q8_WARPS * BM * 16 * sizeof(int);
-    L.u = o;    o += align128(u1 > u2 ? (u1 > u3 ? u1 : u3) : (u2 > u3 ? u2 : u3));
-    L.total = o;
-    return L;
+template <typename T>
+__global__ void __launch_bounds__(kQuantWarps * 32)
+q8_quant_rows_kernel(const T* __restrict__ x, signed char* __restrict__ x8,
+                     float* __restrict__ xs, int rows, int W, int Wp) {
+    const int r = blockIdx.x * kQuantWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (r >= rows) return;
+    const T* xr = x + (size_t)r * W;
+    float amax = 0.f;
+    for (int c = lane; c < W; c += 32) amax = fmaxf(amax, fabsf(to_f<T>(xr[c])));
+    amax = fmaxf(warp_max(amax), 1e-30f);
+    const float inv = __fdiv_rn(127.f, amax);
+    if (lane == 0) xs[r] = __fmul_rn(amax, kInv127);
+    unsigned* out = reinterpret_cast<unsigned*>(x8 + (size_t)r * Wp);
+    for (int g = lane; g < Wp / 4; g += 32) {
+        int q[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int c = 4 * g + e;
+            q[e] = c < W ? quant8(to_f<T>(xr[c]), inv) : 0;
+        }
+        out[g] = pack_q8(q[0], q[1], q[2], q[3]);
+    }
 }
 
-// W1[c0 : c0+CHUNK, k0 : k0+BK1] -> one stage, [BK1/16][CHUNK][16 B]
-__device__ __forceinline__ void q8_load_w1(signed char* st, const signed char* w1,
-                                           int c0, int k0, int Wp, int tid) {
-    for (int v = tid; v < Q8_CHUNK * (Q8_BK1 / 16); v += MLP_THREADS) {
-        const int n = v / (Q8_BK1 / 16), kc = v % (Q8_BK1 / 16);
-        cp_async16(st + ((size_t)kc * Q8_CHUNK + n) * 16,
-                   w1 + (size_t)(c0 + n) * Wp + k0 + kc * 16, true);
-    }
-    cp_async_commit();
-}
+__global__ void __launch_bounds__(kThreads, 1)
+q8_gemm1_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ xs, const float* __restrict__ s1,
+                const float* __restrict__ b1, signed char* __restrict__ h8,
+                float* __restrict__ hs, int rows, int Wp, int H, int Hp, int act) {
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* base = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint8_t* as = base;                            // [STAGES][64][128] int8, swizzled
+    uint8_t* bs = as + G1_STAGES * G1_A_BYTES;     // [STAGES][512][128]
+    uint64_t* full = reinterpret_cast<uint64_t*>(bs + G1_STAGES * G1_B_BYTES);
+    uint64_t* empty = full + G1_STAGES;            // the consumers' 8 warps are done
 
-// W2[n0 : n0+BN, h0 : h0+BK2] -> one stage, [BK2/16][BN][16 B]
-__device__ __forceinline__ void q8_load_w2(signed char* st, const signed char* w2,
-                                           int n0, int h0, int Hp, int tid) {
-    for (int v = tid; v < Q8_BN * (Q8_BK2 / 16); v += MLP_THREADS) {
-        const int n = v / (Q8_BK2 / 16), kc = v % (Q8_BK2 / 16);
-        cp_async16(st + ((size_t)kc * Q8_BN + n) * 16,
-                   w2 + (size_t)(n0 + n) * Hp + h0 + kc * 16, true);
-    }
-    cp_async_commit();
-}
+    const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+    const int chunk = blockIdx.x, c0 = chunk * Q8_CHUNK, m0 = blockIdx.y * G1_BM;
+    const int n_k = ceil_div(Wp, kBK);
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(MLP_THREADS)
-fused_mlp_int8_kernel(const T* __restrict__ x, const signed char* __restrict__ w1,
-                      const float* __restrict__ s1, const float* __restrict__ b1,
-                      const signed char* __restrict__ w2, const float* __restrict__ s2,
-                      const float* __restrict__ b2, T* __restrict__ out, int T_rows,
-                      int W, int H, int act) {
-    using namespace nvcuda;
-    constexpr int RF = BM / 16;                                // row fragments
-    constexpr int NG = BM * Q8_CHUNK / 4 / MLP_THREADS;        // 4-byte groups per thread
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const Q8Layout L = q8_layout(BM, W);
-    const int Wp = round_up(W, Q8_BK1), Hp = round_up(H, Q8_CHUNK), Wn = round_up(W, Q8_BN);
-    float* acc = reinterpret_cast<float*>(smem_raw + L.acc);               // [BM][W]
-    signed char* xq = reinterpret_cast<signed char*>(smem_raw + L.xq);     // [Wp/16][BM][16]
-    float* xs = reinterpret_cast<float*>(smem_raw + L.xs);
-    float* hs = reinterpret_cast<float*>(smem_raw + L.hs);
-    float* hinv = reinterpret_cast<float*>(smem_raw + L.hinv);
-    unsigned char* u = smem_raw + L.u;
-    signed char* w1st = reinterpret_cast<signed char*>(u);                 // 2 W1 stages
-    int* h32 = reinterpret_cast<int*>(u);                                  // [BM][LDH]
-    float* hf = reinterpret_cast<float*>(u);                               // [BM][LDH]
-    signed char* hq = reinterpret_cast<signed char*>(u);                   // [CHUNK/16][BM][16]
-    signed char* w2st = hq + BM * Q8_CHUNK;                                // 2 W2 stages
-    int* ytile = reinterpret_cast<int*>(w2st + 2 * Q8_STAGE2);             // [warps][BM][16]
-
-    const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
-    const int row0 = blockIdx.x * BM;
-
-    for (int idx = tid; idx < BM * W; idx += MLP_THREADS) acc[idx] = 0.f;
-    // x rows -> int8, one warp per row
-    for (int r = warp; r < BM; r += Q8_WARPS) {
-        const int gr = row0 + r;
-        const T* xr = x + (size_t)gr * W;
-        float amax = 0.f;
-        if (gr < T_rows)
-            for (int c = lane; c < W; c += 32) amax = fmaxf(amax, fabsf(to_f<T>(xr[c])));
-        amax = fmaxf(warp_max(amax), 1e-30f);
-        const float inv = __fdiv_rn(127.f, amax);
-        if (lane == 0) xs[r] = __fmul_rn(amax, kInv127);
-        for (int c = lane; c < Wp; c += 32) {
-            const float v = (gr < T_rows && c < W) ? to_f<T>(xr[c]) : 0.f;
-            xq[((c / 16) * BM + r) * 16 + c % 16] = static_cast<signed char>(quant8(v, inv));
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < G1_STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);
         }
-    }
-
-    const int nK1 = Wp / Q8_BK1;
-    const int nK2 = Q8_CHUNK / Q8_BK2;
-    const int steps2 = (Wn / Q8_BN) * nK2;
-    for (int c0 = 0; c0 < Hp; c0 += Q8_CHUNK) {
-        // ---- h32 = x8 @ W1[c0:c0+CHUNK]^T: warp w owns hidden columns w*64.. ---
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> hfr[RF][4];
-#pragma unroll
-        for (int fr = 0; fr < RF; ++fr)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) wmma::fill_fragment(hfr[fr][j], 0);
-        __syncthreads();   // x8 written; the last chunk is done with the union
-        q8_load_w1(w1st, w1, c0, 0, Wp, tid);
-        for (int s = 0; s < nK1; ++s) {
-            if (s + 1 < nK1) {
-                q8_load_w1(w1st + ((s + 1) & 1) * Q8_STAGE1, w1, c0, (s + 1) * Q8_BK1, Wp, tid);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();
-            const signed char* st = w1st + (s & 1) * Q8_STAGE1;
-#pragma unroll
-            for (int kc = 0; kc < Q8_BK1 / 16; ++kc) {
-                const int gkc = s * (Q8_BK1 / 16) + kc;
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> afr[RF];
-#pragma unroll
-                for (int fr = 0; fr < RF; ++fr)
-                    wmma::load_matrix_sync(afr[fr], xq + ((size_t)gkc * BM + fr * 16) * 16, 16);
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bfr;
-                    wmma::load_matrix_sync(
-                        bfr, st + ((size_t)kc * Q8_CHUNK + (warp * 4 + j) * 16) * 16, 16);
-#pragma unroll
-                    for (int fr = 0; fr < RF; ++fr)
-                        wmma::mma_sync(hfr[fr][j], afr[fr], bfr, hfr[fr][j]);
-                }
-            }
-            __syncthreads();   // this stage is refilled two steps later
-        }
-#pragma unroll
-        for (int fr = 0; fr < RF; ++fr)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                wmma::store_matrix_sync(h32 + fr * 16 * Q8_LDH + (warp * 4 + j) * 16,
-                                        hfr[fr][j], Q8_LDH, wmma::mem_row_major);
-        __syncthreads();
-        // ---- dequantize, bias, activation, in place as fp32 -------------------
-        for (int idx = tid; idx < BM * Q8_CHUNK; idx += MLP_THREADS) {
-            const int r = idx / Q8_CHUNK, c = idx % Q8_CHUNK, gc = c0 + c;
-            const int o = r * Q8_LDH + c;
-            float v = 0.f;
-            if (gc < H) {
-                v = __fmul_rn(__int2float_rn(h32[o]), __fmul_rn(xs[r], s1[gc]));
-                v = q8_act(__fadd_rn(v, b1[gc]), act);
-            }
-            hf[o] = v;
-        }
-        __syncthreads();
-        // ---- each row's amax over the chunk -> its scale and inverse ----------
-        for (int r = warp; r < BM; r += Q8_WARPS) {
-            float m = 0.f;
-            for (int c = lane; c < Q8_CHUNK; c += 32) m = fmaxf(m, fabsf(hf[r * Q8_LDH + c]));
-            m = fmaxf(warp_max(m), 1e-30f);
-            if (lane == 0) {
-                hs[r] = __fmul_rn(m, kInv127);
-                hinv[r] = __fdiv_rn(127.f, m);
-            }
-        }
-        __syncthreads();
-        // ---- h -> int8 in registers, then over the fp32 chunk as h8 ----------
-        unsigned packed[NG];
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-            const int e = (tid + g * MLP_THREADS) * 4;
-            const int r = e / Q8_CHUNK, c = e % Q8_CHUNK;
-            const float4 v = *reinterpret_cast<const float4*>(hf + r * Q8_LDH + c);
-            const float inv = hinv[r];
-            packed[g] = (quant8(v.x, inv) & 0xff) | ((quant8(v.y, inv) & 0xff) << 8) |
-                        ((quant8(v.z, inv) & 0xff) << 16) |
-                        (static_cast<unsigned>(quant8(v.w, inv) & 0xff) << 24);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-            const int e = (tid + g * MLP_THREADS) * 4;
-            const int r = e / Q8_CHUNK, c = e % Q8_CHUNK;
-            *reinterpret_cast<unsigned*>(hq + ((c / 16) * BM + r) * 16 + c % 16) = packed[g];
-        }
-        // ---- acc += dequant(h8 @ W2[:, c0:c0+CHUNK]^T): warp w owns columns
-        //      w*16.. of each 128-wide block ---------------------------------
-        q8_load_w2(w2st, w2, 0, c0, Hp, tid);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> yfr[RF];
-        int* yt = ytile + warp * BM * 16;
-        for (int g = 0; g < steps2; ++g) {
-            const int nb = g / nK2, ks = g % nK2;
-            if (ks == 0) {
-#pragma unroll
-                for (int fr = 0; fr < RF; ++fr) wmma::fill_fragment(yfr[fr], 0);
-            }
-            if (g + 1 < steps2) {
-                const int nb1 = (g + 1) / nK2, ks1 = (g + 1) % nK2;
-                q8_load_w2(w2st + ((g + 1) & 1) * Q8_STAGE2, w2, nb1 * Q8_BN,
-                           c0 + ks1 * Q8_BK2, Hp, tid);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();   // the stage landed; h8 complete
-            const signed char* st = w2st + (g & 1) * Q8_STAGE2;
-#pragma unroll
-            for (int kc = 0; kc < Q8_BK2 / 16; ++kc) {
-                const int gkc = ks * (Q8_BK2 / 16) + kc;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bfr;
-                wmma::load_matrix_sync(bfr, st + ((size_t)kc * Q8_BN + warp * 16) * 16, 16);
-#pragma unroll
-                for (int fr = 0; fr < RF; ++fr) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> afr;
-                    wmma::load_matrix_sync(afr, hq + ((size_t)gkc * BM + fr * 16) * 16, 16);
-                    wmma::mma_sync(yfr[fr], afr, bfr, yfr[fr]);
-                }
-            }
-            if (ks == nK2 - 1) {
-#pragma unroll
-                for (int fr = 0; fr < RF; ++fr)
-                    wmma::store_matrix_sync(yt + fr * 16 * 16, yfr[fr], 16, wmma::mem_row_major);
-                __syncwarp();
-                const int n0 = nb * Q8_BN + warp * 16;
-                for (int e = lane; e < BM * 16; e += 32) {
-                    const int r = e / 16, n = n0 + e % 16;
-                    if (n < W) {
-                        float* a = acc + (size_t)r * W + n;
-                        *a = __fadd_rn(*a, __fmul_rn(__int2float_rn(yt[e]), __fmul_rn(hs[r], s2[n])));
-                    }
-                }
-                __syncwarp();
-            }
-            __syncthreads();   // this stage is refilled two steps later
-        }
+        fence_barrier_init();
     }
     __syncthreads();
-    for (int idx = tid; idx < BM * W; idx += MLP_THREADS) {
-        const int r = idx / W, n = idx % W;
-        const int gr = row0 + r;
-        if (gr < T_rows) out[(size_t)gr * W + n] = from_f<T>(__fadd_rn(acc[idx], b2[n]));
+
+    if (wg == 2) {
+        // ---- producer warp: lane 0 keeps the ring full ----
+        if (tid == 0) {
+            for (int j = 0; j < n_k; ++j) {
+                const int s = j % G1_STAGES;
+                mbar_wait(&empty[s], ((j / G1_STAGES) & 1) ^ 1);
+                mbar_expect_tx(&full[s], G1_A_BYTES + G1_B_BYTES);
+                uint8_t* b = bs + s * G1_B_BYTES;
+                tma_load_2d(as + s * G1_A_BYTES, &xmap, &full[s], j * kBK, m0);
+                tma_load_2d(b, &wmap, &full[s], j * kBK, c0);
+                tma_load_2d(b + G1_B_BYTES / 2, &wmap, &full[s], j * kBK, c0 + Q8_CHUNK / 2);
+            }
+        }
+        return;
+    }
+
+    // ---- consumer warpgroup wg: columns c0 + 256 wg .. + 256 of all 64 rows ----
+    const int warp = tid / 32, lane = tid % 32;
+    int acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    const uint32_t a0 = smem_addr(as);
+    const uint32_t b0 = smem_addr(bs) + wg * (G1_B_BYTES / 2);
+    for (int j = 0; j < n_k; ++j) {
+        const int s = j % G1_STAGES;
+        mbar_wait(&full[s], (j / G1_STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk)   // k32 steps: 32 bytes into the swizzled rows
+            WgmmaSS8<256>::run(acc, gmma_desc(a0 + s * G1_A_BYTES + kk * 32, 16, 1024, 1),
+                               gmma_desc(b0 + s * G1_B_BYTES + kk * 32, 16, 1024, 1), 1);
+        wgmma_commit();
+        wgmma_wait<1>();   // step j - 1's products are done: release its stage
+        if (j > 0) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[(j - 1) % G1_STAGES]);
+        }
+    }
+    wgmma_wait<0>();
+    fence_operand(acc);
+
+    // ---- epilogue ----
+    // (1) both consumer warpgroups are done with the ring (every stage was
+    // loaded and consumed): it takes the s32 tile [64][LDC] (the pad keeps
+    // a warp's fragment stores off shared bank conflicts) and the chunk's
+    // s1 and b1
+    int* ct = reinterpret_cast<int*>(base);
+    float* s1c = reinterpret_cast<float*>(ct + G1_BM * G1_LDC);
+    float* b1c = s1c + Q8_CHUNK;
+    named_bar_sync(1, 2 * kWgThreads);
+    {
+        const int r = warp * 16 + lane / 4, cb = wg * (Q8_CHUNK / 2) + 2 * (lane % 4);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            *reinterpret_cast<int2*>(ct + r * G1_LDC + cb + 8 * i) = make_int2(acc[4 * i], acc[4 * i + 1]);
+            *reinterpret_cast<int2*>(ct + (r + 8) * G1_LDC + cb + 8 * i) =
+                make_int2(acc[4 * i + 2], acc[4 * i + 3]);
+        }
+        for (int c = wg * kWgThreads + tid; c < Q8_CHUNK; c += 2 * kWgThreads) {
+            const bool in = c0 + c < H;
+            s1c[c] = in ? s1[c0 + c] : 0.f;
+            b1c[c] = in ? b1[c0 + c] : 0.f;
+        }
+    }
+    named_bar_sync(1, 2 * kWgThreads);
+    // (2) warp cw takes the row pairs (cw + 16i, cw + 16i + 8); lane l holds
+    // columns 4l + 128g of both, so each step of the column loop has eight
+    // independent activations
+    const int cw = threadIdx.x / 32;
+    const int n_chunks = ceil_div(H, Q8_CHUNK);
+#pragma unroll 1
+    for (int r = cw; r < G1_BM && m0 + r < rows; r += 16) {
+        const int rr[2] = {r, r + 8};
+        const bool second = m0 + r + 8 < rows;
+        const float xsr[2] = {xs[m0 + r], second ? xs[m0 + r + 8] : 0.f};
+        float amax[2] = {0.f, 0.f};
+#pragma unroll 1
+        for (int g = 0; g < 4; ++g) {   // pass 1: dequantize, bias, activation, in place
+            const int c = 128 * g + 4 * lane;
+            const float4 sc = *reinterpret_cast<const float4*>(s1c + c);
+            const float4 bi = *reinterpret_cast<const float4*>(b1c + c);
+            const float sv[4] = {sc.x, sc.y, sc.z, sc.w}, bv[4] = {bi.x, bi.y, bi.z, bi.w};
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                int* cell = ct + rr[k] * G1_LDC + c;
+                const int4 q = *reinterpret_cast<const int4*>(cell);
+                const int qv[4] = {q.x, q.y, q.z, q.w};
+                float v[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    v[e] = 0.f;
+                    if (c0 + c + e < H)
+                        v[e] = q8_act(__fadd_rn(__fmul_rn(__int2float_rn(qv[e]),
+                                                          __fmul_rn(xsr[k], sv[e])),
+                                                bv[e]), act);
+                    amax[k] = fmaxf(amax[k], fabsf(v[e]));
+                }
+                *reinterpret_cast<float4*>(cell) = make_float4(v[0], v[1], v[2], v[3]);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            if (k == 1 && !second) break;
+            const float m = fmaxf(warp_max(amax[k]), 1e-30f);
+            const float inv = __fdiv_rn(127.f, m);
+            const int row = m0 + rr[k];
+            if (lane == 0) hs[(size_t)row * n_chunks + chunk] = __fmul_rn(m, kInv127);
+            signed char* hrow = h8 + (size_t)row * Hp + c0;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {   // pass 2: the lane's own values, quantized
+                const int c = 128 * g + 4 * lane;
+                if (c0 + c >= Hp) break;   // Hp % 16 == 0: a group of 4 is in or out whole
+                const float4 v = *reinterpret_cast<const float4*>(ct + rr[k] * G1_LDC + c);
+                *reinterpret_cast<unsigned*>(hrow + c) =
+                    pack_q8(quant8(v.x, inv), quant8(v.y, inv), quant8(v.z, inv), quant8(v.w, inv));
+            }
+        }
     }
 }
 
-template <typename T, int BM>
-static int launch_fused_mlp_int8(const void* x, const void* w1, const void* s1,
-                                 const void* b1, const void* w2, const void* s2,
-                                 const void* b2, void* out, int T_rows, int W, int H,
-                                 int act, cudaStream_t stream) {
-    const size_t smem = q8_layout(BM, W).total;
-    cudaError_t err = cudaFuncSetAttribute(fused_mlp_int8_kernel<T, BM>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+// 8 fp32 values of one output row -> T at y (16-byte aligned when `vec`)
+__device__ __forceinline__ void store8(__nv_bfloat16* y, const float (&v)[8], int n, bool vec) {
+    if (vec) {
+        uint4 out;
+        out.x = pack_bf16(v[0], v[1]);
+        out.y = pack_bf16(v[2], v[3]);
+        out.z = pack_bf16(v[4], v[5]);
+        out.w = pack_bf16(v[6], v[7]);
+        *reinterpret_cast<uint4*>(y) = out;
+        return;
+    }
+    for (int e = 0; e < 8 && e < n; ++e) y[e] = from_f<__nv_bfloat16>(v[e]);
+}
+__device__ __forceinline__ void store8(float* y, const float (&v)[8], int n, bool vec) {
+    if (vec) {
+        *reinterpret_cast<float4*>(y) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(y + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        return;
+    }
+    for (int e = 0; e < 8 && e < n; ++e) y[e] = v[e];
+}
+
+template <typename T, class Cfg>
+__global__ void __launch_bounds__(kThreads, 1)
+q8_gemm2_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ hs, const float* __restrict__ s2,
+                const float* __restrict__ b2, T* __restrict__ y, int rows, int W, int H,
+                int Hp) {
+    constexpr int BN = Cfg::kBN, BM = Cfg::kBM, STAGES = Cfg::kStages;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* base = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint8_t* as = base;                           // [STAGES][128][128] int8, swizzled
+    uint8_t* bs = as + STAGES * Cfg::A_BYTES;     // [STAGES][BN][128]
+    uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * Cfg::B_BYTES);
+    uint64_t* empty = full + STAGES;
+    float* s2t = reinterpret_cast<float*>(empty + STAGES);   // [BN]
+
+    const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+    const int n_k = ceil_div(Hp, kBK);
+    const int n_chunks = ceil_div(H, Q8_CHUNK);
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);
+        }
+        fence_barrier_init();
+    }
+    for (int i = threadIdx.x; i < BN; i += kThreads) s2t[i] = n0 + i < W ? s2[n0 + i] : 0.f;
+    __syncthreads();
+
+    if (wg == 2) {
+        if (tid == 0) {
+            for (int j = 0; j < n_k; ++j) {
+                const int s = j % STAGES;
+                mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+                mbar_expect_tx(&full[s], Cfg::A_BYTES + Cfg::B_BYTES);
+                tma_load_2d(as + s * Cfg::A_BYTES, &hmap, &full[s], j * kBK, m0);
+                tma_load_2d(bs + s * Cfg::B_BYTES, &wmap, &full[s], j * kBK, n0);
+            }
+        }
+        return;
+    }
+
+    // ---- consumer warpgroup: rows m0 + 64 wg .. + 64 ----
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;   // the fragment's rows r0, r0 + 8
+    const int cq = 2 * (lane % 4);                        // and columns 8i + cq, + 1
+    int acc[BN / 2];
+    float facc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+        acc[i] = 0;
+        facc[i] = 0.f;
+    }
+    const uint32_t a0 = smem_addr(as) + wg * 64 * kBK;
+    const uint32_t b0 = smem_addr(bs);
+    for (int j = 0; j < n_k; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&full[s], (j / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk)
+            WgmmaSS8<BN>::run(acc, gmma_desc(a0 + s * Cfg::A_BYTES + kk * 32, 16, 1024, 1),
+                              gmma_desc(b0 + s * Cfg::B_BYTES + kk * 32, 16, 1024, 1), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (j > 0) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[(j - 1) % STAGES]);
+        }
+        if ((j + 1) % kStepsPerChunk == 0 || j + 1 == n_k) {
+            // the chunk's products are all in: drain them into the fp32 sum
+            wgmma_wait<0>();
+            fence_operand(acc);
+            const int c = j / kStepsPerChunk;
+            const float h0 = r0 < rows ? hs[(size_t)r0 * n_chunks + c] : 0.f;
+            const float h1 = r0 + 8 < rows ? hs[(size_t)(r0 + 8) * n_chunks + c] : 0.f;
+#pragma unroll
+            for (int i = 0; i < BN / 8; ++i) {
+                const float2 sc = *reinterpret_cast<const float2*>(s2t + 8 * i + cq);
+                const float scale[4] = {__fmul_rn(h0, sc.x), __fmul_rn(h0, sc.y),
+                                        __fmul_rn(h1, sc.x), __fmul_rn(h1, sc.y)};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float term = __fmul_rn(__int2float_rn(acc[4 * i + e]), scale[e]);
+                    facc[4 * i + e] = c == 0 ? term : __fadd_rn(facc[4 * i + e], term);
+                    acc[4 * i + e] = 0;
+                }
+            }
+        }
+    }
+
+    // ---- epilogue: the fp32 tile through the ring's shared memory ----
+    constexpr int LDC = Cfg::LDC;
+    float* ct = reinterpret_cast<float*>(base);
+    named_bar_sync(1, 2 * kWgThreads);
+    {
+        const int r = wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+            *reinterpret_cast<float2*>(ct + r * LDC + 8 * i + cq) = make_float2(facc[4 * i], facc[4 * i + 1]);
+            *reinterpret_cast<float2*>(ct + (r + 8) * LDC + 8 * i + cq) =
+                make_float2(facc[4 * i + 2], facc[4 * i + 3]);
+        }
+    }
+    named_bar_sync(1, 2 * kWgThreads);
+    // each thread takes 8 adjacent columns of a row: + b2, x's dtype
+    constexpr int TPR = BN / 8;                  // threads per row
+    constexpr int ROWS = 2 * kWgThreads / TPR;   // rows per pass
+    const int ctid = wg * kWgThreads + tid;
+    const int c8 = (ctid % TPR) * 8, col = n0 + c8;
+    if (col >= W) return;
+    const bool vec = W % 8 == 0;   // 16-byte stores (y is 16-byte aligned)
+    float bv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) bv[e] = col + e < W ? b2[col + e] : 0.f;
+#pragma unroll 2
+    for (int r = ctid / TPR; r < BM && m0 + r < rows; r += ROWS) {
+        const float4 lo = *reinterpret_cast<const float4*>(ct + r * LDC + c8);
+        const float4 hi = *reinterpret_cast<const float4*>(ct + r * LDC + c8 + 4);
+        float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(v[e], bv[e]);
+        store8(y + (size_t)(m0 + r) * W + col, v, W - col, vec);
+    }
+}
+
+// a 2-D int8 map over [rows][cols] (cols contiguous, cols % 16 == 0), box
+// [box_rows][128 bytes], 128-byte swizzle as the wgmma descriptors read
+// it; out-of-bounds elements read zero
+static bool make_map_s8(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows) {
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols};
+    const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, class Cfg>
+static int launch_gemm2(const void* h8, const void* w2, const void* hs, const void* s2,
+                        const void* b2, void* y, int rows, int W, int H, int Hp,
+                        cudaStream_t stream) {
+    CUtensorMap hm, wm;
+    if (!make_map_s8(&hm, h8, Hp, rows, Cfg::kBM) || !make_map_s8(&wm, w2, Hp, W, Cfg::kBN))
+        return kMapError;
+    auto kernel = q8_gemm2_kernel<T, Cfg>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
     if (err != cudaSuccess) return (int)err;
-    fused_mlp_int8_kernel<T, BM><<<ceil_div(T_rows, BM), MLP_THREADS, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const signed char*>(w1),
-        static_cast<const float*>(s1), static_cast<const float*>(b1),
-        static_cast<const signed char*>(w2), static_cast<const float*>(s2),
-        static_cast<const float*>(b2), static_cast<T*>(out), T_rows, W, H, act);
+    dim3 grid(ceil_div(W, Cfg::kBN), ceil_div(rows, Cfg::kBM));
+    kernel<<<grid, kThreads, Cfg::SMEM, stream>>>(
+        hm, wm, static_cast<const float*>(hs), static_cast<const float*>(s2),
+        static_cast<const float*>(b2), static_cast<T*>(y), rows, W, H, Hp);
     return (int)cudaGetLastError();
 }
 
+// GEMM 2's tile: 128 x 128 where those tiles fill the SMs, else 128 x 64
+// (a single image's T = 577 at W = 1024 has 40 wide tiles, 80 narrow ones)
+using Gemm2Wide = Gemm2Cfg<128>;
+using Gemm2Narrow = Gemm2Cfg<64>;
+
 template <typename T>
-static int dispatch_int8(const void* x, const void* w1, const void* s1, const void* b1,
-                         const void* w2, const void* s2, const void* b2, void* out,
-                         int T_rows, int W, int H, int act, cudaStream_t stream) {
-    constexpr size_t kMaxSmem = 232448;
-    if (q8_layout(32, W).total <= kMaxSmem)
-        return launch_fused_mlp_int8<T, 32>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W, H,
-                                            act, stream);
-    if (q8_layout(16, W).total <= kMaxSmem)
-        return launch_fused_mlp_int8<T, 16>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W, H,
-                                            act, stream);
-    return kUnsupported;
+static int launch_int8_mlp(const void* x, const void* w1, const void* s1, const void* b1,
+                           const void* w2, const void* s2, const void* b2, void* x8, void* xs,
+                           void* h8, void* hs, void* y, int rows, int W, int H, int act,
+                           cudaStream_t stream) {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int Wp = round_up(W, 16), Hp = round_up(H, 16);
+    q8_quant_rows_kernel<T><<<ceil_div(rows, kQuantWarps), kQuantWarps * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<signed char*>(x8), static_cast<float*>(xs), rows, W,
+        Wp);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    CUtensorMap xm, wm;
+    if (!make_map_s8(&xm, x8, Wp, rows, G1_BM) || !make_map_s8(&wm, w1, Wp, H, Q8_CHUNK / 2))
+        return kMapError;
+    err = cudaFuncSetAttribute(q8_gemm1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G1_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    q8_gemm1_kernel<<<dim3(ceil_div(H, Q8_CHUNK), ceil_div(rows, G1_BM)), kThreads, G1_SMEM,
+                      stream>>>(xm, wm, static_cast<const float*>(xs),
+                                static_cast<const float*>(s1), static_cast<const float*>(b1),
+                                static_cast<signed char*>(h8), static_cast<float*>(hs), rows, Wp,
+                                H, Hp, act);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    const long long wide_tiles = (long long)ceil_div(W, Gemm2Wide::kBN) * ceil_div(rows, 128);
+    if (wide_tiles >= sms)
+        return launch_gemm2<T, Gemm2Wide>(h8, w2, hs, s2, b2, y, rows, W, H, Hp, stream);
+    return launch_gemm2<T, Gemm2Narrow>(h8, w2, hs, s2, b2, y, rows, W, H, Hp, stream);
 }
+
+}  // namespace mlp_q8
 
 }  // namespace rv
 
+// x [T, W] bf16 or fp32; w1 [H, Wp], w2 [W, Hp] int8 (Wp, Hp: W, H rounded
+// up to 16, zero pad), 16-byte aligned; s1, b1 [H], s2, b2 [W] f32; scratch
+// of the caller's, 16-byte aligned: x8 [T, Wp] and h8 [T, Hp] int8, xs [T]
+// and hs [T, ceil(H / 512)] f32; out [T, W] in x's dtype, 16-byte aligned
 extern "C" int rv_fused_mlp_int8(const void* x, const void* w1, const void* s1,
                                  const void* b1, const void* w2, const void* s2,
-                                 const void* b2, void* out, int T_rows, int W, int H,
-                                 int act, int dtype, void* stream) {
+                                 const void* b2, void* x8, void* xs, void* h8, void* hs,
+                                 void* out, int T_rows, int W, int H, int act, int dtype,
+                                 void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (act != rv::kGelu && act != rv::kQuickGelu) return rv::kUnsupported;
-    // the padded weights' rows start on 16-byte boundaries only from aligned bases
-    if (reinterpret_cast<uintptr_t>(w1) % 16 != 0 || reinterpret_cast<uintptr_t>(w2) % 16 != 0)
-        return rv::kUnsupported;
+    if (T_rows <= 0 || W <= 0 || H <= 0) return rv::kUnsupported;
+    const uintptr_t align = reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2) |
+                            reinterpret_cast<uintptr_t>(x8) | reinterpret_cast<uintptr_t>(h8) |
+                            reinterpret_cast<uintptr_t>(out);
+    if (align % 16 != 0) return rv::kUnsupported;   // TMA and 16-byte stores
     if (dtype == rv::kBFloat16)
-        return rv::dispatch_int8<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W,
-                                                H, act, st);
+        return rv::mlp_q8::launch_int8_mlp<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, x8, xs, h8,
+                                                          hs, out, T_rows, W, H, act, st);
     if (dtype == rv::kFloat32)
-        return rv::dispatch_int8<float>(x, w1, s1, b1, w2, s2, b2, out, T_rows, W, H, act,
-                                        st);
+        return rv::mlp_q8::launch_int8_mlp<float>(x, w1, s1, b1, w2, s2, b2, x8, xs, h8, hs, out,
+                                                  T_rows, W, H, act, st);
     return rv::kUnsupported;
 }
 

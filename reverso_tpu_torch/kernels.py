@@ -14,6 +14,7 @@ nor a compiler.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import os
@@ -46,8 +47,8 @@ _SIGNATURES = {
     "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w1, b1, w2, b2, h, out, T, W, H, act, stream
     "rv_fused_mlp_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w1, s1, b1, w2, s2, b2, out, T, W, H, act, dtype, stream
-    "rv_fused_mlp_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w1, s1, b1, w2, s2, b2, x8, xs, h8, hs, out, T, W, H, act, dtype, stream
+    "rv_fused_mlp_int8": [_P] * 12 + [_I] * 5 + [_P],
     # db, q, q_scale, row_scale, D, Q, n_valid, k, n_splits, part_s, part_i,
     # out_s, out_i, stream
     "rv_topk_int8_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -88,6 +89,12 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
             "fused_mlp_int8": 0, "topk_int8_rows": 0, "flash_heads_tc": 0,
             "flash_attn_tc": 0, "flash_attn_relbias_tc": 0, "fused_mlp_tc": 0}
+# Launches per (kernel, shape) of the kernels whose time depends most on the
+# call's shape, so that a run can weigh each launch at the shape it ran
+# at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("ms_deform", (B, Lq,
+# level shapes, H, D, P, dtype)): n}. Counted beside `launches`, which
+# stays the per-kernel count.
+shape_launches: collections.Counter = collections.Counter()
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the
 # top-k kernel's cap; int8 k above the cap or d above the exactness bound
 # (1040); binary k above the cap; an IVF fetch (2k under spill) above it.
@@ -99,6 +106,7 @@ def reset_counts() -> None:
     for d in (launches, plain_dispatches):
         for key in d:
             d[key] = 0
+    shape_launches.clear()
 
 
 def sources() -> list[str]:

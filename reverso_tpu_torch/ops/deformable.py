@@ -14,8 +14,9 @@ align_corners=False)` semantics. Coordinates and the weighted sum are
 fp32 whatever the value dtype: bf16 normalized coordinates would move
 sampling points by ~0.5 px at a 100-wide level.
 
-`ms_deform_attn` launches `csrc/ms_deform.cu` on a CUDA tensor and runs
-`ms_deform_attn_ref` on a CPU tensor.
+`ms_deform_attn` launches `csrc/ms_deform.cu` on a CUDA tensor (a warp per
+(b, q, h), vector corner loads) and runs `ms_deform_attn_ref` on a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -117,4 +118,6 @@ def ms_deform_attn(value: torch.Tensor,
             kernels.DTYPE_CODES[value.dtype], kernels.stream_ptr(value.device))
     kernels.check("ms_deform_attn", status)
     kernels.launches["ms_deform"] += 1
+    kernels.shape_launches[("ms_deform", (b, lq, tuple(shapes), h, d, n_points,
+                                          str(value.dtype)))] += 1
     return out

@@ -20,7 +20,8 @@ the function, not a tiling choice. The order of the arithmetic is
 polynomial here, as in the JAX package's int8 kernel: one ulp at a
 rounding boundary flips an int8 quantum. `mlp_int8_ref` spells that out;
 `fused_mlp_int8` takes weights quantized once (`quantize_mlp_weights`)
-and launches the int8 kernel on a CUDA tensor.
+and on a CUDA tensor launches the int8 kernels (a row quantizer, then two
+s8 wgmma + TMA GEMMs through int8 scratch of the call's shape).
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ from .quant import int_dot, quantize_rows_int8, quantize_weight_int8
 ACT_CODES = {"gelu": 0, "quick_gelu": 1}
 # the int8 mode's hidden re-quantization unit (the JAX kernel's hidden_tile)
 HIDDEN_CHUNK = 512
-# padding units of the int8 kernel's weights (csrc/fused_mlp.cu Q8_*)
-_Q8_BK1, _Q8_BN = 64, 128
+# the int8 kernel's row pitch unit in bytes (TMA's 16-byte row strides)
+_Q8_PITCH = 16
 
 
 def _act(h: torch.Tensor, act: str) -> torch.Tensor:
@@ -209,16 +210,15 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _kernel_weights(qw: Int8MLPWeights):
-    """The int8 kernel's weight layout: W1 [Hp, Wp] and W2 [Wn, Hp] with
-    zero padding to whole 512-wide hidden chunks, 64-byte reduction steps
-    and 128-wide output blocks (pad units compute zeros)."""
+    """The int8 kernel's weight layout: W1 [H, Wp] and W2 [W, Hp], K
+    zero-padded to whole 16-byte rows (Wp, Hp: W, H rounded up to 16), so
+    that TMA can read them; the pad computes zeros. Every preset's widths
+    are multiples of 16, so there this returns the weights themselves."""
     hid, width = qw.w1.shape
-    hp, wp, wn = (_round_up(hid, HIDDEN_CHUNK), _round_up(width, _Q8_BK1),
-                  _round_up(width, _Q8_BN))
-    pad = lambda t, *p: F.pad(t, p).contiguous() if any(p) else t.contiguous()
-    return (pad(qw.w1, 0, wp - width, 0, hp - hid), pad(qw.s1, 0, hp - hid),
-            pad(qw.b1, 0, hp - hid), pad(qw.w2, 0, hp - hid, 0, wn - width),
-            pad(qw.s2, 0, wn - width), qw.b2.contiguous())
+    wp, hp = _round_up(width, _Q8_PITCH), _round_up(hid, _Q8_PITCH)
+    w1 = F.pad(qw.w1, (0, wp - width)) if wp != width else qw.w1
+    w2 = F.pad(qw.w2, (0, hp - hid)) if hp != hid else qw.w2
+    return w1.contiguous(), w2.contiguous()
 
 
 def fused_mlp_int8(x, qw: Int8MLPWeights, *, act: str = "gelu"):
@@ -235,17 +235,28 @@ def fused_mlp_int8(x, qw: Int8MLPWeights, *, act: str = "gelu"):
     if x.dtype not in kernels.DTYPE_CODES:
         raise ValueError(f"fused_mlp_int8: unsupported dtype {x.dtype}")
     x2 = x2.contiguous()
-    w1, s1, b1, w2, s2, b2 = _kernel_weights(qw)
-    kernels.require_cuda("fused_mlp_int8", x2, w1, s1, b1, w2, s2, b2)
+    w1, w2 = _kernel_weights(qw)
+    kernels.require_cuda("fused_mlp_int8", x2, w1, qw.s1, qw.b1, w2, qw.s2, qw.b2)
     out = torch.empty_like(x2)
-    if x2.shape[0] == 0:
+    t, hid = x2.shape[0], qw.w1.shape[0]
+    if t == 0:
         return out.reshape(shape)
+    if w1.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("fused_mlp_int8: the int8 weights must be 16-byte aligned (TMA)")
+    # scratch, made for this call's shape: x and h quantized, their scales
+    i8 = dict(dtype=torch.int8, device=x.device)
+    x8 = torch.empty((t, w1.shape[1]), **i8)
+    h8 = torch.empty((t, w2.shape[1]), **i8)
+    xs = torch.empty(t, dtype=torch.float32, device=x.device)
+    hs = torch.empty((t, -(-hid // HIDDEN_CHUNK)), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):   # launch on the tensors' card
         status = kernels.lib().rv_fused_mlp_int8(
-            x2.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            x2.shape[0], width, qw.w1.shape[0], ACT_CODES[act],
-            kernels.DTYPE_CODES[x.dtype], kernels.stream_ptr(x.device))
+            x2.data_ptr(), w1.data_ptr(), qw.s1.data_ptr(), qw.b1.data_ptr(),
+            w2.data_ptr(), qw.s2.data_ptr(), qw.b2.data_ptr(), x8.data_ptr(),
+            xs.data_ptr(), h8.data_ptr(), hs.data_ptr(), out.data_ptr(), t, width,
+            hid, ACT_CODES[act], kernels.DTYPE_CODES[x.dtype],
+            kernels.stream_ptr(x.device))
     kernels.check("fused_mlp_int8", status)
     kernels.launches["fused_mlp_int8"] += 1
+    kernels.shape_launches[("fused_mlp_int8", (t, width, hid, str(x.dtype)))] += 1
     return out.reshape(shape)

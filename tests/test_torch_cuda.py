@@ -409,7 +409,9 @@ def test_ivf_scan_kernel(dev, mode, q, nprobe, k, masked):
     (33, 160, 640, "quick_gelu"),     # a second, partial chunk
     (77, 72, 200, "gelu"),            # W not a multiple of 16, H of 8
     (577, 1024, 4096, "gelu"),        # PE-L14 widths
-    (40, 1536, 8960, "gelu"),         # PE-G14 widths: 16-row tiles
+    (40, 1536, 8960, "gelu"),         # PE-G14 widths: a partial last chunk
+    (4653, 1024, 4096, "gelu"),       # T % 64 != 0, more than one wave of CTAs
+    (29, 68, 100, "quick_gelu"),      # W % 8 != 0: element-wise output stores
 ])
 def test_fused_mlp_int8_kernel(dev, dtype, t, w, hid, act):
     """K5 against its plain version: the same int8 contract rounding for
@@ -443,6 +445,90 @@ def test_fused_mlp_int8_kernel(dev, dtype, t, w, hid, act):
                      for lo in range(0, hid, 512))
         quantum = 2 * h_amax / 127 * float((qw.w2.float().abs() * qw.s2[:, None]).max())
         assert float(diff[loose].max()) <= quantum + ulp * (1 + float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_int8_scratch_per_call(dev, dtype):
+    """K5's launcher works through int8 scratch the wrapper makes for each
+    call's shape: two calls of different shapes (PE-L14's MLP on 1000 rows,
+    a narrow one on 37 rows), on two streams at once, each equal to its
+    plain version; one launch counted per call, under each call's shape."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.fused_mlp import (fused_mlp_int8, mlp_int8_plain,
+                                                 quantize_mlp_weights)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    calls = []
+    for t, w, hid in ((1000, 1024, 4096), (37, 72, 200)):
+        qw = quantize_mlp_weights(_randn(gen, hid, w, dtype=dtype, scale=w ** -0.5),
+                                  _randn(gen, hid, dtype=dtype, scale=0.1),
+                                  _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5),
+                                  _randn(gen, w, dtype=dtype, scale=0.1), dtype)
+        calls.append((_randn(gen, t, w, dtype=dtype), qw))
+    torch.cuda.synchronize()
+    n0, shapes0 = kernels.launches["fused_mlp_int8"], dict(kernels.shape_launches)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for (x, qw), st in zip(calls, streams):
+        with torch.cuda.stream(st):
+            outs.append(fused_mlp_int8(x, qw))
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_mlp_int8"] == n0 + 2
+    for x, qw in calls:
+        key = ("fused_mlp_int8", (x.shape[0], x.shape[1], qw.w1.shape[0], str(dtype)))
+        assert kernels.shape_launches[key] == shapes0.get(key, 0) + 1
+    for out, (x, qw) in zip(outs, calls):
+        ref = mlp_int8_plain(x, qw, "gelu")
+        diff = (out.float() - ref.float()).abs()
+        ulp = 1e-5 if dtype == torch.float32 else 2 ** -7     # one output rounding
+        assert float((diff > ulp * (1 + ref.float().abs())).float().mean()) < 0.002
+
+
+def _clustered_locations(gen, b, shapes, lq, h, p, spread):
+    """Sampling locations around each query's reference point, as the
+    encoder's: query i is position i of the flattened levels (wrapping past
+    them), and every level samples near that position's cell centre."""
+    pts = []
+    for hl, wl in shapes:
+        yy, xx = torch.meshgrid(torch.arange(hl, device="cuda"), torch.arange(wl, device="cuda"),
+                                indexing="ij")
+        pts.append(torch.stack([(xx.flatten() + 0.5) / wl, (yy.flatten() + 0.5) / hl], -1))
+    pts = torch.cat(pts)
+    ref = pts[torch.arange(lq, device="cuda") % len(pts)]
+    noise = torch.randn(b, lq, h, len(shapes), p, 2, generator=gen, device="cuda") * spread
+    return ref[None, :, None, None, None, :] + noise
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,shapes,lq,h,d,p", [
+    (4, ((100, 100), (50, 50), (25, 25), (13, 13)), 13294, 8, 32, 4),   # the encoder
+    (2, ((9, 13), (5, 7), (3, 4), (2, 2)), 187, 3, 7, 4),    # odd D; 187 % 32 != 0
+    (1, ((100, 100), (50, 50), (25, 25), (13, 13)), 900, 8, 5, 3),     # odd D, 3 points
+    (2, ((30, 20), (15, 10)), 65, 2, 24, 2),                # D = 24: 6 vectors a row
+])
+def test_ms_deform_kernel_clustered(dev, dtype, b, shapes, lq, h, d, p):
+    """K8 on locations clustered around the queries' reference points (the
+    model's pattern, whose corner rows repeat across neighbouring queries),
+    at odd head dims and query counts that are not a multiple of a CTA's
+    32, against its plain version under the same tolerances."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.deformable import ms_deform_attn, ms_deform_attn_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(lq + d)
+    lv = sum(hl * wl for hl, wl in shapes)
+    value = _randn(gen, b, lv, h, d, dtype=dtype)
+    loc = _clustered_locations(gen, b, shapes, lq, h, p, spread=0.02)
+    w = torch.rand(b, lq, h, len(shapes), p, generator=gen, device="cuda")
+    w = w / w.sum(dim=(-2, -1), keepdim=True)
+    n0 = kernels.launches["ms_deform"]
+    out = ms_deform_attn(value, shapes, loc, w)
+    assert kernels.launches["ms_deform"] == n0 + 1
+    ref = ms_deform_attn_ref(value, shapes, loc, w)
+    torch.cuda.synchronize()
+    assert out.shape == (b, lq, h * d) and out.dtype == dtype
+    # fp32: sums in another order; bf16: one output ulp (both sum in fp32)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("n,d,q,k,n_valid", [

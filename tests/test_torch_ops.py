@@ -143,6 +143,36 @@ def test_ms_deform_attn_ref_matches_jax(seed):
     np.testing.assert_allclose(out, pallas, atol=2e-6)
 
 
+@pytest.mark.parametrize("d,heads,n_points", [(7, 3, 4), (5, 2, 3)])
+def test_ms_deform_attn_ref_clustered_odd_head_dim_matches_jax(d, heads, n_points):
+    """K8's entry on CPU tensors against the JAX patch-gather reference at
+    an odd head dim, with the encoder's sampling pattern: one query per
+    position of every level, each sampling close to its own cell (the
+    reference point) in every level, some points past the map's edges."""
+    rng = np.random.default_rng(d)
+    shapes = ((12, 10), (6, 5), (3, 3), (2, 1))
+    lv = sum(hl * wl for hl, wl in shapes)
+    b, lq = 2, lv
+    value = rng.standard_normal((b, lv, heads, d)).astype(np.float32)
+    ref_pts = []
+    for hl, wl in shapes:   # each position's normalized cell centre
+        yy, xx = np.mgrid[0:hl, 0:wl]
+        ref_pts.append(np.stack([(xx.ravel() + 0.5) / wl, (yy.ravel() + 0.5) / hl], -1))
+    ref_pts = np.concatenate(ref_pts)
+    locs = (ref_pts[None, :, None, None, None, :]
+            + rng.normal(0, 0.05, (b, lq, heads, len(shapes), n_points, 2))).astype(np.float32)
+    w = rng.uniform(0, 1, (b, lq, heads, len(shapes), n_points)).astype(np.float32)
+    w /= w.sum(axis=(-2, -1), keepdims=True)
+    patch = np.asarray(jdeform.ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(locs),
+                                              jnp.asarray(w), impl="patch"))
+    out = tdeform.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(locs),
+                                 torch.from_numpy(w)).numpy()
+    assert out.shape == (b, lq, heads * d)
+    assert ((locs < 0) | (locs > 1)).any()   # some corners fall off the map
+    # fp32 on both sides, the same gathers and sums
+    np.testing.assert_allclose(out, patch, atol=2e-6)
+
+
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 def test_mlp_ref_matches_jax(act):
     """The JAX kernel's gelu is the A&S erf polynomial (|erf err| <= 1.5e-7);

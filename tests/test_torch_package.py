@@ -195,6 +195,57 @@ def test_wrappers_never_fall_back_for_device_tensors():
         cosine_topk_int8(i8, m(10), m(10, 8), m(2, 8), 3)
 
 
+@pytest.mark.parametrize("source,launchers", [
+    ("fused_mlp.cu", {"rv_fused_mlp", "rv_fused_mlp_tc", "rv_fused_mlp_int8"}),
+    ("ms_deform.cu", {"rv_ms_deform"}),
+])
+def test_signatures_match_k5_k8_launchers(source, launchers):
+    """The ctypes argument lists of the K4/K5 and K8 launchers in
+    `kernels._SIGNATURES` against their `extern "C"` declarations, parsed
+    from the sources."""
+    from reverso_tpu_torch import kernels
+    pat = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
+    found = {}
+    with open(os.path.join(kernels.CSRC, source)) as f:
+        for name, args in pat.findall(f.read()):
+            found[name] = [kernels._P if "*" in a else
+                           kernels._F if " ".join(a.split()).startswith("float") else kernels._I
+                           for a in args.split(",")]
+    assert set(found) == launchers
+    for name, types in found.items():
+        assert kernels._SIGNATURES[name] == types, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_k8_wrappers_raise_off_cuda(dtype):
+    """K5 and K8 given tensors neither on the CPU nor on a card (meta) raise
+    before any launch, at widths the int8 kernel pads (W = 72, H = 200) and
+    an odd head dim; no launch is counted, by kernel or by shape."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops import fused_mlp, ms_deform_attn
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp_int8, quantize_mlp_weights
+
+    m = lambda *shape: torch.empty(*shape, device="meta", dtype=dtype)
+    before, shapes = dict(kernels.launches), dict(kernels.shape_launches)
+    qw = quantize_mlp_weights(m(200, 72), m(200), m(72, 200), m(72), dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_int8(m(5, 72), qw)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp(m(5, 72), m(200, 72), m(200), m(72, 200), m(72), quant=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ms_deform_attn(m(2, 7, 3, 5), ((1, 2), (1, 5)), m(2, 4, 3, 2, 3, 2).float(),
+                       m(2, 4, 3, 2, 3).float())
+    assert kernels.launches == before and dict(kernels.shape_launches) == shapes
+
+
+def test_reset_counts_clears_shape_launches():
+    from reverso_tpu_torch import kernels
+    kernels.shape_launches[("ms_deform", (1, 2))] += 3
+    kernels.reset_counts()
+    assert not kernels.shape_launches
+    assert all(v == 0 for v in kernels.launches.values())
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -36,7 +36,8 @@ from reverso_tpu.ops.fused_mlp import fused_mlp as jax_fused_mlp
 from reverso_tpu_torch.engine import Reverso
 from reverso_tpu_torch.models.pe import PerceptionEncoder
 from reverso_tpu_torch.ops import quant as tquant
-from reverso_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_int8, mlp_int8_ref,
+from reverso_tpu_torch.ops.fused_mlp import (Int8MLPWeights, _kernel_weights, fused_mlp,
+                                             fused_mlp_int8, mlp_int8_plain, mlp_int8_ref,
                                              quantize_mlp_weights)
 
 TINY = dataclasses.replace(MODEL_PRESETS["test-tiny"], dtype="float32")
@@ -267,3 +268,39 @@ def test_int8_engine_build_matches_jax(tmp_path):
     assert ti[:, 0].tolist() == [0, 3, 7]
     names = lambda e: [p["filename"] for p in e._store.payloads(list(range(10)))]
     assert names(port) == names(jeng)
+
+
+@pytest.mark.parametrize("t,w,hid,act", [
+    (37, 72, 200, "gelu"),            # W and H padded to 80 and 208
+    (9, 72, 200, "quick_gelu"),
+    (5, 1536, 8960, "gelu"),          # PE-G14: a partial last chunk, nothing padded
+])
+def test_kernel_weight_layout_is_exact(t, w, hid, act):
+    """K5's weight layout (`_kernel_weights`: K zero-padded to whole 16-byte
+    rows, what TMA reads) computes the same function: the padded weights,
+    with x zero-padded to match and the hidden units past H given zero
+    scale and bias (the zeros the kernel reads there), give the plain
+    version's output bit for bit. At widths that are multiples of 16 (every
+    preset's) the weights are the quantized ones, not copies."""
+    rng = np.random.default_rng(t)
+    randn = lambda *shape, scale=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(torch.bfloat16)
+    x = randn(t, w)
+    qw = quantize_mlp_weights(randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.1),
+                              randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.1),
+                              torch.bfloat16)
+    w1p, w2p = _kernel_weights(qw)
+    wp, hp = -(-w // 16) * 16, -(-hid // 16) * 16
+    assert w1p.shape == (hid, wp) and w2p.shape == (w, hp)
+    assert w1p.dtype == w2p.dtype == torch.int8
+    assert w1p.is_contiguous() and w2p.is_contiguous()
+    assert torch.equal(w1p[:, :w], qw.w1) and not w1p[:, w:].any()
+    assert torch.equal(w2p[:, :hid], qw.w2) and not w2p[:, hid:].any()
+    if (wp, hp) == (w, hid):
+        assert w1p.data_ptr() == qw.w1.data_ptr() and w2p.data_ptr() == qw.w2.data_ptr()
+    pad = lambda a, n: torch.nn.functional.pad(a, (0, n - a.shape[-1]))
+    padded = Int8MLPWeights(torch.nn.functional.pad(w1p, (0, 0, 0, hp - hid)),
+                            pad(qw.s1, hp), pad(qw.b1, hp), w2p, qw.s2, qw.b2)
+    ref = mlp_int8_plain(x, qw, act)
+    out = mlp_int8_plain(pad(x, wp), padded, act)
+    assert out.shape == (t, w) and torch.equal(out, ref)
