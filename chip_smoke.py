@@ -78,12 +78,16 @@ of which catches a failure:
      `VectorStore.delete_vector_rows`, int8, binary + rescore, IVF at the
      defaults (built, cached, reloaded) and IVF int8 with spill and
      balance, each held against the exact plain search of its subset;
-     recall@10 against exact fp32 for the approximate ones.
+     recall@10 against exact fp32 for the approximate ones;
+  8. the top-k scans (K1 from the direct-embed path, K2, K9 and K10 from
+     the capacity path) timed at each shape their path ran them at
+     (`kernels.shape_launches`), on seeded rows of that shape, each held
+     against its plain version.
 
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). A "redesign order" line ranks the kernels
-by launches x (ms - bound_ms), summed over the shapes a path ran K5 and
-K8 at. The line before the last is the card's name and power limit, the
+by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2,
+K5, K8, K9 and K10 at. The line before the last is the card's name and power limit, the
 one before that a JSON object with one entry per kernel; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -450,7 +454,17 @@ def kernel_checks(torch, gen) -> dict:
         library_ms=None)
     rows["topk_stream"]["bound_ms"], rows["topk_stream"]["bound_by"] = bound(
         (n_valid + 256) * w * 2 + 256 * 10 * 8, 2 * 256 * n_valid * w, "bfloat16")
-    print(f"topk_stream: max abs score err {err} (tol {tol})", flush=True)
+    # one query over the same rows: the scan as a pure stream
+    q1 = qs[:1].contiguous()
+    s1, i1 = cosine_topk(db, q1, 10, n_valid=n_valid)
+    r1s, r1i = cosine_topk_ref(db, q1, 10, n_valid=n_valid)
+    topk_agree(r1s, r1i, s1, i1, tol)
+    rows["topk_stream"]["q1_ms"] = cuda_ms(lambda: cosine_topk(db, q1, 10, n_valid=n_valid),
+                                           iters=10)
+    rows["topk_stream"]["q1_bound_ms"] = bound((n_valid + 1) * w * 2 + 80,
+                                               2 * n_valid * w, "bfloat16")[0]
+    print(f"topk_stream: max abs score err {err} (tol {tol}); Q = 1: "
+          f"{rows['topk_stream']['q1_ms']:.4f} ms", flush=True)
     check(all(v == 0 for v in kernels.plain_dispatches.values()),
           "a k <= 128 search must not take the plain path")
     del db, small
@@ -1192,7 +1206,9 @@ def slice_run(root: str) -> dict:
     hit = [(qsel[r] in ids[r]) for r in range(64)]
     check(all(hit), "search_batch: a query's own row is missing from its top 5")
     launches = dict(kernels.launches)
-    print(f"launches on the direct-embed path: {launches}", flush=True)
+    topk_shapes = {k: n for k, n in kernels.shape_launches.items() if k[0] == "topk_stream"}
+    print(f"launches on the direct-embed path: {launches}; K1 by shape "
+          f"{[(k[1], n) for k, n in topk_shapes.items()]}", flush=True)
     for name in ("flash_heads", "fused_mlp", "topk_stream"):
         check(launches[name] > 0, f"kernel {name} never launched on the direct-embed path")
     check(launches["flash_heads_tc"] == launches["flash_heads"],
@@ -1219,7 +1235,7 @@ def slice_run(root: str) -> dict:
                build_s=build_s, search_batch64_ms_median=float(np.median(lat)),
                names_ok=len(set(names)) == n_img)
     print(f"slice: {json.dumps(out)}", flush=True)
-    return launches
+    return launches, topk_shapes
 
 
 def int8_slice_run(root: str) -> dict:
@@ -1345,6 +1361,74 @@ def k8_path_shapes(torch, shape_launches: dict, inputs: dict) -> list:
     return out
 
 
+def topk_bound(kind: str, q: int, n: int, d: int, k: int, masked: bool) -> tuple[float, str]:
+    """A top-k scan's least time: the rows (bf16, int8 or packed signs),
+    the mask, the queries (bf16; int8's two digits) and the [Q, k] results
+    once; 2 Q N d operations (bf16: binary's +-1 rows too; int8 twice, one
+    per query digit)."""
+    if kind == "topk_int8":
+        return bound(n * d + (n if masked else 0) + 2 * q * d + q * k * 8, 2 * 2 * q * n * d,
+                     "int8")
+    rows = n * d // 8 if kind == "topk_binary" else n * d * 2
+    return bound(rows + (n if masked else 0) + q * d * 2 + q * k * 8, 2 * q * n * d, "bfloat16")
+
+
+def topk_path_shapes(torch, shape_launches: dict) -> dict:
+    """K1, K2, K9 and K10 at each shape (Q, N, d, k, masked) a path ran
+    them at: seeded unit rows of that shape (the mask keeps 10% of the
+    rows, as the capacity path's `{"folder": 3}` filter), held against the
+    plain version (1e-4 bf16, 2e-4 binary, bit for bit int8), timed by
+    CUDA events, with the launches and bound. Returns {counter: [...]}."""
+    from reverso_tpu_torch.ops.binary import binary_topk, binary_topk_ref, pack_signs
+    from reverso_tpu_torch.ops.topk import (cosine_topk, cosine_topk_int8_exact,
+                                            cosine_topk_int8_ref, cosine_topk_ref,
+                                            quantize_db_int8)
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    data = {}
+    for (kind, (q, n, d, k, masked)), launches in sorted(shape_launches.items()):
+        if (n, d) not in data:
+            data.clear()
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            x /= x.norm(dim=1, keepdim=True)
+            data[(n, d)] = x
+        x = data[(n, d)]
+        qs = x[torch.arange(q, device="cuda") * max(1, n // q)].clone()
+        qs += 0.05 * torch.randn(qs.shape, generator=gen, device="cuda")
+        qs /= qs.norm(dim=1, keepdim=True)
+        mask = (torch.arange(n, device="cuda") % 10 == 3) if masked else None
+        if kind == "topk_int8":
+            v8, sc = quantize_db_int8(x)
+            call = lambda: cosine_topk_int8_exact(v8, sc, qs, k, row_mask=mask)
+            s, i = call()
+            rs, ri = cosine_topk_int8_ref(v8, sc, qs, k, row_mask=mask)
+            check(torch.equal(i, ri) and torch.equal(s, rs), f"K9 at {(q, n, d, k)} differs")
+            err = 0.0
+        elif kind == "topk_binary":
+            packed = torch.cat([pack_signs(x[lo:lo + 65536]) for lo in range(0, n, 65536)])
+            call = lambda: binary_topk(packed, qs, k, d, row_mask=mask)
+            s, i = call()
+            rs, ri = binary_topk_ref(packed, qs, k, d, row_mask=mask)
+            topk_agree(rs, ri, s, i, 2e-4)
+        else:
+            db, qb = x.to(torch.bfloat16), qs.to(torch.bfloat16)
+            call = lambda: cosine_topk(db, qb, k, row_mask=mask)
+            s, i = call()
+            rs, ri = cosine_topk_ref(db, qb, k, row_mask=mask)
+            topk_agree(rs, ri, s, i, 1e-4)
+        if kind != "topk_int8":
+            fin = torch.isfinite(rs)
+            err = float((torch.where(fin, s, 0) - torch.where(fin, rs, 0)).abs().max())
+        out.setdefault(kind, []).append(dict(
+            shape=f"Q={q} N={n} d={d} k={k}{' masked (10% kept)' if masked else ''}",
+            launches=launches, max_abs_err=err, ms=cuda_ms(call, iters=10),
+            bound_ms=topk_bound(kind, q, n, d, k, masked)[0]))
+        del s, i, rs, ri
+    data.clear()
+    return out
+
+
 def make_photos(folder: str, n: int, seed: int) -> None:
     """`n` seeded PNGs of mixed orientation (640x480 and 480x640)."""
     from PIL import Image
@@ -1365,7 +1449,8 @@ def make_photos(folder: str, n: int, seed: int) -> None:
 # (by PR), rows whose library call computes another function, and rows
 # that run only on the fp32 parity phases
 REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused_mlp": 6,
-              "fused_mlp_int8": 7, "ms_deform": 7}
+              "fused_mlp_int8": 7, "ms_deform": 7, "topk_stream": 8, "topk_masked": 8,
+              "topk_binary": 8}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE"}
 PARITY_ONLY = {"flash_heads_f32": "fp32 parity phases only",
@@ -1392,7 +1477,7 @@ KERNEL_GROUPS = (("ms_deform (K8)", "ms_deform"),
                  ("fused_mlp_wgmma (K4, tensor cores)", "fused_mlp_wgmma"),
                  ("fused_mlp_int8 (K5: q8 quantizer, GEMMs)", "mlp_q8"),
                  ("fused_mlp (K4, CUDA cores)", "fused_mlp"),
-                 ("topk (K1)", "topk"), ("convolution", "conv"),
+                 ("topk (K1, K2, K9-K12)", "topk"), ("convolution", "conv"),
                  ("matmul", "gemm"), ("matmul", "cutlass"), ("matmul", "nvjet"),
                  ("matmul", "Kernel2"))
 
@@ -2032,14 +2117,17 @@ def capacity_run(root: str) -> dict:
     out["ivf_int8"] = dict(n_clusters=ivf.n_clusters, n_spill=ivf.n_spill, cmax=ivf.cmax)
     del eng, ivf
     launches = dict(kernels.launches)
+    topk_shapes = {k: n for k, n in kernels.shape_launches.items()
+                   if k[0] in ("topk_masked", "topk_int8", "topk_binary")}
     print(f"launches on the capacity path: {launches}; plain dispatches "
-          f"{kernels.plain_dispatches}", flush=True)
+          f"{kernels.plain_dispatches}; by shape {[(k, n) for k, n in topk_shapes.items()]}",
+          flush=True)
     for name in ("topk_masked", "topk_int8", "topk_binary", "ivf_scan"):
         check(launches[name] > 0, f"kernel {name} never launched on the capacity path")
     check(all(v == 0 for v in kernels.plain_dispatches.values()),
           "a capacity search took a plain shape rule")
     print(f"capacity slice: {json.dumps(out)}", flush=True)
-    return launches
+    return launches, topk_shapes
 
 
 def main() -> int:
@@ -2092,7 +2180,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         sam_cc_launches = phase("detector parity", detector_parity, root)
         torch.cuda.empty_cache()
-        direct_launches = phase("direct-embed slice", slice_run, root)
+        direct_launches, k1_shapes = phase("direct-embed slice", slice_run, root)
         int8_launches, k5_shapes = phase("int8 direct-embed slice", int8_slice_run, root)
         rows["fused_mlp_int8"]["by_shape"] = phase("K5 at the int8 path's shapes",
                                                    k5_path_shapes, torch, k5_shapes)
@@ -2103,7 +2191,12 @@ def main() -> int:
         phase("ROI slice", roi_run, root, det)
         del det
         torch.cuda.empty_cache()
-        capacity_launches = phase("capacity slice", capacity_run, root)
+        capacity_launches, capacity_shapes = phase("capacity slice", capacity_run, root)
+    torch.cuda.empty_cache()
+    topk_shapes = phase("top-k scans at their paths' shapes", topk_path_shapes, torch,
+                        {**k1_shapes, **capacity_shapes})
+    for name, shapes in topk_shapes.items():
+        rows[name]["by_shape"] = shapes
 
     # each kernel's launches on its own path: the tensor-core rows count the
     # tensor-core kernels' launches, the fp32 rows the CUDA-core kernels'
@@ -2126,13 +2219,14 @@ def main() -> int:
                "topk_int8_rows": two_stage_launches["topk_int8_rows"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
-    for name in ("fused_mlp_int8", "ms_deform"):
+    for name in ("fused_mlp_int8", "ms_deform", "topk_stream", "topk_masked", "topk_int8",
+                 "topk_binary"):
         print(f"{name} at its path's shapes: {json.dumps(rows[name]['by_shape'])}", flush=True)
 
     # the order to redesign kernels in: first those one PyTorch call beats,
     # by how many times; then the rest by launches x (ms - bound_ms), summed
     # over the shapes a path ran a kernel at where the run timed each
-    # (`by_shape`: K5, K8), else at the row's shape. Listed apart: rows
+    # (`by_shape`: K1, K2, K5, K8, K9, K10), else at the row's shape. Listed apart: rows
     # already redesigned, rows whose library call computes another
     # function, and rows that run only on the parity phases
     def cost(name):

@@ -7,38 +7,47 @@
 //   * its int8 mode (entry cosine_topk_int8_exact): int8 rows, each query
 //     split into two int8 digits, exact s32 dots (K9);
 //   * its binary mode (entry ops/binary.py::binary_topk_pallas): planar
-//     sign-packed uint8 rows unpacked to +-1 and scored against the bf16
-//     query (K10);
+//     sign-packed uint8 rows scored as +-1 against the bf16 query (K10);
 // and reverso_tpu/ops/topk_int8.py::_topk_int8_kernel (entry
 // cosine_topk_int8): int8 rows with per-row f32 scales against one int8
 // digit per query with a per-query scale, the candidate stage of the
 // two-stage search (K12, `rv_topk_int8_rows`).
 // Every mode but K12 takes the optional [N] uint8 row mask.
 //
-// What bounds it on the H100 (published SXM peaks, 700 W), at 1M x 1024,
-// Q = 256: bf16 reads 2.05 GB (0.61 ms at 3.35 TB/s) for 524 GFLOP (0.53 ms
-// at 989 TFLOP/s); int8 reads 1.02 GB (0.31 ms) for 1.05 T int8 operations
-// in two digits (0.53 ms at 1979 TOP/s); K12 reads 1.02 GB of rows and
-// 4 MB of row scales (0.31 ms) for 0.52 T int8 operations in one digit
-// (0.26 ms), so bytes; binary reads 128 MB (0.04 ms) for
-// 524 GFLOP against the unpacked +-1 rows (0.53 ms). The database is read
-// once per 64-query tile, and the per-tile k-select is serial work on the
-// CUDA cores.
+// What bounds it on the H100 (published SXM peaks, 700 W), at 1M x 1024:
+// bf16 reads 2.05 GB (0.61 ms at 3.35 TB/s) at any Q, against 2 Q N d
+// operations: 0.002 ms at Q = 1, 0.136 at Q = 64, 0.53 at Q = 256 (989
+// TFLOP/s), so bytes up to Q ~ 290; binary reads 128 MB (0.04 ms) for
+// the same operations against the +-1 rows, so operations from Q ~ 20 on
+// (0.136 ms at Q = 64, 0.53 at Q = 256); int8 reads 1.02 GB (0.31 ms) for
+// 1.05 T int8 operations in two digits at Q = 256 (0.53 ms); K12 reads 1.02
+// GB of rows and 4 MB of row scales (0.31 ms) for 0.52 T (0.26 ms).
 //
 // What the design does about it:
-//   * pass 1: each CTA holds one tile of QT queries and streams its own
-//     contiguous slice of database rows in RT-row tiles; CTAs of one row
-//     slice are launched next to each other, so their reads share L2. The
-//     [QT, RT] score tile comes from warp-level tensor-core products (bf16
-//     WMMA with fp32 accumulate; s8 WMMA with s32 accumulate for the two
-//     int8 digits) or, for fp32 stores, a register-tiled FMA product, and
-//     lands in shared memory; then each warp updates the sorted top-k
-//     lists of its queries, inserting by (-score, idx). Rows arrive in
-//     ascending order, so a candidate equal to the current k-th score
-//     loses the tie and is skipped. Rows at or past n_valid are never
-//     scored; masked rows (their mask slice is staged in shared memory
-//     once per row tile) never enter the lists. The CTA writes
-//     [n_splits, Q, k] partials;
+//   * bf16 rows with D % 8 == 0 (K1, K2) and packed rows (K10): the wgmma
+//     scan (scan_wg below). A CTA scores each 256-row tile (128 at
+//     Q > 64) of its row slice against a whole block of up to 128 queries,
+//     so the rows are read from device memory once per query block: once
+//     up to Q = 128 (Q = 1 is an n8 product, a pure stream), twice at
+//     Q = 256. A producer warp feeds a TMA ring; two consumer warpgroups
+//     own 128 rows (64 at Q > 64) each on wgmma's M side with the queries
+//     on N. Packed rows are unpacked straight into the RS-form A
+//     registers, in a dimension order that makes one byte a thread's 8
+//     fragment values. The k-select gates the accumulators against each
+//     query's k-th entry, so once the lists fill a tile costs one compare
+//     per score and rarely an insert. Measured on the H100
+//     (scripts/topk_scan_probe.py): 0.67 ms at Q = 1, 0.73 at Q = 64,
+//     1.60 at Q = 256 (k = 10); binary 0.95 at Q = 64 and 2.67 at Q = 256
+//     (k = 30), where the products are still 3.4x their bound and the
+//     select at k = 30 half the time;
+//   * fp32 rows and bf16 rows with D % 8 != 0: topk_scan_kernel, a
+//     register-tiled FMA product on the CUDA cores; int8 rows (K9, K12):
+//     topk_scan_i8_kernel, s8 WMMA with s32 accumulate. Both hold one tile
+//     of 64 queries and stream 64-row tiles (so the rows are read once per
+//     64 queries); the [64, 64] score tile lands in shared memory and each
+//     warp updates the sorted lists of its queries by (-score, idx). Rows
+//     arrive in ascending order, so a candidate equal to the current k-th
+//     score loses the tie and is skipped;
 //   * int8: the two exact s32 dots combine as f32(hi) * 254 + f32(lo) with
 //     two roundings (__fmul_rn, __fadd_rn: nvcc would contract a*b+c into
 //     one FMA, one rounding, and the scores would differ from the
@@ -47,16 +56,15 @@
 //     (f32(dot) * q_scale) * row_scale with __fmul_rn, the reference's two
 //     roundings in its order (on the TPU the dot ran bf16 on upcast int8,
 //     exact for d <= 1040; the s32 dot is exact for any d);
-//   * binary: the packed [RT, W] row tile is staged once, and each d step
-//     unpacks its [RT, 64] slice to +-1 bf16 (plane j of dim t = j*W + b
-//     is bit j of byte b, so no interleave) for the bf16 WMMA path;
+//   * rows at or past n_valid are never scored; masked rows never enter
+//     the lists. Each CTA writes [n_splits, Q, k] partials;
 //   * pass 2: one warp per query merges the n_splits sorted partials by
 //     (-score, idx): deterministic, ties to the lower row;
 //   * the [Q, N] score matrix never exists; slots still at -inf return -1.
-// k is capped at TOPK_KMAX = 128 (the reference kernel's cap): the sorted
-// state of a 64-query tile is then 64 KB of shared memory.
+// k is capped at TOPK_KMAX = 128 (the reference kernel's cap).
 #include <mma.h>
 
+#include "hopper.cuh"
 #include "topk_select.cuh"
 
 namespace rv {
@@ -190,24 +198,6 @@ topk_scan_kernel(const T* __restrict__ db, const T* __restrict__ q,
     write_partials(st_s, st_i, k, split, q0, Q, tid, part_s, part_i);
 }
 
-// bf16 variant: the score tile comes from warp-level tensor-core products
-// (WMMA 16x16x16, bf16 in, fp32 accumulate). The (row tile, d step) operand
-// tiles stream in order through a two-stage cp.async ring, so the next
-// copy overlaps the current products and the k-select.
-constexpr int TC_BK = 64;            // reduction step over d
-constexpr int TC_LDK = TC_BK + 8;    // bf16 row stride of the q / db tiles
-constexpr int TC_LDS = TOPK_RT + 4;  // fp32 row stride of the score tile
-constexpr int TC_STAGE = (TOPK_QT + TOPK_RT) * TC_LDK;   // bf16 per stage
-constexpr size_t SC_BYTES = (size_t)TOPK_QT * TC_LDS * sizeof(float);
-
-__host__ __device__ inline size_t topk_tc_state_bytes(int k) {
-    return ((size_t)TOPK_QT * k * 8 + 127) / 128 * 128;
-}
-
-__host__ __device__ inline size_t topk_tc_smem(int k) {
-    return topk_tc_state_bytes(k) + 2 * (size_t)TC_STAGE * 2 + SC_BYTES + TOPK_RT;
-}
-
 // 16-byte asynchronous global->shared copy; `ok == false` zero-fills the
 // destination without reading (src must still be a valid address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
@@ -217,112 +207,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
                  :: "r"(saddr), "l"(src), "r"(n));
 }
 
-// queries [q0, q0+QT) and rows [r0, r0+nr), columns [k0, k0+BK) -> one stage
-__device__ __forceinline__ void tc_load_stage(__nv_bfloat16* stage,
-                                              const __nv_bfloat16* q,
-                                              const __nv_bfloat16* db, int q0,
-                                              int Q, int r0, int nr, int k0,
-                                              int D, int tid) {
-    __nv_bfloat16* qs = stage;
-    __nv_bfloat16* ds = stage + TOPK_QT * TC_LDK;
-    for (int v = tid; v < TOPK_QT * TC_BK / 8; v += TOPK_THREADS) {
-        const int r = v / (TC_BK / 8), k8 = (v % (TC_BK / 8)) * 8;
-        const int gq = q0 + r, gk = k0 + k8;
-        const bool ok = gq < Q && gk < D;
-        cp_async16(qs + r * TC_LDK + k8, ok ? q + (size_t)gq * D + gk : q, ok);
-    }
-    for (int v = tid; v < TOPK_RT * TC_BK / 8; v += TOPK_THREADS) {
-        const int r = v / (TC_BK / 8), k8 = (v % (TC_BK / 8)) * 8;
-        const int gk = k0 + k8;
-        const bool ok = r < nr && gk < D;
-        cp_async16(ds + r * TC_LDK + k8, ok ? db + (size_t)(r0 + r) * D + gk : db, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-}
+constexpr int TC_LDS = TOPK_RT + 4;  // fp32 row stride of the int8 kernel's score tile
+constexpr size_t SC_BYTES = (size_t)TOPK_QT * TC_LDS * sizeof(float);
 
-// One bf16 d step of the warp's 16 queries x 32 rows: qs [QT][TC_LDK],
-// ds [RT][TC_LDK].
-__device__ __forceinline__ void tc_step(
-        nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>* acc,
-        const __nv_bfloat16* qs, const __nv_bfloat16* ds, int fq, int fr0) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> afr;
-        wmma::load_matrix_sync(afr, qs + fq * 16 * TC_LDK + kk, TC_LDK);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bfr;
-            wmma::load_matrix_sync(bfr, ds + (fr0 + j) * 16 * TC_LDK + kk, TC_LDK);
-            wmma::mma_sync(acc[j], afr, bfr, acc[j]);
-        }
-    }
-}
-
-__global__ void __launch_bounds__(TOPK_THREADS)
-topk_scan_tc_kernel(const __nv_bfloat16* __restrict__ db,
-                    const __nv_bfloat16* __restrict__ q,
-                    const unsigned char* __restrict__ mask, int D, int Q,
-                    int n_valid, int k, int rows_per_split,
-                    float* __restrict__ part_s, int* __restrict__ part_i) {
-    using namespace nvcuda;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    float* st_s = reinterpret_cast<float*>(smem_raw);                    // [QT][k]
-    int* st_i = reinterpret_cast<int*>(st_s + TOPK_QT * k);              // [QT][k]
-    __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw + topk_tc_state_bytes(k));
-    float* sc = reinterpret_cast<float*>(ring + 2 * TC_STAGE);            // [QT][LDS]
-    unsigned char* msk = reinterpret_cast<unsigned char*>(sc + TOPK_QT * TC_LDS);
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int q0 = blockIdx.x * TOPK_QT;
-    const int split = blockIdx.y;
-    const int r_begin = split * rows_per_split;
-    const int r_end = min(n_valid, r_begin + rows_per_split);
-    const int fq = warp / 2, fr0 = (warp % 2) * 2;   // 16 queries x 32 rows per warp
-    const int nK = ceil_div(D, TC_BK);
-    const int n_tiles = r_end > r_begin ? ceil_div(r_end - r_begin, TOPK_RT) : 0;
-    const int steps = n_tiles * nK;
-
-    init_state(st_s, st_i, k, tid);
-    if (steps > 0)
-        tc_load_stage(ring, q, db, q0, Q, r_begin, min(TOPK_RT, r_end - r_begin), 0, D, tid);
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    for (int g = 0; g < steps; ++g) {
-        const int t = g / nK, s = g % nK;
-        const int r0 = r_begin + t * TOPK_RT;
-        const int nr = min(TOPK_RT, r_end - r0);
-        if (s == 0) {
-            wmma::fill_fragment(acc[0], 0.f);
-            wmma::fill_fragment(acc[1], 0.f);
-            load_mask(msk, mask, r0, nr, tid);
-        }
-        if (g + 1 < steps) {
-            const int t1 = (g + 1) / nK, s1 = (g + 1) % nK;
-            const int r1 = r_begin + t1 * TOPK_RT;
-            tc_load_stage(ring + ((g + 1) & 1) * TC_STAGE, q, db, q0, Q, r1,
-                          min(TOPK_RT, r_end - r1), s1 * TC_BK, D, tid);
-            asm volatile("cp.async.wait_group 1;\n" ::);
-        } else {
-            asm volatile("cp.async.wait_group 0;\n" ::);
-        }
-        __syncthreads();
-        const __nv_bfloat16* qs = ring + (g & 1) * TC_STAGE;
-        tc_step(acc, qs, qs + TOPK_QT * TC_LDK, fq, fr0);
-        if (s == nK - 1) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::store_matrix_sync(sc + fq * 16 * TC_LDS + (fr0 + j) * 16, acc[j],
-                                        TC_LDS, wmma::mem_row_major);
-            __syncthreads();
-            kselect_tile(sc, TC_LDS, st_s, st_i, k, nr, r0, q0, Q, warp, lane,
-                         mask ? msk : nullptr);
-        }
-        __syncthreads();   // this stage is refilled two steps later; sc consumed
-    }
-    __syncthreads();
-    write_partials(st_s, st_i, k, split, q0, Q, tid, part_s, part_i);
+__host__ __device__ inline size_t topk_tc_state_bytes(int k) {
+    return ((size_t)TOPK_QT * k * 8 + 127) / 128 * 128;
 }
 
 // int8 mode: int8 rows and the two int8 query digits [2, Q, D], WMMA s8
@@ -475,85 +364,658 @@ topk_scan_i8_kernel(const signed char* __restrict__ db,
     write_partials(st_s, st_i, k, split, q0, Q, tid, part_s, part_i);
 }
 
-// binary mode: packed rows [N, W] uint8 (dims D = 8W), bf16 queries
-// [Q, 8W]. Each row tile's packed bytes are staged once; each d step
-// unpacks its [RT, 64] slice to +-1 bf16 beside the query slice.
-constexpr int BIN_STAGE = (TOPK_QT + TOPK_RT) * TC_LDK;   // bf16
+// ---- bf16 and binary rows on wgmma: every query against each row tile -------
+//
+// K1, K2 (bf16 rows, D % 8 == 0) and K10 (packed sign rows). A CTA owns one
+// contiguous slice of rows (grid x) and one block of up to N queries (grid
+// y), and walks the slice in tiles of 128 m_tiles(N) rows, so each row tile
+// is read from device memory once per query block:
+//   * a producer warp brings, per 64-wide k step, the query block's columns
+//     (and, bf16, the tile's rows) through TMA into a ring of `stages`
+//     stages with mbarrier completion; packed rows come 128 bytes (1024
+//     dims) a row at a time into a two-slot chunk ring of their own, by TMA
+//     where W % 16 == 0 and the base is 16-byte aligned, else copied by the
+//     producer's lanes. The query operand is re-read from L2 for every row
+//     tile: loading it only once changes no time measurably
+//     (scripts/topk_scan_probe.py "no_qstream_gate");
+//   * two consumer warpgroups each own 64 m_tiles(N) of the tile's rows on
+//     wgmma's M side (two m64 tiles at N <= 64: two independent chains of
+//     products a warpgroup), the query block on its N side (N a power of
+//     two, 8 .. 128), and accumulate the fp32 scores in registers: bf16
+//     rows by the
+//     SS-form product, packed rows unpacked (two bytes a row per k step,
+//     two instructions per pair of +-1 bf16 values, sign_pairs) straight
+//     into the RS form's A registers, double-buffered at N = 128 so that
+//     a step's unpack overlaps the last step's products. A block of 256
+//     queries
+//     would read the rows once at Q = 256, but its 128-register accumulator
+//     spills ("n256" is slower);
+//   * the k-select runs after the tile's last product: each thread holds
+//     2 m_tiles(N) rows x N/4 queries of scores and compares them with the queries'
+//     current k-th (score, idx) (the TPU kernel's gate, exact in the order
+//     (-score, idx), so that an equal score from a lower row passes and
+//     one from a higher row does not). Survivors take one of their query's
+//     candidate slots (16 KB over the block: 16 a query at N = 128, 32 at
+//     N <= 64; one shared-memory atomic per warp and query column). Then
+//     query q's candidates enter its sorted list by (-score, idx) in any
+//     arrival order: its own thread inserts them from the list's end when
+//     that is at most kSerial shifts (nc k <= 48: short lists, as k = 10),
+//     else warp q % 8 merges them in one pass (warp_merge), so that long
+//     lists (k = 30) and the first tiles' many candidates cost no serial
+//     shifts. A candidate that found the slots full is gated again,
+//     against the new k-th, in another round. Once the lists hold k rows a
+//     tile rarely has a survivor, and the producer keeps loading meanwhile.
+// The grid takes at most one wave of CTAs (the kernel's occupancy x SMs),
+// so that each CTA fills its lists once over as many rows as possible.
+// Binary dimension order: the k loop's position kappa of byte p (p = 8 s +
+// 4 m + t, t = p % 4) and bit b is 64 s + 32 m + 16 (b >> 2) + 8 ((b >> 1)
+// & 1) + 2 t + (b & 1), so that byte 4m + t of a row holds, for the
+// consumer thread with lane % 4 == t, exactly its 8 A-fragment values of
+// k16 chunks 2m and 2m + 1 of step s. The score is a sum over dimensions,
+// so the host permutes the bf16 query to this order (dim b W + p -> kappa;
+// bytes past W give zero query columns) and the products are unchanged;
+// only the fp32 sums run in another order.
+namespace scan_wg {
 
-__host__ __device__ inline size_t topk_bin_smem(int k, int W) {
-    return topk_tc_state_bytes(k) + (size_t)BIN_STAGE * 2 + SC_BYTES +
-           (size_t)TOPK_RT * W + TOPK_RT;
+using namespace tc;
+
+// per-CTA cycle counts of the products, the gate and the select rounds,
+// printed by CTA 0 (scripts/topk_scan_probe.py "profile" defines this)
+#ifdef RV_SCAN_PROFILE
+#define RV_PROF(...) __VA_ARGS__
+#else
+#define RV_PROF(...)
+#endif
+
+constexpr int kRows = 128;                     // rows of an m64 tile each for two warpgroups
+constexpr int kConsumers = 2 * kWgThreads;
+constexpr int kThreads = kConsumers + 32;      // + the producer warp
+constexpr int kSlotBytes = 16384;              // the candidate slots of a query block
+constexpr int kSerial = 48;                    // list shifts a thread takes on alone
+constexpr int kMaxStages = 8;
+constexpr int kNMax = 128;                     // queries of a block
+constexpr int kSmemMax = 232448;               // shared memory a CTA may use
+constexpr int kChunk = 128;                    // packed bytes of a row per chunk
+constexpr int kChunkSteps = kChunk / 8;        // 64-wide k steps per chunk
+
+// m64 tiles a warpgroup: two (a 256-row tile) at N <= 64, where an
+// accumulator is at most 32 registers, so that each warpgroup runs two
+// independent chains of products and a tile's k-select covers twice the
+// rows; one at N = 128
+__host__ __device__ constexpr int m_tiles(int n) { return n <= 64 ? 2 : 1; }
+
+// bytes of one ring stage: the queries, [N][64] bf16 swizzled, and (bf16)
+// the tile's rows, [128 m_tiles][64]; binary rows live in the chunk ring
+__host__ __device__ constexpr int stage_bytes(int n, bool bin) {
+    return (bin ? 0 : kRows * m_tiles(n) * 128) + n * 128;
 }
 
-__global__ void __launch_bounds__(TOPK_THREADS)
-topk_scan_bin_kernel(const unsigned char* __restrict__ db,
-                     const __nv_bfloat16* __restrict__ q,
-                     const unsigned char* __restrict__ mask, int W, int Q,
-                     int n_valid, int k, int rows_per_split,
-                     float* __restrict__ part_s, int* __restrict__ part_i) {
-    using namespace nvcuda;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    float* st_s = reinterpret_cast<float*>(smem_raw);                    // [QT][k]
-    int* st_i = reinterpret_cast<int*>(st_s + TOPK_QT * k);              // [QT][k]
-    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + topk_tc_state_bytes(k));
-    __nv_bfloat16* ds = qs + TOPK_QT * TC_LDK;                            // [RT][LDK]
-    float* sc = reinterpret_cast<float*>(ds + TOPK_RT * TC_LDK);          // [QT][LDS]
-    unsigned char* pk = reinterpret_cast<unsigned char*>(sc + TOPK_QT * TC_LDS);  // [RT][W]
-    unsigned char* msk = pk + TOPK_RT * W;
+// candidate slots per query: 16 KB of (score, row) pairs over the block,
+// at most 32 a query (one per lane of a warp merge)
+__host__ __device__ constexpr int cand_slots(int n) {
+    return kSlotBytes / 8 / n < 8 ? 8 : kSlotBytes / 8 / n > 32 ? 32 : kSlotBytes / 8 / n;
+}
 
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int q0 = blockIdx.x * TOPK_QT;
-    const int split = blockIdx.y;
+// 1 KB of alignment, binary mode's chunk ring, the ring, the sorted lists
+// ([N][k | 1]), the candidate slots, the k-th entries and counts, the
+// consumer warps' merge scratch ([8][128] pairs), the barriers
+__host__ __device__ inline size_t smem_bytes(int n, int k, bool bin, int stages) {
+    return 1024 + (bin ? 2 * kRows * m_tiles(n) * kChunk : 0) +
+           (size_t)stages * stage_bytes(n, bin) +
+           (size_t)n * (8 * (k | 1) + 8 * cand_slots(n) + 12) + 8 * 8 * TOPK_KMAX +
+           16 * (kMaxStages + 2);
+}
+
+// The launch geometry (ops/topk.py::wg_plan mirrors it): the widest query
+// block N whose sorted lists fit beside a two-stage ring, Q split into
+// q_blocks blocks of equal size, N the power of two >= a block, and as many
+// stages (2 .. 8) as fit.
+struct Plan {
+    int n, q_blocks, stages;
+};
+
+inline Plan plan(int Q, int k, bool bin) {
+    int nmax = 8;
+    for (int n = kNMax; n >= 8; n /= 2)
+        if (smem_bytes(n, k, bin, 2) <= kSmemMax) { nmax = n; break; }
+    const int q_blocks = ceil_div(Q, nmax);
+    const int per = ceil_div(Q, q_blocks);
+    int n = 8;
+    while (n < per) n *= 2;
+    int stages = 2;
+    while (stages < kMaxStages && smem_bytes(n, k, bin, stages + 1) <= kSmemMax) ++stages;
+    return {n, q_blocks, stages};
+}
+
+// bits 2p and 2p + 1 of the byte x as a bf16 pair of +-1 (bit 1 -> +1), low
+// half first: with a second copy of x at bit 15, one shift puts bit 2p at
+// bit 15 and bit 2p + 1 at bit 31, the two sign bits of -1 -1 (0xBF80BF80)
+__device__ __forceinline__ uint32_t sign_pairs(uint32_t x, int p) {
+    return 0xBF80BF80u ^ (((x | (x << 15)) << (15 - 2 * p)) & 0x80008000u);
+}
+
+// Merges nc <= 32 candidates (cs[e * stride], ci[e * stride], e < nc; row
+// ids distinct from the list's) into the warp's sorted list S/I of length
+// k <= 128 by (-score, idx), in one pass through the warp's scratch list
+// XS/XI: each entry's new place is its old one plus the candidates that
+// beat it, each candidate's the entries and candidates that beat it;
+// places past k drop out.
+__device__ __forceinline__ void warp_merge(float* S, int* I, int k, const float* cs,
+                                           const int* ci, int stride, int nc, float* XS,
+                                           int* XI, int lane) {
+    const float c_s = lane < nc ? cs[lane * stride] : -CUDART_INF_F;
+    const int c_i = lane < nc ? ci[lane * stride] : 0x7fffffff;
+    int pos = 0;
+    for (int j0 = 0; j0 < k; j0 += 32) {
+        const int jj = j0 + lane;
+        const float ls = jj < k ? S[jj] : -CUDART_INF_F;
+        const int li = jj < k ? I[jj] : -1;
+        int lpos = jj;
+#pragma unroll 4
+        for (int e = 0; e < nc; ++e) {
+            const float s2 = __shfl_sync(0xffffffffu, c_s, e);   // every lane shuffles
+            const int i2 = __shfl_sync(0xffffffffu, c_i, e);
+            if (j0 == 0) pos += better(s2, i2, c_s, c_i) ? 1 : 0;
+            const bool entry_wins = jj < k && better(ls, li, s2, i2);
+            const unsigned b = __ballot_sync(0xffffffffu, entry_wins);
+            if (lane == e) pos += __popc(b);
+            lpos += entry_wins ? 0 : 1;
+        }
+        if (jj < k && lpos < k) {
+            XS[lpos] = ls;
+            XI[lpos] = li;
+        }
+    }
+    if (lane < nc && pos < k) {
+        XS[pos] = c_s;
+        XI[pos] = c_i;
+    }
+    __syncwarp();
+    for (int jj = lane; jj < k; jj += 32) {
+        S[jj] = XS[jj];
+        I[jj] = XI[jj];
+    }
+    __syncwarp();
+}
+
+template <int N, bool BIN>
+__global__ void __launch_bounds__(kThreads, 1)
+topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap qmap,
+                    const unsigned char* __restrict__ packed, int W,
+                    const unsigned char* __restrict__ mask, int Q, int n_valid, int k,
+                    int n_k, int rows_per_split, int stages,
+                    float* __restrict__ part_s, int* __restrict__ part_i) {
+    constexpr int MT = m_tiles(N);
+    constexpr int ROWS = kRows * MT;                 // rows of a tile
+    constexpr int STAGE = stage_bytes(N, BIN);
+    constexpr int A_BYTES = BIN ? 0 : ROWS * 128;    // the rows' part of a stage
+    constexpr int NV = N / 2;                        // scores of one m64 tile a thread holds
+    constexpr int NP = (MT * NV + 31) / 32;          // words of its pending bits
+    constexpr int NC = cand_slots(N);                // candidate slots per query
+    constexpr unsigned FULL = 0xffffffffu;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* ring = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint8_t* chunks = ring + stages * STAGE;                          // binary: [2][ROWS][128 B]
+    float* st_s = reinterpret_cast<float*>(chunks + (BIN ? 2 * ROWS * kChunk : 0));
+    const int kp = k | 1;   // the lists' row stride: odd, so one thread a query hits no bank twice
+    int* st_i = reinterpret_cast<int*>(st_s + kp * N);                // [N][kp], [N][kp]
+    float* cand_s = reinterpret_cast<float*>(st_i + kp * N);          // [NC][N]
+    int* cand_i = reinterpret_cast<int*>(cand_s + NC * N);            // [NC][N]
+    float* kth_s = reinterpret_cast<float*>(cand_i + NC * N);         // [N] the k-th entry
+    int* kth_i = reinterpret_cast<int*>(kth_s + N);                   // [N]
+    int* cnt = kth_i + N;                                             // [N] candidates
+    float* xs = reinterpret_cast<float*>(cnt + N);                    // [8][TOPK_KMAX] scratch
+    int* xi = reinterpret_cast<int*>(xs + 8 * TOPK_KMAX);             // [8][TOPK_KMAX]
+    uint64_t* full = reinterpret_cast<uint64_t*>(xi + 8 * TOPK_KMAX);
+    uint64_t* empty = full + kMaxStages;
+    uint64_t* cfull = empty + kMaxStages;                             // the chunk ring's
+    uint64_t* cempty = cfull + 2;
+
+    const int split = blockIdx.x, q0 = blockIdx.y * N;
     const int r_begin = split * rows_per_split;
     const int r_end = min(n_valid, r_begin + rows_per_split);
-    const int fq = warp / 2, fr0 = (warp % 2) * 2;
-    const int D = 8 * W;
-    const int nK = ceil_div(D, TC_BK);
+    const int n_tiles = r_end > r_begin ? ceil_div(r_end - r_begin, ROWS) : 0;
+    const int nq = min(N, Q - q0);
 
-    init_state(st_s, st_i, k, tid);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    for (int r0 = r_begin; r0 < r_end; r0 += TOPK_RT) {
-        const int nr = min(TOPK_RT, r_end - r0);
-        __syncthreads();   // the last tile's k-select is done with sc, pk, msk
-        const unsigned char* rows = db + (size_t)r0 * W;   // rows are contiguous
-        for (int idx = tid; idx < TOPK_RT * W; idx += TOPK_THREADS)
-            pk[idx] = (idx / W < nr) ? rows[idx] : 0;
-        load_mask(msk, mask, r0, nr, tid);
-        wmma::fill_fragment(acc[0], 0.f);
-        wmma::fill_fragment(acc[1], 0.f);
-        for (int s = 0; s < nK; ++s) {
-            const int k0 = s * TC_BK;
-            __syncthreads();   // pk staged; the last step's products are done
-            for (int v = tid; v < TOPK_QT * TC_BK / 8; v += TOPK_THREADS) {
-                const int r = v / (TC_BK / 8), k8 = (v % (TC_BK / 8)) * 8;
-                const int gq = q0 + r, gk = k0 + k8;
-                uint4 val = make_uint4(0u, 0u, 0u, 0u);
-                if (gq < Q && gk < D)
-                    val = *reinterpret_cast<const uint4*>(q + (size_t)gq * D + gk);
-                *reinterpret_cast<uint4*>(qs + r * TC_LDK + k8) = val;
-            }
-            for (int v = tid; v < TOPK_RT * TC_BK; v += TOPK_THREADS) {
-                const int r = v / TC_BK, kk = v % TC_BK;
-                const int gk = k0 + kk;
-                float x = 0.f;
-                if (gk < D) x = ((pk[r * W + gk % W] >> (gk / W)) & 1) ? 1.f : -1.f;
-                ds[r * TC_LDK + kk] = __float2bfloat16(x);
-            }
-            __syncthreads();
-            tc_step(acc, qs, ds, fq, fr0);
+    for (int idx = threadIdx.x; idx < kp * N; idx += kThreads) {
+        st_s[idx] = -CUDART_INF_F;
+        st_i[idx] = -1;
+    }
+    for (int idx = threadIdx.x; idx < N; idx += kThreads) {
+        kth_s[idx] = -CUDART_INF_F;
+        kth_i[idx] = -1;
+        cnt[idx] = 0;
+    }
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(&full[s], 32);   // the producer warp's lanes
+            mbar_init(&empty[s], 8);   // the consumers' warps
         }
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(sc + fq * 16 * TC_LDS + (fr0 + j) * 16, acc[j],
-                                    TC_LDS, wmma::mem_row_major);
-        __syncthreads();
-        kselect_tile(sc, TC_LDS, st_s, st_i, k, nr, r0, q0, Q, warp, lane,
-                     mask ? msk : nullptr);
+        for (int s = 0; s < 2; ++s) {
+            mbar_init(&cfull[s], 32);
+            mbar_init(&cempty[s], 8);
+        }
+        fence_barrier_init();
     }
     __syncthreads();
-    write_partials(st_s, st_i, k, split, q0, Q, tid, part_s, part_i);
+
+    const int wg = threadIdx.x / kWgThreads;
+    const int lane = threadIdx.x % 32;
+    if (wg == 2) {
+        // ---- producer warp: lane 0 issues the TMA loads; without a map for
+        // the packed rows every lane copies 128 bytes of ROWS / 32 rows a chunk ----
+        int jc = 0;
+        for (int t = 0; t < n_tiles; ++t) {
+            const int r0 = r_begin + t * ROWS;
+            for (int ks = 0; ks < n_k; ++ks) {
+                if (BIN && ks % kChunkSteps == 0) {
+                    const int cs = jc % 2, c0 = (ks / kChunkSteps) * kChunk;
+                    mbar_wait(&cempty[cs], ((jc / 2) & 1) ^ 1);
+                    uint8_t* dst = chunks + cs * ROWS * kChunk;
+                    if (packed != nullptr) {
+                        for (int r = lane; r < ROWS; r += 32) {
+                            const int row = r0 + r;
+                            for (int b16 = 0; b16 < kChunk; b16 += 16) {
+                                uint32_t w4[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+                                for (int b = 0; b < 16; ++b) {
+                                    const int c = c0 + b16 + b;
+                                    const uint32_t v =
+                                        (row < r_end && c < W) ? packed[(size_t)row * W + c] : 0u;
+                                    w4[b / 4] |= v << (8 * (b % 4));
+                                }
+                                *reinterpret_cast<uint4*>(dst + r * kChunk + b16) =
+                                    make_uint4(w4[0], w4[1], w4[2], w4[3]);
+                            }
+                        }
+                        mbar_arrive(&cfull[cs]);
+                    } else if (lane == 0) {
+                        mbar_expect_tx(&cfull[cs], ROWS * kChunk);
+                        tma_load_2d(dst, &amap, &cfull[cs], c0, r0);
+                    } else {
+                        mbar_arrive(&cfull[cs]);
+                    }
+                    ++jc;
+                }
+                const int j = t * n_k + ks, s = j % stages;
+                mbar_wait(&empty[s], ((j / stages) & 1) ^ 1);
+                uint8_t* st = ring + s * STAGE;
+                if (lane == 0) {
+                    mbar_expect_tx(&full[s], STAGE);
+                    if (!BIN) tma_load_2d(st, &amap, &full[s], ks * 64, r0);
+                    tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * 64, q0);
+                } else {
+                    mbar_arrive(&full[s]);
+                }
+            }
+        }
+        return;
+    }
+
+    // ---- consumer warpgroups: rows r0 + 64 MT wg .. + 64 MT of each tile,
+    // m64 tile mt at r0 + 64 (MT wg + mt) ----
+    const int ctid = threadIdx.x;
+    const int warp = (ctid % kWgThreads) / 32, t4 = lane % 4;
+    const int rr = wg * 64 * MT + warp * 16 + lane / 4;   // rows rr + 64 mt and + 8
+    const uint32_t ring_addr = smem_addr(ring);
+    float acc[MT][NV];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc[mt][i] = 0.f;
+    uint32_t pend[NP];
+    int j = 0, jc = 0;
+
+    auto release = [&](int jj) {   // this warp is done with stage jj
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[jj % stages]);
+    };
+    // binary: step ks (ring stage jj) unpacked into `a`, its products issued
+    auto bin_issue = [&](uint32_t (&a)[MT][4][4], int ks, int jj) {
+        if (ks % kChunkSteps == 0) mbar_wait(&cfull[jc % 2], (jc / 2) & 1);
+        uint2 va[MT], vb[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            const uint8_t* pk = chunks + (jc % 2) * ROWS * kChunk + (rr + 64 * mt) * kChunk +
+                                (ks % kChunkSteps) * 8;
+            va[mt] = *reinterpret_cast<const uint2*>(pk);
+            vb[mt] = *reinterpret_cast<const uint2*>(pk + 8 * kChunk);
+        }
+        if (ks % kChunkSteps == kChunkSteps - 1 || ks == n_k - 1) {   // the chunk is read
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&cempty[jc % 2]);
+            ++jc;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            const uint32_t wa[2] = {va[mt].x, va[mt].y}, wb[2] = {vb[mt].x, vb[mt].y};
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {   // byte t4 of word m: k16 chunks 2m and 2m + 1
+                const uint32_t xa = (wa[m] >> (8 * t4)) & 0xffu, xb = (wb[m] >> (8 * t4)) & 0xffu;
+                a[mt][2 * m][0] = sign_pairs(xa, 0);
+                a[mt][2 * m][1] = sign_pairs(xb, 0);
+                a[mt][2 * m][2] = sign_pairs(xa, 1);
+                a[mt][2 * m][3] = sign_pairs(xb, 1);
+                a[mt][2 * m + 1][0] = sign_pairs(xa, 2);
+                a[mt][2 * m + 1][1] = sign_pairs(xb, 2);
+                a[mt][2 * m + 1][2] = sign_pairs(xa, 3);
+                a[mt][2 * m + 1][3] = sign_pairs(xb, 3);
+            }
+        }
+        const int s = jj % stages;
+        mbar_wait(&full[s], (jj / stages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+                WgmmaRSK<N>::run(acc[mt], a[mt][c],
+                                 gmma_desc(ring_addr + s * STAGE + c * 32, 16, 1024, 1),
+                                 (ks > 0 || c > 0) ? 1 : 0);
+        wgmma_commit();
+    };
+    auto fence_frag = [](uint32_t (&a)[MT][4][4]) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) fence_operand(a[mt][c]);
+    };
+    // a passing score takes one of its query's slots; one atomic per warp
+    // and query column (the 8 lanes of equal lane % 4 share the columns)
+    // (returns whether the slots were full: the score waits for a round)
+    auto offer = [&](bool pass, int c, float v, int row, bool& active) {
+        const unsigned m = __ballot_sync(FULL, pass);
+        if (m == 0u) return false;
+        const unsigned grp = m & (0x11111111u << t4);
+        const int leader = grp ? __ffs(grp) - 1 : lane;
+        int base = 0;
+        if (pass && lane == leader) base = atomicAdd(&cnt[c], __popc(grp));
+        base = __shfl_sync(FULL, base, leader);
+        if (!pass) return false;
+        active = true;
+        const int pos = base + __popc(grp & ((1u << lane) - 1u));
+        if (pos >= NC) return true;
+        cand_s[pos * N + c] = v;
+        cand_i[pos * N + c] = row;
+        return false;
+    };
+
+    RV_PROF(long long p_mma = 0, p_gate = 0, p_flush = 0, p_early = 0, p_wait = 0;
+            int p_rounds = 0;)
+    for (int t = 0; t < n_tiles; ++t) {
+        RV_PROF(const long long c0 = clock64();)
+        const int r0 = r_begin + t * ROWS;
+        int row_a[MT], row_b[MT];
+        bool ok_a[MT], ok_b[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            row_a[mt] = r0 + rr + 64 * mt;
+            row_b[mt] = row_a[mt] + 8;
+            ok_a[mt] = row_a[mt] < r_end && (mask == nullptr || mask[row_a[mt]] != 0);
+            ok_b[mt] = row_b[mt] < r_end && (mask == nullptr || mask[row_b[mt]] != 0);
+        }
+        if constexpr (BIN) {
+            uint32_t fa[MT][4][4], fb[MT][4][4];
+            // two fragment buffers at N = 128: a step's unpack beside the last step's products
+            if constexpr (MT == 1 && N <= 128) {
+                for (int ks = 0; ks < n_k; ks += 2) {
+                    bin_issue(fa, ks, j + ks);
+                    if (ks > 0) {
+                        wgmma_wait<1>();
+                        fence_frag(fb);
+                        release(j + ks - 1);
+                    }
+                    if (ks + 1 < n_k) {
+                        bin_issue(fb, ks + 1, j + ks + 1);
+                        wgmma_wait<1>();
+                        fence_frag(fa);
+                        release(j + ks);
+                    }
+                }
+            } else {   // one buffer: two m64 tiles (N <= 64) or N = 256 fill the registers
+                for (int ks = 0; ks < n_k; ++ks) {
+                    if (ks > 0) {
+                        wgmma_wait<0>();
+                        fence_frag(fa);
+                        release(j + ks - 1);
+                    }
+                    bin_issue(fa, ks, j + ks);
+                }
+            }
+            wgmma_wait<0>();
+            fence_frag(fa);
+            fence_frag(fb);
+            j += n_k;
+            release(j - 1);
+        } else {
+            for (int ks = 0; ks < n_k; ++ks, ++j) {
+                const int s = j % stages;
+                const uint32_t st = ring_addr + s * STAGE;
+                mbar_wait(&full[s], (j / stages) & 1);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)   // k16 steps: 32 bytes into the swizzled rows
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+                        WgmmaSS<N>::run(acc[mt],
+                                        gmma_desc(st + (wg * MT + mt) * 64 * 128 + kk * 32, 16,
+                                                  1024, 1),
+                                        gmma_desc(st + A_BYTES + kk * 32, 16, 1024, 1),
+                                        (ks > 0 || kk > 0) ? 1 : 0);
+                wgmma_commit();
+                wgmma_wait<1>();   // step j - 1's products are done: release its stage
+                if (ks > 0) release(j - 1);
+            }
+            wgmma_wait<0>();
+            release(j - 1);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_operand(acc[mt]);
+        RV_PROF(const long long c1 = clock64(); p_mma += c1 - c0;)
+
+        // ---- gate: acc[mt][4 i + e] is row (e < 2 ? row_a : row_b)[mt],
+        // query column 8 i + 2 t4 + (e & 1); its pending bit mt NV + 4 i + e ----
+        bool active = false;
+#pragma unroll
+        for (int w = 0; w < NP; ++w) pend[w] = 0u;
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i) {
+            const int col = 8 * i + 2 * t4;
+            const float2 ts = *reinterpret_cast<const float2*>(kth_s + col);
+            const int2 ti = *reinterpret_cast<const int2*>(kth_i + col);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                bool p[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    p[e] = (e < 2 ? ok_a[mt] : ok_b[mt]) && col + (e & 1) < nq &&
+                           better(acc[mt][4 * i + e], e < 2 ? row_a[mt] : row_b[mt],
+                                  (e & 1) ? ts.y : ts.x, (e & 1) ? ti.y : ti.x);
+                if (__ballot_sync(FULL, p[0] || p[1] || p[2] || p[3]) == 0u) continue;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int idx = mt * NV + 4 * i + e;
+                    if (offer(p[e], col + (e & 1), acc[mt][4 * i + e],
+                              e < 2 ? row_a[mt] : row_b[mt], active))
+                        pend[idx / 32] |= 1u << (idx % 32);
+                }
+            }
+        }
+        RV_PROF(const long long c2 = clock64(); p_gate += c2 - c1;)
+        // ---- select rounds: each query's thread inserts its candidates;
+        // then the scores that found the slots full are gated again ----
+        for (;;) {
+            RV_PROF(const long long b0 = clock64();)
+            const bool any = named_bar_or(1, kConsumers, active);
+            RV_PROF(p_wait += clock64() - b0;)
+            if (!any) break;
+            RV_PROF(++p_rounds;)
+            // a query whose candidates need few shifts (nc k <= kSerial):
+            // its own thread inserts them from the list's end; the others,
+            // warp q % 8 merges in one pass
+            const int q = ctid;
+            const int nc = q < nq ? min(cnt[q], NC) : 0;
+            if (nc > 0 && nc * k <= kSerial) {
+                float* S = st_s + q * kp;
+                int* I = st_i + q * kp;
+                for (int e = 0; e < nc; ++e) {
+                    const float sv = cand_s[e * N + q];
+                    const int iv = cand_i[e * N + q];
+                    if (!better(sv, iv, S[k - 1], I[k - 1])) continue;
+                    int pp = k - 1;
+                    while (pp > 0 && better(sv, iv, S[pp - 1], I[pp - 1])) {
+                        S[pp] = S[pp - 1];
+                        I[pp] = I[pp - 1];
+                        --pp;
+                    }
+                    S[pp] = sv;
+                    I[pp] = iv;
+                }
+                kth_s[q] = S[k - 1];
+                kth_i[q] = I[k - 1];
+                cnt[q] = 0;
+            }
+            {
+                const int w8 = ctid / 32, qq = w8 + 8 * lane;   // lane's query (N / 8 <= 32)
+                const int nh = lane < N / 8 && qq < nq ? min(cnt[qq], NC) : 0;
+                for (unsigned h = __ballot_sync(FULL, nh * k > kSerial); h != 0u; h &= h - 1u) {
+                    const int src = __ffs(h) - 1, qh = w8 + 8 * src;
+                    float* S = st_s + qh * kp;
+                    int* I = st_i + qh * kp;
+                    warp_merge(S, I, k, cand_s + qh, cand_i + qh, N, __shfl_sync(FULL, nh, src),
+                               xs + w8 * TOPK_KMAX, xi + w8 * TOPK_KMAX, lane);
+                    if (lane == src) {
+                        kth_s[qh] = S[k - 1];
+                        kth_i[qh] = I[k - 1];
+                        cnt[qh] = 0;
+                    }
+                }
+            }
+            RV_PROF(const long long b1 = clock64();)
+            named_bar_sync(1, kConsumers);
+            RV_PROF(p_wait += clock64() - b1;)
+            active = false;
+            bool any_pend = false;
+#pragma unroll
+            for (int w = 0; w < NP; ++w) any_pend = any_pend || pend[w] != 0u;
+            if (!__any_sync(FULL, any_pend)) continue;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < N / 8; ++i) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int idx = mt * NV + 4 * i + e, c = 8 * i + 2 * t4 + (e & 1);
+                    const int row = e < 2 ? row_a[mt] : row_b[mt];
+                    const float v = acc[mt][4 * i + e];
+                    const uint32_t bit = 1u << (idx % 32);
+                    const bool was = (pend[idx / 32] & bit) != 0u;
+                    pend[idx / 32] &= ~bit;
+                    if (offer(was && better(v, row, kth_s[c], kth_i[c]), c, v, row, active))
+                        pend[idx / 32] |= bit;
+                }
+            }
+        }
+        RV_PROF(p_flush += clock64() - c2; if (t < 4) p_early += clock64() - c1;)
+    }
+    named_bar_sync(1, kConsumers);
+    RV_PROF(if (ctid == 0 && blockIdx.x == 0 && blockIdx.y == 0) printf(
+        "scan_wg N=%d bin=%d k=%d tiles=%d cycles: products %lld gate %lld select %lld "
+        "(barrier waits %lld; gate and select of tiles 0-3: %lld); rounds %d\n", N, (int)BIN, k,
+        n_tiles, p_mma, p_gate, p_flush, p_wait, p_early, p_rounds);)
+    for (int idx = ctid; idx < nq * k; idx += kConsumers) {
+        const int q = idx / k, jj = idx % k;
+        const size_t o = ((size_t)split * Q + q0 + q) * k + jj;
+        part_s[o] = st_s[q * kp + jj];
+        part_i[o] = st_i[q * kp + jj];
+    }
 }
+
+// a 2-D map over [rows][cols] (cols contiguous), box [box_rows][box_cols];
+// out-of-bounds elements read zero
+static bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* ptr,
+                     int cols, int rows, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// launches one instantiation; *n_splits comes in as the caller's cap and
+// goes out as the splits launched: at most one wave (occupancy x SMs)
+template <int N, bool BIN>
+static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned char* packed,
+                    int W, const unsigned char* mask, int Q, int n_valid, int k, int n_k,
+                    const Plan& p, int* n_splits, float* part_s, int* part_i,
+                    cudaStream_t stream) {
+    auto kernel = topk_scan_wg_kernel<N, BIN>;
+    const size_t smem = smem_bytes(N, k, BIN, p.stages);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 1, occ = 1;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem)) !=
+            cudaSuccess)
+        return (int)err;
+    *n_splits = max(1, min(*n_splits, ceil_div(max(occ, 1) * sms, p.q_blocks)));
+    constexpr int ROWS = kRows * m_tiles(N);
+    int rows_per_split = ceil_div(n_valid, *n_splits);
+    rows_per_split = ceil_div(rows_per_split, ROWS) * ROWS;
+    kernel<<<dim3(*n_splits, p.q_blocks), kThreads, smem, stream>>>(
+        am, qm, packed, W, mask, Q, n_valid, k, n_k, rows_per_split, p.stages, part_s, part_i);
+    return (int)cudaGetLastError();
+}
+
+static inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// bf16 rows db [n_valid.., D] (D % 8 == 0, 16-byte aligned) against q [Q, D];
+// or (BIN) packed rows [n_valid.., W = D] against the query permuted to the
+// k loop's order, [Q, 8 W16] bf16 (W16: W rounded up to 16)
+template <bool BIN>
+static int launch_wg(const void* db, const void* q, const unsigned char* mask, int D, int Q,
+                     int n_valid, int k, int* n_splits, float* part_s, int* part_i,
+                     cudaStream_t stream) {
+    const Plan p = plan(Q, k, BIN);
+    const int rows = kRows * m_tiles(p.n);   // the tile's rows: the rows' TMA box
+    const int w16 = ceil_div(D, 16) * 16;
+    const int qcols = BIN ? 8 * w16 : D;
+    const int n_k = ceil_div(qcols, 64);
+    CUtensorMap am, qm;
+    const unsigned char* packed = nullptr;
+    if (!aligned16(q) ||
+        !make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, qcols, Q, 64, p.n,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+        return kMapError;
+    if (BIN && (D % 16 != 0 || !aligned16(db))) {
+        packed = static_cast<const unsigned char*>(db);   // the producer copies the rows
+        am = qm;                                          // unused
+    } else if (BIN ? !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, db, D, n_valid, kChunk,
+                               rows, CU_TENSOR_MAP_SWIZZLE_NONE)
+                   : !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, db, D, n_valid, 64,
+                               rows, CU_TENSOR_MAP_SWIZZLE_128B)) {
+        return kMapError;
+    }
+    switch (p.n) {
+#define RV_WG_CASE(NN)                                                                       \
+    case NN:                                                                                 \
+        return launch_n<NN, BIN>(am, qm, packed, D, mask, Q, n_valid, k, n_k, p, n_splits,   \
+                                 part_s, part_i, stream);
+        RV_WG_CASE(8) RV_WG_CASE(16) RV_WG_CASE(32) RV_WG_CASE(64) RV_WG_CASE(128)
+#undef RV_WG_CASE
+    }
+    return kUnsupported;
+}
+
+}  // namespace scan_wg
 
 // One warp per query: k-way merge of the n_splits sorted partial lists.
 __global__ void topk_merge_kernel(const float* __restrict__ part_s,
@@ -642,11 +1104,11 @@ static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
     int rows_per_split = ceil_div(max(n_valid, 1), n_splits);
     rows_per_split = ceil_div(rows_per_split, TOPK_RT) * TOPK_RT;
     int status;
-    if (mode == kBFloat16 && D % 8 == 0)
-        status = launch_smem(topk_scan_tc_kernel, topk_tc_smem(k), Q, n_splits, stream,
-                             static_cast<const __nv_bfloat16*>(db),
-                             static_cast<const __nv_bfloat16*>(q), mask, D, Q, n_valid,
-                             k, rows_per_split, part_s, part_i);
+    if (n_valid <= 0)   // no row scores: every slot (-inf, -1)
+        return launch_merge(part_s, part_i, Q, k, 0, out_s, out_i, stream);
+    if (mode == kBFloat16 && D % 8 == 0 && scan_wg::aligned16(db))
+        status = scan_wg::launch_wg<false>(db, q, mask, D, Q, n_valid, k, &n_splits, part_s,
+                                           part_i, stream);
     else if (mode == kBFloat16)
         status = launch_scan<__nv_bfloat16>(db, q, mask, D, Q, n_valid, k, n_splits,
                                             rows_per_split, part_s, part_i, stream);
@@ -662,10 +1124,8 @@ static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
                              D, Q, n_valid, k, rows_per_split, vec, part_s, part_i);
     }
     else if (mode == kBinaryPacked && D <= BIN_WMAX)
-        status = launch_smem(topk_scan_bin_kernel, topk_bin_smem(k, D), Q, n_splits,
-                             stream, static_cast<const unsigned char*>(db),
-                             static_cast<const __nv_bfloat16*>(q), mask, D, Q, n_valid,
-                             k, rows_per_split, part_s, part_i);
+        status = scan_wg::launch_wg<true>(db, q, mask, D, Q, n_valid, k, &n_splits, part_s,
+                                          part_i, stream);
     else
         return kUnsupported;
     if (status != 0) return status;

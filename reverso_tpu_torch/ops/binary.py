@@ -10,11 +10,15 @@ adapter does, matching qdrant's semantics).
 
 Result contract as every other scan: ordered by (-score, idx), ties to
 the lower row id, -1 in absent slots. On a CUDA tensor `binary_topk`
-launches the top-k kernel's binary mode (`csrc/topk_stream.cu`, K10); on a
-CPU tensor it runs `binary_topk_ref`.
+launches the wgmma scan of `csrc/topk_stream.cu` in binary mode (K10, any
+plane width W <= 1024: rows through TMA where W % 16 == 0, copied by its
+producer warp otherwise), with the query permuted to the kernel's
+dimension order (`kernel_order`); on a CPU tensor it runs
+`binary_topk_ref`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -55,6 +59,45 @@ def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
     return u * 2 - 1
 
 
+def kernel_order(w: int) -> torch.Tensor:
+    """The binary kernel's dimension order for plane width `w`: [8 * W16]
+    int64 (W16 = w rounded up to 16), entry kappa the planar dimension
+    b * w + p that the k loop's position kappa scores (-1: a padding byte).
+
+    Byte p of a row (p = 8 s + 4 m + t) bit b sits at kappa = 64 s + 32 m +
+    16 (b >> 2) + 8 ((b >> 1) & 1) + 2 t + (b & 1): the 8 bits of one byte
+    are the 8 wgmma A-fragment values one consumer thread holds for two k16
+    chunks of the 64-wide k step s (csrc/topk_stream.cu, scan_wg). A sum over dimensions does not
+    depend on their order, so the query is permuted to match."""
+    w16 = -(-w // 16) * 16
+    p = torch.arange(w16).repeat_interleave(8)            # byte of each (p, b)
+    b = torch.arange(8).repeat(w16)                       # its bit
+    kappa = (64 * (p // 8) + 32 * (p % 8 // 4) + 16 * (b >> 2) + 8 * ((b >> 1) & 1)
+             + 2 * (p % 4) + (b & 1))
+    order = torch.full((8 * w16,), -1, dtype=torch.int64)
+    order[kappa] = torch.where(p < w, b * w + p, -1)
+    return order
+
+
+def kernel_queries(queries: torch.Tensor, w: int) -> torch.Tensor:
+    """[Q, d] queries -> [Q, 8 * W16] bf16 in the binary kernel's
+    dimension order (`kernel_order`), zero at padding positions and at
+    planar dimensions >= d."""
+    cols = _kernel_columns(w, str(queries.device))
+    qb = torch.zeros((queries.shape[0], 8 * w + 1), dtype=torch.bfloat16,
+                     device=queries.device)
+    qb[:, :queries.shape[1]] = queries
+    return qb[:, cols]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_columns(w: int, device: str) -> torch.Tensor:
+    """`kernel_order(w)` on `device` with padding pointed at column 8w (a
+    zero column), made once per (w, device): no host-to-card copy per call."""
+    order = kernel_order(w)
+    return torch.where(order >= 0, order, 8 * w).to(device)
+
+
 def binary_topk_ref(packed: torch.Tensor, queries: torch.Tensor, k: int, d: int,
                     n_valid: Optional[int] = None, row_mask=None, *,
                     chunk: int = _CHUNK_ROWS):
@@ -76,8 +119,8 @@ def binary_topk(packed: torch.Tensor, queries: torch.Tensor, k: int, d: int,
                 n_valid: Optional[int] = None, row_mask=None):
     """Fused binary candidate top-k; same contract as `binary_topk_ref`.
 
-    A CUDA matrix launches the top-k kernel's binary mode (the query is
-    cast to bf16 and zero-padded to 8W dims); above the kernel's k cap a
+    A CUDA matrix launches the wgmma scan's binary mode (the query cast to
+    bf16 and permuted by `kernel_queries`); above the kernel's k cap a
     CUDA search takes the plain version, counted in
     `kernels.plain_dispatches["binary_above_cap"]`."""
     n, w = packed.shape
@@ -93,8 +136,6 @@ def binary_topk(packed: torch.Tensor, queries: torch.Tensor, k: int, d: int,
         log.info(f"k={k} above the top-k kernel cap {K_CAP}: plain binary scan")
         kernels.plain_dispatches["binary_above_cap"] += 1
         return binary_topk_ref(packed, queries, k, d, n_valid, row_mask)
-    qb = torch.zeros((queries.shape[0], 8 * w), dtype=torch.bfloat16,
-                     device=queries.device)
-    qb[:, :d] = queries
-    return _launch_topk("binary_topk", "topk_binary", packed, qb, k, n_valid,
-                        kernels.BINARY_PACKED, as_row_mask(row_mask, n, packed.device))
+    return _launch_topk("binary_topk", "topk_binary", packed, kernel_queries(queries, w), k,
+                        n_valid, kernels.BINARY_PACKED,
+                        as_row_mask(row_mask, n, packed.device), dims=d)

@@ -1,4 +1,4 @@
-"""Exact top-k search: the streaming CUDA kernel and its plain versions.
+"""Exact top-k search: the streaming CUDA kernels and their plain versions.
 
 The database is a device-resident [N, d] matrix: L2-normalized bf16 or
 fp32 rows (fp32 accumulation), or int8 rows with one global scale, scored
@@ -9,6 +9,16 @@ scoring rows come back as (score -inf, idx -1). On a CUDA tensor
 `cosine_topk` and `cosine_topk_int8_exact` launch `csrc/topk_stream.cu`,
 whose two passes never materialize the [Q, N] score matrix; on a CPU
 tensor they run `cosine_topk_ref` / `cosine_topk_int8_ref`.
+
+Which kernel of `topk_stream.cu` serves which call:
+  * bf16 rows with d % 8 == 0 (K1, K2 with a row mask) and packed sign
+    rows (K10, `ops/binary.py`): `topk_scan_wg_kernel`, wgmma + TMA, each
+    CTA scoring 256-row tiles (128 at Q > 64) against a block of up to 128
+    queries (`wg_plan`; Q above 128 runs as several blocks, each reading
+    the rows again);
+  * fp32 rows, and bf16 rows with d % 8 != 0: `topk_scan_kernel`, FMA on
+    the CUDA cores, 64 queries x 64 rows a tile;
+  * int8 rows (K9): `topk_scan_i8_kernel`, s8 WMMA, 64 x 64 tiles.
 """
 from __future__ import annotations
 
@@ -24,8 +34,14 @@ log = get_logger("ops.topk")
 
 # k cap of the CUDA kernel (TOPK_KMAX in csrc/topk_select.cuh)
 K_CAP = 128
-_QUERY_TILE = 64   # TOPK_QT in csrc/topk_stream.cu
+_QUERY_TILE = 64   # TOPK_QT in csrc/topk_stream.cu: the CUDA-core and int8 kernels
 _ROW_TILE = 64     # TOPK_RT
+# the wgmma scan's geometry (scan_wg:: in csrc/topk_stream.cu)
+WG_ROWS = 128        # rows of a tile per m64 tile of each warpgroup (wg_m_tiles)
+WG_SLOT_BYTES = 16384   # the candidate slots of a query block
+WG_MAX_STAGES = 8
+WG_N_MAX = 128       # queries of a block
+SMEM_MAX = 232448    # shared memory a CTA may use (227 KB)
 # int8 exactness: every digit's dot (and each partial sum) is an integer of
 # magnitude <= d * 127^2, exact in fp32 only below 2^24, i.e. d <= 1040
 INT8_D_MAX = (2 ** 24 - 1) // (127 * 127)
@@ -105,17 +121,81 @@ def cosine_topk_ref(db: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def scan_splits(dev: torch.device, qn: int, n_valid: int) -> int:
-    """Row splits of a streaming top-k launch: about two waves of CTAs
-    over the SMs, split along the rows."""
-    n_q_tiles = -(-qn // _QUERY_TILE)
+    """Row splits of a CUDA-core or int8 top-k launch (64-query tiles):
+    about two waves of CTAs over the SMs, split along the rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_row_tiles = max(1, -(-n_valid // _ROW_TILE))
-    return max(1, min(-(-2 * sms // n_q_tiles), n_row_tiles))
+    return split_count(sms, -(-qn // _QUERY_TILE), n_valid, _ROW_TILE)
+
+
+def split_count(sms: int, q_blocks: int, n_valid: int, row_tile: int) -> int:
+    """About two waves of CTAs: 2 * sms / q_blocks row splits, at most one
+    per row tile."""
+    n_row_tiles = max(1, -(-n_valid // row_tile))
+    return max(1, min(-(-2 * sms // q_blocks), n_row_tiles))
+
+
+def wg_cand(n: int) -> int:
+    """Candidate slots per query of an n-query block (scan_wg::cand_slots):
+    16 KB of (score, row) pairs, 8 to 32 a query."""
+    return max(8, min(32, WG_SLOT_BYTES // 8 // n))
+
+
+def wg_m_tiles(n: int) -> int:
+    """m64 tiles a consumer warpgroup holds at query block n
+    (scan_wg::m_tiles): two (256-row tiles) at n <= 64, one at 128."""
+    return 2 if n <= 64 else 1
+
+
+def wg_smem(n: int, k: int, binary: bool, stages: int) -> int:
+    """Shared memory of one wgmma scan CTA (scan_wg::smem_bytes): 1 KB of
+    alignment, the ring (a stage: the queries, [n][64] bf16, and in bf16
+    mode the tile's rows, [128 m][64], m = wg_m_tiles(n)), binary mode's
+    two-slot ring of packed row chunks ([128 m][128 B] each), the sorted
+    lists ([n][k | 1] score, index
+    pairs), the candidate slots, the k-th entries and counts, the 8
+    consumer warps' merge scratch (128 pairs each), and the barriers."""
+    rows = WG_ROWS * wg_m_tiles(n)
+    ring = stages * ((0 if binary else rows * 128) + n * 128)
+    chunks = 2 * rows * 128 if binary else 0
+    return (1024 + chunks + ring + n * (8 * (k | 1) + 8 * wg_cand(n) + 12)
+            + 8 * 8 * K_CAP + 16 * (WG_MAX_STAGES + 2))
+
+
+def wg_plan(qn: int, k: int, binary: bool) -> tuple[int, int, int]:
+    """(n_pad, q_blocks, stages) of a wgmma scan launch (scan_wg::plan).
+
+    The query block is the widest power of two <= 128 whose sorted lists
+    fit beside a two-stage ring (128 at every k <= 128); Q runs as
+    ceil(Q / block) blocks of equal size, each padded to the power of two
+    n_pad >= its size (wgmma's N, 8 at Q = 1), and the ring takes as many
+    stages (2-8) as fit."""
+    nmax = WG_N_MAX
+    while nmax > 8 and wg_smem(nmax, k, binary, 2) > SMEM_MAX:
+        nmax //= 2
+    q_blocks = -(-qn // nmax)
+    per = -(-qn // q_blocks)
+    n_pad = 8
+    while n_pad < per:
+        n_pad *= 2
+    stages = 2
+    while stages < WG_MAX_STAGES and wg_smem(n_pad, k, binary, stages + 1) <= SMEM_MAX:
+        stages += 1
+    return n_pad, q_blocks, stages
+
+
+def wg_route(mode: int, d: int) -> bool:
+    """Whether a launch takes the wgmma scan: bf16 rows with d % 8 == 0
+    (TMA's 16-byte row stride) and every packed-sign launch."""
+    return mode == kernels.BINARY_PACKED or (mode == kernels.DTYPE_CODES[torch.bfloat16]
+                                              and d % 8 == 0)
 
 
 def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
-                 k: int, n_valid: int, mode: int, row_mask=None):
-    """Launch csrc/topk_stream.cu in `mode`; returns (scores, idx) [Q, k]."""
+                 k: int, n_valid: int, mode: int, row_mask=None, dims: Optional[int] = None):
+    """Launch csrc/topk_stream.cu in `mode`; returns (scores, idx) [Q, k].
+    Counts the launch in `kernels.launches[counter]` and, by shape (Q,
+    n_valid, dims, k, masked; `dims` the scored dimensions, default d), in
+    `kernels.shape_launches`."""
     kernels.require_cuda(name, db, q, *([row_mask] if row_mask is not None else []))
     d = db.shape[1]
     qn = q.shape[-2]
@@ -124,7 +204,12 @@ def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     if qn == 0:
         return out_s, out_i
-    n_splits = scan_splits(dev, qn, n_valid)
+    if wg_route(mode, d):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_pad, q_blocks, _ = wg_plan(qn, k, mode == kernels.BINARY_PACKED)
+        n_splits = split_count(sms, q_blocks, n_valid, WG_ROWS * wg_m_tiles(n_pad))
+    else:
+        n_splits = scan_splits(dev, qn, n_valid)
     part_s = torch.empty((n_splits, qn, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, qn, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):   # launch on the tensors' card
@@ -135,6 +220,7 @@ def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
             out_s.data_ptr(), out_i.data_ptr(), mode, kernels.stream_ptr(dev))
     kernels.check(name, status)
     kernels.launches[counter] += 1
+    kernels.shape_launches[(counter, (qn, n_valid, dims or d, k, row_mask is not None))] += 1
     return out_s, out_i
 
 

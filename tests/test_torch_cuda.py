@@ -123,8 +123,14 @@ def test_fused_mlp_kernel(dev, dtype, t, w, hid, act):
     (4096, 128, 70, 5, 3001),     # two query tiles, n_valid < N
     (300, 32, 4, 20, 12),         # k > n_valid
     (5000, 96, 3, 128, None),     # k at the cap
+    (20000, 1024, 1, 10, None),   # Q = 1: the wgmma scan's n8 block
+    (20000, 256, 64, 5, None),    # the direct-embed path's search_batch
+    (20000, 128, 256, 10, 19000),
+    (20000, 128, 300, 10, None),  # Q above 256: two query blocks
+    (20000, 128, 256, 128, None), # k = 128 at Q = 256: two query blocks
 ])
 def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
+    from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
 
     gen = torch.Generator(device="cuda").manual_seed(n)
@@ -132,7 +138,11 @@ def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
     db = (db / db.norm(dim=1, keepdim=True)).to(dtype)
     db[n // 2] = db[1]                      # a duplicate: tie -> lower row
     qs = torch.cat([db[1:2], _randn(gen, q - 1, d, dtype=dtype)])
+    key = ("topk_stream", (q, n if n_valid is None else n_valid, d, k, False))
+    n0, s0 = kernels.launches["topk_stream"], kernels.shape_launches[key]
     s, i = cosine_topk(db, qs, k, n_valid=n_valid)
+    assert kernels.launches["topk_stream"] == n0 + 1
+    assert kernels.shape_launches[key] == s0 + 1
     rs, ri = cosine_topk_ref(db, qs, k, n_valid=n_valid)
     fin = torch.isfinite(rs)
     assert torch.equal(fin, torch.isfinite(s))
@@ -143,6 +153,8 @@ def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
     clear = (torch.cat([inf, gap], 1) > 1e-4) & (torch.cat([gap, inf], 1) > 1e-4)
     assert torch.equal(torch.where(clear, i, -2), torch.where(clear, ri, -2))
     assert torch.equal(i[~fin], torch.full_like(i[~fin], -1))
+    if k >= 2 and (n_valid is None or n_valid > n // 2):
+        assert i[0, :2].tolist() == [1, n // 2]   # the tie goes to the lower row
     if n_valid is None or n_valid > n // 2:
         assert i[0, :2].tolist() == [1, n // 2]
 
@@ -273,6 +285,11 @@ MASKED_CASES = [
     (300, 96, 4, 40, 20, 0.3),        # k > n_valid
     (513, 128, 65, 10, None, 0.0),    # every row masked
     (5000, 1024, 3, 128, None, 0.7),  # k at the cap
+    (20000, 64, 1, 10, None, 0.3),    # Q = 1
+    (20000, 1024, 64, 10, None, 0.1), # the capacity path's filtered search
+    (20000, 128, 256, 10, 19000, 0.3),
+    (20000, 128, 300, 10, None, 0.3), # Q above 256
+    (20000, 128, 256, 128, None, 0.5),  # k = 128 at Q = 256
 ]
 
 
@@ -288,9 +305,11 @@ def test_topk_masked_kernel(dev, dtype, n, d, q, k, n_valid, keep):
     mask = torch.rand(n, generator=gen, device="cuda") < keep
     mask[1] = mask[n // 2] = keep > 0
     qs = torch.cat([db[1:2], _unit_rows(gen, q - 1, d).to(dtype)])
-    n0 = kernels.launches["topk_masked"]
+    key = ("topk_masked", (q, n if n_valid is None else n_valid, d, k, True))
+    n0, s0 = kernels.launches["topk_masked"], kernels.shape_launches[key]
     s, i = cosine_topk(db, qs, k, n_valid=n_valid, row_mask=mask)
     assert kernels.launches["topk_masked"] == n0 + 1
+    assert kernels.shape_launches[key] == s0 + 1
     rs, ri = cosine_topk_ref(db, qs, k, n_valid=n_valid, row_mask=mask)
     torch.cuda.synchronize()
     _assert_topk_close(s, i, rs, ri, 1e-4)    # fp32 sums in another order
@@ -335,6 +354,12 @@ def test_topk_int8_kernel(dev, n, d, q, k, n_valid, keep):
     (300, 96, 4, 40, 20, 0.3),        # k > n_valid
     (513, 128, 65, 10, None, 0.0),    # every row masked
     (5000, 768, 3, 128, None, 0.7),
+    (20000, 1024, 1, 30, None, None),    # Q = 1
+    (20000, 1024, 64, 30, None, 0.1),    # the capacity path's shape
+    (3000, 200, 64, 10, None, 0.5),      # W = 25 at Q = 64
+    (20000, 1024, 256, 30, 19000, None),
+    (20000, 512, 300, 10, None, 0.5),    # Q above 256
+    (20000, 1024, 256, 128, None, None), # k = 128 at Q = 256
 ])
 def test_topk_binary_kernel(dev, n, d, q, k, n_valid, keep):
     from reverso_tpu_torch import kernels
@@ -346,15 +371,49 @@ def test_topk_binary_kernel(dev, n, d, q, k, n_valid, keep):
     packed = pack_signs(x - x.mean(0))
     qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d)])
     mask = None if keep is None else torch.rand(n, generator=gen, device="cuda") < keep
-    n0 = kernels.launches["topk_binary"]
+    key = ("topk_binary", (q, n if n_valid is None else n_valid, d, k, mask is not None))
+    n0, s0 = kernels.launches["topk_binary"], kernels.shape_launches[key]
     s, i = binary_topk(packed, qs, k, d, n_valid=n_valid, row_mask=mask)
     assert kernels.launches["topk_binary"] == n0 + 1
+    assert kernels.shape_launches[key] == s0 + 1
     rs, ri = binary_topk_ref(packed, qs, k, d, n_valid=n_valid, row_mask=mask)
     torch.cuda.synchronize()
     # sums of exact +-bf16(q_i) products in another order
     _assert_topk_close(s, i, rs, ri, 1e-4)
     if keep == 0.0:
         assert bool((i == -1).all())
+
+
+@pytest.mark.parametrize("mode", ["bf16", "masked", "binary"])
+def test_topk_tie_across_tiles_and_splits(dev, mode):
+    """Copies of row 1 on both sides of a warpgroup's m64 tiles (127/128)
+    and of row tiles that are also row-split boundaries: 4096 rows at
+    Q = 3 are 16 tiles of 256, fewer than the SMs, so the launch gives each
+    tile its own split. The wgmma scan returns the tied rows in ascending
+    order."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops import topk
+    from reverso_tpu_torch.ops.binary import binary_topk, pack_signs
+
+    n, d, q, k = 4096, 128, 3, 7
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = topk.WG_ROWS * topk.wg_m_tiles(topk.wg_plan(q, k, mode == "binary")[0])
+    assert rows == 256 and topk.split_count(sms, 1, n, rows) == n // rows <= sms
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = _unit_rows(gen, n, d)
+    copies = [127, 128, 255, 256, 511, 512]
+    x[copies] = x[1].clone()
+    qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d)])
+    counter = {"bf16": "topk_stream", "masked": "topk_masked", "binary": "topk_binary"}[mode]
+    n0 = kernels.launches[counter]
+    if mode == "binary":
+        s, i = binary_topk(pack_signs(x - x.mean(0)), qs, k, d)
+    else:
+        mask = torch.ones(n, dtype=torch.bool, device="cuda") if mode == "masked" else None
+        s, i = topk.cosine_topk(x.to(torch.bfloat16), qs.to(torch.bfloat16), k, row_mask=mask)
+    assert kernels.launches[counter] == n0 + 1
+    assert i[0].tolist() == sorted([1] + copies)
+    assert len(set(s[0].tolist())) == 1
 
 
 @pytest.mark.parametrize("mode", ["bfloat16", "float32", "int8"])

@@ -1,0 +1,377 @@
+"""The wgmma top-k scan's selection, binary dimension order and launch
+geometry (`reverso_tpu_torch/csrc/topk_stream.cu`, `scan_wg`: K1, K2,
+K10), on the CPU.
+
+The CUDA kernel runs only on the card (tests/test_torch_cuda.py and
+chip_smoke.py hold it against its plain versions there). Here a numpy
+emulation of its selection, the Python mirror of its geometry and its
+binary query permutation are held against the JAX package's kernels (in
+interpret mode or through their XLA references) and the port's plain
+versions. Inputs are made with numpy from a seed.
+"""
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reverso_tpu.ops import binary as jbin
+from reverso_tpu.ops import topk as jtopk
+from reverso_tpu_torch import kernels
+from reverso_tpu_torch.ops import binary as tbin
+from reverso_tpu_torch.ops import topk as ttopk
+from test_topk import random_unit
+
+SRC = os.path.join(os.path.dirname(kernels.__file__), "csrc", "topk_stream.cu")
+
+
+# ---------------------------------------------------------------------------
+# (a) the selection: gate, candidate slots, unordered inserts, splits, merge
+# ---------------------------------------------------------------------------
+
+def _better(sa, ia, sb, ib):
+    return sa > sb or (sa == sb and ia < ib)
+
+
+def emulate_scan(scores, k, n_valid, mask, n_splits, rng, rows=ttopk.WG_ROWS, cand=8):
+    """The kernel's pass 1 and pass 2 on precomputed [Q, N] fp32 scores.
+
+    Each split walks its rows in `rows`-row tiles. A tile's scores reach
+    the gate in an arbitrary order (shuffled by `rng`, as the warps'
+    atomics interleave): a score of a kept row at or above its query's
+    k-th goes to the query's `cand` slots, or waits for the next round if
+    they are full; each round ends with every query inserting its slots'
+    candidates, in slot order, into its sorted list by (-score, idx) (the
+    kernel's warp merge of three or more gives the same list). Then the
+    splits' lists merge by (-score, idx). Returns (scores, idx) [Q, k]."""
+    q = scores.shape[0]
+    rps = -(-max(n_valid, 1) // n_splits)
+    rps = -(-rps // rows) * rows
+    parts = []
+    for sp in range(n_splits):
+        st_s = np.full((q, k), -np.inf, np.float32)
+        st_i = np.full((q, k), -1, np.int64)
+        r_end = min(n_valid, (sp + 1) * rps)
+        for r0 in range(sp * rps, r_end, rows):
+            rr = np.arange(r0, min(r0 + rows, r_end))
+            if mask is not None:
+                rr = rr[mask[rr]]
+            arrivals = [(qq, r) for qq in range(q) for r in rr]
+            order = rng.permutation(len(arrivals))
+            waiting = [arrivals[j] for j in order]
+            while waiting:
+                slots = [[] for _ in range(q)]
+                pending = []
+                for qq, r in waiting:
+                    if scores[qq, r] >= st_s[qq, k - 1]:      # the gate
+                        (slots[qq] if len(slots[qq]) < cand else pending).append((qq, r))
+                if not any(slots):
+                    break
+                for qq in range(q):
+                    for _, r in slots[qq]:
+                        s = scores[qq, r]
+                        if not _better(s, r, st_s[qq, k - 1], st_i[qq, k - 1]):
+                            continue
+                        p = k - 1
+                        while p > 0 and _better(s, r, st_s[qq, p - 1], st_i[qq, p - 1]):
+                            st_s[qq, p], st_i[qq, p] = st_s[qq, p - 1], st_i[qq, p - 1]
+                            p -= 1
+                        st_s[qq, p], st_i[qq, p] = s, r
+                waiting = pending
+        parts.append((st_s, st_i))
+    out_s = np.full((q, k), -np.inf, np.float32)
+    out_i = np.full((q, k), -1, np.int64)
+    for qq in range(q):          # pass 2: the heads of the sorted partials
+        heads = [0] * n_splits
+        for j in range(k):
+            best = None
+            for sp, (ps, pi) in enumerate(parts):
+                h = heads[sp]
+                if h >= k or pi[qq, h] < 0:
+                    continue
+                if best is None or _better(ps[qq, h], pi[qq, h], *best[1:]):
+                    best = (sp, ps[qq, h], pi[qq, h])
+            if best is None:
+                break
+            heads[best[0]] += 1
+            out_s[qq, j], out_i[qq, j] = best[1], best[2]
+    return out_s, out_i
+
+
+def exact_topk(scores, k, n_valid, mask):
+    """(-score, idx) order of the kept rows below n_valid by a stable sort."""
+    s = scores.astype(np.float32).copy()
+    s[:, n_valid:] = -np.inf
+    if mask is not None:
+        s[:, ~mask] = -np.inf
+    out_s = np.full((s.shape[0], k), -np.inf, np.float32)
+    out_i = np.full((s.shape[0], k), -1, np.int64)
+    for qq in range(s.shape[0]):
+        order = np.lexsort((np.arange(s.shape[1]), -s[qq]))[:k]
+        keep = np.isfinite(s[qq, order])
+        out_s[qq, :keep.sum()] = s[qq, order][keep]
+        out_i[qq, :keep.sum()] = order[keep]
+    return out_s, out_i
+
+
+def _tie_data(seed, n, d, q, dups, n_top):
+    """Unit rows with row 3 copied to `dups` (exact ties of query 0 = row
+    3), and query 1 a noisy copy of row 40 with row 40 copied two rows past
+    each of `dups` and `n_top` rows equal to the query itself, so that its
+    k-th place falls inside the tied group when k = n_top + 2."""
+    rng = np.random.default_rng(seed)
+    db = random_unit(rng, n, d)
+    qs = random_unit(rng, q, d)
+    for r in dups:
+        db[r] = db[3]
+    qs[0] = db[3]
+    q1 = db[40] + 0.3 * random_unit(rng, 1, d)[0]
+    qs[1] = q1 / np.linalg.norm(q1)
+    for r in dups:
+        db[r + 2] = db[40]
+    taken = {3, 40, *dups, *(r + 2 for r in dups)}
+    top = rng.choice([r for r in range(n) if r not in taken], n_top, replace=False)
+    db[top] = qs[1]
+    return db, qs
+
+
+def _scores(db, qs):
+    """fp32 scores rounded once from fp64: equal rows score bit-equal."""
+    return (qs.astype(np.float64) @ db.astype(np.float64).T).astype(np.float32)
+
+
+def _tie_margin_equal(s, i, rs, ri, tol):
+    """Scores within `tol`, the same -inf slots (idx -1), ids equal where
+    the reference's ranked scores are more than `tol` from both neighbours."""
+    fin = np.isfinite(rs)
+    np.testing.assert_array_equal(fin, np.isfinite(s))
+    np.testing.assert_array_equal(np.where(fin, 0, i), np.where(fin, 0, -1))
+    np.testing.assert_allclose(np.where(fin, s, 0), np.where(fin, rs, 0), atol=tol)
+    r = np.where(fin, rs, -1e9)
+    pad = np.full((r.shape[0], 1), np.inf)
+    gap_up = np.concatenate([pad, -np.diff(r, axis=1)], axis=1)
+    gap_dn = np.concatenate([-np.diff(r, axis=1), pad], axis=1)
+    clear = (gap_up > tol) & (gap_dn > tol)
+    np.testing.assert_array_equal(np.where(clear, i, -2), np.where(clear, ri, -2))
+
+
+# (n, d, q, k, n_valid, keep, n_splits): duplicates of row 3 (and of row
+# 40) sit at rows 127/128 (a tile boundary) and at the split boundary
+SEL_CASES = [
+    (700, 32, 5, 1, None, None, 2),      # k = 1: the lowest of the tied rows
+    (700, 32, 5, 4, None, None, 3),      # k-th place inside the tied groups
+    (1000, 48, 6, 10, 777, 0.6, 2),      # ragged n_valid, a mask
+    (400, 32, 4, 128, None, None, 2),    # k = 128
+    (300, 32, 3, 20, 260, 0.0, 2),       # every row masked
+    (900, 32, 4, 6, 513, None, 4),       # more splits than tiles past n_valid
+]
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid,keep,n_splits", SEL_CASES)
+def test_emulated_selection_is_exact(n, d, q, k, n_valid, keep, n_splits):
+    """The emulated gate + candidate slots + unordered inserts + merge give
+    the exact (-score, idx) top-k of the same fp32 scores, bit for bit,
+    under three arrival orders and slot counts (8, 32 and the launch's):
+    ties at the k-th place go to the lower row although candidates reach
+    the lists out of row order."""
+    nv = n if n_valid is None else n_valid
+    rps = -(-(-(-nv // n_splits)) // 128) * 128
+    dups = [127, 128, rps - 1, rps] if rps < n - 3 else [127, 128]
+    db, qs = _tie_data(n, n, d, q, dups, n_top=max(k - 2, 0))
+    rng = np.random.default_rng(k)
+    mask = None if keep is None else rng.random(n) < keep
+    if mask is not None and keep > 0:
+        mask[[3, 40] + dups + [r + 2 for r in dups]] = True
+    sc = _scores(db, qs)
+    want_s, want_i = exact_topk(sc, k, nv, mask)
+    for seed, cand in ((0, 8), (1, 32), (2, ttopk.wg_cand(ttopk.wg_plan(q, k, False)[0]))):
+        got_s, got_i = emulate_scan(sc, k, nv, mask, n_splits, np.random.default_rng(seed),
+                                    cand=cand)
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_s, want_s)
+    if keep == 0.0:
+        assert (want_i == -1).all()
+    elif k >= 2:
+        tied = sorted(r for r in [3] + dups if r < nv)
+        assert list(want_i[0, :min(k, len(tied))]) == tied[:k]
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid,keep,n_splits", SEL_CASES)
+def test_emulated_selection_matches_jax_and_plain(n, d, q, k, n_valid, keep, n_splits):
+    """The emulation against the JAX package's streaming kernel
+    (`cosine_topk_pallas`, interpret mode, k <= 128) and the port's plain
+    version on fp32 rows: scores within 1e-5 (the same fp32 products,
+    summed in another order) and ids equal where the margins are clear."""
+    nv = n if n_valid is None else n_valid
+    db, qs = _tie_data(n, n, d, q, [127, 128], n_top=max(k - 2, 0))
+    rng = np.random.default_rng(k + 1)
+    mask = None if keep is None else rng.random(n) < keep
+    got_s, got_i = emulate_scan(_scores(db, qs), k, nv, mask, n_splits,
+                                np.random.default_rng(0))
+    js, ji = (np.asarray(x) for x in jtopk.cosine_topk_pallas(
+        jnp.asarray(db), jnp.asarray(qs), k, n_valid=n_valid, q_tile=8, db_tile=256,
+        interpret=True, row_mask=None if mask is None else jnp.asarray(mask)))
+    ps, pi = ttopk.cosine_topk(torch.from_numpy(db), torch.from_numpy(qs), k,
+                               n_valid=n_valid, row_mask=mask)   # the plain version on the CPU
+    tol = 1e-5
+    _tie_margin_equal(got_s, got_i, js, ji, tol)
+    _tie_margin_equal(got_s, got_i, ps.numpy(), pi.numpy(), tol)
+
+
+def test_gate_must_admit_equal_scores():
+    """Why the gate is `s >= k-th`: with `s > k-th`, a lower row whose score
+    equals the k-th place, reaching the gate after a higher row of the
+    same score took that place, would be dropped."""
+    sc = np.array([[0.5, 0.9, 0.5]], np.float32)   # rows 0 and 2 tie
+    # the tile's arrivals: row 2 first, then 1, then 0
+    st_s, st_i = [-np.inf], [-1]
+    for r in (2, 1, 0):
+        if sc[0, r] > st_s[0] or (sc[0, r] == st_s[0] and r < st_i[0]):
+            st_s, st_i = [sc[0, r]], [r]
+    assert st_i == [1]
+    want_s, want_i = exact_topk(sc, 2, 3, None)
+    got_s, got_i = emulate_scan(sc, 2, 3, None, 1, np.random.default_rng(5))
+    np.testing.assert_array_equal(got_i, want_i)
+    assert list(got_i[0]) == [1, 0]
+
+
+# ---------------------------------------------------------------------------
+# (b) the binary kernel's dimension order
+# ---------------------------------------------------------------------------
+
+def _kernel_rows(packed):
+    """[N, W] packed rows -> [N, 8 W16] +-1 in the kernel's k order: byte p
+    bit b at kappa (csrc/topk_stream.cu, scan_wg); padding bytes are 0
+    bits, -1 (their query columns are 0)."""
+    n, w = packed.shape
+    w16 = -(-w // 16) * 16
+    pad = np.zeros((n, w16), np.uint8)
+    pad[:, :w] = packed
+    p = np.repeat(np.arange(w16), 8)
+    b = np.tile(np.arange(8), w16)
+    kappa = 64 * (p // 8) + 32 * (p % 8 // 4) + 16 * (b >> 2) + 8 * ((b >> 1) & 1) \
+        + 2 * (p % 4) + (b & 1)
+    rows = np.empty((n, 8 * w16), np.float32)
+    rows[:, kappa] = ((pad[:, p] >> b) & 1) * 2.0 - 1.0
+    return rows
+
+
+@pytest.mark.parametrize("w", [1, 12, 16, 25, 128, 1024])
+def test_kernel_order_is_a_permutation(w):
+    """Every planar dimension b W + p (p < W) appears once; the positions
+    of the padding bytes (W up to a multiple of 16) hold -1."""
+    order = tbin.kernel_order(w).numpy()
+    w16 = -(-w // 16) * 16
+    assert order.shape == (8 * w16,)
+    np.testing.assert_array_equal(np.sort(order[order >= 0]), np.arange(8 * w))
+    assert (order < 0).sum() == 8 * (w16 - w)
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid", [(1500, 1024, 5, 30, None),
+                                             (900, 200, 4, 10, 700),   # W = 25
+                                             (600, 96, 3, 20, None)])  # W = 12
+def test_binary_kernel_order_scores(n, d, q, k, n_valid):
+    """The permuted query (`kernel_queries`) against the rows' bits in the
+    kernel's order, selected by the emulated scan, against
+    `binary_topk_ref` and the JAX package's `binary_topk_xla`: scores
+    within 1e-4 (exact +-bf16(q_i) products, fp32 sums in another order)
+    and ids equal where the margins are clear."""
+    rng = np.random.default_rng(n + d)
+    db = random_unit(rng, n, d)
+    db[n // 2] = db[3]
+    qs = random_unit(rng, q, d)
+    qs[0] = db[3]
+    packed = jbin.pack_signs(db - db.mean(0))
+    w = packed.shape[1]
+    qk = tbin.kernel_queries(torch.from_numpy(qs), w).float().numpy()
+    sc = (qk.astype(np.float64) @ _kernel_rows(packed).T.astype(np.float64)).astype(np.float32)
+    nv = n if n_valid is None else n_valid
+    got_s, got_i = emulate_scan(sc, k, nv, None, 2, np.random.default_rng(1))
+    rs, ri = tbin.binary_topk_ref(torch.from_numpy(packed), torch.from_numpy(qs), k, d,
+                                  n_valid=n_valid)
+    js, ji = (np.asarray(x) for x in jbin.binary_topk_xla(
+        jnp.asarray(packed), jnp.asarray(qs), k, d, n_valid=n_valid))
+    tol = 1e-4
+    _tie_margin_equal(got_s, got_i, rs.numpy(), ri.numpy(), tol)
+    _tie_margin_equal(got_s, got_i, js, ji, tol)
+    assert list(got_i[0, :2]) == [3, n // 2]
+
+
+# ---------------------------------------------------------------------------
+# (c) the launch geometry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q,k,binary,want", [
+    (1, 10, False, (8, 1, 6)),         # Q = 1: an n8 product, a pure stream
+    (64, 5, False, (64, 1, 4)),        # the direct-embed path's search_batch
+    (64, 10, False, (64, 1, 4)),       # the capacity path's K2
+    (64, 128, False, (64, 1, 3)),
+    (100, 10, False, (128, 1, 5)),
+    (128, 128, False, (128, 1, 2)),    # k at the cap: two stages
+    (256, 10, False, (128, 2, 5)),     # the Q = 256 row: two query blocks
+    (256, 128, False, (128, 2, 2)),
+    (300, 10, False, (128, 3, 5)),     # Q above 256: three blocks of 100
+    (64, 30, True, (64, 1, 8)),        # the capacity path's K10
+    (256, 30, True, (128, 2, 8)),      # the K10 row
+    (256, 128, True, (128, 2, 2)),
+    (7, 30, True, (8, 1, 8)),
+])
+def test_wg_plan(q, k, binary, want):
+    n_pad, q_blocks, stages = ttopk.wg_plan(q, k, binary)
+    assert (n_pad, q_blocks, stages) == want
+    assert n_pad * q_blocks >= q and n_pad in (8, 16, 32, 64, 128)
+    assert ttopk.wg_smem(n_pad, k, binary, stages) <= ttopk.SMEM_MAX
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_wg_plan_fits_every_k_and_q(binary):
+    """Every k up to the cap and Q up to 1000: the plan fits a CTA's shared
+    memory, covers Q, takes one query block whenever Q fits the widest
+    block, and no more blocks than needed."""
+    for k in range(1, ttopk.K_CAP + 1):
+        nmax = max(n for n in (8, 16, 32, 64, 128)
+                   if ttopk.wg_smem(n, k, binary, 2) <= ttopk.SMEM_MAX)
+        for q in (1, 2, 9, 64, 65, 129, 256, 257, 511, 1000):
+            n_pad, q_blocks, stages = ttopk.wg_plan(q, k, binary)
+            assert 2 <= stages <= ttopk.WG_MAX_STAGES
+            assert ttopk.wg_smem(n_pad, k, binary, stages) <= ttopk.SMEM_MAX
+            assert q_blocks == -(-q // nmax) and n_pad * q_blocks >= q
+            assert n_pad < 2 * -(-q // q_blocks) or n_pad == 8
+
+
+@pytest.mark.parametrize("sms,q_blocks,n_valid,row_tile,want", [
+    (132, 1, 1_000_000, 256, 264),     # two waves of one query block (Q <= 64)
+    (132, 2, 1_000_000, 128, 132),     # Q = 256: two query blocks
+    (132, 1, 256, 256, 1),             # the direct-embed store: one 256-row tile
+    (132, 1, 0, 128, 1),
+    (132, 4, 1_000_000, 64, 66),       # the CUDA-core and int8 kernels at Q = 256
+])
+def test_split_count(sms, q_blocks, n_valid, row_tile, want):
+    assert ttopk.split_count(sms, q_blocks, n_valid, row_tile) == want
+
+
+def test_wg_m_tiles():
+    """Two m64 tiles a warpgroup (256-row tiles) up to a 64-query block."""
+    assert [ttopk.wg_m_tiles(n) for n in (8, 16, 32, 64, 128)] == [2, 2, 2, 2, 1]
+
+
+def test_wg_route():
+    bf16, f32 = kernels.DTYPE_CODES[torch.bfloat16], kernels.DTYPE_CODES[torch.float32]
+    assert ttopk.wg_route(bf16, 1024) and ttopk.wg_route(bf16, 8)
+    assert not ttopk.wg_route(bf16, 100) and not ttopk.wg_route(f32, 1024)
+    assert ttopk.wg_route(kernels.BINARY_PACKED, 25)
+    assert not ttopk.wg_route(kernels.INT8, 1024)
+
+
+def test_geometry_constants_mirror_the_kernel():
+    """The Python mirror of scan_wg's constants reads the same values as
+    the CUDA source."""
+    src = open(SRC).read()
+    for name, value in (("kRows", ttopk.WG_ROWS), ("kSlotBytes", ttopk.WG_SLOT_BYTES),
+                        ("kMaxStages", ttopk.WG_MAX_STAGES), ("kNMax", ttopk.WG_N_MAX),
+                        ("kSmemMax", ttopk.SMEM_MAX)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value, name
+    assert "topk_scan_tc_kernel" not in src and "topk_scan_bin_kernel" not in src
