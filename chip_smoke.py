@@ -46,7 +46,7 @@ of which catches a failure:
      card (every block's attention on the tensor-core K7);
   4b. the two-stage int8 search at op level (`cosine_topk_int8` over the
      1M x 1024 rows, Q = 256, k = 10, overfetch 4): the plain pipeline's
-     ids, recall@10 against exact fp32;
+     ids, recall@10 against exact fp32, and K12's launches by shape;
   5. the direct-embed path at full width: `SimpleReverso` with the
      default PE-Core-L14-336 config (seeded random init, bf16, batch 64)
      builds a database from 256 synthetic images with
@@ -80,14 +80,15 @@ of which catches a failure:
      balance, each held against the exact plain search of its subset;
      recall@10 against exact fp32 for the approximate ones;
   8. the top-k scans (K1 from the direct-embed path, K2, K9 and K10 from
-     the capacity path) timed at each shape their path ran them at
-     (`kernels.shape_launches`), on seeded rows of that shape, each held
-     against its plain version.
+     the capacity path, K12 from the two-stage search) timed at each shape
+     their path ran them at (`kernels.shape_launches`), on seeded rows of
+     that shape, each held against its plain version (K9 and K12 bit for
+     bit).
 
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). A "redesign order" line ranks the kernels
 by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2,
-K5, K8, K9 and K10 at. The line before the last is the card's name and power limit, the
+K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
 one before that a JSON object with one entry per kernel; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -880,7 +881,8 @@ def int8_kernel_checks(torch, gen):
 def int8_search_run(torch, data) -> dict:
     """The two-stage int8 search at op level (`cosine_topk_int8`, no engine
     path routes to it): 1M x 1024, Q = 256, k = 10, overfetch 4, with a
-    bf16 full-precision copy for the rescore. Returns its launches."""
+    bf16 full-precision copy for the rescore. Returns its launches and
+    K12's launches by shape."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.topk import cosine_topk_ref
     from reverso_tpu_torch.ops.topk_int8 import (cosine_topk_int8, quantize_queries,
@@ -892,6 +894,7 @@ def int8_search_run(torch, data) -> dict:
     s, i = cosine_topk_int8(v8, sc, full, qf, 10)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
+    shapes = {key: n for key, n in kernels.shape_launches.items() if key[0] == "topk_int8_rows"}
     check(launches["topk_int8_rows"] > 0, "K12 never launched on the two-stage search")
     _, cand = topk_int8_rows_ref(v8, sc, *quantize_queries(qf), 40)
     rs, ri = rescore(full, qf, cand, 10)
@@ -904,8 +907,9 @@ def int8_search_run(torch, data) -> dict:
     check(i[0, :2].tolist() == [3, 777_777], f"two-stage tie order {i[0, :2].tolist()}")
     ms = cuda_ms(lambda: cosine_topk_int8(v8, sc, full, qf, 10))
     print(f"two-stage int8 search: recall@10 vs exact fp32 {recall}, {ms:.4f} ms per "
-          f"Q=256 batch, launches {launches['topk_int8_rows']}", flush=True)
-    return launches
+          f"Q=256 batch, launches {launches['topk_int8_rows']}, by shape "
+          f"{[(key, n) for key, n in shapes.items()]}", flush=True)
+    return launches, shapes
 
 
 def tower_check() -> dict:
@@ -1365,7 +1369,10 @@ def topk_bound(kind: str, q: int, n: int, d: int, k: int, masked: bool) -> tuple
     """A top-k scan's least time: the rows (bf16, int8 or packed signs),
     the mask, the queries (bf16; int8's two digits) and the [Q, k] results
     once; 2 Q N d operations (bf16: binary's +-1 rows too; int8 twice, one
-    per query digit)."""
+    per query digit); K12: its int8 rows, row scales, one digit and query
+    scales, 2 Q N d int8 operations."""
+    if kind == "topk_int8_rows":
+        return bound(n * d + n * 4 + q * d + q * 4 + q * k * 8, 2 * q * n * d, "int8")
     if kind == "topk_int8":
         return bound(n * d + (n if masked else 0) + 2 * q * d + q * k * 8, 2 * 2 * q * n * d,
                      "int8")
@@ -1374,8 +1381,8 @@ def topk_bound(kind: str, q: int, n: int, d: int, k: int, masked: bool) -> tuple
 
 
 def topk_path_shapes(torch, shape_launches: dict) -> dict:
-    """K1, K2, K9 and K10 at each shape (Q, N, d, k, masked) a path ran
-    them at: seeded unit rows of that shape (the mask keeps 10% of the
+    """K1, K2, K9, K10 and K12 at each shape (Q, N, d, k, masked) a path
+    ran them at: seeded unit rows of that shape (the mask keeps 10% of the
     rows, as the capacity path's `{"folder": 3}` filter), held against the
     plain version (1e-4 bf16, 2e-4 binary, bit for bit int8), timed by
     CUDA events, with the launches and bound. Returns {counter: [...]}."""
@@ -1383,6 +1390,8 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
     from reverso_tpu_torch.ops.topk import (cosine_topk, cosine_topk_int8_exact,
                                             cosine_topk_int8_ref, cosine_topk_ref,
                                             quantize_db_int8)
+    from reverso_tpu_torch.ops.topk_int8 import (quantize_queries, quantize_rows,
+                                                 topk_int8_rows, topk_int8_rows_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     out = {}
@@ -1405,6 +1414,14 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
             rs, ri = cosine_topk_int8_ref(v8, sc, qs, k, row_mask=mask)
             check(torch.equal(i, ri) and torch.equal(s, rs), f"K9 at {(q, n, d, k)} differs")
             err = 0.0
+        elif kind == "topk_int8_rows":
+            r8, rsc = quantize_rows(x)
+            q8, qsc = quantize_queries(qs)
+            call = lambda: topk_int8_rows(r8, rsc, q8, qsc, k)
+            s, i = call()
+            rs, ri = topk_int8_rows_ref(r8, rsc, q8, qsc, k)
+            check(torch.equal(i, ri) and torch.equal(s, rs), f"K12 at {(q, n, d, k)} differs")
+            err = 0.0
         elif kind == "topk_binary":
             packed = torch.cat([pack_signs(x[lo:lo + 65536]) for lo in range(0, n, 65536)])
             call = lambda: binary_topk(packed, qs, k, d, row_mask=mask)
@@ -1417,7 +1434,7 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
             s, i = call()
             rs, ri = cosine_topk_ref(db, qb, k, row_mask=mask)
             topk_agree(rs, ri, s, i, 1e-4)
-        if kind != "topk_int8":
+        if kind not in ("topk_int8", "topk_int8_rows"):
             fin = torch.isfinite(rs)
             err = float((torch.where(fin, s, 0) - torch.where(fin, rs, 0)).abs().max())
         out.setdefault(kind, []).append(dict(
@@ -1450,7 +1467,7 @@ def make_photos(folder: str, n: int, seed: int) -> None:
 # that run only on the fp32 parity phases
 REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused_mlp": 6,
               "fused_mlp_int8": 7, "ms_deform": 7, "topk_stream": 8, "topk_masked": 8,
-              "topk_binary": 8}
+              "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE"}
 PARITY_ONLY = {"flash_heads_f32": "fp32 parity phases only",
@@ -1838,9 +1855,11 @@ def capacity_kernel_checks(torch, gen) -> dict:
               f"K9 (mask {m is not None}) differs from its plain version: ids "
               f"{int((i != ri).sum())}, max score diff {float((s - rs).abs().max())}")
     check(i[0, :2].tolist() == [3, 777_777], f"K9 tie order {i[0, :2].tolist()}")
-    s2, i2 = cosine_topk_int8_exact(v8[:1001], scale, qf[:70], 40, n_valid=30)
-    r2s, r2i = cosine_topk_int8_ref(v8[:1001], scale, qf[:70], 40, n_valid=30)
-    check(torch.equal(i2, r2i) and torch.equal(s2, r2s), "K9 ragged case differs")
+    for nv, kk, qn in ((30, 40, 70), (999, 128, 65), (1001, 10, 3)):   # k > n_valid; ragged
+        s2, i2 = cosine_topk_int8_exact(v8[:1001], scale, qf[:qn], kk, n_valid=nv)
+        r2s, r2i = cosine_topk_int8_ref(v8[:1001], scale, qf[:qn], kk, n_valid=nv)
+        check(torch.equal(i2, r2i) and torch.equal(s2, r2s),
+              f"K9 ragged case n_valid={nv} k={kk} Q={qn} differs")
     rows["topk_int8"] = dict(
         source="reverso_tpu_torch/csrc/topk_stream.cu",
         replaces="reverso_tpu/ops/topk.py:420",
@@ -2170,7 +2189,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8_rows, int8_data = phase("kernels (int8)", int8_kernel_checks, torch, gen)
     rows.update(int8_rows)
-    two_stage_launches = phase("two-stage int8 search", int8_search_run, torch, int8_data)
+    two_stage_launches, k12_shapes = phase("two-stage int8 search", int8_search_run, torch,
+                                           int8_data)
     del int8_data
     torch.cuda.empty_cache()
     tower_launches = phase("tower parity", tower_check)
@@ -2194,7 +2214,7 @@ def main() -> int:
         capacity_launches, capacity_shapes = phase("capacity slice", capacity_run, root)
     torch.cuda.empty_cache()
     topk_shapes = phase("top-k scans at their paths' shapes", topk_path_shapes, torch,
-                        {**k1_shapes, **capacity_shapes})
+                        {**k1_shapes, **capacity_shapes, **k12_shapes})
     for name, shapes in topk_shapes.items():
         rows[name]["by_shape"] = shapes
 
@@ -2220,13 +2240,13 @@ def main() -> int:
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     for name in ("fused_mlp_int8", "ms_deform", "topk_stream", "topk_masked", "topk_int8",
-                 "topk_binary"):
+                 "topk_binary", "topk_int8_rows"):
         print(f"{name} at its path's shapes: {json.dumps(rows[name]['by_shape'])}", flush=True)
 
     # the order to redesign kernels in: first those one PyTorch call beats,
     # by how many times; then the rest by launches x (ms - bound_ms), summed
     # over the shapes a path ran a kernel at where the run timed each
-    # (`by_shape`: K1, K2, K5, K8, K9, K10), else at the row's shape. Listed apart: rows
+    # (`by_shape`: K1, K2, K5, K8, K9, K10, K12), else at the row's shape. Listed apart: rows
     # already redesigned, rows whose library call computes another
     # function, and rows that run only on the parity phases
     def cost(name):

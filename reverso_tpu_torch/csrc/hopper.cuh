@@ -1,11 +1,11 @@
 // PTX helpers shared by the hand-written Hopper kernels on wgmma and TMA:
 // the flash-attention core (flash_tc.cuh), the MLP's GEMMs, bf16 and int8
-// (fused_mlp.cu), and the bf16 and binary top-k scans (topk_stream.cu).
+// (fused_mlp.cu), and the bf16, binary and int8 top-k scans (topk_stream.cu).
 // Shared-memory barriers (mbarrier), named barriers with an OR reduction,
 // TMA tile loads (cp.async.bulk.tensor with mbarrier completion), wgmma
 // fences, commits and waits, shared-memory matrix descriptors, the SS-form
 // products (both operands K-major in shared memory; bf16 -> fp32 and s8 ->
-// s32), the RS-form bf16 products (A in registers), and the tensor-map
+// s32, N = 8 .. 256), the RS-form bf16 products (A in registers), and the tensor-map
 // encoder, looked up through the runtime's entry-point query so that the
 // library links without -lcuda.
 #pragma once
@@ -193,6 +193,42 @@ template <> struct WgmmaSS<256> {
 // instruction: 32 bytes of K, as k16 is for bf16; a 64 x N s32
 // accumulator laid out as the fp32 one
 template <int N> struct WgmmaSS8;
+
+template <> struct WgmmaSS8<8> {
+    static __device__ __forceinline__ void run(int (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+            "{%0, %1, %2, %3}, "
+            "%4, %5, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <> struct WgmmaSS8<16> {
+    static __device__ __forceinline__ void run(int (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "%8, %9, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <> struct WgmmaSS8<32> {
+    static __device__ __forceinline__ void run(int (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
 
 template <> struct WgmmaSS8<64> {
     static __device__ __forceinline__ void run(int (&d)[32], uint64_t a, uint64_t b, int scale_d) {

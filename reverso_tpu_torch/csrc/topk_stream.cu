@@ -24,45 +24,56 @@
 // GB of rows and 4 MB of row scales (0.31 ms) for 0.52 T (0.26 ms).
 //
 // What the design does about it:
-//   * bf16 rows with D % 8 == 0 (K1, K2) and packed rows (K10): the wgmma
-//     scan (scan_wg below). A CTA scores each 256-row tile (128 at
-//     Q > 64) of its row slice against a whole block of up to 128 queries,
-//     so the rows are read from device memory once per query block: once
-//     up to Q = 128 (Q = 1 is an n8 product, a pure stream), twice at
-//     Q = 256. A producer warp feeds a TMA ring; two consumer warpgroups
-//     own 128 rows (64 at Q > 64) each on wgmma's M side with the queries
-//     on N. Packed rows are unpacked straight into the RS-form A
+//   * every mode but fp32 rows (bf16 rows with D % 8 == 0: K1, K2; packed
+//     rows: K10; int8 rows, any D: K9, K12) runs one wgmma scan (scan_wg
+//     below), templated on what it scores. A CTA scores each 256-row tile
+//     (128 where the accumulator is wider than 64 columns) of its row slice
+//     against a whole block of queries, so the rows are read from device
+//     memory once per query block: bf16 and binary blocks of up to 128
+//     queries (Q = 1 is an n8 product, a pure stream), int8 blocks of up
+//     to 64: K9's two query digits are one B operand of 2N rows (an n128
+//     accumulator at 64 queries), K12's k-select at k_fetch = 40 runs over
+//     half the lists a CTA. A producer warp feeds a TMA ring (int8 rows
+//     whose stride or base TMA cannot take are copied by its lanes, in
+//     TMA's swizzle); two consumer warpgroups own 128 rows (64 where the
+//     accumulator is wider than 64) each on wgmma's M side with the
+//     queries on N. Packed rows are unpacked straight into the RS-form A
 //     registers, in a dimension order that makes one byte a thread's 8
-//     fragment values. The k-select gates the accumulators against each
-//     query's k-th entry, so once the lists fill a tile costs one compare
-//     per score and rarely an insert. Measured on the H100
-//     (scripts/topk_scan_probe.py): 0.67 ms at Q = 1, 0.73 at Q = 64,
-//     1.60 at Q = 256 (k = 10); binary 0.95 at Q = 64 and 2.67 at Q = 256
-//     (k = 30), where the products are still 3.4x their bound and the
-//     select at k = 30 half the time;
+//     fragment values. int8 rows and digits are K-major as they lie, 128
+//     bytes of d a ring stage (four k32 s8 products, exact s32 sums). The
+//     k-select gates the scores against each query's k-th entry, so once
+//     the lists fill a tile costs one compare per score and rarely an
+//     insert. Measured on the H100 (scripts/topk_scan_probe.py): bf16 0.67
+//     ms at Q = 1, 0.73 at Q = 64, 1.61 at Q = 256 (k = 10); binary 0.95 at
+//     Q = 64 and 2.67 at Q = 256 (k = 30), where the products are still
+//     3.4x their bound and the select at k = 30 half the time; K9 0.61 ms
+//     at Q = 64 (10% of the rows kept) and 1.67 at Q = 256 (k = 10),
+//     where the four query blocks read the rows from device memory four
+//     times; K12 1.88 at Q = 256, k_fetch = 40, 58% of it the select;
 //   * fp32 rows and bf16 rows with D % 8 != 0: topk_scan_kernel, a
-//     register-tiled FMA product on the CUDA cores; int8 rows (K9, K12):
-//     topk_scan_i8_kernel, s8 WMMA with s32 accumulate. Both hold one tile
-//     of 64 queries and stream 64-row tiles (so the rows are read once per
-//     64 queries); the [64, 64] score tile lands in shared memory and each
+//     register-tiled FMA product on the CUDA cores. It holds one tile of 64
+//     queries and streams 64-row tiles (so the rows are read once per 64
+//     queries); the [64, 64] score tile lands in shared memory and each
 //     warp updates the sorted lists of its queries by (-score, idx). Rows
 //     arrive in ascending order, so a candidate equal to the current k-th
 //     score loses the tie and is skipped;
-//   * int8: the two exact s32 dots combine as f32(hi) * 254 + f32(lo) with
+//   * K9: the two exact s32 dots combine as f32(hi) * 254 + f32(lo) with
 //     two roundings (__fmul_rn, __fadd_rn: nvcc would contract a*b+c into
-//     one FMA, one rounding, and the scores would differ from the
-//     reference in the last bit). The per-query scale is applied outside;
-//   * K12: the exact s32 dot on the same s8 tensor-core path, then
-//     (f32(dot) * q_scale) * row_scale with __fmul_rn, the reference's two
-//     roundings in its order (on the TPU the dot ran bf16 on upcast int8,
-//     exact for d <= 1040; the s32 dot is exact for any d);
+//     one FMA, one rounding, and the scores would differ from the reference
+//     in the last bit), in registers before the gate: the thread that holds
+//     hi's column c holds lo's column c + N. The per-query scale is applied
+//     outside;
+//   * K12: the exact s32 dot, then (f32(dot) * q_scale) * row_scale with
+//     __fmul_rn, the reference's two roundings in its order, in registers
+//     (on the TPU the dot ran bf16 on upcast int8, exact for d <= 1040; the
+//     s32 dot is exact for any d);
 //   * rows at or past n_valid are never scored; masked rows never enter
 //     the lists. Each CTA writes [n_splits, Q, k] partials;
 //   * pass 2: one warp per query merges the n_splits sorted partials by
 //     (-score, idx): deterministic, ties to the lower row;
 //   * the [Q, N] score matrix never exists; slots still at -inf return -1.
 // k is capped at TOPK_KMAX = 128 (the reference kernel's cap).
-#include <mma.h>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "topk_select.cuh"
@@ -198,200 +209,51 @@ topk_scan_kernel(const T* __restrict__ db, const T* __restrict__ q,
     write_partials(st_s, st_i, k, split, q0, Q, tid, part_s, part_i);
 }
 
-// 16-byte asynchronous global->shared copy; `ok == false` zero-fills the
-// destination without reading (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-    const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    const int n = ok ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(saddr), "l"(src), "r"(n));
-}
-
-constexpr int TC_LDS = TOPK_RT + 4;  // fp32 row stride of the int8 kernel's score tile
-constexpr size_t SC_BYTES = (size_t)TOPK_QT * TC_LDS * sizeof(float);
-
-__host__ __device__ inline size_t topk_tc_state_bytes(int k) {
-    return ((size_t)TOPK_QT * k * 8 + 127) / 128 * 128;
-}
-
-// int8 mode: int8 rows and the two int8 query digits [2, Q, D], WMMA s8
-// (16x16x16, s32 accumulate) per digit. A stage holds, for one 64-byte d
-// step, the hi digits, the lo digits and the rows as [chunk][row][16 B]
-// blocks, so every 16x16 operand tile starts 256-byte aligned.
-constexpr int I8_BK = 64;                               // bytes of d per step
-constexpr int I8_CH = I8_BK / 16;                       // 16-byte chunks per step
-constexpr int I8_STAGE = 3 * I8_CH * TOPK_RT * 16;      // bytes; QT == RT == 64
-static_assert(TOPK_QT == TOPK_RT, "int8 stage layout assumes QT == RT");
-
-__host__ __device__ inline size_t topk_i8_smem(int k) {
-    return topk_tc_state_bytes(k) + 2 * (size_t)I8_STAGE + 2 * SC_BYTES + TOPK_RT;
-}
-
-// ops 0 .. ND-1: query digit planes, op ND: rows. `vec` (D % 16 == 0 and
-// 16-byte aligned bases) copies with cp.async; otherwise byte by byte, zero
-// past D.
-template <int ND>
-__device__ __forceinline__ void i8_load_stage(signed char* stage,
-                                              const signed char* qd,
-                                              const signed char* db, int q0,
-                                              int Q, int r0, int nr, int k0,
-                                              int D, bool vec, int tid) {
-    for (int v = tid; v < (ND + 1) * TOPK_RT * I8_CH; v += TOPK_THREADS) {
-        const int op = v / (TOPK_RT * I8_CH), rem = v % (TOPK_RT * I8_CH);
-        const int r = rem / I8_CH, kc = rem % I8_CH;
-        signed char* dst = stage + ((op * I8_CH + kc) * TOPK_RT + r) * 16;
-        const int gk = k0 + kc * 16;
-        const bool row_ok = op < ND ? q0 + r < Q : r < nr;
-        const signed char* src = op < ND ? qd + ((size_t)op * Q + q0 + r) * D + gk
-                                         : db + (size_t)(r0 + r) * D + gk;
-        if (vec) {
-            const bool ok = row_ok && gk < D;
-            cp_async16(dst, ok ? src : db, ok);
-        } else {
-            for (int b = 0; b < 16; ++b) dst[b] = (row_ok && gk + b < D) ? src[b] : 0;
-        }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// ND = 2: K9, two query digits, scored f32(hi) * 254 + f32(lo) (the caller
-// scales); ND = 1: K12, one query digit against rows with their own scales,
-// scored (f32(dot) * q_scale[q]) * row_scale[r], rounded after each multiply.
-template <int ND>
-__global__ void __launch_bounds__(TOPK_THREADS)
-topk_scan_i8_kernel(const signed char* __restrict__ db,
-                    const signed char* __restrict__ qd,
-                    const float* __restrict__ q_scale,
-                    const float* __restrict__ row_scale,
-                    const unsigned char* __restrict__ mask, int D, int Q,
-                    int n_valid, int k, int rows_per_split, bool vec,
-                    float* __restrict__ part_s, int* __restrict__ part_i) {
-    using namespace nvcuda;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    float* st_s = reinterpret_cast<float*>(smem_raw);                    // [QT][k]
-    int* st_i = reinterpret_cast<int*>(st_s + TOPK_QT * k);              // [QT][k]
-    signed char* ring = reinterpret_cast<signed char*>(smem_raw + topk_tc_state_bytes(k));
-    int* dot_hi = reinterpret_cast<int*>(ring + 2 * I8_STAGE);           // [QT][LDS]
-    int* dot_lo = dot_hi + TOPK_QT * TC_LDS;                             // [QT][LDS]
-    unsigned char* msk = reinterpret_cast<unsigned char*>(dot_lo + TOPK_QT * TC_LDS);
-    float* sc = reinterpret_cast<float*>(dot_hi);   // the combined scores, in place
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int q0 = blockIdx.x * TOPK_QT;
-    const int split = blockIdx.y;
-    const int r_begin = split * rows_per_split;
-    const int r_end = min(n_valid, r_begin + rows_per_split);
-    const int fq = warp / 2, fr0 = (warp % 2) * 2;   // 16 queries x 32 rows per warp
-    const int nK = ceil_div(D, I8_BK);
-    const int n_tiles = r_end > r_begin ? ceil_div(r_end - r_begin, TOPK_RT) : 0;
-    const int steps = n_tiles * nK;
-
-    init_state(st_s, st_i, k, tid);
-    if (steps > 0)
-        i8_load_stage<ND>(ring, qd, db, q0, Q, r_begin, min(TOPK_RT, r_end - r_begin), 0,
-                          D, vec, tid);
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc_hi[2], acc_lo[2];
-    for (int g = 0; g < steps; ++g) {
-        const int t = g / nK, s = g % nK;
-        const int r0 = r_begin + t * TOPK_RT;
-        const int nr = min(TOPK_RT, r_end - r0);
-        if (s == 0) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                wmma::fill_fragment(acc_hi[j], 0);
-                wmma::fill_fragment(acc_lo[j], 0);
-            }
-            load_mask(msk, mask, r0, nr, tid);
-        }
-        if (g + 1 < steps) {
-            const int t1 = (g + 1) / nK, s1 = (g + 1) % nK;
-            const int r1 = r_begin + t1 * TOPK_RT;
-            i8_load_stage<ND>(ring + ((g + 1) & 1) * I8_STAGE, qd, db, q0, Q, r1,
-                              min(TOPK_RT, r_end - r1), s1 * I8_BK, D, vec, tid);
-            asm volatile("cp.async.wait_group 1;\n" ::);
-        } else {
-            asm volatile("cp.async.wait_group 0;\n" ::);
-        }
-        __syncthreads();
-        const signed char* st = ring + (g & 1) * I8_STAGE;
-#pragma unroll
-        for (int kc = 0; kc < I8_CH; ++kc) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a_hi, a_lo;
-            wmma::load_matrix_sync(a_hi, st + ((0 * I8_CH + kc) * TOPK_RT + fq * 16) * 16, 16);
-            if (ND == 2)
-                wmma::load_matrix_sync(a_lo, st + ((1 * I8_CH + kc) * TOPK_RT + fq * 16) * 16, 16);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bfr;
-                wmma::load_matrix_sync(
-                    bfr, st + ((ND * I8_CH + kc) * TOPK_RT + (fr0 + j) * 16) * 16, 16);
-                wmma::mma_sync(acc_hi[j], a_hi, bfr, acc_hi[j]);
-                if (ND == 2) wmma::mma_sync(acc_lo[j], a_lo, bfr, acc_lo[j]);
-            }
-        }
-        if (s == nK - 1) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                const int o = fq * 16 * TC_LDS + (fr0 + j) * 16;
-                wmma::store_matrix_sync(dot_hi + o, acc_hi[j], TC_LDS, wmma::mem_row_major);
-                if (ND == 2)
-                    wmma::store_matrix_sync(dot_lo + o, acc_lo[j], TC_LDS, wmma::mem_row_major);
-            }
-            __syncwarp();
-            // the warp's own 16 x 32 block: exact s32 dots -> one f32 score,
-            // rounded after each multiply and add
-            for (int e = lane; e < 16 * 32; e += 32) {
-                const int qq = fq * 16 + e / 32, rr = fr0 * 16 + e % 32;
-                const int o = qq * TC_LDS + rr;
-                const float hi = __int2float_rn(dot_hi[o]);
-                if (ND == 2) {
-                    sc[o] = __fadd_rn(__fmul_rn(hi, 254.f), __int2float_rn(dot_lo[o]));
-                } else {
-                    const float qsc = q0 + qq < Q ? q_scale[q0 + qq] : 0.f;
-                    const float rsc = rr < nr ? row_scale[r0 + rr] : 0.f;
-                    sc[o] = __fmul_rn(__fmul_rn(hi, qsc), rsc);
-                }
-            }
-            __syncthreads();
-            kselect_tile(sc, TC_LDS, st_s, st_i, k, nr, r0, q0, Q, warp, lane,
-                         mask ? msk : nullptr);
-        }
-        __syncthreads();   // this stage is refilled two steps later; sc consumed
-    }
-    __syncthreads();
-    write_partials(st_s, st_i, k, split, q0, Q, tid, part_s, part_i);
-}
-
-// ---- bf16 and binary rows on wgmma: every query against each row tile -------
+// ---- the wgmma scan: every query of a block against each row tile ---------
 //
-// K1, K2 (bf16 rows, D % 8 == 0) and K10 (packed sign rows). A CTA owns one
-// contiguous slice of rows (grid x) and one block of up to N queries (grid
-// y), and walks the slice in tiles of 128 m_tiles(N) rows, so each row tile
-// is read from device memory once per query block:
-//   * a producer warp brings, per 64-wide k step, the query block's columns
-//     (and, bf16, the tile's rows) through TMA into a ring of `stages`
-//     stages with mbarrier completion; packed rows come 128 bytes (1024
-//     dims) a row at a time into a two-slot chunk ring of their own, by TMA
-//     where W % 16 == 0 and the base is 16-byte aligned, else copied by the
-//     producer's lanes. The query operand is re-read from L2 for every row
+// K1, K2 (bf16 rows, D % 8 == 0), K10 (packed sign rows), K9 (int8 rows,
+// two int8 query digits) and K12 (int8 rows with row scales, one digit):
+// one kernel, its MODE a template parameter with a per-mode score step. A
+// CTA owns one contiguous slice of rows (grid x) and one block of up to N
+// queries (grid y), and walks the slice in tiles of 128 m_tiles(W) rows (W
+// the accumulator's columns: N, or 2N for K9), so each row tile is read
+// from device memory once per query block:
+//   * a producer warp brings, per k step (128 bytes of d: 64 bf16 or 128
+//     int8 dims), the query block's columns (K9: the hi digits into B rows
+//     0 .. N-1, the lo digits into N .. 2N-1, two TMA loads) and, bf16 and
+//     int8, the tile's rows through TMA into a ring of `stages` stages with
+//     mbarrier completion; packed rows come 128 bytes (1024 dims) a row at a
+//     time into a two-slot chunk ring of their own. Rows whose stride or
+//     base TMA cannot take (packed W % 16 != 0, int8 D % 16 != 0, or a base
+//     that is not 16-byte aligned) are copied by the producer's lanes, int8
+//     ones into the ring in TMA's 128-byte swizzle (zeros past D add nothing
+//     to an integer dot). The query operand is re-read from L2 for every row
 //     tile: loading it only once changes no time measurably
 //     (scripts/topk_scan_probe.py "no_qstream_gate");
-//   * two consumer warpgroups each own 64 m_tiles(N) of the tile's rows on
-//     wgmma's M side (two m64 tiles at N <= 64: two independent chains of
+//   * two consumer warpgroups each own 64 m_tiles(W) of the tile's rows on
+//     wgmma's M side (two m64 tiles at W <= 64: two independent chains of
 //     products a warpgroup), the query block on its N side (N a power of
-//     two, 8 .. 128), and accumulate the fp32 scores in registers: bf16
-//     rows by the
-//     SS-form product, packed rows unpacked (two bytes a row per k step,
-//     two instructions per pair of +-1 bf16 values, sign_pairs) straight
-//     into the RS form's A registers, double-buffered at N = 128 so that
-//     a step's unpack overlaps the last step's products. A block of 256
-//     queries
-//     would read the rows once at Q = 256, but its 128-register accumulator
-//     spills ("n256" is slower);
-//   * the k-select runs after the tile's last product: each thread holds
-//     2 m_tiles(N) rows x N/4 queries of scores and compares them with the queries'
+//     two, 8 .. 128), and accumulate in registers: bf16 rows by the SS-form
+//     product (fp32), int8 rows by the s8 SS form (k32, exact s32), packed
+//     rows unpacked (two bytes a row per k step, two instructions per pair
+//     of +-1 bf16 values, sign_pairs) straight into the RS form's A
+//     registers, double-buffered at N = 128 so that a step's unpack
+//     overlaps the last step's products. A 128-register accumulator spills
+//     (the probe's "n256"), so blocks stop at W = 128: bf16 reads the rows twice
+//     at Q = 256, K9 and K12 (64-query blocks) four times: the four blocks
+//     of a row slice run at once in the one wave, but L2 does not serve the
+//     repeats (K9's products and loads take four reads' time). K9 in
+//     128-query blocks, reading the rows twice, is 6% faster at Q = 256
+//     with 360 bytes of spills; K12 in 128-query blocks is 31% slower, its
+//     select over twice the lists (scripts/topk_scan_probe.py "i8_n128");
+//   * int8 score steps, in registers after the tile's last product: K9
+//     combines the s32 dots of hi's column c and lo's column c + N, which
+//     the accumulator layout (column 8i + 2 (lane % 4) + (e & 1)) puts in
+//     one thread, as __fadd_rn(__fmul_rn(f32(hi), 254), f32(lo)); K12
+//     scales as __fmul_rn(__fmul_rn(f32(dot), q_scale), row_scale). The
+//     f32 score replaces the s32 in hi's register;
+//   * the k-select: each thread holds 2 m_tiles(W) rows x N/4 queries of
+//     scores and compares them with the queries'
 //     current k-th (score, idx) (the TPU kernel's gate, exact in the order
 //     (-score, idx), so that an equal score from a lower row passes and
 //     one from a higher row does not). Survivors take one of their query's
@@ -401,7 +263,7 @@ topk_scan_i8_kernel(const signed char* __restrict__ db,
 //     arrival order: its own thread inserts them from the list's end when
 //     that is at most kSerial shifts (nc k <= 48: short lists, as k = 10),
 //     else warp q % 8 merges them in one pass (warp_merge), so that long
-//     lists (k = 30) and the first tiles' many candidates cost no serial
+//     lists (k = 30, 40) and the first tiles' many candidates cost no serial
 //     shifts. A candidate that found the slots full is gated again,
 //     against the new k-th, in another round. Once the lists hold k rows a
 //     tile rarely has a survivor, and the producer keeps loading meanwhile.
@@ -427,6 +289,12 @@ using namespace tc;
 #define RV_PROF(...)
 #endif
 
+// what a launch scores (ops/topk.py's WG_* modes mirror these)
+constexpr int kModeBf16 = 0;     // bf16 rows (K1, K2)
+constexpr int kModeBin = 1;      // packed sign rows (K10)
+constexpr int kModeI8 = 2;       // int8 rows, two query digits (K9)
+constexpr int kModeI8Rows = 3;   // int8 rows with row scales, one digit (K12)
+
 constexpr int kRows = 128;                     // rows of an m64 tile each for two warpgroups
 constexpr int kConsumers = 2 * kWgThreads;
 constexpr int kThreads = kConsumers + 32;      // + the producer warp
@@ -434,20 +302,33 @@ constexpr int kSlotBytes = 16384;              // the candidate slots of a query
 constexpr int kSerial = 48;                    // list shifts a thread takes on alone
 constexpr int kMaxStages = 8;
 constexpr int kNMax = 128;                     // queries of a block
+constexpr int kNMaxI8 = 64;                    // the int8 modes' (see n_cap)
 constexpr int kSmemMax = 232448;               // shared memory a CTA may use
 constexpr int kChunk = 128;                    // packed bytes of a row per chunk
 constexpr int kChunkSteps = kChunk / 8;        // 64-wide k steps per chunk
 
-// m64 tiles a warpgroup: two (a 256-row tile) at N <= 64, where an
-// accumulator is at most 32 registers, so that each warpgroup runs two
-// independent chains of products and a tile's k-select covers twice the
-// rows; one at N = 128
-__host__ __device__ constexpr int m_tiles(int n) { return n <= 64 ? 2 : 1; }
+// the widest query block: 128, or 64 in the int8 modes. K9's accumulator
+// is 2N wide, and an n256 one (128 registers) spills; K12's k-select at
+// k_fetch = 40 costs less over half the lists a CTA, though its rows are
+// then read four times at Q = 256 (PERF.md section 6)
+__host__ __device__ constexpr int n_cap(int mode) {
+    return mode == kModeI8 || mode == kModeI8Rows ? kNMaxI8 : kNMax;
+}
 
-// bytes of one ring stage: the queries, [N][64] bf16 swizzled, and (bf16)
-// the tile's rows, [128 m_tiles][64]; binary rows live in the chunk ring
-__host__ __device__ constexpr int stage_bytes(int n, bool bin) {
-    return (bin ? 0 : kRows * m_tiles(n) * 128) + n * 128;
+// the accumulator's columns: the query block, twice over for K9's digits
+__host__ __device__ constexpr int width(int n, int mode) { return mode == kModeI8 ? 2 * n : n; }
+
+// m64 tiles a warpgroup: two (a 256-row tile) at an accumulator width
+// w <= 64 (at most 32 registers), so that each warpgroup runs two
+// independent chains of products and a tile's k-select covers twice the
+// rows; one at w = 128
+__host__ __device__ constexpr int m_tiles(int w) { return w <= 64 ? 2 : 1; }
+
+// bytes of one ring stage, 128 bytes of d a row: the query block's B
+// operand, [width][128 B] swizzled, and (bf16, int8) the tile's rows,
+// [128 m_tiles][128 B]; binary rows live in the chunk ring
+__host__ __device__ constexpr int stage_bytes(int n, int mode) {
+    return (mode == kModeBin ? 0 : kRows * m_tiles(width(n, mode)) * 128) + width(n, mode) * 128;
 }
 
 // candidate slots per query: 16 KB of (score, row) pairs over the block,
@@ -457,33 +338,34 @@ __host__ __device__ constexpr int cand_slots(int n) {
 }
 
 // 1 KB of alignment, binary mode's chunk ring, the ring, the sorted lists
-// ([N][k | 1]), the candidate slots, the k-th entries and counts, the
-// consumer warps' merge scratch ([8][128] pairs), the barriers
-__host__ __device__ inline size_t smem_bytes(int n, int k, bool bin, int stages) {
-    return 1024 + (bin ? 2 * kRows * m_tiles(n) * kChunk : 0) +
-           (size_t)stages * stage_bytes(n, bin) +
-           (size_t)n * (8 * (k | 1) + 8 * cand_slots(n) + 12) + 8 * 8 * TOPK_KMAX +
-           16 * (kMaxStages + 2);
+// ([N][k | 1]), the candidate slots, the k-th entries and counts, K12's
+// query scales, the consumer warps' merge scratch ([8][128] pairs), the
+// barriers
+__host__ __device__ inline size_t smem_bytes(int n, int k, int mode, int stages) {
+    return 1024 + (mode == kModeBin ? 2 * kRows * m_tiles(n) * kChunk : 0) +
+           (size_t)stages * stage_bytes(n, mode) +
+           (size_t)n * (8 * (k | 1) + 8 * cand_slots(n) + 12 + (mode == kModeI8Rows ? 4 : 0)) +
+           8 * 8 * TOPK_KMAX + 16 * (kMaxStages + 2);
 }
 
 // The launch geometry (ops/topk.py::wg_plan mirrors it): the widest query
-// block N whose sorted lists fit beside a two-stage ring, Q split into
-// q_blocks blocks of equal size, N the power of two >= a block, and as many
-// stages (2 .. 8) as fit.
+// block N (up to n_cap) whose sorted lists fit beside a two-stage ring, Q
+// split into q_blocks blocks of equal size, N the power of two >= a block,
+// and as many stages (2 .. 8) as fit.
 struct Plan {
     int n, q_blocks, stages;
 };
 
-inline Plan plan(int Q, int k, bool bin) {
+inline Plan plan(int Q, int k, int mode) {
     int nmax = 8;
-    for (int n = kNMax; n >= 8; n /= 2)
-        if (smem_bytes(n, k, bin, 2) <= kSmemMax) { nmax = n; break; }
+    for (int n = n_cap(mode); n >= 8; n /= 2)
+        if (smem_bytes(n, k, mode, 2) <= kSmemMax) { nmax = n; break; }
     const int q_blocks = ceil_div(Q, nmax);
     const int per = ceil_div(Q, q_blocks);
     int n = 8;
     while (n < per) n *= 2;
     int stages = 2;
-    while (stages < kMaxStages && smem_bytes(n, k, bin, stages + 1) <= kSmemMax) ++stages;
+    while (stages < kMaxStages && smem_bytes(n, k, mode, stages + 1) <= kSmemMax) ++stages;
     return {n, q_blocks, stages};
 }
 
@@ -538,22 +420,54 @@ __device__ __forceinline__ void warp_merge(float* S, int* I, int k, const float*
     __syncwarp();
 }
 
-template <int N, bool BIN>
+// Bytes c0 .. c0 + 127 of rows r0 .. r0 + ROWS - 1 (row stride row_bytes),
+// zero past the row or at r_end and beyond, copied by the producer warp's
+// lanes into dst as [ROWS][128 B]; `swizzle` places 16-byte chunk j of row r
+// at chunk j ^ (r % 8), as TMA's 128-byte swizzle does
+template <int ROWS>
+__device__ __forceinline__ void copy_rows(uint8_t* dst, const unsigned char* rows, int row_bytes,
+                                          int r0, int r_end, int c0, bool swizzle, int lane) {
+    for (int r = lane; r < ROWS; r += 32) {
+        const int row = r0 + r;
+        for (int j = 0; j < 8; ++j) {
+            uint32_t w4[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int b = 0; b < 16; ++b) {
+                const int c = c0 + 16 * j + b;
+                const uint32_t v = (row < r_end && c < row_bytes) ? rows[(size_t)row * row_bytes + c] : 0u;
+                w4[b / 4] |= v << (8 * (b % 4));
+            }
+            *reinterpret_cast<uint4*>(dst + r * 128 + 16 * (swizzle ? j ^ (r & 7) : j)) =
+                make_uint4(w4[0], w4[1], w4[2], w4[3]);
+        }
+    }
+}
+
+__device__ __forceinline__ float score_of(float acc) { return acc; }
+__device__ __forceinline__ float score_of(int acc) { return __int_as_float(acc); }   // int8 modes
+
+template <int N, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap qmap,
-                    const unsigned char* __restrict__ packed, int W,
-                    const unsigned char* __restrict__ mask, int Q, int n_valid, int k,
+                    const unsigned char* __restrict__ rows, int row_bytes,
+                    const unsigned char* __restrict__ mask, const float* __restrict__ q_scale,
+                    const float* __restrict__ row_scale, int Q, int n_valid, int k,
                     int n_k, int rows_per_split, int stages,
                     float* __restrict__ part_s, int* __restrict__ part_i) {
-    constexpr int MT = m_tiles(N);
+    constexpr bool BIN = MODE == kModeBin;
+    constexpr bool I8 = MODE == kModeI8 || MODE == kModeI8Rows;
+    constexpr int W = width(N, MODE);                // accumulator columns
+    constexpr int MT = m_tiles(W);
     constexpr int ROWS = kRows * MT;                 // rows of a tile
-    constexpr int STAGE = stage_bytes(N, BIN);
+    constexpr int STAGE = stage_bytes(N, MODE);
     constexpr int A_BYTES = BIN ? 0 : ROWS * 128;    // the rows' part of a stage
+    constexpr int KS = I8 ? 128 : 64;                // dims of a k step
     constexpr int NV = N / 2;                        // scores of one m64 tile a thread holds
     constexpr int NP = (MT * NV + 31) / 32;          // words of its pending bits
     constexpr int NC = cand_slots(N);                // candidate slots per query
     constexpr unsigned FULL = 0xffffffffu;
+    using Acc = std::conditional_t<I8, int, float>;  // s32 sums, or fp32
     extern __shared__ uint8_t smem_raw[];
     uint8_t* ring = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -566,7 +480,8 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     float* kth_s = reinterpret_cast<float*>(cand_i + NC * N);         // [N] the k-th entry
     int* kth_i = reinterpret_cast<int*>(kth_s + N);                   // [N]
     int* cnt = kth_i + N;                                             // [N] candidates
-    float* xs = reinterpret_cast<float*>(cnt + N);                    // [8][TOPK_KMAX] scratch
+    float* qsc = reinterpret_cast<float*>(cnt + N);                   // K12: [N] query scales
+    float* xs = qsc + (MODE == kModeI8Rows ? N : 0);                  // [8][TOPK_KMAX] scratch
     int* xi = reinterpret_cast<int*>(xs + 8 * TOPK_KMAX);             // [8][TOPK_KMAX]
     uint64_t* full = reinterpret_cast<uint64_t*>(xi + 8 * TOPK_KMAX);
     uint64_t* empty = full + kMaxStages;
@@ -587,6 +502,7 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
         kth_s[idx] = -CUDART_INF_F;
         kth_i[idx] = -1;
         cnt[idx] = 0;
+        if (MODE == kModeI8Rows) qsc[idx] = idx < nq ? q_scale[q0 + idx] : 0.f;
     }
     if (threadIdx.x == 0) {
         for (int s = 0; s < stages; ++s) {
@@ -604,8 +520,9 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     const int wg = threadIdx.x / kWgThreads;
     const int lane = threadIdx.x % 32;
     if (wg == 2) {
-        // ---- producer warp: lane 0 issues the TMA loads; without a map for
-        // the packed rows every lane copies 128 bytes of ROWS / 32 rows a chunk ----
+        // ---- producer warp: lane 0 issues the TMA loads; rows without a map
+        // (`rows` given) are copied by every lane, ROWS / 32 rows of 128 bytes
+        // a chunk (binary) or a stage (int8) ----
         int jc = 0;
         for (int t = 0; t < n_tiles; ++t) {
             const int r0 = r_begin + t * ROWS;
@@ -614,22 +531,8 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                     const int cs = jc % 2, c0 = (ks / kChunkSteps) * kChunk;
                     mbar_wait(&cempty[cs], ((jc / 2) & 1) ^ 1);
                     uint8_t* dst = chunks + cs * ROWS * kChunk;
-                    if (packed != nullptr) {
-                        for (int r = lane; r < ROWS; r += 32) {
-                            const int row = r0 + r;
-                            for (int b16 = 0; b16 < kChunk; b16 += 16) {
-                                uint32_t w4[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-                                for (int b = 0; b < 16; ++b) {
-                                    const int c = c0 + b16 + b;
-                                    const uint32_t v =
-                                        (row < r_end && c < W) ? packed[(size_t)row * W + c] : 0u;
-                                    w4[b / 4] |= v << (8 * (b % 4));
-                                }
-                                *reinterpret_cast<uint4*>(dst + r * kChunk + b16) =
-                                    make_uint4(w4[0], w4[1], w4[2], w4[3]);
-                            }
-                        }
+                    if (rows != nullptr) {
+                        copy_rows<ROWS>(dst, rows, row_bytes, r0, r_end, c0, false, lane);
                         mbar_arrive(&cfull[cs]);
                     } else if (lane == 0) {
                         mbar_expect_tx(&cfull[cs], ROWS * kChunk);
@@ -642,10 +545,17 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                 const int j = t * n_k + ks, s = j % stages;
                 mbar_wait(&empty[s], ((j / stages) & 1) ^ 1);
                 uint8_t* st = ring + s * STAGE;
+                const bool copy = I8 && rows != nullptr;
+                if (copy) {   // wgmma reads them through the async proxy
+                    copy_rows<ROWS>(st, rows, row_bytes, r0, r_end, ks * KS, true, lane);
+                    fence_proxy_async();
+                }
                 if (lane == 0) {
-                    mbar_expect_tx(&full[s], STAGE);
-                    if (!BIN) tma_load_2d(st, &amap, &full[s], ks * 64, r0);
-                    tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * 64, q0);
+                    mbar_expect_tx(&full[s], copy ? STAGE - A_BYTES : STAGE);
+                    if (!BIN && !copy) tma_load_2d(st, &amap, &full[s], ks * KS, r0);
+                    tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * KS, q0);
+                    if (MODE == kModeI8)   // the lo digits, rows Q .. 2Q - 1 of the map
+                        tma_load_2d(st + A_BYTES + N * 128, &qmap, &full[s], ks * KS, Q + q0);
                 } else {
                     mbar_arrive(&full[s]);
                 }
@@ -660,11 +570,11 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     const int warp = (ctid % kWgThreads) / 32, t4 = lane % 4;
     const int rr = wg * 64 * MT + warp * 16 + lane / 4;   // rows rr + 64 mt and + 8
     const uint32_t ring_addr = smem_addr(ring);
-    float acc[MT][NV];
+    Acc acc[MT][W / 2];   // K9: the hi digit's dots in acc[.][0 .. NV), the lo digit's after
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int i = 0; i < NV; ++i) acc[mt][i] = 0.f;
+        for (int i = 0; i < W / 2; ++i) acc[mt][i] = Acc(0);
     uint32_t pend[NP];
     int j = 0, jc = 0;
 
@@ -674,47 +584,49 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     };
     // binary: step ks (ring stage jj) unpacked into `a`, its products issued
     auto bin_issue = [&](uint32_t (&a)[MT][4][4], int ks, int jj) {
-        if (ks % kChunkSteps == 0) mbar_wait(&cfull[jc % 2], (jc / 2) & 1);
-        uint2 va[MT], vb[MT];
+        if constexpr (BIN) {   // (the int8 modes' accumulator is s32)
+            if (ks % kChunkSteps == 0) mbar_wait(&cfull[jc % 2], (jc / 2) & 1);
+            uint2 va[MT], vb[MT];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            const uint8_t* pk = chunks + (jc % 2) * ROWS * kChunk + (rr + 64 * mt) * kChunk +
-                                (ks % kChunkSteps) * 8;
-            va[mt] = *reinterpret_cast<const uint2*>(pk);
-            vb[mt] = *reinterpret_cast<const uint2*>(pk + 8 * kChunk);
-        }
-        if (ks % kChunkSteps == kChunkSteps - 1 || ks == n_k - 1) {   // the chunk is read
-            __syncwarp();
-            if (lane == 0) mbar_arrive(&cempty[jc % 2]);
-            ++jc;
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            const uint32_t wa[2] = {va[mt].x, va[mt].y}, wb[2] = {vb[mt].x, vb[mt].y};
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {   // byte t4 of word m: k16 chunks 2m and 2m + 1
-                const uint32_t xa = (wa[m] >> (8 * t4)) & 0xffu, xb = (wb[m] >> (8 * t4)) & 0xffu;
-                a[mt][2 * m][0] = sign_pairs(xa, 0);
-                a[mt][2 * m][1] = sign_pairs(xb, 0);
-                a[mt][2 * m][2] = sign_pairs(xa, 1);
-                a[mt][2 * m][3] = sign_pairs(xb, 1);
-                a[mt][2 * m + 1][0] = sign_pairs(xa, 2);
-                a[mt][2 * m + 1][1] = sign_pairs(xb, 2);
-                a[mt][2 * m + 1][2] = sign_pairs(xa, 3);
-                a[mt][2 * m + 1][3] = sign_pairs(xb, 3);
+            for (int mt = 0; mt < MT; ++mt) {
+                const uint8_t* pk = chunks + (jc % 2) * ROWS * kChunk + (rr + 64 * mt) * kChunk +
+                                    (ks % kChunkSteps) * 8;
+                va[mt] = *reinterpret_cast<const uint2*>(pk);
+                vb[mt] = *reinterpret_cast<const uint2*>(pk + 8 * kChunk);
             }
+            if (ks % kChunkSteps == kChunkSteps - 1 || ks == n_k - 1) {   // the chunk is read
+                __syncwarp();
+                if (lane == 0) mbar_arrive(&cempty[jc % 2]);
+                ++jc;
+            }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                const uint32_t wa[2] = {va[mt].x, va[mt].y}, wb[2] = {vb[mt].x, vb[mt].y};
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {   // byte t4 of word m: k16 chunks 2m and 2m + 1
+                    const uint32_t xa = (wa[m] >> (8 * t4)) & 0xffu, xb = (wb[m] >> (8 * t4)) & 0xffu;
+                    a[mt][2 * m][0] = sign_pairs(xa, 0);
+                    a[mt][2 * m][1] = sign_pairs(xb, 0);
+                    a[mt][2 * m][2] = sign_pairs(xa, 1);
+                    a[mt][2 * m][3] = sign_pairs(xb, 1);
+                    a[mt][2 * m + 1][0] = sign_pairs(xa, 2);
+                    a[mt][2 * m + 1][1] = sign_pairs(xb, 2);
+                    a[mt][2 * m + 1][2] = sign_pairs(xa, 3);
+                    a[mt][2 * m + 1][3] = sign_pairs(xb, 3);
+                }
+            }
+            const int s = jj % stages;
+            mbar_wait(&full[s], (jj / stages) & 1);
+            wgmma_fence();
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+                    WgmmaRSK<N>::run(acc[mt], a[mt][c],
+                                     gmma_desc(ring_addr + s * STAGE + c * 32, 16, 1024, 1),
+                                     (ks > 0 || c > 0) ? 1 : 0);
+            wgmma_commit();
         }
-        const int s = jj % stages;
-        mbar_wait(&full[s], (jj / stages) & 1);
-        wgmma_fence();
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-                WgmmaRSK<N>::run(acc[mt], a[mt][c],
-                                 gmma_desc(ring_addr + s * STAGE + c * 32, 16, 1024, 1),
-                                 (ks > 0 || c > 0) ? 1 : 0);
-        wgmma_commit();
     };
     auto fence_frag = [](uint32_t (&a)[MT][4][4]) {
 #pragma unroll
@@ -749,12 +661,17 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
         const int r0 = r_begin + t * ROWS;
         int row_a[MT], row_b[MT];
         bool ok_a[MT], ok_b[MT];
+        float rs_a[MT], rs_b[MT];   // K12's row scales
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
             row_a[mt] = r0 + rr + 64 * mt;
             row_b[mt] = row_a[mt] + 8;
             ok_a[mt] = row_a[mt] < r_end && (mask == nullptr || mask[row_a[mt]] != 0);
             ok_b[mt] = row_b[mt] < r_end && (mask == nullptr || mask[row_b[mt]] != 0);
+            if (MODE == kModeI8Rows) {   // read as the mask is: the tile's rows of this thread
+                rs_a[mt] = row_a[mt] < r_end ? row_scale[row_a[mt]] : 0.f;
+                rs_b[mt] = row_b[mt] < r_end ? row_scale[row_b[mt]] : 0.f;
+            }
         }
         if constexpr (BIN) {
             uint32_t fa[MT][4][4], fb[MT][4][4];
@@ -796,14 +713,17 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                 mbar_wait(&full[s], (j / stages) & 1);
                 wgmma_fence();
 #pragma unroll
-                for (int kk = 0; kk < 4; ++kk)   // k16 steps: 32 bytes into the swizzled rows
+                for (int kk = 0; kk < 4; ++kk)   // k16 (bf16) or k32 (s8) steps: 32 bytes each
 #pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-                        WgmmaSS<N>::run(acc[mt],
-                                        gmma_desc(st + (wg * MT + mt) * 64 * 128 + kk * 32, 16,
-                                                  1024, 1),
-                                        gmma_desc(st + A_BYTES + kk * 32, 16, 1024, 1),
-                                        (ks > 0 || kk > 0) ? 1 : 0);
+                    for (int mt = 0; mt < MT; ++mt) {
+                        const uint64_t da =
+                            gmma_desc(st + (wg * MT + mt) * 64 * 128 + kk * 32, 16, 1024, 1);
+                        const uint64_t db = gmma_desc(st + A_BYTES + kk * 32, 16, 1024, 1);
+                        if constexpr (I8)
+                            WgmmaSS8<W>::run(acc[mt], da, db, (ks > 0 || kk > 0) ? 1 : 0);
+                        else
+                            WgmmaSS<N>::run(acc[mt], da, db, (ks > 0 || kk > 0) ? 1 : 0);
+                    }
                 wgmma_commit();
                 wgmma_wait<1>();   // step j - 1's products are done: release its stage
                 if (ks > 0) release(j - 1);
@@ -813,6 +733,29 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
         }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) fence_operand(acc[mt]);
+
+        // ---- the int8 score steps, in registers: the f32 score replaces the
+        // s32 dot of the query's (hi) column; acc[mt][r + NV] is column + N ----
+        if constexpr (MODE == kModeI8) {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int r = 0; r < NV; ++r)
+                    acc[mt][r] = __float_as_int(__fadd_rn(
+                        __fmul_rn(__int2float_rn(acc[mt][r]), 254.f), __int2float_rn(acc[mt][r + NV])));
+        } else if constexpr (MODE == kModeI8Rows) {
+#pragma unroll
+            for (int i = 0; i < N / 8; ++i) {
+                const float2 qs = *reinterpret_cast<const float2*>(qsc + 8 * i + 2 * t4);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        acc[mt][4 * i + e] = __float_as_int(__fmul_rn(
+                            __fmul_rn(__int2float_rn(acc[mt][4 * i + e]), (e & 1) ? qs.y : qs.x),
+                            e < 2 ? rs_a[mt] : rs_b[mt]));
+            }
+        }
         RV_PROF(const long long c1 = clock64(); p_mma += c1 - c0;)
 
         // ---- gate: acc[mt][4 i + e] is row (e < 2 ? row_a : row_b)[mt],
@@ -831,13 +774,13 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
                     p[e] = (e < 2 ? ok_a[mt] : ok_b[mt]) && col + (e & 1) < nq &&
-                           better(acc[mt][4 * i + e], e < 2 ? row_a[mt] : row_b[mt],
+                           better(score_of(acc[mt][4 * i + e]), e < 2 ? row_a[mt] : row_b[mt],
                                   (e & 1) ? ts.y : ts.x, (e & 1) ? ti.y : ti.x);
                 if (__ballot_sync(FULL, p[0] || p[1] || p[2] || p[3]) == 0u) continue;
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int idx = mt * NV + 4 * i + e;
-                    if (offer(p[e], col + (e & 1), acc[mt][4 * i + e],
+                    if (offer(p[e], col + (e & 1), score_of(acc[mt][4 * i + e]),
                               e < 2 ? row_a[mt] : row_b[mt], active))
                         pend[idx / 32] |= 1u << (idx % 32);
                 }
@@ -909,7 +852,7 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                 for (int e = 0; e < 4; ++e) {
                     const int idx = mt * NV + 4 * i + e, c = 8 * i + 2 * t4 + (e & 1);
                     const int row = e < 2 ? row_a[mt] : row_b[mt];
-                    const float v = acc[mt][4 * i + e];
+                    const float v = score_of(acc[mt][4 * i + e]);
                     const uint32_t bit = 1u << (idx % 32);
                     const bool was = (pend[idx / 32] & bit) != 0u;
                     pend[idx / 32] &= ~bit;
@@ -922,8 +865,9 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     }
     named_bar_sync(1, kConsumers);
     RV_PROF(if (ctid == 0 && blockIdx.x == 0 && blockIdx.y == 0) printf(
-        "scan_wg N=%d bin=%d k=%d tiles=%d cycles: products %lld gate %lld select %lld "
-        "(barrier waits %lld; gate and select of tiles 0-3: %lld); rounds %d\n", N, (int)BIN, k,
+        "scan_wg Q=%d N=%d mode=%d masked=%d k=%d tiles=%d cycles: products %lld gate %lld "
+        "select %lld (barrier waits %lld; gate and select of tiles 0-3: %lld); rounds %d\n", Q,
+        N, MODE, (int)(mask != nullptr), k,
         n_tiles, p_mma, p_gate, p_flush, p_wait, p_early, p_rounds);)
     for (int idx = ctid; idx < nq * k; idx += kConsumers) {
         const int q = idx / k, jj = idx % k;
@@ -950,13 +894,13 @@ static bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, cons
 
 // launches one instantiation; *n_splits comes in as the caller's cap and
 // goes out as the splits launched: at most one wave (occupancy x SMs)
-template <int N, bool BIN>
-static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned char* packed,
-                    int W, const unsigned char* mask, int Q, int n_valid, int k, int n_k,
-                    const Plan& p, int* n_splits, float* part_s, int* part_i,
-                    cudaStream_t stream) {
-    auto kernel = topk_scan_wg_kernel<N, BIN>;
-    const size_t smem = smem_bytes(N, k, BIN, p.stages);
+template <int N, int MODE>
+static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned char* rows,
+                    int row_bytes, const unsigned char* mask, const float* q_scale,
+                    const float* row_scale, int Q, int n_valid, int k, int n_k, const Plan& p,
+                    int* n_splits, float* part_s, int* part_i, cudaStream_t stream) {
+    auto kernel = topk_scan_wg_kernel<N, MODE>;
+    const size_t smem = smem_bytes(N, k, MODE, p.stages);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -967,48 +911,63 @@ static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned
             cudaSuccess)
         return (int)err;
     *n_splits = max(1, min(*n_splits, ceil_div(max(occ, 1) * sms, p.q_blocks)));
-    constexpr int ROWS = kRows * m_tiles(N);
+    constexpr int ROWS = kRows * m_tiles(width(N, MODE));
     int rows_per_split = ceil_div(n_valid, *n_splits);
     rows_per_split = ceil_div(rows_per_split, ROWS) * ROWS;
     kernel<<<dim3(*n_splits, p.q_blocks), kThreads, smem, stream>>>(
-        am, qm, packed, W, mask, Q, n_valid, k, n_k, rows_per_split, p.stages, part_s, part_i);
+        am, qm, rows, row_bytes, mask, q_scale, row_scale, Q, n_valid, k, n_k, rows_per_split,
+        p.stages, part_s, part_i);
     return (int)cudaGetLastError();
 }
 
 static inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// bf16 rows db [n_valid.., D] (D % 8 == 0, 16-byte aligned) against q [Q, D];
-// or (BIN) packed rows [n_valid.., W = D] against the query permuted to the
-// k loop's order, [Q, 8 W16] bf16 (W16: W rounded up to 16)
-template <bool BIN>
-static int launch_wg(const void* db, const void* q, const unsigned char* mask, int D, int Q,
-                     int n_valid, int k, int* n_splits, float* part_s, int* part_i,
-                     cudaStream_t stream) {
-    const Plan p = plan(Q, k, BIN);
-    const int rows = kRows * m_tiles(p.n);   // the tile's rows: the rows' TMA box
+// MODE's rows db [n_valid.., D] against its queries q:
+//   * kModeBf16: bf16 rows (D % 8 == 0, 16-byte aligned), q [Q, D] bf16;
+//   * kModeBin: packed rows (W = D bytes a row), q the query permuted to the
+//     k loop's order, [Q, 8 W16] bf16 (W16: W rounded up to 16);
+//   * kModeI8: int8 rows, q the digits [2, Q, D16] int8 (D16: D rounded up
+//     to 16, zero past D); kModeI8Rows: int8 rows with row_scale [n_valid..],
+//     q [Q, D16] int8 with q_scale [Q].
+// Packed and int8 rows that TMA cannot take (D % 16 != 0 or an unaligned
+// base) are copied by the producer warp.
+template <int MODE>
+static int launch_wg(const void* db, const void* q, const unsigned char* mask,
+                     const float* q_scale, const float* row_scale, int D, int Q, int n_valid,
+                     int k, int* n_splits, float* part_s, int* part_i, cudaStream_t stream) {
+    constexpr bool I8 = MODE == kModeI8 || MODE == kModeI8Rows;
+    const Plan p = plan(Q, k, MODE);
+    const int rows = kRows * m_tiles(width(p.n, MODE));   // the tile's rows: the rows' TMA box
     const int w16 = ceil_div(D, 16) * 16;
-    const int qcols = BIN ? 8 * w16 : D;
-    const int n_k = ceil_div(qcols, 64);
+    const int qcols = MODE == kModeBin ? 8 * w16 : I8 ? w16 : D;
+    const int qrows = MODE == kModeI8 ? 2 * Q : Q;
+    const int n_k = ceil_div(qcols, I8 ? 128 : 64);
     CUtensorMap am, qm;
-    const unsigned char* packed = nullptr;
+    const unsigned char* copy = nullptr;
     if (!aligned16(q) ||
-        !make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, qcols, Q, 64, p.n,
-                  CU_TENSOR_MAP_SWIZZLE_128B))
+        !(I8 ? make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, qcols, qrows, 128, p.n,
+                        CU_TENSOR_MAP_SWIZZLE_128B)
+             : make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, qcols, qrows, 64, p.n,
+                        CU_TENSOR_MAP_SWIZZLE_128B)))
         return kMapError;
-    if (BIN && (D % 16 != 0 || !aligned16(db))) {
-        packed = static_cast<const unsigned char*>(db);   // the producer copies the rows
-        am = qm;                                          // unused
-    } else if (BIN ? !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, db, D, n_valid, kChunk,
-                               rows, CU_TENSOR_MAP_SWIZZLE_NONE)
-                   : !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, db, D, n_valid, 64,
-                               rows, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    if (MODE != kModeBf16 && (D % 16 != 0 || !aligned16(db))) {
+        copy = static_cast<const unsigned char*>(db);   // the producer copies the rows
+        am = qm;                                        // unused
+    } else if (MODE == kModeBin ? !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, db, D, n_valid,
+                                            kChunk, rows, CU_TENSOR_MAP_SWIZZLE_NONE)
+               : I8 ? !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, db, D, n_valid, 128, rows,
+                                CU_TENSOR_MAP_SWIZZLE_128B)
+                    : !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, db, D, n_valid, 64,
+                                rows, CU_TENSOR_MAP_SWIZZLE_128B)) {
         return kMapError;
     }
     switch (p.n) {
-#define RV_WG_CASE(NN)                                                                       \
-    case NN:                                                                                 \
-        return launch_n<NN, BIN>(am, qm, packed, D, mask, Q, n_valid, k, n_k, p, n_splits,   \
-                                 part_s, part_i, stream);
+#define RV_WG_CASE(NN)                                                                        \
+    case NN:                                                                                  \
+        if constexpr (NN <= n_cap(MODE))                                                      \
+            return launch_n<NN, MODE>(am, qm, copy, D, mask, q_scale, row_scale, Q, n_valid, k, \
+                                      n_k, p, n_splits, part_s, part_i, stream);              \
+        break;
         RV_WG_CASE(8) RV_WG_CASE(16) RV_WG_CASE(32) RV_WG_CASE(64) RV_WG_CASE(128)
 #undef RV_WG_CASE
     }
@@ -1107,25 +1066,22 @@ static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
     if (n_valid <= 0)   // no row scores: every slot (-inf, -1)
         return launch_merge(part_s, part_i, Q, k, 0, out_s, out_i, stream);
     if (mode == kBFloat16 && D % 8 == 0 && scan_wg::aligned16(db))
-        status = scan_wg::launch_wg<false>(db, q, mask, D, Q, n_valid, k, &n_splits, part_s,
-                                           part_i, stream);
+        status = scan_wg::launch_wg<scan_wg::kModeBf16>(db, q, mask, nullptr, nullptr, D, Q,
+                                                        n_valid, k, &n_splits, part_s, part_i,
+                                                        stream);
     else if (mode == kBFloat16)
         status = launch_scan<__nv_bfloat16>(db, q, mask, D, Q, n_valid, k, n_splits,
                                             rows_per_split, part_s, part_i, stream);
     else if (mode == kFloat32)
         status = launch_scan<float>(db, q, mask, D, Q, n_valid, k, n_splits,
                                     rows_per_split, part_s, part_i, stream);
-    else if (mode == kInt8) {
-        const bool vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(db) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(q) % 16 == 0;
-        status = launch_smem(topk_scan_i8_kernel<2>, topk_i8_smem(k), Q, n_splits, stream,
-                             static_cast<const signed char*>(db),
-                             static_cast<const signed char*>(q), nullptr, nullptr, mask,
-                             D, Q, n_valid, k, rows_per_split, vec, part_s, part_i);
-    }
+    else if (mode == kInt8)
+        status = scan_wg::launch_wg<scan_wg::kModeI8>(db, q, mask, nullptr, nullptr, D, Q, n_valid,
+                                                      k, &n_splits, part_s, part_i, stream);
     else if (mode == kBinaryPacked && D <= BIN_WMAX)
-        status = scan_wg::launch_wg<true>(db, q, mask, D, Q, n_valid, k, &n_splits, part_s,
-                                          part_i, stream);
+        status = scan_wg::launch_wg<scan_wg::kModeBin>(db, q, mask, nullptr, nullptr, D, Q,
+                                                       n_valid, k, &n_splits, part_s, part_i,
+                                                       stream);
     else
         return kUnsupported;
     if (status != 0) return status;
@@ -1133,7 +1089,7 @@ static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
 }
 
 // K12's stage 1: int8 rows [n_valid.., D] with per-row f32 scales against
-// one int8 digit per query [Q, D] with per-query f32 scales.
+// one int8 digit per query [Q, D16] (zero past D) with per-query f32 scales.
 static int launch_topk_int8_rows(const void* db, const void* q, const void* q_scale,
                                  const void* row_scale, int D, int Q, int n_valid, int k,
                                  int n_splits, void* part_s_v, void* part_i_v, void* out_s,
@@ -1141,16 +1097,11 @@ static int launch_topk_int8_rows(const void* db, const void* q, const void* q_sc
     if (k < 1 || k > TOPK_KMAX || n_splits < 1 || D < 1) return kUnsupported;
     auto* part_s = static_cast<float*>(part_s_v);
     auto* part_i = static_cast<int*>(part_i_v);
-    int rows_per_split = ceil_div(max(n_valid, 1), n_splits);
-    rows_per_split = ceil_div(rows_per_split, TOPK_RT) * TOPK_RT;
-    const bool vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(db) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
-    const int status = launch_smem(
-        topk_scan_i8_kernel<1>, topk_i8_smem(k), Q, n_splits, stream,
-        static_cast<const signed char*>(db), static_cast<const signed char*>(q),
-        static_cast<const float*>(q_scale), static_cast<const float*>(row_scale),
-        static_cast<const unsigned char*>(nullptr), D, Q, n_valid, k, rows_per_split, vec,
-        part_s, part_i);
+    if (n_valid <= 0)   // no row scores: every slot (-inf, -1)
+        return launch_merge(part_s, part_i, Q, k, 0, out_s, out_i, stream);
+    const int status = scan_wg::launch_wg<scan_wg::kModeI8Rows>(
+        db, q, nullptr, static_cast<const float*>(q_scale), static_cast<const float*>(row_scale),
+        D, Q, n_valid, k, &n_splits, part_s, part_i, stream);
     if (status != 0) return status;
     return launch_merge(part_s, part_i, Q, k, n_splits, out_s, out_i, stream);
 }

@@ -92,8 +92,8 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("ms_deform", (B, Lq,
-# level shapes, H, D, P, dtype)): n}. Counted beside `launches`, which
-# stays the per-kernel count.
+# level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
+# masked)): n}. Counted beside `launches`, which stays the per-kernel count.
 shape_launches: collections.Counter = collections.Counter()
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the
 # top-k kernel's cap; int8 k above the cap or d above the exactness bound

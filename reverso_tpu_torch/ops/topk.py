@@ -11,14 +11,17 @@ whose two passes never materialize the [Q, N] score matrix; on a CPU
 tensor they run `cosine_topk_ref` / `cosine_topk_int8_ref`.
 
 Which kernel of `topk_stream.cu` serves which call:
-  * bf16 rows with d % 8 == 0 (K1, K2 with a row mask) and packed sign
-    rows (K10, `ops/binary.py`): `topk_scan_wg_kernel`, wgmma + TMA, each
-    CTA scoring 256-row tiles (128 at Q > 64) against a block of up to 128
-    queries (`wg_plan`; Q above 128 runs as several blocks, each reading
-    the rows again);
+  * bf16 rows with d % 8 == 0 (K1, K2 with a row mask), packed sign rows
+    (K10, `ops/binary.py`) and int8 rows (K9 here, K12 in
+    `ops/topk_int8.py`): `topk_scan_wg_kernel`, wgmma + TMA (s8 wgmma with
+    exact s32 sums for int8), each CTA scoring 256-row tiles (128 where the
+    accumulator is wider than 64 columns) against a block of up to 128
+    queries, 64 in the int8 modes (K9's two query digits make the
+    accumulator twice as wide; K12's k-select runs over fewer lists)
+    (`wg_plan`; Q above a block runs as several blocks, each reading the
+    rows again);
   * fp32 rows, and bf16 rows with d % 8 != 0: `topk_scan_kernel`, FMA on
-    the CUDA cores, 64 queries x 64 rows a tile;
-  * int8 rows (K9): `topk_scan_i8_kernel`, s8 WMMA, 64 x 64 tiles.
+    the CUDA cores, 64 queries x 64 rows a tile.
 """
 from __future__ import annotations
 
@@ -34,13 +37,15 @@ log = get_logger("ops.topk")
 
 # k cap of the CUDA kernel (TOPK_KMAX in csrc/topk_select.cuh)
 K_CAP = 128
-_QUERY_TILE = 64   # TOPK_QT in csrc/topk_stream.cu: the CUDA-core and int8 kernels
+_QUERY_TILE = 64   # TOPK_QT in csrc/topk_stream.cu: the CUDA-core kernel's tiles
 _ROW_TILE = 64     # TOPK_RT
 # the wgmma scan's geometry (scan_wg:: in csrc/topk_stream.cu)
+WG_BF16, WG_BINARY, WG_INT8, WG_INT8_ROWS = 0, 1, 2, 3   # its modes (kMode*): K1/K2, K10, K9, K12
 WG_ROWS = 128        # rows of a tile per m64 tile of each warpgroup (wg_m_tiles)
 WG_SLOT_BYTES = 16384   # the candidate slots of a query block
 WG_MAX_STAGES = 8
 WG_N_MAX = 128       # queries of a block
+WG_N_MAX_INT8 = 64   # the int8 modes' (kNMaxI8): K9's 2N-wide accumulator, K12's select
 SMEM_MAX = 232448    # shared memory a CTA may use (227 KB)
 # int8 exactness: every digit's dot (and each partial sum) is an integer of
 # magnitude <= d * 127^2, exact in fp32 only below 2^24, i.e. d <= 1040
@@ -121,8 +126,9 @@ def cosine_topk_ref(db: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def scan_splits(dev: torch.device, qn: int, n_valid: int) -> int:
-    """Row splits of a CUDA-core or int8 top-k launch (64-query tiles):
-    about two waves of CTAs over the SMs, split along the rows."""
+    """Row splits of a launch of the CUDA-core scan (fp32 rows, bf16 rows
+    with d % 8 != 0; 64-query tiles): about two waves of CTAs over the
+    SMs, split along the rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return split_count(sms, -(-qn // _QUERY_TILE), n_valid, _ROW_TILE)
 
@@ -140,37 +146,47 @@ def wg_cand(n: int) -> int:
     return max(8, min(32, WG_SLOT_BYTES // 8 // n))
 
 
-def wg_m_tiles(n: int) -> int:
-    """m64 tiles a consumer warpgroup holds at query block n
-    (scan_wg::m_tiles): two (256-row tiles) at n <= 64, one at 128."""
-    return 2 if n <= 64 else 1
+def wg_width(n: int, mode: int) -> int:
+    """The accumulator's columns at query block n (scan_wg::width): K9's
+    hi and lo digits are one B operand of 2n rows."""
+    return 2 * n if mode == WG_INT8 else n
 
 
-def wg_smem(n: int, k: int, binary: bool, stages: int) -> int:
+def wg_m_tiles(w: int) -> int:
+    """m64 tiles a consumer warpgroup holds at accumulator width w
+    (scan_wg::m_tiles): two (256-row tiles) at w <= 64, one at 128."""
+    return 2 if w <= 64 else 1
+
+
+def wg_smem(n: int, k: int, mode: int, stages: int) -> int:
     """Shared memory of one wgmma scan CTA (scan_wg::smem_bytes): 1 KB of
-    alignment, the ring (a stage: the queries, [n][64] bf16, and in bf16
-    mode the tile's rows, [128 m][64], m = wg_m_tiles(n)), binary mode's
-    two-slot ring of packed row chunks ([128 m][128 B] each), the sorted
-    lists ([n][k | 1] score, index
-    pairs), the candidate slots, the k-th entries and counts, the 8
-    consumer warps' merge scratch (128 pairs each), and the barriers."""
-    rows = WG_ROWS * wg_m_tiles(n)
-    ring = stages * ((0 if binary else rows * 128) + n * 128)
-    chunks = 2 * rows * 128 if binary else 0
-    return (1024 + chunks + ring + n * (8 * (k | 1) + 8 * wg_cand(n) + 12)
+    alignment, the ring (a stage holds 128 bytes of d a row: the query
+    block's B operand, [wg_width(n)][128 B], and except in binary mode the
+    tile's rows, [128 m][128 B], m = wg_m_tiles(wg_width(n))), binary
+    mode's two-slot ring of packed row chunks ([128 m][128 B] each), the
+    sorted lists ([n][k | 1] score, index pairs), the candidate slots, the
+    k-th entries and counts, K12's query scales, the 8 consumer warps'
+    merge scratch (128 pairs each), and the barriers. `mode` is one of
+    WG_BF16, WG_BINARY (or False / True), WG_INT8, WG_INT8_ROWS."""
+    w = wg_width(n, mode)
+    rows = WG_ROWS * wg_m_tiles(w)
+    ring = stages * ((0 if mode == WG_BINARY else rows * 128) + w * 128)
+    chunks = 2 * rows * 128 if mode == WG_BINARY else 0
+    scales = 4 * n if mode == WG_INT8_ROWS else 0
+    return (1024 + chunks + ring + n * (8 * (k | 1) + 8 * wg_cand(n) + 12) + scales
             + 8 * 8 * K_CAP + 16 * (WG_MAX_STAGES + 2))
 
 
-def wg_plan(qn: int, k: int, binary: bool) -> tuple[int, int, int]:
+def wg_plan(qn: int, k: int, mode: int) -> tuple[int, int, int]:
     """(n_pad, q_blocks, stages) of a wgmma scan launch (scan_wg::plan).
 
-    The query block is the widest power of two <= 128 whose sorted lists
-    fit beside a two-stage ring (128 at every k <= 128); Q runs as
-    ceil(Q / block) blocks of equal size, each padded to the power of two
-    n_pad >= its size (wgmma's N, 8 at Q = 1), and the ring takes as many
-    stages (2-8) as fit."""
-    nmax = WG_N_MAX
-    while nmax > 8 and wg_smem(nmax, k, binary, 2) > SMEM_MAX:
+    The query block is the widest power of two <= 128 (64 in the int8
+    modes) whose sorted lists fit beside a two-stage ring (the cap at
+    every k <= 128); Q runs as ceil(Q / block) blocks of equal size, each
+    padded to the power of two n_pad >= its size (wgmma's N, 8 at Q = 1),
+    and the ring takes as many stages (2-8) as fit."""
+    nmax = WG_N_MAX_INT8 if mode in (WG_INT8, WG_INT8_ROWS) else WG_N_MAX
+    while nmax > 8 and wg_smem(nmax, k, mode, 2) > SMEM_MAX:
         nmax //= 2
     q_blocks = -(-qn // nmax)
     per = -(-qn // q_blocks)
@@ -178,16 +194,49 @@ def wg_plan(qn: int, k: int, binary: bool) -> tuple[int, int, int]:
     while n_pad < per:
         n_pad *= 2
     stages = 2
-    while stages < WG_MAX_STAGES and wg_smem(n_pad, k, binary, stages + 1) <= SMEM_MAX:
+    while stages < WG_MAX_STAGES and wg_smem(n_pad, k, mode, stages + 1) <= SMEM_MAX:
         stages += 1
     return n_pad, q_blocks, stages
 
 
+def wg_splits(dev: torch.device, qn: int, k: int, n_valid: int, mode: int) -> int:
+    """Row splits of a wgmma scan launch: `split_count` over the plan's
+    query blocks and row tile (the launcher then caps them at one wave)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_pad, q_blocks, _ = wg_plan(qn, k, mode)
+    return split_count(sms, q_blocks, n_valid, WG_ROWS * wg_m_tiles(wg_width(n_pad, mode)))
+
+
+def wg_mode(mode: int, d: int) -> Optional[int]:
+    """The wgmma scan's mode for a `rv_topk_stream` launch, or None where
+    it takes the CUDA-core scan: bf16 rows with d % 8 == 0 (TMA's 16-byte
+    row stride), every packed-sign and every int8 launch (rows TMA cannot
+    take are copied by the producer warp)."""
+    if mode == kernels.BINARY_PACKED:
+        return WG_BINARY
+    if mode == kernels.INT8:
+        return WG_INT8
+    if mode == kernels.DTYPE_CODES[torch.bfloat16] and d % 8 == 0:
+        return WG_BF16
+    return None
+
+
 def wg_route(mode: int, d: int) -> bool:
-    """Whether a launch takes the wgmma scan: bf16 rows with d % 8 == 0
-    (TMA's 16-byte row stride) and every packed-sign launch."""
-    return mode == kernels.BINARY_PACKED or (mode == kernels.DTYPE_CODES[torch.bfloat16]
-                                              and d % 8 == 0)
+    """Whether a launch takes the wgmma scan (`wg_mode`)."""
+    return wg_mode(mode, d) is not None
+
+
+def tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """int8 operand rows for TMA: the last dim zero-padded to a multiple of
+    16 bytes, contiguous and 16-byte aligned (a copy only where needed;
+    zeros add nothing to an integer dot)."""
+    d = x.shape[-1]
+    w16 = -(-d // 16) * 16
+    if w16 == d and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros((*x.shape[:-1], w16))
+    out[..., :d] = x
+    return out
 
 
 def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
@@ -204,10 +253,9 @@ def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     if qn == 0:
         return out_s, out_i
-    if wg_route(mode, d):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_pad, q_blocks, _ = wg_plan(qn, k, mode == kernels.BINARY_PACKED)
-        n_splits = split_count(sms, q_blocks, n_valid, WG_ROWS * wg_m_tiles(n_pad))
+    wg = wg_mode(mode, d)
+    if wg is not None:
+        n_splits = wg_splits(dev, qn, k, n_valid, wg)
     else:
         n_splits = scan_splits(dev, qn, n_valid)
     part_s = torch.empty((n_splits, qn, k), dtype=torch.float32, device=dev)
@@ -378,7 +426,7 @@ def cosine_topk_int8_exact(db_i8: torch.Tensor, db_scale, queries: torch.Tensor,
     if db_i8.device.type == "cpu":
         return cosine_topk_int8_ref(db_i8, db_scale, queries, k, n_valid, row_mask)
     q_hi, q_lo, c2 = int8_query_digits(queries)
-    digits = torch.stack([q_hi, q_lo]).contiguous()
+    digits = tma_rows(torch.stack([q_hi, q_lo]))   # [2, Q, d rounded up to 16]
     s, i = _launch_topk("cosine_topk_int8_exact", "topk_int8", db_i8, digits, k,
                         n_valid, kernels.INT8, as_row_mask(row_mask, n, db_i8.device))
     return _scale(s, i, c2, db_scale)

@@ -15,8 +15,10 @@ Both quantizers divide (the JAX package's `quantize_rows` and query
 scaling do), unlike `ops/quant.py`'s multiply by the inverse with its
 1e-30 floor, so the two modules share no quantizer.
 
-On a CUDA tensor stage 1 launches `csrc/topk_stream.cu`'s per-row-scale
-int8 mode (K12); on a CPU tensor it runs `topk_int8_rows_ref`. The rescore
+On a CUDA tensor stage 1 launches `csrc/topk_stream.cu`'s wgmma scan in
+its per-row-scale int8 mode (K12: s8 wgmma with exact s32 sums, the two
+scalings in registers, blocks of up to 64 queries); on a CPU tensor it
+runs `topk_int8_rows_ref`. The rescore
 is plain PyTorch, as it was XLA in the JAX package. No engine path routes
 here, as none does in the JAX package.
 """
@@ -28,7 +30,7 @@ import torch
 
 from .. import kernels
 from .quant import fdiv, int_dot
-from .topk import _finish, scan_splits
+from .topk import WG_INT8_ROWS, _finish, tma_rows, wg_splits
 
 K_FETCH_CAP = 128     # the candidate list's cap (the kernel's k cap)
 Q_RESIDENT = 1024     # queries per stage-1 launch
@@ -84,14 +86,15 @@ def topk_int8_rows(db_i8: torch.Tensor, scales: torch.Tensor, q_i8: torch.Tensor
         return topk_int8_rows_ref(db_i8, scales, q_i8, q_scales, k, n_valid)
     scales = scales.float().contiguous()
     q_scales = q_scales.float().contiguous()
-    q_i8 = q_i8.contiguous()
     kernels.require_cuda("topk_int8_rows", db_i8, q_i8, scales, q_scales)
+    db_i8 = db_i8.contiguous()
+    q_i8 = tma_rows(q_i8)   # [Q, d rounded up to 16]
     qn, dev = q_i8.shape[0], db_i8.device
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     if qn == 0:
         return out_s, out_i
-    n_splits = scan_splits(dev, qn, n_valid)
+    n_splits = wg_splits(dev, qn, k, n_valid, WG_INT8_ROWS)
     part_s = torch.empty((n_splits, qn, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, qn, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):   # launch on the tensors' card
@@ -101,6 +104,7 @@ def topk_int8_rows(db_i8: torch.Tensor, scales: torch.Tensor, q_i8: torch.Tensor
             out_s.data_ptr(), out_i.data_ptr(), kernels.stream_ptr(dev))
     kernels.check("topk_int8_rows", status)
     kernels.launches["topk_int8_rows"] += 1
+    kernels.shape_launches[("topk_int8_rows", (qn, n_valid, d, k, False))] += 1
     return out_s, out_i
 
 

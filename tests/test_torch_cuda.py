@@ -384,30 +384,38 @@ def test_topk_binary_kernel(dev, n, d, q, k, n_valid, keep):
         assert bool((i == -1).all())
 
 
-@pytest.mark.parametrize("mode", ["bf16", "masked", "binary"])
+@pytest.mark.parametrize("mode", ["bf16", "masked", "binary", "int8", "int8_rows"])
 def test_topk_tie_across_tiles_and_splits(dev, mode):
     """Copies of row 1 on both sides of a warpgroup's m64 tiles (127/128)
     and of row tiles that are also row-split boundaries: 4096 rows at
     Q = 3 are 16 tiles of 256, fewer than the SMs, so the launch gives each
     tile its own split. The wgmma scan returns the tied rows in ascending
-    order."""
+    order (int8: K9's n16 and K12's n8 products, bit-equal scores)."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops import topk
     from reverso_tpu_torch.ops.binary import binary_topk, pack_signs
+    from reverso_tpu_torch.ops.topk_int8 import quantize_queries, quantize_rows, topk_int8_rows
 
     n, d, q, k = 4096, 128, 3, 7
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = topk.WG_ROWS * topk.wg_m_tiles(topk.wg_plan(q, k, mode == "binary")[0])
+    wg = {"binary": topk.WG_BINARY, "int8": topk.WG_INT8,
+          "int8_rows": topk.WG_INT8_ROWS}.get(mode, topk.WG_BF16)
+    rows = topk.WG_ROWS * topk.wg_m_tiles(topk.wg_width(topk.wg_plan(q, k, wg)[0], wg))
     assert rows == 256 and topk.split_count(sms, 1, n, rows) == n // rows <= sms
     gen = torch.Generator(device="cuda").manual_seed(17)
     x = _unit_rows(gen, n, d)
     copies = [127, 128, 255, 256, 511, 512]
     x[copies] = x[1].clone()
     qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d)])
-    counter = {"bf16": "topk_stream", "masked": "topk_masked", "binary": "topk_binary"}[mode]
+    counter = {"bf16": "topk_stream", "masked": "topk_masked", "binary": "topk_binary",
+               "int8": "topk_int8", "int8_rows": "topk_int8_rows"}[mode]
     n0 = kernels.launches[counter]
     if mode == "binary":
         s, i = binary_topk(pack_signs(x - x.mean(0)), qs, k, d)
+    elif mode == "int8":
+        s, i = topk.cosine_topk_int8_exact(*topk.quantize_db_int8(x), qs, k)
+    elif mode == "int8_rows":
+        s, i = topk_int8_rows(*quantize_rows(x), *quantize_queries(qs), k)
     else:
         mask = torch.ones(n, dtype=torch.bool, device="cuda") if mode == "masked" else None
         s, i = topk.cosine_topk(x.to(torch.bfloat16), qs.to(torch.bfloat16), k, row_mask=mask)
@@ -592,10 +600,13 @@ def test_ms_deform_kernel_clustered(dev, dtype, b, shapes, lq, h, d, p):
 
 @pytest.mark.parametrize("n,d,q,k,n_valid", [
     (1000, 64, 7, 40, None),
-    (4099, 200, 70, 20, 3001),        # two query tiles, n_valid < N
+    (4099, 200, 70, 20, 3001),        # n_valid < N; d % 16 != 0: the producer copies rows
     (300, 96, 4, 128, 20),            # k at the cap, k > n_valid
-    (1500, 77, 66, 16, 1400),         # d not a multiple of 16: byte copies
+    (1500, 77, 66, 16, 1400),         # d not a multiple of 16: the producer copies rows
     (2000, 1040, 9, 10, None),
+    (20000, 1024, 1, 40, None),       # Q = 1: an n8 product
+    (20000, 256, 300, 40, 19000),     # Q = 300: five blocks of 60
+    (20000, 1024, 256, 128, None),    # k = 128 at Q = 256
 ])
 def test_topk_int8_rows_kernel(dev, n, d, q, k, n_valid):
     """K12's stage 1 against its plain version: exact s32 dots and the
@@ -610,14 +621,52 @@ def test_topk_int8_rows_kernel(dev, n, d, q, k, n_valid):
     x[n // 2] = x[1]
     v8, sc = quantize_rows(x)
     q8, qs = quantize_queries(torch.cat([x[1:2], _unit_rows(gen, q - 1, d)]))
-    n0 = kernels.launches["topk_int8_rows"]
+    key = ("topk_int8_rows", (q, n if n_valid is None else n_valid, d, k, False))
+    n0, s0 = kernels.launches["topk_int8_rows"], kernels.shape_launches[key]
     s, i = topk_int8_rows(v8, sc, q8, qs, k, n_valid=n_valid)
     assert kernels.launches["topk_int8_rows"] == n0 + 1
+    assert kernels.shape_launches[key] == s0 + 1
     rs, ri = topk_int8_rows_ref(v8, sc, q8, qs, k, n_valid=n_valid)
     torch.cuda.synchronize()
     assert torch.equal(i, ri) and torch.equal(s, rs)
     if n_valid is None or n_valid > n // 2:
         assert i[0, :2].tolist() == [1, n // 2]
+
+
+@pytest.mark.parametrize("d", [77, 128, 1024])
+def test_topk_int8_unaligned_rows(dev, d):
+    """K9 and K12 over int8 rows whose base is not 16-byte aligned (a view
+    one byte into its buffer: the producer warp copies the rows into the
+    ring in TMA's swizzle), bit for bit with their plain versions."""
+    from reverso_tpu_torch.ops.topk import (cosine_topk_int8_exact, cosine_topk_int8_ref,
+                                            quantize_db_int8)
+    from reverso_tpu_torch.ops.topk_int8 import (quantize_queries, quantize_rows,
+                                                 topk_int8_rows, topk_int8_rows_ref)
+
+    n, q = 3001, 70
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = _unit_rows(gen, n, d)
+    x[n // 2] = x[1]
+    qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d)])
+
+    def shifted(v8):   # the same rows, one byte into a buffer
+        buf = torch.empty(n * d + 1, dtype=torch.int8, device="cuda")
+        buf[1:] = v8.flatten()
+        out = buf[1:].view(n, d)
+        assert out.data_ptr() % 16 != 0
+        return out
+
+    v8, scale = quantize_db_int8(x)
+    s, i = cosine_topk_int8_exact(shifted(v8), scale, qs, 10)
+    rs, ri = cosine_topk_int8_ref(v8, scale, qs, 10)
+    r8, rsc = quantize_rows(x)
+    q8, qsc = quantize_queries(qs)
+    s2, i2 = topk_int8_rows(shifted(r8), rsc, q8, qsc, 40)
+    r2s, r2i = topk_int8_rows_ref(r8, rsc, q8, qsc, 40)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert torch.equal(i2, r2i) and torch.equal(s2, r2s)
+    assert i[0, :2].tolist() == [1, n // 2] and i2[0, :2].tolist() == [1, n // 2]
 
 
 def test_cosine_topk_int8_on_the_card(dev):

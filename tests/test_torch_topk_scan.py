@@ -1,6 +1,6 @@
-"""The wgmma top-k scan's selection, binary dimension order and launch
-geometry (`reverso_tpu_torch/csrc/topk_stream.cu`, `scan_wg`: K1, K2,
-K10), on the CPU.
+"""The wgmma top-k scan's selection, binary dimension order, int8 score
+steps and launch geometry (`reverso_tpu_torch/csrc/topk_stream.cu`,
+`scan_wg`: K1, K2, K10, K9, K12), on the CPU.
 
 The CUDA kernel runs only on the card (tests/test_torch_cuda.py and
 chip_smoke.py hold it against its plain versions there). Here a numpy
@@ -19,9 +19,11 @@ import torch
 
 from reverso_tpu.ops import binary as jbin
 from reverso_tpu.ops import topk as jtopk
+from reverso_tpu.ops import topk_int8 as jtk
 from reverso_tpu_torch import kernels
 from reverso_tpu_torch.ops import binary as tbin
 from reverso_tpu_torch.ops import topk as ttopk
+from reverso_tpu_torch.ops import topk_int8 as ttk
 from test_topk import random_unit
 
 SRC = os.path.join(os.path.dirname(kernels.__file__), "csrc", "topk_stream.cu")
@@ -317,22 +319,34 @@ def test_binary_kernel_order_scores(n, d, q, k, n_valid):
     (256, 30, True, (128, 2, 8)),      # the K10 row
     (256, 128, True, (128, 2, 2)),
     (7, 30, True, (8, 1, 8)),
+    # int8 (modes 2, K9, and 3, K12): 128 bytes of d a stage
+    (1, 10, ttopk.WG_INT8, (8, 1, 6)),          # an n16 product (hi, lo), 256-row tiles
+    (64, 10, ttopk.WG_INT8, (64, 1, 6)),        # the capacity path's K9: n128, 128-row tiles
+    (256, 10, ttopk.WG_INT8, (64, 4, 6)),       # the K9 row: four blocks of 64
+    (256, 128, ttopk.WG_INT8, (64, 4, 4)),
+    (256, 40, ttopk.WG_INT8_ROWS, (64, 4, 4)),  # the two-stage search's K12: 256-row tiles
+    (1, 10, ttopk.WG_INT8_ROWS, (8, 1, 6)),
+    (1024, 40, ttopk.WG_INT8_ROWS, (64, 16, 4)),  # Q_RESIDENT queries a launch
 ])
 def test_wg_plan(q, k, binary, want):
+    """`binary` is the scan's mode (False / True: WG_BF16 / WG_BINARY)."""
     n_pad, q_blocks, stages = ttopk.wg_plan(q, k, binary)
     assert (n_pad, q_blocks, stages) == want
     assert n_pad * q_blocks >= q and n_pad in (8, 16, 32, 64, 128)
     assert ttopk.wg_smem(n_pad, k, binary, stages) <= ttopk.SMEM_MAX
 
 
-@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("binary", [False, True, ttopk.WG_INT8, ttopk.WG_INT8_ROWS])
 def test_wg_plan_fits_every_k_and_q(binary):
-    """Every k up to the cap and Q up to 1000: the plan fits a CTA's shared
+    """Every k up to the cap and Q up to 1000, in each mode (`binary`
+    False / True: WG_BF16 / WG_BINARY): the plan fits a CTA's shared
     memory, covers Q, takes one query block whenever Q fits the widest
-    block, and no more blocks than needed."""
+    block (64 in the int8 modes), and no more blocks than needed."""
+    cap = ttopk.WG_N_MAX_INT8 if binary in (ttopk.WG_INT8, ttopk.WG_INT8_ROWS) \
+        else ttopk.WG_N_MAX
     for k in range(1, ttopk.K_CAP + 1):
         nmax = max(n for n in (8, 16, 32, 64, 128)
-                   if ttopk.wg_smem(n, k, binary, 2) <= ttopk.SMEM_MAX)
+                   if n <= cap and ttopk.wg_smem(n, k, binary, 2) <= ttopk.SMEM_MAX)
         for q in (1, 2, 9, 64, 65, 129, 256, 257, 511, 1000):
             n_pad, q_blocks, stages = ttopk.wg_plan(q, k, binary)
             assert 2 <= stages <= ttopk.WG_MAX_STAGES
@@ -341,20 +355,51 @@ def test_wg_plan_fits_every_k_and_q(binary):
             assert n_pad < 2 * -(-q // q_blocks) or n_pad == 8
 
 
+@pytest.mark.parametrize("mode", [ttopk.WG_INT8, ttopk.WG_INT8_ROWS])
+@pytest.mark.parametrize("q", [1, 64, 70, 256, 300])
+@pytest.mark.parametrize("k", [10, 40, 128])
+def test_wg_plan_int8(mode, q, k):
+    """The int8 modes' plans: blocks of at most 64 queries (K9's
+    accumulator, 2N wide, stays at 128 columns; K12's select runs over
+    fewer lists a CTA), equal blocks covering Q, at least two stages, and
+    the CTA's shared memory (a stage: the rows [128 m][128 B] and the
+    digits [width][128 B]; K12 adds N query scales) within SMEM_MAX."""
+    n_pad, q_blocks, stages = ttopk.wg_plan(q, k, mode)
+    cap = 64
+    assert q_blocks == -(-q // cap)
+    assert n_pad == max(8, 1 << (-(-q // q_blocks) - 1).bit_length())
+    assert 2 <= stages <= ttopk.WG_MAX_STAGES
+    w = ttopk.wg_width(n_pad, mode)
+    assert w <= 128
+    stage = ttopk.WG_ROWS * ttopk.wg_m_tiles(w) * 128 + w * 128
+    lists = n_pad * (8 * (k | 1) + 8 * ttopk.wg_cand(n_pad) + 12)
+    fixed = 1024 + lists + (4 * n_pad if mode == ttopk.WG_INT8_ROWS else 0) \
+        + 8 * 8 * ttopk.K_CAP + 16 * (ttopk.WG_MAX_STAGES + 2)
+    assert ttopk.wg_smem(n_pad, k, mode, stages) == fixed + stages * stage <= ttopk.SMEM_MAX
+    assert stages == ttopk.WG_MAX_STAGES or fixed + (stages + 1) * stage > ttopk.SMEM_MAX
+
+
 @pytest.mark.parametrize("sms,q_blocks,n_valid,row_tile,want", [
     (132, 1, 1_000_000, 256, 264),     # two waves of one query block (Q <= 64)
     (132, 2, 1_000_000, 128, 132),     # Q = 256: two query blocks
     (132, 1, 256, 256, 1),             # the direct-embed store: one 256-row tile
     (132, 1, 0, 128, 1),
-    (132, 4, 1_000_000, 64, 66),       # the CUDA-core and int8 kernels at Q = 256
+    (132, 4, 1_000_000, 64, 66),       # the CUDA-core kernel at Q = 256
+    (132, 4, 1_000_000, 128, 66),      # K9 at Q = 256: four blocks of 64, 128-row tiles
 ])
 def test_split_count(sms, q_blocks, n_valid, row_tile, want):
     assert ttopk.split_count(sms, q_blocks, n_valid, row_tile) == want
 
 
 def test_wg_m_tiles():
-    """Two m64 tiles a warpgroup (256-row tiles) up to a 64-query block."""
+    """Two m64 tiles a warpgroup (256-row tiles) up to a 64-column
+    accumulator: a 64-query block, or K9's 32 (its digits double the
+    width)."""
     assert [ttopk.wg_m_tiles(n) for n in (8, 16, 32, 64, 128)] == [2, 2, 2, 2, 1]
+    assert [ttopk.wg_m_tiles(ttopk.wg_width(n, ttopk.WG_INT8))
+            for n in (8, 16, 32, 64)] == [2, 2, 2, 1]
+    assert all(ttopk.wg_width(n, m) == n for n in (8, 128)
+               for m in (ttopk.WG_BF16, ttopk.WG_BINARY, ttopk.WG_INT8_ROWS))
 
 
 def test_wg_route():
@@ -362,7 +407,12 @@ def test_wg_route():
     assert ttopk.wg_route(bf16, 1024) and ttopk.wg_route(bf16, 8)
     assert not ttopk.wg_route(bf16, 100) and not ttopk.wg_route(f32, 1024)
     assert ttopk.wg_route(kernels.BINARY_PACKED, 25)
-    assert not ttopk.wg_route(kernels.INT8, 1024)
+    # int8 rows take the s8 wgmma scan at any d (the producer copies rows
+    # TMA cannot take)
+    assert ttopk.wg_route(kernels.INT8, 1024) and ttopk.wg_route(kernels.INT8, 77)
+    assert ttopk.wg_mode(kernels.INT8, 1024) == ttopk.WG_INT8
+    assert ttopk.wg_mode(kernels.BINARY_PACKED, 25) == ttopk.WG_BINARY
+    assert ttopk.wg_mode(bf16, 1024) == ttopk.WG_BF16 and ttopk.wg_mode(f32, 1024) is None
 
 
 def test_geometry_constants_mirror_the_kernel():
@@ -371,7 +421,194 @@ def test_geometry_constants_mirror_the_kernel():
     src = open(SRC).read()
     for name, value in (("kRows", ttopk.WG_ROWS), ("kSlotBytes", ttopk.WG_SLOT_BYTES),
                         ("kMaxStages", ttopk.WG_MAX_STAGES), ("kNMax", ttopk.WG_N_MAX),
-                        ("kSmemMax", ttopk.SMEM_MAX)):
+                        ("kNMaxI8", ttopk.WG_N_MAX_INT8), ("kSmemMax", ttopk.SMEM_MAX),
+                        ("kModeBf16", ttopk.WG_BF16), ("kModeBin", ttopk.WG_BINARY),
+                        ("kModeI8", ttopk.WG_INT8), ("kModeI8Rows", ttopk.WG_INT8_ROWS)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == value, name
     assert "topk_scan_tc_kernel" not in src and "topk_scan_bin_kernel" not in src
+    # the int8 modes run on the wgmma scan: the WMMA kernel and its helpers are gone
+    for gone in ("topk_scan_i8_kernel", "i8_load_stage", "topk_i8_smem", "TC_LDS",
+                 "SC_BYTES", "topk_tc_state_bytes", "cp_async16", "<mma.h>", "wmma::"):
+        assert gone not in src, gone
+
+
+# ---------------------------------------------------------------------------
+# (d) the int8 modes: K9's stacked digits, K12's row scales
+# ---------------------------------------------------------------------------
+
+def _int8_case(seed, n, d, q, rows, n_splits, nv):
+    """Unit rows with row 3 copied on both sides of a row tile's boundary
+    (rows - 1, rows) and of the first row split's (rps - 1, rps), and query
+    0 equal to row 3, so that its top entries are exact ties. Returns the
+    rows, the queries and the sorted tied rows below nv."""
+    rng = np.random.default_rng(seed)
+    db = random_unit(rng, n, d)
+    qs = random_unit(rng, q, d)
+    rps = -(-(-(-nv // n_splits)) // rows) * rows
+    copies = sorted({rows - 1, rows, rps - 1, rps} & set(range(4, n)))
+    db[copies] = db[3]
+    qs[0] = db[3]
+    return db, qs, sorted(r for r in [3] + copies if r < nv)
+
+
+def _k9_scores(v8, hi, lo):
+    """K9's unscaled scores in numpy: exact digit dots, f32(hi) * 254, then
+    + f32(lo), each rounded to float32."""
+    rows = v8.astype(np.int64).T
+    s_hi = (hi.astype(np.int64) @ rows).astype(np.float32)
+    s_lo = (lo.astype(np.int64) @ rows).astype(np.float32)
+    return (s_hi * np.float32(254)).astype(np.float32) + s_lo
+
+
+def _k12_scores(r8, rsc, q8, qsc):
+    """K12's scores in numpy: (f32(dot) * q_scale) * row_scale, each
+    product rounded to float32."""
+    dots = (q8.astype(np.int64) @ r8.astype(np.int64).T).astype(np.float32)
+    return (dots * qsc[:, None]).astype(np.float32) * rsc[None, :]
+
+
+def _tile_rows(q, k, mode):
+    n_pad = ttopk.wg_plan(q, k, mode)[0]
+    return n_pad, ttopk.WG_ROWS * ttopk.wg_m_tiles(ttopk.wg_width(n_pad, mode))
+
+
+# (n, d, q, k, n_valid, keep, n_splits)
+K9_CASES = [
+    (700, 64, 5, 4, None, None, 2),     # N = 8: an n16 accumulator, 256-row tiles
+    (600, 48, 40, 10, 560, 0.6, 3),     # N = 64: n128, 128-row tiles; a mask, ragged n_valid
+    (400, 32, 3, 128, None, None, 2),   # k = 128
+]
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid,keep,n_splits", K9_CASES)
+def test_emulated_int8_digits_scan(n, d, q, k, n_valid, keep, n_splits):
+    """K9 on the wgmma scan: the emulated selection (the launch's tile rows
+    and candidate slots) over the two-rounding combined scores, scaled by
+    c2 * db_scale as the wrapper does, equals the port's plain version bit
+    for bit (ids and scores; the copies of row 3 across a tile and a split
+    boundary come back in ascending order) and the JAX package's kernel in
+    interpret mode under the tie-margin rule at 3e-5 (on the CPU, XLA
+    contracts the reference's combine into one FMA:
+    tests/test_torch_capacity.py::test_int8_exact_matches_jax)."""
+    nv = n if n_valid is None else n_valid
+    n_pad, rows = _tile_rows(q, k, ttopk.WG_INT8)
+    db, qs, tied = _int8_case(n + d, n, d, q, rows, n_splits, nv)
+    rng = np.random.default_rng(k)
+    mask = None if keep is None else rng.random(n) < keep
+    if mask is not None:
+        mask[tied] = True
+    jv, jsc = jtopk.quantize_db_int8(jnp.asarray(db))
+    v8, scale = torch.from_numpy(np.array(jv)), torch.tensor(np.float32(jsc))
+    hi, lo, c2 = ttopk.int8_query_digits(torch.from_numpy(qs))
+    got_s, got_i = emulate_scan(_k9_scores(v8.numpy(), hi.numpy(), lo.numpy()), k, nv, mask,
+                                n_splits, np.random.default_rng(1), rows=rows,
+                                cand=ttopk.wg_cand(n_pad))
+    got_s = got_s * (c2 * scale).numpy()   # `_scale`: one float32 product
+    ps, pi = ttopk.cosine_topk_int8_ref(v8, scale, torch.from_numpy(qs), k, n_valid=n_valid,
+                                        row_mask=mask)
+    np.testing.assert_array_equal(got_i, pi.numpy())
+    np.testing.assert_array_equal(got_s, ps.numpy())
+    js, ji = (np.asarray(x) for x in jtopk.cosine_topk_int8_exact(
+        jv, jsc, jnp.asarray(qs), k, n_valid=n_valid, interpret=True,
+        row_mask=None if mask is None else jnp.asarray(mask)))
+    _tie_margin_equal(got_s, got_i, js, ji, 3e-5)
+    m = min(k, len(tied))
+    assert list(got_i[0, :m]) == tied[:m]
+
+
+# (n, d, q, k, n_valid, n_splits)
+K12_CASES = [
+    (700, 64, 5, 4, None, 2),       # N = 8: 256-row tiles
+    (600, 80, 70, 40, 560, 3),      # two blocks of 35 (N = 64), k_fetch = 40 (warp merges)
+    (300, 32, 3, 128, 250, 2),      # k = 128, k > n_valid of the rows kept
+]
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid,n_splits", K12_CASES)
+def test_emulated_int8_rows_scan(n, d, q, k, n_valid, n_splits):
+    """K12 on the wgmma scan: the emulated selection over the scores of
+    the kernel's score step equals the port's plain version
+    (`topk_int8_rows_ref`) bit for bit, ties to the lower row across tile
+    and split boundaries, and the JAX package's stage-1 kernel in interpret
+    mode (`_topk_int8_jit`) under the tie-margin rule at 1e-6."""
+    nv = n if n_valid is None else n_valid
+    n_pad, rows = _tile_rows(q, k, ttopk.WG_INT8_ROWS)
+    db, qs, tied = _int8_case(n + d, n, d, q, rows, n_splits, nv)
+    r8, rsc = ttk.quantize_rows(db)
+    q8, qsc = ttk.quantize_queries(torch.from_numpy(qs))
+    got_s, got_i = emulate_scan(_k12_scores(r8.numpy(), rsc.numpy(), q8.numpy(), qsc.numpy()),
+                                k, nv, None, n_splits, np.random.default_rng(2), rows=rows,
+                                cand=ttopk.wg_cand(n_pad))
+    ps, pi = ttk.topk_int8_rows_ref(r8, rsc, q8, qsc, k, n_valid=n_valid)
+    np.testing.assert_array_equal(got_i, pi.numpy())
+    np.testing.assert_array_equal(got_s, ps.numpy())
+    js, ji = map(np.asarray, jtk._topk_int8_jit(
+        jnp.asarray(r8.numpy()), jnp.asarray(rsc.numpy()), jnp.asarray(q8.numpy()),
+        jnp.asarray(qsc.numpy()), nv, k=k, kpad=-(-k // 8) * 8, q_tile=-(-q // 8) * 8,
+        db_tile=128, interpret=True, q_out=q, n_bufs=4))
+    _tie_margin_equal(got_s, got_i, js, ji, 1e-6)
+    m = min(k, len(tied))
+    assert list(got_i[0, :m]) == tied[:m]
+
+
+def _accumulator_layout(w):
+    """The wgmma m64nW accumulator layout (PTX's wgmma D fragments): for
+    each thread (warp, lane) and register r = 4 i + e, its row 16 warp +
+    lane / 4 + 8 (e >= 2) and column 8 i + 2 (lane % 4) + (e & 1)."""
+    out = []
+    for warp in range(4):
+        for lane in range(32):
+            regs = [(16 * warp + lane // 4 + 8 * (e >= 2), 8 * i + 2 * (lane % 4) + (e & 1))
+                    for i in range(w // 8) for e in range(4)]
+            out.append(regs)
+    return out
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_stacked_digits_combine_in_registers(n):
+    """K9's B operand stacks the hi digits (columns 0 .. n-1) over the lo
+    digits (n .. 2n-1) of an n(2n) product. In the accumulator layout
+    every (t4, e, i) puts column c and column c + n in one thread,
+    registers r and r + n/2, so the combine is thread-local; combining
+    them there in float32 with separate roundings, as the kernel's score
+    step does, equals `int8_combine` of the two dot matrices."""
+    rng = np.random.default_rng(n)
+    d = 1040                                     # the exactness cap: |dot| < 2^24
+    rows = rng.integers(-127, 128, (64, d))
+    hi = rng.integers(-127, 128, (n, d))
+    lo = rng.integers(-127, 128, (n, d))
+    acc = rows @ np.concatenate([hi, lo]).T     # [64, 2n] s32 accumulator
+    combined = np.full((64, n), np.nan, np.float32)
+    for regs in _accumulator_layout(2 * n):
+        assert len(regs) == n                   # 2n / 2 registers a thread
+        for r in range(n // 2):                 # the hi half: columns < n
+            (row, c), (row2, c2) = regs[r], regs[r + n // 2]
+            assert c < n and (row2, c2) == (row, c + n)
+            combined[row, c] = np.float32(np.float32(acc[row, c]) * np.float32(254)) \
+                + np.float32(acc[row, c + n])
+    want = ttopk.int8_combine(torch.from_numpy(acc[:, :n].astype(np.int32)),
+                              torch.from_numpy(acc[:, n:].astype(np.int32)))
+    np.testing.assert_array_equal(combined, want.numpy())
+
+
+def test_k12_roundings_in_order():
+    """K12's score step rounds after each multiply, in the reference's
+    order: (f32(dot) * q_scale) * row_scale in float32 equals the JAX
+    package's stage-1 scores at its ids bit for bit, and the other grouping,
+    f32(dot) * (q_scale * row_scale), differs from them in the last bits."""
+    rng = np.random.default_rng(12)
+    n, d, q, k = 2000, 200, 6, 40
+    db = random_unit(rng, n, d) * rng.uniform(0.5, 3.0, (n, 1)).astype(np.float32)
+    qs = random_unit(rng, q, d)
+    r8, rsc = ttk.quantize_rows(db)
+    q8, qsc = ttk.quantize_queries(torch.from_numpy(qs))
+    js, ji = map(np.asarray, jtk._topk_int8_jit(
+        jnp.asarray(r8.numpy()), jnp.asarray(rsc.numpy()), jnp.asarray(q8.numpy()),
+        jnp.asarray(qsc.numpy()), n, k=k, kpad=k, q_tile=8, db_tile=256, interpret=True,
+        q_out=q, n_bufs=4))
+    ours = _k12_scores(r8.numpy(), rsc.numpy(), q8.numpy(), qsc.numpy())
+    np.testing.assert_array_equal(np.take_along_axis(ours, ji.astype(np.int64), 1), js)
+    dots = (q8.numpy().astype(np.int64) @ r8.numpy().astype(np.int64).T).astype(np.float32)
+    other = dots * (qsc.numpy()[:, None] * rsc.numpy()[None, :]).astype(np.float32)
+    assert (np.take_along_axis(other, ji.astype(np.int64), 1) != js).any()
