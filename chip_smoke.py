@@ -22,11 +22,15 @@ of which catches a failure:
      it, K7), SAM's
      rel-pos bias attention (K6) on the tensor cores in fp32 and bf16
      against its bf16-operand and fp32 plain versions, with SDPA and a
-     materialized mask in both dtypes beside it, and the CUDA-core
-     kernels in fp32 (K3, K7, K6's CUDA-core mode); both bf16 attention
-     kernels at edge shapes (S 1 to
-     129, kv_valid 0 to S - 1, head dims 16 to 128, S_kv != S_q, B * H 1
-     and 1024); the capacity kernels at 1,000,000 x 1024
+     materialized mask in both dtypes beside it, K7 and K6 with fp32
+     operands on the core's split mode (three bf16 parts a value, six
+     products) against `attention_split_ref` and the fp32 `attention_ref`
+     at the 2e-5 gate, and K3 in fp32 on the CUDA cores; K1 in fp32 rows
+     over 1M x 1024 at Q = 64 and 256 beside a matmul and a topk; the
+     attention kernels at edge shapes (S 1 to 129, kv_valid 0 to S - 1,
+     head dims 6 to 128, S_kv != S_q, B * H 1 and 1024; bf16 on the
+     tensor cores, fp32 [B, H, S, D] on the split mode); the capacity
+     kernels at 1,000,000 x 1024
      (masked bf16, int8 with ids and scores equal bit for bit, packed
      binary) and the IVF probed scan at 1024 clusters, nprobe 16; the
      int8 MLP (K5: T = 4616, 1000, 36,928 and 577, 1024 -> 4096 -> 1024,
@@ -38,10 +42,11 @@ of which catches a failure:
      depth 2 (its embeddings and, through `encode_regions`, its ROI
      region embeddings); GroundingDINO-tiny with 1 encoder and 1 decoder
      layer at 800 px; SAM ViT-B with 3 layers (global layer 2) at
-     1024 px, its rel-pos bias attention once on the CUDA-core kernel
-     (fp32, the 1e-3 gate) and once on the default route (the tensor-core
-     core, bf16 operands, a 2e-2 gate); PE-Core-L14 at 504 px (S = 1297, past the heads-in-lanes
-     kernel: the ViT's long-sequence path); then PE-Core-L14 at 504 px in
+     1024 px, its rel-pos bias attention once on the split mode (fp32
+     operands, the 1e-3 gate) and once on the default route (the tensor-core
+     core, bf16 operands, a 2e-2 gate); PE-Core-L14 at 504 px (S = 1297,
+     past the heads-in-lanes kernel: the ViT's long-sequence path, K7 on
+     the split mode); then PE-Core-L14 at 504 px in
      bf16 at full depth, B = 8, against the same weights in fp32 on the
      card (every block's attention on the tensor-core K7);
   4b. the two-stage int8 search at op level (`cosine_topk_int8` over the
@@ -58,7 +63,7 @@ of which catches a failure:
      32 synthetic 640x480 / 480x640 images with `create_database(...,
      use_direct_pe=False)`, then answers `detect_regions` +
      `extract_embeddings` + `search_similar` queries, and holds 8 photos'
-     detections on the default route against SAM's CUDA-core route
+     detections on the default route against SAM's split-mode route
      (boxes equal, the share of mask pixels that agree); K8's inputs at
      each shape the path ran it at are captured (the model's own sampling
      locations), and K8 is held against its plain version and timed on
@@ -107,9 +112,14 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W); fp32
+# products at fp32 accuracy: six bf16 tensor-core passes of three-way
+# split operands (the TPU's Precision.HIGHEST), 989 / 6 TFLOP/s, which the
+# split mode reaches past the CUDA cores' 67 ("float32": work that is not
+# products, as K8's lerps)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "float32_split": 989e12 / 6,
+              "int8": 1979e12}
 
 
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -187,19 +197,20 @@ def topk_agree(ref_s, ref_i, s, i, tol: float) -> None:
 
 
 @contextlib.contextmanager
-def cuda_core_relbias():
-    """SAM's rel-pos bias attention on the CUDA-core kernel (fp32 operands)
-    instead of the tensor-core core, for a comparison with the default
-    route: `ops/attention.py::attention_route` patched inside this script
-    only."""
+def split_relbias():
+    """SAM's rel-pos bias attention on the split mode (fp32 operands)
+    instead of the bf16 core, for a comparison with the default route:
+    `ops/attention.py::attention_route` patched inside this script only."""
     import importlib
     from unittest import mock
+
+    import torch
     attn = importlib.import_module("reverso_tpu_torch.ops.attention")
     route = attn.attention_route
 
     def forced(device_type, dtype, head_dim, rel_bias=False):
-        if rel_bias and device_type != "cpu":
-            return "cuda_core"
+        if rel_bias and device_type != "cpu" and dtype == torch.float32:
+            return "split"
         return route(device_type, dtype, head_dim, rel_bias)
 
     with mock.patch.object(attn, "attention_route", forced):
@@ -328,7 +339,7 @@ def kernel_checks(torch, gen) -> dict:
         library="F.scaled_dot_product_attention on [B, H, S, D] (no RoPE, fp32)",
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
     rows["flash_heads_f32"]["bound_ms"], rows["flash_heads_f32"]["bound_by"] = bound(
-        4 * 2 * s * w * 4 + 2 * s * hd * 4, 4 * 2 * heads * s * s * hd, "float32")
+        4 * 2 * s * w * 4 + 2 * s * hd * 4, 4 * 2 * heads * s * s * hd, "float32_split")
     print(f"flash_heads fp32: max abs err {errs} (tol {tol32})", flush=True)
     del q32, k32, v32, qh, kh, vh
 
@@ -412,7 +423,7 @@ def kernel_checks(torch, gen) -> dict:
         library_route="F.linear, F.gelu, F.linear (cuBLAS fp32, three calls)",
         library_route_ms=cuda_ms(lambda: route32(x32)))
     rows["fused_mlp_f32"]["bound_ms"], rows["fused_mlp_f32"]["bound_by"] = bound(
-        (2 * t32 * w + 2 * hid * w + hid + w) * 4, 4 * t32 * w * hid, "float32")
+        (2 * t32 * w + 2 * hid * w + hid + w) * 4, 4 * t32 * w * hid, "float32_split")
     print(f"fused_mlp fp32: max abs err {err} (tol {tol32}); cuBLAS route "
           f"{rows['fused_mlp_f32']['library_route_ms']:.4f} ms", flush=True)
     del x, x64, w1, b1, w2, b2, x32, w1f, b1f, w2f, b2f, out
@@ -468,7 +479,43 @@ def kernel_checks(torch, gen) -> dict:
           f"{rows['topk_stream']['q1_ms']:.4f} ms", flush=True)
     check(all(v == 0 for v in kernels.plain_dispatches.values()),
           "a k <= 128 search must not take the plain path")
-    del db, small
+    del small
+
+    # K1 in fp32 rows (`DeviceIndex(dtype="float32")`, the CUDA-core scan):
+    # 1M x 1024 fp32 (4.1 GB) at Q = 64 and 256, k = 10, against the plain
+    # version under the tie-margin rule, with a matmul and a topk beside it
+    db32 = db[:n_valid].float()
+    del db
+    q32 = qs.float()
+    tol32 = 1e-4   # fp32 sums of fp32 products in another order
+    by_q = {}
+    for qn in (64, 256):
+        qq = q32[:qn].contiguous()
+        out_s, out_i = cosine_topk(db32, qq, 10)
+        ref_s, ref_i = cosine_topk_ref(db32, qq, 10)
+        topk_agree(ref_s, ref_i, out_s, out_i, tol32)
+        by_q[qn] = dict(
+            max_abs_err=float((out_s - ref_s).abs().max()),
+            ms=cuda_ms(lambda: cosine_topk(db32, qq, 10), iters=3),
+            plain_ms=cuda_ms(lambda: cosine_topk_ref(db32, qq, 10), iters=3),
+            library_route_ms=cuda_ms(lambda: torch.topk(qq @ db32.T, 10, dim=1), iters=3),
+            bound=bound(n_valid * w * 4 + qn * w * 4 + qn * 10 * 8, 2 * qn * n_valid * w,
+                        "float32_split"))
+    main = by_q[256]
+    rows["topk_stream_f32"] = dict(
+        source="reverso_tpu_torch/csrc/topk_stream.cu",
+        replaces="reverso_tpu/ops/topk.py:183",
+        max_abs_err=max(r["max_abs_err"] for r in by_q.values()),
+        shape="N=1,000,000 d=1024 Q=256 k=10 fp32 rows (the CUDA-core scan); no path of this "
+              "script keeps a float32 store",
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        library="none: no single PyTorch call (a matmul and a topk)", library_ms=None,
+        library_route="torch.matmul, torch.topk", library_route_ms=main["library_route_ms"],
+        bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        q64_ms=by_q[64]["ms"], q64_library_route_ms=by_q[64]["library_route_ms"],
+        q64_bound_ms=by_q[64]["bound"][0], q64_bound_by=by_q[64]["bound"][1])
+    print(f"topk_stream fp32 rows: {json.dumps(by_q)}", flush=True)
+    del db32
     return rows
 
 
@@ -476,7 +523,8 @@ def region_kernel_checks(torch, gen) -> dict:
     """K6, K7, K8 against their plain versions at the region and ViT
     long-sequence paths' shapes and at small ragged shapes."""
     import torch.nn.functional as F
-    from reverso_tpu_torch.ops.attention import attention_ref, flash_attention
+    from reverso_tpu_torch.ops.attention import (attention_ref, attention_split_ref,
+                                                  flash_attention)
     from reverso_tpu_torch.ops.deformable import ms_deform_attn, ms_deform_attn_ref
 
     dev = torch.device("cuda")
@@ -553,51 +601,53 @@ def region_kernel_checks(torch, gen) -> dict:
           flush=True)
     del q16, k16, v16, bh16, bw16, kw16
 
-    # the CUDA-core rel-bias mode (head dims the core does not take), fp32,
-    # through a direct launch (not counted) at SAM's shape and the ragged one
-    tol32 = 2e-5   # fp32: sums in another order, online vs one-pass softmax
-    lib = kernels.lib()
-
-    def cuda_core(q, k, v, bh, bw, g, kv_valid):
-        o = torch.empty_like(q)
-        bb, hh, sq, d = q.shape
-        kernels.check("rv_flash_attn", lib.rv_flash_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bh.data_ptr(), bw.data_ptr(),
-            o.data_ptr(), bb * hh, sq, k.shape[2], d, g, kv_valid, d ** -0.5,
-            kernels.DTYPE_CODES[f32], kernels.stream_ptr(dev)))
-        return o
-
-    out = cuda_core(q, k, v, bh, bw, g, s)
-    err_cc = [max_err(out, attention_ref(q, k, v, **kw))]
-    cc_ms = cuda_ms(lambda: cuda_core(q, k, v, bh, bw, g, s))
-    del out
-    q2, k2, v2 = randn(1, 2, 150, 32, dtype=f32), randn(1, 2, 196, 32, dtype=f32), \
-        randn(1, 2, 196, 32, dtype=f32)
-    bh2, bw2 = randn(1, 2, 150, 14, dtype=f32, scale=0.5), randn(1, 2, 150, 14, dtype=f32, scale=0.5)
-    err_cc.append(max_err(cuda_core(q2, k2, v2, bh2, bw2, 14, 190),
-                          attention_ref(q2, k2, v2, kv_valid=190, rel_bias=(bh2, bw2, 14))))
+    # K6 with fp32 operands on the split mode: SAM's shape through the
+    # route this script forces (as the SAM parity phase does), a ragged
+    # case (Sq = 150, G = 14: the bias mode whose tiles cross lattice rows,
+    # kv_valid 190 < 196) and a head dim the bf16 core does not take (D =
+    # 40, where the split mode is the default route), each against the
+    # fp32 `attention_ref` and the split mode's plain version
+    tol32 = 2e-5   # fp32 operands: six products, sums in another order, online softmax
+    err_sp = []
+    n0 = kernels.launches["flash_attn_relbias_split"]
+    with split_relbias():
+        out = flash_attention(q, k, v, **kw)
+        err_sp += [max_err(out, attention_ref(q, k, v, **kw)),
+                   max_err(out, attention_split_ref(q, k, v, **kw))]
+        del out
+        for d2 in (32, 40):
+            q2, k2, v2 = (randn(1, 2, n, d2, dtype=f32) for n in (150, 196, 196))
+            bh2, bw2 = (randn(1, 2, 150, 14, dtype=f32, scale=0.5) for _ in range(2))
+            kw2 = dict(kv_valid=190, rel_bias=(bh2, bw2, 14))
+            out = flash_attention(q2, k2, v2, **kw2)
+            err_sp += [max_err(out, attention_ref(q2, k2, v2, **kw2)),
+                       max_err(out, attention_split_ref(q2, k2, v2, **kw2))]
+        split_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     torch.cuda.synchronize()
-    check(max(err_cc) <= tol32, f"the CUDA-core rel-bias kernel: max abs err {err_cc} > {tol32}")
+    check(kernels.launches["flash_attn_relbias_split"] == n0 + 3 + 6,
+          "flash_attn rel-bias fp32: not the split mode")
+    check(max(err_sp) <= tol32, f"the split-mode rel-bias kernel: max abs err {err_sp} > {tol32}")
     rows["flash_attn_relbias_f32"] = dict(
-        source="reverso_tpu_torch/csrc/flash_attn.cu",
+        source="reverso_tpu_torch/csrc/flash_tc.cuh",
         replaces="reverso_tpu/ops/attention.py:131",
-        max_abs_err=max(err_cc),
-        shape="B=4 H=12 S=4096 D=64 G=64 fp32 on the CUDA cores (head dims the tensor-core "
+        max_abs_err=max(err_sp),
+        shape="B=4 H=12 S=4096 D=64 G=64 fp32 operands on the split mode (head dims the bf16 "
               "core does not take; SAM parity on this route)",
-        ms=cc_ms, plain_ms=cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=2),
+        ms=split_ms, plain_ms=cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=2),
         library="F.scaled_dot_product_attention with the bias materialized "
                 "as a [B, H, S, S] fp32 attn_mask (not timed)",
         library_ms=lib_ms)
     rows["flash_attn_relbias_f32"]["bound_ms"], rows["flash_attn_relbias_f32"]["bound_by"] = \
         bound(4 * b * h * s * d * 4 + 2 * b * h * s * g * 4,
-              4 * b * h * s * s * d + 2 * b * h * s * s, "float32")
-    print(f"flash_attn rel-bias (CUDA cores): max abs err {err_cc} (tol {tol32}), "
-          f"{cc_ms:.4f} ms", flush=True)
-    del q, k, v, bh, bw, kw, q2, k2, v2, bh2, bw2
+              4 * b * h * s * s * d + 2 * b * h * s * s, "float32_split")
+    print(f"flash_attn rel-bias (split mode): max abs err vs attention_ref, "
+          f"attention_split_ref at SAM's shape, D = 32 and D = 40 (G = 14, ragged) {err_sp} "
+          f"(tol {tol32}), {split_ms:.4f} ms", flush=True)
+    del q, k, v, bh, bw, kw
 
     # K7: PE-L14 at 504 px, B=8 H=16 S=1297 D=64, bf16 (the tower's dtype),
-    # on the tensor-core kernel; the same shape in fp32 on the CUDA-core
-    # kernel (the fp32 tower parity phase's)
+    # on the bf16 core; the same shape at B=2 in fp32 (the fp32 tower
+    # parity phase's) on the split mode
     tol = 2e-2   # bf16 output (8-bit mantissa); p rounds before vs after normalizing
     b, h, s, d = 8, 16, 1297, 64
     q, k, v = (randn(b, h, s, d, dtype=bf16) for _ in range(3))
@@ -620,39 +670,34 @@ def region_kernel_checks(torch, gen) -> dict:
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     rows["flash_attn"]["bound_ms"], rows["flash_attn"]["bound_by"] = bound(
         4 * b * h * s * d * 2, 4 * b * h * s * s * d, "bfloat16")
-    o = torch.empty_like(q)
-    lib = kernels.lib()
-    cuda_core_ms = cuda_ms(lambda: lib.rv_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, o.data_ptr(), b * h, s, s, d, 0,
-        s, d ** -0.5, kernels.DTYPE_CODES[bf16], kernels.stream_ptr(dev)))
-    check(max_err(o, out) <= tol, "the CUDA-core kernel disagrees")
-    print(f"flash_attn: max abs err {err} (tol {tol}); the CUDA-core kernel on the same "
-          f"bf16 inputs {cuda_core_ms:.4f} ms", flush=True)
-    del q, k, v, o, out, ref
+    print(f"flash_attn: max abs err {err} (tol {tol})", flush=True)
+    del q, k, v, out, ref
 
-    tol32 = 2e-5
     q, k, v = (randn(2, h, s, d, dtype=f32) for _ in range(3))
     errs = []
     for kv_valid in (None, 1000):
-        t0 = kernels.launches["flash_attn_tc"]
+        t0 = kernels.launches["flash_attn_split"]
         out = flash_attention(q, k, v, kv_valid=kv_valid)
-        check(kernels.launches["flash_attn_tc"] == t0, "fp32 took the tensor-core kernel")
+        check(kernels.launches["flash_attn_split"] == t0 + 1, "fp32 missed the split mode")
         ref = attention_ref(q, k, v, kv_valid=kv_valid)
+        ref_split = attention_split_ref(q, k, v, kv_valid=kv_valid)
         torch.cuda.synchronize()
-        errs.append(max_err(out, ref))
-        check(errs[-1] <= tol32, f"flash_attn fp32 kv_valid={kv_valid}: max abs err "
-                                 f"{errs[-1]} > {tol32}")
+        errs += [max_err(out, ref), max_err(out, ref_split)]
+        check(max(errs) <= tol32, f"flash_attn fp32 kv_valid={kv_valid}: max abs err "
+                                  f"{errs[-2:]} > {tol32}")
     rows["flash_attn_f32"] = dict(
-        source="reverso_tpu_torch/csrc/flash_attn.cu",
+        source="reverso_tpu_torch/csrc/flash_tc.cuh",
         replaces="reverso_tpu/ops/attention.py:48",
-        max_abs_err=max(errs), shape="B=2 H=16 S=1297 D=64 fp32 (depth-2 504 px parity)",
+        max_abs_err=max(errs),
+        shape="B=2 H=16 S=1297 D=64 fp32 on the split mode (depth-2 504 px parity)",
         ms=cuda_ms(lambda: flash_attention(q, k, v)),
         plain_ms=cuda_ms(lambda: attention_ref(q, k, v)),
         library="F.scaled_dot_product_attention (fp32)",
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     rows["flash_attn_f32"]["bound_ms"], rows["flash_attn_f32"]["bound_by"] = bound(
-        4 * 2 * h * s * d * 4, 4 * 2 * h * s * s * d, "float32")
-    print(f"flash_attn fp32: max abs err {errs} (tol {tol32})", flush=True)
+        4 * 2 * h * s * d * 4, 4 * 2 * h * s * s * d, "float32_split")
+    print(f"flash_attn fp32 (split mode): max abs err vs attention_ref, attention_split_ref "
+          f"{errs} (tol {tol32})", flush=True)
     del q, k, v
 
     # K8: GroundingDINO-tiny's encoder at 800 px, B=4, Lq=Lv=13,294, H=8,
@@ -709,19 +754,21 @@ def attention_edge_checks(torch, gen) -> None:
     """K3 and K7 at ragged and edge shapes against their plain versions:
     S in {1, 63, 64, 65, 129}, kv_valid in {1, 63, 64, 65, S - 1} and 0
     (NaN, as the plain versions), head dims 16, 32, 64, 96, 128, S_kv !=
-    S_q, B * H = 1 and 1024; bf16 on the tensor-core kernel, and a head
-    dim of 6 on the CUDA-core kernel."""
+    S_q, B * H = 1 and 1024; bf16 on the tensor-core kernel, K7 also at
+    head dims 6, 40 and 72 (padded to a multiple of 16: the lanes' copy,
+    TMA past the row's end); the same K7 shapes in fp32 on the split mode
+    at the 2e-5 gate."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (attention_ref, flash_attention,
                                                   flash_attention_heads,
                                                   flash_attention_heads_ref)
 
-    bf16, tol = torch.bfloat16, 2e-2
+    bf16, tol, tol32 = torch.bfloat16, 2e-2, 2e-5
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    def close(out, ref, what):
+    def close(out, ref, what, tol=tol):
         nan = torch.isnan(ref)
         check(torch.equal(torch.isnan(out), nan), f"{what}: NaN where the plain version has none")
         diff = (out.float() - ref.float())[~nan].abs()
@@ -751,18 +798,25 @@ def attention_edge_checks(torch, gen) -> None:
                   + [(1, 2, 129, 129, d, 100) for d in (16, 32, 64, 96, 128)]
                   + [(1, 4, 200, 131, 64, 100), (1, 2, 65, 129, 64, None),
                      (1, 1, 65, 65, 64, None), (64, 16, 65, 65, 64, None),
-                     (1, 4, 200, 131, 6, 100)])
-    for b, h, sq, skv, d, kv in attn_cases:
-        q, k, v = randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d)
-        t0 = kernels.launches["flash_attn_tc"]
-        out = flash_attention(q, k, v, kv_valid=kv)
-        check(kernels.launches["flash_attn_tc"] == t0 + (d % 16 == 0),
-              f"flash_attn {(b, h, sq, skv, d)}: wrong kernel")
-        errs.append(close(out, attention_ref(q, k, v, kv_valid=kv),
-                          f"flash_attn B={b} H={h} Sq={sq} Skv={skv} D={d} kv_valid={kv}"))
+                     (1, 4, 200, 131, 6, 100), (1, 2, 129, 129, 40, 100),
+                     (1, 2, 129, 129, 72, 65)])
+    errs32 = []
+    for dtype in (bf16, torch.float32):
+        for b, h, sq, skv, d, kv in attn_cases:
+            q, k, v = (randn(b, h, n, d, dtype=dtype) for n in (sq, skv, skv))
+            counter = "flash_attn_tc" if dtype == bf16 else "flash_attn_split"
+            t0 = kernels.launches[counter]
+            out = flash_attention(q, k, v, kv_valid=kv)
+            check(kernels.launches[counter] == t0 + 1,
+                  f"flash_attn {(b, h, sq, skv, d)} {dtype}: not {counter}")
+            (errs if dtype == bf16 else errs32).append(close(
+                out, attention_ref(q, k, v, kv_valid=kv),
+                f"flash_attn B={b} H={h} Sq={sq} Skv={skv} D={d} kv_valid={kv} {dtype}",
+                tol if dtype == bf16 else tol32))
     torch.cuda.synchronize()
     print(f"attention edge cases: {len(heads_cases)} heads-in-lanes and {len(attn_cases)} "
-          f"[B, H, S, D] shapes within {tol}, max abs err {max(errs)}", flush=True)
+          f"[B, H, S, D] shapes within {tol}, max abs err {max(errs)}; the [B, H, S, D] "
+          f"shapes in fp32 (split mode) within {tol32}, max abs err {max(errs32)}", flush=True)
 
 
 def int8_kernel_checks(torch, gen):
@@ -983,7 +1037,8 @@ def vit_long_check() -> dict:
           f"launches {launches}", flush=True)
     check(gpu.shape == (2, cfg.embed_dim) and np.isfinite(gpu).all(), "vit 504 shape")
     check(err <= 1e-4, "vit 504: card and CPU disagree")
-    check(launches["flash_attn"] == cfg.depth, "vit 504 did not take the flash kernel")
+    check(launches["flash_attn"] == launches["flash_attn_split"] == cfg.depth,
+          "vit 504 did not take the split mode")
     return launches
 
 
@@ -1038,9 +1093,9 @@ def write_vocab(path: str) -> None:
 def detector_parity(root: str) -> dict:
     """Depth-reduced full-width GroundingDINO and SAM, fp32, one seed each:
     the card (kernels) against the CPU (plain versions); SAM twice on the
-    card, with its global layer's rel-pos bias attention on the CUDA-core
-    kernel (fp32, today's gate) and on the default route (the tensor-core
-    core, bf16 operands). Returns the CUDA-core run's launches."""
+    card, with its global layer's rel-pos bias attention on the split mode
+    (fp32 operands, the 1e-3 gate) and on the default route (the tensor-core
+    core, bf16 operands). Returns the split-mode run's launches."""
     import copy
 
     import torch
@@ -1105,19 +1160,19 @@ def detector_parity(root: str) -> dict:
     with torch.inference_mode():
         cm, ci = cpu(imgs, boxes)
         kernels.reset_counts()
-        with cuda_core_relbias():
+        with split_relbias():
             gm, gi = gpu(imgs.cuda(), boxes.cuda())
-        cc_launches = dict(kernels.launches)
+        sp_launches = dict(kernels.launches)
         kernels.reset_counts()
         tm, ti = gpu(imgs.cuda(), boxes.cuda())
         tc_launches = dict(kernels.launches)
-    check(cc_launches["flash_attn_relbias"] == 1 and cc_launches["flash_attn_relbias_tc"] == 0,
-          f"sam CUDA-core route: launches {cc_launches}")
+    check(sp_launches["flash_attn_relbias"] == sp_launches["flash_attn_relbias_split"] == 1,
+          f"sam split-mode route: launches {sp_launches}")
     check(tc_launches["flash_attn_relbias"] == tc_launches["flash_attn_relbias_tc"] == 1,
           f"sam default route: launches {tc_launches}")
     scale = max(1.0, float(cm.abs().max()))
     err_m, err_i = max_err(gm.cpu(), cm), max_err(gi.cpu(), ci)
-    print(f"sam 3 layers 1024 px fp32 card (CUDA-core rel-bias) vs cpu: mask logits max abs "
+    print(f"sam 3 layers 1024 px fp32 card (split-mode rel-bias) vs cpu: mask logits max abs "
           f"err {err_m} (max |x| {float(cm.abs().max())}), iou max abs err {err_i}", flush=True)
     check(err_m <= 1e-3 * scale and err_i <= 1e-3, "sam: card and CPU disagree")
     # the default route: the global layer's products on bf16 operands (8
@@ -1131,7 +1186,7 @@ def detector_parity(root: str) -> dict:
           f"logits max abs err {err_m}, iou max abs err {err_i} (gate {tol16} x {scale}, "
           f"{tol16}); mask pixels whose sign agrees {agree}", flush=True)
     check(err_m <= tol16 * scale and err_i <= tol16, "sam default route: card and CPU disagree")
-    return cc_launches
+    return sp_launches
 
 
 def make_images(folder: str, n: int, seed: int) -> None:
@@ -1463,17 +1518,14 @@ def make_photos(folder: str, n: int, seed: int) -> None:
 
 
 # rows the redesign order lists apart: kernels a PR already redesigned
-# (by PR), rows whose library call computes another function, and rows
-# that run only on the fp32 parity phases
+# (by PR); rows whose library call computes another function are not held
+# against that call, only ranked by their cost
 REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused_mlp": 6,
               "fused_mlp_int8": 7, "ms_deform": 7, "topk_stream": 8, "topk_masked": 8,
-              "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9}
+              "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9, "flash_attn_f32": 10,
+              "flash_attn_relbias_f32": 10}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE"}
-PARITY_ONLY = {"flash_heads_f32": "fp32 parity phases only",
-               "fused_mlp_f32": "fp32 parity phases only",
-               "flash_attn_f32": "fp32 parity phases only",
-               "flash_attn_relbias_f32": "fp32 parity phases only (SAM on the CUDA-core route)"}
 
 
 def sync_ms(torch, fn, iters: int = 3) -> float:
@@ -1489,7 +1541,6 @@ def sync_ms(torch, fn, iters: int = 3) -> float:
 # kernel-name patterns of device time, in match order
 KERNEL_GROUPS = (("ms_deform (K8)", "ms_deform"),
                  ("flash_tc (K3/K6/K7, tensor cores)", "flash_tc"),
-                 ("flash_attn (K6/K7, CUDA cores)", "flash_attn"),
                  ("flash_heads (K3, CUDA cores)", "flash_heads"),
                  ("fused_mlp_wgmma (K4, tensor cores)", "fused_mlp_wgmma"),
                  ("fused_mlp_int8 (K5: q8 quantizer, GEMMs)", "mlp_q8"),
@@ -1645,21 +1696,21 @@ def region_run(root: str) -> dict:
           "a SAM global layer missed the tensor-core core")
 
     # 8 photos' detections on the default route (SAM's global layers on
-    # the tensor cores, bf16 operands) against the CUDA-core route (fp32):
+    # the bf16 core, bf16 operands) against the split mode (fp32 operands):
     # DINO's boxes are the same, SAM's masks agree pixel by pixel (random-
     # init mask logits hover near zero, so some signs flip)
     prompts = ["person", "car", "building"]
     imgs8 = [np.asarray(Image.open(os.path.join(folder, f"photo_{j:03d}.png")))
              for j in range(8)]
     on_tc = det.detect_batch(imgs8, prompts)
-    with cuda_core_relbias():
+    with split_relbias():
         on_cc = det.detect_batch(imgs8, prompts)
     check(all(np.array_equal(a.boxes, c.boxes) for a, c in zip(on_tc, on_cc)),
           "the two routes gave different boxes")
     same = sum(int((a.masks == c.masks).sum()) for a, c in zip(on_tc, on_cc))
     total = sum(a.masks.size for a in on_tc)
     mask_agreement = same / total
-    print(f"region masks, tensor-core vs CUDA-core rel-bias route on 8 photos: boxes equal, "
+    print(f"region masks, bf16-operand vs split-mode rel-bias route on 8 photos: boxes equal, "
           f"{mask_agreement} of {total} mask pixels agree", flush=True)
 
     # batch-4 forwards of the two detector models, host clock around syncs
@@ -1683,7 +1734,7 @@ def region_run(root: str) -> dict:
                detect_s=m.seconds.get("detect", 0.0), embed_s=m.seconds.get("embed", 0.0),
                append_s=m.seconds.get("append", 0.0),
                dino_batch4_ms=dino_ms, sam_batch4_8boxes_ms=sam_ms, rows=int(vecs.shape[0]),
-               mask_agreement_vs_cuda_core=mask_agreement)
+               mask_agreement_vs_split=mask_agreement)
     print(f"region slice: {json.dumps(out)}", flush=True)
     return launches, det, k8_shapes, deform_inputs
 
@@ -2198,7 +2249,7 @@ def main() -> int:
     long_bf16_launches = phase("vit 504 bf16 full depth", vit_long_bf16)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
-        sam_cc_launches = phase("detector parity", detector_parity, root)
+        sam_split_launches = phase("detector parity", detector_parity, root)
         torch.cuda.empty_cache()
         direct_launches, k1_shapes = phase("direct-embed slice", slice_run, root)
         int8_launches, k5_shapes = phase("int8 direct-embed slice", int8_slice_run, root)
@@ -2208,7 +2259,7 @@ def main() -> int:
         rows["ms_deform"]["by_shape"] = phase("K8 at the region path's shapes", k8_path_shapes,
                                               torch, k8_shapes, deform_inputs)
         del deform_inputs
-        phase("ROI slice", roi_run, root, det)
+        roi_launches = phase("ROI slice", roi_run, root, det)
         del det
         torch.cuda.empty_cache()
         capacity_launches, capacity_shapes = phase("capacity slice", capacity_run, root)
@@ -2219,17 +2270,23 @@ def main() -> int:
         rows[name]["by_shape"] = shapes
 
     # each kernel's launches on its own path: the tensor-core rows count the
-    # tensor-core kernels' launches, the fp32 rows the CUDA-core kernels'
-    # (on the parity phases: SAM's on the CUDA-core route of phase 4)
+    # bf16 core's launches, the fp32 rows the split mode's and the CUDA-core
+    # kernels' (on the parity phases: SAM's on the split-mode route of
+    # phase 4); K1 on fp32 rows counts its launches over every phase that
+    # drives a path (each read just after the counts were set to 0)
+    path_runs = (two_stage_launches, tower_launches, long_launches, long_bf16_launches,
+                 sam_split_launches, direct_launches, int8_launches, region_launches,
+                 roi_launches, capacity_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"],
                "flash_heads_f32": tower_launches["flash_heads"],
                "fused_mlp": direct_launches["fused_mlp_tc"],
                "fused_mlp_f32": tower_launches["fused_mlp"],
                "topk_stream": direct_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
-               "flash_attn_f32": long_launches["flash_attn"],
+               "flash_attn_f32": long_launches["flash_attn_split"],
                "flash_attn_relbias": region_launches["flash_attn_relbias_tc"],
-               "flash_attn_relbias_f32": sam_cc_launches["flash_attn_relbias"],
+               "flash_attn_relbias_f32": sam_split_launches["flash_attn_relbias_split"],
+               "topk_stream_f32": sum(run["topk_stream_f32"] for run in path_runs),
                "ms_deform": region_launches["ms_deform"],
                "topk_masked": capacity_launches["topk_masked"],
                "topk_int8": capacity_launches["topk_int8"],
@@ -2247,23 +2304,19 @@ def main() -> int:
     # by how many times; then the rest by launches x (ms - bound_ms), summed
     # over the shapes a path ran a kernel at where the run timed each
     # (`by_shape`: K1, K2, K5, K8, K9, K10, K12), else at the row's shape. Listed apart: rows
-    # already redesigned, rows whose library call computes another
-    # function, and rows that run only on the parity phases
+    # already redesigned; rows whose library call computes another function
+    # are ranked by cost only
     def cost(name):
         r = rows[name]
         if "by_shape" in r:
             return sum(e["launches"] * (e["ms"] - e["bound_ms"]) for e in r["by_shape"])
         return path_of[name] * (r["ms"] - r["bound_ms"])
 
-    apart = {}
-    for name in rows:
-        why = (f"redesigned in PR {REDESIGNED[name]}" if name in REDESIGNED
-               else OTHER_FUNCTION.get(name) or PARITY_ONLY.get(name))
-        if why:
-            apart[name] = why
+    apart = {name: f"redesigned in PR {REDESIGNED[name]}" for name in rows if name in REDESIGNED}
     ranked = {name: r for name, r in rows.items() if name not in apart}
     behind = sorted(((r["ms"] / r["library_ms"], name) for name, r in ranked.items()
-                     if r["library_ms"] and r["ms"] > r["library_ms"]), reverse=True)
+                     if r["library_ms"] and r["ms"] > r["library_ms"]
+                     and name not in OTHER_FUNCTION), reverse=True)
     slow = {name for _, name in behind}
     rest = sorted(((cost(name), name) for name in ranked if name not in slow), reverse=True)
     print("redesign order: behind one PyTorch call "

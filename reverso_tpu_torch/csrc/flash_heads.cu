@@ -225,10 +225,10 @@ extern "C" int rv_flash_heads_tc(const void* q, const void* k, const void* v,
                                  int B, int S, int W, int heads, int kv_valid,
                                  float scale, int use_rope, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    using namespace rv::tc;
     if (heads <= 0 || W % heads) return rv::kUnsupported;
-    if (use_rope)
-        return rv::tc::dispatch<true>(W / heads, q, k, v, o, cos_t, sin_t, 1, W, B, heads,
-                                      S, S, kv_valid, scale, st);
-    return rv::tc::dispatch<false>(W / heads, q, k, v, o, nullptr, nullptr, 1, W, B, heads,
-                                   S, S, kv_valid, scale, st);
+    const Call c{q, k, v, o, cos_t, sin_t, nullptr, nullptr, W / heads, 1, W, B, heads, S, S,
+                 kv_valid, 0, 0, scale, st};
+    if (use_rope) return dispatch<true, kOpsTma, false>(c);
+    return dispatch<false, kOpsTma, false>(c);
 }

@@ -1,41 +1,71 @@
-// One bf16 flash-attention core on Hopper's tensor cores, shared by the
+// One flash-attention core on Hopper's tensor cores, shared by the
 // [B, H, S, D] kernel (K7, flash_attn.cu), the heads-in-lanes kernel with
-// 2D RoPE (K3, flash_heads.cu) and the [B, H, S, D] kernel with SAM's
-// decomposed relative-position bias (K6, flash_attn.cu).
+// 2D RoPE (K3, flash_heads.cu), the [B, H, S, D] kernel with SAM's
+// decomposed relative-position bias (K6, flash_attn.cu), and both
+// [B, H, S, D] kernels with fp32 operands (the split mode,
+// flash_attn_split.cu).
 //
 // Contract (reverso_tpu/ops/attention.py:48-75, :131-200 and :337-403):
-// non-causal attention over bf16 q, k, v with fp32 accumulation; keys at
-// or past kv_valid score -inf. Without RoPE the score is f32(q.k) * scale;
-// with RoPE q is rotated in fp32 with the scale folded in and rounded to
-// bf16, k is rotated and rounded to bf16, and the score is
-// f32(q_rot.k_rot). With the rel-pos bias (the TPU kernel's one bf16 MXU
-// pass, `dot_prec = DEFAULT if rel_grid`) the score is f32(q.k) * scale +
-// (bh[q, k / G] + bw[q, k % G]) with the bias in fp32, added inside the
-// tile (the [Sq, Skv] bias never exists); ops/attention.py folds the scale
-// into q as the TPU kernel does (bf16(q * scale)) and passes scale 1.
-// p = exp(s - m) in fp32, the row sum l adds the fp32 p, p rounds to bf16
-// for the PV product, and the output is acc / l rounded to bf16, or
-// stored as fp32 (the bias mode's fp32 callers). The softmax is online: p
-// is rounded against the running max, and the fp32 accumulator is
-// rescaled when the max moves (the one point where the kernel knowingly
-// differs from the one-pass reference; tests/test_torch_flash_tc.py
-// measures it).
+// non-causal attention with fp32 accumulation; keys at or past kv_valid
+// score -inf. Without RoPE the score is f32(q.k) * scale; with RoPE q is
+// rotated in fp32 with the scale folded in and rounded to bf16, k is
+// rotated and rounded to bf16, and the score is f32(q_rot.k_rot). With the
+// rel-pos bias (the TPU kernel's one bf16 MXU pass, `dot_prec = DEFAULT if
+// rel_grid`) the score is f32(q.k) * scale + (bh[q, k / G] + bw[q, k % G])
+// with the bias in fp32, added inside the tile (the [Sq, Skv] bias never
+// exists); ops/attention.py folds the scale into q as the TPU kernel does
+// (bf16(q * scale)) and passes scale 1. p = exp(s - m) in fp32, the row sum
+// l adds the fp32 p, p rounds to bf16 for the PV product, and the output
+// is acc / l rounded to bf16, or stored as fp32 (the bias mode's fp32
+// callers). The softmax is online: p is rounded against the running max,
+// and the fp32 accumulator is rescaled when the max moves (the one point
+// where the kernel knowingly differs from the one-pass reference;
+// tests/test_torch_flash_tc.py measures it).
+//
+// The split mode is the TPU kernel's fp32 contract, Precision.HIGHEST
+// (reverso_tpu/ops/topk.py:42-48, used at reverso_tpu/ops/attention.py:
+// 62-74): each fp32 operand x becomes three bf16 parts, hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid) (hi + mid + lo == x exactly where
+// the parts are normal), q after the scale is folded in (fp32 q * scale),
+// and each product is six bf16 products, lo.hi, hi.lo, mid.mid, mid.hi,
+// hi.mid and hi.hi, the small terms first, in one fp32 accumulator (the
+// dropped mid.lo, lo.mid and lo.lo are below 2^-23 of the product). p
+// stays fp32 (the plain version rounds it to the input dtype, a no-op in
+// fp32) and is split the same way in registers for the PV product; the
+// output is acc / l in fp32 (ops/attention.py::attention_split_ref).
 //
 // Design:
 //   * a CTA holds NWG consumer warpgroups of 64 query rows each and one
-//     producer warpgroup. One producer thread brings the q tile and a ring
-//     of STAGES K/V tiles through TMA (cp.async.bulk.tensor, 3-D tensor
-//     maps, mbarrier completion); the consumers wait on the ring's "full"
-//     barriers and release a stage through its "empty" barrier;
+//     producer warpgroup; the consumers wait on a ring of STAGES K/V
+//     stages' "full" barriers and release a stage through its "empty"
+//     barrier;
+//   * operands reach the ring one of three ways (OPS): bf16 tiles through
+//     TMA (kOpsTma: one producer thread brings the q tile and the K/V
+//     tiles, cp.async.bulk.tensor with 3-D tensor maps and mbarrier
+//     completion); bf16 rows TMA cannot take (a row stride that is not a
+//     multiple of 16 bytes, an unaligned base) copied by the producer
+//     warpgroup's 128 lanes into the same swizzled tiles (kOpsCopy); fp32
+//     rows read by those lanes and split into three bf16 tiles (kOpsSplit).
+//     In the lane modes each consumer warpgroup loads (and splits) its own
+//     q rows once in the prologue, and the four producer warps load (and
+//     split) each K and V tile into its stage, fence the async proxy and
+//     arrive on the stage's full barrier while the consumers work on
+//     earlier stages; keys past kv_valid are never read (zeros);
 //   * the maps are 3-D ([BH, S, D] for K6/K7, [B, S, W] for K3 with a box
 //     of one head's columns), so a tile past a head's last row is
 //     zero-filled by the hardware and never reads the next head; the ragged
 //     last query and key tiles need no padded copies in device memory;
+//   * a head dim D that is not a multiple of 16 is zero-padded to the next
+//     one (HD) in shared memory: the TMA box reads past the map's inner
+//     extent D, which the hardware fills with zeros (D % 8 == 0 for a
+//     16-byte row stride), and the lanes write zeros; the epilogue stores
+//     the first D columns;
 //   * S = Q K^T is wgmma m64nBKk16 with Q and K in shared memory, both
 //     K-major (K is stored [BK][D]); O += P V is wgmma m64nDk16 with P
 //     taken from the S accumulator's registers, converted to bf16 in place
-//     (the accumulator layout of m64nN is the register-A layout of k16),
-//     and V the B operand in its MN-major (transposed) mode;
+//     (the accumulator layout of m64nN is the register-A layout of k16; in
+//     the split mode each of p's three parts is such a fragment), and V
+//     the B operand in its MN-major (transposed) mode;
 //   * tiles are stored in swizzle atoms of 64, 32 or 16 columns (128-, 64-
 //     or 32-byte swizzle, the widest that divides D): D = 96 is three
 //     32-column atoms, D = 16 one 16-column atom;
@@ -44,14 +74,24 @@
 //     rotate each in place (fp32 math, bf16 result) before they arrive on
 //     the stage's "rotated" barrier, while the consumers work on earlier
 //     tiles; warp 0 only starts TMA loads, so no load waits on a rotation;
-//   * with the bias at SAM's G = 64, a 64-key tile is one row of the key
+//   * with the bias at G == BK (SAM's G = 64), a BK-key tile is one row of the key
 //     lattice, so the bw terms of a thread's 16 columns are the same in
 //     every tile: they sit in shared memory (which keeps the kernel within
 //     the 128 registers a thread that two CTAs an SM allow) and start each
 //     S accumulator, so the product lands on them; bh is one value per row and tile, loaded
 //     before the tile's product, that joins the running max and the
 //     exponent's offset. The softmax then runs as without the bias. Other
-//     G add each key's bh and bw after the product (kBiasAny).
+//     G add each key's bh and bw after the product (kBiasAny);
+//   * in the split mode each tile's PV product lands in a fresh
+//     accumulator that the CUDA cores add to the running output (fp32,
+//     round to nearest): the tensor cores' fp32 accumulation does not
+//     round to nearest, and summed over every tile in one accumulator its
+//     error grew with the keys (on the H100: 5.0e-6 at S = 1297 and 1.1e-5
+//     at S = 4096 against the fp32 plain version, 1.1e-6 and 1.6e-6 with
+//     the per-tile sums; six products against nine changed neither). The
+//     producer warpgroup keeps 120 registers a thread and hands the rest
+//     to the consumers (setmaxnreg), which hold o, that tile product, the
+//     scores and p's three parts.
 //
 // What bounds it on the H100 at the main paths' shapes: bytes and
 // products alike for K3 (B = 8, S = 577, hd 64: 0.0114 ms of bytes, 0.0110
@@ -60,9 +100,21 @@
 // ms); what the card spends above that is per-tile latency (the softmax
 // between the products, which the loop overlaps with the PV product) and,
 // with RoPE, the rotation pass and its fp32 table reads (8 bytes per bf16
-// element of K, per CTA).
+// element of K, per CTA). The split mode runs six products where the bf16
+// core runs one, so products bound it at 989 / 6 = 164.8 TFLOP/s (K7 in
+// fp32 at B = 2, S = 1297: 0.0836 ms; K6 at SAM's shape: 1.26 ms), far
+// above its bytes; above that it pays the split pass of the producer lanes
+// over every K and V element in each CTA that reads them (K and V read
+// from L2 in fp32, three bf16 parts written to shared memory), which the
+// three-stage ring overlaps with the consumers' products, and p's split
+// between the two products. On the H100 (PERF.md §6) the products
+// alone take 1.5x / 1.2x that bound at the K7 / K6 shapes, the split pass
+// adds 17% / 24% of the time and p's split 7%; the softmax hides behind
+// the PV product. Two consumer warpgroups (128 query rows) share each
+// split K/V tile at D <= 64, which halves the split pass per query row.
 #pragma once
 
+#include <cstring>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -73,105 +125,114 @@ namespace tc {
 constexpr int kQRows = 64;        // query rows of a consumer warpgroup (wgmma M)
 constexpr int kRotWarps = 3;      // producer warps 1-3: the RoPE pass on K tiles
 
-// D += A B, A (bf16 pairs, the k16 register fragment) in registers, B
-// MN-major (transposed) in shared memory
+// D (+)= A B, A (bf16 pairs, the k16 register fragment) in registers, B
+// MN-major (transposed) in shared memory; scale_d = 0 overwrites D
 template <int N> struct WgmmaRS;
 
 template <> struct WgmmaRS<16> {
-    static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7}, "
             "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
 
 template <> struct WgmmaRS<32> {
-    static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
             "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
 
 template <> struct WgmmaRS<48> {
-    static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
             "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
 
 template <> struct WgmmaRS<64> {
-    static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
             "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
 
 template <> struct WgmmaRS<80> {
-    static __device__ __forceinline__ void run(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
             "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
 
 template <> struct WgmmaRS<96> {
-    static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
             "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
 
 template <> struct WgmmaRS<112> {
-    static __device__ __forceinline__ void run(float (&d)[56], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[56], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
             "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
 
 template <> struct WgmmaRS<128> {
-    static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
             "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
 };
+
 
 // ---- tile geometry -----------------------------------------------------------
 
@@ -199,6 +260,118 @@ __device__ __forceinline__ uint32_t tile_offset(int rows, int r, int c) {
     using G = Geo<HD>;
     return (uint32_t)((c / G::ATOM) * rows * G::ATOM_BYTES)
          + swizzle<G::ATOM_BYTES>((uint32_t)(r * G::ATOM_BYTES + (c % G::ATOM) * 2));
+}
+
+// ---- operand modes -------------------------------------------------------------
+
+// how operands reach shared memory: bf16 tiles through TMA; bf16 rows copied
+// by the producer warpgroup's lanes (row strides TMA cannot take); fp32
+// rows read by those lanes and split into three bf16 tiles (the split mode)
+constexpr int kOpsTma = 0, kOpsCopy = 1, kOpsSplit = 2;
+
+template <int OPS>
+struct Ops {
+    static constexpr int PARTS = OPS == kOpsSplit ? 3 : 1;   // bf16 tiles per operand tile
+    static constexpr bool LANE_LOADS = OPS != kOpsTma;       // the producer lanes load the tiles
+    using T = typename std::conditional<OPS == kOpsSplit, float, __nv_bfloat16>::type;
+};
+
+// The split mode's products in issue order, smallest first: term t
+// multiplies part split_part(t, 0) of the A operand by part split_part(t, 1)
+// of B (0 hi, 1 mid, 2 lo). The three smallest, (mid, lo), (lo, mid) and
+// (lo, lo), are left out; the bf16 modes issue the last, (hi, hi), alone.
+constexpr int kSplitTerms = 6;
+
+__host__ __device__ constexpr int split_part(int t, int operand) {
+    constexpr int terms[kSplitTerms][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};
+    return terms[t][operand];
+}
+
+// (a, b) split into three bf16 pairs (each packed low then high): hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); the subtractions
+// are exact, and not contracted into anything else
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float ra = __fsub_rn(a, __low2float(h)), rb = __fsub_rn(b, __high2float(h));
+    const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(ra, __low2float(m)),
+                                                   __fsub_rn(rb, __high2float(m)));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    mid = *reinterpret_cast<const uint32_t*>(&m);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// eight elements from device memory as fp32: one 16-byte load of bf16 or
+// two of fp32 (16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(h[e]);
+}
+
+// The lane modes' loads: rows [0, n_rows) of NTILES tiles of ROWS x HD
+// (tile i's row r at src_i + r * ld, columns [0, d)) into PARTS swizzled
+// bf16 tiles each (part p at dst_i + p * ROWS * HD * 2), zeros past the
+// rows and columns: bf16 rows as they are (PARTS = 1), fp32 rows times
+// `mul` split into hi, mid and lo (PARTS = 3). NT threads take 8-column
+// units in turn; each loads a batch of up to 8 units (16-byte loads where
+// `vec` says the rows are 16-byte aligned) before it stores any, so the
+// loads overlap.
+template <typename T, int PARTS, int HD, int ROWS, int NT, int NTILES>
+__device__ __forceinline__ void lane_tiles(uint8_t* dst0, uint8_t* dst1, const T* src0,
+                                           const T* src1, int ld, int n_rows, int d, float mul,
+                                           bool vec, int tid) {
+    constexpr int CPR = HD / 8;                 // units a row
+    constexpr int UNITS = ROWS * CPR;           // units a tile
+    constexpr int ITERS = (NTILES * UNITS + NT - 1) / NT;
+    constexpr int BATCH = ITERS < 8 ? ITERS : 8;
+    constexpr uint32_t PART = ROWS * HD * 2;
+#pragma unroll 1
+    for (int it0 = 0; it0 < ITERS; it0 += BATCH) {
+        float x[BATCH][8];
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+            const int u = tid + (it0 + b) * NT;
+            const int w = u % UNITS, r = w / CPR, c = (w % CPR) * 8;
+            const bool live = u < NTILES * UNITS && r < n_rows;
+            const T* row = (u < UNITS ? src0 : src1) + (size_t)r * ld;
+            if (live && vec && c + 8 <= d) {
+                load8(row + c, x[b]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e) x[b][e] = live && c + e < d ? to_f<T>(row[c + e]) : 0.f;
+            }
+        }
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+            const int u = tid + (it0 + b) * NT;
+            if (u >= NTILES * UNITS) continue;
+            const int w = u % UNITS, r = w / CPR, c = (w % CPR) * 8;
+            uint8_t* out = (u < UNITS ? dst0 : dst1) + tile_offset<HD>(ROWS, r, c);
+            if constexpr (PARTS == 3) {
+                uint4 hi, mid, lo;
+                split2(__fmul_rn(x[b][0], mul), __fmul_rn(x[b][1], mul), hi.x, mid.x, lo.x);
+                split2(__fmul_rn(x[b][2], mul), __fmul_rn(x[b][3], mul), hi.y, mid.y, lo.y);
+                split2(__fmul_rn(x[b][4], mul), __fmul_rn(x[b][5], mul), hi.z, mid.z, lo.z);
+                split2(__fmul_rn(x[b][6], mul), __fmul_rn(x[b][7], mul), hi.w, mid.w, lo.w);
+                *reinterpret_cast<uint4*>(out) = hi;
+                *reinterpret_cast<uint4*>(out + PART) = mid;
+                *reinterpret_cast<uint4*>(out + 2 * PART) = lo;
+            } else {
+                *reinterpret_cast<uint4*>(out) =
+                    make_uint4(pack_bf16(x[b][0], x[b][1]), pack_bf16(x[b][2], x[b][3]),
+                               pack_bf16(x[b][4], x[b][5]), pack_bf16(x[b][6], x[b][7]));
+            }
+        }
+    }
 }
 
 // Rotate rows [0, n_rows) of a [ROWS][HD] tile in place by the 2D RoPE
@@ -274,27 +447,33 @@ __device__ __forceinline__ void rope_tile(uint8_t* tile, int n_rows, int row0,
 
 struct Params {
     void* o;                // bf16, or fp32 with out_f32
+    const void* q_src;      // the lane modes: q [Z][s_q][d], k and v [Z][s_kv][d]
+    const void* k_src;
+    const void* v_src;
     const float* cos_t;     // [S, HD] fp32 (RoPE only)
     const float* sin_t;
     const float* bh;        // [BH, s_q, grid] fp32 (rel-pos bias only): bias_h[q, k / grid]
     const float* bw;        // [BH, s_q, grid]: bias_w[q, k % grid]
     int grid;               // keys on a grid x grid lattice (rel-pos bias only)
     int out_f32;            // store the output as fp32 (else bf16)
-    int s_q, kv_valid;      // query rows per (batch, head); keys that score
+    int s_q, s_kv, kv_valid;  // query and key rows per (batch, head); keys that score
+    int d;                  // the head dim (HD zero-pads it; its first d columns are stored)
+    int vec;                // the lane modes: rows 16-byte aligned (16-byte loads)
     int lanes;              // 1: [B, S, W], grid (q tiles, heads, B); 0: [BH, S, D], grid (q tiles, BH)
     int row_stride;         // output row stride in elements (W or D)
-    float score_mul;        // log2(e) * scale; log2(e) with RoPE (scale folded into q)
-    float q_scale;          // the softmax scale (RoPE: folded into q; bias: divides the bias)
+    float score_mul;        // log2(e) * scale; log2(e) with the scale folded into q
+    float q_scale;          // the softmax scale (RoPE and split: folded into q)
+    float bias_mul;         // the bias in units of the product: 1 / scale, 1 with q scaled
 };
 
 // rel-pos bias modes: none; every tile one row of the key lattice (G ==
 // BK); any lattice width G (each key's lattice row and column computed)
 constexpr int kBiasNone = 0, kBiasRow = 1, kBiasAny = 2;
 
-template <int HD, int BK, int NWG, int STAGES, int BIAS>
+template <int HD, int BK, int NWG, int STAGES, int BIAS, int PARTS>
 struct Smem {
-    static constexpr int Q_BYTES = NWG * kQRows * HD * 2;
-    static constexpr int KV_BYTES = BK * HD * 2;    // one K or V tile
+    static constexpr int Q_BYTES = NWG * PARTS * kQRows * HD * 2;
+    static constexpr int KV_BYTES = PARTS * BK * HD * 2;   // one K or V tile, all its parts
     // rel-pos bias: each consumer thread's bw terms of its BK / 2 fragment
     // positions (the same in every tile when a tile is one lattice row)
     static constexpr int BW_BYTES = BIAS == kBiasRow ? NWG * kWgThreads * (BK / 2) * 4 : 0;
@@ -309,22 +488,29 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x on the SFU; 2^-inf = 0
     return y;
 }
 
-// S = Q K^T of one tile, started (not waited for): HD / 16 k16 steps;
-// ONTO adds the products to the values already in sc (the bias mode's
-// column terms), else the first step overwrites them
-template <int HD, int BK, bool ONTO = false>
+// S = Q K^T of one tile, started (not waited for): for each term (one in
+// the bf16 modes, kSplitTerms in the split mode, smallest first) HD / 16
+// k16 steps; ONTO adds the products to the values already in sc (the bias
+// mode's column terms), else the first step overwrites them
+template <int HD, int BK, int PARTS, bool ONTO = false>
 __device__ __forceinline__ void qk_tile(float (&sc)[BK / 2], uint32_t q_addr, uint32_t k_addr) {
     using G = Geo<HD>;
+    constexpr int T0 = PARTS == 3 ? 0 : kSplitTerms - 1;
+    constexpr uint32_t QP = kQRows * HD * 2, KP = BK * HD * 2;   // bytes of one part
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-        const int a = kk * 16 / G::ATOM;
-        const uint32_t kin = (kk * 16 % G::ATOM) * 2;
-        const uint64_t da = gmma_desc(q_addr + a * kQRows * G::ATOM_BYTES + kin, 16,
-                                      8 * G::ATOM_BYTES, G::LAYOUT);
-        const uint64_t db = gmma_desc(k_addr + a * BK * G::ATOM_BYTES + kin, 16,
-                                      8 * G::ATOM_BYTES, G::LAYOUT);
-        WgmmaSS<BK>::run(sc, da, db, ONTO || kk > 0);
-    }
+    for (int t = T0; t < kSplitTerms; ++t)
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const int a = kk * 16 / G::ATOM;
+            const uint32_t kin = (kk * 16 % G::ATOM) * 2;
+            const uint64_t da = gmma_desc(q_addr + split_part(t, 0) * QP
+                                              + a * kQRows * G::ATOM_BYTES + kin,
+                                          16, 8 * G::ATOM_BYTES, G::LAYOUT);
+            const uint64_t db = gmma_desc(k_addr + split_part(t, 1) * KP
+                                              + a * BK * G::ATOM_BYTES + kin,
+                                          16, 8 * G::ATOM_BYTES, G::LAYOUT);
+            WgmmaSS<BK>::run(sc, da, db, ONTO || t > T0 || kk > 0);
+        }
 }
 
 // Online softmax of one score tile, in place, for rows g and g + 8 of a
@@ -378,41 +564,55 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float mul, int
     }
 }
 
-// p rounded to bf16 into the k16 register fragments of the PV product:
-// fragment n / 2 takes registers 0, 1 from block 2kk and 2, 3 from 2kk + 1
-// (the m64nN accumulator layout is the k16 register-A layout)
-template <int BK>
-__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
+// p into the k16 register fragments of the PV product, rounded to bf16
+// (PARTS = 1) or split into hi, mid and lo (PARTS = 3): fragment n / 2
+// takes registers 0, 1 from block 2kk and 2, 3 from 2kk + 1 (the m64nN
+// accumulator layout is the k16 register-A layout)
+template <int BK, int PARTS>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&pa)[PARTS][BK / 16][4]) {
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
-        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(sc[4 * n + 0], sc[4 * n + 1]);
-        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+        const int f = n / 2, r = (n % 2) * 2;
+        if constexpr (PARTS == 3) {
+            split2(sc[4 * n + 0], sc[4 * n + 1], pa[0][f][r], pa[1][f][r], pa[2][f][r]);
+            split2(sc[4 * n + 2], sc[4 * n + 3], pa[0][f][r + 1], pa[1][f][r + 1],
+                   pa[2][f][r + 1]);
+        } else {
+            pa[0][f][r] = pack_bf16(sc[4 * n + 0], sc[4 * n + 1]);
+            pa[0][f][r + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+        }
     }
 }
 
-// O += P V of one tile, started: BK / 16 k16 steps, V MN-major (its rows
-// are the keys, D contiguous)
-template <int HD, int BK>
-__device__ __forceinline__ void pv_tile(float (&o)[HD / 2], const uint32_t (&pa)[BK / 16][4],
+// O += P V of one tile, started: for each term BK / 16 k16 steps, V
+// MN-major (its rows are the keys, D contiguous); FRESH: O = P V (the first
+// step overwrites O)
+template <int HD, int BK, int PARTS, bool FRESH = false>
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 2], const uint32_t (&pa)[PARTS][BK / 16][4],
                                         uint32_t v_addr) {
     using G = Geo<HD>;
+    constexpr int T0 = PARTS == 3 ? 0 : kSplitTerms - 1;
+    constexpr uint32_t VP = BK * HD * 2;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv = gmma_desc(v_addr + kk * 16 * G::ATOM_BYTES, BK * G::ATOM_BYTES,
-                                      8 * G::ATOM_BYTES, G::LAYOUT);
-        WgmmaRS<HD>::run(o, pa[kk], dv);
-    }
+    for (int t = T0; t < kSplitTerms; ++t)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t dv = gmma_desc(v_addr + split_part(t, 1) * VP + kk * 16 * G::ATOM_BYTES,
+                                          BK * G::ATOM_BYTES, 8 * G::ATOM_BYTES, G::LAYOUT);
+            WgmmaRS<HD>::run(o, pa[split_part(t, 0)][kk], dv, !FRESH || t > T0 || kk > 0);
+        }
 }
 
 // SAM's decomposed relative-position bias at a lattice width G other than
 // BK (a tile spans parts of lattice rows): each in-range key's lattice row
-// and column are computed and its bias added to the product, divided by
-// the softmax scale (1 when ops/attention.py folded it into q), so that
-// softmax_tile's s * mul is (q.k * scale + bh[q, k / G] + bw[q, k % G]) *
-// log2(e); rows a = g and b = g + 8 of the warp's 16, thread t's columns
-// 8n + 2t and 8n + 2t + 1
+// and column are computed and its bias added to the product in the
+// product's units (times 1 / scale where the scale is applied after the
+// product), so that softmax_tile's s * mul is (q.k * scale + bh[q, k / G]
+// + bw[q, k % G]) * log2(e); rows a = g and b = g + 8 of the warp's 16,
+// thread t's columns 8n + 2t and 8n + 2t + 1
 template <int BK>
-__device__ __forceinline__ void add_bias_keys(float (&sc)[BK / 2], float inv_scale, int kb,
+__device__ __forceinline__ void add_bias_keys(float (&sc)[BK / 2], float bias_mul, int kb,
                                               int kv_valid, int grid, const float* bh_a,
                                               const float* bh_b, const float* bw_a,
                                               const float* bw_b, int t) {
@@ -424,19 +624,35 @@ __device__ __forceinline__ void add_bias_keys(float (&sc)[BK / 2], float inv_sca
             if (key < kv_valid) {   // the rest score -inf in the softmax
                 const int ky = key / grid, kx = key - ky * grid;
                 sc[4 * n + e] =
-                    fmaf(__ldg(bh_a + ky) + __ldg(bw_a + kx), inv_scale, sc[4 * n + e]);
+                    fmaf(__ldg(bh_a + ky) + __ldg(bw_a + kx), bias_mul, sc[4 * n + e]);
                 sc[4 * n + 2 + e] =
-                    fmaf(__ldg(bh_b + ky) + __ldg(bw_b + kx), inv_scale, sc[4 * n + 2 + e]);
+                    fmaf(__ldg(bh_b + ky) + __ldg(bw_b + kx), bias_mul, sc[4 * n + 2 + e]);
             }
         }
 }
 
-// two adjacent output columns of one row: fp32, or bf16 packed
-__device__ __forceinline__ void store_pair(void* o, bool f32, size_t idx, float a, float b) {
+// one output element, fp32 or bf16
+__device__ __forceinline__ void store_one(void* o, bool f32, size_t idx, float a) {
     if (f32)
-        *reinterpret_cast<float2*>(static_cast<float*>(o) + idx) = make_float2(a, b);
+        static_cast<float*>(o)[idx] = a;
     else
-        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(o) + idx) = pack_bf16(a, b);
+        static_cast<__nv_bfloat16*>(o)[idx] = __float2bfloat16(a);
+}
+
+// output columns c and c + 1 of one row where c + 1 is below the head dim
+// (`two`), else column c alone: one store of the pair where an even row
+// stride keeps it aligned (`pair`), else one element at a time
+__device__ __forceinline__ void store_cols(void* o, bool f32, size_t idx, float a, float b,
+                                           bool two, bool pair) {
+    if (two && pair) {
+        if (f32)
+            *reinterpret_cast<float2*>(static_cast<float*>(o) + idx) = make_float2(a, b);
+        else
+            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(o) + idx) = pack_bf16(a, b);
+        return;
+    }
+    store_one(o, f32, idx, a);
+    if (two) store_one(o, f32, idx + 1, b);
 }
 
 template <int HD>
@@ -447,6 +663,19 @@ __device__ __forceinline__ void rescale(float (&o)[HD / 2], float c0, float c1) 
         o[4 * n + 1] *= c0;
         o[4 * n + 2] *= c1;
         o[4 * n + 3] *= c1;
+    }
+}
+
+// o = (o + ot) * c on the CUDA cores (ot: a tile's PV product)
+template <int HD>
+__device__ __forceinline__ void add_rescale(float (&o)[HD / 2], const float (&ot)[HD / 2],
+                                            float c0, float c1) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+        o[4 * n + 0] = __fmul_rn(__fadd_rn(o[4 * n + 0], ot[4 * n + 0]), c0);
+        o[4 * n + 1] = __fmul_rn(__fadd_rn(o[4 * n + 1], ot[4 * n + 1]), c0);
+        o[4 * n + 2] = __fmul_rn(__fadd_rn(o[4 * n + 2], ot[4 * n + 2]), c1);
+        o[4 * n + 3] = __fmul_rn(__fadd_rn(o[4 * n + 3], ot[4 * n + 3]), c1);
     }
 }
 
@@ -469,29 +698,78 @@ __device__ __forceinline__ void load_kv(int j, uint8_t* ks, uint8_t* vs, uint64_
     }
 }
 
-// SAM's bias mode (one consumer warpgroup, head dim 64) is held to two CTAs
-// an SM (at most 128 registers a thread), as the bias-free kernel is
-template <int HD, int BK, int NWG, int STAGES, bool ROPE, int BIAS>
+// Tile choice (measured on the H100, see PERF.md): 64-key tiles (128-key
+// tiles measured slower: twice the score registers). Without RoPE one
+// consumer warpgroup (64 query rows) per CTA and a ring of four stages:
+// twice the CTAs of 128-row tiles fill the 132 SMs more evenly. With RoPE
+// two consumer warpgroups (128 rows) share each K tile's rotation, which
+// halves the RoPE pass's table reads per query row, and a ring of six
+// stages gives the three rotating warps room to run ahead. The ring's
+// depth is a multiple of the rotating warps, so each warp owns the same
+// stages throughout and waits on every phase of their barriers in order
+// (a parity wait cannot tell a phase from the one two before it). The
+// split mode keeps three bf16 parts of every tile: at HD <= 64 two
+// consumer warpgroups share each split K/V tile (half the split pass per
+// query row; one warpgroup measured 1.4x slower); at HD > 64 one
+// warpgroup and 32-key tiles. Its ring has three stages (225 KB with SAM's
+// bias terms at HD = 64): a consumer holds two stages at once (the scores
+// of tile j + 1 beside the PV product of tile j), so with two the lanes
+// could not split a tile ahead (measured 1.25x slower). Its producer
+// warpgroup hands registers to the consumers (setmaxnreg), which hold o, a
+// tile's PV product, the scores and p's three parts; the lanes keep 120
+// (136 at HD = 48, whose 6-unit rows take more address registers), enough
+// for a batch of eight 8-column loads without spills.
+constexpr int kBK = 64;
+template <int HD, bool ROPE, int OPS> struct Tiles {
+    static constexpr bool SPLIT = OPS == kOpsSplit;
+    static constexpr int BK = SPLIT && HD > 64 ? 32 : kBK;
+    static constexpr int NWG = ROPE || (SPLIT && HD <= 64) ? 2 : 1;
+    static constexpr int STAGES = ROPE ? 6 : SPLIT ? 3 : 4;
+    static constexpr int PRODUCER_REGS = SPLIT && NWG == 2 ? (HD % 32 ? 136 : 120) : 0;
+};
+
+// what each consumer thread may take when the producer warpgroup keeps
+// `producer` registers of the launch-bound share (65536 over (NWG + 1) x
+// 128 threads, in steps of 8)
+__host__ __device__ constexpr int consumer_regs(int nwg, int producer) {
+    return ((65536 / ((nwg + 1) * kWgThreads)) / 8 * 8 * (nwg + 1) - producer) / nwg / 8 * 8;
+}
+
+// SAM's bias mode (one consumer warpgroup, head dim 64, bf16) is held to
+// two CTAs an SM (at most 128 registers a thread), as the bias-free kernel
+// is
+template <int HD, int BK, int NWG, int STAGES, bool ROPE, int BIAS, int OPS>
 __global__ void __launch_bounds__((NWG + 1) * kWgThreads,
-                                  BIAS == kBiasRow && NWG == 1 && HD <= 64 ? 2 : 1)
+                                  BIAS == kBiasRow && NWG == 1 && HD <= 64 && OPS != kOpsSplit
+                                      ? 2 : 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, const Params p) {
     using G = Geo<HD>;
-    using L = Smem<HD, BK, NWG, STAGES, BIAS>;
+    using O = Ops<OPS>;
+    using T = typename O::T;
+    constexpr int PARTS = O::PARTS;
+    // the split mode takes each tile's PV product in a fresh accumulator and
+    // adds it to the running output on the CUDA cores (fp32, round to
+    // nearest): the tensor cores' fp32 accumulation is not rounded to
+    // nearest, and in one accumulator its error grows with the tiles summed
+    constexpr bool PROMOTE = PARTS == 3;
+    constexpr int PRODUCER_REGS = Tiles<HD, ROPE, OPS>::PRODUCER_REGS;
+    using L = Smem<HD, BK, NWG, STAGES, BIAS, PARTS>;
     constexpr float kLog2e = 1.4426950408889634f;
     static_assert(HD % 16 == 0 && HD <= 128 && BK % 16 == 0, "tile shape");
     static_assert(!ROPE || STAGES % kRotWarps == 0, "each rotating warp owns its stages");
     static_assert(!(ROPE && BIAS), "RoPE and the rel-pos bias are separate modes");
+    static_assert(!(ROPE && O::LANE_LOADS), "RoPE takes its tiles through TMA");
     extern __shared__ uint8_t smem_raw[];
     uint8_t* base = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-    uint8_t* qs = base;                                // [NWG][NATOM][64][ATOM]
-    uint8_t* ks = qs + L::Q_BYTES;                     // [STAGES][NATOM][BK][ATOM]
+    uint8_t* qs = base;                                // [NWG][PARTS][NATOM][64][ATOM]
+    uint8_t* ks = qs + L::Q_BYTES;                     // [STAGES][PARTS][NATOM][BK][ATOM]
     uint8_t* vs = ks + STAGES * L::KV_BYTES;
     float4* bws = reinterpret_cast<float4*>(vs + STAGES * L::KV_BYTES);   // [NWG][BK / 8][128]
     uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + STAGES * L::KV_BYTES + L::BW_BYTES);
-    uint64_t* full = qbar + 1;      // K and V of a stage landed (TMA bytes)
+    uint64_t* full = qbar + 1;      // K and V of a stage landed (TMA bytes, or every lane)
     uint64_t* empty = full + STAGES;  // every consumer warp is done with a stage
     uint64_t* rot = empty + STAGES;   // RoPE: the stage's K tile is rotated
 
@@ -505,7 +783,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 0) {
         mbar_init(qbar, 1);
         for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&full[s], 1);
+            mbar_init(&full[s], O::LANE_LOADS ? kWgThreads : 1);
             mbar_init(&empty[s], NWG * 4);
             mbar_init(&rot[s], 32);
         }
@@ -515,48 +793,69 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
     if (wg == NWG) {
         // ---- producer warpgroup ----
-        if (tid == 0) {
-            mbar_expect_tx(qbar, L::Q_BYTES);
-            for (int g = 0; g < NWG; ++g)
-#pragma unroll
-                for (int a = 0; a < G::NATOM; ++a)
-                    tma_load_3d(qs + (g * G::NATOM + a) * kQRows * G::ATOM_BYTES, &qmap, qbar,
-                                col0 + a * G::ATOM, q0 + g * kQRows, z);
-        }
-        // warp 0 loads, as far ahead as the ring allows. With RoPE, warps
-        // 1-3 take the landed K tiles in turn (warp w rotates tiles j with
-        // j % 3 == w - 1, in place: the stages j % STAGES it owns), so three
-        // tiles rotate at once, each warp's L2 reads of the tables
-        // overlapping the others'
-        const int warp = tid / 32;
-        if (tid == 0) {
-            for (int j = 0; j < n_tiles; ++j)
-                load_kv<HD, BK, STAGES>(j, ks, vs, full, empty, &kmap, &vmap, col0, z);
-        } else if (ROPE && warp > 0) {
-            for (int j = warp - 1; j < n_tiles; j += kRotWarps) {
+        if constexpr (PRODUCER_REGS > 0) setmaxnreg_dec<PRODUCER_REGS>();
+        if constexpr (O::LANE_LOADS) {
+            // the four warps load (and split) each K and V tile into its
+            // stage, keys past kv_valid as zeros, then arrive on its full
+            // barrier
+            const T* kp = static_cast<const T*>(p.k_src);
+            const T* vp = static_cast<const T*>(p.v_src);
+            for (int j = 0; j < n_tiles; ++j) {
                 const int s = j % STAGES;
-                mbar_wait(&full[s], (j / STAGES) & 1);
-                rope_tile<HD, BK, 32>(ks + s * L::KV_BYTES, min(BK, p.kv_valid - j * BK), j * BK,
-                                      p.cos_t, p.sin_t, 1.f, tid % 32);
+                mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+                const size_t off = ((size_t)z * p.s_kv + (size_t)j * BK) * p.d;
+                lane_tiles<T, PARTS, HD, BK, kWgThreads, 2>(
+                    ks + s * L::KV_BYTES, vs + s * L::KV_BYTES, kp + off, vp + off, p.d,
+                    min(BK, p.kv_valid - j * BK), p.d, 1.f, p.vec != 0, tid);
                 fence_proxy_async();
-                mbar_arrive(&rot[s]);
+                mbar_arrive(&full[s]);
+            }
+        } else {
+            if (tid == 0) {
+                mbar_expect_tx(qbar, L::Q_BYTES);
+                for (int g = 0; g < NWG; ++g)
+#pragma unroll
+                    for (int a = 0; a < G::NATOM; ++a)
+                        tma_load_3d(qs + (g * G::NATOM + a) * kQRows * G::ATOM_BYTES, &qmap,
+                                    qbar, col0 + a * G::ATOM, q0 + g * kQRows, z);
+            }
+            // warp 0 loads, as far ahead as the ring allows. With RoPE, warps
+            // 1-3 take the landed K tiles in turn (warp w rotates tiles j with
+            // j % 3 == w - 1, in place: the stages j % STAGES it owns), so three
+            // tiles rotate at once, each warp's L2 reads of the tables
+            // overlapping the others'
+            const int warp = tid / 32;
+            if (tid == 0) {
+                for (int j = 0; j < n_tiles; ++j)
+                    load_kv<HD, BK, STAGES>(j, ks, vs, full, empty, &kmap, &vmap, col0, z);
+            } else if (ROPE && warp > 0) {
+                for (int j = warp - 1; j < n_tiles; j += kRotWarps) {
+                    const int s = j % STAGES;
+                    mbar_wait(&full[s], (j / STAGES) & 1);
+                    rope_tile<HD, BK, 32>(ks + s * L::KV_BYTES, min(BK, p.kv_valid - j * BK),
+                                          j * BK, p.cos_t, p.sin_t, 1.f, tid % 32);
+                    fence_proxy_async();
+                    mbar_arrive(&rot[s]);
+                }
             }
         }
     } else {
         // ---- consumer warpgroup: 64 query rows ----
+        if constexpr (PRODUCER_REGS > 0)
+            setmaxnreg_inc<consumer_regs(NWG, PRODUCER_REGS)>();
         const int warp = tid / 32, lane = tid % 32;
         const int g = lane / 4, t = lane % 4;
-        uint8_t* my_q = qs + wg * G::NATOM * kQRows * G::ATOM_BYTES;
-        float o[HD / 2];
+        uint8_t* my_q = qs + wg * PARTS * kQRows * HD * 2;
+        float o[HD / 2], ot[HD / 2];   // ot: a tile's PV product (PROMOTE)
 #pragma unroll
         for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
         float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-        float c0, c1, rs0, rs1;
+        float c0 = 1.f, c1 = 1.f, rs0 = 0.f, rs1 = 0.f;
 
         // rel-pos bias: this thread's rows r0 and r0 + 8 (rows past s_q read
         // row s_q - 1 and are never stored). When a tile is one lattice row
         // (kBiasRow), the bw terms of the thread's columns are the same in
-        // every tile: they go to shared memory once (divided by the scale;
+        // every tile: they go to shared memory once (in the product's units;
         // the thread's own float4 slots, so no barrier) and start each S
         // accumulator, so the product lands on them; bh is one value per
         // row and tile, loaded ahead of the tile's product, that joins the
@@ -571,13 +870,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             off_b = ((size_t)z * p.s_q + min(r0 + 8, p.s_q - 1)) * p.grid;
         }
         if constexpr (BIAS == kBiasRow) {
-            const float inv = 1.f / p.q_scale;
+            const float mul = p.bias_mul;
 #pragma unroll
             for (int n = 0; n < BK / 8; ++n) {
                 const int c = 8 * n + 2 * t;
                 const float2 wa = __ldg(reinterpret_cast<const float2*>(p.bw + off_a + c));
                 const float2 wb = __ldg(reinterpret_cast<const float2*>(p.bw + off_b + c));
-                bw4[n * kWgThreads] = make_float4(wa.x * inv, wa.y * inv, wb.x * inv, wb.y * inv);
+                bw4[n * kWgThreads] = make_float4(wa.x * mul, wa.y * mul, wb.x * mul, wb.y * mul);
             }
         }
         auto bias_rows = [&](int j) {   // tile j's bh terms, loaded ahead of its product
@@ -585,7 +884,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 ha = __ldg(p.bh + off_a + j) * kLog2e;
                 hb = __ldg(p.bh + off_b + j) * kLog2e;
 #pragma unroll
-                for (int n = 0; n < BK / 8; ++n) {   // the S accumulator starts at bw / scale
+                for (int n = 0; n < BK / 8; ++n) {   // the S accumulator starts at bw
                     const float4 w = bw4[n * kWgThreads];
                     sc[4 * n + 0] = w.x;
                     sc[4 * n + 1] = w.y;
@@ -597,19 +896,31 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         // tile j's scores -> p (fp32), the running max and row sums
         auto softmax = [&](int j) {
             if constexpr (BIAS == kBiasAny)
-                add_bias_keys<BK>(sc, 1.f / p.q_scale, j * BK, p.kv_valid, p.grid,
+                add_bias_keys<BK>(sc, p.bias_mul, j * BK, p.kv_valid, p.grid,
                                   p.bh + off_a, p.bh + off_b, p.bw + off_a, p.bw + off_b, t);
             softmax_tile<BK, BIAS == kBiasRow>(sc, p.score_mul, j * BK, p.kv_valid, t, m0, m1,
                                                c0, c1, rs0, rs1, ha, hb);
         };
 
-        mbar_wait(qbar, 0);
-        if constexpr (ROPE) {
+        if constexpr (O::LANE_LOADS) {
+            // this warpgroup's q rows, loaded (split: times the scale, then
+            // split) once
             const int row0 = q0 + wg * kQRows;
-            rope_tile<HD, kQRows, kWgThreads>(my_q, min(kQRows, p.s_q - row0), row0, p.cos_t,
-                                              p.sin_t, p.q_scale, tid);
+            const T* src = static_cast<const T*>(p.q_src) + ((size_t)z * p.s_q + row0) * p.d;
+            lane_tiles<T, PARTS, HD, kQRows, kWgThreads, 1>(
+                my_q, my_q, src, src, p.d, min(kQRows, p.s_q - row0), p.d,
+                OPS == kOpsSplit ? p.q_scale : 1.f, p.vec != 0, tid);
             fence_proxy_async();
             named_bar_sync(1 + wg, kWgThreads);
+        } else {
+            mbar_wait(qbar, 0);
+            if constexpr (ROPE) {
+                const int row0 = q0 + wg * kQRows;
+                rope_tile<HD, kQRows, kWgThreads>(my_q, min(kQRows, p.s_q - row0), row0,
+                                                  p.cos_t, p.sin_t, p.q_scale, tid);
+                fence_proxy_async();
+                named_bar_sync(1 + wg, kWgThreads);
+            }
         }
         const uint32_t q_addr = smem_addr(my_q);
         auto wait_tile = [&](int j) {
@@ -627,66 +938,77 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         // The loop keeps the tensor cores fed: with P_j in registers it
         // starts S_{j+1} = Q K_{j+1}^T, then O += P_j V_j, and runs tile
         // j + 1's softmax while the PV product is in flight; only the
-        // rescale of O and the packing of P_{j+1} wait for it. No wgmma is
-        // started under a branch (the last tile is peeled), so ptxas keeps
-        // the products asynchronous.
-        uint32_t pa[BK / 16][4];
+        // rescale of O and the packing (split) of P_{j+1} wait for it. No
+        // wgmma is started under a branch (the last tile is peeled), so
+        // ptxas keeps the products asynchronous.
+        uint32_t pa[PARTS][BK / 16][4];
         if (n_tiles > 0) {
             bias_rows(0);
             wait_tile(0);
             wgmma_fence();
-            qk_tile<HD, BK, BIAS == kBiasRow>(sc, q_addr, k_addr(0));
+            qk_tile<HD, BK, PARTS, BIAS == kBiasRow>(sc, q_addr, k_addr(0));
             wgmma_commit();
             wgmma_wait<0>();
             fence_operand(sc);
             softmax(0);
             l0 = rs0;
             l1 = rs1;
-            pack_p<BK>(sc, pa);
+            pack_p<BK, PARTS>(sc, pa);
             for (int j = 0; j + 1 < n_tiles; ++j) {
                 bias_rows(j + 1);
                 wait_tile(j + 1);
                 wgmma_fence();
-                qk_tile<HD, BK, BIAS == kBiasRow>(sc, q_addr, k_addr(j + 1));
+                qk_tile<HD, BK, PARTS, BIAS == kBiasRow>(sc, q_addr, k_addr(j + 1));
                 wgmma_commit();
-                pv_tile<HD, BK>(o, pa, v_addr(j));
+                pv_tile<HD, BK, PARTS, PROMOTE>(PROMOTE ? ot : o, pa, v_addr(j));
                 wgmma_commit();
                 wgmma_wait<1>();
                 fence_operand(sc);
                 softmax(j + 1);
                 wgmma_wait<0>();
-                fence_operand(o);
+                fence_operand(PROMOTE ? ot : o);
                 release(j);
                 l0 = l0 * c0 + rs0;
                 l1 = l1 * c1 + rs1;
-                rescale<HD>(o, c0, c1);
-                pack_p<BK>(sc, pa);
+                if constexpr (PROMOTE)
+                    add_rescale<HD>(o, ot, c0, c1);
+                else
+                    rescale<HD>(o, c0, c1);
+                pack_p<BK, PARTS>(sc, pa);
             }
             wgmma_fence();
-            pv_tile<HD, BK>(o, pa, v_addr(n_tiles - 1));
+            pv_tile<HD, BK, PARTS, PROMOTE>(PROMOTE ? ot : o, pa, v_addr(n_tiles - 1));
             wgmma_commit();
             wgmma_wait<0>();
-            fence_operand(o);
+            fence_operand(PROMOTE ? ot : o);
             release(n_tiles - 1);
+            if constexpr (PROMOTE)
+                add_rescale<HD>(o, ot, 1.f, 1.f);
         }
 
         // epilogue: acc / l (the quad's partial sums added), rounded to bf16
-        // or stored as fp32
+        // or stored as fp32, the head dim's columns only
         l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
         l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
         l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
         l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
         const size_t ob = (size_t)z * p.s_q * p.row_stride + col0;
         const bool f32 = p.out_f32 != 0;
+        // every column pair stored whole where the head dim fills HD and an
+        // even row stride keeps the pairs aligned
+        const bool whole = p.d == HD && p.row_stride % 2 == 0;
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n) {
             const int c = 8 * n + 2 * t;
+            if (!whole && c >= p.d) continue;
+            const bool two = whole || c + 1 < p.d;
+            const bool pair = whole || p.row_stride % 2 == 0;
             if (r0 < p.s_q)
-                store_pair(p.o, f32, ob + (size_t)r0 * p.row_stride + c, o[4 * n + 0] / l0,
-                           o[4 * n + 1] / l0);
+                store_cols(p.o, f32, ob + (size_t)r0 * p.row_stride + c, o[4 * n + 0] / l0,
+                           o[4 * n + 1] / l0, two, pair);
             if (r0 + 8 < p.s_q)
-                store_pair(p.o, f32, ob + (size_t)(r0 + 8) * p.row_stride + c,
-                           o[4 * n + 2] / l1, o[4 * n + 3] / l1);
+                store_cols(p.o, f32, ob + (size_t)(r0 + 8) * p.row_stride + c,
+                           o[4 * n + 2] / l1, o[4 * n + 3] / l1, two, pair);
         }
     }
 }
@@ -695,7 +1017,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
 
 // a 3-D bf16 map over [d2][d1][d0] (d0 contiguous), box [1][rows][ATOM],
-// swizzled as the wgmma descriptors read it; out-of-bounds rows read zero
+// swizzled as the wgmma descriptors read it; out-of-bounds rows and
+// columns (a box past d0 when HD pads the head dim) read zero
 template <int HD>
 static inline bool make_map(CUtensorMap* map, const void* ptr, int d0, int d1, int d2,
                             int rows) {
@@ -715,73 +1038,91 @@ static inline bool make_map(CUtensorMap* map, const void* ptr, int d0, int d1, i
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Tile choice (measured on the H100, see PERF.md): 64-key tiles (128-key
-// tiles measured slower: twice the score registers). Without RoPE one
-// consumer warpgroup (64 query rows) per CTA and a ring of four stages:
-// twice the CTAs of 128-row tiles fill the 132 SMs more evenly. With RoPE
-// two consumer warpgroups (128 rows) share each K tile's rotation, which
-// halves the RoPE pass's table reads per query row, and a ring of six
-// stages gives the three rotating warps room to run ahead. The ring's
-// depth is a multiple of the rotating warps, so each warp owns the same
-// stages throughout and waits on every phase of their barriers in order
-// (a parity wait cannot tell a phase from the one two before it).
-constexpr int kBK = 64;
-template <bool ROPE> struct Tiles {
-    static constexpr int NWG = ROPE ? 2 : 1;
-    static constexpr int STAGES = ROPE ? 6 : 4;
+static inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+struct Call {
+    const void *q, *k, *v;
+    void* o;
+    const void *cos_t, *sin_t, *bh, *bw;
+    int d, lanes, d0, z, heads, s_q, s_kv, kv_valid, rel_grid, out_f32;
+    float scale;
+    cudaStream_t stream;
 };
 
-// q [Z][s_q][d0], k and v [Z][s_kv][d0] bf16; `lanes` = 1 reads head y's
-// HD columns at y * HD of d0 = W (grid.z = batch), 0 reads d0 = HD
-// (grid.y = batch * head). BIAS: bh, bw [Z][s_q][grid] fp32 (lanes = 0).
-// out_f32: the output is fp32, else bf16.
-template <int HD, bool ROPE, int BIAS>
-static int launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                  const void* sin_t, int lanes, int d0, int z, int heads, int s_q, int s_kv,
-                  int kv_valid, float scale, cudaStream_t stream, const void* bh, const void* bw,
-                  int rel_grid, int out_f32) {
-    constexpr int NWG = Tiles<ROPE>::NWG, STAGES = Tiles<ROPE>::STAGES, BK = kBK;
-    using L = Smem<HD, BK, NWG, STAGES, BIAS>;
+template <int HD, bool ROPE, int OPS, int BIAS>
+static int launch(const Call& c) {
+    using Tl = Tiles<HD, ROPE, OPS>;
+    constexpr int NWG = Tl::NWG, STAGES = Tl::STAGES, BK = Tl::BK;
+    using L = Smem<HD, BK, NWG, STAGES, BIAS, Ops<OPS>::PARTS>;
+    using T = typename Ops<OPS>::T;
     CUtensorMap qm, km, vm;
-    if (!make_map<HD>(&qm, q, d0, s_q, z, kQRows) || !make_map<HD>(&km, k, d0, s_kv, z, BK)
-        || !make_map<HD>(&vm, v, d0, s_kv, z, BK))
-        return kMapError;
-    auto kernel = flash_tc_kernel<HD, BK, NWG, STAGES, ROPE, BIAS>;
+    if constexpr (OPS == kOpsTma) {
+        if (!make_map<HD>(&qm, c.q, c.d0, c.s_q, c.z, kQRows)
+            || !make_map<HD>(&km, c.k, c.d0, c.s_kv, c.z, BK)
+            || !make_map<HD>(&vm, c.v, c.d0, c.s_kv, c.z, BK))
+            return kMapError;
+    } else {
+        memset(&qm, 0, sizeof(qm));
+        memset(&km, 0, sizeof(km));
+        memset(&vm, 0, sizeof(vm));
+    }
+    auto kernel = flash_tc_kernel<HD, BK, NWG, STAGES, ROPE, BIAS, OPS>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return (int)err;
     constexpr float kLog2e = 1.4426950408889634f;
+    const bool folded = ROPE || OPS == kOpsSplit;   // the scale is folded into q
     Params p;
-    p.o = o;
-    p.cos_t = static_cast<const float*>(cos_t);
-    p.sin_t = static_cast<const float*>(sin_t);
-    p.bh = static_cast<const float*>(bh);
-    p.bw = static_cast<const float*>(bw);
-    p.grid = rel_grid;
-    p.out_f32 = out_f32;
-    p.s_q = s_q;
-    p.kv_valid = kv_valid;
-    p.lanes = lanes;
-    p.row_stride = d0;
-    p.score_mul = ROPE ? kLog2e : kLog2e * scale;
-    p.q_scale = scale;
-    dim3 grid(ceil_div(s_q, NWG * kQRows), lanes ? heads : z, lanes ? z : 1);
-    kernel<<<grid, (NWG + 1) * kWgThreads, L::BYTES, stream>>>(qm, km, vm, p);
+    p.o = c.o;
+    p.q_src = c.q;
+    p.k_src = c.k;
+    p.v_src = c.v;
+    p.cos_t = static_cast<const float*>(c.cos_t);
+    p.sin_t = static_cast<const float*>(c.sin_t);
+    p.bh = static_cast<const float*>(c.bh);
+    p.bw = static_cast<const float*>(c.bw);
+    p.grid = c.rel_grid;
+    p.out_f32 = c.out_f32;
+    p.s_q = c.s_q;
+    p.s_kv = c.s_kv;
+    p.kv_valid = c.kv_valid;
+    p.d = c.d;
+    p.vec = (c.d * (int)sizeof(T)) % 16 == 0 && aligned16(c.q) && aligned16(c.k) && aligned16(c.v);
+    p.lanes = c.lanes;
+    p.row_stride = c.d0;
+    p.score_mul = folded ? kLog2e : kLog2e * c.scale;
+    p.q_scale = c.scale;
+    p.bias_mul = folded ? 1.f : 1.f / c.scale;
+    dim3 grid(ceil_div(c.s_q, NWG * kQRows), c.lanes ? c.heads : c.z, c.lanes ? c.z : 1);
+    kernel<<<grid, (NWG + 1) * kWgThreads, L::BYTES, c.stream>>>(qm, km, vm, p);
     return (int)cudaGetLastError();
 }
 
-template <bool ROPE, int BIAS = kBiasNone>
-static int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-                    const void* cos_t, const void* sin_t, int lanes, int d0, int z, int heads,
-                    int s_q, int s_kv, int kv_valid, float scale, cudaStream_t st,
-                    const void* bh = nullptr, const void* bw = nullptr, int rel_grid = 0,
-                    int out_f32 = 0) {
-    if (BIAS && (lanes || rel_grid <= 0 || (long long)rel_grid * rel_grid < kv_valid
-                 || (BIAS == kBiasRow) != (rel_grid == kBK)))
+// the bias mode by the tile: one lattice row a tile where G == BK
+template <int HD, bool ROPE, int OPS, bool BIASED>
+static int launch_bias(const Call& c) {
+    if constexpr (BIASED) {
+        if (c.rel_grid == Tiles<HD, ROPE, OPS>::BK) return launch<HD, ROPE, OPS, kBiasRow>(c);
+        return launch<HD, ROPE, OPS, kBiasAny>(c);
+    } else {
+        return launch<HD, ROPE, OPS, kBiasNone>(c);
+    }
+}
+
+// q [Z][s_q][d0], k and v [Z][s_kv][d0] (bf16; fp32 in the split mode);
+// `lanes` = 1 reads head y's d columns at y * d of d0 = W (grid.z = batch,
+// d % 16 == 0), 0 reads d0 = d (grid.y = batch * head, any d <= 128, zero-
+// padded to a multiple of 16 in shared memory). BIASED: bh, bw
+// [Z][s_q][rel_grid] fp32 (lanes = 0). out_f32: the output is fp32, else
+// bf16.
+template <bool ROPE, int OPS, bool BIASED>
+static int dispatch(const Call& c) {
+    if (c.d <= 0 || c.d > 128 || (c.lanes && c.d % 16)) return kUnsupported;
+    if (BIASED && (c.lanes || c.rel_grid <= 0 || (long long)c.rel_grid * c.rel_grid < c.kv_valid))
         return kUnsupported;
 #define RV_TC_CASE(HD) \
-    case HD: return launch<HD, ROPE, BIAS>(q, k, v, o, cos_t, sin_t, lanes, d0, z, heads, s_q, s_kv, kv_valid, scale, st, bh, bw, rel_grid, out_f32);
-    switch (hd) {
+    case HD: return launch_bias<HD, ROPE, OPS, BIASED>(c);
+    switch ((c.d + 15) / 16 * 16) {
         RV_TC_CASE(16) RV_TC_CASE(32) RV_TC_CASE(48) RV_TC_CASE(64)
         RV_TC_CASE(80) RV_TC_CASE(96) RV_TC_CASE(112) RV_TC_CASE(128)
         default: return kUnsupported;

@@ -2,10 +2,11 @@
 // the flash-attention core (flash_tc.cuh), the MLP's GEMMs, bf16 and int8
 // (fused_mlp.cu), and the bf16, binary and int8 top-k scans (topk_stream.cu).
 // Shared-memory barriers (mbarrier), named barriers with an OR reduction,
-// TMA tile loads (cp.async.bulk.tensor with mbarrier completion), wgmma
-// fences, commits and waits, shared-memory matrix descriptors, the SS-form
-// products (both operands K-major in shared memory; bf16 -> fp32 and s8 ->
-// s32, N = 8 .. 256), the RS-form bf16 products (A in registers), and the tensor-map
+// warpgroup register counts (setmaxnreg), TMA tile loads
+// (cp.async.bulk.tensor with mbarrier completion), wgmma fences, commits
+// and waits, shared-memory matrix descriptors, the SS-form products (both
+// operands K-major in shared memory; bf16 -> fp32 and s8 -> s32, N = 8 ..
+// 256), the RS-form bf16 products (A in registers), and the tensor-map
 // encoder, looked up through the runtime's entry-point query so that the
 // library links without -lcuda.
 #pragma once
@@ -73,6 +74,17 @@ __device__ __forceinline__ bool named_bar_or(int id, int threads, bool pred) {
         "bar.red.or.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
         : "=r"(r) : "r"((uint32_t)pred), "r"(id), "r"(threads) : "memory");
     return r != 0;
+}
+
+// a warpgroup's per-thread register count, lowered (dec) or raised (inc,
+// waiting until the pool holds them); every thread of the warpgroup runs it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,

@@ -57,10 +57,10 @@ _SIGNATURES = {
     # mat, q, row_scale, base, cnt, mask, D, Q, nprobe, k, part_s, part_w,
     # out_s, out_pos, mode, stream
     "rv_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, dtype, stream
-    "rv_flash_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, out_dtype, stream
     "rv_flash_attn_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, stream
+    "rv_flash_attn_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # value, levels, loc, attw, out, B, Lv, Lq, H, D, L, P, dtype, stream
     "rv_ms_deform": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -72,23 +72,27 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # Kernel launches per wrapper: each wrapper adds one right where it
 # launches its kernel, and nowhere else, so a run can show which kernels
 # its main path went through.
-# `flash_attn` and `flash_attn_relbias` count the one flash kernel's two
-# modes apart: plain (the ViT past the heads-in-lanes envelope) and with
-# SAM's decomposed rel-pos bias; `topk_stream`, `topk_masked`, `topk_int8`
-# and `topk_binary` the top-k kernel's modes: bf16/fp32 rows without and
-# with a row mask, int8 rows (masked or not), packed sign bits;
-# `topk_int8_rows` its per-row-scale int8 candidate scan (the two-stage
-# search's first stage); `fused_mlp_int8` the MLP's int8 mode.
+# `flash_attn` and `flash_attn_relbias` count the [B, H, S, D] attention's
+# two modes apart: plain (the ViT past the heads-in-lanes envelope) and
+# with SAM's decomposed rel-pos bias; `topk_stream`, `topk_masked`,
+# `topk_int8` and `topk_binary` the top-k kernel's modes: bf16/fp32 rows
+# without and with a row mask, int8 rows (masked or not), packed sign
+# bits; `topk_stream_f32` the `topk_stream` launches on fp32 rows (the
+# CUDA-core scan); `topk_int8_rows` its per-row-scale int8 candidate scan (the
+# two-stage search's first stage); `fused_mlp_int8` the MLP's int8 mode.
 # `flash_heads`, `flash_attn`, `flash_attn_relbias` and `fused_mlp` count
 # every launch of their mode; `flash_heads_tc`, `flash_attn_tc` and
-# `flash_attn_relbias_tc` only those that went to the tensor-core
-# attention core (csrc/flash_tc.cuh), `fused_mlp_tc` the MLP calls that
-# went to the two wgmma GEMMs (one count per MLP call, not per GEMM).
+# `flash_attn_relbias_tc` only those that went to the bf16 tensor-core
+# attention core (csrc/flash_tc.cuh), `flash_attn_split` and
+# `flash_attn_relbias_split` those that went to its fp32 split mode
+# (csrc/flash_attn_split.cu), `fused_mlp_tc` the MLP calls that went to
+# the two wgmma GEMMs (one count per MLP call, not per GEMM).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
             "fused_mlp_int8": 0, "topk_int8_rows": 0, "flash_heads_tc": 0,
-            "flash_attn_tc": 0, "flash_attn_relbias_tc": 0, "fused_mlp_tc": 0}
+            "flash_attn_tc": 0, "flash_attn_relbias_tc": 0, "flash_attn_split": 0,
+            "flash_attn_relbias_split": 0, "fused_mlp_tc": 0, "topk_stream_f32": 0}
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("ms_deform", (B, Lq,

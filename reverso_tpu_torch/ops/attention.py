@@ -9,19 +9,26 @@ optional SAM-style decomposed relative-position bias; on a CPU tensor it
 runs `attention_ref`, the plain [B, H, S, D] attention the pooling head
 also uses.
 
-On a CUDA tensor each launches one of two hand-written kernels, by the
-rule in `attention_route`: at a head dim the tensor cores take, bf16 and
-SAM's rel-pos bias in either dtype go to `csrc/flash_tc.cuh` (through
-`rv_flash_heads_tc` / `rv_flash_attn_tc`); fp32 without the bias and
-other head dims to the fp32 CUDA-core kernels (`csrc/flash_heads.cu`,
-`csrc/flash_attn.cu`, the latter with the bias too).
+On a CUDA tensor each launches a hand-written kernel, by the rules in
+`heads_route` and `attention_route`. `flash_attention_heads` takes
+`csrc/flash_tc.cuh` (through `rv_flash_heads_tc`) for bf16 at a head dim
+the tensor cores take, else the fp32 CUDA-core kernel
+`csrc/flash_heads.cu`.
+`flash_attention` runs every call on `csrc/flash_tc.cuh`: bf16 at any head
+dim up to 128 (zero-padded to a multiple of 16 in shared memory) and SAM's
+rel-pos bias in fp32 at head dims % 16 == 0 on its bf16 core
+(`rv_flash_attn_tc`), the rest of fp32 on its split mode
+(`rv_flash_attn_split`).
 
-The bias mode on the tensor cores computes what the TPU kernel computes
+The bias mode on the bf16 core computes what the TPU kernel computes
 (reverso_tpu/ops/attention.py:148-200: one bf16 MXU pass for fp32 inputs,
 the bias added in fp32): bf16(q * scale), bf16(k), bf16(p) and bf16(v)
-with fp32 sums and an fp32 bias; `attention_bf16_ref` spells that out. On
-the CPU `flash_attention` keeps `attention_ref`, exact in fp32, which is
-what the JAX package computes on the CPU.
+with fp32 sums and an fp32 bias; `attention_bf16_ref` spells that out.
+The split mode computes the TPU kernel's fp32 contract, Precision.HIGHEST:
+each fp32 operand split into three bf16 parts and six bf16 products
+summed in fp32; `attention_split_ref` spells that out. On the CPU
+`flash_attention` keeps `attention_ref`, exact in fp32, which is what the
+JAX package computes on the CPU.
 """
 from __future__ import annotations
 
@@ -33,22 +40,35 @@ from .. import kernels
 from .rope import rotate
 
 
-def attention_route(device_type: str, dtype: torch.dtype, head_dim: int,
-                    rel_bias: bool = False) -> str:
-    """Which implementation serves an attention call: "plain" for CPU
-    tensors; on the card "tensor_core" for head_dim % 16 == 0 and
-    head_dim <= 128 (wgmma takes k16 steps of bf16 and the kernel keeps at
-    most 128 accumulator columns) with bf16 inputs, or with SAM's rel-pos
-    bias in either dtype (the TPU kernel computes the bias mode in one
-    bf16 pass for fp32 inputs too); else "cuda_core" (fp32 without the
-    bias, and other head dims). A rule between two kernels by dtype and
-    shape, not a fallback."""
+def heads_route(device_type: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Which implementation serves a `flash_attention_heads` call: "plain"
+    for CPU tensors; on the card "tensor_core" for bf16 at head_dim % 16
+    == 0 and head_dim <= 128 (wgmma takes k16 steps of bf16 and the kernel
+    keeps at most 128 accumulator columns), else "cuda_core". A rule
+    between two kernels by dtype and shape, not a fallback."""
     if device_type == "cpu":
         return "plain"
-    if (head_dim % 16 == 0 and head_dim <= 128
-            and (dtype == torch.bfloat16 or rel_bias)):
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128:
         return "tensor_core"
     return "cuda_core"
+
+
+def attention_route(device_type: str, dtype: torch.dtype, head_dim: int,
+                    rel_bias: bool = False) -> str:
+    """Which implementation serves a `flash_attention` call: "plain" for
+    CPU tensors; on the card "tensor_core" for bf16 (head dims past a
+    multiple of 16 zero-padded in shared memory) and for SAM's rel-pos
+    bias in fp32 at head_dim % 16 == 0 (the TPU kernel computes the bias
+    mode in one bf16 pass for fp32 inputs too); "split" for the rest of
+    fp32 (the TPU kernel's Precision.HIGHEST: three bf16 parts a value,
+    six products). Head dims above 128 keep their route, and its kernel
+    refuses them. A rule between kernels by dtype and shape, not a
+    fallback."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.bfloat16 or (rel_bias and head_dim % 16 == 0):
+        return "tensor_core"
+    return "split"
 
 
 def rel_bias_dense(bias_h: torch.Tensor, bias_w: torch.Tensor,
@@ -104,6 +124,53 @@ def attention_bf16_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
     return (torch.matmul(p.to(bf16).float(), v.to(bf16).float()) / l).to(q.dtype)
 
 
+def split3(x: torch.Tensor) -> tuple:
+    """fp32 x as three bf16-valued fp32 parts, hi = bf16(x), mid = bf16(x -
+    hi), lo = bf16(x - hi - mid): hi + mid + lo == x exactly wherever the
+    parts are normal (the subtractions are exact in fp32)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    lo = (x - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+# the split mode's six products, smallest first: (A part, B part) with 0 hi,
+# 1 mid, 2 lo (the table in csrc/flash_tc.cuh::split_part)
+SPLIT_TERMS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32 from the six bf16 products of their three-way splits,
+    summed smallest first (the TPU's Precision.HIGHEST on bf16 units)."""
+    ap, bp = split3(a), split3(b)
+    out = None
+    for i, j in SPLIT_TERMS:
+        t = torch.matmul(ap[i], bp[j])
+        out = t if out is None else out + t
+    return out
+
+
+def attention_split_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
+                        rel_bias=None):
+    """Plain version of the split mode ([B, H, S, D] fp32 on the tensor
+    cores): q * scale in fp32, k, p and v each split into three bf16 parts,
+    every product the six bf16 products summed in fp32 (`split_matmul`),
+    the fp32 bias of `rel_bias` added, a one-pass softmax with p = exp(s -
+    max) kept in fp32, o = (p v) / l in fp32. Used by the tests and
+    `chip_smoke.py` against the kernel; no path of the port calls it."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    s = split_matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if rel_bias is not None:
+        s = s + rel_bias_dense(*rel_bias)
+    if kv_valid is not None:
+        s[..., kv_valid:] = float("-inf")
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    return split_matmul(p, v.float()) / l
+
+
 def _split(t: torch.Tensor, heads: int) -> torch.Tensor:   # [B,S,W] -> [B,H,S,hd]
     b, s, w = t.shape
     return t.reshape(b, s, heads, w // heads).transpose(1, 2)
@@ -145,10 +212,9 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
     optional in-kernel 2D RoPE (cos/sin [S, head_dim] tables).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    `attention_route` picks."""
+    `heads_route` picks."""
     b, s, w = q.shape
-    route = attention_route(q.device.type, q.dtype,
-                            w // heads if heads and w % heads == 0 else 0)
+    route = heads_route(q.device.type, q.dtype, w // heads if heads and w % heads == 0 else 0)
     if route == "plain":
         return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos,
                                          sin=sin, scale=scale,
@@ -209,9 +275,10 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
     rel_bias=(bias_h [B, H, Sq, G], bias_w [B, H, Sq, G], G) adds SAM's
     decomposed relative-position bias bias_h[q, k // G] + bias_w[q, k % G]
     for keys on a G x G grid (S_kv == G * G); the kernel adds it inside the
-    tile, so the [Sq, S_kv] bias never exists on the card. On the tensor
-    cores (either dtype) the products take bf16 operands, as the TPU
-    kernel's do (`attention_bf16_ref`); the output keeps q's dtype.
+    tile, so the [Sq, S_kv] bias never exists on the card. On the bf16
+    core (either dtype) the products take bf16 operands, as the TPU
+    kernel's do (`attention_bf16_ref`); in the split mode fp32 operands
+    (`attention_split_ref`); the output keeps q's dtype.
 
     CPU tensors run `attention_ref`; CUDA tensors launch the kernel
     `attention_route` picks."""
@@ -242,11 +309,11 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
     else:
         grid, biases = 0, ()
     kernels.require_cuda("flash_attention", q, k, v, *biases)
-    tc = route == "tensor_core"
+    split = route == "split"
     o = torch.empty_like(q)
     bh_p = biases[0].data_ptr() if biases else None
     bw_p = biases[1].data_ptr() if biases else None
-    if tc and grid:
+    if not split and grid:
         # the TPU kernel's operands: bf16(q * scale) (the scale folded in
         # before the rounding; a bf16 product rounds its fp32 value once),
         # bf16 k and v; the kernel's scale is then 1
@@ -254,21 +321,18 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
         q = (q * scale).to(bf16)
         k, v = k.to(bf16), v.to(bf16)
         scale = 1.0
-    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: tensors must be 16-byte aligned (TMA)")
     with torch.cuda.device(q.device):   # launch on the tensors' card
-        if tc:
+        if split:
+            status = kernels.lib().rv_flash_attn_split(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p, o.data_ptr(),
+                b * h, sq, skv, d, grid, kv, scale, kernels.stream_ptr(q.device))
+        else:
             status = kernels.lib().rv_flash_attn_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p, o.data_ptr(),
                 b * h, sq, skv, d, grid, kv, scale, kernels.DTYPE_CODES[o.dtype],
                 kernels.stream_ptr(q.device))
-        else:
-            status = kernels.lib().rv_flash_attn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_p, bw_p,
-                o.data_ptr(), b * h, sq, skv, d, grid, kv, scale,
-                kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.check("flash_attention", status)
-    kernels.launches["flash_attn_relbias" if grid else "flash_attn"] += 1
-    if tc:
-        kernels.launches["flash_attn_relbias_tc" if grid else "flash_attn_tc"] += 1
+    mode = "flash_attn_relbias" if grid else "flash_attn"
+    kernels.launches[mode] += 1
+    kernels.launches[f"{mode}_split" if split else f"{mode}_tc"] += 1
     return o

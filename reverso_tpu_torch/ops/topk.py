@@ -242,8 +242,9 @@ def tma_rows(x: torch.Tensor) -> torch.Tensor:
 def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
                  k: int, n_valid: int, mode: int, row_mask=None, dims: Optional[int] = None):
     """Launch csrc/topk_stream.cu in `mode`; returns (scores, idx) [Q, k].
-    Counts the launch in `kernels.launches[counter]` and, by shape (Q,
-    n_valid, dims, k, masked; `dims` the scored dimensions, default d), in
+    Counts the launch in `kernels.launches[counter]` (an unmasked scan of
+    fp32 rows in "topk_stream_f32" too) and, by shape (Q, n_valid, dims,
+    k, masked; `dims` the scored dimensions, default d), in
     `kernels.shape_launches`."""
     kernels.require_cuda(name, db, q, *([row_mask] if row_mask is not None else []))
     d = db.shape[1]
@@ -268,6 +269,8 @@ def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
             out_s.data_ptr(), out_i.data_ptr(), mode, kernels.stream_ptr(dev))
     kernels.check(name, status)
     kernels.launches[counter] += 1
+    if counter == "topk_stream" and db.dtype == torch.float32:
+        kernels.launches["topk_stream_f32"] += 1
     kernels.shape_launches[(counter, (qn, n_valid, dims or d, k, row_mask is not None))] += 1
     return out_s, out_i
 

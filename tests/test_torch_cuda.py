@@ -40,9 +40,15 @@ def _assert_close(out, ref, tol):
     assert diff.numel() == 0 or float(diff.max()) <= tol
 
 
-def _uses_tensor_cores(dtype, head_dim):
-    """The wrappers' dispatch rule (ops/attention.py::attention_route)."""
-    return dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128
+def _uses_tensor_cores(dtype, head_dim, heads_in_lanes=False):
+    """The wrappers' dispatch rules (ops/attention.py::heads_route and
+    attention_route): whether a call takes the bf16 tensor-core core. Heads
+    in lanes: bf16 at head dims % 16 == 0, <= 128 (else the CUDA-core
+    kernel); [B, H, S, D]: bf16 at every head dim <= 128 (padded to a
+    multiple of 16; fp32 takes the core's split mode)."""
+    if heads_in_lanes:
+        return dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128
+    return dtype == torch.bfloat16 and head_dim <= 128
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -80,7 +86,7 @@ def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     out = flash_attention_heads(q, k, v, heads=heads, cos=cos, sin=sin,
                                 kv_valid=kv_valid)
     assert kernels.launches["flash_heads"] == n0 + 1
-    tc = _uses_tensor_cores(dtype, w // heads)
+    tc = _uses_tensor_cores(dtype, w // heads, heads_in_lanes=True)
     assert kernels.launches["flash_heads_tc"] == t0 + int(tc)
     ref = flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin,
                                     kv_valid=kv_valid)
@@ -140,8 +146,10 @@ def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
     qs = torch.cat([db[1:2], _randn(gen, q - 1, d, dtype=dtype)])
     key = ("topk_stream", (q, n if n_valid is None else n_valid, d, k, False))
     n0, s0 = kernels.launches["topk_stream"], kernels.shape_launches[key]
+    f0 = kernels.launches["topk_stream_f32"]
     s, i = cosine_topk(db, qs, k, n_valid=n_valid)
     assert kernels.launches["topk_stream"] == n0 + 1
+    assert kernels.launches["topk_stream_f32"] == f0 + int(dtype == torch.float32)
     assert kernels.shape_launches[key] == s0 + 1
     rs, ri = cosine_topk_ref(db, qs, k, n_valid=n_valid)
     fin = torch.isfinite(rs)
@@ -182,10 +190,11 @@ def test_flash_attn_kernel(dev, dtype, b, h, sq, skv, d, kv_valid):
     gen = torch.Generator(device="cuda").manual_seed(sq + d)
     q = _randn(gen, b, h, sq, d, dtype=dtype)
     k, v = (_randn(gen, b, h, skv, d, dtype=dtype) for _ in range(2))
-    n0, t0 = kernels.launches["flash_attn"], kernels.launches["flash_attn_tc"]
+    counts = ("flash_attn", "flash_attn_tc", "flash_attn_split")
+    before = [kernels.launches[c] for c in counts]
     out = flash_attention(q, k, v, kv_valid=kv_valid)
-    assert kernels.launches["flash_attn"] == n0 + 1
-    assert kernels.launches["flash_attn_tc"] == t0 + int(_uses_tensor_cores(dtype, d))
+    tc = _uses_tensor_cores(dtype, d)   # else the split mode (fp32)
+    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [1, int(tc), int(not tc)]
     ref = attention_ref(q, k, v, kv_valid=kv_valid)
     torch.cuda.synchronize()
     _assert_close(out, ref, TOLS[dtype])
@@ -197,29 +206,32 @@ def test_flash_attn_kernel(dev, dtype, b, h, sq, skv, d, kv_valid):
     (1, 2, 14, 32, 150, 190),         # Sq not a multiple of the tile, kv_valid < S
     (1, 12, 64, 64, 4096, None),      # SAM ViT-B global layer
     (1, 2, 64, 64, 100, 4000),        # G = 64 (one lattice row a tile), kv_valid < S
-    (1, 2, 8, 40, 70, 60),            # head dim 40: the CUDA-core kernel
+    (1, 2, 8, 40, 70, 60),            # head dim 40: bf16 core padded (bf16), split (fp32)
 ])
 def test_flash_attn_relbias_kernel(dev, dtype, b, h, g, d, sq, kv_valid):
-    """The rel-pos bias takes the tensor-core core in either dtype at head
-    dims % 16 == 0 (<= 128), with bf16 operands as the TPU kernel: held
-    against `attention_bf16_ref` within 2e-2 (bf16 output: one output
-    ulp; fp32 output: p rounded against the running max, not the final
-    one) and against the fp32 `attention_ref` within 2e-2 (the operands'
-    bf16 rounding). Other head dims take the CUDA-core kernel, held
-    against `attention_ref` at the fp32 / bf16 tolerances."""
+    """The rel-pos bias takes the bf16 tensor-core core in bf16 at every
+    head dim and in fp32 at head dims % 16 == 0, with bf16 operands as the
+    TPU kernel: held against `attention_bf16_ref` within 2e-2 (bf16
+    output: one output ulp; fp32 output: p rounded against the running
+    max, not the final one) and against the fp32 `attention_ref` within
+    2e-2 (the operands' bf16 rounding). fp32 at other head dims takes the
+    split mode, held against `attention_ref` and `attention_split_ref` at
+    the fp32 tolerance."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (attention_bf16_ref, attention_ref,
-                                                  flash_attention)
+                                                  attention_split_ref, flash_attention)
 
     gen = torch.Generator(device="cuda").manual_seed(g * d)
     q = _randn(gen, b, h, sq, d, dtype=dtype)
     k, v = (_randn(gen, b, h, g * g, d, dtype=dtype) for _ in range(2))
     bh, bw = (_randn(gen, b, h, sq, g, dtype=torch.float32, scale=0.5) for _ in range(2))
-    counts = ("flash_attn_relbias", "flash_attn_relbias_tc", "flash_attn_tc")
+    counts = ("flash_attn_relbias", "flash_attn_relbias_tc", "flash_attn_relbias_split",
+              "flash_attn_tc")
     before = [kernels.launches[c] for c in counts]
     out = flash_attention(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
-    tc = _uses_tensor_cores(torch.bfloat16, d)
-    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [1, int(tc), 0]
+    tc = dtype == torch.bfloat16 or d % 16 == 0
+    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [1, int(tc), int(not tc),
+                                                                          0]
     assert out.dtype == dtype
     ref = attention_ref(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
     torch.cuda.synchronize()
@@ -229,6 +241,60 @@ def test_flash_attn_relbias_kernel(dev, dtype, b, h, g, d, sq, kv_valid):
         assert float((out.float() - ref.float()).abs().max()) <= 2e-2
     else:
         assert float((out.float() - ref.float()).abs().max()) <= TOLS[dtype]
+        split = attention_split_ref(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
+        assert float((out - split).abs().max()) <= TOLS[dtype]
+
+
+@pytest.mark.parametrize("b,h,g,d,sq,kv_valid", [
+    (1, 2, 64, 64, 100, 4000),        # SAM's G = 64: a 64-key tile is one lattice row
+    (1, 2, 32, 128, 70, 1000),        # hd 128: 32-key tiles, G = 32 one lattice row
+    (2, 2, 32, 96, 64, None),
+    (1, 2, 14, 64, 150, 190),         # a lattice row across tiles
+])
+def test_flash_attn_split_relbias_kernel(dev, monkeypatch, b, h, g, d, sq, kv_valid):
+    """SAM's rel-pos bias in fp32 forced onto the split mode (as
+    chip_smoke.py's SAM parity does) at head dims the bf16 core takes:
+    both of its bias modes, held against `attention_ref` at the fp32
+    tolerance."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops import attention as attn
+
+    monkeypatch.setattr(attn, "attention_route", lambda *a, **kw: "split")
+    gen = torch.Generator(device="cuda").manual_seed(g * d + 1)
+    q = _randn(gen, b, h, sq, d, dtype=torch.float32)
+    k, v = (_randn(gen, b, h, g * g, d, dtype=torch.float32) for _ in range(2))
+    bh, bw = (_randn(gen, b, h, sq, g, dtype=torch.float32, scale=0.5) for _ in range(2))
+    n0 = kernels.launches["flash_attn_relbias_split"]
+    out = attn.flash_attention(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
+    assert kernels.launches["flash_attn_relbias_split"] == n0 + 1
+    ref = attn.attention_ref(q, k, v, kv_valid=kv_valid, rel_bias=(bh, bw, g))
+    torch.cuda.synchronize()
+    _assert_close(out, ref, TOLS[torch.float32])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.bfloat16, 6),
+                                     (torch.bfloat16, 40), (torch.float32, 64),
+                                     (torch.float32, 30)])
+def test_flash_attn_unaligned_kernel(dev, dtype, d):
+    """Operands one element into their buffers (no 16-byte alignment) and
+    row strides TMA cannot take: bf16 rows copied by the producer's lanes,
+    fp32 rows split from scalar loads."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import attention_ref, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    shape = (1, 3, 97, d)
+    size = int(np.prod(shape))
+    q, k, v = (_randn(gen, size + 1, dtype=dtype)[1:].view(shape) for _ in range(3))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    counts = ("flash_attn_tc", "flash_attn_split")
+    before = [kernels.launches[c] for c in counts]
+    out = flash_attention(q, k, v, kv_valid=90)
+    bf = dtype == torch.bfloat16
+    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [int(bf), int(not bf)]
+    ref = attention_ref(q, k, v, kv_valid=90)
+    torch.cuda.synchronize()
+    _assert_close(out, ref, TOLS[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,9 +1,9 @@
-"""The tensor-core kernels (K3, K6 and K7 on the flash core, K4 on the
-wgmma GEMMs): what the CPU can hold of them.
+"""The tensor-core kernels (K3, K6 and K7 on the flash core and its fp32
+split mode, K4 on the wgmma GEMMs): what the CPU can hold of them.
 
-* the wrappers' dispatch rules (`ops/attention.py::attention_route`,
-  `ops/fused_mlp.py::mlp_route`) for every preset's widths, both dtypes
-  and the rel-pos bias;
+* the wrappers' dispatch rules (`ops/attention.py::heads_route` and
+  `attention_route`, `ops/fused_mlp.py::mlp_route`) for every preset's widths, both dtypes,
+  the rel-pos bias and the heads-in-lanes form;
 * the ctypes argument lists in `kernels._SIGNATURES` against the
   `extern "C"` launchers under `csrc/`, parsed from the sources;
 * the basis of the card's bf16 tolerance: a numpy emulation of the
@@ -11,7 +11,12 @@ wgmma GEMMs): what the CPU can hold of them.
   the running max, 64-key tiles) against the JAX package's Pallas kernels
   in interpret mode at S = 577 (heads in lanes, RoPE), S = 1297, and S =
   256 with SAM's rel-pos bias (bf16 operands, fp32 bias), and the bias
-  mode's plain version (`attention_bf16_ref`) against the emulation.
+  mode's plain version (`attention_bf16_ref`) against the emulation;
+* the split mode (fp32 operands as three bf16 parts, six products): the
+  split is exact, and the emulated kernel (six products a tile, p kept in
+  fp32 and split) and its plain version (`attention_split_ref`) hold the
+  card's fp32 gate against the fp32 `attention_ref` and the JAX package's
+  Pallas kernels in interpret mode.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -31,6 +36,7 @@ from reverso_tpu_torch.ops.fused_mlp import mlp_route
 from reverso_tpu_torch.ops.rope import rope_2d_tables
 
 TOL_BF16 = 2e-2      # the card's bf16 tolerance (chip_smoke.py, test_torch_cuda.py)
+TOL_F32 = 2e-5       # the card's fp32 tolerance (chip_smoke.py, test_torch_cuda.py)
 KERNEL_BK = 64       # keys per tile of csrc/flash_tc.cuh (kBK)
 
 
@@ -38,36 +44,48 @@ KERNEL_BK = 64       # keys per tile of csrc/flash_tc.cuh (kBK)
 def test_route_for_every_preset_head_dim(preset):
     cfg = MODEL_PRESETS[preset]
     hd = cfg.width // cfg.num_heads
-    route = tattn.attention_route
+    route, heads_route = tattn.attention_route, tattn.heads_route
     on_tensor_cores = hd % 16 == 0 and hd <= 128
-    assert route("cuda", torch.bfloat16, hd) == (
+    # [B, H, S, D]: bf16 on the bf16 core at every head dim (padded to a
+    # multiple of 16), fp32 on its split mode
+    assert route("cuda", torch.bfloat16, hd) == "tensor_core"
+    assert route("cuda", torch.float32, hd) == "split"
+    # heads in lanes: the bf16 core at its head dims, else the CUDA cores
+    assert heads_route("cuda", torch.bfloat16, hd) == (
         "tensor_core" if on_tensor_cores else "cuda_core")
-    assert route("cuda", torch.float32, hd) == "cuda_core"
-    # the rel-pos bias takes the tensor cores in either dtype (the TPU
-    # kernel's one bf16 pass)
-    assert route("cuda", torch.bfloat16, hd, rel_bias=True) == (
-        "tensor_core" if on_tensor_cores else "cuda_core")
+    assert heads_route("cuda", torch.float32, hd) == "cuda_core"
+    # the rel-pos bias takes the bf16 core in either dtype (the TPU
+    # kernel's one bf16 pass), fp32 at head dims % 16 != 0 the split mode
+    assert route("cuda", torch.bfloat16, hd, rel_bias=True) == "tensor_core"
     assert route("cuda", torch.float32, hd, rel_bias=True) == (
-        "tensor_core" if on_tensor_cores else "cuda_core")
+        "tensor_core" if hd % 16 == 0 else "split")
     for dtype in (torch.bfloat16, torch.float32):
         for bias in (False, True):
             assert route("cpu", dtype, hd, rel_bias=bias) == "plain"
+        assert heads_route("cpu", dtype, hd) == "plain"
     # every shipped preset's bf16 tower runs on the tensor cores
     assert on_tensor_cores
 
 
-@pytest.mark.parametrize("hd,expected", [
-    (6, "cuda_core"), (8, "cuda_core"), (16, "tensor_core"), (48, "tensor_core"),
-    (80, "tensor_core"), (96, "tensor_core"), (128, "tensor_core"),
-    (120, "cuda_core"), (144, "cuda_core"), (256, "cuda_core"),
+@pytest.mark.parametrize("hd,heads_bf16,bias_f32", [
+    (6, "cuda_core", "split"), (8, "cuda_core", "split"), (16, "tensor_core", "tensor_core"),
+    (48, "tensor_core", "tensor_core"), (80, "tensor_core", "tensor_core"),
+    (96, "tensor_core", "tensor_core"), (128, "tensor_core", "tensor_core"),
+    (120, "cuda_core", "split"), (144, "cuda_core", "tensor_core"),
+    (256, "cuda_core", "tensor_core"),
 ])
-def test_route_head_dims(hd, expected):
-    assert tattn.attention_route("cuda", torch.bfloat16, hd) == expected
-    # SAM's rel-pos bias: the same head dims, in either dtype; fp32 without
-    # the bias stays on the CUDA cores
-    for dtype in (torch.bfloat16, torch.float32):
-        assert tattn.attention_route("cuda", dtype, hd, rel_bias=True) == expected
-    assert tattn.attention_route("cuda", torch.float32, hd) == "cuda_core"
+def test_route_head_dims(hd, heads_bf16, bias_f32):
+    """Heads in lanes keep the bf16 core to head dims % 16 == 0, <= 128;
+    [B, H, S, D] takes the bf16 core in bf16 at every head dim and the
+    split mode in fp32; SAM's fp32 bias the bf16 core at head dims % 16 ==
+    0, else the split mode. Past 128 the route's kernel refuses the call."""
+    route, heads_route = tattn.attention_route, tattn.heads_route
+    assert heads_route("cuda", torch.bfloat16, hd) == heads_bf16
+    assert heads_route("cuda", torch.float32, hd) == "cuda_core"
+    assert route("cuda", torch.bfloat16, hd) == "tensor_core"
+    assert route("cuda", torch.bfloat16, hd, rel_bias=True) == "tensor_core"
+    assert route("cuda", torch.float32, hd, rel_bias=True) == bias_f32
+    assert route("cuda", torch.float32, hd) == "split"
 
 
 @pytest.mark.parametrize("preset", sorted(MODEL_PRESETS))
@@ -106,7 +124,8 @@ def test_cpu_tensors_take_the_plain_versions():
     out = tattn.flash_attention_heads(x, x, x, heads=2)
     assert torch.equal(out, tattn.flash_attention_heads_ref(x, x, x, heads=2))
     assert kernels.launches == before
-    assert {"flash_heads_tc", "flash_attn_tc"} <= set(kernels.launches)
+    assert {"flash_heads_tc", "flash_attn_tc", "flash_attn_split",
+            "flash_attn_relbias_split", "topk_stream_f32"} <= set(kernels.launches)
 
 
 def _launchers():
@@ -126,7 +145,8 @@ def _launchers():
 
 def test_signatures_match_the_launchers():
     found = _launchers()
-    assert {"rv_flash_heads_tc", "rv_flash_attn_tc", "rv_fused_mlp_tc"} <= set(found)
+    assert {"rv_flash_heads_tc", "rv_flash_attn_tc", "rv_flash_attn_split",
+            "rv_fused_mlp_tc"} <= set(found)
     assert set(found) == set(kernels._SIGNATURES)
     for name, types in found.items():
         assert kernels._SIGNATURES[name] == types, name
@@ -147,21 +167,46 @@ def _rotate(x, cos, sin, mul):
     return _bf16((x * cos + half * sin) * np.float32(mul))
 
 
-def _online_tiles(q, k, v, score_mul, kv_valid, bk=KERNEL_BK, bias=None, out_bf16=True):
+def _split3(x):
+    """fp32 x as three bf16-valued fp32 parts: hi = bf16(x), mid = bf16(x -
+    hi), lo = bf16(x - hi - mid)."""
+    x = np.asarray(x, np.float32)
+    hi = _bf16(x)
+    r = (x - hi).astype(np.float32)
+    mid = _bf16(r)
+    return hi, mid, _bf16((r - mid).astype(np.float32))
+
+
+def _split_dot(a, b):
+    """a @ b.T as the split mode's products: the six bf16 products of the
+    three-way splits (`ops/attention.py::SPLIT_TERMS`), smallest first,
+    summed in fp32."""
+    ap, bp = _split3(a), _split3(b)
+    out = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for i, j in tattn.SPLIT_TERMS:
+        out = (out + ap[i] @ bp[j].T).astype(np.float32)
+    return out
+
+
+def _online_tiles(q, k, v, score_mul, kv_valid, bk=KERNEL_BK, bias=None, out_bf16=True,
+                  split=False):
     """The kernel's arithmetic on one head: [S, D] bf16-valued float32 in,
     bf16-valued out (or fp32 with out_bf16=False). Scores in fp32 (plus
     the fp32 `bias` [Sq, Skv], if given) times log2(e) * scale, per
     bk-key tile a running max m, p = exp2(t - m) rounded to bf16 for the
     PV product against that running max, the fp32 row sum and accumulator
     rescaled by exp2(m_old - m_new) when the max moves, acc / l at the
-    end."""
+    end. split=True is the split mode: fp32 q (the scale folded in), k and
+    v, each tile's products as six bf16 products of their three-way splits
+    (`_split_dot`), p kept in fp32 and split the same way for the PV
+    product, taken per tile and added to the fp32 accumulator, fp32 out."""
     sq = q.shape[0]
     m = np.full((sq, 1), -np.inf, np.float32)
     l = np.zeros((sq, 1), np.float32)
     acc = np.zeros((sq, v.shape[1]), np.float32)
     for lo in range(0, kv_valid, bk):
         hi = min(lo + bk, kv_valid)
-        t = (q @ k[lo:hi].T).astype(np.float32)
+        t = _split_dot(q, k[lo:hi]) if split else (q @ k[lo:hi].T).astype(np.float32)
         if bias is not None:
             t = t + bias[:, lo:hi]
         t = t * np.float32(score_mul)
@@ -169,9 +214,10 @@ def _online_tiles(q, k, v, score_mul, kv_valid, bk=KERNEL_BK, bias=None, out_bf1
         corr = np.exp2(m - m_new)
         p = np.exp2(t - m_new)
         l = l * corr + p.sum(axis=1, keepdims=True)
-        acc = acc * corr + _bf16(p) @ v[lo:hi]
+        pv = _split_dot(p, v[lo:hi].T) if split else _bf16(p) @ v[lo:hi]
+        acc = acc * corr + pv
         m = m_new
-    return _bf16(acc / l) if out_bf16 else acc / l
+    return _bf16(acc / l) if out_bf16 and not split else acc / l
 
 
 def test_online_rounding_heads_in_lanes_rope():
@@ -291,3 +337,118 @@ def test_bf16_operand_plain_version(dtype):
           f"(tolerance {TOL_BF16})")
     assert err < TOL_BF16
     assert float((other.float() - out.float()).abs().max()) <= 2 ** -7
+
+
+# ---- the split mode: fp32 operands on the bf16 tensor cores ----------------
+
+
+@pytest.mark.parametrize("magnitude", [1e-30, 1e-20, 1e-10, 1e-3, 1.0, 1e3, 1e10, 1e20, 1e30])
+def test_split_reconstructs_fp32_exactly(magnitude):
+    """hi + mid + lo == x bit for bit for seeded normals of either sign at
+    magnitudes 1e-30 to 1e30, each part a bf16 value, wherever lo is a
+    normal number (|x| >= 2^-110); below that lo keeps the bf16
+    subnormals' 2^-133 steps. `ops/attention.py::split3` (the plain
+    version's split) and the numpy emulation's agree bit for bit."""
+    rng = np.random.default_rng(int(np.log10(magnitude)) + 40)
+    x = (rng.standard_normal(100_000) * magnitude).astype(np.float32)
+    x[:4] = np.float32(magnitude) * np.array([1, -1, 1.0000001, -0.9999999], np.float32)
+    hi, mid, lo = _split3(x)
+    for part in (hi, mid, lo):
+        assert np.array_equal(_bf16(part), part)
+    total = ((hi + mid) + lo).astype(np.float32)
+    normal = np.abs(x) >= np.float32(2.0 ** -110)
+    assert normal.mean() > 0.999
+    assert np.array_equal(total[normal].view(np.uint32), x[normal].view(np.uint32))
+    assert np.all(np.abs(total - x) <= 2.0 ** -133)
+    # each part holds the next 8 bits: |mid| <= 2^-8 |hi|, |lo| <= 2^-8 |mid|
+    assert np.all(np.abs(mid) <= np.abs(hi) * 2.0 ** -8)
+    assert np.all(np.abs(lo[normal]) <= np.abs(mid[normal]) * 2.0 ** -8)
+    t = tattn.split3(torch.from_numpy(x))
+    for a, b in zip(t, (hi, mid, lo)):
+        assert np.array_equal(a.numpy().view(np.uint32), b.view(np.uint32))
+
+
+def test_split_terms_follow_the_kernel():
+    """The plain version's six products are the kernel's table, in its
+    order: smallest first, hi.hi last, the three smallest of the nine
+    left out."""
+    src = open(f"{kernels.CSRC}/flash_tc.cuh").read()
+    n_terms = int(re.search(r"constexpr int kSplitTerms = (\d+);", src).group(1))
+    table = re.search(r"constexpr int terms\[kSplitTerms\]\[2\] = \{(.*)\};", src).group(1)
+    terms = [(int(a), int(b)) for a, b in re.findall(r"\{(\d), (\d)\}", table)]
+    assert len(terms) == n_terms
+    assert tuple(terms) == tattn.SPLIT_TERMS
+    assert terms[-1] == (0, 0)
+    nine = {(i, j) for i in range(3) for j in range(3)}
+    assert nine - set(terms) == {(1, 2), (2, 1), (2, 2)}
+
+
+@pytest.mark.parametrize("kv_valid", [1297, 1000])
+def test_split_mode_long_sequence(kv_valid):
+    """K7 in fp32 (one head, S = 1297, D = 64): the emulated split mode and
+    `attention_split_ref` against the fp32 `attention_ref` and the JAX
+    kernel (Precision.HIGHEST, interpret mode) within the card's fp32
+    gate."""
+    rng = np.random.default_rng(21)
+    s, d = 1297, 64
+    q, k, v = (rng.standard_normal((1, 1, s, d)).astype(np.float32) for _ in range(3))
+    scale = np.float32(d ** -0.5)
+    emu = _online_tiles(q[0, 0] * scale, k[0, 0], v[0, 0], np.log2(np.e), kv_valid,
+                        split=True)[None, None]
+    jax_out = np.asarray(jattn.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                               kv_valid=kv_valid, interpret=True))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    ref = tattn.attention_ref(*t, kv_valid=kv_valid).numpy()
+    plain = tattn.attention_split_ref(*t, kv_valid=kv_valid).numpy()
+    errs = {name: float(np.abs(a - b).max()) for name, a, b in (
+        ("emulation vs attention_ref", emu, ref), ("emulation vs JAX", emu, jax_out),
+        ("attention_split_ref vs attention_ref", plain, ref),
+        ("attention_split_ref vs JAX", plain, jax_out),
+        ("attention_split_ref vs emulation", plain, emu))}
+    print(f"K7 fp32 split mode, kv_valid {kv_valid}: {errs} (tolerance {TOL_F32})")
+    assert max(errs.values()) < TOL_F32
+
+
+def test_split_mode_rel_bias_ragged():
+    """K6 with fp32 operands at a head dim the bf16 core does not take (D =
+    40, padded to 48 on the card), G = 14 (the kBiasAny tiles), Sq = 150
+    (a ragged query tile), kv_valid = 190 < 196: the emulated split mode
+    and `attention_split_ref` against the fp32 `attention_ref` and the JAX
+    kernel in interpret mode (fp32 on the CPU)."""
+    rng = np.random.default_rng(23)
+    d, g, sq, kv_valid = 40, 14, 150, 190
+    q = rng.standard_normal((1, 2, sq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 2, g * g, d)).astype(np.float32) for _ in range(2))
+    bh, bw = (rng.standard_normal((1, 2, sq, g)).astype(np.float32) * 0.5 for _ in range(2))
+    scale = np.float32(d ** -0.5)
+    emu = np.stack([_online_tiles(
+        q[0, h] * scale, k[0, h], v[0, h], np.log2(np.e), kv_valid,
+        bias=(bh[0, h][:, :, None] + bw[0, h][:, None, :]).reshape(sq, g * g), split=True)
+        for h in range(2)])[None]
+    jax_out = np.asarray(jattn.flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), kv_valid=kv_valid, kv_tile=g * g,
+        rel_bias=(jnp.asarray(bh), jnp.asarray(bw), g), interpret=True))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    bias = (torch.from_numpy(bh), torch.from_numpy(bw), g)
+    ref = tattn.attention_ref(*t, kv_valid=kv_valid, rel_bias=bias).numpy()
+    plain = tattn.attention_split_ref(*t, kv_valid=kv_valid, rel_bias=bias).numpy()
+    errs = {name: float(np.abs(a - b).max()) for name, a, b in (
+        ("emulation vs attention_ref", emu, ref), ("emulation vs JAX", emu, jax_out),
+        ("attention_split_ref vs attention_ref", plain, ref),
+        ("attention_split_ref vs JAX", plain, jax_out))}
+    print(f"K6 fp32 split mode (D 40, G 14, ragged): {errs} (tolerance {TOL_F32})")
+    assert max(errs.values()) < TOL_F32
+
+
+def test_split_mode_is_more_than_one_bf16_pass():
+    """What the split buys: on the same fp32 inputs one bf16 pass (the bias
+    mode's operands) misses the fp32 gate by far, the six products meet
+    it."""
+    rng = np.random.default_rng(25)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 256, 64)).astype(np.float32))
+               for _ in range(3))
+    ref = tattn.attention_ref(q, k, v)
+    one_pass = float((tattn.attention_bf16_ref(q, k, v) - ref).abs().max())
+    split = float((tattn.attention_split_ref(q, k, v) - ref).abs().max())
+    print(f"one bf16 pass {one_pass}, six products {split} (gate {TOL_F32})")
+    assert split < TOL_F32 < one_pass / 10
