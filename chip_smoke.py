@@ -16,20 +16,26 @@ of which catches a failure:
      computes the same function) that call, and the least time the card
      could take (`bound_ms`); the MLP (K4) on its two wgmma GEMMs at
      T = 4616, 1000 and 36,928 with the cuBLAS route of three calls
-     beside it, and in fp32 on the CUDA cores at the depth-2 tower's
-     T = 1154 with the fp32 cuBLAS route; the attention kernels in bf16
-     on the tensor cores (K3 with RoPE and its whole PyTorch route beside
-     it, K7), SAM's
+     beside it, and in fp32 on the same GEMMs in the split mode (three
+     bf16 parts a value, six products) at the depth-2 tower's T = 1154
+     and the B = 8 tower's T = 4616, against `mlp_ref` and
+     `mlp_split_ref`, with the fp32 cuBLAS route, and the split pass that
+     makes the parts; the attention kernels in bf16 on the tensor cores
+     (K3 with RoPE, its whole PyTorch route and its lanes' copy route
+     beside it, K7), SAM's
      rel-pos bias attention (K6) on the tensor cores in fp32 and bf16
      against its bf16-operand and fp32 plain versions, with SDPA and a
      materialized mask in both dtypes beside it, K7 and K6 with fp32
      operands on the core's split mode (three bf16 parts a value, six
      products) against `attention_split_ref` and the fp32 `attention_ref`
-     at the 2e-5 gate, and K3 in fp32 on the CUDA cores; K1 in fp32 rows
+     at the 2e-5 gate, and K3 in fp32 on the split mode with RoPE
+     (B = 2, and B = 8 timed) against `flash_attention_heads_ref` and
+     `flash_attention_heads_split_ref`; K1 in fp32 rows
      over 1M x 1024 at Q = 64 and 256 beside a matmul and a topk; the
      attention kernels at edge shapes (S 1 to 129, kv_valid 0 to S - 1,
-     head dims 6 to 128, S_kv != S_q, B * H 1 and 1024; bf16 on the
-     tensor cores, fp32 [B, H, S, D] on the split mode); the capacity
+     head dims 6 to 128, S_kv != S_q, B * H 1 and 1024, bases one element
+     into their buffers; bf16 on the tensor cores, fp32 on the split
+     mode); the capacity
      kernels at 1,000,000 x 1024
      (masked bf16, int8 with ids and scores equal bit for bit, packed
      binary) and the IVF probed scan at 1024 clusters, nprobe 16; the
@@ -48,7 +54,13 @@ of which catches a failure:
      past the heads-in-lanes kernel: the ViT's long-sequence path, K7 on
      the split mode); then PE-Core-L14 at 504 px in
      bf16 at full depth, B = 8, against the same weights in fp32 on the
-     card (every block's attention on the tensor-core K7);
+     card (every block's attention on the tensor-core K7; the fp32
+     forward's K4 counted by shape); then PE-Core-L14-336 in fp32 at full
+     width and depth, B = 8 (K3 and K4 fp32 on the split routes, 24
+     launches each), one profiled forward (device busy share, time by
+     kernel group) and the min cosine against the bf16 tower of the same
+     seed and weights; K3 and K4 fp32 timed at each shape these paths ran
+     them at;
   4b. the two-stage int8 search at op level (`cosine_topk_int8` over the
      1M x 1024 rows, Q = 256, k = 10, overfetch 4): the plain pipeline's
      ids, recall@10 against exact fp32, and K12's launches by shape;
@@ -93,7 +105,7 @@ of which catches a failure:
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). A "redesign order" line ranks the kernels
 by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2,
-K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
+K3 fp32, K4 fp32, K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
 one before that a JSON object with one entry per kernel; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -145,6 +157,28 @@ def k8_bound(b: int, lv: int, lq: int, h: int, d: int, n_l: int, p: int,
     and channel (three lerps and one FMA) at the fp32 rate."""
     return bound((b * lv + b * lq) * h * d * itemsize + b * lq * h * n_l * p * 3 * 4,
                  11 * b * lq * h * n_l * p * d, "float32")
+
+
+def heads_bound(b: int, s: int, w: int, heads: int, itemsize: int,
+                dtype: str) -> tuple[float, str]:
+    """K3's least time on [B, S, W]: q, k, v read and o written once, the
+    two fp32 RoPE tables read once; 4 B H S^2 hd operations."""
+    hd = w // heads
+    return bound(4 * b * s * w * itemsize + 2 * s * hd * 4, 4 * b * heads * s * s * hd, dtype)
+
+
+def mlp_bound(t: int, w: int, hid: int, itemsize: int, dtype: str) -> tuple[float, str]:
+    """K4's least time at [T, W] -> H -> W: x read and y written, both
+    weights and both biases read once; 4 T W H operations."""
+    return bound((2 * t * w + 2 * hid * w + hid + w) * itemsize, 4 * t * w * hid, dtype)
+
+
+def offset_copy(torch, t):
+    """A copy of t one element into a fresh buffer: contiguous, its base not
+    16-byte aligned (the wrappers' views TMA cannot take)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    check(view.data_ptr() % 16 != 0, "offset_copy: aligned")
+    return view.copy_(t)
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
@@ -244,9 +278,12 @@ def kernel_checks(torch, gen) -> dict:
     import torch.nn.functional as F
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (flash_attention_heads,
-                                                  flash_attention_heads_ref)
-    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
+                                                  flash_attention_heads_ref,
+                                                  flash_attention_heads_split_ref)
+    from reverso_tpu_torch.ops.fused_mlp import (fused_mlp, mlp_ref, mlp_split_ref,
+                                                 split_mlp_weights)
     from reverso_tpu_torch.ops.rope import apply_rope_2d, rope_2d_tables
+    from reverso_tpu_torch.ops.split import split_parts, split_parts_ref
     from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
 
     dev = torch.device("cuda")
@@ -291,57 +328,73 @@ def kernel_checks(torch, gen) -> dict:
         ms=ms, plain_ms=cuda_ms(lambda: flash_attention_heads_ref(q, k, v, **kw)),
         library="F.scaled_dot_product_attention on [B, H, S, D] (no RoPE)",
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
-    rows["flash_heads"]["bound_ms"], rows["flash_heads"]["bound_by"] = bound(
-        4 * b * s * w * 2 + 2 * s * hd * 4, 4 * b * heads * s * s * hd, "bfloat16")
+    rows["flash_heads"]["bound_ms"], rows["flash_heads"]["bound_by"] = heads_bound(
+        b, s, w, heads, 2, "bfloat16")
     # beside it: the no-RoPE mode, the whole PyTorch route (split, RoPE,
-    # SDPA, merge), the CUDA-core kernel on the same bf16 inputs (a
-    # direct launch, not counted), and the RoPE tables passed as numpy
-    # arrays (copied to the card on every call, as the first version of
-    # this row timed it)
+    # SDPA, merge), the lanes' copy route on the same values one element
+    # into their buffers (TMA cannot take the bases; bit for bit the TMA
+    # route's output), and the RoPE tables passed as numpy arrays (copied
+    # to the card on every call, as the first version of this row timed it)
     no_rope_ms = cuda_ms(lambda: flash_attention_heads(q, k, v, heads=heads))
     route_ms = cuda_ms(lambda: merge(F.scaled_dot_product_attention(
         apply_rope_2d(split(q), cos, sin), apply_rope_2d(split(k), cos, sin), split(v))))
-    o = torch.empty_like(q)
-    lib = kernels.lib()
-    cuda_core_ms = cuda_ms(lambda: lib.rv_flash_heads(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), o.data_ptr(),
-        b, s, w, heads, s, hd ** -0.5, 1, kernels.DTYPE_CODES[bf16], kernels.stream_ptr(dev)))
-    check(max_err(o, flash_attention_heads(q, k, v, **kw)) <= tol, "the CUDA-core kernel disagrees")
+    qu, ku, vu = (offset_copy(torch, t) for t in (q, k, v))
+    t0 = kernels.launches["flash_heads_tc"]
+    check(torch.equal(flash_attention_heads(qu, ku, vu, **kw), flash_attention_heads(q, k, v, **kw))
+          and kernels.launches["flash_heads_tc"] == t0 + 2,
+          "flash_heads: the copy route differs from the TMA route")
+    copy_ms = cuda_ms(lambda: flash_attention_heads(qu, ku, vu, **kw))
     numpy_tables_ms = cuda_ms(lambda: flash_attention_heads(q, k, v, heads=heads, cos=cos_np,
                                                             sin=sin_np))
-    del qh, kh, vh, o
+    rows["flash_heads"]["copy_route_ms"] = copy_ms
+    del qh, kh, vh, qu, ku, vu
     print(f"flash_heads: max abs err {errs} (tol {tol}); no-RoPE mode {no_rope_ms:.4f} ms; "
-          f"PyTorch route (split, apply_rope_2d, SDPA, merge) {route_ms:.4f} ms; the "
-          f"CUDA-core kernel {cuda_core_ms:.4f} ms; numpy RoPE tables {numpy_tables_ms:.4f} ms",
-          flush=True)
+          f"PyTorch route (split, apply_rope_2d, SDPA, merge) {route_ms:.4f} ms; the lanes' "
+          f"copy route (unaligned bases) {copy_ms:.4f} ms; numpy RoPE tables "
+          f"{numpy_tables_ms:.4f} ms", flush=True)
 
-    # the fp32 CUDA-core kernel (the fp32 tower): B=2, S=577, W=1024, RoPE
+    # K3 in fp32 on the core's split mode (the fp32 tower): B = 2, S = 577,
+    # W = 1024, RoPE (the depth-2 tower's shape), held against the exact
+    # fp32 plain version and the split plain version, with kv_valid < S and
+    # without RoPE; B = 8 (the full-depth fp32 forward's shape) timed beside
     tol32 = 2e-5   # fp32: sums in another order, online vs one-pass softmax
-    q32, k32, v32 = (randn(2, s, w, dtype=torch.float32) for _ in range(3))
-    errs = []
-    for kv_valid in (None, 300):
-        t0 = kernels.launches["flash_heads_tc"]
-        out = flash_attention_heads(q32, k32, v32, **kw, kv_valid=kv_valid)
-        check(kernels.launches["flash_heads_tc"] == t0, "fp32 took the tensor-core kernel")
-        ref = flash_attention_heads_ref(q32, k32, v32, **kw, kv_valid=kv_valid)
+    q32, k32, v32 = (randn(8, s, w, dtype=torch.float32) for _ in range(3))
+    q2, k2, v2 = q32[:2], k32[:2], v32[:2]
+    errs, errs_split = [], []
+    for kv_valid, c, sn in ((None, cos, sin), (300, cos, sin), (None, None, None)):
+        kw32 = dict(heads=heads, cos=c, sin=sn, kv_valid=kv_valid)
+        t0 = kernels.launches["flash_heads_split"]
+        out = flash_attention_heads(q2, k2, v2, **kw32)
+        check(kernels.launches["flash_heads_split"] == t0 + 1, "fp32 missed the split mode")
+        ref = flash_attention_heads_ref(q2, k2, v2, **kw32)
+        ref_split = flash_attention_heads_split_ref(q2, k2, v2, **kw32)
         torch.cuda.synchronize()
         errs.append(max_err(out, ref))
-        check(errs[-1] <= tol32, f"flash_heads fp32 kv_valid={kv_valid}: max abs err "
-                                 f"{errs[-1]} > {tol32}")
-    split2 = lambda t: t.reshape(2, s, heads, hd).transpose(1, 2).contiguous()
-    qh, kh, vh = split2(q32), split2(k32), split2(v32)
+        errs_split.append(max_err(out, ref_split))
+        check(errs[-1] <= tol32 and errs_split[-1] <= tol32,
+              f"flash_heads fp32 kv_valid={kv_valid} rope={c is not None}: max abs err "
+              f"{errs[-1]} / {errs_split[-1]} (split plain version) > {tol32}")
+    split2 = lambda t: t.reshape(t.shape[0], s, heads, hd).transpose(1, 2).contiguous()
+    qh, kh, vh = split2(q2), split2(k2), split2(v2)
     rows["flash_heads_f32"] = dict(
-        source="reverso_tpu_torch/csrc/flash_heads.cu",
+        source="reverso_tpu_torch/csrc/flash_tc.cuh",
         replaces="reverso_tpu/ops/attention.py:337",
-        max_abs_err=max(errs), shape="B=2 S=577 W=1024 H=16 fp32 RoPE (depth-2 tower parity)",
-        ms=cuda_ms(lambda: flash_attention_heads(q32, k32, v32, **kw)),
-        plain_ms=cuda_ms(lambda: flash_attention_heads_ref(q32, k32, v32, **kw)),
+        max_abs_err=max(errs), max_abs_err_split_plain=max(errs_split),
+        shape="B=2 S=577 W=1024 H=16 fp32 RoPE (split mode; depth-2 tower parity)",
+        ms=cuda_ms(lambda: flash_attention_heads(q2, k2, v2, **kw)),
+        plain_ms=cuda_ms(lambda: flash_attention_heads_ref(q2, k2, v2, **kw)),
+        split_plain_ms=cuda_ms(lambda: flash_attention_heads_split_ref(q2, k2, v2, **kw)),
         library="F.scaled_dot_product_attention on [B, H, S, D] (no RoPE, fp32)",
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
-    rows["flash_heads_f32"]["bound_ms"], rows["flash_heads_f32"]["bound_by"] = bound(
-        4 * 2 * s * w * 4 + 2 * s * hd * 4, 4 * 2 * heads * s * s * hd, "float32_split")
-    print(f"flash_heads fp32: max abs err {errs} (tol {tol32})", flush=True)
-    del q32, k32, v32, qh, kh, vh
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+        ms_b8=cuda_ms(lambda: flash_attention_heads(q32, k32, v32, **kw)))
+    rows["flash_heads_f32"]["bound_ms"], rows["flash_heads_f32"]["bound_by"] = heads_bound(
+        2, s, w, heads, 4, "float32_split")
+    rows["flash_heads_f32"]["bound_ms_b8"] = heads_bound(8, s, w, heads, 4, "float32_split")[0]
+    r = rows["flash_heads_f32"]
+    print(f"flash_heads fp32 (split mode): max abs err {errs} against the fp32 plain version, "
+          f"{errs_split} against the split plain version (tol {tol32}); B=8: {r['ms_b8']:.4f} "
+          f"ms (bound {r['bound_ms_b8']:.4f})", flush=True)
+    del q32, k32, v32, q2, k2, v2, qh, kh, vh
 
     # K4: PE-L14 MLP, T=8*577, 1024 -> 4096 -> 1024, gelu and quick_gelu, on
     # the two wgmma GEMMs; a ragged T (1000 = 7 * 128 + 104) and T = 36,928
@@ -388,45 +441,83 @@ def kernel_checks(torch, gen) -> dict:
         library_route_ms_b64=cuda_ms(lambda: route(x64)),
         # h written and read back as bf16 between the GEMMs, at the HBM rate
         h_roundtrip_bound_ms=2 * t * hid * 2 / HBM_BYTES_S * 1e3)
-    rows["fused_mlp"]["bound_ms"], rows["fused_mlp"]["bound_by"] = bound(
-        (2 * t * w + 2 * hid * w + hid + w) * 2, 4 * t * w * hid, "bfloat16")
-    rows["fused_mlp"]["bound_ms_b64"] = bound(
-        (2 * 36928 * w + 2 * hid * w + hid + w) * 2, 4 * 36928 * w * hid, "bfloat16")[0]
+    rows["fused_mlp"]["bound_ms"], rows["fused_mlp"]["bound_by"] = mlp_bound(
+        t, w, hid, 2, "bfloat16")
+    rows["fused_mlp"]["bound_ms_b64"] = mlp_bound(36928, w, hid, 2, "bfloat16")[0]
     r = rows["fused_mlp"]
     print(f"fused_mlp: max abs err {errs} (tol {tol}); cuBLAS route {r['library_route_ms']:.4f} "
           f"ms; T=36928: {r['ms_b64']:.4f} ms (cuBLAS route {r['library_route_ms_b64']:.4f}, "
           f"bound {r['bound_ms_b64']:.4f}); h round trip at the HBM rate "
           f"{r['h_roundtrip_bound_ms']:.4f} ms", flush=True)
 
-    # K4 in fp32 on the CUDA-core kernel (the fp32 tower's parity phase):
-    # T = 2 * 577, the depth-2 tower's forward (`tower_check`), with the
-    # cuBLAS route of three fp32 calls beside it
+    # K4 in fp32 on the split GEMMs (the fp32 tower): T = 2 * 577, the
+    # depth-2 tower's forward (`tower_check`), and T = 4616, the full-depth
+    # B = 8 forward's; the weights' parts made once by the split pass, as
+    # the tower caches them (the direct call without them, which splits the
+    # weights per call, timed beside); held against the exact fp32 plain
+    # version and the split plain version; the cuBLAS route of three fp32
+    # calls beside it
     f32, t32 = torch.float32, 2 * 577
     w1f, b1f, w2f, b2f = (p.float() for p in (w1, b1, w2, b2))
-    x32 = randn(t32, w, dtype=f32)
-    n0, t0 = kernels.launches["fused_mlp"], kernels.launches["fused_mlp_tc"]
-    out = fused_mlp(x32, w1f, b1f, w2f, b2f, act="gelu")
-    check(kernels.launches["fused_mlp"] == n0 + 1 and kernels.launches["fused_mlp_tc"] == t0,
-          "fused_mlp fp32: not the CUDA-core kernel")
-    tol32 = 1e-4   # fp32: sums in another order, erff against the plain version's gelu
-    err = max_err(out, mlp_ref(x32, w1f, b1f, w2f, b2f, act="gelu"))
-    check(err <= tol32, f"fused_mlp fp32: max abs err {err} > {tol32}")
+    n0 = kernels.launches["split_parts"]
+    parts = split_mlp_weights(w1f, w2f)
+    check(kernels.launches["split_parts"] == n0 + 2, "the weights' parts missed the split pass")
+    tol32 = 1e-4   # fp32: sums in another order, A&S erf against the plain version's gelu
+    errs, errs_split, xs = [], [], {}
+    for tt, act in ((t32, "gelu"), (t32, "quick_gelu"), (t, "gelu"), (1000, "gelu")):
+        x32 = randn(tt, w, dtype=f32)
+        xs.setdefault(tt, x32)
+        n0 = kernels.launches["fused_mlp_split"]
+        out = fused_mlp(x32, w1f, b1f, w2f, b2f, act=act, parts=parts)
+        check(kernels.launches["fused_mlp_split"] == n0 + 1, "fused_mlp fp32: not the split GEMMs")
+        errs.append(max_err(out, mlp_ref(x32, w1f, b1f, w2f, b2f, act=act)))
+        errs_split.append(max_err(out, mlp_split_ref(x32, w1f, b1f, w2f, b2f, act=act)))
+        check(errs[-1] <= tol32 and errs_split[-1] <= tol32,
+              f"fused_mlp fp32 T={tt} {act}: max abs err {errs[-1]} / {errs_split[-1]} (split "
+              f"plain version) > {tol32}")
+    x32, x4616 = xs[t32], xs[t]
     route32 = lambda xx: F.linear(F.gelu(F.linear(xx, w1f, b1f)), w2f, b2f)
     rows["fused_mlp_f32"] = dict(
         source="reverso_tpu_torch/csrc/fused_mlp.cu",
         replaces="reverso_tpu/ops/fused_mlp.py:63",
-        max_abs_err=err, shape="T=1154 1024->4096->1024 fp32 gelu on the CUDA cores "
-                              "(depth-2 tower parity)",
-        ms=cuda_ms(lambda: fused_mlp(x32, w1f, b1f, w2f, b2f, act="gelu")),
+        max_abs_err=max(errs), max_abs_err_split_plain=max(errs_split),
+        shape="T=1154 1024->4096->1024 fp32 gelu on the split GEMMs (depth-2 tower parity)",
+        ms=cuda_ms(lambda: fused_mlp(x32, w1f, b1f, w2f, b2f, act="gelu", parts=parts)),
         plain_ms=cuda_ms(lambda: mlp_ref(x32, w1f, b1f, w2f, b2f, act="gelu")),
+        split_plain_ms=cuda_ms(lambda: mlp_split_ref(x32, w1f, b1f, w2f, b2f, act="gelu")),
         library="none: no single PyTorch call", library_ms=None,
         library_route="F.linear, F.gelu, F.linear (cuBLAS fp32, three calls)",
-        library_route_ms=cuda_ms(lambda: route32(x32)))
-    rows["fused_mlp_f32"]["bound_ms"], rows["fused_mlp_f32"]["bound_by"] = bound(
-        (2 * t32 * w + 2 * hid * w + hid + w) * 4, 4 * t32 * w * hid, "float32_split")
-    print(f"fused_mlp fp32: max abs err {err} (tol {tol32}); cuBLAS route "
-          f"{rows['fused_mlp_f32']['library_route_ms']:.4f} ms", flush=True)
-    del x, x64, w1, b1, w2, b2, x32, w1f, b1f, w2f, b2f, out
+        library_route_ms=cuda_ms(lambda: route32(x32)),
+        ms_weights_split_per_call=cuda_ms(lambda: fused_mlp(x32, w1f, b1f, w2f, b2f)),
+        ms_t4616=cuda_ms(lambda: fused_mlp(x4616, w1f, b1f, w2f, b2f, parts=parts)),
+        library_route_ms_t4616=cuda_ms(lambda: route32(x4616)),
+        bound_ms_t4616=mlp_bound(t, w, hid, 4, "float32_split")[0])
+    rows["fused_mlp_f32"]["bound_ms"], rows["fused_mlp_f32"]["bound_by"] = mlp_bound(
+        t32, w, hid, 4, "float32_split")
+    r = rows["fused_mlp_f32"]
+    print(f"fused_mlp fp32 (split GEMMs): max abs err {errs} against the fp32 plain version, "
+          f"{errs_split} against the split plain version (tol {tol32}); cuBLAS route "
+          f"{r['library_route_ms']:.4f} ms; T=4616: {r['ms_t4616']:.4f} ms (cuBLAS route "
+          f"{r['library_route_ms_t4616']:.4f}, bound {r['bound_ms_t4616']:.4f})", flush=True)
+
+    # the split pass (K4 fp32's operands): W1's parts at PE-L14's 4096 x
+    # 1024, equal bit for bit to the plain version's
+    n0 = kernels.launches["split_parts"]
+    out = split_parts(w1f, 3)
+    check(kernels.launches["split_parts"] == n0 + 1, "split_parts: not the kernel")
+    err = max_err(out, split_parts_ref(w1f, 3))
+    check(err == 0.0, f"split_parts: {err} from its plain version")
+    rows["split_parts"] = dict(
+        source="reverso_tpu_torch/csrc/fused_mlp.cu",
+        replaces="reverso_tpu/ops/fused_mlp.py:63",
+        max_abs_err=err, shape="4096 x 1024 fp32 -> 3 bf16 parts (W1 of PE-L14)",
+        ms=cuda_ms(lambda: split_parts(w1f, 3), iters=20),
+        plain_ms=cuda_ms(lambda: split_parts_ref(w1f, 3)),
+        library="none: no single PyTorch call (three casts and two subtractions)",
+        library_ms=None)
+    rows["split_parts"]["bound_ms"], rows["split_parts"]["bound_by"] = bound(
+        hid * w * (4 + 3 * 2), hid * w * 5, "float32")
+    del x, x64, w1, b1, w2, b2, x32, x4616, xs, w1f, b1f, w2f, b2f, out, parts
 
     # K1: 1M x 1024 bf16 (n_valid 1,000,000 of 1,048,576 rows), Q=256, k=10
     db = torch.randn(1 << 20, w, generator=gen, device=dev)
@@ -754,14 +845,17 @@ def attention_edge_checks(torch, gen) -> None:
     """K3 and K7 at ragged and edge shapes against their plain versions:
     S in {1, 63, 64, 65, 129}, kv_valid in {1, 63, 64, 65, S - 1} and 0
     (NaN, as the plain versions), head dims 16, 32, 64, 96, 128, S_kv !=
-    S_q, B * H = 1 and 1024; bf16 on the tensor-core kernel, K7 also at
-    head dims 6, 40 and 72 (padded to a multiple of 16: the lanes' copy,
-    TMA past the row's end); the same K7 shapes in fp32 on the split mode
-    at the 2e-5 gate."""
+    S_q, B * H = 1 and 1024; bf16 on the tensor-core kernel, K3 also at
+    head dims 20, 24, 40 and 72 and at bases one element into their
+    buffers (the lanes' copy, rotating K as they load it), K7 also at head
+    dims 6, 40 and 72 (padded to a multiple of 16: the lanes' copy, TMA
+    past the row's end); the same K3 and K7 shapes in fp32 on the split
+    mode at the 2e-5 gate, K3's also against its split plain version."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (attention_ref, flash_attention,
                                                   flash_attention_heads,
-                                                  flash_attention_heads_ref)
+                                                  flash_attention_heads_ref,
+                                                  flash_attention_heads_split_ref)
 
     bf16, tol, tol32 = torch.bfloat16, 2e-2, 2e-5
 
@@ -776,22 +870,39 @@ def attention_edge_checks(torch, gen) -> None:
         check(err <= tol, f"{what}: max abs err {err} > {tol}")
         return err
 
-    # (B, S, W, heads, kv_valid, RoPE)
+    # (B, S, W, heads, kv_valid, RoPE); at head dims 20, 24, 40 and 72 the
+    # bf16 core takes the lanes' copy, as every case does once more one
+    # element into its buffers
     heads_cases = ([(1, n, 128, 2, None, True) for n in (1, 63, 64, 65, 129)]
                    + [(2, 129, 128, 2, kv, True) for kv in (1, 63, 64, 65, 128, 0)]
                    + [(2, 129, 4 * hd, 4, 100, hd != 32) for hd in (16, 32, 64, 96, 128)]
-                   + [(1, 65, 64, 1, None, True), (64, 65, 1024, 16, None, True)])
-    errs = []
-    for b, s, w, heads, kv, rope in heads_cases:
-        q, k, v = randn(b, s, w), randn(b, s, w), randn(b, s, w)
-        cos, sin = rope_tables(s, w // heads) if rope else (None, None)
-        kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv)
-        t0 = kernels.launches["flash_heads_tc"]
-        out = flash_attention_heads(q, k, v, **kw)
-        check(kernels.launches["flash_heads_tc"] == t0 + 1,
-              f"flash_heads {(b, s, w, heads)}: not the tensor-core kernel")
-        errs.append(close(out, flash_attention_heads_ref(q, k, v, **kw),
-                          f"flash_heads B={b} S={s} W={w} heads={heads} kv_valid={kv}"))
+                   + [(1, 65, 64, 1, None, True), (64, 65, 1024, 16, None, True)]
+                   + [(2, 129, 80, 4, 100, True), (1, 65, 96, 4, None, False),
+                      (2, 129, 160, 4, 64, True), (1, 37, 288, 4, 30, True),
+                      (8, 577, 1280, 16, None, True)])
+    errs, errs32 = [], []
+    for dtype in (bf16, torch.float32):
+        counter = "flash_heads_tc" if dtype == bf16 else "flash_heads_split"
+        for b, s, w, heads, kv, rope in heads_cases:
+            q, k, v = (randn(b, s, w, dtype=dtype) for _ in range(3))
+            cos, sin = rope_tables(s, w // heads) if rope else (None, None)
+            kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv)
+            what = f"flash_heads B={b} S={s} W={w} heads={heads} kv_valid={kv} {dtype}"
+            ref = flash_attention_heads_ref(q, k, v, **kw)
+            t0 = kernels.launches[counter]
+            outs = [flash_attention_heads(q, k, v, **kw),
+                    flash_attention_heads(*(offset_copy(torch, t) for t in (q, k, v)), **kw)]
+            check(kernels.launches[counter] == t0 + 2, f"{what}: not {counter}")
+            for out in outs:
+                if dtype == bf16:
+                    errs.append(close(out, ref, what))
+                else:
+                    errs32.append(close(out, ref, what, tol32))
+                    close(out, flash_attention_heads_split_ref(q, k, v, **kw),
+                          f"{what} (split plain version)", tol32)
+            if dtype == bf16 and w // heads % 16 == 0:   # the copy route computes TMA's values
+                check(torch.equal(torch.nan_to_num(outs[0]), torch.nan_to_num(outs[1])),
+                      f"{what}: the copy route differs from the TMA route")
     # (B, H, S_q, S_kv, D, kv_valid)
     attn_cases = ([(1, 2, n, n, 64, None) for n in (1, 63, 64, 65, 129)]
                   + [(1, 2, 129, 129, 64, kv) for kv in (1, 63, 64, 65, 128, 0)]
@@ -800,7 +911,6 @@ def attention_edge_checks(torch, gen) -> None:
                      (1, 1, 65, 65, 64, None), (64, 16, 65, 65, 64, None),
                      (1, 4, 200, 131, 6, 100), (1, 2, 129, 129, 40, 100),
                      (1, 2, 129, 129, 72, 65)])
-    errs32 = []
     for dtype in (bf16, torch.float32):
         for b, h, sq, skv, d, kv in attn_cases:
             q, k, v = (randn(b, h, n, d, dtype=dtype) for n in (sq, skv, skv))
@@ -814,9 +924,10 @@ def attention_edge_checks(torch, gen) -> None:
                 f"flash_attn B={b} H={h} Sq={sq} Skv={skv} D={d} kv_valid={kv} {dtype}",
                 tol if dtype == bf16 else tol32))
     torch.cuda.synchronize()
-    print(f"attention edge cases: {len(heads_cases)} heads-in-lanes and {len(attn_cases)} "
-          f"[B, H, S, D] shapes within {tol}, max abs err {max(errs)}; the [B, H, S, D] "
-          f"shapes in fp32 (split mode) within {tol32}, max abs err {max(errs32)}", flush=True)
+    print(f"attention edge cases: {len(heads_cases)} heads-in-lanes shapes (each also at "
+          f"unaligned bases) and {len(attn_cases)} [B, H, S, D] shapes within {tol}, max abs "
+          f"err {max(errs)}; the same shapes in fp32 (split mode) within {tol32}, max abs err "
+          f"{max(errs32)}", flush=True)
 
 
 def int8_kernel_checks(torch, gen):
@@ -983,8 +1094,9 @@ def tower_check() -> dict:
     kernels.reset_counts()
     gpu = gpu_enc.encode_image(imgs)
     launches = dict(kernels.launches)
-    check(launches["flash_heads"] == cfg.depth and launches["flash_heads_tc"] == 0,
-          "the fp32 tower's attention did not take the CUDA-core kernel")
+    check(launches["flash_heads"] == launches["flash_heads_split"] == cfg.depth
+          and launches["fused_mlp"] == launches["fused_mlp_split"] == cfg.depth,
+          "the fp32 tower's attention and MLP did not take the split routes")
     cpu = cpu_enc.encode_image(imgs)
     err = float(np.abs(gpu - cpu).max())
     cos = float((gpu * cpu).sum(1).min())
@@ -1067,14 +1179,68 @@ def vit_long_bf16() -> dict:
     with torch.inference_mode():
         fwd_ms = sync_ms(torch, lambda: enc.module(x))
     del enc
+    # the fp32 reference forward: K7 on the split mode, K4 on the split GEMMs
+    # at T = 8 * 1297, counted by shape
+    kernels.reset_counts()
     f32 = PerceptionEncoder(dataclasses.replace(cfg, dtype="float32"), seed=8,
                             device="cuda").encode_image(imgs)
+    f32_launches = dict(kernels.launches)
+    f32_shapes = {key: n for key, n in kernels.shape_launches.items()
+                  if key[0] == "fused_mlp_split"}
+    check(f32_launches["fused_mlp_split"] == 24 and f32_launches["flash_attn_split"] == 24,
+          f"PE-L14 504 px fp32: launches {f32_launches}")
     cos = (emb * f32).sum(1)
     print(f"vit 504 px (S=1297) bf16 full depth, B=8: min cosine vs fp32 {float(cos.min())}, "
-          f"mean {float(cos.mean())}; forward {fwd_ms:.3f} ms; launches {launches}", flush=True)
+          f"mean {float(cos.mean())}; forward {fwd_ms:.3f} ms; launches {launches}; the fp32 "
+          f"forward's K4 by shape {[(key[1], n) for key, n in f32_shapes.items()]}", flush=True)
     check(emb.shape == (8, cfg.embed_dim) and np.isfinite(emb).all(), "vit 504 bf16 shape")
     check(float(cos.min()) >= 0.99, f"vit 504 bf16 drifts from fp32: {cos.min()}")
-    return launches
+    return launches, f32_shapes
+
+
+def vit_f32_full() -> tuple:
+    """PE-Core-L14-336 in fp32 (the parity mode) at full width and depth, B
+    = 8, seeded random init: every block's attention on the split mode
+    with RoPE (K3 fp32) and every MLP on the split GEMMs (K4 fp32), the
+    weights' parts made once by the split pass. One forward through
+    `encode_image` is the path (launches by shape), then one profiled
+    forward of the tower; held against the bf16 tower of the same seed
+    and weights (min cosine). Returns the path's launches and shapes."""
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+
+    cfg = dataclasses.replace(MODEL_PRESETS["PE-Core-L14-336"], dtype="float32")
+    check(cfg.seq_len == 577 and cfg.depth == 24 and cfg.width == 1024,
+          f"PE-L14-336: S {cfg.seq_len}, depth {cfg.depth}, width {cfg.width}")
+    imgs = np.random.default_rng(11).standard_normal((8, 336, 336, 3)).astype(np.float32)
+    enc = PerceptionEncoder(cfg, seed=12, device="cuda")
+    kernels.reset_counts()
+    emb = enc.encode_image(imgs)
+    launches = dict(kernels.launches)
+    shapes = {key: n for key, n in kernels.shape_launches.items()
+              if key[0] in ("fused_mlp_split", "flash_heads_split")}
+    check(shapes == {("flash_heads_split", (8, 577, 1024, 16)): 24,
+                     ("fused_mlp_split", (4616, 1024, 4096)): 24}
+          and launches["flash_heads"] == launches["fused_mlp"] == 24
+          and launches["split_parts"] == 48,
+          f"PE-L14 fp32 B=8: launches {launches}, by shape {shapes}")
+    check(emb.shape == (8, cfg.embed_dim) and np.isfinite(emb).all(), "PE-L14 fp32 shape")
+    x = torch.from_numpy(imgs).cuda()
+    with torch.inference_mode():
+        prof = profiled(torch, lambda: enc.module(x))
+    del enc
+    bf = PerceptionEncoder(dataclasses.replace(cfg, dtype="bfloat16"), seed=12,
+                           device="cuda").encode_image(imgs)
+    cos = (emb * bf).sum(1)
+    print(f"PE-L14-336 fp32 full depth, B=8: forward {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['busy_share']:.4f}; {json.dumps(prof)}; min cosine vs bf16 "
+          f"{float(cos.min())}, mean {float(cos.mean())}; launches by shape "
+          f"{[(key, n) for key, n in shapes.items()]}, split pass {launches['split_parts']}",
+          flush=True)
+    check(float(cos.min()) >= 0.99, f"PE-L14 fp32 drifts from bf16: {cos.min()}")
+    return launches, shapes
 
 
 def write_vocab(path: str) -> None:
@@ -1395,6 +1561,43 @@ def k5_path_shapes(torch, shape_launches: dict) -> list:
     return out
 
 
+def f32_path_shapes(torch, shape_launches: dict, tower_launches: dict) -> tuple:
+    """K4 and K3 in fp32 at each shape their paths ran them at: the
+    full-depth fp32 forward (B = 8, T = 4616), the 504 px fp32 reference
+    (K4 at T = 10,376) and the depth-2 parity tower (B = 2, T = 1154; its
+    launches from `tower_launches`), each timed on seeded inputs of that
+    shape (K4 with its weights' parts made once, as the tower does)."""
+    from reverso_tpu_torch.ops.attention import flash_attention_heads
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, split_mlp_weights
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    randn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale
+    counts = dict(shape_launches)
+    counts[("fused_mlp_split", (2 * 577, 1024, 4096))] = tower_launches["fused_mlp_split"]
+    counts[("flash_heads_split", (2, 577, 1024, 16))] = tower_launches["flash_heads_split"]
+    mlp, heads = [], []
+    for (name, shape), n in sorted(counts.items()):
+        if name == "fused_mlp_split":
+            t, w, hid = shape
+            w1, b1 = randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.02)
+            w2, b2 = randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.02)
+            parts, x = split_mlp_weights(w1, w2), randn(t, w)
+            mlp.append(dict(shape=f"T={t} W={w} H={hid} fp32", launches=n,
+                            ms=cuda_ms(lambda: fused_mlp(x, w1, b1, w2, b2, parts=parts)),
+                            bound_ms=mlp_bound(t, w, hid, 4, "float32_split")[0]))
+        else:
+            b, s, w, h = shape
+            cos, sin = (torch.from_numpy(a).cuda()
+                        for a in rope_2d_tables(int(np.sqrt(s - 1)), w // h))
+            q, k, v = randn(b, s, w), randn(b, s, w), randn(b, s, w)
+            heads.append(dict(shape=f"B={b} S={s} W={w} H={h} fp32 RoPE", launches=n,
+                              ms=cuda_ms(lambda: flash_attention_heads(q, k, v, heads=h,
+                                                                       cos=cos, sin=sin)),
+                              bound_ms=heads_bound(b, s, w, h, 4, "float32_split")[0]))
+    return mlp, heads
+
+
 def k8_path_shapes(torch, shape_launches: dict, inputs: dict) -> list:
     """K8 at each shape the region path ran it at, on that path's own
     inputs (the first call at each shape, captured by `captured_deform`):
@@ -1523,7 +1726,7 @@ def make_photos(folder: str, n: int, seed: int) -> None:
 REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused_mlp": 6,
               "fused_mlp_int8": 7, "ms_deform": 7, "topk_stream": 8, "topk_masked": 8,
               "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9, "flash_attn_f32": 10,
-              "flash_attn_relbias_f32": 10}
+              "flash_attn_relbias_f32": 10, "fused_mlp_f32": 11, "flash_heads_f32": 11}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE"}
 
@@ -1540,11 +1743,11 @@ def sync_ms(torch, fn, iters: int = 3) -> float:
 
 # kernel-name patterns of device time, in match order
 KERNEL_GROUPS = (("ms_deform (K8)", "ms_deform"),
-                 ("flash_tc (K3/K6/K7, tensor cores)", "flash_tc"),
-                 ("flash_heads (K3, CUDA cores)", "flash_heads"),
+                 ("flash_tc (K3/K6/K7, tensor cores: bf16 and split mode)", "flash_tc"),
                  ("fused_mlp_wgmma (K4, tensor cores)", "fused_mlp_wgmma"),
+                 ("fused_mlp_split (K4 fp32, split GEMMs)", "fused_mlp_split"),
+                 ("split_parts (K4 fp32: the split pass)", "split_parts"),
                  ("fused_mlp_int8 (K5: q8 quantizer, GEMMs)", "mlp_q8"),
-                 ("fused_mlp (K4, CUDA cores)", "fused_mlp"),
                  ("topk (K1, K2, K9-K12)", "topk"), ("convolution", "conv"),
                  ("matmul", "gemm"), ("matmul", "cutlass"), ("matmul", "nvjet"),
                  ("matmul", "Kernel2"))
@@ -2246,7 +2449,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     tower_launches = phase("tower parity", tower_check)
     long_launches = phase("vit 504 parity", vit_long_check)
-    long_bf16_launches = phase("vit 504 bf16 full depth", vit_long_bf16)
+    long_bf16_launches, long_f32_shapes = phase("vit 504 bf16 full depth", vit_long_bf16)
+    torch.cuda.empty_cache()
+    f32_launches, f32_shapes = phase("PE-L14-336 fp32 full depth", vit_f32_full)
+    rows["fused_mlp_f32"]["by_shape"], rows["flash_heads_f32"]["by_shape"] = phase(
+        "K3 and K4 fp32 at their paths' shapes", f32_path_shapes, torch,
+        {**f32_shapes, **long_f32_shapes}, tower_launches)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         sam_split_launches = phase("detector parity", detector_parity, root)
@@ -2275,12 +2483,13 @@ def main() -> int:
     # phase 4); K1 on fp32 rows counts its launches over every phase that
     # drives a path (each read just after the counts were set to 0)
     path_runs = (two_stage_launches, tower_launches, long_launches, long_bf16_launches,
-                 sam_split_launches, direct_launches, int8_launches, region_launches,
-                 roi_launches, capacity_launches)
+                 f32_launches, sam_split_launches, direct_launches, int8_launches,
+                 region_launches, roi_launches, capacity_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"],
-               "flash_heads_f32": tower_launches["flash_heads"],
+               "flash_heads_f32": f32_launches["flash_heads_split"],
                "fused_mlp": direct_launches["fused_mlp_tc"],
-               "fused_mlp_f32": tower_launches["fused_mlp"],
+               "fused_mlp_f32": f32_launches["fused_mlp_split"],
+               "split_parts": f32_launches["split_parts"],
                "topk_stream": direct_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
                "flash_attn_f32": long_launches["flash_attn_split"],
@@ -2296,14 +2505,15 @@ def main() -> int:
                "topk_int8_rows": two_stage_launches["topk_int8_rows"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
-    for name in ("fused_mlp_int8", "ms_deform", "topk_stream", "topk_masked", "topk_int8",
-                 "topk_binary", "topk_int8_rows"):
+    for name in ("fused_mlp_f32", "flash_heads_f32", "fused_mlp_int8", "ms_deform",
+                 "topk_stream", "topk_masked", "topk_int8", "topk_binary", "topk_int8_rows"):
         print(f"{name} at its path's shapes: {json.dumps(rows[name]['by_shape'])}", flush=True)
 
     # the order to redesign kernels in: first those one PyTorch call beats,
     # by how many times; then the rest by launches x (ms - bound_ms), summed
     # over the shapes a path ran a kernel at where the run timed each
-    # (`by_shape`: K1, K2, K5, K8, K9, K10, K12), else at the row's shape. Listed apart: rows
+    # (`by_shape`: K1, K2, K3 fp32, K4 fp32, K5, K8, K9, K10, K12), else at
+    # the row's shape. Listed apart: rows
     # already redesigned; rows whose library call computes another function
     # are ranked by cost only
     def cost(name):

@@ -1,9 +1,9 @@
 // One flash-attention core on Hopper's tensor cores, shared by the
 // [B, H, S, D] kernel (K7, flash_attn.cu), the heads-in-lanes kernel with
 // 2D RoPE (K3, flash_heads.cu), the [B, H, S, D] kernel with SAM's
-// decomposed relative-position bias (K6, flash_attn.cu), and both
-// [B, H, S, D] kernels with fp32 operands (the split mode,
-// flash_attn_split.cu).
+// decomposed relative-position bias (K6, flash_attn.cu), and all three
+// with fp32 operands (the split mode, flash_attn_split.cu and
+// flash_heads_split.cu).
 //
 // Contract (reverso_tpu/ops/attention.py:48-75, :131-200 and :337-403):
 // non-causal attention with fp32 accumulation; keys at or past kv_valid
@@ -50,7 +50,9 @@
 //     q rows once in the prologue, and the four producer warps load (and
 //     split) each K and V tile into its stage, fence the async proxy and
 //     arrive on the stage's full barrier while the consumers work on
-//     earlier stages; keys past kv_valid are never read (zeros);
+//     earlier stages; keys past kv_valid are never read (zeros). Heads in
+//     lanes read one head's rows straight out of [B, S, W] (row stride W,
+//     the head's first column h * d);
 //   * the maps are 3-D ([BH, S, D] for K6/K7, [B, S, W] for K3 with a box
 //     of one head's columns), so a tile past a head's last row is
 //     zero-filled by the hardware and never reads the next head; the ragged
@@ -69,11 +71,16 @@
 //   * tiles are stored in swizzle atoms of 64, 32 or 16 columns (128-, 64-
 //     or 32-byte swizzle, the widest that divides D): D = 96 is three
 //     32-column atoms, D = 16 one 16-column atom;
-//   * with RoPE, each consumer warpgroup rotates its q rows once in the
-//     prologue, and producer warps 1-3 take the landed K tiles in turn and
-//     rotate each in place (fp32 math, bf16 result) before they arrive on
-//     the stage's "rotated" barrier, while the consumers work on earlier
-//     tiles; warp 0 only starts TMA loads, so no load waits on a rotation;
+//   * with RoPE through TMA, each consumer warpgroup rotates its q rows
+//     once in the prologue, and producer warps 1-3 take the landed K tiles
+//     in turn and rotate each in place (fp32 math, bf16 result) before
+//     they arrive on the stage's "rotated" barrier, while the consumers
+//     work on earlier tiles; warp 0 only starts TMA loads, so no load
+//     waits on a rotation. In the lane modes the lanes rotate each element
+//     as they load it, against its partner d / 4 away and the tables' row,
+//     in fp32, then round it once to bf16 (copy) or split it (split: q
+//     rotated, times the scale, then split, as the TPU kernel rotates in
+//     fp32 before its HIGHEST products);
 //   * with the bias at G == BK (SAM's G = 64), a BK-key tile is one row of the key
 //     lattice, so the bw terms of a thread's 16 columns are the same in
 //     every tile: they sit in shared memory (which keeps the kernel within
@@ -276,45 +283,30 @@ struct Ops {
     using T = typename std::conditional<OPS == kOpsSplit, float, __nv_bfloat16>::type;
 };
 
-// The split mode's products in issue order, smallest first: term t
-// multiplies part split_part(t, 0) of the A operand by part split_part(t, 1)
-// of B (0 hi, 1 mid, 2 lo). The three smallest, (mid, lo), (lo, mid) and
-// (lo, lo), are left out; the bf16 modes issue the last, (hi, hi), alone.
-constexpr int kSplitTerms = 6;
-
-__host__ __device__ constexpr int split_part(int t, int operand) {
-    constexpr int terms[kSplitTerms][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};
-    return terms[t][operand];
-}
-
-// (a, b) split into three bf16 pairs (each packed low then high): hi =
-// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); the subtractions
-// are exact, and not contracted into anything else
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float ra = __fsub_rn(a, __low2float(h)), rb = __fsub_rn(b, __high2float(h));
-    const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(ra, __low2float(m)),
-                                                   __fsub_rn(rb, __high2float(m)));
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    mid = *reinterpret_cast<const uint32_t*>(&m);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// eight elements from device memory as fp32: one 16-byte load of bf16 or
-// two of fp32 (16-byte aligned)
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+// One 8-column unit (8 values of a row) into its place in PARTS swizzled
+// bf16 tiles (part p at out + p * PART): times `mul` and split into hi,
+// mid and lo (PARTS = 3), or rounded once to bf16 (PARTS = 1; times `mul`
+// where SCALE says so)
+template <int PARTS, bool SCALE, uint32_t PART>
+__device__ __forceinline__ void store_unit(uint8_t* out, float (&x)[8], float mul) {
+    if constexpr (PARTS == 3) {
+        uint4 hi, mid, lo;
+        split2(__fmul_rn(x[0], mul), __fmul_rn(x[1], mul), hi.x, mid.x, lo.x);
+        split2(__fmul_rn(x[2], mul), __fmul_rn(x[3], mul), hi.y, mid.y, lo.y);
+        split2(__fmul_rn(x[4], mul), __fmul_rn(x[5], mul), hi.z, mid.z, lo.z);
+        split2(__fmul_rn(x[6], mul), __fmul_rn(x[7], mul), hi.w, mid.w, lo.w);
+        *reinterpret_cast<uint4*>(out) = hi;
+        *reinterpret_cast<uint4*>(out + PART) = mid;
+        *reinterpret_cast<uint4*>(out + 2 * PART) = lo;
+    } else {
+        if constexpr (SCALE) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(h[e]);
+            for (int e = 0; e < 8; ++e) x[e] = __fmul_rn(x[e], mul);
+        }
+        *reinterpret_cast<uint4*>(out) =
+            make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]), pack_bf16(x[4], x[5]),
+                       pack_bf16(x[6], x[7]));
+    }
 }
 
 // The lane modes' loads: rows [0, n_rows) of NTILES tiles of ROWS x HD
@@ -355,22 +347,90 @@ __device__ __forceinline__ void lane_tiles(uint8_t* dst0, uint8_t* dst1, const T
             const int u = tid + (it0 + b) * NT;
             if (u >= NTILES * UNITS) continue;
             const int w = u % UNITS, r = w / CPR, c = (w % CPR) * 8;
-            uint8_t* out = (u < UNITS ? dst0 : dst1) + tile_offset<HD>(ROWS, r, c);
-            if constexpr (PARTS == 3) {
-                uint4 hi, mid, lo;
-                split2(__fmul_rn(x[b][0], mul), __fmul_rn(x[b][1], mul), hi.x, mid.x, lo.x);
-                split2(__fmul_rn(x[b][2], mul), __fmul_rn(x[b][3], mul), hi.y, mid.y, lo.y);
-                split2(__fmul_rn(x[b][4], mul), __fmul_rn(x[b][5], mul), hi.z, mid.z, lo.z);
-                split2(__fmul_rn(x[b][6], mul), __fmul_rn(x[b][7], mul), hi.w, mid.w, lo.w);
-                *reinterpret_cast<uint4*>(out) = hi;
-                *reinterpret_cast<uint4*>(out + PART) = mid;
-                *reinterpret_cast<uint4*>(out + 2 * PART) = lo;
-            } else {
-                *reinterpret_cast<uint4*>(out) =
-                    make_uint4(pack_bf16(x[b][0], x[b][1]), pack_bf16(x[b][2], x[b][3]),
-                               pack_bf16(x[b][4], x[b][5]), pack_bf16(x[b][6], x[b][7]));
+            store_unit<PARTS, false, PART>((u < UNITS ? dst0 : dst1) + tile_offset<HD>(ROWS, r, c),
+                                           x[b], mul);
+        }
+    }
+}
+
+// The lane modes' loads with RoPE: rows [0, n_rows) of one tile (q, or K)
+// rotated as they load by the 2D RoPE tables' rows trow0.. ([S, d] fp32,
+// 16-byte aligned): the quarter-split axial rotate [a, b | c, e] -> x *
+// cos + [-b, a | -e, c] * sin in fp32, each product and the sum rounded
+// on its own as the plain version computes them, then times `mul` and
+// split (PARTS = 3) or rounded once to bf16. The partner of column col is
+// col + d / 4 in quarters 0 and 2, col - d / 4 in 1 and 3. Where the head
+// fills HD, its quarters are whole 8-column units and the rows are
+// 16-byte aligned, a unit's partner is the unit d / 4 away: each thread
+// loads two units with their partners and table values (16-byte loads)
+// before it computes either. Elsewhere (padded head dims, unaligned rows)
+// each element reads its own partner and table values.
+template <typename T, int PARTS, int HD, int ROWS, int NT>
+__device__ __forceinline__ void lane_tile_rope(uint8_t* dst, const T* src, int ld, int n_rows,
+                                               int d, float mul, bool vec, int tid,
+                                               const float* __restrict__ cos_t,
+                                               const float* __restrict__ sin_t, int trow0) {
+    constexpr int CPR = HD / 8;                 // units a row
+    constexpr int UNITS = ROWS * CPR;           // units a tile
+    constexpr int ITERS = (UNITS + NT - 1) / NT;
+    constexpr int BATCH = ITERS < 2 ? ITERS : 2;
+    constexpr int QH = HD / 4;
+    constexpr uint32_t PART = ROWS * HD * 2;
+    if (QH % 8 == 0 && d == HD && vec) {
+#pragma unroll 1
+        for (int it0 = 0; it0 < ITERS; it0 += BATCH) {
+            float x[BATCH][8], pr[BATCH][8], cs[BATCH][8], sn[BATCH][8];
+#pragma unroll
+            for (int b = 0; b < BATCH; ++b) {
+                const int u = tid + (it0 + b) * NT;
+                const int r = u / CPR, c = (u % CPR) * 8;
+                const int pc = (c / QH) % 2 == 0 ? c + QH : c - QH;
+                if (u < UNITS && r < n_rows) {
+                    const T* row = src + (size_t)r * ld;
+                    const size_t t = (size_t)(trow0 + r) * HD + c;
+                    load8(row + c, x[b]);
+                    load8(row + pc, pr[b]);
+                    load8(cos_t + t, cs[b]);
+                    load8(sin_t + t, sn[b]);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) x[b][e] = pr[b][e] = cs[b][e] = sn[b][e] = 0.f;
+                }
+            }
+#pragma unroll
+            for (int b = 0; b < BATCH; ++b) {
+                const int u = tid + (it0 + b) * NT;
+                if (u >= UNITS) continue;
+                const int r = u / CPR, c = (u % CPR) * 8;
+                const bool lower = (c / QH) % 2 == 0;
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                    x[b][e] = __fadd_rn(__fmul_rn(x[b][e], cs[b][e]),
+                                        __fmul_rn(lower ? -pr[b][e] : pr[b][e], sn[b][e]));
+                store_unit<PARTS, true, PART>(dst + tile_offset<HD>(ROWS, r, c), x[b], mul);
             }
         }
+        return;
+    }
+    const int qh = d / 4;
+#pragma unroll 1
+    for (int u = tid; u < UNITS; u += NT) {
+        const int r = u / CPR, c = (u % CPR) * 8;
+        float x[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const int col = c + e;
+            x[e] = 0.f;
+            if (r < n_rows && col < d) {
+                const T* row = src + (size_t)r * ld;
+                const bool lower = (col / qh) % 2 == 0;
+                const float partner = to_f<T>(row[lower ? col + qh : col - qh]);
+                const size_t t = (size_t)(trow0 + r) * d + col;
+                x[e] = __fadd_rn(__fmul_rn(to_f<T>(row[col]), __ldg(cos_t + t)),
+                                 __fmul_rn(lower ? -partner : partner, __ldg(sin_t + t)));
+            }
+        }
+        store_unit<PARTS, true, PART>(dst + tile_offset<HD>(ROWS, r, c), x, mul);
     }
 }
 
@@ -703,11 +763,12 @@ __device__ __forceinline__ void load_kv(int j, uint8_t* ks, uint8_t* vs, uint64_
 // consumer warpgroup (64 query rows) per CTA and a ring of four stages:
 // twice the CTAs of 128-row tiles fill the 132 SMs more evenly. With RoPE
 // two consumer warpgroups (128 rows) share each K tile's rotation, which
-// halves the RoPE pass's table reads per query row, and a ring of six
-// stages gives the three rotating warps room to run ahead. The ring's
-// depth is a multiple of the rotating warps, so each warp owns the same
-// stages throughout and waits on every phase of their barriers in order
-// (a parity wait cannot tell a phase from the one two before it). The
+// halves the RoPE pass's table reads per query row, and, through TMA, a
+// ring of six stages gives the three rotating warps room to run ahead. The
+// ring's depth is a multiple of the rotating warps, so each warp owns the
+// same stages throughout and waits on every phase of their barriers in
+// order (a parity wait cannot tell a phase from the one two before it).
+// The lanes' copy with RoPE keeps four stages, the split mode its own. The
 // split mode keeps three bf16 parts of every tile: at HD <= 64 two
 // consumer warpgroups share each split K/V tile (half the split pass per
 // query row; one warpgroup measured 1.4x slower); at HD > 64 one
@@ -718,13 +779,15 @@ __device__ __forceinline__ void load_kv(int j, uint8_t* ks, uint8_t* vs, uint64_
 // warpgroup hands registers to the consumers (setmaxnreg), which hold o, a
 // tile's PV product, the scores and p's three parts; the lanes keep 120
 // (136 at HD = 48, whose 6-unit rows take more address registers), enough
-// for a batch of eight 8-column loads without spills.
+// for a batch of eight 8-column loads without spills (with RoPE a batch of
+// two units, each with its partner and table values).
 constexpr int kBK = 64;
 template <int HD, bool ROPE, int OPS> struct Tiles {
     static constexpr bool SPLIT = OPS == kOpsSplit;
+    static constexpr bool ROTATING_WARPS = ROPE && OPS == kOpsTma;   // K tiles rotated in place
     static constexpr int BK = SPLIT && HD > 64 ? 32 : kBK;
-    static constexpr int NWG = ROPE || (SPLIT && HD <= 64) ? 2 : 1;
-    static constexpr int STAGES = ROPE ? 6 : SPLIT ? 3 : 4;
+    static constexpr int NWG = SPLIT ? (HD <= 64 ? 2 : 1) : ROPE ? 2 : 1;
+    static constexpr int STAGES = ROTATING_WARPS ? 6 : SPLIT ? 3 : 4;
     static constexpr int PRODUCER_REGS = SPLIT && NWG == 2 ? (HD % 32 ? 136 : 120) : 0;
 };
 
@@ -758,9 +821,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     using L = Smem<HD, BK, NWG, STAGES, BIAS, PARTS>;
     constexpr float kLog2e = 1.4426950408889634f;
     static_assert(HD % 16 == 0 && HD <= 128 && BK % 16 == 0, "tile shape");
-    static_assert(!ROPE || STAGES % kRotWarps == 0, "each rotating warp owns its stages");
+    static_assert(O::LANE_LOADS || !ROPE || STAGES % kRotWarps == 0,
+                  "each rotating warp owns its stages");
     static_assert(!(ROPE && BIAS), "RoPE and the rel-pos bias are separate modes");
-    static_assert(!(ROPE && O::LANE_LOADS), "RoPE takes its tiles through TMA");
     extern __shared__ uint8_t smem_raw[];
     uint8_t* base = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -776,7 +839,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int wg = threadIdx.x / kWgThreads;
     const int tid = threadIdx.x % kWgThreads;
     const int q0 = blockIdx.x * NWG * kQRows;
-    const int col0 = p.lanes ? blockIdx.y * HD : 0;
+    const int col0 = p.lanes ? blockIdx.y * p.d : 0;   // heads in lanes: the head's first column
     const int z = p.lanes ? blockIdx.z : blockIdx.y;
     const int n_tiles = ceil_div(p.kv_valid, BK);
 
@@ -803,10 +866,20 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             for (int j = 0; j < n_tiles; ++j) {
                 const int s = j % STAGES;
                 mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-                const size_t off = ((size_t)z * p.s_kv + (size_t)j * BK) * p.d;
-                lane_tiles<T, PARTS, HD, BK, kWgThreads, 2>(
-                    ks + s * L::KV_BYTES, vs + s * L::KV_BYTES, kp + off, vp + off, p.d,
-                    min(BK, p.kv_valid - j * BK), p.d, 1.f, p.vec != 0, tid);
+                const size_t off = ((size_t)z * p.s_kv + (size_t)j * BK) * p.row_stride + col0;
+                const int n_rows = min(BK, p.kv_valid - j * BK);
+                if constexpr (ROPE) {   // K rotated as it loads, V as it is
+                    lane_tile_rope<T, PARTS, HD, BK, kWgThreads>(
+                        ks + s * L::KV_BYTES, kp + off, p.row_stride, n_rows, p.d, 1.f,
+                        p.vec != 0, tid, p.cos_t, p.sin_t, j * BK);
+                    lane_tiles<T, PARTS, HD, BK, kWgThreads, 1>(
+                        vs + s * L::KV_BYTES, vs + s * L::KV_BYTES, vp + off, vp + off,
+                        p.row_stride, n_rows, p.d, 1.f, p.vec != 0, tid);
+                } else {
+                    lane_tiles<T, PARTS, HD, BK, kWgThreads, 2>(
+                        ks + s * L::KV_BYTES, vs + s * L::KV_BYTES, kp + off, vp + off,
+                        p.row_stride, n_rows, p.d, 1.f, p.vec != 0, tid);
+                }
                 fence_proxy_async();
                 mbar_arrive(&full[s]);
             }
@@ -903,13 +976,19 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         };
 
         if constexpr (O::LANE_LOADS) {
-            // this warpgroup's q rows, loaded (split: times the scale, then
-            // split) once
+            // this warpgroup's q rows, loaded once (with RoPE rotated; split
+            // or with RoPE: times the scale; split: then split)
             const int row0 = q0 + wg * kQRows;
-            const T* src = static_cast<const T*>(p.q_src) + ((size_t)z * p.s_q + row0) * p.d;
-            lane_tiles<T, PARTS, HD, kQRows, kWgThreads, 1>(
-                my_q, my_q, src, src, p.d, min(kQRows, p.s_q - row0), p.d,
-                OPS == kOpsSplit ? p.q_scale : 1.f, p.vec != 0, tid);
+            const T* src =
+                static_cast<const T*>(p.q_src) + ((size_t)z * p.s_q + row0) * p.row_stride + col0;
+            if constexpr (ROPE)
+                lane_tile_rope<T, PARTS, HD, kQRows, kWgThreads>(
+                    my_q, src, p.row_stride, min(kQRows, p.s_q - row0), p.d, p.q_scale,
+                    p.vec != 0, tid, p.cos_t, p.sin_t, row0);
+            else
+                lane_tiles<T, PARTS, HD, kQRows, kWgThreads, 1>(
+                    my_q, my_q, src, src, p.row_stride, min(kQRows, p.s_q - row0), p.d,
+                    OPS == kOpsSplit ? p.q_scale : 1.f, p.vec != 0, tid);
             fence_proxy_async();
             named_bar_sync(1 + wg, kWgThreads);
         } else {
@@ -926,7 +1005,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         auto wait_tile = [&](int j) {
             const uint32_t ph = (j / STAGES) & 1;
             mbar_wait(&full[j % STAGES], ph);
-            if constexpr (ROPE) mbar_wait(&rot[j % STAGES], ph);
+            if constexpr (ROPE && !O::LANE_LOADS) mbar_wait(&rot[j % STAGES], ph);
         };
         auto k_addr = [&](int j) { return smem_addr(ks + (j % STAGES) * L::KV_BYTES); };
         auto v_addr = [&](int j) { return smem_addr(vs + (j % STAGES) * L::KV_BYTES); };
@@ -1087,7 +1166,10 @@ static int launch(const Call& c) {
     p.s_kv = c.s_kv;
     p.kv_valid = c.kv_valid;
     p.d = c.d;
-    p.vec = (c.d * (int)sizeof(T)) % 16 == 0 && aligned16(c.q) && aligned16(c.k) && aligned16(c.v);
+    // 16-byte row loads: the head's columns and the row stride whole 16-byte
+    // units (heads in lanes: the head's first column too), aligned bases
+    p.vec = (c.d * (int)sizeof(T)) % 16 == 0 && (c.d0 * (int)sizeof(T)) % 16 == 0 &&
+            aligned16(c.q) && aligned16(c.k) && aligned16(c.v);
     p.lanes = c.lanes;
     p.row_stride = c.d0;
     p.score_mul = folded ? kLog2e : kLog2e * c.scale;
@@ -1110,14 +1192,19 @@ static int launch_bias(const Call& c) {
 }
 
 // q [Z][s_q][d0], k and v [Z][s_kv][d0] (bf16; fp32 in the split mode);
-// `lanes` = 1 reads head y's d columns at y * d of d0 = W (grid.z = batch,
-// d % 16 == 0), 0 reads d0 = d (grid.y = batch * head, any d <= 128, zero-
-// padded to a multiple of 16 in shared memory). BIASED: bh, bw
-// [Z][s_q][rel_grid] fp32 (lanes = 0). out_f32: the output is fp32, else
-// bf16.
+// `lanes` = 1 reads head y's d columns at y * d of d0 = W (grid.z = batch;
+// d % 16 == 0 through TMA), 0 reads d0 = d (grid.y = batch * head); any d
+// <= 128 is zero-padded to a multiple of 16 in shared memory. ROPE: cos_t,
+// sin_t [s_q][d] fp32, 16-byte aligned, d % 4 == 0 (s_q == s_kv). BIASED:
+// bh, bw [Z][s_q][rel_grid] fp32 (lanes = 0). out_f32: the output is fp32,
+// else bf16.
 template <bool ROPE, int OPS, bool BIASED>
 static int dispatch(const Call& c) {
-    if (c.d <= 0 || c.d > 128 || (c.lanes && c.d % 16)) return kUnsupported;
+    if (c.d <= 0 || c.d > 128 || (c.lanes && OPS == kOpsTma && c.d % 16)) return kUnsupported;
+    // RoPE rotates quarters of the head; the lanes read the tables' rows
+    // 16 bytes at a time
+    if (ROPE && (c.d % 4 || (Ops<OPS>::LANE_LOADS && !(aligned16(c.cos_t) && aligned16(c.sin_t)))))
+        return kUnsupported;
     if (BIASED && (c.lanes || c.rel_grid <= 0 || (long long)c.rel_grid * c.rel_grid < c.kv_valid))
         return kUnsupported;
 #define RV_TC_CASE(HD) \

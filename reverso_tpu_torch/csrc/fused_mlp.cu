@@ -1,256 +1,222 @@
 // Fused transformer MLP: y = act(x @ W1^T + b1) @ W2^T + b2.
 //
 // Replaces: reverso_tpu/ops/fused_mlp.py::_fused_mlp_kernel (entry
-// fused_mlp), the MLP of every ViT block. Weights come in PyTorch Linear
-// layout: W1 [H, W], W2 [W, H].
+// fused_mlp), the MLP of every ViT block, in bf16 and in fp32 (the parity
+// mode, whose products the TPU kernel takes at Precision.HIGHEST), and
+// ::_fused_mlp_int8_kernel (K5, further below). Weights come in PyTorch
+// Linear layout: W1 [H, W], W2 [W, H].
 //
 // What bounds it on the H100: 4 * T * W * H FLOPs (77.4 GFLOP at T = 4616,
 // PE-L14's 1024 -> 4096 -> 1024: 0.078 ms at 989 TFLOP/s) against 2 * T * W
 // activation elements and 2 * W * H weight elements (27.6 MB, 0.008 ms at
 // 3.35 TB/s). So it is compute-bound, and the rate comes from the tensor
-// cores.
+// cores. In fp32 every product is six bf16 products of three-way split
+// operands, so the bound is 989 / 6 = 164.8 TFLOP/s: 0.470 ms at T = 4616.
 //
-// Three kernels, chosen by dtype and shape (ops/fused_mlp.py::mlp_route):
-//   * bf16 with W % 8 == 0 and H % 8 == 0 (every preset): two launches of
-//     one wgmma + TMA GEMM kernel with fused epilogues (rv_fused_mlp_tc,
-//     below), h = bf16(act(x W1^T + b1)) written to a bf16 scratch and read
-//     back by the second product;
-//   * fp32 (the parity mode) and bf16 at other widths (rv_fused_mlp): one
-//     CTA owns BM = 32 rows (16 at wider W) and the full output width in
-//     an fp32 accumulator in shared memory (128 KB at W = 1024); the hidden
-//     dimension streams in 64-wide chunks, each computing h = act(x_tile @
-//     W1[c]^T + b1[c]) with fp32 FMAs on the CUDA cores, rounded to T like
-//     the reference, and adding h @ W2[:, c]^T into the accumulator, so the
-//     [T, H] hidden tensor never reaches HBM;
-//   * the int8 mode (K5, rv_fused_mlp_int8): x quantized per row, then two
-//     s8 wgmma + TMA GEMMs, the first re-quantizing h per (row, 512-wide
-//     chunk) in its epilogue, the second dequantizing per chunk; further
-//     below.
-// gelu is the exact erf form (erff); the reference kernel's A&S polynomial
-// differs from it by at most 1.5e-7 in erf.
+// Three modes, chosen by dtype (ops/fused_mlp.py::mlp_route):
+//   * bf16: two launches of one wgmma + TMA GEMM kernel with fused
+//     epilogues (rv_fused_mlp_tc, below), h = bf16(act(x W1^T + b1))
+//     written to a bf16 scratch and read back by the second product; at a
+//     width or hidden size that is not a multiple of 8 the wrapper pads
+//     x and the weights with the split pass's one-part form
+//     (rv_split_parts) and the GEMMs compute the zero pad along;
+//   * fp32 (the parity mode): the same GEMM kernel on three bf16 parts a
+//     value (rv_fused_mlp_split): the split pass writes x's parts, GEMM 1
+//     writes h's parts straight from its epilogue (no fp32 h reaches
+//     device memory) and GEMM 2 reads them; the weights' parts come from
+//     the split pass once per tower (the model's cache) or per call;
+//   * int8 (K5, rv_fused_mlp_int8): x quantized per row, then two s8
+//     wgmma + TMA GEMMs, the first re-quantizing h per (row, 512-wide
+//     chunk) in its epilogue, the second dequantizing per chunk.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace rv {
 
-constexpr int MLP_THREADS = 256;
-constexpr int MLP_BH = 64;    // hidden chunk
-constexpr int MLP_BK = 32;    // reduction step of the first product
-constexpr int MLP_BN = 128;   // output-column block of the second product
-
 constexpr int kGelu = 0;
 constexpr int kQuickGelu = 1;
 
-__device__ __forceinline__ float mlp_act(float x, int act) {
-    if (act == kGelu) return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-    return x / (1.f + expf(-1.702f * x));   // quick_gelu: x * sigmoid(1.702 x)
-}
-
-template <int BM>
-constexpr size_t mlp_smem_floats_fixed() {
-    return (size_t)BM * MLP_BH + (size_t)BM * (MLP_BK + 1) +
-           (size_t)MLP_BH * (MLP_BK + 1) + (size_t)MLP_BH * (MLP_BN + 1);
-}
-
-template <typename T, int BM>
-__global__ void __launch_bounds__(MLP_THREADS)
-fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                 const T* __restrict__ b1, const T* __restrict__ w2,
-                 const T* __restrict__ b2, T* __restrict__ out, int T_rows,
-                 int W, int H, int act) {
-    constexpr int RM1 = BM / 16;   // rows per thread, first product
-    constexpr int RM2 = BM / 8;    // rows per thread, second product
-    extern __shared__ float smem[];
-    float* acc = smem;                              // [BM][W]
-    float* hs = acc + (size_t)BM * W;               // [BM][BH]
-    float* xs = hs + BM * MLP_BH;                   // [BM][BK+1]
-    float* w1s = xs + BM * (MLP_BK + 1);            // [BH][BK+1]
-    float* w2s = w1s + MLP_BH * (MLP_BK + 1);       // [BH][BN+1]
-
-    const int tid = threadIdx.x;
-    const int row0 = blockIdx.x * BM;
-    const int tr1 = tid / 16, tc1 = tid % 16;
-    const int tr2 = tid / 32, tc2 = tid % 32;
-
-    for (int idx = tid; idx < BM * W; idx += MLP_THREADS) acc[idx] = 0.f;
-
-    for (int c0 = 0; c0 < H; c0 += MLP_BH) {
-        // ---- h = act(x_tile @ W1[c0:c0+BH]^T + b1) -------------------------
-        float hacc[RM1][4];
-#pragma unroll
-        for (int i = 0; i < RM1; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) hacc[i][j] = 0.f;
-        for (int k0 = 0; k0 < W; k0 += MLP_BK) {
-            __syncthreads();
-            for (int idx = tid; idx < BM * MLP_BK; idx += MLP_THREADS) {
-                const int r = idx / MLP_BK, kk = idx % MLP_BK;
-                const int gr = row0 + r, gk = k0 + kk;
-                xs[r * (MLP_BK + 1) + kk] =
-                    (gr < T_rows && gk < W) ? to_f<T>(x[(size_t)gr * W + gk]) : 0.f;
-            }
-            for (int idx = tid; idx < MLP_BH * MLP_BK; idx += MLP_THREADS) {
-                const int c = idx / MLP_BK, kk = idx % MLP_BK;
-                const int gc = c0 + c, gk = k0 + kk;
-                w1s[c * (MLP_BK + 1) + kk] =
-                    (gc < H && gk < W) ? to_f<T>(w1[(size_t)gc * W + gk]) : 0.f;
-            }
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < MLP_BK; ++kk) {
-                float a[RM1], bcol[4];
-#pragma unroll
-                for (int i = 0; i < RM1; ++i) a[i] = xs[(tr1 * RM1 + i) * (MLP_BK + 1) + kk];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) bcol[j] = w1s[(tc1 + 16 * j) * (MLP_BK + 1) + kk];
-#pragma unroll
-                for (int i = 0; i < RM1; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) hacc[i][j] = fmaf(a[i], bcol[j], hacc[i][j]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < RM1; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int c = tc1 + 16 * j;
-                const int gc = c0 + c;
-                float hv = 0.f;
-                if (gc < H) hv = round_t<T>(mlp_act(hacc[i][j] + to_f<T>(b1[gc]), act));
-                hs[(tr1 * RM1 + i) * MLP_BH + c] = hv;
-            }
-
-        // ---- acc += h @ W2[:, c0:c0+BH]^T ----------------------------------
-        for (int nb = 0; nb < W; nb += MLP_BN) {
-            __syncthreads();   // hs written / previous w2s consumed
-            for (int idx = tid; idx < MLP_BN * MLP_BH; idx += MLP_THREADS) {
-                const int n = idx / MLP_BH, c = idx % MLP_BH;
-                const int gn = nb + n, gc = c0 + c;
-                w2s[c * (MLP_BN + 1) + n] =
-                    (gn < W && gc < H) ? to_f<T>(w2[(size_t)gn * H + gc]) : 0.f;
-            }
-            __syncthreads();
-            float pacc[RM2][4];
-#pragma unroll
-            for (int i = 0; i < RM2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) pacc[i][j] = 0.f;
-#pragma unroll 8
-            for (int c = 0; c < MLP_BH; ++c) {
-                float a[RM2], bcol[4];
-#pragma unroll
-                for (int i = 0; i < RM2; ++i) a[i] = hs[(tr2 * RM2 + i) * MLP_BH + c];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) bcol[j] = w2s[c * (MLP_BN + 1) + tc2 + 32 * j];
-#pragma unroll
-                for (int i = 0; i < RM2; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) pacc[i][j] = fmaf(a[i], bcol[j], pacc[i][j]);
-            }
-#pragma unroll
-            for (int i = 0; i < RM2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int gn = nb + tc2 + 32 * j;
-                    if (gn < W) acc[(size_t)(tr2 * RM2 + i) * W + gn] += pacc[i][j];
-                }
-        }
+// 8 fp32 values of one output row -> T at y (16-byte aligned when `vec`)
+__device__ __forceinline__ void store8(__nv_bfloat16* y, const float (&v)[8], int n, bool vec) {
+    if (vec) {
+        uint4 out;
+        out.x = tc::pack_bf16(v[0], v[1]);
+        out.y = tc::pack_bf16(v[2], v[3]);
+        out.z = tc::pack_bf16(v[4], v[5]);
+        out.w = tc::pack_bf16(v[6], v[7]);
+        *reinterpret_cast<uint4*>(y) = out;
+        return;
     }
-    __syncthreads();
-    for (int idx = tid; idx < BM * W; idx += MLP_THREADS) {
-        const int r = idx / W, n = idx % W;
-        const int gr = row0 + r;
-        if (gr < T_rows) out[(size_t)gr * W + n] = from_f<T>(acc[idx] + to_f<T>(b2[n]));
+    for (int e = 0; e < 8 && e < n; ++e) y[e] = from_f<__nv_bfloat16>(v[e]);
+}
+__device__ __forceinline__ void store8(float* y, const float (&v)[8], int n, bool vec) {
+    if (vec) {
+        *reinterpret_cast<float4*>(y) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(y + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        return;
+    }
+    for (int e = 0; e < 8 && e < n; ++e) y[e] = v[e];
+}
+
+// ---- the split pass ------------------------------------------------------------
+//
+// Rows of x [rows, cols] (fp32 or bf16) into bf16 parts [PARTS][out_rows]
+// [pitch]: hi, mid and lo of the fp32 values (PARTS = 3: hi = bf16(x), mid
+// = bf16(x - hi), lo = bf16(x - hi - mid), as ops/split.py::split3), or the
+// values rounded to bf16 (PARTS = 1); zeros past the rows and columns, so
+// that TMA reads whole 16-byte rows and a product over the pad adds
+// nothing. A thread takes 8 columns of a row: one or two 16-byte loads
+// where the rows allow, one 16-byte store a part. Bound by bytes: 4 read
+// and 6 written an fp32 element (0.014 ms for x at T = 4616, W = 1024).
+constexpr int kSplitThreads = 256;
+
+template <typename T, int PARTS>
+__global__ void __launch_bounds__(kSplitThreads)
+split_parts_kernel(const T* __restrict__ x, __nv_bfloat16* __restrict__ out, int rows,
+                   int cols, int out_rows, int pitch, bool vec) {
+    const int units = pitch / 8;
+    const long long idx = (long long)blockIdx.x * kSplitThreads + threadIdx.x;
+    if (idx >= (long long)out_rows * units) return;
+    const int r = (int)(idx / units), c = (int)(idx % units) * 8;
+    const T* row = x + (size_t)r * cols;
+    float v[8];
+    if (r < rows && vec && c + 8 <= cols) {
+        tc::load8(row + c, v);
+    } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = r < rows && c + e < cols ? to_f<T>(row[c + e]) : 0.f;
+    }
+    uint4* dst = reinterpret_cast<uint4*>(out + (size_t)r * pitch + c);
+    if constexpr (PARTS == 3) {
+        uint4 hi, mid, lo;
+        tc::split2(v[0], v[1], hi.x, mid.x, lo.x);
+        tc::split2(v[2], v[3], hi.y, mid.y, lo.y);
+        tc::split2(v[4], v[5], hi.z, mid.z, lo.z);
+        tc::split2(v[6], v[7], hi.w, mid.w, lo.w);
+        const size_t part = (size_t)out_rows * units;   // 16-byte units of one part
+        dst[0] = hi;
+        dst[part] = mid;
+        dst[2 * part] = lo;
+    } else {
+        *dst = make_uint4(tc::pack_bf16(v[0], v[1]), tc::pack_bf16(v[2], v[3]),
+                          tc::pack_bf16(v[4], v[5]), tc::pack_bf16(v[6], v[7]));
     }
 }
 
-template <typename T, int BM>
-static int launch_fused_mlp(const void* x, const void* w1, const void* b1,
-                            const void* w2, const void* b2, void* out,
-                            int T_rows, int W, int H, int act,
-                            cudaStream_t stream) {
-    const size_t smem = ((size_t)BM * W + mlp_smem_floats_fixed<BM>()) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mlp_kernel<T, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_mlp_kernel<T, BM><<<ceil_div(T_rows, BM), MLP_THREADS, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w1),
-        static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), static_cast<T*>(out), T_rows, W, H, act);
+static int launch_split_parts(const void* x, void* out, int rows, int cols, int out_rows,
+                              int pitch, int parts, int dtype, cudaStream_t stream) {
+    if (rows < 0 || cols <= 0 || out_rows < rows || pitch < cols || pitch % 8 ||
+        reinterpret_cast<uintptr_t>(out) % 16)
+        return kUnsupported;
+    const long long n = (long long)out_rows * (pitch / 8);
+    if (n == 0) return 0;
+    const int blocks = (int)((n + kSplitThreads - 1) / kSplitThreads);
+    const int size = dtype == kFloat32 ? 4 : 2;
+    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && cols * size % 16 == 0;
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    if (dtype == kFloat32 && parts == 3)
+        split_parts_kernel<float, 3><<<blocks, kSplitThreads, 0, stream>>>(
+            static_cast<const float*>(x), o, rows, cols, out_rows, pitch, vec);
+    else if (dtype == kFloat32 && parts == 1)
+        split_parts_kernel<float, 1><<<blocks, kSplitThreads, 0, stream>>>(
+            static_cast<const float*>(x), o, rows, cols, out_rows, pitch, vec);
+    else if (dtype == kBFloat16 && parts == 1)
+        split_parts_kernel<__nv_bfloat16, 1><<<blocks, kSplitThreads, 0, stream>>>(
+            static_cast<const __nv_bfloat16*>(x), o, rows, cols, out_rows, pitch, vec);
+    else
+        return kUnsupported;
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch_bm(const void* x, const void* w1, const void* b1,
-                       const void* w2, const void* b2, void* out, int T_rows,
-                       int W, int H, int act, cudaStream_t stream) {
-    // the widest row tile whose accumulator fits the 227 KB a block may use
-    constexpr size_t kMaxSmem = 232448;
-    if (((size_t)32 * W + mlp_smem_floats_fixed<32>()) * sizeof(float) <= kMaxSmem)
-        return launch_fused_mlp<T, 32>(x, w1, b1, w2, b2, out, T_rows, W, H, act, stream);
-    if (((size_t)16 * W + mlp_smem_floats_fixed<16>()) * sizeof(float) <= kMaxSmem)
-        return launch_fused_mlp<T, 16>(x, w1, b1, w2, b2, out, T_rows, W, H, act, stream);
-    return kUnsupported;
-}
-
-// ---- bf16 on the tensor cores: two wgmma GEMMs -------------------------------
+// ---- the GEMMs on the tensor cores: bf16 and fp32 as split parts ---------------
 //
 // The MLP as two launches of one hand-written GEMM kernel, C = epilogue(A
-// B^T), A [M, K] and B [N, K] bf16 row-major, so both operands are K-major
+// B^T), A [M, K] and B [N, K] row-major, so both operands are K-major
 // (PyTorch's Linear layout: no transposes):
-//   GEMM 1: h = bf16(act(x W1^T + b1)), [T, H], scratch the wrapper allocates;
-//   GEMM 2: y = bf16(h W2^T + b2), [T, W].
-// The reference rounds h to bf16 before the second product too
-// (reverso_tpu/ops/fused_mlp.py:81), so its round trip through device
-// memory changes no result; it costs 2 * T * H * 2 bytes (75.6 MB at
-// T = 4616, H = 4096: 0.023 ms at 3.35 TB/s against the products' 0.078 ms
-// at 989 TFLOP/s), and the products, not the bytes, bound the MLP.
+//   GEMM 1: h = act(x W1^T + b1), [T, H], scratch the wrapper allocates;
+//   GEMM 2: y = h W2^T + b2, [T, W].
+// In bf16 (PARTS = 1) h is rounded to bf16; the reference rounds h to bf16
+// before the second product too (reverso_tpu/ops/fused_mlp.py:81), so its
+// round trip through device memory changes no result; it costs 2 * T * H
+// * 2 bytes (75.6 MB at T = 4616, H = 4096: 0.023 ms at 3.35 TB/s against
+// the products' 0.078 ms at 989 TFLOP/s), and the products, not the
+// bytes, bound the MLP.
+//
+// In fp32 (PARTS = 3, the split mode) the operands are the split pass's
+// bf16 parts [3][rows][pitch] and each product is the six bf16 products
+// lo.hi, hi.lo, mid.mid, mid.hi, hi.mid and hi.hi (hopper.cuh::split_part,
+// smallest first; the three dropped are below 2^-23 of the product), the
+// TPU kernel's Precision.HIGHEST. h stays fp32 (the reference rounds it to
+// x's dtype, fp32): GEMM 1's epilogue adds b1 in fp32, applies the
+// activation and writes h's three parts (3 * 2 bytes an element where fp32
+// h and a second split pass would move 4 + 4 + 6), which GEMM 2 reads
+// through TMA; GEMM 2's epilogue adds b2 and stores fp32 y.
 //
 // Design of one CTA (one 128 x BN tile of C):
-//   * a producer warp, one thread of which brings 128 x 64 A tiles and
-//     BN x 64 B tiles through TMA (2-D tensor maps, 128-byte swizzle,
-//     mbarrier completion) into a ring of STAGES stages; rows past M (T =
-//     4616 = 36 * 128 + 8), columns past N and a K past the last whole
-//     step read zeros from the hardware, so nothing is padded in memory;
+//   * a producer warp, one thread of which brings 128 x BK A tiles and
+//     BN x BK B tiles (each of their parts: 3-D maps over [3][rows][pitch]
+//     in the split mode) through TMA (128-byte swizzle at BK = 64 in bf16,
+//     64-byte at BK = 32 in the split mode, mbarrier completion) into a
+//     ring of STAGES stages; rows past M (T = 4616 = 36 * 128 + 8),
+//     columns past N and a K past the last whole step read zeros from the
+//     hardware, so nothing is padded in memory beyond 16-byte row pitches;
 //   * two consumer warpgroups of 64 rows each run wgmma m64nBNk16 (bf16 in,
-//     fp32 accumulate, both operands from shared memory) over the ring,
-//     with one product group in flight while the stage before it is
-//     released to the producer;
+//     fp32 accumulate, both operands from shared memory) over the ring. In
+//     bf16 one product group is in flight while the stage before it is
+//     released to the producer. In the split mode a step's six products
+//     land in a fresh accumulator that the CUDA cores add to the running
+//     fp32 tile (round to nearest): the tensor cores' fp32 sums do not
+//     round to nearest, and in one accumulator their error grows with the
+//     steps summed (flash_tc.cuh measured 1.1e-5 over 64 tiles against
+//     1.6e-6 with per-tile sums); K here is 1024 and 4096;
 //   * a consumer's accumulator takes BN / 2 registers a thread (ptxas: 154
-//     registers a thread at BN = 256, 90 at BN = 128, no spills);
+//     registers a thread at BN = 256, 90 at BN = 128, no spills; the split
+//     mode, with its step accumulator beside it, 146 at BN = 128);
 //   * the epilogue parks the fp32 tile in the ring's shared memory, then
-//     each thread adds the fp32 bias to 8 adjacent columns of a row,
-//     applies the activation (GEMM 1), rounds to bf16 and stores 16 bytes;
-//     rows past M and columns past N are masked. (Applying the activation
-//     straight from the accumulator fragments unrolled erff over all 128
-//     registers of a thread: GEMM 1 took 0.227 ms at T = 4616 against 0.101
-//     without the activation, scripts/mlp_tc_probe.py on the H100.)
+//     each thread takes 8 adjacent columns of a row: the fp32 bias, the
+//     activation (GEMM 1), and one 16-byte store of bf16 (or one a part,
+//     or two of fp32); rows past M and columns past N are masked.
+//     (Applying the activation straight from the accumulator fragments
+//     unrolled erff over all 128 registers of a thread: GEMM 1 took 0.227
+//     ms at T = 4616 against 0.101 without the activation,
+//     scripts/mlp_tc_probe.py on the H100.)
 namespace mlp_tc {
 
 using namespace tc;
 
 constexpr int kBM = 128;     // rows of a CTA tile: two consumer warpgroups of 64
-constexpr int kBK = 64;      // reduction step: one 128-byte swizzle atom of bf16
+constexpr int kBK = 64;      // bf16 reduction step: one 128-byte swizzle atom
 constexpr int kNoAct = -1;   // GEMM 2: the bias only
 
 constexpr int kThreads = 2 * kWgThreads + 32;   // two consumer warpgroups, one producer warp
 
-// A tile shape: BN output columns, a ring of STAGES stages
-template <int BN, int STAGES>
+// what the epilogue stores: bf16 C (the bf16 MLP), the three bf16 parts of
+// fp32 C (the split mode's GEMM 1: h), fp32 C (the split mode's GEMM 2: y)
+constexpr int kOutBf16 = 0, kOutParts = 1, kOutF32 = 2;
+
+// A tile shape: BN output columns, a ring of STAGES stages, PARTS bf16 parts
+// an operand value (3: the split mode, whose stage holds every part of a
+// 32-deep step, 48 KB at BN = 128)
+template <int BN, int STAGES, int PARTS = 1>
 struct GemmCfg {
-    static constexpr int kBN = BN, kStages = STAGES;
-    static constexpr int A_BYTES = kBM * kBK * 2;
-    static constexpr int B_BYTES = BN * kBK * 2;
-    static constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 16 * STAGES;
+    static constexpr int kBN = BN, kStages = STAGES, kParts = PARTS;
+    static constexpr int BK = PARTS == 3 ? 32 : kBK;           // reduction step
+    static constexpr uint64_t LAYOUT = BK == 64 ? 1 : 2;       // 128- or 64-byte swizzle
+    static constexpr uint32_t SBO = 8 * BK * 2;                // 8 rows of a swizzle atom
+    static constexpr int A_BYTES = kBM * BK * 2;               // one part of a stage's A tile
+    static constexpr int B_BYTES = BN * BK * 2;
+    static constexpr int STAGE_BYTES = PARTS * (A_BYTES + B_BYTES);
+    static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 16 * STAGES;
     static_assert(SMEM <= 232448, "shared memory of a CTA");
     static_assert(BN % 64 == 0 && BN <= 256, "wgmma N and the TMA box");
+    static_assert(PARTS == 1 || PARTS == 3, "bf16 or split parts");
 };
 
 // gelu through the Abramowitz & Stegun 7.1.26 erf (|err| <= 1.5e-7), as the
 // TPU kernel computes it (reverso_tpu/ops/fused_mlp.py:47), with the SFU's
 // reciprocal and exponential; quick_gelu as x * sigmoid(1.702 x). Within a
-// few 1e-7 of the exact forms, far below h's bf16 rounding.
+// few 1e-7 of the exact forms, far below h's bf16 rounding and the fp32
+// mode's 1e-4 gate.
 __device__ __forceinline__ float act_fast(float x, int act) {
     if (act == kQuickGelu) return x * __fdividef(1.f, 1.f + __expf(-1.702f * x));
     const float z = x * 0.70710678118654752f, az = fabsf(z);
@@ -264,24 +230,27 @@ __device__ __forceinline__ float act_fast(float x, int act) {
     return fmaf(hx, erf, hx);
 }
 
-template <class Cfg>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
-                       const __grid_constant__ CUtensorMap bmap,
-                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ c,
-                       int m, int n, int k, int act) {
-    constexpr int BN = Cfg::kBN, STAGES = Cfg::kStages;
+// One CTA of the GEMM: C [m, n] = epilogue(A [m, k] B [n, k]^T), C's rows
+// at a pitch of ldc elements; the bias [n_valid] and the activation apply
+// to the first n_valid columns, and in the parts mode the columns from
+// n_valid to n are stored as zeros (h's pad, read by GEMM 2 against zero
+// weights)
+template <class Cfg, int OUT>
+__device__ __forceinline__ void gemm_cta(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                         const void* bias, void* c, int m, int n, int n_valid,
+                                         int ldc, int k, int act) {
+    constexpr int BN = Cfg::kBN, STAGES = Cfg::kStages, PARTS = Cfg::kParts, BK = Cfg::BK;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* base = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-    uint8_t* as = base;                           // [STAGES][128][64] bf16, swizzled
-    uint8_t* bs = as + STAGES * Cfg::A_BYTES;     // [STAGES][BN][64]
-    uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * Cfg::B_BYTES);
+    uint8_t* as = base;                                   // [STAGES][PARTS][128][BK] bf16, swizzled
+    uint8_t* bs = as + STAGES * PARTS * Cfg::A_BYTES;     // [STAGES][PARTS][BN][BK]
+    uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * PARTS * Cfg::B_BYTES);
     uint64_t* empty = full + STAGES;              // the consumers' 8 warps are done
 
     const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
-    const int n_k = ceil_div(k, kBK);
+    const int n_k = ceil_div(k, BK);
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < STAGES; ++s) {
@@ -298,9 +267,19 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
             for (int j = 0; j < n_k; ++j) {
                 const int s = j % STAGES;
                 mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-                mbar_expect_tx(&full[s], Cfg::A_BYTES + Cfg::B_BYTES);
-                tma_load_2d(as + s * Cfg::A_BYTES, &amap, &full[s], j * kBK, m0);
-                tma_load_2d(bs + s * Cfg::B_BYTES, &bmap, &full[s], j * kBK, n0);
+                mbar_expect_tx(&full[s], Cfg::STAGE_BYTES);
+                if constexpr (PARTS == 1) {
+                    tma_load_2d(as + s * Cfg::A_BYTES, amap, &full[s], j * BK, m0);
+                    tma_load_2d(bs + s * Cfg::B_BYTES, bmap, &full[s], j * BK, n0);
+                } else {
+#pragma unroll
+                    for (int p = 0; p < PARTS; ++p) {
+                        tma_load_3d(as + (s * PARTS + p) * Cfg::A_BYTES, amap, &full[s], j * BK,
+                                    m0, p);
+                        tma_load_3d(bs + (s * PARTS + p) * Cfg::B_BYTES, bmap, &full[s], j * BK,
+                                    n0, p);
+                    }
+                }
             }
         }
         return;
@@ -311,32 +290,61 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    const uint32_t a0 = smem_addr(as) + wg * 64 * kBK * 2;
+    const uint32_t a0 = smem_addr(as) + wg * 64 * BK * 2;
     const uint32_t b0 = smem_addr(bs);
-    for (int j = 0; j < n_k; ++j) {
-        const int s = j % STAGES;
-        mbar_wait(&full[s], (j / STAGES) & 1);
-        wgmma_fence();
+    if constexpr (PARTS == 1) {
+        for (int j = 0; j < n_k; ++j) {
+            const int s = j % STAGES;
+            mbar_wait(&full[s], (j / STAGES) & 1);
+            wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk)   // k16 steps: 32 bytes into the swizzled rows
-            WgmmaSS<BN>::run(acc, gmma_desc(a0 + s * Cfg::A_BYTES + kk * 32, 16, 1024, 1),
-                             gmma_desc(b0 + s * Cfg::B_BYTES + kk * 32, 16, 1024, 1), 1);
-        wgmma_commit();
-        wgmma_wait<1>();   // step j - 1's products are done: release its stage
-        if (j > 0) {
+            for (int kk = 0; kk < BK / 16; ++kk)   // k16 steps: 32 bytes into the swizzled rows
+                WgmmaSS<BN>::run(acc, gmma_desc(a0 + s * Cfg::A_BYTES + kk * 32, 16, Cfg::SBO, Cfg::LAYOUT),
+                                 gmma_desc(b0 + s * Cfg::B_BYTES + kk * 32, 16, Cfg::SBO, Cfg::LAYOUT), 1);
+            wgmma_commit();
+            wgmma_wait<1>();   // step j - 1's products are done: release its stage
+            if (j > 0) {
+                __syncwarp();
+                if (lane == 0) mbar_arrive(&empty[(j - 1) % STAGES]);
+            }
+        }
+        wgmma_wait<0>();
+        fence_operand(acc);
+    } else {
+        float step[BN / 2];   // one step's six products, started afresh each step
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) step[i] = 0.f;
+        for (int j = 0; j < n_k; ++j) {
+            const int s = j % STAGES;
+            mbar_wait(&full[s], (j / STAGES) & 1);
+            wgmma_fence();
+#pragma unroll
+            for (int t = 0; t < kSplitTerms; ++t)
+#pragma unroll
+                for (int kk = 0; kk < BK / 16; ++kk)
+                    WgmmaSS<BN>::run(
+                        step,
+                        gmma_desc(a0 + (s * PARTS + split_part(t, 0)) * Cfg::A_BYTES + kk * 32,
+                                  16, Cfg::SBO, Cfg::LAYOUT),
+                        gmma_desc(b0 + (s * PARTS + split_part(t, 1)) * Cfg::B_BYTES + kk * 32,
+                                  16, Cfg::SBO, Cfg::LAYOUT),
+                        t > 0 || kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operand(step);
             __syncwarp();
-            if (lane == 0) mbar_arrive(&empty[(j - 1) % STAGES]);
+            if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], step[i]);
         }
     }
-    wgmma_wait<0>();
-    fence_operand(acc);
 
     // ---- epilogue ----
     // (1) both consumer warpgroups are done with the ring (every stage was
     // loaded and consumed), so it takes the fp32 tile, [128][BN + 8] (the
     // pad keeps a warp's fragment stores off shared bank conflicts)
     constexpr int LDC = BN + 8;
-    static_assert(kBM * LDC * 4 <= STAGES * (Cfg::A_BYTES + Cfg::B_BYTES), "C tile fits the ring");
+    static_assert(kBM * LDC * 4 <= STAGES * Cfg::STAGE_BYTES, "C tile fits the ring");
     float* ct = reinterpret_cast<float*>(base);
     named_bar_sync(1, 2 * kWgThreads);
     {
@@ -351,38 +359,85 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     }
     named_bar_sync(1, 2 * kWgThreads);
     // (2) each thread takes 8 adjacent columns of a row at a time: fp32 bias,
-    // activation, bf16, one 16-byte store (a warp writes whole row
-    // segments); a short loop, so the activation's code stays small
+    // activation, the store (a warp writes whole row segments); a short
+    // loop, so the activation's code stays small
     constexpr int TPR = BN / 8;                 // threads per row
     constexpr int ROWS = 2 * kWgThreads / TPR;  // rows per pass
     const int ctid = wg * kWgThreads + tid;
     const int c8 = (ctid % TPR) * 8, col = n0 + c8;
-    if (col >= n) return;   // n % 8 == 0: a group of 8 is in or out whole
+    if (col >= n) return;   // bf16 and parts: n % 8 == 0, a group of 8 is in or out whole
     float bv[8];
+    if constexpr (OUT == kOutBf16) {
+        const __nv_bfloat16* b16 = static_cast<const __nv_bfloat16*>(bias);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        const float2 b2 =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col + 2 * e));
-        bv[2 * e] = b2.x;
-        bv[2 * e + 1] = b2.y;
+        for (int e = 0; e < 4; ++e) {
+            const float2 b2 =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b16 + col + 2 * e));
+            bv[2 * e] = b2.x;
+            bv[2 * e + 1] = b2.y;
+        }
+    } else {
+        const float* b32 = static_cast<const float*>(bias);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) bv[e] = col + e < n_valid ? b32[col + e] : 0.f;
     }
 #pragma unroll 2
     for (int r = ctid / TPR; r < kBM && m0 + r < m; r += ROWS) {
         const float4 lo = *reinterpret_cast<const float4*>(ct + r * LDC + c8);
         const float4 hi = *reinterpret_cast<const float4*>(ct + r * LDC + c8 + 4);
         float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        const size_t off = (size_t)(m0 + r) * ldc + col;
+        if constexpr (OUT == kOutBf16) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            v[e] += bv[e];
-            if (act != kNoAct) v[e] = act_fast(v[e], act);
+            for (int e = 0; e < 8; ++e) {
+                v[e] += bv[e];
+                if (act != kNoAct) v[e] = act_fast(v[e], act);
+            }
+            uint4 out;
+            out.x = pack_bf16(v[0], v[1]);
+            out.y = pack_bf16(v[2], v[3]);
+            out.z = pack_bf16(v[4], v[5]);
+            out.w = pack_bf16(v[6], v[7]);
+            *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(c) + off) = out;
+        } else if constexpr (OUT == kOutParts) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                v[e] = col + e < n_valid ? act_fast(__fadd_rn(v[e], bv[e]), act) : 0.f;
+            uint4 ph, pm, pl;
+            split2(v[0], v[1], ph.x, pm.x, pl.x);
+            split2(v[2], v[3], ph.y, pm.y, pl.y);
+            split2(v[4], v[5], ph.z, pm.z, pl.z);
+            split2(v[6], v[7], ph.w, pm.w, pl.w);
+            __nv_bfloat16* cp = static_cast<__nv_bfloat16*>(c) + off;
+            const size_t part = (size_t)m * ldc;
+            *reinterpret_cast<uint4*>(cp) = ph;
+            *reinterpret_cast<uint4*>(cp + part) = pm;
+            *reinterpret_cast<uint4*>(cp + 2 * part) = pl;
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(v[e], bv[e]);
+            store8(static_cast<float*>(c) + off, v, n - col, ldc % 8 == 0);
         }
-        uint4 out;
-        out.x = pack_bf16(v[0], v[1]);
-        out.y = pack_bf16(v[2], v[3]);
-        out.z = pack_bf16(v[4], v[5]);
-        out.w = pack_bf16(v[6], v[7]);
-        *reinterpret_cast<uint4*>(c + (size_t)(m0 + r) * n + col) = out;
     }
+}
+
+// the bf16 MLP's GEMM (GEMM 2: act = kNoAct)
+template <class Cfg>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ CUtensorMap bmap,
+                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ c,
+                       int m, int n, int k, int act) {
+    gemm_cta<Cfg, kOutBf16>(&amap, &bmap, bias, c, m, n, n, n, k, act);
+}
+
+// the split mode's GEMMs: h's parts (GEMM 1) or fp32 y (GEMM 2)
+template <class Cfg, int OUT>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_split_kernel(const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ CUtensorMap bmap, const float* __restrict__ bias,
+                       void* __restrict__ c, int m, int n, int n_valid, int ldc, int k, int act) {
+    gemm_cta<Cfg, OUT>(&amap, &bmap, bias, c, m, n, n_valid, ldc, k, act);
 }
 
 // a 2-D bf16 map over [rows][cols] (cols contiguous, cols % 8 == 0), box
@@ -397,6 +452,23 @@ static bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, i
     const cuuint32_t elem[2] = {1, 1};
     return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 3-D bf16 map over the split pass's parts [3][rows][pitch] (pitch % 8 ==
+// 0), box [1][box_rows][32], 64-byte swizzle as the split mode's
+// descriptors read it; rows past `rows` read zero (never the next part)
+static bool make_map_parts(CUtensorMap* map, const void* ptr, int pitch, int rows,
+                           int box_rows) {
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)pitch, (cuuint64_t)rows, 3};
+    const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2, (cuuint64_t)rows * pitch * 2};
+    const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -419,6 +491,22 @@ static int launch_gemm(const void* a, const void* b, const void* bias, void* c, 
     return (int)cudaGetLastError();
 }
 
+// the split mode's C = epilogue(A B^T) on parts: A [3][m][k], B [3][n_valid][k]
+template <class Cfg, int OUT>
+static int launch_split_gemm(const void* a, const void* b, const float* bias, void* c, int m,
+                             int n, int n_valid, int ldc, int k, int act, cudaStream_t stream) {
+    CUtensorMap am, bm;
+    if (!make_map_parts(&am, a, k, m, kBM) || !make_map_parts(&bm, b, k, n_valid, Cfg::kBN))
+        return kMapError;
+    auto kernel = fused_mlp_split_kernel<Cfg, OUT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(ceil_div(n, Cfg::kBN), ceil_div(m, kBM));
+    kernel<<<grid, kThreads, Cfg::SMEM, stream>>>(am, bm, bias, c, m, n, n_valid, ldc, k, act);
+    return (int)cudaGetLastError();
+}
+
 // Tiles (measured on the H100 with scripts/mlp_tc_probe.py; PERF.md has
 // the times): 128 x 256 where that grid fills the 132 SMs at least four
 // times over (the wider tile reads fewer operand bytes from L2 per
@@ -426,8 +514,15 @@ static int launch_gemm(const void* a, const void* b, const void* bias, void* c, 
 // wave). PE-L14 at T = 4616: GEMM 1 (N = 4096) has 592 wide tiles and
 // takes them; GEMM 2 (N = 1024) would have only 148, 1.12 waves, and takes
 // 296 narrow ones; at T = 36,928 (B = 64) both take wide tiles.
+// The split mode keeps three parts of A and B a stage: 128 x 128 tiles
+// with a ring of four 48 KB stages at every shape. At the depth-2 tower's
+// T = 1154, GEMM 2 has only 80 such tiles for 132 SMs, and still 128 x
+// 128 took the MLP 0.2703 ms against 0.2969 with 160 tiles of 128 x 64
+// and six stages (the narrow tile reads each A tile for half the
+// products; scripts/mlp_tc_probe.py on the H100).
 using GemmWide = GemmCfg<256, 4>;
 using GemmNarrow = GemmCfg<128, 4>;
+using GemmSplit = GemmCfg<128, 4, 3>;
 
 static int launch_mlp_gemm(const void* a, const void* b, const void* bias, void* c, int m,
                            int n, int k, int act, cudaStream_t stream) {
@@ -768,28 +863,6 @@ q8_gemm1_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     }
 }
 
-// 8 fp32 values of one output row -> T at y (16-byte aligned when `vec`)
-__device__ __forceinline__ void store8(__nv_bfloat16* y, const float (&v)[8], int n, bool vec) {
-    if (vec) {
-        uint4 out;
-        out.x = pack_bf16(v[0], v[1]);
-        out.y = pack_bf16(v[2], v[3]);
-        out.z = pack_bf16(v[4], v[5]);
-        out.w = pack_bf16(v[6], v[7]);
-        *reinterpret_cast<uint4*>(y) = out;
-        return;
-    }
-    for (int e = 0; e < 8 && e < n; ++e) y[e] = from_f<__nv_bfloat16>(v[e]);
-}
-__device__ __forceinline__ void store8(float* y, const float (&v)[8], int n, bool vec) {
-    if (vec) {
-        *reinterpret_cast<float4*>(y) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(y + 4) = make_float4(v[4], v[5], v[6], v[7]);
-        return;
-    }
-    for (int e = 0; e < 8 && e < n; ++e) y[e] = v[e];
-}
-
 template <typename T, class Cfg>
 __global__ void __launch_bounds__(kThreads, 1)
 q8_gemm2_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
@@ -1026,19 +1099,40 @@ extern "C" int rv_fused_mlp_int8(const void* x, const void* w1, const void* s1,
     return rv::kUnsupported;
 }
 
-// fp32, and bf16 at widths the tensor-core GEMMs do not take: the CUDA-core
-// kernel (rows of the output in shared memory, h never leaves the CTA)
-extern "C" int rv_fused_mlp(const void* x, const void* w1, const void* b1,
-                            const void* w2, const void* b2, void* out,
-                            int T_rows, int W, int H, int act, int dtype,
-                            void* stream) {
+// x [rows, cols] (fp32, or bf16 with parts = 1), any alignment -> out
+// [parts][out_rows][pitch] bf16, 16-byte aligned (pitch % 8 == 0, pitch >=
+// cols, out_rows >= rows): the split pass (three parts, or one)
+extern "C" int rv_split_parts(const void* x, void* out, int rows, int cols, int out_rows,
+                              int pitch, int parts, int dtype, void* stream) {
+    return rv::launch_split_parts(x, out, rows, cols, out_rows, pitch, parts, dtype,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// fp32: x [T, W] (any alignment); w1p [3][H][Wp] and w2p [3][W][Hp], the
+// weights' parts from the split pass (Wp, Hp: W, H rounded up to 8);
+// b1 [H], b2 [W] fp32; scratch of the caller's, xp [3][T][Wp] and hp
+// [3][T][Hp] bf16; out [T, W] fp32. The parts, the scratch and out 16-byte
+// aligned.
+// Three launches: x's split pass, GEMM 1 (h's parts), GEMM 2.
+extern "C" int rv_fused_mlp_split(const void* x, const void* w1p, const void* b1,
+                                  const void* w2p, const void* b2, void* xp, void* hp,
+                                  void* out, int T_rows, int W, int H, int act, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    using namespace rv::mlp_tc;
     if (act != rv::kGelu && act != rv::kQuickGelu) return rv::kUnsupported;
-    if (dtype == rv::kBFloat16)
-        return rv::dispatch_bm<__nv_bfloat16>(x, w1, b1, w2, b2, out, T_rows, W, H, act, st);
-    if (dtype == rv::kFloat32)
-        return rv::dispatch_bm<float>(x, w1, b1, w2, b2, out, T_rows, W, H, act, st);
-    return rv::kUnsupported;
+    if (T_rows <= 0 || W <= 0 || H <= 0) return rv::kUnsupported;
+    const uintptr_t align = reinterpret_cast<uintptr_t>(w1p) | reinterpret_cast<uintptr_t>(w2p) |
+                            reinterpret_cast<uintptr_t>(xp) | reinterpret_cast<uintptr_t>(hp) |
+                            reinterpret_cast<uintptr_t>(out);
+    if (align % 16 != 0) return rv::kUnsupported;   // TMA and 16-byte stores
+    const int Wp = rv::round_up(W, 8), Hp = rv::round_up(H, 8);
+    int status = rv::launch_split_parts(x, xp, T_rows, W, T_rows, Wp, 3, rv::kFloat32, st);
+    if (status != 0) return status;
+    status = launch_split_gemm<GemmSplit, kOutParts>(xp, w1p, static_cast<const float*>(b1), hp,
+                                                     T_rows, Hp, H, Hp, Wp, act, st);
+    if (status != 0) return status;
+    return launch_split_gemm<GemmSplit, kOutF32>(hp, w2p, static_cast<const float*>(b2), out,
+                                                 T_rows, W, W, W, Hp, kNoAct, st);
 }
 
 // bf16, W % 8 == 0, H % 8 == 0 (TMA's 16-byte row strides), 16-byte aligned

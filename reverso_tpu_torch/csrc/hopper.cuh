@@ -1,14 +1,17 @@
 // PTX helpers shared by the hand-written Hopper kernels on wgmma and TMA:
-// the flash-attention core (flash_tc.cuh), the MLP's GEMMs, bf16 and int8
-// (fused_mlp.cu), and the bf16, binary and int8 top-k scans (topk_stream.cu).
+// the flash-attention core (flash_tc.cuh), the MLP's GEMMs
+// (fused_mlp.cu, bf16, split fp32 and int8), and the bf16, binary and int8
+// top-k scans (topk_stream.cu).
 // Shared-memory barriers (mbarrier), named barriers with an OR reduction,
 // warpgroup register counts (setmaxnreg), TMA tile loads
 // (cp.async.bulk.tensor with mbarrier completion), wgmma fences, commits
 // and waits, shared-memory matrix descriptors, the SS-form products (both
 // operands K-major in shared memory; bf16 -> fp32 and s8 -> s32, N = 8 ..
-// 256), the RS-form bf16 products (A in registers), and the tensor-map
-// encoder, looked up through the runtime's entry-point query so that the
-// library links without -lcuda.
+// 256), the RS-form bf16 products (A in registers), the split mode's
+// product table and its three-way split of fp32 values into bf16 parts
+// (the attention core's split mode and the MLP's split GEMMs), 8-element
+// loads, and the tensor-map encoder, looked up through the runtime's
+// entry-point query so that the library links without -lcuda.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
@@ -366,6 +369,47 @@ template <> struct WgmmaRSK<256> {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The split mode's products in issue order, smallest first: term t
+// multiplies part split_part(t, 0) of the A operand by part split_part(t, 1)
+// of B (0 hi, 1 mid, 2 lo). The three smallest, (mid, lo), (lo, mid) and
+// (lo, lo), are left out; the bf16 modes issue the last, (hi, hi), alone.
+constexpr int kSplitTerms = 6;
+
+__host__ __device__ constexpr int split_part(int t, int operand) {
+    constexpr int terms[kSplitTerms][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};
+    return terms[t][operand];
+}
+
+// (a, b) split into three bf16 pairs (each packed low then high): hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); the subtractions
+// are exact, and not contracted into anything else
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float ra = __fsub_rn(a, __low2float(h)), rb = __fsub_rn(b, __high2float(h));
+    const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(ra, __low2float(m)),
+                                                   __fsub_rn(rb, __high2float(m)));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    mid = *reinterpret_cast<const uint32_t*>(&m);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// eight elements from device memory as fp32: one 16-byte load of bf16 or
+// two of fp32 (16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(h[e]);
 }
 
 // keeps the compiler from moving reads or writes of wgmma operands across

@@ -39,14 +39,15 @@ MAP_ERROR = -2   # a TMA tensor map could not be encoded (csrc/flash_tc.cuh)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, dtype, stream
-    "rv_flash_heads": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, stream
     "rv_flash_heads_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # x, w1, b1, w2, b2, out, T, W, H, act, dtype, stream
-    "rv_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rv_flash_heads_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, w1, b1, w2, b2, h, out, T, W, H, act, stream
     "rv_fused_mlp_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1 parts, b1, w2 parts, b2, x parts, h parts, out, T, W, H, act, stream
+    "rv_fused_mlp_split": [_P] * 8 + [_I] * 4 + [_P],
+    # x, out, rows, cols, out_rows, pitch, parts, dtype, stream
+    "rv_split_parts": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w1, s1, b1, w2, s2, b2, x8, xs, h8, hs, out, T, W, H, act, dtype, stream
     "rv_fused_mlp_int8": [_P] * 12 + [_I] * 5 + [_P],
     # db, q, q_scale, row_scale, D, Q, n_valid, k, n_splits, part_s, part_i,
@@ -83,20 +84,25 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # `flash_heads`, `flash_attn`, `flash_attn_relbias` and `fused_mlp` count
 # every launch of their mode; `flash_heads_tc`, `flash_attn_tc` and
 # `flash_attn_relbias_tc` only those that went to the bf16 tensor-core
-# attention core (csrc/flash_tc.cuh), `flash_attn_split` and
-# `flash_attn_relbias_split` those that went to its fp32 split mode
-# (csrc/flash_attn_split.cu), `fused_mlp_tc` the MLP calls that went to
-# the two wgmma GEMMs (one count per MLP call, not per GEMM).
+# attention core (csrc/flash_tc.cuh, through TMA or the lanes' copy),
+# `flash_heads_split`, `flash_attn_split` and `flash_attn_relbias_split`
+# those that went to its fp32 split mode (csrc/flash_heads_split.cu,
+# flash_attn_split.cu), `fused_mlp_tc` the bf16 MLP calls and
+# `fused_mlp_split` the fp32 ones that went to the wgmma GEMMs (one count
+# per MLP call, not per GEMM); `split_parts` the split pass's launches
+# outside an MLP call (the weights' parts, the bf16 MLP's padded copies).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
             "fused_mlp_int8": 0, "topk_int8_rows": 0, "flash_heads_tc": 0,
             "flash_attn_tc": 0, "flash_attn_relbias_tc": 0, "flash_attn_split": 0,
-            "flash_attn_relbias_split": 0, "fused_mlp_tc": 0, "topk_stream_f32": 0}
+            "flash_attn_relbias_split": 0, "fused_mlp_tc": 0, "topk_stream_f32": 0,
+            "flash_heads_split": 0, "fused_mlp_split": 0, "split_parts": 0}
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
-# at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("ms_deform", (B, Lq,
-# level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
+# at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,
+# H)): n, ("flash_heads_split", (B, S, W, heads)): n, ("ms_deform", (B,
+# Lq, level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
 # masked)): n}. Counted beside `launches`, which stays the per-kernel count.
 shape_launches: collections.Counter = collections.Counter()
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the

@@ -27,7 +27,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.attention import attention_ref, flash_attention, flash_attention_heads
-from ..ops.fused_mlp import fused_mlp, fused_mlp_int8, quantize_mlp_weights
+from ..ops.fused_mlp import (fused_mlp, fused_mlp_int8, quantize_mlp_weights,
+                             split_mlp_weights)
 from ..ops.rope import apply_rope_2d, rope_2d_tables
 
 # sequences the heads-in-lanes kernel takes (ViT-L/14-336 is 577 tokens);
@@ -110,7 +111,9 @@ class MLP(nn.Module):
     """The block MLP through the fused kernel; `quant=True` takes its int8
     mode, with the weights quantized once per activation dtype and device
     (the JAX package quantizes them on every call: the same numbers) and
-    quantized again after any change to the parameters."""
+    quantized again after any change to the parameters. In fp32 on the
+    card the kernel takes the weights as three bf16 parts each, split once
+    in the same way (`_split_weights`)."""
 
     def __init__(self, cfg: ModelConfig, act: str = "gelu"):
         super().__init__()
@@ -119,7 +122,9 @@ class MLP(nn.Module):
         self.quant = cfg.quant == "int8"
         self.fc1 = Linear(cfg.width, hidden)
         self.fc2 = Linear(hidden, cfg.width)
-        self._int8 = {}   # a cache, not state: the state dict is the bf16 tower's
+        # caches, not state: the state dict is the tower's parameters
+        self._int8 = {}
+        self._split = {}
 
     def _int8_weights(self, dtype: torch.dtype):
         prms = (self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
@@ -128,13 +133,24 @@ class MLP(nn.Module):
             self._int8 = {key: quantize_mlp_weights(*prms, dtype)}
         return self._int8[key]
 
+    def _split_weights(self):
+        """The fp32 weights' bf16 parts (`split_mlp_weights`), made again
+        after any change to them."""
+        prms = (self.fc1.weight, self.fc2.weight)
+        key = tuple((p.device, p.data_ptr(), p._version) for p in prms)
+        if key not in self._split:
+            with torch.no_grad():
+                self._split = {key: split_mlp_weights(*prms)}
+        return self._split[key]
+
     def forward(self, x):
         dt = x.dtype
         if self.quant:
             return fused_mlp_int8(x, self._int8_weights(dt), act=self.act)
+        parts = self._split_weights() if dt == torch.float32 and x.is_cuda else None
         return fused_mlp(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt),
                          self.fc2.weight.to(dt), self.fc2.bias.to(dt),
-                         act=self.act)
+                         act=self.act, parts=parts)
 
 
 class LayerScale(nn.Module):

@@ -10,15 +10,17 @@ runs `attention_ref`, the plain [B, H, S, D] attention the pooling head
 also uses.
 
 On a CUDA tensor each launches a hand-written kernel, by the rules in
-`heads_route` and `attention_route`. `flash_attention_heads` takes
-`csrc/flash_tc.cuh` (through `rv_flash_heads_tc`) for bf16 at a head dim
-the tensor cores take, else the fp32 CUDA-core kernel
-`csrc/flash_heads.cu`.
-`flash_attention` runs every call on `csrc/flash_tc.cuh`: bf16 at any head
-dim up to 128 (zero-padded to a multiple of 16 in shared memory) and SAM's
-rel-pos bias in fp32 at head dims % 16 == 0 on its bf16 core
-(`rv_flash_attn_tc`), the rest of fp32 on its split mode
-(`rv_flash_attn_split`).
+`heads_route` and `attention_route`; both run every call on
+`csrc/flash_tc.cuh`. `flash_attention_heads` takes its bf16 core
+(`rv_flash_heads_tc`: through TMA at head dims % 16 == 0, else the
+producer's lanes copy and rotate the rows) and its split mode in fp32
+(`rv_flash_heads_split`, RoPE applied by the lanes before the split).
+`flash_attention` takes the bf16 core at any head dim up to 128
+(zero-padded to a multiple of 16 in shared memory) and for SAM's rel-pos
+bias in fp32 at head dims % 16 == 0 (`rv_flash_attn_tc`), the rest of
+fp32 on the split mode (`rv_flash_attn_split`). Both take any view: a
+non-contiguous one is copied, and bases TMA cannot take go through the
+lanes.
 
 The bias mode on the bf16 core computes what the TPU kernel computes
 (reverso_tpu/ops/attention.py:148-200: one bf16 MXU pass for fp32 inputs,
@@ -26,9 +28,10 @@ the bias added in fp32): bf16(q * scale), bf16(k), bf16(p) and bf16(v)
 with fp32 sums and an fp32 bias; `attention_bf16_ref` spells that out.
 The split mode computes the TPU kernel's fp32 contract, Precision.HIGHEST:
 each fp32 operand split into three bf16 parts and six bf16 products
-summed in fp32; `attention_split_ref` spells that out. On the CPU
-`flash_attention` keeps `attention_ref`, exact in fp32, which is what the
-JAX package computes on the CPU.
+summed in fp32; `attention_split_ref` and, with RoPE on [B, S, W],
+`flash_attention_heads_split_ref` spell that out. On the CPU both entries
+keep the exact fp32 plain versions, which is what the JAX package computes
+on the CPU.
 """
 from __future__ import annotations
 
@@ -38,19 +41,27 @@ import torch
 
 from .. import kernels
 from .rope import rotate
+from .split import split_matmul
 
 
-def heads_route(device_type: str, dtype: torch.dtype, head_dim: int) -> str:
+def heads_route(device_type: str, dtype: torch.dtype, head_dim: int,
+                aligned: bool = True) -> str:
     """Which implementation serves a `flash_attention_heads` call: "plain"
-    for CPU tensors; on the card "tensor_core" for bf16 at head_dim % 16
-    == 0 and head_dim <= 128 (wgmma takes k16 steps of bf16 and the kernel
-    keeps at most 128 accumulator columns), else "cuda_core". A rule
-    between two kernels by dtype and shape, not a fallback."""
+    for CPU tensors; on the card, all on the tensor-core core,
+    "tensor_core" for bf16 at head_dim % 16 == 0, <= 128, with bases TMA
+    takes (`aligned`: 16-byte aligned q, k and v), "copy" for bf16 at other
+    head dims or bases (the producer's lanes copy and rotate the rows,
+    head dims padded to a multiple of 16 in shared memory), "split" for
+    fp32 (three bf16 parts a value, six products). Head dims above 128
+    keep their route, and its kernel refuses them. A rule between kernels
+    by dtype and shape, not a fallback."""
     if device_type == "cpu":
         return "plain"
-    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128:
+    if dtype != torch.bfloat16:
+        return "split"
+    if head_dim % 16 == 0 and head_dim <= 128 and aligned:
         return "tensor_core"
-    return "cuda_core"
+    return "copy"
 
 
 def attention_route(device_type: str, dtype: torch.dtype, head_dim: int,
@@ -124,33 +135,6 @@ def attention_bf16_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
     return (torch.matmul(p.to(bf16).float(), v.to(bf16).float()) / l).to(q.dtype)
 
 
-def split3(x: torch.Tensor) -> tuple:
-    """fp32 x as three bf16-valued fp32 parts, hi = bf16(x), mid = bf16(x -
-    hi), lo = bf16(x - hi - mid): hi + mid + lo == x exactly wherever the
-    parts are normal (the subtractions are exact in fp32)."""
-    x = x.float()
-    hi = x.to(torch.bfloat16).float()
-    mid = (x - hi).to(torch.bfloat16).float()
-    lo = (x - hi - mid).to(torch.bfloat16).float()
-    return hi, mid, lo
-
-
-# the split mode's six products, smallest first: (A part, B part) with 0 hi,
-# 1 mid, 2 lo (the table in csrc/flash_tc.cuh::split_part)
-SPLIT_TERMS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
-
-
-def split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in fp32 from the six bf16 products of their three-way splits,
-    summed smallest first (the TPU's Precision.HIGHEST on bf16 units)."""
-    ap, bp = split3(a), split3(b)
-    out = None
-    for i, j in SPLIT_TERMS:
-        t = torch.matmul(ap[i], bp[j])
-        out = t if out is None else out + t
-    return out
-
-
 def attention_split_ref(q, k, v, *, kv_valid: Optional[int] = None, scale=None,
                         rel_bias=None):
     """Plain version of the split mode ([B, H, S, D] fp32 on the tensor
@@ -205,6 +189,41 @@ def flash_attention_heads_ref(q, k, v, *, heads: int, cos=None, sin=None,
     return o.to(q.dtype).transpose(1, 2).reshape(b, s, w)
 
 
+def flash_attention_heads_split_ref(q, k, v, *, heads: int, cos=None, sin=None,
+                                    scale: Optional[float] = None,
+                                    kv_valid: Optional[int] = None):
+    """Plain version of the split mode on [B, S, W] (fp32 on the tensor
+    cores): q and k rotated in fp32 as the reference rotates them, the
+    scale folded into q, then both products as the six bf16 products of
+    three-way splits (`split_matmul`), a one-pass softmax with p = exp(s -
+    max) kept in fp32, o = (p v) / l in fp32. Used by the tests and
+    `chip_smoke.py` against the kernel; no path of the port calls it."""
+    b, s, w = q.shape
+    hd = w // heads
+    scale = float(scale) if scale is not None else hd ** -0.5
+    qh, kh, vh = (_split(t.float(), heads) for t in (q, k, v))
+    if cos is not None:
+        qh, kh = rotate(qh, cos, sin, scale), rotate(kh, cos, sin)
+    else:
+        qh = qh * scale
+    sc = split_matmul(qh, kh.transpose(-1, -2))
+    kv = s if kv_valid is None else min(int(kv_valid), s)
+    if kv < s:
+        sc[..., kv:] = float("-inf")
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = split_matmul(p, vh) / l
+    return o.transpose(1, 2).reshape(b, s, w)
+
+
+def _table(t, shape, device) -> torch.Tensor:
+    """A RoPE table as the kernels read it: fp32 and contiguous."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=device).contiguous()
+    if t.shape != shape:
+        raise ValueError(f"rope tables must be {list(shape)}, got {tuple(t.shape)}")
+    return t
+
+
 def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
                           scale: Optional[float] = None,
                           kv_valid: Optional[int] = None):
@@ -212,10 +231,11 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
     optional in-kernel 2D RoPE (cos/sin [S, head_dim] tables).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    `heads_route` picks."""
+    `heads_route` picks. Any view is taken: a non-contiguous one is copied
+    first, and bases TMA cannot take go through the producer's lanes."""
     b, s, w = q.shape
-    route = heads_route(q.device.type, q.dtype, w // heads if heads and w % heads == 0 else 0)
-    if route == "plain":
+    hd = w // heads if heads and w % heads == 0 else 0
+    if heads_route(q.device.type, q.dtype, hd) == "plain":
         return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos,
                                          sin=sin, scale=scale,
                                          kv_valid=kv_valid)
@@ -228,41 +248,32 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
             or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_heads: unsupported dtypes "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    hd = w // heads
     scale = float(scale) if scale is not None else hd ** -0.5
     kv = s if kv_valid is None else max(0, min(int(kv_valid), s))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     use_rope = cos is not None
-    if use_rope:
-        cos_t = torch.as_tensor(cos, dtype=torch.float32, device=q.device).contiguous()
-        sin_t = torch.as_tensor(sin, dtype=torch.float32, device=q.device).contiguous()
-        if cos_t.shape != (s, hd) or sin_t.shape != (s, hd):
-            raise ValueError(f"rope tables must be [{s}, {hd}], got "
-                             f"{tuple(cos_t.shape)} / {tuple(sin_t.shape)}")
-        tables = (cos_t, sin_t)
-    else:
-        tables = ()
+    tables = (_table(cos, (s, hd), q.device), _table(sin, (s, hd), q.device)) if use_rope else ()
     kernels.require_cuda("flash_attention_heads", q, k, v, *tables)
-    tc = route == "tensor_core"
-    if tc and any(t.data_ptr() % 16 for t in (q, k, v, *tables)):
-        # TMA maps and the RoPE pass's float4 table reads
-        raise ValueError("flash_attention_heads: tensors must be 16-byte aligned")
+    # the kernels read the tables' rows 16 bytes at a time: a copy only
+    # where the caller's table is not 16-byte aligned
+    tables = tuple(t.clone() if t.data_ptr() % 16 else t for t in tables)
+    route = heads_route(q.device.type, q.dtype, hd,
+                        all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    split = route == "split"
     o = torch.empty_like(q)
     cos_p = tables[0].data_ptr() if use_rope else None
     sin_p = tables[1].data_ptr() if use_rope else None
+    launch = kernels.lib().rv_flash_heads_split if split else kernels.lib().rv_flash_heads_tc
     with torch.cuda.device(q.device):   # launch on the tensors' card
-        if tc:
-            status = kernels.lib().rv_flash_heads_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
-                o.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
-                kernels.stream_ptr(q.device))
-        else:
-            status = kernels.lib().rv_flash_heads(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
-                o.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
-                kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
+        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
+                        o.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
+                        kernels.stream_ptr(q.device))
     kernels.check("flash_attention_heads", status)
     kernels.launches["flash_heads"] += 1
-    if tc:
+    if split:
+        kernels.launches["flash_heads_split"] += 1
+        kernels.shape_launches[("flash_heads_split", (b, s, w, heads))] += 1
+    else:
         kernels.launches["flash_heads_tc"] += 1
     return o
 

@@ -2,12 +2,16 @@
 
 y = act(x @ W1^T + b1) @ W2^T + b2 with weights in PyTorch Linear layout
 (W1 [H, W], W2 [W, H]). On a CPU tensor `fused_mlp` runs `mlp_ref`; on a
-CUDA tensor it launches one of two kernels of `csrc/fused_mlp.cu`, by the
-rule in `mlp_route`: bf16 at widths TMA takes goes to two wgmma + TMA GEMMs
-with fused epilogues (h = bf16(act(x W1^T + b1)) through a bf16 scratch
-of [T, H], then y = bf16(h W2^T + b2)); fp32 and other widths to the
-CUDA-core kernel, which streams the hidden dimension in chunks and never
-writes h to device memory.
+CUDA tensor it launches the wgmma + TMA GEMMs of `csrc/fused_mlp.cu`, by
+the rule in `mlp_route`: bf16 goes to two GEMMs with fused epilogues (h =
+bf16(act(x W1^T + b1)) through a bf16 scratch of [T, H], then y = bf16(h
+W2^T + b2)), at widths that are not multiples of 8 through zero-padded
+copies the split pass makes; fp32 to the same GEMMs on three bf16 parts a
+value (the TPU kernel's Precision.HIGHEST: six bf16 products summed in
+fp32, h kept in fp32 as its three parts). The weights' parts come from
+`split_mlp_weights` (the tower makes them once) or, without them, from
+the split pass on every call. `mlp_split_ref` spells the fp32 contract
+out.
 
 `fused_mlp(..., quant=True)` is the int8 mode (`ModelConfig.quant="int8"`):
 x is quantized per row, the weights per output unit (after the cast to
@@ -21,17 +25,19 @@ polynomial here, as in the JAX package's int8 kernel: one ulp at a
 rounding boundary flips an int8 quantum. `mlp_int8_ref` spells that out;
 `fused_mlp_int8` takes weights quantized once (`quantize_mlp_weights`)
 and on a CUDA tensor launches the int8 kernels (a row quantizer, then two
-s8 wgmma + TMA GEMMs through int8 scratch of the call's shape).
+s8 wgmma + TMA GEMMs through int8 scratch of the call's shape); weights
+at an unaligned base are copied first.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
 from .quant import int_dot, quantize_rows_int8, quantize_weight_int8
+from .split import round_pitch, split_matmul, split_parts
 
 ACT_CODES = {"gelu": 0, "quick_gelu": 1}
 # the int8 mode's hidden re-quantization unit (the JAX kernel's hidden_tile)
@@ -57,17 +63,31 @@ def mlp_ref(x, w1, b1, w2, b2, act: str = "gelu"):
     return y.to(x.dtype)
 
 
+def mlp_split_ref(x, w1, b1, w2, b2, act: str = "gelu"):
+    """Plain version of the fp32 mode on the tensor cores: both products as
+    the six bf16 products of three-way splits (`split_matmul`), the bias
+    added in fp32, gelu through the Abramowitz & Stegun erf as the TPU
+    kernel computes it, h kept in fp32. Used by the tests and
+    `chip_smoke.py` against the kernel; no path of the port calls it."""
+    h = split_matmul(x.float(), w1.float().t()) + b1.float()
+    h = _act_poly(h, act)
+    return split_matmul(h, w2.float().t()) + b2.float()
+
+
 def mlp_route(device_type: str, dtype: torch.dtype, width: int, hidden: int) -> str:
     """Which implementation serves a fused MLP call: "plain" for CPU
-    tensors; on the card "tensor_core" for bf16 with width % 8 == 0 and
-    hidden % 8 == 0 (TMA's 16-byte row strides; every preset), else
-    "cuda_core" (fp32, and bf16 at other widths). A rule between two
+    tensors; on the card "tensor_core" for bf16 (the two wgmma + TMA GEMMs;
+    widths and hidden sizes that are not multiples of 8, TMA's 16-byte row
+    strides, through zero-padded copies: "tensor_core_padded"), "split"
+    for fp32 (the same GEMMs on three bf16 parts a value). A rule between
     kernels by dtype and shape, not a fallback."""
     if device_type == "cpu":
         return "plain"
-    if dtype == torch.bfloat16 and width % 8 == 0 and hidden % 8 == 0:
+    if dtype == torch.float32:
+        return "split"
+    if width % 8 == 0 and hidden % 8 == 0:
         return "tensor_core"
-    return "cuda_core"
+    return "tensor_core_padded"
 
 
 def _check_square(x, w1, w2) -> int:
@@ -80,13 +100,50 @@ def _check_square(x, w1, w2) -> int:
     return width
 
 
-def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False):
+class SplitMLPWeights(NamedTuple):
+    """An fp32 MLP's weights as the split pass's bf16 parts, in Linear
+    layout with K padded to a pitch of 8 (`ops/split.py`)."""
+    w1: torch.Tensor   # [3, H, Wp] bf16
+    w2: torch.Tensor   # [3, W, Hp] bf16
+
+
+def split_mlp_weights(w1, w2) -> SplitMLPWeights:
+    """The weights' parts for the fp32 mode: hi, mid and lo of W1 [H, W]
+    and W2 [W, H], made once by the split pass (the tower caches them)."""
+    return SplitMLPWeights(split_parts(w1.float(), 3), split_parts(w2.float(), 3))
+
+
+def _aligned(t: torch.Tensor, align: int = 16) -> torch.Tensor:
+    """t itself where its base is aligned, else a copy (a fresh allocation
+    is): the copy only where TMA or a vector load needs it."""
+    return t.clone() if t.data_ptr() % align else t
+
+
+def _launch_tc(x2, w1, b1, w2, b2, act: str) -> torch.Tensor:
+    """The two bf16 GEMMs on [T, W] rows at W, H % 8 == 0."""
+    t, width, hidden = x2.shape[0], x2.shape[1], w1.shape[0]
+    out = torch.empty_like(x2)
+    h = torch.empty((t, hidden), dtype=x2.dtype, device=x2.device)
+    with torch.cuda.device(x2.device):   # launch on the tensors' card
+        status = kernels.lib().rv_fused_mlp_tc(
+            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            h.data_ptr(), out.data_ptr(), t, width, hidden, ACT_CODES[act],
+            kernels.stream_ptr(x2.device))
+    kernels.check("fused_mlp", status)
+    return out
+
+
+def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
+              parts: Optional[SplitMLPWeights] = None):
     """Fused MLP over [..., T, W] inputs (leading dims flattened).
 
     The kernel's output is as wide as its input, so the MLP must be
     square: W1 [H, W], W2 [W, H]. `quant=True` runs the int8 mode, with
     the weights quantized on this call (the tower quantizes once and
-    calls `fused_mlp_int8`)."""
+    calls `fused_mlp_int8`). In fp32 on the card, `parts` are the weights'
+    bf16 parts from `split_mlp_weights(w1, w2)` (without them the split
+    pass makes them on this call). Any view is taken: x is made
+    contiguous, and a base TMA cannot take is copied."""
     width = _check_square(x, w1, w2)
     if act not in ACT_CODES:
         raise ValueError(act)
@@ -103,32 +160,51 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False):
         raise ValueError("fused_mlp: x, weights and biases must share one "
                          "dtype (float32 or bfloat16)")
     x2 = x2.contiguous()
+    w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
     kernels.require_cuda("fused_mlp", x2, w1, b1, w2, b2)
-    out = torch.empty_like(x2)
-    if x2.shape[0] == 0:
-        return out.reshape(shape)
-    tc = route == "tensor_core"
-    if tc and (any(t.data_ptr() % 16 for t in (x2, w1, w2))
-               or any(t.data_ptr() % 4 for t in (b1, b2))):
-        raise ValueError("fused_mlp: x and the weights must be 16-byte aligned "
-                         "(TMA), the biases 4-byte aligned")
-    with torch.cuda.device(x.device):   # launch on the tensors' card
-        if tc:
-            h = torch.empty((x2.shape[0], hidden), dtype=x.dtype, device=x.device)
-            status = kernels.lib().rv_fused_mlp_tc(
-                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), h.data_ptr(), out.data_ptr(), x2.shape[0], width,
-                hidden, ACT_CODES[act], kernels.stream_ptr(x.device))
-        else:
-            status = kernels.lib().rv_fused_mlp(
-                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), out.data_ptr(), x2.shape[0], width, hidden,
-                ACT_CODES[act], kernels.DTYPE_CODES[x.dtype],
-                kernels.stream_ptr(x.device))
-    kernels.check("fused_mlp", status)
-    kernels.launches["fused_mlp"] += 1
-    if tc:
+    t = x2.shape[0]
+    if t == 0:
+        return torch.empty_like(x2).reshape(shape)
+    if route == "split":
+        wp, hp = round_pitch(width), round_pitch(hidden)
+        if parts is None:
+            parts = split_mlp_weights(w1, w2)
+        elif parts.w1.shape != (3, hidden, wp) or parts.w2.shape != (3, width, hp):
+            raise ValueError(f"fused_mlp: weight parts {tuple(parts.w1.shape)}, "
+                             f"{tuple(parts.w2.shape)} do not fit W {width}, H {hidden}")
+        kernels.require_cuda("fused_mlp", x2, *parts)
+        out = torch.empty_like(x2)
+        # scratch, made for this call's shape: x's and h's parts
+        xp = torch.empty((3, t, wp), dtype=torch.bfloat16, device=x.device)
+        hpart = torch.empty((3, t, hp), dtype=torch.bfloat16, device=x.device)
+        w1p, w2p = (_aligned(p) for p in parts)
+        with torch.cuda.device(x.device):   # launch on the tensors' card
+            status = kernels.lib().rv_fused_mlp_split(
+                x2.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
+                xp.data_ptr(), hpart.data_ptr(), out.data_ptr(), t, width, hidden,
+                ACT_CODES[act], kernels.stream_ptr(x.device))
+        kernels.check("fused_mlp", status)
+        kernels.launches["fused_mlp_split"] += 1
+        kernels.shape_launches[("fused_mlp_split", (t, width, hidden))] += 1
+    elif route == "tensor_core":
+        # TMA and 16-byte stores: 16-byte aligned x and weights, 4-byte
+        # aligned biases (read as bf16 pairs)
+        x2, w1, w2 = _aligned(x2), _aligned(w1), _aligned(w2)
+        b1, b2 = _aligned(b1, 4), _aligned(b2, 4)
+        out = _launch_tc(x2, w1, b1, w2, b2, act)
         kernels.launches["fused_mlp_tc"] += 1
+    else:
+        # widths TMA cannot take: x and the weights zero-padded to a pitch of
+        # 8 by the split pass's one-part form, the biases by zeros; the pad
+        # columns of h are act(0) = 0 against zero columns of W2
+        wp, hp = round_pitch(width), round_pitch(hidden)
+        xp = split_parts(x2, 1)[0]
+        w1p = split_parts(w1, 1, out_rows=hp)[0]
+        w2p = split_parts(w2, 1, out_rows=wp)[0]
+        b1p, b2p = F.pad(b1, (0, hp - hidden)), F.pad(b2, (0, wp - width))
+        out = _launch_tc(xp, w1p, b1p, w2p, b2p, act)[:, :width].contiguous()
+        kernels.launches["fused_mlp_tc"] += 1
+    kernels.launches["fused_mlp"] += 1
     return out.reshape(shape)
 
 
@@ -150,7 +226,7 @@ def gelu_exactish(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + erf)
 
 
-def _act_int8(h: torch.Tensor, act: str) -> torch.Tensor:
+def _act_poly(h: torch.Tensor, act: str) -> torch.Tensor:
     if act == "gelu":
         return gelu_exactish(h)
     if act == "quick_gelu":
@@ -186,7 +262,7 @@ def mlp_int8_plain(x2: torch.Tensor, qw: Int8MLPWeights, act: str) -> torch.Tens
     for lo in range(0, hid, HIDDEN_CHUNK):
         hi = min(hid, lo + HIDDEN_CHUNK)
         h = int_dot(x8, qw.w1[lo:hi]).float() * (xs * qw.s1[lo:hi]) + qw.b1[lo:hi]
-        h8, hs = quantize_rows_int8(_act_int8(h, act))
+        h8, hs = quantize_rows_int8(_act_poly(h, act))
         term = int_dot(h8, qw.w2[:, lo:hi]).float() * (hs * qw.s2)
         acc = term if acc is None else acc + term
     if acc is None:
@@ -241,8 +317,7 @@ def fused_mlp_int8(x, qw: Int8MLPWeights, *, act: str = "gelu"):
     t, hid = x2.shape[0], qw.w1.shape[0]
     if t == 0:
         return out.reshape(shape)
-    if w1.data_ptr() % 16 or w2.data_ptr() % 16:
-        raise ValueError("fused_mlp_int8: the int8 weights must be 16-byte aligned (TMA)")
+    w1, w2 = _aligned(w1), _aligned(w2)   # TMA: a copy only of an unaligned base
     # scratch, made for this call's shape: x and h quantized, their scales
     i8 = dict(dtype=torch.int8, device=x.device)
     x8 = torch.empty((t, w1.shape[1]), **i8)

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""The rows a kernel change should leave as they are, measured in the tree
+given (default: this checkout) on one card: each kernel's time
+(`chip_smoke.py::cuda_ms`) and a hash of its output at the main paths'
+shapes (K3 bf16 with RoPE at B = 8; K4 bf16 at T = 4616 and 36,928; K5 at
+T = 4616; K7 bf16 at B = 8, S = 1297 and fp32 at B = 2; K6 at SAM's
+shape with bf16 operands and on the split mode), the B = 64
+PE-Core-L14-336 forwards in bf16 and int8 (`chip_smoke.py::profiled`:
+host wall, device busy, output hash) and the 32-image region build
+(`chip_smoke.py::region_run`). Prints one line, RESULT {json}.
+
+    python3 scripts/compare_trees.py [tree root]
+
+Run a parent checkout and the change in turns in one call (parent,
+change, change, parent): equal hashes mean equal outputs bit for bit.
+Builds nothing itself: the tree's kernels build at first use. Needs a
+CUDA card and nvcc.
+"""
+import contextlib
+import dataclasses
+import hashlib
+import importlib
+import io
+import json
+import os
+import sys
+import tempfile
+
+ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                       os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> int:
+    os.chdir(ROOT)
+    sys.path.insert(0, ROOT)
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_trees: CUDA is not available", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.lib()
+    attn = importlib.import_module("reverso_tpu_torch.ops.attention")
+    mlp = importlib.import_module("reverso_tpu_torch.ops.fused_mlp")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def r(*shape, sc=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen, device="cuda") * sc).to(dt)
+
+    def digest(t):
+        return hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]
+
+    res = {"tree": ROOT}
+
+    def row(name, fn, iters=20):
+        out = fn()
+        torch.cuda.synchronize()
+        res[name] = [round(cs.cuda_ms(fn, iters=iters), 4), digest(out)]
+
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_2d_tables(24, 64))
+    q, k, v = (r(8, 577, 1024, dt=bf16) for _ in range(3))
+    row("k3_bf16", lambda: attn.flash_attention_heads(q, k, v, heads=16, cos=cos, sin=sin))
+    w, hid = 1024, 4096
+    wb = [z.to(bf16) for z in (r(hid, w, sc=w ** -0.5), r(hid, sc=0.02),
+                               r(w, hid, sc=hid ** -0.5), r(w, sc=0.02))]
+    x = r(4616, w, dt=bf16)
+    row("k4_bf16_t4616", lambda: mlp.fused_mlp(x, *wb))
+    x64 = r(36928, w, dt=bf16)
+    row("k4_bf16_t36928", lambda: mlp.fused_mlp(x64, *wb), iters=10)
+    qw = mlp.quantize_mlp_weights(*wb, bf16)
+    row("k5_t4616", lambda: mlp.fused_mlp_int8(x, qw))
+    del x64
+    q, k, v = (r(8, 16, 1297, 64, dt=bf16) for _ in range(3))
+    row("k7_bf16", lambda: attn.flash_attention(q, k, v))
+    q, k, v = (r(2, 16, 1297, 64) for _ in range(3))
+    row("k7_f32", lambda: attn.flash_attention(q, k, v))
+    q, k, v = (r(4, 12, 4096, 64) for _ in range(3))
+    bias = (r(4, 12, 4096, 64, sc=0.5), r(4, 12, 4096, 64, sc=0.5), 64)
+    row("k6_fp32_in_bf16_operands", lambda: attn.flash_attention(q, k, v, rel_bias=bias),
+        iters=10)
+    o = torch.empty_like(q)
+
+    def k6_split():
+        status = kernels.lib().rv_flash_attn_split(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias[0].data_ptr(), bias[1].data_ptr(),
+            o.data_ptr(), 48, 4096, 4096, 64, 64, 4096, 64 ** -0.5, kernels.stream_ptr(q.device))
+        kernels.check("rv_flash_attn_split", status)
+        return o
+
+    row("k6_split", k6_split, iters=5)
+    del q, k, v, bias, o
+    torch.cuda.empty_cache()
+    imgs = torch.randn(64, 336, 336, 3, generator=torch.Generator().manual_seed(9)).cuda()
+    for quant in ("none", "int8"):
+        cfg = MODEL_PRESETS["PE-Core-L14-336"]
+        if quant == "int8":
+            cfg = dataclasses.replace(cfg, quant="int8")
+        enc = PerceptionEncoder(cfg, seed=3, device="cuda")
+        with torch.inference_mode():
+            prof = cs.profiled(torch, lambda: enc.module(imgs))
+            res[f"forward_b64_{quant}"] = [round(prof["wall_ms"], 3),
+                                           round(prof["device_busy_ms"], 3),
+                                           digest(enc.module(imgs))]
+        del enc
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cs.region_run(tmp)
+        line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("region slice: ")][0]
+        res["region_build_s"] = round(json.loads(line[len("region slice: "):])["build_s"], 3)
+    print("RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

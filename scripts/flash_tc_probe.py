@@ -5,16 +5,18 @@ flash_tc.cuh`), its bf16 modes and its fp32 split mode, timed on one card.
     python3 scripts/flash_tc_probe.py [variant ...]
 
 Copies `csrc/` once per variant (each in a temporary directory), applies
-the variant's edits to `flash_tc.cuh`, and compiles the three flash
-sources of every variant at once into a library of their own, with
+the variant's edits to `flash_tc.cuh` (or `hopper.cuh`), and compiles
+the four flash sources of every variant at once (a `split_` variant only
+the split mode's two) into a library of their own, with
 ptxas's registers and spill bytes of the split mode's instantiations
 printed. Then, one process per variant, it times by CUDA events after a
 device sleep (`chip_smoke.py::cuda_ms`, 30 calls) and, for the split
 mode, holds each result against the fp32 `attention_ref` (max abs err):
 
-  * the split mode: K7 in fp32 (B = 2, H = 16, S = 1297, D = 64) and K6
+  * the split mode: K7 in fp32 (B = 2, H = 16, S = 1297, D = 64), K6
     with fp32 operands (SAM's global layer, B = 4, H = 12, S = 4096, D =
-    64, G = 64, the bias mode of a tile one lattice row), beside SDPA;
+    64, G = 64, the bias mode of a tile one lattice row), beside SDPA, and
+    K3 in fp32 with RoPE (B = 2 and 8, S = 577, W = 1024, 16 heads);
   * the bf16 core ("shipped" and the tile variants only): K3 (B = 8,
     S = 577, W = 1024, 16 heads, RoPE tables on the card, and its no-RoPE
     mode), K7 (B = 8, S = 1297, bf16) and K6 (fp32 inputs with the
@@ -26,7 +28,7 @@ of the RoPE pass (every key reading the tables' row 0: they stay in L1,
 the results are wrong; K tiles left unrotated); the split mode's design
 choices (nine products, exact exp2f, the PV product in one tensor-core
 accumulator, no register hand-over, two ring stages, one consumer
-warpgroup); and, for
+warpgroup, batches of four units in the lanes' RoPE loads); and, for
 where the split mode's time goes, the loop with parts of it left out (the
 results are wrong): the producers' split pass, the softmax, the split of
 p, and all three ("products only"). Names on the command line pick
@@ -44,9 +46,15 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLASH_SOURCES = ("flash_attn.cu", "flash_attn_split.cu", "flash_heads.cu")
-FLASH_LAUNCHERS = ("rv_flash_heads", "rv_flash_heads_tc", "rv_flash_attn_tc",
+FLASH_SOURCES = ("flash_attn.cu", "flash_attn_split.cu", "flash_heads.cu",
+                 "flash_heads_split.cu")
+FLASH_LAUNCHERS = ("rv_flash_heads_tc", "rv_flash_heads_split", "rv_flash_attn_tc",
                    "rv_flash_attn_split")
+SPLIT_SOURCES = ("flash_attn_split.cu", "flash_heads_split.cu")
+SPLIT_LAUNCHERS = ("rv_flash_attn_split", "rv_flash_heads_split")
+# the sources a variant's edits may touch (the split mode's product table
+# sits in hopper.cuh)
+EDITED = ("flash_tc.cuh", "hopper.cuh")
 
 
 def split_only(name: str) -> bool:
@@ -61,17 +69,17 @@ SKIP_SOFTMAX = ("softmax_tile<BK, BIAS == kBiasRow>(sc,",
 SKIP_P_SPLIT = ("        if constexpr (PARTS == 3) {\n            split2(sc",
                 "        if constexpr (false) {\n            split2(sc")
 
-# name -> [(text in flash_tc.cuh, replacement)]; "shipped" edits nothing
+# name -> [(text in flash_tc.cuh or hopper.cuh, replacement)]; "shipped"
+# edits nothing
 VARIANTS = {
     "shipped": [],
     "rope_tables_row_0": [("(size_t)(row0 + r) * HD", "(size_t)0")],
     "rope_k_unrotated": [("rope_tile<HD, BK, 32>(ks", "if (false) rope_tile<HD, BK, 32>(ks")],
-    "one_warpgroup_with_rope": [("NWG = ROPE || (SPLIT && HD <= 64) ? 2 : 1;",
+    "one_warpgroup_with_rope": [("NWG = SPLIT ? (HD <= 64 ? 2 : 1) : ROPE ? 2 : 1;",
                                  "NWG = SPLIT && HD <= 64 ? 2 : 1;")],
-    "two_warpgroups_without_rope": [("NWG = ROPE || (SPLIT && HD <= 64) ? 2 : 1;",
-                                     "NWG = 2;")],
+    "two_warpgroups_without_rope": [("NWG = SPLIT ? (HD <= 64 ? 2 : 1) : ROPE ? 2 : 1;", "NWG = 2;")],
     "keys_per_tile_128": [("constexpr int kBK = 64;", "constexpr int kBK = 128;")],
-    "three_stages": [("STAGES = ROPE ? 6 : SPLIT ? 3 : 4;", "STAGES = 3;")],
+    "three_stages": [("STAGES = ROTATING_WARPS ? 6 : SPLIT ? 3 : 4;", "STAGES = 3;")],
     "split_nine_products": [
         ("constexpr int kSplitTerms = 6;", "constexpr int kSplitTerms = 9;"),
         ("{{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}}",
@@ -81,9 +89,11 @@ VARIANTS = {
     "split_one_accumulator": [("constexpr bool PROMOTE = PARTS == 3;",
                                "constexpr bool PROMOTE = false;")],
     "split_no_register_handover": [("SPLIT && NWG == 2 ? (HD % 32 ? 136 : 120) : 0", "0")],
-    "split_two_stages": [("STAGES = ROPE ? 6 : SPLIT ? 3 : 4;",
-                          "STAGES = ROPE ? 6 : SPLIT ? 2 : 4;")],
-    "split_one_warpgroup": [("NWG = ROPE || (SPLIT && HD <= 64) ? 2 : 1;", "NWG = ROPE ? 2 : 1;")],
+    "split_two_stages": [("STAGES = ROTATING_WARPS ? 6 : SPLIT ? 3 : 4;",
+                          "STAGES = ROTATING_WARPS ? 6 : SPLIT ? 2 : 4;")],
+    "split_rope_batch_4": [("    constexpr int BATCH = ITERS < 2 ? ITERS : 2;\n    constexpr int QH",
+                            "    constexpr int BATCH = ITERS < 4 ? ITERS : 4;\n    constexpr int QH")],
+    "split_one_warpgroup": [("NWG = SPLIT ? (HD <= 64 ? 2 : 1) : ROPE ? 2 : 1;", "NWG = SPLIT ? 1 : ROPE ? 2 : 1;")],
     "split_pass_skipped": [SKIP_SPLIT_PASS],
     "split_softmax_skipped": [SKIP_SOFTMAX],
     "split_p_unsplit": [SKIP_P_SPLIT],
@@ -101,15 +111,16 @@ def start_build(name: str, work: str) -> dict:
     from reverso_tpu_torch import kernels
     csrc = os.path.join(work, name)
     shutil.copytree(kernels.CSRC, csrc)
-    path = os.path.join(csrc, "flash_tc.cuh")
-    text = open(path).read()
+    texts = {f: open(os.path.join(csrc, f)).read() for f in EDITED}
     for old, new in VARIANTS[name]:
-        if old not in text:
-            raise RuntimeError(f"{name}: {old!r} not in flash_tc.cuh")
-        text = text.replace(old, new)
-    open(path, "w").write(text)
+        where = [f for f in EDITED if old in texts[f]]
+        if not where:
+            raise RuntimeError(f"{name}: {old!r} not in {' or '.join(EDITED)}")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    for f, text in texts.items():
+        open(os.path.join(csrc, f), "w").write(text)
     jobs = {}
-    for src in ("flash_attn_split.cu",) if split_only(name) else FLASH_SOURCES:
+    for src in SPLIT_SOURCES if split_only(name) else FLASH_SOURCES:
         obj = os.path.join(csrc, src + ".o")
         cmd = [nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
                os.path.join(csrc, src)]
@@ -164,11 +175,12 @@ def run_variant(name: str, lib_path: str) -> dict:
     from chip_smoke import cuda_ms
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (attention_ref, flash_attention,
-                                                  flash_attention_heads)
+                                                  flash_attention_heads,
+                                                  flash_attention_heads_ref)
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     kernels.build = lambda force=False: lib_path
-    launchers = ("rv_flash_attn_split",) if split_only(name) else FLASH_LAUNCHERS
+    launchers = SPLIT_LAUNCHERS if split_only(name) else FLASH_LAUNCHERS
     kernels._SIGNATURES = {k: v for k, v in kernels._SIGNATURES.items() if k in launchers}
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = kernels.lib()
@@ -199,6 +211,18 @@ def run_variant(name: str, lib_path: str) -> dict:
     out["k6_f32_err"] = float((split(q, k, v, bias) - attention_ref(q, k, v, rel_bias=bias))
                               .abs().max())
     out["k6_f32_ms"] = cuda_ms(lambda: split(q, k, v, bias), iters=10)
+    # K3 in fp32: heads in lanes with RoPE (the lanes rotate, then split), at
+    # the depth-2 tower's B = 2 and the full-depth forward's B = 8
+    cos, sin = (torch.from_numpy(t).cuda() for t in rope_2d_tables(24, 64, cls_token=True))
+    q3, k3, v3 = (torch.randn(8, 577, 1024, generator=gen, device="cuda") for _ in range(3))
+    kw = dict(heads=16, cos=cos, sin=sin)
+    out["k3_f32_err"] = float((flash_attention_heads(q3[:2], k3[:2], v3[:2], **kw)
+                               - flash_attention_heads_ref(q3[:2], k3[:2], v3[:2], **kw))
+                              .abs().max())
+    out["k3_f32_ms"] = cuda_ms(lambda: flash_attention_heads(q3[:2], k3[:2], v3[:2], **kw),
+                               iters=30)
+    out["k3_f32_b8_ms"] = cuda_ms(lambda: flash_attention_heads(q3, k3, v3, **kw), iters=30)
+    del q3, k3, v3
     if split_only(name):
         return out
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Tile variants of the ViT MLP's wgmma + TMA GEMMs (`reverso_tpu_torch/
-csrc/fused_mlp.cu`, K4 in bf16) timed on one card.
+csrc/fused_mlp.cu`, K4 in bf16 and in fp32 on split parts) timed on one
+card.
 
-    python3 scripts/mlp_tc_probe.py
+    python3 scripts/mlp_tc_probe.py [variant ...]
 
 Compiles `fused_mlp.cu` alone once per variant (all nvcc runs at once,
 each into its own library in a temporary directory, with ptxas's
@@ -13,9 +14,12 @@ CUDA events after a device sleep (`chip_smoke.py::cuda_ms`, 20 calls):
 each GEMM on the wide (128 x 256) and the narrow (128 x 128) tile, GEMM 1
 also without its activation (the epilogue's cost), the MLP as shipped
 (each GEMM's tile by the launcher's rule), and the cuBLAS route
-(`F.linear`, `F.gelu`, `F.linear`) beside them. A variant edits a tile
-config (`GemmCfg<BN, STAGES>`). Prints the card and one JSON line per
-variant. Needs a CUDA card and nvcc.
+(`F.linear`, `F.gelu`, `F.linear`) beside them; then the fp32 MLP on the
+split GEMMs (`rv_fused_mlp_split`, the weights' parts made once) at
+T = 1154 and 4616, held against the plain version, beside the fp32 cuBLAS
+route. A variant edits a tile config (`GemmCfg<BN, STAGES, PARTS>`);
+names on the command line pick variants (default: all). Prints the card
+and one JSON line per variant. Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -29,13 +33,18 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHIPPED = {"GemmWide": "GemmCfg<256, 4>", "GemmNarrow": "GemmCfg<128, 4>"}
+SHIPPED = {"GemmWide": "GemmCfg<256, 4>", "GemmNarrow": "GemmCfg<128, 4>",
+           "GemmSplit": "GemmCfg<128, 4, 3>"}
 # name -> {tile config: its replacement}
 VARIANTS = {
     "shipped": {},
     "narrow_3_stages": {"GemmNarrow": "GemmCfg<128, 3>"},
     "narrow_6_stages": {"GemmNarrow": "GemmCfg<128, 6>"},
     "wide_3_stages": {"GemmWide": "GemmCfg<256, 3>"},
+    # the split GEMMs: 128 x 64 tiles (twice the CTAs: GEMM 2 at T = 1154
+    # has 80 of 128 x 128 for 132 SMs) with six stages, a ring of three
+    "split_narrow_6_stages": {"GemmSplit": "GemmCfg<64, 6, 3>"},
+    "split_3_stages": {"GemmSplit": "GemmCfg<128, 3, 3>"},
 }
 # one GEMM on one tile config, for timing (appended to the variant's copy)
 PROBE_LAUNCHERS = """
@@ -79,9 +88,11 @@ def ptxas_usage(log: str) -> dict:
         if m:
             fn = m.group(1)
             continue
-        if fn and "fused_mlp_wgmma" in fn:
-            cfg = re.search(r"GemmCfgILi(\d+)ELi(\d+)E", fn)
+        if fn and ("fused_mlp_wgmma" in fn or "fused_mlp_split" in fn):
+            cfg = re.search(r"GemmCfgILi(\d+)ELi(\d+)ELi(\d)E", fn)
             key = "x".join(cfg.groups()) if cfg else fn
+            if "fused_mlp_split" in fn:   # by the epilogue: h's parts or fp32 y
+                key += "_h_parts" if "ELi1EE" in fn else "_y_f32"
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 out.setdefault(key, {})["registers"] = int(m.group(1))
@@ -103,6 +114,8 @@ def run_variant(name: str, lib_path: str) -> dict:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rv_probe_gemm.argtypes = [I, P, P, P, P, I, I, I, I, P]
     lib.rv_fused_mlp_tc.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.rv_fused_mlp_split.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.rv_split_parts.argtypes = [P, P, I, I, I, I, I, I, P]
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
@@ -163,6 +176,46 @@ def run_variant(name: str, lib_path: str) -> dict:
                            "bfloat16")[0])
         out[f"T{t}"] = r
         del x, h, y, h2, y2, ref, h_ref
+
+    # fp32 on the split GEMMs: the weights' parts made once (as the tower
+    # caches them), x's split pass inside each call
+    f32 = torch.float32
+    w1f, b1f, w2f, b2f = (p.to(f32) for p in (w1, b1, w2, b2))
+
+    def parts(m):
+        p = torch.empty(3, m.shape[0], m.shape[1], dtype=bf16, device="cuda")
+        st = lib.rv_split_parts(m.data_ptr(), p.data_ptr(), m.shape[0], m.shape[1], m.shape[0],
+                                m.shape[1], 3, 0, stream)
+        if st:
+            raise RuntimeError(f"{name}: split pass status {st}")
+        return p
+
+    w1p, w2p = parts(w1f), parts(w2f)
+    for t in (1154, 4616):
+        x = torch.randn(t, w, generator=gen, device="cuda")
+        xp = torch.empty(3, t, w, dtype=bf16, device="cuda")
+        hp = torch.empty(3, t, hid, dtype=bf16, device="cuda")
+        y = torch.empty(t, w, dtype=f32, device="cuda")
+
+        def mlp32():
+            st = lib.rv_fused_mlp_split(x.data_ptr(), w1p.data_ptr(), b1f.data_ptr(),
+                                        w2p.data_ptr(), b2f.data_ptr(), xp.data_ptr(),
+                                        hp.data_ptr(), y.data_ptr(), t, w, hid,
+                                        ACT_CODES["gelu"], stream)
+            if st:
+                raise RuntimeError(f"{name}: fp32 MLP status {st}")
+
+        mlp32()
+        err = float((y - mlp_ref(x, w1f, b1f, w2f, b2f, act="gelu")).abs().max())
+        if err > 1e-4:
+            raise AssertionError(f"{name} fp32 T={t}: max abs err {err}")
+        out[f"f32_T{t}"] = dict(
+            max_abs_err=err, mlp_ms=cuda_ms(mlp32, iters=20),
+            cublas_route_ms=cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1f, b1f)), w2f, b2f),
+                                    iters=20),
+            bound_ms=bound((2 * t * w + 2 * hid * w + hid + w) * 4, 4 * t * w * hid,
+                           "float32_split")[0])
+        del x, xp, hp, y
     return out
 
 
@@ -183,7 +236,8 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="mlp_tc_probe_")
     rc = 0
     try:
-        builds = {name: start_build(name, work) for name in VARIANTS}
+        names = sys.argv[1:] or list(VARIANTS)
+        builds = {name: start_build(name, work) for name in names}
         libs = {}
         for name, (lib, proc) in builds.items():
             log_out, log_err = proc.communicate()

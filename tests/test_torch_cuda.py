@@ -40,14 +40,11 @@ def _assert_close(out, ref, tol):
     assert diff.numel() == 0 or float(diff.max()) <= tol
 
 
-def _uses_tensor_cores(dtype, head_dim, heads_in_lanes=False):
+def _uses_tensor_cores(dtype, head_dim):
     """The wrappers' dispatch rules (ops/attention.py::heads_route and
-    attention_route): whether a call takes the bf16 tensor-core core. Heads
-    in lanes: bf16 at head dims % 16 == 0, <= 128 (else the CUDA-core
-    kernel); [B, H, S, D]: bf16 at every head dim <= 128 (padded to a
-    multiple of 16; fp32 takes the core's split mode)."""
-    if heads_in_lanes:
-        return dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128
+    attention_route): whether a call takes the bf16 tensor-core core (heads
+    in lanes: through TMA or the lanes' copy) rather than its fp32 split
+    mode: bf16 at every head dim <= 128 (padded to a multiple of 16)."""
     return dtype == torch.bfloat16 and head_dim <= 128
 
 
@@ -66,11 +63,15 @@ def _uses_tensor_cores(dtype, head_dim, heads_in_lanes=False):
     (1, 129, 1024, 16, 128, True),    # kv_valid = S - 1
     (64, 33, 1024, 16, None, True),   # B * H = 1024
     (1, 70, 256, 4, 0, True),         # kv_valid = 0: NaN, as the plain version
+    (2, 37, 80, 4, None, True),       # hd 20: padded to 32, the lanes' rotation per element
+    (1, 129, 160, 4, 100, True),      # hd 40: padded to 48
+    (2, 65, 96, 4, 64, False),        # hd 24, no RoPE
 ])
 def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (flash_attention_heads,
-                                                  flash_attention_heads_ref)
+                                                  flash_attention_heads_ref,
+                                                  flash_attention_heads_split_ref)
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     gen = torch.Generator(device="cuda").manual_seed(s)
@@ -82,16 +83,20 @@ def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
         grid = int(np.sqrt(s - 1))
         c, sn = rope_2d_tables(grid, w // heads)
         cos[:len(c)], sin[:len(c)] = c[:s], sn[:s]
-    n0, t0 = kernels.launches["flash_heads"], kernels.launches["flash_heads_tc"]
+    counts = ("flash_heads", "flash_heads_tc", "flash_heads_split")
+    before = [kernels.launches[c] for c in counts]
     out = flash_attention_heads(q, k, v, heads=heads, cos=cos, sin=sin,
                                 kv_valid=kv_valid)
-    assert kernels.launches["flash_heads"] == n0 + 1
-    tc = _uses_tensor_cores(dtype, w // heads, heads_in_lanes=True)
-    assert kernels.launches["flash_heads_tc"] == t0 + int(tc)
+    tc = _uses_tensor_cores(dtype, w // heads)   # else the split mode (fp32)
+    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [1, int(tc), int(not tc)]
     ref = flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin,
                                     kv_valid=kv_valid)
     torch.cuda.synchronize()
     _assert_close(out, ref, TOLS[dtype])
+    if not tc:
+        split = flash_attention_heads_split_ref(q, k, v, heads=heads, cos=cos, sin=sin,
+                                                kv_valid=kv_valid)
+        _assert_close(out, split, TOLS[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -99,28 +104,35 @@ def test_flash_heads_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     (50, 64, 256, "gelu"),            # test-tiny
     (33, 64, 256, "quick_gelu"),
     (577, 1024, 4096, "gelu"),        # PE-L14 widths
-    (100, 1536, 8960, "gelu"),        # PE-G14 widths: 16-row CUDA-core tiles
+    (100, 1536, 8960, "gelu"),        # PE-G14 widths
     (1000, 1024, 4096, "quick_gelu"),  # T % 128 != 0: a ragged GEMM row tile
     (130, 72, 200, "gelu"),           # W, H % 8 == 0 but not whole GEMM tiles
-    (40, 68, 252, "gelu"),            # W % 8 != 0: bf16 on the CUDA-core kernel
+    (40, 68, 252, "gelu"),            # W % 8 != 0: padded copies (bf16), a padded pitch (fp32)
+    (4616, 1024, 4096, "gelu"),       # PE-L14 at B = 8: the fp32 tower's forward
 ])
 def test_fused_mlp_kernel(dev, dtype, t, w, hid, act):
+    """bf16 on the wgmma GEMMs (padded at widths % 8 != 0), fp32 on the
+    same GEMMs in the split mode, held against `mlp_ref` (and fp32 also
+    against `mlp_split_ref`)."""
     from reverso_tpu_torch import kernels
-    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref, mlp_split_ref
 
     gen = torch.Generator(device="cuda").manual_seed(t)
     x = _randn(gen, t, w, dtype=dtype)
     w1, b1 = _randn(gen, hid, w, dtype=dtype, scale=w ** -0.5), _randn(gen, hid, dtype=dtype, scale=0.1)
     w2, b2 = _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5), _randn(gen, w, dtype=dtype, scale=0.1)
-    n0, t0 = kernels.launches["fused_mlp"], kernels.launches["fused_mlp_tc"]
+    counts = ("fused_mlp", "fused_mlp_tc", "fused_mlp_split")
+    before = [kernels.launches[c] for c in counts]
     out = fused_mlp(x, w1, b1, w2, b2, act=act)
-    assert kernels.launches["fused_mlp"] == n0 + 1
-    tc = dtype == torch.bfloat16 and w % 8 == 0 and hid % 8 == 0
-    assert kernels.launches["fused_mlp_tc"] == t0 + int(tc)
+    tc = dtype == torch.bfloat16
+    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [1, int(tc), int(not tc)]
     ref = mlp_ref(x, w1, b1, w2, b2, act=act)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else TOLS[dtype]
     assert float((out.float() - ref.float()).abs().max()) <= tol
+    if not tc:
+        split = mlp_split_ref(x, w1, b1, w2, b2, act=act)
+        assert float((out - split).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -295,6 +307,118 @@ def test_flash_attn_unaligned_kernel(dev, dtype, d):
     ref = attention_ref(q, k, v, kv_valid=90)
     torch.cuda.synchronize()
     _assert_close(out, ref, TOLS[dtype])
+
+
+def _offset_view(gen, shape, dtype):
+    """A [shape] view one element into its buffer: contiguous, its base
+    not 16-byte aligned."""
+    size = int(np.prod(shape))
+    view = _randn(gen, size + 1, dtype=dtype)[1:].view(shape)
+    assert view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("view", ["offset", "columns"])
+def test_flash_heads_views_kernel(dev, dtype, view):
+    """K3 on views the JAX function takes: q, k and v one element into their
+    buffers (bf16 through the lanes' copy, which rotates K as it loads it),
+    or column slices of one [B, S, 3W] qkv buffer (non-contiguous, copied
+    first), with RoPE and kv_valid < S: equal to the plain version within
+    the dtype's tolerance, and bit for bit to the same values passed as
+    fresh contiguous tensors (the copy route computes what TMA's does)."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import (flash_attention_heads,
+                                                  flash_attention_heads_ref)
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    b, s, w, heads = 2, 145, 256, 4
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    if view == "offset":
+        q, k, v = (_offset_view(gen, (b, s, w), dtype) for _ in range(3))
+    else:
+        qkv = _randn(gen, b, s, 3 * w, dtype=dtype)
+        q, k, v = qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:]
+        assert not q.is_contiguous()
+    cos, sin = rope_2d_tables(12, w // heads)
+    kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=130)
+    counts = ("flash_heads_tc", "flash_heads_split")
+    before = [kernels.launches[c] for c in counts]
+    out = flash_attention_heads(q, k, v, **kw)
+    bf = dtype == torch.bfloat16
+    assert [kernels.launches[c] - n for c, n in zip(counts, before)] == [int(bf), int(not bf)]
+    fresh = flash_attention_heads(*(t.clone(memory_format=torch.contiguous_format)
+                                    for t in (q, k, v)), **kw)
+    ref = flash_attention_heads_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, ref, TOLS[dtype])
+    assert torch.equal(out, fresh)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("view", ["offset", "columns"])
+def test_fused_mlp_views_kernel(dev, dtype, view):
+    """K4 on views: x, the weights and the biases one element into their
+    buffers (copied only where TMA or the bias loads need it: bf16; fp32 x
+    goes straight to the split pass), or x a column slice of a wider
+    buffer (non-contiguous): equal to the plain version within the dtype's
+    tolerance and bit for bit to fresh contiguous tensors of the same
+    values."""
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
+
+    t, w, hid = 333, 256, 1024
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    if view == "offset":
+        x = _offset_view(gen, (t, w), dtype)
+        w1 = _offset_view(gen, (hid, w), dtype).mul_(w ** -0.5)
+        w2 = _offset_view(gen, (w, hid), dtype).mul_(hid ** -0.5)
+        b1, b2 = _offset_view(gen, (hid,), dtype), _offset_view(gen, (w,), dtype)
+    else:
+        x = _randn(gen, t, 2 * w, dtype=dtype)[:, w:]
+        assert not x.is_contiguous()
+        w1 = _randn(gen, hid, w, dtype=dtype, scale=w ** -0.5)
+        w2 = _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5)
+        b1, b2 = _randn(gen, hid, dtype=dtype, scale=0.1), _randn(gen, w, dtype=dtype, scale=0.1)
+    args = (x, w1, b1, w2, b2)
+    out = fused_mlp(*args)
+    fresh = fused_mlp(*(a.clone(memory_format=torch.contiguous_format) for a in args))
+    ref = mlp_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else TOLS[dtype]
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert torch.equal(out, fresh)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_int8_views_kernel(dev, dtype):
+    """K5 with int8 weights one element into their buffers (copied for
+    TMA) and x one element into its buffer: bit for bit what the same
+    values give as fresh tensors, and within the K5 bound of its plain
+    version (as test_fused_mlp_int8_scratch_per_call)."""
+    from reverso_tpu_torch.ops.fused_mlp import (fused_mlp_int8, mlp_int8_plain,
+                                                 quantize_mlp_weights)
+
+    t, w, hid = 301, 256, 1024
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    qw = quantize_mlp_weights(_randn(gen, hid, w, dtype=dtype, scale=w ** -0.5),
+                              _randn(gen, hid, dtype=dtype, scale=0.1),
+                              _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5),
+                              _randn(gen, w, dtype=dtype, scale=0.1), dtype)
+
+    def offset(z):
+        view = torch.empty(z.numel() + 1, dtype=z.dtype, device=z.device)[1:].view(z.shape)
+        assert view.data_ptr() % 16
+        return view.copy_(z)
+
+    x = _offset_view(gen, (t, w), dtype)
+    out = fused_mlp_int8(x, qw._replace(w1=offset(qw.w1), w2=offset(qw.w2)))
+    fresh = fused_mlp_int8(x.clone(), qw)
+    ref = mlp_int8_plain(x, qw, "gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(out, fresh)
+    diff = (out.float() - ref.float()).abs()
+    ulp = 1e-5 if dtype == torch.float32 else 2 ** -7     # one output rounding
+    assert float((diff > ulp * (1 + ref.float().abs())).float().mean()) < 0.002
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

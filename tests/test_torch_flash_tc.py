@@ -32,6 +32,7 @@ from reverso_tpu.ops import attention as jattn
 from reverso_tpu_torch import kernels
 from reverso_tpu_torch.config import MODEL_PRESETS
 from reverso_tpu_torch.ops import attention as tattn
+from reverso_tpu_torch.ops import split as tsplit
 from reverso_tpu_torch.ops.fused_mlp import mlp_route
 from reverso_tpu_torch.ops.rope import rope_2d_tables
 
@@ -50,10 +51,13 @@ def test_route_for_every_preset_head_dim(preset):
     # multiple of 16), fp32 on its split mode
     assert route("cuda", torch.bfloat16, hd) == "tensor_core"
     assert route("cuda", torch.float32, hd) == "split"
-    # heads in lanes: the bf16 core at its head dims, else the CUDA cores
+    # heads in lanes: the bf16 core through TMA at its head dims and
+    # aligned bases, else through the lanes' copy; fp32 on its split mode
     assert heads_route("cuda", torch.bfloat16, hd) == (
-        "tensor_core" if on_tensor_cores else "cuda_core")
-    assert heads_route("cuda", torch.float32, hd) == "cuda_core"
+        "tensor_core" if on_tensor_cores else "copy")
+    assert heads_route("cuda", torch.bfloat16, hd, aligned=False) == "copy"
+    assert heads_route("cuda", torch.float32, hd) == "split"
+    assert heads_route("cuda", torch.float32, hd, aligned=False) == "split"
     # the rel-pos bias takes the bf16 core in either dtype (the TPU
     # kernel's one bf16 pass), fp32 at head dims % 16 != 0 the split mode
     assert route("cuda", torch.bfloat16, hd, rel_bias=True) == "tensor_core"
@@ -68,20 +72,22 @@ def test_route_for_every_preset_head_dim(preset):
 
 
 @pytest.mark.parametrize("hd,heads_bf16,bias_f32", [
-    (6, "cuda_core", "split"), (8, "cuda_core", "split"), (16, "tensor_core", "tensor_core"),
+    (6, "copy", "split"), (8, "copy", "split"), (16, "tensor_core", "tensor_core"),
     (48, "tensor_core", "tensor_core"), (80, "tensor_core", "tensor_core"),
     (96, "tensor_core", "tensor_core"), (128, "tensor_core", "tensor_core"),
-    (120, "cuda_core", "split"), (144, "cuda_core", "tensor_core"),
-    (256, "cuda_core", "tensor_core"),
+    (120, "copy", "split"), (144, "copy", "tensor_core"),
+    (256, "copy", "tensor_core"),
 ])
 def test_route_head_dims(hd, heads_bf16, bias_f32):
-    """Heads in lanes keep the bf16 core to head dims % 16 == 0, <= 128;
-    [B, H, S, D] takes the bf16 core in bf16 at every head dim and the
-    split mode in fp32; SAM's fp32 bias the bf16 core at head dims % 16 ==
-    0, else the split mode. Past 128 the route's kernel refuses the call."""
+    """Heads in lanes take the bf16 core through TMA at head dims % 16 ==
+    0, <= 128, through the lanes' copy at other head dims, and its split
+    mode in fp32; [B, H, S, D] takes the bf16 core in bf16 at every head
+    dim and the split mode in fp32; SAM's fp32 bias the bf16 core at head
+    dims % 16 == 0, else the split mode. Past 128 the route's kernel
+    refuses the call."""
     route, heads_route = tattn.attention_route, tattn.heads_route
     assert heads_route("cuda", torch.bfloat16, hd) == heads_bf16
-    assert heads_route("cuda", torch.float32, hd) == "cuda_core"
+    assert heads_route("cuda", torch.float32, hd) == "split"
     assert route("cuda", torch.bfloat16, hd) == "tensor_core"
     assert route("cuda", torch.bfloat16, hd, rel_bias=True) == "tensor_core"
     assert route("cuda", torch.float32, hd, rel_bias=True) == bias_f32
@@ -90,12 +96,12 @@ def test_route_head_dims(hd, heads_bf16, bias_f32):
 
 @pytest.mark.parametrize("preset", sorted(MODEL_PRESETS))
 def test_mlp_route_for_every_preset(preset):
-    """Every preset's bf16 MLP takes the wgmma GEMMs; fp32 the CUDA-core
-    kernel; CPU tensors the plain version."""
+    """Every preset's bf16 MLP takes the wgmma GEMMs; fp32 the same GEMMs
+    on split parts; CPU tensors the plain version."""
     cfg = MODEL_PRESETS[preset]
     width, hidden = cfg.width, int(cfg.width * cfg.mlp_ratio)
     assert mlp_route("cuda", torch.bfloat16, width, hidden) == "tensor_core"
-    assert mlp_route("cuda", torch.float32, width, hidden) == "cuda_core"
+    assert mlp_route("cuda", torch.float32, width, hidden) == "split"
     for dtype in (torch.bfloat16, torch.float32):
         assert mlp_route("cpu", dtype, width, hidden) == "plain"
 
@@ -103,12 +109,15 @@ def test_mlp_route_for_every_preset(preset):
 @pytest.mark.parametrize("width,hidden,expected", [
     (64, 256, "tensor_core"), (1024, 4096, "tensor_core"), (1536, 8960, "tensor_core"),
     (72, 200, "tensor_core"), (8, 8, "tensor_core"),
-    (68, 256, "cuda_core"), (64, 250, "cuda_core"), (77, 200, "cuda_core"),
+    (68, 256, "tensor_core_padded"), (64, 250, "tensor_core_padded"),
+    (77, 200, "tensor_core_padded"),
 ])
 def test_mlp_route_widths(width, hidden, expected):
-    """TMA's 16-byte row strides: width and hidden multiples of 8."""
+    """TMA's 16-byte row strides: bf16 at width and hidden multiples of 8
+    as it is, else through zero-padded copies; fp32 on split parts (padded
+    to a pitch of 8 by the split pass) at every width."""
     assert mlp_route("cuda", torch.bfloat16, width, hidden) == expected
-    assert mlp_route("cuda", torch.float32, width, hidden) == "cuda_core"
+    assert mlp_route("cuda", torch.float32, width, hidden) == "split"
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -125,7 +134,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(out, tattn.flash_attention_heads_ref(x, x, x, heads=2))
     assert kernels.launches == before
     assert {"flash_heads_tc", "flash_attn_tc", "flash_attn_split",
-            "flash_attn_relbias_split", "topk_stream_f32"} <= set(kernels.launches)
+            "flash_attn_relbias_split", "topk_stream_f32", "flash_heads_split",
+            "fused_mlp_split", "split_parts"} <= set(kernels.launches)
 
 
 def _launchers():
@@ -146,7 +156,10 @@ def _launchers():
 def test_signatures_match_the_launchers():
     found = _launchers()
     assert {"rv_flash_heads_tc", "rv_flash_attn_tc", "rv_flash_attn_split",
-            "rv_fused_mlp_tc"} <= set(found)
+            "rv_fused_mlp_tc", "rv_flash_heads_split", "rv_fused_mlp_split",
+            "rv_split_parts"} <= set(found)
+    # the CUDA-core kernels the split routes replaced are gone
+    assert not {"rv_flash_heads", "rv_fused_mlp"} & set(found)
     assert set(found) == set(kernels._SIGNATURES)
     for name, types in found.items():
         assert kernels._SIGNATURES[name] == types, name
@@ -179,11 +192,11 @@ def _split3(x):
 
 def _split_dot(a, b):
     """a @ b.T as the split mode's products: the six bf16 products of the
-    three-way splits (`ops/attention.py::SPLIT_TERMS`), smallest first,
+    three-way splits (`ops/split.py::SPLIT_TERMS`), smallest first,
     summed in fp32."""
     ap, bp = _split3(a), _split3(b)
     out = np.zeros((a.shape[0], b.shape[0]), np.float32)
-    for i, j in tattn.SPLIT_TERMS:
+    for i, j in tsplit.SPLIT_TERMS:
         out = (out + ap[i] @ bp[j].T).astype(np.float32)
     return out
 
@@ -347,7 +360,7 @@ def test_split_reconstructs_fp32_exactly(magnitude):
     """hi + mid + lo == x bit for bit for seeded normals of either sign at
     magnitudes 1e-30 to 1e30, each part a bf16 value, wherever lo is a
     normal number (|x| >= 2^-110); below that lo keeps the bf16
-    subnormals' 2^-133 steps. `ops/attention.py::split3` (the plain
+    subnormals' 2^-133 steps. `ops/split.py::split3` (the plain
     version's split) and the numpy emulation's agree bit for bit."""
     rng = np.random.default_rng(int(np.log10(magnitude)) + 40)
     x = (rng.standard_normal(100_000) * magnitude).astype(np.float32)
@@ -363,21 +376,22 @@ def test_split_reconstructs_fp32_exactly(magnitude):
     # each part holds the next 8 bits: |mid| <= 2^-8 |hi|, |lo| <= 2^-8 |mid|
     assert np.all(np.abs(mid) <= np.abs(hi) * 2.0 ** -8)
     assert np.all(np.abs(lo[normal]) <= np.abs(mid[normal]) * 2.0 ** -8)
-    t = tattn.split3(torch.from_numpy(x))
+    t = tsplit.split3(torch.from_numpy(x))
     for a, b in zip(t, (hi, mid, lo)):
         assert np.array_equal(a.numpy().view(np.uint32), b.view(np.uint32))
 
 
 def test_split_terms_follow_the_kernel():
-    """The plain version's six products are the kernel's table, in its
+    """The plain version's six products are the kernels' table, in its
     order: smallest first, hi.hi last, the three smallest of the nine
-    left out."""
-    src = open(f"{kernels.CSRC}/flash_tc.cuh").read()
+    left out. The table sits in hopper.cuh, shared by the attention core's
+    split mode and the MLP's split GEMMs."""
+    src = open(f"{kernels.CSRC}/hopper.cuh").read()
     n_terms = int(re.search(r"constexpr int kSplitTerms = (\d+);", src).group(1))
     table = re.search(r"constexpr int terms\[kSplitTerms\]\[2\] = \{(.*)\};", src).group(1)
     terms = [(int(a), int(b)) for a, b in re.findall(r"\{(\d), (\d)\}", table)]
     assert len(terms) == n_terms
-    assert tuple(terms) == tattn.SPLIT_TERMS
+    assert tuple(terms) == tsplit.SPLIT_TERMS
     assert terms[-1] == (0, 0)
     nine = {(i, j) for i in range(3) for j in range(3)}
     assert nine - set(terms) == {(1, 2), (2, 1), (2, 2)}

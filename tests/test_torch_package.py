@@ -196,8 +196,11 @@ def test_wrappers_never_fall_back_for_device_tensors():
 
 
 @pytest.mark.parametrize("source,launchers", [
-    ("fused_mlp.cu", {"rv_fused_mlp", "rv_fused_mlp_tc", "rv_fused_mlp_int8"}),
+    ("fused_mlp.cu", {"rv_split_parts", "rv_fused_mlp_split", "rv_fused_mlp_tc",
+                      "rv_fused_mlp_int8"}),
     ("ms_deform.cu", {"rv_ms_deform"}),
+    ("flash_heads.cu", {"rv_flash_heads_tc"}),
+    ("flash_heads_split.cu", {"rv_flash_heads_split"}),
 ])
 def test_signatures_match_k5_k8_launchers(source, launchers):
     """The ctypes argument lists of the K4/K5 and K8 launchers in
