@@ -30,8 +30,9 @@ of which catches a failure:
      products) against `attention_split_ref` and the fp32 `attention_ref`
      at the 2e-5 gate, and K3 in fp32 on the split mode with RoPE
      (B = 2, and B = 8 timed) against `flash_attention_heads_ref` and
-     `flash_attention_heads_split_ref`; K1 in fp32 rows
-     over 1M x 1024 at Q = 64 and 256 beside a matmul and a topk; the
+     `flash_attention_heads_split_ref`; K1 on fp32 rows (the wgmma
+     scan's split mode) over 1M x 1024 at Q = 64 and 256 beside a matmul
+     and a topk, and a small ragged fp32 case (ties, k > n_valid); the
      attention kernels at edge shapes (S 1 to 129, kv_valid 0 to S - 1,
      head dims 6 to 128, S_kv != S_q, B * H 1 and 1024, bases one element
      into their buffers; bf16 on the tensor cores, fp32 on the split
@@ -80,6 +81,12 @@ of which catches a failure:
      each shape the path ran it at are captured (the model's own sampling
      locations), and K8 is held against its plain version and timed on
      them;
+  5c. the parity direct-embed slice: `SimpleReverso` with PE-Core-L14-336
+     at full width and depth in fp32 (`ModelConfig.dtype="float32"`, batch
+     8) into a float32 store builds from the first 64 of phase 5's images,
+     then answers `search_similar` and a 64-query `search_batch` (K3 and K4
+     fp32 on the split routes, K1 on fp32 rows), held against the plain
+     scan of the same matrix and the bf16 build's rows;
   5b. the int8 embedding tower: the direct-embed build of phase 5 again
      with `ModelConfig.quant="int8"` (same images, seed and weights),
      held against the bf16 build (min cosine, top-10 overlap), one
@@ -90,13 +97,17 @@ of which catches a failure:
      masked attention pooling), then `detect_regions` +
      `extract_embeddings` + `search_similar`;
   7. the capacity indexes and filtered search through `Reverso` on a
-     1,000,000 x 1024 store of clustered rows with payloads: payload
+     1,000,000 x 1024 store of clustered rows with payloads: first (g) the
+     float32 store (4.1 GB of fp32 rows on the card; `search_batch` at
+     Q = 64 with no filter and with `{"folder": 3}`, `search_similar` at
+     Q = 1: K1 and K2 on fp32 rows, counted on their own), then payload
      filters and `count` (bf16), vectors deleted with
      `VectorStore.delete_vector_rows`, int8, binary + rescore, IVF at the
      defaults (built, cached, reloaded) and IVF int8 with spill and
      balance, each held against the exact plain search of its subset;
      recall@10 against exact fp32 for the approximate ones;
-  8. the top-k scans (K1 from the direct-embed path, K2, K9 and K10 from
+  8. the top-k scans (K1 from the direct-embed path, K1 and K2 on fp32
+     rows from the parity slice and the float32 store, K2, K9 and K10 from
      the capacity path, K12 from the two-stage search) timed at each shape
      their path ran them at (`kernels.shape_launches`), on seeded rows of
      that shape, each held against its plain version (K9 and K12 bit for
@@ -104,13 +115,14 @@ of which catches a failure:
 
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). A "redesign order" line ranks the kernels
-by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2,
-K3 fp32, K4 fp32, K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
+by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2
+(bf16 and fp32 rows), K3 fp32, K4 fp32, K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
 one before that a JSON object with one entry per kernel; the last line
 is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -572,13 +584,14 @@ def kernel_checks(torch, gen) -> dict:
           "a k <= 128 search must not take the plain path")
     del small
 
-    # K1 in fp32 rows (`DeviceIndex(dtype="float32")`, the CUDA-core scan):
-    # 1M x 1024 fp32 (4.1 GB) at Q = 64 and 256, k = 10, against the plain
-    # version under the tie-margin rule, with a matmul and a topk beside it
+    # K1 on fp32 rows (`DeviceIndex(dtype="float32")`, the wgmma scan's split
+    # mode: three bf16 parts a value, six products a k16 step): 1M x 1024
+    # fp32 (4.1 GB) at Q = 64 and 256, k = 10, against the plain version
+    # under the tie-margin rule, with a matmul and a topk beside it
     db32 = db[:n_valid].float()
     del db
     q32 = qs.float()
-    tol32 = 1e-4   # fp32 sums of fp32 products in another order
+    tol32 = 1e-5   # the split's dropped terms (< 2^-23 of a product), sums in another order
     by_q = {}
     for qn in (64, 256):
         qq = q32[:qn].contiguous()
@@ -587,18 +600,32 @@ def kernel_checks(torch, gen) -> dict:
         topk_agree(ref_s, ref_i, out_s, out_i, tol32)
         by_q[qn] = dict(
             max_abs_err=float((out_s - ref_s).abs().max()),
-            ms=cuda_ms(lambda: cosine_topk(db32, qq, 10), iters=3),
+            ms=cuda_ms(lambda: cosine_topk(db32, qq, 10), iters=5),
             plain_ms=cuda_ms(lambda: cosine_topk_ref(db32, qq, 10), iters=3),
             library_route_ms=cuda_ms(lambda: torch.topk(qq @ db32.T, 10, dim=1), iters=3),
             bound=bound(n_valid * w * 4 + qn * w * 4 + qn * 10 * 8, 2 * qn * n_valid * w,
                         "float32_split"))
+    # small ragged case in fp32: duplicates tie to the lower row, k > n_valid
+    small32 = torch.randn(1000, w, generator=torch.Generator(device=dev).manual_seed(12),
+                          device=dev)
+    small32 = small32 / small32.norm(dim=1, keepdim=True)
+    small32[10] = small32[3]
+    small32[500] = small32[3]
+    sq32 = small32[[3, 0, 5]].contiguous()
+    s2, i2 = cosine_topk(small32, sq32, 20, n_valid=600)
+    r2s, r2i = cosine_topk_ref(small32, sq32, 20, n_valid=600)
+    topk_agree(r2s, r2i, s2, i2, tol32)
+    check(i2[0, :3].tolist() == [3, 10, 500], f"fp32 ties must go to the lower row: {i2[0, :3]}")
+    s3, i3 = cosine_topk(small32, sq32, 20, n_valid=7)
+    check(bool((i3[:, 7:] == -1).all()) and bool(torch.isneginf(s3[:, 7:]).all()),
+          "fp32 k > n_valid: slots past the valid rows must be (-inf, -1)")
+    del small32
     main = by_q[256]
     rows["topk_stream_f32"] = dict(
         source="reverso_tpu_torch/csrc/topk_stream.cu",
         replaces="reverso_tpu/ops/topk.py:183",
         max_abs_err=max(r["max_abs_err"] for r in by_q.values()),
-        shape="N=1,000,000 d=1024 Q=256 k=10 fp32 rows (the CUDA-core scan); no path of this "
-              "script keeps a float32 store",
+        shape="N=1,000,000 d=1024 Q=256 k=10 fp32 rows (the wgmma scan's split mode)",
         ms=main["ms"], plain_ms=main["plain_ms"],
         library="none: no single PyTorch call (a matmul and a topk)", library_ms=None,
         library_route="torch.matmul, torch.topk", library_route_ms=main["library_route_ms"],
@@ -1541,6 +1568,89 @@ def int8_slice_run(root: str) -> dict:
     return launches, k5_shapes
 
 
+def f32_slice_run(root: str) -> tuple:
+    """The direct-embed path in the reference's strict-parity mode:
+    `SimpleReverso` with PE-Core-L14-336 at full width and depth in fp32
+    (`ModelConfig.dtype="float32"`: K3 and K4 fp32 on the split routes),
+    batch 8, into a float32 store (`StoreConfig(dtype="float32")`), from
+    the first 64 of phase 5's synthetic images; then
+    `process_image_direct_pe` + `search_similar` queries and a 64-query
+    `search_batch` (K1 on fp32 rows), each held against the plain scan of
+    the same matrix, and the rows against the bf16 build's of the same
+    images, seed and weights (min cosine). Returns the path's launches and
+    its fp32-row top-k launches by shape."""
+    import torch
+    from PIL import Image
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.compat import SimpleReverso
+    from reverso_tpu_torch.config import StoreConfig, default_config
+    from reverso_tpu_torch.ops.topk import cosine_topk_ref
+    from reverso_tpu_torch.store import VectorStore
+
+    folder = os.path.join(root, "images_f32")
+    os.makedirs(folder)
+    n_img = 64
+    make_images(folder, n_img, seed=0)   # phase 5's first 64 images
+    cfg = default_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"),
+                      store=StoreConfig(root_dir=os.path.join(root, "db_f32"), dtype="float32"),
+                      ingest=dataclasses.replace(cfg.ingest, batch_size=8))
+    check(cfg.model.name == "PE-Core-L14-336" and cfg.model.depth == 24
+          and cfg.model.width == 1024, f"parity config {cfg.model}")
+    sr = SimpleReverso(cfg, device="cuda")
+    engine = sr._engine
+    engine.encoder   # build (seeded init) outside the counted path
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    transcript = sr.create_database(folder, "parity", use_direct_pe=True)
+    build_s = time.perf_counter() - t0
+    check("ready for searching" in transcript, f"parity build failed:\n{transcript}")
+    print(sr.load_database("parity"), flush=True)
+    store = VectorStore.open(cfg.store.root_dir, "parity")
+    vecs = np.asarray(store.vectors())
+    check(vecs.shape == (n_img, 1024) and np.isfinite(vecs).all(), f"parity rows {vecs.shape}")
+    matrix = engine._get_index().matrix
+    check(matrix.dtype == torch.float32, f"parity store holds {matrix.dtype} rows")
+    tol = 1e-5   # K1 on fp32 rows against the plain fp32 scan of the same matrix
+    err = 0.0
+    for j in (0, 33, 63):
+        fname = f"img_{j:04d}.png"
+        sr.process_image_direct_pe(Image.open(os.path.join(folder, fname)))
+        text, items = sr.search_similar(-2.0, 5)
+        q = torch.from_numpy(np.asarray(engine.region_embeddings[:1], np.float32)).cuda()
+        rs, ri = cosine_topk_ref(matrix, q, 5)
+        s = torch.tensor([[it["score"] for it in items]])
+        topk_agree(rs, ri, s, torch.tensor([[it["id"] for it in items]], dtype=torch.int32), tol)
+        err = max(err, max_err(s, rs.cpu()))
+        check(items[0]["filename"] == fname, f"parity {fname}: own row not at rank 0:\n{text}")
+    scores, ids = engine.search_batch(vecs, 5)
+    rs, ri = cosine_topk_ref(matrix, torch.from_numpy(vecs).cuda(), 5)
+    topk_agree(rs, ri, torch.from_numpy(scores), torch.from_numpy(ids), tol)
+    err = max(err, max_err(torch.from_numpy(scores), rs.cpu()))
+    check(all(r in ids[r] for r in range(n_img)), "parity search_batch: an own row is missing")
+    launches = dict(kernels.launches)
+    shapes = {key: c for key, c in kernels.shape_launches.items() if key[0] == "topk_stream_f32"}
+
+    bf16 = VectorStore.open(os.path.join(root, "db"), "smoke")
+    by_name = {p["filename"]: r for r, p in enumerate(bf16.payloads(list(range(bf16.count))))}
+    names = [p["filename"] for p in store.payloads(list(range(store.count)))]
+    vb = np.asarray(bf16.vectors())[[by_name[nm] for nm in names]]
+    cos = (vecs * vb).sum(1)
+    out = dict(build_s=build_s, embed_img_s=engine.metrics.rate("embed"),
+               max_abs_err=err, min_cosine_vs_bf16=float(cos.min()),
+               mean_cosine_vs_bf16=float(cos.mean()))
+    print(f"parity slice (fp32 tower, float32 store): {json.dumps(out)}; launches "
+          f"{ {key: c for key, c in launches.items() if c} }; K1 fp32 by shape "
+          f"{[(key[1], c) for key, c in shapes.items()]}", flush=True)
+    check(launches["topk_stream_f32"] > 0, "K1 on fp32 rows never launched on the parity path")
+    check(launches["flash_heads_split"] == launches["flash_heads"] > 0
+          and launches["fused_mlp_split"] == launches["fused_mlp"] > 0,
+          "an fp32 attention or MLP of the parity path missed the split routes")
+    check(float(cos.min()) >= 0.99, f"parity rows drift from the bf16 build: {cos.min()}")
+    return launches, shapes
+
+
 def k5_path_shapes(torch, shape_launches: dict) -> list:
     """K5 at each shape the int8 path ran it at: its launches there, and
     its ms and bound on seeded inputs and weights of that shape."""
@@ -1624,11 +1734,14 @@ def k8_path_shapes(torch, shape_launches: dict, inputs: dict) -> list:
 
 
 def topk_bound(kind: str, q: int, n: int, d: int, k: int, masked: bool) -> tuple[float, str]:
-    """A top-k scan's least time: the rows (bf16, int8 or packed signs),
-    the mask, the queries (bf16; int8's two digits) and the [Q, k] results
-    once; 2 Q N d operations (bf16: binary's +-1 rows too; int8 twice, one
-    per query digit); K12: its int8 rows, row scales, one digit and query
-    scales, 2 Q N d int8 operations."""
+    """A top-k scan's least time: the rows (bf16, fp32, int8 or packed
+    signs), the mask, the queries (bf16; fp32; int8's two digits) and the
+    [Q, k] results once; 2 Q N d operations (bf16: binary's +-1 rows too;
+    fp32 at the split rate; int8 twice, one per query digit); K12: its int8
+    rows, row scales, one digit and query scales, 2 Q N d int8 operations."""
+    if kind == "topk_stream_f32":
+        return bound(n * d * 4 + (n if masked else 0) + q * d * 4 + q * k * 8, 2 * q * n * d,
+                     "float32_split")
     if kind == "topk_int8_rows":
         return bound(n * d + n * 4 + q * d + q * 4 + q * k * 8, 2 * q * n * d, "int8")
     if kind == "topk_int8":
@@ -1639,11 +1752,12 @@ def topk_bound(kind: str, q: int, n: int, d: int, k: int, masked: bool) -> tuple
 
 
 def topk_path_shapes(torch, shape_launches: dict) -> dict:
-    """K1, K2, K9, K10 and K12 at each shape (Q, N, d, k, masked) a path
-    ran them at: seeded unit rows of that shape (the mask keeps 10% of the
-    rows, as the capacity path's `{"folder": 3}` filter), held against the
-    plain version (1e-4 bf16, 2e-4 binary, bit for bit int8), timed by
-    CUDA events, with the launches and bound. Returns {counter: [...]}."""
+    """K1, K2 (bf16 and fp32 rows), K9, K10 and K12 at each shape (Q, N, d,
+    k, masked) a path ran them at: seeded unit rows of that shape (the mask
+    keeps 10% of the rows, as the capacity path's `{"folder": 3}` filter),
+    held against the plain version (1e-4 bf16, 1e-5 fp32, 2e-4 binary, bit
+    for bit int8), timed by CUDA events, with the launches and bound.
+    Returns {counter: [...]} ("topk_stream_f32": K1 and K2 on fp32 rows)."""
     from reverso_tpu_torch.ops.binary import binary_topk, binary_topk_ref, pack_signs
     from reverso_tpu_torch.ops.topk import (cosine_topk, cosine_topk_int8_exact,
                                             cosine_topk_int8_ref, cosine_topk_ref,
@@ -1687,11 +1801,12 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
             rs, ri = binary_topk_ref(packed, qs, k, d, row_mask=mask)
             topk_agree(rs, ri, s, i, 2e-4)
         else:
-            db, qb = x.to(torch.bfloat16), qs.to(torch.bfloat16)
+            f32 = kind == "topk_stream_f32"
+            db, qb = (x, qs) if f32 else (x.to(torch.bfloat16), qs.to(torch.bfloat16))
             call = lambda: cosine_topk(db, qb, k, row_mask=mask)
             s, i = call()
             rs, ri = cosine_topk_ref(db, qb, k, row_mask=mask)
-            topk_agree(rs, ri, s, i, 1e-4)
+            topk_agree(rs, ri, s, i, 1e-5 if f32 else 1e-4)
         if kind not in ("topk_int8", "topk_int8_rows"):
             fin = torch.isfinite(rs)
             err = float((torch.where(fin, s, 0) - torch.where(fin, rs, 0)).abs().max())
@@ -1726,7 +1841,8 @@ def make_photos(folder: str, n: int, seed: int) -> None:
 REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused_mlp": 6,
               "fused_mlp_int8": 7, "ms_deform": 7, "topk_stream": 8, "topk_masked": 8,
               "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9, "flash_attn_f32": 10,
-              "flash_attn_relbias_f32": 10, "fused_mlp_f32": 11, "flash_heads_f32": 11}
+              "flash_attn_relbias_f32": 10, "fused_mlp_f32": 11, "flash_heads_f32": 11,
+              "topk_stream_f32": 12}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE"}
 
@@ -2232,10 +2348,11 @@ def capacity_data(n: int, d: int, seed: int):
 
 def capacity_run(root: str) -> dict:
     """The capacity indexes and filtered search through `Reverso` on the
-    card, on a 1,000,000 x 1024 store: (a) bf16 exact with payload filters
-    and count; (b) deleted vectors; (c) int8; (d) binary + rescore; (e) IVF
-    at the defaults, built, cached and reloaded; (f) IVF int8 with spill
-    and balance."""
+    card, on a 1,000,000 x 1024 store: (g, first) the float32 store, K1
+    and K2 on fp32 rows; (a) bf16 exact with payload filters and count; (b)
+    deleted vectors; (c) int8; (d) binary + rescore; (e) IVF at the
+    defaults, built, cached and reloaded; (f) IVF int8 with spill and
+    balance. Returns (a)-(f)'s launches and top-k shapes, then (g)'s."""
     import torch
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.config import SearchConfig, StoreConfig, default_config
@@ -2276,6 +2393,49 @@ def capacity_run(root: str) -> dict:
 
     q_dev = torch.from_numpy(queries).cuda()
     out = {"store_s": store_s}
+
+    # (g) the float32 store (`StoreConfig(dtype="float32")`, the reference's
+    # strict-parity mode): the 4.1 GB of fp32 rows on the card, K1 and K2 on
+    # fp32 rows, each search held against the plain scan of the same matrix.
+    # Run first, while the store has no deleted rows (so that the unfiltered
+    # search is K1's plain mode), and counted on its own
+    kernels.reset_counts()
+    eng = engine("float32")
+    index = eng._get_index()
+    check(index.matrix.dtype == torch.float32 and tuple(index.matrix.shape) == (n, d),
+          f"float32 store: {index.matrix.dtype} {tuple(index.matrix.shape)}")
+    f32_err = 0.0
+    for filt in (None, {"folder": 3}):
+        mask = None if filt is None else torch.from_numpy(eng._filter_mask(filt)).cuda()
+        s, i = eng.search_batch(queries, k, filter=filt)
+        rs, ri = cosine_topk_ref(index.matrix, q_dev, k, row_mask=mask)
+        topk_agree(rs, ri, torch.from_numpy(s), torch.from_numpy(i), 1e-5)
+        f32_err = max(f32_err, max_err(torch.from_numpy(s), rs.cpu()))
+        if filt is not None:
+            check(bool((i[i >= 0] % 10 == 3).all()),
+                  "float32 store: filter {folder: 3} let a row through")
+    text, items = eng.search_similar(-2.0, 5, embeddings=queries, query_index=3)
+    rs, ri = cosine_topk_ref(index.matrix, q_dev[3:4], 5)
+    topk_agree(rs, ri, torch.tensor([[it["score"] for it in items]]),
+               torch.tensor([[it["id"] for it in items]], dtype=torch.int32), 1e-5)
+    out["f32_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+    out["f32_filtered_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k,
+                                                                        filter={"folder": 3}))
+    out["f32_search1_ms"] = timed_ms(lambda: eng.search_similar(-2.0, 5, embeddings=queries,
+                                                                query_index=3))
+    out["f32_max_abs_err"] = f32_err
+    f32_launches = dict(kernels.launches)
+    f32_shapes = {key: c for key, c in kernels.shape_launches.items()
+                  if key[0] == "topk_stream_f32"}
+    print(f"(g) float32 store: max abs score err {f32_err} (tol 1e-5); launches "
+          f"{ {key: c for key, c in f32_launches.items() if c} }; by shape "
+          f"{[(key, c) for key, c in f32_shapes.items()]}", flush=True)
+    check(f32_launches["topk_stream_f32"] > 0 and f32_launches["topk_stream_f32"] ==
+          f32_launches["topk_stream"] + f32_launches["topk_masked"],
+          "a float32-store search missed the fp32 scan")
+    del eng, index
+    torch.cuda.empty_cache()
+
     kernels.reset_counts()
     # (a) bf16 exact, filtered; the gate: the exact plain scan of the subset
     eng = engine()
@@ -2400,7 +2560,7 @@ def capacity_run(root: str) -> dict:
     check(all(v == 0 for v in kernels.plain_dispatches.values()),
           "a capacity search took a plain shape rule")
     print(f"capacity slice: {json.dumps(out)}", flush=True)
-    return launches, topk_shapes
+    return launches, topk_shapes, f32_launches, f32_shapes
 
 
 def main() -> int:
@@ -2460,6 +2620,9 @@ def main() -> int:
         sam_split_launches = phase("detector parity", detector_parity, root)
         torch.cuda.empty_cache()
         direct_launches, k1_shapes = phase("direct-embed slice", slice_run, root)
+        f32_slice_launches, f32_slice_shapes = phase("parity direct-embed slice (fp32)",
+                                                     f32_slice_run, root)
+        torch.cuda.empty_cache()
         int8_launches, k5_shapes = phase("int8 direct-embed slice", int8_slice_run, root)
         rows["fused_mlp_int8"]["by_shape"] = phase("K5 at the int8 path's shapes",
                                                    k5_path_shapes, torch, k5_shapes)
@@ -2470,21 +2633,27 @@ def main() -> int:
         roi_launches = phase("ROI slice", roi_run, root, det)
         del det
         torch.cuda.empty_cache()
-        capacity_launches, capacity_shapes = phase("capacity slice", capacity_run, root)
+        capacity_launches, capacity_shapes, store_f32_launches, store_f32_shapes = phase(
+            "capacity slice", capacity_run, root)
     torch.cuda.empty_cache()
+    path_shapes = collections.Counter()
+    for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes):
+        path_shapes.update(shapes)
     topk_shapes = phase("top-k scans at their paths' shapes", topk_path_shapes, torch,
-                        {**k1_shapes, **capacity_shapes, **k12_shapes})
+                        path_shapes)
     for name, shapes in topk_shapes.items():
         rows[name]["by_shape"] = shapes
 
     # each kernel's launches on its own path: the tensor-core rows count the
-    # bf16 core's launches, the fp32 rows the split mode's and the CUDA-core
-    # kernels' (on the parity phases: SAM's on the split-mode route of
-    # phase 4); K1 on fp32 rows counts its launches over every phase that
-    # drives a path (each read just after the counts were set to 0)
+    # bf16 core's launches, the fp32 rows the split mode's (on the parity
+    # phases: SAM's on the split-mode route of phase 4); K1 and K2 on fp32
+    # rows count their launches over every phase that drives a path (the
+    # parity slice and the float32 store; each read just after the counts
+    # were set to 0)
     path_runs = (two_stage_launches, tower_launches, long_launches, long_bf16_launches,
-                 f32_launches, sam_split_launches, direct_launches, int8_launches,
-                 region_launches, roi_launches, capacity_launches)
+                 f32_launches, sam_split_launches, direct_launches, f32_slice_launches,
+                 int8_launches, region_launches, roi_launches, capacity_launches,
+                 store_f32_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"],
                "flash_heads_f32": f32_launches["flash_heads_split"],
                "fused_mlp": direct_launches["fused_mlp_tc"],
@@ -2506,16 +2675,17 @@ def main() -> int:
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     for name in ("fused_mlp_f32", "flash_heads_f32", "fused_mlp_int8", "ms_deform",
-                 "topk_stream", "topk_masked", "topk_int8", "topk_binary", "topk_int8_rows"):
+                 "topk_stream", "topk_masked", "topk_int8", "topk_binary", "topk_int8_rows",
+                 "topk_stream_f32"):
         print(f"{name} at its path's shapes: {json.dumps(rows[name]['by_shape'])}", flush=True)
 
     # the order to redesign kernels in: first those one PyTorch call beats,
     # by how many times; then the rest by launches x (ms - bound_ms), summed
     # over the shapes a path ran a kernel at where the run timed each
-    # (`by_shape`: K1, K2, K3 fp32, K4 fp32, K5, K8, K9, K10, K12), else at
-    # the row's shape. Listed apart: rows
-    # already redesigned; rows whose library call computes another function
-    # are ranked by cost only
+    # (`by_shape`: K1, K2 in bf16 and fp32, K3 fp32, K4 fp32, K5, K8, K9, K10,
+    # K12), else at the row's shape. Listed apart: rows already redesigned;
+    # rows whose library call computes another function are ranked by cost
+    # only
     def cost(name):
         r = rows[name]
         if "by_shape" in r:

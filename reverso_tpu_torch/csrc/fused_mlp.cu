@@ -456,23 +456,6 @@ static bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, i
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// a 3-D bf16 map over the split pass's parts [3][rows][pitch] (pitch % 8 ==
-// 0), box [1][box_rows][32], 64-byte swizzle as the split mode's
-// descriptors read it; rows past `rows` read zero (never the next part)
-static bool make_map_parts(CUtensorMap* map, const void* ptr, int pitch, int rows,
-                           int box_rows) {
-    EncodeTiledFn enc = encode_tiled();
-    if (enc == nullptr) return false;
-    const cuuint64_t dims[3] = {(cuuint64_t)pitch, (cuuint64_t)rows, 3};
-    const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2, (cuuint64_t)rows * pitch * 2};
-    const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
-    const cuuint32_t elem[3] = {1, 1, 1};
-    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // C [m, n] = epilogue(A [m, k] B [n, k]^T) with one tile config
 template <class Cfg>
 static int launch_gemm(const void* a, const void* b, const void* bias, void* c, int m, int n,

@@ -1,7 +1,7 @@
 // PTX helpers shared by the hand-written Hopper kernels on wgmma and TMA:
 // the flash-attention core (flash_tc.cuh), the MLP's GEMMs
-// (fused_mlp.cu, bf16, split fp32 and int8), and the bf16, binary and int8
-// top-k scans (topk_stream.cu).
+// (fused_mlp.cu, bf16, split fp32 and int8), and the top-k scans
+// (topk_stream.cu: bf16, split fp32, binary and int8).
 // Shared-memory barriers (mbarrier), named barriers with an OR reduction,
 // warpgroup register counts (setmaxnreg), TMA tile loads
 // (cp.async.bulk.tensor with mbarrier completion), wgmma fences, commits
@@ -9,9 +9,10 @@
 // operands K-major in shared memory; bf16 -> fp32 and s8 -> s32, N = 8 ..
 // 256), the RS-form bf16 products (A in registers), the split mode's
 // product table and its three-way split of fp32 values into bf16 parts
-// (the attention core's split mode and the MLP's split GEMMs), 8-element
-// loads, and the tensor-map encoder, looked up through the runtime's
-// entry-point query so that the library links without -lcuda.
+// (the attention core's split mode, the MLP's split GEMMs and the fp32
+// top-k scan), 8-element loads, the tensor-map encoder, looked up through
+// the runtime's entry-point query so that the library links without
+// -lcuda, and the split parts' 3-D tensor map.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
@@ -453,6 +454,24 @@ static inline EncodeTiledFn encode_tiled() {
         if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
     }
     return fn;
+}
+
+// a 3-D bf16 map over the split pass's parts [3][rows][pitch] (pitch % 8 ==
+// 0), box [1][box_rows][32], 64-byte swizzle as the split mode's
+// descriptors read it (the MLP's split GEMMs, the fp32 top-k's query
+// parts); rows past `rows` read zero (never the next part)
+static inline bool make_map_parts(CUtensorMap* map, const void* ptr, int pitch, int rows,
+                                  int box_rows) {
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)pitch, (cuuint64_t)rows, 3};
+    const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2, (cuuint64_t)rows * pitch * 2};
+    const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tc

@@ -1,6 +1,7 @@
-// Sorted top-k state shared by the streaming top-k (topk_stream.cu) and the
-// IVF probed scan (ivf_scan.cu): a warp keeps one query's k best
-// (score, index) pairs in shared memory, ordered by (-score, index).
+// The k cap and the (-score, index) order shared by the streaming top-k
+// (topk_stream.cu) and the IVF probed scan (ivf_scan.cu), and the IVF
+// scan's sorted state: a warp keeps one query's k best (score, index) pairs
+// in shared memory, ordered by (-score, index).
 #pragma once
 
 #include "common.cuh"

@@ -1,7 +1,8 @@
-// Exact dot-product top-k with a fused per-query k-select, in four modes.
+// Exact dot-product top-k with a fused per-query k-select, in five modes.
 //
 // Replaces: reverso_tpu/ops/topk.py::_topk_stream_kernel in
-//   * its plain mode (entry cosine_topk_pallas): bf16/fp32 rows (K1);
+//   * its plain mode (entry cosine_topk_pallas): bf16 rows, and fp32 rows
+//     at Precision.HIGHEST (K1);
 //   * its masked mode (cosine_topk_pallas(row_mask=)): K1 with a per-row
 //     filter (K2);
 //   * its int8 mode (entry cosine_topk_int8_exact): int8 rows, each query
@@ -17,46 +18,58 @@
 // What bounds it on the H100 (published SXM peaks, 700 W), at 1M x 1024:
 // bf16 reads 2.05 GB (0.61 ms at 3.35 TB/s) at any Q, against 2 Q N d
 // operations: 0.002 ms at Q = 1, 0.136 at Q = 64, 0.53 at Q = 256 (989
-// TFLOP/s), so bytes up to Q ~ 290; binary reads 128 MB (0.04 ms) for
-// the same operations against the +-1 rows, so operations from Q ~ 20 on
-// (0.136 ms at Q = 64, 0.53 at Q = 256); int8 reads 1.02 GB (0.31 ms) for
-// 1.05 T int8 operations in two digits at Q = 256 (0.53 ms); K12 reads 1.02
-// GB of rows and 4 MB of row scales (0.31 ms) for 0.52 T (0.26 ms).
+// TFLOP/s), so bytes up to Q ~ 290; fp32 reads 4.1 GB (1.22 ms) for six
+// bf16 products of split parts (the TPU's HIGHEST, 989 / 6 TFLOP/s): 0.80
+// ms at Q = 64, 3.18 at Q = 256, so bytes up to Q ~ 98; binary reads 128
+// MB (0.04 ms) for the same operations against the +-1 rows, so operations
+// from Q ~ 20 on (0.136 ms at Q = 64, 0.53 at Q = 256); int8 reads 1.02 GB
+// (0.31 ms) for 1.05 T int8 operations in two digits at Q = 256 (0.53 ms);
+// K12 reads 1.02 GB of rows and 4 MB of row scales (0.31 ms) for 0.52 T
+// (0.26 ms).
 //
 // What the design does about it:
-//   * every mode but fp32 rows (bf16 rows with D % 8 == 0: K1, K2; packed
-//     rows: K10; int8 rows, any D: K9, K12) runs one wgmma scan (scan_wg
+//   * every mode (bf16 rows: K1, K2; fp32 rows: K1, K2 in the split mode;
+//     packed rows: K10; int8 rows: K9, K12) runs one wgmma scan (scan_wg
 //     below), templated on what it scores. A CTA scores each 256-row tile
 //     (128 where the accumulator is wider than 64 columns) of its row slice
 //     against a whole block of queries, so the rows are read from device
-//     memory once per query block: bf16 and binary blocks of up to 128
-//     queries (Q = 1 is an n8 product, a pure stream), int8 blocks of up
-//     to 64: K9's two query digits are one B operand of 2N rows (an n128
+//     memory once per query block: bf16, fp32 and binary blocks of up to
+//     128 queries (Q = 1 is an n8 product, a pure stream), int8 blocks of
+//     up to 64: K9's two query digits are one B operand of 2N rows (an n128
 //     accumulator at 64 queries), K12's k-select at k_fetch = 40 runs over
-//     half the lists a CTA. A producer warp feeds a TMA ring (int8 rows
-//     whose stride or base TMA cannot take are copied by its lanes, in
-//     TMA's swizzle); two consumer warpgroups own 128 rows (64 where the
+//     half the lists a CTA. A producer warp feeds a TMA ring (rows whose
+//     stride or base TMA cannot take are copied by its lanes, in TMA's
+//     swizzle); two consumer warpgroups own 128 rows (64 where the
 //     accumulator is wider than 64) each on wgmma's M side with the
 //     queries on N. Packed rows are unpacked straight into the RS-form A
 //     registers, in a dimension order that makes one byte a thread's 8
-//     fragment values. int8 rows and digits are K-major as they lie, 128
-//     bytes of d a ring stage (four k32 s8 products, exact s32 sums). The
-//     k-select gates the scores against each query's k-th entry, so once
-//     the lists fill a tile costs one compare per score and rarely an
-//     insert. Measured on the H100 (scripts/topk_scan_probe.py): bf16 0.67
-//     ms at Q = 1, 0.73 at Q = 64, 1.61 at Q = 256 (k = 10); binary 0.95 at
-//     Q = 64 and 2.67 at Q = 256 (k = 30), where the products are still
-//     3.4x their bound and the select at k = 30 half the time; K9 0.61 ms
-//     at Q = 64 (10% of the rows kept) and 1.67 at Q = 256 (k = 10),
-//     where the four query blocks read the rows from device memory four
-//     times; K12 1.88 at Q = 256, k_fetch = 40, 58% of it the select;
-//   * fp32 rows and bf16 rows with D % 8 != 0: topk_scan_kernel, a
-//     register-tiled FMA product on the CUDA cores. It holds one tile of 64
-//     queries and streams 64-row tiles (so the rows are read once per 64
-//     queries); the [64, 64] score tile lands in shared memory and each
-//     warp updates the sorted lists of its queries by (-score, idx). Rows
-//     arrive in ascending order, so a candidate equal to the current k-th
-//     score loses the tie and is skipped;
+//     fragment values; fp32 rows are split there, each value into three
+//     bf16 parts, against the query block's three parts (made once per
+//     launch by the split pass) in shared memory, six products a k16 step
+//     (hopper.cuh::split_part), so no pass over the rows writes parts.
+//     int8 rows and digits are K-major as they lie, 128 bytes of d a ring
+//     stage (four k32 s8 products, exact s32 sums). The k-select gates the
+//     scores against each query's k-th entry, so once the lists fill a tile
+//     costs one compare per score and rarely an insert. Measured on the
+//     H100 (scripts/topk_scan_probe.py): bf16 0.67 ms at Q = 1, 0.73 at
+//     Q = 64, 1.61 at Q = 256 (k = 10); binary 0.95 at Q = 64 and 2.67 at
+//     Q = 256 (k = 30), where the products are still 3.4x their bound and
+//     the select at k = 30 half the time; K9 0.61 ms at Q = 64 (10% of the
+//     rows kept) and 1.67 at Q = 256 (k = 10), where the four query blocks
+//     read the rows from device memory four times; K12 1.88 at Q = 256,
+//     k_fetch = 40, 58% of it the select; fp32 2.05 at Q = 64 and 5.50 at
+//     Q = 256 (k = 10), 89% of it the products phase, at about 55% of the
+//     tensor cores' rate (a 32-dim stage of 128 rows x 128 queries in 2.8k
+//     cycles against 1.5k: each warpgroup splits, multiplies and sums a
+//     stage in turn);
+//   * fp32: a ring stage holds 128 bytes (32 dims) of each row and of each
+//     of the query's three parts 64 bytes (64-byte swizzle, as the MLP's
+//     split GEMMs). A stage's twelve products (six terms, two k16 steps)
+//     land in a fresh accumulator that the CUDA cores add to the score in
+//     fp32: the tensor cores' fp32 sums do not round to nearest, and over
+//     one accumulator their error grows with the steps summed (PERF.md
+//     section 6). The score, the step accumulator and the fragments need the
+//     producer warpgroup's registers (threads_of);
 //   * K9: the two exact s32 dots combine as f32(hi) * 254 + f32(lo) with
 //     two roundings (__fmul_rn, __fadd_rn: nvcc would contract a*b+c into
 //     one FMA, one rounding, and the scores would differ from the reference
@@ -80,154 +93,29 @@
 
 namespace rv {
 
-constexpr int TOPK_THREADS = 256;
-constexpr int TOPK_QT = 64;     // queries per CTA
-constexpr int TOPK_RT = 64;     // database rows per tile
-constexpr int TOPK_BK = 32;     // reduction step over d (FMA kernel)
 constexpr int BIN_WMAX = 1024;  // packed plane width cap (d <= 8192)
-
-// k-select over one [QT, RT] score tile `sc` (row stride lds): warp w owns
-// queries w*8 .. w*8+7 of the tile and inserts every row that beats the
-// query's current k-th score. Rows arrive in ascending order. `msk` (the
-// tile's mask slice in shared memory, or nullptr) drops filtered rows.
-__device__ __forceinline__ void kselect_tile(const float* sc, int lds,
-                                             float* st_s, int* st_i, int k,
-                                             int nr, int r0, int q0, int Q,
-                                             int warp, int lane,
-                                             const unsigned char* msk) {
-    for (int qq = warp * (TOPK_QT / 8); qq < (warp + 1) * (TOPK_QT / 8); ++qq) {
-        if (q0 + qq >= Q) break;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int j = lane + 32 * half;
-            const bool real = j < nr && (msk == nullptr || msk[j] != 0);
-            warp_insert_batch(st_s + qq * k, st_i + qq * k, k, sc[qq * lds + j],
-                              real, r0 + 32 * half, lane);
-        }
-    }
-}
-
-__device__ __forceinline__ void init_state(float* st_s, int* st_i, int k, int tid) {
-    for (int idx = tid; idx < TOPK_QT * k; idx += TOPK_THREADS) {
-        st_s[idx] = -CUDART_INF_F;
-        st_i[idx] = -1;
-    }
-}
-
-// the tile's mask slice -> shared memory (rows past nr read as masked)
-__device__ __forceinline__ void load_mask(unsigned char* msk,
-                                          const unsigned char* mask, int r0,
-                                          int nr, int tid) {
-    if (mask != nullptr && tid < TOPK_RT) msk[tid] = (tid < nr) ? mask[r0 + tid] : 0;
-}
-
-__device__ __forceinline__ void write_partials(const float* st_s, const int* st_i,
-                                               int k, int split, int q0, int Q,
-                                               int tid, float* part_s,
-                                               int* part_i) {
-    const int nq = min(TOPK_QT, Q - q0);
-    for (int idx = tid; idx < nq * k; idx += TOPK_THREADS) {
-        const int qq = idx / k, j = idx % k;
-        const size_t o = ((size_t)split * Q + q0 + qq) * k + j;
-        part_s[o] = st_s[idx];
-        part_i[o] = st_i[idx];
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(TOPK_THREADS)
-topk_scan_kernel(const T* __restrict__ db, const T* __restrict__ q,
-                 const unsigned char* __restrict__ mask, int D, int Q,
-                 int n_valid, int k, int rows_per_split,
-                 float* __restrict__ part_s, int* __restrict__ part_i) {
-    extern __shared__ float smem[];
-    float* st_s = smem;                                       // [QT][k]
-    int* st_i = reinterpret_cast<int*>(st_s + TOPK_QT * k);   // [QT][k]
-    float* qs = reinterpret_cast<float*>(st_i + TOPK_QT * k); // [QT][BK+1]
-    float* ds = qs + TOPK_QT * (TOPK_BK + 1);                 // [RT][BK+1]
-    float* sc = ds + TOPK_RT * (TOPK_BK + 1);                 // [QT][RT+1]
-    unsigned char* msk = reinterpret_cast<unsigned char*>(sc + TOPK_QT * (TOPK_RT + 1));
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int q0 = blockIdx.x * TOPK_QT;
-    const int split = blockIdx.y;
-    const int r_begin = split * rows_per_split;
-    const int r_end = min(n_valid, r_begin + rows_per_split);
-    const int tq = tid / 16, tr = tid % 16;   // 4 queries x 4 rows per thread
-
-    init_state(st_s, st_i, k, tid);
-
-    for (int r0 = r_begin; r0 < r_end; r0 += TOPK_RT) {
-        const int nr = min(TOPK_RT, r_end - r0);
-        float a[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-        for (int k0 = 0; k0 < D; k0 += TOPK_BK) {
-            __syncthreads();
-            if (k0 == 0) load_mask(msk, mask, r0, nr, tid);
-            for (int idx = tid; idx < TOPK_QT * TOPK_BK; idx += TOPK_THREADS) {
-                const int r = idx / TOPK_BK, kk = idx % TOPK_BK;
-                const int gq = q0 + r, gk = k0 + kk;
-                qs[r * (TOPK_BK + 1) + kk] =
-                    (gq < Q && gk < D) ? to_f<T>(q[(size_t)gq * D + gk]) : 0.f;
-            }
-            for (int idx = tid; idx < TOPK_RT * TOPK_BK; idx += TOPK_THREADS) {
-                const int r = idx / TOPK_BK, kk = idx % TOPK_BK;
-                const int gk = k0 + kk;
-                ds[r * (TOPK_BK + 1) + kk] =
-                    (r < nr && gk < D) ? to_f<T>(db[(size_t)(r0 + r) * D + gk]) : 0.f;
-            }
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < TOPK_BK; ++kk) {
-                float qa[4], da[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) qa[i] = qs[(tq * 4 + i) * (TOPK_BK + 1) + kk];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) da[j] = ds[(tr + 16 * j) * (TOPK_BK + 1) + kk];
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) a[i][j] = fmaf(qa[i], da[j], a[i][j]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sc[(tq * 4 + i) * (TOPK_RT + 1) + tr + 16 * j] = a[i][j];
-        __syncthreads();
-
-        kselect_tile(sc, TOPK_RT + 1, st_s, st_i, k, nr, r0, q0, Q, warp, lane,
-                     mask ? msk : nullptr);
-        // the next tile's first __syncthreads orders these updates before
-        // sc and msk are overwritten
-    }
-    __syncthreads();
-    write_partials(st_s, st_i, k, split, q0, Q, tid, part_s, part_i);
-}
 
 // ---- the wgmma scan: every query of a block against each row tile ---------
 //
-// K1, K2 (bf16 rows, D % 8 == 0), K10 (packed sign rows), K9 (int8 rows,
-// two int8 query digits) and K12 (int8 rows with row scales, one digit):
-// one kernel, its MODE a template parameter with a per-mode score step. A
-// CTA owns one contiguous slice of rows (grid x) and one block of up to N
-// queries (grid y), and walks the slice in tiles of 128 m_tiles(W) rows (W
-// the accumulator's columns: N, or 2N for K9), so each row tile is read
-// from device memory once per query block:
-//   * a producer warp brings, per k step (128 bytes of d: 64 bf16 or 128
-//     int8 dims), the query block's columns (K9: the hi digits into B rows
-//     0 .. N-1, the lo digits into N .. 2N-1, two TMA loads) and, bf16 and
-//     int8, the tile's rows through TMA into a ring of `stages` stages with
-//     mbarrier completion; packed rows come 128 bytes (1024 dims) a row at a
-//     time into a two-slot chunk ring of their own. Rows whose stride or
-//     base TMA cannot take (packed W % 16 != 0, int8 D % 16 != 0, or a base
-//     that is not 16-byte aligned) are copied by the producer's lanes, int8
-//     ones into the ring in TMA's 128-byte swizzle (zeros past D add nothing
-//     to an integer dot). The query operand is re-read from L2 for every row
+// K1, K2 (bf16 rows; fp32 rows in the split mode), K10 (packed sign rows),
+// K9 (int8 rows, two int8 query digits) and K12 (int8 rows with row
+// scales, one digit): one kernel, its MODE a template parameter with a
+// per-mode score step. A CTA owns one contiguous slice of rows (grid x)
+// and one block of up to N queries (grid y), and walks the slice in tiles
+// of 128 m_tiles(W) rows (W the accumulator's columns: N, or 2N for K9), so
+// each row tile is read from device memory once per query block:
+//   * a producer warp brings, per k step (128 bytes of d: 64 bf16, 32 fp32
+//     or 128 int8 dims), the query block's columns (K9: the hi digits into
+//     B rows 0 .. N-1, the lo digits into N .. 2N-1, two TMA loads; fp32:
+//     its three bf16 parts, three loads) and, but for packed rows, the
+//     tile's rows through TMA into a ring of `stages` stages with mbarrier
+//     completion; packed rows come 128 bytes (1024 dims) a row at a time
+//     into a two-slot chunk ring of their own. Rows whose stride or base
+//     TMA cannot take (a row that is not a multiple of 16 bytes: bf16 D % 8
+//     != 0, fp32 D % 4 != 0, packed W or int8 D % 16 != 0; or a base that
+//     is not 16-byte aligned) are copied by the producer's lanes, but for
+//     packed rows into the ring in TMA's 128-byte swizzle (zeros past D add
+//     nothing to a dot). The query operand is re-read from L2 for every row
 //     tile: loading it only once changes no time measurably
 //     (scripts/topk_scan_probe.py "no_qstream_gate");
 //   * two consumer warpgroups each own 64 m_tiles(W) of the tile's rows on
@@ -238,7 +126,9 @@ topk_scan_kernel(const T* __restrict__ db, const T* __restrict__ q,
 //     rows unpacked (two bytes a row per k step, two instructions per pair
 //     of +-1 bf16 values, sign_pairs) straight into the RS form's A
 //     registers, double-buffered at N = 128 so that a step's unpack
-//     overlaps the last step's products. A 128-register accumulator spills
+//     overlaps the last step's products, fp32 rows read from the swizzled
+//     stage and split into three RS-form fragments (split_frag) whose six
+//     products a k16 step go to a step accumulator (above). A 128-register accumulator spills
 //     (the probe's "n256"), so blocks stop at W = 128: bf16 reads the rows twice
 //     at Q = 256, K9 and K12 (64-query blocks) four times: the four blocks
 //     of a row slice run at once in the one wave, but L2 does not serve the
@@ -294,10 +184,12 @@ constexpr int kModeBf16 = 0;     // bf16 rows (K1, K2)
 constexpr int kModeBin = 1;      // packed sign rows (K10)
 constexpr int kModeI8 = 2;       // int8 rows, two query digits (K9)
 constexpr int kModeI8Rows = 3;   // int8 rows with row scales, one digit (K12)
+constexpr int kModeF32 = 4;      // fp32 rows, split mode (K1, K2)
 
 constexpr int kRows = 128;                     // rows of an m64 tile each for two warpgroups
 constexpr int kConsumers = 2 * kWgThreads;
 constexpr int kThreads = kConsumers + 32;      // + the producer warp
+constexpr int kF32ProducerRegs = 56;           // fp32: the producer warpgroup's registers
 constexpr int kSlotBytes = 16384;              // the candidate slots of a query block
 constexpr int kSerial = 48;                    // list shifts a thread takes on alone
 constexpr int kMaxStages = 8;
@@ -315,6 +207,14 @@ __host__ __device__ constexpr int n_cap(int mode) {
     return mode == kModeI8 || mode == kModeI8Rows ? kNMaxI8 : kNMax;
 }
 
+// threads of a CTA: two consumer warpgroups and the producer warp, or in
+// the fp32 mode a producer warpgroup, so that it can hand registers to the
+// consumers (setmaxnreg): 224 a consumer thread, where the launch bound
+// leaves 168 and the step accumulator and the split fragments spilled
+__host__ __device__ constexpr int threads_of(int mode) {
+    return mode == kModeF32 ? 3 * kWgThreads : kThreads;
+}
+
 // the accumulator's columns: the query block, twice over for K9's digits
 __host__ __device__ constexpr int width(int n, int mode) { return mode == kModeI8 ? 2 * n : n; }
 
@@ -324,11 +224,25 @@ __host__ __device__ constexpr int width(int n, int mode) { return mode == kModeI
 // rows; one at w = 128
 __host__ __device__ constexpr int m_tiles(int w) { return w <= 64 ? 2 : 1; }
 
-// bytes of one ring stage, 128 bytes of d a row: the query block's B
-// operand, [width][128 B] swizzled, and (bf16, int8) the tile's rows,
-// [128 m_tiles][128 B]; binary rows live in the chunk ring
+// dims of d a ring stage holds: 128 bytes of a bf16, fp32 or int8 row; 64
+// dims of the permuted binary query a k step
+__host__ __device__ constexpr int k_dims(int mode) {
+    return mode == kModeF32 ? 32 : mode == kModeI8 || mode == kModeI8Rows ? 128 : 64;
+}
+
+// bytes of the query block's B operand a stage: [width][128 B] swizzled, or
+// fp32's three bf16 parts, [3][n][64 B] (64-byte swizzle)
+__host__ __device__ constexpr int query_bytes(int n, int mode) {
+    return mode == kModeF32 ? 3 * n * 64 : width(n, mode) * 128;
+}
+
+// bytes of one ring stage: but for binary (its rows live in the chunk
+// ring) the tile's rows, [128 m_tiles][128 B], then the query operand,
+// rounded up to 1 KB so that every stage's rows keep the 128-byte
+// swizzle's 1 KB alignment (fp32 at n = 8: 1536 bytes of parts)
 __host__ __device__ constexpr int stage_bytes(int n, int mode) {
-    return (mode == kModeBin ? 0 : kRows * m_tiles(width(n, mode)) * 128) + width(n, mode) * 128;
+    return (mode == kModeBin ? 0 : kRows * m_tiles(width(n, mode)) * 128) +
+           (query_bytes(n, mode) + 1023) / 1024 * 1024;
 }
 
 // candidate slots per query: 16 KB of (score, row) pairs over the block,
@@ -443,11 +357,40 @@ __device__ __forceinline__ void copy_rows(uint8_t* dst, const unsigned char* row
     }
 }
 
+// One k16 step's RS-form A fragment of fp32 rows, split into three bf16
+// parts f[part][register] (0 hi, 1 mid, 2 lo): rows r and r + 8, columns c,
+// c + 1 and c + 8, c + 9 (c even) of a stage's rows, [rows][32 fp32] in
+// TMA's 128-byte swizzle (16-byte chunk j of row r at j ^ (r % 8))
+__device__ __forceinline__ void split_frag(const uint8_t* tile, int r, int c,
+                                           uint32_t (&f)[3][4]) {
+    auto at = [&](int row, int col) {
+        return *reinterpret_cast<const float2*>(tile + row * 128 +
+                                                (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4);
+    };
+    const float2 x[4] = {at(r, c), at(r + 8, c), at(r, c + 8), at(r + 8, c + 8)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split2(x[e].x, x[e].y, f[0][e], f[1][e], f[2][e]);
+}
+
+// fp32 mode: a stage's step accumulators and operand fragments, fenced
+// (fence_operand) before its products are issued and after they are done
+template <int MT, int NW>
+__device__ __forceinline__ void fence_step(float (&step)[MT][NW], uint32_t (&fr)[MT][2][3][4]) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+        fence_operand(step[mt]);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+            for (int p = 0; p < 3; ++p) fence_operand(fr[mt][kk][p]);
+    }
+}
+
 __device__ __forceinline__ float score_of(float acc) { return acc; }
 __device__ __forceinline__ float score_of(int acc) { return __int_as_float(acc); }   // int8 modes
 
 template <int N, int MODE>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(threads_of(MODE), 1)
 topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap qmap,
                     const unsigned char* __restrict__ rows, int row_bytes,
@@ -457,12 +400,15 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                     float* __restrict__ part_s, int* __restrict__ part_i) {
     constexpr bool BIN = MODE == kModeBin;
     constexpr bool I8 = MODE == kModeI8 || MODE == kModeI8Rows;
+    constexpr bool F32 = MODE == kModeF32;
     constexpr int W = width(N, MODE);                // accumulator columns
     constexpr int MT = m_tiles(W);
     constexpr int ROWS = kRows * MT;                 // rows of a tile
     constexpr int STAGE = stage_bytes(N, MODE);
     constexpr int A_BYTES = BIN ? 0 : ROWS * 128;    // the rows' part of a stage
-    constexpr int KS = I8 ? 128 : 64;                // dims of a k step
+    constexpr int QB = query_bytes(N, MODE);         // the query operand's
+    constexpr int KS = k_dims(MODE);                 // dims of a k step
+    constexpr int THREADS = threads_of(MODE);
     constexpr int NV = N / 2;                        // scores of one m64 tile a thread holds
     constexpr int NP = (MT * NV + 31) / 32;          // words of its pending bits
     constexpr int NC = cand_slots(N);                // candidate slots per query
@@ -494,11 +440,11 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     const int n_tiles = r_end > r_begin ? ceil_div(r_end - r_begin, ROWS) : 0;
     const int nq = min(N, Q - q0);
 
-    for (int idx = threadIdx.x; idx < kp * N; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kp * N; idx += THREADS) {
         st_s[idx] = -CUDART_INF_F;
         st_i[idx] = -1;
     }
-    for (int idx = threadIdx.x; idx < N; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < N; idx += THREADS) {
         kth_s[idx] = -CUDART_INF_F;
         kth_i[idx] = -1;
         cnt[idx] = 0;
@@ -522,7 +468,12 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     if (wg == 2) {
         // ---- producer warp: lane 0 issues the TMA loads; rows without a map
         // (`rows` given) are copied by every lane, ROWS / 32 rows of 128 bytes
-        // a chunk (binary) or a stage (int8) ----
+        // a chunk (binary) or a stage (the other modes); in the fp32 mode the
+        // first warp of the producer warpgroup ----
+        if constexpr (F32) {
+            setmaxnreg_dec<kF32ProducerRegs>();
+            if (threadIdx.x >= kConsumers + 32) return;
+        }
         int jc = 0;
         for (int t = 0; t < n_tiles; ++t) {
             const int r0 = r_begin + t * ROWS;
@@ -545,15 +496,21 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                 const int j = t * n_k + ks, s = j % stages;
                 mbar_wait(&empty[s], ((j / stages) & 1) ^ 1);
                 uint8_t* st = ring + s * STAGE;
-                const bool copy = I8 && rows != nullptr;
+                const bool copy = !BIN && rows != nullptr;
                 if (copy) {   // wgmma reads them through the async proxy
-                    copy_rows<ROWS>(st, rows, row_bytes, r0, r_end, ks * KS, true, lane);
+                    copy_rows<ROWS>(st, rows, row_bytes, r0, r_end, ks * 128, true, lane);
                     fence_proxy_async();
                 }
                 if (lane == 0) {
-                    mbar_expect_tx(&full[s], copy ? STAGE - A_BYTES : STAGE);
+                    mbar_expect_tx(&full[s], (copy ? 0 : A_BYTES) + QB);
                     if (!BIN && !copy) tma_load_2d(st, &amap, &full[s], ks * KS, r0);
-                    tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * KS, q0);
+                    if constexpr (F32) {   // the parts, [3][Q][pitch]: one load each
+#pragma unroll
+                        for (int p = 0; p < 3; ++p)
+                            tma_load_3d(st + A_BYTES + p * N * 64, &qmap, &full[s], ks * KS, q0, p);
+                    } else {
+                        tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * KS, q0);
+                    }
                     if (MODE == kModeI8)   // the lo digits, rows Q .. 2Q - 1 of the map
                         tma_load_2d(st + A_BYTES + N * 128, &qmap, &full[s], ks * KS, Q + q0);
                 } else {
@@ -566,6 +523,7 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
 
     // ---- consumer warpgroups: rows r0 + 64 MT wg .. + 64 MT of each tile,
     // m64 tile mt at r0 + 64 (MT wg + mt) ----
+    if constexpr (F32) setmaxnreg_inc<(65536 / THREADS / 8 * 8 * 3 - kF32ProducerRegs) / 2 / 8 * 8>();
     const int ctid = threadIdx.x;
     const int warp = (ctid % kWgThreads) / 32, t4 = lane % 4;
     const int rr = wg * 64 * MT + warp * 16 + lane / 4;   // rows rr + 64 mt and + 8
@@ -706,6 +664,53 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
             fence_frag(fb);
             j += n_k;
             release(j - 1);
+        } else if constexpr (F32) {
+            // a stage: 32 dims, two k16 steps; its twelve products an m64
+            // tile in `step`, added to the score on the CUDA cores once they
+            // are done. (Splitting the next stage into a second fragment
+            // buffer while a stage's products run spilled at N = 128 and was
+            // slower: scripts/topk_scan_probe.py, PERF.md section 6.)
+            float step[MT][W / 2];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int i = 0; i < W / 2; ++i) step[mt][i] = 0.f;
+            for (int ks = 0; ks < n_k; ++ks, ++j) {
+                const int s = j % stages;
+                const uint32_t qp = ring_addr + s * STAGE + A_BYTES;   // the query's parts
+                mbar_wait(&full[s], (j / stages) & 1);
+                uint32_t fr[MT][2][3][4];   // [m64 tile][k16 step][part][register]
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int kk = 0; kk < 2; ++kk)
+                        split_frag(ring + s * STAGE, rr + 64 * mt, 16 * kk + 2 * t4, fr[mt][kk]);
+                // the fragments and the step accumulator are written before
+                // wgmma.fence, as PTX requires of an asynchronous product's
+                // registers (fence_operand keeps the compiler from sinking
+                // the split past it)
+                fence_step(step, fr);
+                wgmma_fence();
+#pragma unroll
+                for (int t = 0; t < kSplitTerms; ++t)
+#pragma unroll
+                    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+                        for (int mt = 0; mt < MT; ++mt)
+                            WgmmaRSK<N>::run(
+                                step[mt], fr[mt][kk][split_part(t, 0)],
+                                gmma_desc(qp + split_part(t, 1) * N * 64 + kk * 32, 16, 512, 2),
+                                t > 0 || kk > 0);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_step(step, fr);
+                release(j);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int i = 0; i < W / 2; ++i)
+                        acc[mt][i] = ks > 0 ? __fadd_rn(acc[mt][i], step[mt][i]) : step[mt][i];
+            }
         } else {
             for (int ks = 0; ks < n_k; ++ks, ++j) {
                 const int s = j % stages;
@@ -907,14 +912,15 @@ static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned
     int dev = 0, sms = 1, occ = 1;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem)) !=
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads_of(MODE),
+                                                             smem)) !=
             cudaSuccess)
         return (int)err;
     *n_splits = max(1, min(*n_splits, ceil_div(max(occ, 1) * sms, p.q_blocks)));
     constexpr int ROWS = kRows * m_tiles(width(N, MODE));
     int rows_per_split = ceil_div(n_valid, *n_splits);
     rows_per_split = ceil_div(rows_per_split, ROWS) * ROWS;
-    kernel<<<dim3(*n_splits, p.q_blocks), kThreads, smem, stream>>>(
+    kernel<<<dim3(*n_splits, p.q_blocks), threads_of(MODE), smem, stream>>>(
         am, qm, rows, row_bytes, mask, q_scale, row_scale, Q, n_valid, k, n_k, rows_per_split,
         p.stages, part_s, part_i);
     return (int)cudaGetLastError();
@@ -923,39 +929,47 @@ static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned
 static inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // MODE's rows db [n_valid.., D] against its queries q:
-//   * kModeBf16: bf16 rows (D % 8 == 0, 16-byte aligned), q [Q, D] bf16;
+//   * kModeBf16: bf16 rows, q [Q, D8] bf16 (D8: D rounded up to 8, zero
+//     past D);
+//   * kModeF32: fp32 rows, q the query's three bf16 parts [3, Q, D8] (the
+//     split pass's layout, zero past D);
 //   * kModeBin: packed rows (W = D bytes a row), q the query permuted to the
 //     k loop's order, [Q, 8 W16] bf16 (W16: W rounded up to 16);
 //   * kModeI8: int8 rows, q the digits [2, Q, D16] int8 (D16: D rounded up
 //     to 16, zero past D); kModeI8Rows: int8 rows with row_scale [n_valid..],
 //     q [Q, D16] int8 with q_scale [Q].
-// Packed and int8 rows that TMA cannot take (D % 16 != 0 or an unaligned
-// base) are copied by the producer warp.
+// Rows that TMA cannot take (a row stride that is not a multiple of 16
+// bytes, or an unaligned base) are copied by the producer warp.
 template <int MODE>
 static int launch_wg(const void* db, const void* q, const unsigned char* mask,
                      const float* q_scale, const float* row_scale, int D, int Q, int n_valid,
                      int k, int* n_splits, float* part_s, int* part_i, cudaStream_t stream) {
     constexpr bool I8 = MODE == kModeI8 || MODE == kModeI8Rows;
+    constexpr int esize = MODE == kModeF32 ? 4 : MODE == kModeBf16 ? 2 : 1;   // row bytes a dim
     const Plan p = plan(Q, k, MODE);
     const int rows = kRows * m_tiles(width(p.n, MODE));   // the tile's rows: the rows' TMA box
-    const int w16 = ceil_div(D, 16) * 16;
-    const int qcols = MODE == kModeBin ? 8 * w16 : I8 ? w16 : D;
+    const int w16 = ceil_div(D, 16) * 16, d8 = ceil_div(D, 8) * 8;
+    const int qcols = MODE == kModeBin ? 8 * w16 : I8 ? w16 : d8;
     const int qrows = MODE == kModeI8 ? 2 * Q : Q;
-    const int n_k = ceil_div(qcols, I8 ? 128 : 64);
+    const int n_k = ceil_div(qcols, k_dims(MODE));
     CUtensorMap am, qm;
     const unsigned char* copy = nullptr;
-    if (!aligned16(q) ||
-        !(I8 ? make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, qcols, qrows, 128, p.n,
+    const bool qmap_ok =
+        MODE == kModeF32 ? make_map_parts(&qm, q, qcols, Q, p.n)
+        : I8 ? make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, qcols, qrows, 128, p.n,
                         CU_TENSOR_MAP_SWIZZLE_128B)
              : make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, qcols, qrows, 64, p.n,
-                        CU_TENSOR_MAP_SWIZZLE_128B)))
-        return kMapError;
-    if (MODE != kModeBf16 && (D % 16 != 0 || !aligned16(db))) {
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!aligned16(q) || !qmap_ok) return kMapError;
+    if ((D * esize) % 16 != 0 || !aligned16(db)) {
         copy = static_cast<const unsigned char*>(db);   // the producer copies the rows
         am = qm;                                        // unused
     } else if (MODE == kModeBin ? !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, db, D, n_valid,
                                             kChunk, rows, CU_TENSOR_MAP_SWIZZLE_NONE)
                : I8 ? !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, db, D, n_valid, 128, rows,
+                                CU_TENSOR_MAP_SWIZZLE_128B)
+               : MODE == kModeF32
+                    ? !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, db, D, n_valid, 32, rows,
                                 CU_TENSOR_MAP_SWIZZLE_128B)
                     : !make_map(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, db, D, n_valid, 64,
                                 rows, CU_TENSOR_MAP_SWIZZLE_128B)) {
@@ -965,8 +979,8 @@ static int launch_wg(const void* db, const void* q, const unsigned char* mask,
 #define RV_WG_CASE(NN)                                                                        \
     case NN:                                                                                  \
         if constexpr (NN <= n_cap(MODE))                                                      \
-            return launch_n<NN, MODE>(am, qm, copy, D, mask, q_scale, row_scale, Q, n_valid, k, \
-                                      n_k, p, n_splits, part_s, part_i, stream);              \
+            return launch_n<NN, MODE>(am, qm, copy, D * esize, mask, q_scale, row_scale, Q,   \
+                                      n_valid, k, n_k, p, n_splits, part_s, part_i, stream);  \
         break;
         RV_WG_CASE(8) RV_WG_CASE(16) RV_WG_CASE(32) RV_WG_CASE(64) RV_WG_CASE(128)
 #undef RV_WG_CASE
@@ -1024,33 +1038,10 @@ static int launch_merge(const float* part_s, const int* part_i, int Q, int k,
     return (int)cudaGetLastError();
 }
 
-template <typename Kernel, typename... Args>
-static int launch_smem(Kernel kernel, size_t smem, int Q, int n_splits,
-                       cudaStream_t stream, Args... args) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(ceil_div(Q, TOPK_QT), n_splits);
-    kernel<<<grid, TOPK_THREADS, smem, stream>>>(args...);
-    return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_scan(const void* db, const void* q, const unsigned char* mask,
-                       int D, int Q, int n_valid, int k, int n_splits,
-                       int rows_per_split, float* part_s, int* part_i,
-                       cudaStream_t stream) {
-    const size_t smem = ((size_t)TOPK_QT * k * 2 + TOPK_QT * (TOPK_BK + 1) +
-                         TOPK_RT * (TOPK_BK + 1) + TOPK_QT * (TOPK_RT + 1)) *
-                            sizeof(float) + TOPK_RT;
-    return launch_smem(topk_scan_kernel<T>, smem, Q, n_splits, stream,
-                       static_cast<const T*>(db), static_cast<const T*>(q), mask,
-                       D, Q, n_valid, k, rows_per_split, part_s, part_i);
-}
-
-// mode: kFloat32 / kBFloat16 (q [Q, D] in the rows' dtype), kInt8 (q the
-// digits [2, Q, D] int8), kBinaryPacked (D = W packed bytes per row, q
-// [Q, 8W] bf16). mask: [n_valid] uint8 or null.
+// mode: kFloat32 (q the query's three bf16 parts [3, Q, D8]), kBFloat16
+// (q [Q, D8] bf16), kInt8 (q the digits [2, Q, D16] int8), kBinaryPacked
+// (D = W packed bytes per row, q [Q, 8 W16] bf16). mask: [n_valid] uint8 or
+// null.
 static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
                        int Q, int n_valid, int k, int n_splits, void* part_s_v,
                        void* part_i_v, void* out_s, void* out_i, int mode,
@@ -1059,22 +1050,17 @@ static int launch_topk(const void* db, const void* q, const void* mask_v, int D,
     const auto* mask = static_cast<const unsigned char*>(mask_v);
     auto* part_s = static_cast<float*>(part_s_v);
     auto* part_i = static_cast<int*>(part_i_v);
-    // whole row tiles per split, so every split but the last is full
-    int rows_per_split = ceil_div(max(n_valid, 1), n_splits);
-    rows_per_split = ceil_div(rows_per_split, TOPK_RT) * TOPK_RT;
     int status;
     if (n_valid <= 0)   // no row scores: every slot (-inf, -1)
         return launch_merge(part_s, part_i, Q, k, 0, out_s, out_i, stream);
-    if (mode == kBFloat16 && D % 8 == 0 && scan_wg::aligned16(db))
+    if (mode == kBFloat16)
         status = scan_wg::launch_wg<scan_wg::kModeBf16>(db, q, mask, nullptr, nullptr, D, Q,
                                                         n_valid, k, &n_splits, part_s, part_i,
                                                         stream);
-    else if (mode == kBFloat16)
-        status = launch_scan<__nv_bfloat16>(db, q, mask, D, Q, n_valid, k, n_splits,
-                                            rows_per_split, part_s, part_i, stream);
     else if (mode == kFloat32)
-        status = launch_scan<float>(db, q, mask, D, Q, n_valid, k, n_splits,
-                                    rows_per_split, part_s, part_i, stream);
+        status = scan_wg::launch_wg<scan_wg::kModeF32>(db, q, mask, nullptr, nullptr, D, Q,
+                                                       n_valid, k, &n_splits, part_s, part_i,
+                                                       stream);
     else if (mode == kInt8)
         status = scan_wg::launch_wg<scan_wg::kModeI8>(db, q, mask, nullptr, nullptr, D, Q, n_valid,
                                                       k, &n_splits, part_s, part_i, stream);

@@ -78,8 +78,8 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # with SAM's decomposed rel-pos bias; `topk_stream`, `topk_masked`,
 # `topk_int8` and `topk_binary` the top-k kernel's modes: bf16/fp32 rows
 # without and with a row mask, int8 rows (masked or not), packed sign
-# bits; `topk_stream_f32` the `topk_stream` launches on fp32 rows (the
-# CUDA-core scan); `topk_int8_rows` its per-row-scale int8 candidate scan (the
+# bits; `topk_stream_f32` the launches on fp32 rows of either of the first
+# two (the split mode); `topk_int8_rows` its per-row-scale int8 candidate scan (the
 # two-stage search's first stage); `fused_mlp_int8` the MLP's int8 mode.
 # `flash_heads`, `flash_attn`, `flash_attn_relbias` and `fused_mlp` count
 # every launch of their mode; `flash_heads_tc`, `flash_attn_tc` and
@@ -90,7 +90,8 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # flash_attn_split.cu), `fused_mlp_tc` the bf16 MLP calls and
 # `fused_mlp_split` the fp32 ones that went to the wgmma GEMMs (one count
 # per MLP call, not per GEMM); `split_parts` the split pass's launches
-# outside an MLP call (the weights' parts, the bf16 MLP's padded copies).
+# outside an MLP call (the weights' parts, the bf16 MLP's padded copies,
+# the fp32 top-k's query parts).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
@@ -103,7 +104,9 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,
 # H)): n, ("flash_heads_split", (B, S, W, heads)): n, ("ms_deform", (B,
 # Lq, level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
-# masked)): n}. Counted beside `launches`, which stays the per-kernel count.
+# masked)): n}, fp32-row top-k launches under "topk_stream_f32"
+# (`ops/topk.py::launch_key`). Counted beside `launches`, which stays the
+# per-kernel count.
 shape_launches: collections.Counter = collections.Counter()
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the
 # top-k kernel's cap; int8 k above the cap or d above the exactness bound

@@ -1,27 +1,29 @@
-"""Exact top-k search: the streaming CUDA kernels and their plain versions.
+"""Exact top-k search: the streaming CUDA kernel and its plain versions.
 
 The database is a device-resident [N, d] matrix: L2-normalized bf16 or
-fp32 rows (fp32 accumulation), or int8 rows with one global scale, scored
-exactly against a two-digit int8 split of each query. Results are ordered
-by (-score, index): ties go to the lower row, rows at or past `n_valid`
-and rows whose `row_mask` entry is False never score, and slots beyond the
+fp32 rows (fp32 accumulation; fp32 rows at the TPU kernel's
+Precision.HIGHEST), or int8 rows with one global scale, scored exactly
+against a two-digit int8 split of each query. Results are ordered by
+(-score, index): ties go to the lower row, rows at or past `n_valid` and
+rows whose `row_mask` entry is False never score, and slots beyond the
 scoring rows come back as (score -inf, idx -1). On a CUDA tensor
 `cosine_topk` and `cosine_topk_int8_exact` launch `csrc/topk_stream.cu`,
 whose two passes never materialize the [Q, N] score matrix; on a CPU
 tensor they run `cosine_topk_ref` / `cosine_topk_int8_ref`.
 
-Which kernel of `topk_stream.cu` serves which call:
-  * bf16 rows with d % 8 == 0 (K1, K2 with a row mask), packed sign rows
-    (K10, `ops/binary.py`) and int8 rows (K9 here, K12 in
-    `ops/topk_int8.py`): `topk_scan_wg_kernel`, wgmma + TMA (s8 wgmma with
-    exact s32 sums for int8), each CTA scoring 256-row tiles (128 where the
-    accumulator is wider than 64 columns) against a block of up to 128
-    queries, 64 in the int8 modes (K9's two query digits make the
-    accumulator twice as wide; K12's k-select runs over fewer lists)
-    (`wg_plan`; Q above a block runs as several blocks, each reading the
-    rows again);
-  * fp32 rows, and bf16 rows with d % 8 != 0: `topk_scan_kernel`, FMA on
-    the CUDA cores, 64 queries x 64 rows a tile.
+Every launch runs the kernel's wgmma + TMA scan, `topk_scan_wg_kernel`,
+in the mode `wg_mode` names: bf16 rows (K1, K2 with a row mask), fp32
+rows in the split mode (K1, K2: each row value split into three bf16
+parts in registers, against the query's three parts from the split pass,
+`ops/split.py`; six bf16 products a step), packed sign rows (K10,
+`ops/binary.py`) and int8 rows (K9 here, K12 in `ops/topk_int8.py`; s8
+wgmma with exact s32 sums). Each CTA scores 256-row tiles (128 where the
+accumulator is wider than 64 columns) against a block of up to 128
+queries, 64 in the int8 modes (K9's two query digits make the
+accumulator twice as wide; K12's k-select runs over fewer lists)
+(`wg_plan`; Q above a block runs as several blocks, each reading the
+rows again). Rows whose stride or base TMA cannot take are copied by the
+kernel's producer warp.
 """
 from __future__ import annotations
 
@@ -32,15 +34,15 @@ import torch
 
 from .. import kernels
 from ..utils.logging import get_logger
+from .split import split_parts
 
 log = get_logger("ops.topk")
 
 # k cap of the CUDA kernel (TOPK_KMAX in csrc/topk_select.cuh)
 K_CAP = 128
-_QUERY_TILE = 64   # TOPK_QT in csrc/topk_stream.cu: the CUDA-core kernel's tiles
-_ROW_TILE = 64     # TOPK_RT
-# the wgmma scan's geometry (scan_wg:: in csrc/topk_stream.cu)
-WG_BF16, WG_BINARY, WG_INT8, WG_INT8_ROWS = 0, 1, 2, 3   # its modes (kMode*): K1/K2, K10, K9, K12
+# the wgmma scan's geometry (scan_wg:: in csrc/topk_stream.cu); its modes
+# (kMode*): K1/K2 on bf16 rows, K10, K9, K12, K1/K2 on fp32 rows
+WG_BF16, WG_BINARY, WG_INT8, WG_INT8_ROWS, WG_F32 = 0, 1, 2, 3, 4
 WG_ROWS = 128        # rows of a tile per m64 tile of each warpgroup (wg_m_tiles)
 WG_SLOT_BYTES = 16384   # the candidate slots of a query block
 WG_MAX_STAGES = 8
@@ -125,14 +127,6 @@ def cosine_topk_ref(db: torch.Tensor, queries: torch.Tensor, k: int,
     return _finish(_mask_scores(scores, n_valid, row_mask), k)
 
 
-def scan_splits(dev: torch.device, qn: int, n_valid: int) -> int:
-    """Row splits of a launch of the CUDA-core scan (fp32 rows, bf16 rows
-    with d % 8 != 0; 64-query tiles): about two waves of CTAs over the
-    SMs, split along the rows."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return split_count(sms, -(-qn // _QUERY_TILE), n_valid, _ROW_TILE)
-
-
 def split_count(sms: int, q_blocks: int, n_valid: int, row_tile: int) -> int:
     """About two waves of CTAs: 2 * sms / q_blocks row splits, at most one
     per row tile."""
@@ -158,19 +152,27 @@ def wg_m_tiles(w: int) -> int:
     return 2 if w <= 64 else 1
 
 
+def wg_query_bytes(n: int, mode: int) -> int:
+    """Bytes of the query block's B operand a ring stage holds
+    (scan_wg::query_bytes): [wg_width(n)][128 B], or in the fp32 mode
+    the three bf16 parts of 32 dims, [3][n][64 B]."""
+    return 3 * n * 64 if mode == WG_F32 else wg_width(n, mode) * 128
+
+
 def wg_smem(n: int, k: int, mode: int, stages: int) -> int:
     """Shared memory of one wgmma scan CTA (scan_wg::smem_bytes): 1 KB of
-    alignment, the ring (a stage holds 128 bytes of d a row: the query
-    block's B operand, [wg_width(n)][128 B], and except in binary mode the
-    tile's rows, [128 m][128 B], m = wg_m_tiles(wg_width(n))), binary
+    alignment, the ring (a stage holds 128 bytes of each row but in binary
+    mode, [128 m][128 B] with m = wg_m_tiles(wg_width(n)), then the query
+    block's B operand, `wg_query_bytes`, rounded up to 1 KB), binary
     mode's two-slot ring of packed row chunks ([128 m][128 B] each), the
     sorted lists ([n][k | 1] score, index pairs), the candidate slots, the
     k-th entries and counts, K12's query scales, the 8 consumer warps'
     merge scratch (128 pairs each), and the barriers. `mode` is one of
-    WG_BF16, WG_BINARY (or False / True), WG_INT8, WG_INT8_ROWS."""
+    WG_BF16, WG_BINARY (or False / True), WG_INT8, WG_INT8_ROWS, WG_F32."""
     w = wg_width(n, mode)
     rows = WG_ROWS * wg_m_tiles(w)
-    ring = stages * ((0 if mode == WG_BINARY else rows * 128) + w * 128)
+    ring = stages * ((0 if mode == WG_BINARY else rows * 128)
+                     + -(-wg_query_bytes(n, mode) // 1024) * 1024)
     chunks = 2 * rows * 128 if mode == WG_BINARY else 0
     scales = 4 * n if mode == WG_INT8_ROWS else 0
     return (1024 + chunks + ring + n * (8 * (k | 1) + 8 * wg_cand(n) + 12) + scales
@@ -207,45 +209,44 @@ def wg_splits(dev: torch.device, qn: int, k: int, n_valid: int, mode: int) -> in
     return split_count(sms, q_blocks, n_valid, WG_ROWS * wg_m_tiles(wg_width(n_pad, mode)))
 
 
-def wg_mode(mode: int, d: int) -> Optional[int]:
-    """The wgmma scan's mode for a `rv_topk_stream` launch, or None where
-    it takes the CUDA-core scan: bf16 rows with d % 8 == 0 (TMA's 16-byte
-    row stride), every packed-sign and every int8 launch (rows TMA cannot
-    take are copied by the producer warp)."""
-    if mode == kernels.BINARY_PACKED:
-        return WG_BINARY
-    if mode == kernels.INT8:
-        return WG_INT8
-    if mode == kernels.DTYPE_CODES[torch.bfloat16] and d % 8 == 0:
-        return WG_BF16
-    return None
+def wg_mode(mode: int) -> int:
+    """The wgmma scan's mode for a `rv_topk_stream` launch (every launch
+    takes the scan; rows TMA cannot take are copied by its producer warp)."""
+    return {kernels.DTYPE_CODES[torch.bfloat16]: WG_BF16,
+            kernels.DTYPE_CODES[torch.float32]: WG_F32,
+            kernels.BINARY_PACKED: WG_BINARY, kernels.INT8: WG_INT8}[mode]
 
 
-def wg_route(mode: int, d: int) -> bool:
-    """Whether a launch takes the wgmma scan (`wg_mode`)."""
-    return wg_mode(mode, d) is not None
+def launch_key(counter: str, dtype: torch.dtype, shape: tuple) -> tuple:
+    """The `kernels.shape_launches` key of a top-k launch: its counter and
+    its shape (Q, n_valid, dims, k, masked). Launches on fp32 rows, masked
+    or not, count under "topk_stream_f32", so that a shape is always timed
+    on rows of the dtype it ran on."""
+    return ("topk_stream_f32" if dtype == torch.float32 else counter, shape)
 
 
 def tma_rows(x: torch.Tensor) -> torch.Tensor:
-    """int8 operand rows for TMA: the last dim zero-padded to a multiple of
-    16 bytes, contiguous and 16-byte aligned (a copy only where needed;
-    zeros add nothing to an integer dot)."""
+    """Query operand rows for TMA: the last dim zero-padded to a multiple
+    of 16 bytes (16 int8 or 8 bf16 values), contiguous and 16-byte aligned
+    (a copy only where needed; zeros add nothing to a dot)."""
+    per = 16 // x.element_size()
     d = x.shape[-1]
-    w16 = -(-d // 16) * 16
-    if w16 == d and x.is_contiguous() and x.data_ptr() % 16 == 0:
+    w = -(-d // per) * per
+    if w == d and x.is_contiguous() and x.data_ptr() % 16 == 0:
         return x
-    out = x.new_zeros((*x.shape[:-1], w16))
+    out = x.new_zeros((*x.shape[:-1], w))
     out[..., :d] = x
     return out
 
 
 def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
                  k: int, n_valid: int, mode: int, row_mask=None, dims: Optional[int] = None):
-    """Launch csrc/topk_stream.cu in `mode`; returns (scores, idx) [Q, k].
-    Counts the launch in `kernels.launches[counter]` (an unmasked scan of
-    fp32 rows in "topk_stream_f32" too) and, by shape (Q, n_valid, dims,
-    k, masked; `dims` the scored dimensions, default d), in
-    `kernels.shape_launches`."""
+    """Launch csrc/topk_stream.cu in `mode` (q: the operand that mode takes,
+    [Q, d'] or [parts, Q, d']); returns (scores, idx) [Q, k]. Counts the
+    launch in `kernels.launches[counter]` (a scan of fp32 rows in
+    "topk_stream_f32" too) and, by shape (Q, n_valid, dims, k, masked;
+    `dims` the scored dimensions, default d), in `kernels.shape_launches`
+    under `launch_key`."""
     kernels.require_cuda(name, db, q, *([row_mask] if row_mask is not None else []))
     d = db.shape[1]
     qn = q.shape[-2]
@@ -254,11 +255,7 @@ def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     if qn == 0:
         return out_s, out_i
-    wg = wg_mode(mode, d)
-    if wg is not None:
-        n_splits = wg_splits(dev, qn, k, n_valid, wg)
-    else:
-        n_splits = scan_splits(dev, qn, n_valid)
+    n_splits = wg_splits(dev, qn, k, n_valid, wg_mode(mode))
     part_s = torch.empty((n_splits, qn, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, qn, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):   # launch on the tensors' card
@@ -269,9 +266,10 @@ def _launch_topk(name: str, counter: str, db: torch.Tensor, q: torch.Tensor,
             out_s.data_ptr(), out_i.data_ptr(), mode, kernels.stream_ptr(dev))
     kernels.check(name, status)
     kernels.launches[counter] += 1
-    if counter == "topk_stream" and db.dtype == torch.float32:
+    if db.dtype == torch.float32:
         kernels.launches["topk_stream_f32"] += 1
-    kernels.shape_launches[(counter, (qn, n_valid, dims or d, k, row_mask is not None))] += 1
+    shape = (qn, n_valid, dims or d, k, row_mask is not None)
+    kernels.shape_launches[launch_key(counter, db.dtype, shape)] += 1
     return out_s, out_i
 
 
@@ -298,9 +296,11 @@ def cosine_topk(db: torch.Tensor, queries: torch.Tensor, k: int,
         return cosine_topk_ref(db, queries, k, n_valid=n_valid, row_mask=mask)
     if db.dtype not in kernels.DTYPE_CODES:
         raise ValueError(f"cosine_topk: unsupported dtype {db.dtype}")
+    # fp32: the query's three bf16 parts, [3, Q, d rounded up to 8]; bf16:
+    # the query rows at a 16-byte pitch
+    q = split_parts(queries, 3) if db.dtype == torch.float32 else tma_rows(queries)
     return _launch_topk("cosine_topk", "topk_masked" if mask is not None else "topk_stream",
-                        db, queries.contiguous(), k, n_valid,
-                        kernels.DTYPE_CODES[db.dtype], mask)
+                        db, q, k, n_valid, kernels.DTYPE_CODES[db.dtype], mask)
 
 
 # ---------------------------------------------------------------------------

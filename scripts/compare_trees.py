@@ -4,9 +4,12 @@ given (default: this checkout) on one card: each kernel's time
 (`chip_smoke.py::cuda_ms`) and a hash of its output at the main paths'
 shapes (K3 bf16 with RoPE at B = 8; K4 bf16 at T = 4616 and 36,928; K5 at
 T = 4616; K7 bf16 at B = 8, S = 1297 and fp32 at B = 2; K6 at SAM's
-shape with bf16 operands and on the split mode), the B = 64
-PE-Core-L14-336 forwards in bf16 and int8 (`chip_smoke.py::profiled`:
-host wall, device busy, output hash) and the 32-image region build
+shape with bf16 operands and on the split mode; the top-k scans over
+1M x 1024: K1 bf16 at Q = 256, K2 bf16 at Q = 64 with 10% of the rows
+kept, K9 at Q = 256, K10 at Q = 64 (k = 30, 10% kept), K12 at Q = 256
+(k_fetch = 40)), the PE-Core-L14-336 forwards at B = 64 in bf16 and
+int8 and at B = 8 in fp32 (`chip_smoke.py::profiled`: host wall, device
+busy, output hash) and the 32-image region build
 (`chip_smoke.py::region_run`). Prints one line, RESULT {json}.
 
     python3 scripts/compare_trees.py [tree root]
@@ -97,17 +100,50 @@ def main() -> int:
     row("k6_split", k6_split, iters=5)
     del q, k, v, bias, o
     torch.cuda.empty_cache()
+    # the top-k scans on bf16, int8 and packed rows, 1M x 1024 (K1, K2, K9,
+    # K10, K12 at the paths' and the Q = 256 rows' shapes)
+    topk = importlib.import_module("reverso_tpu_torch.ops.topk")
+    tbin = importlib.import_module("reverso_tpu_torch.ops.binary")
+    tk12 = importlib.import_module("reverso_tpu_torch.ops.topk_int8")
+    x = r(1_000_000, 1024)
+    x /= x.norm(dim=1, keepdim=True)
+    qf = x[torch.arange(256, device="cuda") * 3001] + r(256, 1024, sc=0.05)
+    qf /= qf.norm(dim=1, keepdim=True)
+    folder3 = torch.arange(x.shape[0], device="cuda") % 10 == 3
+    db, qb = x.to(bf16), qf.to(bf16)
+    row("k1_bf16_q256", lambda: torch.cat([t.float() for t in topk.cosine_topk(db, qb, 10)], 1),
+        iters=10)
+    row("k2_bf16_q64", lambda: torch.cat([t.float() for t in topk.cosine_topk(
+        db, qb[:64], 10, row_mask=folder3)], 1), iters=10)
+    del db
+    v8, scale = topk.quantize_db_int8(x)
+    row("k9_q256", lambda: torch.cat([t.float() for t in topk.cosine_topk_int8_exact(
+        v8, scale, qf, 10)], 1), iters=10)
+    del v8
+    packed = torch.cat([tbin.pack_signs(x[lo:lo + 65536]) for lo in range(0, x.shape[0], 65536)])
+    row("k10_q64", lambda: torch.cat([t.float() for t in tbin.binary_topk(
+        packed, qf[:64], 30, 1024, row_mask=folder3)], 1), iters=10)
+    del packed
+    r8, rsc = tk12.quantize_rows(x)
+    q8, qsc = tk12.quantize_queries(qf)
+    row("k12_q256", lambda: torch.cat([t.float() for t in tk12.topk_int8_rows(
+        r8, rsc, q8, qsc, 40)], 1), iters=10)
+    del x, r8, rsc, folder3
+    torch.cuda.empty_cache()
     imgs = torch.randn(64, 336, 336, 3, generator=torch.Generator().manual_seed(9)).cuda()
-    for quant in ("none", "int8"):
+    for quant in ("none", "int8", "f32"):
         cfg = MODEL_PRESETS["PE-Core-L14-336"]
         if quant == "int8":
             cfg = dataclasses.replace(cfg, quant="int8")
+        x = imgs
+        if quant == "f32":   # the fp32 tower (K3 and K4 fp32), B = 8
+            cfg, x = dataclasses.replace(cfg, dtype="float32"), imgs[:8]
         enc = PerceptionEncoder(cfg, seed=3, device="cuda")
         with torch.inference_mode():
-            prof = cs.profiled(torch, lambda: enc.module(imgs))
-            res[f"forward_b64_{quant}"] = [round(prof["wall_ms"], 3),
-                                           round(prof["device_busy_ms"], 3),
-                                           digest(enc.module(imgs))]
+            prof = cs.profiled(torch, lambda: enc.module(x))
+            res[f"forward_b{len(x)}_{quant}"] = [round(prof["wall_ms"], 3),
+                                                 round(prof["device_busy_ms"], 3),
+                                                 digest(enc.module(x))]
         del enc
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Variants of the wgmma top-k scan (`reverso_tpu_torch/csrc/topk_stream.cu`,
-`scan_wg`: K1, K2, K10, K9 and K12) timed on one card.
+`scan_wg`: K1, K2 on bf16 and fp32 rows, K10, K9 and K12) timed on one card.
 
     python3 scripts/topk_scan_probe.py [variant ...]
 
-Compiles `topk_stream.cu` alone once per variant (all nvcc runs at once,
+Compiles `topk_stream.cu` (with `fused_mlp.cu`, for the split pass that
+makes fp32 queries' parts) once per variant (all nvcc runs at once,
 each into its own library in a temporary directory, with ptxas's
 register and spill counts of the scan's instantiations printed, by query
 block N and mode), then, one process per variant, runs `cosine_topk`,
@@ -14,6 +15,7 @@ Q = 256 rows use, holds the variants that keep the results against the
 plain versions (scores within 1e-4, bf16, and 2e-4, binary, ids where the
 margins are clear; int8 ids and scores bit for bit) and times each call by
 CUDA events after a device sleep (`chip_smoke.py::cuda_ms`, 10 calls).
+Also K1 and K2 on fp32 rows (the split mode) at Q = 64 and 256.
 A variant edits the source text. "no_qstream" loads the query operand
 only into the ring's first stages and reuses it (what re-reading the
 queries from L2 for every row tile costs); "no_gate" compares every
@@ -29,7 +31,10 @@ the query block grow to 256 (one block at Q = 256, so the rows are read
 once, but the accumulator takes 128 registers); "i8_n128" lets the int8
 modes' blocks grow to 128 queries (the rows read twice at Q = 256 in
 place of four times; K9's accumulator n256, 128 registers; K12's select
-over twice the lists a CTA); "kserial0" and "kserial128" move the
+over twice the lists a CTA); "f32_n64" caps the fp32 mode's blocks at 64
+queries (two m64 tiles a warpgroup, the rows read four times at
+Q = 256); "f32_no_setmaxnreg" runs the fp32 mode with the other modes'
+producer warp (no register hand-over to the consumers); "kserial0" and "kserial128" move the
 threshold between a thread's serial insert and a warp merge (48 list
 shifts ship); "stages4" caps the ring
 at 4 stages (8 ship); "profile" defines RV_SCAN_PROFILE, and CTA 0 of
@@ -53,11 +58,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {
     "shipped": {},
     "no_qstream": {
-        "mbar_expect_tx(&full[s], copy ? STAGE - A_BYTES : STAGE);":
+        "mbar_expect_tx(&full[s], (copy ? 0 : A_BYTES) + QB);":
         "const bool qload = j < stages;\n"
-        "                    mbar_expect_tx(&full[s], (copy ? 0 : A_BYTES) + (qload ? STAGE - A_BYTES : 0));",
+        "                    mbar_expect_tx(&full[s], (copy ? 0 : A_BYTES) + (qload ? QB : 0));",
         "tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * KS, q0);":
         "if (qload) tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * KS, q0);",
+        "tma_load_3d(st + A_BYTES + p * N * 64, &qmap, &full[s], ks * KS, q0, p);":
+        "if (qload) tma_load_3d(st + A_BYTES + p * N * 64, &qmap, &full[s], ks * KS, q0, p);",
         "if (MODE == kModeI8)   // the lo digits, rows Q .. 2Q - 1 of the map":
         "if (MODE == kModeI8 && qload)"},
     "no_gate": {"if (__ballot_sync(FULL, p[0] || p[1] || p[2] || p[3]) == 0u) continue;":
@@ -69,24 +76,32 @@ VARIANTS = {
     "n256": {"constexpr int kNMax = 128;": "constexpr int kNMax = 256;",
              "RV_WG_CASE(128)\n": "RV_WG_CASE(128) RV_WG_CASE(256)\n"},
     "i8_n128": {"constexpr int kNMaxI8 = 64;": "constexpr int kNMaxI8 = 128;"},
+    "f32_no_setmaxnreg": {"return mode == kModeF32 ? 3 * kWgThreads : kThreads;": "return kThreads;",
+                          "            setmaxnreg_dec<kF32ProducerRegs>();\n": "",
+                          "    if constexpr (F32) setmaxnreg_inc<": "    if constexpr (false) setmaxnreg_inc<"},
+    "f32_n64": {"return mode == kModeI8 || mode == kModeI8Rows ? kNMaxI8 : kNMax;":
+                "return mode == kModeI8 || mode == kModeI8Rows || mode == kModeF32 ? kNMaxI8 : kNMax;"},
     "kserial0": {"constexpr int kSerial = 48;": "constexpr int kSerial = 0;"},
     "kserial128": {"constexpr int kSerial = 48;": "constexpr int kSerial = 128;"},
     "profile": {'#include "hopper.cuh"': '#define RV_SCAN_PROFILE\n#include "hopper.cuh"'},
 }
 VARIANTS["no_qstream_gate"] = {**VARIANTS["no_qstream"], **VARIANTS["no_gate"]}
 EXACT = {"shipped", "bin_one_buffer", "profile", "n256", "stages4", "mt1", "i8_n128",
-         "kserial0", "kserial128"}
+         "kserial0", "kserial128", "f32_n64", "f32_no_setmaxnreg"}
 # (label, kind, Q, k, masked): K1 at the direct-embed path's Q = 1 and 64 and
 # the Q = 256 row, K2 at the capacity path's Q = 64 and the Q = 256 row, K10
 # at the capacity path's Q = 64 and the Q = 256 row, K9 at the capacity
 # path's Q = 64 (masked) and the Q = 256 row, K12 at the two-stage search's
-# Q = 256, k_fetch = 40
+# Q = 256, k_fetch = 40, K1 and K2 on fp32 rows at the float32 store's Q = 64
+# and the Q = 256 row
 SHAPES = (("K1 Q=1 k=10", "bf16", 1, 10, False), ("K1 Q=64 k=5", "bf16", 64, 5, False),
           ("K1 Q=256 k=10", "bf16", 256, 10, False), ("K2 Q=64 k=10", "bf16", 64, 10, True),
           ("K2 Q=256 k=10", "bf16", 256, 10, True), ("K10 Q=64 k=30", "binary", 64, 30, False),
           ("K10 Q=256 k=30", "binary", 256, 30, False), ("K9 Q=64 k=10", "int8", 64, 10, True),
-          ("K9 Q=256 k=10", "int8", 256, 10, False), ("K12 Q=256 k=40", "int8_rows", 256, 40, False))
-MODES = {"0": "bf16", "1": "bin", "2": "int8", "3": "int8 rows"}   # scan_wg::kMode*
+          ("K9 Q=256 k=10", "int8", 256, 10, False), ("K12 Q=256 k=40", "int8_rows", 256, 40, False),
+          ("K1 fp32 Q=64 k=10", "f32", 64, 10, False), ("K1 fp32 Q=256 k=10", "f32", 256, 10, False),
+          ("K2 fp32 Q=64 k=10", "f32", 64, 10, True))
+MODES = {"0": "bf16", "1": "bin", "2": "int8", "3": "int8 rows", "4": "f32"}   # scan_wg::kMode*
 
 
 def nvcc() -> str:
@@ -106,7 +121,9 @@ def start_build(name: str, work: str):
         text = text.replace(old, new)
     open(path, "w").write(text)
     lib = os.path.join(csrc, "libprobe.so")
-    cmd = [nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", lib, path]
+    # fused_mlp.cu, as it is, for the split pass that makes fp32 queries' parts
+    cmd = [nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", lib, path,
+           os.path.join(csrc, "fused_mlp.cu")]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -144,7 +161,7 @@ def run_variant(name: str, lib_path: str) -> dict:
                                                  topk_int8_rows, topk_int8_rows_ref)
 
     lib = ctypes.CDLL(lib_path)
-    for entry in ("rv_topk_stream", "rv_topk_int8_rows"):
+    for entry in ("rv_topk_stream", "rv_topk_int8_rows", "rv_split_parts"):
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = kernels._SIGNATURES[entry], ctypes.c_int
     kernels._lib = lib   # the wrappers launch this variant
@@ -156,7 +173,7 @@ def run_variant(name: str, lib_path: str) -> dict:
     packed = torch.cat([pack_signs(x[lo:lo + 65536]) for lo in range(0, n, 65536)])
     v8, scale = quantize_db_int8(x)             # K9's rows, one global scale
     r8, rsc = quantize_rows(x)                  # K12's rows, a scale each
-    del x
+    db32 = x                                    # the float32 store's rows
     qf = db[torch.arange(256, device="cuda") * 3001].float()
     qf += 0.05 * torch.randn(qf.shape, generator=gen, device="cuda")
     qf /= qf.norm(dim=1, keepdim=True)
@@ -165,7 +182,12 @@ def run_variant(name: str, lib_path: str) -> dict:
     for label, kind, q, k, masked in SHAPES:
         qs = qf[:q]
         m = folder3 if masked else None
-        if kind == "bf16":
+        if kind == "f32":
+            call = lambda: cosine_topk(db32, qs, k, row_mask=m)
+            ref = lambda: cosine_topk_ref(db32, qs, k, row_mask=m)
+            tol, b = 1e-4, bound(n * d * 4 + (n if masked else 0) + q * d * 4 + q * k * 8,
+                                 2 * q * n * d, "float32_split")
+        elif kind == "bf16":
             qb = qs.to(torch.bfloat16)
             call = lambda: cosine_topk(db, qb, k, row_mask=m)
             ref = lambda: cosine_topk_ref(db, qb, k, row_mask=m)
@@ -187,6 +209,7 @@ def run_variant(name: str, lib_path: str) -> dict:
             tol, b = 0.0, bound(n * d + n * 4 + q * d + q * 4 + q * k * 8, 2 * q * n * d,
                                 "int8")
         s, i = call()
+        err = None
         if name in EXACT:
             rs, ri = ref()
             if tol == 0.0:   # int8: bit for bit
@@ -194,8 +217,11 @@ def run_variant(name: str, lib_path: str) -> dict:
                     raise AssertionError(f"{label}: differs from the plain version")
             else:
                 topk_agree(rs, ri, s, i, tol)
+            fin = torch.isfinite(rs)
+            err = float((torch.where(fin, s, 0) - torch.where(fin, rs, 0)).abs().max())
         torch.cuda.synchronize()
-        out[label] = dict(ms=cuda_ms(call, iters=10), bound_ms=b[0], bound_by=b[1])
+        out[label] = dict(ms=cuda_ms(call, iters=10), bound_ms=b[0], bound_by=b[1],
+                          max_abs_err=err)
     return out
 
 
@@ -231,6 +257,9 @@ def main() -> int:
                 rc = 1
                 continue
             print(f"{name}: ptxas {json.dumps(ptxas_usage(log_out + log_err))}", flush=True)
+            for line in sorted(set(x for x in (log_out + log_err).splitlines()
+                                   if "C7515" in x or "C7510" in x)):   # wgmma serialized
+                print(f"{name}: {line.strip()[:400]}", flush=True)
             libs[name] = lib
         for name, lib in libs.items():   # one process each: a hang is cut at its timeout
             try:

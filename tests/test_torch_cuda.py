@@ -146,17 +146,25 @@ def test_fused_mlp_kernel(dev, dtype, t, w, hid, act):
     (20000, 128, 256, 10, 19000),
     (20000, 128, 300, 10, None),  # Q above 256: two query blocks
     (20000, 128, 256, 128, None), # k = 128 at Q = 256: two query blocks
+    # d = 1020 (fp32 rows through TMA, bf16 rows copied by the producer) and
+    # d = 100 (bf16 copied), at Q = 1, 64 and 256 with k = 1 and 128
+    (20000, 1020, 1, 1, None),
+    (20000, 1020, 64, 128, 19999),
+    (20000, 1020, 256, 1, None),
+    (3000, 100, 64, 1, 2900),
+    (3000, 100, 256, 128, None),
+    (3000, 100, 1, 128, None),
 ])
 def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
     from reverso_tpu_torch import kernels
-    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref, launch_key
 
     gen = torch.Generator(device="cuda").manual_seed(n)
     db = torch.randn(n, d, generator=gen, device="cuda")
     db = (db / db.norm(dim=1, keepdim=True)).to(dtype)
     db[n // 2] = db[1]                      # a duplicate: tie -> lower row
     qs = torch.cat([db[1:2], _randn(gen, q - 1, d, dtype=dtype)])
-    key = ("topk_stream", (q, n if n_valid is None else n_valid, d, k, False))
+    key = launch_key("topk_stream", dtype, (q, n if n_valid is None else n_valid, d, k, False))
     n0, s0 = kernels.launches["topk_stream"], kernels.shape_launches[key]
     f0 = kernels.launches["topk_stream_f32"]
     s, i = cosine_topk(db, qs, k, n_valid=n_valid)
@@ -175,8 +183,7 @@ def test_topk_kernel(dev, dtype, n, d, q, k, n_valid):
     assert torch.equal(i[~fin], torch.full_like(i[~fin], -1))
     if k >= 2 and (n_valid is None or n_valid > n // 2):
         assert i[0, :2].tolist() == [1, n // 2]   # the tie goes to the lower row
-    if n_valid is None or n_valid > n // 2:
-        assert i[0, :2].tolist() == [1, n // 2]
+    assert i[0, 0] == 1                           # at k = 1 too
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -466,9 +473,9 @@ def _unit_rows(gen, n, d):
     return x / x.norm(dim=1, keepdim=True)
 
 
-# ragged shapes: N not a multiple of the 64-row tile, Q not a multiple of
-# the 64-query tile, d not a multiple of 128 (or of 16), k > n_valid,
-# every row masked
+# ragged shapes: N not a multiple of the row tile, Q not a multiple of
+# the query block, d not a multiple of 128 (or of 16), k > n_valid, every
+# row masked
 MASKED_CASES = [
     (1000, 64, 7, 10, None, 0.3),
     (4099, 200, 70, 5, 3001, 0.5),
@@ -480,6 +487,7 @@ MASKED_CASES = [
     (20000, 128, 256, 10, 19000, 0.3),
     (20000, 128, 300, 10, None, 0.3), # Q above 256
     (20000, 128, 256, 128, None, 0.5),  # k = 128 at Q = 256
+    (20000, 1020, 64, 10, 19000, 0.1),  # d = 1020 (bf16 rows copied by the producer)
 ]
 
 
@@ -487,7 +495,7 @@ MASKED_CASES = [
 @pytest.mark.parametrize("n,d,q,k,n_valid,keep", MASKED_CASES)
 def test_topk_masked_kernel(dev, dtype, n, d, q, k, n_valid, keep):
     from reverso_tpu_torch import kernels
-    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref, launch_key
 
     gen = torch.Generator(device="cuda").manual_seed(n + d)
     db = _unit_rows(gen, n, d).to(dtype)
@@ -495,7 +503,7 @@ def test_topk_masked_kernel(dev, dtype, n, d, q, k, n_valid, keep):
     mask = torch.rand(n, generator=gen, device="cuda") < keep
     mask[1] = mask[n // 2] = keep > 0
     qs = torch.cat([db[1:2], _unit_rows(gen, q - 1, d).to(dtype)])
-    key = ("topk_masked", (q, n if n_valid is None else n_valid, d, k, True))
+    key = launch_key("topk_masked", dtype, (q, n if n_valid is None else n_valid, d, k, True))
     n0, s0 = kernels.launches["topk_masked"], kernels.shape_launches[key]
     s, i = cosine_topk(db, qs, k, n_valid=n_valid, row_mask=mask)
     assert kernels.launches["topk_masked"] == n0 + 1
@@ -574,13 +582,15 @@ def test_topk_binary_kernel(dev, n, d, q, k, n_valid, keep):
         assert bool((i == -1).all())
 
 
-@pytest.mark.parametrize("mode", ["bf16", "masked", "binary", "int8", "int8_rows"])
+@pytest.mark.parametrize("mode", ["bf16", "masked", "binary", "int8", "int8_rows", "f32",
+                                  "f32_masked"])
 def test_topk_tie_across_tiles_and_splits(dev, mode):
     """Copies of row 1 on both sides of a warpgroup's m64 tiles (127/128)
     and of row tiles that are also row-split boundaries: 4096 rows at
     Q = 3 are 16 tiles of 256, fewer than the SMs, so the launch gives each
     tile its own split. The wgmma scan returns the tied rows in ascending
-    order (int8: K9's n16 and K12's n8 products, bit-equal scores)."""
+    order (int8: K9's n16 and K12's n8 products, bit-equal scores; fp32:
+    equal rows split into equal parts, equal scores)."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops import topk
     from reverso_tpu_torch.ops.binary import binary_topk, pack_signs
@@ -588,8 +598,8 @@ def test_topk_tie_across_tiles_and_splits(dev, mode):
 
     n, d, q, k = 4096, 128, 3, 7
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    wg = {"binary": topk.WG_BINARY, "int8": topk.WG_INT8,
-          "int8_rows": topk.WG_INT8_ROWS}.get(mode, topk.WG_BF16)
+    wg = {"binary": topk.WG_BINARY, "int8": topk.WG_INT8, "int8_rows": topk.WG_INT8_ROWS,
+          "f32": topk.WG_F32, "f32_masked": topk.WG_F32}.get(mode, topk.WG_BF16)
     rows = topk.WG_ROWS * topk.wg_m_tiles(topk.wg_width(topk.wg_plan(q, k, wg)[0], wg))
     assert rows == 256 and topk.split_count(sms, 1, n, rows) == n // rows <= sms
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -598,7 +608,8 @@ def test_topk_tie_across_tiles_and_splits(dev, mode):
     x[copies] = x[1].clone()
     qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d)])
     counter = {"bf16": "topk_stream", "masked": "topk_masked", "binary": "topk_binary",
-               "int8": "topk_int8", "int8_rows": "topk_int8_rows"}[mode]
+               "int8": "topk_int8", "int8_rows": "topk_int8_rows", "f32": "topk_stream",
+               "f32_masked": "topk_masked"}[mode]
     n0 = kernels.launches[counter]
     if mode == "binary":
         s, i = binary_topk(pack_signs(x - x.mean(0)), qs, k, d)
@@ -607,8 +618,10 @@ def test_topk_tie_across_tiles_and_splits(dev, mode):
     elif mode == "int8_rows":
         s, i = topk_int8_rows(*quantize_rows(x), *quantize_queries(qs), k)
     else:
-        mask = torch.ones(n, dtype=torch.bool, device="cuda") if mode == "masked" else None
-        s, i = topk.cosine_topk(x.to(torch.bfloat16), qs.to(torch.bfloat16), k, row_mask=mask)
+        mask = (torch.ones(n, dtype=torch.bool, device="cuda") if mode.endswith("masked")
+                else None)
+        dtype = torch.float32 if mode.startswith("f32") else torch.bfloat16
+        s, i = topk.cosine_topk(x.to(dtype), qs.to(dtype), k, row_mask=mask)
     assert kernels.launches[counter] == n0 + 1
     assert i[0].tolist() == sorted([1] + copies)
     assert len(set(s[0].tolist())) == 1
@@ -857,6 +870,36 @@ def test_topk_int8_unaligned_rows(dev, d):
     assert torch.equal(i, ri) and torch.equal(s, rs)
     assert torch.equal(i2, r2i) and torch.equal(s2, r2s)
     assert i[0, :2].tolist() == [1, n // 2] and i2[0, :2].tolist() == [1, n // 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,q,k,keep", [(1024, 64, 10, None), (1020, 1, 128, 0.5),
+                                        (100, 256, 1, None)])
+def test_topk_unaligned_rows(dev, dtype, d, q, k, keep):
+    """K1 and K2 over fp32 and bf16 rows whose base is one element into
+    its buffer (not 16-byte aligned: the producer warp copies the rows into
+    the ring in TMA's swizzle), against the plain version under the
+    tie-margin rule."""
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
+
+    n = 3001
+    gen = torch.Generator(device="cuda").manual_seed(d + q)
+    x = _unit_rows(gen, n, d).to(dtype)
+    x[n // 2] = x[1]
+    buf = torch.empty(n * d + 1, dtype=dtype, device="cuda")
+    buf[1:] = x.flatten()
+    rows = buf[1:].view(n, d)
+    assert rows.data_ptr() % 16 != 0
+    qs = torch.cat([x[1:2], _unit_rows(gen, q - 1, d).to(dtype)])
+    mask = None if keep is None else torch.rand(n, generator=gen, device="cuda") < keep
+    if mask is not None:
+        mask[1] = mask[n // 2] = True
+    s, i = cosine_topk(rows, qs, k, n_valid=n - 1, row_mask=mask)
+    rs, ri = cosine_topk_ref(x, qs, k, n_valid=n - 1, row_mask=mask)
+    torch.cuda.synchronize()
+    _assert_topk_close(s, i, rs, ri, 1e-4)
+    if k >= 2:
+        assert i[0, :2].tolist() == [1, n // 2]
 
 
 def test_cosine_topk_int8_on_the_card(dev):

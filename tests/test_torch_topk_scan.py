@@ -1,6 +1,7 @@
 """The wgmma top-k scan's selection, binary dimension order, int8 score
-steps and launch geometry (`reverso_tpu_torch/csrc/topk_stream.cu`,
-`scan_wg`: K1, K2, K10, K9, K12), on the CPU.
+steps, fp32 split scores and launch geometry
+(`reverso_tpu_torch/csrc/topk_stream.cu`, `scan_wg`: K1, K2 on bf16 and
+fp32 rows, K10, K9, K12), on the CPU.
 
 The CUDA kernel runs only on the card (tests/test_torch_cuda.py and
 chip_smoke.py hold it against its plain versions there). Here a numpy
@@ -24,7 +25,8 @@ from reverso_tpu_torch import kernels
 from reverso_tpu_torch.ops import binary as tbin
 from reverso_tpu_torch.ops import topk as ttopk
 from reverso_tpu_torch.ops import topk_int8 as ttk
-from test_topk import random_unit
+from reverso_tpu_torch.ops.split import SPLIT_TERMS, split3
+from test_topk import assert_topk_equiv, random_unit
 
 SRC = os.path.join(os.path.dirname(kernels.__file__), "csrc", "topk_stream.cu")
 
@@ -327,6 +329,13 @@ def test_binary_kernel_order_scores(n, d, q, k, n_valid):
     (256, 40, ttopk.WG_INT8_ROWS, (64, 4, 4)),  # the two-stage search's K12: 256-row tiles
     (1, 10, ttopk.WG_INT8_ROWS, (8, 1, 6)),
     (1024, 40, ttopk.WG_INT8_ROWS, (64, 16, 4)),  # Q_RESIDENT queries a launch
+    # fp32 rows (mode 4): 128 bytes (32 dims) of a row and the query's
+    # three 64-byte parts a stage
+    (1, 10, ttopk.WG_F32, (8, 1, 6)),           # n8 parts: 1.5 KB, a 2 KB slot
+    (64, 10, ttopk.WG_F32, (64, 1, 4)),         # the float32 store's search_batch
+    (64, 5, ttopk.WG_F32, (64, 1, 4)),          # the parity slice's search_batch
+    (256, 10, ttopk.WG_F32, (128, 2, 4)),       # the Q = 256 row: two query blocks
+    (256, 128, ttopk.WG_F32, (64, 4, 3)),       # k at the cap: 64-query blocks
 ])
 def test_wg_plan(q, k, binary, want):
     """`binary` is the scan's mode (False / True: WG_BF16 / WG_BINARY)."""
@@ -336,7 +345,8 @@ def test_wg_plan(q, k, binary, want):
     assert ttopk.wg_smem(n_pad, k, binary, stages) <= ttopk.SMEM_MAX
 
 
-@pytest.mark.parametrize("binary", [False, True, ttopk.WG_INT8, ttopk.WG_INT8_ROWS])
+@pytest.mark.parametrize("binary", [False, True, ttopk.WG_INT8, ttopk.WG_INT8_ROWS,
+                                    ttopk.WG_F32])
 def test_wg_plan_fits_every_k_and_q(binary):
     """Every k up to the cap and Q up to 1000, in each mode (`binary`
     False / True: WG_BF16 / WG_BINARY): the plan fits a CTA's shared
@@ -379,12 +389,31 @@ def test_wg_plan_int8(mode, q, k):
     assert stages == ttopk.WG_MAX_STAGES or fixed + (stages + 1) * stage > ttopk.SMEM_MAX
 
 
+@pytest.mark.parametrize("q", [1, 64, 70, 256, 300])
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_wg_plan_f32(q, k):
+    """The fp32 mode's plans: equal blocks of at most 128 queries covering
+    Q, and the CTA's shared memory (a stage: the rows, [128 m][128 B], and
+    the query's three parts, [3][n][64 B] rounded up to 1 KB, so that every
+    stage's rows stay 1 KB aligned for the 128-byte swizzle) within
+    SMEM_MAX, with as many stages as fit."""
+    n_pad, q_blocks, stages = ttopk.wg_plan(q, k, ttopk.WG_F32)
+    assert n_pad * q_blocks >= q and q_blocks >= -(-q // 128) and 2 <= stages
+    stage = ttopk.WG_ROWS * ttopk.wg_m_tiles(n_pad) * 128 + -(-3 * n_pad * 64 // 1024) * 1024
+    assert stage % 1024 == 0 and ttopk.wg_query_bytes(n_pad, ttopk.WG_F32) == 3 * n_pad * 64
+    fixed = 1024 + n_pad * (8 * (k | 1) + 8 * ttopk.wg_cand(n_pad) + 12) \
+        + 8 * 8 * ttopk.K_CAP + 16 * (ttopk.WG_MAX_STAGES + 2)
+    assert ttopk.wg_smem(n_pad, k, ttopk.WG_F32, stages) == fixed + stages * stage \
+        <= ttopk.SMEM_MAX
+    assert stages == ttopk.WG_MAX_STAGES or fixed + (stages + 1) * stage > ttopk.SMEM_MAX
+
+
 @pytest.mark.parametrize("sms,q_blocks,n_valid,row_tile,want", [
     (132, 1, 1_000_000, 256, 264),     # two waves of one query block (Q <= 64)
     (132, 2, 1_000_000, 128, 132),     # Q = 256: two query blocks
     (132, 1, 256, 256, 1),             # the direct-embed store: one 256-row tile
     (132, 1, 0, 128, 1),
-    (132, 4, 1_000_000, 64, 66),       # the CUDA-core kernel at Q = 256
+    (132, 4, 1_000_000, 64, 66),       # four query blocks, 64-row tiles
     (132, 4, 1_000_000, 128, 66),      # K9 at Q = 256: four blocks of 64, 128-row tiles
 ])
 def test_split_count(sms, q_blocks, n_valid, row_tile, want):
@@ -403,16 +432,16 @@ def test_wg_m_tiles():
 
 
 def test_wg_route():
+    """Every `rv_topk_stream` launch takes the wgmma scan, in the mode of
+    its rows: fp32 rows (at d = 1024, and at d % 4 != 0, where the producer
+    copies them) the split mode, bf16 rows at any d (d % 8 != 0 copied
+    too), packed and int8 rows theirs."""
     bf16, f32 = kernels.DTYPE_CODES[torch.bfloat16], kernels.DTYPE_CODES[torch.float32]
-    assert ttopk.wg_route(bf16, 1024) and ttopk.wg_route(bf16, 8)
-    assert not ttopk.wg_route(bf16, 100) and not ttopk.wg_route(f32, 1024)
-    assert ttopk.wg_route(kernels.BINARY_PACKED, 25)
-    # int8 rows take the s8 wgmma scan at any d (the producer copies rows
-    # TMA cannot take)
-    assert ttopk.wg_route(kernels.INT8, 1024) and ttopk.wg_route(kernels.INT8, 77)
-    assert ttopk.wg_mode(kernels.INT8, 1024) == ttopk.WG_INT8
-    assert ttopk.wg_mode(kernels.BINARY_PACKED, 25) == ttopk.WG_BINARY
-    assert ttopk.wg_mode(bf16, 1024) == ttopk.WG_BF16 and ttopk.wg_mode(f32, 1024) is None
+    assert ttopk.wg_mode(bf16) == ttopk.WG_BF16 and ttopk.wg_mode(f32) == ttopk.WG_F32
+    assert ttopk.wg_mode(kernels.INT8) == ttopk.WG_INT8
+    assert ttopk.wg_mode(kernels.BINARY_PACKED) == ttopk.WG_BINARY
+    assert len({ttopk.WG_BF16, ttopk.WG_BINARY, ttopk.WG_INT8, ttopk.WG_INT8_ROWS,
+                ttopk.WG_F32}) == 5
 
 
 def test_geometry_constants_mirror_the_kernel():
@@ -423,10 +452,16 @@ def test_geometry_constants_mirror_the_kernel():
                         ("kMaxStages", ttopk.WG_MAX_STAGES), ("kNMax", ttopk.WG_N_MAX),
                         ("kNMaxI8", ttopk.WG_N_MAX_INT8), ("kSmemMax", ttopk.SMEM_MAX),
                         ("kModeBf16", ttopk.WG_BF16), ("kModeBin", ttopk.WG_BINARY),
-                        ("kModeI8", ttopk.WG_INT8), ("kModeI8Rows", ttopk.WG_INT8_ROWS)):
+                        ("kModeI8", ttopk.WG_INT8), ("kModeI8Rows", ttopk.WG_INT8_ROWS),
+                        ("kModeF32", ttopk.WG_F32)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == value, name
     assert "topk_scan_tc_kernel" not in src and "topk_scan_bin_kernel" not in src
+    # every row dtype runs on the wgmma scan: the CUDA-core FMA scan is gone
+    for gone in ("topk_scan_kernel", "launch_scan", "TOPK_QT", "TOPK_RT", "TOPK_BK",
+                 "TOPK_THREADS"):
+        assert gone not in src, gone
+    assert not hasattr(ttopk, "scan_splits") and not hasattr(ttopk, "_QUERY_TILE")
     # the int8 modes run on the wgmma scan: the WMMA kernel and its helpers are gone
     for gone in ("topk_scan_i8_kernel", "i8_load_stage", "topk_i8_smem", "TC_LDS",
                  "SC_BYTES", "topk_tc_state_bytes", "cp_async16", "<mma.h>", "wmma::"):
@@ -612,3 +647,136 @@ def test_k12_roundings_in_order():
     dots = (q8.numpy().astype(np.int64) @ r8.numpy().astype(np.int64).T).astype(np.float32)
     other = dots * (qsc.numpy()[:, None] * rsc.numpy()[None, :]).astype(np.float32)
     assert (np.take_along_axis(other, ji.astype(np.int64), 1) != js).any()
+
+
+# ---------------------------------------------------------------------------
+# (e) the fp32 mode: three bf16 parts a value, six products a k16 step, a
+#     fresh step sum every 32 dims
+# ---------------------------------------------------------------------------
+
+def _f32_split_scores(db, qs):
+    """The fp32 mode's [Q, N] scores in numpy, in the kernel's order: rows
+    and queries split into three bf16 parts (`ops/split.py::split3`); per
+    32-dim ring stage, the six products of SPLIT_TERMS (row part, query
+    part; the term outer, its two k16 steps inner), each k16 dot rounded to
+    float32 and added to a fresh float32 step sum, and each step sum added
+    to the score in float32."""
+    d = db.shape[1]
+    dp = -(-d // 32) * 32
+
+    def parts(x):
+        return [np.pad(p.numpy(), ((0, 0), (0, dp - d))).astype(np.float64)
+                for p in split3(torch.from_numpy(x))]
+
+    rp, qp = parts(db), parts(qs)
+    score = np.zeros((len(qs), len(db)), np.float32)
+    for s0 in range(0, dp, 32):
+        step = np.zeros_like(score)
+        for a, b in SPLIT_TERMS:
+            for kk in (0, 16):
+                sl = slice(s0 + kk, s0 + kk + 16)
+                step = step + (qp[b][:, sl] @ rp[a][:, sl].T).astype(np.float32)
+        score = score + step
+    return score
+
+
+# (n, d, q, k, n_valid, keep, n_splits)
+F32_CASES = [
+    (700, 64, 5, 1, None, None, 2),      # k = 1; N = 8: 256-row tiles
+    (900, 100, 70, 10, 777, 0.6, 3),     # N = 128: 128-row tiles; a mask, ragged n_valid
+    (600, 77, 3, 20, None, None, 2),     # d % 4 != 0: the producer copies the rows
+    (300, 1021, 9, 128, 250, None, 2),   # k = 128 > the rows kept, d = 1021
+    (300, 48, 4, 10, 260, 0.0, 2),       # every row masked
+]
+
+
+@pytest.mark.parametrize("n,d,q,k,n_valid,keep,n_splits", F32_CASES)
+def test_emulated_f32_split_scan(n, d, q, k, n_valid, keep, n_splits):
+    """K1 and K2 on fp32 rows: the emulated selection (the launch's tile
+    rows and candidate slots) over the split mode's scores in the kernel's
+    order, against the port's plain version (`cosine_topk_ref`, exact fp32)
+    and the JAX package's `cosine_topk` on float32 rows (its Pallas kernel
+    at Precision.HIGHEST, interpret mode) under the tie-margin rule, and
+    against float64 truth over the rows kept (`assert_topk_equiv`): scores
+    within 1e-5 (the split's dropped terms are below 2^-23 of a product;
+    the sums run in another order), ids equal where the margins are
+    clear, ties to the lower row."""
+    nv = n if n_valid is None else n_valid
+    n_pad, rows = _tile_rows(q, k, ttopk.WG_F32)
+    db, qs, tied = _int8_case(n + d, n, d, q, rows, n_splits, nv)
+    rng = np.random.default_rng(k + d)
+    mask = None if keep is None else rng.random(n) < keep
+    if mask is not None and keep > 0:
+        mask[tied] = True
+    got_s, got_i = emulate_scan(_f32_split_scores(db, qs), k, nv, mask, n_splits,
+                                np.random.default_rng(3), rows=rows, cand=ttopk.wg_cand(n_pad))
+    tol = 1e-5
+    ps, pi = ttopk.cosine_topk(torch.from_numpy(db), torch.from_numpy(qs), k, n_valid=n_valid,
+                               row_mask=mask)   # the plain version on the CPU
+    _tie_margin_equal(got_s, got_i, ps.numpy(), pi.numpy(), tol)
+    js, ji = (np.asarray(x) for x in jtopk.cosine_topk(
+        jnp.asarray(db), jnp.asarray(qs), k, n_valid=n_valid, q_tile=8, db_tile=256,
+        row_mask=None if mask is None else jnp.asarray(mask)))
+    _tie_margin_equal(got_s, got_i, js, ji, tol)
+    kept = np.arange(n) < nv
+    if mask is not None:
+        kept &= mask
+    if not kept.any():
+        assert (got_i == -1).all() and np.isneginf(got_s).all()
+        return
+    sub = np.flatnonzero(kept)
+    pos = np.full(n, -1)
+    pos[sub] = np.arange(len(sub))
+    k_eff = min(k, len(sub))
+    assert (got_i[:, k_eff:] == -1).all()
+    assert_topk_equiv(db[sub], qs, got_s[:, :k_eff], pos[got_i[:, :k_eff]], k_eff, tol=tol)
+    m = min(k, len(tied))
+    assert list(got_i[0, :m]) == tied[:m]
+
+
+def test_f32_fragments_read_the_swizzled_stage():
+    """`split_frag`'s reads of a ring stage: TMA places 16-byte chunk j of
+    row r of a [rows][32 fp32] box at chunk j ^ (r % 8) (the 128-byte
+    swizzle; the producer's copies do the same). The kernel's address of
+    element (r, c), r * 128 + ((c / 4) ^ (r % 8)) * 16 + (c % 4) * 4, read
+    as float2 at the RS-form A fragment's places (rows r and r + 8 of each
+    warp's 16, columns 2 (lane % 4) + {0, 1} and + 8 of each k16 step),
+    gives every element of the stage exactly once, at its own place."""
+    rows = 256
+    rng = np.random.default_rng(0)
+    tile = rng.standard_normal((rows, 32)).astype(np.float32)
+    stage = np.empty(rows * 32, np.float32)
+    for r in range(rows):
+        for j in range(8):
+            dst = r * 32 + 4 * (j ^ (r % 8))
+            stage[dst:dst + 4] = tile[r, 4 * j:4 * j + 4]
+    seen = np.zeros((rows, 32), int)
+    for wg in range(2):
+        for warp in range(4):
+            for lane in range(32):
+                rr = wg * 64 * 2 + warp * 16 + lane // 4
+                for mt in range(2):
+                    for kk in range(2):
+                        c = 16 * kk + 2 * (lane % 4)
+                        for r, cc in ((rr + 64 * mt, c), (rr + 64 * mt + 8, c),
+                                      (rr + 64 * mt, c + 8), (rr + 64 * mt + 8, c + 8)):
+                            byte = r * 128 + (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4
+                            got = stage[byte // 4:byte // 4 + 2]
+                            np.testing.assert_array_equal(got, tile[r, cc:cc + 2])
+                            seen[r, cc:cc + 2] += 1
+    assert (seen == 1).all()
+
+
+def test_launch_key_counts_fp32_rows_apart():
+    """`kernels.shape_launches` keys: a launch on fp32 rows counts under
+    "topk_stream_f32", masked or not, so that chip_smoke.py times each
+    shape on rows of the dtype it ran on; bf16, int8 and packed rows count
+    under their mode's counter."""
+    shape = (64, 1_000_000, 1024, 10, True)
+    plain = shape[:4] + (False,)
+    assert ttopk.launch_key("topk_masked", torch.float32, shape) == ("topk_stream_f32", shape)
+    assert ttopk.launch_key("topk_stream", torch.float32, plain) == ("topk_stream_f32", plain)
+    assert ttopk.launch_key("topk_masked", torch.bfloat16, shape) == ("topk_masked", shape)
+    assert ttopk.launch_key("topk_stream", torch.bfloat16, plain) == ("topk_stream", plain)
+    assert ttopk.launch_key("topk_int8", torch.int8, shape) == ("topk_int8", shape)
+    assert ttopk.launch_key("topk_binary", torch.uint8, plain) == ("topk_binary", plain)
