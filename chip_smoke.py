@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (`reverso_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --copy-soak [ITERS]   # only `copy_soak` (default 100)
 
 Needs one CUDA card and `nvcc`; exits non-zero without them. Phases, none
 of which catches a failure:
@@ -106,8 +107,35 @@ of which catches a failure:
      defaults (built, cached, reloaded) and IVF int8 with spill and
      balance, each held against the exact plain search of its subset;
      recall@10 against exact fp32 for the approximate ones;
-  8. the top-k scans (K1 from the direct-embed path, K1 and K2 on fp32
-     rows from the parity slice and the float32 store, K2, K9 and K10 from
+  5d. the vision-checkpoint loaders (L): a seeded PE-Core-L14-336 written
+     in the `openai_clip` scheme with `torch.save` and loaded through
+     `PerceptionEncoder.from_torch` embeds phase 5's 256 images bit for bit
+     as the same weights loaded directly (B = 64, bf16); a seeded
+     CLIP-L14-336 in the `hf_clip` scheme (family "clip": K3 without RoPE,
+     K4 with quick_gelu at full width) against the fp32 tower of the same
+     weights (min cosine), then a store built from it through
+     `create_database(use_direct_pe=True)` and searched (K1); K3 and K4
+     in bf16 at each shape the direct-embed and CLIP paths ran them at,
+     held against their plain versions there and timed;
+  7b. the ops the JAX package left to XLA, over the capacity rows: (E)
+     euclid on K1/K2 through the `[x, ||x||^2]` rows at d = 1025 (norms in
+     [0.5, 2]; bf16 and fp32; Q = 64 and 1, plain and 10% kept), held
+     against the kernel's keys and those against the plain scan, and K1 at
+     d = 1025 timed against the matrix zero-padded to 1032 / 1028; (M)
+     manhattan at Q = 16 against `manhattan_topk_host` on a 65,536-row
+     subset, `torch.cdist` chunks timed against the broadcast; (P) PQ at
+     m = 128: train, encode and search timed, the card's search against
+     the CPU's on a subset, recall@10 after the rescore beside binary's;
+     (C) best_score, discover and context in bf16 and int8 against their
+     numpy twins on a subset, timed at 1M, and `matrix_topk` at S = 4096;
+     (X) MaxSim over 100,000 points of 1-8 sub-vectors, Q = 16 of Tq = 4,
+     against `maxsim_score_rows` and the exact host ranking; (S) 100,000-row
+     euclid, manhattan, pq and multivector stores built through
+     `VectorStore.append` and searched through `Reverso.search_batch`, also
+     filtered, against the same indexes on the CPU;
+  8. the top-k scans (K1 from the direct-embed and CLIP paths, K1 and K2
+     on fp32 rows from the parity slice and the float32 store, K1 and K2 at
+     the euclid phases' padded rows in bf16 and fp32, K2, K9 and K10 from
      the capacity path, K12 from the two-stage search) timed at each shape
      their path ran them at (`kernels.shape_launches`), on seeded rows of
      that shape, each held against its plain version (K9 and K12 bit for
@@ -116,7 +144,7 @@ of which catches a failure:
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). A "redesign order" line ranks the kernels
 by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2
-(bf16 and fp32 rows), K3 fp32, K4 fp32, K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
+(bf16 and fp32 rows), K3 and K4 (bf16 and fp32), K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
 one before that a JSON object with one entry per kernel; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -222,24 +250,25 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def topk_agree(ref_s, ref_i, s, i, tol: float) -> None:
+def topk_agree(ref_s, ref_i, s, i, tol: float, what: str = "top-k") -> None:
     """Kernel top-k against the plain version: equal scores within `tol`,
     and equal ids wherever the plain version's ranked scores are more than
-    `tol` apart on both sides (the tie-margin rule)."""
+    `tol` apart on both sides (the tie-margin rule). `what` names the
+    search in a failure's message."""
     ref_s, ref_i, s, i = (t.cpu().numpy() for t in (ref_s, ref_i, s, i))
     fin = np.isfinite(ref_s)
-    check(np.array_equal(fin, np.isfinite(s)), "top-k: -inf slots differ")
+    check(np.array_equal(fin, np.isfinite(s)), f"{what}: -inf slots differ")
     check(np.array_equal(np.where(fin, 0, ref_i), np.where(fin, 0, i)),
-          "top-k: empty slots must hold idx -1")
+          f"{what}: empty slots must hold idx -1")
     diff = np.abs(np.where(fin, ref_s, 0) - np.where(fin, s, 0)).max()
-    check(diff <= tol, f"top-k scores differ by {diff}")
+    check(diff <= tol, f"{what}: scores differ by {diff}")
     r = np.where(fin, ref_s, -1e9)
     pad = np.full((r.shape[0], 1), np.inf)
     gap_up = np.concatenate([pad, -np.diff(r, axis=1)], axis=1)
     gap_dn = np.concatenate([-np.diff(r, axis=1), pad], axis=1)
     clear = (gap_up > tol) & (gap_dn > tol)
     check(np.array_equal(np.where(clear, i, -2), np.where(clear, ref_i, -2)),
-          "top-k ids differ where the score margins are clear")
+          f"{what}: ids differ where the score margins are clear")
 
 
 @contextlib.contextmanager
@@ -1459,6 +1488,8 @@ def slice_run(root: str) -> dict:
     check(all(hit), "search_batch: a query's own row is missing from its top 5")
     launches = dict(kernels.launches)
     topk_shapes = {k: n for k, n in kernels.shape_launches.items() if k[0] == "topk_stream"}
+    tc_shapes = {k: n for k, n in kernels.shape_launches.items()
+                 if k[0] in ("flash_heads_tc", "fused_mlp_tc")}
     print(f"launches on the direct-embed path: {launches}; K1 by shape "
           f"{[(k[1], n) for k, n in topk_shapes.items()]}", flush=True)
     for name in ("flash_heads", "fused_mlp", "topk_stream"):
@@ -1487,7 +1518,7 @@ def slice_run(root: str) -> dict:
                build_s=build_s, search_batch64_ms_median=float(np.median(lat)),
                names_ok=len(set(names)) == n_img)
     print(f"slice: {json.dumps(out)}", flush=True)
-    return launches, topk_shapes
+    return launches, topk_shapes, tc_shapes
 
 
 def int8_slice_run(root: str) -> dict:
@@ -1799,14 +1830,14 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
             call = lambda: binary_topk(packed, qs, k, d, row_mask=mask)
             s, i = call()
             rs, ri = binary_topk_ref(packed, qs, k, d, row_mask=mask)
-            topk_agree(rs, ri, s, i, 2e-4)
+            topk_agree(rs, ri, s, i, 2e-4, f"{kind} at {(q, n, d, k, masked)}")
         else:
             f32 = kind == "topk_stream_f32"
             db, qb = (x, qs) if f32 else (x.to(torch.bfloat16), qs.to(torch.bfloat16))
             call = lambda: cosine_topk(db, qb, k, row_mask=mask)
             s, i = call()
             rs, ri = cosine_topk_ref(db, qb, k, row_mask=mask)
-            topk_agree(rs, ri, s, i, 1e-5 if f32 else 1e-4)
+            topk_agree(rs, ri, s, i, 1e-5 if f32 else 1e-4, f"{kind} at {(q, n, d, k, masked)}")
         if kind not in ("topk_int8", "topk_int8_rows"):
             fin = torch.isfinite(rs)
             err = float((torch.where(fin, s, 0) - torch.where(fin, rs, 0)).abs().max())
@@ -1817,6 +1848,58 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
         del s, i, rs, ri
     data.clear()
     return out
+
+
+def copy_soak(torch, iters: int) -> int:
+    """`python3 chip_smoke.py --copy-soak [ITERS]`: K1 and K2 at d = 1025 on
+    bf16 and fp32 rows (no 16-byte row: the kernel's producer copies the
+    rows) and on the same values zero-padded to 1032 / 1028 (TMA), over
+    1,000,000 seeded unit rows, Q = 64 and 256, k = 10, unmasked and with
+    10% of the rows kept, for three seeds (the rows and queries made as
+    `topk_path_shapes` makes them): `iters` launches of each form back to
+    back, each held against the plain scan (`topk_agree`: 1e-4 bf16, 1e-5
+    fp32) and bit for bit against the first launch of its form. Prints one
+    JSON line of launches and mismatches by form; returns 1 if any launch
+    disagreed."""
+    import torch.nn.functional as F
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
+
+    n, d, k = 1_000_000, 1025, 10
+    out = {}
+    for seed in (31, 32, 33):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        x /= x.norm(dim=1, keepdim=True)
+        for dtype, pitch, tol in ((torch.bfloat16, 1032, 1e-4), (torch.float32, 1028, 1e-5)):
+            db = x.to(dtype)
+            padded = F.pad(db, (0, pitch - d))
+            for qn in (64, 256):
+                qs = x[torch.arange(qn, device="cuda") * (n // qn)].clone()
+                qs += 0.05 * torch.randn(qs.shape, generator=gen, device="cuda")
+                qs /= qs.norm(dim=1, keepdim=True)
+                for masked in (False, True):
+                    mask = (torch.arange(n, device="cuda") % 10 == 3) if masked else None
+                    rs, ri = cosine_topk_ref(db, qs, k, row_mask=mask)
+                    for form, mat, qq in (("copy", db, qs), ("tma", padded, F.pad(qs, (0, pitch - d)))):
+                        runs = [cosine_topk(mat, qq, k, row_mask=mask) for _ in range(iters)]
+                        torch.cuda.synchronize()
+                        key = f"{form} {str(dtype)[6:]} Q={qn}{' masked' if masked else ''}"
+                        row = out.setdefault(key, dict(launches=0, vs_plain=0, vs_first=0))
+                        for s, i in runs:
+                            row["launches"] += 1
+                            try:
+                                topk_agree(rs, ri, s, i, tol, f"{key} seed {seed}")
+                            except AssertionError as e:
+                                row["vs_plain"] += 1
+                                print(f"copy soak: {e}", flush=True)
+                            row["vs_first"] += int(not (torch.equal(s, runs[0][0])
+                                                        and torch.equal(i, runs[0][1])))
+                        del runs
+            del db, padded
+        del x
+        torch.cuda.empty_cache()
+    print(json.dumps({"copy_soak": out}), flush=True)
+    return int(any(r["vs_plain"] or r["vs_first"] for r in out.values()))
 
 
 def make_photos(folder: str, n: int, seed: int) -> None:
@@ -2563,6 +2646,656 @@ def capacity_run(root: str) -> dict:
     return launches, topk_shapes, f32_launches, f32_shapes
 
 
+def topk_agree_scaled(ref_s, ref_i, s, i, tol: float) -> None:
+    """`topk_agree` with the tolerance scaled per query by max(1, the
+    largest |score| of the reference's row): scores that grow with the
+    rows' norms (euclid ranking keys, L1 distances, MaxSim sums)."""
+    import torch
+    ref_s, ref_i, s, i = (torch.as_tensor(t).cpu() for t in (ref_s, ref_i, s, i))
+    fin = torch.isfinite(ref_s)
+    scale = torch.where(fin, ref_s.double(), 0).abs().amax(1, keepdim=True).clamp(min=1.0)
+    topk_agree(ref_s.double() / scale, ref_i, s.double() / scale, i, tol)
+
+
+def openai_clip_state_dict(sd: dict) -> dict:
+    """The port tower's state dict -> the OpenAI-CLIP / perception_models
+    `visual.*` scheme (fused in_proj, [W, E] proj), fp32 CPU tensors."""
+    import torch
+    sd = {k: v.detach().float().cpu() for k, v in sd.items()}
+    out = {"visual.conv1.weight": sd["patch_embed.weight"],
+           "visual.class_embedding": sd["cls_token"].reshape(-1),
+           "visual.positional_embedding": sd["pos_embed"][0],
+           "visual.proj": sd["proj.weight"].t().contiguous()}
+    for ours, theirs in (("patch_embed.bias", "conv1.bias"), ("ln_pre.weight", "ln_pre.weight"),
+                         ("ln_pre.bias", "ln_pre.bias"), ("ln_post.weight", "ln_post.weight"),
+                         ("ln_post.bias", "ln_post.bias"), ("attn_pool.probe", "attn_pool.probe"),
+                         ("attn_pool.ln.weight", "attn_pool.layernorm.weight"),
+                         ("attn_pool.ln.bias", "attn_pool.layernorm.bias")):
+        if ours in sd:
+            out[f"visual.{theirs}"] = sd[ours]
+
+    def attn(ours, theirs):
+        for part in ("weight", "bias"):
+            out[f"visual.{theirs}.in_proj_{part}"] = torch.cat(
+                [sd[f"{ours}.{c}_proj.{part}"] for c in "qkv"])
+            out[f"visual.{theirs}.out_proj.{part}"] = sd[f"{ours}.out_proj.{part}"]
+
+    if "attn_pool.probe" in sd:
+        attn("attn_pool", "attn_pool.attn")
+    i = 0
+    while f"blocks.{i}.ln1.weight" in sd:
+        b, lp = f"blocks.{i}", f"visual.transformer.resblocks.{i}"
+        for ours, theirs in (("ln1", "ln_1"), ("ln2", "ln_2"), ("mlp.fc1", "mlp.c_fc"),
+                             ("mlp.fc2", "mlp.c_proj")):
+            for part in ("weight", "bias"):
+                out[f"{lp}.{theirs}.{part}"] = sd[f"{b}.{ours}.{part}"]
+        attn(f"{b}.attn", f"transformer.resblocks.{i}.attn")
+        if f"{b}.ls1.gamma" in sd:
+            out[f"{lp}.ls_1.gamma"] = sd[f"{b}.ls1.gamma"]
+            out[f"{lp}.ls_2.gamma"] = sd[f"{b}.ls2.gamma"]
+        i += 1
+    return out
+
+
+def hf_clip_state_dict(sd: dict) -> dict:
+    """The port's CLIP tower state dict -> HF `CLIPVisionModelWithProjection`
+    names (separate q/k/v, `pre_layrnorm`, `visual_projection`), fp32 CPU
+    tensors."""
+    sd = {k: v.detach().float().cpu() for k, v in sd.items()}
+    v = "vision_model"
+    out = {f"{v}.embeddings.patch_embedding.weight": sd["patch_embed.weight"],
+           f"{v}.embeddings.class_embedding": sd["cls_token"].reshape(-1),
+           f"{v}.embeddings.position_embedding.weight": sd["pos_embed"][0],
+           "visual_projection.weight": sd["proj.weight"]}
+    for part in ("weight", "bias"):
+        out[f"{v}.pre_layrnorm.{part}"] = sd[f"ln_pre.{part}"]
+        out[f"{v}.post_layernorm.{part}"] = sd[f"ln_post.{part}"]
+    i = 0
+    while f"blocks.{i}.ln1.weight" in sd:
+        b, lp = f"blocks.{i}", f"{v}.encoder.layers.{i}"
+        for ours, theirs in (("ln1", "layer_norm1"), ("ln2", "layer_norm2"),
+                             ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2"),
+                             ("attn.q_proj", "self_attn.q_proj"), ("attn.k_proj", "self_attn.k_proj"),
+                             ("attn.v_proj", "self_attn.v_proj"),
+                             ("attn.out_proj", "self_attn.out_proj")):
+            for part in ("weight", "bias"):
+                out[f"{lp}.{theirs}.{part}"] = sd[f"{b}.{ours}.{part}"]
+        i += 1
+    return out
+
+
+def loaders_run(root: str) -> tuple:
+    """(L) The vision-checkpoint loaders at full width, on phase 5's 256
+    images: a seeded PE-Core-L14-336 written in the `openai_clip` scheme
+    with `torch.save` and loaded with `PerceptionEncoder.from_torch` embeds
+    bit for bit as the same weights loaded directly (B = 64, bf16); a seeded
+    CLIP-L14-336 in the `hf_clip` scheme (an HF directory with
+    `pytorch_model.bin`; family "clip": K3 without RoPE, K4 with
+    quick_gelu), its bf16 embeddings against the fp32 tower of the same
+    weights (min cosine 0.99, the bf16-vs-fp32 gate of phase 4); then a
+    store built from the CLIP tower through `create_database(use_direct_pe=
+    True)` and searched (K1). Returns the CLIP path's launches, its K3/K4
+    shapes (the bf16 embedding run and the build) and its K1 shapes."""
+    import torch
+    from PIL import Image
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.compat import SimpleReverso
+    from reverso_tpu_torch.config import MODEL_PRESETS, StoreConfig, default_config
+    from reverso_tpu_torch.ingest.images import preprocess_pil
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+    from reverso_tpu_torch.store import VectorStore
+
+    folder = os.path.join(root, "images")
+    names = sorted(os.listdir(folder))
+    pe_cfg, clip_cfg = MODEL_PRESETS["PE-Core-L14-336"], MODEL_PRESETS["CLIP-L14-336"]
+    check(pe_cfg.image_size == clip_cfg.image_size == 336 and not clip_cfg.use_rope,
+          "loader presets changed")
+    px = np.stack([preprocess_pil(Image.open(os.path.join(folder, f)).convert("RGB"), 336)
+                   for f in names])
+
+    def embed(enc):
+        return np.concatenate([enc.encode_image(px[lo:lo + 64]) for lo in range(0, len(px), 64)])
+
+    out = {}
+    direct = PerceptionEncoder(pe_cfg, seed=31, device="cuda")
+    path = os.path.join(root, "pe_core_l14_openai.pt")
+    torch.save(openai_clip_state_dict(direct.module.state_dict()), path)
+    t0 = time.perf_counter()
+    loaded = PerceptionEncoder.from_torch(path, pe_cfg, device="cuda")
+    out["pe_from_torch_s"] = time.perf_counter() - t0
+    check(loaded.family == "pe", f"from_torch family {loaded.family}")
+    a, b = embed(direct), embed(loaded)
+    check(a.shape == (256, 1024) and np.isfinite(a).all(), "PE loader embeddings")
+    check(np.array_equal(a, b), "PE-Core-L14-336 through from_torch (openai_clip) differs "
+                                "from the same weights loaded directly")
+    os.remove(path)
+    del direct, loaded
+    torch.cuda.empty_cache()
+
+    src = PerceptionEncoder(clip_cfg, family="clip", seed=32, device="cpu")
+    hf_dir = os.path.join(root, "clip_l14_336_hf")
+    os.makedirs(hf_dir)
+    torch.save(hf_clip_state_dict(src.module.state_dict()),
+               os.path.join(hf_dir, "pytorch_model.bin"))
+    del src
+    t0 = time.perf_counter()
+    clip = PerceptionEncoder.from_torch(hf_dir, clip_cfg, device="cuda")
+    out["clip_from_torch_s"] = time.perf_counter() - t0
+    check(clip.family == "clip", f"from_torch family {clip.family}")
+    kernels.reset_counts()
+    e16 = embed(clip)
+    launches = dict(kernels.launches)
+    shapes = {k: n for k, n in kernels.shape_launches.items()
+              if k[0] in ("flash_heads_tc", "fused_mlp_tc")}
+    check(shapes == {("flash_heads_tc", (64, 577, 1024, 16, False)): 96,
+                     ("fused_mlp_tc", (36928, 1024, 4096, "quick_gelu")): 96},
+          f"CLIP bf16 embedding: K3/K4 launches by shape {shapes}")
+    clip32 = PerceptionEncoder.from_torch(hf_dir, dataclasses.replace(clip_cfg, dtype="float32"),
+                                          device="cuda")
+    e32 = embed(clip32)
+    del clip32
+    torch.cuda.empty_cache()
+    cos = (e16 * e32).sum(1)
+    out.update(clip_min_cosine_vs_fp32=float(cos.min()), clip_mean_cosine_vs_fp32=float(cos.mean()))
+    check(e16.shape == (256, 768) and np.isfinite(e16).all(), "CLIP embeddings")
+    check(float(cos.min()) >= 0.99, f"CLIP-L14-336 bf16 drifts from fp32: {cos.min()}")
+
+    cfg = default_config().replace(model=clip_cfg,
+                                   store=StoreConfig(root_dir=os.path.join(root, "db_clip")))
+    sr = SimpleReverso(cfg, encoder=clip, device="cuda")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    transcript = sr.create_database(folder, "clip", use_direct_pe=True)
+    out["clip_build_s"] = time.perf_counter() - t0
+    check("ready for searching" in transcript, f"CLIP build failed:\n{transcript}")
+    sr.load_database("clip")
+    vecs = np.asarray(VectorStore.open(cfg.store.root_dir, "clip").vectors())
+    check(vecs.shape == (256, 768), f"CLIP store {vecs.shape}")
+    tie_tol = 5e-3   # batch-1 vs batch-64 bf16 forwards round differently
+    for j in (0, 101):
+        fname = f"img_{j:04d}.png"
+        sr.process_image_direct_pe(Image.open(os.path.join(folder, fname)))
+        text, items = sr.search_similar(0.0, 5)
+        own = [it for it in items if it["filename"] == fname]
+        check(bool(own) and own[0]["score"] >= items[0]["score"] - tie_tol,
+              f"CLIP store {fname}: own row not at rank 0 within {tie_tol}:\n{text}")
+    s, ids = sr._engine.search_batch(vecs[:64], 5)
+    check(all(r in ids[r] for r in range(64)), "CLIP store search_batch: an own row is missing")
+    build = dict(kernels.launches)
+    check(build["topk_stream"] > 0, "K1 never launched on the CLIP store")
+    for key, n in kernels.shape_launches.items():
+        if key[0] in ("flash_heads_tc", "fused_mlp_tc"):
+            shapes[key] = shapes.get(key, 0) + n
+    topk_shapes = {key: n for key, n in kernels.shape_launches.items() if key[0] == "topk_stream"}
+    launches["topk_stream"] = build["topk_stream"]
+    print(f"loaders: {json.dumps(out)}; CLIP K3/K4 by shape {sorted(shapes.items())}",
+          flush=True)
+    del sr, clip
+    torch.cuda.empty_cache()
+    return launches, shapes, topk_shapes
+
+
+def tc_path_shapes(torch, shape_launches: dict) -> tuple:
+    """K3 and K4 in bf16 at each shape the direct-embed path (PE, RoPE,
+    gelu) and the CLIP loader path (no RoPE, quick_gelu) ran them at: their
+    launches there, held against the plain version on seeded inputs of that
+    shape (K3 within 2e-2 absolute, K4 within 2e-2 of max(1, |y|) for each
+    element: the gates of `kernel_checks`), ms on the same inputs (the RoPE
+    tables on the card, as the tower caches them) and bound."""
+    from reverso_tpu_torch.ops.attention import flash_attention_heads, flash_attention_heads_ref
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_ref
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    randn = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device="cuda")
+                                       * scale).to(torch.bfloat16)
+    tol = 2e-2
+    heads, mlp = [], []
+    for (name, shape), n in sorted(shape_launches.items(), key=lambda kv: str(kv)):
+        if name == "flash_heads_tc":
+            b, s, w, h, rope = shape
+            what = f"B={b} S={s} W={w} H={h} bf16 {'RoPE' if rope else 'no RoPE'}"
+            q, k, v = randn(b, s, w), randn(b, s, w), randn(b, s, w)
+            cos = sin = None
+            if rope:
+                cos, sin = (torch.from_numpy(a).cuda() for a in rope_2d_tables(
+                    int(np.sqrt(s - 1)), w // h, cls_token=True))
+            call = lambda: flash_attention_heads(q, k, v, heads=h, cos=cos, sin=sin)
+            err = max_err(call(), flash_attention_heads_ref(q, k, v, heads=h, cos=cos, sin=sin))
+            check(err <= tol, f"flash_heads {what}: max abs err {err} > {tol}")
+            heads.append(dict(shape=what, launches=n, max_abs_err=err, ms=cuda_ms(call),
+                              bound_ms=heads_bound(b, s, w, h, 2, "bfloat16")[0]))
+            del q, k, v
+        elif name == "fused_mlp_tc":
+            t, w, hid, act = shape
+            what = f"T={t} W={w} H={hid} bf16 {act}"
+            w1, b1 = randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.02)
+            w2, b2 = randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.02)
+            x = randn(t, w)
+            call = lambda: fused_mlp(x, w1, b1, w2, b2, act=act)
+            ref = mlp_ref(x, w1, b1, w2, b2, act=act).float()
+            diff = (call().float() - ref).abs()
+            err = float(diff.max())
+            check(bool((diff <= tol * ref.abs().clamp(min=1.0)).all()),
+                  f"fused_mlp {what}: max abs err {err} (tol {tol} of max(1, |y|))")
+            del diff, ref
+            mlp.append(dict(shape=what, launches=n, max_abs_err=err, ms=cuda_ms(call),
+                            bound_ms=mlp_bound(t, w, hid, 2, "bfloat16")[0]))
+            del x
+    return heads, mlp
+
+
+def capacity_rows(root: str):
+    """The capacity phase's 1,000,000 x 1024 unit rows (its store's vectors
+    file, mapped), a seeded per-row norm in [0.5, 2] applied (fp32, host),
+    and 256 queries: scaled rows plus noise of norm 0.02."""
+    from reverso_tpu_torch.store import VectorStore
+
+    unit = np.asarray(VectorStore.open(root, "capacity").vectors())
+    rng = np.random.default_rng(41)
+    norms = rng.uniform(0.5, 2.0, (len(unit), 1)).astype(np.float32)
+    rows = np.empty(unit.shape, np.float32)
+    for lo in range(0, len(unit), 65536):
+        rows[lo:lo + 65536] = unit[lo:lo + 65536] * norms[lo:lo + 65536]
+    sel = np.arange(256) * 3_889
+    d = unit.shape[1]
+    q = rows[sel] + rng.standard_normal((256, d), dtype=np.float32) * np.float32(0.02 / np.sqrt(d))
+    return unit, rows, q
+
+
+def euclid_run(rows: np.ndarray, queries: np.ndarray) -> tuple:
+    """(E) Euclid at capacity: the capacity rows with per-row norms in
+    [0.5, 2], as bf16 and fp32 `DeviceIndex(distance="euclid")` (the
+    `[x, ||x||^2]` rows, d + 1 = 1025 columns zero-padded to a 16-byte row:
+    1032 bf16, 1028 fp32; K1/K2): Q = 64 and Q = 1, k = 10, plain and with
+    10% of the rows kept. Each search is then held against
+    the kernel on the same augmented queries (the same ids, and the
+    distances `-sqrt(max(||q||^2 - key, 0))` of its keys bit for bit) and
+    those keys against the plain scan of the same matrix on the card (the
+    K1/K2 gate of that dtype, 1e-4 bf16 and 1e-5 fp32, of a query's
+    largest |key| where that passes 1: the keys reach ||q||^2 <= 4, the
+    gates are set for unit scores; ids by the tie-margin rule). Then the
+    same searches timed, and K1 on the padded rows timed against the
+    unpadded d = 1025 rows (the producer's copy) at Q = 64 and 256.
+    Returns the path's launches and top-k shapes (read before the
+    comparison launches)."""
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref
+    from reverso_tpu_torch.store import DeviceIndex
+
+    n, d = rows.shape
+    keep = torch.from_numpy(np.arange(n) % 10 == 3).cuda()
+    out, errs, results = {}, {}, []
+    kernels.reset_counts()
+    indexes = {dtype: DeviceIndex(rows, dtype=dtype, distance="euclid")
+               for dtype in ("bfloat16", "float32")}
+    for dtype, ix in indexes.items():
+        pitch = 1032 if dtype == "bfloat16" else 1028
+        check(tuple(ix.matrix.shape) == (n, pitch) and ix.dim == d + 1,
+              f"euclid matrix {tuple(ix.matrix.shape)}")
+        for qn in (64, 1):
+            qt = torch.from_numpy(queries[:qn]).cuda()
+            for mask in (None, keep):
+                results.append((dtype, qt, mask, *ix.search(qt, 10, row_mask=mask)))
+    launches = dict(kernels.launches)
+    shapes = {key: c for key, c in kernels.shape_launches.items()
+              if key[0] in ("topk_stream", "topk_masked", "topk_stream_f32")}
+    # bf16 and fp32, Q = 64 and 1: four plain (K1) and four masked (K2)
+    # launches, the four on fp32 rows counted under topk_stream_f32 too
+    check(launches["topk_stream"] == launches["topk_masked"] == launches["topk_stream_f32"] == 4,
+          f"euclid launches {launches}")
+    for dtype, qt, mask, s, i in results:
+        ix = indexes[dtype]
+        qa = torch.nn.functional.pad(torch.cat([2 * qt, -torch.ones_like(qt[:, :1])], 1),
+                                     (0, ix.matrix.shape[1] - d - 1))
+        ks, ki = cosine_topk(ix.matrix, qa, 10, row_mask=mask)
+        dist2 = torch.clamp((qt * qt).sum(1, keepdim=True) - ks, min=0.0)
+        check(torch.equal(ki, i) and torch.equal(
+            s, torch.where(ki >= 0, -torch.sqrt(dist2), float("-inf"))),
+            "euclid: the search differs from the kernel on its augmented queries")
+        rs, ri = cosine_topk_ref(ix.matrix, qa, 10, row_mask=mask)
+        topk_agree_scaled(rs, ri, ks, ki, 1e-4 if dtype == "bfloat16" else 1e-5)
+        fin = torch.isfinite(rs)
+        errs[dtype] = max(errs.get(dtype, 0.0), float(
+            ((torch.where(fin, ks, 0) - torch.where(fin, rs, 0)).abs()
+             / torch.where(fin, rs, 0).abs().amax(1, keepdim=True).clamp(min=1.0)).max()))
+        if mask is not None:
+            check(bool((i[i >= 0] % 10 == 3).all()), "euclid: the mask let a row through")
+        else:
+            check(bool((i[:, 0] == torch.arange(len(qt), device="cuda") * 3_889).all()),
+                  "euclid: a query's own row is not its nearest")
+    for dtype, ix in indexes.items():
+        q64 = torch.from_numpy(queries[:64]).cuda()
+        out[f"{dtype}_search64_ms"] = sync_ms(torch, lambda: ix.search(q64, 10))
+        out[f"{dtype}_search64_10pct_ms"] = sync_ms(torch, lambda: ix.search(q64, 10, row_mask=keep))
+        out[f"{dtype}_search1_ms"] = sync_ms(torch, lambda: ix.search(q64[:1], 10))
+        # K1 on the padded rows against the unpadded d = 1025 rows (the
+        # producer's copy: a row of 1025 values is not a 16-byte pitch)
+        pitch = ix.matrix.shape[1]
+        unpadded = ix.matrix[:, :d + 1].contiguous()
+        for qn in (64, 256):
+            qt = torch.from_numpy(queries[:qn]).cuda()
+            qa = torch.cat([2 * qt, -torch.ones_like(qt[:, :1])], 1)
+            qp = torch.nn.functional.pad(qa, (0, pitch - d - 1))
+            s1, i1 = cosine_topk(unpadded, qa, 10)
+            s2, i2 = cosine_topk(ix.matrix, qp, 10)
+            topk_agree_scaled(s1, i1, s2, i2, 1e-4 if dtype == "bfloat16" else 1e-5)
+            out[f"{dtype}_k1_d1025_q{qn}_ms"] = cuda_ms(lambda: cosine_topk(unpadded, qa, 10))
+            out[f"{dtype}_k1_d{pitch}_q{qn}_ms"] = cuda_ms(lambda: cosine_topk(ix.matrix, qp, 10))
+            out[f"{dtype}_k1_d{pitch}_q{qn}_bound_ms"] = topk_bound(
+                "topk_stream_f32" if dtype == "float32" else "topk_stream", qn, n, d + 1, 10,
+                False)[0]
+        del unpadded
+        torch.cuda.empty_cache()
+    indexes.clear()
+    results.clear()
+    torch.cuda.empty_cache()
+    print(f"euclid 1M x 1024 ([x, ||x||^2] rows padded to 1032 / 1028): key max err (of max(1, |key|)) {errs} (gates "
+          f"1e-4 bf16, 1e-5 fp32); launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+          f"{json.dumps(out)}", flush=True)
+    return launches, shapes
+
+
+def _l1_broadcast(db, q32, k, chunk):
+    """The chunked L1 scan with the [Q, chunk, d] broadcast in place of
+    `torch.cdist` (timed beside `ops/l1.py::manhattan_topk`)."""
+    from reverso_tpu_torch.ops.topk import scan_topk
+
+    return scan_topk(lambda lo, hi: -(q32[:, None, :] - db[lo:hi].float()[None]).abs().sum(-1),
+                     db.shape[0], q32.shape[0], k, db.device, chunk=chunk)
+
+
+def manhattan_run(rows: np.ndarray, queries: np.ndarray) -> dict:
+    """(M) Manhattan over the euclid rows (bf16, the default store dtype) at
+    Q = 16, k = 10: on a 65,536-row subset held against the numpy
+    `manhattan_topk_host` of the same bf16 values (scores within 1e-5 of
+    the query's largest |score|, ids by the tie-margin rule), then timed at
+    full size with `torch.cdist(p=1)` chunks (the op) and with the
+    broadcast |q - x| sum beside it, each holding the other's ids."""
+    import torch
+    from reverso_tpu_torch.ops.l1 import _CHUNK_ELEMS, manhattan_topk, manhattan_topk_host
+    from reverso_tpu_torch.store import DeviceIndex
+
+    q16 = queries[:16]
+    qt = torch.from_numpy(q16).cuda()
+    sub = DeviceIndex(rows[:65536], distance="manhattan")
+    s, i = sub.search(q16, 10)
+    hs, hi = manhattan_topk_host(sub.matrix.float().cpu().numpy(), q16, 10)
+    topk_agree_scaled(hs, hi, s, i, 1e-5)
+    s, i = sub.search(q16, 10, row_mask=np.arange(65536) % 10 == 3)
+    check(bool((i[i >= 0] % 10 == 3).all()), "manhattan: the mask let a row through")
+    del sub
+    ix = DeviceIndex(rows, distance="manhattan")
+    chunk = _CHUNK_ELEMS // 1024
+    s1, i1 = manhattan_topk(ix.matrix, qt, 10)
+    s2, i2 = _l1_broadcast(ix.matrix, qt, 10, chunk)
+    topk_agree_scaled(s1, i1, s2, i2, 1e-5)
+    check(bool((i1[:, 0] == torch.arange(16, device="cuda") * 3_889).all()),
+          "manhattan: a query's own row is not its nearest")
+    out = dict(cdist_ms=cuda_ms(lambda: manhattan_topk(ix.matrix, qt, 10), iters=3),
+               broadcast_ms=cuda_ms(lambda: _l1_broadcast(ix.matrix, qt, 10, chunk), iters=3),
+               search16_ms=sync_ms(torch, lambda: ix.search(q16, 10)),
+               bound_ms=bound(ix.matrix.numel() * 2 + 16 * 1024 * 4 + 16 * 10 * 8,
+                              3 * 16 * ix.matrix.numel(), "float32")[0])
+    del ix
+    torch.cuda.empty_cache()
+    print(f"manhattan 1M x 1024 bf16, Q=16, k=10: {json.dumps(out)}", flush=True)
+    return out
+
+
+def pq_run(unit: np.ndarray, queries: np.ndarray) -> dict:
+    """(P) PQ over the capacity rows at m = 128 (d / 8): `train_pq` on
+    65,536 samples for 25 iterations, `pq_encode` of the 1M rows and
+    `pq_topk`, each timed; the card's proxy search held against the same
+    search on the CPU on a 65,536-row subset (1e-5, the tie-margin rule);
+    recall@10 after the exact rescore (oversampling 3) against the exact
+    fp32 top-10, beside binary + rescore's on the same rows."""
+    import torch
+    from reverso_tpu_torch.engine import _BinaryRescoreAdapter
+    from reverso_tpu_torch.ops.pq import pq_encode, pq_topk, train_pq
+    from reverso_tpu_torch.ops.topk import cosine_topk_ref
+    from reverso_tpu_torch.store import BinaryIndex, PQIndex
+    from reverso_tpu_torch.store.index import default_pq_m
+
+    n, d = unit.shape
+    m = default_pq_m(d)
+    check(m == 128, f"default pq m {m}")
+    q = unit[np.arange(64) * 15_601] + queries[:64] * np.float32(0.01)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qt = torch.from_numpy(q).cuda()
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb = train_pq(unit, m, iters=25, sample=65536, seed=0)
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = pq_encode(unit, cb)
+    out["encode_s"] = time.perf_counter() - t0
+    pqi = PQIndex(unit, m=m, codebooks=cb, codes=codes)
+    cpu_sub = PQIndex(unit[:65536], m=m, codebooks=cb, codes=codes[:65536], device="cpu")
+    gpu_sub = PQIndex(unit[:65536], m=m, codebooks=cb, codes=codes[:65536])
+    s, i = gpu_sub.search(q, 30)
+    cs, ci = cpu_sub.search(q, 30)
+    topk_agree(cs, ci, s.cpu(), i.cpu(), 1e-5)
+    del cpu_sub, gpu_sub
+    out["search64_k30_ms"] = cuda_ms(lambda: pq_topk(pqi.matrix, pqi._cb_dev, qt, 30))
+    f32 = torch.empty((n, d), device="cuda")
+    for lo in range(0, n, 65536):
+        f32[lo:lo + 65536] = torch.from_numpy(np.array(unit[lo:lo + 65536]))
+    exact = cosine_topk_ref(f32, qt, 10)[1].cpu().numpy()
+    del f32
+
+    def recall(ids):
+        return float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, exact)]))
+
+    ad = _BinaryRescoreAdapter(pqi, unit, oversampling=3.0)
+    ids = ad.search(q, 10)[1]
+    check(all(len(set(r)) == 10 for r in ids), "pq + rescore: an id came back twice")
+    out["recall10_rescore"] = recall(ids)
+    out["rescore_search64_ms"] = sync_ms(torch, lambda: ad.search(q, 10))
+    bad = _BinaryRescoreAdapter(BinaryIndex(unit), unit, oversampling=3.0)
+    out["binary_recall10_rescore"] = recall(bad.search(q, 10)[1])
+    out["nbytes"] = pqi.nbytes
+    del pqi, ad, bad
+    torch.cuda.empty_cache()
+    print(f"pq 1M x 1024, m = 128: {json.dumps(out)}", flush=True)
+    return out
+
+
+def combine_run(unit: np.ndarray) -> dict:
+    """(C) The example-combine searches over the 1M capacity rows in bf16
+    and int8 (`DeviceIndex.best_score` with 4 positives and 2 negatives,
+    `discover` with a target and 2 pairs, `context` with 2 pairs), timed at
+    full size, and on a 65,536-row subset held against their numpy host
+    twins on the same stored values (1e-4 bf16, 1e-5 int8 dequantized in
+    fp32; the tie-margin rule); `matrix_topk` at S = 4096 against the numpy
+    product, timed."""
+    import torch
+    from reverso_tpu_torch.ops.recommend import (best_score_topk_host, context_topk_host,
+                                                 discover_topk_host, matrix_topk)
+    from reverso_tpu_torch.store import DeviceIndex
+
+    pos = np.array(unit[[11, 5_000, 70_000, 900_000]])
+    neg = np.array(unit[[123, 456_789]])
+    calls = {"best_score": (lambda ix: ix.best_score(pos, neg, k=10),
+                            lambda mat, ex: best_score_topk_host(mat, ex(pos), ex(neg), 10)),
+             "discover": (lambda ix: ix.discover(pos[0], pos[1:3], neg, k=10),
+                          lambda mat, ex: discover_topk_host(mat, ex(pos[0]), ex(pos[1:3]),
+                                                             ex(neg), 10)),
+             "context": (lambda ix: ix.context(pos[:2], neg, k=10),
+                         lambda mat, ex: context_topk_host(mat, ex(pos[:2]), ex(neg), 10))}
+    out = {}
+    for dtype, tol in (("bfloat16", 1e-4), ("int8", 1e-5)):
+        sub = DeviceIndex(unit[:65536], dtype=dtype)
+        mat = sub.matrix.float()
+        if dtype == "int8":
+            mat *= sub.scale
+            ex = lambda a: np.asarray(a, np.float32)
+        else:
+            ex = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+        mat = mat.cpu().numpy()
+        for name, (dev_fn, host_fn) in calls.items():
+            s, i = dev_fn(sub)
+            hs, hi = host_fn(mat, ex)
+            topk_agree_scaled(hs, hi, s, i, tol)
+        del sub, mat
+        ix = DeviceIndex(unit, dtype=dtype)
+        for name, (dev_fn, _) in calls.items():
+            s, i = dev_fn(ix)
+            check(bool((i >= 0).all()) and bool(torch.isfinite(s).all()), f"{name} {dtype}")
+            out[f"{name}_{dtype}_ms"] = sync_ms(torch, lambda: dev_fn(ix))
+        del ix
+        torch.cuda.empty_cache()
+    sample = torch.from_numpy(np.array(unit[:4096])).cuda()
+    s, i = matrix_topk(sample, 10)
+    g = sample.double() @ sample.double().t()
+    g.fill_diagonal_(float("-inf"))
+    rs, ri = torch.topk(g, 10, dim=1)
+    topk_agree(rs.float(), ri.int(), s, i, 1e-5)
+    out["matrix_topk_s4096_ms"] = cuda_ms(lambda: matrix_topk(sample, 10))
+    print(f"example combines 1M x 1024: {json.dumps(out)}", flush=True)
+    return out
+
+
+def multivec_points(unit: np.ndarray, n_points: int, seed: int):
+    """`n_points` points of 1 to 8 sub-vectors each (a region's embeddings
+    per sub-vector): the capacity rows in order, grouped."""
+    counts = np.random.default_rng(seed).integers(1, 9, n_points)
+    indptr = np.cumsum(counts)
+    return np.array(unit[:indptr[-1]]), indptr
+
+
+def maxsim_run(unit: np.ndarray) -> dict:
+    """(X) MaxSim: 100,000 points of 1 to 8 sub-vectors of d = 1024 in a
+    bf16 `MultiVecIndex`, Q = 16 queries of Tq = 4 (a point's regions plus
+    noise), k = 10: the scores of the returned points against
+    `maxsim_score_rows` of their bf16 rows (1e-4 of the largest |score|),
+    the ranking against the exact host MaxSim of every point (the
+    tie-margin rule), timed."""
+    import torch
+    from reverso_tpu_torch.ops.multivec import maxsim_score_rows
+    from reverso_tpu_torch.store import MultiVecIndex
+
+    subs, indptr = multivec_points(unit, 100_000, seed=43)
+    mv = MultiVecIndex(subs, indptr)
+    rows16 = mv.matrix.float().cpu().numpy()
+    starts = np.concatenate([[0], indptr[:-1]])
+    rng = np.random.default_rng(44)
+    pts = rng.choice(100_000, 16, replace=False)
+    qlist = [subs[starts[p] + rng.integers(0, indptr[p] - starts[p], 4)]
+             + rng.standard_normal((4, 1024), dtype=np.float32) * np.float32(0.01) for p in pts]
+    s, i = mv.search(qlist, 10)
+    # exact host MaxSim of every point over the same bf16 rows
+    exact = np.zeros((16, 100_000), np.float32)
+    for r, q in enumerate(qlist):
+        dots = q @ rows16.T                                     # [4, M]
+        exact[r] = np.maximum.reduceat(dots, starts, axis=1).sum(0)
+    order = np.argsort(-exact, axis=1, kind="stable")[:, :10]
+    topk_agree_scaled(np.take_along_axis(exact, order, 1), order, s, i, 1e-4)
+    for r, q in enumerate(qlist):
+        want = maxsim_score_rows([rows16[starts[p]:indptr[p]] for p in i[r]], q)
+        check(float(np.abs(want - s[r]).max()) <= 1e-4 * max(1.0, float(np.abs(want).max())),
+              "MaxSim scores differ from maxsim_score_rows")
+    check(bool((i[:, 0] == pts).all()), "MaxSim: a query's own point is not its best")
+    out = dict(points=100_000, sub_vectors=int(indptr[-1]),
+               search16_ms=sync_ms(torch, lambda: mv.search(qlist, 10)))
+    del mv
+    torch.cuda.empty_cache()
+    print(f"MaxSim: {json.dumps(out)}", flush=True)
+    return out
+
+
+def engine_stores_run(root: str, unit: np.ndarray, rows: np.ndarray, queries: np.ndarray) -> dict:
+    """(S) Engine level: 100,000-row stores built through
+    `VectorStore.append` (10,000 rows a call, payloads {"folder": i % 10})
+    - euclid and manhattan over the scaled rows, pq over the unit rows, and
+    a store with a multivector space "regions" (1 to 8 sub-vectors a
+    point) - each searched through `Reverso.search_batch` at Q = 16, k = 10,
+    with no filter and with {"folder": 3}, held against the same index on
+    the CPU (euclid and manhattan from the store's rows, pq from the cache
+    the card's build wrote, MaxSim from the store's sub-vectors). Returns
+    the path's launches and K1/K2 shapes (the euclid store's)."""
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import SearchConfig, StoreConfig, default_config
+    from reverso_tpu_torch.engine import Reverso, _BinaryRescoreAdapter
+    from reverso_tpu_torch.store import DeviceIndex, MultiVecIndex, PQIndex, VectorStore
+
+    n, d = 100_000, unit.shape[1]
+    pays = [{"folder": j % 10} for j in range(n)]
+    subs, indptr = multivec_points(unit, n, seed=45)
+    starts = np.concatenate([[0], indptr[:-1]])
+    multi_rows = [subs[starts[j]:indptr[j]] for j in range(n)]
+    stores = {"euclid": ("euclid", "bfloat16", rows[:n]),
+              "manhattan": ("manhattan", "bfloat16", rows[:n]),
+              "pq": ("cosine", "pq", unit[:n]), "multi": ("cosine", "bfloat16", unit[:n])}
+    out = {}
+    kernels.reset_counts()
+    for name, (distance, dtype, data) in stores.items():
+        t0 = time.perf_counter()
+        with VectorStore.create(root, f"e_{name}", d, distance=distance,
+                                multi={"regions": d} if name == "multi" else None) as st:
+            for lo in range(0, n, 10_000):
+                st.append(data[lo:lo + 10_000], pays[lo:lo + 10_000],
+                          multi_vectors={"regions": multi_rows[lo:lo + 10_000]}
+                          if name == "multi" else None)
+        out[f"{name}_append_s"] = time.perf_counter() - t0
+        cfg = default_config().replace(
+            store=StoreConfig(root_dir=root, dtype=dtype),
+            search=dataclasses.replace(SearchConfig(), pq_oversampling=3.0))
+        eng = Reverso(cfg, device="cuda")
+        check("Loaded" in eng.load_database(f"e_{name}"), f"load e_{name}")
+        using = "regions" if name == "multi" else ""
+        q = (np.stack([multi_rows[j][:1].repeat(4, 0) + queries[r, None] * np.float32(0.005)
+                       for r, j in enumerate(np.arange(16) * 6_007)])
+             if name == "multi" else np.array(data[np.arange(16) * 6_007]) + queries[:16] * np.float32(0.01))
+        stored = np.asarray(VectorStore.open(root, f"e_{name}").vectors())
+        if name == "pq":
+            cache = os.path.join(root, f"e_{name}", "index")
+            eng.search_batch(q, 10)
+            files = os.listdir(cache)
+            check(len(files) == 1 and files[0].startswith("pq_m128_100000_"), f"pq cache {files}")
+            ref = _BinaryRescoreAdapter(PQIndex.load_cache(stored, os.path.join(cache, files[0]),
+                                                           device="cpu"), stored, oversampling=3.0)
+        elif name == "multi":
+            ref = MultiVecIndex(*VectorStore.open(root, f"e_{name}").multivectors("regions"),
+                                device="cpu")
+        else:
+            ref = DeviceIndex(stored, dtype=dtype, distance=distance, device="cpu")
+        for filt in (None, {"folder": 3}):
+            mask = None if filt is None else eng._filter_mask(filt)
+            s, i = eng.search_batch(q, 10, filter=filt, using=using)
+            rs, ri = ref.search(q, 10, row_mask=mask)
+            rs, ri = (np.asarray(a.cpu() if hasattr(a, "cpu") else a) for a in (rs, ri))
+            if name == "euclid":   # the ranking keys ||q||^2 - score^2, as in (E)
+                qq = (q * q).sum(1, keepdims=True)
+                topk_agree_scaled(qq - rs * rs, ri, qq - s * s, i, 1e-5)
+            else:
+                topk_agree_scaled(rs, ri, s, i, 1e-5)
+            check(i.shape == (16, 10) and bool((i >= 0).all()), f"e_{name}: empty slots")
+            if filt is not None:
+                check(bool((i % 10 == 3).all()), f"e_{name}: the filter let a row through")
+        s, i = eng.search_batch(q, 10, using=using)
+        own = np.arange(16) * 6_007
+        # pq ranks candidates by the codebook proxy: the own row within the
+        # top 10 after the rescore; every exact index: at rank 0
+        check(bool((i == own[:, None]).any(1).all()) if name == "pq"
+              else bool((i[:, 0] == own).all()), f"e_{name}: a query's own row is not its best")
+        out[f"{name}_search16_ms"] = sync_ms(torch, lambda: eng.search_batch(q, 10, using=using))
+        out[f"{name}_filtered_search16_ms"] = sync_ms(
+            torch, lambda: eng.search_batch(q, 10, filter={"folder": 3}, using=using))
+        del eng, ref, stored
+        torch.cuda.empty_cache()
+    launches = dict(kernels.launches)
+    shapes = {key: c for key, c in kernels.shape_launches.items()
+              if key[0] in ("topk_stream", "topk_masked")}
+    check(launches["topk_stream"] > 0 and launches["topk_masked"] > 0,
+          f"the euclid store missed K1/K2: {launches}")
+    print(f"engine stores (100k rows): {json.dumps(out)}", flush=True)
+    return launches, shapes
+
+
 def main() -> int:
     import torch
 
@@ -2583,6 +3316,8 @@ def main() -> int:
     kernels.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s)",
           flush=True)
+    if sys.argv[1:2] == ["--copy-soak"]:
+        return copy_soak(torch, int((sys.argv[2:] or ["100"])[0]))
 
     t_all = time.perf_counter()
     phases = {}
@@ -2619,7 +3354,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         sam_split_launches = phase("detector parity", detector_parity, root)
         torch.cuda.empty_cache()
-        direct_launches, k1_shapes = phase("direct-embed slice", slice_run, root)
+        direct_launches, k1_shapes, direct_tc_shapes = phase("direct-embed slice", slice_run,
+                                                             root)
+        clip_launches, clip_tc_shapes, clip_k1_shapes = phase("vision-checkpoint loaders",
+                                                              loaders_run, root)
+        rows["flash_heads"]["by_shape"], rows["fused_mlp"]["by_shape"] = phase(
+            "K3 and K4 bf16 at their paths' shapes", tc_path_shapes, torch,
+            collections.Counter(direct_tc_shapes) + collections.Counter(clip_tc_shapes))
+        torch.cuda.empty_cache()
         f32_slice_launches, f32_slice_shapes = phase("parity direct-embed slice (fp32)",
                                                      f32_slice_run, root)
         torch.cuda.empty_cache()
@@ -2635,9 +3377,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         capacity_launches, capacity_shapes, store_f32_launches, store_f32_shapes = phase(
             "capacity slice", capacity_run, root)
+        torch.cuda.empty_cache()
+        unit, scaled, queries = capacity_rows(root)
+        euclid_launches, euclid_shapes = phase("euclid at capacity", euclid_run, scaled, queries)
+        phase("manhattan at capacity", manhattan_run, scaled, queries)
+        phase("PQ at capacity", pq_run, unit, queries)
+        phase("example combines at capacity", combine_run, unit)
+        phase("MaxSim", maxsim_run, unit)
+        engine_launches, engine_shapes = phase("engine stores (euclid, manhattan, pq, "
+                                               "multivector)", engine_stores_run, root, unit,
+                                               scaled, queries)
+        del unit, scaled, queries
     torch.cuda.empty_cache()
     path_shapes = collections.Counter()
-    for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes):
+    for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes,
+                   clip_k1_shapes, euclid_shapes, engine_shapes):
         path_shapes.update(shapes)
     topk_shapes = phase("top-k scans at their paths' shapes", topk_path_shapes, torch,
                         path_shapes)
@@ -2653,7 +3407,7 @@ def main() -> int:
     path_runs = (two_stage_launches, tower_launches, long_launches, long_bf16_launches,
                  f32_launches, sam_split_launches, direct_launches, f32_slice_launches,
                  int8_launches, region_launches, roi_launches, capacity_launches,
-                 store_f32_launches)
+                 store_f32_launches, clip_launches, euclid_launches, engine_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"],
                "flash_heads_f32": f32_launches["flash_heads_split"],
                "fused_mlp": direct_launches["fused_mlp_tc"],
@@ -2674,7 +3428,8 @@ def main() -> int:
                "topk_int8_rows": two_stage_launches["topk_int8_rows"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
-    for name in ("fused_mlp_f32", "flash_heads_f32", "fused_mlp_int8", "ms_deform",
+    for name in ("flash_heads", "fused_mlp", "fused_mlp_f32", "flash_heads_f32",
+                 "fused_mlp_int8", "ms_deform",
                  "topk_stream", "topk_masked", "topk_int8", "topk_binary", "topk_int8_rows",
                  "topk_stream_f32"):
         print(f"{name} at its path's shapes: {json.dumps(rows[name]['by_shape'])}", flush=True)
@@ -2682,7 +3437,7 @@ def main() -> int:
     # the order to redesign kernels in: first those one PyTorch call beats,
     # by how many times; then the rest by launches x (ms - bound_ms), summed
     # over the shapes a path ran a kernel at where the run timed each
-    # (`by_shape`: K1, K2 in bf16 and fp32, K3 fp32, K4 fp32, K5, K8, K9, K10,
+    # (`by_shape`: K1, K2, K3 and K4 in bf16 and fp32, K5, K8, K9, K10,
     # K12), else at the row's shape. Listed apart: rows already redesigned;
     # rows whose library call computes another function are ranked by cost
     # only

@@ -8,16 +8,19 @@ pipeline, `process_image_direct_pe`, `detect_regions`,
 global embedding, as the reference does; region mode: masked ROI pooling
 of each region from one forward), `search_similar` and
 `search_batch` (with payload `filter=`), `count` and the index routing of
-`_get_index` — the exact index in bf16/fp32/int8, binary quantization
-with rescore, IVF, deleted vectors — carry the JAX package's method bodies
-and status strings; the models run in PyTorch and the searches through the
-CUDA top-k and IVF kernels.
+`_get_index` — the exact index in bf16/fp32/int8 under every distance
+(cosine, dot, euclid, manhattan), binary and product quantization with
+rescore, IVF, the host index, multivector (MaxSim) spaces, deleted
+vectors — carry the JAX package's method bodies and status strings; the
+models run in PyTorch and the searches through the CUDA top-k and IVF
+kernels (euclid through the top-k kernel on augmented rows; manhattan,
+PQ and MaxSim as plain PyTorch, as they were XLA in the JAX package).
 
 Everything runs on one device: CUDA unless the caller asks for the CPU
-(`device="cpu"`, or an encoder built on the CPU). Parts of the JAX engine
-not ported yet (the micro-batching searcher, PQ, the host and multivector
-indexes, euclid/manhattan, point mutations, meshes) raise rather than run
-a different path.
+(`device="cpu"`, or an encoder built on the CPU); `search.index="host"`
+is the native host scan the user chose. Parts of the JAX engine not
+ported yet (the micro-batching searcher, point mutations, the universal
+query, meshes) raise rather than run a different path.
 """
 from __future__ import annotations
 
@@ -33,11 +36,13 @@ from .ingest.images import preprocess_pil
 from .ingest.pipeline import build_database, direct_pe_metadata, region_metadata
 from .models.pe import PerceptionEncoder, resolve_device
 from .store import (
-    VectorStore, BinaryIndex, DeviceIndex, IVFIndex, StoreError, StoreLockedError,
+    VectorStore, BinaryIndex, DeviceIndex, HostIndex, IVFIndex, MultiVecIndex, PQIndex,
+    StoreError, StoreLockedError,
     list_databases as _list_databases,
     delete_database as _delete_database,
     unlock_database as _unlock_database,
 )
+from .store.index import default_pq_m
 from .utils.logging import get_logger
 from .utils.profiling import Metrics
 from .viz import visualize_detections as _viz, render_result_thumbnail, to_rgb_array
@@ -107,6 +112,52 @@ def load_or_build_ivf(store, vectors: np.ndarray, scfg, dtype: str,
     return ivf
 
 
+def load_or_build_pq(store, vectors: np.ndarray, scfg, *,
+                     space: str = "", device=None):
+    """Load, extend, or build the store's PQ index for one vector space,
+    persisting the trained codebooks + codes next to the store, in the
+    JAX package's file names and format (keyed on (space, m, count,
+    mutation_epoch)); a cache with a SMALLER count at the same epoch
+    covers an intact prefix, so appends encode only the tail instead of
+    retraining k-means."""
+    count = store.count
+    dim = vectors.shape[1] if vectors.ndim == 2 and vectors.size else 0
+    m = scfg.pq_m if scfg.pq_m > 0 else default_pq_m(dim)
+    cache_dir = os.path.join(store.path, "index")
+    stem = f"pq_{space}_m{m}" if space else f"pq_m{m}"
+    tail = f"_{store.mutation_epoch}.npz"
+    cache = os.path.join(cache_dir, f"{stem}_{count}{tail}")
+    pqi = None
+    if os.path.exists(cache):
+        pqi = PQIndex.load_cache(vectors, cache, m=m, device=device)
+    dirty = pqi is None
+    if pqi is None and os.path.isdir(cache_dir):
+        for f in sorted(os.listdir(cache_dir), reverse=True):
+            # same digit-count guard as the IVF extend loop (space
+            # names can nest into each other's stems)
+            if (f.startswith(stem + "_") and f.endswith(tail)
+                    and f[len(stem) + 1:-len(tail)].isdigit()):
+                pqi = PQIndex.load_cache(
+                    vectors, os.path.join(cache_dir, f), m=m, device=device)
+                if pqi is not None:
+                    break
+    if pqi is None:
+        pqi = PQIndex(vectors, m=m, device=device)
+    if dirty:
+        def _same_cfg(f: str) -> bool:
+            return (f.startswith(stem + "_") and f.endswith(".npz")
+                    and f[len(stem) + 1:-4].replace("_", "").isdigit())
+        try:
+            os.makedirs(cache_dir, exist_ok=True)
+            for old in os.listdir(cache_dir):
+                if _same_cfg(old):
+                    os.remove(os.path.join(cache_dir, old))
+            pqi.save_cache(cache)
+        except OSError:
+            pass      # read-only store: rebuild per process
+    return pqi
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
@@ -128,7 +179,8 @@ class _IVFSearchAdapter:
 
 
 class _BinaryRescoreAdapter:
-    """DeviceIndex-shaped facade over the binary CANDIDATE index:
+    """DeviceIndex-shaped facade over a quantized CANDIDATE index
+    (BinaryIndex or PQIndex):
     oversampled packed scan on the device + exact f32 rescore of the
     candidates against the full-precision rows on the host — qdrant's
     quantization search semantics (`rescore`/`oversampling` params).
@@ -333,43 +385,64 @@ class Reverso:
                     f"search and universal-query branches support "
                     f"sparse spaces")
             if using in store.multi:
-                raise NotImplementedError(
-                    "multivector (MaxSim) spaces are not ported yet")
+                # MaxSim over the flat sub-vector matrix (ops/multivec.py);
+                # "binary"/"pq"/"int8" are modes of the DENSE index, so the
+                # MaxSim matrix is bf16 for them
+                subs, indptr = store.multivectors(using)
+                mv_dtype = self.config.store.dtype
+                if mv_dtype in ("binary", "pq", "int8"):
+                    mv_dtype = "bfloat16"
+                index = MultiVecIndex(np.asarray(subs), indptr, dtype=mv_dtype,
+                                      device=self.device)
+                self._indexes[using] = (key, index)
+                return index
             if using not in store.spaces():
                 raise StoreError(
                     f"unknown vector space {using!r} (have "
                     f"{sorted(store.spaces()) + sorted(store.sparse) + sorted(store.multi)})")
             scfg = self.config.search
             dtype = self.config.store.dtype
-            if scfg.index not in ("exact", "ivf"):
-                raise NotImplementedError(
-                    f"index={scfg.index!r} is not ported yet (the native host "
-                    f"index: the surface slice, ROADMAP queue 1 item 17)")
-            if store.distance not in ("cosine", "dot"):
-                raise NotImplementedError(
-                    f"distance={store.distance!r} is not ported yet "
-                    f"(euclid/manhattan: ROADMAP queue 1 item 16)")
             count = store.count
             vectors = np.asarray(store.vectors(using))
-            if scfg.index == "ivf" and count > scfg.ivf_clusters * 4:
+            if scfg.index == "host":
+                # the native C++ host scan, the index the user chose for
+                # deployments without a card
+                index = HostIndex(vectors, distance=store.distance)
+            elif (scfg.index == "ivf" and store.distance in ("cosine", "dot")
+                    and count > scfg.ivf_clusters * 4):
                 # IVF probes dense clusters: "binary" and "pq" are modes
-                # of the exact index, not IVF cell dtypes — coerce to bf16
+                # of the exact index, not IVF cell dtypes — coerce to bf16.
+                # Euclid/manhattan have no IVF form: the exact index
                 ivf_dtype = "bfloat16" if dtype in ("binary", "pq") else dtype
                 ivf = load_or_build_ivf(store, vectors, scfg, ivf_dtype,
                                         space=using, device=self.device)
                 index = _IVFSearchAdapter(ivf, scfg.ivf_nprobe,
                                           impl=scfg.ivf_impl)
-            elif dtype == "pq":
-                raise NotImplementedError(
-                    "dtype='pq' is not ported yet (PQ: the XLA-only ops, "
-                    "ROADMAP queue 1 item 16)")
             elif dtype == "binary":
                 # packed candidate scan + exact f32 rescore of the top
                 # oversampling*k ids against the on-disk rows
+                if store.distance in ("euclid", "manhattan"):
+                    raise StoreError(
+                        "binary quantization ranks by sign dots — it "
+                        "needs a cosine or dot store (this store's "
+                        f"distance is {store.distance})")
                 index = _BinaryRescoreAdapter(
                     BinaryIndex(vectors, device=self.device), vectors,
                     oversampling=scfg.binary_oversampling,
                     rescore=scfg.binary_rescore)
+            elif dtype == "pq":
+                # learned-codebook candidate scan + the same exact f32
+                # rescore; codebooks/codes persist next to the store
+                if store.distance in ("euclid", "manhattan"):
+                    raise StoreError(
+                        "product quantization ranks by codebook dots — "
+                        "it needs a cosine or dot store (this store's "
+                        f"distance is {store.distance})")
+                pqi = load_or_build_pq(store, vectors, scfg, space=using,
+                                       device=self.device)
+                index = _BinaryRescoreAdapter(
+                    pqi, vectors, oversampling=scfg.pq_oversampling,
+                    rescore=scfg.pq_rescore)
             else:
                 index = DeviceIndex(vectors, dtype=dtype,
                                     distance=store.distance,

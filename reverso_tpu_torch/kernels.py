@@ -102,7 +102,8 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,
-# H)): n, ("flash_heads_split", (B, S, W, heads)): n, ("ms_deform", (B,
+# H)): n, ("fused_mlp_tc", (T, W, H, act)): n, ("flash_heads_split", (B, S,
+# W, heads)): n, ("flash_heads_tc", (B, S, W, heads, rope)): n, ("ms_deform", (B,
 # Lq, level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
 # masked)): n}, fp32-row top-k launches under "topk_stream_f32"
 # (`ops/topk.py::launch_key`). Counted beside `launches`, which stays the

@@ -2,7 +2,7 @@
 state dicts.
 
 The flax `VisionTransformer` tree (nested dict of arrays, e.g. the output
-of `reverso_tpu.models.convert.convert_vision_tower` or of a flax `init`)
+of `convert_vision_tower` below or of a flax `init` in the JAX package)
 maps onto `models.vit.VisionTransformer` by name:
 
   * `block{i}` -> `blocks.{i}`;
@@ -15,10 +15,14 @@ same weights.
 
 The detector's towers (Swin, BERT, GroundingDINO, SAM) keep the flax
 module names as they are (`params_from_flax`), and this module also
-carries this package's own copies of the JAX package's transformers ->
-flax-layout converters (`convert_swin`, `convert_bert`,
-`convert_grounding_dino`, `convert_sam`), which `GroundedSamDetector.
-from_pretrained` chains with `params_from_flax`.
+carries this package's own copies of the JAX package's torch -> flax-layout
+converters: the vision towers' (`convert_hf_clip_vision`,
+`convert_openai_clip_vision`, `convert_vision_tower`; HF CLIP and the
+OpenAI-CLIP / perception_models `visual.*` scheme with PE's layer-scale
+gammas and attention pool), which `PerceptionEncoder.from_torch` chains
+with `vision_params_from_flax`, and the detectors' (`convert_swin`,
+`convert_bert`, `convert_grounding_dino`, `convert_sam`), which
+`GroundedSamDetector.from_pretrained` chains with `params_from_flax`.
 """
 from __future__ import annotations
 
@@ -49,13 +53,15 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 def vision_params_from_flax(params_np: Mapping[str, Any],
                             cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Flax vision-tower tree -> state dict of fp32 CPU tensors."""
+    """Flax vision-tower tree (numpy or torch leaves, e.g. a bf16 tensor
+    from `models.checkpoint.load_params`) -> state dict of fp32 CPU
+    tensors."""
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params_np):
         *mods, name = path
         mods = [f"blocks.{_BLOCK.match(m).group(1)}" if _BLOCK.match(m) else m
                 for m in mods]
-        arr = np.asarray(leaf, np.float32)
+        arr = _np(leaf)
         if name == "kernel":
             name = "weight"
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
@@ -109,7 +115,7 @@ def params_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params_np):
         *mods, name = path
-        arr = np.asarray(leaf, np.float32)
+        arr = _np(leaf)
         if name == "kernel":
             name = "weight"
             if arr.ndim == 4 and mods and mods[-1] in _CONV_TRANSPOSE:
@@ -130,8 +136,8 @@ def params_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def _np(t) -> np.ndarray:
-    if hasattr(t, "detach"):
-        t = t.detach().cpu().numpy()
+    if hasattr(t, "detach"):   # a torch tensor (bf16 has no numpy dtype)
+        t = t.detach().cpu().float().numpy()
     return np.asarray(t, np.float32)
 
 
@@ -145,6 +151,127 @@ def _linear(sd: Mapping[str, Any], prefix: str, bias: bool = True) -> dict:
 def _ln(sd: Mapping[str, Any], prefix: str) -> dict:
     return {"scale": _np(sd[f"{prefix}.weight"]),
             "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def convert_hf_clip_vision(sd: Mapping[str, Any], cfg: ModelConfig) -> dict:
+    """HF CLIPVisionModelWithProjection -> VisionTransformer params."""
+    sd = dict(sd)
+    v = "vision_model"
+    params: Dict[str, Any] = {}
+    params["patch_embed"] = {
+        "kernel": _np(sd[f"{v}.embeddings.patch_embedding.weight"])
+        .transpose(2, 3, 1, 0)}
+    if f"{v}.embeddings.patch_embedding.bias" in sd:
+        params["patch_embed"]["bias"] = _np(sd[f"{v}.embeddings.patch_embedding.bias"])
+    params["cls_token"] = _np(sd[f"{v}.embeddings.class_embedding"]).reshape(1, 1, -1)
+    params["pos_embed"] = _np(sd[f"{v}.embeddings.position_embedding.weight"])[None]
+    # HF ships the typo'd "pre_layrnorm" name
+    pre = f"{v}.pre_layrnorm" if f"{v}.pre_layrnorm.weight" in sd else f"{v}.pre_layernorm"
+    params["ln_pre"] = _ln(sd, pre)
+
+    for i in range(cfg.depth):
+        lp = f"{v}.encoder.layers.{i}"
+        params[f"block{i}"] = {
+            "ln1": _ln(sd, f"{lp}.layer_norm1"),
+            "ln2": _ln(sd, f"{lp}.layer_norm2"),
+            "attn": {
+                "q_proj": _linear(sd, f"{lp}.self_attn.q_proj"),
+                "k_proj": _linear(sd, f"{lp}.self_attn.k_proj"),
+                "v_proj": _linear(sd, f"{lp}.self_attn.v_proj"),
+                "out_proj": _linear(sd, f"{lp}.self_attn.out_proj"),
+            },
+            "mlp": {
+                "fc1": _linear(sd, f"{lp}.mlp.fc1"),
+                "fc2": _linear(sd, f"{lp}.mlp.fc2"),
+            },
+        }
+    params["ln_post"] = _ln(sd, f"{v}.post_layernorm")
+    params["proj"] = {"kernel": _np(sd["visual_projection.weight"]).T}
+    return params
+
+
+def _split_qkv(w: np.ndarray, b: np.ndarray | None):
+    """Fused in_proj [3W, W] -> three flax Dense params."""
+    w3 = np.split(w, 3, axis=0)
+    b3 = np.split(b, 3, axis=0) if b is not None else [None] * 3
+    out = {}
+    for name, wi, bi in zip(("q_proj", "k_proj", "v_proj"), w3, b3):
+        out[name] = {"kernel": wi.T.astype(np.float32)}
+        if bi is not None:
+            out[name]["bias"] = bi.astype(np.float32)
+    return out
+
+
+def convert_openai_clip_vision(sd: Mapping[str, Any], cfg: ModelConfig,
+                               prefix: str = "visual.") -> dict:
+    """OpenAI-CLIP / perception_models style `visual.*` tower."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    params: Dict[str, Any] = {}
+    params["patch_embed"] = {
+        "kernel": _np(sd["conv1.weight"]).transpose(2, 3, 1, 0)}
+    if "conv1.bias" in sd:
+        params["patch_embed"]["bias"] = _np(sd["conv1.bias"])
+    if "class_embedding" in sd:
+        params["cls_token"] = _np(sd["class_embedding"]).reshape(1, 1, -1)
+    if "positional_embedding" in sd:
+        params["pos_embed"] = _np(sd["positional_embedding"])[None]
+    if "ln_pre.weight" in sd:
+        params["ln_pre"] = _ln(sd, "ln_pre")
+
+    for i in range(cfg.depth):
+        lp = f"transformer.resblocks.{i}"
+        blk: Dict[str, Any] = {
+            "ln1": _ln(sd, f"{lp}.ln_1"),
+            "ln2": _ln(sd, f"{lp}.ln_2"),
+            "mlp": {
+                "fc1": _linear(sd, f"{lp}.mlp.c_fc"),
+                "fc2": _linear(sd, f"{lp}.mlp.c_proj"),
+            },
+        }
+        attn = _split_qkv(_np(sd[f"{lp}.attn.in_proj_weight"]),
+                          _np(sd[f"{lp}.attn.in_proj_bias"])
+                          if f"{lp}.attn.in_proj_bias" in sd else None)
+        attn["out_proj"] = _linear(sd, f"{lp}.attn.out_proj")
+        blk["attn"] = attn
+        if f"{lp}.ls_1.gamma" in sd:
+            blk["ls1"] = {"gamma": _np(sd[f"{lp}.ls_1.gamma"])}
+            blk["ls2"] = {"gamma": _np(sd[f"{lp}.ls_2.gamma"])}
+        params[f"block{i}"] = blk
+
+    if "ln_post.weight" in sd:
+        params["ln_post"] = _ln(sd, "ln_post")
+    if "attn_pool.probe" in sd:
+        pool: Dict[str, Any] = {"probe": _np(sd["attn_pool.probe"]).reshape(1, 1, -1)}
+        pool_bias = sd.get("attn_pool.attn.in_proj_bias")
+        pool.update(_split_qkv(
+            _np(sd["attn_pool.attn.in_proj_weight"]),
+            _np(pool_bias) if pool_bias is not None else None))
+        pool["out_proj"] = _linear(sd, "attn_pool.attn.out_proj")
+        pool["ln"] = _ln(sd, "attn_pool.layernorm")
+        params["attn_pool"] = pool
+    if "proj" in sd:
+        # OpenAI keeps proj as [W, E] already
+        params["proj"] = {"kernel": _np(sd["proj"])}
+    elif "proj.weight" in sd:
+        params["proj"] = {"kernel": _np(sd["proj.weight"]).T}
+    return params
+
+
+def convert_vision_tower(sd: Mapping[str, Any], cfg: ModelConfig,
+                         scheme: str = "auto") -> dict:
+    if scheme == "auto":
+        keys = list(sd.keys())
+        if any(k.startswith("vision_model.") for k in keys):
+            scheme = "hf_clip"
+        elif any(k.startswith("visual.") for k in keys):
+            scheme = "openai_clip"
+        else:
+            raise ValueError("cannot detect state-dict naming scheme")
+    if scheme == "hf_clip":
+        return convert_hf_clip_vision(sd, cfg)
+    if scheme == "openai_clip":
+        return convert_openai_clip_vision(sd, cfg)
+    raise ValueError(scheme)
 
 
 def convert_swin(sd: Mapping[str, Any], cfg, prefix: str = "") -> dict:

@@ -6,7 +6,10 @@ embeddings out, as a host numpy array (the ingest pipeline and the engine
 call `np.asarray` on the result), and the masked ROI region embeddings of
 the region mode (`encode_regions`, with `pool_masks` pooling pixel masks
 onto the patch grid on the host). The tower runs on one explicit device;
-asking for CUDA where there is none raises.
+asking for CUDA where there is none raises. `from_torch` loads a torch
+CLIP/PE vision checkpoint through the converters of `models/convert.py`,
+`from_checkpoint` a converted msgpack file (`models/checkpoint.py`), as
+the JAX package's loaders do.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch
 
 from ..config import ModelConfig, MODEL_PRESETS
 from ..ops.norm import l2_normalize
-from .convert import is_flax_tree, vision_params_from_flax
+from .convert import convert_vision_tower, is_flax_tree, vision_params_from_flax
 from .vit import VisionTransformer
 
 # Per-family architectural quirks not captured by ModelConfig's size fields.
@@ -74,6 +77,39 @@ class PerceptionEncoder:
     @classmethod
     def from_preset(cls, name: str, **kw) -> "PerceptionEncoder":
         return cls(MODEL_PRESETS[name], **kw)
+
+    @classmethod
+    def from_torch(cls, path: str, cfg: ModelConfig, *,
+                   scheme: str = "auto", family: Optional[str] = None,
+                   **kw) -> "PerceptionEncoder":
+        """Convert a torch CLIP/PE vision checkpoint (HF dir, .safetensors
+        or .bin/.pt; `scheme` "hf_clip", "openai_clip" or "auto") and load
+        it. `family` defaults to "pe" for RoPE towers, else "clip"."""
+        from ..detect.grounded import load_torch_state_dict
+
+        params = convert_vision_tower(load_torch_state_dict(path), cfg, scheme=scheme)
+        if family is None:
+            family = "pe" if cfg.use_rope else "clip"
+        return cls(cfg, family=family, params=params, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None,
+                        **kw) -> "PerceptionEncoder":
+        """Load converted params saved by either package's `save_params`
+        (msgpack + sidecar meta json carrying the architecture: `config`,
+        else `preset`, and `family`)."""
+        from .checkpoint import load_meta, load_params
+
+        meta = load_meta(path) or {}
+        if cfg is None:
+            if "config" in meta:
+                cfg = ModelConfig(**meta["config"])
+            elif meta.get("preset") in MODEL_PRESETS:
+                cfg = MODEL_PRESETS[meta["preset"]]
+            else:
+                raise ValueError(f"no sidecar meta next to {path}; pass cfg= explicitly")
+        kw.setdefault("family", meta.get("family", "pe" if cfg.use_rope else "clip"))
+        return cls(cfg, params=load_params(path), **kw)
 
     @torch.inference_mode()
     def encode_image(self, images, *, normalized: bool = True) -> np.ndarray:

@@ -9,3 +9,12 @@ from .fused_mlp import fused_mlp, fused_mlp_int8, mlp_int8_ref, mlp_ref
 from .norm import l2_normalize
 from .rope import apply_rope_2d, rope_2d_tables
 from .topk import apply_score_threshold, cosine_topk, cosine_topk_ref
+from .pq import pq_decode, pq_encode, pq_topk, train_pq
+from .l1 import manhattan_topk, manhattan_topk_host
+from .recommend import (
+    average_query,
+    sum_scores_query,
+    best_score_topk,
+    context_topk,
+    discover_topk,
+)

@@ -275,6 +275,7 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
         kernels.shape_launches[("flash_heads_split", (b, s, w, heads))] += 1
     else:
         kernels.launches["flash_heads_tc"] += 1
+        kernels.shape_launches[("flash_heads_tc", (b, s, w, heads, use_rope))] += 1
     return o
 
 

@@ -193,6 +193,7 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
         b1, b2 = _aligned(b1, 4), _aligned(b2, 4)
         out = _launch_tc(x2, w1, b1, w2, b2, act)
         kernels.launches["fused_mlp_tc"] += 1
+        kernels.shape_launches[("fused_mlp_tc", (t, width, hidden, act))] += 1
     else:
         # widths TMA cannot take: x and the weights zero-padded to a pitch of
         # 8 by the split pass's one-part form, the biases by zeros; the pad
@@ -204,6 +205,7 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
         b1p, b2p = F.pad(b1, (0, hp - hidden)), F.pad(b2, (0, wp - width))
         out = _launch_tc(xp, w1p, b1p, w2p, b2p, act)[:, :width].contiguous()
         kernels.launches["fused_mlp_tc"] += 1
+        kernels.shape_launches[("fused_mlp_tc", (t, width, hidden, act))] += 1
     kernels.launches["fused_mlp"] += 1
     return out.reshape(shape)
 

@@ -435,37 +435,44 @@ def cosine_topk_int8_exact(db_i8: torch.Tensor, db_scale, queries: torch.Tensor,
     return _scale(s, i, c2, db_scale)
 
 
+def scan_topk(score_chunk, n: int, qn: int, k: int, device, *,
+              n_valid: Optional[int] = None, row_mask=None,
+              chunk: int = _CHUNK_ROWS):
+    """Exact top-k of a score matrix that is never materialized: `score_chunk(lo,
+    hi)` gives the [Q, hi - lo] fp32 scores of rows lo..hi, merged chunk by
+    chunk into a running (-score, idx) top-k. Rows at or past `n_valid` and
+    rows `row_mask` drops score -inf; results are padded as `_finish` pads.
+    The chunked plain scans (int8 past the kernel's bounds, Manhattan, PQ)
+    run on it."""
+    mask = as_row_mask(row_mask, n, device)
+    n_valid = n if n_valid is None else int(n_valid)
+    k_eff = min(k, n)
+    top_s = torch.empty((qn, 0), device=device)
+    top_i = torch.empty((qn, 0), dtype=torch.int64, device=device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        s = _mask_scores(score_chunk(lo, hi), n_valid, mask, lo)
+        # the carry (lower ids) precedes the chunk: column order is id order
+        all_s = torch.cat([top_s, s], 1)
+        all_i = torch.cat([top_i, torch.arange(lo, hi, device=device).expand(qn, -1)], 1)
+        top_s, cols = _select_topk(all_s, min(k_eff, all_s.shape[1]))
+        top_i = all_i.gather(1, cols)
+    return _finish(top_s, k, ids=top_i)
+
+
 def cosine_topk_int8_xla(db_i8: torch.Tensor, db_scale, queries: torch.Tensor,
                          k: int, n_valid: Optional[int] = None, row_mask=None, *,
                          chunk: int = _CHUNK_ROWS):
     """Exact top-k over an int8 database, any k and d: fp32 queries against
-    the rows dequantized one chunk at a time (`rows * scale`), with a
-    running (-score, idx) top-k, so the full fp32 matrix never exists. The
-    counterpart of the JAX package's `cosine_topk_int8_xla`; the index
-    takes it above the kernel's k cap or past d = INT8_D_MAX."""
-    n, d = db_i8.shape
+    the rows dequantized one chunk at a time (`rows * scale`, `scan_topk`),
+    so the full fp32 matrix never exists. The counterpart of the JAX
+    package's `cosine_topk_int8_xla`; the index takes it above the kernel's
+    k cap or past d = INT8_D_MAX."""
     q32 = queries.float()
     scale = torch.as_tensor(db_scale, dtype=torch.float32, device=db_i8.device)
-    mask = as_row_mask(row_mask, n, db_i8.device)
-    n_valid = n if n_valid is None else int(n_valid)
-    k_eff = min(k, n)
-    top_s = q32.new_empty((q32.shape[0], 0))
-    top_i = torch.empty((q32.shape[0], 0), dtype=torch.int64, device=q32.device)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        s = q32 @ (db_i8[lo:hi].float() * scale).t()
-        s = _mask_scores(s, n_valid, mask, lo)
-        # the carry (lower ids) precedes the chunk: column order is id order
-        all_s = torch.cat([top_s, s], 1)
-        all_i = torch.cat([top_i, torch.arange(lo, hi, device=q32.device)
-                           .expand(q32.shape[0], -1)], 1)
-        top_s, cols = _select_topk(all_s, min(k_eff, all_s.shape[1]))
-        top_i = all_i.gather(1, cols)
-    top_i = torch.where(torch.isneginf(top_s), -1, top_i)
-    if k_eff < k:
-        top_s = torch.cat([top_s, top_s.new_full((q32.shape[0], k - k_eff), float("-inf"))], 1)
-        top_i = torch.cat([top_i, top_i.new_full((q32.shape[0], k - k_eff), -1)], 1)
-    return top_s, top_i.to(torch.int32)
+    return scan_topk(lambda lo, hi: q32 @ (db_i8[lo:hi].float() * scale).t(),
+                     db_i8.shape[0], q32.shape[0], k, db_i8.device, n_valid=n_valid,
+                     row_mask=row_mask, chunk=chunk)
 
 
 def apply_score_threshold(scores: torch.Tensor, idx: torch.Tensor,

@@ -11,7 +11,7 @@ from .persist import (
     delete_alias,
     resolve_alias,
 )
-from .index import BinaryIndex, DeviceIndex
+from .index import BinaryIndex, DeviceIndex, HostIndex, MultiVecIndex, PQIndex
 from .ivf import IVFIndex
 from .filter import (
     Filter,

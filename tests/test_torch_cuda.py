@@ -916,3 +916,147 @@ def test_cosine_topk_int8_on_the_card(dev):
                               n_valid=4800)
     _assert_topk_close(s.cpu(), i.cpu(), cs, ci, 1e-5)
     assert i[:, 0].tolist() == list(range(9))
+
+
+def _assert_topk_scaled(s, i, rs, ri, tol):
+    """`_assert_topk_close` with a tolerance per result slot ([Q, k]):
+    scores whose magnitude grows with the rows' norms (the euclid ranking
+    key). Ids must agree where the gap to each neighbour passes the larger
+    of the two slots' tolerances."""
+    fin = torch.isfinite(rs)
+    assert torch.equal(fin, torch.isfinite(s))
+    assert torch.equal(i[~fin], torch.full_like(i[~fin], -1))
+    assert bool(((torch.where(fin, s - rs, 0)).abs() <= tol).all())
+    gap = torch.diff(torch.where(fin, rs, -1e30), dim=1).abs()
+    pair = torch.maximum(tol[:, 1:], tol[:, :-1])
+    inf = torch.full((rs.shape[0], 1), float("inf"), device=rs.device)
+    clear = ((torch.cat([inf, gap - pair], 1) > 0) & (torch.cat([gap - pair, inf], 1) > 0))
+    assert torch.equal(torch.where(clear, i, -2), torch.where(clear, ri, -2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,keep", [(64, None), (1, None), (16, 0.1)])
+def test_euclid_d1025_kernel(dev, dtype, q, keep):
+    """Euclid on K1/K2: the `[x, ||x||^2]` rows, norms from 0.1 to 100 (an
+    unbounded ranking key `2<q, x> - ||x||^2`), at d = 1025 (a width TMA
+    cannot take: the producer copies the rows) and as `DeviceIndex` holds
+    them, zero-padded to a 16-byte row (1032 bf16, 1028 fp32). The
+    kernel's keys at both widths against the plain scan of the same matrix
+    on the card, and `DeviceIndex.search` on the card against the same
+    index on the CPU (the card's keys against the CPU's plain keys, whose
+    ids the CPU index returns). A key's tolerance is 2e-6 of the sum of its
+    terms' magnitudes, 2 ||q|| ||x|| + ||x||^2, for the rows the two
+    lists hold at that slot (the larger of the two); a distance's is the
+    key's over the distance, and at most its square root (`-sqrt(max(
+    ||q||^2 - key, 0))` clamps a key past ||q||^2, which the bf16 norm
+    column makes common for a query's own row), plus 2e-6 of ||q||^2."""
+    import torch.nn.functional as F
+
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.topk import cosine_topk, cosine_topk_ref, launch_key
+    from reverso_tpu_torch.store import DeviceIndex
+
+    n, d = 20000, 1024
+    gen = torch.Generator(device="cuda").manual_seed(q + 7)
+    x = _unit_rows(gen, n, d) * torch.exp(
+        torch.empty(n, 1, device="cuda").uniform_(np.log(0.1), np.log(100.0), generator=gen))
+    x[n // 2] = x[1]                                  # a duplicate: tie -> lower row
+    qs = x[torch.arange(q, device="cuda") * 97] + 0.01 * _unit_rows(gen, q, d)
+    mask = None if keep is None else torch.rand(n, generator=gen, device="cuda") < keep
+    host = x.cpu().numpy()
+    gpu = DeviceIndex(host, dtype=dtype, distance="euclid")
+    cpu = DeviceIndex(host, dtype=dtype, distance="euclid", device="cpu")
+    pitch = 1032 if dtype == "bfloat16" else 1028
+    assert tuple(gpu.matrix.shape) == (n, pitch) and gpu.dim == d + 1
+    assert not gpu.matrix[:, d + 1:].any()
+    counter = "topk_masked" if mask is not None else "topk_stream"
+    key = launch_key(counter, gpu.matrix.dtype, (q, n, pitch, 10, mask is not None))
+    before = kernels.shape_launches[key]
+    s, i = gpu.search(qs, 10, row_mask=mask)
+    assert kernels.shape_launches[key] == before + 1
+    qa = torch.cat([2 * qs, -torch.ones_like(qs[:, :1])], 1)
+    qp = F.pad(qa, (0, pitch - d - 1))
+    qn2 = (qs * qs).sum(1, keepdim=True)
+    xn2 = (gpu.matrix[:, :d].float() ** 2).sum(1)
+
+    def tol(*ids):   # [Q, k]: the larger bound of the rows at each slot
+        per = [2e-6 * (2 * qn2.sqrt() * xn2[j.long().clamp(min=0)].sqrt()
+                       + xn2[j.long().clamp(min=0)]) for j in ids]
+        return torch.stack(per).amax(0)
+
+    keys = []
+    for mat, qq in ((gpu.matrix, qp), (gpu.matrix[:, :d + 1].contiguous(), qa)):
+        ks, ki = cosine_topk(mat, qq, 10, row_mask=mask)
+        rs, ri = cosine_topk_ref(mat, qq, 10, row_mask=mask)
+        torch.cuda.synchronize()
+        _assert_topk_scaled(ks, ki, rs, ri, tol(ki, ri))
+        keys.append((ks, ki))
+    ks, ki = keys[0]
+    assert torch.equal(ki, i)
+    cmask = None if mask is None else mask.cpu()
+    cs, ci = cpu.search(qs.cpu(), 10, row_mask=cmask)
+    crs, cri = cosine_topk_ref(cpu.matrix, qp.cpu(), 10, row_mask=cmask)
+    assert torch.equal(ci, cri)
+    _assert_topk_scaled(ks.cpu(), ki.cpu(), crs, cri, tol(ki, cri.cuda()).cpu())
+    fin = torch.isfinite(cs)
+    t = tol(i, ci.cuda()).cpu() + 2e-6 * qn2.cpu()
+    dist_tol = torch.minimum(t.sqrt(), t / cs.abs().clamp(min=1e-30))
+    assert bool(((s.cpu() - cs)[fin].abs() <= dist_tol[fin]).all())
+    if mask is None:
+        assert bool((i[:, 0] == torch.arange(q, device="cuda") * 97).all() or q == 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_tower_card_vs_cpu(dev, dtype):
+    """CLIP-L14-336 (`family="clip"`: quick_gelu, ln_pre, no patch bias, cls
+    pooling, K3 without RoPE) at depth 2: the card against the CPU on the
+    same seeded weights; fp32 within 1e-4 (the PE tower's gate), bf16 at a
+    min cosine of 0.999."""
+    import dataclasses
+
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+
+    cfg = dataclasses.replace(MODEL_PRESETS["CLIP-L14-336"], depth=2, dtype=dtype)
+    imgs = np.random.default_rng(2).standard_normal(
+        (2, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    gpu_enc = PerceptionEncoder(cfg, family="clip", seed=4)
+    cpu_enc = PerceptionEncoder(cfg, family="clip", seed=4, device="cpu")
+    kernels.reset_counts()
+    gpu = gpu_enc.encode_image(imgs)
+    split = dtype == "float32"
+    assert kernels.launches["flash_heads_split" if split else "flash_heads_tc"] == 2
+    assert kernels.launches["fused_mlp_split" if split else "fused_mlp_tc"] == 2
+    cpu = cpu_enc.encode_image(imgs)
+    assert np.isfinite(gpu).all() and gpu.shape == (2, cfg.embed_dim)
+    if split:
+        assert float(np.abs(gpu - cpu).max()) <= 1e-4
+    else:
+        assert float((gpu * cpu).sum(1).min()) >= 0.999
+
+
+def test_pq_search_card_vs_cpu(dev):
+    """PQ on the card against the CPU: training repeats itself bit for bit
+    on the card, encoding with the same codebooks gives the same codes but
+    for near-ties, and the proxy search agrees within 1e-5 (fp32 sums of
+    bf16-exact products in another order) under the tie-margin rule."""
+    from reverso_tpu_torch.ops.pq import pq_encode, train_pq
+    from reverso_tpu_torch.store import PQIndex
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = _unit_rows(gen, 30000, 256).cpu().numpy()
+    a = train_pq(x, 32, iters=4, sample=8192)
+    b = train_pq(x, 32, iters=4, sample=8192)
+    np.testing.assert_array_equal(a, b)
+    cb = train_pq(x, 32, iters=4, sample=8192, device="cpu")
+    codes = pq_encode(x, cb)
+    assert (codes != pq_encode(x, cb, device="cpu")).mean() <= 1e-3
+    gpu = PQIndex(x, m=32, codebooks=cb, codes=codes)
+    cpu = PQIndex(x, m=32, codebooks=cb, codes=codes, device="cpu")
+    qs = x[:16] + 0.05 * np.random.default_rng(0).standard_normal((16, 256)).astype(np.float32)
+    mask = np.arange(30000) % 3 != 0
+    for m in (None, mask):
+        s, i = gpu.search(qs, 30, row_mask=m)
+        cs, ci = cpu.search(qs, 30, row_mask=m)
+        _assert_topk_close(s.cpu(), i.cpu(), cs, ci, 1e-5)

@@ -122,8 +122,7 @@ def test_ivf_cache_is_shared_between_packages(store_root):
 
 def test_pq_store_searches_through_ivf(store_root):
     """store.dtype="pq" with index="ivf": both packages coerce the IVF's
-    cells to bf16 and search, with the same ids (only the exact pq index
-    is unported)."""
+    cells to bf16 and search, with the same ids."""
     root, q, _ = store_root
     search = dict(index="ivf", ivf_clusters=16, ivf_nprobe=4)
     jax_eng, port = _engines(root, "pq", **search)
@@ -138,13 +137,13 @@ def test_pq_store_searches_through_ivf(store_root):
 
 def test_unported_paths_name_their_slice(store_root):
     root, q, _ = store_root
-    for dtype, search in (("pq", {}), ("float32", dict(index="host"))):
-        _, port = _engines(root, dtype, **search)
-        port.load_database("db")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.search_batch(q, 5)
     _, port = _engines(root)
     port.load_database("db")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.update_vectors([1], q[:1])
+    from reverso_tpu_torch.store import BinaryIndex
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BinaryIndex.from_chunks(None, 10, D)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.search_similar(0.0, 5, embeddings=q, use_batcher=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,7 +1,8 @@
 """Packaging contracts of the PyTorch port (`reverso_tpu_torch`).
 
-* it imports and runs the direct-embed and region builds + search with
-  `jax` blocked;
+* it imports and runs the direct-embed and region builds + search, the
+  vision-checkpoint loaders and the euclid / manhattan / PQ / host /
+  MaxSim searches with `jax` blocked;
 * its host modules are byte-identical copies of the JAX package's;
 * no device fallback: asking for CUDA without a card raises, and a kernel
   wrapper given a tensor that is neither on the CPU nor on a CUDA card
@@ -110,6 +111,53 @@ def test_port_runs_with_jax_blocked(tmp_path):
     """, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK 3" in proc.stdout
+
+
+def test_port_loaders_and_search_ops_run_with_jax_blocked(tmp_path):
+    """`from_torch` of an OpenAI-CLIP-scheme `.pt`, `from_checkpoint` of the
+    port's own msgpack, a euclid, a manhattan and a PQ search, the host
+    index and a MaxSim search, with `jax` and `flax` blocked."""
+    proc = _run(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        import os, numpy as np, torch
+        from chip_smoke import openai_clip_state_dict
+        from reverso_tpu_torch.config import MODEL_PRESETS
+        from reverso_tpu_torch.models.checkpoint import save_params
+        from reverso_tpu_torch.models.convert import flax_params_from_vision
+        from reverso_tpu_torch.models.pe import PerceptionEncoder
+        root = {str(tmp_path)!r}
+        cfg = MODEL_PRESETS["test-tiny"]
+        enc = PerceptionEncoder(cfg, seed=2, device="cpu")
+        tree = flax_params_from_vision(enc.module.state_dict())
+        sd = openai_clip_state_dict(enc.module.state_dict())
+        torch.save(sd, os.path.join(root, "pe.pt"))
+        imgs = np.random.default_rng(0).standard_normal((2, 32, 32, 3)).astype(np.float32)
+        want = enc.encode_image(imgs)
+        got = PerceptionEncoder.from_torch(os.path.join(root, "pe.pt"), cfg, device="cpu")
+        assert got.family == "pe" and np.array_equal(got.encode_image(imgs), want)
+        save_params(os.path.join(root, "pe.msgpack"), tree, meta={{"preset": "test-tiny"}})
+        back = PerceptionEncoder.from_checkpoint(os.path.join(root, "pe.msgpack"), device="cpu")
+        assert np.array_equal(back.encode_image(imgs), want)
+
+        from reverso_tpu_torch.store import DeviceIndex, HostIndex, MultiVecIndex, PQIndex
+        rng = np.random.default_rng(1)
+        v = rng.standard_normal((500, 32)).astype(np.float32)
+        for dist in ("euclid", "manhattan"):
+            s, i = DeviceIndex(v, distance=dist, device="cpu").search(v[7] + 0.01, 3)
+            assert int(i[0, 0]) == 7 and float(s[0, 0]) <= 0
+            assert int(HostIndex(v, distance=dist).search(v[7] + 0.01, 3)[1][0, 0]) == 7
+        u = v / np.linalg.norm(v, axis=1, keepdims=True)
+        s, i = PQIndex(u, iters=3, device="cpu").search(u[:4], 20)
+        assert i.shape == (4, 20) and (i[:, 0] == torch.arange(4)).float().mean() >= 0.75
+        mv = MultiVecIndex(u, np.arange(1, 501), dtype="float32", device="cpu")
+        assert mv.search([u[3]], 2)[1][0, 0] == 3
+        assert not [m for m in sys.modules if m.split(".")[0] == "reverso_tpu"]
+        print("OK loaders")
+    """, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "OK loaders" in proc.stdout
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)

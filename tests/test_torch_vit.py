@@ -1,14 +1,17 @@
 """Parity of the PyTorch port's vision tower with the JAX package's.
 
-The JAX tower's params (seeded flax init, or a real HF CLIP state dict
-through `convert_vision_tower`) go through the port's parameter bridge, so
-both packages run the same weights on the same numpy images. The JAX side
+The JAX tower's params (seeded flax init) go through the port's parameter
+bridge, so both packages run the same weights on the same numpy images; a
+real HF CLIP state dict goes through the port's own converter with JAX
+blocked. The JAX side
 runs its heads-in-lanes Pallas attention in interpret mode, as
 tests/test_vit.py does on the CPU.
 """
 import dataclasses
-import json
 import os
+import subprocess
+import sys
+import textwrap
 
 import jax
 import numpy as np
@@ -16,7 +19,6 @@ import pytest
 import torch
 
 from reverso_tpu.config import MODEL_PRESETS
-from reverso_tpu.models.convert import convert_vision_tower
 from reverso_tpu.models.pe import PerceptionEncoder as JaxEncoder
 from reverso_tpu.models.vit import VisionTransformer as JaxViT
 from reverso_tpu_torch.models import (PerceptionEncoder, VisionTransformer,
@@ -94,24 +96,37 @@ def test_encode_image_bf16_matches_jax(family):
 
 
 def test_golden_fixture_through_bridge():
-    """The frozen HF CLIP state dict + image_embeds: JAX converter ->
-    bridge -> port reproduces the torch original's embeddings."""
-    from reverso_tpu.config import ModelConfig
-
-    data = np.load(os.path.join(REPO, "tests", "fixtures", "hf_clip_tiny_golden.npz"))
-    arch = json.loads(bytes(data["config"]).decode())
-    cfg = ModelConfig(name="golden-tiny", use_rope=False, pool_type="cls",
-                      layer_scale_init=None, dtype="float32",
-                      **{k: arch[k] for k in ("width", "depth", "num_heads",
-                                              "image_size", "patch_size",
-                                              "embed_dim", "mlp_ratio")})
-    sd = {k[4:]: data[k] for k in data.files if k.startswith("sd::")}
-    params = convert_vision_tower(sd, cfg, scheme="hf_clip")
-    enc = PerceptionEncoder(cfg, family="clip", params=params, device="cpu")
-    ours = enc.encode_image(data["pixels"])
-    ref = data["image_embeds"]
-    ref = ref / np.linalg.norm(ref, axis=1, keepdims=True)
-    assert float((ours * ref).sum(1).min()) >= 0.9999
+    """The frozen HF CLIP state dict + image_embeds: the port's own
+    converter -> bridge -> port reproduces the torch original's
+    embeddings, with `jax` and `flax` blocked."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        import numpy as np
+        from reverso_tpu_torch.config import ModelConfig
+        from reverso_tpu_torch.models.convert import convert_vision_tower
+        from reverso_tpu_torch.models.pe import PerceptionEncoder
+        data = np.load({os.path.join(REPO, "tests", "fixtures", "hf_clip_tiny_golden.npz")!r})
+        arch = json.loads(bytes(data["config"]).decode())
+        cfg = ModelConfig(name="golden-tiny", use_rope=False, pool_type="cls",
+                          layer_scale_init=None, dtype="float32",
+                          **{{k: arch[k] for k in ("width", "depth", "num_heads",
+                                                  "image_size", "patch_size",
+                                                  "embed_dim", "mlp_ratio")}})
+        sd = {{k[4:]: data[k] for k in data.files if k.startswith("sd::")}}
+        params = convert_vision_tower(sd, cfg, scheme="hf_clip")
+        enc = PerceptionEncoder(cfg, family="clip", params=params, device="cpu")
+        ours = enc.encode_image(data["pixels"])
+        ref = data["image_embeds"]
+        ref = ref / np.linalg.norm(ref, axis=1, keepdims=True)
+        assert not [m for m in sys.modules if m.split(".")[0] == "reverso_tpu"]
+        print("MINCOS", float((ours * ref).sum(1).min()))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert float(proc.stdout.split("MINCOS")[1]) >= 0.9999
 
 
 def test_seeded_init_follows_flax_initialisers():
