@@ -106,7 +106,9 @@ of which catches a failure:
      `VectorStore.delete_vector_rows`, int8, binary + rescore, IVF at the
      defaults (built, cached, reloaded) and IVF int8 with spill and
      balance, each held against the exact plain search of its subset;
-     recall@10 against exact fp32 for the approximate ones;
+     recall@10 against exact fp32 for the approximate ones; K11 held
+     against its plain version and timed at each (shape, mode) the IVF
+     engines ran it at, on the inputs captured there;
   5d. the vision-checkpoint loaders (L): a seeded PE-Core-L14-336 written
      in the `openai_clip` scheme with `torch.save` and loaded through
      `PerceptionEncoder.from_torch` embeds phase 5's 256 images bit for bit
@@ -133,20 +135,39 @@ of which catches a failure:
      euclid, manhattan, pq and multivector stores built through
      `VectorStore.append` and searched through `Reverso.search_batch`, also
      filtered, against the same indexes on the CPU;
+  7c. the query and write surface (U) through `Reverso` on phase 7's
+     1,000,000 x 1024 store: `query_batch` on the int8, binary + rescore
+     and IVF engines (K9, K10, K11; K11 held against its plain version and
+     timed at each (shape, mode) on its captured inputs, as on phase 7's
+     path); with phase 7's deleted rows written back,
+     `query_batch` of 64 requests sharing {"folder": 3} and 64 plain ones
+     (exactly one K2 and one K1 launch; each request against its own
+     `query()` and the plain scan of its subset), 16 hybrid requests (two
+     dense branches under different filters, RRF; one scan a group), the
+     other query forms (recommend in three strategies, discover, context,
+     MMR, a formula rescore, order_by, a seeded sample, scroll, retrieve,
+     facet, search_matrix, search_groups) timed at 1M and held against
+     numpy twins on a 65,536-row store of the same rows, `search_groups` by
+     filename on phase 6's region store, the mutations (upsert of 1,000
+     rows, update and delete of 100 vectors, delete_points of a folder,
+     set_payload on 1,000 rows, one mixed update_batch), each timed with
+     the time to its first search, and the batcher (`warmup()`, then 64
+     threads of 8 queries: host p50 / p99, the launched batch sizes);
   8. the top-k scans (K1 from the direct-embed and CLIP paths, K1 and K2
      on fp32 rows from the parity slice and the float32 store, K1 and K2 at
      the euclid phases' padded rows in bf16 and fp32, K2, K9 and K10 from
-     the capacity path, K12 from the two-stage search) timed at each shape
-     their path ran them at (`kernels.shape_launches`), on seeded rows of
-     that shape, each held against its plain version (K9 and K12 bit for
-     bit).
+     the capacity path, K12 from the two-stage search, K1, K2, K9 and K10
+     from the surface path) timed at each shape their path ran them at
+     (`kernels.shape_launches`), on seeded rows of that shape, each held
+     against its plain version (K9 and K12 bit for bit).
 
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). A "redesign order" line ranks the kernels
 by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2
-(bf16 and fp32 rows), K3 and K4 (bf16 and fp32), K5, K8, K9, K10 and K12 at. The line before the last is the card's name and power limit, the
-one before that a JSON object with one entry per kernel; the last line
-is {"ok": true, "device": {...}}.
+(bf16 and fp32 rows), K3 and K4 (bf16 and fp32), K5, K8, K9, K10, K11
+and K12 at. The line before the last is the card's name and power limit, the
+one before that a JSON object with one entry per kernel, the one before
+that phase U's numbers; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -2240,6 +2261,64 @@ def ivf_bound(torch, base, cnt, d: int, itemsize: int, digits: int, dtype: str):
     return bound(nbytes, ops, dtype) + (nbytes, ops)
 
 
+@contextlib.contextmanager
+def ivf_inputs(captured: dict):
+    """Inside the block, keep the inputs of the first K11 launch at each
+    `kernels.shape_launches` key that the IVF index makes (its call of
+    `ivf_probe_scan` in `store/ivf.py`), to time and check each shape a
+    path ran on that path's own inputs."""
+    import reverso_tpu_torch.store.ivf as ivf_mod
+    from reverso_tpu_torch.ops.ivf_scan import launch_key
+    real = ivf_mod.ivf_probe_scan
+
+    def capture(mat, queries, qdig, row_scale, base, cnt, **kw):
+        key = launch_key(mat, base, k=kw["k"], int8=kw["int8"],
+                         masked=kw.get("mask_sorted") is not None)
+        captured.setdefault(key, (mat, queries, qdig, row_scale, base, cnt, kw))
+        return real(mat, queries, qdig, row_scale, base, cnt, **kw)
+
+    ivf_mod.ivf_probe_scan = capture
+    try:
+        yield captured
+    finally:
+        ivf_mod.ivf_probe_scan = real
+
+
+def ivf_path_shapes(torch, counts: dict, captured: dict, path: str) -> list:
+    """K11's `by_shape` entries for one path: each (Q, nprobe, d, k,
+    masked, mode) it ran, with the launches the path made there (`counts`,
+    read before this launches anything), held against
+    `ivf_probe_scan_ref` on the captured inputs (int8 bit for bit, bf16
+    and fp32 within 1e-4) and timed on them."""
+    from reverso_tpu_torch.ops.ivf_scan import ivf_probe_scan, ivf_probe_scan_ref
+    check(set(counts) == set(captured),
+          f"K11 shapes {sorted(counts)} but inputs captured at {sorted(captured)}")
+    out = []
+    for key in sorted(captured):
+        mat, qq, qdig, row_scale, base, cnt, kw = captured[key]
+        qn, nprobe, d, k, masked, mode = key[1]
+        fn = lambda: ivf_probe_scan(mat, qq, qdig, row_scale, base, cnt, **kw)
+        s, pos = fn()
+        rs, rpos = ivf_probe_scan_ref(mat, qq, qdig, row_scale, base, cnt, **kw)
+        if mode == "int8":
+            torch.cuda.synchronize()
+            check(torch.equal(pos, rpos) and torch.equal(s, rs),
+                  f"K11 at {key} differs from its plain version")
+        else:
+            topk_agree(rs, rpos, s, pos, 1e-4, f"K11 at {key}")
+        fin = torch.isfinite(rs)
+        b_ms, b_by = ivf_bound(torch, base, cnt, d, mat.element_size(),
+                               2 if mode == "int8" else 1, mode)[:2]
+        out.append(dict(
+            shape=f"Q={qn} nprobe={nprobe} d={d} k={k} {mode}{' masked' if masked else ''} "
+                  f"({path} path)",
+            launches=counts[key],
+            max_abs_err=float((torch.where(fin, s, 0) - torch.where(fin, rs, 0)).abs().max()),
+            ms=cuda_ms(fn, iters=10), bound_ms=b_ms, bound_by=b_by))
+        del s, pos, rs, rpos
+    return out
+
+
 def capacity_kernel_checks(torch, gen) -> dict:
     """K2, K9, K10 at 1M x 1024 (Q = 256) and K11 at 1024 clusters, nprobe
     16, Q = 1 and 64, bf16 and int8, against their plain versions on the
@@ -2435,7 +2514,8 @@ def capacity_run(root: str) -> dict:
     and K2 on fp32 rows; (a) bf16 exact with payload filters and count; (b)
     deleted vectors; (c) int8; (d) binary + rescore; (e) IVF at the
     defaults, built, cached and reloaded; (f) IVF int8 with spill and
-    balance. Returns (a)-(f)'s launches and top-k shapes, then (g)'s."""
+    balance. Returns (a)-(f)'s launches, top-k shapes and K11's by_shape
+    rows (`ivf_path_shapes`), then (g)'s launches and shapes."""
     import torch
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.config import SearchConfig, StoreConfig, default_config
@@ -2591,50 +2671,54 @@ def capacity_run(root: str) -> dict:
     out["binary_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
     del eng
 
-    # (e) IVF at the defaults: build + cache, then reload from the cache
-    ivf_cfg = dict(index="ivf")
-    t0 = time.perf_counter()
-    eng = engine(**ivf_cfg)
-    eng._get_index()
-    out["ivf_build_s"] = time.perf_counter() - t0
-    s, i = eng.search_batch(queries, k)
-    out["ivf_recall10_nprobe16"] = recall(i)
-    out["ivf_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
-    out["ivf_search1_ms"] = timed_ms(lambda: eng.search_batch(queries[:1], k))
-    ivf = eng._get_index()._ix._ivf
-    check(ivf.n_clusters == 1024, f"IVF clusters {ivf.n_clusters}")
-    s_all, i_all = ivf.search(queries, k, nprobe=ivf.n_clusters, row_mask=presence)
-    rs, ri = cosine_topk_ref(bf16_matrix, q_dev, k, row_mask=pres_dev)
-    topk_agree(rs, ri, s_all, i_all, 1e-4)
-    cache = [f for f in os.listdir(os.path.join(root, "capacity", "index"))
-             if f.startswith("ivf_c1024_")]
-    check(len(cache) == 1, f"IVF cache files {cache}")
-    del eng, ivf
-    t0 = time.perf_counter()
-    eng = engine(**ivf_cfg)
-    eng._get_index()
-    out["ivf_reload_s"] = time.perf_counter() - t0
-    check(np.array_equal(eng.search_batch(queries, k)[1], i), "reloaded IVF ids differ")
-    del eng
+    # (e) and (f) with K11's inputs kept at each shape they ran it at
+    ivf_captured = {}
+    with ivf_inputs(ivf_captured):
+        # (e) IVF at the defaults: build + cache, then reload from the cache
+        ivf_cfg = dict(index="ivf")
+        t0 = time.perf_counter()
+        eng = engine(**ivf_cfg)
+        eng._get_index()
+        out["ivf_build_s"] = time.perf_counter() - t0
+        s, i = eng.search_batch(queries, k)
+        out["ivf_recall10_nprobe16"] = recall(i)
+        out["ivf_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+        out["ivf_search1_ms"] = timed_ms(lambda: eng.search_batch(queries[:1], k))
+        ivf = eng._get_index()._ix._ivf
+        check(ivf.n_clusters == 1024, f"IVF clusters {ivf.n_clusters}")
+        s_all, i_all = ivf.search(queries, k, nprobe=ivf.n_clusters, row_mask=presence)
+        rs, ri = cosine_topk_ref(bf16_matrix, q_dev, k, row_mask=pres_dev)
+        topk_agree(rs, ri, s_all, i_all, 1e-4)
+        cache = [f for f in os.listdir(os.path.join(root, "capacity", "index"))
+                 if f.startswith("ivf_c1024_")]
+        check(len(cache) == 1, f"IVF cache files {cache}")
+        del eng, ivf
+        t0 = time.perf_counter()
+        eng = engine(**ivf_cfg)
+        eng._get_index()
+        out["ivf_reload_s"] = time.perf_counter() - t0
+        check(np.array_equal(eng.search_batch(queries, k)[1], i), "reloaded IVF ids differ")
+        del eng
 
-    # (f) IVF int8 with spill 0.1 and balance 2.0, filtered too
-    t0 = time.perf_counter()
-    eng = engine("int8", index="ivf", ivf_spill=0.1, ivf_balance=2.0)
-    ivf = eng._get_index()._ix._ivf
-    out["ivf_int8_build_s"] = time.perf_counter() - t0
-    s, i = eng.search_batch(queries, k)
-    for row in i:
-        real = row[row >= 0]
-        check(len(set(real.tolist())) == len(real), "spill dedup returned an id twice")
-    out["ivf_int8_spill_recall10_nprobe16"] = recall(i)
-    s, i = eng.search_batch(queries, k, filter={"folder": 3})
-    check(bool((i[i >= 0] % 10 == 3).all()), "filtered IVF let a row through")
-    out["ivf_int8_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
-    out["ivf_int8"] = dict(n_clusters=ivf.n_clusters, n_spill=ivf.n_spill, cmax=ivf.cmax)
-    del eng, ivf
+        # (f) IVF int8 with spill 0.1 and balance 2.0, filtered too
+        t0 = time.perf_counter()
+        eng = engine("int8", index="ivf", ivf_spill=0.1, ivf_balance=2.0)
+        ivf = eng._get_index()._ix._ivf
+        out["ivf_int8_build_s"] = time.perf_counter() - t0
+        s, i = eng.search_batch(queries, k)
+        for row in i:
+            real = row[row >= 0]
+            check(len(set(real.tolist())) == len(real), "spill dedup returned an id twice")
+        out["ivf_int8_spill_recall10_nprobe16"] = recall(i)
+        s, i = eng.search_batch(queries, k, filter={"folder": 3})
+        check(bool((i[i >= 0] % 10 == 3).all()), "filtered IVF let a row through")
+        out["ivf_int8_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
+        out["ivf_int8"] = dict(n_clusters=ivf.n_clusters, n_spill=ivf.n_spill, cmax=ivf.cmax)
+        del eng, ivf
     launches = dict(kernels.launches)
     topk_shapes = {k: n for k, n in kernels.shape_launches.items()
                    if k[0] in ("topk_masked", "topk_int8", "topk_binary")}
+    ivf_counts = {k: n for k, n in kernels.shape_launches.items() if k[0] == "ivf_scan"}
     print(f"launches on the capacity path: {launches}; plain dispatches "
           f"{kernels.plain_dispatches}; by shape {[(k, n) for k, n in topk_shapes.items()]}",
           flush=True)
@@ -2643,7 +2727,9 @@ def capacity_run(root: str) -> dict:
     check(all(v == 0 for v in kernels.plain_dispatches.values()),
           "a capacity search took a plain shape rule")
     print(f"capacity slice: {json.dumps(out)}", flush=True)
-    return launches, topk_shapes, f32_launches, f32_shapes
+    ivf_rows = ivf_path_shapes(torch, ivf_counts, ivf_captured, "capacity")
+    ivf_captured.clear()
+    return launches, topk_shapes, ivf_rows, f32_launches, f32_shapes
 
 
 def topk_agree_scaled(ref_s, ref_i, s, i, tol: float) -> None:
@@ -3296,6 +3382,473 @@ def engine_stores_run(root: str, unit: np.ndarray, rows: np.ndarray, queries: np
     return launches, shapes
 
 
+def groups_agree(groups, scores: np.ndarray, key_of, n_groups: int, group_size: int,
+                 tol: float, what: str) -> None:
+    """`search_groups` output against a numpy group-by over `scores` (one
+    query's score per row): every group's hits share its key, number
+    min(group_size, rows with that key) and carry the key's best scores
+    (within `tol`); the groups are the best `n_groups` keys by best score
+    (a key whose best score is within `tol` of the cut may trade places)."""
+    order = np.lexsort((np.arange(len(scores)), -scores))
+    best, tops = {}, {}
+    for r in order:
+        kv = key_of(int(r))
+        if kv is None:
+            continue
+        tops.setdefault(kv, [])
+        if len(tops[kv]) < group_size:
+            tops[kv].append(float(scores[r]))
+        best.setdefault(kv, float(scores[r]))
+    ranked = sorted(best.items(), key=lambda kv: -kv[1])
+    cut = ranked[min(n_groups, len(ranked)) - 1][1]
+    check(len(groups) == min(n_groups, len(ranked)), f"{what}: {len(groups)} groups")
+    prev = np.inf
+    for g in groups:
+        kv, hits = g["key"], g["hits"]
+        check(kv in best, f"{what}: unknown group {kv!r}")
+        check(all(key_of(h["id"]) == kv for h in hits), f"{what}: a hit outside its group")
+        got = [h["score"] for h in hits]
+        check(len(got) == len(tops[kv]), f"{what}: group {kv!r} has {len(got)} hits")
+        check(float(np.abs(np.asarray(got) - tops[kv]).max()) <= tol,
+              f"{what}: group {kv!r} scores {got} vs {tops[kv]}")
+        check(got[0] <= prev + tol and best[kv] >= cut - tol, f"{what}: group order")
+        prev = got[0]
+
+
+def surface_run(root: str) -> tuple:
+    """(U) The query and write surface through `Reverso` on phase 7's
+    1,000,000 x 1024 store (payloads {"folder": i % 10, "confidence": u},
+    1% of the vectors deleted, its IVF cache): `query_batch` on the int8,
+    binary + rescore and IVF engines (K9, K10, K11) against each engine's
+    own `search_batch`; then, with the deleted rows written back
+    (`update_vectors` through the store), on the bf16 engine:
+    `query_batch` of 64 filtered and 64 plain requests (one K2 and one K1
+    launch), each against its own `query()` and the plain scan of its
+    subset; 16 hybrid requests (two dense branches under different
+    filters, RRF): one scan a (space, limit, branch filter, global
+    filter) group, each against its own `query()`; the other query forms
+    at 1M, timed, and held against numpy twins on a 65,536-row store of
+    the same rows; `search_groups` by filename on phase 6's region store;
+    the mutations (upsert, update and delete vectors, delete points, set
+    payload, one mixed `update_batch`), each timed with the time to its
+    first search; the batcher (`warmup()`, then 64 threads of 8 queries).
+    Returns (launches, top-k shapes, K11's by_shape rows, the numbers)."""
+    import threading
+
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import SearchConfig, StoreConfig, default_config
+    from reverso_tpu_torch.engine import Reverso
+    from reverso_tpu_torch.ops.recommend import (average_query, best_score_topk_host,
+                                                 context_topk_host, discover_topk_host,
+                                                 sum_scores_query)
+    from reverso_tpu_torch.ops.topk import cosine_topk_ref
+    from reverso_tpu_torch.store import VectorStore
+
+    n, d, k = 1_000_000, 1024, 10
+    kernels.reset_counts()
+    t_phase = time.perf_counter()
+    out = {}
+
+    def engine(db="capacity", dtype="bfloat16", **search):
+        cfg = default_config().replace(
+            store=StoreConfig(root_dir=root, dtype=dtype),
+            search=dataclasses.replace(SearchConfig(), **search))
+        eng = Reverso(cfg, device="cuda")
+        check("Loaded" in eng.load_database(db), f"load {db}")
+        return eng
+
+    def host_ms(fn):
+        t = time.perf_counter()
+        res = fn()
+        return res, (time.perf_counter() - t) * 1e3
+
+    def since(before):
+        return {key: v - before.get(key, 0) for key, v in kernels.launches.items()
+                if v != before.get(key, 0)}
+
+    def arrays(hits, width):
+        s = np.full((1, width), -np.inf, np.float32)
+        i = np.full((1, width), -1, np.int32)
+        for j, h in enumerate(hits[:width]):
+            s[0, j], i[0, j] = h["score"], h["id"]
+        return s, i
+
+    vecs = np.asarray(VectorStore.open(root, "capacity").vectors())
+    rng = np.random.default_rng(61)
+    sel = np.arange(256) * 3_877 + 5
+    q256 = vecs[sel] + rng.standard_normal((256, d), dtype=np.float32) * np.float32(0.02)
+    q256 /= np.linalg.norm(q256, axis=1, keepdims=True)
+
+    # (1) query_batch on the capacity engines; the store still holds
+    # phase 7's deleted rows, so every scan is masked. K11's inputs are
+    # captured at each shape, to time it against its plain version there
+    captured = {}
+    with ivf_inputs(captured):
+        for dtype, search, counter in (("int8", {}, "topk_int8"),
+                                       ("binary", {}, "topk_binary"),
+                                       ("bfloat16", {"index": "ivf"}, "ivf_scan")):
+            eng = engine(dtype=dtype, **search)
+            _, index_ms = host_ms(eng._get_index)
+            eng.count({"folder": 3})                  # the filter's payload column
+            reqs = ([{"query": q256[j], "k": k} for j in range(32)]
+                    + [{"query": q256[j], "k": k, "filter": {"folder": 3}}
+                       for j in range(32, 64)])
+            before = dict(kernels.launches)
+            res, ms = host_ms(lambda: eng.query_batch(reqs, with_payload=False))
+            got = since(before)
+            check(got.get(counter, 0) == 2, f"{dtype} {search}: query_batch launches {got}")
+            for rows, filt in ((slice(0, 32), None), (slice(32, 64), {"folder": 3})):
+                s, i = eng.search_batch(q256[rows], k, filter=filt)
+                for r, hits in zip(range(rows.start, rows.stop), res[rows]):
+                    hs, hi = arrays(hits, k)
+                    fin = hi[0] >= 0
+                    check(np.array_equal(hi[0][fin], i[r - rows.start][:fin.sum()])
+                          and np.allclose(hs[0][fin], s[r - rows.start][:fin.sum()],
+                                          atol=1e-6),
+                          f"{dtype} {search}: query_batch differs from search_batch")
+            out[f"{counter}_query_batch64_ms"] = ms
+            out[f"{counter}_index_ms"] = index_ms
+            del eng
+            torch.cuda.empty_cache()
+
+    # (2) write the deleted rows back (update_vectors resurrects them), so
+    # that a plain scan is K1's plain mode
+    with VectorStore.open(root, "capacity", writable=True) as w:
+        gone = w.deleted_rows()
+        w.update_vectors(gone.tolist(), np.array(vecs[gone]))
+        check(w.deleted_rows().size == 0, "deleted rows remain")
+
+    eng = engine()
+    index, ms = host_ms(eng._get_index)
+    out["bf16_index_build_ms"] = ms
+    folder = np.arange(n) % 10
+    q_dev = torch.from_numpy(q256).cuda()
+
+    # (3) query_batch: 64 requests that share {"folder": 3}, 64 without
+    reqs = ([{"query": q256[j], "k": k, "filter": {"folder": 3}} for j in range(64)]
+            + [{"query": q256[j], "k": k} for j in range(64, 128)])
+    eng.query_batch(reqs[:2])                                   # warm the columns
+    before = dict(kernels.launches)
+    res, out["query_batch128_ms"] = host_ms(lambda: eng.query_batch(reqs))
+    got = since(before)
+    check(got == {"topk_masked": 1, "topk_stream": 1}, f"query_batch launches {got}")
+    mask3 = torch.from_numpy(folder == 3).cuda()
+    rs, ri = cosine_topk_ref(index.matrix, q_dev[:128], k)
+    rsm, rim = cosine_topk_ref(index.matrix, q_dev[:64], k, row_mask=mask3)
+    t = time.perf_counter()
+    seq = [eng.query(**r) for r in reqs]
+    out["sequential_query128_ms"] = (time.perf_counter() - t) * 1e3
+    for j in range(len(reqs)):
+        hs, hi = arrays(res[j], k)
+        ss, si = arrays(seq[j], k)
+        topk_agree(torch.from_numpy(ss), torch.from_numpy(si), torch.from_numpy(hs),
+                   torch.from_numpy(hi), 1e-4, f"query_batch request {j} vs query()")
+        ref = (rsm[j:j + 1], rim[j:j + 1]) if j < 64 else (rs[j:j + 1], ri[j:j + 1])
+        topk_agree(*ref, torch.from_numpy(hs), torch.from_numpy(hi), 1e-4,
+                   f"query_batch request {j} vs the plain scan")
+        check(j >= 64 or bool((folder[hi[0]] == 3).all()), "a filtered hit outside folder 3")
+
+    # (4) hybrid: 16 requests of two dense branches under different filters
+    # (the confidence column read first, and timed on its own)
+    _, out["confidence_column_ms"] = host_ms(lambda: eng.count("confidence>=0.5"))
+    hyb = [{"prefetch": [{"query": q256[j], "limit": 20, "filter": {"folder": 1}},
+                         {"query": q256[j + 16], "limit": 20,
+                          "filter": "confidence>=0.5"}], "k": k}
+           for j in range(128, 144)]
+    before = dict(kernels.launches)
+    res, out["hybrid16_ms"] = host_ms(lambda: eng.query_batch(hyb))
+    got = since(before)
+    check(got == {"topk_masked": 2}, f"hybrid query_batch launches {got}")
+    for j, r in enumerate(hyb):
+        check([h["id"] for h in res[j]] == [h["id"] for h in eng.query(**r)],
+              f"hybrid request {j} differs from its query()")
+        check(len(res[j]) == k, f"hybrid request {j}: {len(res[j])} hits")
+
+    # (5) the other query forms at 1M (timed), then against numpy twins
+    p, m = [11, 5_000, 60_000], [123]
+    forms = {
+        "recommend_average": dict(query={"recommend": {
+            "positive": p[:2], "negative": m, "strategy": "average_vector"}}, k=k),
+        "recommend_sum_scores": dict(query={"recommend": {
+            "positive": p, "negative": m, "strategy": "sum_scores"}}, k=k),
+        "recommend_best_score": dict(query={"recommend": {
+            "positive": p, "negative": m, "strategy": "best_score"}}, k=k),
+        "discover": dict(query={"discover": {"target": p[0], "context": [
+            {"positive": p[1], "negative": m[0]}, {"positive": p[2], "negative": 7}]}}, k=k),
+        "context": dict(query={"context": [(p[1], m[0]), (p[2], 7)]}, k=k),
+        "mmr": dict(query={"nearest": q256[200], "mmr": {"diversity": 0.5}},
+                    prefetch=[{"query": q256[200], "limit": 100}], k=k),
+        "formula": dict(query={"formula": {"sum": ["$score", {"mult": [0.05, "confidence"]}]}},
+                        prefetch=[{"query": q256[201], "limit": 50}], k=k),
+        "order_by": dict(query={"order_by": {"key": "confidence", "direction": "desc"}}, k=k),
+        "random": dict(query={"sample": "random"}, k=20, seed=7),
+    }
+    reads = {
+        "scroll": lambda e: e.scroll({"folder": 3}, limit=100),
+        "retrieve": lambda e: e.retrieve([5, 70, 65_535], with_vectors=True),
+        "facet": lambda e: e.facet("folder"),
+        "search_matrix": lambda e: e.search_matrix(sample=64, limit=3, seed=1),
+        "search_groups": lambda e: e.search_groups(-1.0, 10, embeddings=q256[202:203],
+                                                   group_by="folder", group_size=3),
+    }
+    for name, kw in forms.items():
+        res, out[f"{name}_ms"] = host_ms(lambda: eng.query(**kw))
+        check(len(res) == kw["k"] and all(np.isfinite(h["score"]) for h in res),
+              f"{name} at 1M: {len(res)} hits")
+    for name, fn in reads.items():
+        res, out[f"{name}_ms"] = host_ms(lambda: fn(eng))
+        check(bool(res), f"{name} at 1M returned nothing")
+
+    sub_n = 65_536
+    sub_pays = VectorStore.open(root, "capacity").payloads(list(range(sub_n)))
+    with VectorStore.create(root, "u_sub", d) as st:
+        st.append(np.array(vecs[:sub_n]), sub_pays)
+    sub = engine("u_sub")
+    mat = sub._get_index().matrix[:, :d].float().cpu().numpy().astype(np.float64)
+    raw = np.array(vecs[:sub_n], np.float64)
+    bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16().double().numpy()
+    sfolder = folder[:sub_n]
+    sconf = np.array([pl["confidence"] for pl in sub_pays], np.float64)
+
+    def twin(scores, width, drop=()):
+        s = np.array(scores, np.float64)
+        s[list(drop)] = -np.inf
+        o = np.lexsort((np.arange(len(s)), -s))[:width]
+        return s[None, o], o[None].astype(np.int32)
+
+    def agree(name, got, ref, tol=1e-4):
+        hs, hi = arrays(got, ref[1].shape[1])
+        topk_agree_scaled(ref[0], ref[1], hs, hi, tol)
+        print(f"U twin {name}: ok", flush=True)
+
+    ex = lambda ids: raw[ids]
+    agree("recommend_average", sub.query(**forms["recommend_average"]),
+          twin(mat @ bf(average_query(ex(p[:2]), ex(m))), k, p[:2] + m))
+    agree("recommend_sum_scores", sub.query(**forms["recommend_sum_scores"]),
+          twin(mat @ bf(sum_scores_query(ex(p), ex(m))), k, p + m))
+    keep = np.ones(sub_n, bool)
+    keep[p + m] = False
+    agree("recommend_best_score", sub.query(**forms["recommend_best_score"]),
+          best_score_topk_host(mat, bf(ex(p)), bf(ex(m)), k, row_mask=keep))
+    keep[7] = False
+    agree("discover", sub.query(**forms["discover"]),
+          discover_topk_host(mat, bf(ex(p[0])), bf(ex(p[1:])), bf(ex([m[0], 7])), k,
+                             row_mask=keep))
+    keep[p[0]] = True
+    agree("context", sub.query(**forms["context"]),
+          context_topk_host(mat, bf(ex(p[1:])), bf(ex([m[0], 7])), k, row_mask=keep))
+    # MMR over the 100-row prefetch pool: relevance is the exact fp32
+    # rescore; each pick must maximize the objective over the pool
+    qv = q256[200].astype(np.float64)
+    pool_s, pool = twin(mat @ bf(qv), 100)
+    got = sub.query(**forms["mmr"])
+    rel = raw @ qv
+    chosen, max_sim = [], np.full(sub_n, -np.inf)
+    for step, h in enumerate(got):
+        check(pool_s[0, -1] - 1e-4 <= mat[h["id"]] @ bf(qv), "MMR picked outside the pool")
+        check(abs(h["score"] - rel[h["id"]]) <= 1e-5, "MMR relevance is not the exact rescore")
+        cand = [c for c in pool[0] if c not in chosen]
+        obj = rel[cand] if step == 0 else 0.5 * rel[cand] - 0.5 * max_sim[cand]
+        mine = rel[h["id"]] if step == 0 else 0.5 * rel[h["id"]] - 0.5 * max_sim[h["id"]]
+        check(mine >= obj.max() - 1e-4, f"MMR step {step} is not the best objective")
+        chosen.append(h["id"])
+        max_sim = np.maximum(max_sim, raw @ raw[h["id"]])
+    print("U twin mmr: ok", flush=True)
+    cs, ci = twin(mat @ bf(q256[201]), 50)
+    val = cs[0] + 0.05 * sconf[ci[0]]
+    o = np.lexsort((ci[0], -val))[:k]
+    agree("formula", sub.query(**forms["formula"]), (val[None, o], ci[:, o]))
+    got = sub.query(**forms["order_by"])
+    want = np.lexsort((np.arange(sub_n), -sconf))[:k]
+    check([h["id"] for h in got] == want.tolist(), "order_by differs from the numpy sort")
+    def distinct_draw(seed, count):
+        """The engine's seeded draw of `count` distinct rows, in numpy."""
+        draw = np.random.default_rng(seed)
+        pick, seen = [], set()
+        while len(pick) < count:
+            for v in draw.integers(0, sub_n, size=2 * (count - len(pick))):
+                if int(v) not in seen:
+                    seen.add(int(v))
+                    pick.append(int(v))
+                    if len(pick) == count:
+                        break
+        return pick
+
+    check([h["id"] for h in sub.query(**forms["random"])] == distinct_draw(7, 20),
+          "the seeded sample differs from its numpy draw")
+    pts, nxt = reads["scroll"](sub)
+    f3 = np.nonzero(sfolder == 3)[0]
+    check([pt["id"] for pt in pts] == f3[:100].tolist() and nxt == int(f3[100]), "scroll")
+    pts = reads["retrieve"](sub)
+    check([pt["id"] for pt in pts] == [5, 70, 65_535] and all(
+        np.array_equal(np.asarray(pt["vector"]), vecs[pt["id"]]) and
+        pt["payload"]["folder"] == pt["id"] % 10 for pt in pts), "retrieve")
+    vals, cnts = np.unique(sfolder, return_counts=True)
+    want = sorted(zip(vals.tolist(), cnts.tolist()), key=lambda vc: (-vc[1], str(vc[0])))
+    check([(f["value"], f["count"]) for f in reads["facet"](sub)] == want, "facet")
+    ids = np.sort(distinct_draw(1, 64))
+    g = np.asarray(vecs[ids], np.float64) @ np.asarray(vecs[ids], np.float64).T
+    np.fill_diagonal(g, -np.inf)
+    order = np.argsort(-g, axis=1, kind="stable")[:, :3]
+    pairs = reads["search_matrix"](sub)
+    ps = np.array([pr["score"] for pr in pairs], np.float32).reshape(64, 3)
+    pc = np.searchsorted(ids, [pr["id_b"] for pr in pairs]).reshape(64, 3)
+    check([pr["id_a"] for pr in pairs[::3]] == ids.tolist(), "search_matrix rows")
+    topk_agree_scaled(np.take_along_axis(g, order, 1), order, ps, pc, 1e-5)
+    groups = reads["search_groups"](sub)[1]
+    groups_agree(groups, mat @ bf(q256[202]), lambda r: int(sfolder[r]), 10, 3, 1e-4,
+                 "search_groups by folder")
+    print("U twins: every form agrees", flush=True)
+    del sub, mat, raw
+
+    # (6) search_groups by filename on phase 6's region store
+    cfg = default_config().replace(store=StoreConfig(root_dir=os.path.join(root, "region_db")))
+    reng = Reverso(cfg, device="cuda")
+    check("Loaded" in reng.load_database("regions"), "load the region store")
+    rstore = VectorStore.open(cfg.store.root_dir, "regions")
+    rvec = np.asarray(rstore.vectors())
+    names = [pl.get("filename") for pl in rstore.payloads(list(range(rstore.count)))]
+    rmat = reng._get_index().matrix[:, :d].float().cpu().numpy().astype(np.float64)
+    for r in (0, len(rvec) // 2):
+        text, groups = reng.search_groups(-1.0, 5, embeddings=rvec[r:r + 1],
+                                          group_by="filename", group_size=3)
+        groups_agree(groups, rmat @ bf(rvec[r]), lambda i: names[i], 5, 3, 1e-4,
+                     "search_groups by filename")
+    out["region_groups_rows"] = int(rstore.count)
+    del reng, rmat
+
+    # (7) the mutations, each timed, then the time to its first search
+    count0 = n
+    new = rng.standard_normal((1_000, d), dtype=np.float32)
+    new /= np.linalg.norm(new, axis=1, keepdims=True)
+    new_pays = [{"folder": j % 10, "confidence": 0.5} for j in range(1_000)]
+    status, out["upsert1000_ms"] = host_ms(lambda: eng.upsert_points(new, new_pays))
+    check(status.startswith("✅ Upserted 1000 points"), status)
+    (s, i), out["upsert1000_first_search_ms"] = host_ms(lambda: eng.search_batch(new, 1))
+    check(bool((i[:, 0] == np.arange(count0, count0 + 1_000)).all()),
+          "an upserted row is not its own top-1")
+    upd = np.arange(100) * 9_973 + 7
+    newv = rng.standard_normal((100, d), dtype=np.float32)
+    newv /= np.linalg.norm(newv, axis=1, keepdims=True)
+    status, out["update_vectors100_ms"] = host_ms(lambda: eng.update_vectors(upd.tolist(), newv))
+    check(status.startswith("✅ Updated vectors of 100"), status)
+    (s, i), out["update_vectors100_first_search_ms"] = host_ms(
+        lambda: eng.search_batch(newv, 1))
+    check(bool((i[:, 0] == upd).all()), "an updated row does not find itself")
+    dele = np.arange(100) * 9_967 + 11
+    qd = np.array(vecs[dele])
+    status, out["delete_vectors100_ms"] = host_ms(lambda: eng.delete_vectors(dele.tolist()))
+    check(status.startswith("✅ Deleted vectors ('') of 100"), status)
+    (s, i), out["delete_vectors100_first_search_ms"] = host_ms(
+        lambda: eng.search_batch(qd, k))
+    s2, i2 = eng.search_batch(qd, k, filter={"folder": 1})
+    check(not (set(i.ravel().tolist()) | set(i2.ravel().tolist())) & set(dele.tolist()),
+          "a deleted vector came back")
+    n9 = int((folder == 9).sum()) + sum(pl["folder"] == 9 for pl in new_pays)
+    count1 = count0 + 1_000
+    status, out["delete_points_folder9_ms"] = host_ms(
+        lambda: eng.delete_points(filter={"folder": 9}))
+    check(status == f"✅ Deleted {n9} points from capacity", status)
+    _, out["delete_points_first_search_ms"] = host_ms(lambda: eng.search_batch(q256[:64], k))
+    check(eng.count() == count1 - n9 and eng.count({"folder": 9}) == 0,
+          f"count after delete_points: {eng.count()} vs {count1 - n9}")
+    count2 = count1 - n9
+    before_index = eng._get_index()
+    tagged = np.arange(1_000) * 887
+    status, out["set_payload1000_ms"] = host_ms(
+        lambda: eng.set_payload({"tag": "u"}, points=tagged.tolist()))
+    check(status.startswith("✅ Updated payload of 1000"), status)
+    check(eng._indexes[""][1] is before_index, "a payload-only mutation dropped the index")
+    (s, i), out["set_payload_first_search_ms"] = host_ms(
+        lambda: eng.search_batch(q256[:64], k, filter={"tag": "u"}))
+    check(eng.count({"tag": "u"}) == 1_000 and set(i[i >= 0].tolist()) <= set(tagged.tolist()),
+          "the tag filter does not select exactly the tagged rows")
+    check(eng._get_index() is before_index, "the index was rebuilt after a payload mutation")
+    b_new = rng.standard_normal((10, d), dtype=np.float32)
+    b_new /= np.linalg.norm(b_new, axis=1, keepdims=True)
+    b_upd = rng.standard_normal((2, d), dtype=np.float32)
+    b_upd /= np.linalg.norm(b_upd, axis=1, keepdims=True)
+    batch = [{"upsert": {"vectors": b_new, "payloads": [{"folder": 4}] * 10}},
+             {"update_vectors": {"points": [5, 6], "vectors": b_upd}},
+             {"delete_vectors": {"points": [7, 8]}},
+             {"set_payload": {"payload": {"batch": 1}, "points": [9, 10]}},
+             {"delete": {"points": [11]}}]
+    status, out["update_batch_ms"] = host_ms(lambda: eng.update_batch(batch))
+    check(status.startswith("✅ Applied 5 operations"), status)
+    (s, i), out["update_batch_first_search_ms"] = host_ms(
+        lambda: eng.search_batch(np.concatenate([b_new, b_upd]), 1))
+    count3 = count2 + 10 - 1
+    check(eng.count() == count3 and bool(
+        (i[:10, 0] == np.arange(count3 - 10, count3)).all())
+        and i[10:, 0].tolist() == [5, 6], f"update_batch: {i[:, 0]}")
+    check(eng.count({"batch": 1}) == 2, "update_batch set_payload")
+
+    # (8) the batcher: warmup(), then 64 threads of 8 single queries
+    out["warmup"], out["warmup_ms"] = host_ms(eng.warmup)
+    check(out["warmup"] == "warmed: encoder, search", out["warmup"])
+    qb = q256[:64].repeat(8, 0) + rng.standard_normal((512, d), dtype=np.float32) * \
+        np.float32(0.01)
+    qb /= np.linalg.norm(qb, axis=1, keepdims=True)
+    want_s, want_i = (np.concatenate(a) for a in zip(
+        eng.search_batch(qb[:256], k), eng.search_batch(qb[256:], k)))
+    searcher = eng.searcher
+    stats0 = searcher.stats()
+    shapes0 = collections.Counter(kernels.shape_launches)
+    lat = [0.0] * 512
+    got = [None] * 512
+    barrier = threading.Barrier(64)
+
+    def client(t):
+        barrier.wait()
+        for j in range(8):
+            r = t * 8 + j
+            t0 = time.perf_counter()
+            got[r] = searcher.search(qb[r], k)
+            lat[r] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(64)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    out["batcher512_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    check(not any(th.is_alive() for th in threads), "a batcher client hung")
+    stats = searcher.stats()
+    served = stats["served"] - stats0["served"]
+    launched = stats["launches"] - stats0["launches"]
+    check(served == 512 and launched < served, f"batcher: {launched} launches, {served} served")
+    for r in range(512):
+        topk_agree(torch.from_numpy(want_s[r:r + 1]), torch.from_numpy(want_i[r:r + 1]),
+                   torch.from_numpy(got[r][0][None]), torch.from_numpy(got[r][1][None]), 1e-4,
+                   f"batcher request {r} vs search_batch")
+    buckets = collections.Counter()
+    for (kind, shape), c in (collections.Counter(kernels.shape_launches) - shapes0).items():
+        if kind in ("topk_stream", "topk_masked"):
+            buckets[f"Q={shape[0]} k={shape[3]}"] += c
+    out["batcher"] = dict(launches=launched, served=served, shed=stats["shed"],
+                          p50_ms=float(np.percentile(lat, 50)),
+                          p99_ms=float(np.percentile(lat, 99)), batches=dict(buckets))
+    searcher.close()
+    del eng, index
+    torch.cuda.empty_cache()
+
+    launches = dict(kernels.launches)
+    shapes = {key: c for key, c in kernels.shape_launches.items()
+              if key[0] in ("topk_stream", "topk_masked", "topk_int8", "topk_binary")}
+    ivf_counts = {key: c for key, c in kernels.shape_launches.items() if key[0] == "ivf_scan"}
+    for name in ("topk_stream", "topk_masked", "topk_int8", "topk_binary", "ivf_scan"):
+        check(launches[name] > 0, f"kernel {name} never launched on the surface path")
+    out["launches"] = {key: c for key, c in launches.items() if c}
+    out["plain_dispatches"] = dict(kernels.plain_dispatches)
+
+    ivf_rows = ivf_path_shapes(torch, ivf_counts, captured, "surface")
+    captured.clear()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return launches, shapes, ivf_rows, out
+
+
 def main() -> int:
     import torch
 
@@ -3375,8 +3928,8 @@ def main() -> int:
         roi_launches = phase("ROI slice", roi_run, root, det)
         del det
         torch.cuda.empty_cache()
-        capacity_launches, capacity_shapes, store_f32_launches, store_f32_shapes = phase(
-            "capacity slice", capacity_run, root)
+        (capacity_launches, capacity_shapes, capacity_ivf_shapes, store_f32_launches,
+         store_f32_shapes) = phase("capacity slice", capacity_run, root)
         torch.cuda.empty_cache()
         unit, scaled, queries = capacity_rows(root)
         euclid_launches, euclid_shapes = phase("euclid at capacity", euclid_run, scaled, queries)
@@ -3388,15 +3941,22 @@ def main() -> int:
                                                "multivector)", engine_stores_run, root, unit,
                                                scaled, queries)
         del unit, scaled, queries
+        torch.cuda.empty_cache()
+        # last: it writes the capacity store, which no later phase reads
+        surface_launches, surface_shapes, surface_ivf_shapes, surface = phase(
+            "query and write surface (U)", surface_run, root)
     torch.cuda.empty_cache()
     path_shapes = collections.Counter()
     for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes,
-                   clip_k1_shapes, euclid_shapes, engine_shapes):
+                   clip_k1_shapes, euclid_shapes, engine_shapes, surface_shapes):
         path_shapes.update(shapes)
     topk_shapes = phase("top-k scans at their paths' shapes", topk_path_shapes, torch,
                         path_shapes)
     for name, shapes in topk_shapes.items():
         rows[name]["by_shape"] = shapes
+    # K11 at each shape the capacity and surface paths ran it at, timed on
+    # each path's own captured inputs
+    rows["ivf_scan"]["by_shape"] = capacity_ivf_shapes + surface_ivf_shapes
 
     # each kernel's launches on its own path: the tensor-core rows count the
     # bf16 core's launches, the fp32 rows the split mode's (on the parity
@@ -3407,23 +3967,26 @@ def main() -> int:
     path_runs = (two_stage_launches, tower_launches, long_launches, long_bf16_launches,
                  f32_launches, sam_split_launches, direct_launches, f32_slice_launches,
                  int8_launches, region_launches, roi_launches, capacity_launches,
-                 store_f32_launches, clip_launches, euclid_launches, engine_launches)
+                 store_f32_launches, clip_launches, euclid_launches, engine_launches,
+                 surface_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"],
                "flash_heads_f32": f32_launches["flash_heads_split"],
                "fused_mlp": direct_launches["fused_mlp_tc"],
                "fused_mlp_f32": f32_launches["fused_mlp_split"],
                "split_parts": f32_launches["split_parts"],
-               "topk_stream": direct_launches["topk_stream"],
+               "topk_stream": direct_launches["topk_stream"] + surface_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
                "flash_attn_f32": long_launches["flash_attn_split"],
                "flash_attn_relbias": region_launches["flash_attn_relbias_tc"],
                "flash_attn_relbias_f32": sam_split_launches["flash_attn_relbias_split"],
                "topk_stream_f32": sum(run["topk_stream_f32"] for run in path_runs),
                "ms_deform": region_launches["ms_deform"],
-               "topk_masked": capacity_launches["topk_masked"],
-               "topk_int8": capacity_launches["topk_int8"],
-               "topk_binary": capacity_launches["topk_binary"],
-               "ivf_scan": capacity_launches["ivf_scan"],
+               "topk_masked": capacity_launches["topk_masked"]
+               + surface_launches["topk_masked"],
+               "topk_int8": capacity_launches["topk_int8"] + surface_launches["topk_int8"],
+               "topk_binary": capacity_launches["topk_binary"]
+               + surface_launches["topk_binary"],
+               "ivf_scan": capacity_launches["ivf_scan"] + surface_launches["ivf_scan"],
                "fused_mlp_int8": int8_launches["fused_mlp_int8"],
                "topk_int8_rows": two_stage_launches["topk_int8_rows"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
@@ -3431,7 +3994,7 @@ def main() -> int:
     for name in ("flash_heads", "fused_mlp", "fused_mlp_f32", "flash_heads_f32",
                  "fused_mlp_int8", "ms_deform",
                  "topk_stream", "topk_masked", "topk_int8", "topk_binary", "topk_int8_rows",
-                 "topk_stream_f32"):
+                 "topk_stream_f32", "ivf_scan"):
         print(f"{name} at its path's shapes: {json.dumps(rows[name]['by_shape'])}", flush=True)
 
     # the order to redesign kernels in: first those one PyTorch call beats,
@@ -3459,6 +4022,7 @@ def main() -> int:
           f"(ms - bound_ms), by shape where timed {[(name, round(v, 1)) for v, name in rest]}; "
           f"apart {[(name, why, round(rows[name]['ms'] / rows[name]['library_ms'], 2) if rows[name]['library_ms'] else None, round(cost(name), 1)) for name, why in apart.items()]}",
           flush=True)
+    print(f"surface (U) numbers: {json.dumps(surface)}", flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape", "library")
     print(json.dumps({"kernels": [

@@ -105,7 +105,8 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
 # H)): n, ("fused_mlp_tc", (T, W, H, act)): n, ("flash_heads_split", (B, S,
 # W, heads)): n, ("flash_heads_tc", (B, S, W, heads, rope)): n, ("ms_deform", (B,
 # Lq, level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
-# masked)): n}, fp32-row top-k launches under "topk_stream_f32"
+# masked)): n, ("ivf_scan", (Q, nprobe, d, k, masked)): n}, fp32-row top-k
+# launches under "topk_stream_f32"
 # (`ops/topk.py::launch_key`). Counted beside `launches`, which stays the
 # per-kernel count.
 shape_launches: collections.Counter = collections.Counter()

@@ -57,6 +57,15 @@ def ivf_probe_scan_ref(mat: torch.Tensor, queries: torch.Tensor, qdig,
     return _finish(scores_all, k, ids=pos_all)
 
 
+def launch_key(mat: torch.Tensor, base: torch.Tensor, *, k: int, int8: bool,
+               masked: bool) -> tuple:
+    """The `kernels.shape_launches` key of a K11 launch: (Q, nprobe, d, k,
+    masked, mode), mode "int8" or the rows' dtype name, so that each shape
+    is timed in the mode it ran in."""
+    mode = "int8" if int8 else str(mat.dtype).removeprefix("torch.")
+    return ("ivf_scan", (base.shape[0], base.shape[1], mat.shape[1], k, masked, mode))
+
+
 def ivf_probe_scan(mat: torch.Tensor, queries: torch.Tensor, qdig, row_scale,
                    base: torch.Tensor, cnt: torch.Tensor, *, k: int, cmax: int,
                    int8: bool, mask_sorted: Optional[torch.Tensor] = None):
@@ -109,4 +118,5 @@ def ivf_probe_scan(mat: torch.Tensor, queries: torch.Tensor, qdig, row_scale,
             out_s.data_ptr(), out_pos.data_ptr(), mode, kernels.stream_ptr(dev))
     kernels.check("ivf_probe_scan", status)
     kernels.launches["ivf_scan"] += 1
+    kernels.shape_launches[launch_key(mat, base, k=k, int8=int8, masked=mask is not None)] += 1
     return out_s, out_pos

@@ -11,8 +11,10 @@ from .persist import (
     delete_alias,
     resolve_alias,
 )
-from .index import BinaryIndex, DeviceIndex, HostIndex, MultiVecIndex, PQIndex
+from .index import (BinaryIndex, DeviceIndex, HostIndex, MultiVecIndex,
+                    PQIndex, SearchResult)
 from .ivf import IVFIndex
+from .sparse import SparseIndex
 from .filter import (
     Filter,
     FilterError,

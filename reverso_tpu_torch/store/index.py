@@ -11,6 +11,8 @@ the engine), and the MaxSim index of a multivector space
 (`native.py`), which returns numpy arrays."""
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -30,11 +32,24 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.i
 _CHUNK = 65536   # host rows per upload step
 
 
+@dataclass
+class SearchResult:
+    """Device search output joined with host payloads."""
+    scores: np.ndarray          # [Q, k] f32
+    indices: np.ndarray         # [Q, k] int32, -1 = below threshold / absent
+    payloads: list              # [Q][k] payload dict or None
+
+
 def host_chunks(vectors: np.ndarray, device):
     """(lo, fp32 rows [lo:lo + _CHUNK] on `device`) for the rows of a host
     matrix (a read-only store map is fine: each chunk is copied)."""
     for lo in range(0, len(vectors), _CHUNK):
         yield lo, torch.from_numpy(np.array(vectors[lo:lo + _CHUNK], np.float32)).to(device)
+
+
+def to_host(x) -> np.ndarray:
+    """A search result array (device tensor or host array) -> numpy."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
 
 def _empty(qn: int, k: int, device):
@@ -417,6 +432,10 @@ class BinaryIndex:
         center = torch.from_numpy(self.center).to(self.device)
         for lo, x in host_chunks(v, self.device):
             self.matrix[lo:lo + len(x)] = pack_signs(x - center, plane_width=w)
+
+    @property
+    def nbytes(self) -> int:
+        return self.matrix.numel() * self.matrix.element_size()
 
     @classmethod
     def from_chunks(cls, *args, **kwargs):

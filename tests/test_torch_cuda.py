@@ -662,9 +662,11 @@ def test_ivf_scan_kernel(dev, mode, q, nprobe, k, masked):
     else:
         dtype = getattr(torch, mode)
         args = (x.to(dtype), qs.to(dtype), None, None, base, cnt)
-    n0 = kernels.launches["ivf_scan"]
+    key = ("ivf_scan", (q, nprobe, d, k, masked, mode))
+    n0, s0 = kernels.launches["ivf_scan"], kernels.shape_launches[key]
     s, pos = ivf_probe_scan(*args, int8=mode == "int8", **kw)
     assert kernels.launches["ivf_scan"] == n0 + 1
+    assert kernels.shape_launches[key] == s0 + 1
     rs, rpos = ivf_probe_scan_ref(*args, int8=mode == "int8", **kw)
     torch.cuda.synchronize()
     if mode == "int8":      # exact s32 dots and the same two roundings

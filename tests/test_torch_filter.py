@@ -139,17 +139,73 @@ def test_unported_paths_name_their_slice(store_root):
     root, q, _ = store_root
     _, port = _engines(root)
     port.load_database("db")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.update_vectors([1], q[:1])
     from reverso_tpu_torch.store import BinaryIndex
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BinaryIndex.from_chunks(None, 10, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search_similar(0.0, 5, embeddings=q, use_batcher=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.delete_vectors([1])
     from reverso_tpu_torch.store import IVFIndex
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IVFIndex.from_chunks(None, 10, D)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IVFIndex(q, n_clusters=2, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Reverso(default_config().replace(store=StoreConfig(root_dir=root)),
+                use_mesh=True, device="cpu")
+
+
+def _copied_engines(store_root, tmp_path):
+    """Each package on its own copy of the "db" store (same versions)."""
+    import shutil
+
+    root = store_root[0]
+    roots = [str(tmp_path / side) for side in ("jax", "port")]
+    for r in roots:
+        shutil.copytree(os.path.join(root, "db"), os.path.join(r, "db"))
+    jax_eng, _ = _engines(roots[0])
+    _, port = _engines(roots[1])
+    assert "Loaded" in jax_eng.load_database("db") and "Loaded" in port.load_database("db")
+    return jax_eng, port
+
+
+def test_update_vectors_matches_jax(store_root, tmp_path):
+    _, q, _ = store_root
+    jax_eng, port = _copied_engines(store_root, tmp_path)
+    new = q[:2] * 2.0
+    assert port.update_vectors([1, 2], new) == jax_eng.update_vectors([1, 2], new) \
+        == "✅ Updated vectors of 2 points in db"
+    js, ji = (np.asarray(a) for a in jax_eng.search_batch(q[:2], 10, filter={"folder": 1}))
+    ts, ti = port.search_batch(q[:2], 10, filter={"folder": 1})
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, atol=1e-6)
+    assert ti[0, 0] == 1
+
+
+def test_delete_vectors_matches_jax(store_root, tmp_path):
+    _, q, _ = store_root
+    jax_eng, port = _copied_engines(store_root, tmp_path)
+    top = port.search_batch(q, 10)[1]
+    gone = sorted(set(top[:, :3].ravel().tolist()))
+    assert port.delete_vectors(gone) == jax_eng.delete_vectors(gone) == \
+        f"✅ Deleted vectors ('') of {len(gone)} points in db"
+    for filt in FILTERS:
+        js, ji = (np.asarray(a) for a in jax_eng.search_batch(q, 10, filter=filt))
+        ts, ti = port.search_batch(q, 10, filter=filt)
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_allclose(ts[np.isfinite(js)], js[np.isfinite(js)], atol=1e-6)
+        assert not set(ti.ravel().tolist()) & set(gone)
+
+
+def test_search_similar_use_batcher_matches_jax(store_root):
+    root, q, _ = store_root
+    jax_eng, port = _engines(root)
+    jax_eng.load_database("db")
+    port.load_database("db")
+    jt, jitems = jax_eng.search_similar(0.0, 10, embeddings=q, query_index=3,
+                                        use_batcher=True)
+    tt, titems = port.search_similar(0.0, 10, embeddings=q, query_index=3,
+                                     use_batcher=True)
+    assert [it["id"] for it in titems] == [it["id"] for it in jitems]
+    np.testing.assert_allclose([it["score"] for it in titems],
+                               [it["score"] for it in jitems], atol=1e-6)
+    assert port.searcher.stats()["served"] == 1
+    port.searcher.close()
+    jax_eng.searcher.close()

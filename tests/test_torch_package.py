@@ -24,7 +24,8 @@ PORT = os.path.join(REPO, "reverso_tpu_torch")
 HOST_COPIES = ("config.py", "utils/logging.py", "store/persist.py",
                "detect/regions.py", "detect/wordpiece.py", "viz.py",
                "ingest/images.py", "ingest/pipeline.py", "store/filter.py",
-               "store/text.py", "native.py")
+               "store/text.py", "native.py", "store/sparse.py",
+               "store/formula.py")
 
 
 def _run(code: str, cwd: str, timeout: int = 120):
@@ -311,3 +312,41 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               env=dict(os.environ, PYTHONPATH=""))
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_port_surface_runs_with_jax_blocked(tmp_path):
+    """The universal query, the mutations and the batcher with `jax` and
+    `flax` blocked: query, query_batch, a grouped search, upsert /
+    update_vectors / delete_points, and a batched search_similar."""
+    proc = _run(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        import numpy as np
+        from reverso_tpu_torch.config import StoreConfig, default_config
+        from reverso_tpu_torch.engine import Reverso
+        from reverso_tpu_torch.store import VectorStore
+        root = {str(tmp_path)!r}
+        rng = np.random.default_rng(0)
+        v = rng.standard_normal((300, 16)).astype(np.float32)
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        with VectorStore.create(root, "db", 16) as s:
+            s.append(v, [{{"folder": i % 4, "region_id": f"r{{i}}"}} for i in range(300)])
+        eng = Reverso(default_config().replace(store=StoreConfig(root_dir=root)), device="cpu")
+        eng.load_database("db")
+        assert eng.query(5, k=3)[0]["id"] == 5
+        res = eng.query_batch([{{"query": v[1], "k": 2}}, {{"query": "r2", "k": 2,
+                                                          "filter": {{"folder": 2}}}}])
+        assert [r[0]["id"] for r in res] == [1, 2]
+        assert len(eng.search_groups(-1.0, 3, embeddings=v[:1], group_by="folder")[1]) == 3
+        assert eng.upsert_points(v[:2]).startswith("✅ Upserted 2")
+        assert eng.update_vectors([3], v[4:5]).startswith("✅")
+        assert eng.delete_points({{"folder": 3}}).startswith("✅ Deleted 75")
+        text, items = eng.search_similar(-1.0, 3, embeddings=v[6:7], use_batcher=True)
+        assert items[0]["id"] == 6 - 1, items
+        eng.searcher.close()
+        assert not [m for m in sys.modules if m.split(".")[0] == "reverso_tpu"]
+        print("OK surface")
+    """, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "OK surface" in proc.stdout
