@@ -40,7 +40,9 @@ of which catches a failure:
      mode); the capacity
      kernels at 1,000,000 x 1024
      (masked bf16, int8 with ids and scores equal bit for bit, packed
-     binary) and the IVF probed scan at 1024 clusters, nprobe 16; the
+     binary) and the IVF probed scan at 1024 clusters, nprobe 16 (bf16,
+     int8, fp32; its plan's table checked; every cluster at Q = 64 beside
+     K1 over the same rows); the
      int8 MLP (K5: T = 4616, 1000, 36,928 and 577, 1024 -> 4096 -> 1024,
      gelu and quick_gelu, and a ragged case) and the two-stage int8 search's
      candidate scan (1M x 1024 int8 rows with row scales, Q = 256,
@@ -1946,7 +1948,7 @@ REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused
               "fused_mlp_int8": 7, "ms_deform": 7, "topk_stream": 8, "topk_masked": 8,
               "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9, "flash_attn_f32": 10,
               "flash_attn_relbias_f32": 10, "fused_mlp_f32": 11, "flash_heads_f32": 11,
-              "topk_stream_f32": 12}
+              "topk_stream_f32": 12, "ivf_scan": 15}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE"}
 
@@ -2254,9 +2256,11 @@ def ivf_layout(torch, gen, n: int, n_cl: int, q: int, nprobe: int):
 
 def ivf_bound(torch, base, cnt, d: int, itemsize: int, digits: int, dtype: str):
     """K11's bound from this run's probes: the rows of the distinct probed
-    clusters read once, 2 * d operations per probed row (per digit)."""
+    clusters read once and the queries (two bytes a dimension: bf16, or
+    int8's two digits; fp32 four), 2 * d operations per probed row (per
+    digit)."""
     pairs = torch.stack([base.reshape(-1), cnt.reshape(-1)], 1).unique(dim=0)
-    nbytes = float(pairs[:, 1].sum()) * d * itemsize + base.shape[0] * d * 2
+    nbytes = float(pairs[:, 1].sum()) * d * itemsize + base.shape[0] * d * max(itemsize, 2)
     ops = 2.0 * digits * float(cnt.sum()) * d
     return bound(nbytes, ops, dtype) + (nbytes, ops)
 
@@ -2319,13 +2323,78 @@ def ivf_path_shapes(torch, counts: dict, captured: dict, path: str) -> list:
     return out
 
 
+def ivf_search_parts(torch, ivf, queries, k: int, nprobe: int, row_mask, reps: int = 5) -> dict:
+    """`IVFIndex.search`'s host time by part at one batch, each part ended
+    by a synchronise (medians of `reps` runs, ms): the centroid probe (the
+    queries to the card, centroid scores and top-nprobe, the probed
+    clusters' rows and counts, int8's digits), `_sorted_mask`, the plan
+    and K11 (`ivf_probe_scan`), the id map and spill dedup. The steps are
+    the search's own, in its order; their result must equal `search`'s."""
+    import reverso_tpu_torch.store.ivf as ivf_mod
+    from reverso_tpu_torch.ops.topk import int8_query_digits
+
+    parts = collections.defaultdict(list)
+
+    def once():
+        t = [time.perf_counter()]
+
+        def lap(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            parts[name].append((now - t[0]) * 1e3)
+            t[0] = now
+
+        probes = min(nprobe, ivf.n_clusters)
+        q32 = torch.as_tensor(np.asarray(queries, np.float32)).to(ivf.device)
+        q = q32.to(ivf._dtype)
+        _, top_c = ivf_mod._select_topk(ivf_mod._scores(q, ivf.centroids), probes)
+        base, cnt = ivf.offsets[top_c], ivf.counts[top_c]
+        qdig = row_scale = None
+        if ivf._int8:
+            q_hi, q_lo, c2 = int8_query_digits(q32)
+            qdig = torch.stack([q_hi, q_lo])
+            row_scale = c2 * torch.tensor(ivf.db_scale, dtype=torch.float32, device=ivf.device)
+        lap("centroid_probe")
+        mask = ivf._sorted_mask(row_mask) if row_mask is not None else None
+        lap("sorted_mask")
+        dedup = ivf.n_spill > 0
+        k_eff = min(k, probes * ivf.cmax)
+        k_fetch = min(2 * k, probes * ivf.cmax) if dedup else k_eff
+        sc, pos = ivf_mod.ivf_probe_scan(ivf.matrix, q, qdig, row_scale, base, cnt, k=k_fetch,
+                                         cmax=ivf.cmax, int8=ivf._int8, mask_sorted=mask)
+        lap("plan_k11")
+        pos = pos[:, :k_fetch].long()
+        ids = torch.where(pos >= 0, ivf.row_ids[pos.clamp(min=0)], -1)
+        ids = torch.where(torch.isneginf(sc[:, :k_fetch]), -1, ids)
+        sc = sc[:, :k_fetch]
+        if dedup:
+            sc, ids = ivf_mod._dedup_keep_first(sc, ids)
+            sc, sel = ivf_mod._select_topk(sc, k_eff)
+            ids = ids.gather(1, sel)
+        lap("id_map_dedup")
+        return sc, ids
+
+    once()
+    parts.clear()
+    for _ in range(reps):
+        sc, ids = once()
+    rs, ri = ivf.search(queries, k, nprobe=nprobe, row_mask=row_mask)
+    check(torch.equal(ids.to(torch.int32), ri[:, :ids.shape[1]]) and
+          torch.equal(sc, rs[:, :sc.shape[1]]), "the timed parts differ from IVFIndex.search")
+    out = {name: float(np.median(v)) for name, v in parts.items()}
+    out["sum"] = sum(out.values())
+    return out
+
+
 def capacity_kernel_checks(torch, gen) -> dict:
     """K2, K9, K10 at 1M x 1024 (Q = 256) and K11 at 1024 clusters, nprobe
-    16, Q = 1 and 64, bf16 and int8, against their plain versions on the
-    card, plus small ragged cases."""
+    16, Q = 1 and 64, bf16, int8 and fp32, against their plain versions on
+    the card, K11 over every cluster at Q = 64 against K1 over the same
+    rows, plus small ragged cases."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.binary import binary_topk, binary_topk_ref, pack_signs
-    from reverso_tpu_torch.ops.ivf_scan import ivf_probe_scan, ivf_probe_scan_ref
+    from reverso_tpu_torch.ops.ivf_scan import (check_plan, ivf_geometry, ivf_plan_cuda,
+                                                ivf_probe_scan, ivf_probe_scan_ref)
     from reverso_tpu_torch.ops.topk import (cosine_topk, cosine_topk_int8_exact,
                                             cosine_topk_int8_ref, cosine_topk_ref,
                                             int8_query_digits, quantize_db_int8)
@@ -2432,10 +2501,11 @@ def capacity_kernel_checks(torch, gen) -> dict:
     print(f"topk_binary: max abs score err {err} (tol {btol})", flush=True)
     del packed
 
-    # K11: 1024 clusters, nprobe 16; a row duplicated into a second cluster
-    # (a spill copy) and an empty cluster probed
+    # K11: 1024 clusters, nprobe 16, bf16, int8 and fp32 (x itself, the
+    # split mode at full width); the plan kernel's table at full size
     n_cl, nprobe = 1024, 16
     offsets, counts, base, cnt = ivf_layout(torch, gen, n, n_cl, 64, nprobe)
+    cmax = int(counts.max())
     sorted_bf16 = x.to(bf16)
     v8, scale = quantize_db_int8(x)
     ivf = {}
@@ -2444,8 +2514,8 @@ def capacity_kernel_checks(torch, gen) -> dict:
         q_hi, q_lo, c2 = int8_query_digits(qq)
         qdig, rsc = torch.stack([q_hi, q_lo]), c2 * scale
         for mode, args in (("bf16", (sorted_bf16, qq.to(bf16), None, None)),
-                           ("int8", (v8, qq, qdig, rsc))):
-            kw = dict(k=k, cmax=int(counts.max()), int8=mode == "int8")
+                           ("int8", (v8, qq, qdig, rsc)), ("fp32", (x, qq, None, None))):
+            kw = dict(k=k, cmax=cmax, int8=mode == "int8")
             fn = lambda a=args, b=base[:qn], c=cnt[:qn]: ivf_probe_scan(*a, b, c, **kw)
             s, pos = fn()
             rs, rpos = ivf_probe_scan_ref(*args, base[:qn], cnt[:qn], **kw)
@@ -2453,16 +2523,38 @@ def capacity_kernel_checks(torch, gen) -> dict:
                 check(torch.equal(pos, rpos) and torch.equal(s, rs),
                       f"K11 int8 Q={qn} differs from its plain version")
             else:
-                topk_agree(rs, rpos, s, pos, tol)
+                topk_agree(rs, rpos, s, pos, tol, f"K11 {mode} Q={qn}")
+            item = {"bf16": 2, "int8": 1, "fp32": 4}[mode]
             b_ms, b_by, nbytes, ops = ivf_bound(
-                torch, base[:qn], cnt[:qn], d, 1 if mode == "int8" else 2,
-                2 if mode == "int8" else 1, "int8" if mode == "int8" else "bfloat16")
+                torch, base[:qn], cnt[:qn], d, item, 2 if mode == "int8" else 1,
+                {"bf16": "bfloat16", "int8": "int8", "fp32": "float32_split"}[mode])
             ivf[(mode, qn)] = dict(
                 ms=cuda_ms(fn, iters=10), err=float((s - rs).abs().max()),
                 plain_ms=cuda_ms(lambda a=args, b=base[:qn], c=cnt[:qn]:
                                  ivf_probe_scan_ref(*a, b, c, **kw), iters=2),
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
             print(f"ivf_scan {mode} Q={qn}: {json.dumps(ivf[(mode, qn)])}", flush=True)
+    # every cluster at Q = 64 (the exactness check's shape): the plan's
+    # table against its contract, K11 against the exact scan of the same
+    # rows (K1), and the two times side by side
+    allp = torch.arange(n_cl, device=dev)[None].expand(64, n_cl)
+    base_all, cnt_all = offsets[allp].int().contiguous(), counts[allp].int().contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b_, c_ in ((base, cnt), (base_all, cnt_all)):
+        n_block, rps, splits = ivf_geometry(64, b_.shape[1], k, cmax, n, wg=0, sms=sms)
+        check_plan(b_, c_, *ivf_plan_cuda(b_, c_, n_block=n_block, rps=rps, splits=splits),
+                   n_block=n_block, rps=rps)
+    qs = qf[:64].to(bf16)
+    fn_all = lambda: ivf_probe_scan(sorted_bf16, qs, None, None, base_all, cnt_all, k=k,
+                                    cmax=cmax, int8=False)
+    s, pos = fn_all()
+    rs, ri = cosine_topk_ref(sorted_bf16, qs, k)
+    topk_agree(rs, ri, s, pos, tol, "K11 over every cluster against the exact scan")
+    all_ms = cuda_ms(fn_all, iters=10)
+    k1_ms = cuda_ms(lambda: cosine_topk(sorted_bf16, qs, k), iters=10)
+    print(f"ivf_scan every cluster, Q=64: {all_ms:.4f} ms; K1 over the same rows at Q=64: "
+          f"{k1_ms:.4f} ms; ratio {all_ms / k1_ms:.3f} (plan checked at nprobe 16 and "
+          f"1024)", flush=True)
     # masked, an empty cluster and a spill duplicate, small
     lay = torch.tensor([0, 1, 37, 300, 5, 64], device=dev)
     offs = torch.cumsum(lay, 0) - lay
@@ -2483,9 +2575,13 @@ def capacity_kernel_checks(torch, gen) -> dict:
         max_abs_err=max(v["err"] for v in ivf.values()),
         shape="1M x 1024 in 1024 clusters, nprobe 16, Q=64, k=10, bf16 "
               f"(Q=1 bf16 {ivf[('bf16', 1)]['ms']:.4f} ms, Q=64 int8 "
-              f"{ivf[('int8', 64)]['ms']:.4f} ms, Q=1 int8 {ivf[('int8', 1)]['ms']:.4f} ms)",
+              f"{ivf[('int8', 64)]['ms']:.4f} ms, Q=1 int8 {ivf[('int8', 1)]['ms']:.4f} ms, "
+              f"Q=64 fp32 {ivf[('fp32', 64)]['ms']:.4f} ms, Q=1 fp32 "
+              f"{ivf[('fp32', 1)]['ms']:.4f} ms; every cluster at Q=64 {all_ms:.4f} ms, "
+              f"K1 there {k1_ms:.4f} ms)",
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"],
+        bound_by=main["bound_by"], fp32=ivf[("fp32", 64)], fp32_q1=ivf[("fp32", 1)],
+        every_cluster_ms=all_ms, k1_same_rows_ms=k1_ms,
         library="none: no single PyTorch call (a gather, a batched matmul and a topk)",
         library_ms=None)
     del x, sorted_bf16, v8
@@ -2513,7 +2609,8 @@ def capacity_run(root: str) -> dict:
     card, on a 1,000,000 x 1024 store: (g, first) the float32 store, K1
     and K2 on fp32 rows; (a) bf16 exact with payload filters and count; (b)
     deleted vectors; (c) int8; (d) binary + rescore; (e) IVF at the
-    defaults, built, cached and reloaded; (f) IVF int8 with spill and
+    defaults, built, cached and reloaded, its search's host time by part
+    at Q = 1 and 64 (`ivf_search_parts`); (f) IVF int8 with spill and
     balance. Returns (a)-(f)'s launches, top-k shapes and K11's by_shape
     rows (`ivf_path_shapes`), then (g)'s launches and shapes."""
     import torch
@@ -2685,6 +2782,10 @@ def capacity_run(root: str) -> dict:
         out["ivf_search64_ms"] = timed_ms(lambda: eng.search_batch(queries, k))
         out["ivf_search1_ms"] = timed_ms(lambda: eng.search_batch(queries[:1], k))
         ivf = eng._get_index()._ix._ivf
+        out["ivf_search_parts_ms"] = {
+            f"Q={qn}": ivf_search_parts(torch, ivf, queries[:qn], k,
+                                        eng._get_index()._ix.nprobe, presence)
+            for qn in (1, 64)}
         check(ivf.n_clusters == 1024, f"IVF clusters {ivf.n_clusters}")
         s_all, i_all = ivf.search(queries, k, nprobe=ivf.n_clusters, row_mask=presence)
         rs, ri = cosine_topk_ref(bf16_matrix, q_dev, k, row_mask=pres_dev)

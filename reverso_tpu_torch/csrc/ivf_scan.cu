@@ -1,278 +1,429 @@
-// IVF probed scan: per-query top-k over only the probed clusters' rows.
+// IVF probed scan (K11): per query, the k best rows of its probed clusters.
 //
-// Replaces: reverso_tpu/ops/ivf_scan.py::_ivf_scan_kernel (entry
+// Replaces: reverso_tpu/ops/ivf_scan.py:70 _ivf_scan_kernel (entry
 // ivf_probe_scan, used by store/ivf.py::_ivf_search_pallas).
 //
-// Inputs: the cluster-sorted matrix [M, d] (fp32, bf16, or int8 with the
-// query split into two int8 digits [2, Q, d] and a per-query score scale),
-// and per (query, probe) the probed cluster's first row `base` and row
-// count `cnt` ([Q, nprobe] int32), optionally an [M] uint8 mask over the
-// sorted rows. Output: per query the k best (score, sorted-matrix row) in
-// (-score, probe rank, position within the cluster) order, the order of the
-// reference's probe loop (store/ivf.py::_ivf_search); -inf / -1 past the
-// candidates.
+// Inputs: the cluster-sorted matrix [M, d] (bf16, fp32, or int8 scored
+// against each query's two int8 digits with a per-query scale) and per
+// (query, probe) the probed cluster's first row `base` and row count `cnt`
+// ([Q, nprobe] int32), optionally an [M] uint8 mask over the sorted rows.
+// Output: per query the k best (score, sorted-matrix row) in (-score, probe
+// rank, position within the cluster) order, the order of the reference's
+// probe loop (store/ivf.py::_ivf_search); -inf / -1 past the candidates.
 //
-// What bounds it on the H100: the rows of the probed clusters, read once
-// per (query, probe), against 2 * d operations per row (x2 for the int8
-// digits): about one operation per byte, far below the card's ratio, so
-// memory bounds it. At serving batch sizes the probed clusters of one
-// batch overlap little, and one (query, probe) is only ~1000 rows.
+// What bounds it on the H100: the rows of the distinct probed clusters,
+// read once: at 1M x 1024 bf16 over all 1,024 clusters 2.05 GB (0.61 ms at
+// 3.35 TB/s), against 2 d operations per (query, probe, row) on the tensor
+// cores (x2 for int8's digits; 0.14 ms of bf16 products at Q = 64). A
+// cluster that q queries probe must not be read q times.
 //
-// What the design does about it:
-//   * one CTA per (query, probe) streams exactly its cluster's cnt rows,
-//     never past them (the compact layout needs no padding rows); the
-//     query sits in shared memory;
-//   * one warp per row, 16-byte loads across the lanes, fp32 sums
-//     (__dp4a for the two int8 digits: exact s32 dots, combined as
-//     f32(hi) * 254 + f32(lo) with two roundings, then times the query's
-//     scale, as the reference's probe loop computes them);
-//   * rows are scored 32 at a time and the CTA's first warp inserts them
-//     in row order into a sorted per-CTA top-k (-score, position);
-//   * a second kernel merges each query's nprobe sorted partials by
-//     (-score, probe rank, position): one warp per query.
-#include <type_traits>
+// What the design does about it: the scan is cluster-major.
+//   * the plan (launch_plan; its plain version ops/ivf_scan.py::ivf_plan)
+//     inverts base / cnt on the card: the Q * nprobe (query, probe) pairs
+//     grouped by cluster (a hash table of (base, cnt) keys, a count of the
+//     clusters, prefix sums over them), each cluster cut into row splits
+//     (single row tiles while the pairs are fewer than the SMs, a tile more
+//     for every further SM's worth of pairs, up to whole clusters) and its
+//     run of pairs into query blocks of N (8 .. 128, from the mean pairs a
+//     cluster: ops/ivf_scan.py::ivf_geometry), giving a work table of
+//     (rows, pairs, split) slices; ivf_gather_kernel then gathers the
+//     probing queries' operand rows (and int8 scales) into that order. The
+//     sizes come from what the host knows (Q, nprobe, cmax, M, the SMs):
+//     nothing waits for the card, and every launch (plan, gather, scan,
+//     merge) comes from one call. Every cluster at Q = 64 takes 1.60x K1's
+//     time over the same rows (PERF.md section 6; scripts/ivf_scan_probe.py);
+//   * topk_stream.cu's wgmma + TMA scan (launch_ivf_scan_wg) walks the
+//     table with one wave of CTAs: each slice's row tiles are read from
+//     device memory once for its whole query block and scored on the
+//     tensor cores (bf16; fp32 as the split mode's six bf16 products, the
+//     TPU's Precision.HIGHEST; int8 as K9's exact s32 digit dots, combined
+//     with two roundings and times the pair's scale before the gate), with
+//     the gated k-select per query column. Rows past the slice's end (the
+//     next cluster's, inside a TMA box) and columns past its pairs never
+//     enter the lists;
+//   * the merge below: one CTA per query over its nprobe x splits sorted
+//     lists, by (-score, probe rank, row).
+#include <algorithm>
 
 #include "topk_select.cuh"
 
 namespace rv {
 
-constexpr int IVF_THREADS = 256;            // 8 warps
-constexpr int IVF_WARPS = IVF_THREADS / 32;
-constexpr int IVF_BATCH = 32;               // rows per k-select round
-constexpr int IVF_ROWS_PER_WARP = IVF_BATCH / IVF_WARPS;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
+// (-score, list, row): list l = probe * splits + split orders the lists by
+// probe rank and, within a probe, by split, whose row ranges ascend, so
+// this is the reference's (-score, probe rank, position) order
+__device__ __forceinline__ bool before(float sa, int la, int ra, float sb, int lb, int rb) {
+    return sa > sb || (sa == sb && (la < lb || (la == lb && ra < rb)));
 }
 
-__device__ __forceinline__ int warp_sum(int x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-}
+constexpr int kMergeThreads = 128;
 
-// dot of one fp32 / bf16 row with the fp32 query in shared memory; `vec`:
-// 16-byte loads (D a multiple of the 16-byte vector, aligned base)
-template <typename T>
-__device__ __forceinline__ float row_dot(const T* row, const float* qf, int D,
-                                         bool vec, int lane) {
-    constexpr int V = 16 / sizeof(T);
-    float acc = 0.f;
-    if (vec) {
-        for (int i = lane * V; i < D; i += 32 * V) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(row + i);
-            const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-            for (int e = 0; e < V; ++e) acc = fmaf(to_f<T>(x[e]), qf[i + e], acc);
-        }
-    } else {
-        for (int i = lane; i < D; i += 32) acc = fmaf(to_f<T>(row[i]), qf[i], acc);
-    }
-    return warp_sum(acc);
-}
-
-// exact s32 dots of one int8 row with the two query digits
-__device__ __forceinline__ void row_dot_i8(const signed char* row,
-                                           const signed char* qhi,
-                                           const signed char* qlo, int D,
-                                           bool vec, int lane, int& hi, int& lo) {
-    int h = 0, l = 0;
-    if (vec) {
-        for (int i = lane * 16; i < D; i += 32 * 16) {
-            const int4 x = *reinterpret_cast<const int4*>(row + i);
-            const int4 a = *reinterpret_cast<const int4*>(qhi + i);
-            const int4 b = *reinterpret_cast<const int4*>(qlo + i);
-            h = __dp4a(x.x, a.x, h); h = __dp4a(x.y, a.y, h);
-            h = __dp4a(x.z, a.z, h); h = __dp4a(x.w, a.w, h);
-            l = __dp4a(x.x, b.x, l); l = __dp4a(x.y, b.y, l);
-            l = __dp4a(x.z, b.z, l); l = __dp4a(x.w, b.w, l);
-        }
-    } else {
-        for (int i = lane; i < D; i += 32) {
-            h += (int)row[i] * (int)qhi[i];
-            l += (int)row[i] * (int)qlo[i];
-        }
-    }
-    hi = warp_sum(h);
-    lo = warp_sum(l);
-}
-
-// grid: Q * nprobe CTAs, one per (query, probe). Writes the CTA's sorted
-// (score, position within the cluster) list to part_s / part_w [Q*nprobe, k].
-template <int MODE>
-__global__ void __launch_bounds__(IVF_THREADS)
-ivf_scan_kernel(const void* __restrict__ mat_v, const void* __restrict__ q_v,
-                const float* __restrict__ row_scale, const int* __restrict__ base,
-                const int* __restrict__ cnt, const unsigned char* __restrict__ mask,
-                int D, int Q, int nprobe, int k, bool vec,
-                float* __restrict__ part_s, int* __restrict__ part_w) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* qf = reinterpret_cast<float*>(smem_raw);            // [D] (fp32/bf16)
-    signed char* qhi = reinterpret_cast<signed char*>(smem_raw);  // [D] (int8)
-    signed char* qlo = qhi + ((D + 15) / 16) * 16;                // [D] (int8)
-    const size_t q_bytes = MODE == kInt8 ? 2 * (size_t)((D + 15) / 16) * 16
-                                         : (size_t)D * sizeof(float);
-    float* S = reinterpret_cast<float*>(smem_raw + (q_bytes + 15) / 16 * 16);  // [k]
-    int* I = reinterpret_cast<int*>(S + k);                                   // [k]
-    float* sc = reinterpret_cast<float*>(I + k);                              // [BATCH]
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int qp = blockIdx.x;            // query * nprobe + probe
-    const int qi = qp / nprobe;
-    const int b = base[qp], c = cnt[qp];
-
-    for (int j = tid; j < k; j += IVF_THREADS) { S[j] = -CUDART_INF_F; I[j] = -1; }
-    if constexpr (MODE == kInt8) {
-        const signed char* qd = static_cast<const signed char*>(q_v);
-        for (int i = tid; i < D; i += IVF_THREADS) {
-            qhi[i] = qd[(size_t)qi * D + i];
-            qlo[i] = qd[((size_t)Q + qi) * D + i];
-        }
-    } else {
-        using T = typename std::conditional<MODE == kBFloat16, __nv_bfloat16, float>::type;
-        const T* qt = static_cast<const T*>(q_v);
-        for (int i = tid; i < D; i += IVF_THREADS) qf[i] = to_f<T>(qt[(size_t)qi * D + i]);
-    }
-    const float rs = MODE == kInt8 ? row_scale[qi] : 1.f;
-    __syncthreads();
-
-    for (int w0 = 0; w0 < c; w0 += IVF_BATCH) {
-#pragma unroll
-        for (int t = 0; t < IVF_ROWS_PER_WARP; ++t) {
-            const int rr = warp * IVF_ROWS_PER_WARP + t;
-            const int w = w0 + rr;
-            float s = -CUDART_INF_F;
-            if (w < c && (mask == nullptr || mask[b + w] != 0)) {   // warp-uniform
-                const size_t row = (size_t)(b + w) * D;
-                if constexpr (MODE == kInt8) {
-                    int hi, lo;
-                    row_dot_i8(static_cast<const signed char*>(mat_v) + row, qhi, qlo, D,
-                               vec, lane, hi, lo);
-                    s = __fmul_rn(__fadd_rn(__fmul_rn(__int2float_rn(hi), 254.f),
-                                            __int2float_rn(lo)), rs);
-                } else if constexpr (MODE == kBFloat16) {
-                    s = row_dot(static_cast<const __nv_bfloat16*>(mat_v) + row, qf, D, vec,
-                                lane);
-                } else {
-                    s = row_dot(static_cast<const float*>(mat_v) + row, qf, D, vec, lane);
-                }
-            }
-            if (lane == 0) sc[rr] = s;
-        }
-        __syncthreads();
-        if (warp == 0) {
-            const int w = w0 + lane;
-            const bool real = w < c && (mask == nullptr || mask[b + w] != 0);
-            warp_insert_batch(S, I, k, sc[lane], real, w0, lane);
-        }
-        __syncthreads();
-    }
-    for (int j = tid; j < k; j += IVF_THREADS) {
-        part_s[(size_t)qp * k + j] = S[j];
-        part_w[(size_t)qp * k + j] = I[j];
-    }
-}
-
-// One warp per query: merge its nprobe sorted partials by (-score, probe
-// rank, position) and map positions to sorted-matrix rows (base + within).
-__global__ void ivf_merge_kernel(const float* __restrict__ part_s,
-                                 const int* __restrict__ part_w,
-                                 const int* __restrict__ base, int nprobe, int k,
-                                 float* __restrict__ out_s, int* __restrict__ out_pos) {
-    extern __shared__ int heads[];   // [nprobe]
+// One CTA per query: merges the sorted lists of its (probe, split) slices,
+// list l live for split < ceil(cnt / rps), read from part_s / part_i
+// [splits][P][k] at the pair's slot (its place in the cluster-major
+// order). The CTA loads every list's head into shared memory; then its
+// first warp merges: each lane keeps the best head of its lists (l % 32 ==
+// lane) in registers, and a round takes the warp's best, whose lane alone
+// reads that list's next entry and rescans.
+__global__ void __launch_bounds__(kMergeThreads)
+ivf_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
+                 const int* __restrict__ slot, const int* __restrict__ cnt, int P, int nprobe,
+                 int splits, int rps, int k, float* __restrict__ out_s,
+                 int* __restrict__ out_pos) {
+    extern __shared__ int heads[];
+    const int L = nprobe * splits;
+    float* hs = reinterpret_cast<float*>(heads);   // [L] the head's score
+    int* hr = heads + L;                           // [L] its row, -1 past the list
+    int* hd = hr + L;                              // [L] its place in the list
     const int qi = blockIdx.x;
-    const int lane = threadIdx.x;
-    for (int p = lane; p < nprobe; p += 32) heads[p] = 0;
-    __syncwarp();
-    for (int r = 0; r < k; ++r) {
-        float bs = -CUDART_INF_F;
-        int bp = -1, bw = -1;
-        for (int p = lane; p < nprobe; p += 32) {
-            const int hd = heads[p];
-            if (hd >= k) continue;
-            const size_t o = ((size_t)qi * nprobe + p) * k + hd;
-            const int w = part_w[o];
-            if (w < 0) continue;   // an empty (-inf) slot ends that list
-            const float s = part_s[o];
-            if (bp < 0 || better(s, p, bs, bp)) { bs = s; bp = p; bw = w; }
+    for (int p = threadIdx.x; p < nprobe; p += kMergeThreads) {
+        const int pair = qi * nprobe + p, live = ceil_div(cnt[pair], rps);
+        const size_t o = (size_t)slot[pair] * k;
+        for (int sp = 0; sp < splits; ++sp) {
+            const int l = p * splits + sp;
+            hs[l] = sp < live ? part_s[(size_t)sp * P * k + o] : -CUDART_INF_F;
+            hr[l] = sp < live ? part_i[(size_t)sp * P * k + o] : -1;
+            hd[l] = 0;
         }
+    }
+    __syncthreads();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    float bs = -CUDART_INF_F;
+    int bl = -1, br = -1;
+    auto rescan = [&]() {
+        bs = -CUDART_INF_F;
+        bl = br = -1;
+        for (int l = lane; l < L; l += 32)
+            if (hr[l] >= 0 && (bl < 0 || before(hs[l], l, hr[l], bs, bl, br))) {
+                bs = hs[l];
+                bl = l;
+                br = hr[l];
+            }
+    };
+    rescan();
+    for (int r = 0; r < k; ++r) {
+        float ws = bs;
+        int wl = bl, wr = br;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
-            const float os = __shfl_xor_sync(0xffffffffu, bs, off);
-            const int op = __shfl_xor_sync(0xffffffffu, bp, off);
-            const int ow = __shfl_xor_sync(0xffffffffu, bw, off);
-            if (op >= 0 && (bp < 0 || better(os, op, bs, bp))) { bs = os; bp = op; bw = ow; }
+            const float os = __shfl_xor_sync(0xffffffffu, ws, off);
+            const int ol = __shfl_xor_sync(0xffffffffu, wl, off);
+            const int orow = __shfl_xor_sync(0xffffffffu, wr, off);
+            if (ol >= 0 && (wl < 0 || before(os, ol, orow, ws, wl, wr))) {
+                ws = os;
+                wl = ol;
+                wr = orow;
+            }
         }
         if (lane == 0) {
-            out_s[(size_t)qi * k + r] = bp < 0 ? -CUDART_INF_F : bs;
-            out_pos[(size_t)qi * k + r] = bp < 0 ? -1 : base[(size_t)qi * nprobe + bp] + bw;
+            out_s[(size_t)qi * k + r] = wl < 0 ? -CUDART_INF_F : ws;
+            out_pos[(size_t)qi * k + r] = wl < 0 ? -1 : wr;
         }
-        if (bp >= 0 && lane == bp % 32) heads[bp] += 1;
+        if (wl >= 0 && lane == wl % 32) {   // the list's next entry; an empty (-1) slot ends it
+            const int j = ++hd[wl];
+            const size_t o = ((size_t)(wl % splits) * P + slot[qi * nprobe + wl / splits]) * k + j;
+            hs[wl] = j < k ? part_s[o] : -CUDART_INF_F;
+            hr[wl] = j < k ? part_i[o] : -1;
+            rescan();
+        }
         __syncwarp();
     }
 }
 
-template <int MODE>
-static int launch_ivf(const void* mat, const void* q, const float* row_scale,
-                      const int* base, const int* cnt, const unsigned char* mask,
-                      int D, int Q, int nprobe, int k, float* part_s, int* part_w,
-                      cudaStream_t stream) {
-    const int elem = MODE == kInt8 ? 1 : MODE == kBFloat16 ? 2 : 4;
-    const bool vec = (D * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(mat) % 16 == 0;
-    const size_t q_bytes = MODE == kInt8 ? 2 * (size_t)((D + 15) / 16) * 16
-                                         : (size_t)D * sizeof(float);
-    const size_t smem = (q_bytes + 15) / 16 * 16 + (size_t)k * 8 + IVF_BATCH * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        ivf_scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---- the plan: three launches after two memsets (launch_plan) ----
+//
+// The pairs with cnt > 0 insert their (base, cnt) key into an open-
+// addressing table of H slots (H a power of two >= 2P); a key's first
+// pair numbers its cluster (an atomic count: clusters 0 .. G - 1 in
+// arrival order) and the others wait for that number; each pair takes a
+// rank among its cluster's pairs (ivf_plan_insert). One CTA then sums the
+// clusters' pairs and slices in order (ivf_plan_scan), and a last grid
+// gives each pair its place (the live pairs first, the pairs with cnt = 0
+// after them) and each cluster its slices (ivf_plan_write). Places within
+// a cluster and the clusters' order follow the atomics: a pair's list
+// does not depend on them (ops/ivf_scan.py::ivf_plan, the plain version,
+// sorts instead).
+
+constexpr unsigned long long kNoKey = ~0ull;
+constexpr int kPlanThreads = 256;
+constexpr int kScanThreads = 1024;
+
+__device__ __forceinline__ unsigned mix(unsigned long long x) {   // a 64-bit finalizer
+    x ^= x >> 33;
+    x *= 0xff51afd7ed558ccdull;
+    x ^= x >> 33;
+    x *= 0xc4ceb9fe1a85ec53ull;
+    x ^= x >> 33;
+    return (unsigned)x;
+}
+
+// the workspace (one int32 buffer, ops/ivf_scan.py::workspace_ints): work
+// [5 U], n_work [1], slot [P], qrow [P]; then, 8-byte aligned, keys [H]
+// (two ints each) and gid [H] (set to all ones, kNoKey and -1); ctr [3]
+// (clusters, pairs with cnt = 0 placed so far, live pairs) and g_np [P]
+// (set to zeros); g_b, g_c, g_p0, g_i0 [P] per cluster; pair_g, pair_rank
+// [P] per pair
+struct PlanSpace {
+    int *work, *n_work, *slot, *qrow, *gid, *ctr, *g_np, *g_b, *g_c, *g_p0, *g_i0, *pair_g,
+        *pair_rank;
+    unsigned long long* keys;
+};
+
+static PlanSpace carve(int* ws, int U, int P, int H) {
+    PlanSpace s;
+    s.work = ws;
+    s.n_work = s.work + 5 * (size_t)U;
+    s.slot = s.n_work + 1;
+    s.qrow = s.slot + P;
+    int* tail = s.qrow + P;
+    tail += (reinterpret_cast<uintptr_t>(tail) % 8) / 4;
+    s.keys = reinterpret_cast<unsigned long long*>(tail);
+    s.gid = tail + 2 * (size_t)H;
+    s.ctr = s.gid + H;
+    s.g_np = s.ctr + 3;
+    s.g_b = s.g_np + P;
+    s.g_c = s.g_b + P;
+    s.g_p0 = s.g_c + P;
+    s.g_i0 = s.g_p0 + P;
+    s.pair_g = s.g_i0 + P;
+    s.pair_rank = s.pair_g + P;
+    return s;
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+ivf_plan_insert(const int* __restrict__ base, const int* __restrict__ cnt, int P, int H,
+                PlanSpace s) {
+    const int p = blockIdx.x * kPlanThreads + threadIdx.x;
+    if (p >= P) return;
+    const int c = cnt[p];
+    int g = -1, rank = 0;
+    if (c > 0) {
+        const int b = base[p];
+        const unsigned long long key = ((unsigned long long)(unsigned)b << 32) | (unsigned)c;
+        for (int h = mix(key) & (H - 1);; h = (h + 1) & (H - 1)) {
+            const unsigned long long old = atomicCAS(&s.keys[h], kNoKey, key);
+            if (old == kNoKey) {   // the key's first pair: number the cluster, then publish
+                g = atomicAdd(&s.ctr[0], 1);
+                s.g_b[g] = b;
+                s.g_c[g] = c;
+                __threadfence();
+                atomicExch(&s.gid[h], g);
+                break;
+            }
+            if (old == key) {      // its number, once the first pair has published it
+                while ((g = *(volatile int*)&s.gid[h]) < 0) __nanosleep(32);
+                break;
+            }
+        }
+        rank = atomicAdd(&s.g_np[g], 1);
+    }
+    s.pair_g[p] = g;
+    s.pair_rank[p] = rank;
+}
+
+// exclusive prefix sums of a and b over the CTA's kScanThreads threads in
+// thread order, their totals in *ta and *tb (tmp: 64 ints of shared memory)
+__device__ void block_scan2(int& a, int& b, int* tmp, int* ta, int* tb) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    int ia = a, ib = b;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const int oa = __shfl_up_sync(0xffffffffu, ia, off);
+        const int ob = __shfl_up_sync(0xffffffffu, ib, off);
+        if (lane >= off) {
+            ia += oa;
+            ib += ob;
+        }
+    }
+    if (lane == 31) {
+        tmp[warp] = ia;
+        tmp[32 + warp] = ib;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        int wa = tmp[lane], wb = tmp[32 + lane];
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int oa = __shfl_up_sync(0xffffffffu, wa, off);
+            const int ob = __shfl_up_sync(0xffffffffu, wb, off);
+            if (lane >= off) {
+                wa += oa;
+                wb += ob;
+            }
+        }
+        tmp[lane] = wa;
+        tmp[32 + lane] = wb;
+    }
+    __syncthreads();
+    a = ia - a + (warp > 0 ? tmp[warp - 1] : 0);
+    b = ib - b + (warp > 0 ? tmp[32 + warp - 1] : 0);
+    *ta = tmp[31];
+    *tb = tmp[63];
+}
+
+__device__ __forceinline__ int slices_of(const PlanSpace& s, int g, int n_block, int rps) {
+    return ceil_div(s.g_c[g], rps) * ceil_div(s.g_np[g], n_block);
+}
+
+// one CTA: each thread's run of clusters, their places and slices summed;
+// the slices past the table's U rows (only a count above cmax makes any)
+// are dropped
+__global__ void __launch_bounds__(kScanThreads)
+ivf_plan_scan(int n_block, int rps, int U, PlanSpace s) {
+    __shared__ int tmp[64];
+    const int G = s.ctr[0], per = ceil_div(G, kScanThreads);
+    const int g0 = min(G, threadIdx.x * per), g1 = min(G, g0 + per);
+    int np = 0, items = 0;
+    for (int g = g0; g < g1; ++g) {
+        np += s.g_np[g];
+        items += slices_of(s, g, n_block, rps);
+    }
+    int n_live, n_items;
+    block_scan2(np, items, tmp, &n_live, &n_items);
+    for (int g = g0; g < g1; ++g) {
+        s.g_p0[g] = np;
+        s.g_i0[g] = items;
+        np += s.g_np[g];
+        items += slices_of(s, g, n_block, rps);
+    }
+    if (threadIdx.x == 0) {
+        s.ctr[2] = n_live;
+        s.n_work[0] = min(n_items, U);
+    }
+}
+
+// thread t: pair t's place and query row; cluster t's slices (r_begin,
+// r_end, q0, nq, split), a split's query blocks neighbours
+__global__ void __launch_bounds__(kPlanThreads)
+ivf_plan_write(int P, int nprobe, int n_block, int rps, int U, PlanSpace s) {
+    const int t = blockIdx.x * kPlanThreads + threadIdx.x;
+    if (t >= P) return;
+    const int g = s.pair_g[t];
+    const int place = g >= 0 ? s.g_p0[g] + s.pair_rank[t] : s.ctr[2] + atomicAdd(&s.ctr[1], 1);
+    s.slot[t] = place;
+    s.qrow[place] = t / nprobe;
+    if (t >= s.ctr[0]) return;
+    const int b = s.g_b[t], c = s.g_c[t], np = s.g_np[t], nqb = ceil_div(np, n_block);
+    const int n = min(ceil_div(c, rps) * nqb, U - s.g_i0[t]);
+    for (int local = 0; local < n; ++local) {
+        const int split = local / nqb, qb = local % nqb;
+        int* w = s.work + 5 * (size_t)(s.g_i0[t] + local);
+        w[0] = b + split * rps;
+        w[1] = min(b + c, b + (split + 1) * rps);
+        w[2] = s.g_p0[t] + qb * n_block;
+        w[3] = min(n_block, np - qb * n_block);
+        w[4] = split;
+    }
+}
+
+// The query operand in the plan's order: dst [planes][P][chunks] from src
+// [planes][Q][chunks] (16-byte chunks) at row qrow[place]; the int8 scales
+// likewise (scale_src [Q] -> scale_dst [P], when given).
+__global__ void ivf_gather_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
+                                  const int* __restrict__ qrow, int P, int Q, int planes,
+                                  int chunks, const float* __restrict__ scale_src,
+                                  float* __restrict__ scale_dst) {
+    const size_t total = (size_t)planes * P * chunks;
+    const size_t stride = (size_t)gridDim.x * blockDim.x;
+    for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total; i += stride) {
+        const int c = (int)(i % chunks);
+        const size_t row = i / chunks;
+        const int place = (int)(row % P), plane = (int)(row / P);
+        dst[i] = src[((size_t)plane * Q + qrow[place]) * chunks + c];
+    }
+    if (scale_dst != nullptr)
+        for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)P; i += stride)
+            scale_dst[i] = scale_src[qrow[i]];
+}
+
+static int launch_plan(const int* base, const int* cnt, int P, int nprobe, int n_block, int rps,
+                       int U, int H, const PlanSpace& s, cudaStream_t stream) {
+    if (H < 2 * P || (H & (H - 1)) != 0) return kUnsupported;
+    cudaError_t err = cudaMemsetAsync(s.keys, 0xff, (size_t)H * 12, stream);   // keys, gid
+    if (err == cudaSuccess) err = cudaMemsetAsync(s.ctr, 0, (size_t)(3 + P) * 4, stream);
     if (err != cudaSuccess) return (int)err;
-    ivf_scan_kernel<MODE><<<Q * nprobe, IVF_THREADS, smem, stream>>>(
-        mat, q, row_scale, base, cnt, mask, D, Q, nprobe, k, vec, part_s, part_w);
+    const int blocks = ceil_div(P, kPlanThreads);
+    ivf_plan_insert<<<blocks, kPlanThreads, 0, stream>>>(base, cnt, P, H, s);
+    ivf_plan_scan<<<1, kScanThreads, 0, stream>>>(n_block, rps, U, s);
+    ivf_plan_write<<<blocks, kPlanThreads, 0, stream>>>(P, nprobe, n_block, rps, U, s);
     return (int)cudaGetLastError();
 }
 
-// mode: kFloat32 / kBFloat16 (q [Q, D] fp32 or bf16), kInt8 (q the digits
-// [2, Q, D], row_scale [Q]). part_s/part_w: [Q * nprobe, k] scratch.
-static int launch_ivf_scan(const void* mat, const void* q, const void* row_scale,
-                           const void* base_v, const void* cnt_v, const void* mask_v,
-                           int D, int Q, int nprobe, int k, void* part_s_v,
-                           void* part_w_v, void* out_s, void* out_pos, int mode,
-                           cudaStream_t stream) {
-    if (k < 1 || k > TOPK_KMAX || nprobe < 1 || D < 1 || Q < 1) return kUnsupported;
-    const auto* rs = static_cast<const float*>(row_scale);
-    const auto* base = static_cast<const int*>(base_v);
-    const auto* cnt = static_cast<const int*>(cnt_v);
-    const auto* mask = static_cast<const unsigned char*>(mask_v);
-    auto* part_s = static_cast<float*>(part_s_v);
-    auto* part_w = static_cast<int*>(part_w_v);
-    int status;
-    if (mode == kFloat32)
-        status = launch_ivf<kFloat32>(mat, q, rs, base, cnt, mask, D, Q, nprobe, k,
-                                      part_s, part_w, stream);
-    else if (mode == kBFloat16)
-        status = launch_ivf<kBFloat16>(mat, q, rs, base, cnt, mask, D, Q, nprobe, k,
-                                       part_s, part_w, stream);
-    else if (mode == kInt8)
-        status = launch_ivf<kInt8>(mat, q, rs, base, cnt, mask, D, Q, nprobe, k,
-                                   part_s, part_w, stream);
-    else
+// declared here, defined in topk_stream.cu beside the scan it launches
+int launch_ivf_scan_wg(int mode, const void* mat, const void* q, const unsigned char* mask,
+                       const float* q_scale, const int* work, const int* n_work,
+                       int n_work_max, int D, int P, int M, int k, int n, float* part_s,
+                       int* part_i, cudaStream_t stream);
+
+constexpr int kMergeSmemMax = 232448;
+
+// One K11 call: the plan, the gather of the query operand (q_src [planes][Q]
+// [pitch bytes] -> q_op [planes][P][pitch bytes]; int8: scale_src [Q] ->
+// scale_op [P]), the scan over the work table and the merge.
+static int launch_ivf(const void* mat, const void* q_src, void* q_op, int planes, int pitch,
+                      const void* scale_src, void* scale_op, const void* mask, const int* base,
+                      const int* cnt, int* ws, int U, int H, int D, int M, int Q, int nprobe,
+                      int k, int n, int splits, int rps, float* part_s, int* part_i,
+                      float* out_s, int* out_pos, int mode, cudaStream_t stream) {
+    if (k < 1 || k > TOPK_KMAX || nprobe < 1 || D < 1 || Q < 1 || splits < 1 || rps < 1 ||
+        U < 1 || pitch % 16 != 0 || planes < 1)
         return kUnsupported;
+    const size_t merge_smem = (size_t)nprobe * splits * 12;   // ivf_merge_kernel's heads
+    if (merge_smem > kMergeSmemMax) return kUnsupported;
+    const int P = Q * nprobe;
+    const PlanSpace sp = carve(ws, U, P, H);
+    int status = launch_plan(base, cnt, P, nprobe, n, rps, U, H, sp, stream);
     if (status != 0) return status;
-    ivf_merge_kernel<<<Q, 32, nprobe * sizeof(int), stream>>>(
-        part_s, part_w, base, nprobe, k, static_cast<float*>(out_s),
-        static_cast<int*>(out_pos));
+    const int chunks = pitch / 16;
+    const size_t total = (size_t)planes * P * chunks;
+    const int blocks = (int)std::min<size_t>((total + 255) / 256, 4096);
+    ivf_gather_kernel<<<blocks, 256, 0, stream>>>(
+        static_cast<const uint4*>(q_src), static_cast<uint4*>(q_op), sp.qrow, P, Q, planes,
+        chunks, static_cast<const float*>(scale_src), static_cast<float*>(scale_op));
+    if ((status = (int)cudaGetLastError()) != 0) return status;
+    if (M > 0) {   // no rows: every pair's count is 0 and the merge reads no list
+        status = launch_ivf_scan_wg(mode, mat, q_op, static_cast<const unsigned char*>(mask),
+                                    static_cast<const float*>(scale_op), sp.work, sp.n_work, U,
+                                    D, P, M, k, n, part_s, part_i, stream);
+        if (status != 0) return status;
+    }
+    cudaError_t err = cudaFuncSetAttribute(
+        ivf_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)merge_smem);
+    if (err != cudaSuccess) return (int)err;
+    ivf_merge_kernel<<<Q, kMergeThreads, merge_smem, stream>>>(part_s, part_i, sp.slot, cnt, P,
+                                                               nprobe, splits, rps, k, out_s,
+                                                               out_pos);
     return (int)cudaGetLastError();
 }
 
 }  // namespace rv
 
-extern "C" int rv_ivf_scan(const void* mat, const void* q, const void* row_scale,
-                           const void* base, const void* cnt, const void* mask, int D,
-                           int Q, int nprobe, int k, void* part_s, void* part_w,
-                           void* out_s, void* out_pos, int mode, void* stream) {
-    return rv::launch_ivf_scan(mat, q, row_scale, base, cnt, mask, D, Q, nprobe, k,
-                               part_s, part_w, out_s, out_pos, mode,
-                               static_cast<cudaStream_t>(stream));
+// The plan alone (tests hold it against its contract): base, cnt [Q *
+// nprobe] int32, ws the workspace (carve, ops/ivf_scan.py::workspace_ints).
+extern "C" int rv_ivf_plan(const void* base, const void* cnt, void* ws, int U, int H, int Q,
+                           int nprobe, int n, int rps, void* stream) {
+    const int P = Q * nprobe;
+    return rv::launch_plan(static_cast<const int*>(base), static_cast<const int*>(cnt), P,
+                           nprobe, n, rps, U, H, rv::carve(static_cast<int*>(ws), U, P, H),
+                           static_cast<cudaStream_t>(stream));
+}
+
+// mode: kBFloat16 / kFloat32 (q_src the bf16 rows [Q, D8] / their three
+// bf16 parts [3, Q, D8]) or kInt8 (q_src the digits [2, Q, D16], scale_src
+// [Q]); q_op / scale_op their gathered copies ([planes, Q * nprobe, pitch]
+// / [Q * nprobe]); ws the plan's workspace; part_s / part_i [splits][Q *
+// nprobe][k] scratch.
+extern "C" int rv_ivf_scan(const void* mat, const void* q_src, void* q_op, int planes,
+                           int pitch, const void* scale_src, void* scale_op, const void* mask,
+                           const void* base, const void* cnt, void* ws, int U, int H, int D,
+                           int M, int Q, int nprobe, int k, int n, int splits, int rps,
+                           void* part_s, void* part_i, void* out_s, void* out_pos, int mode,
+                           void* stream) {
+    return rv::launch_ivf(mat, q_src, q_op, planes, pitch, scale_src, scale_op, mask,
+                          static_cast<const int*>(base), static_cast<const int*>(cnt),
+                          static_cast<int*>(ws), U, H, D, M, Q, nprobe, k, n, splits, rps,
+                          static_cast<float*>(part_s), static_cast<int*>(part_i),
+                          static_cast<float*>(out_s), static_cast<int*>(out_pos), mode,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -12,7 +12,9 @@
 // and reverso_tpu/ops/topk_int8.py::_topk_int8_kernel (entry
 // cosine_topk_int8): int8 rows with per-row f32 scales against one int8
 // digit per query with a per-query scale, the candidate stage of the
-// two-stage search (K12, `rv_topk_int8_rows`).
+// two-stage search (K12, `rv_topk_int8_rows`). The IVF probed scan (K11,
+// csrc/ivf_scan.cu) runs the bf16, fp32 and int8 modes over a work table
+// (`launch_ivf`).
 // Every mode but K12 takes the optional [N] uint8 row mask.
 //
 // What bounds it on the H100 (published SXM peaks, 700 W), at 1M x 1024:
@@ -251,14 +253,21 @@ __host__ __device__ constexpr int cand_slots(int n) {
     return kSlotBytes / 8 / n < 8 ? 8 : kSlotBytes / 8 / n > 32 ? 32 : kSlotBytes / 8 / n;
 }
 
+// whether a CTA keeps a scale per query column: K12's query scales, and
+// the IVF scan's int8 scales (one a (query, probe) pair)
+__host__ __device__ constexpr bool q_scales(int mode, bool ivf) {
+    return mode == kModeI8Rows || (ivf && mode == kModeI8);
+}
+
 // 1 KB of alignment, binary mode's chunk ring, the ring, the sorted lists
-// ([N][k | 1]), the candidate slots, the k-th entries and counts, K12's
+// ([N][k | 1]), the candidate slots, the k-th entries and counts, the
 // query scales, the consumer warps' merge scratch ([8][128] pairs), the
 // barriers
-__host__ __device__ inline size_t smem_bytes(int n, int k, int mode, int stages) {
+__host__ __device__ inline size_t smem_bytes(int n, int k, int mode, int stages,
+                                             bool ivf = false) {
     return 1024 + (mode == kModeBin ? 2 * kRows * m_tiles(n) * kChunk : 0) +
            (size_t)stages * stage_bytes(n, mode) +
-           (size_t)n * (8 * (k | 1) + 8 * cand_slots(n) + 12 + (mode == kModeI8Rows ? 4 : 0)) +
+           (size_t)n * (8 * (k | 1) + 8 * cand_slots(n) + 12 + (q_scales(mode, ivf) ? 4 : 0)) +
            8 * 8 * TOPK_KMAX + 16 * (kMaxStages + 2);
 }
 
@@ -270,6 +279,13 @@ struct Plan {
     int n, q_blocks, stages;
 };
 
+// as many stages (2 .. 8) as fit beside query blocks of n
+inline int stages_at(int n, int k, int mode, bool ivf) {
+    int stages = 2;
+    while (stages < kMaxStages && smem_bytes(n, k, mode, stages + 1, ivf) <= kSmemMax) ++stages;
+    return stages;
+}
+
 inline Plan plan(int Q, int k, int mode) {
     int nmax = 8;
     for (int n = n_cap(mode); n >= 8; n /= 2)
@@ -278,9 +294,7 @@ inline Plan plan(int Q, int k, int mode) {
     const int per = ceil_div(Q, q_blocks);
     int n = 8;
     while (n < per) n *= 2;
-    int stages = 2;
-    while (stages < kMaxStages && smem_bytes(n, k, mode, stages + 1) <= kSmemMax) ++stages;
-    return {n, q_blocks, stages};
+    return {n, q_blocks, stages_at(n, k, mode, false)};
 }
 
 // bits 2p and 2p + 1 of the byte x as a bf16 pair of +-1 (bit 1 -> +1), low
@@ -389,7 +403,18 @@ __device__ __forceinline__ void fence_step(float (&step)[MT][NW], uint32_t (&fr)
 __device__ __forceinline__ float score_of(float acc) { return acc; }
 __device__ __forceinline__ float score_of(int acc) { return __int_as_float(acc); }   // int8 modes
 
-template <int N, int MODE>
+// a CTA's slice of the scan: rows r_begin .. r_end - 1, query columns q0 ..
+// q0 + nq - 1 of the query operand, and the split its partial lists go to
+struct Slice {
+    int r_begin, r_end, q0, nq, split;
+};
+
+// IVF: false, a CTA scans one (row split, query block) of the grid; true
+// (K11), the CTAs walk the work table `work` ([items][5]: a Slice each;
+// *n_work items, written by the plan on the card) at a stride of the grid,
+// and int8 scores take the column's scale (q_scale, one a column of the
+// query operand) before the gate
+template <int N, int MODE, bool IVF>
 __global__ void __launch_bounds__(threads_of(MODE), 1)
 topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap qmap,
@@ -397,6 +422,7 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
                     const unsigned char* __restrict__ mask, const float* __restrict__ q_scale,
                     const float* __restrict__ row_scale, int Q, int n_valid, int k,
                     int n_k, int rows_per_split, int stages,
+                    const int* __restrict__ work, const int* __restrict__ n_work,
                     float* __restrict__ part_s, int* __restrict__ part_i) {
     constexpr bool BIN = MODE == kModeBin;
     constexpr bool I8 = MODE == kModeI8 || MODE == kModeI8Rows;
@@ -412,6 +438,7 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     constexpr int NV = N / 2;                        // scores of one m64 tile a thread holds
     constexpr int NP = (MT * NV + 31) / 32;          // words of its pending bits
     constexpr int NC = cand_slots(N);                // candidate slots per query
+    constexpr bool QSC = q_scales(MODE, IVF);        // a scale per query column
     constexpr unsigned FULL = 0xffffffffu;
     using Acc = std::conditional_t<I8, int, float>;  // s32 sums, or fp32
     extern __shared__ uint8_t smem_raw[];
@@ -426,30 +453,50 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
     float* kth_s = reinterpret_cast<float*>(cand_i + NC * N);         // [N] the k-th entry
     int* kth_i = reinterpret_cast<int*>(kth_s + N);                   // [N]
     int* cnt = kth_i + N;                                             // [N] candidates
-    float* qsc = reinterpret_cast<float*>(cnt + N);                   // K12: [N] query scales
-    float* xs = qsc + (MODE == kModeI8Rows ? N : 0);                  // [8][TOPK_KMAX] scratch
+    float* qsc = reinterpret_cast<float*>(cnt + N);                   // QSC: [N] query scales
+    float* xs = qsc + (QSC ? N : 0);                                  // [8][TOPK_KMAX] scratch
     int* xi = reinterpret_cast<int*>(xs + 8 * TOPK_KMAX);             // [8][TOPK_KMAX]
     uint64_t* full = reinterpret_cast<uint64_t*>(xi + 8 * TOPK_KMAX);
     uint64_t* empty = full + kMaxStages;
     uint64_t* cfull = empty + kMaxStages;                             // the chunk ring's
     uint64_t* cempty = cfull + 2;
 
-    const int split = blockIdx.x, q0 = blockIdx.y * N;
-    const int r_begin = split * rows_per_split;
-    const int r_end = min(n_valid, r_begin + rows_per_split);
-    const int n_tiles = r_end > r_begin ? ceil_div(r_end - r_begin, ROWS) : 0;
-    const int nq = min(N, Q - q0);
-
-    for (int idx = threadIdx.x; idx < kp * N; idx += THREADS) {
-        st_s[idx] = -CUDART_INF_F;
-        st_i[idx] = -1;
-    }
-    for (int idx = threadIdx.x; idx < N; idx += THREADS) {
-        kth_s[idx] = -CUDART_INF_F;
-        kth_i[idx] = -1;
-        cnt[idx] = 0;
-        if (MODE == kModeI8Rows) qsc[idx] = idx < nq ? q_scale[q0 + idx] : 0.f;
-    }
+    const int n_items = IVF ? *n_work : 1;
+    const int item0 = IVF ? blockIdx.x : 0, item_step = IVF ? gridDim.x : 1;
+    auto slice_of = [&](int item) {
+        Slice out{0, 0, 0, 0, 0};
+        if constexpr (IVF) {
+            if (item < n_items) {
+                const int* w = work + 5 * (size_t)item;
+                out = Slice{w[0], w[1], w[2], w[3], w[4]};
+            }
+        } else {
+            out.split = blockIdx.x;
+            out.q0 = blockIdx.y * N;
+            out.r_begin = out.split * rows_per_split;
+            out.r_end = min(n_valid, out.r_begin + rows_per_split);
+            out.nq = min(N, Q - out.q0);
+        }
+        return out;
+    };
+    auto n_tiles_of = [&](const Slice& sl) {
+        return sl.r_end > sl.r_begin ? ceil_div(sl.r_end - sl.r_begin, ROWS) : 0;
+    };
+    // empty sorted lists, k-th entries at -inf, the slice's query scales
+    auto init_lists = [&](const Slice& sl, int tid, int n_threads) {
+        for (int idx = tid; idx < kp * N; idx += n_threads) {
+            st_s[idx] = -CUDART_INF_F;
+            st_i[idx] = -1;
+        }
+        for (int idx = tid; idx < N; idx += n_threads) {
+            kth_s[idx] = -CUDART_INF_F;
+            kth_i[idx] = -1;
+            cnt[idx] = 0;
+            if (QSC) qsc[idx] = idx < sl.nq ? q_scale[sl.q0 + idx] : 0.f;
+        }
+    };
+    Slice sl = slice_of(item0);
+    init_lists(sl, threadIdx.x, THREADS);
     if (threadIdx.x == 0) {
         for (int s = 0; s < stages; ++s) {
             mbar_init(&full[s], 32);   // the producer warp's lanes
@@ -474,47 +521,51 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
             setmaxnreg_dec<kF32ProducerRegs>();
             if (threadIdx.x >= kConsumers + 32) return;
         }
-        int jc = 0;
-        for (int t = 0; t < n_tiles; ++t) {
-            const int r0 = r_begin + t * ROWS;
-            for (int ks = 0; ks < n_k; ++ks) {
-                if (BIN && ks % kChunkSteps == 0) {
-                    const int cs = jc % 2, c0 = (ks / kChunkSteps) * kChunk;
-                    mbar_wait(&cempty[cs], ((jc / 2) & 1) ^ 1);
-                    uint8_t* dst = chunks + cs * ROWS * kChunk;
-                    if (rows != nullptr) {
-                        copy_rows<ROWS>(dst, rows, row_bytes, r0, r_end, c0, false, lane);
-                        mbar_arrive(&cfull[cs]);
-                    } else if (lane == 0) {
-                        mbar_expect_tx(&cfull[cs], ROWS * kChunk);
-                        tma_load_2d(dst, &amap, &cfull[cs], c0, r0);
-                    } else {
-                        mbar_arrive(&cfull[cs]);
+        int jc = 0, j = 0;
+        for (int item = item0; item < n_items; item += item_step) {
+            const Slice ps = slice_of(item);
+            const int r_end = ps.r_end, q0 = ps.q0, n_tiles = n_tiles_of(ps);
+            for (int t = 0; t < n_tiles; ++t) {
+                const int r0 = ps.r_begin + t * ROWS;
+                for (int ks = 0; ks < n_k; ++ks, ++j) {
+                    if (BIN && ks % kChunkSteps == 0) {
+                        const int cs = jc % 2, c0 = (ks / kChunkSteps) * kChunk;
+                        mbar_wait(&cempty[cs], ((jc / 2) & 1) ^ 1);
+                        uint8_t* dst = chunks + cs * ROWS * kChunk;
+                        if (rows != nullptr) {
+                            copy_rows<ROWS>(dst, rows, row_bytes, r0, r_end, c0, false, lane);
+                            mbar_arrive(&cfull[cs]);
+                        } else if (lane == 0) {
+                            mbar_expect_tx(&cfull[cs], ROWS * kChunk);
+                            tma_load_2d(dst, &amap, &cfull[cs], c0, r0);
+                        } else {
+                            mbar_arrive(&cfull[cs]);
+                        }
+                        ++jc;
                     }
-                    ++jc;
-                }
-                const int j = t * n_k + ks, s = j % stages;
-                mbar_wait(&empty[s], ((j / stages) & 1) ^ 1);
-                uint8_t* st = ring + s * STAGE;
-                const bool copy = !BIN && rows != nullptr;
-                if (copy) {   // wgmma reads them through the async proxy
-                    copy_rows<ROWS>(st, rows, row_bytes, r0, r_end, ks * 128, true, lane);
-                    fence_proxy_async();
-                }
-                if (lane == 0) {
-                    mbar_expect_tx(&full[s], (copy ? 0 : A_BYTES) + QB);
-                    if (!BIN && !copy) tma_load_2d(st, &amap, &full[s], ks * KS, r0);
-                    if constexpr (F32) {   // the parts, [3][Q][pitch]: one load each
+                    const int s = j % stages;
+                    mbar_wait(&empty[s], ((j / stages) & 1) ^ 1);
+                    uint8_t* st = ring + s * STAGE;
+                    const bool copy = !BIN && rows != nullptr;
+                    if (copy) {   // wgmma reads them through the async proxy
+                        copy_rows<ROWS>(st, rows, row_bytes, r0, r_end, ks * 128, true, lane);
+                        fence_proxy_async();
+                    }
+                    if (lane == 0) {
+                        mbar_expect_tx(&full[s], (copy ? 0 : A_BYTES) + QB);
+                        if (!BIN && !copy) tma_load_2d(st, &amap, &full[s], ks * KS, r0);
+                        if constexpr (F32) {   // the parts, [3][Q][pitch]: one load each
 #pragma unroll
-                        for (int p = 0; p < 3; ++p)
-                            tma_load_3d(st + A_BYTES + p * N * 64, &qmap, &full[s], ks * KS, q0, p);
+                            for (int p = 0; p < 3; ++p)
+                                tma_load_3d(st + A_BYTES + p * N * 64, &qmap, &full[s], ks * KS, q0, p);
+                        } else {
+                            tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * KS, q0);
+                        }
+                        if (MODE == kModeI8)   // the lo digits, rows Q .. 2Q - 1 of the map
+                            tma_load_2d(st + A_BYTES + N * 128, &qmap, &full[s], ks * KS, Q + q0);
                     } else {
-                        tma_load_2d(st + A_BYTES, &qmap, &full[s], ks * KS, q0);
+                        mbar_arrive(&full[s]);
                     }
-                    if (MODE == kModeI8)   // the lo digits, rows Q .. 2Q - 1 of the map
-                        tma_load_2d(st + A_BYTES + N * 128, &qmap, &full[s], ks * KS, Q + q0);
-                } else {
-                    mbar_arrive(&full[s]);
                 }
             }
         }
@@ -614,271 +665,326 @@ topk_scan_wg_kernel(const __grid_constant__ CUtensorMap amap,
 
     RV_PROF(long long p_mma = 0, p_gate = 0, p_flush = 0, p_early = 0, p_wait = 0;
             int p_rounds = 0;)
-    for (int t = 0; t < n_tiles; ++t) {
-        RV_PROF(const long long c0 = clock64();)
-        const int r0 = r_begin + t * ROWS;
-        int row_a[MT], row_b[MT];
-        bool ok_a[MT], ok_b[MT];
-        float rs_a[MT], rs_b[MT];   // K12's row scales
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            row_a[mt] = r0 + rr + 64 * mt;
-            row_b[mt] = row_a[mt] + 8;
-            ok_a[mt] = row_a[mt] < r_end && (mask == nullptr || mask[row_a[mt]] != 0);
-            ok_b[mt] = row_b[mt] < r_end && (mask == nullptr || mask[row_b[mt]] != 0);
-            if (MODE == kModeI8Rows) {   // read as the mask is: the tile's rows of this thread
-                rs_a[mt] = row_a[mt] < r_end ? row_scale[row_a[mt]] : 0.f;
-                rs_b[mt] = row_b[mt] < r_end ? row_scale[row_b[mt]] : 0.f;
-            }
+    for (int item = item0; item < n_items; item += item_step) {
+        if (item != item0) {   // the IVF scan's next item: the last one's lists are written out
+            sl = slice_of(item);
+            named_bar_sync(1, kConsumers);
+            init_lists(sl, ctid, kConsumers);
+            named_bar_sync(1, kConsumers);
         }
-        if constexpr (BIN) {
-            uint32_t fa[MT][4][4], fb[MT][4][4];
-            // two fragment buffers at N = 128: a step's unpack beside the last step's products
-            if constexpr (MT == 1 && N <= 128) {
-                for (int ks = 0; ks < n_k; ks += 2) {
-                    bin_issue(fa, ks, j + ks);
-                    if (ks > 0) {
-                        wgmma_wait<1>();
-                        fence_frag(fb);
-                        release(j + ks - 1);
-                    }
-                    if (ks + 1 < n_k) {
-                        bin_issue(fb, ks + 1, j + ks + 1);
-                        wgmma_wait<1>();
-                        fence_frag(fa);
-                        release(j + ks);
-                    }
-                }
-            } else {   // one buffer: two m64 tiles (N <= 64) or N = 256 fill the registers
-                for (int ks = 0; ks < n_k; ++ks) {
-                    if (ks > 0) {
-                        wgmma_wait<0>();
-                        fence_frag(fa);
-                        release(j + ks - 1);
-                    }
-                    bin_issue(fa, ks, j + ks);
-                }
-            }
-            wgmma_wait<0>();
-            fence_frag(fa);
-            fence_frag(fb);
-            j += n_k;
-            release(j - 1);
-        } else if constexpr (F32) {
-            // a stage: 32 dims, two k16 steps; its twelve products an m64
-            // tile in `step`, added to the score on the CUDA cores once they
-            // are done. (Splitting the next stage into a second fragment
-            // buffer while a stage's products run spilled at N = 128 and was
-            // slower: scripts/topk_scan_probe.py, PERF.md section 6.)
-            float step[MT][W / 2];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int i = 0; i < W / 2; ++i) step[mt][i] = 0.f;
-            for (int ks = 0; ks < n_k; ++ks, ++j) {
-                const int s = j % stages;
-                const uint32_t qp = ring_addr + s * STAGE + A_BYTES;   // the query's parts
-                mbar_wait(&full[s], (j / stages) & 1);
-                uint32_t fr[MT][2][3][4];   // [m64 tile][k16 step][part][register]
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int kk = 0; kk < 2; ++kk)
-                        split_frag(ring + s * STAGE, rr + 64 * mt, 16 * kk + 2 * t4, fr[mt][kk]);
-                // the fragments and the step accumulator are written before
-                // wgmma.fence, as PTX requires of an asynchronous product's
-                // registers (fence_operand keeps the compiler from sinking
-                // the split past it)
-                fence_step(step, fr);
-                wgmma_fence();
-#pragma unroll
-                for (int t = 0; t < kSplitTerms; ++t)
-#pragma unroll
-                    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-                        for (int mt = 0; mt < MT; ++mt)
-                            WgmmaRSK<N>::run(
-                                step[mt], fr[mt][kk][split_part(t, 0)],
-                                gmma_desc(qp + split_part(t, 1) * N * 64 + kk * 32, 16, 512, 2),
-                                t > 0 || kk > 0);
-                wgmma_commit();
-                wgmma_wait<0>();
-                fence_step(step, fr);
-                release(j);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int i = 0; i < W / 2; ++i)
-                        acc[mt][i] = ks > 0 ? __fadd_rn(acc[mt][i], step[mt][i]) : step[mt][i];
-            }
-        } else {
-            for (int ks = 0; ks < n_k; ++ks, ++j) {
-                const int s = j % stages;
-                const uint32_t st = ring_addr + s * STAGE;
-                mbar_wait(&full[s], (j / stages) & 1);
-                wgmma_fence();
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk)   // k16 (bf16) or k32 (s8) steps: 32 bytes each
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt) {
-                        const uint64_t da =
-                            gmma_desc(st + (wg * MT + mt) * 64 * 128 + kk * 32, 16, 1024, 1);
-                        const uint64_t db = gmma_desc(st + A_BYTES + kk * 32, 16, 1024, 1);
-                        if constexpr (I8)
-                            WgmmaSS8<W>::run(acc[mt], da, db, (ks > 0 || kk > 0) ? 1 : 0);
-                        else
-                            WgmmaSS<N>::run(acc[mt], da, db, (ks > 0 || kk > 0) ? 1 : 0);
-                    }
-                wgmma_commit();
-                wgmma_wait<1>();   // step j - 1's products are done: release its stage
-                if (ks > 0) release(j - 1);
-            }
-            wgmma_wait<0>();
-            release(j - 1);
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) fence_operand(acc[mt]);
-
-        // ---- the int8 score steps, in registers: the f32 score replaces the
-        // s32 dot of the query's (hi) column; acc[mt][r + NV] is column + N ----
-        if constexpr (MODE == kModeI8) {
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int r = 0; r < NV; ++r)
-                    acc[mt][r] = __float_as_int(__fadd_rn(
-                        __fmul_rn(__int2float_rn(acc[mt][r]), 254.f), __int2float_rn(acc[mt][r + NV])));
-        } else if constexpr (MODE == kModeI8Rows) {
-#pragma unroll
-            for (int i = 0; i < N / 8; ++i) {
-                const float2 qs = *reinterpret_cast<const float2*>(qsc + 8 * i + 2 * t4);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        acc[mt][4 * i + e] = __float_as_int(__fmul_rn(
-                            __fmul_rn(__int2float_rn(acc[mt][4 * i + e]), (e & 1) ? qs.y : qs.x),
-                            e < 2 ? rs_a[mt] : rs_b[mt]));
-            }
-        }
-        RV_PROF(const long long c1 = clock64(); p_mma += c1 - c0;)
-
-        // ---- gate: acc[mt][4 i + e] is row (e < 2 ? row_a : row_b)[mt],
-        // query column 8 i + 2 t4 + (e & 1); its pending bit mt NV + 4 i + e ----
-        bool active = false;
-#pragma unroll
-        for (int w = 0; w < NP; ++w) pend[w] = 0u;
-#pragma unroll
-        for (int i = 0; i < N / 8; ++i) {
-            const int col = 8 * i + 2 * t4;
-            const float2 ts = *reinterpret_cast<const float2*>(kth_s + col);
-            const int2 ti = *reinterpret_cast<const int2*>(kth_i + col);
+        const int r_end = sl.r_end, nq = sl.nq, n_tiles = n_tiles_of(sl);
+        for (int t = 0; t < n_tiles; ++t) {
+            RV_PROF(const long long c0 = clock64();)
+            const int r0 = sl.r_begin + t * ROWS;
+            int row_a[MT], row_b[MT];
+            bool ok_a[MT], ok_b[MT];
+            float rs_a[MT], rs_b[MT];   // K12's row scales
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
-                bool p[4];
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    p[e] = (e < 2 ? ok_a[mt] : ok_b[mt]) && col + (e & 1) < nq &&
-                           better(score_of(acc[mt][4 * i + e]), e < 2 ? row_a[mt] : row_b[mt],
-                                  (e & 1) ? ts.y : ts.x, (e & 1) ? ti.y : ti.x);
-                if (__ballot_sync(FULL, p[0] || p[1] || p[2] || p[3]) == 0u) continue;
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int idx = mt * NV + 4 * i + e;
-                    if (offer(p[e], col + (e & 1), score_of(acc[mt][4 * i + e]),
-                              e < 2 ? row_a[mt] : row_b[mt], active))
-                        pend[idx / 32] |= 1u << (idx % 32);
+                row_a[mt] = r0 + rr + 64 * mt;
+                row_b[mt] = row_a[mt] + 8;
+                ok_a[mt] = row_a[mt] < r_end && (mask == nullptr || mask[row_a[mt]] != 0);
+                ok_b[mt] = row_b[mt] < r_end && (mask == nullptr || mask[row_b[mt]] != 0);
+                if (MODE == kModeI8Rows) {   // read as the mask is: the tile's rows of this thread
+                    rs_a[mt] = row_a[mt] < r_end ? row_scale[row_a[mt]] : 0.f;
+                    rs_b[mt] = row_b[mt] < r_end ? row_scale[row_b[mt]] : 0.f;
                 }
             }
-        }
-        RV_PROF(const long long c2 = clock64(); p_gate += c2 - c1;)
-        // ---- select rounds: each query's thread inserts its candidates;
-        // then the scores that found the slots full are gated again ----
-        for (;;) {
-            RV_PROF(const long long b0 = clock64();)
-            const bool any = named_bar_or(1, kConsumers, active);
-            RV_PROF(p_wait += clock64() - b0;)
-            if (!any) break;
-            RV_PROF(++p_rounds;)
-            // a query whose candidates need few shifts (nc k <= kSerial):
-            // its own thread inserts them from the list's end; the others,
-            // warp q % 8 merges in one pass
-            const int q = ctid;
-            const int nc = q < nq ? min(cnt[q], NC) : 0;
-            if (nc > 0 && nc * k <= kSerial) {
-                float* S = st_s + q * kp;
-                int* I = st_i + q * kp;
-                for (int e = 0; e < nc; ++e) {
-                    const float sv = cand_s[e * N + q];
-                    const int iv = cand_i[e * N + q];
-                    if (!better(sv, iv, S[k - 1], I[k - 1])) continue;
-                    int pp = k - 1;
-                    while (pp > 0 && better(sv, iv, S[pp - 1], I[pp - 1])) {
-                        S[pp] = S[pp - 1];
-                        I[pp] = I[pp - 1];
-                        --pp;
+            if constexpr (BIN) {
+                uint32_t fa[MT][4][4], fb[MT][4][4];
+                // two fragment buffers at N = 128: a step's unpack beside the last step's products
+                if constexpr (MT == 1 && N <= 128) {
+                    for (int ks = 0; ks < n_k; ks += 2) {
+                        bin_issue(fa, ks, j + ks);
+                        if (ks > 0) {
+                            wgmma_wait<1>();
+                            fence_frag(fb);
+                            release(j + ks - 1);
+                        }
+                        if (ks + 1 < n_k) {
+                            bin_issue(fb, ks + 1, j + ks + 1);
+                            wgmma_wait<1>();
+                            fence_frag(fa);
+                            release(j + ks);
+                        }
                     }
-                    S[pp] = sv;
-                    I[pp] = iv;
-                }
-                kth_s[q] = S[k - 1];
-                kth_i[q] = I[k - 1];
-                cnt[q] = 0;
-            }
-            {
-                const int w8 = ctid / 32, qq = w8 + 8 * lane;   // lane's query (N / 8 <= 32)
-                const int nh = lane < N / 8 && qq < nq ? min(cnt[qq], NC) : 0;
-                for (unsigned h = __ballot_sync(FULL, nh * k > kSerial); h != 0u; h &= h - 1u) {
-                    const int src = __ffs(h) - 1, qh = w8 + 8 * src;
-                    float* S = st_s + qh * kp;
-                    int* I = st_i + qh * kp;
-                    warp_merge(S, I, k, cand_s + qh, cand_i + qh, N, __shfl_sync(FULL, nh, src),
-                               xs + w8 * TOPK_KMAX, xi + w8 * TOPK_KMAX, lane);
-                    if (lane == src) {
-                        kth_s[qh] = S[k - 1];
-                        kth_i[qh] = I[k - 1];
-                        cnt[qh] = 0;
+                } else {   // one buffer: two m64 tiles (N <= 64) or N = 256 fill the registers
+                    for (int ks = 0; ks < n_k; ++ks) {
+                        if (ks > 0) {
+                            wgmma_wait<0>();
+                            fence_frag(fa);
+                            release(j + ks - 1);
+                        }
+                        bin_issue(fa, ks, j + ks);
                     }
                 }
+                wgmma_wait<0>();
+                fence_frag(fa);
+                fence_frag(fb);
+                j += n_k;
+                release(j - 1);
+            } else if constexpr (F32) {
+                // a stage: 32 dims, two k16 steps; its twelve products an m64
+                // tile in `step`, added to the score on the CUDA cores once they
+                // are done. (Splitting the next stage into a second fragment
+                // buffer while a stage's products run spilled at N = 128 and was
+                // slower: scripts/topk_scan_probe.py, PERF.md section 6.)
+                float step[MT][W / 2];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int i = 0; i < W / 2; ++i) step[mt][i] = 0.f;
+                for (int ks = 0; ks < n_k; ++ks, ++j) {
+                    const int s = j % stages;
+                    const uint32_t qp = ring_addr + s * STAGE + A_BYTES;   // the query's parts
+                    mbar_wait(&full[s], (j / stages) & 1);
+                    uint32_t fr[MT][2][3][4];   // [m64 tile][k16 step][part][register]
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int kk = 0; kk < 2; ++kk)
+                            split_frag(ring + s * STAGE, rr + 64 * mt, 16 * kk + 2 * t4, fr[mt][kk]);
+                    // the fragments and the step accumulator are written before
+                    // wgmma.fence, as PTX requires of an asynchronous product's
+                    // registers (fence_operand keeps the compiler from sinking
+                    // the split past it)
+                    fence_step(step, fr);
+                    wgmma_fence();
+#pragma unroll
+                    for (int t = 0; t < kSplitTerms; ++t)
+#pragma unroll
+                        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+                            for (int mt = 0; mt < MT; ++mt)
+                                WgmmaRSK<N>::run(
+                                    step[mt], fr[mt][kk][split_part(t, 0)],
+                                    gmma_desc(qp + split_part(t, 1) * N * 64 + kk * 32, 16, 512, 2),
+                                    t > 0 || kk > 0);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_step(step, fr);
+                    release(j);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int i = 0; i < W / 2; ++i)
+                            acc[mt][i] = ks > 0 ? __fadd_rn(acc[mt][i], step[mt][i]) : step[mt][i];
+                }
+            } else {
+                for (int ks = 0; ks < n_k; ++ks, ++j) {
+                    const int s = j % stages;
+                    const uint32_t st = ring_addr + s * STAGE;
+                    mbar_wait(&full[s], (j / stages) & 1);
+                    wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)   // k16 (bf16) or k32 (s8) steps: 32 bytes each
+#pragma unroll
+                        for (int mt = 0; mt < MT; ++mt) {
+                            const uint64_t da =
+                                gmma_desc(st + (wg * MT + mt) * 64 * 128 + kk * 32, 16, 1024, 1);
+                            const uint64_t db = gmma_desc(st + A_BYTES + kk * 32, 16, 1024, 1);
+                            if constexpr (I8)
+                                WgmmaSS8<W>::run(acc[mt], da, db, (ks > 0 || kk > 0) ? 1 : 0);
+                            else
+                                WgmmaSS<N>::run(acc[mt], da, db, (ks > 0 || kk > 0) ? 1 : 0);
+                        }
+                    wgmma_commit();
+                    wgmma_wait<1>();   // step j - 1's products are done: release its stage
+                    if (ks > 0) release(j - 1);
+                }
+                wgmma_wait<0>();
+                release(j - 1);
             }
-            RV_PROF(const long long b1 = clock64();)
-            named_bar_sync(1, kConsumers);
-            RV_PROF(p_wait += clock64() - b1;)
-            active = false;
-            bool any_pend = false;
 #pragma unroll
-            for (int w = 0; w < NP; ++w) any_pend = any_pend || pend[w] != 0u;
-            if (!__any_sync(FULL, any_pend)) continue;
+            for (int mt = 0; mt < MT; ++mt) fence_operand(acc[mt]);
+
+            // ---- the int8 score steps, in registers: the f32 score replaces the
+            // s32 dot of the query's (hi) column; acc[mt][r + NV] is column + N ----
+            if constexpr (MODE == kModeI8) {
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int r = 0; r < NV; ++r) {
+                        float v = __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][r]), 254.f),
+                                            __int2float_rn(acc[mt][r + NV]));
+                        if constexpr (IVF)   // the column's scale, before the gate (as the reference)
+                            v = __fmul_rn(v, qsc[8 * (r / 4) + 2 * t4 + (r & 1)]);
+                        acc[mt][r] = __float_as_int(v);
+                    }
+            } else if constexpr (MODE == kModeI8Rows) {
+#pragma unroll
+                for (int i = 0; i < N / 8; ++i) {
+                    const float2 qs = *reinterpret_cast<const float2*>(qsc + 8 * i + 2 * t4);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            acc[mt][4 * i + e] = __float_as_int(__fmul_rn(
+                                __fmul_rn(__int2float_rn(acc[mt][4 * i + e]), (e & 1) ? qs.y : qs.x),
+                                e < 2 ? rs_a[mt] : rs_b[mt]));
+                }
+            }
+            RV_PROF(const long long c1 = clock64(); p_mma += c1 - c0;)
+
+            // ---- IVF: an item's lists start empty, so on its first tile every
+            // score would pass the gate. Each column's k-th entry starts at a
+            // lower bound of the item's k-th best score instead: the k-th
+            // largest of the tile's 32 row groups' maxima (k <= 32; a group:
+            // one warp's 8 rows of one m64 tile and half at MT = 2, 4 rows of
+            // its one at MT = 1). A score equal to it passes ----
+            if constexpr (IVF) {
+                if (t == 0 && k <= 32) {
+                    float* gmax = cand_s;   // [32][N]: the candidate slots are empty
+                    const int w8 = ctid / 32;
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) {
+                                const int col = 8 * i + 2 * t4 + (e & 1);
+                                float v = (e < 2 ? ok_a[mt] : ok_b[mt]) && col < nq
+                                              ? score_of(acc[mt][4 * i + e]) : -CUDART_INF_F;
+                                v = fmaxf(v, __shfl_xor_sync(FULL, v, 4));
+                                v = fmaxf(v, __shfl_xor_sync(FULL, v, 8));
+                                if (MT == 2) v = fmaxf(v, __shfl_xor_sync(FULL, v, 16));
+                                const int grp = (w8 * 2 + (MT == 2 ? mt : lane >> 4)) * 2 + (e >> 1);
+                                if ((lane & (MT == 2 ? 28 : 12)) == 0) gmax[grp * N + col] = v;
+                            }
+                    named_bar_sync(1, kConsumers);
+                    for (int c = w8; c < nq; c += 8) {   // warp w8's columns: a group a lane
+                        const float v = gmax[lane * N + c];
+                        int rank = 0;
+                        for (int o = 0; o < 32; ++o) {
+                            const float u = __shfl_sync(FULL, v, o);
+                            rank += (u > v || (u == v && o < lane)) ? 1 : 0;
+                        }
+                        if (rank == k - 1 && v != -CUDART_INF_F) {
+                            kth_s[c] = v;
+                            kth_i[c] = 0x7fffffff;
+                        }
+                    }
+                    named_bar_sync(1, kConsumers);
+                }
+            }
+
+            // ---- gate: acc[mt][4 i + e] is row (e < 2 ? row_a : row_b)[mt],
+            // query column 8 i + 2 t4 + (e & 1); its pending bit mt NV + 4 i + e ----
+            bool active = false;
+#pragma unroll
+            for (int w = 0; w < NP; ++w) pend[w] = 0u;
 #pragma unroll
             for (int i = 0; i < N / 8; ++i) {
+                const int col = 8 * i + 2 * t4;
+                const float2 ts = *reinterpret_cast<const float2*>(kth_s + col);
+                const int2 ti = *reinterpret_cast<const int2*>(kth_i + col);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int idx = mt * NV + 4 * i + e, c = 8 * i + 2 * t4 + (e & 1);
-                    const int row = e < 2 ? row_a[mt] : row_b[mt];
-                    const float v = score_of(acc[mt][4 * i + e]);
-                    const uint32_t bit = 1u << (idx % 32);
-                    const bool was = (pend[idx / 32] & bit) != 0u;
-                    pend[idx / 32] &= ~bit;
-                    if (offer(was && better(v, row, kth_s[c], kth_i[c]), c, v, row, active))
-                        pend[idx / 32] |= bit;
+                for (int mt = 0; mt < MT; ++mt) {
+                    bool p[4];
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        p[e] = (e < 2 ? ok_a[mt] : ok_b[mt]) && col + (e & 1) < nq &&
+                               better(score_of(acc[mt][4 * i + e]), e < 2 ? row_a[mt] : row_b[mt],
+                                      (e & 1) ? ts.y : ts.x, (e & 1) ? ti.y : ti.x);
+                    if (__ballot_sync(FULL, p[0] || p[1] || p[2] || p[3]) == 0u) continue;
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int idx = mt * NV + 4 * i + e;
+                        if (offer(p[e], col + (e & 1), score_of(acc[mt][4 * i + e]),
+                                  e < 2 ? row_a[mt] : row_b[mt], active))
+                            pend[idx / 32] |= 1u << (idx % 32);
+                    }
                 }
             }
+            RV_PROF(const long long c2 = clock64(); p_gate += c2 - c1;)
+            // ---- select rounds: each query's thread inserts its candidates;
+            // then the scores that found the slots full are gated again ----
+            for (;;) {
+                RV_PROF(const long long b0 = clock64();)
+                const bool any = named_bar_or(1, kConsumers, active);
+                RV_PROF(p_wait += clock64() - b0;)
+                if (!any) break;
+                RV_PROF(++p_rounds;)
+                // a query whose candidates need few shifts (nc k <= kSerial):
+                // its own thread inserts them from the list's end; the others,
+                // warp q % 8 merges in one pass
+                const int q = ctid;
+                const int nc = q < nq ? min(cnt[q], NC) : 0;
+                if (nc > 0 && nc * k <= kSerial) {
+                    float* S = st_s + q * kp;
+                    int* I = st_i + q * kp;
+                    for (int e = 0; e < nc; ++e) {
+                        const float sv = cand_s[e * N + q];
+                        const int iv = cand_i[e * N + q];
+                        if (!better(sv, iv, S[k - 1], I[k - 1])) continue;
+                        int pp = k - 1;
+                        while (pp > 0 && better(sv, iv, S[pp - 1], I[pp - 1])) {
+                            S[pp] = S[pp - 1];
+                            I[pp] = I[pp - 1];
+                            --pp;
+                        }
+                        S[pp] = sv;
+                        I[pp] = iv;
+                    }
+                    kth_s[q] = S[k - 1];
+                    kth_i[q] = I[k - 1];
+                    cnt[q] = 0;
+                }
+                {
+                    const int w8 = ctid / 32, qq = w8 + 8 * lane;   // lane's query (N / 8 <= 32)
+                    const int nh = lane < N / 8 && qq < nq ? min(cnt[qq], NC) : 0;
+                    for (unsigned h = __ballot_sync(FULL, nh * k > kSerial); h != 0u; h &= h - 1u) {
+                        const int src = __ffs(h) - 1, qh = w8 + 8 * src;
+                        float* S = st_s + qh * kp;
+                        int* I = st_i + qh * kp;
+                        warp_merge(S, I, k, cand_s + qh, cand_i + qh, N, __shfl_sync(FULL, nh, src),
+                                   xs + w8 * TOPK_KMAX, xi + w8 * TOPK_KMAX, lane);
+                        if (lane == src) {
+                            kth_s[qh] = S[k - 1];
+                            kth_i[qh] = I[k - 1];
+                            cnt[qh] = 0;
+                        }
+                    }
+                }
+                RV_PROF(const long long b1 = clock64();)
+                named_bar_sync(1, kConsumers);
+                RV_PROF(p_wait += clock64() - b1;)
+                active = false;
+                bool any_pend = false;
+#pragma unroll
+                for (int w = 0; w < NP; ++w) any_pend = any_pend || pend[w] != 0u;
+                if (!__any_sync(FULL, any_pend)) continue;
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int i = 0; i < N / 8; ++i) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int idx = mt * NV + 4 * i + e, c = 8 * i + 2 * t4 + (e & 1);
+                        const int row = e < 2 ? row_a[mt] : row_b[mt];
+                        const float v = score_of(acc[mt][4 * i + e]);
+                        const uint32_t bit = 1u << (idx % 32);
+                        const bool was = (pend[idx / 32] & bit) != 0u;
+                        pend[idx / 32] &= ~bit;
+                        if (offer(was && better(v, row, kth_s[c], kth_i[c]), c, v, row, active))
+                            pend[idx / 32] |= bit;
+                    }
+                }
+            }
+            RV_PROF(p_flush += clock64() - c2; if (t < 4) p_early += clock64() - c1;)
         }
-        RV_PROF(p_flush += clock64() - c2; if (t < 4) p_early += clock64() - c1;)
-    }
-    named_bar_sync(1, kConsumers);
-    RV_PROF(if (ctid == 0 && blockIdx.x == 0 && blockIdx.y == 0) printf(
-        "scan_wg Q=%d N=%d mode=%d masked=%d k=%d tiles=%d cycles: products %lld gate %lld "
-        "select %lld (barrier waits %lld; gate and select of tiles 0-3: %lld); rounds %d\n", Q,
-        N, MODE, (int)(mask != nullptr), k,
-        n_tiles, p_mma, p_gate, p_flush, p_wait, p_early, p_rounds);)
-    for (int idx = ctid; idx < nq * k; idx += kConsumers) {
-        const int q = idx / k, jj = idx % k;
-        const size_t o = ((size_t)split * Q + q0 + q) * k + jj;
-        part_s[o] = st_s[q * kp + jj];
-        part_i[o] = st_i[q * kp + jj];
+        named_bar_sync(1, kConsumers);
+        RV_PROF(if (ctid == 0 && blockIdx.x == 0 && blockIdx.y == 0) printf(
+            "scan_wg Q=%d N=%d mode=%d masked=%d k=%d tiles=%d cycles: products %lld gate %lld "
+            "select %lld (barrier waits %lld; gate and select of tiles 0-3: %lld); rounds %d\n", Q,
+            N, MODE, (int)(mask != nullptr), k,
+            n_tiles, p_mma, p_gate, p_flush, p_wait, p_early, p_rounds);)
+        for (int idx = ctid; idx < nq * k; idx += kConsumers) {
+            const int q = idx / k, jj = idx % k;
+            const size_t o = ((size_t)sl.split * Q + sl.q0 + q) * k + jj;
+            part_s[o] = st_s[q * kp + jj];
+            part_i[o] = st_i[q * kp + jj];
+        }
     }
 }
 
@@ -898,14 +1004,16 @@ static bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, cons
 }
 
 // launches one instantiation; *n_splits comes in as the caller's cap and
-// goes out as the splits launched: at most one wave (occupancy x SMs)
-template <int N, int MODE>
+// goes out as the splits launched: at most one wave (occupancy x SMs). The
+// IVF scan's cap is its work table's length, and its CTAs walk the table
+template <int N, int MODE, bool IVF>
 static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned char* rows,
                     int row_bytes, const unsigned char* mask, const float* q_scale,
                     const float* row_scale, int Q, int n_valid, int k, int n_k, const Plan& p,
-                    int* n_splits, float* part_s, int* part_i, cudaStream_t stream) {
-    auto kernel = topk_scan_wg_kernel<N, MODE>;
-    const size_t smem = smem_bytes(N, k, MODE, p.stages);
+                    int* n_splits, const int* work, const int* n_work, float* part_s,
+                    int* part_i, cudaStream_t stream) {
+    auto kernel = topk_scan_wg_kernel<N, MODE, IVF>;
+    const size_t smem = smem_bytes(N, k, MODE, p.stages, IVF);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -922,7 +1030,7 @@ static int launch_n(const CUtensorMap& am, const CUtensorMap& qm, const unsigned
     rows_per_split = ceil_div(rows_per_split, ROWS) * ROWS;
     kernel<<<dim3(*n_splits, p.q_blocks), threads_of(MODE), smem, stream>>>(
         am, qm, rows, row_bytes, mask, q_scale, row_scale, Q, n_valid, k, n_k, rows_per_split,
-        p.stages, part_s, part_i);
+        p.stages, work, n_work, part_s, part_i);
     return (int)cudaGetLastError();
 }
 
@@ -940,13 +1048,19 @@ static inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>
 //     q [Q, D16] int8 with q_scale [Q].
 // Rows that TMA cannot take (a row stride that is not a multiple of 16
 // bytes, or an unaligned base) are copied by the producer warp.
-template <int MODE>
+// IVF: the work table `work` of *n_work slices (at most *n_splits) in query
+// blocks of n_block over the Q columns of q; n_valid is the matrix's rows.
+template <int MODE, bool IVF = false>
 static int launch_wg(const void* db, const void* q, const unsigned char* mask,
                      const float* q_scale, const float* row_scale, int D, int Q, int n_valid,
-                     int k, int* n_splits, float* part_s, int* part_i, cudaStream_t stream) {
+                     int k, int* n_splits, float* part_s, int* part_i, cudaStream_t stream,
+                     const int* work = nullptr, const int* n_work = nullptr, int n_block = 0) {
     constexpr bool I8 = MODE == kModeI8 || MODE == kModeI8Rows;
     constexpr int esize = MODE == kModeF32 ? 4 : MODE == kModeBf16 ? 2 : 1;   // row bytes a dim
-    const Plan p = plan(Q, k, MODE);
+    if (IVF && (n_block < 8 || n_block > n_cap(MODE) || (n_block & (n_block - 1)) != 0 ||
+                smem_bytes(n_block, k, MODE, 2, true) > kSmemMax))
+        return kUnsupported;
+    const Plan p = IVF ? Plan{n_block, 1, stages_at(n_block, k, MODE, true)} : plan(Q, k, MODE);
     const int rows = kRows * m_tiles(width(p.n, MODE));   // the tile's rows: the rows' TMA box
     const int w16 = ceil_div(D, 16) * 16, d8 = ceil_div(D, 8) * 8;
     const int qcols = MODE == kModeBin ? 8 * w16 : I8 ? w16 : d8;
@@ -979,8 +1093,9 @@ static int launch_wg(const void* db, const void* q, const unsigned char* mask,
 #define RV_WG_CASE(NN)                                                                        \
     case NN:                                                                                  \
         if constexpr (NN <= n_cap(MODE))                                                      \
-            return launch_n<NN, MODE>(am, qm, copy, D * esize, mask, q_scale, row_scale, Q,   \
-                                      n_valid, k, n_k, p, n_splits, part_s, part_i, stream);  \
+            return launch_n<NN, MODE, IVF>(am, qm, copy, D * esize, mask, q_scale, row_scale, \
+                                           Q, n_valid, k, n_k, p, n_splits, work, n_work,     \
+                                           part_s, part_i, stream);                           \
         break;
         RV_WG_CASE(8) RV_WG_CASE(16) RV_WG_CASE(32) RV_WG_CASE(64) RV_WG_CASE(128)
 #undef RV_WG_CASE
@@ -989,6 +1104,32 @@ static int launch_wg(const void* db, const void* q, const unsigned char* mask,
 }
 
 }  // namespace scan_wg
+
+// K11's scan (csrc/ivf_scan.cu, which declares it): MODE's rows mat [M, D]
+// (kBFloat16, kFloat32 or kInt8) against the query operand of the P
+// (query, probe) pairs in cluster-major order (bf16 [P, D8]; fp32 its three
+// bf16 parts [3, P, D8]; int8 the digits [2, P, D16] with the pairs' scales
+// q_scale [P]), over the *n_work slices of `work` (at most n_work_max) in
+// query blocks of n; writes the slices' sorted lists to part_s / part_i
+// [splits][P][k] (slice (r_begin, r_end, q0, nq, split): rows [q0 + j,
+// split]).
+int launch_ivf_scan_wg(int mode, const void* mat, const void* q, const unsigned char* mask,
+                       const float* q_scale, const int* work, const int* n_work,
+                       int n_work_max, int D, int P, int M, int k, int n, float* part_s,
+                       int* part_i, cudaStream_t stream) {
+    using namespace scan_wg;
+    int ctas = n_work_max;
+    if (mode == kBFloat16)
+        return launch_wg<kModeBf16, true>(mat, q, mask, nullptr, nullptr, D, P, M, k, &ctas,
+                                          part_s, part_i, stream, work, n_work, n);
+    if (mode == kFloat32)
+        return launch_wg<kModeF32, true>(mat, q, mask, nullptr, nullptr, D, P, M, k, &ctas,
+                                         part_s, part_i, stream, work, n_work, n);
+    if (mode == kInt8)
+        return launch_wg<kModeI8, true>(mat, q, mask, q_scale, nullptr, D, P, M, k, &ctas,
+                                        part_s, part_i, stream, work, n_work, n);
+    return kUnsupported;
+}
 
 // One warp per query: k-way merge of the n_splits sorted partial lists.
 __global__ void topk_merge_kernel(const float* __restrict__ part_s,

@@ -55,9 +55,12 @@ _SIGNATURES = {
     "rv_topk_int8_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # db, q, mask, D, Q, n_valid, k, n_splits, part_s, part_i, out_s, out_i, mode, stream
     "rv_topk_stream": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    # mat, q, row_scale, base, cnt, mask, D, Q, nprobe, k, part_s, part_w,
-    # out_s, out_pos, mode, stream
-    "rv_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # mat, q_src, q_op, planes, pitch, scale_src, scale_op, mask, base, cnt, ws,
+    # U, H, D, M, Q, nprobe, k, n, splits, rps, part_s, part_i, out_s, out_pos,
+    # mode, stream
+    "rv_ivf_scan": [_P, _P, _P, _I, _I] + [_P] * 6 + [_I] * 10 + [_P] * 4 + [_I, _P],
+    # base, cnt, ws, U, H, Q, nprobe, n, rps, stream
+    "rv_ivf_plan": [_P, _P, _P] + [_I] * 6 + [_P],
     # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, out_dtype, stream
     "rv_flash_attn_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, stream
@@ -105,7 +108,7 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
 # H)): n, ("fused_mlp_tc", (T, W, H, act)): n, ("flash_heads_split", (B, S,
 # W, heads)): n, ("flash_heads_tc", (B, S, W, heads, rope)): n, ("ms_deform", (B,
 # Lq, level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
-# masked)): n, ("ivf_scan", (Q, nprobe, d, k, masked)): n}, fp32-row top-k
+# masked)): n, ("ivf_scan", (Q, nprobe, d, k, masked, mode)): n}, fp32-row top-k
 # launches under "topk_stream_f32"
 # (`ops/topk.py::launch_key`). Counted beside `launches`, which stays the
 # per-kernel count.

@@ -159,36 +159,38 @@ def wg_query_bytes(n: int, mode: int) -> int:
     return 3 * n * 64 if mode == WG_F32 else wg_width(n, mode) * 128
 
 
-def wg_smem(n: int, k: int, mode: int, stages: int) -> int:
+def wg_smem(n: int, k: int, mode: int, stages: int, ivf: bool = False) -> int:
     """Shared memory of one wgmma scan CTA (scan_wg::smem_bytes): 1 KB of
     alignment, the ring (a stage holds 128 bytes of each row but in binary
     mode, [128 m][128 B] with m = wg_m_tiles(wg_width(n)), then the query
     block's B operand, `wg_query_bytes`, rounded up to 1 KB), binary
     mode's two-slot ring of packed row chunks ([128 m][128 B] each), the
     sorted lists ([n][k | 1] score, index pairs), the candidate slots, the
-    k-th entries and counts, K12's query scales, the 8 consumer warps'
-    merge scratch (128 pairs each), and the barriers. `mode` is one of
-    WG_BF16, WG_BINARY (or False / True), WG_INT8, WG_INT8_ROWS, WG_F32."""
+    k-th entries and counts, the query scales (K12's, and the IVF scan's
+    in int8: `ivf`), the 8 consumer warps' merge scratch (128 pairs each),
+    and the barriers. `mode` is one of WG_BF16, WG_BINARY (or False /
+    True), WG_INT8, WG_INT8_ROWS, WG_F32."""
     w = wg_width(n, mode)
     rows = WG_ROWS * wg_m_tiles(w)
     ring = stages * ((0 if mode == WG_BINARY else rows * 128)
                      + -(-wg_query_bytes(n, mode) // 1024) * 1024)
     chunks = 2 * rows * 128 if mode == WG_BINARY else 0
-    scales = 4 * n if mode == WG_INT8_ROWS else 0
+    scales = 4 * n if mode == WG_INT8_ROWS or (ivf and mode == WG_INT8) else 0
     return (1024 + chunks + ring + n * (8 * (k | 1) + 8 * wg_cand(n) + 12) + scales
             + 8 * 8 * K_CAP + 16 * (WG_MAX_STAGES + 2))
 
 
-def wg_plan(qn: int, k: int, mode: int) -> tuple[int, int, int]:
+def wg_plan(qn: int, k: int, mode: int, ivf: bool = False) -> tuple[int, int, int]:
     """(n_pad, q_blocks, stages) of a wgmma scan launch (scan_wg::plan).
 
     The query block is the widest power of two <= 128 (64 in the int8
     modes) whose sorted lists fit beside a two-stage ring (the cap at
     every k <= 128); Q runs as ceil(Q / block) blocks of equal size, each
     padded to the power of two n_pad >= its size (wgmma's N, 8 at Q = 1),
-    and the ring takes as many stages (2-8) as fit."""
+    and the ring takes as many stages (2-8) as fit. `ivf`: the IVF
+    scan's shared memory (`wg_smem`)."""
     nmax = WG_N_MAX_INT8 if mode in (WG_INT8, WG_INT8_ROWS) else WG_N_MAX
-    while nmax > 8 and wg_smem(nmax, k, mode, 2) > SMEM_MAX:
+    while nmax > 8 and wg_smem(nmax, k, mode, 2, ivf) > SMEM_MAX:
         nmax //= 2
     q_blocks = -(-qn // nmax)
     per = -(-qn // q_blocks)
@@ -196,7 +198,7 @@ def wg_plan(qn: int, k: int, mode: int) -> tuple[int, int, int]:
     while n_pad < per:
         n_pad *= 2
     stages = 2
-    while stages < WG_MAX_STAGES and wg_smem(n_pad, k, mode, stages + 1) <= SMEM_MAX:
+    while stages < WG_MAX_STAGES and wg_smem(n_pad, k, mode, stages + 1, ivf) <= SMEM_MAX:
         stages += 1
     return n_pad, q_blocks, stages
 

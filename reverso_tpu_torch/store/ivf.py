@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.ivf_scan import ivf_probe_scan
-from ..ops.topk import _select_topk, int8_query_digits, INT8_D_MAX
+from ..ops.topk import _select_topk, as_row_mask, int8_query_digits, INT8_D_MAX
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -396,12 +396,10 @@ class IVFIndex:
                    device=device, _precomputed=pre)
 
     def _sorted_mask(self, row_mask) -> torch.Tensor:
-        """[n] original-id mask -> uint8 over sorted rows (spilled copies
-        inherit their row's bit)."""
-        m = np.zeros(self.n, bool)
-        src = np.asarray(row_mask, bool)
-        m[:min(len(src), self.n)] = src[:self.n]
-        return torch.from_numpy(m).to(self.device)[self.row_ids.long()].to(torch.uint8)
+        """[n] original-id mask (a host array or a tensor on any device;
+        entries past it are False) -> uint8 over sorted rows on the index's
+        device (spilled copies inherit their row's bit)."""
+        return as_row_mask(row_mask, self.n, self.device)[self.row_ids.long()]
 
     def search(self, queries, k: int, *, nprobe: int = 8, impl: str = "auto",
                row_mask=None):

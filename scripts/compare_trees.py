@@ -5,14 +5,16 @@ given (default: this checkout) on one card: each kernel's time
 shapes (K3 bf16 with RoPE at B = 8; K4 bf16 at T = 4616 and 36,928; K5 at
 T = 4616; K7 bf16 at B = 8, S = 1297 and fp32 at B = 2; K6 at SAM's
 shape with bf16 operands and on the split mode; the top-k scans over
-1M x 1024: K1 bf16 at Q = 256, K2 bf16 at Q = 64 with 10% of the rows
-kept, K9 at Q = 256, K10 at Q = 64 (k = 30, 10% kept), K12 at Q = 256
-(k_fetch = 40)), the PE-Core-L14-336 forwards at B = 64 in bf16 and
-int8 and at B = 8 in fp32 (`chip_smoke.py::profiled`: host wall, device
-busy, output hash) and the 32-image region build
-(`chip_smoke.py::region_run`). Prints one line, RESULT {json}.
+1M x 1024: K1 bf16 at Q = 256 and 64, K1 on fp32 rows at Q = 64, K2
+bf16 at Q = 64 with 10% of the rows kept, K9 at Q = 256, K10 at Q = 64
+(k = 30, 10% kept), K12 at Q = 256 (k_fetch = 40)), the PE-Core-L14-336
+forwards at B = 64 in bf16 and int8 and at B = 8 in fp32
+(`chip_smoke.py::profiled`: host wall, device busy, output hash) and the
+32-image region build (`chip_smoke.py::region_run`). With --scans, the
+top-k scans alone (a change to csrc/topk_stream.cu). Prints one line,
+RESULT {json}.
 
-    python3 scripts/compare_trees.py [tree root]
+    python3 scripts/compare_trees.py [tree root] [--scans]
 
 Run a parent checkout and the change in turns in one call (parent,
 change, change, parent): equal hashes mean equal outputs bit for bit.
@@ -29,7 +31,9 @@ import os
 import sys
 import tempfile
 
-ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+ARGS = [a for a in sys.argv[1:] if a != "--scans"]
+SCANS = "--scans" in sys.argv[1:]
+ROOT = os.path.abspath(ARGS[0] if ARGS else
                        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -42,9 +46,6 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from reverso_tpu_torch import kernels
-    from reverso_tpu_torch.config import MODEL_PRESETS
-    from reverso_tpu_torch.models.pe import PerceptionEncoder
-    from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -66,6 +67,19 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         res[name] = [round(cs.cuda_ms(fn, iters=iters), 4), digest(out)]
+
+    if not SCANS:
+        kernel_rows(torch, attn, mlp, kernels, r, row, bf16)
+    scan_rows(torch, r, row, bf16)
+    if not SCANS:
+        model_rows(torch, cs, res, digest)
+    print("RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def kernel_rows(torch, attn, mlp, kernels, r, row, bf16):
+    """K3, K4, K5, K7 and K6 at the main paths' shapes."""
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     cos, sin = (torch.from_numpy(a).cuda() for a in rope_2d_tables(24, 64))
     q, k, v = (r(8, 577, 1024, dt=bf16) for _ in range(3))
@@ -100,8 +114,11 @@ def main() -> int:
     row("k6_split", k6_split, iters=5)
     del q, k, v, bias, o
     torch.cuda.empty_cache()
-    # the top-k scans on bf16, int8 and packed rows, 1M x 1024 (K1, K2, K9,
-    # K10, K12 at the paths' and the Q = 256 rows' shapes)
+
+
+def scan_rows(torch, r, row, bf16):
+    """The top-k scans on bf16, fp32, int8 and packed rows, 1M x 1024 (K1,
+    K2, K9, K10, K12 at the paths' and the Q = 256 rows' shapes)."""
     topk = importlib.import_module("reverso_tpu_torch.ops.topk")
     tbin = importlib.import_module("reverso_tpu_torch.ops.binary")
     tk12 = importlib.import_module("reverso_tpu_torch.ops.topk_int8")
@@ -113,9 +130,13 @@ def main() -> int:
     db, qb = x.to(bf16), qf.to(bf16)
     row("k1_bf16_q256", lambda: torch.cat([t.float() for t in topk.cosine_topk(db, qb, 10)], 1),
         iters=10)
+    row("k1_bf16_q64", lambda: torch.cat([t.float() for t in topk.cosine_topk(
+        db, qb[:64], 10)], 1), iters=10)
     row("k2_bf16_q64", lambda: torch.cat([t.float() for t in topk.cosine_topk(
         db, qb[:64], 10, row_mask=folder3)], 1), iters=10)
     del db
+    row("k1_f32_q64", lambda: torch.cat([t.float() for t in topk.cosine_topk(
+        x, qf[:64], 10)], 1), iters=10)
     v8, scale = topk.quantize_db_int8(x)
     row("k9_q256", lambda: torch.cat([t.float() for t in topk.cosine_topk_int8_exact(
         v8, scale, qf, 10)], 1), iters=10)
@@ -130,6 +151,13 @@ def main() -> int:
         r8, rsc, q8, qsc, 40)], 1), iters=10)
     del x, r8, rsc, folder3
     torch.cuda.empty_cache()
+
+
+def model_rows(torch, cs, res, digest):
+    """The PE-Core-L14-336 forwards and the region build."""
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+
     imgs = torch.randn(64, 336, 336, 3, generator=torch.Generator().manual_seed(9)).cuda()
     for quant in ("none", "int8", "f32"):
         cfg = MODEL_PRESETS["PE-Core-L14-336"]
@@ -152,8 +180,6 @@ def main() -> int:
             cs.region_run(tmp)
         line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("region slice: ")][0]
         res["region_build_s"] = round(json.loads(line[len("region slice: "):])["build_s"], 3)
-    print("RESULT " + json.dumps(res), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

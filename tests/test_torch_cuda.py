@@ -628,32 +628,49 @@ def test_topk_tie_across_tiles_and_splits(dev, mode):
 
 
 @pytest.mark.parametrize("mode", ["bfloat16", "float32", "int8"])
-@pytest.mark.parametrize("q,nprobe,k,masked", [
-    (1, 4, 10, False),
-    (5, 16, 20, True),
-    (3, 16, 128, False),    # k at the cap
+@pytest.mark.parametrize("q,nprobe,k,masked,d", [
+    (1, 4, 10, False, 200),
+    (5, 16, 20, True, 200),
+    (3, 16, 128, False, 200),    # k at the cap
+    (2, 24, 10, True, 200),      # nprobe = every cluster
+    (150, 24, 10, False, 200),   # every cluster probed by more queries than the N cap
+    (1, 24, 10, True, 1024),     # d = 1024: int8 rows through TMA too
+    (150, 3, 16, True, 1024),
 ])
-def test_ivf_scan_kernel(dev, mode, q, nprobe, k, masked):
-    """K11 against the probe loop: ragged clusters (sizes 0, 1, 37, ...),
-    d = 200 (not a multiple of 128), probes of empty clusters."""
+def test_ivf_scan_kernel(dev, mode, q, nprobe, k, masked, d):
+    """K11 against the probe loop: ragged clusters (sizes 0, 1, 37, 700,
+    ...), the last cluster ending at the matrix's end (TMA reads zeros
+    past it), probes of empty clusters, d = 200 (int8 rows of 200 bytes
+    take the producer's copy, bf16 and fp32 TMA) and 1024. Query 0 probes
+    the 700-row cluster first, whose rows 200 and 300 are copies of the
+    query: at Q = 1 a split is one 256-row tile, so the tie straddles a
+    split's boundary, and both rows come back in row order."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.ivf_scan import ivf_probe_scan, ivf_probe_scan_ref
     from reverso_tpu_torch.ops.topk import int8_query_digits, quantize_db_int8
 
-    gen = torch.Generator(device="cuda").manual_seed(q * nprobe + k)
-    d, n_cl = 200, 24
+    gen = torch.Generator(device="cuda").manual_seed(q * nprobe + k + d)
+    n_cl = 24
     counts = torch.randint(0, 300, (n_cl,), generator=gen, device="cuda")
-    counts[:3] = torch.tensor([0, 1, 37], device="cuda")
+    counts[:4] = torch.tensor([0, 1, 37, 700], device="cuda")
+    counts[-1] = 120                              # the last cluster ends at the matrix's end
     offsets = torch.cumsum(counts, 0) - counts
     m = int(counts.sum())
     x = _unit_rows(gen, m, d)
     x[5] = x[4]                                   # a tie inside one cluster
     qs = _unit_rows(gen, q, d)
+    tie = int(offsets[3]) + 200
+    qs[0] = x[tie]
+    x[tie + 100] = x[tie]                         # its copy, across a split's boundary
+    forced = [3, n_cl - 1, 0]                     # the big, the last and an empty cluster
     probes = torch.stack([torch.randperm(n_cl, generator=gen, device="cuda")[:nprobe]
                           for _ in range(q)])
-    probes[0, 0] = 0                              # an empty cluster
+    rest = [c for c in probes[0].tolist() + list(range(n_cl)) if c not in forced]
+    probes[0] = torch.tensor((forced + list(dict.fromkeys(rest)))[:nprobe], device="cuda")
     base, cnt = offsets[probes].int(), counts[probes].int()
     mask = (torch.rand(m, generator=gen, device="cuda") < 0.6) if masked else None
+    if masked:
+        mask[[tie, tie + 100]] = True
     kw = dict(k=k, cmax=int(counts.max()), mask_sorted=mask)
     if mode == "int8":
         mat, scale = quantize_db_int8(x)
@@ -673,6 +690,57 @@ def test_ivf_scan_kernel(dev, mode, q, nprobe, k, masked):
         assert torch.equal(pos, rpos) and torch.equal(s, rs)
     else:
         _assert_topk_close(s, pos, rs, rpos, 1e-4)
+    assert pos[0, :2].tolist() == [tie, tie + 100] and float(s[0, 0]) == float(s[0, 1])
+
+
+@pytest.mark.parametrize("q,nprobe,n_cl,wg", [
+    (1, 16, 24, 0),        # Q = 1: one-tile splits
+    (5, 24, 24, 2),        # every cluster, int8 blocks
+    (150, 8, 24, 0),       # clusters probed by more pairs than a block
+    (64, 1024, 1024, 0),   # the exactness check's shape: P = 65,536
+    (3, 4, 4, 4),          # the same cluster twice in one query's probes
+])
+def test_ivf_plan_kernel(dev, q, nprobe, n_cl, wg):
+    """K11's plan kernel against the plan's contract (`check_plan`):
+    ragged clusters (empty, one row, 700 rows), the work table, the
+    places and the queries' rows, in the geometry the wrapper gives."""
+    from reverso_tpu_torch.ops.ivf_scan import check_plan, ivf_geometry, ivf_plan_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(q + nprobe + n_cl)
+    counts = torch.randint(0, 1200, (n_cl,), generator=gen, device="cuda")
+    counts[:3] = torch.tensor([0, 1, 700], device="cuda")[:n_cl]
+    offsets = torch.cumsum(counts, 0) - counts
+    probes = torch.stack([torch.randperm(n_cl, generator=gen, device="cuda")[:nprobe]
+                          for _ in range(q)])
+    if nprobe == n_cl == 4:
+        probes[:, 1] = probes[:, 0]
+    base, cnt = offsets[probes].int(), counts[probes].int()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_block, rps, splits = ivf_geometry(q, nprobe, 10, int(counts.max()), int(counts.sum()),
+                                        wg=wg, sms=sms)
+    plan = ivf_plan_cuda(base, cnt, n_block=n_block, rps=rps, splits=splits)
+    torch.cuda.synchronize()
+    check_plan(base, cnt, *plan, n_block=n_block, rps=rps)
+
+
+def test_ivf_index_takes_a_card_mask(dev):
+    """`IVFIndex.search` on the card takes its row mask as a host array or
+    a tensor on the card alike: the mask over the sorted rows is built on
+    the card, with no copy to the host."""
+    from reverso_tpu_torch.store.ivf import IVFIndex
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3000, 64)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    ix = IVFIndex(x, n_clusters=16, dtype="bfloat16", spill=0.2)
+    mask = rng.random(3000) < 0.4
+    want = ix.search(x[:5], 10, nprobe=8, row_mask=mask)
+    for m in (torch.from_numpy(mask).cuda(), torch.from_numpy(mask[:2000]).cuda()):
+        got = ix.search(x[:5], 10, nprobe=8, row_mask=m)
+        if len(m) == 3000:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ids = got[1].cpu().numpy()
+        assert mask[ids[ids >= 0]].all() and (ids < len(m)).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -250,6 +250,7 @@ def test_wrappers_never_fall_back_for_device_tensors():
     ("ms_deform.cu", {"rv_ms_deform"}),
     ("flash_heads.cu", {"rv_flash_heads_tc"}),
     ("flash_heads_split.cu", {"rv_flash_heads_split"}),
+    ("ivf_scan.cu", {"rv_ivf_scan", "rv_ivf_plan"}),
 ])
 def test_signatures_match_k5_k8_launchers(source, launchers):
     """The ctypes argument lists of the K4/K5 and K8 launchers in
