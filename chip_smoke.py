@@ -155,11 +155,25 @@ of which catches a failure:
      set_payload on 1,000 rows, one mixed update_batch), each timed with
      the time to its first search, and the batcher (`warmup()`, then 64
      threads of 8 queries: host p50 / p99, the launched batch sizes);
+  7d. the entry points (EP), as a user starts them: `reverso_tpu_torch.cli`
+     in this process (its default device, the card) builds a store of 128
+     synthetic PNGs with `--direct-pe` at PE-Core-L14-336 and searches it
+     plain and under a payload filter (K3, K4, K1, K2), the same search in a
+     subprocess with `jax` blocked; the CLIP text tower at
+     `ClipTextConfig()`'s full width in fp32 (seeded, written and loaded
+     through `REVERSO_CLIP_TEXT_CKPT` on a vocab of the published size)
+     against itself on the CPU and through `search-text`; the web UI over
+     HTTP against the engine's own calls; the video scorer against a numpy
+     loop, and, where OpenCV imports, `video local` and a `build` of its
+     frames (the engine's direct calls that check the UI do not count);
+  7e. K3 and K4 in bf16 at each shape the direct-embed, CLIP loader and
+     entry-point paths ran them at, each held against its plain version;
   8. the top-k scans (K1 from the direct-embed and CLIP paths, K1 and K2
      on fp32 rows from the parity slice and the float32 store, K1 and K2 at
      the euclid phases' padded rows in bf16 and fp32, K2, K9 and K10 from
      the capacity path, K12 from the two-stage search, K1, K2, K9 and K10
-     from the surface path) timed at each shape their path ran them at
+     from the surface path, K1 and K2 from the entry points) timed at
+     each shape their path ran them at
      (`kernels.shape_launches`), on seeded rows of that shape, each held
      against its plain version (K9 and K12 bit for bit).
 
@@ -3023,8 +3037,9 @@ def loaders_run(root: str) -> tuple:
 
 
 def tc_path_shapes(torch, shape_launches: dict) -> tuple:
-    """K3 and K4 in bf16 at each shape the direct-embed path (PE, RoPE,
-    gelu) and the CLIP loader path (no RoPE, quick_gelu) ran them at: their
+    """K3 and K4 in bf16 at each shape the direct-embed and entry-point
+    paths (PE, RoPE, gelu) and the CLIP loader path (no RoPE, quick_gelu)
+    ran them at: their
     launches there, held against the plain version on seeded inputs of that
     shape (K3 within 2e-2 absolute, K4 within 2e-2 of max(1, |y|) for each
     element: the gates of `kernel_checks`), ms on the same inputs (the RoPE
@@ -3950,6 +3965,318 @@ def surface_run(root: str) -> tuple:
     return launches, shapes, ivf_rows, out
 
 
+def write_clip_bpe(folder: str, words) -> tuple:
+    """A CLIP BPE vocab and merges of the published size (49,408 entries):
+    the 256 byte symbols and their `</w>` forms, one merge chain per word of
+    `words` (so each tokenizes to one id), fillers, then <|startoftext|> at
+    49,406 and <|endoftext|> at 49,407, where `ClipTextConfig` pools.
+    Returns (vocab path, merges path)."""
+    from reverso_tpu_torch.detect.clipbpe import bytes_to_unicode
+    b2u = bytes_to_unicode()
+    syms = [b2u[b] for b in range(256)]
+    vocab = {s: i for i, s in enumerate(syms + [s + "</w>" for s in syms])}
+    merges = []
+    for w in words:
+        pieces = [b2u[b] for b in w.encode()]
+        pieces[-1] += "</w>"
+        head = pieces[0]
+        for nxt in pieces[1:]:
+            if (head, nxt) not in merges:
+                merges.append((head, nxt))
+            head += nxt
+            vocab.setdefault(head, len(vocab))
+    for i in range(len(vocab), 49406):
+        vocab[f"<|filler{i}|>"] = i
+    vocab["<|startoftext|>"] = 49406
+    vocab["<|endoftext|>"] = 49407
+    paths = (os.path.join(folder, "vocab.json"), os.path.join(folder, "merges.txt"))
+    with open(paths[0], "w") as f:
+        json.dump(vocab, f)
+    with open(paths[1], "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return paths
+
+
+def write_hsv_clip(path: str, scenes: int, frames_per_scene: int) -> None:
+    """An MJPG clip of `scenes` flat colors (plus noise), 15 fps."""
+    import cv2
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 15, (96, 64))
+    check(w.isOpened(), "cv2.VideoWriter did not open")
+    rng = np.random.default_rng(4)
+    palette = [(0, 0, 120), (0, 230, 0), (120, 0, 120), (0, 120, 230)]
+    for s in range(scenes):
+        for _ in range(frames_per_scene):
+            frame = np.full((64, 96, 3), palette[s % len(palette)], np.uint8)
+            w.write(frame + rng.integers(0, 10, frame.shape, dtype=np.uint8))
+    w.release()
+
+
+def entry_points_run(root: str) -> tuple:
+    """(EP) The entry points on the card, as a user starts them: (a)
+    `reverso_tpu_torch.cli.main` in this process (its default device,
+    CUDA): `build` of 128 synthetic PNGs with `--direct-pe` at the default
+    PE-Core-L14-336 (bf16, seeded), `search` of one of them (top-1 must be
+    that file) and the same search under a payload filter; (b) the same
+    search in a subprocess with `jax` and `flax` blocked, which must load
+    no module of the JAX package; (c) the CLIP text tower at
+    `ClipTextConfig()`'s full width (768 wide, 12 layers, 12 heads,
+    context 77, vocab 49,408, into 1024), seeded, in fp32, written with
+    `save_params` and loaded through `REVERSO_CLIP_TEXT_CKPT` on a
+    synthetic vocab of the published size: 64 prompts on the card against
+    the same tower on the CPU, `search-text` through the CLI, the forward
+    timed at B = 1 and 64; (d) the web UI (`create_server`) over a card
+    engine: /api/about, a detect + search, a filtered search and a text
+    search over HTTP, ids against the engine's direct calls, each
+    request's ms; (e) `content_scores_batched` on a seeded [600, 144, 256,
+    3] HSV stack against a numpy loop, and, where OpenCV imports, `video
+    local` on a written clip and a `build` of its frames. The counts are
+    set to 0 at the start and read at the end, less the launches of the
+    engine's direct calls that (d) holds the UI against: K3, K4, K1 and
+    K2 must each have launched under the CLI. Returns (launches, K3 and
+    K4 launches by shape, K1 and K2 launches by shape, numbers)."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from contextlib import redirect_stdout
+
+    import torch
+    from reverso_tpu_torch import cli, kernels
+    from reverso_tpu_torch.ingest.video import content_scores_batched, content_scores_tensor
+    from reverso_tpu_torch.models.checkpoint import save_params
+    from reverso_tpu_torch.models.cliptext import ClipTextConfig, TextEmbedder
+    from reverso_tpu_torch.models.convert import flax_params_from_text
+    from reverso_tpu_torch.models.pe import resolve_device
+    from reverso_tpu_torch.ui.server import create_server
+
+    dev = resolve_device(None)    # the entry points' default: the card
+    kernels.reset_counts()
+    t_phase = time.perf_counter()
+    out = {}
+    folder = os.path.join(root, "ep_images")
+    os.makedirs(folder)
+    make_images(folder, 128, seed=3)
+    db_root = os.path.join(root, "ep_db")
+    query, qname = os.path.join(folder, "img_0041.png"), "img_0041.png"
+
+    def run_cli(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(buf):
+            rc = cli.main(["--db-root", db_root] + list(argv))
+        return rc, buf.getvalue(), (time.perf_counter() - t0) * 1e3
+
+    # (a) the command line in this process
+    rc, text, out["cli_build_ms"] = run_cli("build", folder, "--name", "cli", "--direct-pe")
+    check(rc == 0 and "ready for searching" in text, f"cli build: rc {rc}: {text}")
+    rc, text, out["cli_search_ms"] = run_cli("search", query, "--name", "cli", "--json",
+                                             "--threshold", "-1", "--top-k", "5")
+    hits = json.loads(text)
+    check(rc == 0 and len(hits) == 5 and hits[0]["filename"] == qname,
+          f"cli search: top-1 is not {qname}: {hits}")
+    rc, text, out["cli_search_filtered_ms"] = run_cli(
+        "search", query, "--name", "cli", "--json", "--threshold", "-1", "--top-k", "5",
+        "--filter", f"filename!={qname}")
+    fhits = json.loads(text)
+    check(rc == 0 and len(fhits) == 5 and qname not in [h["filename"] for h in fhits]
+          and [h["filename"] for h in fhits] == [h["filename"] for h in hits[1:]]
+          + [fhits[-1]["filename"]], f"cli filtered search: {fhits} against {hits}")
+    cli_launches = dict(kernels.launches)
+    print(f"entry points: cli build {out['cli_build_ms']:.1f} ms, search "
+          f"{out['cli_search_ms']:.1f} ms, filtered {out['cli_search_filtered_ms']:.1f} ms "
+          f"(each with its engine and seeded tower); top-5 {[h['filename'] for h in hits]}",
+          flush=True)
+
+    # (b) the same search in a process with JAX blocked
+    code = ("import sys, json; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+            "from reverso_tpu_torch import cli\n"
+            f"rc = cli.main(['--db-root', {db_root!r}, 'search', {query!r}, '--name', 'cli',"
+            " '--json', '--threshold', '-1', '--top-k', '5'])\n"
+            "assert rc == 0, rc\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] == 'reverso_tpu'], 'jax pkg'\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    out["subprocess_search_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"jax-blocked cli search failed:\n{proc.stderr[-3000:]}")
+    sub_hits = json.loads(proc.stdout)
+    check([h["filename"] for h in sub_hits] == [h["filename"] for h in hits],
+          f"jax-blocked cli search: {sub_hits} against {hits}")
+
+    # (c) the text tower at full width, fp32
+    cfg = ClipTextConfig()
+    check((cfg.width, cfg.depth, cfg.num_heads, cfg.context_length, cfg.embed_dim,
+           cfg.vocab_size, cfg.dtype) == (768, 12, 12, 77, 1024, 49408, "float32"),
+          f"ClipTextConfig() changed: {cfg}")
+    colors = ["red", "blue", "green", "white", "black", "yellow", "grey", "orange"]
+    things = ["car", "person", "building", "street", "truck", "boat", "tree", "sign"]
+    words = colors + things + ["a", "at", "night", "near", "the", "with"]
+    vocab, merges = write_clip_bpe(root, words)
+    prompts = [f"a {c} {t} at night" if i % 2 else f"the {c} {t} near a {things[i % 8]}"
+               for i, (c, t) in enumerate((c, t) for c in colors for t in things)]
+    t0 = time.perf_counter()
+    seeded = TextEmbedder(cfg, None, None, device="cpu", seed=7)
+    ckpt = os.path.join(root, "cliptext.msgpack")
+    save_params(ckpt, flax_params_from_text(seeded.module.state_dict()),
+                meta={"config": dataclasses.asdict(cfg)})
+    del seeded
+    out["text_write_s"] = time.perf_counter() - t0
+    os.environ.update(REVERSO_CLIP_TEXT_CKPT=ckpt, REVERSO_CLIP_VOCAB=vocab,
+                      REVERSO_CLIP_MERGES=merges)
+    t0 = time.perf_counter()
+    card = TextEmbedder.from_pretrained(ckpt, vocab, merges)
+    out["text_load_s"] = time.perf_counter() - t0
+    host = TextEmbedder.from_pretrained(ckpt, vocab, merges, device="cpu")
+    check(card.device == dev and card.tokenizer.eot == cfg.eot_token_id
+          and card.tokenizer.sot == 49406, "tokenizer's sot / eot ids")
+    ids = card.tokenizer(prompts)
+    eot_at = (ids == cfg.eot_token_id).argmax(1)
+    check(len(prompts) == 64 and bool((eot_at > 3).all())
+          and all((r[1:e] != 0).all() for r, e in zip(ids, eot_at)),
+          f"prompts tokenized to unknown pieces or no eot: {ids[:4]}")
+    got, want = card.embed(prompts), host.embed(prompts)
+    err = float(np.abs(got - want).max())
+    out["text_max_abs_err"] = err
+    check(got.shape == (64, cfg.embed_dim) and np.isfinite(got).all()
+          and np.allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5), "text embeddings")
+    check(err <= 2e-5, f"text tower card vs CPU: max abs err {err:.3g} > 2e-5 (fp32)")
+    ids_dev = torch.as_tensor(ids.astype(np.int64), device=dev)
+    with torch.inference_mode():
+        out["text_fwd_ms_b1"] = cuda_ms(lambda: card.module(ids_dev[:1]))
+        out["text_fwd_ms_b64"] = cuda_ms(lambda: card.module(ids_dev))
+    # the least time of a forward: its fp32 products (projections, the MLP,
+    # the full L x L scores and PV, the pooled projection) at the CUDA
+    # cores' rate, or its weights read once
+    n_params = sum(p.numel() for p in card.module.parameters())
+    for b in (1, 64):
+        toks, w, l = b * cfg.context_length, cfg.width, cfg.context_length
+        ops = cfg.depth * toks * (24 * w * w + 4 * l * w) + 2 * b * w * cfg.embed_dim
+        out[f"text_bound_ms_b{b}"], out[f"text_bound_by_b{b}"] = bound(
+            4 * n_params + 8 * toks + 4 * b * cfg.embed_dim, ops, "float32")
+    rc, text, out["cli_search_text_ms"] = run_cli("search-text", prompts[1], "--name", "cli",
+                                                  "--json", "--threshold", "-1", "--top-k", "5")
+    thits = json.loads(text)
+    check(rc == 0 and len(thits) == 5 and all(np.isfinite(h["score"]) for h in thits),
+          f"cli search-text: {thits}")
+    print(f"entry points: text tower fp32 card vs CPU max abs err {err:.3g}; forward "
+          f"{out['text_fwd_ms_b1']:.4f} ms at B = 1, {out['text_fwd_ms_b64']:.4f} ms at B = 64; "
+          f"search-text {out['cli_search_text_ms']:.1f} ms", flush=True)
+
+    # (d) the web UI over a card engine
+    engine = cli._make_engine(cli.build_parser().parse_args(["--db-root", db_root, "list"]))
+    check(engine.device == dev and engine.text_embedder is not None, "UI engine")
+    check(engine.load_database("cli").startswith("✅"), "UI engine: load cli")
+    srv = create_server(engine, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def request(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data, method="GET" if data is None
+                                     else "POST", headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            reply = json.loads(r.read())
+        return reply, (time.perf_counter() - t0) * 1e3
+
+    try:
+        about, out["ui_about_ms"] = request("/api/about")
+        check(about.get("backend") == dev.type, f"/api/about: {about}")
+        with open(query, "rb") as f:
+            image = base64.b64encode(f.read()).decode()
+        det, out["ui_detect_ms"] = request("/api/query/detect",
+                                           {"image": image, "direct_pe": True})
+        res, out["ui_search_ms"] = request("/api/query/search", {
+            "token": det["token"], "threshold": -1.0, "max_results": 5})
+        flt = {"must_not": [{"key": "filename", "match": {"value": qname}}]}
+        fres, out["ui_search_filtered_ms"] = request("/api/query/search", {
+            "token": det["token"], "threshold": -1.0, "max_results": 5, "filter": flt})
+        tres, out["ui_search_text_ms"] = request("/api/query/search_text", {
+            "text": prompts[1], "threshold": -1.0, "max_results": 5})
+        from PIL import Image
+        # the engine's direct calls only check the UI's ids: their launches
+        # are taken out of the phase's counts
+        before = (collections.Counter(kernels.launches),
+                  collections.Counter(kernels.shape_launches))
+        engine.process_image_direct_pe(Image.open(query))
+        direct = engine.search_similar(-1.0, 5)[1]
+        direct_f = engine.search_similar(-1.0, 5, filter=flt)[1]
+        direct_t = engine.search_by_text(prompts[1], -1.0, 5)[1]
+        check_launches = collections.Counter(kernels.launches) - before[0]
+        check_shapes = collections.Counter(kernels.shape_launches) - before[1]
+        for what, ui, eng in (("search", res["results"], direct),
+                              ("filtered search", fres["results"], direct_f),
+                              ("text search", tres["results"], direct_t)):
+            check(len(ui) == 5 and [r["id"] for r in ui] == [it["id"] for it in eng],
+                  f"UI {what}: {[r['id'] for r in ui]} against the engine's "
+                  f"{[it['id'] for it in eng]}")
+        check(res["results"][0]["filename"] == qname, f"UI search top-1: {res['results'][0]}")
+    finally:
+        srv.shutdown()
+        thread.join(timeout=10)
+        engine.searcher.close()
+    print(f"entry points: UI about {out['ui_about_ms']:.1f} ms, detect {out['ui_detect_ms']:.1f}, "
+          f"search {out['ui_search_ms']:.1f}, filtered {out['ui_search_filtered_ms']:.1f}, "
+          f"text {out['ui_search_text_ms']:.1f} ms", flush=True)
+    del engine, card, host
+
+    # (e) the video scorer on the card, and OpenCV where it imports
+    rng = np.random.default_rng(6)     # two scenes: a still image each, plus noise
+    scenes = rng.integers(0, 246, (2, 1, 144, 256, 3), dtype=np.uint8)
+    hsv = rng.integers(0, 10, (600, 144, 256, 3), dtype=np.uint8)
+    hsv[:300] += scenes[0]
+    hsv[300:] += scenes[1]
+    scores = content_scores_batched(hsv)
+    loop = np.array([np.abs(hsv[i + 1].astype(np.int16) - hsv[i]).mean(axis=(0, 1)).sum() / 3.0
+                     for i in range(len(hsv) - 1)])
+    out["scorer_max_abs_err"] = float(np.abs(scores - loop).max())
+    check(scores.shape == (599,) and out["scorer_max_abs_err"] <= 1e-4
+          and int(scores.argmax()) == 299,
+          f"content_scores_batched: max abs err {out['scorer_max_abs_err']:.3g}")
+    out["scorer_ms"] = sync_ms(torch, lambda: content_scores_batched(hsv))
+    hsv_dev = torch.as_tensor(hsv, device=dev)
+    out["scorer_device_ms"] = cuda_ms(lambda: content_scores_tensor(hsv_dev))
+    out["scorer_bound_ms"], out["scorer_bound_by"] = bound(hsv.nbytes + 4 * (len(hsv) - 1),
+                                                           3 * hsv.size, "float32")
+    del hsv_dev
+    try:
+        import cv2
+        out["cv2"] = cv2.__version__
+    except ImportError:
+        out["cv2"] = None
+    if out["cv2"]:
+        vids, frames = os.path.join(root, "ep_vids"), os.path.join(root, "ep_frames")
+        os.makedirs(vids)
+        write_hsv_clip(os.path.join(vids, "clip.avi"), scenes=3, frames_per_scene=20)
+        rc, text, out["cli_video_local_ms"] = run_cli("video", "local", vids, frames)
+        check(rc == 0 and text.startswith("✅ Completed!"), f"cli video local: {text}")
+        out["video_frames"] = len(os.listdir(frames))
+        rc, text, out["cli_build_frames_ms"] = run_cli("build", frames, "--name", "frames",
+                                                       "--direct-pe")
+        check(rc == 0 and out["video_frames"] > 0 and "ready for searching" in text,
+              f"cli build of the video frames: {text}")
+    print(f"entry points: scorer {out['scorer_ms']:.3f} ms (call), "
+          f"{out['scorer_device_ms']:.4f} ms on the card, max abs err "
+          f"{out['scorer_max_abs_err']:.3g}; cv2 {out['cv2']}", flush=True)
+
+    launches = collections.Counter(kernels.launches) - check_launches
+    shapes = collections.Counter(kernels.shape_launches) - check_shapes
+    for name, label in (("flash_heads_tc", "K3"), ("fused_mlp_tc", "K4"),
+                        ("topk_stream", "K1"), ("topk_masked", "K2")):
+        out[f"{label}_launches"] = launches[name]
+        out[f"{label}_check_launches"] = check_launches[name]
+        check(cli_launches[name] > 0, f"{label} ({name}) never launched under the CLI")
+    tc_shapes = {k: n for k, n in shapes.items() if k[0] in ("flash_heads_tc", "fused_mlp_tc")}
+    topk_shapes = {k: n for k, n in shapes.items() if k[0] in ("topk_stream", "topk_masked")}
+    check(sum(topk_shapes.values()) == launches["topk_stream"] + launches["topk_masked"],
+          f"EP top-k launches by shape {topk_shapes} against {dict(launches)}")
+    out["shapes"] = {f"{k[0]} {k[1]}": n for k, n in sorted(shapes.items(), key=str)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"entry points (EP) numbers: {json.dumps(out)}", flush=True)
+    return launches, tc_shapes, topk_shapes, out
+
+
 def main() -> int:
     import torch
 
@@ -4012,9 +4339,6 @@ def main() -> int:
                                                              root)
         clip_launches, clip_tc_shapes, clip_k1_shapes = phase("vision-checkpoint loaders",
                                                               loaders_run, root)
-        rows["flash_heads"]["by_shape"], rows["fused_mlp"]["by_shape"] = phase(
-            "K3 and K4 bf16 at their paths' shapes", tc_path_shapes, torch,
-            collections.Counter(direct_tc_shapes) + collections.Counter(clip_tc_shapes))
         torch.cuda.empty_cache()
         f32_slice_launches, f32_slice_shapes = phase("parity direct-embed slice (fp32)",
                                                      f32_slice_run, root)
@@ -4046,10 +4370,18 @@ def main() -> int:
         # last: it writes the capacity store, which no later phase reads
         surface_launches, surface_shapes, surface_ivf_shapes, surface = phase(
             "query and write surface (U)", surface_run, root)
+        torch.cuda.empty_cache()
+        entry_launches, entry_tc_shapes, entry_k1_shapes, _ = phase(
+            "entry points (CLI, UI, video, text)", entry_points_run, root)
     torch.cuda.empty_cache()
+    rows["flash_heads"]["by_shape"], rows["fused_mlp"]["by_shape"] = phase(
+        "K3 and K4 bf16 at their paths' shapes", tc_path_shapes, torch,
+        collections.Counter(direct_tc_shapes) + collections.Counter(clip_tc_shapes)
+        + collections.Counter(entry_tc_shapes))
     path_shapes = collections.Counter()
     for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes,
-                   clip_k1_shapes, euclid_shapes, engine_shapes, surface_shapes):
+                   clip_k1_shapes, euclid_shapes, engine_shapes, surface_shapes,
+                   entry_k1_shapes):
         path_shapes.update(shapes)
     topk_shapes = phase("top-k scans at their paths' shapes", topk_path_shapes, torch,
                         path_shapes)
@@ -4070,12 +4402,14 @@ def main() -> int:
                  int8_launches, region_launches, roi_launches, capacity_launches,
                  store_f32_launches, clip_launches, euclid_launches, engine_launches,
                  surface_launches)
-    path_of = {"flash_heads": direct_launches["flash_heads_tc"],
+    path_of = {"flash_heads": direct_launches["flash_heads_tc"]
+               + entry_launches["flash_heads_tc"],
                "flash_heads_f32": f32_launches["flash_heads_split"],
-               "fused_mlp": direct_launches["fused_mlp_tc"],
+               "fused_mlp": direct_launches["fused_mlp_tc"] + entry_launches["fused_mlp_tc"],
                "fused_mlp_f32": f32_launches["fused_mlp_split"],
                "split_parts": f32_launches["split_parts"],
-               "topk_stream": direct_launches["topk_stream"] + surface_launches["topk_stream"],
+               "topk_stream": direct_launches["topk_stream"] + surface_launches["topk_stream"]
+               + entry_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
                "flash_attn_f32": long_launches["flash_attn_split"],
                "flash_attn_relbias": region_launches["flash_attn_relbias_tc"],
@@ -4083,7 +4417,7 @@ def main() -> int:
                "topk_stream_f32": sum(run["topk_stream_f32"] for run in path_runs),
                "ms_deform": region_launches["ms_deform"],
                "topk_masked": capacity_launches["topk_masked"]
-               + surface_launches["topk_masked"],
+               + surface_launches["topk_masked"] + entry_launches["topk_masked"],
                "topk_int8": capacity_launches["topk_int8"] + surface_launches["topk_int8"],
                "topk_binary": capacity_launches["topk_binary"]
                + surface_launches["topk_binary"],

@@ -11,7 +11,9 @@ maps onto `models.vit.VisionTransformer` by name:
   * LayerNorm `scale` -> `weight`; biases, gammas, cls/pos/probe as they are.
 
 Both directions are exact (transposes only), so the two packages run the
-same weights.
+same weights. The CLIP text tower's tree (`models.cliptext`) maps the same
+way, its token embedding's `embedding` becoming a `weight`
+(`text_params_from_flax`, `flax_params_from_text`).
 
 The detector's towers (Swin, BERT, GroundingDINO, SAM) keep the flax
 module names as they are (`params_from_flax`), and this module also
@@ -74,10 +76,28 @@ def vision_params_from_flax(params_np: Mapping[str, Any],
     return sd
 
 
+def text_params_from_flax(params_np: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """Flax `ClipTextEncoder` tree (numpy or torch leaves) -> state dict of
+    `models.cliptext.ClipTextEncoder`: the vision map, with the token
+    embedding's `embedding` as its `weight`."""
+    tree = dict(params_np)
+    tree["token_embedding"] = {"weight": tree["token_embedding"]["embedding"]}
+    return vision_params_from_flax(tree, cfg)
+
+
+def flax_params_from_text(state_dict: Mapping[str, Any]) -> dict:
+    """Inverse of `text_params_from_flax`: state dict -> flax tree of fp32
+    numpy arrays (what the JAX package's `ClipTextEncoder` and msgpack
+    files hold)."""
+    tree = flax_params_from_vision(state_dict)
+    tree["token_embedding"] = {"embedding": tree["token_embedding"].pop("kernel").T}
+    return tree
+
+
 def flax_params_from_vision(state_dict: Mapping[str, Any]) -> dict:
     """Inverse of `vision_params_from_flax`: state dict -> flax tree of
     fp32 numpy arrays."""
-    norm_mods = {"ln", "ln1", "ln2", "ln_pre", "ln_post"}
+    norm_mods = {"ln", "ln1", "ln2", "ln_pre", "ln_post", "ln_final"}
     tree: dict = {}
     for key, val in state_dict.items():
         arr = (val.detach().cpu().float().numpy() if isinstance(val, torch.Tensor)
