@@ -166,6 +166,14 @@ of which catches a failure:
      HTTP against the engine's own calls; the video scorer against a numpy
      loop, and, where OpenCV imports, `video local` and a `build` of its
      frames (the engine's direct calls that check the UI do not count);
+  7T. training (T): the backward kernels of K3 and K4 at the training
+     path's shapes held against the autograd of the plain forward and
+     timed beside their library calls; `ClipTrainer` at PE-Core-L14-336,
+     5 AdamW steps on two seeded views of B = 16 (the loss finite and
+     falling, K3, K4 and their backward kernels 48 times a step); a
+     checkpoint restored bit for bit; one step profiled; `reverso-torch
+     train` for 2 steps and `--resume` (`train_run`); its numbers on a
+     line `training (T) numbers: {...}`;
   7e. K3 and K4 in bf16 at each shape the direct-embed, CLIP loader and
      entry-point paths ran them at, each held against its plain version;
   8. the top-k scans (K1 from the direct-embed and CLIP paths, K1 and K2
@@ -287,25 +295,34 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def topk_agree(ref_s, ref_i, s, i, tol: float, what: str = "top-k") -> None:
+def topk_agree(ref_s, ref_i, s, i, tol: float, what: str = "top-k", seed=None) -> None:
     """Kernel top-k against the plain version: equal scores within `tol`,
     and equal ids wherever the plain version's ranked scores are more than
-    `tol` apart on both sides (the tie-margin rule). `what` names the
-    search in a failure's message."""
+    `tol` apart on both sides (the tie-margin rule). A failure's message
+    names the search (`what`), the generator seed its data came from
+    (`seed`, where the caller seeded it) and the first (query, slot) that
+    disagrees."""
     ref_s, ref_i, s, i = (t.cpu().numpy() for t in (ref_s, ref_i, s, i))
+    where = what if seed is None else f"{what} (seed {seed})"
+
+    def agree(bad, why: str) -> None:
+        if bad.any():
+            q, slot = (int(v) for v in np.argwhere(bad)[0])
+            raise AssertionError(f"{where}: {why}; first at query {q}, slot {slot} "
+                                 f"(plain {ref_s[q, slot]} id {ref_i[q, slot]}, "
+                                 f"kernel {s[q, slot]} id {i[q, slot]})")
+
     fin = np.isfinite(ref_s)
-    check(np.array_equal(fin, np.isfinite(s)), f"{what}: -inf slots differ")
-    check(np.array_equal(np.where(fin, 0, ref_i), np.where(fin, 0, i)),
-          f"{what}: empty slots must hold idx -1")
-    diff = np.abs(np.where(fin, ref_s, 0) - np.where(fin, s, 0)).max()
-    check(diff <= tol, f"{what}: scores differ by {diff}")
+    agree(fin != np.isfinite(s), "-inf slots differ")
+    agree(~fin & (ref_i != i), "empty slots must hold idx -1")
+    diff = np.abs(np.where(fin, ref_s, 0) - np.where(fin, s, 0))
+    agree(diff > tol, f"scores differ by up to {diff.max()} > {tol}")
     r = np.where(fin, ref_s, -1e9)
     pad = np.full((r.shape[0], 1), np.inf)
     gap_up = np.concatenate([pad, -np.diff(r, axis=1)], axis=1)
     gap_dn = np.concatenate([-np.diff(r, axis=1), pad], axis=1)
     clear = (gap_up > tol) & (gap_dn > tol)
-    check(np.array_equal(np.where(clear, i, -2), np.where(clear, ref_i, -2)),
-          f"{what}: ids differ where the score margins are clear")
+    agree(clear & (i != ref_i), "ids differ where the score margins are clear")
 
 
 @contextlib.contextmanager
@@ -1833,10 +1850,15 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
     from reverso_tpu_torch.ops.topk_int8 import (quantize_queries, quantize_rows,
                                                  topk_int8_rows, topk_int8_rows_ref)
 
-    gen = torch.Generator(device="cuda").manual_seed(31)
+    seed = 31
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
     data = {}
-    for (kind, (q, n, d, k, masked)), launches in sorted(shape_launches.items()):
+    for nth, ((kind, (q, n, d, k, masked)), launches) in enumerate(
+            sorted(shape_launches.items())):
+        # the generator's state at this shape: `seed`, drawn on through the
+        # shapes before it in this order
+        at = f"{seed}, shape {nth} in sorted order"
         if (n, d) not in data:
             data.clear()
             x = torch.randn(n, d, generator=gen, device="cuda")
@@ -1852,7 +1874,8 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
             call = lambda: cosine_topk_int8_exact(v8, sc, qs, k, row_mask=mask)
             s, i = call()
             rs, ri = cosine_topk_int8_ref(v8, sc, qs, k, row_mask=mask)
-            check(torch.equal(i, ri) and torch.equal(s, rs), f"K9 at {(q, n, d, k)} differs")
+            check(torch.equal(i, ri) and torch.equal(s, rs),
+                  f"K9 at {(q, n, d, k)} differs (seed {at})")
             err = 0.0
         elif kind == "topk_int8_rows":
             r8, rsc = quantize_rows(x)
@@ -1860,21 +1883,23 @@ def topk_path_shapes(torch, shape_launches: dict) -> dict:
             call = lambda: topk_int8_rows(r8, rsc, q8, qsc, k)
             s, i = call()
             rs, ri = topk_int8_rows_ref(r8, rsc, q8, qsc, k)
-            check(torch.equal(i, ri) and torch.equal(s, rs), f"K12 at {(q, n, d, k)} differs")
+            check(torch.equal(i, ri) and torch.equal(s, rs),
+                  f"K12 at {(q, n, d, k)} differs (seed {at})")
             err = 0.0
         elif kind == "topk_binary":
             packed = torch.cat([pack_signs(x[lo:lo + 65536]) for lo in range(0, n, 65536)])
             call = lambda: binary_topk(packed, qs, k, d, row_mask=mask)
             s, i = call()
             rs, ri = binary_topk_ref(packed, qs, k, d, row_mask=mask)
-            topk_agree(rs, ri, s, i, 2e-4, f"{kind} at {(q, n, d, k, masked)}")
+            topk_agree(rs, ri, s, i, 2e-4, f"{kind} at {(q, n, d, k, masked)}", at)
         else:
             f32 = kind == "topk_stream_f32"
             db, qb = (x, qs) if f32 else (x.to(torch.bfloat16), qs.to(torch.bfloat16))
             call = lambda: cosine_topk(db, qb, k, row_mask=mask)
             s, i = call()
             rs, ri = cosine_topk_ref(db, qb, k, row_mask=mask)
-            topk_agree(rs, ri, s, i, 1e-5 if f32 else 1e-4, f"{kind} at {(q, n, d, k, masked)}")
+            topk_agree(rs, ri, s, i, 1e-5 if f32 else 1e-4, f"{kind} at {(q, n, d, k, masked)}",
+                       at)
         if kind not in ("topk_int8", "topk_int8_rows"):
             fin = torch.isfinite(rs)
             err = float((torch.where(fin, s, 0) - torch.where(fin, rs, 0)).abs().max())
@@ -1964,7 +1989,8 @@ REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused
               "flash_attn_relbias_f32": 10, "fused_mlp_f32": 11, "flash_heads_f32": 11,
               "topk_stream_f32": 12, "ivf_scan": 15}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
-                  "flash_heads_f32": "library call without RoPE"}
+                  "flash_heads_f32": "library call without RoPE",
+                  "flash_heads_bwd": "library call without RoPE"}
 
 
 def sync_ms(torch, fn, iters: int = 3) -> float:
@@ -1978,7 +2004,9 @@ def sync_ms(torch, fn, iters: int = 3) -> float:
 
 
 # kernel-name patterns of device time, in match order
-KERNEL_GROUPS = (("ms_deform (K8)", "ms_deform"),
+KERNEL_GROUPS = (("flash_heads_bwd (K3 backward)", "hbwd"),
+                 ("fused_mlp_bwd (K4 backward)", "mbwd"),
+                 ("ms_deform (K8)", "ms_deform"),
                  ("flash_tc (K3/K6/K7, tensor cores: bf16 and split mode)", "flash_tc"),
                  ("fused_mlp_wgmma (K4, tensor cores)", "fused_mlp_wgmma"),
                  ("fused_mlp_split (K4 fp32, split GEMMs)", "fused_mlp_split"),
@@ -3037,9 +3065,9 @@ def loaders_run(root: str) -> tuple:
 
 
 def tc_path_shapes(torch, shape_launches: dict) -> tuple:
-    """K3 and K4 in bf16 at each shape the direct-embed and entry-point
-    paths (PE, RoPE, gelu) and the CLIP loader path (no RoPE, quick_gelu)
-    ran them at: their
+    """K3 and K4 in bf16 at each shape the direct-embed, entry-point and
+    training paths (PE, RoPE, gelu) and the CLIP loader path (no RoPE,
+    quick_gelu) ran them at: their
     launches there, held against the plain version on seeded inputs of that
     shape (K3 within 2e-2 absolute, K4 within 2e-2 of max(1, |y|) for each
     element: the gates of `kernel_checks`), ms on the same inputs (the RoPE
@@ -4277,6 +4305,367 @@ def entry_points_run(root: str) -> tuple:
     return launches, tc_shapes, topk_shapes, out
 
 
+# the learning rate of phase T's PE-L14 run. AdamW's first steps move each
+# of the tower's 304M parameters by about the learning rate whatever its
+# gradient; at the CLI's default 1e-4 a random init's first step pushed the
+# embeddings together (the loss rose from 0.403 to 0.636, then fell back
+# to 0.488 by step 5), so the check that the loss falls runs at 1e-5. The
+# phase also runs the same 5 steps at 1e-4 on the kernels and on the plain
+# tower (`plain_tower`) and prints both, the witness that the rise is the
+# optimizer's and not the kernels'
+TRAIN_LR = 1e-5
+WITNESS_LR = 1e-4
+
+
+@contextlib.contextmanager
+def plain_tower():
+    """The tower's attention and MLP on their plain versions
+    (`flash_attention_heads_ref`, `mlp_ref`) with PyTorch's autograd, each
+    recomputed in the backward (`torch.utils.checkpoint`) so that 24 blocks
+    of [B, H, S, S] scores fit on the card: the harness's plain reference
+    for phase T's witness, not a route of the port."""
+    from torch.utils.checkpoint import checkpoint
+    from reverso_tpu_torch.models import vit
+    from reverso_tpu_torch.ops.attention import flash_attention_heads_ref
+    from reverso_tpu_torch.ops.fused_mlp import mlp_ref
+
+    saved = vit.flash_attention_heads, vit.fused_mlp
+    vit.flash_attention_heads = lambda q, k, v, **kw: checkpoint(
+        flash_attention_heads_ref, q, k, v, use_reentrant=False, **kw)
+    vit.fused_mlp = lambda x, w1, b1, w2, b2, act, parts: checkpoint(
+        mlp_ref, x, w1, b1, w2, b2, act, use_reentrant=False)
+    try:
+        yield
+    finally:
+        vit.flash_attention_heads, vit.fused_mlp = saved
+
+
+def heads_bwd_bound(b: int, s: int, w: int, heads: int, itemsize: int,
+                    dtype: str) -> tuple[float, str]:
+    """K3's backward's least time on [B, S, W]: q, k, v and dO read and dq,
+    dk, dv written once, the two fp32 RoPE tables read once; five products
+    of B H S^2 hd multiply-adds (s, dP, dv, dq, dk), 10 B H S^2 hd
+    operations."""
+    hd = w // heads
+    return bound(7 * b * s * w * itemsize + 2 * s * hd * 4, 10 * b * heads * s * s * hd, dtype)
+
+
+def mlp_bwd_bound(t: int, w: int, hid: int, itemsize: int, dtype: str,
+                  kernel_only: bool = False) -> tuple[float, str]:
+    """K4's backward's least time at [T, W] -> H -> W. The whole gradient:
+    x, dY, W1, b1 and W2 read, dx, dW1, db1, dW2 and db2 written once; five
+    products (z, dY W2, dW2, dW1, dx), 10 T W H operations. The kernel alone
+    (`rv_fused_mlp_bwd`): x, dY, W1, b1 and W2 read, h and dz written; two
+    products, 4 T W H."""
+    reads = 2 * t * w + 2 * w * hid + hid
+    if kernel_only:
+        return bound((reads + 2 * t * hid) * itemsize, 4 * t * w * hid, dtype)
+    return bound((reads + t * w + 2 * w * hid + hid + w) * itemsize, 10 * t * w * hid, dtype)
+
+
+def train_kernel_checks(torch) -> dict:
+    """(T a, b) The backward kernels at the training path's shapes, through
+    the wrappers under autograd, each gradient held against the autograd of
+    the plain forward on the card (bf16: within 2e-2 of max(1, the largest
+    plain gradient), the outputs rounded once against the plain version's
+    intermediate roundings; fp32: 1e-4, sums in another order). (a) K3's
+    backward at PE-L14's training shape, B = 16, S = 577, W = 1024, 16
+    heads of 64 with RoPE, in bf16; the same at kv_valid = 300; fp32 at B =
+    2; head dim 72 (a multiple of 4, not of 16) at B = 2 in bf16 and in fp32
+    with kv_valid = 300. (b) K4's backward at T = 16 x 577 = 9232, 1024 ->
+    4096 -> 1024: gelu in bf16 and fp32, quick_gelu in bf16. Timed at the
+    bf16 shapes: the backward by CUDA events, the plain version (the plain
+    forward and its autograd), the library call (K3: SDPA's backward on
+    [B, H, S, D] without RoPE; K4: the cuBLAS route of the same five
+    products and aten's gelu backward) and the bound. Returns the two
+    kernel rows."""
+    import torch.nn.functional as F
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import (_heads_bwd_launch, flash_attention_heads,
+                                                  flash_attention_heads_grad_ref)
+    from reverso_tpu_torch.ops.fused_mlp import _mlp_bwd_launch, fused_mlp, mlp_grad_ref
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    tols = {bf16: 2e-2, f32: 1e-4}
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def held(name, outs, refs, dtype):
+        """Each gradient against its own scale; returns the largest error
+        relative to max(1, its gradient's largest plain value) and the
+        relative tolerance."""
+        errs = [max_err(o, r) for o, r in zip(outs, refs)]
+        scales = [max(1.0, float(r.float().abs().max())) for r in refs]
+        rel = max(e / sc for e, sc in zip(errs, scales))
+        check(all(torch.isfinite(o).all() for o in outs), f"{name}: non-finite gradient")
+        check(rel <= tols[dtype], f"{name}: max abs err by gradient {errs} against scales "
+                                  f"{scales}: {rel} of the scale > {tols[dtype]}")
+        print(f"{name}: max abs err by gradient {errs}, of max(1, |plain|) {scales}: "
+              f"at most {rel} (tolerance {tols[dtype]})", flush=True)
+        return rel, tols[dtype]
+
+    rows = {}
+    # (a) K3's backward
+    s = 577
+    errors, k3 = {}, {}
+    for dtype, b, w, kv in ((bf16, 16, 1024, None), (bf16, 16, 1024, 300), (f32, 2, 1024, None),
+                            (bf16, 2, 1152, None), (f32, 2, 1152, 300)):
+        heads = 16
+        hd = w // heads
+        c, sn = rope_2d_tables(24, hd, cls_token=True)
+        cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(sn).to(dev)
+        q, k, v, do = (randn(b, s, w, dtype=dtype) for _ in range(4))
+        kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = kernels.launches["flash_heads_bwd"]
+        flash_attention_heads(*leaves, **kw).backward(do)
+        check(kernels.launches["flash_heads_bwd"] == n0 + 1, "K3 backward: not one launch")
+        refs = flash_attention_heads_grad_ref(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        case = f"B={b} W={w} hd={hd} {str(dtype)[6:]}{'' if kv is None else f' kv_valid={kv}'}"
+        errors[case] = held(f"K3 backward {case}", [t.grad for t in leaves], refs, dtype)
+        if kv is not None:
+            check(not leaves[1].grad[:, kv:].any() and not leaves[2].grad[:, kv:].any(),
+                  f"K3 backward {case}: keys past kv_valid have a gradient")
+        if (dtype, b, w, kv) in ((bf16, 16, 1024, None), (f32, 2, 1024, None)):
+            scale = hd ** -0.5
+            call = lambda: _heads_bwd_launch(q, k, v, do, heads, (cos, sin), scale, s)
+            k3[dtype] = dict(ms=cuda_ms(call), plain_ms=cuda_ms(
+                lambda: flash_attention_heads_grad_ref(q, k, v, do, **kw), iters=3))
+            if dtype == bf16:
+                split = lambda t: t.reshape(b, s, heads, hd).transpose(1, 2).contiguous()
+                qh, kh, vh = (split(t).requires_grad_(True) for t in (q, k, v))
+                oh = F.scaled_dot_product_attention(qh, kh, vh)
+                doh = split(do)
+                k3["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    oh, (qh, kh, vh), doh, retain_graph=True))
+                del qh, kh, vh, oh, doh
+        del q, k, v, do, leaves, refs
+    main = "B=16 W=1024 hd=64 bfloat16"
+    rows["flash_heads_bwd"] = dict(
+        source="reverso_tpu_torch/csrc/flash_heads_bwd.cu",
+        replaces="reverso_tpu/ops/attention.py:337",
+        replaces_note="no TPU kernel: the gradient of K3, which has no backward in JAX",
+        max_abs_err=errors[main][0], tolerance=errors[main][1],
+        error_is="max abs err over dq, dk, dv, each over max(1, its largest plain value)",
+        shape="B=16 S=577 W=1024 H=16 bf16 RoPE", ms=k3[bf16]["ms"],
+        plain_ms=k3[bf16]["plain_ms"],
+        library="SDPA's backward on [B, H, S, D] (no RoPE)", library_ms=k3["library_ms"],
+        f32_shape="B=2 S=577 W=1024 H=16 fp32 RoPE", f32_ms=k3[f32]["ms"],
+        f32_plain_ms=k3[f32]["plain_ms"],
+        f32_bound_ms=heads_bwd_bound(2, s, 1024, 16, 4, "float32_split")[0],
+        errors={case: e for case, (e, _) in errors.items()})
+    rows["flash_heads_bwd"]["bound_ms"], rows["flash_heads_bwd"]["bound_by"] = heads_bwd_bound(
+        16, s, 1024, 16, 2, "bfloat16")
+
+    # (b) K4's backward
+    t, w, hid = 16 * 577, 1024, 4096
+    errors, k4 = {}, {}
+    for dtype, act in ((bf16, "gelu"), (f32, "gelu"), (bf16, "quick_gelu")):
+        x, dy = randn(t, w, dtype=dtype), randn(t, w, dtype=dtype)
+        w1, b1 = randn(hid, w, dtype=dtype, scale=w ** -0.5), randn(hid, dtype=dtype, scale=0.1)
+        w2, b2 = randn(w, hid, dtype=dtype, scale=hid ** -0.5), randn(w, dtype=dtype, scale=0.1)
+        leaves = [p.clone().requires_grad_(True) for p in (x, w1, b1, w2, b2)]
+        n0 = kernels.launches["fused_mlp_bwd"]
+        y = fused_mlp(*leaves, act=act)
+        y.backward(dy, retain_graph=True)
+        check(kernels.launches["fused_mlp_bwd"] == n0 + 1, "K4 backward: not one launch")
+        refs = mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act)
+        torch.cuda.synchronize()
+        case = f"T={t} {str(dtype)[6:]} {act}"
+        errors[case] = held(f"K4 backward {case}", [p.grad for p in leaves], refs, dtype)
+        del refs
+        if act == "gelu":
+            entry = k4.setdefault(dtype, {})
+            entry["kernel_ms"] = cuda_ms(lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act))
+            entry["ms"] = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
+            entry["plain_ms"] = cuda_ms(lambda: mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act),
+                                        iters=3)
+
+            def kernel_part():
+                z = F.linear(x, w1, b1)
+                return F.gelu(z), torch.ops.aten.gelu_backward(dy @ w2, z)
+
+            def library():
+                hh, dz = kernel_part()
+                return (dz @ w1, dz.t() @ x, dz.sum(0), dy.t() @ hh, dy.sum(0))
+
+            entry["library_ms"] = cuda_ms(library)
+            entry["kernel_library_ms"] = cuda_ms(kernel_part)
+        del x, dy, w1, b1, w2, b2, leaves, y
+    main = f"T={t} bfloat16 gelu"
+    r = k4[bf16]
+    rows["fused_mlp_bwd"] = dict(
+        source="reverso_tpu_torch/csrc/fused_mlp_bwd.cu",
+        replaces="reverso_tpu/ops/fused_mlp.py:63",
+        replaces_note="no TPU kernel: the gradient of K4, which has no backward in JAX",
+        max_abs_err=errors[main][0], tolerance=errors[main][1],
+        error_is="max abs err over dx, dW1, db1, dW2, db2, each over max(1, its largest "
+                 "plain value)",
+        shape=f"T={t} 1024->4096->1024 bf16 gelu: the whole backward (the kernel, three "
+              f"torch.matmul products, two sums)",
+        ms=r["ms"], plain_ms=r["plain_ms"],
+        library="cuBLAS route: the same five products (F.linear, matmuls) and "
+                "aten.gelu_backward", library_ms=r["library_ms"],
+        kernel_ms=r["kernel_ms"], kernel_library_ms=r["kernel_library_ms"],
+        kernel_bound_ms=mlp_bwd_bound(t, w, hid, 2, "bfloat16", kernel_only=True)[0],
+        f32_ms=k4[f32]["ms"], f32_kernel_ms=k4[f32]["kernel_ms"],
+        f32_plain_ms=k4[f32]["plain_ms"], f32_library_ms=k4[f32]["library_ms"],
+        f32_bound_ms=mlp_bwd_bound(t, w, hid, 4, "float32_split")[0],
+        errors={case: e for case, (e, _) in errors.items()})
+    rows["fused_mlp_bwd"]["bound_ms"], rows["fused_mlp_bwd"]["bound_by"] = mlp_bwd_bound(
+        t, w, hid, 2, "bfloat16")
+    return rows
+
+
+def train_run(root: str) -> tuple:
+    """(T) Training on the card. (a, b) `train_kernel_checks`; then (c)
+    `ClipTrainer(MODEL_PRESETS["PE-Core-L14-336"])` at full width and depth
+    (bf16 activations, fp32 parameters, seed 5, learning rate `TRAIN_LR`)
+    takes 5 AdamW steps on the
+    same two seeded views of B = 16 images (a flip plus noise, as the CLI
+    makes them): the loss finite and lower at step 5 than at step 1, every
+    block's attention and MLP on K3 and K4 forward and backward (counts set
+    to 0 just before and read just after), ms per step, the peak memory;
+    (d) its state saved, restored into a trainer of another seed, and held
+    bit for bit (params, AdamW's state, t, b, step), then one step of the
+    restored trainer profiled; the witness for `TRAIN_LR`: the same 5
+    steps from the same init at `WITNESS_LR` on the kernels and on
+    `plain_tower`, both losses printed, their first step's held within 2e-2
+    (the same forward, in bf16); (e) `reverso-torch train` in this process
+    at the default PE-Core-L14-336 on 32 generated photos: 2 steps of 16
+    with a checkpoint, then `--resume` for 1. Returns (rows, launches of
+    (c), K3 and K4 forward launches of (c) by shape, numbers)."""
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+
+    import torch
+    from reverso_tpu_torch import cli, kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.train import ClipTrainer
+    from reverso_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+
+    rows = train_kernel_checks(torch)
+    torch.cuda.empty_cache()
+    out = {}
+    cfg = MODEL_PRESETS["PE-Core-L14-336"]
+    check((cfg.width, cfg.depth, cfg.num_heads, cfg.seq_len, cfg.dtype)
+          == (1024, 24, 16, 577, "bfloat16"), f"PE-Core-L14-336: {cfg}")
+    rng = np.random.default_rng(17)
+    a = rng.standard_normal((16, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    b = a[:, :, ::-1, :] + 0.02 * rng.standard_normal(a.shape).astype(np.float32)
+    va, vb = torch.from_numpy(a).cuda(), torch.from_numpy(np.ascontiguousarray(b)).cuda()
+    t0 = time.perf_counter()
+    tr = ClipTrainer(cfg, learning_rate=TRAIN_LR, seed=5)
+    out["init_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    losses, step_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(va, vb))   # the loss reaches the host: a sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launches)
+    shapes = {f"{key[0]} {key[1]}": n for key, n in kernels.shape_launches.items()}
+    tc_shapes = {key: n for key, n in kernels.shape_launches.items()
+                 if key[0] in ("flash_heads_tc", "fused_mlp_tc")}
+    out.update(losses=losses, step_ms=step_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches={k: n for k, n in launches.items() if n},
+               launches_per_step={k: n / 5 for k, n in launches.items() if n},
+               launches_by_shape=shapes)
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"PE-L14 training: loss not finite and falling: {losses}")
+    per_step = 2 * cfg.depth   # two views, one call a block
+    for name in ("flash_heads", "flash_heads_tc", "flash_heads_bwd", "fused_mlp",
+                 "fused_mlp_tc", "fused_mlp_bwd"):
+        check(launches[name] == 5 * per_step, f"training: {name} launched {launches[name]} "
+                                              f"times, not {5 * per_step}")
+    check(launches["flash_attn"] == 0 and launches["fused_mlp_int8"] == 0,
+          f"training: unexpected launches {launches}")
+
+    # (d) checkpoint: save, restore into another seed's trainer, bit for bit
+    path = os.path.join(root, "train_ckpt", "state.pt")
+    t0 = time.perf_counter()
+    save_train_state(path, tr.state)
+    out["save_s"] = time.perf_counter() - t0
+    out["checkpoint_gb"] = os.path.getsize(path) / 1e9
+    t2 = ClipTrainer(cfg, learning_rate=TRAIN_LR, seed=6)
+    t0 = time.perf_counter()
+    t2.state = restore_train_state(path, t2.state)
+    out["restore_s"] = time.perf_counter() - t0
+    same = all(torch.equal(p1, p2) for p1, p2 in zip(tr.module.parameters(),
+                                                      t2.module.parameters()))
+    s1, s2 = tr.opt.state_dict()["state"], t2.opt.state_dict()["state"]
+    same_opt = s1.keys() == s2.keys() and all(
+        torch.equal(s1[i][f], s2[i][f]) for i in s1 for f in ("exp_avg", "exp_avg_sq", "step"))
+    check(same and same_opt and int(t2.step) == 5 and torch.equal(tr.t, t2.t)
+          and torch.equal(tr.b, t2.b), "checkpoint: restored state differs")
+    os.remove(path)   # 3.6 GB of disk
+    del tr
+    torch.cuda.empty_cache()
+    out["profile_step"] = profiled(torch, lambda: t2.train_step(va, vb))
+    del t2
+    torch.cuda.empty_cache()
+
+    # the witness for TRAIN_LR: 5 steps at WITNESS_LR, kernels and plain
+    witness = {}
+    for route in ("kernels", "plain"):
+        tw = ClipTrainer(cfg, learning_rate=WITNESS_LR, seed=5)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with plain_tower() if route == "plain" else contextlib.nullcontext():
+            witness[route] = [tw.train_step(va, vb) for _ in range(5)]
+        out[f"witness_{route}_s"] = time.perf_counter() - t0
+        n = sum(kernels.launches[k] for k in ("flash_heads_tc", "fused_mlp_tc",
+                                              "flash_heads_bwd", "fused_mlp_bwd"))
+        check(n == (4 * 5 * per_step if route == "kernels" else 0),
+              f"witness on the {route}: {n} launches of K3 and K4, forward and backward")
+        del tw
+        torch.cuda.empty_cache()
+    out["witness_lr"] = WITNESS_LR
+    out["witness_losses"] = witness
+    print(f"training at lr {WITNESS_LR}: losses on the kernels {witness['kernels']}, on the "
+          f"plain tower {witness['plain']}", flush=True)
+    check(all(np.isfinite(v).all() for v in witness.values())
+          and abs(witness["kernels"][0] - witness["plain"][0]) <= 2e-2,
+          f"witness at lr {WITNESS_LR}: {witness}")
+    del va, vb
+    torch.cuda.empty_cache()
+
+    # (e) the command line, in this process, on the card
+    folder = os.path.join(root, "train_images")
+    os.makedirs(folder)
+    make_photos(folder, 32, seed=21)
+    ckpt = os.path.join(root, "cli_ckpt", "state.pt")
+    kernels.reset_counts()
+    for argv, want in ((["--steps", "2"], "step 2/2 loss"),
+                       (["--steps", "1", "--resume"], "resumed at step 2")):
+        so, se = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(so), redirect_stderr(se):
+            rc = cli.main(["train", folder, "--batch-size", "16", "--checkpoint", ckpt] + argv)
+        out[f"cli {' '.join(argv)} s"] = time.perf_counter() - t0
+        print(f"reverso-torch train {' '.join(argv)}: rc {rc}; {se.getvalue().strip()!r}; "
+              f"{so.getvalue().strip()!r}", flush=True)
+        check(rc == 0 and want in se.getvalue() and "final loss" in so.getvalue()
+              and f"saved checkpoint to {ckpt}" in se.getvalue(),
+              f"reverso-torch train {argv}: rc {rc}")
+    cli_launches = dict(kernels.launches)
+    check(cli_launches["flash_heads_bwd"] == 3 * per_step
+          and cli_launches["fused_mlp_bwd"] == 3 * per_step,
+          f"reverso-torch train: backward launches {cli_launches}")
+    out["cli_launches"] = {k: n for k, n in cli_launches.items() if n}
+    print(f"training (T) numbers: {json.dumps(out)}", flush=True)
+    return rows, launches, tc_shapes, out
+
+
+
 def main() -> int:
     import torch
 
@@ -4373,11 +4762,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         entry_launches, entry_tc_shapes, entry_k1_shapes, _ = phase(
             "entry points (CLI, UI, video, text)", entry_points_run, root)
+        torch.cuda.empty_cache()
+        train_rows, train_launches, train_tc_shapes, _ = phase("training (T)", train_run,
+                                                               root)
+        rows.update(train_rows)
     torch.cuda.empty_cache()
     rows["flash_heads"]["by_shape"], rows["fused_mlp"]["by_shape"] = phase(
         "K3 and K4 bf16 at their paths' shapes", tc_path_shapes, torch,
         collections.Counter(direct_tc_shapes) + collections.Counter(clip_tc_shapes)
-        + collections.Counter(entry_tc_shapes))
+        + collections.Counter(entry_tc_shapes) + collections.Counter(train_tc_shapes))
     path_shapes = collections.Counter()
     for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes,
                    clip_k1_shapes, euclid_shapes, engine_shapes, surface_shapes,
@@ -4403,9 +4796,10 @@ def main() -> int:
                  store_f32_launches, clip_launches, euclid_launches, engine_launches,
                  surface_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"]
-               + entry_launches["flash_heads_tc"],
+               + entry_launches["flash_heads_tc"] + train_launches["flash_heads_tc"],
                "flash_heads_f32": f32_launches["flash_heads_split"],
-               "fused_mlp": direct_launches["fused_mlp_tc"] + entry_launches["fused_mlp_tc"],
+               "fused_mlp": direct_launches["fused_mlp_tc"] + entry_launches["fused_mlp_tc"]
+               + train_launches["fused_mlp_tc"],
                "fused_mlp_f32": f32_launches["fused_mlp_split"],
                "split_parts": f32_launches["split_parts"],
                "topk_stream": direct_launches["topk_stream"] + surface_launches["topk_stream"]
@@ -4423,7 +4817,9 @@ def main() -> int:
                + surface_launches["topk_binary"],
                "ivf_scan": capacity_launches["ivf_scan"] + surface_launches["ivf_scan"],
                "fused_mlp_int8": int8_launches["fused_mlp_int8"],
-               "topk_int8_rows": two_stage_launches["topk_int8_rows"]}
+               "topk_int8_rows": two_stage_launches["topk_int8_rows"],
+               "flash_heads_bwd": train_launches["flash_heads_bwd"],
+               "fused_mlp_bwd": train_launches["fused_mlp_bwd"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     for name in ("flash_heads", "fused_mlp", "fused_mlp_f32", "flash_heads_f32",

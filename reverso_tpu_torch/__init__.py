@@ -9,6 +9,8 @@ int8 and binary modes, flash attention with SAM's rel-pos bias,
 multi-scale deformable attention, the IVF probed scan) hand-written in
 CUDA C++ for sm_90a (`csrc/`, built by `kernels.py` at first use). CPU tensors run each kernel's plain
 PyTorch version; entry points run on CUDA unless given `device="cpu"`.
+`train/` fine-tunes the vision tower on one device, the attention's and
+the MLP's gradients on hand-written backward kernels.
 """
 
 __version__ = "0.1.0"

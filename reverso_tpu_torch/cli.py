@@ -7,8 +7,9 @@ reference main.py:23-40); this CLI exposes the same capabilities headless
 production use. It takes every subcommand and option of the JAX
 package's `reverso` command, plus `--device` (default `cuda`; `--device
 cpu` runs on the CPU). Asking for CUDA where there is none raises: no
-path falls back to the CPU. `train` and `bench` are not ported yet and
-exit non-zero, naming their ROADMAP items.
+path falls back to the CPU. `train` fine-tunes the vision tower on one
+device (`--tp` above 1 exits non-zero, naming ROADMAP item 21); `bench`
+is not ported yet and exits non-zero, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -1109,11 +1110,51 @@ def cmd_video_local(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """Not ported: SigLIP fine-tuning (`train/`) is ROADMAP queue 1 item
-    20b."""
-    print("❌ training is not ported yet (ROADMAP queue 1 item 20b)",
-          file=sys.stderr)
-    return 1
+    """SigLIP contrastive fine-tuning on two augmented views per image, on
+    `--device` (the JAX command's mesh of `--tp` model shards is ROADMAP
+    queue 1 item 21)."""
+    import numpy as np
+    from .ingest.images import scan_images, iter_batches
+    from .train import ClipTrainer
+    from .train.checkpoint import save_train_state, restore_train_state
+
+    if args.tp != 1:
+        print(f"❌ --tp {args.tp}: tensor-parallel training is not ported yet "
+              f"(ROADMAP queue 1 item 21)", file=sys.stderr)
+        return 1
+    cfg = MODEL_PRESETS[args.model or "PE-Core-L14-336"]
+    trainer = ClipTrainer(cfg, learning_rate=args.lr, device=_device(args))
+    if args.resume and args.checkpoint:
+        trainer.state = restore_train_state(args.checkpoint, trainer.state)
+        print(f"resumed at step {int(trainer.step)}", file=sys.stderr)
+
+    files = scan_images(args.folder)
+    if not files:
+        print(f"no images in {args.folder}", file=sys.stderr)
+        return 1
+    rng = np.random.default_rng(0)
+    step = 0
+    loss = float("nan")        # --steps 0: nothing trained, no NameError
+    while step < args.steps:
+        for batch in iter_batches(files, cfg.image_size, args.batch_size):
+            if step >= args.steps or not len(batch.paths):
+                break
+            a = batch.pixels
+            # light augmentation: horizontal flip + pixel noise as view b
+            b = a[:, :, ::-1, :] + 0.02 * rng.standard_normal(
+                a.shape).astype(np.float32)
+            loss = trainer.train_step(a, b)
+            step += 1
+            if step % 10 == 0 or step == args.steps:
+                print(f"step {step}/{args.steps} loss {loss:.4f}",
+                      file=sys.stderr)
+            if args.checkpoint and step % 100 == 0:
+                save_train_state(args.checkpoint, trainer.state)
+    if args.checkpoint:
+        save_train_state(args.checkpoint, trainer.state)
+        print(f"saved checkpoint to {args.checkpoint}", file=sys.stderr)
+    print(f"final loss {loss:.4f}")
+    return 0
 
 
 def cmd_video_urls(args) -> int:
@@ -1577,14 +1618,14 @@ def build_parser() -> argparse.ArgumentParser:
     vu.add_argument("--quality", default="720p")
     vu.set_defaults(fn=cmd_video_urls)
 
-    t = sub.add_parser("train", help="contrastive fine-tune of the vision "
-                                     "tower (not ported yet: ROADMAP item 20b)")
+    t = sub.add_parser("train", help="contrastive fine-tune of the vision tower")
     t.add_argument("folder", help="training image folder")
     t.add_argument("--steps", type=int, default=100)
     t.add_argument("--batch-size", type=int, default=32)
     t.add_argument("--lr", type=float, default=1e-4)
     t.add_argument("--tp", type=int, default=1, help="tensor-parallel axis size")
-    t.add_argument("--checkpoint", default=None, help="checkpoint dir")
+    t.add_argument("--checkpoint", default=None,
+                   help="checkpoint file (this package's format, not orbax's)")
     t.add_argument("--resume", action="store_true")
     t.set_defaults(fn=cmd_train)
     return p

@@ -42,6 +42,11 @@ _SIGNATURES = {
     # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, stream
     "rv_flash_heads_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "rv_flash_heads_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, dO, cos, sin, dq, dk, dv, lse, D, B, S, W, heads, kv_valid, scale,
+    # use_rope, dtype, stream
+    "rv_flash_heads_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    # x, w1, b1, w2, dy, h, dz, T, W, H, act, dtype, stream
+    "rv_fused_mlp_bwd": [_P] * 7 + [_I] * 5 + [_P],
     # x, w1, b1, w2, b2, h, out, T, W, H, act, stream
     "rv_fused_mlp_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w1 parts, b1, w2 parts, b2, x parts, h parts, out, T, W, H, act, stream
@@ -94,19 +99,24 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # `fused_mlp_split` the fp32 ones that went to the wgmma GEMMs (one count
 # per MLP call, not per GEMM); `split_parts` the split pass's launches
 # outside an MLP call (the weights' parts, the bf16 MLP's padded copies,
-# the fp32 top-k's query parts).
+# the fp32 top-k's query parts). `flash_heads_bwd` and `fused_mlp_bwd`
+# count the backward kernels of K3 and K4 (one per backward call; each
+# call is two kernels for K3, one for K4).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
             "fused_mlp_int8": 0, "topk_int8_rows": 0, "flash_heads_tc": 0,
             "flash_attn_tc": 0, "flash_attn_relbias_tc": 0, "flash_attn_split": 0,
             "flash_attn_relbias_split": 0, "fused_mlp_tc": 0, "topk_stream_f32": 0,
-            "flash_heads_split": 0, "fused_mlp_split": 0, "split_parts": 0}
+            "flash_heads_split": 0, "fused_mlp_split": 0, "split_parts": 0,
+            "flash_heads_bwd": 0, "fused_mlp_bwd": 0}
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,
-# H)): n, ("fused_mlp_tc", (T, W, H, act)): n, ("flash_heads_split", (B, S,
-# W, heads)): n, ("flash_heads_tc", (B, S, W, heads, rope)): n, ("ms_deform", (B,
+# H)): n, ("fused_mlp_tc", (T, W, H, act)): n, ("flash_heads_bwd", (B, S, W,
+# heads, rope, dtype)): n, ("fused_mlp_bwd", (T, W, H, act, dtype)): n,
+# ("flash_heads_split", (B, S, W, heads)): n, ("flash_heads_tc", (B, S, W,
+# heads, rope)): n, ("ms_deform", (B,
 # Lq, level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
 # masked)): n, ("ivf_scan", (Q, nprobe, d, k, masked, mode)): n}, fp32-row top-k
 # launches under "topk_stream_f32"
@@ -214,6 +224,15 @@ def check(name: str, status: int) -> None:
         raise RuntimeError(f"{name}: the TMA tensor map could not be encoded")
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def grad_recorded(*tensors) -> bool:
+    """Whether autograd records a call on these tensors: grad mode on and
+    one of them (None skipped) requires grad. Never under
+    `torch.inference_mode()` or `no_grad`, so the serving forwards launch
+    as they did without autograd."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -32,6 +32,15 @@ summed in fp32; `attention_split_ref` and, with RoPE on [B, S, W],
 `flash_attention_heads_split_ref` spell that out. On the CPU both entries
 keep the exact fp32 plain versions, which is what the JAX package computes
 on the CPU.
+
+Gradients: with grad mode on and an input that requires grad, a CUDA call
+of `flash_attention_heads` goes through `FlashHeadsFunction`, whose forward
+is the launch above and whose backward launches `rv_flash_heads_bwd`
+(`csrc/flash_heads_bwd.cu`); `flash_attention_heads_grad_ref` is its plain
+version. The JAX package has no backward for its Pallas kernels, so this
+one replaces none. A CUDA call of `flash_attention` (K6, K7) under grad
+raises: its gradient is ROADMAP queue 1 item 20c. On the CPU both entries
+run their plain versions, which PyTorch differentiates itself.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .rope import rotate
+from .rope import rotate, wide
 from .split import split_matmul
 
 
@@ -176,16 +185,16 @@ def flash_attention_heads_ref(q, k, v, *, heads: int, cos=None, sin=None,
     if cos is not None:
         qh = rotate(qh, cos, sin, scale)
         kh = rotate(kh, cos, sin)
-        sc = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+        sc = torch.matmul(wide(qh), wide(kh).transpose(-1, -2))
     else:
-        sc = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+        sc = torch.matmul(wide(qh), wide(kh).transpose(-1, -2)) * scale
     kv = s if kv_valid is None else min(int(kv_valid), s)
     if kv < s:
         sc[..., kv:] = float("-inf")
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(q.dtype).float(), vh.float()) / l
+    o = torch.matmul(wide(p.to(q.dtype)), wide(vh)) / l
     return o.to(q.dtype).transpose(1, 2).reshape(b, s, w)
 
 
@@ -224,21 +233,21 @@ def _table(t, shape, device) -> torch.Tensor:
     return t
 
 
-def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
-                          scale: Optional[float] = None,
-                          kv_valid: Optional[int] = None):
-    """Attention over [B, S, W] with heads sliced from the width and
-    optional in-kernel 2D RoPE (cos/sin [S, head_dim] tables).
+def flash_attention_heads_grad_ref(q, k, v, do, *, heads: int, cos=None, sin=None,
+                                   scale: Optional[float] = None,
+                                   kv_valid: Optional[int] = None):
+    """Plain version of K3's gradient: `torch.autograd.grad` of
+    `flash_attention_heads_ref` at (q, k, v) against the output gradient
+    `do`, all [B, S, W]. Returns (dq, dk, dv) in q's dtype."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin,
+                                      scale=scale, kv_valid=kv_valid)
+        return torch.autograd.grad(o, (q, k, v), do.to(o.dtype))
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel
-    `heads_route` picks. Any view is taken: a non-contiguous one is copied
-    first, and bases TMA cannot take go through the producer's lanes."""
+
+def _check_heads(q, k, v, heads: int) -> int:
     b, s, w = q.shape
-    hd = w // heads if heads and w % heads == 0 else 0
-    if heads_route(q.device.type, q.dtype, hd) == "plain":
-        return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos,
-                                         sin=sin, scale=scale,
-                                         kv_valid=kv_valid)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     if w % heads or (w // heads) % 4:
@@ -248,16 +257,19 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
             or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_heads: unsupported dtypes "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    scale = float(scale) if scale is not None else hd ** -0.5
-    kv = s if kv_valid is None else max(0, min(int(kv_valid), s))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    use_rope = cos is not None
-    tables = (_table(cos, (s, hd), q.device), _table(sin, (s, hd), q.device)) if use_rope else ()
+    return w // heads
+
+
+def _heads_launch(q, k, v, heads: int, tables: tuple, scale: float, kv: int):
+    """K3's forward on the card: contiguous q, k, v [B, S, W] of one dtype,
+    `tables` () or the (cos, sin) [S, hd] fp32 tables on the card."""
+    b, s, w = q.shape
     kernels.require_cuda("flash_attention_heads", q, k, v, *tables)
     # the kernels read the tables' rows 16 bytes at a time: a copy only
     # where the caller's table is not 16-byte aligned
     tables = tuple(t.clone() if t.data_ptr() % 16 else t for t in tables)
-    route = heads_route(q.device.type, q.dtype, hd,
+    use_rope = bool(tables)
+    route = heads_route(q.device.type, q.dtype, w // heads,
                         all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     split = route == "split"
     o = torch.empty_like(q)
@@ -279,6 +291,96 @@ def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
     return o
 
 
+def _heads_bwd_launch(q, k, v, do, heads: int, tables: tuple, scale: float, kv: int):
+    """K3's backward on the card (`rv_flash_heads_bwd`): (dq, dk, dv) in
+    q's dtype from the forward's inputs and the output gradient. Scratch
+    made for this call: each row's log-sum-exp and D = rowsum(dO * O) in
+    fp32, [B * heads, S] each."""
+    b, s, w = q.shape
+    do = do.to(q.dtype).contiguous()
+    kernels.require_cuda("flash_attention_heads backward", q, k, v, do, *tables)
+    tables = tuple(t.clone() if t.data_ptr() % 16 else t for t in tables)
+    use_rope = bool(tables)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    cos_p = tables[0].data_ptr() if use_rope else None
+    sin_p = tables[1].data_ptr() if use_rope else None
+    with torch.cuda.device(q.device):   # launch on the tensors' card
+        status = kernels.lib().rv_flash_heads_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), cos_p, sin_p,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            b, s, w, heads, kv, scale, int(use_rope), kernels.DTYPE_CODES[q.dtype],
+            kernels.stream_ptr(q.device))
+    kernels.check("flash_attention_heads backward", status)
+    kernels.launches["flash_heads_bwd"] += 1
+    kernels.shape_launches[("flash_heads_bwd", (b, s, w, heads, use_rope,
+                                                str(q.dtype)))] += 1
+    return dq, dk, dv
+
+
+class FlashHeadsFunction(torch.autograd.Function):
+    """K3 with its gradient: the forward launches the heads-in-lanes kernel
+    (`_heads_launch`), the backward `rv_flash_heads_bwd`. It saves q, k
+    and v before RoPE and recomputes the scores in the backward. On CPU
+    tensors the forward and the backward are the plain versions (the tower
+    differentiates the plain forward itself there; this path is for
+    `gradcheck`). Arguments after v: heads, the (cos, sin) tables or
+    (None, None), the scale and the number of valid keys."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, cos, sin, scale, kv):
+        ctx.heads, ctx.scale, ctx.kv = heads, scale, kv
+        ctx.save_for_backward(q, k, v, cos, sin)
+        if q.device.type == "cpu":
+            return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin,
+                                             scale=scale, kv_valid=kv)
+        tables = () if cos is None else (cos, sin)
+        return _heads_launch(q, k, v, heads, tables, scale, kv)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, cos, sin = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_heads_grad_ref(
+                q, k, v, do, heads=ctx.heads, cos=cos, sin=sin, scale=ctx.scale,
+                kv_valid=ctx.kv)
+        else:
+            tables = () if cos is None else (cos, sin)
+            dq, dk, dv = _heads_bwd_launch(q, k, v, do, ctx.heads, tables, ctx.scale,
+                                           ctx.kv)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_heads(q, k, v, *, heads: int, cos=None, sin=None,
+                          scale: Optional[float] = None,
+                          kv_valid: Optional[int] = None):
+    """Attention over [B, S, W] with heads sliced from the width and
+    optional in-kernel 2D RoPE (cos/sin [S, head_dim] tables).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    `heads_route` picks, through `FlashHeadsFunction` when autograd records
+    the call (its backward is a kernel too). Any view is taken: a
+    non-contiguous one is copied first, and bases TMA cannot take go
+    through the producer's lanes."""
+    b, s, w = q.shape
+    hd = w // heads if heads and w % heads == 0 else 0
+    if heads_route(q.device.type, q.dtype, hd) == "plain":
+        return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos,
+                                         sin=sin, scale=scale,
+                                         kv_valid=kv_valid)
+    hd = _check_heads(q, k, v, heads)
+    scale = float(scale) if scale is not None else hd ** -0.5
+    kv = s if kv_valid is None else max(0, min(int(kv_valid), s))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    tables = (_table(cos, (s, hd), q.device),
+              _table(sin, (s, hd), q.device)) if cos is not None else ()
+    if kernels.grad_recorded(q, k, v):
+        cos_t, sin_t = tables if tables else (None, None)
+        return FlashHeadsFunction.apply(q, k, v, heads, cos_t, sin_t, scale, kv)
+    return _heads_launch(q, k, v, heads, tables, scale, kv)
+
+
 def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
                     scale: Optional[float] = None, rel_bias=None):
     """Attention over [B, H, S, D] (kv may have S_kv != S_q); keys at or
@@ -293,12 +395,18 @@ def flash_attention(q, k, v, *, kv_valid: Optional[int] = None,
     (`attention_split_ref`); the output keeps q's dtype.
 
     CPU tensors run `attention_ref`; CUDA tensors launch the kernel
-    `attention_route` picks."""
+    `attention_route` picks, and raise where autograd would record the
+    call (no backward kernel yet: ROADMAP queue 1 item 20c)."""
     b, h, sq, d = q.shape
     route = attention_route(q.device.type, q.dtype, d, rel_bias is not None)
     if route == "plain":
         return attention_ref(q, k, v, kv_valid=kv_valid, scale=scale,
                              rel_bias=rel_bias)
+    if kernels.grad_recorded(q, k, v, *(rel_bias[:2] if rel_bias is not None else ())):
+        raise NotImplementedError(
+            "flash_attention: the [B, H, S, D] kernels (K6, K7) have no gradient "
+            "on the card yet (ROADMAP queue 1 item 20c); the ViT trains on "
+            "flash_attention_heads, S <= 1032")
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
         raise ValueError(f"q/k/v shapes disagree: {q.shape} {k.shape} {v.shape}")

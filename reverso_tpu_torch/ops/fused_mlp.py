@@ -27,6 +27,15 @@ rounding boundary flips an int8 quantum. `mlp_int8_ref` spells that out;
 and on a CUDA tensor launches the int8 kernels (a row quantizer, then two
 s8 wgmma + TMA GEMMs through int8 scratch of the call's shape); weights
 at an unaligned base are copied first.
+
+Gradients: with grad mode on and an input that requires grad, a CUDA call
+of `fused_mlp` goes through `FusedMLPFunction`. Its forward is the launch
+above; its backward launches `rv_fused_mlp_bwd` (`csrc/fused_mlp_bwd.cu`),
+which recomputes z = x W1^T + b1 and writes h = act(z) and dz = (dY W2) *
+act'(z), and leaves the three weight-sized products and the bias sums to
+`torch.matmul` and `sum`. `mlp_grad_ref` is its plain version. The int8
+mode (K5) has no gradient on the card yet (ROADMAP queue 1 item 20c): a
+CUDA call under grad raises.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from .quant import int_dot, quantize_rows_int8, quantize_weight_int8
+from .rope import wide
 from .split import round_pitch, split_matmul, split_parts
 
 ACT_CODES = {"gelu": 0, "quick_gelu": 1}
@@ -56,11 +66,22 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
 
 def mlp_ref(x, w1, b1, w2, b2, act: str = "gelu"):
     """Plain version: fp32 accumulation of dtype-rounded operands, bias
-    added in fp32, h rounded to x's dtype before the second product."""
-    h = torch.matmul(x.float(), w1.float().t()) + b1.float()
+    added in fp32, h rounded to x's dtype before the second product
+    (float64 computes in float64, for `gradcheck`)."""
+    h = torch.matmul(wide(x), wide(w1).t()) + wide(b1)
     h = _act(h, act).to(x.dtype)
-    y = torch.matmul(h.float(), w2.float().t()) + b2.float()
+    y = torch.matmul(wide(h), wide(w2).t()) + wide(b2)
     return y.to(x.dtype)
+
+
+def mlp_grad_ref(x, w1, b1, w2, b2, dy, act: str = "gelu"):
+    """Plain version of K4's gradient: `torch.autograd.grad` of `mlp_ref`
+    against the output gradient `dy`. Returns (dx, dw1, db1, dw2, db2),
+    each in its input's dtype."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2))
+        y = mlp_ref(*ins, act=act)
+        return torch.autograd.grad(y, ins, dy.to(y.dtype))
 
 
 def mlp_split_ref(x, w1, b1, w2, b2, act: str = "gelu"):
@@ -133,6 +154,16 @@ def _launch_tc(x2, w1, b1, w2, b2, act: str) -> torch.Tensor:
     return out
 
 
+def _no_grad_on_card(name: str, *tensors) -> None:
+    """The int8 mode has no backward kernel: a CUDA call that autograd
+    would record raises instead of returning an output without a
+    gradient."""
+    if tensors[0].device.type != "cpu" and kernels.grad_recorded(*tensors):
+        raise NotImplementedError(
+            f"{name}: the int8 MLP (K5) has no gradient on the card yet "
+            f"(ROADMAP queue 1 item 20c); train with quant='none'")
+
+
 def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
               parts: Optional[SplitMLPWeights] = None):
     """Fused MLP over [..., T, W] inputs (leading dims flattened).
@@ -143,11 +174,14 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
     calls `fused_mlp_int8`). In fp32 on the card, `parts` are the weights'
     bf16 parts from `split_mlp_weights(w1, w2)` (without them the split
     pass makes them on this call). Any view is taken: x is made
-    contiguous, and a base TMA cannot take is copied."""
+    contiguous, and a base TMA cannot take is copied. On the card, a call
+    autograd records goes through `FusedMLPFunction` (its backward is a
+    kernel too; `parts` get no gradient)."""
     width = _check_square(x, w1, w2)
     if act not in ACT_CODES:
         raise ValueError(act)
     if quant:
+        _no_grad_on_card("fused_mlp", x, w1, b1, w2, b2)
         return fused_mlp_int8(x, quantize_mlp_weights(w1, b1, w2, b2, x.dtype), act=act)
     shape = x.shape
     x2 = x.reshape(-1, width)
@@ -159,12 +193,21 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
             t.dtype != x.dtype for t in (w1, b1, w2, b2)):
         raise ValueError("fused_mlp: x, weights and biases must share one "
                          "dtype (float32 or bfloat16)")
+    if kernels.grad_recorded(x2, w1, b1, w2, b2):
+        return FusedMLPFunction.apply(x2, w1, b1, w2, b2, act, parts).reshape(shape)
+    return _mlp_launch(x2, w1, b1, w2, b2, act, parts).reshape(shape)
+
+
+def _mlp_launch(x2, w1, b1, w2, b2, act: str, parts: Optional[SplitMLPWeights]):
+    """K4's forward on the card over [T, W] rows by `mlp_route`."""
+    width, hidden = x2.shape[1], w1.shape[0]
+    route = mlp_route(x2.device.type, x2.dtype, width, hidden)
     x2 = x2.contiguous()
     w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
     kernels.require_cuda("fused_mlp", x2, w1, b1, w2, b2)
     t = x2.shape[0]
     if t == 0:
-        return torch.empty_like(x2).reshape(shape)
+        return torch.empty_like(x2)
     if route == "split":
         wp, hp = round_pitch(width), round_pitch(hidden)
         if parts is None:
@@ -175,14 +218,14 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
         kernels.require_cuda("fused_mlp", x2, *parts)
         out = torch.empty_like(x2)
         # scratch, made for this call's shape: x's and h's parts
-        xp = torch.empty((3, t, wp), dtype=torch.bfloat16, device=x.device)
-        hpart = torch.empty((3, t, hp), dtype=torch.bfloat16, device=x.device)
+        xp = torch.empty((3, t, wp), dtype=torch.bfloat16, device=x2.device)
+        hpart = torch.empty((3, t, hp), dtype=torch.bfloat16, device=x2.device)
         w1p, w2p = (_aligned(p) for p in parts)
-        with torch.cuda.device(x.device):   # launch on the tensors' card
+        with torch.cuda.device(x2.device):   # launch on the tensors' card
             status = kernels.lib().rv_fused_mlp_split(
                 x2.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
                 xp.data_ptr(), hpart.data_ptr(), out.data_ptr(), t, width, hidden,
-                ACT_CODES[act], kernels.stream_ptr(x.device))
+                ACT_CODES[act], kernels.stream_ptr(x2.device))
         kernels.check("fused_mlp", status)
         kernels.launches["fused_mlp_split"] += 1
         kernels.shape_launches[("fused_mlp_split", (t, width, hidden))] += 1
@@ -207,7 +250,81 @@ def fused_mlp(x, w1, b1, w2, b2, *, act: str = "gelu", quant: bool = False,
         kernels.launches["fused_mlp_tc"] += 1
         kernels.shape_launches[("fused_mlp_tc", (t, width, hidden, act))] += 1
     kernels.launches["fused_mlp"] += 1
-    return out.reshape(shape)
+    return out
+
+
+def _mlp_bwd_launch(x2, w1, b1, w2, dy2, act: str):
+    """K4's backward kernel on the card (`rv_fused_mlp_bwd`): h = act(z)
+    and dz = (dY W2) * act'(z), both [T, H] in x's dtype, from z = x W1^T
+    + b1 recomputed inside the kernel. bf16 at W or H % 8 != 0 goes through
+    zero-padded copies, as the forward's "tensor_core_padded" route: the
+    pad columns of x, dY and W1 add nothing to either product, and the pad
+    columns of h and dz are cut off."""
+    t, width = x2.shape
+    hidden = w1.shape[0]
+    dy2 = dy2.to(x2.dtype)
+    wp, hp = width, hidden
+    if x2.dtype == torch.bfloat16:
+        wp, hp = round_pitch(width), round_pitch(hidden)
+    if (wp, hp) != (width, hidden):
+        x2, dy2 = F.pad(x2, (0, wp - width)), F.pad(dy2, (0, wp - width))
+        w1, b1 = F.pad(w1, (0, wp - width, 0, hp - hidden)), F.pad(b1, (0, hp - hidden))
+        w2 = F.pad(w2, (0, hp - hidden, 0, wp - width))
+    x2, dy2 = _aligned(x2.contiguous()), _aligned(dy2.contiguous())
+    w1, w2 = _aligned(w1.contiguous()), _aligned(w2.contiguous())
+    b1 = b1.contiguous()
+    kernels.require_cuda("fused_mlp backward", x2, w1, b1, w2, dy2)
+    h = torch.empty((t, hp), dtype=x2.dtype, device=x2.device)
+    dz = torch.empty_like(h)
+    if t:
+        with torch.cuda.device(x2.device):   # launch on the tensors' card
+            status = kernels.lib().rv_fused_mlp_bwd(
+                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy2.data_ptr(),
+                h.data_ptr(), dz.data_ptr(), t, wp, hp, ACT_CODES[act],
+                kernels.DTYPE_CODES[x2.dtype], kernels.stream_ptr(x2.device))
+        kernels.check("fused_mlp backward", status)
+        kernels.launches["fused_mlp_bwd"] += 1
+        kernels.shape_launches[("fused_mlp_bwd", (t, width, hidden, act,
+                                                  str(x2.dtype)))] += 1
+    if hp != hidden:
+        h, dz = h[:, :hidden].contiguous(), dz[:, :hidden].contiguous()
+    return h, dz
+
+
+class FusedMLPFunction(torch.autograd.Function):
+    """K4 with its gradient over [T, W] rows: the forward launches K4
+    (`_mlp_launch`), the backward `rv_fused_mlp_bwd` for h and dz, then
+    dW2 = dY^T h, dW1 = dz^T x and dx = dz W1 as `torch.matmul` (plain
+    products, as XLA's dots of the autodiff in JAX) and the bias gradients
+    as column sums in fp32. It saves x, W1, b1 and W2 and recomputes z in
+    the backward. The gradients go to the tensors passed in (the tower
+    passes its parameters cast to the activation dtype); `parts`, the fp32
+    route's cached bf16 parts, get none. On CPU tensors the forward and the
+    backward are the plain versions (for `gradcheck`). Arguments after b2:
+    the activation and the fp32 route's weight parts or None."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, act, parts):
+        ctx.act = act
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        if x2.device.type == "cpu":
+            return mlp_ref(x2, w1, b1, w2, b2, act=act)
+        return _mlp_launch(x2, w1, b1, w2, b2, act, parts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w1, b1, w2, b2 = ctx.saved_tensors
+        if x2.device.type == "cpu":
+            return (*mlp_grad_ref(x2, w1, b1, w2, b2, dy, act=ctx.act), None, None)
+        need = ctx.needs_input_grad
+        dy = dy.to(x2.dtype)
+        h, dz = _mlp_bwd_launch(x2, w1, b1, w2, dy, ctx.act)
+        dx = torch.matmul(dz, w1) if need[0] else None
+        dw1 = torch.matmul(dz.t(), x2) if need[1] else None
+        db1 = dz.float().sum(0).to(b1.dtype) if need[2] else None
+        dw2 = torch.matmul(dy.t(), h) if need[3] else None
+        db2 = dy.float().sum(0).to(b2.dtype) if need[4] else None
+        return dx, dw1, db1, dw2, db2, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +427,7 @@ def fused_mlp_int8(x, qw: Int8MLPWeights, *, act: str = "gelu"):
     x2 = x.reshape(-1, width)
     if x.device.type == "cpu":
         return mlp_int8_plain(x2, qw, act).reshape(shape)
+    _no_grad_on_card("fused_mlp_int8", x2, *qw)
     if x.dtype not in kernels.DTYPE_CODES:
         raise ValueError(f"fused_mlp_int8: unsupported dtype {x.dtype}")
     x2 = x2.contiguous()

@@ -48,12 +48,18 @@ def _rotate_half_axial(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-b, a, -e, c], dim=-1)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x widened to fp32 for a plain version's arithmetic; float64 stays
+    float64 (`gradcheck` runs the plain versions in float64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rotate(x: torch.Tensor, cos, sin, scale: float = 1.0) -> torch.Tensor:
     """fp32 rotation of x [..., S, D] by cos/sin [S, D], times `scale`,
-    rounded back to x's dtype."""
+    rounded back to x's dtype (float64 rotates in float64)."""
     cos = torch.as_tensor(cos, dtype=torch.float32, device=x.device)
     sin = torch.as_tensor(sin, dtype=torch.float32, device=x.device)
-    x32 = x.float()
+    x32 = wide(x)
     out = x32 * cos + _rotate_half_axial(x32) * sin
     if scale != 1.0:
         out = out * scale

@@ -256,12 +256,11 @@ def test_parsers_take_the_same_commands_and_options():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "."], "item 20b"),
     (["bench"], "item 8"),
 ])
 def test_unported_commands_name_their_item(argv, item, capsys, monkeypatch):
-    """`train` and `bench` exit non-zero and name their ROADMAP items;
-    `bench` does not start `bench.py` (it drives the JAX package)."""
+    """`bench` exits non-zero and names its ROADMAP item; it does not start
+    `bench.py` (it drives the JAX package)."""
     import subprocess
 
     from reverso_tpu_torch import cli
@@ -271,3 +270,46 @@ def test_unported_commands_name_their_item(argv, item, capsys, monkeypatch):
     assert cli.main(["--device", "cpu"] + argv) != 0
     err = capsys.readouterr().err
     assert "ROADMAP" in err and item in err
+
+
+def test_train_runs_checkpoints_and_resumes(tmp_path, capsys):
+    """`reverso-torch --device cpu train` at test-tiny on six seeded images:
+    two steps of batch 4 (a full batch, then the short last one) with a
+    checkpoint, then `--resume` for one more. The JAX command's lines: on
+    stderr "step i/n loss x" and "saved checkpoint to <path>", "resumed at
+    step N" after a resume; on stdout "final loss x"."""
+    import re
+
+    from reverso_tpu_torch import cli
+    from reverso_tpu_torch.train.checkpoint import restore_train_state
+    from reverso_tpu_torch.train import ClipTrainer
+    from reverso_tpu_torch.config import MODEL_PRESETS
+
+    make_corpus(tmp_path / "imgs", n=6)
+    ckpt = str(tmp_path / "ckpt" / "state.pt")
+    base = ["--device", "cpu", "--model", "test-tiny", "train", str(tmp_path / "imgs"),
+            "--batch-size", "4", "--lr", "1e-3", "--checkpoint", ckpt]
+    assert cli.main(base + ["--steps", "2"]) == 0
+    out, err = capsys.readouterr()
+    assert re.fullmatch(r"final loss \d+\.\d{4}\n", out), out
+    assert re.search(r"^step 2/2 loss \d+\.\d{4}$", err, re.M), err
+    assert f"saved checkpoint to {ckpt}" in err and "resumed" not in err
+    template = ClipTrainer(MODEL_PRESETS["test-tiny"], device="cpu").state
+    assert int(restore_train_state(ckpt, template).step) == 2
+    assert cli.main(base + ["--steps", "1", "--resume"]) == 0
+    out, err = capsys.readouterr()
+    assert err.splitlines()[0] == "resumed at step 2", err
+    assert re.search(r"^step 1/1 loss \d+\.\d{4}$", err, re.M), err
+    assert re.fullmatch(r"final loss \d+\.\d{4}\n", out), out
+    assert int(restore_train_state(ckpt, template).step) == 3
+
+
+def test_train_tensor_parallel_names_item_21(tmp_path, capsys):
+    from reverso_tpu_torch import cli
+
+    make_corpus(tmp_path / "imgs", n=2)
+    argv = ["--device", "cpu", "--model", "test-tiny", "train", str(tmp_path / "imgs"),
+            "--steps", "1", "--tp", "2"]
+    assert cli.main(argv) != 0
+    err = capsys.readouterr().err
+    assert "ROADMAP" in err and "item 21" in err

@@ -1130,3 +1130,118 @@ def test_pq_search_card_vs_cpu(dev):
         s, i = gpu.search(qs, 30, row_mask=m)
         cs, ci = cpu.search(qs, 30, row_mask=m)
         _assert_topk_close(s.cpu(), i.cpu(), cs, ci, 1e-5)
+
+
+# backward kernels: outputs rounded once against the plain version's
+# autograd, which rounds its intermediate gradients to the dtype as well
+# (bf16: within 2% of the largest gradient); fp32 sums in another order
+BWD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _assert_grads_close(outs, refs, dtype):
+    """Each gradient within BWD_TOLS[dtype] of max(1, its largest plain
+    value), all finite."""
+    for out, ref in zip(outs, refs):
+        assert out.dtype == ref.dtype and torch.isfinite(out).all()
+        scale = max(1.0, float(ref.float().abs().max()))
+        assert float((out.float() - ref.float()).abs().max()) <= BWD_TOLS[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,heads,kv_valid,rope", [
+    (2, 17, 64, 4, None, True),       # test-tiny: hd 16, S = 17
+    (3, 37, 64, 4, 23, True),
+    (2, 145, 128, 4, None, False),    # hd 32, CLIP family
+    (1, 1, 64, 1, None, True),        # S = 1, B * H = 1
+    (2, 63, 128, 4, 1, True),         # one valid key
+    (1, 64, 256, 2, 63, True),        # hd 128, one full key tile
+    (1, 129, 512, 4, 65, True),       # hd 128, kv_valid one past a tile
+    (2, 50, 384, 4, None, True),      # hd 96
+    (2, 37, 80, 4, None, True),       # hd 20: partner columns across float4 chunks
+    (1, 129, 160, 4, 100, True),      # hd 40
+    (1, 577, 1024, 16, 300, True),    # PE-L14 widths, kv_valid < S
+    (2, 577, 1536, 16, None, True),   # PE-G14's head dim 96 at S = 577
+])
+def test_flash_heads_bwd_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
+    """K3's backward (`rv_flash_heads_bwd`) through `flash_attention_heads`
+    under autograd, against `flash_attention_heads_grad_ref`; one backward
+    launch, and the forward on the same kernel as without grad."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.attention import (flash_attention_heads,
+                                                  flash_attention_heads_grad_ref)
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(s + w)
+    q, k, v, do = (_randn(gen, b, s, w, dtype=dtype) for _ in range(4))
+    cos = sin = None
+    if rope:
+        hd = w // heads
+        g = max(1, int(np.sqrt(s - 1)))
+        c, sn = rope_2d_tables(g, hd, cls_token=True)
+        pad = s - c.shape[0]
+        c = np.concatenate([c, np.ones((max(pad, 0), hd), np.float32)])[:s]
+        sn = np.concatenate([sn, np.zeros((max(pad, 0), hd), np.float32)])[:s]
+        cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(sn).to(dev)
+    kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv_valid)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(kernels.launches)
+    out = flash_attention_heads(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_heads"] - before["flash_heads"] == 1
+    assert kernels.launches["flash_heads_bwd"] - before["flash_heads_bwd"] == 1
+    _assert_close(out.detach(), flash_attention_heads(q, k, v, **kw), 0.0)
+    refs = flash_attention_heads_grad_ref(q, k, v, do, **kw)
+    _assert_grads_close([t.grad for t in leaves], refs, dtype)
+    if kv_valid is not None:   # keys past kv_valid get no gradient
+        assert not leaves[1].grad[:, kv_valid:].any() and not leaves[2].grad[:, kv_valid:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,w,hid,act", [
+    (50, 64, 256, "gelu"),            # test-tiny
+    (33, 64, 256, "quick_gelu"),
+    (1, 64, 256, "gelu"),
+    (130, 72, 200, "gelu"),           # W, H % 8 == 0 but not whole tiles (K tail of 8)
+    (40, 68, 252, "quick_gelu"),      # W % 8 != 0: bf16 through zero-padded copies
+    (577, 1024, 4096, "gelu"),        # PE-L14 widths
+    (1000, 1024, 4096, "quick_gelu"),  # T % 128 != 0
+])
+def test_fused_mlp_bwd_kernel(dev, dtype, t, w, hid, act):
+    """K4's backward (`rv_fused_mlp_bwd`, then the three products and the
+    bias sums) through `fused_mlp` under autograd, against `mlp_grad_ref`;
+    one backward launch."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_grad_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(t + w)
+    x, dy = _randn(gen, t, w, dtype=dtype), _randn(gen, t, w, dtype=dtype)
+    w1, b1 = _randn(gen, hid, w, dtype=dtype, scale=w ** -0.5), _randn(gen, hid, dtype=dtype, scale=0.1)
+    w2, b2 = _randn(gen, w, hid, dtype=dtype, scale=hid ** -0.5), _randn(gen, w, dtype=dtype, scale=0.1)
+    leaves = [p.clone().requires_grad_(True) for p in (x, w1, b1, w2, b2)]
+    before = dict(kernels.launches)
+    fused_mlp(*leaves, act=act).backward(dy)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_mlp"] - before["fused_mlp"] == 1
+    assert kernels.launches["fused_mlp_bwd"] - before["fused_mlp_bwd"] == 1
+    refs = mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act)
+    _assert_grads_close([p.grad for p in leaves], refs, dtype)
+
+
+def test_grad_raises_on_kernels_without_backward(dev):
+    """K5, K6 and K7 under autograd on the card raise and name ROADMAP item
+    20c; under `torch.inference_mode()` the same calls launch."""
+    from reverso_tpu_torch.ops import flash_attention, fused_mlp
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = _randn(gen, 1, 2, 33, 64, dtype=torch.bfloat16).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 20c"):
+        flash_attention(q, q, q)
+    x = _randn(gen, 9, 64, dtype=torch.float32).requires_grad_(True)
+    w1, w2 = _randn(gen, 256, 64, dtype=torch.float32), _randn(gen, 64, 256, dtype=torch.float32)
+    b1, b2 = torch.zeros(256, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(NotImplementedError, match="item 20c"):
+        fused_mlp(x, w1, b1, w2, b2, quant=True)
+    with torch.inference_mode():
+        assert flash_attention(q, q, q).shape == q.shape
+        assert fused_mlp(x, w1, b1, w2, b2, quant=True).shape == x.shape

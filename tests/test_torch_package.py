@@ -7,7 +7,8 @@
 * no device fallback: asking for CUDA without a card raises, and a kernel
   wrapper given a tensor that is neither on the CPU nor on a CUDA card
   raises instead of running the plain version;
-* chip_smoke.py refuses to run without a card.
+* chip_smoke.py refuses to run without a card;
+* the trainer imports and takes a step with `jax` blocked.
 """
 import filecmp
 import os
@@ -277,11 +278,13 @@ def test_wrappers_never_fall_back_for_device_tensors():
     ("flash_heads.cu", {"rv_flash_heads_tc"}),
     ("flash_heads_split.cu", {"rv_flash_heads_split"}),
     ("ivf_scan.cu", {"rv_ivf_scan", "rv_ivf_plan"}),
+    ("flash_heads_bwd.cu", {"rv_flash_heads_bwd"}),
+    ("fused_mlp_bwd.cu", {"rv_fused_mlp_bwd"}),
 ])
 def test_signatures_match_k5_k8_launchers(source, launchers):
-    """The ctypes argument lists of the K4/K5 and K8 launchers in
-    `kernels._SIGNATURES` against their `extern "C"` declarations, parsed
-    from the sources."""
+    """The ctypes argument lists of the K3, K4/K5, K8 and K11 launchers and
+    of K3's and K4's backward kernels in `kernels._SIGNATURES` against
+    their `extern "C"` declarations, parsed from the sources."""
     from reverso_tpu_torch import kernels
     pat = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
     found = {}
@@ -446,3 +449,31 @@ def test_port_entry_points_run_with_jax_blocked(tmp_path):
     """, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK entry points" in proc.stdout
+
+
+def test_trainer_runs_with_jax_blocked(tmp_path):
+    """`reverso_tpu_torch.train` imports and takes one step at test-tiny on
+    the CPU, saves and restores its state, with `jax`, `flax` and `optax`
+    blocked."""
+    proc = _run(f"""
+        import sys
+        for name in ("jax", "flax", "optax", "orbax"):
+            sys.modules[name] = None
+        import os, numpy as np
+        from reverso_tpu_torch.config import MODEL_PRESETS
+        from reverso_tpu_torch.train import ClipTrainer, param_partition_spec
+        from reverso_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+        tr = ClipTrainer(MODEL_PRESETS["test-tiny"], device="cpu")
+        rng = np.random.default_rng(0)
+        a = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+        loss = tr.train_step(a, a[:, :, ::-1])
+        assert np.isfinite(loss) and int(tr.step) == 1, loss
+        assert param_partition_spec(tr.state.params)["blocks.0.mlp.fc1.bias"] == ("model",)
+        path = os.path.join({str(tmp_path)!r}, "state.pt")
+        save_train_state(path, tr.state)
+        assert int(restore_train_state(path, tr.state).step) == 1
+        assert not [m for m in sys.modules if m.split(".")[0] == "reverso_tpu"]
+        print("OK trainer", loss)
+    """, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "OK trainer" in proc.stdout
