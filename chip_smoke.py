@@ -167,10 +167,13 @@ of which catches a failure:
      loop, and, where OpenCV imports, `video local` and a `build` of its
      frames (the engine's direct calls that check the UI do not count);
   7T. training (T): the backward kernels of K3 and K4 at the training
-     path's shapes held against the autograd of the plain forward and
-     timed beside their library calls; `ClipTrainer` at PE-Core-L14-336,
-     5 AdamW steps on two seeded views of B = 16 (the loss finite and
-     falling, K3, K4 and their backward kernels 48 times a step); a
+     path's shapes, each on its route (bf16 on wgmma + TMA, fp32 and K3's
+     odd head dims on the CUDA cores), held against the autograd of the
+     plain forward and timed beside their library calls, with their
+     device time by kernel and ptxas's registers and spills;
+     `ClipTrainer` at PE-Core-L14-336, 5 AdamW steps on two seeded views
+     of B = 16 (the loss finite and falling, K3, K4 and their backward
+     kernels 48 times a step, the backward on its wgmma route); a
      checkpoint restored bit for bit; one step profiled; `reverso-torch
      train` for 2 steps and `--resume` (`train_run`); its numbers on a
      line `training (T) numbers: {...}`;
@@ -1987,7 +1990,8 @@ REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused
               "fused_mlp_int8": 7, "ms_deform": 7, "topk_stream": 8, "topk_masked": 8,
               "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9, "flash_attn_f32": 10,
               "flash_attn_relbias_f32": 10, "fused_mlp_f32": 11, "flash_heads_f32": 11,
-              "topk_stream_f32": 12, "ivf_scan": 15}
+              "topk_stream_f32": 12, "ivf_scan": 15, "flash_heads_bwd": 18,
+              "fused_mlp_bwd": 18}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE",
                   "flash_heads_bwd": "library call without RoPE"}
@@ -4363,27 +4367,100 @@ def mlp_bwd_bound(t: int, w: int, hid: int, itemsize: int, dtype: str,
     return bound((reads + t * w + 2 * w * hid + hid + w) * itemsize, 10 * t * w * hid, dtype)
 
 
+def ptxas_usage(source: str, namespace: str) -> dict:
+    """ptxas's registers and spill bytes of each kernel of `source` (this
+    run's build, `kernels.ptxas_log`) whose mangled name holds `namespace`,
+    keyed by the kernel's name and template arguments."""
+    import re
+
+    from reverso_tpu_torch import kernels
+    out, fn = {}, None
+    for line in kernels.ptxas_log.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(namespace + r"(\d+)", fn or "")
+        if not m:
+            continue
+        end = m.end() + int(m.group(1))   # the kernel's name, then its template arguments
+        targ = re.match(r"ILi(\d+)E", fn[end:])
+        name = fn[m.end():end] + (f"<{targ.group(1)}>" if targ else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_times(torch, fn, namespace: str, calls: int = 5) -> dict:
+    """Device ms per call of each kernel whose name holds `namespace`, over
+    `calls` profiled calls of `fn` (after a warm-up call), by
+    `torch.profiler`."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or namespace not in ev.name:
+            continue
+        m = re.search(namespace + r"::(\w+(<\d+>)?)", ev.name)
+        name = m.group(1) if m else ev.name[:40]
+        out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
+def beside(torch, fns: dict, repeats: int = 5) -> tuple:
+    """Each of `fns` timed by `cuda_ms` in turn, `repeats` times over:
+    ({name: median ms}, {name: [ms of each repeat]}), so that a kernel and
+    its library call are taken beside each other in the same run."""
+    runs = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            runs[name].append(cuda_ms(fn))
+    return {name: float(np.median(v)) for name, v in runs.items()}, runs
+
+
 def train_kernel_checks(torch) -> dict:
     """(T a, b) The backward kernels at the training path's shapes, through
     the wrappers under autograd, each gradient held against the autograd of
     the plain forward on the card (bf16: within 2e-2 of max(1, the largest
     plain gradient), the outputs rounded once against the plain version's
-    intermediate roundings; fp32: 1e-4, sums in another order). (a) K3's
+    intermediate roundings; fp32: 1e-4, sums in another order), each on the
+    route its `*_bwd_route` names, which its counter shows. (a) K3's
     backward at PE-L14's training shape, B = 16, S = 577, W = 1024, 16
-    heads of 64 with RoPE, in bf16; the same at kv_valid = 300; fp32 at B =
-    2; head dim 72 (a multiple of 4, not of 16) at B = 2 in bf16 and in fp32
-    with kv_valid = 300. (b) K4's backward at T = 16 x 577 = 9232, 1024 ->
-    4096 -> 1024: gelu in bf16 and fp32, quick_gelu in bf16. Timed at the
-    bf16 shapes: the backward by CUDA events, the plain version (the plain
-    forward and its autograd), the library call (K3: SDPA's backward on
-    [B, H, S, D] without RoPE; K4: the cuBLAS route of the same five
-    products and aten's gelu backward) and the bound. Returns the two
+    heads of 64 with RoPE, in bf16 (the wgmma + TMA kernels); the same at
+    kv_valid = 300; PE-G14's head dim 96 at B = 2 in bf16; fp32 at B = 2;
+    head dim 72 (a multiple of 4, not of 16) at B = 2 in bf16 and in fp32
+    with kv_valid = 300 (the CUDA-core kernels). (b) K4's backward at T =
+    16 x 577 = 9232, 1024 -> 4096 -> 1024: gelu in bf16 and fp32,
+    quick_gelu in bf16. Timed at the main shapes: the backward by CUDA
+    events, the median of 5 repeats each taken beside the library call
+    (K3: SDPA's backward on [B, H, S, D] without RoPE; K4: the cuBLAS
+    route of the same five products and aten's gelu backward), the plain
+    version (the plain forward and its autograd) and the bound; K3's
+    forward at B = 16 with and without its log-sum-exp output, in turns;
+    ptxas's registers and spills of each backward kernel. Returns the two
     kernel rows."""
     import torch.nn.functional as F
     from reverso_tpu_torch import kernels
-    from reverso_tpu_torch.ops.attention import (_heads_bwd_launch, flash_attention_heads,
-                                                  flash_attention_heads_grad_ref)
-    from reverso_tpu_torch.ops.fused_mlp import _mlp_bwd_launch, fused_mlp, mlp_grad_ref
+    from reverso_tpu_torch.ops.attention import (_heads_bwd_launch, _heads_launch,
+                                                  flash_attention_heads,
+                                                  flash_attention_heads_grad_ref,
+                                                  heads_bwd_route)
+    from reverso_tpu_torch.ops.fused_mlp import (_mlp_bwd_launch, fused_mlp, mlp_bwd_route,
+                                                 mlp_grad_ref)
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     dev = torch.device("cuda")
@@ -4411,9 +4488,9 @@ def train_kernel_checks(torch) -> dict:
     rows = {}
     # (a) K3's backward
     s = 577
-    errors, k3 = {}, {}
-    for dtype, b, w, kv in ((bf16, 16, 1024, None), (bf16, 16, 1024, 300), (f32, 2, 1024, None),
-                            (bf16, 2, 1152, None), (f32, 2, 1152, 300)):
+    errors, k3, routes = {}, {}, {}
+    for dtype, b, w, kv in ((bf16, 16, 1024, None), (bf16, 16, 1024, 300), (bf16, 2, 1536, None),
+                            (f32, 2, 1024, None), (bf16, 2, 1152, None), (f32, 2, 1152, 300)):
         heads = 16
         hd = w // heads
         c, sn = rope_2d_tables(24, hd, cls_token=True)
@@ -4421,40 +4498,69 @@ def train_kernel_checks(torch) -> dict:
         q, k, v, do = (randn(b, s, w, dtype=dtype) for _ in range(4))
         kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        n0 = kernels.launches["flash_heads_bwd"]
+        route = heads_bwd_route("cuda", dtype, hd)
+        counter = "flash_heads_bwd_tc" if route == "tensor_core" else "flash_heads_bwd_cuda_core"
+        n0, r0 = kernels.launches["flash_heads_bwd"], kernels.launches[counter]
         flash_attention_heads(*leaves, **kw).backward(do)
-        check(kernels.launches["flash_heads_bwd"] == n0 + 1, "K3 backward: not one launch")
+        check(kernels.launches["flash_heads_bwd"] == n0 + 1
+              and kernels.launches[counter] == r0 + 1, f"K3 backward: not one {route} launch")
         refs = flash_attention_heads_grad_ref(q, k, v, do, **kw)
         torch.cuda.synchronize()
         case = f"B={b} W={w} hd={hd} {str(dtype)[6:]}{'' if kv is None else f' kv_valid={kv}'}"
-        errors[case] = held(f"K3 backward {case}", [t.grad for t in leaves], refs, dtype)
+        routes[case] = route
+        errors[case] = held(f"K3 backward {case} ({route})", [t.grad for t in leaves], refs,
+                            dtype)
         if kv is not None:
             check(not leaves[1].grad[:, kv:].any() and not leaves[2].grad[:, kv:].any(),
                   f"K3 backward {case}: keys past kv_valid have a gradient")
         if (dtype, b, w, kv) in ((bf16, 16, 1024, None), (f32, 2, 1024, None)):
             scale = hd ** -0.5
-            call = lambda: _heads_bwd_launch(q, k, v, do, heads, (cos, sin), scale, s)
-            k3[dtype] = dict(ms=cuda_ms(call), plain_ms=cuda_ms(
-                lambda: flash_attention_heads_grad_ref(q, k, v, do, **kw), iters=3))
+            lse = torch.empty((b * heads, s), dtype=f32, device=dev) if dtype == bf16 else None
+            o = _heads_launch(q, k, v, heads, (cos, sin), scale, s, lse)
+            call = lambda: _heads_bwd_launch(q, k, v, do, heads, (cos, sin), scale, s, o, lse)
+            fns = {"ms": call}
             if dtype == bf16:
                 split = lambda t: t.reshape(b, s, heads, hd).transpose(1, 2).contiguous()
                 qh, kh, vh = (split(t).requires_grad_(True) for t in (q, k, v))
                 oh = F.scaled_dot_product_attention(qh, kh, vh)
                 doh = split(do)
-                k3["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                    oh, (qh, kh, vh), doh, retain_graph=True))
+                fns["library_ms"] = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                                                retain_graph=True)
+                # the forward with and without the log-sum-exp output, in turns
+                fns["fwd_ms"] = lambda: _heads_launch(q, k, v, heads, (cos, sin), scale, s)
+                fns["fwd_lse_ms"] = lambda: _heads_launch(q, k, v, heads, (cos, sin), scale, s,
+                                                          lse)
+            k3[dtype], k3[(dtype, "repeats")] = beside(torch, fns)
+            k3[(dtype, "kernels")] = kernel_times(torch, call, "hbwd")
+            k3[dtype]["plain_ms"] = cuda_ms(
+                lambda: flash_attention_heads_grad_ref(q, k, v, do, **kw), iters=3)
+            fns.clear()
+            if dtype == bf16:
                 del qh, kh, vh, oh, doh
+            del o, lse
         del q, k, v, do, leaves, refs
     main = "B=16 W=1024 hd=64 bfloat16"
+    r = k3[bf16]
     rows["flash_heads_bwd"] = dict(
-        source="reverso_tpu_torch/csrc/flash_heads_bwd.cu",
+        source="reverso_tpu_torch/csrc/flash_heads_bwd_tc.cu",
         replaces="reverso_tpu/ops/attention.py:337",
         replaces_note="no TPU kernel: the gradient of K3, which has no backward in JAX",
+        route_taken=f"{routes[main]} (wgmma + TMA: prep, dq and dk/dv kernels)",
+        routes=routes,
         max_abs_err=errors[main][0], tolerance=errors[main][1],
         error_is="max abs err over dq, dk, dv, each over max(1, its largest plain value)",
-        shape="B=16 S=577 W=1024 H=16 bf16 RoPE", ms=k3[bf16]["ms"],
-        plain_ms=k3[bf16]["plain_ms"],
-        library="SDPA's backward on [B, H, S, D] (no RoPE)", library_ms=k3["library_ms"],
+        shape="B=16 S=577 W=1024 H=16 bf16 RoPE", ms=r["ms"], plain_ms=r["plain_ms"],
+        library="SDPA's backward on [B, H, S, D] (no RoPE)", library_ms=r["library_ms"],
+        repeats_ms=k3[(bf16, "repeats")]["ms"],
+        library_repeats_ms=k3[(bf16, "repeats")]["library_ms"],
+        forward_b16_ms=r["fwd_ms"], forward_b16_lse_ms=r["fwd_lse_ms"],
+        forward_repeats_ms=k3[(bf16, "repeats")]["fwd_ms"],
+        forward_lse_repeats_ms=k3[(bf16, "repeats")]["fwd_lse_ms"],
+        kernels_ms=k3[(bf16, "kernels")],
+        ptxas=ptxas_usage("flash_heads_bwd_tc.cu", "hbwd"),
+        f32_route="cuda_core", f32_source="reverso_tpu_torch/csrc/flash_heads_bwd.cu",
+        f32_kernels_ms=k3[(f32, "kernels")],
+        f32_ptxas=ptxas_usage("flash_heads_bwd.cu", "hbwd"),
         f32_shape="B=2 S=577 W=1024 H=16 fp32 RoPE", f32_ms=k3[f32]["ms"],
         f32_plain_ms=k3[f32]["plain_ms"],
         f32_bound_ms=heads_bwd_bound(2, s, 1024, 16, 4, "float32_split")[0],
@@ -4470,22 +4576,20 @@ def train_kernel_checks(torch) -> dict:
         w1, b1 = randn(hid, w, dtype=dtype, scale=w ** -0.5), randn(hid, dtype=dtype, scale=0.1)
         w2, b2 = randn(w, hid, dtype=dtype, scale=hid ** -0.5), randn(w, dtype=dtype, scale=0.1)
         leaves = [p.clone().requires_grad_(True) for p in (x, w1, b1, w2, b2)]
-        n0 = kernels.launches["fused_mlp_bwd"]
+        route = mlp_bwd_route("cuda", dtype, w, hid)
+        counter = "fused_mlp_bwd_cuda_core" if route == "cuda_core" else "fused_mlp_bwd_tc"
+        n0, r0 = kernels.launches["fused_mlp_bwd"], kernels.launches[counter]
         y = fused_mlp(*leaves, act=act)
         y.backward(dy, retain_graph=True)
-        check(kernels.launches["fused_mlp_bwd"] == n0 + 1, "K4 backward: not one launch")
+        check(kernels.launches["fused_mlp_bwd"] == n0 + 1
+              and kernels.launches[counter] == r0 + 1, f"K4 backward: not one {route} launch")
         refs = mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act)
         torch.cuda.synchronize()
         case = f"T={t} {str(dtype)[6:]} {act}"
-        errors[case] = held(f"K4 backward {case}", [p.grad for p in leaves], refs, dtype)
+        errors[case] = held(f"K4 backward {case} ({route})", [p.grad for p in leaves], refs,
+                            dtype)
         del refs
         if act == "gelu":
-            entry = k4.setdefault(dtype, {})
-            entry["kernel_ms"] = cuda_ms(lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act))
-            entry["ms"] = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
-            entry["plain_ms"] = cuda_ms(lambda: mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act),
-                                        iters=3)
-
             def kernel_part():
                 z = F.linear(x, w1, b1)
                 return F.gelu(z), torch.ops.aten.gelu_backward(dy @ w2, z)
@@ -4494,15 +4598,25 @@ def train_kernel_checks(torch) -> dict:
                 hh, dz = kernel_part()
                 return (dz @ w1, dz.t() @ x, dz.sum(0), dy.t() @ hh, dy.sum(0))
 
-            entry["library_ms"] = cuda_ms(library)
-            entry["kernel_library_ms"] = cuda_ms(kernel_part)
+            k4[dtype], k4[(dtype, "repeats")] = beside(torch, {
+                "kernel_ms": lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act),
+                "kernel_library_ms": kernel_part,
+                "ms": lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                "library_ms": library})
+            k4[dtype]["route"] = route
+            k4[(dtype, "kernels")] = kernel_times(
+                torch, lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act), "mbwd")
+            k4[dtype]["plain_ms"] = cuda_ms(
+                lambda: mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act), iters=3)
         del x, dy, w1, b1, w2, b2, leaves, y
     main = f"T={t} bfloat16 gelu"
     r = k4[bf16]
+    reps = k4[(bf16, "repeats")]
     rows["fused_mlp_bwd"] = dict(
         source="reverso_tpu_torch/csrc/fused_mlp_bwd.cu",
         replaces="reverso_tpu/ops/fused_mlp.py:63",
         replaces_note="no TPU kernel: the gradient of K4, which has no backward in JAX",
+        route_taken=f"{r['route']} (wgmma + TMA, db1's partials fused)",
         max_abs_err=errors[main][0], tolerance=errors[main][1],
         error_is="max abs err over dx, dW1, db1, dW2, db2, each over max(1, its largest "
                  "plain value)",
@@ -4513,12 +4627,24 @@ def train_kernel_checks(torch) -> dict:
                 "aten.gelu_backward", library_ms=r["library_ms"],
         kernel_ms=r["kernel_ms"], kernel_library_ms=r["kernel_library_ms"],
         kernel_bound_ms=mlp_bwd_bound(t, w, hid, 2, "bfloat16", kernel_only=True)[0],
-        f32_ms=k4[f32]["ms"], f32_kernel_ms=k4[f32]["kernel_ms"],
+        repeats_ms=reps["ms"], library_repeats_ms=reps["library_ms"],
+        kernel_repeats_ms=reps["kernel_ms"], kernel_library_repeats_ms=reps["kernel_library_ms"],
+        kernels_ms=k4[(bf16, "kernels")], ptxas=ptxas_usage("fused_mlp_bwd.cu", "mbwd"),
+        f32_route=k4[f32]["route"], f32_ms=k4[f32]["ms"], f32_kernel_ms=k4[f32]["kernel_ms"],
         f32_plain_ms=k4[f32]["plain_ms"], f32_library_ms=k4[f32]["library_ms"],
         f32_bound_ms=mlp_bwd_bound(t, w, hid, 4, "float32_split")[0],
         errors={case: e for case, (e, _) in errors.items()})
     rows["fused_mlp_bwd"]["bound_ms"], rows["fused_mlp_bwd"]["bound_by"] = mlp_bwd_bound(
         t, w, hid, 2, "bfloat16")
+    print(f"backward kernels: K3 {rows['flash_heads_bwd']['ms']} ms (SDPA's backward "
+          f"{rows['flash_heads_bwd']['library_ms']}), K3 forward at B = 16 "
+          f"{rows['flash_heads_bwd']['forward_b16_ms']} / with lse "
+          f"{rows['flash_heads_bwd']['forward_b16_lse_ms']}; K4 kernel "
+          f"{rows['fused_mlp_bwd']['kernel_ms']} ms, whole {rows['fused_mlp_bwd']['ms']} "
+          f"(cuBLAS {rows['fused_mlp_bwd']['library_ms']}); by kernel "
+          f"{json.dumps(rows['flash_heads_bwd']['kernels_ms'])}; ptxas "
+          f"{json.dumps(rows['flash_heads_bwd']['ptxas'])} "
+          f"{json.dumps(rows['fused_mlp_bwd']['ptxas'])}", flush=True)
     return rows
 
 
@@ -4582,8 +4708,8 @@ def train_run(root: str) -> tuple:
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           f"PE-L14 training: loss not finite and falling: {losses}")
     per_step = 2 * cfg.depth   # two views, one call a block
-    for name in ("flash_heads", "flash_heads_tc", "flash_heads_bwd", "fused_mlp",
-                 "fused_mlp_tc", "fused_mlp_bwd"):
+    for name in ("flash_heads", "flash_heads_tc", "flash_heads_bwd", "flash_heads_bwd_tc",
+                 "fused_mlp", "fused_mlp_tc", "fused_mlp_bwd", "fused_mlp_bwd_tc"):
         check(launches[name] == 5 * per_step, f"training: {name} launched {launches[name]} "
                                               f"times, not {5 * per_step}")
     check(launches["flash_attn"] == 0 and launches["fused_mlp_int8"] == 0,

@@ -32,9 +32,11 @@
 #include "flash_tc.cuh"
 
 // bf16 q, k, v [B, S, W] (W = heads * hd), o [B, S, W]; cos_t, sin_t [S, hd]
-// fp32, 16-byte aligned (RoPE only). hd <= 128, hd % 4 == 0.
+// fp32, 16-byte aligned (RoPE only); lse null, or [B * heads, S] fp32: each
+// query row's log-sum-exp in base 2 (flash_tc.cuh::Params::lse), for the
+// backward (flash_heads_bwd_tc.cu). hd <= 128, hd % 4 == 0.
 extern "C" int rv_flash_heads_tc(const void* q, const void* k, const void* v,
-                                 const void* cos_t, const void* sin_t, void* o,
+                                 const void* cos_t, const void* sin_t, void* o, void* lse,
                                  int B, int S, int W, int heads, int kv_valid,
                                  float scale, int use_rope, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -42,7 +44,7 @@ extern "C" int rv_flash_heads_tc(const void* q, const void* k, const void* v,
     if (heads <= 0 || W % heads) return rv::kUnsupported;
     const int hd = W / heads;
     const Call c{q, k, v, o, cos_t, sin_t, nullptr, nullptr, hd, 1, W, B, heads, S, S,
-                 kv_valid, 0, 0, scale, st};
+                 kv_valid, 0, 0, scale, st, static_cast<float*>(lse)};
     const bool tma = hd % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                      (!use_rope || (aligned16(cos_t) && aligned16(sin_t)));
     if (use_rope)

@@ -1,5 +1,8 @@
 // Backward of the heads-in-lanes attention (K3's gradient), on the CUDA
-// cores.
+// cores: fp32, and bf16 at head dims the tensor-core route does not take
+// (not a multiple of 16, above 128, or unaligned bases;
+// ops/attention.py::heads_bwd_route). bf16 at head dims % 16 == 0 runs on
+// flash_heads_bwd_tc.cu's wgmma + TMA kernels.
 //
 // Replaces: no TPU kernel. reverso_tpu/ops/attention.py::_flash_heads_kernel
 // (K3, pallas_call at :467) has no backward: jax.grad through it fails to
@@ -43,12 +46,12 @@
 // (s, dP, dv, dq, dk), 10 B H S^2 hd operations, against q, k, v, dO read
 // and dq, dk, dv written once; at PE-L14's training shape (B = 16, S =
 // 577, W = 1024, 16 heads of 64) 54.5 GFLOP, 0.055 ms at the bf16 tensor
-// cores' 989 TFLOP/s, so it is bound by operations. This first version
-// computes nine products (s and dP three times over, the 64-row tiles
-// padded past S) on the CUDA cores' fp32 rate (67 TFLOP/s), far from that
-// bound: a simple layout that is right. A tensor-core version (wgmma on
-// bf16 tiles, one sweep with the statistics saved by the forward) is
-// ROADMAP queue 2's second pass for it.
+// cores' 989 TFLOP/s, so it is bound by operations (in fp32, taken as the
+// split mode's six bf16 passes, 0.041 ms at B = 2). This kernel computes
+// nine products (s and dP three times over, the 64-row tiles padded past
+// S) on the CUDA cores' fp32 rate (67 TFLOP/s), far from that bound: a
+// simple layout that is right. Its fp32 second pass (the split mode's
+// parts on the tensor cores) is ROADMAP queue 2's.
 #include "common.cuh"
 
 namespace rv {

@@ -89,6 +89,9 @@
 //     before the tile's product, that joins the running max and the
 //     exponent's offset. The softmax then runs as without the bias. Other
 //     G add each key's bh and bw after the product (kBiasAny);
+//   * given an lse pointer (K3's bf16 forward under autograd), the
+//     epilogue also writes each query row's log-sum-exp in the core's
+//     base-2 units, m + log2(l), which flash_heads_bwd_tc.cu reads;
 //   * in the split mode each tile's PV product lands in a fresh
 //     accumulator that the CUDA cores add to the running output (fp32,
 //     round to nearest): the tensor cores' fp32 accumulation does not
@@ -524,6 +527,8 @@ struct Params {
     float score_mul;        // log2(e) * scale; log2(e) with the scale folded into q
     float q_scale;          // the softmax scale (RoPE and split: folded into q)
     float bias_mul;         // the bias in units of the product: 1 / scale, 1 with q scaled
+    float* lse;             // null, or each query row's log-sum-exp [Z * heads, s_q] (K3's
+                            // backward reads it), in base 2: log2(sum_k 2^(s_k * score_mul))
 };
 
 // rel-pos bias modes: none; every tile one row of the key lattice (G ==
@@ -1071,6 +1076,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
         l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
         l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+        // the log-sum-exp the backward reads, in the same base-2 units as m:
+        // the scores times score_mul (log2(e), times the scale unless it
+        // was folded into q)
+        if (p.lse != nullptr && t == 0) {
+            float* lse = p.lse + (size_t)(p.lanes ? blockIdx.z * gridDim.y + blockIdx.y
+                                                  : blockIdx.y) * p.s_q;
+            if (r0 < p.s_q) lse[r0] = m0 + log2f(l0);
+            if (r0 + 8 < p.s_q) lse[r0 + 8] = m1 + log2f(l1);
+        }
         const size_t ob = (size_t)z * p.s_q * p.row_stride + col0;
         const bool f32 = p.out_f32 != 0;
         // every column pair stored whole where the head dim fills HD and an
@@ -1126,6 +1140,7 @@ struct Call {
     int d, lanes, d0, z, heads, s_q, s_kv, kv_valid, rel_grid, out_f32;
     float scale;
     cudaStream_t stream;
+    float* lse = nullptr;   // each query row's log-sum-exp (Params::lse), or none
 };
 
 template <int HD, bool ROPE, int OPS, int BIAS>
@@ -1175,6 +1190,7 @@ static int launch(const Call& c) {
     p.score_mul = folded ? kLog2e : kLog2e * c.scale;
     p.q_scale = c.scale;
     p.bias_mul = folded ? 1.f : 1.f / c.scale;
+    p.lse = c.lse;
     dim3 grid(ceil_div(c.s_q, NWG * kQRows), c.lanes ? c.heads : c.z, c.lanes ? c.z : 1);
     kernel<<<grid, (NWG + 1) * kWgThreads, L::BYTES, c.stream>>>(qm, km, vm, p);
     return (int)cudaGetLastError();

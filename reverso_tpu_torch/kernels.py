@@ -39,14 +39,20 @@ MAP_ERROR = -2   # a TMA tensor map could not be encoded (csrc/flash_tc.cuh)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # q, k, v, cos, sin, o, lse, B, S, W, heads, kv_valid, scale, use_rope, stream
+    "rv_flash_heads_tc": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, stream
-    "rv_flash_heads_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "rv_flash_heads_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, dO, cos, sin, dq, dk, dv, lse, D, B, S, W, heads, kv_valid, scale,
     # use_rope, dtype, stream
     "rv_flash_heads_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
-    # x, w1, b1, w2, dy, h, dz, T, W, H, act, dtype, stream
-    "rv_fused_mlp_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, o, dO, lse, cos, sin, qr, kr, D, dq, dk, dv, B, S, W, heads,
+    # kv_valid, scale, use_rope, stream
+    "rv_flash_heads_bwd_tc": [_P] * 14 + [_I] * 5 + [_F, _I, _P],
+    # x, w1, b1, w2, dy, h, dz, T, W, H, act, stream (fp32)
+    "rv_fused_mlp_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    # x, w1, b1, w2, dy, h, dz, db1 partials, T, W, H, act, stream (bf16)
+    "rv_fused_mlp_bwd_tc": [_P] * 8 + [_I] * 4 + [_P],
     # x, w1, b1, w2, b2, h, out, T, W, H, act, stream
     "rv_fused_mlp_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w1 parts, b1, w2 parts, b2, x parts, h parts, out, T, W, H, act, stream
@@ -77,6 +83,9 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = 0.0   # wall time of the last build in this process (0 if cached)
+# ptxas's report of the last build in this process, by source file name:
+# each kernel's registers, shared memory and spill bytes (`-Xptxas -v`)
+ptxas_log: dict[str, str] = {}
 
 # Kernel launches per wrapper: each wrapper adds one right where it
 # launches its kernel, and nowhere else, so a run can show which kernels
@@ -100,8 +109,12 @@ build_seconds = 0.0   # wall time of the last build in this process (0 if cached
 # per MLP call, not per GEMM); `split_parts` the split pass's launches
 # outside an MLP call (the weights' parts, the bf16 MLP's padded copies,
 # the fp32 top-k's query parts). `flash_heads_bwd` and `fused_mlp_bwd`
-# count the backward kernels of K3 and K4 (one per backward call; each
-# call is two kernels for K3, one for K4).
+# count the backward kernels of K3 and K4 (one per backward call), and one
+# counter per route says which: `flash_heads_bwd_tc` and `fused_mlp_bwd_tc`
+# the bf16 wgmma + TMA kernels (K3's is three kernels a call, K4's one),
+# `flash_heads_bwd_cuda_core` and `fused_mlp_bwd_cuda_core` the CUDA-core
+# kernels (fp32; K3 in bf16 at head dims the tensor-core route does not
+# take; two kernels a call for K3, one for K4).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
@@ -109,7 +122,9 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn_tc": 0, "flash_attn_relbias_tc": 0, "flash_attn_split": 0,
             "flash_attn_relbias_split": 0, "fused_mlp_tc": 0, "topk_stream_f32": 0,
             "flash_heads_split": 0, "fused_mlp_split": 0, "split_parts": 0,
-            "flash_heads_bwd": 0, "fused_mlp_bwd": 0}
+            "flash_heads_bwd": 0, "fused_mlp_bwd": 0, "flash_heads_bwd_tc": 0,
+            "flash_heads_bwd_cuda_core": 0, "fused_mlp_bwd_tc": 0,
+            "fused_mlp_bwd_cuda_core": 0}
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,
@@ -171,13 +186,15 @@ def build(force: bool = False) -> str:
     jobs = []
     for src in sources():
         obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     objs, errors = [], []
+    ptxas_log.clear()
     for cmd, obj, proc in jobs:
         out, err = proc.communicate()
         objs.append(obj)
+        ptxas_log[os.path.basename(cmd[-1])] = out + err
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                           f"{out}\n{err}")

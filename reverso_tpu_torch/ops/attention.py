@@ -35,10 +35,15 @@ on the CPU.
 
 Gradients: with grad mode on and an input that requires grad, a CUDA call
 of `flash_attention_heads` goes through `FlashHeadsFunction`, whose forward
-is the launch above and whose backward launches `rv_flash_heads_bwd`
-(`csrc/flash_heads_bwd.cu`); `flash_attention_heads_grad_ref` is its plain
-version. The JAX package has no backward for its Pallas kernels, so this
-one replaces none. A CUDA call of `flash_attention` (K6, K7) under grad
+is the launch above and whose backward is a kernel too, by the rule in
+`heads_bwd_route`: bf16 at head dims % 16 == 0, <= 128 on the wgmma + TMA
+kernels (`rv_flash_heads_bwd_tc`, `csrc/flash_heads_bwd_tc.cu`), which read
+the forward's output and each row's log-sum-exp (the forward writes it
+for this route); the rest on the CUDA cores (`rv_flash_heads_bwd`,
+`csrc/flash_heads_bwd.cu`). `flash_attention_heads_grad_ref` is the plain
+gradient, and `flash_attention_heads_grad_tc_ref` spells out the
+tensor-core route's arithmetic. The JAX package has no backward for its
+Pallas kernels, so these replace none. A CUDA call of `flash_attention` (K6, K7) under grad
 raises: its gradient is ROADMAP queue 1 item 20c. On the CPU both entries
 run their plain versions, which PyTorch differentiates itself.
 """
@@ -49,7 +54,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .rope import rotate, wide
+from .rope import _rotate_half_axial, rotate, wide
 from .split import split_matmul
 
 
@@ -71,6 +76,21 @@ def heads_route(device_type: str, dtype: torch.dtype, head_dim: int,
     if head_dim % 16 == 0 and head_dim <= 128 and aligned:
         return "tensor_core"
     return "copy"
+
+
+def heads_bwd_route(device_type: str, dtype: torch.dtype, head_dim: int,
+                    aligned: bool = True) -> str:
+    """Which implementation serves the backward of a `flash_attention_heads`
+    call: "plain" for CPU tensors; on the card "tensor_core" for bf16 at
+    head_dim % 16 == 0, <= 128 with 16-byte aligned q, k and v (`aligned`):
+    the wgmma + TMA kernels, whose forward keeps each row's log-sum-exp;
+    "cuda_core" for fp32 and bf16 at other head dims or bases. A rule
+    between kernels by dtype and shape, not a fallback."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128 and aligned:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def attention_route(device_type: str, dtype: torch.dtype, head_dim: int,
@@ -246,6 +266,72 @@ def flash_attention_heads_grad_ref(q, k, v, do, *, heads: int, cos=None, sin=Non
         return torch.autograd.grad(o, (q, k, v), do.to(o.dtype))
 
 
+def _rot_t(y, cos, sin):
+    """The transpose of the RoPE rotation on [..., S, D] in fp32: rot^T(y) =
+    y cos - rh(y sin), rh the axial rotate-half ([a, b | c, e] -> [-b, a |
+    -e, c]); each product and the difference rounded once, as the backward
+    kernels compute it."""
+    cos = torch.as_tensor(cos, dtype=torch.float32, device=y.device)
+    sin = torch.as_tensor(sin, dtype=torch.float32, device=y.device)
+    return y * cos - _rotate_half_axial(y * sin)
+
+
+def flash_attention_heads_grad_tc_ref(q, k, v, do, *, heads: int, cos=None, sin=None,
+                                      scale: Optional[float] = None,
+                                      kv_valid: Optional[int] = None, tile: int = 64):
+    """Plain version of the tensor-core backward's arithmetic
+    (`rv_flash_heads_bwd_tc`) on [B, S, W] q, k, v and the output gradient
+    `do`; returns (dq, dk, dv) in q's dtype. The forward's statistics as
+    the forward kernel keeps them: each row's log-sum-exp in fp32 and its
+    output rounded to q's dtype (`flash_attention_heads_ref`), D =
+    rowsum(fp32(do) * fp32(o)); then qr = rot(q) * scale and kr = rot(k)
+    rounded to q's dtype (without RoPE q and k, the scale on the fp32
+    scores), P = exp(s - lse) and dS = P (dP - D) in fp32, each rounded to
+    q's dtype before its product; every product summed in fp32 over
+    `tile`-row tiles of its reduction, in order; dq = rot^T(scale dS kr),
+    dk = rot^T(dS^T qr) (times the scale without RoPE), dv = P^T do, each
+    rounded once."""
+    b, s, w = q.shape
+    hd = w // heads
+    dt = q.dtype
+    scale = float(scale) if scale is not None else hd ** -0.5
+    kv = s if kv_valid is None else min(int(kv_valid), s)
+    o = flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin, scale=scale,
+                                  kv_valid=kv_valid)
+    qh, kh, vh, doh, oh = (_split(t, heads) for t in (q, k, v, do.to(dt), o))
+    if cos is not None:
+        qr, kr, mul = rotate(qh, cos, sin, scale), rotate(kh, cos, sin), 1.0
+    else:
+        qr, kr, mul = qh, kh, scale
+    qr, kr, vf, dof = (t.float() for t in (qr, kr, vh, doh))
+    sc = torch.matmul(qr, kr.transpose(-1, -2)) * mul
+    if kv < s:
+        sc[..., kv:] = float("-inf")
+    lse = torch.logsumexp(sc, dim=-1, keepdim=True)
+    d = (dof * oh.float()).sum(-1, keepdim=True)
+    p = torch.exp(sc - lse)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)
+    p, ds = p.to(dt).float(), ds.to(dt).float()
+
+    def tiled(a, bm):   # a @ bm, fp32 sums over `tile` rows of the reduction
+        out = torch.zeros(*a.shape[:-1], bm.shape[-1], dtype=torch.float32, device=a.device)
+        for lo in range(0, a.shape[-1], tile):
+            out = out + torch.matmul(a[..., lo:lo + tile], bm[..., lo:lo + tile, :])
+        return out
+
+    dq = tiled(ds, kr) * scale
+    dk = tiled(ds.transpose(-1, -2), qr) * (1.0 if cos is not None else scale)
+    dv = tiled(p.transpose(-1, -2), dof)
+    if cos is not None:
+        dq, dk = _rot_t(dq, cos, sin), _rot_t(dk, cos, sin)
+    return tuple(t.to(dt).transpose(1, 2).reshape(b, s, w) for t in (dq, dk, dv))
+
+
+def _aligned16(*tensors) -> bool:
+    """Whether every base is 16-byte aligned, as TMA needs."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _check_heads(q, k, v, heads: int) -> int:
     b, s, w = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -260,26 +346,37 @@ def _check_heads(q, k, v, heads: int) -> int:
     return w // heads
 
 
-def _heads_launch(q, k, v, heads: int, tables: tuple, scale: float, kv: int):
+def _heads_launch(q, k, v, heads: int, tables: tuple, scale: float, kv: int,
+                  lse: Optional[torch.Tensor] = None):
     """K3's forward on the card: contiguous q, k, v [B, S, W] of one dtype,
-    `tables` () or the (cos, sin) [S, hd] fp32 tables on the card."""
+    `tables` () or the (cos, sin) [S, hd] fp32 tables on the card. `lse`,
+    [B * heads, S] fp32 (bf16 only), takes each query row's log-sum-exp in
+    base 2, log2(sum_k 2^(s_k * log2(e))) of the scores s (scaled), for the
+    tensor-core backward."""
     b, s, w = q.shape
-    kernels.require_cuda("flash_attention_heads", q, k, v, *tables)
+    kernels.require_cuda("flash_attention_heads", q, k, v, *tables,
+                         *(() if lse is None else (lse,)))
     # the kernels read the tables' rows 16 bytes at a time: a copy only
     # where the caller's table is not 16-byte aligned
     tables = tuple(t.clone() if t.data_ptr() % 16 else t for t in tables)
     use_rope = bool(tables)
-    route = heads_route(q.device.type, q.dtype, w // heads,
-                        all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    route = heads_route(q.device.type, q.dtype, w // heads, _aligned16(q, k, v))
     split = route == "split"
+    if lse is not None and (split or lse.shape != (b * heads, s) or lse.dtype != torch.float32):
+        raise ValueError("flash_attention_heads: lse is [B * heads, S] fp32, bf16 only")
     o = torch.empty_like(q)
     cos_p = tables[0].data_ptr() if use_rope else None
     sin_p = tables[1].data_ptr() if use_rope else None
-    launch = kernels.lib().rv_flash_heads_split if split else kernels.lib().rv_flash_heads_tc
     with torch.cuda.device(q.device):   # launch on the tensors' card
-        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
-                        o.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
-                        kernels.stream_ptr(q.device))
+        if split:
+            status = kernels.lib().rv_flash_heads_split(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p, o.data_ptr(), b, s, w,
+                heads, kv, scale, int(use_rope), kernels.stream_ptr(q.device))
+        else:
+            status = kernels.lib().rv_flash_heads_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p, o.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, s, w, heads, kv, scale,
+                int(use_rope), kernels.stream_ptr(q.device))
     kernels.check("flash_attention_heads", status)
     kernels.launches["flash_heads"] += 1
     if split:
@@ -291,28 +388,51 @@ def _heads_launch(q, k, v, heads: int, tables: tuple, scale: float, kv: int):
     return o
 
 
-def _heads_bwd_launch(q, k, v, do, heads: int, tables: tuple, scale: float, kv: int):
-    """K3's backward on the card (`rv_flash_heads_bwd`): (dq, dk, dv) in
-    q's dtype from the forward's inputs and the output gradient. Scratch
-    made for this call: each row's log-sum-exp and D = rowsum(dO * O) in
-    fp32, [B * heads, S] each."""
+def _heads_bwd_launch(q, k, v, do, heads: int, tables: tuple, scale: float, kv: int,
+                      o: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None):
+    """K3's backward on the card: (dq, dk, dv) in q's dtype from the
+    forward's inputs and the output gradient, by `heads_bwd_route`. The
+    tensor-core route (`rv_flash_heads_bwd_tc`) also reads the forward's
+    output `o` and its `lse` ([B * heads, S] fp32); scratch made for the
+    call: D = rowsum(dO * O) [B * heads, S] fp32 and, with RoPE, the rotated
+    q and k [B, S, W]. The CUDA-core route (`rv_flash_heads_bwd`) makes
+    each row's log-sum-exp and D itself, into scratch of the same shape."""
     b, s, w = q.shape
     do = do.to(q.dtype).contiguous()
     kernels.require_cuda("flash_attention_heads backward", q, k, v, do, *tables)
     tables = tuple(t.clone() if t.data_ptr() % 16 else t for t in tables)
     use_rope = bool(tables)
+    route = heads_bwd_route(q.device.type, q.dtype, w // heads, _aligned16(q, k, v))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
-    dsum = torch.empty_like(lse)
+    dsum = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
     cos_p = tables[0].data_ptr() if use_rope else None
     sin_p = tables[1].data_ptr() if use_rope else None
-    with torch.cuda.device(q.device):   # launch on the tensors' card
-        status = kernels.lib().rv_flash_heads_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), cos_p, sin_p,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-            b, s, w, heads, kv, scale, int(use_rope), kernels.DTYPE_CODES[q.dtype],
-            kernels.stream_ptr(q.device))
-    kernels.check("flash_attention_heads backward", status)
+    if route == "tensor_core":
+        if o is None or lse is None:
+            raise ValueError("flash_attention_heads backward: the tensor-core route needs "
+                             "the forward's output and log-sum-exp")
+        kernels.require_cuda("flash_attention_heads backward", o, lse)
+        do = do if _aligned16(do) else do.clone()   # TMA: a 16-byte aligned base
+        rot = [torch.empty_like(q), torch.empty_like(k)] if use_rope else [None, None]
+        with torch.cuda.device(q.device):   # launch on the tensors' card
+            status = kernels.lib().rv_flash_heads_bwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), cos_p, sin_p,
+                *(None if t is None else t.data_ptr() for t in rot), dsum.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, w, heads, kv, scale,
+                int(use_rope), kernels.stream_ptr(q.device))
+        kernels.check("flash_attention_heads backward", status)
+        kernels.launches["flash_heads_bwd_tc"] += 1
+    else:
+        lse_scratch = torch.empty_like(dsum)
+        with torch.cuda.device(q.device):   # launch on the tensors' card
+            status = kernels.lib().rv_flash_heads_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), cos_p, sin_p,
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse_scratch.data_ptr(),
+                dsum.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
+                kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
+        kernels.check("flash_attention_heads backward", status)
+        kernels.launches["flash_heads_bwd_cuda_core"] += 1
     kernels.launches["flash_heads_bwd"] += 1
     kernels.shape_launches[("flash_heads_bwd", (b, s, w, heads, use_rope,
                                                 str(q.dtype)))] += 1
@@ -321,26 +441,36 @@ def _heads_bwd_launch(q, k, v, do, heads: int, tables: tuple, scale: float, kv: 
 
 class FlashHeadsFunction(torch.autograd.Function):
     """K3 with its gradient: the forward launches the heads-in-lanes kernel
-    (`_heads_launch`), the backward `rv_flash_heads_bwd`. It saves q, k
-    and v before RoPE and recomputes the scores in the backward. On CPU
-    tensors the forward and the backward are the plain versions (the tower
-    differentiates the plain forward itself there; this path is for
-    `gradcheck`). Arguments after v: heads, the (cos, sin) tables or
-    (None, None), the scale and the number of valid keys."""
+    (`_heads_launch`), the backward the kernels `heads_bwd_route` picks
+    (`_heads_bwd_launch`). It saves q, k and v before RoPE and recomputes
+    the scores in the backward; on the tensor-core route the forward also
+    writes each row's log-sum-exp, which it saves with its output (the
+    output projection keeps that tensor anyway). On CPU tensors the forward
+    and the backward are the plain versions (the tower differentiates the
+    plain forward itself there; this path is for `gradcheck`). Arguments
+    after v: heads, the (cos, sin) tables or (None, None), the scale and
+    the number of valid keys."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads, cos, sin, scale, kv):
         ctx.heads, ctx.scale, ctx.kv = heads, scale, kv
-        ctx.save_for_backward(q, k, v, cos, sin)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, cos, sin, None, None)
             return flash_attention_heads_ref(q, k, v, heads=heads, cos=cos, sin=sin,
                                              scale=scale, kv_valid=kv)
         tables = () if cos is None else (cos, sin)
-        return _heads_launch(q, k, v, heads, tables, scale, kv)
+        b, s, w = q.shape
+        lse = None
+        if heads_bwd_route(q.device.type, q.dtype, w // heads,
+                           _aligned16(q, k, v)) == "tensor_core":
+            lse = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
+        o = _heads_launch(q, k, v, heads, tables, scale, kv, lse)
+        ctx.save_for_backward(q, k, v, cos, sin, o if lse is not None else None, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, cos, sin = ctx.saved_tensors
+        q, k, v, cos, sin, o, lse = ctx.saved_tensors
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_heads_grad_ref(
                 q, k, v, do, heads=ctx.heads, cos=cos, sin=sin, scale=ctx.scale,
@@ -348,7 +478,7 @@ class FlashHeadsFunction(torch.autograd.Function):
         else:
             tables = () if cos is None else (cos, sin)
             dq, dk, dv = _heads_bwd_launch(q, k, v, do, ctx.heads, tables, ctx.scale,
-                                           ctx.kv)
+                                           ctx.kv, o, lse)
         return dq, dk, dv, None, None, None, None, None
 
 

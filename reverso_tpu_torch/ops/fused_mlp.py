@@ -30,10 +30,12 @@ at an unaligned base are copied first.
 
 Gradients: with grad mode on and an input that requires grad, a CUDA call
 of `fused_mlp` goes through `FusedMLPFunction`. Its forward is the launch
-above; its backward launches `rv_fused_mlp_bwd` (`csrc/fused_mlp_bwd.cu`),
-which recomputes z = x W1^T + b1 and writes h = act(z) and dz = (dY W2) *
-act'(z), and leaves the three weight-sized products and the bias sums to
-`torch.matmul` and `sum`. `mlp_grad_ref` is its plain version. The int8
+above; its backward launches a kernel of `csrc/fused_mlp_bwd.cu` by the
+rule in `mlp_bwd_route` (bf16: `rv_fused_mlp_bwd_tc` on wgmma + TMA, which
+also writes db1's partial column sums; fp32: `rv_fused_mlp_bwd` on the CUDA
+cores), which recomputes z = x W1^T + b1 and writes h = act(z) and dz = (dY
+W2) * act'(z), and leaves the three weight-sized products and the other
+sums to `torch.matmul` and `sum`. `mlp_grad_ref` is its plain version. The int8
 mode (K5) has no gradient on the card yet (ROADMAP queue 1 item 20c): a
 CUDA call under grad raises.
 """
@@ -106,6 +108,21 @@ def mlp_route(device_type: str, dtype: torch.dtype, width: int, hidden: int) -> 
         return "plain"
     if dtype == torch.float32:
         return "split"
+    if width % 8 == 0 and hidden % 8 == 0:
+        return "tensor_core"
+    return "tensor_core_padded"
+
+
+def mlp_bwd_route(device_type: str, dtype: torch.dtype, width: int, hidden: int) -> str:
+    """Which implementation serves the backward of a fused MLP call:
+    "plain" for CPU tensors; on the card "tensor_core" for bf16 (the wgmma +
+    TMA kernel; widths and hidden sizes that are not multiples of 8 through
+    zero-padded copies: "tensor_core_padded"), "cuda_core" for fp32. A rule
+    between kernels by dtype and shape, not a fallback."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.float32:
+        return "cuda_core"
     if width % 8 == 0 and hidden % 8 == 0:
         return "tensor_core"
     return "tensor_core_padded"
@@ -254,19 +271,22 @@ def _mlp_launch(x2, w1, b1, w2, b2, act: str, parts: Optional[SplitMLPWeights]):
 
 
 def _mlp_bwd_launch(x2, w1, b1, w2, dy2, act: str):
-    """K4's backward kernel on the card (`rv_fused_mlp_bwd`): h = act(z)
-    and dz = (dY W2) * act'(z), both [T, H] in x's dtype, from z = x W1^T
-    + b1 recomputed inside the kernel. bf16 at W or H % 8 != 0 goes through
-    zero-padded copies, as the forward's "tensor_core_padded" route: the
-    pad columns of x, dY and W1 add nothing to either product, and the pad
-    columns of h and dz are cut off."""
+    """K4's backward kernel on the card, by `mlp_bwd_route`: h = act(z) and
+    dz = (dY W2) * act'(z), both [T, H] in x's dtype, from z = x W1^T + b1
+    recomputed inside the kernel, and db1 = the column sums of dz in fp32.
+    In bf16 (`rv_fused_mlp_bwd_tc`) the kernel writes each 128-row tile's
+    column sums, [ceil(T / 128), H] fp32, which `sum(0)` adds in a fixed
+    order; at W or H % 8 != 0 it runs on zero-padded copies, as the
+    forward's "tensor_core_padded" route: the pad columns of x, dY and W1
+    add nothing to either product, and the pad columns of h, dz and db1
+    are cut off. In fp32 (`rv_fused_mlp_bwd`) db1 is dz's column sum."""
     t, width = x2.shape
     hidden = w1.shape[0]
     dy2 = dy2.to(x2.dtype)
+    route = mlp_bwd_route(x2.device.type, x2.dtype, width, hidden)
     wp, hp = width, hidden
-    if x2.dtype == torch.bfloat16:
+    if route == "tensor_core_padded":
         wp, hp = round_pitch(width), round_pitch(hidden)
-    if (wp, hp) != (width, hidden):
         x2, dy2 = F.pad(x2, (0, wp - width)), F.pad(dy2, (0, wp - width))
         w1, b1 = F.pad(w1, (0, wp - width, 0, hp - hidden)), F.pad(b1, (0, hp - hidden))
         w2 = F.pad(w2, (0, hp - hidden, 0, wp - width))
@@ -276,32 +296,43 @@ def _mlp_bwd_launch(x2, w1, b1, w2, dy2, act: str):
     kernels.require_cuda("fused_mlp backward", x2, w1, b1, w2, dy2)
     h = torch.empty((t, hp), dtype=x2.dtype, device=x2.device)
     dz = torch.empty_like(h)
+    tc = route != "cuda_core"
+    part = torch.empty((-(-t // 128), hp), dtype=torch.float32, device=x2.device) if tc else None
     if t:
         with torch.cuda.device(x2.device):   # launch on the tensors' card
-            status = kernels.lib().rv_fused_mlp_bwd(
-                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy2.data_ptr(),
-                h.data_ptr(), dz.data_ptr(), t, wp, hp, ACT_CODES[act],
-                kernels.DTYPE_CODES[x2.dtype], kernels.stream_ptr(x2.device))
+            if tc:
+                status = kernels.lib().rv_fused_mlp_bwd_tc(
+                    x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    dy2.data_ptr(), h.data_ptr(), dz.data_ptr(), part.data_ptr(), t, wp, hp,
+                    ACT_CODES[act], kernels.stream_ptr(x2.device))
+            else:
+                status = kernels.lib().rv_fused_mlp_bwd(
+                    x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    dy2.data_ptr(), h.data_ptr(), dz.data_ptr(), t, wp, hp, ACT_CODES[act],
+                    kernels.stream_ptr(x2.device))
         kernels.check("fused_mlp backward", status)
         kernels.launches["fused_mlp_bwd"] += 1
+        kernels.launches["fused_mlp_bwd_tc" if tc else "fused_mlp_bwd_cuda_core"] += 1
         kernels.shape_launches[("fused_mlp_bwd", (t, width, hidden, act,
                                                   str(x2.dtype)))] += 1
+    db1 = part.sum(0) if tc else dz.sum(0)
     if hp != hidden:
-        h, dz = h[:, :hidden].contiguous(), dz[:, :hidden].contiguous()
-    return h, dz
+        h, dz, db1 = h[:, :hidden].contiguous(), dz[:, :hidden].contiguous(), db1[:hidden]
+    return h, dz, db1
 
 
 class FusedMLPFunction(torch.autograd.Function):
     """K4 with its gradient over [T, W] rows: the forward launches K4
-    (`_mlp_launch`), the backward `rv_fused_mlp_bwd` for h and dz, then
-    dW2 = dY^T h, dW1 = dz^T x and dx = dz W1 as `torch.matmul` (plain
-    products, as XLA's dots of the autodiff in JAX) and the bias gradients
-    as column sums in fp32. It saves x, W1, b1 and W2 and recomputes z in
-    the backward. The gradients go to the tensors passed in (the tower
-    passes its parameters cast to the activation dtype); `parts`, the fp32
-    route's cached bf16 parts, get none. On CPU tensors the forward and the
-    backward are the plain versions (for `gradcheck`). Arguments after b2:
-    the activation and the fp32 route's weight parts or None."""
+    (`_mlp_launch`), the backward the kernel `mlp_bwd_route` picks for h,
+    dz and db1 (`_mlp_bwd_launch`), then dW2 = dY^T h, dW1 = dz^T x and dx =
+    dz W1 as `torch.matmul` (plain products, as XLA's dots of the autodiff
+    in JAX) and db2 as a column sum in fp32. It saves x, W1, b1 and W2 and
+    recomputes z in the backward. The gradients go to the tensors passed in
+    (the tower passes its parameters cast to the activation dtype);
+    `parts`, the fp32 route's cached bf16 parts, get none. On CPU tensors
+    the forward and the backward are the plain versions (for `gradcheck`).
+    Arguments after b2: the activation and the fp32 route's weight parts or
+    None."""
 
     @staticmethod
     def forward(ctx, x2, w1, b1, w2, b2, act, parts):
@@ -318,12 +349,12 @@ class FusedMLPFunction(torch.autograd.Function):
             return (*mlp_grad_ref(x2, w1, b1, w2, b2, dy, act=ctx.act), None, None)
         need = ctx.needs_input_grad
         dy = dy.to(x2.dtype)
-        h, dz = _mlp_bwd_launch(x2, w1, b1, w2, dy, ctx.act)
+        h, dz, db1 = _mlp_bwd_launch(x2, w1, b1, w2, dy, ctx.act)
         dx = torch.matmul(dz, w1) if need[0] else None
         dw1 = torch.matmul(dz.t(), x2) if need[1] else None
-        db1 = dz.float().sum(0).to(b1.dtype) if need[2] else None
+        db1 = db1.to(b1.dtype) if need[2] else None
         dw2 = torch.matmul(dy.t(), h) if need[3] else None
-        db2 = dy.float().sum(0).to(b2.dtype) if need[4] else None
+        db2 = dy.sum(0, dtype=torch.float32).to(b2.dtype) if need[4] else None
         return dx, dw1, db1, dw2, db2, None, None
 
 

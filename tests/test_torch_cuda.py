@@ -1161,14 +1161,18 @@ def _assert_grads_close(outs, refs, dtype):
     (1, 129, 160, 4, 100, True),      # hd 40
     (1, 577, 1024, 16, 300, True),    # PE-L14 widths, kv_valid < S
     (2, 577, 1536, 16, None, True),   # PE-G14's head dim 96 at S = 577
+    (16, 577, 1024, 16, None, True),  # PE-L14's training shape
 ])
 def test_flash_heads_bwd_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
-    """K3's backward (`rv_flash_heads_bwd`) through `flash_attention_heads`
-    under autograd, against `flash_attention_heads_grad_ref`; one backward
-    launch, and the forward on the same kernel as without grad."""
+    """K3's backward through `flash_attention_heads` under autograd, against
+    `flash_attention_heads_grad_ref`; one backward launch, on the route
+    `heads_bwd_route` names (bf16 at head dims % 16 == 0: the wgmma + TMA
+    kernels; the rest on the CUDA cores), and the forward on the same
+    kernel as without grad."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (flash_attention_heads,
-                                                  flash_attention_heads_grad_ref)
+                                                  flash_attention_heads_grad_ref,
+                                                  heads_bwd_route)
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     gen = torch.Generator(device="cuda").manual_seed(s + w)
@@ -1190,6 +1194,11 @@ def test_flash_heads_bwd_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     torch.cuda.synchronize()
     assert kernels.launches["flash_heads"] - before["flash_heads"] == 1
     assert kernels.launches["flash_heads_bwd"] - before["flash_heads_bwd"] == 1
+    route = heads_bwd_route("cuda", dtype, w // heads)
+    assert route == ("tensor_core" if dtype == torch.bfloat16 and (w // heads) % 16 == 0
+                     else "cuda_core")
+    counter = "flash_heads_bwd_tc" if route == "tensor_core" else "flash_heads_bwd_cuda_core"
+    assert kernels.launches[counter] - before[counter] == 1
     _assert_close(out.detach(), flash_attention_heads(q, k, v, **kw), 0.0)
     refs = flash_attention_heads_grad_ref(q, k, v, do, **kw)
     _assert_grads_close([t.grad for t in leaves], refs, dtype)
@@ -1206,13 +1215,17 @@ def test_flash_heads_bwd_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     (40, 68, 252, "quick_gelu"),      # W % 8 != 0: bf16 through zero-padded copies
     (577, 1024, 4096, "gelu"),        # PE-L14 widths
     (1000, 1024, 4096, "quick_gelu"),  # T % 128 != 0
+    (9232, 1024, 4096, "gelu"),       # PE-L14's training shape: 72 tiles of 128 and 16 rows
 ])
 def test_fused_mlp_bwd_kernel(dev, dtype, t, w, hid, act):
-    """K4's backward (`rv_fused_mlp_bwd`, then the three products and the
-    bias sums) through `fused_mlp` under autograd, against `mlp_grad_ref`;
-    one backward launch."""
+    """K4's backward (the kernel `mlp_bwd_route` names, then the three
+    products and db2's sum) through `fused_mlp` under autograd, against
+    `mlp_grad_ref`; one backward launch on that route. db1 from the bf16
+    kernel's per-tile partials equals the column sum of its own dz (fp32,
+    another order)."""
     from reverso_tpu_torch import kernels
-    from reverso_tpu_torch.ops.fused_mlp import fused_mlp, mlp_grad_ref
+    from reverso_tpu_torch.ops.fused_mlp import (_mlp_bwd_launch, fused_mlp, mlp_bwd_route,
+                                                 mlp_grad_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(t + w)
     x, dy = _randn(gen, t, w, dtype=dtype), _randn(gen, t, w, dtype=dtype)
@@ -1224,8 +1237,60 @@ def test_fused_mlp_bwd_kernel(dev, dtype, t, w, hid, act):
     torch.cuda.synchronize()
     assert kernels.launches["fused_mlp"] - before["fused_mlp"] == 1
     assert kernels.launches["fused_mlp_bwd"] - before["fused_mlp_bwd"] == 1
+    route = mlp_bwd_route("cuda", dtype, w, hid)
+    assert route == ("cuda_core" if dtype == torch.float32 else
+                     "tensor_core" if w % 8 == 0 and hid % 8 == 0 else "tensor_core_padded")
+    counter = "fused_mlp_bwd_cuda_core" if route == "cuda_core" else "fused_mlp_bwd_tc"
+    assert kernels.launches[counter] - before[counter] == 1
     refs = mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act)
     _assert_grads_close([p.grad for p in leaves], refs, dtype)
+    _, dz, db1 = _mlp_bwd_launch(x, w1, b1, w2, dy, act)
+    want = dz.float().sum(0)
+    assert db1.dtype == torch.float32 and db1.shape == (hid,)
+    assert float((db1 - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,s,w,heads,kv_valid,rope", [
+    (2, 17, 64, 4, None, True),        # test-tiny: hd 16
+    (16, 577, 1024, 16, None, True),   # PE-L14's training shape
+    (2, 577, 1024, 16, 300, True),     # kv_valid < S
+    (2, 145, 1024, 16, None, False),   # CLIP family: the scale on the scores
+    (2, 577, 1536, 16, None, True),    # PE-G14: hd 96
+])
+def test_flash_heads_forward_lse(dev, b, s, w, heads, kv_valid, rope):
+    """K3's bf16 forward with its `lse` output: each row's log-sum-exp
+    (base 2) against a plain log-sum-exp of the scores from the same
+    rounded operands, within 1e-5 of max(1, |lse|); the output bit for bit
+    as without the pointer."""
+    from reverso_tpu_torch.ops.attention import _heads_launch, _split
+    from reverso_tpu_torch.ops.rope import rope_2d_tables, rotate
+
+    gen = torch.Generator(device="cuda").manual_seed(s + w)
+    q, k, v = (_randn(gen, b, s, w, dtype=torch.bfloat16) for _ in range(3))
+    hd = w // heads
+    scale = hd ** -0.5
+    kv = s if kv_valid is None else kv_valid
+    tables = ()
+    if rope:
+        g = max(1, int(np.sqrt(s - 1)))
+        c, sn = rope_2d_tables(g, hd, cls_token=True)
+        pad = max(s - c.shape[0], 0)
+        c = np.concatenate([c, np.ones((pad, hd), np.float32)])[:s]
+        sn = np.concatenate([sn, np.zeros((pad, hd), np.float32)])[:s]
+        tables = (torch.from_numpy(c).to(dev), torch.from_numpy(sn).to(dev))
+    lse = torch.empty((b * heads, s), dtype=torch.float32, device=dev)
+    out = _heads_launch(q, k, v, heads, tables, scale, kv, lse)
+    assert torch.equal(out, _heads_launch(q, k, v, heads, tables, scale, kv))
+    qh, kh = _split(q, heads), _split(k, heads)
+    if rope:
+        qh, kh = rotate(qh, *tables, scale), rotate(kh, *tables)
+        sc = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    else:
+        sc = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    want = torch.logsumexp(sc[..., :kv], dim=-1).reshape(b * heads, s) / float(np.log(2.0))
+    err = (lse - want).abs() / want.abs().clamp(min=1.0)
+    print(f"lse: max error {float(err.max()):.3e} of max(1, |lse|) (tolerance 1e-5)")
+    assert float(err.max()) <= 1e-5
 
 
 def test_grad_raises_on_kernels_without_backward(dev):

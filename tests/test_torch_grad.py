@@ -10,7 +10,13 @@
   tensors, where they run the plain forward and the plain gradient;
 * under autograd the kernels without a backward (K5, K6, K7) raise on a
   device tensor, naming ROADMAP item 20c, and K3 and K4 never fall back
-  to their plain versions.
+  to their plain versions;
+* the basis of the bf16 tensor-core backward's tolerance:
+  `flash_attention_heads_grad_tc_ref` (its arithmetic: the forward's
+  log-sum-exp, D from the bf16 output, P and dS rounded to bf16, fp32 sums
+  over 64-row tiles, each output rounded once) in bf16 against `jax.vjp`
+  of the XLA path and the autograd of `flash_attention_heads_ref`, within
+  the card's 2e-2 of each gradient's scale.
 The backward kernels themselves run on the card only
 (tests/test_torch_cuda.py).
 """
@@ -26,9 +32,11 @@ from reverso_tpu.ops.attention import attention_xla
 from reverso_tpu.ops.rope import apply_rope_2d as jax_rope
 from reverso_tpu_torch.ops.attention import (FlashHeadsFunction, flash_attention,
                                               flash_attention_heads,
-                                              flash_attention_heads_grad_ref)
+                                              flash_attention_heads_grad_ref,
+                                              flash_attention_heads_grad_tc_ref)
 from reverso_tpu_torch.ops.fused_mlp import (FusedMLPFunction, fused_mlp, fused_mlp_int8,
                                              mlp_grad_ref, quantize_mlp_weights)
+from reverso_tpu_torch.config import MODEL_PRESETS as PORT_PRESETS
 from reverso_tpu_torch.ops.rope import rope_2d_tables
 
 # fp32 on both sides, sums in another order: within 2e-5 of the largest
@@ -85,6 +93,57 @@ def test_heads_grad_ref_matches_jax(b, s, w, heads, kv_valid, rope):
         assert not got[1][:, kv_valid:].any() and not got[2][:, kv_valid:].any()
 
 
+# the card's tolerance for bf16 gradients: 2e-2 of max(1, the largest
+# plain gradient), one bf16 rounding of P, dS and each output against the
+# reference's fp32 (or its own bf16 roundings)
+TC_TOL = 2e-2
+
+
+@pytest.mark.parametrize("against", ["jax", "autograd"])
+@pytest.mark.parametrize("b,s,w,heads,kv_valid,rope", [
+    (2, 17, 64, 4, None, True),       # test-tiny: hd 16
+    (1, 37, 192, 2, None, True),      # hd 96 (PE-G14's head dim)
+    (1, 50, 128, 2, 41, False),       # CLIP family: the scale on the scores
+    (1, 577, 64, 1, 300, True),       # one head of PE-L14 at S = 577, kv_valid < S
+])
+def test_heads_grad_tc_ref(b, s, w, heads, kv_valid, rope, against):
+    """`flash_attention_heads_grad_tc_ref` on bf16 inputs (numpy, seeded)
+    against `jax.vjp` of the JAX MHA's XLA path (fp32 on the same values)
+    or against the autograd of `flash_attention_heads_ref` in bf16: each
+    gradient within 2e-2 of max(1, its largest reference value); prints the
+    margin."""
+    rng = np.random.default_rng(s + w + heads)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, w)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    hd = w // heads
+    cos, sin = _tables(s, hd) if rope else (None, None)
+    kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv_valid)
+    got = flash_attention_heads_grad_tc_ref(q, k, v, do, **kw)
+    if against == "jax":
+        def jax_mha(q, k, v):
+            split = lambda t: t.reshape(b, s, heads, hd).transpose(0, 2, 1, 3)
+            qh, kh, vh = split(q), split(k), split(v)
+            if rope:
+                qh, kh = jax_rope(qh, cos, sin), jax_rope(kh, cos, sin)
+            o = attention_xla(qh, kh, vh, kv_valid=kv_valid)
+            return o.transpose(0, 2, 1, 3).reshape(b, s, w)
+
+        _, vjp = jax.vjp(jax_mha, *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+        want = [np.asarray(g) for g in vjp(jnp.asarray(do.float().numpy()))]
+    else:
+        want = [g.float().numpy() for g in flash_attention_heads_grad_ref(q, k, v, do, **kw)]
+    margins = []
+    for name, g, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == (b, s, w)
+        err = float(np.abs(g.float().numpy() - w_).max()) / max(1.0, float(np.abs(w_).max()))
+        margins.append(f"{name} {err:.2e}")
+        assert err <= TC_TOL, (name, err)
+    print(f"grad_tc_ref vs {against}: {', '.join(margins)} of max(1, |ref|) "
+          f"(tolerance {TC_TOL})")
+    if kv_valid is not None:
+        assert not got[1][:, kv_valid:].any() and not got[2][:, kv_valid:].any()
+
+
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 def test_mlp_grad_ref_matches_jax(act):
     cfg = MODEL_PRESETS["test-tiny"]
@@ -107,6 +166,29 @@ def test_mlp_grad_ref_matches_jax(act):
                        torch.from_numpy(dy), act=act)
     for g, w_ in zip(got, (dx, np.asarray(dk1).T, db1, np.asarray(dk2).T, db2)):
         _close(g.numpy(), w_)
+
+
+@pytest.mark.parametrize("preset", sorted(PORT_PRESETS))
+def test_backward_routes_for_every_preset(preset):
+    """The backward routes: every preset's bf16 tower trains on the wgmma
+    kernels (K3 at its head dim, K4 at its widths); fp32 and bf16 K3 at
+    head dims % 16 != 0 or unaligned bases on the CUDA cores; the CPU on
+    the plain versions."""
+    from reverso_tpu_torch.ops.attention import heads_bwd_route
+    from reverso_tpu_torch.ops.fused_mlp import mlp_bwd_route
+
+    cfg = PORT_PRESETS[preset]
+    hd, hid = cfg.width // cfg.num_heads, int(cfg.width * cfg.mlp_ratio)
+    assert heads_bwd_route("cuda", torch.bfloat16, hd) == "tensor_core"
+    assert heads_bwd_route("cuda", torch.bfloat16, hd, aligned=False) == "cuda_core"
+    assert heads_bwd_route("cuda", torch.bfloat16, hd + 8) == "cuda_core"
+    assert heads_bwd_route("cuda", torch.float32, hd) == "cuda_core"
+    assert mlp_bwd_route("cuda", torch.bfloat16, cfg.width, hid) == "tensor_core"
+    assert mlp_bwd_route("cuda", torch.bfloat16, cfg.width + 4, hid) == "tensor_core_padded"
+    assert mlp_bwd_route("cuda", torch.float32, cfg.width, hid) == "cuda_core"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert heads_bwd_route("cpu", dtype, hd) == "plain"
+        assert mlp_bwd_route("cpu", dtype, cfg.width, hid) == "plain"
 
 
 @pytest.mark.parametrize("kv,rope", [(5, True), (3, True), (4, False)])
