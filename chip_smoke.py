@@ -137,6 +137,25 @@ of which catches a failure:
      euclid, manhattan, pq and multivector stores built through
      `VectorStore.append` and searched through `Reverso.search_batch`, also
      filtered, against the same indexes on the CPU;
+  7S. meshes (phase S, `sharded_run`): the capacity rows row-sharded over
+     a mesh of four shards on the one card (`make_mesh(devices=["cuda:0"]
+     * 4)`): the exact bf16 (K1 at Q = 256 and 1, K2), int8 (K9) and
+     binary (K10) indexes and the IVF in bf16 and int8 (K11, 1,024
+     clusters, nprobe 16) built with `mesh=` beside the same index on one
+     device, each kernel launched once per shard and search, each sharded
+     result equal to the single-device scan bit for bit, both timed; the
+     plain ops sharded (best_score, discover, context, manhattan, PQ,
+     MaxSim) by the tie-margin rule; the mesh engine's hybrid query
+     against the single engine's; its numbers on a line `sharded (S)
+     numbers: {...}`;
+  7B. the device builds (B, `device_builds_run`) from a corpus made window
+     by window on the card (scripts/bench_capacity.py's generator shape):
+     `IVFIndex.from_chunks` at 8,388,608 x 1024 int8, 2,048 clusters, and
+     `BinaryIndex.from_chunks` at 16,777,216 x 1024: build seconds, peak
+     device memory, search ms at Q = 1 and 256, recall@10 against the
+     exact scan regenerated window by window, and the IVF at nprobe =
+     clusters against the exact int8 scan; on a line `device builds (B)
+     numbers: {...}`;
   7c. the query and write surface (U) through `Reverso` on phase 7's
      1,000,000 x 1024 store: `query_batch` on the int8, binary + rescore
      and IVF engines (K9, K10, K11; K11 held against its plain version and
@@ -194,7 +213,8 @@ by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2
 (bf16 and fp32 rows), K3 and K4 (bf16 and fp32), K5, K8, K9, K10, K11
 and K12 at. The line before the last is the card's name and power limit, the
 one before that a JSON object with one entry per kernel, the one before
-that phase U's numbers; the last line is {"ok": true, "device": {...}}.
+that phase U's numbers (after phase S's and B's); the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -4519,13 +4539,15 @@ def train_kernel_checks(torch) -> dict:
             o = _heads_launch(q, k, v, heads, (cos, sin), scale, s, lse)
             call = lambda: _heads_bwd_launch(q, k, v, do, heads, (cos, sin), scale, s, o, lse)
             fns = {"ms": call}
+            # SDPA's backward on the same values as [B, H, S, D], without
+            # RoPE (in fp32 too: the CUDA-core route's library time)
+            split = lambda t: t.reshape(b, s, heads, hd).transpose(1, 2).contiguous()
+            qh, kh, vh = (split(t).requires_grad_(True) for t in (q, k, v))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = split(do)
+            fns["library_ms"] = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                                            retain_graph=True)
             if dtype == bf16:
-                split = lambda t: t.reshape(b, s, heads, hd).transpose(1, 2).contiguous()
-                qh, kh, vh = (split(t).requires_grad_(True) for t in (q, k, v))
-                oh = F.scaled_dot_product_attention(qh, kh, vh)
-                doh = split(do)
-                fns["library_ms"] = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
-                                                                retain_graph=True)
                 # the forward with and without the log-sum-exp output, in turns
                 fns["fwd_ms"] = lambda: _heads_launch(q, k, v, heads, (cos, sin), scale, s)
                 fns["fwd_lse_ms"] = lambda: _heads_launch(q, k, v, heads, (cos, sin), scale, s,
@@ -4535,9 +4557,7 @@ def train_kernel_checks(torch) -> dict:
             k3[dtype]["plain_ms"] = cuda_ms(
                 lambda: flash_attention_heads_grad_ref(q, k, v, do, **kw), iters=3)
             fns.clear()
-            if dtype == bf16:
-                del qh, kh, vh, oh, doh
-            del o, lse
+            del qh, kh, vh, oh, doh, o, lse
         del q, k, v, do, leaves, refs
     main = "B=16 W=1024 hd=64 bfloat16"
     r = k3[bf16]
@@ -4563,6 +4583,9 @@ def train_kernel_checks(torch) -> dict:
         f32_ptxas=ptxas_usage("flash_heads_bwd.cu", "hbwd"),
         f32_shape="B=2 S=577 W=1024 H=16 fp32 RoPE", f32_ms=k3[f32]["ms"],
         f32_plain_ms=k3[f32]["plain_ms"],
+        f32_library="SDPA's fp32 backward on [B, H, S, D] (no RoPE)",
+        f32_library_ms=k3[f32]["library_ms"],
+        f32_library_repeats_ms=k3[(f32, "repeats")]["library_ms"],
         f32_bound_ms=heads_bwd_bound(2, s, 1024, 16, 4, "float32_split")[0],
         errors={case: e for case, (e, _) in errors.items()})
     rows["flash_heads_bwd"]["bound_ms"], rows["flash_heads_bwd"]["bound_by"] = heads_bwd_bound(
@@ -4792,6 +4815,280 @@ def train_run(root: str) -> tuple:
 
 
 
+SHARDS = 4   # phase S's mesh: four shards on cuda:0
+
+
+def sharded_run(root: str, unit: np.ndarray) -> tuple:
+    """(S) Meshes: the capacity rows (1,000,000 x 1024 unit rows) row-sharded
+    over a mesh of SHARDS shards on cuda:0 (`make_mesh(devices=["cuda:0"] *
+    SHARDS)`: the one card named SHARDS times), each index built with
+    `mesh=` beside the same index on one device: K1 (bf16, Q = 256 and 1),
+    K2 (10% of the rows kept), K9 (int8), K10 (binary) and K11 (IVF in
+    bf16 and int8 at 1,024 clusters, nprobe 16, Q = 256 and 1; the sharded
+    IVF loaded by `load_cache_device` from the single one's cache, over
+    the rows on the card). Counts reset just before the sharded searches
+    and read just after: each kernel launched once per shard and search.
+    Each sharded result equals the single-device scan's bit for bit (ids
+    and scores). Then the plain ops sharded against one device by the
+    tie-margin rule (1e-5): best_score, discover and context over the 1M
+    bf16 rows, manhattan and PQ over the first 100,000, MaxSim over
+    20,000 points; and the mesh engine (`Reverso(use_mesh=True)`, its
+    devices replaced by the SHARDS shards) answering a hybrid query (a
+    sparse branch, the sharded dense branch, RRF) as the single engine
+    does. Each sharded search timed beside the single-device one (CUDA
+    events): the difference is the shards' launches and the merge.
+    Returns (the launches of the sharded searches, their top-k shapes,
+    K11's by_shape entries, the numbers)."""
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MeshConfig, SearchConfig, StoreConfig, default_config
+    from reverso_tpu_torch.engine import Reverso
+    from reverso_tpu_torch.ops.pq import pq_encode, train_pq
+    from reverso_tpu_torch.parallel import make_mesh, sharding
+    from reverso_tpu_torch.store import (BinaryIndex, DeviceIndex, IVFIndex, MultiVecIndex,
+                                         PQIndex, VectorStore)
+
+    mesh = make_mesh(MeshConfig(), devices=["cuda:0"] * SHARDS)
+    n, d = unit.shape
+    rng = np.random.default_rng(47)
+    q = unit[rng.choice(n, 256, replace=False)] + rng.standard_normal(
+        (256, d), dtype=np.float32) * np.float32(0.02 / np.sqrt(d))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qt = torch.from_numpy(q).cuda()
+    q1 = qt[:1].clone()
+    keep = torch.from_numpy(np.arange(n) % 10 == 3).cuda()
+    emb = torch.from_numpy(unit).cuda()
+    t0 = time.perf_counter()
+    pairs = {}
+    for name, make in (("K1", lambda m: DeviceIndex(unit, mesh=m)),
+                       ("K9", lambda m: DeviceIndex(unit, dtype="int8", mesh=m)),
+                       ("K10", lambda m: BinaryIndex(unit, mesh=m))):
+        pairs[name] = (make(None), make(mesh))
+    cache = os.path.join(root, "sharded_ivf.npz")
+    ivf = IVFIndex.from_device(emb, n_clusters=1024, dtype="bfloat16", seed=0)
+    ivf.save_cache(cache)
+    pairs["K11"] = (ivf, IVFIndex.load_cache_device(emb, cache, mesh=mesh))
+    pairs["K11 int8"] = (IVFIndex.load_cache_device(emb, cache, dtype="int8"),
+                         IVFIndex.load_cache_device(emb, cache, dtype="int8", mesh=mesh))
+    build_s = time.perf_counter() - t0
+    check(all(len(pairs[k][1].matrix.parts) == SHARDS for k in pairs), "not SHARDS shards")
+    searches = {"K1 Q=256": ("K1", lambda x: x.search(qt, 10)),
+                "K1 Q=1": ("K1", lambda x: x.search(q1, 10)),
+                "K2 Q=256": ("K1", lambda x: x.search(qt, 10, row_mask=keep)),
+                "K9 Q=256": ("K9", lambda x: x.search(qt, 10)),
+                "K10 Q=256": ("K10", lambda x: x.search(qt, 10)),
+                "K11 Q=256": ("K11", lambda x: x.search(qt, 10, nprobe=16)),
+                "K11 Q=1": ("K11", lambda x: x.search(q1, 10, nprobe=16)),
+                "K11 int8 Q=256": ("K11 int8", lambda x: x.search(qt, 10, nprobe=16))}
+    counters = {"K1": "topk_stream", "K2": "topk_masked", "K9": "topk_int8",
+                "K10": "topk_binary", "K11": "ivf_scan"}
+    captured = {}
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with ivf_inputs(captured):
+        got = {name: fn(pairs[idx][1]) for name, (idx, fn) in searches.items()}
+        torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    shapes = collections.Counter(kernels.shape_launches)
+    ivf_counts = {key: c for key, c in shapes.items() if key[0] == "ivf_scan"}
+    want = collections.Counter(counters[name.split()[0]] for name in searches)
+    for counter, times in want.items():
+        check(launches[counter] == SHARDS * times,
+              f"{counter}: {launches[counter]} launches, not {SHARDS} a search x {times}")
+    out = {"shards": SHARDS, "rows": n, "build_s": build_s, "launches": {
+        c: launches[c] for c in want}, "sharded_ms": {}, "single_ms": {}}
+    for name, (idx, fn) in searches.items():
+        single, sharded = pairs[idx]
+        s1, i1 = fn(single)
+        s2, i2 = got[name]
+        torch.cuda.synchronize()
+        check(torch.equal(i1, i2) and torch.equal(s1, s2),
+              f"sharded {name} differs from the single-device scan")
+        out["single_ms"][name] = cuda_ms(lambda: fn(single))
+        out["sharded_ms"][name] = cuda_ms(lambda: fn(sharded))
+    k11_shapes = ivf_path_shapes(torch, ivf_counts, captured, "sharded")
+    del captured, got
+
+    # the plain ops, sharded against one device (the tie-margin rule)
+    single, sharded = pairs["K1"]
+    plain = {}
+    ex = (unit[:2], unit[5:6])
+    for name, fn in (("best_score", lambda x: x.best_score(*ex, k=10)),
+                     ("discover", lambda x: x.discover(unit[7], unit[8:10], unit[10:12], k=10)),
+                     ("context", lambda x: x.context(unit[8:10], unit[10:12], k=10))):
+        topk_agree(*fn(single), *fn(sharded), 1e-5, f"sharded {name}")
+        plain[name] = (sync_ms(torch, lambda: fn(single)), sync_ms(torch, lambda: fn(sharded)))
+    del pairs, single, sharded, ivf
+    sub = unit[:100_000]
+    cb = train_pq(sub, 128, iters=5, sample=16384, seed=0)
+    codes = pq_encode(sub, cb)
+    subs, indptr = multivec_points(unit, 20_000, seed=49)
+    mv_q = [subs[:4], subs[100:103]]
+    for name, make, fn in (
+            ("manhattan", lambda m: DeviceIndex(sub, distance="manhattan", mesh=m),
+             lambda x: x.search(qt[:16], 10)),
+            ("pq", lambda m: PQIndex(sub, m=128, codebooks=cb, codes=codes, mesh=m),
+             lambda x: x.search(qt[:16], 10)),
+            ("maxsim", lambda m: MultiVecIndex(subs, indptr, mesh=m),
+             lambda x: tuple(torch.from_numpy(a) for a in x.search(mv_q, 10)))):
+        single, sharded = make(None), make(mesh)
+        topk_agree(*fn(single), *fn(sharded), 1e-5, f"sharded {name}")
+        plain[name] = (sync_ms(torch, lambda: fn(single)), sync_ms(torch, lambda: fn(sharded)))
+        del single, sharded
+    out["plain_single_sharded_ms"] = plain
+
+    # the mesh engine against the single engine: a hybrid query
+    hyb_n = 4096
+    dense = unit[:hyb_n]
+    sp_rows = [{"indices": sorted(int(v) for v in rng.choice(60, 1 + i % 4, replace=False)),
+                "values": rng.random(1 + i % 4).round(3).tolist()} for i in range(hyb_n)]
+    with VectorStore.create(root, "hybrid_mesh", d, sparse={"text": {}}) as st:
+        st.append(dense, [{"region_id": f"r{i}"} for i in range(hyb_n)], {"text": sp_rows})
+    cfg = default_config().replace(store=StoreConfig(root_dir=root),
+                                   search=SearchConfig())
+    prefetch = [{"query": sp_rows[3], "using": "text", "limit": 16},
+                {"query": dense[3].tolist(), "limit": 16}]
+    answers = []
+    real = sharding.local_devices
+    sharding.local_devices = lambda: [torch.device("cuda", 0)] * SHARDS
+    try:
+        for use_mesh in (False, True):
+            eng = Reverso(cfg, use_mesh=use_mesh)
+            check((eng.mesh is not None) == use_mesh and (
+                not use_mesh or eng.mesh.shape["data"] == SHARDS), "the engine's mesh")
+            eng.load_database("hybrid_mesh")
+            answers.append([(h["id"], h["score"]) for h in eng.query(
+                prefetch=prefetch, fusion="rrf", k=8)])
+    finally:
+        sharding.local_devices = real
+    check(answers[0] == answers[1], f"hybrid query: mesh {answers[1]} != single {answers[0]}")
+    out["hybrid_hits"] = len(answers[0])
+    del emb
+    torch.cuda.empty_cache()
+    print(f"sharded (S): {json.dumps(out)}", flush=True)
+    return launches, {k: v for k, v in shapes.items() if k[0] != "ivf_scan"}, k11_shapes, out
+
+
+BUILD_CENTERS = 65_536   # scripts/bench_capacity.py's generator
+
+
+def corpus_chunks(torch, d: int, chunk: int, seed: int):
+    """scripts/bench_capacity.py's generator shape on the card: 65,536
+    unit centres, row r drawn from centre (r * 2654435761) mod 65,536 plus
+    per-dimension noise of sigma sqrt((1 - 0.85) / 0.85 / d) (within-cluster
+    cosine ~0.85), normalized; a window's noise seeded by its index, so any
+    window is made again the same. Returns chunk_fn(lo, rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn(BUILD_CENTERS, d, generator=gen, device="cuda")
+    centers /= centers.norm(dim=1, keepdim=True)
+    sigma = float(np.sqrt((1 - 0.85) / 0.85 / d))
+
+    def chunk_fn(lo, rows):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + lo // chunk)
+        r = torch.arange(lo, lo + rows, device="cuda", dtype=torch.int64)
+        x = centers[(r * 2654435761) % BUILD_CENTERS]
+        x += sigma * torch.randn(rows, d, generator=g, device="cuda")
+        return x / x.norm(dim=1, keepdim=True)
+
+    return chunk_fn
+
+
+def exact_top10(torch, chunk_fn, n: int, chunk: int, q, dtype):
+    """The exact top-10 of `q` over the generated rows in `dtype`, window
+    by window (fp32 sums; the (-score, row) order), merged as it goes."""
+    from reverso_tpu_torch.ops.topk import _select_topk
+    best_s = torch.empty((len(q), 0), device="cuda")
+    best_i = torch.empty((len(q), 0), dtype=torch.int64, device="cuda")
+    qd = q.to(dtype).float()
+    for lo in range(0, n, chunk):
+        x = chunk_fn(lo, min(chunk, n - lo)).to(dtype).float()
+        s = torch.cat([best_s, qd @ x.t()], 1)
+        i = torch.cat([best_i, torch.arange(lo, lo + len(x), device="cuda").expand(len(q), -1)], 1)
+        best_s, cols = _select_topk(s, 10)
+        best_i = i.gather(1, cols)
+        del x, s, i
+    return best_s, best_i
+
+
+def recall10(found: np.ndarray, truth: np.ndarray) -> float:
+    """The share of each query's true top-10 among its found ids."""
+    return float(np.mean([len(set(f) & set(t)) / 10 for f, t in zip(found, truth)]))
+
+
+def device_builds_run() -> dict:
+    """(B) The builds from a corpus that never exists as one array, made on
+    the card window by window (`corpus_chunks`, 524,288-row windows): an
+    int8 IVF of 8,388,608 x 1024 at 2,048 clusters through
+    `IVFIndex.from_chunks` (8 GB of int8 rows; the fp32 source would be 32
+    GB), and a binary index of 16,777,216 x 1024 through
+    `BinaryIndex.from_chunks` (2 GB packed; its source 64 GB). Each:
+    build seconds (synchronized), the peak device memory of the build
+    (`max_memory_allocated`), search ms at Q = 1 and 256 (k = 10; IVF at
+    nprobe 16; binary's candidates at k = 30, the engine's 3x
+    oversampling), recall@10 against the exact top-10 regenerated window
+    by window (IVF: over its stored int8 rows' exact scan, K9; binary:
+    against the exact bf16 scan, the candidates' recall); and the IVF at
+    nprobe = 2,048 (every cluster) against K9's exact scan of its sorted
+    rows at Q = 16, by the tie-margin rule."""
+    import torch
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.topk import cosine_topk_int8_exact
+    from reverso_tpu_torch.store import BinaryIndex, IVFIndex
+
+    d, chunk = 1024, 1 << 19
+    out = {}
+    rng = np.random.default_rng(53)
+    for kind, n in (("ivf_int8", 8 << 20), ("binary", 16 << 20)):
+        chunk_fn = corpus_chunks(torch, d, chunk, seed=59)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if kind == "ivf_int8":
+            index = IVFIndex.from_chunks(chunk_fn, n, d, chunk=chunk, n_clusters=2048,
+                                         dtype="int8", seed=0)
+        else:
+            index = BinaryIndex.from_chunks(chunk_fn, n, d, chunk=chunk)
+        torch.cuda.synchronize()
+        r = {"rows": n, "build_s": time.perf_counter() - t0,
+             "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+             "index_gb": index.nbytes / 1e9}
+        # queries: stored rows (of the first window) plus noise, cos ~0.96
+        rows0 = chunk_fn(0, chunk)
+        q = rows0[torch.from_numpy(rng.choice(chunk, 256, replace=False)).cuda()]
+        q = q + (0.29 / np.sqrt(d)) * torch.randn(q.shape, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+        del rows0
+        if kind == "ivf_int8":
+            search = lambda qs: index.search(qs, 10, nprobe=16)
+            truth = exact_top10(torch, chunk_fn, n, chunk, q, torch.float32)[1]
+        else:
+            search = lambda qs: index.search(qs, 30)
+            truth = exact_top10(torch, chunk_fn, n, chunk, q, torch.bfloat16)[1]
+        found = search(q)[1]
+        r["recall10"] = recall10(found.cpu().numpy(), truth.cpu().numpy())
+        r["q1_ms"] = cuda_ms(lambda: search(q[:1]), iters=10)
+        r["q256_ms"] = cuda_ms(lambda: search(q), iters=5)
+        if kind == "ivf_int8":
+            kernels.reset_counts()
+            s, i = index.search(q[:16], 10, nprobe=2048)
+            check(kernels.launches["ivf_scan"] == 1, "IVF all probes: not one K11 launch")
+            es, pos = cosine_topk_int8_exact(index.matrix, index.db_scale, q[:16], 10)
+            ei = index.row_ids[pos.long()]
+            topk_agree(es, ei, s, i, 1e-6, "IVF at nprobe = clusters vs the exact int8 scan")
+            r["all_probes_q16_ms"] = cuda_ms(lambda: index.search(q[:16], 10, nprobe=2048))
+            r["exact_int8_q16_ms"] = cuda_ms(
+                lambda: cosine_topk_int8_exact(index.matrix, index.db_scale, q[:16], 10))
+            r["clusters"] = index.n_clusters
+            r["cmax"] = index.cmax
+        out[kind] = r
+        del index, chunk_fn, q, truth, found
+        torch.cuda.empty_cache()
+    print(f"device builds (B): {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4880,7 +5177,12 @@ def main() -> int:
         engine_launches, engine_shapes = phase("engine stores (euclid, manhattan, pq, "
                                                "multivector)", engine_stores_run, root, unit,
                                                scaled, queries)
+        torch.cuda.empty_cache()
+        sharded_launches, sharded_shapes, sharded_ivf_shapes, sharded = phase(
+            "meshes (S)", sharded_run, root, unit)
         del unit, scaled, queries
+        torch.cuda.empty_cache()
+        builds = phase("device builds (B)", device_builds_run)
         torch.cuda.empty_cache()
         # last: it writes the capacity store, which no later phase reads
         surface_launches, surface_shapes, surface_ivf_shapes, surface = phase(
@@ -4900,7 +5202,7 @@ def main() -> int:
     path_shapes = collections.Counter()
     for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes,
                    clip_k1_shapes, euclid_shapes, engine_shapes, surface_shapes,
-                   entry_k1_shapes):
+                   entry_k1_shapes, sharded_shapes):
         path_shapes.update(shapes)
     topk_shapes = phase("top-k scans at their paths' shapes", topk_path_shapes, torch,
                         path_shapes)
@@ -4908,7 +5210,7 @@ def main() -> int:
         rows[name]["by_shape"] = shapes
     # K11 at each shape the capacity and surface paths ran it at, timed on
     # each path's own captured inputs
-    rows["ivf_scan"]["by_shape"] = capacity_ivf_shapes + surface_ivf_shapes
+    rows["ivf_scan"]["by_shape"] = capacity_ivf_shapes + surface_ivf_shapes + sharded_ivf_shapes
 
     # each kernel's launches on its own path: the tensor-core rows count the
     # bf16 core's launches, the fp32 rows the split mode's (on the parity
@@ -4929,7 +5231,7 @@ def main() -> int:
                "fused_mlp_f32": f32_launches["fused_mlp_split"],
                "split_parts": f32_launches["split_parts"],
                "topk_stream": direct_launches["topk_stream"] + surface_launches["topk_stream"]
-               + entry_launches["topk_stream"],
+               + entry_launches["topk_stream"] + sharded_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
                "flash_attn_f32": long_launches["flash_attn_split"],
                "flash_attn_relbias": region_launches["flash_attn_relbias_tc"],
@@ -4937,11 +5239,14 @@ def main() -> int:
                "topk_stream_f32": sum(run["topk_stream_f32"] for run in path_runs),
                "ms_deform": region_launches["ms_deform"],
                "topk_masked": capacity_launches["topk_masked"]
-               + surface_launches["topk_masked"] + entry_launches["topk_masked"],
-               "topk_int8": capacity_launches["topk_int8"] + surface_launches["topk_int8"],
+               + surface_launches["topk_masked"] + entry_launches["topk_masked"]
+               + sharded_launches["topk_masked"],
+               "topk_int8": capacity_launches["topk_int8"] + surface_launches["topk_int8"]
+               + sharded_launches["topk_int8"],
                "topk_binary": capacity_launches["topk_binary"]
-               + surface_launches["topk_binary"],
-               "ivf_scan": capacity_launches["ivf_scan"] + surface_launches["ivf_scan"],
+               + surface_launches["topk_binary"] + sharded_launches["topk_binary"],
+               "ivf_scan": capacity_launches["ivf_scan"] + surface_launches["ivf_scan"]
+               + sharded_launches["ivf_scan"],
                "fused_mlp_int8": int8_launches["fused_mlp_int8"],
                "topk_int8_rows": two_stage_launches["topk_int8_rows"],
                "flash_heads_bwd": train_launches["flash_heads_bwd"],
@@ -4979,6 +5284,8 @@ def main() -> int:
           f"(ms - bound_ms), by shape where timed {[(name, round(v, 1)) for v, name in rest]}; "
           f"apart {[(name, why, round(rows[name]['ms'] / rows[name]['library_ms'], 2) if rows[name]['library_ms'] else None, round(cost(name), 1)) for name, why in apart.items()]}",
           flush=True)
+    print(f"sharded (S) numbers: {json.dumps(sharded)}", flush=True)
+    print(f"device builds (B) numbers: {json.dumps(builds)}", flush=True)
     print(f"surface (U) numbers: {json.dumps(surface)}", flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape", "library")

@@ -8,7 +8,7 @@ production use. It takes every subcommand and option of the JAX
 package's `reverso` command, plus `--device` (default `cuda`; `--device
 cpu` runs on the CPU). Asking for CUDA where there is none raises: no
 path falls back to the CPU. `train` fine-tunes the vision tower on one
-device (`--tp` above 1 exits non-zero, naming ROADMAP item 21); `bench`
+device (`--tp` above 1 exits non-zero, naming ROADMAP item 21b); `bench`
 is not ported yet and exits non-zero, naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -1112,7 +1112,7 @@ def cmd_video_local(args) -> int:
 def cmd_train(args) -> int:
     """SigLIP contrastive fine-tuning on two augmented views per image, on
     `--device` (the JAX command's mesh of `--tp` model shards is ROADMAP
-    queue 1 item 21)."""
+    queue 1 item 21b)."""
     import numpy as np
     from .ingest.images import scan_images, iter_batches
     from .train import ClipTrainer
@@ -1120,7 +1120,7 @@ def cmd_train(args) -> int:
 
     if args.tp != 1:
         print(f"❌ --tp {args.tp}: tensor-parallel training is not ported yet "
-              f"(ROADMAP queue 1 item 21)", file=sys.stderr)
+              f"(ROADMAP queue 1 item 21b)", file=sys.stderr)
         return 1
     cfg = MODEL_PRESETS[args.model or "PE-Core-L14-336"]
     trainer = ClipTrainer(cfg, learning_rate=args.lr, device=_device(args))

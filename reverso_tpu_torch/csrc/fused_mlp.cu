@@ -103,6 +103,24 @@ split_parts_kernel(const T* __restrict__ x, __nv_bfloat16* __restrict__ out, int
     }
 }
 
+// The current device's SM count, looked up once per device: a process may
+// launch on several cards (a mesh), each under its own current device.
+static int current_sms(int* sms) {
+    constexpr int kMaxDevices = 64;
+    static int by_device[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices && by_device[dev] > 0) {
+        *sms = by_device[dev];
+        return 0;
+    }
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) by_device[dev] = *sms;
+    return 0;
+}
+
 static int launch_split_parts(const void* x, void* out, int rows, int cols, int out_rows,
                               int pitch, int parts, int dtype, cudaStream_t stream) {
     if (rows < 0 || cols <= 0 || out_rows < rows || pitch < cols || pitch % 8 ||
@@ -509,14 +527,9 @@ using GemmSplit = GemmCfg<128, 4, 3>;
 
 static int launch_mlp_gemm(const void* a, const void* b, const void* bias, void* c, int m,
                            int n, int k, int act, cudaStream_t stream) {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess) return (int)err;
-    }
+    int sms = 0;
+    const int err_sms = current_sms(&sms);
+    if (err_sms != 0) return err_sms;
     const long long wide_tiles = (long long)ceil_div(m, kBM) * ceil_div(n, GemmWide::kBN);
     if (wide_tiles >= 4LL * sms)
         return launch_gemm<GemmWide>(a, b, bias, c, m, n, k, act, stream);
@@ -1018,14 +1031,9 @@ static int launch_int8_mlp(const void* x, const void* w1, const void* s1, const 
                            const void* w2, const void* s2, const void* b2, void* x8, void* xs,
                            void* h8, void* hs, void* y, int rows, int W, int H, int act,
                            cudaStream_t stream) {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess) return (int)err;
-    }
+    int sms = 0;
+    const int err_sms = current_sms(&sms);
+    if (err_sms != 0) return err_sms;
     const int Wp = round_up(W, 16), Hp = round_up(H, 16);
     q8_quant_rows_kernel<T><<<ceil_div(rows, kQuantWarps), kQuantWarps * 32, 0, stream>>>(
         static_cast<const T*>(x), static_cast<signed char*>(x8), static_cast<float*>(xs), rows, W,

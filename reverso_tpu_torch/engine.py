@@ -23,8 +23,11 @@ combines as plain PyTorch, as they were XLA in the JAX package).
 
 Everything runs on one device: CUDA unless the caller asks for the CPU
 (`device="cpu"`, or an encoder built on the CPU); `search.index="host"`
-is the native host scan the user chose. Meshes (`use_mesh=True`) are not
-ported and raise rather than run a different path.
+is the native host scan the user chose. With `use_mesh=True` the engine
+makes a mesh over every visible CUDA device (`parallel.make_mesh` of
+`config.mesh`, as the JAX engine does) and every index it builds
+row-shards over it: each shard's scan on its card, the candidates merged
+on the first (`parallel/sharding.py`).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from .detect.regions import Regions, parse_prompts
 from .ingest.images import preprocess_pil
 from .ingest.pipeline import build_database, direct_pe_metadata, region_metadata
 from .models.pe import PerceptionEncoder, resolve_device
+from .parallel.sharding import make_mesh
 from .query import UniversalQuery
 from .store import (
     VectorStore, BinaryIndex, DeviceIndex, HostIndex, IVFIndex, MultiVecIndex, PQIndex,
@@ -57,7 +61,7 @@ log = get_logger("engine")
 
 
 def load_or_build_ivf(store, vectors: np.ndarray, scfg, dtype: str,
-                      *, space: str = "", device=None):
+                      *, space: str = "", mesh=None, device=None):
     """Load, extend, or build the store's IVF index for one vector
     space, persisting the k-means result next to the store.
 
@@ -79,7 +83,7 @@ def load_or_build_ivf(store, vectors: np.ndarray, scfg, dtype: str,
     cache = os.path.join(cache_dir, f"{stem}_{count}{tail}")
     ivf = None
     if os.path.exists(cache):
-        ivf = IVFIndex.load_cache(vectors, cache, dtype=dtype, device=device)
+        ivf = IVFIndex.load_cache(vectors, cache, dtype=dtype, mesh=mesh, device=device)
     dirty = ivf is None
     if ivf is None and os.path.isdir(cache_dir):
         for f in sorted(os.listdir(cache_dir), reverse=True):
@@ -89,13 +93,13 @@ def load_or_build_ivf(store, vectors: np.ndarray, scfg, dtype: str,
                     and f[len(stem) + 1:-len(tail)].isdigit()):
                 ivf = IVFIndex.extend_cache(
                     vectors, os.path.join(cache_dir, f), dtype=dtype,
-                    device=device)
+                    mesh=mesh, device=device)
                 if ivf is not None:
                     break
     if ivf is None:
         ivf = IVFIndex(vectors, n_clusters=min(scfg.ivf_clusters, count),
                        dtype=dtype, spill=scfg.ivf_spill,
-                       balance=scfg.ivf_balance, device=device)
+                       balance=scfg.ivf_balance, mesh=mesh, device=device)
     if dirty:
         # prune only THIS config's stale caches (any count/epoch)
         def _same_cfg(f: str) -> bool:
@@ -119,7 +123,7 @@ def load_or_build_ivf(store, vectors: np.ndarray, scfg, dtype: str,
 
 
 def load_or_build_pq(store, vectors: np.ndarray, scfg, *,
-                     space: str = "", device=None):
+                     space: str = "", mesh=None, device=None):
     """Load, extend, or build the store's PQ index for one vector space,
     persisting the trained codebooks + codes next to the store, in the
     JAX package's file names and format (keyed on (space, m, count,
@@ -135,7 +139,7 @@ def load_or_build_pq(store, vectors: np.ndarray, scfg, *,
     cache = os.path.join(cache_dir, f"{stem}_{count}{tail}")
     pqi = None
     if os.path.exists(cache):
-        pqi = PQIndex.load_cache(vectors, cache, m=m, device=device)
+        pqi = PQIndex.load_cache(vectors, cache, m=m, mesh=mesh, device=device)
     dirty = pqi is None
     if pqi is None and os.path.isdir(cache_dir):
         for f in sorted(os.listdir(cache_dir), reverse=True):
@@ -144,11 +148,11 @@ def load_or_build_pq(store, vectors: np.ndarray, scfg, *,
             if (f.startswith(stem + "_") and f.endswith(tail)
                     and f[len(stem) + 1:-len(tail)].isdigit()):
                 pqi = PQIndex.load_cache(
-                    vectors, os.path.join(cache_dir, f), m=m, device=device)
+                    vectors, os.path.join(cache_dir, f), m=m, mesh=mesh, device=device)
                 if pqi is not None:
                     break
     if pqi is None:
-        pqi = PQIndex(vectors, m=m, device=device)
+        pqi = PQIndex(vectors, m=m, mesh=mesh, device=device)
     if dirty:
         def _same_cfg(f: str) -> bool:
             return (f.startswith(stem + "_") and f.endswith(".npz")
@@ -285,9 +289,6 @@ class Reverso(UniversalQuery):
                  encoder: Optional[PerceptionEncoder] = None,
                  detector=None, text_embedder=None, use_mesh: bool = False,
                  device=None):
-        if use_mesh:
-            raise NotImplementedError(
-                "meshes are not ported yet (multi-GPU, ROADMAP queue 1 item 21)")
         self.config = config or default_config()
         # encoder is LAZY: store-only flows never pay the model build;
         # the device is settled now, so a machine without CUDA fails here
@@ -295,6 +296,7 @@ class Reverso(UniversalQuery):
         if device is None and encoder is not None:
             device = encoder.device
         self.device = resolve_device(device)
+        self.mesh = make_mesh(self.config.mesh) if use_mesh else None
         self._encoder = encoder
         self.detector = detector
         self.text_embedder = text_embedder
@@ -1045,7 +1047,7 @@ class Reverso(UniversalQuery):
                 if mv_dtype in ("binary", "pq", "int8"):
                     mv_dtype = "bfloat16"
                 index = MultiVecIndex(np.asarray(subs), indptr, dtype=mv_dtype,
-                                      device=self.device)
+                                      mesh=self.mesh, device=self.device)
                 self._indexes[using] = (key, index)
                 return index
             if using not in store.spaces():
@@ -1067,7 +1069,7 @@ class Reverso(UniversalQuery):
                 # Euclid/manhattan have no IVF form: the exact index
                 ivf_dtype = "bfloat16" if dtype in ("binary", "pq") else dtype
                 ivf = load_or_build_ivf(store, vectors, scfg, ivf_dtype,
-                                        space=using, device=self.device)
+                                        space=using, mesh=self.mesh, device=self.device)
                 index = _IVFSearchAdapter(ivf, scfg.ivf_nprobe,
                                           impl=scfg.ivf_impl)
             elif dtype == "binary":
@@ -1079,7 +1081,7 @@ class Reverso(UniversalQuery):
                         "needs a cosine or dot store (this store's "
                         f"distance is {store.distance})")
                 index = _BinaryRescoreAdapter(
-                    BinaryIndex(vectors, device=self.device), vectors,
+                    BinaryIndex(vectors, mesh=self.mesh, device=self.device), vectors,
                     oversampling=scfg.binary_oversampling,
                     rescore=scfg.binary_rescore)
             elif dtype == "pq":
@@ -1091,12 +1093,12 @@ class Reverso(UniversalQuery):
                         "it needs a cosine or dot store (this store's "
                         f"distance is {store.distance})")
                 pqi = load_or_build_pq(store, vectors, scfg, space=using,
-                                       device=self.device)
+                                       mesh=self.mesh, device=self.device)
                 index = _BinaryRescoreAdapter(
                     pqi, vectors, oversampling=scfg.pq_oversampling,
                     rescore=scfg.pq_rescore)
             else:
-                index = DeviceIndex(vectors, dtype=dtype,
+                index = DeviceIndex(vectors, mesh=self.mesh, dtype=dtype,
                                     distance=store.distance,
                                     device=self.device,
                                     int8_quantile=scfg.int8_quantile)

@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .topk import (K_CAP, _CHUNK_ROWS, _finish, _launch_topk, _mask_scores,
-                   as_row_mask, log)
+from .topk import (K_CAP, _CHUNK_ROWS, _finish, _launch_topk, _mask_scores, as_queries,
+                   as_row_mask, as_shards, log, merge_topk, shard_candidates)
 
 
 def pack_signs(vectors, plane_width: Optional[int] = None):
@@ -139,3 +139,17 @@ def binary_topk(packed: torch.Tensor, queries: torch.Tensor, k: int, d: int,
     return _launch_topk("binary_topk", "topk_binary", packed, kernel_queries(queries, w), k,
                         n_valid, kernels.BINARY_PACKED,
                         as_row_mask(row_mask, n, packed.device), dims=d)
+
+
+def sharded_binary_topk(packed, queries, k: int, d: int, mesh, axis: str = "data",
+                        n_valid=None, row_mask=None):
+    """Binary candidate top-k over packed rows row-sharded across `axis`
+    (a `Shards`, or the whole packed matrix, sharded here): K10 on each
+    shard (`binary_topk`) with its own valid count, then one (-score,
+    global id) merge on the mesh's first device; the single-device scan's
+    result."""
+    cands = shard_candidates(
+        as_shards(packed, mesh, axis), as_queries(queries).float(), k,
+        lambda part, q, lv, m: binary_topk(part, q, k, d, n_valid=lv, row_mask=m),
+        n_valid=n_valid, row_mask=row_mask)
+    return merge_topk(cands, k, mesh.first)

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .topk import scan_topk
+from .topk import as_queries, as_shards, merge_topk, scan_topk, shard_candidates
 
 # elements of the [chunk, d] row block per scan step
 _CHUNK_ELEMS = 4 * 1024 * 1024
@@ -89,3 +89,16 @@ def manhattan_topk_host(vectors: np.ndarray, queries: np.ndarray, k: int,
         out_i[:, :k_eff] = run_i.astype(np.int32)
         out_i[np.isneginf(out_s)] = -1
     return out_s, out_i
+
+
+def sharded_manhattan_topk(db, queries, k: int, mesh, axis: str = "data",
+                           n_valid=None, row_mask=None):
+    """Manhattan top-k over rows row-sharded across `axis` (a `Shards`,
+    or the whole matrix, sharded here): the chunked L1 scan on each shard
+    with its own valid count, then one (-score, global id) merge on the
+    mesh's first device; the single-device scan's result."""
+    cands = shard_candidates(
+        as_shards(db, mesh, axis), as_queries(queries), k,
+        lambda part, q, lv, m: manhattan_topk(part, q, k, n_valid=lv, row_mask=m),
+        n_valid=n_valid, row_mask=row_mask)
+    return merge_topk(cands, k, mesh.first)

@@ -26,7 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .topk import _CHUNK_ROWS, _finish, as_row_mask
+from ..parallel.sharding import on_device, row_ranges
+from .topk import _CHUNK_ROWS, _finish, as_row_mask, merge_topk
 
 
 def seg_ids_of(indptr) -> np.ndarray:
@@ -76,19 +77,26 @@ def maxsim_topk(subs: torch.Tensor, indptr, queries, k: int, *,
     """
     dev = subs.device
     indptr = np.asarray(indptr, np.int64)
-    n_rows = len(indptr)
-    if n_rows == 0 or len(subs) == 0:
+    if len(indptr) == 0 or len(subs) == 0:
         # one empty result row per query (the batch is not built: with no
         # sub-vectors there is no width to hold the queries to)
         nq = len(queries) if isinstance(queries, (list, tuple)) else 1
         return (torch.full((nq, k), float("-inf"), device=dev),
                 torch.full((nq, k), -1, dtype=torch.int32, device=dev))
-    batch = _query_batch(queries, subs.shape[1])
+    qb = torch.from_numpy(_query_batch(queries, subs.shape[1])).to(dev)
+    return _maxsim_batch(subs, indptr, qb, k, row_mask=row_mask, seg_ids=seg_ids, chunk=chunk)
+
+
+def _maxsim_batch(subs: torch.Tensor, indptr: np.ndarray, qb: torch.Tensor, k: int, *,
+                  row_mask=None, seg_ids=None, chunk: int = _CHUNK_ROWS):
+    """`maxsim_topk` of a [Q, Tq, d] fp32 query batch on the matrix's
+    device (at least one point with sub-vectors)."""
+    dev = subs.device
+    n_rows = len(indptr)
     if seg_ids is None:
         seg_ids = seg_ids_of(indptr)
     seg = torch.as_tensor(seg_ids, device=dev).long()
-    q, tq, d = batch.shape
-    qb = torch.from_numpy(batch).to(dev)
+    q, tq, d = qb.shape
     flat = qb.reshape(q * tq, d)
     # per (query row, point) max over the point's sub-vectors; a pad
     # segment n_rows would swallow alignment records
@@ -107,6 +115,48 @@ def maxsim_topk(subs: torch.Tensor, indptr, queries, k: int, *,
     if mask is not None:
         valid &= mask.bool()
     return _finish(scores.masked_fill_(~valid[None], float("-inf")), k)
+
+
+def shard_multivec_layout(indptr, n_shards: int) -> list:
+    """Points in contiguous ranges, kept whole: shard s owns points [lo,
+    hi) of `row_ranges(N, n_shards)` (ceil(N / n_shards) a shard; the last
+    ones may own fewer, or none) and their sub-vectors [a, b). Returns
+    [(lo, hi, a, b, local indptr)] with the local ends relative to a."""
+    indptr = np.asarray(indptr, np.int64)
+    out = []
+    for lo, hi in row_ranges(len(indptr), n_shards):
+        a = int(indptr[lo - 1]) if lo > 0 else 0
+        b = int(indptr[hi - 1]) if hi > lo else a
+        out.append((lo, hi, a, b, indptr[lo:hi] - a))
+    return out
+
+
+def sharded_maxsim_topk(parts: list, layout: list, queries, k: int, mesh, *,
+                        row_mask=None, seg_ids: Optional[list] = None):
+    """Exact MaxSim top-k over a point-sharded multivector space: shard s
+    holds the sub-vectors `parts[s]` (on its device) of the points of
+    `layout[s]` (`shard_multivec_layout`); each shard with points runs the
+    local MaxSim scan on its device, ids shift by the shard's first
+    point, and one (-score, global id) merge on the mesh's first device
+    gives the single-device result. `row_mask` is over global point ids."""
+    d = parts[0].shape[1]
+    batch = torch.from_numpy(_query_batch(queries, d))
+    n_rows = layout[-1][1] if layout else 0
+    mask = as_row_mask(row_mask, n_rows, batch.device) if row_mask is not None else None
+    cands = []
+    for s, (part, (lo, hi, a, b, ptr)) in enumerate(zip(parts, layout)):
+        dev = part.device
+        with on_device(dev):
+            if b == a:     # no point of this shard has sub-vectors
+                continue
+            sc, i = _maxsim_batch(part, ptr, batch.to(dev), k,
+                                  row_mask=None if mask is None else mask[lo:hi],
+                                  seg_ids=None if seg_ids is None else seg_ids[s])
+            cands.append((sc, torch.where(i >= 0, i + lo, -1)))
+    if not cands:
+        return (torch.full((len(batch), k), float("-inf"), device=mesh.first),
+                torch.full((len(batch), k), -1, dtype=torch.int32, device=mesh.first))
+    return merge_topk(cands, k, mesh.first)
 
 
 def maxsim_score_rows(sub_rows, query) -> np.ndarray:

@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .topk import scan_topk
+from .topk import as_queries, as_shards, merge_topk, scan_topk, shard_candidates
 
 _K = 256                      # centroids per subspace = one uint8 code
 _CHUNK_ROWS = 65536           # code rows per scan step
@@ -172,3 +172,24 @@ def pq_topk(codes: torch.Tensor, codebooks: torch.Tensor, queries: torch.Tensor,
 
     return scan_topk(scores, n, qb.shape[0], k, codes.device, n_valid=n_valid,
                      row_mask=row_mask, chunk=chunk)
+
+
+def sharded_pq_topk(codes, codebooks, queries, k: int, d: int, mesh, axis: str = "data",
+                    n_valid=None, row_mask=None):
+    """PQ candidate top-k over a code matrix row-sharded across `axis` (a
+    `Shards`, or the whole [N, m] codes, sharded here), the codebooks
+    copied once to each shard's device: `pq_topk` on each shard with its
+    own valid count, then one (-score, global id) merge on the mesh's
+    first device; the single-device scan's result. `d` (the JAX
+    package's argument) follows from the codebooks."""
+    del d
+    cbs = {}
+
+    def scan(part, q, lv, m):
+        if part.device not in cbs:
+            cbs[part.device] = torch.as_tensor(codebooks).to(part.device)
+        return pq_topk(part, cbs[part.device], q, k, n_valid=lv, row_mask=m)
+
+    cands = shard_candidates(as_shards(codes, mesh, axis), as_queries(queries), k, scan,
+                             n_valid=n_valid, row_mask=row_mask)
+    return merge_topk(cands, k, mesh.first)

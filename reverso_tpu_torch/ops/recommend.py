@@ -41,7 +41,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .topk import _CHUNK_ROWS, _finish, as_row_mask
+from .topk import (_CHUNK_ROWS, _finish, as_queries, as_row_mask, as_shards, merge_topk,
+                   shard_candidates)
 
 
 def sum_scores_query(positives, negatives=None) -> np.ndarray:
@@ -263,3 +264,40 @@ def context_topk_host(matrix: np.ndarray, pairs_pos, pairs_neg,
     sn = np.atleast_2d(np.asarray(pairs_neg, np.float32)) @ matrix.T
     combined = np.minimum(sp - sn, 0.0).sum(axis=0)
     return _finalize_topk_host(combined, k, row_mask)
+
+
+def _sharded_merge(fn, db, examples, k: int, mesh, axis: str, n_valid, row_mask):
+    """`fn(shard, examples, n_valid_p, mask_p)` (one of the combined
+    top-k searches) on each shard of `db` (a `Shards`, or the whole
+    matrix, sharded over `axis` here), merged by (-score, global id) on
+    the mesh's first device: the single-device result."""
+    cands = shard_candidates(as_shards(db, mesh, axis), as_queries(examples), k, fn,
+                             n_valid=n_valid, row_mask=row_mask)
+    return merge_topk(cands, k, mesh.first)
+
+
+def sharded_best_score_topk(db, examples, n_pos: int, k: int, mesh, axis: str = "data",
+                            n_valid=None, db_scale=None, row_mask=None):
+    """best_score_topk over a database row-sharded across `axis`."""
+    return _sharded_merge(
+        lambda dbs, ex, lv, ms: best_score_topk(dbs, ex, n_pos, k, db_scale=db_scale,
+                                                n_valid=lv, row_mask=ms),
+        db, examples, k, mesh, axis, n_valid, row_mask)
+
+
+def sharded_discover_topk(db, examples, n_pairs: int, k: int, mesh, axis: str = "data",
+                          n_valid=None, db_scale=None, row_mask=None):
+    """discover_topk over a database row-sharded across `axis`."""
+    return _sharded_merge(
+        lambda dbs, ex, lv, ms: discover_topk(dbs, ex, n_pairs, k, db_scale=db_scale,
+                                              n_valid=lv, row_mask=ms),
+        db, examples, k, mesh, axis, n_valid, row_mask)
+
+
+def sharded_context_topk(db, examples, n_pairs: int, k: int, mesh, axis: str = "data",
+                         n_valid=None, db_scale=None, row_mask=None):
+    """context_topk over a database row-sharded across `axis`."""
+    return _sharded_merge(
+        lambda dbs, ex, lv, ms: context_topk(dbs, ex, n_pairs, k, db_scale=db_scale,
+                                             n_valid=lv, row_mask=ms),
+        db, examples, k, mesh, axis, n_valid, row_mask)

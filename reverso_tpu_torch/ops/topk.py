@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..parallel.sharding import Mesh, Shards, on_device, shard_rows
 from ..utils.logging import get_logger
 from .split import split_parts
 
@@ -475,6 +476,133 @@ def cosine_topk_int8_xla(db_i8: torch.Tensor, db_scale, queries: torch.Tensor,
     return scan_topk(lambda lo, hi: q32 @ (db_i8[lo:hi].float() * scale).t(),
                      db_i8.shape[0], q32.shape[0], k, db_i8.device, n_valid=n_valid,
                      row_mask=row_mask, chunk=chunk)
+
+
+def dot_topk(db: torch.Tensor, queries: torch.Tensor, k: int,
+             n_valid: Optional[int] = None, row_mask=None, db_scale=None):
+    """The exact dot top-k of one matrix as the index stores it: bf16 or
+    fp32 rows on `cosine_topk` (K1, K2), int8 rows on
+    `cosine_topk_int8_exact` (K9) with their global `db_scale`, or, above
+    the kernel's k cap or past d = INT8_D_MAX, on the chunked plain scan
+    (a counted shape rule on the card)."""
+    if db.dtype != torch.int8:
+        return cosine_topk(db, queries, k, n_valid=n_valid, row_mask=row_mask)
+    if k > K_CAP or db.shape[1] > INT8_D_MAX:
+        if db.device.type == "cuda":
+            log.info(f"int8 k={k} d={db.shape[1]} past the kernel's bounds: chunked scan")
+            kernels.plain_dispatches["int8_above_cap_or_wide"] += 1
+        return cosine_topk_int8_xla(db, db_scale, queries, k, n_valid=n_valid,
+                                    row_mask=row_mask)
+    return cosine_topk_int8_exact(db, db_scale, queries, k, n_valid=n_valid,
+                                  row_mask=row_mask)
+
+
+# ---------------------------------------------------------------------------
+# Sharded search (rows sharded over a mesh of devices, parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+def merge_order(scores: torch.Tensor, keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The columns [Q, k] of candidates [Q, C] (C >= k) in (-score, key)
+    order: two stable sorts, the key first. -inf candidates sort last."""
+    by_key = torch.argsort(keys, dim=1, stable=True)
+    by_score = torch.sort(scores.gather(1, by_key), dim=1, descending=True,
+                          stable=True).indices
+    return by_key.gather(1, by_score)[:, :k]
+
+
+def merge_topk(cands, k: int, device) -> tuple:
+    """Merge (scores [Q, k'], global ids [Q, k']) candidate lists on
+    `device` into the (-score, id)-ordered top-k: the single-device scan's
+    order, since every row's score is the same on any shard (the
+    counterpart of `all_gather` + lexsort in the JAX package's sharded
+    scans)."""
+    s = torch.cat([c[0].to(device) for c in cands], 1)
+    i = torch.cat([c[1].to(device) for c in cands], 1)
+    cols = merge_order(s, i.long(), k)
+    return s.gather(1, cols), i.gather(1, cols).to(torch.int32)
+
+
+def shard_candidates(shards: Shards, queries, k: int, scan, *,
+                     n_valid: Optional[int] = None, row_mask=None) -> list:
+    """Each shard's local top-k with global ids, on its own device:
+    `scan(part, q, n_valid_p, mask_p)` runs shard p's scan under its
+    device (`on_device`: a launcher launches on the current device) with
+    the queries and the shard's slice of `row_mask` ([n] over global
+    rows) copied there; a shard without valid rows scans nothing. The
+    scans are queued one after another and run asynchronously, so shards
+    on different cards overlap."""
+    qs, out = {}, []
+    mask = as_row_mask(row_mask, shards.n, queries.device) if row_mask is not None else None
+    masks = shards.slices(mask) if mask is not None else [None] * len(shards.parts)
+    for part, start, lv, m in zip(shards.parts, shards.starts, shards.local_valid(n_valid),
+                                  masks):
+        dev = part.device
+        with on_device(dev):
+            if lv == 0:
+                out.append(_empty_topk(queries.shape[0], k, dev))
+                continue
+            if dev not in qs:
+                qs[dev] = queries.to(dev)
+            s, i = scan(part, qs[dev], lv, m)
+            out.append((s, torch.where(i >= 0, i + start, -1)))
+    return out
+
+
+def _empty_topk(qn: int, k: int, device) -> tuple:
+    return (torch.full((qn, k), float("-inf"), device=device),
+            torch.full((qn, k), -1, dtype=torch.int32, device=device))
+
+
+def as_shards(db, mesh: Mesh, axis="data") -> Shards:
+    """`db` as row shards over the mesh's `axis` (a name or a tuple of
+    names; sharded here when it is a whole tensor or host array)."""
+    return db if isinstance(db, Shards) else shard_rows(db, mesh, axis)
+
+
+def as_queries(queries) -> torch.Tensor:
+    """[Q, d] or [d] host array or tensor -> [Q, d] tensor (where it is)."""
+    q = queries if isinstance(queries, torch.Tensor) else torch.from_numpy(
+        np.asarray(queries, np.float32))
+    return q[None] if q.ndim == 1 else q
+
+
+def _dot_scan(k: int, db_scale):
+    return lambda part, q, lv, m: dot_topk(part, q, k, n_valid=lv, row_mask=m,
+                                          db_scale=db_scale)
+
+
+def sharded_cosine_topk(db, queries, k: int, mesh: Mesh, axis: str = "data",
+                        impl: str = "auto", n_valid=None, db_scale=None, row_mask=None):
+    """Top-k over a database row-sharded across `axis` of `mesh` (a
+    `Shards`, or a whole matrix that is sharded here): each shard's scan
+    (`dot_topk`: K1/K2 on bf16 and fp32 rows, K9 on int8 rows with the
+    global `db_scale`) on its device with its own valid count, then one
+    merge on the mesh's first device. `row_mask` ([n] bool over global
+    rows) excludes rows exactly. `impl` names a TPU choice of the JAX
+    package and is ignored. Returns (scores [Q, k] f32, idx [Q, k] int32),
+    the single-device scan's result."""
+    del impl
+    cands = shard_candidates(as_shards(db, mesh, axis), as_queries(queries), k,
+                             _dot_scan(k, db_scale), n_valid=n_valid, row_mask=row_mask)
+    return merge_topk(cands, k, mesh.first)
+
+
+def tree_merge_topk(db, queries, k: int, mesh: Mesh, *, ici_axis: str = "chip",
+                    dcn_axis: str = "host", impl: str = "auto", n_valid=None,
+                    db_scale=None):
+    """Two-level top-k over rows sharded across BOTH mesh axes (the JAX
+    package's multi-host layout): shard (host, chip) holds the rows of
+    shard host * chips + chip; each host's chips merge on the host's first
+    device, then the hosts' winners merge on the mesh's first device. The
+    same result as one merge of every shard."""
+    del impl
+    shards = as_shards(db, mesh, (dcn_axis, ici_axis))
+    cands = shard_candidates(shards, as_queries(queries), k, _dot_scan(k, db_scale),
+                             n_valid=n_valid)
+    chips = mesh.shape[ici_axis]
+    hosts = [merge_topk(cands[h * chips:(h + 1) * chips], k, shards.parts[h * chips].device)
+             for h in range(mesh.shape[dcn_axis])]
+    return merge_topk(hosts, k, mesh.first)
 
 
 def apply_score_threshold(scores: torch.Tensor, idx: torch.Tensor,

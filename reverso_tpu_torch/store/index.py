@@ -8,7 +8,15 @@ searches best_score / discover / context), the sign-packed binary and the
 product-quantized candidate indexes (`BinaryIndex`, `PQIndex`, rescored by
 the engine), and the MaxSim index of a multivector space
 (`MultiVecIndex`). On the host: `HostIndex`, the native C++ scan
-(`native.py`), which returns numpy arrays."""
+(`native.py`), which returns numpy arrays.
+
+With a `mesh=` of more than one device (`parallel/sharding.py`), the
+device indexes row-shard their matrix over the mesh's `axis` in
+contiguous ranges (MaxSim keeps each point whole in one shard), each
+shard on its device, and every search runs each shard's scan there
+(the same kernels) and merges the shards' candidates by (-score, global
+id) on the mesh's first device: the single-device result. A mesh of
+one device takes the single-device route on that device."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -16,17 +24,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import kernels
 from ..native import cpu_topk
-from ..ops.binary import binary_topk, pack_signs
-from ..ops.l1 import manhattan_topk, manhattan_topk_host
-from ..ops.multivec import maxsim_topk, seg_ids_of
-from ..ops.pq import pq_encode, pq_topk, train_pq
+from ..ops.binary import binary_topk, pack_signs, sharded_binary_topk
+from ..ops.l1 import manhattan_topk, manhattan_topk_host, sharded_manhattan_topk
+from ..ops.multivec import (maxsim_topk, seg_ids_of, shard_multivec_layout,
+                            sharded_maxsim_topk)
+from ..ops.pq import pq_encode, pq_topk, sharded_pq_topk, train_pq
 from ..ops.recommend import (best_score_topk, best_score_topk_host, context_topk,
-                             context_topk_host, discover_topk, discover_topk_host)
-from ..ops.topk import (INT8_D_MAX, K_CAP, as_row_mask, cosine_topk,
-                        cosine_topk_int8_exact, cosine_topk_int8_xla,
-                        int8_clip_bound, log)
+                             context_topk_host, discover_topk, discover_topk_host,
+                             sharded_best_score_topk, sharded_context_topk,
+                             sharded_discover_topk)
+from ..ops.topk import as_row_mask, dot_topk, int8_clip_bound, sharded_cosine_topk
+from ..parallel.sharding import Shards, empty_shards, shard_rows
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 _CHUNK = 65536   # host rows per upload step
@@ -57,11 +66,39 @@ def _empty(qn: int, k: int, device):
             torch.full((qn, k), -1, dtype=torch.int32, device=device))
 
 
-def _check_layout(mesh) -> None:
+def placement(mesh, device):
+    """(mesh or None, device) of an index: a mesh of more than one device
+    shards it, with results on the mesh's first device; a mesh of one
+    device places it on that device (the JAX package's `mesh.devices.size
+    > 1` rule); no mesh, on `device` (default CUDA)."""
+    from ..models.pe import resolve_device
+
+    if mesh is None:
+        return None, resolve_device(device)
+    return (mesh if mesh.size > 1 else None), mesh.first
+
+
+def zero_rows(n: int, width: int, dtype, device, mesh=None, axis: str = "data"):
+    """Zeroed [n, width] rows on `device`, or row-sharded over the mesh."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded indexes are not ported yet (multi-GPU, ROADMAP queue 1 "
-            "item 21)")
+        return empty_shards(n, width, dtype, mesh, axis)
+    return torch.zeros((n, width), dtype=dtype, device=device)
+
+
+def write_rows(dst, lo: int, x: torch.Tensor) -> None:
+    """dst[lo:lo + len(x), :x.shape[1]] = x for a tensor or `Shards` (each
+    shard takes the part of x in its range, copied to its device)."""
+    if not isinstance(dst, Shards):
+        dst[lo:lo + len(x), :x.shape[1]] = x
+        return
+    for part, start in zip(dst.parts, dst.starts):
+        a, b = max(lo, start), min(lo + len(x), start + len(part))
+        if a < b:
+            part[a - start:b - start, :x.shape[1]] = x[a - lo:b - lo].to(part.device)
+
+
+def nbytes_of(matrix) -> int:
+    return matrix.nbytes if isinstance(matrix, Shards) else matrix.numel() * matrix.element_size()
 
 
 def _queries(queries, device) -> torch.Tensor:
@@ -176,22 +213,33 @@ class MultiVecIndex:
     device-resident segment-id vector. `search` takes [d] / [Tq, d]
     queries or lists of them and chunks the query batch so the [Q·Tq, M]
     score block stays under `_BLOCK_BYTES`; it returns host arrays, as
-    the JAX package's does."""
+    the JAX package's does. With a multi-device `mesh`, points shard in
+    contiguous ranges over `axis`, each kept whole
+    (`ops.multivec.shard_multivec_layout`), and every search runs the
+    per-shard scan + merge (`sharded_maxsim_topk`)."""
 
     # bound on the [Q·Tq, M] f32 intermediate per launch
     _BLOCK_BYTES = 512 * 1024 * 1024
 
     def __init__(self, sub_vectors: np.ndarray, indptr: np.ndarray, *,
-                 dtype: str = "bfloat16", mesh=None, device=None):
-        from ..models.pe import resolve_device
-
-        _check_layout(mesh)
+                 dtype: str = "bfloat16", mesh=None, axis: str = "data", device=None):
         subs = np.asarray(sub_vectors, np.float32)
         self.indptr = np.asarray(indptr, np.int64)
         self.n_valid = len(self.indptr)
         self.dim = subs.shape[1] if subs.ndim == 2 and subs.size else 0
-        self.device = resolve_device(device)
+        self.mesh, self.device = placement(mesh, device)
+        if not len(subs):
+            self.mesh = None
+        self.axis = axis
         self._dtype = torch.bfloat16 if dtype == "int8" else _DTYPES[dtype]
+        if self.mesh is not None:
+            devs = self.mesh.shard_devices((axis,))
+            self._layout = shard_multivec_layout(self.indptr, len(devs))
+            self.matrix = [torch.from_numpy(subs[a:b]).to(dev, self._dtype)
+                           for (_, _, a, b, _), dev in zip(self._layout, devs)]
+            self._seg_ids = [torch.from_numpy(seg_ids_of(ptr)).to(dev)
+                             for (*_, ptr), dev in zip(self._layout, devs)]
+            return
         self.matrix = torch.zeros((len(subs), max(self.dim, 1)), dtype=self._dtype,
                                   device=self.device)
         for lo, x in host_chunks(subs, self.device):
@@ -202,7 +250,8 @@ class MultiVecIndex:
 
     @property
     def nbytes(self) -> int:
-        return self.matrix.numel() * self.matrix.element_size()
+        parts = self.matrix if self.mesh is not None else [self.matrix]
+        return sum(nbytes_of(t) for t in parts)
 
     def search(self, queries, k: int, *, row_mask=None, **_):
         if isinstance(queries, (list, tuple)):
@@ -215,6 +264,14 @@ class MultiVecIndex:
                     np.zeros((0, k), np.int32))
         tq = max(1 if np.asarray(a).ndim == 1 else len(np.asarray(a))
                  for a in qlist)
+        if self.mesh is not None:
+            m = max(max(len(t) for t in self.matrix), 1)
+            per_q = max(1, self._BLOCK_BYTES // (4 * tq * m))
+            outs = [sharded_maxsim_topk(self.matrix, self._layout, qlist[lo:lo + per_q], k,
+                                        self.mesh, row_mask=row_mask, seg_ids=self._seg_ids)
+                    for lo in range(0, len(qlist), per_q)]
+            return (np.concatenate([s.cpu().numpy() for s, _ in outs]),
+                    np.concatenate([i.cpu().numpy() for _, i in outs]))
         m = max(len(self.matrix), 1)
         per_q = max(1, self._BLOCK_BYTES // (4 * tq * m))
         outs = [maxsim_topk(self.matrix, self.indptr, qlist[lo:lo + per_q], k,
@@ -249,19 +306,18 @@ class DeviceIndex:
     rows at a twentieth of the rate (PERF.md section 6); zero columns add
     nothing to a dot or an L1 sum. The kernels take any row count, so the
     row count is not padded. Rebuild (one host->device copy) after
-    appending to the backing store.
+    appending to the backing store. With a multi-device `mesh` the rows
+    shard over `axis` (`placement`; a `Shards` in `matrix`) and every
+    search is the sharded scan + merge on the mesh's first device.
     """
 
-    def __init__(self, vectors: np.ndarray, *, mesh=None,
+    def __init__(self, vectors: np.ndarray, *, mesh=None, axis: str = "data",
                  dtype: str = "bfloat16", distance: str = "cosine",
                  device=None, int8_quantile: float = 0.0):
-        _check_layout(mesh)
         if dtype not in _DTYPES:
             raise NotImplementedError(
                 f"dtype={dtype!r}: the exact index holds bfloat16, float32 or "
                 f"int8 rows")
-        from ..models.pe import resolve_device
-
         if distance in ("euclid", "manhattan") and dtype == "int8":
             dtype = "bfloat16"
         vectors = np.asarray(vectors)
@@ -271,12 +327,13 @@ class DeviceIndex:
         self.n_valid = n
         self._cols = d
         self.dim = d + 1 if euclid else d
-        self.device = resolve_device(device)
+        self.mesh, self.device = placement(mesh, device)
+        self.axis = axis
         self._dtype = _DTYPES[dtype]
         self.scale = None
         per = 16 // self._dtype.itemsize
-        width = -(-self.dim // per) * per
-        self.matrix = torch.zeros((n, width), dtype=self._dtype, device=self.device)
+        self._width = -(-self.dim // per) * per
+        self.matrix = zero_rows(n, self._width, self._dtype, self.device, self.mesh, axis)
         if self._dtype == torch.int8:
             # round(x * (127 / amax)) in fp32 (the JAX package's host math)
             amax = int8_clip_bound(vectors[:max(n, 1)], int8_quantile)
@@ -285,13 +342,13 @@ class DeviceIndex:
         for lo, x in host_chunks(vectors, self.device):
             if euclid:
                 x = torch.cat([x, (x * x).sum(dim=1, keepdim=True)], dim=1)
-            self.matrix[lo:lo + len(x), :self.dim] = (
-                torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
-                if self._dtype == torch.int8 else x.to(self._dtype))
+            write_rows(self.matrix, lo,
+                       torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+                       if self._dtype == torch.int8 else x.to(self._dtype))
 
     @property
     def nbytes(self) -> int:
-        return self.matrix.numel() * self.matrix.element_size()
+        return nbytes_of(self.matrix)
 
     def search(self, queries, k: int, *, row_mask=None, **_):
         """Exact top-k under the index distance. queries: [Q, d] or [d]
@@ -308,6 +365,9 @@ class DeviceIndex:
             return _empty(q.shape[0], k, self.device)
         mask = as_row_mask(row_mask, self.n_valid, self.device)
         if self.distance == "manhattan":
+            if self.mesh is not None:
+                return sharded_manhattan_topk(self.matrix, self._widen(q), k, self.mesh,
+                                              n_valid=self.n_valid, row_mask=mask)
             return manhattan_topk(self.matrix, self._widen(q), k, n_valid=self.n_valid,
                                   row_mask=mask)
         if self.distance != "euclid":
@@ -324,24 +384,21 @@ class DeviceIndex:
         if q.ndim != 2 or q.shape[1] != self._cols:
             raise ValueError(f"vectors {tuple(q.shape)} do not match the index's "
                              f"d = {self._cols}")
-        return torch.nn.functional.pad(q, (0, self.matrix.shape[1] - q.shape[1]))
+        return torch.nn.functional.pad(q, (0, self._width - q.shape[1]))
 
     def _search_dot(self, q: torch.Tensor, k: int, mask):
-        if self._dtype != torch.int8:
-            return cosine_topk(self.matrix, q, k, n_valid=self.n_valid, row_mask=mask)
-        if k > K_CAP or self.dim > INT8_D_MAX:
-            if self.device.type == "cuda":
-                log.info(f"int8 k={k} d={self.dim} past the kernel's bounds: chunked scan")
-                kernels.plain_dispatches["int8_above_cap_or_wide"] += 1
-            return cosine_topk_int8_xla(self.matrix, self.scale, q, k,
-                                        n_valid=self.n_valid, row_mask=mask)
-        return cosine_topk_int8_exact(self.matrix, self.scale, q, k,
-                                      n_valid=self.n_valid, row_mask=mask)
+        if self.mesh is not None:
+            return sharded_cosine_topk(self.matrix, q, k, self.mesh, self.axis,
+                                       n_valid=self.n_valid, db_scale=self.scale,
+                                       row_mask=mask)
+        return dot_topk(self.matrix, q, k, n_valid=self.n_valid, row_mask=mask,
+                        db_scale=self.scale)
 
-    def _combined_search(self, parts, n_static: int, k: int, row_mask, fn):
+    def _combined_search(self, parts, n_static: int, k: int, row_mask, fn, sharded_fn):
         """Shared launch path of the example-combine searches (best_score /
         discover / context): stack the example rows on the device, apply
-        the row mask, run `fn(matrix, examples, n_static, k, ...)`."""
+        the row mask, run `fn(matrix, examples, n_static, k, ...)`, or
+        `sharded_fn` over the shards on a mesh."""
         if self.distance in ("euclid", "manhattan"):
             # euclid's matrix is the [x, ||x||^2] augmentation (example
             # rows are plain [d] vectors), and the combine formulas are
@@ -352,8 +409,12 @@ class DeviceIndex:
         ex = self._widen(torch.from_numpy(np.concatenate(parts)).to(self.device))
         if self.n_valid == 0:
             return _empty(1, k, self.device)
+        mask = as_row_mask(row_mask, self.n_valid, self.device)
+        if self.mesh is not None:
+            return sharded_fn(self.matrix, ex, n_static, k, self.mesh, self.axis,
+                              n_valid=self.n_valid, db_scale=self.scale, row_mask=mask)
         return fn(self.matrix, ex, n_static, k, db_scale=self.scale, n_valid=self.n_valid,
-                  row_mask=as_row_mask(row_mask, self.n_valid, self.device))
+                  row_mask=mask)
 
     def best_score(self, positives, negatives=None, k: int = 10, *,
                    row_mask=None):
@@ -372,7 +433,8 @@ class DeviceIndex:
             neg = np.atleast_2d(np.asarray(negatives, np.float32))
             if len(neg):
                 parts.append(neg)
-        return self._combined_search(parts, n_pos, k, row_mask, best_score_topk)
+        return self._combined_search(parts, n_pos, k, row_mask, best_score_topk,
+                                     sharded_best_score_topk)
 
     def discover(self, target, pairs_pos=None, pairs_neg=None,
                  k: int = 10, *, row_mask=None):
@@ -389,7 +451,8 @@ class DeviceIndex:
             raise ValueError(
                 f"discover pairs must match: {len(pos)} positives vs "
                 f"{len(neg)} negatives")
-        return self._combined_search([t, pos, neg], len(pos), k, row_mask, discover_topk)
+        return self._combined_search([t, pos, neg], len(pos), k, row_mask, discover_topk,
+                                     sharded_discover_topk)
 
     def context(self, pairs_pos, pairs_neg, k: int = 10, *, row_mask=None):
         """qdrant context search: rank by sum of min(0, s_pos - s_neg)
@@ -400,7 +463,8 @@ class DeviceIndex:
             raise ValueError(
                 f"context needs matching non-empty pairs: {len(pos)} "
                 f"positives vs {len(neg)} negatives")
-        return self._combined_search([pos, neg], len(pos), k, row_mask, context_topk)
+        return self._combined_search([pos, neg], len(pos), k, row_mask, context_topk,
+                                     sharded_context_topk)
 
 
 class BinaryIndex:
@@ -415,33 +479,56 @@ class BinaryIndex:
     computes it), not zero: q.x = q.mean + q.(x - mean), and the first term
     is constant per query. Planes are ceil(d/8) bytes wide (the JAX
     package rounds them up to 128-byte lane tiles; at d = 1024 the bytes
-    are identical)."""
+    are identical). A multi-device `mesh` shards the packed rows over
+    `axis` (`sharded_binary_topk`)."""
 
-    def __init__(self, vectors: np.ndarray, *, mesh=None, device=None):
-        _check_layout(mesh)
-        from ..models.pe import resolve_device
-
+    def __init__(self, vectors: np.ndarray, *, mesh=None, axis: str = "data", device=None):
         v = np.asarray(vectors)
         self.n_valid = len(v)
         self.dim = v.shape[1] if v.ndim == 2 and v.size else 0
-        self.device = resolve_device(device)
+        self.mesh, self.device = placement(mesh, device)
+        self.axis = axis
         self.center = (v.mean(axis=0, dtype=np.float64).astype(np.float32)
                        if self.n_valid else np.zeros((max(self.dim, 1),), np.float32))
         w = max((self.dim + 7) // 8, 1)
-        self.matrix = torch.zeros((self.n_valid, w), dtype=torch.uint8, device=self.device)
+        self.matrix = zero_rows(self.n_valid, w, torch.uint8, self.device, self.mesh, axis)
         center = torch.from_numpy(self.center).to(self.device)
         for lo, x in host_chunks(v, self.device):
-            self.matrix[lo:lo + len(x)] = pack_signs(x - center, plane_width=w)
+            write_rows(self.matrix, lo, pack_signs(x - center, plane_width=w))
 
     @property
     def nbytes(self) -> int:
-        return self.matrix.numel() * self.matrix.element_size()
+        return nbytes_of(self.matrix)
 
     @classmethod
-    def from_chunks(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "BinaryIndex.from_chunks (device build from a virtual corpus) is not "
-            "ported yet (a later capacity slice, ROADMAP queue 1 item 14)")
+    def from_chunks(cls, chunk_fn, n: int, d: int, *, mesh=None, axis: str = "data",
+                    chunk: int = 1 << 19, center=None, device=None) -> "BinaryIndex":
+        """Build from a corpus that never exists as one array:
+        `chunk_fn(lo, rows)` returns a [rows, d] float block on the
+        index's device (a seeded generator, a staged disk read). Two
+        passes: the per-dimension mean (fp32 sums a chunk, accumulated in
+        float64; skipped when `center` is given), then each chunk centered,
+        sign-packed and written into its rows of the uint8 matrix (or of
+        its shards); each block is dropped before the next is made. The
+        bits equal the host constructor's at the same center."""
+        self = cls.__new__(cls)
+        self.n_valid, self.dim = int(n), int(d)
+        self.mesh, self.device = placement(mesh, device)
+        self.axis = axis
+        if center is None:
+            sums = np.zeros(d, np.float64)
+            for lo in range(0, n, chunk):
+                sums += chunk_fn(lo, min(chunk, n - lo)).float().sum(dim=0).double().cpu().numpy()
+            center = (sums / max(n, 1)).astype(np.float32)
+        self.center = np.asarray(center, np.float32)
+        w = max((d + 7) // 8, 1)
+        self.matrix = zero_rows(n, w, torch.uint8, self.device, self.mesh, axis)
+        cdev = torch.from_numpy(self.center).to(self.device)
+        for lo in range(0, n, chunk):
+            x = chunk_fn(lo, min(chunk, n - lo)).to(self.device)
+            write_rows(self.matrix, lo, pack_signs(x.float() - cdev, plane_width=w))
+            del x
+        return self
 
     def search(self, queries, k: int, *, row_mask=None, **_):
         """Candidate top-k under the binary proxy score; device tensors
@@ -449,8 +536,11 @@ class BinaryIndex:
         q = _queries(queries, self.device)
         if self.n_valid == 0:
             return _empty(q.shape[0], k, self.device)
-        return binary_topk(self.matrix, q, k, self.dim, n_valid=self.n_valid,
-                           row_mask=as_row_mask(row_mask, self.n_valid, self.device))
+        mask = as_row_mask(row_mask, self.n_valid, self.device)
+        if self.mesh is not None:
+            return sharded_binary_topk(self.matrix, q, k, self.dim, self.mesh, self.axis,
+                                       n_valid=self.n_valid, row_mask=mask)
+        return binary_topk(self.matrix, q, k, self.dim, n_valid=self.n_valid, row_mask=mask)
 
 
 class PQIndex:
@@ -466,16 +556,14 @@ class PQIndex:
     skip training; codes covering only a prefix of the rows extend by
     encoding the tail against the cached codebooks."""
 
-    def __init__(self, vectors: np.ndarray, *, m: int = 0, mesh=None,
+    def __init__(self, vectors: np.ndarray, *, m: int = 0, mesh=None, axis: str = "data",
                  iters: int = 25, sample: int = 65536, seed: int = 0,
                  codebooks=None, codes=None, device=None):
-        from ..models.pe import resolve_device
-
-        _check_layout(mesh)
         v = np.asarray(vectors, np.float32)
         self.n_valid = len(v)
         self.dim = v.shape[1] if v.ndim == 2 and v.size else 0
-        self.device = resolve_device(device)
+        self.mesh, self.device = placement(mesh, device)
+        self.axis = axis
         if m <= 0:
             m = default_pq_m(self.dim)
         if self.dim and self.dim % m != 0:
@@ -506,13 +594,13 @@ class PQIndex:
             tail = pq_encode(v[done:], self.codebooks, device=self.device)
             host_codes = np.concatenate([codes, tail]) if done else tail
         self._host_codes = host_codes
-        self.matrix = torch.from_numpy(host_codes).to(self.device)
+        self.matrix = (shard_rows(host_codes, self.mesh, axis) if self.mesh is not None
+                       else torch.from_numpy(host_codes).to(self.device))
         self._cb_dev = torch.from_numpy(self.codebooks).to(self.device)
 
     @property
     def nbytes(self) -> int:
-        return (self.matrix.numel() * self.matrix.element_size()
-                + self._cb_dev.numel() * self._cb_dev.element_size())
+        return nbytes_of(self.matrix) + nbytes_of(self._cb_dev)
 
     def save_cache(self, path: str) -> None:
         """Persist codebooks + codes (the slow-to-recompute halves)."""
@@ -521,7 +609,7 @@ class PQIndex:
 
     @classmethod
     def load_cache(cls, vectors: np.ndarray, path: str, *,
-                   m: int = 0, mesh=None, device=None):
+                   m: int = 0, mesh=None, axis: str = "data", device=None):
         """Rebuild from a save_cache file (either package's); codes
         covering a PREFIX of `vectors` extend by encoding the tail
         (appends never retrain). Returns None when the cache does not fit
@@ -536,7 +624,7 @@ class PQIndex:
         if len(codes) > len(vectors):
             return None
         try:
-            return cls(vectors, m=cb.shape[0], mesh=mesh, codebooks=cb,
+            return cls(vectors, m=cb.shape[0], mesh=mesh, axis=axis, codebooks=cb,
                        codes=codes, device=device)
         except ValueError:
             return None
@@ -547,6 +635,9 @@ class PQIndex:
         q = _queries(queries, self.device)
         if self.n_valid == 0:
             return _empty(q.shape[0], k, self.device)
+        if self.mesh is not None:
+            return sharded_pq_topk(self.matrix, self._cb_dev, q, k, self.dim, self.mesh,
+                                   self.axis, n_valid=self.n_valid, row_mask=row_mask)
         return pq_topk(self.matrix, self._cb_dev, q, k, n_valid=self.n_valid,
                        row_mask=row_mask)
 

@@ -45,11 +45,11 @@ def save_train_state(path: str, state: TrainState, *, force: bool = True) -> Non
 
 def restore_train_state(path: str, template: TrainState, mesh=None) -> TrainState:
     """Load the checkpoint at `path` onto the template's device, with the
-    template's parameter names, shapes and dtypes. A mesh raises: meshes
-    are ROADMAP queue 1 item 21."""
+    template's parameter names, shapes and dtypes. A mesh raises: the
+    trainer on a mesh is ROADMAP queue 1 item 21b."""
     if mesh is not None:
         raise NotImplementedError("restore_train_state: meshes are not ported yet "
-                                  "(ROADMAP queue 1 item 21)")
+                                  "(ROADMAP queue 1 item 21b)")
     blob = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     device = template.t.device
     params = {}

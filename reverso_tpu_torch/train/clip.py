@@ -3,7 +3,7 @@
 The JAX package's trainer (`reverso_tpu/train/clip.py`) is a DP x TP
 trainer on a mesh. This port trains on one device: `mesh=None` takes the
 caller's device (default CUDA), and any other mesh raises, naming ROADMAP
-queue 1 item 21 (meshes), as `store/index.py` does for sharded layouts.
+queue 1 item 21b (the trainer on a mesh; the indexes shard over meshes).
 `param_partition_spec` still returns the tensor-parallel split per
 parameter, as data for that item.
 
@@ -93,7 +93,7 @@ class ClipTrainer:
     """SigLIP trainer for the vision tower on one device.
 
     The JAX package's signature, with `mesh=None` for the caller's
-    `device` (default CUDA); a mesh raises (ROADMAP queue 1 item 21).
+    `device` (default CUDA); a mesh raises (ROADMAP queue 1 item 21b).
     `use_flash` and the mesh axis names are accepted and ignored. AdamW with betas (0.9, 0.999),
     eps 1e-8 and `weight_decay` on the tower, none on t and b (optax's
     mask); t starts at log 10, b at -10."""
@@ -105,7 +105,7 @@ class ClipTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "ClipTrainer: meshes (data and tensor parallel training) are "
-                "not ported yet (ROADMAP queue 1 item 21); pass mesh=None")
+                "not ported yet (ROADMAP queue 1 item 21b); pass mesh=None")
         self.cfg = cfg
         self.device = resolve_device(device)
         module = VisionTransformer(cfg)

@@ -1310,3 +1310,69 @@ def test_grad_raises_on_kernels_without_backward(dev):
     with torch.inference_mode():
         assert flash_attention(q, q, q).shape == q.shape
         assert fused_mlp(x, w1, b1, w2, b2, quant=True).shape == x.shape
+
+
+def _sharded_vs_single(devices):
+    """Every sharded scan over a mesh of `devices` against the single-device
+    scan on cuda:0: K1 (bf16, fp32), K2, K9, K10 and K11 (bf16, int8) on
+    each shard with its own valid rows, ids and scores bit for bit; the
+    kernels' launches counted once per shard that holds rows."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MeshConfig
+    from reverso_tpu_torch.ops.binary import binary_topk, pack_signs, sharded_binary_topk
+    from reverso_tpu_torch.ops.topk import (cosine_topk, cosine_topk_int8_exact,
+                                            quantize_db_int8, sharded_cosine_topk)
+    from reverso_tpu_torch.parallel import make_mesh
+    from reverso_tpu_torch.store import IVFIndex
+
+    mesh = make_mesh(MeshConfig(), devices=devices)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, d = 20_003, 200
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    q = x[:37] + 0.02 * torch.randn(37, d, generator=gen, device="cuda")
+    mask = torch.rand(n, generator=gen, device="cuda") < 0.3
+    shards = len(devices)
+    for db, kw in ((x.to(torch.bfloat16), {}), (x, {}), (x.to(torch.bfloat16), dict(row_mask=mask))):
+        kernels.reset_counts()
+        s2, i2 = sharded_cosine_topk(db, q, 10, mesh, **kw)
+        counter = "topk_masked" if kw else "topk_stream"
+        assert kernels.launches[counter] == shards
+        s1, i1 = cosine_topk(db, q, 10, **kw)
+        assert torch.equal(i1, i2.to(i1.device)) and torch.equal(s1, s2.to(s1.device))
+    v8, scale = quantize_db_int8(x)
+    kernels.reset_counts()
+    s2, i2 = sharded_cosine_topk(v8, q, 10, mesh, db_scale=scale)
+    assert kernels.launches["topk_int8"] == shards
+    s1, i1 = cosine_topk_int8_exact(v8, scale, q, 10)
+    assert torch.equal(i1, i2.to(i1.device)) and torch.equal(s1, s2.to(s1.device))
+    packed = pack_signs(x)
+    kernels.reset_counts()
+    s2, i2 = sharded_binary_topk(packed, q, 10, d, mesh)
+    assert kernels.launches["topk_binary"] == shards
+    s1, i1 = binary_topk(packed, q, 10, d)
+    assert torch.equal(i1, i2.to(i1.device)) and torch.equal(s1, s2.to(s1.device))
+    rows = x.cpu().numpy()
+    for dtype, spill in (("bfloat16", 0.0), ("int8", 0.1)):
+        kw = dict(n_clusters=64, dtype=dtype, seed=0, spill=spill)
+        single = IVFIndex(rows, device="cuda:0", **kw)
+        sharded = IVFIndex(rows, mesh=mesh, **kw)
+        for nprobe, m in ((4, None), (64, None), (8, mask.cpu().numpy())):
+            kernels.reset_counts()
+            s2, i2 = sharded.search(q, 10, nprobe=nprobe, row_mask=m)
+            assert kernels.launches["ivf_scan"] == shards
+            s1, i1 = single.search(q, 10, nprobe=nprobe, row_mask=m)
+            assert torch.equal(i1, i2.to(i1.device)) and torch.equal(s1, s2.to(s1.device))
+
+
+def test_sharded_scans_on_one_card_equal_the_single_scan(dev):
+    """Four shards on one card (the mesh names cuda:0 four times)."""
+    _sharded_vs_single(["cuda:0"] * 4)
+
+
+def test_sharded_scans_across_cards_equal_the_single_scan(dev):
+    """One shard per card: each shard's launches under its own current
+    device, the candidates copied to cuda:0 and merged there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    _sharded_vs_single([f"cuda:{i}" for i in range(torch.cuda.device_count())])

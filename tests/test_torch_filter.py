@@ -135,21 +135,64 @@ def test_pq_store_searches_through_ivf(store_root):
     np.testing.assert_allclose(ts[fin], js[fin], atol=1e-6)
 
 
-def test_unported_paths_name_their_slice(store_root):
+def test_unported_paths_name_their_slice(store_root, monkeypatch):
+    """What this test once held as raising now runs: the engines on a mesh
+    (the JAX engine on its 8 CPU devices, the port's on 8 CPU shards) give
+    the same filtered searches, exact and IVF, and the device builds from
+    the store's rows (`IVFIndex.from_chunks`, `BinaryIndex.from_chunks`)
+    and a sharded `IVFIndex(mesh=)` search like the JAX package's."""
+    import jax.numpy as jnp
+    import torch
+
+    from reverso_tpu.parallel import make_mesh as jax_make_mesh
+    from reverso_tpu.store.index import BinaryIndex as JBinary
+    from reverso_tpu.store.ivf import IVFIndex as JIVF
+    from reverso_tpu_torch.config import MeshConfig
+    from reverso_tpu_torch.parallel import make_mesh, sharding
+    from reverso_tpu_torch.store import BinaryIndex, IVFIndex
+
     root, q, _ = store_root
-    _, port = _engines(root)
-    port.load_database("db")
-    from reverso_tpu_torch.store import BinaryIndex
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BinaryIndex.from_chunks(None, 10, D)
-    from reverso_tpu_torch.store import IVFIndex
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFIndex.from_chunks(None, 10, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFIndex(q, n_clusters=2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Reverso(default_config().replace(store=StoreConfig(root_dir=root)),
-                use_mesh=True, device="cpu")
+    monkeypatch.setattr(sharding, "local_devices", lambda: [torch.device("cpu")] * 8)
+    for dtype, search, tol in (CELLS[0], CELLS[3]):
+        jcfg = jax_default_config().replace(
+            store=JaxStoreConfig(root_dir=root, dtype=dtype),
+            search=dataclasses.replace(JaxSearchConfig(), **search))
+        tcfg = default_config().replace(
+            store=StoreConfig(root_dir=root, dtype=dtype),
+            search=dataclasses.replace(SearchConfig(), **search))
+        jax_eng = JaxReverso(jcfg, use_mesh=True)
+        port = Reverso(tcfg, use_mesh=True, device="cpu")
+        assert port.mesh.shape == dict(jax_eng.mesh.shape) == {"data": 8, "model": 1}
+        assert "Loaded" in jax_eng.load_database("db") and "Loaded" in port.load_database("db")
+        for filt in FILTERS[:2]:
+            js, ji = (np.asarray(a) for a in jax_eng.search_batch(q, 10, filter=filt))
+            ts, ti = port.search_batch(q, 10, filter=filt)
+            np.testing.assert_array_equal(ti, ji)
+            fin = np.isfinite(js)
+            np.testing.assert_allclose(ts[fin], js[fin], atol=tol)
+    x = np.asarray(VectorStore.open(root, "db").vectors())
+    emb = jnp.asarray(x)
+    jivf = JIVF.from_chunks(lambda lo, rows: emb[lo:lo + rows], N, D, chunk=512,
+                            n_clusters=16, dtype="int8", seed=0)
+    ivf = IVFIndex.from_chunks(lambda lo, rows: torch.from_numpy(x[lo:lo + rows]), N, D,
+                               chunk=512, n_clusters=16, dtype="int8", seed=0, device="cpu")
+    jrows = np.asarray(jivf.row_ids)
+    # the JAX layout's gap rows (-1) align its clusters to 8 rows
+    np.testing.assert_array_equal(ivf.row_ids.numpy(), jrows[jrows >= 0])
+    np.testing.assert_array_equal(ivf.search(q, 10, nprobe=4)[1].numpy(),
+                                  np.asarray(jivf.search(q, 10, nprobe=4)[1]))
+    sharded = IVFIndex(x, n_clusters=16, dtype="float32",
+                       mesh=make_mesh(MeshConfig(), devices=["cpu"] * 8))
+    np.testing.assert_array_equal(
+        sharded.search(q, 10, nprobe=4)[1].numpy(),
+        np.asarray(JIVF(x, n_clusters=16, dtype="float32", mesh=jax_make_mesh())
+                   .search(q, 10, nprobe=4)[1]))
+    binary = BinaryIndex.from_chunks(lambda lo, rows: torch.from_numpy(x[lo:lo + rows]), N, D,
+                                     chunk=512, device="cpu")
+    jbin = JBinary.from_chunks(lambda lo, rows: emb[lo:lo + rows], N, D, chunk=512,
+                               center=binary.center)
+    np.testing.assert_array_equal(binary.search(q, 10)[1].numpy(),
+                                  np.asarray(jbin.search(q, 10)[1]))
 
 
 def _copied_engines(store_root, tmp_path):

@@ -571,9 +571,36 @@ def test_query_batch_other_dtypes_match_jax(tmp_path_factory, pair, dtype):
     same(jax_eng.query_batch(reqs), port.query_batch(reqs), tol=tol)
 
 
-def test_use_mesh_raises_with_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        Reverso(default_config(), use_mesh=True, device="cpu")
+MESH_CASES = ("hybrid_sparse_dense", "plain_vector", "filter_dict", "named_space",
+              "multivector", "recommend_best_score", "discover", "context", "fusion_rrf")
+
+
+def test_use_mesh_raises_with_its_item(tmp_path, pair, monkeypatch):
+    """`use_mesh=True`, which once raised here, runs: the JAX engine on its
+    8 CPU devices and the port's on 8 CPU shards (every visible device
+    replaced by eight CPUs) give the same answers to the hybrid query of
+    `__graft_entry__.py::_dryrun_hybrid_engine` (a sparse branch on the
+    host, the dense branch sharded, RRF) and to the other sharded forms,
+    and the port's mesh engine gives its single engine's answers."""
+    import torch
+
+    from reverso_tpu_torch.parallel import sharding
+
+    _, port_single, x, aux = pair
+    root = str(tmp_path)
+    build_store(root)
+    monkeypatch.setattr(sharding, "local_devices", lambda: [torch.device("cpu")] * 8)
+    jcfg = jax_default_config().replace(store=JaxStoreConfig(root_dir=root, dtype="float32"))
+    tcfg = default_config().replace(store=StoreConfig(root_dir=root, dtype="float32"))
+    jax_eng = JaxReverso(jcfg, text_embedder=FakeTextEmbedder(), use_mesh=True)
+    port = Reverso(tcfg, text_embedder=FakeTextEmbedder(), use_mesh=True, device="cpu")
+    assert port.mesh.shape == dict(jax_eng.mesh.shape)
+    assert "Loaded" in jax_eng.load_database("main") and "Loaded" in port.load_database("main")
+    cases = _q(x, aux)
+    for name in MESH_CASES:
+        t = port.query(**cases[name])
+        same(jax_eng.query(**cases[name]), t, path=name)
+        same(port_single.query(**cases[name]), t, tol=1e-6, path=name)
 
 
 SURFACE = ("query", "query_groups", "query_batch", "recommend", "discover", "scroll",
