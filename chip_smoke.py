@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --copy-soak [ITERS]   # only `copy_soak` (default 100)
+    python3 chip_smoke.py --backward-kernel-times   # phase T's child process
 
 Needs one CUDA card and `nvcc`; exits non-zero without them. Phases, none
 of which catches a failure:
@@ -186,16 +187,19 @@ of which catches a failure:
      loop, and, where OpenCV imports, `video local` and a `build` of its
      frames (the engine's direct calls that check the UI do not count);
   7T. training (T): the backward kernels of K3 and K4 at the training
-     path's shapes, each on its route (bf16 on wgmma + TMA, fp32 and K3's
-     odd head dims on the CUDA cores), held against the autograd of the
-     plain forward and timed beside their library calls, with their
-     device time by kernel and ptxas's registers and spills;
+     path's shapes, each on its route (all on wgmma + TMA: bf16, K3's odd
+     head dims on zero-padded copies, fp32 on the split mode), held
+     against the autograd of the plain forward (fp32 also against the
+     split plain versions) and timed beside their library calls, with
+     their device time by kernel and ptxas's registers and spills;
      `ClipTrainer` at PE-Core-L14-336, 5 AdamW steps on two seeded views
      of B = 16 (the loss finite and falling, K3, K4 and their backward
      kernels 48 times a step, the backward on its wgmma route); a
-     checkpoint restored bit for bit; one step profiled; `reverso-torch
-     train` for 2 steps and `--resume` (`train_run`); its numbers on a
-     line `training (T) numbers: {...}`;
+     checkpoint restored bit for bit; one step profiled; the fp32 tower
+     (`dtype="float32"`), 3 steps on B = 4 a view, every backward on the
+     split routes, its first step held against the plain tower's;
+     `reverso-torch train` for 2 steps and `--resume` (`train_run`); its
+     numbers on a line `training (T) numbers: {...}`;
   7e. K3 and K4 in bf16 at each shape the direct-embed, CLIP loader and
      entry-point paths ran them at, each held against its plain version;
   8. the top-k scans (K1 from the direct-embed and CLIP paths, K1 and K2
@@ -1779,37 +1783,47 @@ def k5_path_shapes(torch, shape_launches: dict) -> list:
     return out
 
 
-def f32_path_shapes(torch, shape_launches: dict, tower_launches: dict) -> tuple:
+def f32_path_shapes(torch, shape_launches: dict, tower_launches: dict,
+                    train_shapes: dict) -> tuple:
     """K4 and K3 in fp32 at each shape their paths ran them at: the
     full-depth fp32 forward (B = 8, T = 4616), the 504 px fp32 reference
-    (K4 at T = 10,376) and the depth-2 parity tower (B = 2, T = 1154; its
-    launches from `tower_launches`), each timed on seeded inputs of that
-    shape (K4 with its weights' parts made once, as the tower does)."""
+    (K4 at T = 10,376), the depth-2 parity tower (B = 2, T = 1154; its
+    launches from `tower_launches`) and phase T's fp32 training run (B =
+    F32_BATCH, T = F32_BATCH x 577; `train_shapes`), each timed on seeded
+    inputs of that shape (K4 with its weights' parts made once, as the
+    tower does); the training run's shapes under autograd, as that run
+    calls them (K3's forward then also writes its log-sum-exp)."""
     from reverso_tpu_torch.ops.attention import flash_attention_heads
     from reverso_tpu_torch.ops.fused_mlp import fused_mlp, split_mlp_weights
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     gen = torch.Generator(device="cuda").manual_seed(23)
     randn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale
-    counts = dict(shape_launches)
-    counts[("fused_mlp_split", (2 * 577, 1024, 4096))] = tower_launches["fused_mlp_split"]
-    counts[("flash_heads_split", (2, 577, 1024, 16))] = tower_launches["flash_heads_split"]
+    counts = collections.Counter(shape_launches)
+    counts[("fused_mlp_split", (2 * 577, 1024, 4096))] += tower_launches["fused_mlp_split"]
+    counts[("flash_heads_split", (2, 577, 1024, 16))] += tower_launches["flash_heads_split"]
+    counts.update(train_shapes)
     mlp, heads = [], []
     for (name, shape), n in sorted(counts.items()):
+        grad = (name, shape) in train_shapes
         if name == "fused_mlp_split":
             t, w, hid = shape
             w1, b1 = randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.02)
             w2, b2 = randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.02)
             parts, x = split_mlp_weights(w1, w2), randn(t, w)
-            mlp.append(dict(shape=f"T={t} W={w} H={hid} fp32", launches=n,
+            if grad:
+                x, w1, b1, w2, b2 = (p.requires_grad_(True) for p in (x, w1, b1, w2, b2))
+            mlp.append(dict(shape=f"T={t} W={w} H={hid} fp32{' (training)' * grad}",
+                            launches=n,
                             ms=cuda_ms(lambda: fused_mlp(x, w1, b1, w2, b2, parts=parts)),
                             bound_ms=mlp_bound(t, w, hid, 4, "float32_split")[0]))
         else:
             b, s, w, h = shape
             cos, sin = (torch.from_numpy(a).cuda()
                         for a in rope_2d_tables(int(np.sqrt(s - 1)), w // h))
-            q, k, v = randn(b, s, w), randn(b, s, w), randn(b, s, w)
-            heads.append(dict(shape=f"B={b} S={s} W={w} H={h} fp32 RoPE", launches=n,
+            q, k, v = (randn(b, s, w).requires_grad_(grad) for _ in range(3))
+            heads.append(dict(shape=f"B={b} S={s} W={w} H={h} fp32 RoPE"
+                                    f"{' (training: with lse)' * grad}", launches=n,
                               ms=cuda_ms(lambda: flash_attention_heads(q, k, v, heads=h,
                                                                        cos=cos, sin=sin)),
                               bound_ms=heads_bound(b, s, w, h, 4, "float32_split")[0]))
@@ -2011,10 +2025,11 @@ REDESIGNED = {"flash_heads": 5, "flash_attn": 5, "flash_attn_relbias": 6, "fused
               "topk_binary": 8, "topk_int8": 9, "topk_int8_rows": 9, "flash_attn_f32": 10,
               "flash_attn_relbias_f32": 10, "fused_mlp_f32": 11, "flash_heads_f32": 11,
               "topk_stream_f32": 12, "ivf_scan": 15, "flash_heads_bwd": 18,
-              "fused_mlp_bwd": 18}
+              "fused_mlp_bwd": 18, "flash_heads_bwd_f32": 20, "fused_mlp_bwd_f32": 20}
 OTHER_FUNCTION = {"flash_heads": "library call without RoPE",
                   "flash_heads_f32": "library call without RoPE",
-                  "flash_heads_bwd": "library call without RoPE"}
+                  "flash_heads_bwd": "library call without RoPE",
+                  "flash_heads_bwd_f32": "library call without RoPE"}
 
 
 def sync_ms(torch, fn, iters: int = 3) -> float:
@@ -4379,8 +4394,8 @@ def mlp_bwd_bound(t: int, w: int, hid: int, itemsize: int, dtype: str,
     """K4's backward's least time at [T, W] -> H -> W. The whole gradient:
     x, dY, W1, b1 and W2 read, dx, dW1, db1, dW2 and db2 written once; five
     products (z, dY W2, dW2, dW1, dx), 10 T W H operations. The kernel alone
-    (`rv_fused_mlp_bwd`): x, dY, W1, b1 and W2 read, h and dz written; two
-    products, 4 T W H."""
+    (`rv_fused_mlp_bwd_tc`, `rv_fused_mlp_bwd_split`): x, dY, W1, b1 and W2
+    read, h and dz written; two products, 4 T W H."""
     reads = 2 * t * w + 2 * w * hid + hid
     if kernel_only:
         return bound((reads + 2 * t * hid) * itemsize, 4 * t * w * hid, dtype)
@@ -4404,8 +4419,9 @@ def ptxas_usage(source: str, namespace: str) -> dict:
         if not m:
             continue
         end = m.end() + int(m.group(1))   # the kernel's name, then its template arguments
-        targ = re.match(r"ILi(\d+)E", fn[end:])
-        name = fn[m.end():end] + (f"<{targ.group(1)}>" if targ else "")
+        targ = re.match(r"I((?:Li\d+E)+)E", fn[end:])
+        args = re.findall(r"Li(\d+)E", targ.group(1)) if targ else []
+        name = fn[m.end():end] + (f"<{', '.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
@@ -4416,10 +4432,17 @@ def ptxas_usage(source: str, namespace: str) -> dict:
     return out
 
 
-def kernel_times(torch, fn, namespace: str, calls: int = 5) -> dict:
-    """Device ms per call of each kernel whose name holds `namespace`, over
-    `calls` profiled calls of `fn` (after a warm-up call), by
-    `torch.profiler`."""
+def kernel_times(torch, fn, call_ms: float, calls: int = 5) -> tuple:
+    """Device ms per call of each kernel (and memset or copy) that `fn`
+    launches, over `calls` profiled calls (after a warm-up call), by
+    `torch.profiler`, held against `call_ms`, the same call's CUDA-event
+    median: the sum per call must lie within KERNEL_SUM_RANGE of it (the
+    launch gaps take the rest); a sum outside the range gives None with the
+    reason instead of times. Late in the whole script a session has come
+    back with none or only part of a call's device events (in several
+    runs on an H100), so phase T takes them in a process of its own
+    (`backward_kernel_times`). The session idles 50 ms at both ends.
+    Returns (times by kernel or None, {sum_ms, call_ms, ratio, reason})."""
     import re
 
     from torch.autograd import DeviceType
@@ -4428,17 +4451,84 @@ def kernel_times(torch, fn, namespace: str, calls: int = 5) -> dict:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     out: dict = {}
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA or namespace not in ev.name:
+        if ev.device_type != DeviceType.CUDA:
             continue
-        m = re.search(namespace + r"::(\w+(<\d+>)?)", ev.name)
-        name = m.group(1) if m else ev.name[:40]
+        m = re.search(r"\b(?:rv|at::native)::(?:\w+::)*(\w+(?:<[\w, ]+>)?)", ev.name)
+        name = m.group(1) if m else ev.name[:48]
         out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / calls
-    return out
+    total = sum(out.values())
+    ratio = total / call_ms
+    lo, hi = KERNEL_SUM_RANGE
+    note = dict(sum_ms=total, call_ms=call_ms, ratio=ratio, reason=None)
+    if not lo <= ratio <= hi:
+        note["reason"] = (f"the profiler caught {total:.4f} ms of device time a call against "
+                          f"the call's {call_ms:.4f} ms by CUDA events ({ratio:.3f}x, outside "
+                          f"{lo}-{hi}x): a partial capture, not printed as measured")
+        return None, note
+    return out, note
+
+
+KERNEL_SUM_RANGE = (0.8, 1.1)   # kernel_times: captured device time over the call's
+
+
+def backward_kernel_times(torch) -> dict:
+    """`python3 chip_smoke.py --backward-kernel-times`: the device time by
+    kernel (`kernel_times`) of the calls phase T times for the four
+    backward rows, on seeded inputs of the same shapes: K3's backward at B
+    = 16 in bf16 and at B = 2 in fp32 (S = 577, W = 1024, 16 heads with
+    RoPE), K4's backward kernel at T = 9232, 1024 -> 4096 -> 1024, gelu, in
+    bf16 and in fp32 (with the split passes of x and dY, the weights' parts
+    made once). Each is held against its own CUDA-event median, taken here
+    as `beside` takes it. Prints one JSON line {row: [times or None,
+    check]}. Run by `backward_kernel_times_apart`, a process of its own."""
+    from reverso_tpu_torch.ops.attention import _heads_bwd_launch, _heads_launch
+    from reverso_tpu_torch.ops.fused_mlp import _mlp_bwd_launch, split_mlp_weights
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    randn = lambda *shape, dtype, scale=1.0: (
+        torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+    out = {}
+    s, heads, w = 577, 16, 1024
+    hd = w // heads
+    c, sn = rope_2d_tables(24, hd, cls_token=True)
+    tables = (torch.from_numpy(c).to(dev), torch.from_numpy(sn).to(dev))
+    for name, dtype, b in (("flash_heads_bwd", torch.bfloat16, 16),
+                           ("flash_heads_bwd_f32", torch.float32, 2)):
+        q, k, v, do = (randn(b, s, w, dtype=dtype) for _ in range(4))
+        lse = torch.empty((b * heads, s), dtype=torch.float32, device=dev)
+        o = _heads_launch(q, k, v, heads, tables, hd ** -0.5, s, lse)
+        call = lambda: _heads_bwd_launch(q, k, v, do, heads, tables, hd ** -0.5, s, o, lse)
+        out[name] = kernel_times(torch, call, beside(torch, {"ms": call})[0]["ms"])
+    t, hid = 16 * 577, 4096
+    for name, dtype in (("fused_mlp_bwd", torch.bfloat16), ("fused_mlp_bwd_f32", torch.float32)):
+        x, dy = randn(t, w, dtype=dtype), randn(t, w, dtype=dtype)
+        w1, b1 = randn(hid, w, dtype=dtype, scale=w ** -0.5), randn(hid, dtype=dtype, scale=0.1)
+        w2 = randn(w, hid, dtype=dtype, scale=hid ** -0.5)
+        parts = split_mlp_weights(w1, w2) if dtype == torch.float32 else None
+        call = lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, "gelu", parts)
+        out[name] = kernel_times(torch, call, beside(torch, {"ms": call})[0]["ms"])
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def backward_kernel_times_apart() -> dict:
+    """`backward_kernel_times` in a process of its own, on the library this
+    run built: {row: (times or None, check)}. Fails if it fails."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--backward-kernel-times"], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"--backward-kernel-times: rc {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    return {name: tuple(v) for name, v in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
 
 
 def beside(torch, fns: dict, repeats: int = 5) -> tuple:
@@ -4457,30 +4547,43 @@ def train_kernel_checks(torch) -> dict:
     the wrappers under autograd, each gradient held against the autograd of
     the plain forward on the card (bf16: within 2e-2 of max(1, the largest
     plain gradient), the outputs rounded once against the plain version's
-    intermediate roundings; fp32: 1e-4, sums in another order), each on the
-    route its `*_bwd_route` names, which its counter shows. (a) K3's
-    backward at PE-L14's training shape, B = 16, S = 577, W = 1024, 16
-    heads of 64 with RoPE, in bf16 (the wgmma + TMA kernels); the same at
-    kv_valid = 300; PE-G14's head dim 96 at B = 2 in bf16; fp32 at B = 2;
+    intermediate roundings; fp32: 1e-4, sums in another order; fp32 also
+    against the split route's own plain version), each on the route its
+    `*_bwd_route` names, which its counter shows (and no other route's).
+    (a) K3's backward at PE-L14's training shape, B = 16, S = 577, W =
+    1024, 16 heads of 64 with RoPE, in bf16 (the wgmma + TMA kernels); the
+    same at kv_valid = 300; PE-G14's head dim 96 at B = 2 in bf16; fp32 at
+    B = 2 and at the fp32 training run's B = F32_BATCH (their split mode);
     head dim 72 (a multiple of 4, not of 16) at B = 2 in bf16 and in fp32
-    with kv_valid = 300 (the CUDA-core kernels). (b) K4's backward at T =
-    16 x 577 = 9232, 1024 -> 4096 -> 1024: gelu in bf16 and fp32,
-    quick_gelu in bf16. Timed at the main shapes: the backward by CUDA
-    events, the median of 5 repeats each taken beside the library call
-    (K3: SDPA's backward on [B, H, S, D] without RoPE; K4: the cuBLAS
-    route of the same five products and aten's gelu backward), the plain
-    version (the plain forward and its autograd) and the bound; K3's
-    forward at B = 16 with and without its log-sum-exp output, in turns;
-    ptxas's registers and spills of each backward kernel. Returns the two
-    kernel rows."""
+    with kv_valid = 300 (on the prep's copies zero-padded to 80: bf16 one
+    part, fp32 the split mode's three). (b) K4's backward at T = 16 x 577 =
+    9232, 1024 -> 4096 -> 1024: gelu and quick_gelu in bf16 and in fp32
+    (the split mode, with the weights' parts as the tower caches them), and
+    fp32 gelu at the fp32 training run's T = F32_BATCH x 577 (`f32_train_run`
+    checks that its backward launches are at these shapes).
+    Timed at the main shapes (K3 bf16 at B = 16 and fp32 at B = 2, K4 gelu
+    in both): the backward by CUDA events, the median of 5 repeats each
+    taken beside the library call (K3: SDPA's backward on [B, H, S, D]
+    without RoPE, in the same dtype; K4: the cuBLAS route of the same five
+    products and aten's gelu backward, and that route's part the kernel
+    computes), the plain versions (the plain forward and its autograd; the
+    split plain versions) and the bounds; K3's forward at B = 16 with and
+    without its log-sum-exp output, in turns; device time by kernel of the
+    four timed calls (`backward_kernel_times_apart`: None where the
+    profiler's capture does not add up to the call's time) and ptxas's
+    registers and spills of each backward
+    kernel. Returns the four kernel rows: flash_heads_bwd, fused_mlp_bwd
+    (bf16) and flash_heads_bwd_f32, fused_mlp_bwd_f32."""
     import torch.nn.functional as F
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (_heads_bwd_launch, _heads_launch,
                                                   flash_attention_heads,
                                                   flash_attention_heads_grad_ref,
+                                                  flash_attention_heads_grad_split_ref,
                                                   heads_bwd_route)
     from reverso_tpu_torch.ops.fused_mlp import (_mlp_bwd_launch, fused_mlp, mlp_bwd_route,
-                                                 mlp_grad_ref)
+                                                 mlp_grad_ref, mlp_grad_split_ref,
+                                                 split_mlp_weights)
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
     dev = torch.device("cuda")
@@ -4506,11 +4609,14 @@ def train_kernel_checks(torch) -> dict:
         return rel, tols[dtype]
 
     rows = {}
+    by_kernel = backward_kernel_times_apart()
     # (a) K3's backward
     s = 577
     errors, k3, routes = {}, {}, {}
+    counters = {"tc": "flash_heads_bwd_tc", "split": "flash_heads_bwd_split"}
     for dtype, b, w, kv in ((bf16, 16, 1024, None), (bf16, 16, 1024, 300), (bf16, 2, 1536, None),
-                            (f32, 2, 1024, None), (bf16, 2, 1152, None), (f32, 2, 1152, 300)):
+                            (f32, 2, 1024, None), (f32, F32_BATCH, 1024, None),
+                            (bf16, 2, 1152, None), (f32, 2, 1152, 300)):
         heads = 16
         hd = w // heads
         c, sn = rope_2d_tables(24, hd, cls_token=True)
@@ -4519,11 +4625,11 @@ def train_kernel_checks(torch) -> dict:
         kw = dict(heads=heads, cos=cos, sin=sin, kv_valid=kv)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         route = heads_bwd_route("cuda", dtype, hd)
-        counter = "flash_heads_bwd_tc" if route == "tensor_core" else "flash_heads_bwd_cuda_core"
-        n0, r0 = kernels.launches["flash_heads_bwd"], kernels.launches[counter]
+        before = {name: kernels.launches[name] for name in ("flash_heads_bwd", *counters.values())}
         flash_attention_heads(*leaves, **kw).backward(do)
-        check(kernels.launches["flash_heads_bwd"] == n0 + 1
-              and kernels.launches[counter] == r0 + 1, f"K3 backward: not one {route} launch")
+        check(kernels.launches["flash_heads_bwd"] == before["flash_heads_bwd"] + 1
+              and all(kernels.launches[n] == before[n] + ((r == "split") == (route == "split"))
+                      for r, n in counters.items()), f"K3 backward: not one {route} launch")
         refs = flash_attention_heads_grad_ref(q, k, v, do, **kw)
         torch.cuda.synchronize()
         case = f"B={b} W={w} hd={hd} {str(dtype)[6:]}{'' if kv is None else f' kv_valid={kv}'}"
@@ -4533,14 +4639,19 @@ def train_kernel_checks(torch) -> dict:
         if kv is not None:
             check(not leaves[1].grad[:, kv:].any() and not leaves[2].grad[:, kv:].any(),
                   f"K3 backward {case}: keys past kv_valid have a gradient")
+        if dtype == f32:   # the split route against its own plain version too
+            split = flash_attention_heads_grad_split_ref(q, k, v, do, **kw)
+            k3[(case, "split_err")] = held(f"K3 backward {case} against the split plain version",
+                                           [t.grad for t in leaves], split, dtype)[0]
+            del split
         if (dtype, b, w, kv) in ((bf16, 16, 1024, None), (f32, 2, 1024, None)):
             scale = hd ** -0.5
-            lse = torch.empty((b * heads, s), dtype=f32, device=dev) if dtype == bf16 else None
+            lse = torch.empty((b * heads, s), dtype=f32, device=dev)
             o = _heads_launch(q, k, v, heads, (cos, sin), scale, s, lse)
             call = lambda: _heads_bwd_launch(q, k, v, do, heads, (cos, sin), scale, s, o, lse)
             fns = {"ms": call}
             # SDPA's backward on the same values as [B, H, S, D], without
-            # RoPE (in fp32 too: the CUDA-core route's library time)
+            # RoPE (in fp32 too: the split route's library time)
             split = lambda t: t.reshape(b, s, heads, hd).transpose(1, 2).contiguous()
             qh, kh, vh = (split(t).requires_grad_(True) for t in (q, k, v))
             oh = F.scaled_dot_product_attention(qh, kh, vh)
@@ -4553,14 +4664,17 @@ def train_kernel_checks(torch) -> dict:
                 fns["fwd_lse_ms"] = lambda: _heads_launch(q, k, v, heads, (cos, sin), scale, s,
                                                           lse)
             k3[dtype], k3[(dtype, "repeats")] = beside(torch, fns)
-            k3[(dtype, "kernels")] = kernel_times(torch, call, "hbwd")
             k3[dtype]["plain_ms"] = cuda_ms(
                 lambda: flash_attention_heads_grad_ref(q, k, v, do, **kw), iters=3)
+            if dtype == f32:
+                k3[dtype]["split_plain_ms"] = cuda_ms(
+                    lambda: flash_attention_heads_grad_split_ref(q, k, v, do, **kw), iters=3)
             fns.clear()
             del qh, kh, vh, oh, doh, o, lse
         del q, k, v, do, leaves, refs
     main = "B=16 W=1024 hd=64 bfloat16"
     r = k3[bf16]
+    ptx = ptxas_usage("flash_heads_bwd_tc.cu", "hbwd")
     rows["flash_heads_bwd"] = dict(
         source="reverso_tpu_torch/csrc/flash_heads_bwd_tc.cu",
         replaces="reverso_tpu/ops/attention.py:337",
@@ -4576,43 +4690,68 @@ def train_kernel_checks(torch) -> dict:
         forward_b16_ms=r["fwd_ms"], forward_b16_lse_ms=r["fwd_lse_ms"],
         forward_repeats_ms=k3[(bf16, "repeats")]["fwd_ms"],
         forward_lse_repeats_ms=k3[(bf16, "repeats")]["fwd_lse_ms"],
-        kernels_ms=k3[(bf16, "kernels")],
-        ptxas=ptxas_usage("flash_heads_bwd_tc.cu", "hbwd"),
-        f32_route="cuda_core", f32_source="reverso_tpu_torch/csrc/flash_heads_bwd.cu",
-        f32_kernels_ms=k3[(f32, "kernels")],
-        f32_ptxas=ptxas_usage("flash_heads_bwd.cu", "hbwd"),
-        f32_shape="B=2 S=577 W=1024 H=16 fp32 RoPE", f32_ms=k3[f32]["ms"],
-        f32_plain_ms=k3[f32]["plain_ms"],
-        f32_library="SDPA's fp32 backward on [B, H, S, D] (no RoPE)",
-        f32_library_ms=k3[f32]["library_ms"],
-        f32_library_repeats_ms=k3[(f32, "repeats")]["library_ms"],
-        f32_bound_ms=heads_bwd_bound(2, s, 1024, 16, 4, "float32_split")[0],
+        kernels_ms=by_kernel["flash_heads_bwd"][0],
+        kernels_ms_check=by_kernel["flash_heads_bwd"][1],
+        ptxas={n: u for n, u in ptx.items() if not n.endswith(", 3>") and "split" not in n},
         errors={case: e for case, (e, _) in errors.items()})
     rows["flash_heads_bwd"]["bound_ms"], rows["flash_heads_bwd"]["bound_by"] = heads_bwd_bound(
         16, s, 1024, 16, 2, "bfloat16")
+    main = "B=2 W=1024 hd=64 float32"
+    r = k3[f32]
+    rows["flash_heads_bwd_f32"] = dict(
+        source="reverso_tpu_torch/csrc/flash_heads_bwd_tc.cu",
+        replaces="reverso_tpu/ops/attention.py:337",
+        replaces_note="no TPU kernel: the gradient of K3 in fp32, which has no backward in JAX",
+        route_taken=f"{routes[main]} (wgmma + TMA on three bf16 parts a value: prep, dq and "
+                    f"dk/dv kernels)",
+        max_abs_err=errors[main][0], tolerance=errors[main][1],
+        error_is="max abs err over dq, dk, dv, each over max(1, its largest plain value)",
+        split_plain_err=k3[(main, "split_err")],
+        shape="B=2 S=577 W=1024 H=16 fp32 RoPE", ms=r["ms"], plain_ms=r["plain_ms"],
+        split_plain_ms=r["split_plain_ms"],
+        library="SDPA's fp32 backward on [B, H, S, D] (no RoPE)", library_ms=r["library_ms"],
+        repeats_ms=k3[(f32, "repeats")]["ms"],
+        library_repeats_ms=k3[(f32, "repeats")]["library_ms"],
+        kernels_ms=by_kernel["flash_heads_bwd_f32"][0],
+        kernels_ms_check=by_kernel["flash_heads_bwd_f32"][1],
+        ptxas={n: u for n, u in ptx.items() if n.endswith(", 3>") or "split" in n},
+        errors={case: e for case, (e, _) in errors.items() if "float32" in case},
+        split_plain_errors={case: k3[(case, "split_err")] for case in errors
+                            if "float32" in case})
+    rows["flash_heads_bwd_f32"]["bound_ms"], rows["flash_heads_bwd_f32"]["bound_by"] = \
+        heads_bwd_bound(2, s, 1024, 16, 4, "float32_split")
 
     # (b) K4's backward
-    t, w, hid = 16 * 577, 1024, 4096
+    tm, w, hid = 16 * 577, 1024, 4096
     errors, k4 = {}, {}
-    for dtype, act in ((bf16, "gelu"), (f32, "gelu"), (bf16, "quick_gelu")):
+    for dtype, act, t in ((bf16, "gelu", tm), (f32, "gelu", tm), (bf16, "quick_gelu", tm),
+                          (f32, "quick_gelu", tm), (f32, "gelu", F32_BATCH * 577)):
         x, dy = randn(t, w, dtype=dtype), randn(t, w, dtype=dtype)
         w1, b1 = randn(hid, w, dtype=dtype, scale=w ** -0.5), randn(hid, dtype=dtype, scale=0.1)
         w2, b2 = randn(w, hid, dtype=dtype, scale=hid ** -0.5), randn(w, dtype=dtype, scale=0.1)
         leaves = [p.clone().requires_grad_(True) for p in (x, w1, b1, w2, b2)]
         route = mlp_bwd_route("cuda", dtype, w, hid)
-        counter = "fused_mlp_bwd_cuda_core" if route == "cuda_core" else "fused_mlp_bwd_tc"
-        n0, r0 = kernels.launches["fused_mlp_bwd"], kernels.launches[counter]
-        y = fused_mlp(*leaves, act=act)
+        # the fp32 tower's call: the weights' parts from its cache
+        parts = split_mlp_weights(w1, w2) if dtype == f32 else None
+        counter = "fused_mlp_bwd_split" if route == "split" else "fused_mlp_bwd_tc"
+        other = "fused_mlp_bwd_tc" if route == "split" else "fused_mlp_bwd_split"
+        n0, r0, o0 = (kernels.launches[n] for n in ("fused_mlp_bwd", counter, other))
+        y = fused_mlp(*leaves, act=act, parts=parts)
         y.backward(dy, retain_graph=True)
-        check(kernels.launches["fused_mlp_bwd"] == n0 + 1
-              and kernels.launches[counter] == r0 + 1, f"K4 backward: not one {route} launch")
+        check(kernels.launches["fused_mlp_bwd"] == n0 + 1 and kernels.launches[counter] == r0 + 1
+              and kernels.launches[other] == o0, f"K4 backward: not one {route} launch")
         refs = mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act)
         torch.cuda.synchronize()
         case = f"T={t} {str(dtype)[6:]} {act}"
         errors[case] = held(f"K4 backward {case} ({route})", [p.grad for p in leaves], refs,
                             dtype)
         del refs
-        if act == "gelu":
+        if dtype == f32:   # the split route against its own plain version too
+            split = mlp_grad_split_ref(x, w1, b1, w2, b2, dy, act=act)
+            k4[(case, "split_err")] = held(f"K4 backward {case} against the split plain version",
+                                           [p.grad for p in leaves], split, dtype)[0]
+            del split
+        if act == "gelu" and t == tm:
             def kernel_part():
                 z = F.linear(x, w1, b1)
                 return F.gelu(z), torch.ops.aten.gelu_backward(dy @ w2, z)
@@ -4621,53 +4760,68 @@ def train_kernel_checks(torch) -> dict:
                 hh, dz = kernel_part()
                 return (dz @ w1, dz.t() @ x, dz.sum(0), dy.t() @ hh, dy.sum(0))
 
+            kernel = lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act, parts)
             k4[dtype], k4[(dtype, "repeats")] = beside(torch, {
-                "kernel_ms": lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act),
+                "kernel_ms": kernel,
                 "kernel_library_ms": kernel_part,
                 "ms": lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
                 "library_ms": library})
             k4[dtype]["route"] = route
-            k4[(dtype, "kernels")] = kernel_times(
-                torch, lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act), "mbwd")
+            if dtype == f32:
+                k4[dtype]["split_plain_ms"] = cuda_ms(
+                    lambda: mlp_grad_split_ref(x, w1, b1, w2, b2, dy, act=act), iters=3)
             k4[dtype]["plain_ms"] = cuda_ms(
                 lambda: mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act), iters=3)
-        del x, dy, w1, b1, w2, b2, leaves, y
-    main = f"T={t} bfloat16 gelu"
-    r = k4[bf16]
-    reps = k4[(bf16, "repeats")]
-    rows["fused_mlp_bwd"] = dict(
-        source="reverso_tpu_torch/csrc/fused_mlp_bwd.cu",
-        replaces="reverso_tpu/ops/fused_mlp.py:63",
-        replaces_note="no TPU kernel: the gradient of K4, which has no backward in JAX",
-        route_taken=f"{r['route']} (wgmma + TMA, db1's partials fused)",
-        max_abs_err=errors[main][0], tolerance=errors[main][1],
-        error_is="max abs err over dx, dW1, db1, dW2, db2, each over max(1, its largest "
-                 "plain value)",
-        shape=f"T={t} 1024->4096->1024 bf16 gelu: the whole backward (the kernel, three "
-              f"torch.matmul products, two sums)",
-        ms=r["ms"], plain_ms=r["plain_ms"],
-        library="cuBLAS route: the same five products (F.linear, matmuls) and "
-                "aten.gelu_backward", library_ms=r["library_ms"],
-        kernel_ms=r["kernel_ms"], kernel_library_ms=r["kernel_library_ms"],
-        kernel_bound_ms=mlp_bwd_bound(t, w, hid, 2, "bfloat16", kernel_only=True)[0],
-        repeats_ms=reps["ms"], library_repeats_ms=reps["library_ms"],
-        kernel_repeats_ms=reps["kernel_ms"], kernel_library_repeats_ms=reps["kernel_library_ms"],
-        kernels_ms=k4[(bf16, "kernels")], ptxas=ptxas_usage("fused_mlp_bwd.cu", "mbwd"),
-        f32_route=k4[f32]["route"], f32_ms=k4[f32]["ms"], f32_kernel_ms=k4[f32]["kernel_ms"],
-        f32_plain_ms=k4[f32]["plain_ms"], f32_library_ms=k4[f32]["library_ms"],
-        f32_bound_ms=mlp_bwd_bound(t, w, hid, 4, "float32_split")[0],
-        errors={case: e for case, (e, _) in errors.items()})
-    rows["fused_mlp_bwd"]["bound_ms"], rows["fused_mlp_bwd"]["bound_by"] = mlp_bwd_bound(
-        t, w, hid, 2, "bfloat16")
-    print(f"backward kernels: K3 {rows['flash_heads_bwd']['ms']} ms (SDPA's backward "
-          f"{rows['flash_heads_bwd']['library_ms']}), K3 forward at B = 16 "
-          f"{rows['flash_heads_bwd']['forward_b16_ms']} / with lse "
-          f"{rows['flash_heads_bwd']['forward_b16_lse_ms']}; K4 kernel "
-          f"{rows['fused_mlp_bwd']['kernel_ms']} ms, whole {rows['fused_mlp_bwd']['ms']} "
-          f"(cuBLAS {rows['fused_mlp_bwd']['library_ms']}); by kernel "
-          f"{json.dumps(rows['flash_heads_bwd']['kernels_ms'])}; ptxas "
-          f"{json.dumps(rows['flash_heads_bwd']['ptxas'])} "
-          f"{json.dumps(rows['fused_mlp_bwd']['ptxas'])}", flush=True)
+        del x, dy, w1, b1, w2, b2, leaves, y, parts
+    ptx = ptxas_usage("fused_mlp_bwd.cu", "mbwd")
+    for dtype, name in ((bf16, "fused_mlp_bwd"), (f32, "fused_mlp_bwd_f32")):
+        main = f"T={tm} {str(dtype)[6:]} gelu"
+        r = k4[dtype]
+        reps = k4[(dtype, "repeats")]
+        size = 2 if dtype == bf16 else 4
+        rate = "bfloat16" if dtype == bf16 else "float32_split"
+        rows[name] = dict(
+            source="reverso_tpu_torch/csrc/fused_mlp_bwd.cu",
+            replaces="reverso_tpu/ops/fused_mlp.py:63",
+            replaces_note="no TPU kernel: the gradient of K4, which has no backward in JAX",
+            route_taken=(f"{r['route']} (wgmma + TMA, db1's partials fused)" if dtype == bf16
+                         else f"{r['route']} (wgmma + TMA on three bf16 parts a value: the "
+                              f"split pass of x and dY, the kernel; db1's partials fused)"),
+            max_abs_err=errors[main][0], tolerance=errors[main][1],
+            error_is="max abs err over dx, dW1, db1, dW2, db2, each over max(1, its largest "
+                     "plain value)",
+            shape=f"T={tm} 1024->4096->1024 {str(dtype)[6:]} gelu: the whole backward (the "
+                  f"kernel, three torch.matmul products, two sums)",
+            ms=r["ms"], plain_ms=r["plain_ms"],
+            library=f"cuBLAS route: the same five products (F.linear, matmuls) and "
+                    f"aten.gelu_backward{'' if dtype == bf16 else ', in fp32'}",
+            library_ms=r["library_ms"],
+            kernel_ms=r["kernel_ms"], kernel_library_ms=r["kernel_library_ms"],
+            kernel_bound_ms=mlp_bwd_bound(tm, w, hid, size, rate, kernel_only=True)[0],
+            repeats_ms=reps["ms"], library_repeats_ms=reps["library_ms"],
+            kernel_repeats_ms=reps["kernel_ms"],
+            kernel_library_repeats_ms=reps["kernel_library_ms"],
+            kernels_ms=by_kernel[name][0], kernels_ms_check=by_kernel[name][1],
+            ptxas={n: u for n, u in ptx.items() if ("split" in n) == (dtype == f32)},
+            errors={case: e for case, (e, _) in errors.items() if str(dtype)[6:] in case})
+        if dtype == f32:
+            rows[name].update(split_plain_ms=r["split_plain_ms"],
+                              split_plain_errors={case: k4[(case, "split_err")]
+                                                  for case in errors if "float32" in case})
+        rows[name]["bound_ms"], rows[name]["bound_by"] = mlp_bwd_bound(tm, w, hid, size, rate)
+    k3r, k3f, k4r, k4f = (rows[n] for n in ("flash_heads_bwd", "flash_heads_bwd_f32",
+                                            "fused_mlp_bwd", "fused_mlp_bwd_f32"))
+    print(f"backward kernels: K3 {k3r['ms']} ms (SDPA's backward {k3r['library_ms']}), "
+          f"K3 fp32 {k3f['ms']} ms (SDPA's fp32 backward {k3f['library_ms']}, bound "
+          f"{k3f['bound_ms']}), K3 forward at B = 16 {k3r['forward_b16_ms']} / with lse "
+          f"{k3r['forward_b16_lse_ms']}; K4 kernel {k4r['kernel_ms']} ms, whole {k4r['ms']} "
+          f"(cuBLAS {k4r['library_ms']}); K4 fp32 kernel {k4f['kernel_ms']} ms (bound "
+          f"{k4f['kernel_bound_ms']}, cuBLAS's part {k4f['kernel_library_ms']}), whole "
+          f"{k4f['ms']} (cuBLAS {k4f['library_ms']}, bound {k4f['bound_ms']}); by kernel "
+          f"{json.dumps(k3r['kernels_ms'])} {json.dumps(k3f['kernels_ms'])} "
+          f"{json.dumps(k4f['kernels_ms'])}; ptxas {json.dumps(k3r['ptxas'])} "
+          f"{json.dumps(k3f['ptxas'])} {json.dumps(k4r['ptxas'])} {json.dumps(k4f['ptxas'])}",
+          flush=True)
     return rows
 
 
@@ -4687,8 +4841,11 @@ def train_run(root: str) -> tuple:
     `plain_tower`, both losses printed, their first step's held within 2e-2
     (the same forward, in bf16); (e) `reverso-torch train` in this process
     at the default PE-Core-L14-336 on 32 generated photos: 2 steps of 16
-    with a checkpoint, then `--resume` for 1. Returns (rows, launches of
-    (c), K3 and K4 forward launches of (c) by shape, numbers)."""
+    with a checkpoint, then `--resume` for 1; between (d) and (e),
+    `f32_train_run`: the fp32 tower on the split routes, forward and
+    backward. Returns (rows, launches of (c), K3 and K4 forward launches of
+    (c) by shape, numbers, launches of the fp32 run, its K3 and K4 forward
+    launches by shape)."""
     import io
     from contextlib import redirect_stderr, redirect_stdout
 
@@ -4784,6 +4941,8 @@ def train_run(root: str) -> tuple:
     check(all(np.isfinite(v).all() for v in witness.values())
           and abs(witness["kernels"][0] - witness["plain"][0]) <= 2e-2,
           f"witness at lr {WITNESS_LR}: {witness}")
+    out["f32"], f32_launches, f32_shapes = f32_train_run(torch, cfg, va[:F32_BATCH],
+                                                         vb[:F32_BATCH])
     del va, vb
     torch.cuda.empty_cache()
 
@@ -4811,7 +4970,128 @@ def train_run(root: str) -> tuple:
           f"reverso-torch train: backward launches {cli_launches}")
     out["cli_launches"] = {k: n for k, n in cli_launches.items() if n}
     print(f"training (T) numbers: {json.dumps(out)}", flush=True)
-    return rows, launches, tc_shapes, out
+    return rows, launches, tc_shapes, out, f32_launches, f32_shapes
+
+
+F32_BATCH = 4   # images a view in phase T's fp32 run
+F32_STEPS = 3
+
+
+def f32_train_run(torch, cfg, va, vb) -> tuple:
+    """(T f) The strict-parity fp32 tower fine-tuned on the card:
+    `ClipTrainer` at `cfg` with `dtype="float32"` (full width and depth,
+    seed 5, `TRAIN_LR`) takes F32_STEPS AdamW steps on the views va, vb;
+    every block's attention and MLP on K3's and K4's fp32 split routes,
+    forward and backward (48 launches a step of each, counts set to 0 just
+    before and read just after; none on another backward route); the loss
+    finite; ms per step and the peak memory; then one more step profiled
+    (`profiled`: device busy share, time by kernel group). Its backward
+    launches must be at the shapes `train_kernel_checks` held each kernel
+    at (B = F32_BATCH, T = F32_BATCH x 577, gelu), so that each fp32
+    backward of this run was compared one by one with its plain versions at
+    1e-4. Its first step is held against the same step of `plain_tower`
+    (the plain fp32 forwards under autograd) from the same init: both are
+    fp32, the kernels' products carry fp32's 24 bits as six part products
+    (the three dropped terms below 2^-23 of each) and sum in another order,
+    so across 24 blocks forward and back the loss agrees within 1e-4 of
+    max(1, |loss|) and the gradient, all leaves together, within 1e-3 of
+    its norm. The control behind that limit: the same first step of the
+    bf16 tower from the same init (one bf16 part a value, the precision a
+    split route that lost its lower parts would have), held the same way
+    against the plain step, must read above 1e-3. Returns (numbers,
+    launches, the split forwards' launches by shape)."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.train import ClipTrainer
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = {"batch_a_view": int(va.shape[0]), "steps": F32_STEPS}
+    tp = ClipTrainer(cfg32, learning_rate=TRAIN_LR, seed=5)
+    t0 = time.perf_counter()
+    with plain_tower():
+        loss_p, grads_p = tp.value_and_grad(va, vb)
+    grads_p = {n: g.detach().clone() for n, g in grads_p.items()}
+    out["plain_first_step_s"] = time.perf_counter() - t0
+    del tp
+    torch.cuda.empty_cache()
+    tr = ClipTrainer(cfg32, learning_rate=TRAIN_LR, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    losses, step_ms = [], []
+    for i in range(F32_STEPS):
+        t0 = time.perf_counter()
+        if i == 0:   # the first step by hand, to keep its gradients
+            loss_k, grads_k = tr.value_and_grad(va, vb)
+            tr.opt.step()
+            tr.step += 1
+            losses.append(float(loss_k))   # the loss reaches the host: a sync
+        else:
+            losses.append(tr.train_step(va, vb))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launches)
+    split_shapes = {key: n for key, n in kernels.shape_launches.items()
+                    if key[0] in ("flash_heads_split", "fused_mlp_split")}
+    bwd_shapes = {key for key in kernels.shape_launches
+                  if key[0] in ("flash_heads_bwd", "fused_mlp_bwd")}
+    out.update(losses=losses, step_ms=step_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches={k: n for k, n in launches.items() if n},
+               launches_by_shape={f"{key[0]} {key[1]}": n
+                                  for key, n in kernels.shape_launches.items()})
+    check(bool(np.isfinite(losses).all()), f"fp32 training: loss not finite: {losses}")
+    b, s, w = int(va.shape[0]), cfg.seq_len, cfg.width
+    held = {("flash_heads_bwd", (F32_BATCH, s, w, cfg.num_heads, True, "torch.float32")),
+            ("fused_mlp_bwd", (F32_BATCH * s, w, int(w * cfg.mlp_ratio), "gelu",
+                               "torch.float32"))}
+    check(b == F32_BATCH and bwd_shapes == held,
+          f"fp32 training: backward shapes {bwd_shapes}, not the ones (T a, b) held {held}")
+    per_step = 2 * cfg.depth   # two views, one call a block
+    for name in ("flash_heads", "flash_heads_split", "flash_heads_bwd", "flash_heads_bwd_split",
+                 "fused_mlp", "fused_mlp_split", "fused_mlp_bwd", "fused_mlp_bwd_split"):
+        check(launches[name] == F32_STEPS * per_step,
+              f"fp32 training: {name} launched {launches[name]} times, not "
+              f"{F32_STEPS * per_step}")
+    for name in ("flash_heads_tc", "fused_mlp_tc", "flash_heads_bwd_tc", "fused_mlp_bwd_tc"):
+        check(launches[name] == 0, f"fp32 training: {name} launched {launches[name]} times")
+    # the first step against the plain tower's
+    diff = sum(float((grads_k[n] - g).double().square().sum()) for n, g in grads_p.items())
+    norm = sum(float(g.double().square().sum()) for g in grads_p.values())
+    leaf = {n: float((grads_k[n] - g).double().norm() / g.double().norm().clamp(min=1e-30))
+            for n, g in grads_p.items()}
+    worst = max(leaf, key=leaf.get)
+    # the control: the bf16 tower's first step from the same init
+    tc = ClipTrainer(cfg, learning_rate=TRAIN_LR, seed=5)
+    loss_c, grads_c = tc.value_and_grad(va, vb)
+    control = sum(float((grads_c[n] - g).double().square().sum())
+                  for n, g in grads_p.items()) / norm
+    del tc, grads_c
+    torch.cuda.empty_cache()
+    out.update(first_loss=float(loss_k), plain_first_loss=float(loss_p),
+               first_loss_err=abs(float(loss_k) - float(loss_p)),
+               first_grad_rel_err=(diff / norm) ** 0.5,
+               first_grad_worst_leaf=[worst, leaf[worst]],
+               bf16_control_loss_err=abs(float(loss_c) - float(loss_p)),
+               bf16_control_grad_rel_err=control ** 0.5)
+    print(f"fp32 training ({F32_STEPS} steps, B = {va.shape[0]} a view): losses {losses}, "
+          f"ms a step {step_ms}, peak {out['peak_gb']:.2f} GB; first step against the plain "
+          f"tower: loss {out['first_loss']} vs {out['plain_first_loss']}, gradient error "
+          f"{out['first_grad_rel_err']:.3e} of its norm (worst leaf {worst} "
+          f"{leaf[worst]:.3e}; limit 1e-3); the bf16 control: loss {float(loss_c)}, gradient "
+          f"error {out['bf16_control_grad_rel_err']:.3e} of its norm", flush=True)
+    check(out["bf16_control_grad_rel_err"] > 1e-3,
+          f"fp32 training: the bf16 control's gradient is within 1e-3 of the plain fp32 "
+          f"tower's ({out['bf16_control_grad_rel_err']}): the limit does not tell fp32 from "
+          f"bf16 precision")
+    check(out["first_loss_err"] <= 1e-4 * max(1.0, abs(float(loss_p))),
+          f"fp32 training: first loss {float(loss_k)} vs plain {float(loss_p)}")
+    check(out["first_grad_rel_err"] <= 1e-3,
+          f"fp32 training: first step's gradient {out['first_grad_rel_err']} of its norm "
+          f"from the plain tower's")
+    del grads_k, grads_p
+    out["profile_step"] = profiled(torch, lambda: tr.train_step(va, vb))
+    del tr
+    torch.cuda.empty_cache()
+    return out, launches, split_shapes
 
 
 
@@ -5096,6 +5376,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--backward-kernel-times"]:   # phase T's child process
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return backward_kernel_times(torch)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -5140,9 +5423,6 @@ def main() -> int:
     long_bf16_launches, long_f32_shapes = phase("vit 504 bf16 full depth", vit_long_bf16)
     torch.cuda.empty_cache()
     f32_launches, f32_shapes = phase("PE-L14-336 fp32 full depth", vit_f32_full)
-    rows["fused_mlp_f32"]["by_shape"], rows["flash_heads_f32"]["by_shape"] = phase(
-        "K3 and K4 fp32 at their paths' shapes", f32_path_shapes, torch,
-        {**f32_shapes, **long_f32_shapes}, tower_launches)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         sam_split_launches = phase("detector parity", detector_parity, root)
@@ -5191,10 +5471,13 @@ def main() -> int:
         entry_launches, entry_tc_shapes, entry_k1_shapes, _ = phase(
             "entry points (CLI, UI, video, text)", entry_points_run, root)
         torch.cuda.empty_cache()
-        train_rows, train_launches, train_tc_shapes, _ = phase("training (T)", train_run,
-                                                               root)
+        (train_rows, train_launches, train_tc_shapes, _, train_f32_launches,
+         train_f32_shapes) = phase("training (T)", train_run, root)
         rows.update(train_rows)
     torch.cuda.empty_cache()
+    rows["fused_mlp_f32"]["by_shape"], rows["flash_heads_f32"]["by_shape"] = phase(
+        "K3 and K4 fp32 at their paths' shapes", f32_path_shapes, torch,
+        {**f32_shapes, **long_f32_shapes}, tower_launches, train_f32_shapes)
     rows["flash_heads"]["by_shape"], rows["fused_mlp"]["by_shape"] = phase(
         "K3 and K4 bf16 at their paths' shapes", tc_path_shapes, torch,
         collections.Counter(direct_tc_shapes) + collections.Counter(clip_tc_shapes)
@@ -5225,11 +5508,13 @@ def main() -> int:
                  surface_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"]
                + entry_launches["flash_heads_tc"] + train_launches["flash_heads_tc"],
-               "flash_heads_f32": f32_launches["flash_heads_split"],
+               "flash_heads_f32": f32_launches["flash_heads_split"]
+               + train_f32_launches["flash_heads_split"],
                "fused_mlp": direct_launches["fused_mlp_tc"] + entry_launches["fused_mlp_tc"]
                + train_launches["fused_mlp_tc"],
-               "fused_mlp_f32": f32_launches["fused_mlp_split"],
-               "split_parts": f32_launches["split_parts"],
+               "fused_mlp_f32": f32_launches["fused_mlp_split"]
+               + train_f32_launches["fused_mlp_split"],
+               "split_parts": f32_launches["split_parts"] + train_f32_launches["split_parts"],
                "topk_stream": direct_launches["topk_stream"] + surface_launches["topk_stream"]
                + entry_launches["topk_stream"] + sharded_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
@@ -5250,7 +5535,9 @@ def main() -> int:
                "fused_mlp_int8": int8_launches["fused_mlp_int8"],
                "topk_int8_rows": two_stage_launches["topk_int8_rows"],
                "flash_heads_bwd": train_launches["flash_heads_bwd"],
-               "fused_mlp_bwd": train_launches["fused_mlp_bwd"]}
+               "fused_mlp_bwd": train_launches["fused_mlp_bwd"],
+               "flash_heads_bwd_f32": train_f32_launches["flash_heads_bwd_split"],
+               "fused_mlp_bwd_f32": train_f32_launches["fused_mlp_bwd_split"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     for name in ("flash_heads", "fused_mlp", "fused_mlp_f32", "flash_heads_f32",

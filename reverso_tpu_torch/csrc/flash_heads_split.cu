@@ -26,16 +26,19 @@
 #include "flash_tc.cuh"
 
 // fp32 q, k, v [B, S, W] (W = heads * hd, any alignment), o [B, S, W]
-// fp32; cos_t, sin_t [S, hd] fp32, 16-byte aligned (RoPE only). hd <= 128,
-// hd % 4 == 0.
+// fp32; cos_t, sin_t [S, hd] fp32, 16-byte aligned (RoPE only); lse null,
+// or [B * heads, S] fp32: each query row's log-sum-exp in base 2
+// (flash_tc.cuh::Params::lse), for the backward's split mode
+// (flash_heads_bwd_tc.cu). hd <= 128, hd % 4 == 0.
 extern "C" int rv_flash_heads_split(const void* q, const void* k, const void* v,
-                                    const void* cos_t, const void* sin_t, void* o,
+                                    const void* cos_t, const void* sin_t, void* o, void* lse,
                                     int B, int S, int W, int heads, int kv_valid,
                                     float scale, int use_rope, void* stream) {
     using namespace rv::tc;
     if (heads <= 0 || W % heads) return rv::kUnsupported;
     const Call c{q, k, v, o, cos_t, sin_t, nullptr, nullptr, W / heads, 1, W, B, heads, S, S,
-                 kv_valid, 0, 1, scale, static_cast<cudaStream_t>(stream)};
+                 kv_valid, 0, 1, scale, static_cast<cudaStream_t>(stream),
+                 static_cast<float*>(lse)};
     if (use_rope) return dispatch<true, kOpsSplit, false>(c);
     return dispatch<false, kOpsSplit, false>(c);
 }

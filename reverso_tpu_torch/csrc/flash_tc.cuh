@@ -89,9 +89,9 @@
 //     before the tile's product, that joins the running max and the
 //     exponent's offset. The softmax then runs as without the bias. Other
 //     G add each key's bh and bw after the product (kBiasAny);
-//   * given an lse pointer (K3's bf16 forward under autograd), the
-//     epilogue also writes each query row's log-sum-exp in the core's
-//     base-2 units, m + log2(l), which flash_heads_bwd_tc.cu reads;
+//   * given an lse pointer (K3's forward under autograd, bf16 or the split
+//     mode), the epilogue also writes each query row's log-sum-exp in the
+//     core's base-2 units, m + log2(l), which flash_heads_bwd_tc.cu reads;
 //   * in the split mode each tile's PV product lands in a fresh
 //     accumulator that the CUDA cores add to the running output (fp32,
 //     round to nearest): the tensor cores' fp32 accumulation does not

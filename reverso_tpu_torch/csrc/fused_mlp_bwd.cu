@@ -15,9 +15,9 @@
 // both products inside the kernel, as K4's two products are: z and dY W2
 // never reach device memory in fp32. act' is the exact-erf GELU's
 // derivative, cdf(z) + z pdf(z), or quick-GELU's, s + 1.702 z s (1 - s)
-// with s = sigmoid(1.702 z) (ops/fused_mlp.py::_act). In bf16 the kernel
-// also writes each CTA's column sums of the rounded dz, [ceil(T / 128), H]
-// fp32, which the wrapper adds in a fixed order for db1. The rest of the
+// with s = sigmoid(1.702 z) (ops/fused_mlp.py::_act). The kernel also
+// writes each CTA's column sums of the stored dz, [ceil(T / 128), H] fp32,
+// which the wrapper adds in a fixed order for db1. The rest of the
 // gradient is left to the caller: db2 is a column sum, and dW2 = dY^T h,
 // dW1 = dz^T x and dx = dz W1 are plain large products that go to
 // torch.matmul (XLA's dots of the autodiff in JAX).
@@ -40,16 +40,25 @@
 //     of dz (erff straight from the fragments measured 2.2x slower in the
 //     forward, fused_mlp.cu), then sums its column partials of dz through
 //     shared memory;
-//   * fp32, rv_fused_mlp_bwd: the same tile on the CUDA cores (64 x 64 a
-//     CTA, 16 deep, each thread 4 x 4 of both accumulators), any shape.
+//   * fp32 at any shape, rv_fused_mlp_bwd_split: the same tile and
+//     epilogue on three bf16 parts a value (the TPU kernels' fp32
+//     contract, Precision.HIGHEST, as K4's fp32 forward computes it): the
+//     split pass (fused_mlp.cu's rv_split_parts) writes the parts of x and
+//     dY, [3][T][Wp], the weights' parts come from the forward's cache
+//     (W1 [3][H][Wp], W2 [3][W][Hp]; Wp, Hp: W, H rounded up to 8, zero
+//     pad), and each 32-deep step runs the six part products of each
+//     accumulator (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi), 64-byte
+//     swizzle, a ring of two 96 KB stages; h and dz are stored in fp32 at
+//     a row pitch of Hp.
 //
 // What bounds it on the H100: two products of T W H multiply-adds, 4 T W H
 // operations (155 GFLOP at T = 16 * 577 = 9232, 1024 -> 4096 -> 1024,
-// 0.157 ms at 989 TFLOP/s in bf16) against x, dY, W1, W2 and b1 read and h
-// and dz written once (0.19 GB in bf16, 0.057 ms): bound by operations, so
-// the rate comes from wgmma fed by TMA; above that, the epilogue's
-// activation derivative (erff and expf) over the [T, H] tile, which no
-// product overlaps (one CTA an SM at 193 KB of shared memory).
+// 0.157 ms at 989 TFLOP/s in bf16, 0.940 ms at the split mode's 989 / 6)
+// against x, dY, W1, W2 and b1 read and h and dz written once (0.19 GB in
+// bf16, 0.057 ms): bound by operations, so the rate comes from wgmma fed by
+// TMA; above that, the epilogue's activation derivative (erff and expf)
+// over the [T, H] tile, which no product overlaps (one CTA an SM at 193 KB
+// of shared memory, 197 KB in the split mode).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -102,6 +111,93 @@ struct WgmmaSSMn128 {
     }
 };
 
+// 8 values of h or dz: one 16-byte store of bf16, two of fp32
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8]) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The epilogue of a 128 x 128 tile of [T, H] (rows m0.., columns n0..),
+// for both routes, from the two consumer warpgroups' accumulators z (x
+// W1^T) and g (dY W2): h = act(z + b1) and dz = g * act'(z + b1) in fp32,
+// stored as T (bf16 rounded once, or fp32) at a row pitch of ldh, and the
+// tile's column sums of the stored dz into db1_part's row blockIdx.y.
+// Columns at or past H take b1 = 0 (the split route's pad up to ldh, whose
+// z and g are zeros); columns past ldh are not stored.
+template <typename T>
+__device__ __forceinline__ void epilogue(const float (&z)[kBN / 2], const float (&g)[kBN / 2],
+                                         uint8_t* base, const T* __restrict__ b1, T* h, T* dz,
+                                         float* db1_part, int rows, int H, int ldh, int m0,
+                                         int n0, int act, int wg, int tid) {
+    // (1) both consumer warpgroups are done with the ring: it takes the two
+    // fp32 tiles [128][kLdc] and the column partials [16][128]
+    float* zt = reinterpret_cast<float*>(base);
+    float* gt = zt + kBM * kLdc;
+    float* part = gt + kBM * kLdc;
+    const int warp = tid / 32, lane = tid % 32;
+    named_bar_sync(1, 2 * kWgThreads);
+    {
+        const int r = wg * 64 + warp * 16 + lane / 4, t = lane % 4;
+#pragma unroll
+        for (int i = 0; i < kBN / 8; ++i) {
+            const int col = 8 * i + 2 * t;
+            *reinterpret_cast<float2*>(zt + r * kLdc + col) = make_float2(z[4 * i], z[4 * i + 1]);
+            *reinterpret_cast<float2*>(zt + (r + 8) * kLdc + col) =
+                make_float2(z[4 * i + 2], z[4 * i + 3]);
+            *reinterpret_cast<float2*>(gt + r * kLdc + col) = make_float2(g[4 * i], g[4 * i + 1]);
+            *reinterpret_cast<float2*>(gt + (r + 8) * kLdc + col) =
+                make_float2(g[4 * i + 2], g[4 * i + 3]);
+        }
+    }
+    named_bar_sync(1, 2 * kWgThreads);
+    // (2) each thread takes 8 adjacent columns of a row at a time: b1, the
+    // activation and its derivative, one store of h and of dz, and its
+    // columns' sums of the stored dz over its rows
+    constexpr int TPR = kBN / 8;                  // threads per row
+    constexpr int ROWS = 2 * kWgThreads / TPR;    // rows per pass
+    const int ctid = wg * kWgThreads + tid;
+    const int c8 = (ctid % TPR) * 8, col = n0 + c8;
+    float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (col < ldh) {   // ldh % 8 == 0: a group of 8 is in or out whole
+        float bv[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) bv[e] = col + e < H ? to_f<T>(b1[col + e]) : 0.f;
+#pragma unroll 1
+        for (int r = ctid / TPR; r < kBM && m0 + r < rows; r += ROWS) {
+            const float* zr = zt + r * kLdc + c8;
+            const float* gr = gt + r * kLdc + c8;
+            float hv[8], dv[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                float d;
+                act_grad(zr[e] + bv[e], act, hv[e], d);
+                dv[e] = round_t<T>(gr[e] * d);
+            }
+            const size_t off = (size_t)(m0 + r) * ldh + col;
+            store8(h + off, hv);
+            store8(dz + off, dv);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) sum[e] += dv[e];
+        }
+    }
+    // (3) db1's partials: the ROWS threads of each column group add their
+    // sums through shared memory, in a fixed order
+    float* pr = part + (ctid / TPR) * kBN + c8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) pr[e] = sum[e];
+    named_bar_sync(1, 2 * kWgThreads);
+    if (ctid < kBN && n0 + ctid < ldh) {
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) s += part[r * kBN + ctid];
+        db1_part[(size_t)blockIdx.y * ldh + n0 + ctid] = s;
+    }
+}
+
 // One CTA: rows m0 .. m0 + 127 of [T, H], columns n0 .. n0 + 127
 __global__ void __launch_bounds__(kTcThreads, 1)
 mlp_bwd_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
@@ -147,7 +243,7 @@ mlp_bwd_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
     }
 
     // ---- consumer warpgroup: rows m0 + 64 wg .. + 64 ----
-    const int warp = tid / 32, lane = tid % 32;
+    const int lane = tid % 32;
     float z[kBN / 2], g[kBN / 2];
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) z[i] = g[i] = 0.f;
@@ -179,73 +275,7 @@ mlp_bwd_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
     fence_operand(g);
 
     // ---- epilogue ----
-    // (1) both consumer warpgroups are done with the ring: it takes the two
-    // fp32 tiles [128][kLdc] and the column partials [16][128]
-    float* zt = reinterpret_cast<float*>(base);
-    float* gt = zt + kBM * kLdc;
-    float* part = gt + kBM * kLdc;
-    named_bar_sync(1, 2 * kWgThreads);
-    {
-        const int r = wg * 64 + warp * 16 + lane / 4, t = lane % 4;
-#pragma unroll
-        for (int i = 0; i < kBN / 8; ++i) {
-            const int col = 8 * i + 2 * t;
-            *reinterpret_cast<float2*>(zt + r * kLdc + col) = make_float2(z[4 * i], z[4 * i + 1]);
-            *reinterpret_cast<float2*>(zt + (r + 8) * kLdc + col) =
-                make_float2(z[4 * i + 2], z[4 * i + 3]);
-            *reinterpret_cast<float2*>(gt + r * kLdc + col) = make_float2(g[4 * i], g[4 * i + 1]);
-            *reinterpret_cast<float2*>(gt + (r + 8) * kLdc + col) =
-                make_float2(g[4 * i + 2], g[4 * i + 3]);
-        }
-    }
-    named_bar_sync(1, 2 * kWgThreads);
-    // (2) each thread takes 8 adjacent columns of a row at a time: b1, the
-    // activation and its derivative, one 16-byte store of h and of dz, and
-    // its columns' sums of the rounded dz over its rows
-    constexpr int TPR = kBN / 8;                  // threads per row
-    constexpr int ROWS = 2 * kWgThreads / TPR;    // rows per pass
-    const int ctid = wg * kWgThreads + tid;
-    const int c8 = (ctid % TPR) * 8, col = n0 + c8;
-    float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (col < H) {   // H % 8 == 0: a group of 8 is in or out whole
-        float bv[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) bv[e] = __bfloat162float(b1[col + e]);
-#pragma unroll 1
-        for (int r = ctid / TPR; r < kBM && m0 + r < T; r += ROWS) {
-            const float* zr = zt + r * kLdc + c8;
-            const float* gr = gt + r * kLdc + c8;
-            float hv[8], dv[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                float d;
-                act_grad(zr[e] + bv[e], act, hv[e], d);
-                dv[e] = gr[e] * d;
-            }
-            const uint4 dz16 = make_uint4(pack_bf16(dv[0], dv[1]), pack_bf16(dv[2], dv[3]),
-                                          pack_bf16(dv[4], dv[5]), pack_bf16(dv[6], dv[7]));
-            const size_t off = (size_t)(m0 + r) * H + col;
-            *reinterpret_cast<uint4*>(h + off) =
-                make_uint4(pack_bf16(hv[0], hv[1]), pack_bf16(hv[2], hv[3]),
-                           pack_bf16(hv[4], hv[5]), pack_bf16(hv[6], hv[7]));
-            *reinterpret_cast<uint4*>(dz + off) = dz16;
-            const __nv_bfloat16* r16 = reinterpret_cast<const __nv_bfloat16*>(&dz16);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) sum[e] += __bfloat162float(r16[e]);
-        }
-    }
-    // (3) db1's partials: the ROWS threads of each column group add their
-    // sums through shared memory, in a fixed order
-    float* pr = part + (ctid / TPR) * kBN + c8;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) pr[e] = sum[e];
-    named_bar_sync(1, 2 * kWgThreads);
-    if (ctid < kBN && n0 + ctid < H) {
-        float s = 0.f;
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) s += part[r * kBN + ctid];
-        db1_part[(size_t)blockIdx.y * H + n0 + ctid] = s;
-    }
+    epilogue(z, g, base, b1, h, dz, db1_part, T, H, H, m0, n0, act, wg, tid);
 }
 
 // a 2-D bf16 map over [rows][cols] (cols contiguous, cols % 8 == 0), box
@@ -265,69 +295,110 @@ static bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, i
 }
 
 // ---------------------------------------------------------------------------
-// fp32 on the CUDA cores
+// fp32 on the tensor cores: the split mode
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kSM = 64, kSN = 64, kSK = 16, kSP = 64 + 4;
+// The bf16 kernel's tile and epilogue on the split pass's bf16 parts: x and
+// dY [3][T][Wp] (this call's split pass), W1 [3][H][Wp] and W2 [3][W][Hp]
+// (the weights' parts, fused_mlp.cu's, cached by the tower). A stage holds
+// every part of a 32-deep step (64-byte swizzle, as the forward's split
+// GEMM): x, dY and W1 tiles [3][128][32] K-major and W2's [3][32 of W][128
+// of H] as four 32-column atoms, read MN-major; 96 KB a stage, two stages.
+// Each k16 step runs the six part products for each accumulator
+// (hopper.cuh::split_part, smallest first) into the same fp32 registers.
+constexpr int kSK = 32;                          // reduction step of the split mode
+constexpr int kSStages = 2;
+constexpr int kSPart = kBM * kSK * 2;            // 8 KB: one part of a tile
+constexpr int kSStage = 12 * kSPart;             // x, dY, W1, W2: three parts each
+constexpr int kSSmem = 1024 + kSStages * kSStage + 16 * kSStages;
+static_assert(2 * kBM * kLdc * 4 + 16 * kBN * 4 <= kSStages * kSStage, "epilogue fits the ring");
+static_assert(kSSmem <= 232448, "shared memory of a CTA");
 
-__global__ void __launch_bounds__(kThreads)
-    mlp_bwd_simt(const float* x, const float* w1, const float* b1, const float* w2,
-                 const float* dy, float* h, float* dz, int Tn, int W, int H, int act) {
-    __shared__ __align__(16) float xs[kSK][kSP];
-    __shared__ __align__(16) float ys[kSK][kSP];
-    __shared__ __align__(16) float w1s[kSK][kSP];
-    __shared__ __align__(16) float w2s[kSK][kSP];
-    const int m0 = blockIdx.y * kSM, n0 = blockIdx.x * kSN;
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float z[4][4] = {}, g[4][4] = {};
-    for (int k0 = 0; k0 < W; k0 += kSK) {
-        for (int idx = threadIdx.x; idx < kSM * kSK; idx += kThreads) {
-            const int r = idx / kSK, kk = idx % kSK, k = k0 + kk;
-            const int m = m0 + r, n = n0 + r;
-            const bool mk = m < Tn && k < W;
-            xs[kk][r] = mk ? x[static_cast<size_t>(m) * W + k] : 0.f;
-            ys[kk][r] = mk ? dy[static_cast<size_t>(m) * W + k] : 0.f;
-            w1s[kk][r] = n < H && k < W ? w1[static_cast<size_t>(n) * W + k] : 0.f;
-            const int kr = idx / kSN, nc = idx % kSN;
-            w2s[kr][nc] = k0 + kr < W && n0 + nc < H
-                              ? w2[static_cast<size_t>(k0 + kr) * H + n0 + nc]
-                              : 0.f;
+__global__ void __launch_bounds__(kTcThreads, 1)
+mlp_bwd_split(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
+              const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap w2map,
+              const float* __restrict__ b1, float* __restrict__ h, float* __restrict__ dz,
+              float* __restrict__ db1_part, int T, int Wp, int H, int Hp, int act) {
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* base = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    // stage s: x, dY, W1 parts [3][128][32] at part slots 0-2, 3-5, 6-8;
+    // W2's parts [3][4 atoms][32 of W][32 of H] at slots 9-11
+    uint64_t* full = reinterpret_cast<uint64_t*>(base + kSStages * kSStage);
+    uint64_t* empty = full + kSStages;
+    const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+    const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+    const int n_k = ceil_div(Wp, kSK);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kSStages; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);
         }
-        __syncthreads();
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {
+        // ---- producer warp: lane 0 keeps the ring full ----
+        if (tid == 0) {
+            for (int j = 0; j < n_k; ++j) {
+                const int s = j % kSStages;
+                uint8_t* st = base + s * kSStage;
+                mbar_wait(&empty[s], ((j / kSStages) & 1) ^ 1);
+                mbar_expect_tx(&full[s], kSStage);
 #pragma unroll
-        for (int kk = 0; kk < kSK; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&w1s[kk][tx * 4]);
-            const float4 c = *reinterpret_cast<const float4*>(&ys[kk][ty * 4]);
-            const float4 d = *reinterpret_cast<const float4*>(&w2s[kk][tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-            const float cv[4] = {c.x, c.y, c.z, c.w}, dv[4] = {d.x, d.y, d.z, d.w};
+                for (int p = 0; p < 3; ++p) {
+                    tma_load_3d(st + p * kSPart, &xmap, &full[s], j * kSK, m0, p);
+                    tma_load_3d(st + (3 + p) * kSPart, &ymap, &full[s], j * kSK, m0, p);
+                    tma_load_3d(st + (6 + p) * kSPart, &w1map, &full[s], j * kSK, n0, p);
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    z[i][j] += av[i] * bv[j];
-                    g[i][j] += cv[i] * dv[j];
+                    for (int a = 0; a < kBN / 32; ++a)
+                        tma_load_3d(st + (9 + p) * kSPart + a * kSK * 64, &w2map, &full[s],
+                                    n0 + 32 * a, j * kSK, p);
                 }
+            }
         }
-        __syncthreads();
+        return;
     }
+
+    // ---- consumer warpgroup: rows m0 + 64 wg .. + 64 ----
+    const int lane = tid % 32;
+    float z[kBN / 2], g[kBN / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty * 4 + i;
-        if (m >= Tn) continue;
+    for (int i = 0; i < kBN / 2; ++i) z[i] = g[i] = 0.f;
+    const uint32_t s0 = smem_addr(base);
+    for (int j = 0; j < n_k; ++j) {
+        const int s = j % kSStages;
+        const uint32_t st = s0 + s * kSStage;
+        mbar_wait(&full[s], (j / kSStages) & 1);
+        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx * 4 + j;
-            if (n >= H) continue;
-            float hv, d;
-            act_grad(z[i][j] + b1[n], act, hv, d);
-            const size_t o = static_cast<size_t>(m) * H + n;
-            h[o] = hv;
-            dz[o] = g[i][j] * d;
+        for (int t = 0; t < kSplitTerms; ++t)
+#pragma unroll
+            for (int kk = 0; kk < kSK / 16; ++kk) {   // k16 steps: 32 bytes into the swizzled rows
+                const uint32_t a_off = split_part(t, 0) * kSPart + wg * 64 * kSK * 2 + kk * 32;
+                const uint32_t b_part = split_part(t, 1) * kSPart;
+                WgmmaSS<kBN>::run(z, gmma_desc(st + a_off, 16, 8 * kSK * 2, 2),
+                                  gmma_desc(st + 6 * kSPart + b_part + kk * 32, 16, 8 * kSK * 2, 2),
+                                  1);
+                // W2's tile MN-major: 16 rows of W a step, its four 32-column
+                // atoms kSK * 64 bytes apart
+                WgmmaSSMn128::run(g, gmma_desc(st + 3 * kSPart + a_off, 16, 8 * kSK * 2, 2),
+                                  gmma_desc(st + 9 * kSPart + b_part + kk * 16 * 64, kSK * 64,
+                                            8 * 64, 2),
+                                  1);
+            }
+        wgmma_commit();
+        wgmma_wait<1>();   // step j - 1's products are done: release its stage
+        if (j > 0) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[(j - 1) % kSStages]);
         }
     }
+    wgmma_wait<0>();
+    fence_operand(z);
+    fence_operand(g);
+    epilogue(z, g, base, b1, h, dz, db1_part, T, H, Hp, m0, n0, act, wg, tid);
 }
 
 }  // namespace mbwd
@@ -360,19 +431,46 @@ extern "C" int rv_fused_mlp_bwd_tc(const void* x, const void* w1, const void* b1
     return (int)cudaGetLastError();
 }
 
-// fp32 x, dy [T, W], w1 [H, W], b1 [H], w2 [W, H], contiguous; h, dz [T, H]
-// fp32 out; any shape.
-extern "C" int rv_fused_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
-                                const void* dy, void* h, void* dz, int T, int W, int H, int act,
-                                void* stream) {
+extern "C" {
+int rv_split_parts(const void* x, void* out, int rows, int cols, int out_rows, int pitch,
+                   int parts, int dtype, void* stream);   // fused_mlp.cu
+}
+
+// fp32 x, dy [T, W] (contiguous, any alignment); w1p [3][H][Wp] and w2p
+// [3][W][Hp], the weights' parts (ops/fused_mlp.py::split_mlp_weights; Wp,
+// Hp: W, H rounded up to 8); b1 [H] fp32; scratch xp, dyp [3][T][Wp] bf16;
+// h, dz [T, Hp] fp32 out (the pad columns zero); db1_part [ceil(T / 128),
+// Hp] fp32 out: each 128-row tile's column sums of dz. The parts, the
+// scratch, h and dz 16-byte aligned. w_pitch, h_pitch: the caller's Wp and
+// Hp, the pitches it allocated the parts, scratch and outputs at, which
+// must be this file's (else unsupported, nothing written). Three launches:
+// the split pass of x and of dY (rv_split_parts), then the kernel.
+extern "C" int rv_fused_mlp_bwd_split(const void* x, const void* w1p, const void* b1,
+                                      const void* w2p, const void* dy, void* xp, void* dyp,
+                                      void* h, void* dz, void* db1_part, int T, int W, int H,
+                                      int act, int w_pitch, int h_pitch, void* stream) {
     using namespace rv::mbwd;
     if (T < 0 || W < 1 || H < 1 || (act != kGelu && act != kQuickGelu)) return rv::kUnsupported;
+    const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    if (!(a16(w1p) && a16(w2p) && a16(xp) && a16(dyp) && a16(h) && a16(dz)))
+        return rv::kUnsupported;
+    const int Wp = (W + 7) / 8 * 8, Hp = (H + 7) / 8 * 8;
+    if (w_pitch != Wp || h_pitch != Hp) return rv::kUnsupported;
     if (T == 0) return 0;
-    const dim3 grid(rv::ceil_div(H, kSN), rv::ceil_div(T, kSM));
-    mlp_bwd_simt<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2),
-        static_cast<const float*>(dy), static_cast<float*>(h), static_cast<float*>(dz), T, W, H,
-        act);
-    return static_cast<int>(cudaGetLastError());
+    int status = rv_split_parts(x, xp, T, W, T, Wp, 3, rv::kFloat32, stream);
+    if (status == 0) status = rv_split_parts(dy, dyp, T, W, T, Wp, 3, rv::kFloat32, stream);
+    if (status != 0) return status;
+    CUtensorMap xm, ym, w1m, w2m;
+    using rv::tc::make_map_parts;
+    if (!make_map_parts(&xm, xp, Wp, T, kBM) || !make_map_parts(&ym, dyp, Wp, T, kBM) ||
+        !make_map_parts(&w1m, w1p, Wp, H, kBN) || !make_map_parts(&w2m, w2p, Hp, W, kSK))
+        return rv::tc::kMapError;
+    cudaError_t err = cudaFuncSetAttribute(mlp_bwd_split,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(rv::ceil_div(Hp, kBN), rv::ceil_div(T, kBM));
+    mlp_bwd_split<<<grid, kTcThreads, kSSmem, static_cast<cudaStream_t>(stream)>>>(
+        xm, ym, w1m, w2m, static_cast<const float*>(b1), static_cast<float*>(h),
+        static_cast<float*>(dz), static_cast<float*>(db1_part), T, Wp, H, Hp, act);
+    return (int)cudaGetLastError();
 }

@@ -41,16 +41,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, cos, sin, o, lse, B, S, W, heads, kv_valid, scale, use_rope, stream
     "rv_flash_heads_tc": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, cos, sin, o, B, S, W, heads, kv_valid, scale, use_rope, stream
-    "rv_flash_heads_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, dO, cos, sin, dq, dk, dv, lse, D, B, S, W, heads, kv_valid, scale,
-    # use_rope, dtype, stream
-    "rv_flash_heads_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, cos, sin, o, lse, B, S, W, heads, kv_valid, scale, use_rope, stream
+    "rv_flash_heads_split": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, o, dO, lse, cos, sin, qr, kr, D, dq, dk, dv, B, S, W, heads,
     # kv_valid, scale, use_rope, stream
     "rv_flash_heads_bwd_tc": [_P] * 14 + [_I] * 5 + [_F, _I, _P],
-    # x, w1, b1, w2, dy, h, dz, T, W, H, act, stream (fp32)
-    "rv_fused_mlp_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, o, dO, lse, cos, sin, parts, D, dq, dk, dv, B, S, W, heads,
+    # kv_valid, scale, use_rope, dtype, parts' pitch, stream
+    "rv_flash_heads_bwd_parts": [_P] * 13 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    # x, w1 parts, b1, w2 parts, dy, x parts, dy parts, h, dz, db1 partials, T, W,
+    # H, act, W's pitch, H's pitch, stream (fp32)
+    "rv_fused_mlp_bwd_split": [_P] * 10 + [_I] * 6 + [_P],
     # x, w1, b1, w2, dy, h, dz, db1 partials, T, W, H, act, stream (bf16)
     "rv_fused_mlp_bwd_tc": [_P] * 8 + [_I] * 4 + [_P],
     # x, w1, b1, w2, b2, h, out, T, W, H, act, stream
@@ -111,10 +112,10 @@ ptxas_log: dict[str, str] = {}
 # the fp32 top-k's query parts). `flash_heads_bwd` and `fused_mlp_bwd`
 # count the backward kernels of K3 and K4 (one per backward call), and one
 # counter per route says which: `flash_heads_bwd_tc` and `fused_mlp_bwd_tc`
-# the bf16 wgmma + TMA kernels (K3's is three kernels a call, K4's one),
-# `flash_heads_bwd_cuda_core` and `fused_mlp_bwd_cuda_core` the CUDA-core
-# kernels (fp32; K3 in bf16 at head dims the tensor-core route does not
-# take; two kernels a call for K3, one for K4).
+# the bf16 wgmma + TMA kernels (K3's is three kernels a call, K4's one;
+# widths TMA cannot take on zero-padded copies), `flash_heads_bwd_split`
+# and `fused_mlp_bwd_split` the same kernels' fp32 split mode (K3's three
+# kernels a call; K4's the split pass of x and dY, then the kernel).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
@@ -123,8 +124,7 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn_relbias_split": 0, "fused_mlp_tc": 0, "topk_stream_f32": 0,
             "flash_heads_split": 0, "fused_mlp_split": 0, "split_parts": 0,
             "flash_heads_bwd": 0, "fused_mlp_bwd": 0, "flash_heads_bwd_tc": 0,
-            "flash_heads_bwd_cuda_core": 0, "fused_mlp_bwd_tc": 0,
-            "fused_mlp_bwd_cuda_core": 0}
+            "flash_heads_bwd_split": 0, "fused_mlp_bwd_tc": 0, "fused_mlp_bwd_split": 0}
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,

@@ -36,13 +36,17 @@ on the CPU.
 Gradients: with grad mode on and an input that requires grad, a CUDA call
 of `flash_attention_heads` goes through `FlashHeadsFunction`, whose forward
 is the launch above and whose backward is a kernel too, by the rule in
-`heads_bwd_route`: bf16 at head dims % 16 == 0, <= 128 on the wgmma + TMA
-kernels (`rv_flash_heads_bwd_tc`, `csrc/flash_heads_bwd_tc.cu`), which read
-the forward's output and each row's log-sum-exp (the forward writes it
-for this route); the rest on the CUDA cores (`rv_flash_heads_bwd`,
-`csrc/flash_heads_bwd.cu`). `flash_attention_heads_grad_ref` is the plain
-gradient, and `flash_attention_heads_grad_tc_ref` spells out the
-tensor-core route's arithmetic. The JAX package has no backward for its
+`heads_bwd_route`: the wgmma + TMA kernels of `csrc/flash_heads_bwd_tc.cu`
+at every head dim <= 128, which read the forward's output and each row's
+log-sum-exp (the forward writes it under autograd): bf16 at head dims %
+16 == 0 with aligned bases on q, k, v and dO as they are
+(`rv_flash_heads_bwd_tc`), fp32 on their split mode (three bf16 parts a
+value, six products, as the fp32 forward) and bf16 at other head dims or
+bases on zero-padded copies (`rv_flash_heads_bwd_parts`, which writes the
+operands' parts in a prep pass). `flash_attention_heads_grad_ref` is the
+plain gradient; `flash_attention_heads_grad_tc_ref` and
+`flash_attention_heads_grad_split_ref` spell out the bf16 and fp32
+routes' arithmetic. The JAX package has no backward for its
 Pallas kernels, so these replace none. A CUDA call of `flash_attention` (K6, K7) under grad
 raises: its gradient is ROADMAP queue 1 item 20c. On the CPU both entries
 run their plain versions, which PyTorch differentiates itself.
@@ -56,6 +60,8 @@ import torch
 from .. import kernels
 from .rope import _rotate_half_axial, rotate, wide
 from .split import split_matmul
+
+_LOG2E = 1.4426950408889634   # the kernels' log-sum-exp is in base 2
 
 
 def heads_route(device_type: str, dtype: torch.dtype, head_dim: int,
@@ -81,16 +87,22 @@ def heads_route(device_type: str, dtype: torch.dtype, head_dim: int,
 def heads_bwd_route(device_type: str, dtype: torch.dtype, head_dim: int,
                     aligned: bool = True) -> str:
     """Which implementation serves the backward of a `flash_attention_heads`
-    call: "plain" for CPU tensors; on the card "tensor_core" for bf16 at
-    head_dim % 16 == 0, <= 128 with 16-byte aligned q, k and v (`aligned`):
-    the wgmma + TMA kernels, whose forward keeps each row's log-sum-exp;
-    "cuda_core" for fp32 and bf16 at other head dims or bases. A rule
-    between kernels by dtype and shape, not a fallback."""
+    call: "plain" for CPU tensors; on the card the wgmma + TMA kernels,
+    whose forward keeps each row's log-sum-exp: "tensor_core" for bf16 at
+    head_dim % 16 == 0, <= 128 with 16-byte aligned q, k and v (`aligned`),
+    read as they are; "tensor_core_padded" for bf16 at other head dims or
+    bases, and "split" for fp32 (three bf16 parts a value) at any head dim
+    and base, on the parts a prep pass writes with the head dim
+    zero-padded to a multiple of 16. Head dims above 128 keep their route,
+    and its kernel refuses them. A rule between kernels by dtype and
+    shape, not a fallback."""
     if device_type == "cpu":
         return "plain"
-    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128 and aligned:
+    if dtype != torch.bfloat16:
+        return "split"
+    if head_dim % 16 == 0 and head_dim <= 128 and aligned:
         return "tensor_core"
-    return "cuda_core"
+    return "tensor_core_padded"
 
 
 def attention_route(device_type: str, dtype: torch.dtype, head_dim: int,
@@ -220,12 +232,15 @@ def flash_attention_heads_ref(q, k, v, *, heads: int, cos=None, sin=None,
 
 def flash_attention_heads_split_ref(q, k, v, *, heads: int, cos=None, sin=None,
                                     scale: Optional[float] = None,
-                                    kv_valid: Optional[int] = None):
+                                    kv_valid: Optional[int] = None,
+                                    return_lse: bool = False):
     """Plain version of the split mode on [B, S, W] (fp32 on the tensor
     cores): q and k rotated in fp32 as the reference rotates them, the
     scale folded into q, then both products as the six bf16 products of
     three-way splits (`split_matmul`), a one-pass softmax with p = exp(s -
-    max) kept in fp32, o = (p v) / l in fp32. Used by the tests and
+    max) kept in fp32, o = (p v) / l in fp32. With `return_lse`, (o, lse):
+    each query row's log-sum-exp of the scores in base 2, [B * heads, S]
+    fp32, as the kernel's `lse` output holds it. Used by the tests and
     `chip_smoke.py` against the kernel; no path of the port calls it."""
     b, s, w = q.shape
     hd = w // heads
@@ -239,10 +254,15 @@ def flash_attention_heads_split_ref(q, k, v, *, heads: int, cos=None, sin=None,
     kv = s if kv_valid is None else min(int(kv_valid), s)
     if kv < s:
         sc[..., kv:] = float("-inf")
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
     l = p.sum(dim=-1, keepdim=True)
     o = split_matmul(p, vh) / l
-    return o.transpose(1, 2).reshape(b, s, w)
+    o = o.transpose(1, 2).reshape(b, s, w)
+    if not return_lse:
+        return o
+    lse = (m + torch.log(l)) * _LOG2E
+    return o, lse.reshape(b * heads, s)
 
 
 def _table(t, shape, device) -> torch.Tensor:
@@ -327,6 +347,45 @@ def flash_attention_heads_grad_tc_ref(q, k, v, do, *, heads: int, cos=None, sin=
     return tuple(t.to(dt).transpose(1, 2).reshape(b, s, w) for t in (dq, dk, dv))
 
 
+def flash_attention_heads_grad_split_ref(q, k, v, do, *, heads: int, cos=None, sin=None,
+                                         scale: Optional[float] = None,
+                                         kv_valid: Optional[int] = None):
+    """Plain version of the split-mode backward's arithmetic
+    (`rv_flash_heads_bwd_parts`, fp32 on the tensor cores) on [B, S, W] q,
+    k, v and the output gradient `do`; returns (dq, dk, dv) in fp32. The
+    forward's output as the split forward computes it
+    (`flash_attention_heads_split_ref`), D = rowsum(do * o); qr = rot(q) *
+    scale (q * scale without RoPE) and kr = rot(k) in fp32, as the split
+    forward folds the scale into q; every product the six bf16 products of
+    its operands' three-way splits (`split_matmul`): s = qr kr^T, each
+    row's log-sum-exp, P = exp(s - lse) and dS = P (do v^T - D) in fp32 (P
+    and dS split like any operand), dq = rot^T(scale dS kr), dk =
+    rot^T(dS^T qr), dv = P^T do."""
+    b, s, w = q.shape
+    hd = w // heads
+    scale = float(scale) if scale is not None else hd ** -0.5
+    kv = s if kv_valid is None else min(int(kv_valid), s)
+    o = flash_attention_heads_split_ref(q, k, v, heads=heads, cos=cos, sin=sin, scale=scale,
+                                        kv_valid=kv_valid)
+    qh, kh, vh, doh, oh = (_split(t.float(), heads) for t in (q, k, v, do, o))
+    if cos is not None:
+        qr, kr = rotate(qh, cos, sin, scale), rotate(kh, cos, sin)
+    else:
+        qr, kr = qh * scale, kh
+    sc = split_matmul(qr, kr.transpose(-1, -2))
+    if kv < s:
+        sc[..., kv:] = float("-inf")
+    p = torch.exp(sc - torch.logsumexp(sc, dim=-1, keepdim=True))
+    d = (doh * oh).sum(-1, keepdim=True)
+    ds = p * (split_matmul(doh, vh.transpose(-1, -2)) - d)
+    dq = split_matmul(ds, kr) * scale
+    dk = split_matmul(ds.transpose(-1, -2), qr)
+    dv = split_matmul(p.transpose(-1, -2), doh)
+    if cos is not None:
+        dq, dk = _rot_t(dq, cos, sin), _rot_t(dk, cos, sin)
+    return tuple(t.transpose(1, 2).reshape(b, s, w) for t in (dq, dk, dv))
+
+
 def _aligned16(*tensors) -> bool:
     """Whether every base is 16-byte aligned, as TMA needs."""
     return all(t.data_ptr() % 16 == 0 for t in tensors)
@@ -350,9 +409,9 @@ def _heads_launch(q, k, v, heads: int, tables: tuple, scale: float, kv: int,
                   lse: Optional[torch.Tensor] = None):
     """K3's forward on the card: contiguous q, k, v [B, S, W] of one dtype,
     `tables` () or the (cos, sin) [S, hd] fp32 tables on the card. `lse`,
-    [B * heads, S] fp32 (bf16 only), takes each query row's log-sum-exp in
-    base 2, log2(sum_k 2^(s_k * log2(e))) of the scores s (scaled), for the
-    tensor-core backward."""
+    [B * heads, S] fp32, takes each query row's log-sum-exp in base 2,
+    log2(sum_k 2^(s_k * log2(e))) of the scores s (scaled), for the
+    tensor-core backward (bf16) or its split mode (fp32)."""
     b, s, w = q.shape
     kernels.require_cuda("flash_attention_heads", q, k, v, *tables,
                          *(() if lse is None else (lse,)))
@@ -362,16 +421,17 @@ def _heads_launch(q, k, v, heads: int, tables: tuple, scale: float, kv: int,
     use_rope = bool(tables)
     route = heads_route(q.device.type, q.dtype, w // heads, _aligned16(q, k, v))
     split = route == "split"
-    if lse is not None and (split or lse.shape != (b * heads, s) or lse.dtype != torch.float32):
-        raise ValueError("flash_attention_heads: lse is [B * heads, S] fp32, bf16 only")
+    if lse is not None and (lse.shape != (b * heads, s) or lse.dtype != torch.float32):
+        raise ValueError("flash_attention_heads: lse is [B * heads, S] fp32")
     o = torch.empty_like(q)
     cos_p = tables[0].data_ptr() if use_rope else None
     sin_p = tables[1].data_ptr() if use_rope else None
     with torch.cuda.device(q.device):   # launch on the tensors' card
         if split:
             status = kernels.lib().rv_flash_heads_split(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p, o.data_ptr(), b, s, w,
-                heads, kv, scale, int(use_rope), kernels.stream_ptr(q.device))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p, o.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, s, w, heads, kv, scale,
+                int(use_rope), kernels.stream_ptr(q.device))
         else:
             status = kernels.lib().rv_flash_heads_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p, o.data_ptr(),
@@ -389,29 +449,27 @@ def _heads_launch(q, k, v, heads: int, tables: tuple, scale: float, kv: int,
 
 
 def _heads_bwd_launch(q, k, v, do, heads: int, tables: tuple, scale: float, kv: int,
-                      o: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None):
+                      o: torch.Tensor, lse: torch.Tensor):
     """K3's backward on the card: (dq, dk, dv) in q's dtype from the
-    forward's inputs and the output gradient, by `heads_bwd_route`. The
-    tensor-core route (`rv_flash_heads_bwd_tc`) also reads the forward's
-    output `o` and its `lse` ([B * heads, S] fp32); scratch made for the
-    call: D = rowsum(dO * O) [B * heads, S] fp32 and, with RoPE, the rotated
-    q and k [B, S, W]. The CUDA-core route (`rv_flash_heads_bwd`) makes
-    each row's log-sum-exp and D itself, into scratch of the same shape."""
+    forward's inputs, its output `o` and its `lse` ([B * heads, S] fp32)
+    and the output gradient, by `heads_bwd_route`. Scratch made for the
+    call: D = rowsum(dO * O) [B * heads, S] fp32; on the "tensor_core" route
+    with RoPE the rotated q and k [B, S, W] (`rv_flash_heads_bwd_tc`); on
+    "split" and "tensor_core_padded" the four operands' bf16 parts [4,
+    PARTS, B, S, heads * HD] (HD: the head dim rounded up to 16; PARTS 3 in
+    fp32, 1 in bf16; `rv_flash_heads_bwd_parts`)."""
     b, s, w = q.shape
+    hd = w // heads
     do = do.to(q.dtype).contiguous()
-    kernels.require_cuda("flash_attention_heads backward", q, k, v, do, *tables)
+    kernels.require_cuda("flash_attention_heads backward", q, k, v, do, o, lse, *tables)
     tables = tuple(t.clone() if t.data_ptr() % 16 else t for t in tables)
     use_rope = bool(tables)
-    route = heads_bwd_route(q.device.type, q.dtype, w // heads, _aligned16(q, k, v))
+    route = heads_bwd_route(q.device.type, q.dtype, hd, _aligned16(q, k, v))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsum = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
     cos_p = tables[0].data_ptr() if use_rope else None
     sin_p = tables[1].data_ptr() if use_rope else None
     if route == "tensor_core":
-        if o is None or lse is None:
-            raise ValueError("flash_attention_heads backward: the tensor-core route needs "
-                             "the forward's output and log-sum-exp")
-        kernels.require_cuda("flash_attention_heads backward", o, lse)
         do = do if _aligned16(do) else do.clone()   # TMA: a 16-byte aligned base
         rot = [torch.empty_like(q), torch.empty_like(k)] if use_rope else [None, None]
         with torch.cuda.device(q.device):   # launch on the tensors' card
@@ -421,18 +479,18 @@ def _heads_bwd_launch(q, k, v, do, heads: int, tables: tuple, scale: float, kv: 
                 *(None if t is None else t.data_ptr() for t in rot), dsum.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, w, heads, kv, scale,
                 int(use_rope), kernels.stream_ptr(q.device))
-        kernels.check("flash_attention_heads backward", status)
-        kernels.launches["flash_heads_bwd_tc"] += 1
     else:
-        lse_scratch = torch.empty_like(dsum)
+        n_parts, pitch = 3 if route == "split" else 1, heads * (-(-hd // 16) * 16)
+        parts = torch.empty((4, n_parts, b, s, pitch), dtype=torch.bfloat16, device=q.device)
         with torch.cuda.device(q.device):   # launch on the tensors' card
-            status = kernels.lib().rv_flash_heads_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), cos_p, sin_p,
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse_scratch.data_ptr(),
-                dsum.data_ptr(), b, s, w, heads, kv, scale, int(use_rope),
-                kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
-        kernels.check("flash_attention_heads backward", status)
-        kernels.launches["flash_heads_bwd_cuda_core"] += 1
+            status = kernels.lib().rv_flash_heads_bwd_parts(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), cos_p, sin_p, parts.data_ptr(), dsum.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, w, heads, kv, scale,
+                int(use_rope), kernels.DTYPE_CODES[q.dtype], pitch,
+                kernels.stream_ptr(q.device))
+    kernels.check("flash_attention_heads backward", status)
+    kernels.launches["flash_heads_bwd_split" if route == "split" else "flash_heads_bwd_tc"] += 1
     kernels.launches["flash_heads_bwd"] += 1
     kernels.shape_launches[("flash_heads_bwd", (b, s, w, heads, use_rope,
                                                 str(q.dtype)))] += 1
@@ -443,9 +501,9 @@ class FlashHeadsFunction(torch.autograd.Function):
     """K3 with its gradient: the forward launches the heads-in-lanes kernel
     (`_heads_launch`), the backward the kernels `heads_bwd_route` picks
     (`_heads_bwd_launch`). It saves q, k and v before RoPE and recomputes
-    the scores in the backward; on the tensor-core route the forward also
-    writes each row's log-sum-exp, which it saves with its output (the
-    output projection keeps that tensor anyway). On CPU tensors the forward
+    the scores in the backward; the forward also writes each row's
+    log-sum-exp, which it saves with its output (the output projection
+    keeps that tensor anyway). On CPU tensors the forward
     and the backward are the plain versions (the tower differentiates the
     plain forward itself there; this path is for `gradcheck`). Arguments
     after v: heads, the (cos, sin) tables or (None, None), the scale and
@@ -460,12 +518,9 @@ class FlashHeadsFunction(torch.autograd.Function):
                                              scale=scale, kv_valid=kv)
         tables = () if cos is None else (cos, sin)
         b, s, w = q.shape
-        lse = None
-        if heads_bwd_route(q.device.type, q.dtype, w // heads,
-                           _aligned16(q, k, v)) == "tensor_core":
-            lse = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
+        lse = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
         o = _heads_launch(q, k, v, heads, tables, scale, kv, lse)
-        ctx.save_for_backward(q, k, v, cos, sin, o if lse is not None else None, lse)
+        ctx.save_for_backward(q, k, v, cos, sin, o, lse)
         return o
 
     @staticmethod

@@ -31,11 +31,13 @@ at an unaligned base are copied first.
 Gradients: with grad mode on and an input that requires grad, a CUDA call
 of `fused_mlp` goes through `FusedMLPFunction`. Its forward is the launch
 above; its backward launches a kernel of `csrc/fused_mlp_bwd.cu` by the
-rule in `mlp_bwd_route` (bf16: `rv_fused_mlp_bwd_tc` on wgmma + TMA, which
-also writes db1's partial column sums; fp32: `rv_fused_mlp_bwd` on the CUDA
-cores), which recomputes z = x W1^T + b1 and writes h = act(z) and dz = (dY
-W2) * act'(z), and leaves the three weight-sized products and the other
-sums to `torch.matmul` and `sum`. `mlp_grad_ref` is its plain version. The int8
+rule in `mlp_bwd_route` (bf16: `rv_fused_mlp_bwd_tc` on wgmma + TMA; fp32:
+`rv_fused_mlp_bwd_split`, the same kernel on three bf16 parts a value, the
+forward's weight parts reused), which recomputes z = x W1^T + b1, writes h
+= act(z) and dz = (dY W2) * act'(z) and db1's partial column sums, and
+leaves the three weight-sized products and the other sums to
+`torch.matmul` and `sum`. `mlp_grad_ref` is its plain version, and
+`mlp_grad_split_ref` spells out the fp32 route's arithmetic. The int8
 mode (K5) has no gradient on the card yet (ROADMAP queue 1 item 20c): a
 CUDA call under grad raises.
 """
@@ -97,6 +99,38 @@ def mlp_split_ref(x, w1, b1, w2, b2, act: str = "gelu"):
     return split_matmul(h, w2.float().t()) + b2.float()
 
 
+def _act_grad(z: torch.Tensor, act: str) -> torch.Tensor:
+    """act'(z) in fp32, as the backward kernels compute it: the exact-erf
+    GELU's cdf(z) + z pdf(z), or quick-GELU's s + 1.702 z s (1 - s) with s =
+    sigmoid(1.702 z)."""
+    if act == "gelu":
+        return 0.5 * (1.0 + torch.erf(z * 0.7071067811865476)) \
+            + z * 0.3989422804014327 * torch.exp(-0.5 * z * z)
+    if act == "quick_gelu":
+        sg = torch.sigmoid(1.702 * z)
+        return sg + 1.702 * z * sg * (1.0 - sg)
+    raise ValueError(act)
+
+
+def mlp_grad_split_ref(x, w1, b1, w2, b2, dy, act: str = "gelu"):
+    """Plain version of the fp32 backward route's arithmetic
+    (`rv_fused_mlp_bwd_split`, then the wrapper's products) on [T, W] rows;
+    returns (dx, dw1, db1, dw2, db2) in fp32. Inside the kernel: z = x W1^T +
+    b1 and g = dY W2, each as the six bf16 products of three-way splits
+    (`split_matmul`), h = act(z) (the exact erf GELU) and dz = g * act'(z)
+    in fp32, db1 = dz's column sums; then the plain fp32 products dW2 = dY^T
+    h, dW1 = dz^T x and dx = dz W1 and db2 = dY's column sums. Used by the
+    tests and `chip_smoke.py` against the kernel; no path of the port calls
+    it."""
+    x, w1, b1, w2, dy = (t.float() for t in (x, w1, b1, w2, dy))
+    z = split_matmul(x, w1.t()) + b1
+    g = split_matmul(dy, w2)
+    h = _act(z, act)
+    dz = g * _act_grad(z, act)
+    return (torch.matmul(dz, w1), torch.matmul(dz.t(), x), dz.sum(0),
+            torch.matmul(dy.t(), h), dy.sum(0))
+
+
 def mlp_route(device_type: str, dtype: torch.dtype, width: int, hidden: int) -> str:
     """Which implementation serves a fused MLP call: "plain" for CPU
     tensors; on the card "tensor_core" for bf16 (the two wgmma + TMA GEMMs;
@@ -117,12 +151,13 @@ def mlp_bwd_route(device_type: str, dtype: torch.dtype, width: int, hidden: int)
     """Which implementation serves the backward of a fused MLP call:
     "plain" for CPU tensors; on the card "tensor_core" for bf16 (the wgmma +
     TMA kernel; widths and hidden sizes that are not multiples of 8 through
-    zero-padded copies: "tensor_core_padded"), "cuda_core" for fp32. A rule
-    between kernels by dtype and shape, not a fallback."""
+    zero-padded copies: "tensor_core_padded"), "split" for fp32 (the same
+    kernel on three bf16 parts a value, at any width). A rule between
+    kernels by dtype and shape, not a fallback."""
     if device_type == "cpu":
         return "plain"
     if dtype == torch.float32:
-        return "cuda_core"
+        return "split"
     if width % 8 == 0 and hidden % 8 == 0:
         return "tensor_core"
     return "tensor_core_padded"
@@ -270,23 +305,28 @@ def _mlp_launch(x2, w1, b1, w2, b2, act: str, parts: Optional[SplitMLPWeights]):
     return out
 
 
-def _mlp_bwd_launch(x2, w1, b1, w2, dy2, act: str):
+def _mlp_bwd_launch(x2, w1, b1, w2, dy2, act: str,
+                    parts: Optional[SplitMLPWeights] = None):
     """K4's backward kernel on the card, by `mlp_bwd_route`: h = act(z) and
     dz = (dY W2) * act'(z), both [T, H] in x's dtype, from z = x W1^T + b1
-    recomputed inside the kernel, and db1 = the column sums of dz in fp32.
-    In bf16 (`rv_fused_mlp_bwd_tc`) the kernel writes each 128-row tile's
-    column sums, [ceil(T / 128), H] fp32, which `sum(0)` adds in a fixed
-    order; at W or H % 8 != 0 it runs on zero-padded copies, as the
-    forward's "tensor_core_padded" route: the pad columns of x, dY and W1
-    add nothing to either product, and the pad columns of h, dz and db1
-    are cut off. In fp32 (`rv_fused_mlp_bwd`) db1 is dz's column sum."""
+    recomputed inside the kernel, and db1 = the column sums of dz in fp32,
+    from the kernel's per-128-row-tile column sums, [ceil(T / 128), H] fp32,
+    which `sum(0)` adds in a fixed order. In bf16 (`rv_fused_mlp_bwd_tc`) at
+    W or H % 8 != 0 it runs on zero-padded copies, as the forward's
+    "tensor_core_padded" route: the pad columns of x, dY and W1 add nothing
+    to either product, and the pad columns of h, dz and db1 are cut off. In
+    fp32 (`rv_fused_mlp_bwd_split`) it reads the weights' bf16 parts
+    (`parts`, the forward's; without them the split pass makes them on this
+    call) and splits x and dY itself into scratch of the call's shape; h
+    and dz come back at a pitch of H rounded up to 8 and are cut to H."""
     t, width = x2.shape
     hidden = w1.shape[0]
     dy2 = dy2.to(x2.dtype)
     route = mlp_bwd_route(x2.device.type, x2.dtype, width, hidden)
     wp, hp = width, hidden
-    if route == "tensor_core_padded":
+    if route != "tensor_core":
         wp, hp = round_pitch(width), round_pitch(hidden)
+    if route == "tensor_core_padded":
         x2, dy2 = F.pad(x2, (0, wp - width)), F.pad(dy2, (0, wp - width))
         w1, b1 = F.pad(w1, (0, wp - width, 0, hp - hidden)), F.pad(b1, (0, hp - hidden))
         w2 = F.pad(w2, (0, hp - hidden, 0, wp - width))
@@ -296,26 +336,37 @@ def _mlp_bwd_launch(x2, w1, b1, w2, dy2, act: str):
     kernels.require_cuda("fused_mlp backward", x2, w1, b1, w2, dy2)
     h = torch.empty((t, hp), dtype=x2.dtype, device=x2.device)
     dz = torch.empty_like(h)
-    tc = route != "cuda_core"
-    part = torch.empty((-(-t // 128), hp), dtype=torch.float32, device=x2.device) if tc else None
+    part = torch.empty((-(-t // 128), hp), dtype=torch.float32, device=x2.device)
     if t:
-        with torch.cuda.device(x2.device):   # launch on the tensors' card
-            if tc:
+        if route == "split":
+            if parts is None:
+                parts = split_mlp_weights(w1, w2)
+            elif parts.w1.shape != (3, hidden, wp) or parts.w2.shape != (3, width, hp):
+                raise ValueError(f"fused_mlp backward: weight parts {tuple(parts.w1.shape)}, "
+                                 f"{tuple(parts.w2.shape)} do not fit W {width}, H {hidden}")
+            w1p, w2p = (_aligned(p) for p in parts)
+            kernels.require_cuda("fused_mlp backward", x2, w1p, w2p)
+            # scratch, made for this call's shape: x's and dY's parts
+            xp, dyp = (torch.empty((3, t, wp), dtype=torch.bfloat16, device=x2.device)
+                       for _ in range(2))
+            with torch.cuda.device(x2.device):   # launch on the tensors' card
+                status = kernels.lib().rv_fused_mlp_bwd_split(
+                    x2.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
+                    dy2.data_ptr(), xp.data_ptr(), dyp.data_ptr(), h.data_ptr(), dz.data_ptr(),
+                    part.data_ptr(), t, width, hidden, ACT_CODES[act], wp, hp,
+                    kernels.stream_ptr(x2.device))
+        else:
+            with torch.cuda.device(x2.device):   # launch on the tensors' card
                 status = kernels.lib().rv_fused_mlp_bwd_tc(
                     x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                     dy2.data_ptr(), h.data_ptr(), dz.data_ptr(), part.data_ptr(), t, wp, hp,
                     ACT_CODES[act], kernels.stream_ptr(x2.device))
-            else:
-                status = kernels.lib().rv_fused_mlp_bwd(
-                    x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    dy2.data_ptr(), h.data_ptr(), dz.data_ptr(), t, wp, hp, ACT_CODES[act],
-                    kernels.stream_ptr(x2.device))
         kernels.check("fused_mlp backward", status)
         kernels.launches["fused_mlp_bwd"] += 1
-        kernels.launches["fused_mlp_bwd_tc" if tc else "fused_mlp_bwd_cuda_core"] += 1
+        kernels.launches["fused_mlp_bwd_split" if route == "split" else "fused_mlp_bwd_tc"] += 1
         kernels.shape_launches[("fused_mlp_bwd", (t, width, hidden, act,
                                                   str(x2.dtype)))] += 1
-    db1 = part.sum(0) if tc else dz.sum(0)
+    db1 = part.sum(0)
     if hp != hidden:
         h, dz, db1 = h[:, :hidden].contiguous(), dz[:, :hidden].contiguous(), db1[:hidden]
     return h, dz, db1
@@ -329,14 +380,16 @@ class FusedMLPFunction(torch.autograd.Function):
     in JAX) and db2 as a column sum in fp32. It saves x, W1, b1 and W2 and
     recomputes z in the backward. The gradients go to the tensors passed in
     (the tower passes its parameters cast to the activation dtype);
-    `parts`, the fp32 route's cached bf16 parts, get none. On CPU tensors
+    `parts`, the fp32 route's cached bf16 parts, get none, and the fp32
+    backward reads them again (the weights do not change between a
+    forward and its backward). On CPU tensors
     the forward and the backward are the plain versions (for `gradcheck`).
     Arguments after b2: the activation and the fp32 route's weight parts or
     None."""
 
     @staticmethod
     def forward(ctx, x2, w1, b1, w2, b2, act, parts):
-        ctx.act = act
+        ctx.act, ctx.parts = act, parts
         ctx.save_for_backward(x2, w1, b1, w2, b2)
         if x2.device.type == "cpu":
             return mlp_ref(x2, w1, b1, w2, b2, act=act)
@@ -349,7 +402,7 @@ class FusedMLPFunction(torch.autograd.Function):
             return (*mlp_grad_ref(x2, w1, b1, w2, b2, dy, act=ctx.act), None, None)
         need = ctx.needs_input_grad
         dy = dy.to(x2.dtype)
-        h, dz, db1 = _mlp_bwd_launch(x2, w1, b1, w2, dy, ctx.act)
+        h, dz, db1 = _mlp_bwd_launch(x2, w1, b1, w2, dy, ctx.act, ctx.parts)
         dx = torch.matmul(dz, w1) if need[0] else None
         dw1 = torch.matmul(dz.t(), x2) if need[1] else None
         db1 = db1.to(b1.dtype) if need[2] else None

@@ -11,10 +11,15 @@ bf16 at Q = 64 with 10% of the rows kept, K9 at Q = 256, K10 at Q = 64
 forwards at B = 64 in bf16 and int8 and at B = 8 in fp32
 (`chip_smoke.py::profiled`: host wall, device busy, output hash) and the
 32-image region build (`chip_smoke.py::region_run`). With --scans, the
-top-k scans alone (a change to csrc/topk_stream.cu). Prints one line,
-RESULT {json}.
+top-k scans alone (a change to csrc/topk_stream.cu). With --bwd, the
+backward rows alone (a change to the backward kernels): K3's backward at
+B = 2, S = 577, W = 1024, 16 heads with RoPE in fp32 and at B = 16 in
+bf16, K4's backward at T = 9232, 1024 -> 4096 -> 1024, gelu, in fp32
+(the kernel's call alone and the whole backward under autograd, with the
+weights' parts as the tower caches them where the tree takes them) and in
+bf16, each with a hash of its gradients. Prints one line, RESULT {json}.
 
-    python3 scripts/compare_trees.py [tree root] [--scans]
+    python3 scripts/compare_trees.py [tree root] [--scans | --bwd]
 
 Run a parent checkout and the change in turns in one call (parent,
 change, change, parent): equal hashes mean equal outputs bit for bit.
@@ -31,8 +36,9 @@ import os
 import sys
 import tempfile
 
-ARGS = [a for a in sys.argv[1:] if a != "--scans"]
+ARGS = [a for a in sys.argv[1:] if a not in ("--scans", "--bwd")]
 SCANS = "--scans" in sys.argv[1:]
+BWD = "--bwd" in sys.argv[1:]
 ROOT = os.path.abspath(ARGS[0] if ARGS else
                        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -68,6 +74,10 @@ def main() -> int:
         torch.cuda.synchronize()
         res[name] = [round(cs.cuda_ms(fn, iters=iters), 4), digest(out)]
 
+    if BWD:
+        bwd_rows(torch, attn, mlp, r, row, bf16)
+        print("RESULT " + json.dumps(res), flush=True)
+        return 0
     if not SCANS:
         kernel_rows(torch, attn, mlp, kernels, r, row, bf16)
     scan_rows(torch, r, row, bf16)
@@ -113,6 +123,41 @@ def kernel_rows(torch, attn, mlp, kernels, r, row, bf16):
 
     row("k6_split", k6_split, iters=5)
     del q, k, v, bias, o
+    torch.cuda.empty_cache()
+
+
+def bwd_rows(torch, attn, mlp, r, row, bf16):
+    """K3's and K4's backward through the tree's autograd Functions, fp32
+    and bf16, at phase T's shapes; each row the gradients' hash."""
+    import inspect
+
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_2d_tables(24, 64))
+    for name, b, dt in (("k3_bwd_f32_b2", 2, torch.float32), ("k3_bwd_bf16_b16", 16, bf16)):
+        leaves = [r(b, 577, 1024, dt=dt).requires_grad_(True) for _ in range(3)]
+        do = r(b, 577, 1024, dt=dt)
+        out = attn.flash_attention_heads(*leaves, heads=16, cos=cos, sin=sin)
+        row(name, lambda: torch.cat([g.flatten() for g in torch.autograd.grad(
+            out, leaves, do, retain_graph=True)]))
+        del leaves, do, out
+    w, hid, t = 1024, 4096, 9232
+    for suffix, dt in (("f32", torch.float32), ("bf16", bf16)):
+        x, dy = r(t, w, dt=dt), r(t, w, dt=dt)
+        w1, b1 = r(hid, w, sc=w ** -0.5, dt=dt), r(hid, sc=0.1, dt=dt)
+        w2, b2 = r(w, hid, sc=hid ** -0.5, dt=dt), r(w, sc=0.1, dt=dt)
+        parts = mlp.split_mlp_weights(w1, w2) if dt == torch.float32 else None
+        extra = [parts] if "parts" in inspect.signature(mlp._mlp_bwd_launch).parameters else []
+        row(f"k4_bwd_kernel_{suffix}", lambda: torch.cat(
+            [o.flatten().float() for o in mlp._mlp_bwd_launch(x, w1, b1, w2, dy, "gelu",
+                                                              *extra)]))
+        leaves = [z.clone().requires_grad_(True) for z in (x, w1, b1, w2, b2)]
+        y = mlp.fused_mlp(*leaves, act="gelu", parts=parts)
+        row(f"k4_bwd_whole_{suffix}", lambda: torch.cat([g.flatten().float() for g in
+                                                        torch.autograd.grad(
+                                                            y, leaves, dy, retain_graph=True)]),
+            iters=10)
+        del x, dy, w1, b1, w2, b2, parts, leaves, y
     torch.cuda.empty_cache()
 
 

@@ -11,8 +11,9 @@ spill bytes of the dq and dk / dv kernels at head dim 64 printed). The
 port's own library runs K3's forward, which writes each row's
 log-sum-exp. Then each variant's `rv_flash_heads_bwd_tc` runs at PE-L14's
 training shape (B = 16, S = 577, W = 1024, 16 heads of 64) and at PE-G14's
-head dim (B = 4, S = 1025, W = 1536, 16 heads of 96), bf16, RoPE tables
-on the card: its time by CUDA events after a device sleep
+head dim (B = 4, S = 1025, W = 1536, 16 heads of 96) in bf16, and its
+`rv_flash_heads_bwd_parts` in fp32 (the split mode) at B = 2, S = 577,
+W = 1024, RoPE tables on the card: its time by CUDA events after a device sleep
 (`chip_smoke.py::cuda_ms`, the median of 5 repeats of 20 calls), each
 kernel's device time (`chip_smoke.py::kernel_times`) and its error
 against the autograd of the plain forward (max over dq, dk, dv of the
@@ -21,11 +22,13 @@ max abs error over max(1, the largest plain value)).
 The variants: the loops with parts left out, for where the time goes
 (the results are wrong): the exponentials and the dS arithmetic, the RS
 products (dq, dv, dk), the SS products (S, dP), all three, the dk / dv
-producer's lse and D loads (zeros), the epilogues' stores; and the CTA
-shapes the shipped kernels choose between by head dim (`Cfg`): two
-consumer warpgroups (128 rows) in one CTA an SM at every head dim, and
-one consumer warpgroup a CTA with two CTAs an SM at every head dim (a
-two-stage ring above head dim 80, so that two fit an SM). Names on the
+producer's lse and D loads (zeros), the epilogues' stores (each of
+these in both modes); and the CTA shapes the shipped kernels choose
+between by head dim (`Cfg`): in bf16 two consumer warpgroups (128 rows)
+in one CTA an SM at every head dim, and one consumer warpgroup a CTA
+with two CTAs an SM at every head dim (a two-stage ring above head dim
+80, so that two fit an SM); in the split mode one CTA an SM at head dim
+64 (a four-stage ring) for the shipped two. Names on the
 command line pick variants (default: all). Prints the card and one JSON
 line per variant. Needs a CUDA card and nvcc.
 """
@@ -49,23 +52,29 @@ SKIP_MATH = [(head, head + "        return;\n") for head in (
 VARIANTS = {
     "shipped": [],
     "skip_math": SKIP_MATH,
-    "skip_rs": [("pv_tile<HD, kRows, 1>(", "if (false) pv_tile<HD, kRows, 1>(")],
-    "skip_ss": [("qk_tile<HD, kRows, 1>(", "if (false) qk_tile<HD, kRows, 1>(")],
-    "skip_all": SKIP_MATH + [("pv_tile<HD, kRows, 1>(", "if (false) pv_tile<HD, kRows, 1>("),
-                             ("qk_tile<HD, kRows, 1>(", "if (false) qk_tile<HD, kRows, 1>(")],
-    "stats_const": [("nl[h] = row < p.S ? p.lse[srow + row] : CUDART_INF_F;", "nl[h] = 0.f;"),
-                    ("nd[h] = row < p.S ? p.dsum[srow + row] : 0.f;", "nd[h] = 0.f;")],
-    "skip_store": [("store_rows<HD>(p.d", "if (false) store_rows<HD>(p.d")],
-    "two_wgs_one_cta": [("NWG = HD <= 80 ? 1 : 2;", "NWG = 2;"),
-                        ("CTAS = HD <= 80 ? 2 : 1;", "CTAS = 1;")],
-    "one_wg_two_ctas": [("NWG = HD <= 80 ? 1 : 2;", "NWG = 1;"),
-                        ("CTAS = HD <= 80 ? 2 : 1;", "CTAS = 2;"),
-                        ("STAGES = 4;", "STAGES = HD <= 80 ? 4 : 2;")],
+    "skip_rs": [("pv_tile<HD, BK, PARTS>(", "if (false) pv_tile<HD, BK, PARTS>(")],
+    "skip_ss": [("qk_tile<HD, BK, PARTS>(", "if (false) qk_tile<HD, BK, PARTS>(")],
+    "skip_all": SKIP_MATH + [("pv_tile<HD, BK, PARTS>(", "if (false) pv_tile<HD, BK, PARTS>("),
+                             ("qk_tile<HD, BK, PARTS>(", "if (false) qk_tile<HD, BK, PARTS>(")],
+    "stats_const": [("nl[r] = row < p.S ? p.lse[srow + row] : CUDART_INF_F;", "nl[r] = 0.f;"),
+                    ("nd[r] = row < p.S ? p.dsum[srow + row] : 0.f;", "nd[r] = 0.f;")],
+    "skip_store": [("store_out<HD, PARTS>(p.d", "if (false) store_out<HD, PARTS>(p.d")],
+    "two_wgs_one_cta": [("NWG = !SPLIT && HD > 80 ? 2 : 1;", "NWG = !SPLIT ? 2 : 1;"),
+                        ("CTAS = (SPLIT ? HD <= 64 : HD <= 80) ? 2 : 1;",
+                         "CTAS = (SPLIT ? HD <= 64 : false) ? 2 : 1;")],
+    "one_wg_two_ctas": [("NWG = !SPLIT && HD > 80 ? 2 : 1;", "NWG = 1;"),
+                        ("CTAS = (SPLIT ? HD <= 64 : HD <= 80) ? 2 : 1;",
+                         "CTAS = (SPLIT ? HD <= 64 : true) ? 2 : 1;"),
+                        ("STAGES = !SPLIT ? 4 :", "STAGES = !SPLIT ? (HD <= 80 ? 4 : 2) :")],
+    "split_one_cta": [("CTAS = (SPLIT ? HD <= 64 : HD <= 80) ? 2 : 1;",
+                       "CTAS = (SPLIT ? false : HD <= 80) ? 2 : 1;")],
 }
-# (name, B, S, W, heads): PE-L14's training shape and PE-G14's head dim 96
-SHAPES = (("PE-L14", 16, 577, 1024, 16), ("PE-G14", 4, 1025, 1536, 16))
+# (name, B, S, W, heads, dtype): PE-L14's training shape and PE-G14's head
+# dim 96 in bf16, the fp32 tower's at B = 2
+SHAPES = (("PE-L14", 16, 577, 1024, 16, "bfloat16"), ("PE-G14", 4, 1025, 1536, 16, "bfloat16"),
+          ("PE-L14 fp32", 2, 577, 1024, 16, "float32"))
 # variants whose results are the shipped kernel's
-EXACT = ("shipped", "two_wgs_one_cta", "one_wg_two_ctas")
+EXACT = ("shipped", "two_wgs_one_cta", "one_wg_two_ctas", "split_one_cta")
 
 
 def nvcc() -> str:
@@ -92,17 +101,17 @@ def start_build(name: str, work: str) -> dict:
 
 def ptxas_usage(log: str) -> dict:
     """Registers and spill bytes of the dq and dk / dv kernels at head dims
-    64 and 96."""
+    64 and 96, bf16 (<hd, 1>) and the split mode (<hd, 3>)."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn = m.group(1)
             continue
-        m = re.search(r"hbwd\d+(dq_kernel|dkv_kernel)ILi(64|96)E", fn or "")
+        m = re.search(r"hbwd\d+(dq_kernel|dkv_kernel)ILi(64|96)ELi(\d)E", fn or "")
         if not m:
             continue
-        key = f"{m.group(1)}<{m.group(2)}>"
+        key = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
         m2 = re.search(r"(\d+) bytes spill stores", line)
         if m2:
             out.setdefault(key, {})["spill_stores"] = int(m2.group(1))
@@ -135,19 +144,29 @@ def main() -> int:
         builds = {name: start_build(name, work) for name in names}
         dev = torch.device("cuda")
         cases = []
-        for shape, b, s, w, heads in SHAPES:
+        for shape, b, s, w, heads, dtype in SHAPES:
             gen = torch.Generator(device="cuda").manual_seed(1)
             hd = w // heads
-            q, k, v, do = (torch.randn(b, s, w, generator=gen, device=dev).to(torch.bfloat16)
+            dt = getattr(torch, dtype)
+            q, k, v, do = (torch.randn(b, s, w, generator=gen, device=dev).to(dt)
                            for _ in range(4))
             c, sn = rope_2d_tables(int(np.sqrt(s - 1)), hd, cls_token=True)
             cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(sn).to(dev)
             lse = torch.empty((b * heads, s), dtype=torch.float32, device=dev)
             o = _heads_launch(q, k, v, heads, (cos, sin), hd ** -0.5, s, lse)
             refs = flash_attention_heads_grad_ref(q, k, v, do, heads=heads, cos=cos, sin=sin)
+            dsum = torch.empty_like(lse)
+            if dt == torch.bfloat16:   # rv_flash_heads_bwd_tc's scratch: qr, kr, D
+                entry, scratch = "rv_flash_heads_bwd_tc", (torch.empty_like(q),
+                                                           torch.empty_like(k), dsum)
+            else:   # rv_flash_heads_bwd_parts': the operands' parts, D
+                pitch = heads * (-(-hd // 16) * 16)
+                entry, scratch = "rv_flash_heads_bwd_parts", (torch.empty(
+                    (4, 3, b, s, pitch), dtype=torch.bfloat16, device=dev), dsum)
             cases.append(dict(
                 shape=shape, dims=(b, s, w, heads), ins=(q, k, v, o, do, lse, cos, sin),
-                scratch=(torch.empty_like(q), torch.empty_like(k), torch.empty_like(lse)),
+                entry=entry, scratch=scratch,
+                extra=() if dt == torch.bfloat16 else (kernels.DTYPE_CODES[dt], pitch),
                 grads=[torch.empty_like(q) for _ in range(3)], refs=refs))
         for name in names:
             build = builds[name]
@@ -157,23 +176,25 @@ def main() -> int:
                 row["build_error"] = (out + err)[-2000:]
                 print(json.dumps(row), flush=True)
                 continue
-            fn = ctypes.CDLL(build["lib"]).rv_flash_heads_bwd_tc
-            fn.argtypes = kernels._SIGNATURES["rv_flash_heads_bwd_tc"]
-            fn.restype = ctypes.c_int
+            lib = ctypes.CDLL(build["lib"])
+            for entry in ("rv_flash_heads_bwd_tc", "rv_flash_heads_bwd_parts"):
+                getattr(lib, entry).argtypes = kernels._SIGNATURES[entry]
+                getattr(lib, entry).restype = ctypes.c_int
             for case in cases:
                 b, s, w, heads = case["dims"]
+                fn = getattr(lib, case["entry"])
 
                 def call():
                     kernels.check(name, fn(
                         *(t.data_ptr() for t in case["ins"]),
                         *(t.data_ptr() for t in case["scratch"]),
                         *(t.data_ptr() for t in case["grads"]), b, s, w, heads, s,
-                        (w // heads) ** -0.5, 1, kernels.stream_ptr(dev)))
+                        (w // heads) ** -0.5, 1, *case["extra"], kernels.stream_ptr(dev)))
 
                 call()
                 torch.cuda.synchronize()
-                res = dict(ms=float(np.median([cuda_ms(call, iters=20) for _ in range(5)])),
-                           kernels_ms=kernel_times(torch, call, "hbwd"))
+                res = dict(ms=float(np.median([cuda_ms(call, iters=20) for _ in range(5)])))
+                res["kernels_ms"], res["kernels_ms_check"] = kernel_times(torch, call, res["ms"])
                 if name in EXACT:
                     call()
                     res["max_err"] = max(

@@ -1165,13 +1165,16 @@ def _assert_grads_close(outs, refs, dtype):
 ])
 def test_flash_heads_bwd_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     """K3's backward through `flash_attention_heads` under autograd, against
-    `flash_attention_heads_grad_ref`; one backward launch, on the route
-    `heads_bwd_route` names (bf16 at head dims % 16 == 0: the wgmma + TMA
-    kernels; the rest on the CUDA cores), and the forward on the same
-    kernel as without grad."""
+    `flash_attention_heads_grad_ref` (fp32 also against the split route's
+    plain version); one backward launch, on the route `heads_bwd_route`
+    names (the wgmma + TMA kernels: bf16 at head dims % 16 == 0 on the
+    inputs, at other head dims on zero-padded copies; fp32 at every head
+    dim on their split mode) and on no other route's counter, and the
+    forward on the same kernel as without grad."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (flash_attention_heads,
                                                   flash_attention_heads_grad_ref,
+                                                  flash_attention_heads_grad_split_ref,
                                                   heads_bwd_route)
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
@@ -1195,13 +1198,18 @@ def test_flash_heads_bwd_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
     assert kernels.launches["flash_heads"] - before["flash_heads"] == 1
     assert kernels.launches["flash_heads_bwd"] - before["flash_heads_bwd"] == 1
     route = heads_bwd_route("cuda", dtype, w // heads)
-    assert route == ("tensor_core" if dtype == torch.bfloat16 and (w // heads) % 16 == 0
-                     else "cuda_core")
-    counter = "flash_heads_bwd_tc" if route == "tensor_core" else "flash_heads_bwd_cuda_core"
+    assert route == ("split" if dtype == torch.float32 else
+                     "tensor_core" if (w // heads) % 16 == 0 else "tensor_core_padded")
+    counter = "flash_heads_bwd_split" if route == "split" else "flash_heads_bwd_tc"
+    other = "flash_heads_bwd_tc" if route == "split" else "flash_heads_bwd_split"
     assert kernels.launches[counter] - before[counter] == 1
+    assert kernels.launches[other] - before[other] == 0
     _assert_close(out.detach(), flash_attention_heads(q, k, v, **kw), 0.0)
     refs = flash_attention_heads_grad_ref(q, k, v, do, **kw)
     _assert_grads_close([t.grad for t in leaves], refs, dtype)
+    if route == "split":
+        split = flash_attention_heads_grad_split_ref(q, k, v, do, **kw)
+        _assert_grads_close([t.grad for t in leaves], split, dtype)
     if kv_valid is not None:   # keys past kv_valid get no gradient
         assert not leaves[1].grad[:, kv_valid:].any() and not leaves[2].grad[:, kv_valid:].any()
 
@@ -1220,12 +1228,13 @@ def test_flash_heads_bwd_kernel(dev, dtype, b, s, w, heads, kv_valid, rope):
 def test_fused_mlp_bwd_kernel(dev, dtype, t, w, hid, act):
     """K4's backward (the kernel `mlp_bwd_route` names, then the three
     products and db2's sum) through `fused_mlp` under autograd, against
-    `mlp_grad_ref`; one backward launch on that route. db1 from the bf16
-    kernel's per-tile partials equals the column sum of its own dz (fp32,
-    another order)."""
+    `mlp_grad_ref` (fp32 also against `mlp_grad_split_ref`); one backward
+    launch on that route and none on the other. db1 from the kernel's
+    per-tile partials equals the column sum of its own dz (fp32, another
+    order)."""
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.fused_mlp import (_mlp_bwd_launch, fused_mlp, mlp_bwd_route,
-                                                 mlp_grad_ref)
+                                                 mlp_grad_ref, mlp_grad_split_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(t + w)
     x, dy = _randn(gen, t, w, dtype=dtype), _randn(gen, t, w, dtype=dtype)
@@ -1238,12 +1247,17 @@ def test_fused_mlp_bwd_kernel(dev, dtype, t, w, hid, act):
     assert kernels.launches["fused_mlp"] - before["fused_mlp"] == 1
     assert kernels.launches["fused_mlp_bwd"] - before["fused_mlp_bwd"] == 1
     route = mlp_bwd_route("cuda", dtype, w, hid)
-    assert route == ("cuda_core" if dtype == torch.float32 else
+    assert route == ("split" if dtype == torch.float32 else
                      "tensor_core" if w % 8 == 0 and hid % 8 == 0 else "tensor_core_padded")
-    counter = "fused_mlp_bwd_cuda_core" if route == "cuda_core" else "fused_mlp_bwd_tc"
+    counter = "fused_mlp_bwd_split" if route == "split" else "fused_mlp_bwd_tc"
+    other = "fused_mlp_bwd_tc" if route == "split" else "fused_mlp_bwd_split"
     assert kernels.launches[counter] - before[counter] == 1
+    assert kernels.launches[other] - before[other] == 0
     refs = mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act)
     _assert_grads_close([p.grad for p in leaves], refs, dtype)
+    if route == "split":
+        split = mlp_grad_split_ref(x, w1, b1, w2, b2, dy, act=act)
+        _assert_grads_close([p.grad for p in leaves], split, dtype)
     _, dz, db1 = _mlp_bwd_launch(x, w1, b1, w2, dy, act)
     want = dz.float().sum(0)
     assert db1.dtype == torch.float32 and db1.shape == (hid,)
@@ -1290,6 +1304,43 @@ def test_flash_heads_forward_lse(dev, b, s, w, heads, kv_valid, rope):
     want = torch.logsumexp(sc[..., :kv], dim=-1).reshape(b * heads, s) / float(np.log(2.0))
     err = (lse - want).abs() / want.abs().clamp(min=1.0)
     print(f"lse: max error {float(err.max()):.3e} of max(1, |lse|) (tolerance 1e-5)")
+    assert float(err.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("b,s,w,heads,kv_valid,rope", [
+    (2, 17, 64, 4, None, True),        # test-tiny: hd 16
+    (2, 577, 1024, 16, 300, True),     # PE-L14 widths, kv_valid < S
+    (2, 145, 1024, 16, None, False),   # CLIP family: the scale folded into q
+    (2, 577, 1152, 16, None, True),    # hd 72: padded to 80
+])
+def test_flash_heads_split_forward_lse(dev, b, s, w, heads, kv_valid, rope):
+    """K3's fp32 forward (the split mode) with its `lse` output: each row's
+    log-sum-exp (base 2) against the split plain version's
+    (`flash_attention_heads_split_ref(return_lse=True)`), within 1e-5 of
+    max(1, |lse|); the output bit for bit as without the pointer."""
+    from reverso_tpu_torch.ops.attention import _heads_launch, flash_attention_heads_split_ref
+    from reverso_tpu_torch.ops.rope import rope_2d_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(s + w)
+    q, k, v = (_randn(gen, b, s, w, dtype=torch.float32) for _ in range(3))
+    hd = w // heads
+    kv = s if kv_valid is None else kv_valid
+    tables = ()
+    if rope:
+        g = max(1, int(np.sqrt(s - 1)))
+        c, sn = rope_2d_tables(g, hd, cls_token=True)
+        pad = max(s - c.shape[0], 0)
+        c = np.concatenate([c, np.ones((pad, hd), np.float32)])[:s]
+        sn = np.concatenate([sn, np.zeros((pad, hd), np.float32)])[:s]
+        tables = (torch.from_numpy(c).to(dev), torch.from_numpy(sn).to(dev))
+    lse = torch.empty((b * heads, s), dtype=torch.float32, device=dev)
+    out = _heads_launch(q, k, v, heads, tables, hd ** -0.5, kv, lse)
+    assert torch.equal(out, _heads_launch(q, k, v, heads, tables, hd ** -0.5, kv))
+    cos, sin = tables if rope else (None, None)
+    _, want = flash_attention_heads_split_ref(q, k, v, heads=heads, cos=cos, sin=sin,
+                                              kv_valid=kv_valid, return_lse=True)
+    err = (lse - want).abs() / want.abs().clamp(min=1.0)
+    print(f"split lse: max error {float(err.max()):.3e} of max(1, |lse|) (tolerance 1e-5)")
     assert float(err.max()) <= 1e-5
 
 

@@ -171,21 +171,24 @@ def test_mlp_grad_ref_matches_jax(act):
 @pytest.mark.parametrize("preset", sorted(PORT_PRESETS))
 def test_backward_routes_for_every_preset(preset):
     """The backward routes: every preset's bf16 tower trains on the wgmma
-    kernels (K3 at its head dim, K4 at its widths); fp32 and bf16 K3 at
-    head dims % 16 != 0 or unaligned bases on the CUDA cores; the CPU on
-    the plain versions."""
+    kernels (K3 at its head dim, K4 at its widths), its fp32 tower on their
+    split mode (K3 at any head dim and base, K4 at any width); bf16 K3 at
+    head dims % 16 != 0 or unaligned bases on the same kernels through
+    zero-padded copies; the CPU on the plain versions."""
     from reverso_tpu_torch.ops.attention import heads_bwd_route
     from reverso_tpu_torch.ops.fused_mlp import mlp_bwd_route
 
     cfg = PORT_PRESETS[preset]
     hd, hid = cfg.width // cfg.num_heads, int(cfg.width * cfg.mlp_ratio)
     assert heads_bwd_route("cuda", torch.bfloat16, hd) == "tensor_core"
-    assert heads_bwd_route("cuda", torch.bfloat16, hd, aligned=False) == "cuda_core"
-    assert heads_bwd_route("cuda", torch.bfloat16, hd + 8) == "cuda_core"
-    assert heads_bwd_route("cuda", torch.float32, hd) == "cuda_core"
+    assert heads_bwd_route("cuda", torch.bfloat16, hd, aligned=False) == "tensor_core_padded"
+    assert heads_bwd_route("cuda", torch.bfloat16, hd + 8) == "tensor_core_padded"
+    assert heads_bwd_route("cuda", torch.float32, hd) == "split"
+    assert heads_bwd_route("cuda", torch.float32, hd + 4, aligned=False) == "split"
     assert mlp_bwd_route("cuda", torch.bfloat16, cfg.width, hid) == "tensor_core"
     assert mlp_bwd_route("cuda", torch.bfloat16, cfg.width + 4, hid) == "tensor_core_padded"
-    assert mlp_bwd_route("cuda", torch.float32, cfg.width, hid) == "cuda_core"
+    assert mlp_bwd_route("cuda", torch.float32, cfg.width, hid) == "split"
+    assert mlp_bwd_route("cuda", torch.float32, cfg.width + 4, hid) == "split"
     for dtype in (torch.bfloat16, torch.float32):
         assert heads_bwd_route("cpu", dtype, hd) == "plain"
         assert mlp_bwd_route("cpu", dtype, cfg.width, hid) == "plain"

@@ -278,9 +278,8 @@ def test_wrappers_never_fall_back_for_device_tensors():
     ("flash_heads.cu", {"rv_flash_heads_tc"}),
     ("flash_heads_split.cu", {"rv_flash_heads_split"}),
     ("ivf_scan.cu", {"rv_ivf_scan", "rv_ivf_plan"}),
-    ("flash_heads_bwd.cu", {"rv_flash_heads_bwd"}),
-    ("flash_heads_bwd_tc.cu", {"rv_flash_heads_bwd_tc"}),
-    ("fused_mlp_bwd.cu", {"rv_fused_mlp_bwd", "rv_fused_mlp_bwd_tc"}),
+    ("flash_heads_bwd_tc.cu", {"rv_flash_heads_bwd_tc", "rv_flash_heads_bwd_parts"}),
+    ("fused_mlp_bwd.cu", {"rv_fused_mlp_bwd_split", "rv_fused_mlp_bwd_tc"}),
 ])
 def test_signatures_match_k5_k8_launchers(source, launchers):
     """The ctypes argument lists of the K3, K4/K5, K8 and K11 launchers and
