@@ -200,8 +200,20 @@ of which catches a failure:
      split routes, its first step held against the plain tower's;
      `reverso-torch train` for 2 steps and `--resume` (`train_run`); its
      numbers on a line `training (T) numbers: {...}`;
-  7e. K3 and K4 in bf16 at each shape the direct-embed, CLIP loader and
-     entry-point paths ran them at, each held against its plain version;
+  7TM. training on a mesh (TM, `mesh_train_run`): `ClipTrainer(cfg, mesh)`
+     at PE-Core-L14-336 on a 2 x 2 data x model mesh of the one card,
+     seeded as phase T: 5 bf16 AdamW steps on the same views (K3, K4 and
+     their backward kernels 192 times a step on every model shard's 8
+     heads and 2048 hidden units; the loss falling), its first step's
+     gradient within 1.5x the one-device bf16 step's distance from the
+     plain fp32 tower's, a checkpoint resumed bit for bit, the fp32 tower
+     on the mesh against one device within 1e-4, and `reverso-torch
+     --device cuda:0 train --tp 2`; its numbers on a line `training on a
+     mesh (TM) numbers: {...}`;
+  7e. K3 and K4 in bf16 and fp32 at each shape the direct-embed, CLIP
+     loader, entry-point and training paths ran them at, each held against
+     its plain version; their backward rows at each shape phases T and TM
+     ran them at, in a process of their own (`backward_kernel_times`);
   8. the top-k scans (K1 from the direct-embed and CLIP paths, K1 and K2
      on fp32 rows from the parity slice and the float32 store, K1 and K2 at
      the euclid phases' padded rows in bf16 and fp32, K2, K9 and K10 from
@@ -214,8 +226,8 @@ of which catches a failure:
 Every kernel must have launched on its path (counts reset just before a
 path and read just after it). A "redesign order" line ranks the kernels
 by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2
-(bf16 and fp32 rows), K3 and K4 (bf16 and fp32), K5, K8, K9, K10, K11
-and K12 at. The line before the last is the card's name and power limit, the
+(bf16 and fp32 rows), K3 and K4 (bf16 and fp32, forward and backward),
+K5, K8, K9, K10, K11 and K12 at. The line before the last is the card's name and power limit, the
 one before that a JSON object with one entry per kernel, the one before
 that phase U's numbers (after phase S's and B's); the last line is
 {"ok": true, "device": {...}}.
@@ -1372,7 +1384,7 @@ def vit_f32_full() -> tuple:
                            device="cuda").encode_image(imgs)
     cos = (emb * bf).sum(1)
     print(f"PE-L14-336 fp32 full depth, B=8: forward {prof['wall_ms']:.3f} ms, device busy "
-          f"{prof['busy_share']:.4f}; {json.dumps(prof)}; min cosine vs bf16 "
+          f"{prof['busy_share']}; {json.dumps(prof)}; min cosine vs bf16 "
           f"{float(cos.min())}, mean {float(cos.mean())}; launches by shape "
           f"{[(key, n) for key, n in shapes.items()]}, split pass {launches['split_parts']}",
           flush=True)
@@ -2042,6 +2054,9 @@ def sync_ms(torch, fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+# kernel_times: captured device time over the call's; profiled: the capture's span over
+# the call's
+KERNEL_SUM_RANGE = (0.8, 1.1)
 # kernel-name patterns of device time, in match order
 KERNEL_GROUPS = (("flash_heads_bwd (K3 backward)", "hbwd"),
                  ("fused_mlp_bwd (K4 backward)", "mbwd"),
@@ -2059,17 +2074,28 @@ KERNEL_GROUPS = (("flash_heads_bwd (K3 backward)", "hbwd"),
 def profiled(torch, fn) -> dict:
     """One profiled call of `fn` (after a warm-up call): device busy share
     of the host wall, device time by kernel group and each group's share
-    of the device time."""
+    of the device time. The capture is held as `kernel_times` holds its
+    own: the span of the captured device events (the first one's start to
+    the last one's end) must lie within KERNEL_SUM_RANGE of the call's span
+    by CUDA events recorded around it, or the busy share and the times are
+    None, with the reason under `capture_check` (a session that lost
+    events, all of them or at either end, reads short). The sum of kernel
+    times cannot be held against the call here: the call's idle gaps are
+    what the busy share measures."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         fn()
+        stop.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    call_ms = start.elapsed_time(stop)
     groups: dict = {}
     spans = []
     for ev in prof.events():
@@ -2079,14 +2105,25 @@ def profiled(torch, fn) -> dict:
         name = ev.name.lower()
         group = next((g for g, pat in KERNEL_GROUPS if pat.lower() in name), "other")
         groups[group] = groups.get(group, 0.0) + ev.time_range.elapsed_us() / 1e3
+    extent_ms = (max(e for _, e in spans) - min(b for b, _ in spans)) / 1e3 if spans else 0.0
+    ratio = extent_ms / call_ms
+    lo, hi = KERNEL_SUM_RANGE
+    capture = dict(extent_ms=extent_ms, call_ms=call_ms, ratio=ratio, reason=None)
+    if not lo <= ratio <= hi:
+        capture["reason"] = (f"the captured device events span {extent_ms:.3f} ms against the "
+                             f"call's {call_ms:.3f} ms by CUDA events ({ratio:.3f}x, outside "
+                             f"{lo}-{hi}x): a partial capture, not printed as measured")
+        return dict(wall_ms=wall_ms, device_busy_ms=None, busy_share=None, kernel_ms=None,
+                    kernel_share=None, capture_check=capture)
     busy, end = 0.0, float("-inf")
-    for start, stop in sorted(spans):          # union of device intervals
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
+    for b, e in sorted(spans):          # union of device intervals
+        busy += max(0.0, e - max(b, end))
+        end = max(end, e)
     busy_ms = busy / 1e3
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
                 kernel_ms={k: round(v, 3) for k, v in sorted(groups.items())},
-                kernel_share={k: round(v / busy_ms, 4) for k, v in sorted(groups.items())})
+                kernel_share={k: round(v / busy_ms, 4) for k, v in sorted(groups.items())},
+                capture_check=capture)
 
 
 def region_run(root: str) -> dict:
@@ -4354,6 +4391,16 @@ def entry_points_run(root: str) -> tuple:
 # optimizer's and not the kernels'
 TRAIN_LR = 1e-5
 WITNESS_LR = 1e-4
+BWD_COUNTERS = ("flash_heads_bwd", "fused_mlp_bwd")
+
+
+def train_views(torch, cfg) -> tuple:
+    """Phase T's two seeded views of B = 16 images on the card (a flip plus
+    noise, as the CLI makes them)."""
+    rng = np.random.default_rng(17)
+    a = rng.standard_normal((16, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    b = a[:, :, ::-1, :] + 0.02 * rng.standard_normal(a.shape).astype(np.float32)
+    return torch.from_numpy(a).cuda(), torch.from_numpy(np.ascontiguousarray(b)).cuda()
 
 
 @contextlib.contextmanager
@@ -4475,60 +4522,116 @@ def kernel_times(torch, fn, call_ms: float, calls: int = 5) -> tuple:
     return out, note
 
 
-KERNEL_SUM_RANGE = (0.8, 1.1)   # kernel_times: captured device time over the call's
+BWD_TOLS = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}   # train_kernel_checks' gates
 
 
-def backward_kernel_times(torch) -> dict:
-    """`python3 chip_smoke.py --backward-kernel-times`: the device time by
-    kernel (`kernel_times`) of the calls phase T times for the four
-    backward rows, on seeded inputs of the same shapes: K3's backward at B
-    = 16 in bf16 and at B = 2 in fp32 (S = 577, W = 1024, 16 heads with
-    RoPE), K4's backward kernel at T = 9232, 1024 -> 4096 -> 1024, gelu, in
-    bf16 and in fp32 (with the split passes of x and dY, the weights' parts
-    made once). Each is held against its own CUDA-event median, taken here
-    as `beside` takes it. Prints one JSON line {row: [times or None,
-    check]}. Run by `backward_kernel_times_apart`, a process of its own."""
-    from reverso_tpu_torch.ops.attention import _heads_bwd_launch, _heads_launch
-    from reverso_tpu_torch.ops.fused_mlp import _mlp_bwd_launch, split_mlp_weights
+def backward_row(key: tuple) -> str:
+    """The kernel row of a backward launch key (`kernels.shape_launches`):
+    flash_heads_bwd or fused_mlp_bwd, with _f32 for fp32."""
+    return key[0] + ("_f32" if key[1][-1] == "torch.float32" else "")
+
+
+def backward_case(torch, gen, key: tuple) -> dict:
+    """One backward launch key, ("flash_heads_bwd", (B, S, W, heads, rope,
+    dtype)) or ("fused_mlp_bwd", (T, W, H, act, dtype)), on seeded inputs
+    of that shape: its gradients held against the autograd of the plain
+    forward (each within BWD_TOLS of max(1, its largest plain value)); the
+    median of 5 CUDA-event times (`beside`): K3's backward call, K4's whole
+    backward (`torch.autograd.grad` through `FusedMLPFunction`) and its
+    kernel alone; the bound; the kernel call's device time by kernel
+    (`kernel_times`)."""
+    from reverso_tpu_torch.ops.attention import (_heads_bwd_launch, _heads_launch,
+                                                  flash_attention_heads_grad_ref)
+    from reverso_tpu_torch.ops.fused_mlp import (_mlp_bwd_launch, fused_mlp, mlp_grad_ref,
+                                                 split_mlp_weights)
     from reverso_tpu_torch.ops.rope import rope_2d_tables
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(43)
-    randn = lambda *shape, dtype, scale=1.0: (
-        torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+    name, shape = key
+    dt = shape[-1]
+    dtype = getattr(torch, dt.split(".")[-1])
+    size, rate = (2, "bfloat16") if dtype == torch.bfloat16 else (4, "float32_split")
+    randn = lambda *sh, scale=1.0: (torch.randn(*sh, generator=gen, device="cuda")
+                                    * scale).to(dtype)
+
+    def err_of(outs, refs):
+        return max(float((o.float() - r.float()).abs().max()) / max(1.0, float(r.float().abs().max()))
+                   for o, r in zip(outs, refs))
+
     out = {}
-    s, heads, w = 577, 16, 1024
-    hd = w // heads
-    c, sn = rope_2d_tables(24, hd, cls_token=True)
-    tables = (torch.from_numpy(c).to(dev), torch.from_numpy(sn).to(dev))
-    for name, dtype, b in (("flash_heads_bwd", torch.bfloat16, 16),
-                           ("flash_heads_bwd_f32", torch.float32, 2)):
-        q, k, v, do = (randn(b, s, w, dtype=dtype) for _ in range(4))
-        lse = torch.empty((b * heads, s), dtype=torch.float32, device=dev)
+    if name == "flash_heads_bwd":
+        b, s, w, heads, rope = shape[:5]
+        hd = w // heads
+        cos = sin = None
+        tables = ()
+        if rope:
+            cos, sin = (torch.from_numpy(a).cuda() for a in rope_2d_tables(
+                int(np.sqrt(s - 1)), hd, cls_token=True))
+            tables = (cos, sin)
+        q, k, v, do = (randn(b, s, w) for _ in range(4))
+        lse = torch.empty((b * heads, s), dtype=torch.float32, device="cuda")
         o = _heads_launch(q, k, v, heads, tables, hd ** -0.5, s, lse)
         call = lambda: _heads_bwd_launch(q, k, v, do, heads, tables, hd ** -0.5, s, o, lse)
-        out[name] = kernel_times(torch, call, beside(torch, {"ms": call})[0]["ms"])
-    t, hid = 16 * 577, 4096
-    for name, dtype in (("fused_mlp_bwd", torch.bfloat16), ("fused_mlp_bwd_f32", torch.float32)):
-        x, dy = randn(t, w, dtype=dtype), randn(t, w, dtype=dtype)
-        w1, b1 = randn(hid, w, dtype=dtype, scale=w ** -0.5), randn(hid, dtype=dtype, scale=0.1)
-        w2 = randn(w, hid, dtype=dtype, scale=hid ** -0.5)
+        out["max_abs_err"] = err_of(call(), flash_attention_heads_grad_ref(
+            q, k, v, do, heads=heads, cos=cos, sin=sin))
+        med, reps = beside(torch, {"ms": call})
+        out["shape"] = f"B={b} S={s} W={w} H={heads} {dt[6:]}{' RoPE' * bool(rope)}"
+        out["bound_ms"] = heads_bwd_bound(b, s, w, heads, size, rate)[0]
+        kernel_call = call
+    else:
+        t, w, hid, act = shape[:4]
+        x, dy = randn(t, w), randn(t, w)
+        w1, b1 = randn(hid, w, scale=w ** -0.5), randn(hid, scale=0.1)
+        w2, b2 = randn(w, hid, scale=hid ** -0.5), randn(w, scale=0.1)
         parts = split_mlp_weights(w1, w2) if dtype == torch.float32 else None
-        call = lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, "gelu", parts)
-        out[name] = kernel_times(torch, call, beside(torch, {"ms": call})[0]["ms"])
-    print(json.dumps(out), flush=True)
+        leaves = [p.clone().requires_grad_(True) for p in (x, w1, b1, w2, b2)]
+        y = fused_mlp(*leaves, act=act, parts=parts)
+        whole = lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        kernel_call = lambda: _mlp_bwd_launch(x, w1, b1, w2, dy, act, parts)
+        out["max_abs_err"] = err_of(whole(), mlp_grad_ref(x, w1, b1, w2, b2, dy, act=act))
+        med, reps = beside(torch, {"ms": whole, "kernel_ms": kernel_call})
+        out["shape"] = f"T={t} W={w} H={hid} {dt[6:]} {act}"
+        out["bound_ms"] = mlp_bwd_bound(t, w, hid, size, rate)[0]
+        out["kernel_bound_ms"] = mlp_bwd_bound(t, w, hid, size, rate, kernel_only=True)[0]
+        out["kernel_ms"], out["kernel_repeats_ms"] = med["kernel_ms"], reps["kernel_ms"]
+    out.update(ms=med["ms"], repeats_ms=reps["ms"], tolerance=BWD_TOLS[dt])
+    times, note = kernel_times(torch, kernel_call, med.get("kernel_ms", med["ms"]))
+    out.update(kernels_ms=times, kernels_ms_check=note)
+    return out
+
+
+def backward_kernel_times(torch, keys: list) -> int:
+    """`python3 chip_smoke.py --backward-kernel-times KEYS`: `backward_case`
+    for each backward launch key of the JSON list KEYS (the rows' own
+    shapes, then every shape a path launched them at). Prints one JSON
+    line [case, ...]. Run by `backward_kernel_times_apart`, a process of
+    its own: late in the whole script a profiler session has come back
+    with none or only part of a call's device events (in several runs on
+    an H100)."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    cases = []
+    for name, shape in keys:
+        cases.append(backward_case(torch, gen, (name, tuple(shape))))
+        torch.cuda.empty_cache()
+    print(json.dumps(cases), flush=True)
     return 0
 
 
-def backward_kernel_times_apart() -> dict:
+def backward_kernel_times_apart(keys) -> dict:
     """`backward_kernel_times` in a process of its own, on the library this
-    run built: {row: (times or None, check)}. Fails if it fails."""
+    run built: {key: case}. Fails if it fails, or if a case's error is
+    above its tolerance."""
+    keys = sorted(set(keys), key=str)
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--backward-kernel-times"], capture_output=True, text=True,
-                          timeout=300)
+                           "--backward-kernel-times", json.dumps(keys)],
+                          capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"--backward-kernel-times: rc {proc.returncode}: "
                                 f"{proc.stderr[-2000:]}")
-    return {name: tuple(v) for name, v in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
+    cases = dict(zip(keys, json.loads(proc.stdout.strip().splitlines()[-1])))
+    for key, case in cases.items():
+        check(case["max_abs_err"] <= case["tolerance"],
+              f"backward {key}: error {case['max_abs_err']} of max(1, |plain|) > "
+              f"{case['tolerance']}")
+    return cases
 
 
 def beside(torch, fns: dict, repeats: int = 5) -> tuple:
@@ -4568,12 +4671,11 @@ def train_kernel_checks(torch) -> dict:
     products and aten's gelu backward, and that route's part the kernel
     computes), the plain versions (the plain forward and its autograd; the
     split plain versions) and the bounds; K3's forward at B = 16 with and
-    without its log-sum-exp output, in turns; device time by kernel of the
-    four timed calls (`backward_kernel_times_apart`: None where the
-    profiler's capture does not add up to the call's time) and ptxas's
-    registers and spills of each backward
-    kernel. Returns the four kernel rows: flash_heads_bwd, fused_mlp_bwd
-    (bf16) and flash_heads_bwd_f32, fused_mlp_bwd_f32."""
+    without its log-sum-exp output, in turns; ptxas's registers and spills
+    of each backward kernel. Returns the four kernel rows: flash_heads_bwd,
+    fused_mlp_bwd (bf16) and flash_heads_bwd_f32, fused_mlp_bwd_f32 (`main`
+    adds each row's device time by kernel at its shape and its `by_shape`,
+    from `backward_kernel_times_apart`)."""
     import torch.nn.functional as F
     from reverso_tpu_torch import kernels
     from reverso_tpu_torch.ops.attention import (_heads_bwd_launch, _heads_launch,
@@ -4609,7 +4711,6 @@ def train_kernel_checks(torch) -> dict:
         return rel, tols[dtype]
 
     rows = {}
-    by_kernel = backward_kernel_times_apart()
     # (a) K3's backward
     s = 577
     errors, k3, routes = {}, {}, {}
@@ -4690,8 +4791,6 @@ def train_kernel_checks(torch) -> dict:
         forward_b16_ms=r["fwd_ms"], forward_b16_lse_ms=r["fwd_lse_ms"],
         forward_repeats_ms=k3[(bf16, "repeats")]["fwd_ms"],
         forward_lse_repeats_ms=k3[(bf16, "repeats")]["fwd_lse_ms"],
-        kernels_ms=by_kernel["flash_heads_bwd"][0],
-        kernels_ms_check=by_kernel["flash_heads_bwd"][1],
         ptxas={n: u for n, u in ptx.items() if not n.endswith(", 3>") and "split" not in n},
         errors={case: e for case, (e, _) in errors.items()})
     rows["flash_heads_bwd"]["bound_ms"], rows["flash_heads_bwd"]["bound_by"] = heads_bwd_bound(
@@ -4712,8 +4811,6 @@ def train_kernel_checks(torch) -> dict:
         library="SDPA's fp32 backward on [B, H, S, D] (no RoPE)", library_ms=r["library_ms"],
         repeats_ms=k3[(f32, "repeats")]["ms"],
         library_repeats_ms=k3[(f32, "repeats")]["library_ms"],
-        kernels_ms=by_kernel["flash_heads_bwd_f32"][0],
-        kernels_ms_check=by_kernel["flash_heads_bwd_f32"][1],
         ptxas={n: u for n, u in ptx.items() if n.endswith(", 3>") or "split" in n},
         errors={case: e for case, (e, _) in errors.items() if "float32" in case},
         split_plain_errors={case: k3[(case, "split_err")] for case in errors
@@ -4801,7 +4898,6 @@ def train_kernel_checks(torch) -> dict:
             repeats_ms=reps["ms"], library_repeats_ms=reps["library_ms"],
             kernel_repeats_ms=reps["kernel_ms"],
             kernel_library_repeats_ms=reps["kernel_library_ms"],
-            kernels_ms=by_kernel[name][0], kernels_ms_check=by_kernel[name][1],
             ptxas={n: u for n, u in ptx.items() if ("split" in n) == (dtype == f32)},
             errors={case: e for case, (e, _) in errors.items() if str(dtype)[6:] in case})
         if dtype == f32:
@@ -4817,9 +4913,8 @@ def train_kernel_checks(torch) -> dict:
           f"{k3r['forward_b16_lse_ms']}; K4 kernel {k4r['kernel_ms']} ms, whole {k4r['ms']} "
           f"(cuBLAS {k4r['library_ms']}); K4 fp32 kernel {k4f['kernel_ms']} ms (bound "
           f"{k4f['kernel_bound_ms']}, cuBLAS's part {k4f['kernel_library_ms']}), whole "
-          f"{k4f['ms']} (cuBLAS {k4f['library_ms']}, bound {k4f['bound_ms']}); by kernel "
-          f"{json.dumps(k3r['kernels_ms'])} {json.dumps(k3f['kernels_ms'])} "
-          f"{json.dumps(k4f['kernels_ms'])}; ptxas {json.dumps(k3r['ptxas'])} "
+          f"{k4f['ms']} (cuBLAS {k4f['library_ms']}, bound {k4f['bound_ms']}); "
+          f"ptxas {json.dumps(k3r['ptxas'])} "
           f"{json.dumps(k3f['ptxas'])} {json.dumps(k4r['ptxas'])} {json.dumps(k4f['ptxas'])}",
           flush=True)
     return rows
@@ -4845,7 +4940,8 @@ def train_run(root: str) -> tuple:
     `f32_train_run`: the fp32 tower on the split routes, forward and
     backward. Returns (rows, launches of (c), K3 and K4 forward launches of
     (c) by shape, numbers, launches of the fp32 run, its K3 and K4 forward
-    launches by shape)."""
+    launches by shape, the backward launches of (c) and the fp32 run by
+    shape)."""
     import io
     from contextlib import redirect_stderr, redirect_stdout
 
@@ -4861,10 +4957,7 @@ def train_run(root: str) -> tuple:
     cfg = MODEL_PRESETS["PE-Core-L14-336"]
     check((cfg.width, cfg.depth, cfg.num_heads, cfg.seq_len, cfg.dtype)
           == (1024, 24, 16, 577, "bfloat16"), f"PE-Core-L14-336: {cfg}")
-    rng = np.random.default_rng(17)
-    a = rng.standard_normal((16, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
-    b = a[:, :, ::-1, :] + 0.02 * rng.standard_normal(a.shape).astype(np.float32)
-    va, vb = torch.from_numpy(a).cuda(), torch.from_numpy(np.ascontiguousarray(b)).cuda()
+    va, vb = train_views(torch, cfg)
     t0 = time.perf_counter()
     tr = ClipTrainer(cfg, learning_rate=TRAIN_LR, seed=5)
     out["init_s"] = time.perf_counter() - t0
@@ -4880,6 +4973,8 @@ def train_run(root: str) -> tuple:
     shapes = {f"{key[0]} {key[1]}": n for key, n in kernels.shape_launches.items()}
     tc_shapes = {key: n for key, n in kernels.shape_launches.items()
                  if key[0] in ("flash_heads_tc", "fused_mlp_tc")}
+    bwd_shapes = collections.Counter({key: n for key, n in kernels.shape_launches.items()
+                                      if key[0] in BWD_COUNTERS})
     out.update(losses=losses, step_ms=step_ms,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches={k: n for k, n in launches.items() if n},
@@ -4941,8 +5036,9 @@ def train_run(root: str) -> tuple:
     check(all(np.isfinite(v).all() for v in witness.values())
           and abs(witness["kernels"][0] - witness["plain"][0]) <= 2e-2,
           f"witness at lr {WITNESS_LR}: {witness}")
-    out["f32"], f32_launches, f32_shapes = f32_train_run(torch, cfg, va[:F32_BATCH],
-                                                         vb[:F32_BATCH])
+    out["f32"], f32_launches, f32_shapes, f32_bwd_shapes = f32_train_run(
+        torch, cfg, va[:F32_BATCH], vb[:F32_BATCH])
+    bwd_shapes.update(f32_bwd_shapes)
     del va, vb
     torch.cuda.empty_cache()
 
@@ -4970,7 +5066,7 @@ def train_run(root: str) -> tuple:
           f"reverso-torch train: backward launches {cli_launches}")
     out["cli_launches"] = {k: n for k, n in cli_launches.items() if n}
     print(f"training (T) numbers: {json.dumps(out)}", flush=True)
-    return rows, launches, tc_shapes, out, f32_launches, f32_shapes
+    return rows, launches, tc_shapes, out, f32_launches, f32_shapes, bwd_shapes
 
 
 F32_BATCH = 4   # images a view in phase T's fp32 run
@@ -5031,8 +5127,9 @@ def f32_train_run(torch, cfg, va, vb) -> tuple:
     launches = dict(kernels.launches)
     split_shapes = {key: n for key, n in kernels.shape_launches.items()
                     if key[0] in ("flash_heads_split", "fused_mlp_split")}
-    bwd_shapes = {key for key in kernels.shape_launches
-                  if key[0] in ("flash_heads_bwd", "fused_mlp_bwd")}
+    bwd_counts = collections.Counter({key: n for key, n in kernels.shape_launches.items()
+                                      if key[0] in BWD_COUNTERS})
+    bwd_shapes = set(bwd_counts)
     out.update(losses=losses, step_ms=step_ms,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches={k: n for k, n in launches.items() if n},
@@ -5091,8 +5188,217 @@ def f32_train_run(torch, cfg, va, vb) -> tuple:
     out["profile_step"] = profiled(torch, lambda: tr.train_step(va, vb))
     del tr
     torch.cuda.empty_cache()
-    return out, launches, split_shapes
+    return out, launches, split_shapes, bwd_counts
 
+
+
+TM_SIZES = (2, 2)   # phase TM's mesh, data x model, on cuda:0 named four times
+TM_STEPS = 5
+
+
+def mesh_train_run(root: str) -> tuple:
+    """(TM) The trainer on a mesh: `ClipTrainer(cfg, mesh)` at
+    PE-Core-L14-336's full width and depth on `make_mesh(MeshConfig(
+    axis_sizes=TM_SIZES), devices=["cuda:0"] * 4)`, seeded as phase T
+    seeds it (seed 5, `train_views`). (a) bf16: TM_STEPS AdamW steps at
+    `TRAIN_LR` on two views of B = 16 (8 a data shard): each model shard
+    runs K3 on [8, 577, 512] with 8 heads and K4 at T = 4616, 1024 -> 2048
+    -> 1024, forward and backward, 2 views x 24 blocks x 4 shards = 192
+    launches a step of each, all on the tensor-core routes and at those
+    shapes (counts set to 0 just before, read just after); the loss finite
+    and falling; ms a step and the peak memory. (b) The bf16 witness: the
+    mesh trainer's first step starts from the one-device trainer's
+    weights (held equal bit for bit) and views; its gradient's distance
+    from the plain fp32 tower's (`plain_tower`, the fp32 one-device
+    trainer from the same seed), all leaves together over the norm, at
+    most 1.5x the one-device bf16 kernels' step's, and its loss's distance
+    likewise. (c) Its state saved, restored with `mesh=` into a mesh
+    trainer of another seed; the next step's loss of both equal bit for
+    bit; one step profiled (`profiled`). (d) The strict fp32 witness: the
+    fp32 tower on the same mesh (the split routes, 192 backward launches
+    of each) against the one-device fp32 trainer, the same weights and
+    views of B = F32_BATCH, one step: the loss within 1e-6 of
+    max(1, |one-device|), every gradient within 1e-4 of max(1, its
+    largest one-device value). (e) `reverso-torch --device cuda:0 train
+    --tp 2` (a 1 x 2 mesh of the card) for 2 steps of 16 on phase T's
+    photos. Returns (the launches of the mesh runs, their launches by
+    shape, numbers)."""
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+
+    import torch
+    from reverso_tpu_torch import cli, kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS, MeshConfig
+    from reverso_tpu_torch.parallel import make_mesh
+    from reverso_tpu_torch.train import ClipTrainer
+    from reverso_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+
+    cfg = MODEL_PRESETS["PE-Core-L14-336"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    va, vb = train_views(torch, cfg)
+    mesh = make_mesh(MeshConfig(axis_sizes=TM_SIZES),
+                     devices=["cuda:0"] * (TM_SIZES[0] * TM_SIZES[1]))
+    per_step = 2 * cfg.depth * mesh.size   # two views, one call a block and shard
+    launches, shapes = collections.Counter(), collections.Counter()
+    out = {"mesh": list(TM_SIZES)}
+
+    def counted(fn):
+        """fn() with the counts set to 0 just before and read just after:
+        (its result, its launches, its launches by shape), added to the
+        phase's."""
+        kernels.reset_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        launches.update(kernels.launches)
+        shapes.update(kernels.shape_launches)
+        return r, dict(kernels.launches), collections.Counter(kernels.shape_launches)
+
+    def grad_dist(grads, ref) -> float:
+        diff = sum(float((grads[n].to(g.device) - g).double().square().sum())
+                   for n, g in ref.items())
+        return (diff / sum(float(g.double().square().sum()) for g in ref.values())) ** 0.5
+
+    # (b) the witness's references from seed 5: the plain fp32 tower and the
+    # one-device bf16 kernels, first step
+    t0 = time.perf_counter()
+    t32 = ClipTrainer(cfg32, learning_rate=TRAIN_LR, seed=5)
+    with plain_tower():
+        loss_p, gp = t32.value_and_grad(va, vb)
+    loss_p, gp = float(loss_p), {n: g.detach().clone() for n, g in gp.items()}
+    t1 = ClipTrainer(cfg, learning_rate=TRAIN_LR, seed=5)
+    loss_1, g1 = t1.value_and_grad(va, vb)
+    loss_1, d1 = float(loss_1), grad_dist(g1, gp)
+    del g1
+    out["references_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tm = ClipTrainer(cfg, mesh, learning_rate=TRAIN_LR, seed=5)
+    out["init_s"] = time.perf_counter() - t0
+    same = tm.state.params
+    check(all(torch.equal(p, same[n]) for n, p in t1.module.named_parameters()),
+          "mesh trainer: seed 5's weights differ from the one-device trainer's")
+    del t1, same
+    torch.cuda.empty_cache()
+
+    # (a) the bf16 run; its first step by hand, to keep its gradients
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    losses, step_ms = [], []
+    for i in range(TM_STEPS):
+        t0 = time.perf_counter()
+        if i == 0:
+            loss_m, gm = tm.value_and_grad(va, vb)
+            tm.opt.step()
+            tm.step += 1
+            losses.append(float(loss_m))   # the loss reaches the host: a sync
+        else:
+            losses.append(tm.train_step(va, vb))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    run = dict(kernels.launches)
+    run_shapes = collections.Counter(kernels.shape_launches)
+    launches.update(run)
+    shapes.update(run_shapes)
+    out.update(losses=losses, step_ms=step_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step={k: n / TM_STEPS for k, n in run.items() if n})
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"mesh training: loss not finite and falling: {losses}")
+    b, s, w = va.shape[0] // TM_SIZES[0], cfg.seq_len, cfg.width // TM_SIZES[1]
+    heads, hid = cfg.num_heads // TM_SIZES[1], int(cfg.width * cfg.mlp_ratio) // TM_SIZES[1]
+    bf = "torch.bfloat16"
+    want = {("flash_heads_tc", (b, s, w, heads, True)),
+            ("fused_mlp_tc", (b * s, cfg.width, hid, "gelu")),
+            ("flash_heads_bwd", (b, s, w, heads, True, bf)),
+            ("fused_mlp_bwd", (b * s, cfg.width, hid, "gelu", bf))}
+    check(set(run_shapes) == want and all(n == TM_STEPS * per_step for n in run_shapes.values()),
+          f"mesh training: launches by shape {dict(run_shapes)}, not {TM_STEPS * per_step} "
+          f"at each of {want}")
+    for name in ("flash_heads", "flash_heads_tc", "flash_heads_bwd", "flash_heads_bwd_tc",
+                 "fused_mlp", "fused_mlp_tc", "fused_mlp_bwd", "fused_mlp_bwd_tc"):
+        check(run[name] == TM_STEPS * per_step,
+              f"mesh training: {name} launched {run[name]} times, not {TM_STEPS * per_step}")
+    for name in ("flash_heads_split", "fused_mlp_split", "flash_heads_bwd_split",
+                 "fused_mlp_bwd_split", "flash_attn", "fused_mlp_int8"):
+        check(run[name] == 0, f"mesh training: {name} launched {run[name]} times")
+    dm = grad_dist(gm, gp)
+    del gm
+    out.update(witness=dict(
+        plain_loss=loss_p, one_device_loss=loss_1, mesh_loss=float(loss_m),
+        one_device_grad_rel_err=d1, mesh_grad_rel_err=dm,
+        one_device_loss_err=abs(loss_1 - loss_p), mesh_loss_err=abs(float(loss_m) - loss_p)))
+    print(f"training on a {TM_SIZES[0]} x {TM_SIZES[1]} mesh: losses {losses}, ms a step "
+          f"{step_ms}, peak {out['peak_gb']:.2f} GB; first step against the plain fp32 tower: "
+          f"gradient error {dm:.4e} of its norm (one device, bf16: {d1:.4e}; limit 1.5x), "
+          f"loss {float(loss_m)} (one device {loss_1}, plain {loss_p})", flush=True)
+    check(dm <= 1.5 * d1, f"mesh witness: gradient error {dm} > 1.5 x the one-device {d1}")
+    check(abs(float(loss_m) - loss_p) <= 1.5 * abs(loss_1 - loss_p),
+          f"mesh witness: loss {float(loss_m)} vs plain {loss_p}, one device {loss_1}")
+
+    # (c) checkpoint on the mesh, then one step profiled
+    path = os.path.join(root, "tm_ckpt", "state.pt")
+    t0 = time.perf_counter()
+    save_train_state(path, tm.state)
+    out["save_s"] = time.perf_counter() - t0
+    t2 = ClipTrainer(cfg, mesh, learning_rate=TRAIN_LR, seed=6)
+    t0 = time.perf_counter()
+    t2.state = restore_train_state(path, t2.state, mesh=mesh)
+    out["restore_s"] = time.perf_counter() - t0
+    os.remove(path)
+    (after, restored), _, _ = counted(lambda: (tm.train_step(va, vb), t2.train_step(va, vb)))
+    out["next_loss"] = [after, restored]
+    check(after == restored and int(t2.step) == TM_STEPS + 1,
+          f"mesh checkpoint: next loss {restored} after the restore, {after} uninterrupted")
+    del t2
+    torch.cuda.empty_cache()
+    out["profile_step"], _, _ = counted(lambda: profiled(torch, lambda: tm.train_step(va, vb)))
+    del tm
+    torch.cuda.empty_cache()
+
+    # (d) the strict fp32 witness
+    fa, fb = va[:F32_BATCH], vb[:F32_BATCH]
+    loss_1, g1 = t32.value_and_grad(fa, fb)
+    loss_1, g1 = float(loss_1), {n: g.detach().clone() for n, g in g1.items()}
+    del t32
+    tm32 = ClipTrainer(cfg32, mesh, learning_rate=TRAIN_LR, seed=5)
+    (loss_m, gm), run, run_shapes = counted(lambda: tm32.value_and_grad(fa, fb))
+    leaf = {n: float((gm[n] - g).abs().max()) / max(1.0, float(g.abs().max()))
+            for n, g in g1.items()}
+    worst = max(leaf, key=leaf.get)
+    out["f32"] = dict(batch_a_view=F32_BATCH, loss=float(loss_m), one_device_loss=loss_1,
+                      loss_rel_err=abs(float(loss_m) - loss_1) / max(1.0, abs(loss_1)),
+                      grad_err=leaf[worst], worst_leaf=worst,
+                      launches={k: n for k, n in run.items() if n})
+    del tm32, gm, g1
+    torch.cuda.empty_cache()
+    print(f"fp32 on the mesh against one device (B = {F32_BATCH} a view): {out['f32']}",
+          flush=True)
+    for name in ("flash_heads_split", "flash_heads_bwd_split", "fused_mlp_split",
+                 "fused_mlp_bwd_split"):
+        check(run[name] == per_step, f"fp32 mesh step: {name} launched {run[name]} times")
+    check(run["flash_heads_bwd_tc"] == run["fused_mlp_bwd_tc"] == 0,
+          f"fp32 mesh step: bf16 backward routes launched {run}")
+    check(out["f32"]["loss_rel_err"] <= 1e-6 and leaf[worst] <= 1e-4,
+          f"fp32 mesh step: loss {float(loss_m)} vs {loss_1}, gradient {worst} {leaf[worst]} "
+          f"of max(1, |one device|)")
+
+    # (e) the command line on a 1 x 2 mesh of the card
+    folder = os.path.join(root, "train_images")
+    so, se = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(so), redirect_stderr(se):
+        rc, run, _ = counted(lambda: cli.main(["--device", "cuda:0", "train", folder, "--tp", "2",
+                                               "--steps", "2", "--batch-size", "16"]))
+    out["cli_s"] = time.perf_counter() - t0
+    out["cli_launches"] = {k: n for k, n in run.items() if n}
+    print(f"reverso-torch --device cuda:0 train --tp 2: rc {rc}; {se.getvalue().strip()!r}; "
+          f"{so.getvalue().strip()!r}", flush=True)
+    check(rc == 0 and "step 2/2 loss" in se.getvalue() and "final loss" in so.getvalue(),
+          f"reverso-torch train --tp 2: rc {rc}")
+    check(run["flash_heads_bwd_tc"] == run["fused_mlp_bwd_tc"] == 2 * 2 * cfg.depth * 2,
+          f"reverso-torch train --tp 2: backward launches {run}")
+    del va, vb
+    torch.cuda.empty_cache()
+    print(f"training on a mesh (TM) numbers: {json.dumps(out)}", flush=True)
+    return launches, shapes, out
 
 
 SHARDS = 4   # phase S's mesh: four shards on cuda:0
@@ -5376,9 +5682,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    if sys.argv[1:2] == ["--backward-kernel-times"]:   # phase T's child process
+    if sys.argv[1:2] == ["--backward-kernel-times"]:   # the backward rows' child process
         torch.backends.cuda.matmul.allow_tf32 = False
-        return backward_kernel_times(torch)
+        return backward_kernel_times(torch, json.loads(sys.argv[2]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -5472,16 +5778,36 @@ def main() -> int:
             "entry points (CLI, UI, video, text)", entry_points_run, root)
         torch.cuda.empty_cache()
         (train_rows, train_launches, train_tc_shapes, _, train_f32_launches,
-         train_f32_shapes) = phase("training (T)", train_run, root)
+         train_f32_shapes, train_bwd_shapes) = phase("training (T)", train_run, root)
         rows.update(train_rows)
+        torch.cuda.empty_cache()
+        mesh_launches, mesh_shapes, _ = phase("training on a mesh (TM)", mesh_train_run, root)
     torch.cuda.empty_cache()
+    of = lambda names: collections.Counter({key: n for key, n in mesh_shapes.items()
+                                            if key[0] in names})
     rows["fused_mlp_f32"]["by_shape"], rows["flash_heads_f32"]["by_shape"] = phase(
         "K3 and K4 fp32 at their paths' shapes", f32_path_shapes, torch,
-        {**f32_shapes, **long_f32_shapes}, tower_launches, train_f32_shapes)
+        {**f32_shapes, **long_f32_shapes}, tower_launches,
+        collections.Counter(train_f32_shapes) + of(("flash_heads_split", "fused_mlp_split")))
     rows["flash_heads"]["by_shape"], rows["fused_mlp"]["by_shape"] = phase(
         "K3 and K4 bf16 at their paths' shapes", tc_path_shapes, torch,
         collections.Counter(direct_tc_shapes) + collections.Counter(clip_tc_shapes)
-        + collections.Counter(entry_tc_shapes) + collections.Counter(train_tc_shapes))
+        + collections.Counter(entry_tc_shapes) + collections.Counter(train_tc_shapes)
+        + of(("flash_heads_tc", "fused_mlp_tc")))
+    # the backward rows: each row's own timing shape (its device time by
+    # kernel) and every shape phases T and TM launched it at (`by_shape`)
+    bwd_paths = train_bwd_shapes + of(BWD_COUNTERS)
+    own = {"flash_heads_bwd": ("flash_heads_bwd", (16, 577, 1024, 16, True, "torch.bfloat16")),
+           "flash_heads_bwd_f32": ("flash_heads_bwd", (2, 577, 1024, 16, True, "torch.float32")),
+           "fused_mlp_bwd": ("fused_mlp_bwd", (9232, 1024, 4096, "gelu", "torch.bfloat16")),
+           "fused_mlp_bwd_f32": ("fused_mlp_bwd", (9232, 1024, 4096, "gelu", "torch.float32"))}
+    cases = phase("K3 and K4 backward at their paths' shapes", backward_kernel_times_apart,
+                  list(own.values()) + list(bwd_paths))
+    for row, key in own.items():
+        rows[row]["kernels_ms"] = cases[key]["kernels_ms"]
+        rows[row]["kernels_ms_check"] = cases[key]["kernels_ms_check"]
+        rows[row]["by_shape"] = [dict(cases[k], launches=n) for k, n in sorted(
+            bwd_paths.items(), key=str) if backward_row(k) == row]
     path_shapes = collections.Counter()
     for shapes in (k1_shapes, capacity_shapes, k12_shapes, f32_slice_shapes, store_f32_shapes,
                    clip_k1_shapes, euclid_shapes, engine_shapes, surface_shapes,
@@ -5507,14 +5833,16 @@ def main() -> int:
                  store_f32_launches, clip_launches, euclid_launches, engine_launches,
                  surface_launches)
     path_of = {"flash_heads": direct_launches["flash_heads_tc"]
-               + entry_launches["flash_heads_tc"] + train_launches["flash_heads_tc"],
+               + entry_launches["flash_heads_tc"] + train_launches["flash_heads_tc"]
+               + mesh_launches["flash_heads_tc"],
                "flash_heads_f32": f32_launches["flash_heads_split"]
-               + train_f32_launches["flash_heads_split"],
+               + train_f32_launches["flash_heads_split"] + mesh_launches["flash_heads_split"],
                "fused_mlp": direct_launches["fused_mlp_tc"] + entry_launches["fused_mlp_tc"]
-               + train_launches["fused_mlp_tc"],
+               + train_launches["fused_mlp_tc"] + mesh_launches["fused_mlp_tc"],
                "fused_mlp_f32": f32_launches["fused_mlp_split"]
-               + train_f32_launches["fused_mlp_split"],
-               "split_parts": f32_launches["split_parts"] + train_f32_launches["split_parts"],
+               + train_f32_launches["fused_mlp_split"] + mesh_launches["fused_mlp_split"],
+               "split_parts": f32_launches["split_parts"] + train_f32_launches["split_parts"]
+               + mesh_launches["split_parts"],
                "topk_stream": direct_launches["topk_stream"] + surface_launches["topk_stream"]
                + entry_launches["topk_stream"] + sharded_launches["topk_stream"],
                "flash_attn": long_bf16_launches["flash_attn_tc"],
@@ -5534,13 +5862,18 @@ def main() -> int:
                + sharded_launches["ivf_scan"],
                "fused_mlp_int8": int8_launches["fused_mlp_int8"],
                "topk_int8_rows": two_stage_launches["topk_int8_rows"],
-               "flash_heads_bwd": train_launches["flash_heads_bwd"],
-               "fused_mlp_bwd": train_launches["fused_mlp_bwd"],
-               "flash_heads_bwd_f32": train_f32_launches["flash_heads_bwd_split"],
-               "fused_mlp_bwd_f32": train_f32_launches["fused_mlp_bwd_split"]}
+               "flash_heads_bwd": train_launches["flash_heads_bwd_tc"]
+               + mesh_launches["flash_heads_bwd_tc"],
+               "fused_mlp_bwd": train_launches["fused_mlp_bwd_tc"]
+               + mesh_launches["fused_mlp_bwd_tc"],
+               "flash_heads_bwd_f32": train_f32_launches["flash_heads_bwd_split"]
+               + mesh_launches["flash_heads_bwd_split"],
+               "fused_mlp_bwd_f32": train_f32_launches["fused_mlp_bwd_split"]
+               + mesh_launches["fused_mlp_bwd_split"]}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     for name in ("flash_heads", "fused_mlp", "fused_mlp_f32", "flash_heads_f32",
+                 "flash_heads_bwd", "fused_mlp_bwd", "flash_heads_bwd_f32", "fused_mlp_bwd_f32",
                  "fused_mlp_int8", "ms_deform",
                  "topk_stream", "topk_masked", "topk_int8", "topk_binary", "topk_int8_rows",
                  "topk_stream_f32", "ivf_scan"):
@@ -5549,8 +5882,9 @@ def main() -> int:
     # the order to redesign kernels in: first those one PyTorch call beats,
     # by how many times; then the rest by launches x (ms - bound_ms), summed
     # over the shapes a path ran a kernel at where the run timed each
-    # (`by_shape`: K1, K2, K3 and K4 in bf16 and fp32, K5, K8, K9, K10,
-    # K12), else at the row's shape. Listed apart: rows already redesigned;
+    # (`by_shape`: K1, K2, K3 and K4 in bf16 and fp32, their backward rows,
+    # K5, K8, K9, K10, K11, K12), else at the row's shape. Listed apart: rows
+    # already redesigned;
     # rows whose library call computes another function are ranked by cost
     # only
     def cost(name):

@@ -7,9 +7,9 @@ reference main.py:23-40); this CLI exposes the same capabilities headless
 production use. It takes every subcommand and option of the JAX
 package's `reverso` command, plus `--device` (default `cuda`; `--device
 cpu` runs on the CPU). Asking for CUDA where there is none raises: no
-path falls back to the CPU. `train` fine-tunes the vision tower on one
-device (`--tp` above 1 exits non-zero, naming ROADMAP item 21b); `bench`
-is not ported yet and exits non-zero, naming its ROADMAP item.
+path falls back to the CPU. `train` fine-tunes the vision tower on a mesh
+of data x `--tp` model shards; `bench` is not ported yet and exits
+non-zero, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -1111,21 +1111,27 @@ def cmd_video_local(args) -> int:
 
 def cmd_train(args) -> int:
     """SigLIP contrastive fine-tuning on two augmented views per image, on
-    `--device` (the JAX command's mesh of `--tp` model shards is ROADMAP
-    queue 1 item 21b)."""
+    the JAX command's mesh, `MeshConfig(axis_sizes=(-1, --tp))`: over every
+    visible card for `--device cuda`, over the named device repeated
+    `--tp` times (one data shard) for a device with an index or the CPU."""
     import numpy as np
+    from .config import MeshConfig
     from .ingest.images import scan_images, iter_batches
+    from .parallel import local_devices, make_mesh
     from .train import ClipTrainer
     from .train.checkpoint import save_train_state, restore_train_state
 
-    if args.tp != 1:
-        print(f"❌ --tp {args.tp}: tensor-parallel training is not ported yet "
-              f"(ROADMAP queue 1 item 21b)", file=sys.stderr)
-        return 1
     cfg = MODEL_PRESETS[args.model or "PE-Core-L14-336"]
-    trainer = ClipTrainer(cfg, learning_rate=args.lr, device=_device(args))
+    device = _device(args)
+    devices = local_devices() if str(device) == "cuda" else [device] * args.tp
+    try:
+        mesh = make_mesh(MeshConfig(axis_sizes=(-1, args.tp)), devices=devices)
+        trainer = ClipTrainer(cfg, mesh, learning_rate=args.lr)
+    except ValueError as e:
+        print(f"❌ --tp {args.tp}: {e}", file=sys.stderr)
+        return 1
     if args.resume and args.checkpoint:
-        trainer.state = restore_train_state(args.checkpoint, trainer.state)
+        trainer.state = restore_train_state(args.checkpoint, trainer.state, mesh=mesh)
         print(f"resumed at step {int(trainer.step)}", file=sys.stderr)
 
     files = scan_images(args.folder)

@@ -14,6 +14,13 @@ region embeddings from the same forward.
 
 Module and parameter names follow the flax tree (`block{i}` becomes
 `blocks.{i}`), so `models.convert` maps one onto the other.
+
+With `tp` (a `parallel/tensor.py::DataShard`, given by
+`ModelShards.forward`) the blocks run tensor-parallel over the model
+shards of one data shard: each shard's attention (K3) on its H / tp heads
+and its MLP (K4) on its H_mlp / tp hidden units, the partial outputs
+summed on the data shard's home device. Without it the forward is the
+one-device one.
 """
 from __future__ import annotations
 
@@ -58,8 +65,13 @@ class Linear(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        return _linear(x, self.weight, self.bias)
+
+
+def _linear(x, weight, bias=None):
+    """x W^T + b with the fp32 parameters cast to x's dtype."""
+    b = None if bias is None else bias.to(x.dtype)
+    return F.linear(x, weight.to(x.dtype), b)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -87,24 +99,44 @@ class MHA(nn.Module):
         self.q_proj, self.k_proj = Linear(w, w), Linear(w, w)
         self.v_proj, self.out_proj = Linear(w, w), Linear(w, w)
 
-    def forward(self, x, rope=None, kv_valid: Optional[int] = None):
-        cfg = self.cfg
-        h = cfg.num_heads
-        b, s, w = x.shape
-        hd = w // h
+    def forward(self, x, rope=None, kv_valid: Optional[int] = None, tp=None):
+        if tp is not None:
+            return self._forward_tp(x, rope, kv_valid, tp)
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        cos, sin = rope if rope is not None else (None, None)
-        if s <= _HEADS_KERNEL_MAX_S and hd % 4 == 0:
-            # heads-in-lanes kernel: no head transposes, RoPE in-kernel
-            o = flash_attention_heads(q, k, v, heads=h, cos=cos, sin=sin,
-                                      kv_valid=kv_valid)
-            return self.out_proj(o)
-        split = lambda t: t.reshape(b, s, h, hd).transpose(1, 2)
-        q, k, v = split(q), split(k), split(v)
-        if rope is not None:
-            q, k = apply_rope_2d(q, cos, sin), apply_rope_2d(k, cos, sin)
-        o = flash_attention(q, k, v, kv_valid=kv_valid)
-        return self.out_proj(o.transpose(1, 2).reshape(b, s, w))
+        return self.out_proj(_attend(q, k, v, self.cfg.num_heads, rope, kv_valid))
+
+    def _forward_tp(self, x, ropes, kv_valid, tp):
+        """Model shard m: q, k, v of its H / tp heads (the column-parallel
+        pieces), attention on them, then out_proj's row-parallel piece
+        gives a partial [B, S, W]. out_proj's bias enters on shard 0 only;
+        `tp.reduce` sums the partials. `ropes`: (cos, sin) per shard."""
+        heads = self.cfg.num_heads // tp.size
+        partials = []
+        for m, dev in enumerate(tp.devices):
+            xm = x.to(dev)
+            q, k, v = (_linear(xm, *tp.column(lin, m))
+                       for lin in (self.q_proj, self.k_proj, self.v_proj))
+            o = _attend(q, k, v, heads, None if ropes is None else ropes[m], kv_valid)
+            partials.append(_linear(o, tp.row(self.out_proj, m),
+                                    self.out_proj.bias if m == 0 else None))
+        return tp.reduce(partials)
+
+
+def _attend(q, k, v, h: int, rope, kv_valid):
+    """Attention of q, k, v [B, S, W] (W = h heads) with optional 2D RoPE
+    -> [B, S, W]: the heads-in-lanes kernel where it takes the shape (no
+    head transposes, RoPE in-kernel), else [B, H, S, D] flash attention."""
+    b, s, w = q.shape
+    hd = w // h
+    cos, sin = rope if rope is not None else (None, None)
+    if s <= _HEADS_KERNEL_MAX_S and hd % 4 == 0:
+        return flash_attention_heads(q, k, v, heads=h, cos=cos, sin=sin, kv_valid=kv_valid)
+    split = lambda t: t.reshape(b, s, h, hd).transpose(1, 2)
+    q, k, v = split(q), split(k), split(v)
+    if rope is not None:
+        q, k = apply_rope_2d(q, cos, sin), apply_rope_2d(k, cos, sin)
+    o = flash_attention(q, k, v, kv_valid=kv_valid)
+    return o.transpose(1, 2).reshape(b, s, w)
 
 
 class MLP(nn.Module):
@@ -133,24 +165,52 @@ class MLP(nn.Module):
             self._int8 = {key: quantize_mlp_weights(*prms, dtype)}
         return self._int8[key]
 
-    def _split_weights(self):
-        """The fp32 weights' bf16 parts (`split_mlp_weights`), made again
-        after any change to them."""
-        prms = (self.fc1.weight, self.fc2.weight)
-        key = tuple((p.device, p.data_ptr(), p._version) for p in prms)
-        if key not in self._split:
+    def _split_weights(self, w1=None, w2=None, resident=None, slot=None):
+        """The fp32 weights' bf16 parts (`split_mlp_weights`) of w1, w2
+        (default: fc1's and fc2's weights), cached by `slot` (None on one
+        device; (model shard, device) with `tp`) and made again after any
+        change to `resident` (the parameters they come from: w1 and w2, or
+        a shard's resident pieces)."""
+        if w1 is None:
+            w1, w2 = self.fc1.weight, self.fc2.weight
+        key = (w1.device,) + tuple((p.data_ptr(), p._version) for p in (resident or (w1, w2)))
+        if self._split.get(slot, (None,))[0] != key:
             with torch.no_grad():
-                self._split = {key: split_mlp_weights(*prms)}
-        return self._split[key]
+                self._split[slot] = (key, split_mlp_weights(w1, w2))
+        return self._split[slot][1]
 
-    def forward(self, x):
+    def forward(self, x, tp=None):
         dt = x.dtype
+        if tp is not None:
+            return self._forward_tp(x, tp)
         if self.quant:
             return fused_mlp_int8(x, self._int8_weights(dt), act=self.act)
         parts = self._split_weights() if dt == torch.float32 and x.is_cuda else None
         return fused_mlp(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt),
                          self.fc2.weight.to(dt), self.fc2.bias.to(dt),
                          act=self.act, parts=parts)
+
+    def _forward_tp(self, x, tp):
+        """Model shard m: the fused MLP on fc1's hidden pieces [H / tp] and
+        fc2's matching column piece, a partial [..., W]. fc2's bias enters
+        on shard 0 only (zeros on the others); `tp.reduce` sums the
+        partials. In fp32 on the card each shard's weight parts are split
+        once and cached by shard (`_split_weights`)."""
+        if self.quant:
+            raise NotImplementedError("the int8 MLP has no tensor-parallel form; "
+                                      "train with quant='none'")
+        dt = x.dtype
+        partials = []
+        for m, dev in enumerate(tp.devices):
+            (w1, b1), w2 = tp.column(self.fc1, m), tp.row(self.fc2, m)
+            b2 = self.fc2.bias if m == 0 else torch.zeros_like(self.fc2.bias, device=dev)
+            parts = None
+            if dt == torch.float32 and dev.type == "cuda":
+                resident = (tp.piece(self.fc1, "weight", m), tp.piece(self.fc2, "weight", m))
+                parts = self._split_weights(w1, w2, resident, (m, dev))
+            partials.append(fused_mlp(x.to(dev), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt),
+                                      act=self.act, parts=parts))
+        return tp.reduce(partials)
 
 
 class LayerScale(nn.Module):
@@ -177,12 +237,12 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x, rope=None, kv_valid: Optional[int] = None):
-        y = self.attn(self.ln1(x), rope, kv_valid)
+    def forward(self, x, rope=None, kv_valid: Optional[int] = None, tp=None):
+        y = self.attn(self.ln1(x), rope, kv_valid, tp)
         if self.ls1 is not None:
             y = self.ls1(y)
         x = x + y
-        y = self.mlp(self.ln2(x))
+        y = self.mlp(self.ln2(x), tp)
         if self.ls2 is not None:
             y = self.ls2(y)
         return x + y
@@ -295,11 +355,13 @@ class VisionTransformer(nn.Module):
         return self._rope_cache[key]
 
     def forward(self, images, *, return_tokens: bool = False,
-                region_masks=None):
+                region_masks=None, tp=None):
         """Returns the embedding [B, embed_dim] (before normalization), with
         `return_tokens` also the tokens [B, S, W]. `region_masks` [B, R, P]
         (patch-grid weights, no CLS slot) adds the masked ROI region
-        embeddings [B, R, embed_dim]: (pooled, regions[, tokens])."""
+        embeddings [B, R, embed_dim]: (pooled, regions[, tokens]). `tp`:
+        the blocks run tensor-parallel over one data shard (module
+        docstring)."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         x = images.to(dtype)
@@ -325,9 +387,12 @@ class VisionTransformer(nn.Module):
             if s_pad != s_valid:
                 x = F.pad(x, (0, 0, 0, s_pad - s_valid))
                 kv_valid = s_valid
-        rope = self._rope(x.shape[1], x.device) if cfg.use_rope else None
+        rope = None
+        if cfg.use_rope:   # with tp: the tables on each model shard's device
+            rope = (self._rope(x.shape[1], x.device) if tp is None
+                    else [self._rope(x.shape[1], dev) for dev in tp.devices])
         for blk in self.blocks:
-            x = blk(x, rope, kv_valid)
+            x = blk(x, rope, kv_valid, tp)
 
         tokens = x
         region_emb = None

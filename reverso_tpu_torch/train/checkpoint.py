@@ -4,9 +4,12 @@ The JAX package persists its TrainState with orbax, which is JAX-only.
 Here the state (the tower's parameters, AdamW's state, t, b and the step)
 goes to one file through `torch.save`, written to a temporary file beside
 it and renamed into place, so a reader never sees a torn checkpoint.
-`restore_train_state` loads it onto the template's device: the template
-is the freshly initialized state of the current trainer
-(`trainer.state`), and the restored state is assigned back to it.
+`restore_train_state` loads it onto the template's device (a mesh's
+first device with `mesh=`): the template is the freshly initialized state
+of the current trainer (`trainer.state`), and the restored state is
+assigned back to it, which cuts it onto the trainer's mesh. The state is
+whole tensors by parameter name (`TrainState`), so a run saved on one
+mesh resumes on any other, or on one device.
 """
 from __future__ import annotations
 
@@ -44,14 +47,12 @@ def save_train_state(path: str, state: TrainState, *, force: bool = True) -> Non
 
 
 def restore_train_state(path: str, template: TrainState, mesh=None) -> TrainState:
-    """Load the checkpoint at `path` onto the template's device, with the
-    template's parameter names, shapes and dtypes. A mesh raises: the
-    trainer on a mesh is ROADMAP queue 1 item 21b."""
-    if mesh is not None:
-        raise NotImplementedError("restore_train_state: meshes are not ported yet "
-                                  "(ROADMAP queue 1 item 21b)")
+    """Load the checkpoint at `path` onto the template's device (with
+    `mesh`, the mesh's first device), with the template's parameter names,
+    shapes and dtypes. AdamW's step counts stay on the CPU, where AdamW
+    keeps them."""
     blob = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
-    device = template.t.device
+    device = template.t.device if mesh is None else mesh.first
     params = {}
     for name, ref in template.params.items():
         if name not in blob["params"]:
@@ -60,15 +61,15 @@ def restore_train_state(path: str, template: TrainState, mesh=None) -> TrainStat
         if p.shape != ref.shape:
             raise ValueError(f"checkpoint {path}: {name} is {tuple(p.shape)}, "
                              f"the trainer's {tuple(ref.shape)}")
-        params[name] = p.to(device=ref.device, dtype=ref.dtype)
+        params[name] = p.to(device=device, dtype=ref.dtype)
     if set(blob["params"]) != set(template.params):
         raise ValueError(f"checkpoint {path}: parameter names differ from the trainer's")
+    names = set(template.params) | {"t", "b"}
     opt = blob["opt_state"]
-    # AdamW keeps each parameter's step count on the CPU (it is neither
-    # capturable nor fused here); its moments go to the device
-    opt_state = {k: v for k, v in opt.items() if k != "state"}
-    opt_state["state"] = {i: {f: v if f == "step" else _to(v, device) for f, v in e.items()}
-                          for i, e in opt["state"].items()}
+    if not set(opt) <= names:
+        raise ValueError(f"checkpoint {path}: optimizer state for names the trainer lacks")
+    opt_state = {name: {f: v if f == "step" else _to(v, device) for f, v in e.items()}
+                 for name, e in opt.items()}
     return TrainState(params=params, opt_state=opt_state,
                       t=blob["t"].to(device), b=blob["b"].to(device),
                       step=blob["step"].to(device))

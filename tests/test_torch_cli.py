@@ -305,11 +305,31 @@ def test_train_runs_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_train_tensor_parallel_names_item_21(tmp_path, capsys):
-    from reverso_tpu_torch import cli
+    """`train --device cpu --tp 2` (the name is kept from when it named
+    ROADMAP item 21b): a 1 x 2 mesh of the CPU trains two steps with a
+    checkpoint and resumes onto the same mesh; `--tp 3` does not divide
+    test-tiny's 4 heads and exits non-zero, naming both."""
+    import re
 
-    make_corpus(tmp_path / "imgs", n=2)
-    argv = ["--device", "cpu", "--model", "test-tiny", "train", str(tmp_path / "imgs"),
-            "--steps", "1", "--tp", "2"]
-    assert cli.main(argv) != 0
+    from reverso_tpu_torch import cli
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.train import ClipTrainer
+    from reverso_tpu_torch.train.checkpoint import restore_train_state
+
+    make_corpus(tmp_path / "imgs", n=6)
+    ckpt = str(tmp_path / "ckpt" / "state.pt")
+    base = ["--device", "cpu", "--model", "test-tiny", "train", str(tmp_path / "imgs"),
+            "--batch-size", "4", "--lr", "1e-3", "--checkpoint", ckpt, "--tp", "2"]
+    assert cli.main(base + ["--steps", "2"]) == 0
+    out, err = capsys.readouterr()
+    assert re.fullmatch(r"final loss \d+\.\d{4}\n", out), out
+    assert re.search(r"^step 2/2 loss \d+\.\d{4}$", err, re.M), err
+    assert cli.main(base + ["--steps", "1", "--resume"]) == 0
+    out, err = capsys.readouterr()
+    assert err.splitlines()[0] == "resumed at step 2", err
+    assert re.fullmatch(r"final loss \d+\.\d{4}\n", out), out
+    template = ClipTrainer(MODEL_PRESETS["test-tiny"], device="cpu").state
+    assert int(restore_train_state(ckpt, template).step) == 3
+    assert cli.main(base[:-1] + ["3", "--steps", "1"]) != 0
     err = capsys.readouterr().err
-    assert "ROADMAP" in err and "item 21" in err
+    assert "3 shards" in err and "4 heads" in err and "ROADMAP" not in err, err

@@ -1427,3 +1427,63 @@ def test_sharded_scans_across_cards_equal_the_single_scan(dev):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more CUDA cards")
     _sharded_vs_single([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+
+
+def _mesh_vs_one_device(devices, sizes, depth: int, dtype: str, b: int):
+    """One value_and_grad step of PE-Core-L14-336's widths at `depth` on a
+    mesh of `devices` against the one-device trainer from the same seed on
+    cuda:0: (loss, one-device loss, largest gradient error of max(1,
+    |one-device|) over the leaves, launches by counter)."""
+    import dataclasses
+
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS, MeshConfig
+    from reverso_tpu_torch.parallel import make_mesh
+    from reverso_tpu_torch.train import ClipTrainer
+
+    cfg = dataclasses.replace(MODEL_PRESETS["PE-Core-L14-336"], depth=depth, dtype=dtype)
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((b, 336, 336, 3)).astype(np.float32)
+    v = a[:, :, ::-1, :] + 0.02 * rng.standard_normal(a.shape).astype(np.float32)
+    one = ClipTrainer(cfg, seed=4, device="cuda:0")
+    loss1, g1 = one.value_and_grad(a, v)
+    mesh = make_mesh(MeshConfig(axis_sizes=sizes), devices=devices)
+    tm = ClipTrainer(cfg, mesh, seed=4)
+    kernels.reset_counts()
+    loss, g = tm.value_and_grad(a, v)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    err = max(float((g[n].to(g1[n].device) - w).abs().max()) / max(1.0, float(w.abs().max()))
+              for n, w in g1.items())
+    return float(loss), float(loss1), err, launches
+
+
+def test_train_mesh_on_one_card(dev):
+    """A 2 x 2 mesh on cuda:0 (the card named four times), depth 2, B = 4 a
+    view: in bf16 every model shard's attention and MLP launch K3 and K4
+    forward and backward on the tensor-core routes (2 views x 2 blocks x 4
+    shards = 16 each; head dim 64, 8 heads and 2048 hidden units a shard),
+    none elsewhere; in fp32 (the split routes) the step against the
+    one-device trainer's: the loss within 1e-6 of it, every gradient within
+    1e-4 of max(1, |one-device|)."""
+    devices = ["cuda:0"] * 4
+    loss, loss1, err, n = _mesh_vs_one_device(devices, (2, 2), 2, "bfloat16", 4)
+    for name in ("flash_heads_tc", "flash_heads_bwd_tc", "fused_mlp_tc", "fused_mlp_bwd_tc"):
+        assert n[name] == 16, (name, n)
+    assert n["flash_heads_split"] == n["fused_mlp_split"] == n["flash_attn"] == 0, n
+    assert np.isfinite(loss) and err <= 2e-2, (loss, loss1, err)
+    loss, loss1, err, n = _mesh_vs_one_device(devices, (2, 2), 2, "float32", 4)
+    assert n["flash_heads_bwd_split"] == n["fused_mlp_bwd_split"] == 16, n
+    print(f"fp32 2 x 2 on one card: loss {loss} vs {loss1}, gradient error {err:.3e}")
+    assert abs(loss - loss1) <= 1e-6 * max(1.0, abs(loss1)) and err <= 1e-4, (loss, loss1, err)
+
+
+def test_train_mesh_across_cards(dev):
+    """Data parallel over distinct cards (a data axis of every card, model
+    1): the fp32 step against the one-device trainer's, as above."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    loss, loss1, err, n = _mesh_vs_one_device(devices, (-1, 1), 2, "float32", len(devices))
+    assert n["flash_heads_bwd_split"] == 2 * 2 * len(devices), n
+    assert abs(loss - loss1) <= 1e-6 * max(1.0, abs(loss1)) and err <= 1e-4, (loss, loss1, err)

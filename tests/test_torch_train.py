@@ -198,7 +198,14 @@ def test_checkpoint_roundtrip_bit_for_bit(tmp_path):
         save_train_state(path, t1.state, force=False)
 
 
-def test_trainer_learns_and_refuses_meshes():
+def test_trainer_learns_and_refuses_meshes(tmp_path):
+    """One device: five steps lower the loss, with optax's weight-decay
+    mask. A mesh (the name is kept from when meshes raised): a 2 x 2 mesh
+    on the CPU trains, and a checkpoint of it restores onto a 1 x 4 mesh
+    with `mesh=`, equal bit for bit."""
+    from reverso_tpu_torch.config import MeshConfig as PortMeshConfig
+    from reverso_tpu_torch.parallel import make_mesh as port_make_mesh
+
     tr = ClipTrainer(TINY, learning_rate=1e-3, device="cpu", use_flash=True)
     a, b = _views(3)
     losses = [tr.train_step(a, b) for _ in range(5)]
@@ -209,8 +216,17 @@ def test_trainer_learns_and_refuses_meshes():
     assert tower["weight_decay"] == 1e-4 and scalars["weight_decay"] == 0.0
     assert scalars["params"] == [tr.t, tr.b]
     assert len(tower["params"]) == len(list(tr.module.parameters()))
-    mesh = make_mesh(MeshConfig(axis_sizes=(1, 1)), devices=jax.devices()[:1])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        ClipTrainer(TINY, mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        restore_train_state("unused", tr.state, mesh=mesh)
+    mesh = port_make_mesh(PortMeshConfig(axis_sizes=(2, 2)), devices=["cpu"] * 4)
+    tm = ClipTrainer(TINY, mesh, learning_rate=1e-3, seed=0)
+    mesh_losses = [tm.train_step(a, b) for _ in range(3)]
+    assert np.isfinite(mesh_losses).all() and mesh_losses[-1] < mesh_losses[0], mesh_losses
+    path = str(tmp_path / "state.pt")
+    save_train_state(path, tm.state)
+    other = port_make_mesh(PortMeshConfig(axis_sizes=(1, 4)), devices=["cpu"] * 4)
+    t2 = ClipTrainer(TINY, other, learning_rate=1e-3, seed=7)
+    t2.state = restore_train_state(path, t2.state, mesh=other)
+    assert int(t2.step) == 3
+    want, got = tm.state, t2.state
+    assert all(torch.equal(want.params[n], got.params[n]) for n in want.params)
+    assert all(torch.equal(want.opt_state[n][f], got.opt_state[n][f])
+               for n in want.opt_state for f in want.opt_state[n])
