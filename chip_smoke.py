@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --copy-soak [ITERS]   # only `copy_soak` (default 100)
+    python3 chip_smoke.py --probes   # only the hardware probes' full sweeps (P1-P5)
     python3 chip_smoke.py --backward-kernel-times   # phase T's child process
 
 Needs one CUDA card and `nvcc`; exits non-zero without them. Phases, none
@@ -11,6 +12,22 @@ of which catches a failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `reverso_tpu_torch/csrc` (one nvcc per
      source, all at once);
+  2H. the hardware probes (H, `probes_run`; `reverso_tpu_torch/probes/`,
+     the ports of the TPU probes under `scripts/`), each once at its
+     script's shape, counted, held against its plain version and timed:
+     P1 the TMA ring's read rate over 1M x 1024 bf16 (every ring of the
+     sweep that fits; `torch.amax` beside it), P2 the tensor cores' rate in
+     bf16, int8 and the fp32 split mode with the SM clock under the load
+     (`torch.matmul` at 8192^3 beside it; each element within its rounding
+     gate, which one dropped step would fail), P3 K1's pipeline without its
+     select at Q = 256 in three variants beside K1 (checked on the script's
+     queries and on queries drawn apart from the rows), P4 loads at aligned
+     and unaligned data offsets (one CTA and the grid) and the grid at blocks
+     that do not overlap, P5 the per-lane gather at four table sizes and K8
+     at the script's shapes; a line `measured peaks: {...}` (the card, its
+     power limit, the SM clock, the highest read rate of P1 and P4, P4's
+     rate of loads from L2, P2's highest rates), which every row's
+     `measured_bound_ms` divides by, and no row's `ms` may fall under;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it and at small ragged shapes, in the
      working dtype: max abs error against a stated tolerance, CUDA-event
@@ -228,7 +245,9 @@ path and read just after it). A "redesign order" line ranks the kernels
 by launches x (ms - bound_ms), summed over the shapes a path ran K1, K2
 (bf16 and fp32 rows), K3 and K4 (bf16 and fp32, forward and backward),
 K5, K8, K9, K10, K11 and K12 at. The line before the last is the card's name and power limit, the
-one before that a JSON object with one entry per kernel, the one before
+one before that a JSON object with one entry per kernel (each with
+`bound_ms` at the published peaks and `measured_bound_ms` at phase H's
+measured rates, never above `ms`; the probes P1-P5 among them), the one before
 that phase U's numbers (after phase S's and B's); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -246,6 +265,9 @@ import time
 
 import numpy as np
 
+# the CUDA-event timer, kept under the name that scripts/ import it by
+from reverso_tpu_torch.probes import timed_ms as cuda_ms
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W); fp32
@@ -258,13 +280,25 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "float32_split": 989e12 / 6,
               "int8": 1979e12}
 
 
+class BoundMs(float):
+    """A bound in ms that keeps the bytes, operations and operation type it
+    was computed from, so that the same work can be bounded again at the
+    rates phase H measured (`measured_bound_ms`)."""
+
+    def __new__(cls, ms: float, nbytes: float, ops: float, dtype: str):
+        self = super().__new__(cls, ms)
+        self.nbytes, self.ops, self.dtype = nbytes, ops, dtype
+        return self
+
+
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     """Least time on the card in ms: the larger of the bytes the function
     must move over the memory rate and its operations over the peak rate
     for the inputs' type."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return BoundMs(max(t_bytes, t_ops), nbytes, ops, dtype), by
 
 
 def k5_bound(t: int, w: int, hid: int) -> tuple[float, str]:
@@ -303,26 +337,6 @@ def offset_copy(torch, t):
     view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
     check(view.data_ptr() % 16 != 0, "offset_copy: aligned")
     return view.copy_(t)
-
-
-def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
-    """Mean device time of `fn` in ms, by CUDA events over `iters` calls.
-    The card first sleeps for about 2 ms, so the host queues every call
-    before the first one runs: a call shorter than its own host overhead
-    is timed on the device, not at the host's launch rate."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(4_000_000)   # clock cycles
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def check(cond: bool, what: str) -> None:
@@ -5675,6 +5689,219 @@ def device_builds_run() -> dict:
     return out
 
 
+# phase H: the hardware probes (P1-P5), and the rows they add
+PROBE_ROWS = ("probe_dma", "probe_mxu", "probe_scan", "probe_dyn_dma", "probe_gather")
+
+
+def probes_run(torch) -> tuple:
+    """Phase H: each hardware probe (`reverso_tpu_torch/probes/`) once at its
+    script's shape, every kernel counted, each held against its plain
+    version (P1, P2 int8, P4 int8 and P5 exactly; P2 bf16 and fp32 element
+    by element within `mxu_tol`; P3 on the script's queries and on queries
+    drawn apart); then the modules' bench functions on their own seeded
+    data: P1's sweep of rings, P2's checks at 64 steps and sustained rates
+    with the SM clock, P3's variants beside K1, P4's offsets in both forms
+    and at blocks that do not overlap, P5's table sizes and K8 at the
+    script's shapes. Prints the measured peaks (the card, its power limit,
+    the SM clock, the highest read rate of P1 and P4, P4's rate of loads
+    from L2, P2's highest rates) and returns (rows, peaks, launches)."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.probes import (bench_deformable as p5, bench_dma as p1,
+                                          bench_mxu as p2, bench_scan_overlap as p3,
+                                          proto_dyn_dma as p4, card, reassociation_tol,
+                                          sm_clock_mhz, timed_ms)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    db, q = p3.seeded(p3.N, p3.D, p3.Q, dev, gen)        # 1M x 1024 bf16, P1's rows too
+    dtypes = (torch.bfloat16, torch.int8, torch.float32)
+    operands = {dt: p2.seeded_operands(dt, p2.M, p2.K, p2.N, dev, gen) for dt in dtypes}
+    mats = {dt: p4.seeded(dt, p4.N, p4.D, dev, gen) for dt in p4.DTYPES}
+    offs = torch.randint(0, p4.N - p4.ROWS, (p4.REPS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tables = {n: p5.seeded(n, dev, gen) for n in p5.GATHER_ROWS}
+    tile, _, streams, _ = p1.DEFAULT
+
+    # the path: each probe once at its script's shape
+    kernels.reset_counts()
+    out1 = p1.stream_max(db, *p1.DEFAULT)
+    out2 = {dt: p2.mxu(*operands[dt], p2.ITERS) for dt in dtypes}
+    out3 = {v: p3.scan(db, q, v) for v in p3.VARIANTS}
+    out4 = {dt: p4.dyn_dma(offs, mats[dt][1], mats[dt][0]) for dt in p4.DTYPES}
+    out5 = {n: p5.gather(*tables[n]) for n in p5.GATHER_ROWS}
+    torch.cuda.synchronize()
+    launches = {name: kernels.launches[name] for name in PROBE_ROWS}
+    check(all(launches[name] >= 1 for name in PROBE_ROWS),
+          f"phase H: a probe kernel did not launch: {launches}")
+
+    # each against its plain version
+    err1 = max_err(out1, p1.stream_max_ref(db, tile, streams))
+    check(err1 == 0.0, f"P1: max abs err {err1} (must be exact)")
+    err2 = {}
+    for dt in dtypes:   # each element within its gate, and a dropped step read against it
+        a, b = operands[dt]
+        err2[dt] = p2.compare(out2[dt], a, b, p2.ITERS)
+        if dt != torch.int8:
+            err2[dt]["dropped_step_reading"] = p2.dropped_step_reading(a, b, p2.ITERS)
+    # P3 on the script's queries (the first rows: each query's max is its own
+    # self-dot, in the first tiles) and on queries drawn apart (the max anywhere)
+    apart = p3.queries(p3.Q, p3.D, dev, gen)
+    err3 = {v: {"script_queries": p3.check(db, q, v, out3[v]),
+                "queries_apart": p3.check(db, apart, v)} for v in p3.VARIANTS}
+    err4 = {}
+    for dt in p4.DTYPES:
+        mat, qq = mats[dt]
+        ref = torch.cat([p4.dyn_dma_ref(offs[c:c + 64], qq, mat) for c in range(0, p4.REPS, 64)])
+        err4[dt] = max_err(out4[dt], ref)
+        check(err4[dt] <= p4.dyn_dma_tol(qq, mat), f"P4 {dt}: max abs err {err4[dt]}")
+    err5 = {n: max_err(out5[n], p5.gather_ref(*tables[n])) for n in p5.GATHER_ROWS}
+    check(max(err5.values()) == 0.0, f"P5: max abs errs {err5} (must be exact)")
+    print(f"phase H checks: P1 {err1}, P2 {err2}, P3 {err3} (tol {reassociation_tol(q, db):.3g}), "
+          f"P4 {err4}, P5 {err5}", flush=True)
+
+    # P1: the sweep of rings (each checked); its best rate is the measured read rate
+    sweep = {cfg: p1.bench(db.shape[0], *cfg, device=dev, generator=gen, db=db, iters=5)["gb_s"]
+             for cfg in p1.SWEEP if p1.fits(*cfg)}
+    best = max(sweep, key=sweep.get)
+    n1 = (db.shape[0] // tile) * tile * p1.D * 2
+    ms1 = timed_ms(lambda: p1.stream_max(db, *p1.DEFAULT), 10)
+    rows = {"probe_dma": dict(
+        source="reverso_tpu_torch/csrc/probe_dma.cu", replaces="scripts/bench_dma.py:57",
+        max_abs_err=err1, shape="1M x 1024 bf16, 32 KB stages (16 rows), 4 deep, 1 copy a "
+        "stage, 1 CTA an SM (the script's (1024, 4, 1) at 1/64 of its tile)",
+        ms=ms1, plain_ms=timed_ms(lambda: p1.stream_max_ref(db, tile, streams), 5),
+        library="torch.amax(db, 0)", library_ms=p1.library_ms(db),
+        gb_s=n1 / ms1 / 1e6, best_config=list(best), best_gb_s=sweep[best],
+        sweep_gb_s={"x".join(map(str, c)): round(v, 1) for c, v in sweep.items()})}
+    rows["probe_dma"]["bound_ms"], rows["probe_dma"]["bound_by"] = bound(
+        n1 + 8 * p1.D * 4, (db.shape[0] // tile) * streams * min(8, tile // streams) * p1.D,
+        "float32")
+
+    # P2: each case at the script's 1024 steps, and its sustained rate
+    rates = {}
+    for dt in dtypes:
+        a, b = operands[dt]
+        r = p2.bench(dt, device=dev, generator=gen)
+        flops = 2.0 * p2.M * p2.K * p2.N * p2.ITERS
+        b_ms, b_by = bound(a.numel() * a.element_size() + b.numel() * b.element_size()
+                           + 8 * p2.N * 4, flops,
+                           "float32_split" if dt == torch.float32 else r["dtype"])
+        ms = timed_ms(lambda: p2.mxu(a, b, p2.ITERS), 10)
+        rates[r["dtype"]] = dict(
+            ms=ms, bound_ms=b_ms, bound_by=b_by, **err2[dt],
+            plain_ms=timed_ms(lambda: p2.mxu_ref(a, b, p2.ITERS), 3),
+            ops_s_at_script_steps=flops / (ms * 1e-3), bench_checks=r["checks"],
+            sustained_steps=r["timed_iters"], sustained_ms=r["ms"], ops_s=r["ops_s"],
+            sm_clock_mhz=r["sm_clock_mhz"])
+    bf = rates["bfloat16"]
+    rows["probe_mxu"] = dict(
+        source="reverso_tpu_torch/csrc/probe_mxu.cu", replaces="scripts/bench_mxu.py:46",
+        max_abs_err=bf["max_abs_err"], shape=f"M, K, N = 256, 1024, 1024, bf16 -> fp32, "
+        f"{p2.ITERS} steps (int8 and the fp32 split mode in `rates`)", ms=bf["ms"],
+        plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"], bound_by=bf["bound_by"],
+        library="none: no one PyTorch call computes the function", library_ms=None,
+        rates=rates, matmul_8192_bf16=p2.matmul_rate(dev, gen))
+
+    # P3: the variants beside K1 over the same rows and queries
+    ms3 = {v: timed_ms(lambda: p3.scan(db, q, v)) for v in p3.VARIANTS}
+    k1 = p3.k1_ms(db, q)
+    rows["probe_scan"] = dict(
+        source="reverso_tpu_torch/csrc/probe_scan.cu",
+        replaces="scripts/bench_scan_overlap.py:144",
+        max_abs_err=max(e for errs in err3.values() for e in errs.values()),
+        shape="1M x 1024 bf16 rows, Q = 256 (the first rows), unroll (TILE = 128)",
+        ms=ms3["unroll"], plain_ms=timed_ms(lambda: p3.scan_ref(db, q, "unroll"), 3),
+        library="none: no one PyTorch call (a matmul and an amax)", library_ms=None,
+        stage_ms=ms3["stage"], wide_ms=ms3["wide"], k1_ms=k1,
+        unroll_share_of_k1=ms3["unroll"] / k1, errors=err3)
+    rows["probe_scan"]["bound_ms"], rows["probe_scan"]["bound_by"] = bound(
+        db.numel() * 2 + q.numel() * 2 + p3.Q * p3.TILE * 4, 2 * p3.Q * p3.N * p3.D, "bfloat16")
+
+    # P4: aligned against unaligned offsets, one CTA and the grid
+    forms = {}
+    for dt in p4.DTYPES:
+        r = p4.bench(dt, device=dev, generator=gen)
+        for name in ("aligned", "unaligned", "aligned2", "unaligned2", "distinct_aligned",
+                     "distinct_unaligned", "in_l2"):
+            forms[f"{r['dtype']} {name}"] = r[name]
+    mat, qq = mats[torch.bfloat16]
+    distinct4 = p4.distinct_rows(offs)    # the rows its overlapping blocks cover: read once
+    ms4 = timed_ms(lambda: p4.dyn_dma(offs, qq, mat), 10)
+    rows["probe_dyn_dma"] = dict(
+        source="reverso_tpu_torch/csrc/probe_dyn_dma.cu",
+        replaces="scripts/proto_dyn_dma.py:58", max_abs_err=err4[torch.bfloat16],
+        shape=f"262,144 x 1024 bf16, 512 reps of 512 rows at unaligned offsets ({distinct4} "
+        "distinct rows), the grid (one CTA an SM)", ms=ms4,
+        plain_ms=timed_ms(lambda: p4.dyn_dma_ref(offs, qq, mat), 1),
+        library="none: no one PyTorch call (a gather of row blocks and a batched matmul)",
+        library_ms=None, distinct_rows=distinct4, forms=forms,
+        int8_max_abs_err=err4[torch.int8])
+    rows["probe_dyn_dma"]["bound_ms"], rows["probe_dyn_dma"]["bound_by"] = bound(
+        distinct4 * p4.D * 2 + 8 * p4.D * 2 + p4.REPS * 4 + p4.REPS * 8 * p4.ROWS * 4,
+        2 * 8 * p4.ROWS * p4.D * p4.REPS, "bfloat16")
+
+    # P5: the gather at each table size; K8 at the script's shapes
+    gathers = {}
+    for n in p5.GATHER_ROWS:
+        r = p5.bench_gather(n, device=dev, generator=gen)
+        gathers[n] = {k: r[k] for k in ("ms", "ns_per_row", "marginal_ns_per_row", "in_smem")}
+    tab, idx = tables[256]
+    rows["probe_gather"] = dict(
+        source="reverso_tpu_torch/csrc/probe_gather.cu",
+        replaces="scripts/bench_deformable.py:110", max_abs_err=max(err5.values()),
+        shape="tab [256, 128] fp32 in shared memory, 64 steps", ms=gathers[256]["ms"],
+        plain_ms=timed_ms(lambda: p5.gather_ref(tab, idx), 3),
+        library="none: no one PyTorch call (64 gathers and adds)", library_ms=None,
+        by_table=gathers, k8_script_shapes_ms={
+            str(dt): p5.k8_ms(dt, device=dev, generator=gen)
+            for dt in (torch.float32, torch.bfloat16)})
+    rows["probe_gather"]["bound_ms"], rows["probe_gather"]["bound_by"] = bound(
+        3 * 256 * p5.LANES * 4, 256 * p5.LANES * p5.ITERS, "float32")
+
+    # the measured peaks: the highest rate of device memory phase H saw (P1's
+    # rings, each over the rows it streams; P4's grid at blocks that do not
+    # overlap; the P1 and P4 rows over their bounds' bytes, P4's distinct
+    # rows), the rate of loads from L2 (P4's grid inside L2_ROWS rows), and
+    # each operand type's highest tensor-core rate (P2's sustained run or
+    # its script's 1024 steps)
+    reads = {f"P1 ring {'x'.join(map(str, c))}": v * 1e9 for c, v in sweep.items()}
+    reads.update({f"P4 grid {k}": v["grid_gb_s"] * 1e9 for k, v in forms.items()
+                  if "distinct" in k})
+    reads.update({f"{name} row": rows[name]["bound_ms"].nbytes / rows[name]["ms"] * 1e3
+                  for name in ("probe_dma", "probe_dyn_dma")})
+    read_by = max(reads, key=reads.get)
+    l2 = {k: v["grid_gb_s"] * 1e9 for k, v in forms.items() if k.endswith("in_l2")}
+    l2_by = max(l2, key=l2.get)
+    ops = {k: max(v["ops_s"], v["ops_s_at_script_steps"]) for k, v in rates.items()}
+    peaks = {"card": card(dev), "sm_clock_mhz": sm_clock_mhz(dev),
+             "bytes_s": reads[read_by], "bytes_s_from": read_by,
+             "l2_bytes": getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                                 50 * 2 ** 20),
+             "l2_bytes_s": l2[l2_by], "l2_bytes_s_from": f"P4 grid {l2_by}",
+             "p1_best_ring": list(best), "p1_best_ring_bytes_s": sweep[best] * 1e9,
+             "bfloat16": ops["bfloat16"], "int8": ops["int8"],
+             "float32_split": ops["float32"],
+             "sm_clock_mhz_under_load": {k: v["sm_clock_mhz"] for k, v in rates.items()},
+             "float32": PEAK_OPS_S["float32"],
+             "float32_source": "the data sheet's 67 TFLOP/s (the CUDA cores): no probe "
+                               "measures it"}
+    print(f"measured peaks: {json.dumps(peaks)}", flush=True)
+    return rows, peaks, launches
+
+
+def probe_sweeps() -> int:
+    """`python3 chip_smoke.py --probes`: every probe module's full sweep, as
+    `python -m reverso_tpu_torch.probes.<module>` runs it."""
+    from reverso_tpu_torch.probes import (bench_deformable, bench_dma, bench_mxu,
+                                          bench_scan_overlap, proto_dyn_dma)
+    for mod in (bench_dma, bench_mxu, bench_scan_overlap, proto_dyn_dma, bench_deformable):
+        print(f"== python -m {mod.__name__}", flush=True)
+        rc = mod.main([])
+        if rc != 0:
+            return rc
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5693,6 +5920,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.probes import measured_bound
     t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.lib()
@@ -5700,6 +5928,8 @@ def main() -> int:
           flush=True)
     if sys.argv[1:2] == ["--copy-soak"]:
         return copy_soak(torch, int((sys.argv[2:] or ["100"])[0]))
+    if sys.argv[1:2] == ["--probes"]:
+        return probe_sweeps()
 
     t_all = time.perf_counter()
     phases = {}
@@ -5711,6 +5941,8 @@ def main() -> int:
         print(f"phase {name}: {phases[name]:.1f} s", flush=True)
         return out
 
+    probe_rows, peaks, probe_launches = phase("hardware probes (H)", probes_run, torch)
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase("kernels (PR 1)", kernel_checks, torch, gen)
     rows.update(phase("kernels (region, long ViT)", region_kernel_checks, torch, gen))
@@ -5820,6 +6052,7 @@ def main() -> int:
     # K11 at each shape the capacity and surface paths ran it at, timed on
     # each path's own captured inputs
     rows["ivf_scan"]["by_shape"] = capacity_ivf_shapes + surface_ivf_shapes + sharded_ivf_shapes
+    rows.update(probe_rows)
 
     # each kernel's launches on its own path: the tensor-core rows count the
     # bf16 core's launches, the fp32 rows the split mode's (on the parity
@@ -5869,7 +6102,7 @@ def main() -> int:
                "flash_heads_bwd_f32": train_f32_launches["flash_heads_bwd_split"]
                + mesh_launches["flash_heads_bwd_split"],
                "fused_mlp_bwd_f32": train_f32_launches["fused_mlp_bwd_split"]
-               + mesh_launches["fused_mlp_bwd_split"]}
+               + mesh_launches["fused_mlp_bwd_split"], **probe_launches}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     for name in ("flash_heads", "fused_mlp", "fused_mlp_f32", "flash_heads_f32",
@@ -5894,6 +6127,7 @@ def main() -> int:
         return path_of[name] * (r["ms"] - r["bound_ms"])
 
     apart = {name: f"redesigned in PR {REDESIGNED[name]}" for name in rows if name in REDESIGNED}
+    apart.update({name: "a hardware probe (phase H)" for name in PROBE_ROWS})
     ranked = {name: r for name, r in rows.items() if name not in apart}
     behind = sorted(((r["ms"] / r["library_ms"], name) for name, r in ranked.items()
                      if r["library_ms"] and r["ms"] > r["library_ms"]
@@ -5908,8 +6142,20 @@ def main() -> int:
     print(f"sharded (S) numbers: {json.dumps(sharded)}", flush=True)
     print(f"device builds (B) numbers: {json.dumps(builds)}", flush=True)
     print(f"surface (U) numbers: {json.dumps(surface)}", flush=True)
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "shape", "library")
+    # every row's bytes and operations again at the rates phase H measured
+    # (bound_ms keeps the published peaks); fp32 work off the tensor cores
+    # keeps the data sheet's 67 TFLOP/s
+    for name, r in rows.items():
+        b = r["bound_ms"]
+        check(isinstance(b, BoundMs), f"{name}: its bound_ms keeps no bytes and operations")
+        r["measured_bound_ms"], r["measured_bound_by"] = measured_bound(b.nbytes, b.ops,
+                                                                        b.dtype, peaks)
+        check(r["ms"] >= r["measured_bound_ms"] * (1 - 1e-9),   # (rounding)
+              f"{name}: {r['ms']} ms, under its measured bound {r['measured_bound_ms']} ms")
+        if b.dtype == "float32":
+            r["measured_bound_fp32_rate"] = peaks["float32_source"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "measured_bound_ms",
+            "measured_bound_by", "library_ms", "shape", "library")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=path_of[name], **{k: r[k] for k in keys},

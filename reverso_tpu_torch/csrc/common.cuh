@@ -41,4 +41,14 @@ template <typename T> __device__ __forceinline__ float round_t(float x) {
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// fp32 max into device memory by the bits' order: as int for v >= 0, as
+// unsigned for v < 0 (the target starts at -inf; the hardware probes'
+// reductions across CTAs)
+__device__ __forceinline__ void atomic_max_f32(float* p, float v) {
+    if (v >= 0.f)
+        atomicMax(reinterpret_cast<int*>(p), __float_as_int(v));
+    else
+        atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
+}
+
 }  // namespace rv

@@ -12,7 +12,7 @@
 // (the attention core's split mode, the MLP's split GEMMs and the fp32
 // top-k scan), 8-element loads, the tensor-map encoder, looked up through
 // the runtime's entry-point query so that the library links without
-// -lcuda, and the split parts' 3-D tensor map.
+// -lcuda, a 2-D tiled map and the split parts' 3-D tensor map.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
@@ -454,6 +454,22 @@ static inline EncodeTiledFn encode_tiled() {
         if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
     }
     return fn;
+}
+
+// a 2-D map over [rows][cols] (cols contiguous, esize bytes each), box
+// [box_rows][box_cols]; out-of-bounds elements read zero
+static inline bool make_map_tiled(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                                  const void* ptr, int cols, int rows, int box_cols, int box_rows,
+                                  CUtensorMapSwizzle swizzle) {
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // a 3-D bf16 map over the split pass's parts [3][rows][pitch] (pitch % 8 ==

@@ -79,6 +79,17 @@ _SIGNATURES = {
     "rv_flash_attn_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # value, levels, loc, attw, out, B, Lv, Lq, H, D, L, P, dtype, stream
     "rv_ms_deform": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the hardware probes (probes/): db, n_tiles, tile, n_bufs, streams, d,
+    # ctas_per_sm, out, stream
+    "rv_probe_dma": [_P] + [_I] * 6 + [_P, _P],
+    # a, a2, bt, M, K, N, iters, mode, out, stream
+    "rv_probe_mxu": [_P] * 3 + [_I] * 5 + [_P, _P],
+    # db, q, n, d, Q, variant, stages, out, stream
+    "rv_probe_scan": [_P, _P] + [_I] * 5 + [_P, _P],
+    # mat, q, offs, n, d, reps, dtype, grid, out, stream
+    "rv_probe_dyn_dma": [_P] * 3 + [_I] * 5 + [_P, _P],
+    # tab, idx, n, iters, in_smem, out, stream
+    "rv_probe_gather": [_P, _P] + [_I] * 3 + [_P, _P],
 }
 
 _lock = threading.Lock()
@@ -116,6 +127,8 @@ ptxas_log: dict[str, str] = {}
 # widths TMA cannot take on zero-padded copies), `flash_heads_bwd_split`
 # and `fused_mlp_bwd_split` the same kernels' fp32 split mode (K3's three
 # kernels a call; K4's the split pass of x and dY, then the kernel).
+# `probe_dma`, `probe_mxu`, `probe_scan`, `probe_dyn_dma` and
+# `probe_gather` count the hardware probes' kernels (`probes/`, P1-P5).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
@@ -124,7 +137,9 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn_relbias_split": 0, "fused_mlp_tc": 0, "topk_stream_f32": 0,
             "flash_heads_split": 0, "fused_mlp_split": 0, "split_parts": 0,
             "flash_heads_bwd": 0, "fused_mlp_bwd": 0, "flash_heads_bwd_tc": 0,
-            "flash_heads_bwd_split": 0, "fused_mlp_bwd_tc": 0, "fused_mlp_bwd_split": 0}
+            "flash_heads_bwd_split": 0, "fused_mlp_bwd_tc": 0, "fused_mlp_bwd_split": 0,
+            "probe_dma": 0, "probe_mxu": 0, "probe_scan": 0, "probe_dyn_dma": 0,
+            "probe_gather": 0}
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,

@@ -1487,3 +1487,86 @@ def test_train_mesh_across_cards(dev):
     loss, loss1, err, n = _mesh_vs_one_device(devices, (-1, 1), 2, "float32", len(devices))
     assert n["flash_heads_bwd_split"] == 2 * 2 * len(devices), n
     assert abs(loss - loss1) <= 1e-6 * max(1.0, abs(loss1)) and err <= 1e-4, (loss, loss1, err)
+
+
+# ---- the hardware probes (reverso_tpu_torch/probes/, P1-P5) ----
+
+@pytest.mark.parametrize("n_rows,tile,bufs,streams,ctas,d", [
+    (1024, 16, 4, 1, 1, 1024), (1000, 16, 2, 4, 2, 1024), (4096, 8, 8, 2, 1, 256),
+    (333, 48, 2, 1, 1, 512), (640, 4, 2, 2, 1, 1024),
+])
+def test_probe_dma_kernel(dev, n_rows, tile, bufs, streams, ctas, d):
+    """P1 equals its plain version exactly (a max), ragged row counts (the
+    rows past the last whole tile unread), sub-tiles of 2 to 48 rows."""
+    from reverso_tpu_torch.probes.bench_dma import stream_max, stream_max_ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    db = _randn(gen, n_rows, d, dtype=torch.bfloat16)
+    out = stream_max(db, tile, bufs, streams, ctas)
+    assert torch.equal(out, stream_max_ref(db, tile, streams))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("m,k,n,iters", [(128, 256, 256, 1), (256, 128, 512, 7),
+                                         (128, 1024, 256, 64)])
+def test_probe_mxu_kernel(dev, dtype, m, k, n, iters):
+    """P2 against `mxu_ref`: int8 bit for bit (s32 sums), bf16 and the fp32
+    split mode element by element within `mxu_tol`."""
+    from reverso_tpu_torch.probes.bench_mxu import mxu, mxu_ref, mxu_tol, seeded_operands
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a, b = seeded_operands(dtype, m, k, n, "cuda", gen)
+    out = mxu(a, b, iters)
+    ref = mxu_ref(a, b, iters)
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        assert bool(((out.double() - ref.double()).abs() <= mxu_tol(a, b, iters)).all())
+
+
+@pytest.mark.parametrize("variant", ["unroll", "stage", "wide"])
+@pytest.mark.parametrize("n,d,q", [(50000, 128, 16), (3001, 200, 130), (100, 64, 1)])
+def test_probe_scan_kernel(dev, variant, n, d, q):
+    """P3 against `scan_ref` within `reassociation_tol`: ragged row counts (the last
+    tile's rows past n at -inf), d not a multiple of 64, a second query
+    block of 2, a single query, three tiles a CTA and one."""
+    from reverso_tpu_torch.probes import reassociation_tol
+    from reverso_tpu_torch.probes.bench_scan_overlap import scan, scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    db = _randn(gen, n, d, dtype=torch.bfloat16)
+    queries = _randn(gen, q, d, dtype=torch.bfloat16)
+    out = scan(db, queries, variant)
+    ref = scan_ref(db, queries, variant)
+    assert out.shape == ref.shape
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    fin = ~torch.isneginf(ref)
+    assert float((out[fin] - ref[fin]).abs().max()) <= reassociation_tol(queries, db)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("grid", [0, 1, 3])
+def test_probe_dyn_dma_kernel(dev, dtype, grid):
+    """P4 at the script's awkward offsets and random ones, on one CTA, a
+    grid of one an SM and three CTAs: int8 exactly, bf16 within
+    `dyn_dma_tol`; d = 1024 and a last k step TMA zero-fills past d (208
+    bf16, 192 int8)."""
+    from reverso_tpu_torch.probes.proto_dyn_dma import (dyn_dma, dyn_dma_ref, dyn_dma_tol,
+                                                        offsets, seeded)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for d in (1024, 208 if dtype == torch.bfloat16 else 200 // 16 * 16):
+        mat, q = seeded(dtype, 5000, d, "cuda", gen)
+        offs = torch.tensor(offsets(5000) + (4488, 2, 999), dtype=torch.int32, device="cuda")
+        out = dyn_dma(offs, q, mat, grid)
+        ref = dyn_dma_ref(offs, q, mat)
+        assert float((out - ref).abs().max()) <= dyn_dma_tol(q, mat)
+
+
+@pytest.mark.parametrize("n,iters", [(8, 64), (256, 64), (453, 7), (1000, 64), (13294, 3),
+                                     (5, 0)])
+def test_probe_gather_kernel(dev, n, iters):
+    """P5 equals its plain version exactly (the same fp32 adds in the same
+    order), the table in shared memory (n <= 453) and in device memory;
+    negative indices wrap as Python's modulo does."""
+    from reverso_tpu_torch.probes.bench_deformable import gather, gather_ref, seeded
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tab, idx = seeded(n, "cuda", gen)
+    idx = idx - n // 2
+    assert torch.equal(gather(tab, idx, iters), gather_ref(tab, idx, iters))

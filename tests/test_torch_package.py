@@ -280,11 +280,17 @@ def test_wrappers_never_fall_back_for_device_tensors():
     ("ivf_scan.cu", {"rv_ivf_scan", "rv_ivf_plan"}),
     ("flash_heads_bwd_tc.cu", {"rv_flash_heads_bwd_tc", "rv_flash_heads_bwd_parts"}),
     ("fused_mlp_bwd.cu", {"rv_fused_mlp_bwd_split", "rv_fused_mlp_bwd_tc"}),
+    ("probe_dma.cu", {"rv_probe_dma"}),
+    ("probe_mxu.cu", {"rv_probe_mxu"}),
+    ("probe_scan.cu", {"rv_probe_scan"}),
+    ("probe_dyn_dma.cu", {"rv_probe_dyn_dma"}),
+    ("probe_gather.cu", {"rv_probe_gather"}),
 ])
 def test_signatures_match_k5_k8_launchers(source, launchers):
-    """The ctypes argument lists of the K3, K4/K5, K8 and K11 launchers and
-    of K3's and K4's backward kernels in `kernels._SIGNATURES` against
-    their `extern "C"` declarations, parsed from the sources."""
+    """The ctypes argument lists of the K3, K4/K5, K8 and K11 launchers, of
+    K3's and K4's backward kernels and of the hardware probes' (P1-P5) in
+    `kernels._SIGNATURES` against their `extern "C"` declarations, parsed
+    from the sources."""
     from reverso_tpu_torch import kernels
     pat = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
     found = {}
