@@ -1185,8 +1185,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--db-root", default=None, help="database root directory")
     p.add_argument("--trace-dir", default=None,
                    help="capture a torch.profiler trace of the command "
-                        "into this directory (trace.json; open with "
-                        "Perfetto or chrome://tracing)")
+                        "into this directory (trace.json: the card's "
+                        "activity and the program's spans; open with "
+                        "Perfetto or chrome://tracing) and print device "
+                        "idle by span")
     p.add_argument("--embed-quant", choices=["none", "int8"], default=None,
                    help="int8: the embed tower's MLPs on the int8 kernel "
                         "(dynamic int8 activations), with measured "

@@ -300,6 +300,7 @@ class Reverso(UniversalQuery):
         self._encoder = encoder
         self.detector = detector
         self.text_embedder = text_embedder
+        # the last build's stage timers (`create_database` starts anew)
         self.metrics = Metrics()
 
         self._store: Optional[VectorStore] = None
@@ -1660,6 +1661,7 @@ class Reverso(UniversalQuery):
                         include_subfolders: bool = False) -> str:
         """Build a searchable database from a folder."""
         self._set_store(None)  # release any handle on the target store
+        self.metrics = Metrics()
         result = build_database(
             self.encoder, folder_path, database_name,
             config=self.config, text_prompt=text_prompt,

@@ -21,6 +21,7 @@ import torch
 
 from ..config import ModelConfig, MODEL_PRESETS
 from ..ops.norm import l2_normalize
+from ..utils.profiling import span
 from .convert import convert_vision_tower, is_flax_tree, vision_params_from_flax
 from .vit import VisionTransformer
 
@@ -117,9 +118,15 @@ class PerceptionEncoder:
         Returns L2-normalized [B, embed_dim] fp32 embeddings on the host."""
         if not normalized:
             raise ValueError("embeddings are always L2-normalized")
-        x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
-        out = self.module(x)
-        return l2_normalize(out.float()).cpu().numpy()
+        with span("encode_image"):
+            with span("encode_image.upload"):
+                x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
+            with span("encode_image.forward"):
+                out = self.module(x)
+            with span("encode_image.normalize"):
+                out = l2_normalize(out.float())
+            with span("encode_image.download", waits=True):
+                return out.cpu().numpy()
 
     @torch.inference_mode()
     def encode_with_tokens(self, images):

@@ -36,6 +36,7 @@ from ..ops.recommend import (best_score_topk, best_score_topk_host, context_topk
                              sharded_discover_topk)
 from ..ops.topk import as_row_mask, dot_topk, int8_clip_bound, sharded_cosine_topk
 from ..parallel.sharding import Shards, empty_shards, shard_rows
+from ..utils.profiling import span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 _CHUNK = 65536   # host rows per upload step
@@ -58,7 +59,8 @@ def host_chunks(vectors: np.ndarray, device):
 
 def to_host(x) -> np.ndarray:
     """A search result array (device tensor or host array) -> numpy."""
-    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+    with span("index.to_host", waits=True):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
 
 def _empty(qn: int, k: int, device):
@@ -360,23 +362,31 @@ class DeviceIndex:
         (-score, idx) order; idx -1 marks slots beyond the scoring rows.
         int8 searches above the kernel's k cap or past d = 1040 take the
         chunked plain scan (a counted shape rule on the card)."""
-        q = _queries(queries, self.device)
-        if self.n_valid == 0:
-            return _empty(q.shape[0], k, self.device)
-        mask = as_row_mask(row_mask, self.n_valid, self.device)
-        if self.distance == "manhattan":
-            if self.mesh is not None:
-                return sharded_manhattan_topk(self.matrix, self._widen(q), k, self.mesh,
-                                              n_valid=self.n_valid, row_mask=mask)
-            return manhattan_topk(self.matrix, self._widen(q), k, n_valid=self.n_valid,
-                                  row_mask=mask)
-        if self.distance != "euclid":
-            return self._search_dot(self._widen(q), k, mask)
-        qa = self._widen(2.0 * q)
-        qa[:, q.shape[1]] = -1.0
-        s, i = self._search_dot(qa, k, mask)
-        dist2 = torch.clamp((q * q).sum(dim=1, keepdim=True) - s, min=0.0)
-        return torch.where(i >= 0, -torch.sqrt(dist2), float("-inf")), i
+        with span("index.search"):
+            with span("index.search.queries"):
+                q = _queries(queries, self.device)
+            if self.n_valid == 0:
+                return _empty(q.shape[0], k, self.device)
+            with span("index.search.mask"):
+                mask = as_row_mask(row_mask, self.n_valid, self.device)
+            with span("index.search.pad"):
+                if self.distance == "euclid":
+                    qa = self._widen(2.0 * q)
+                    qa[:, q.shape[1]] = -1.0
+                else:
+                    qa = self._widen(q)
+            with span("index.search.scan"):
+                if self.distance == "manhattan":
+                    if self.mesh is not None:
+                        return sharded_manhattan_topk(self.matrix, qa, k, self.mesh,
+                                                      n_valid=self.n_valid, row_mask=mask)
+                    return manhattan_topk(self.matrix, qa, k, n_valid=self.n_valid,
+                                          row_mask=mask)
+                s, i = self._search_dot(qa, k, mask)
+            if self.distance != "euclid":
+                return s, i
+            dist2 = torch.clamp((q * q).sum(dim=1, keepdim=True) - s, min=0.0)
+            return torch.where(i >= 0, -torch.sqrt(dist2), float("-inf")), i
 
     def _widen(self, q: torch.Tensor) -> torch.Tensor:
         """[Q, d] vectors (queries, examples) -> [Q, the matrix's width],

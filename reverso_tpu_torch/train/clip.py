@@ -39,6 +39,7 @@ from ..models.vit import VisionTransformer
 from ..ops.norm import l2_normalize
 from ..parallel.sharding import Mesh, shard_rows
 from ..parallel.tensor import ModelShards, param_partition_spec
+from ..utils.profiling import span
 
 __all__ = ["ClipTrainer", "TrainState", "param_partition_spec", "siglip_loss"]
 
@@ -212,20 +213,27 @@ class ClipTrainer:
         out) and its gradients as whole tensors by parameter name, with
         "t" and "b"."""
         n_valid = len(view_a)
-        view_a, view_b = self.shard_batch(view_a), self.shard_batch(view_b)
-        n = view_a.shape[0] if self.shards is None else view_a.n
-        valid = (torch.arange(n, device=self.device) < n_valid).to(torch.float32)
-        self.opt.zero_grad(set_to_none=True)
-        emb_a, emb_b = self._embed(view_a), self._embed(view_b)
-        loss = siglip_loss(emb_a, emb_b, self.t, self.b, valid)
-        loss.backward()
-        grads = {name: self._join(name, [p.grad for p in ps])
-                 for name, ps in self._pieces().items()}
+        with span("train_step.upload"):
+            view_a, view_b = self.shard_batch(view_a), self.shard_batch(view_b)
+            n = view_a.shape[0] if self.shards is None else view_a.n
+            valid = (torch.arange(n, device=self.device) < n_valid).to(torch.float32)
+        with span("train_step.forward"):
+            self.opt.zero_grad(set_to_none=True)
+            emb_a, emb_b = self._embed(view_a), self._embed(view_b)
+            loss = siglip_loss(emb_a, emb_b, self.t, self.b, valid)
+        with span("train_step.backward"):
+            loss.backward()
+        with span("train_step.grads"):
+            grads = {name: self._join(name, [p.grad for p in ps])
+                     for name, ps in self._pieces().items()}
         return loss.detach(), grads
 
     def train_step(self, view_a, view_b) -> float:
         """One optimizer step on two augmented views [B, H, W, 3]."""
-        loss, _ = self.value_and_grad(view_a, view_b)
-        self.opt.step()
-        self.step += 1
-        return float(loss)
+        with span("train_step"):
+            loss, _ = self.value_and_grad(view_a, view_b)
+            with span("train_step.optimizer"):
+                self.opt.step()
+            self.step += 1
+            with span("train_step.sync", waits=True):
+                return float(loss)
