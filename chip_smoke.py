@@ -598,6 +598,77 @@ def kernel_checks(torch, gen) -> dict:
           f"bound {r['bound_ms_b64']:.4f}); h round trip at the HBM rate "
           f"{r['h_roundtrip_bound_ms']:.4f} ms", flush=True)
 
+    # the tower's norm sites (`ops/norm.py::add_layernorm`): a B = 64 batch's
+    # tokens, T = 36,928, W = 1024, bf16, in the three modes the tower runs
+    # (LayerNorm alone, the residual add, with LayerScale), against the
+    # plain composition: r bit for bit, h within one bf16 ulp (plus 1e-5
+    # near 0, where the affine's fp32 terms cancel)
+    from reverso_tpu_torch.ops.norm import add_layernorm, add_layernorm_ref
+
+    t_norm = 64 * 577
+    xn, yn = randn(t_norm, w, scale=3.0), randn(t_norm, w)
+    lw = 1 + 0.3 * randn(w, dtype=torch.float32)
+    lb, gam = randn(w, dtype=torch.float32), 0.1 + 0.05 * randn(w, dtype=torch.float32)
+    errs = []
+    with torch.inference_mode():
+        for y_, g_ in ((None, None), (yn, None), (yn, gam)):
+            t0 = kernels.launches["add_layernorm"]
+            r_, h_ = add_layernorm(xn, y_, lw, lb, gamma=g_)
+            check(kernels.launches["add_layernorm"] == t0 + 1, "add_layernorm: not the kernel")
+            rr_, hr_ = add_layernorm_ref(xn, y_, lw, lb, gamma=g_)
+            torch.cuda.synchronize()
+            check(torch.equal(r_, rr_), "add_layernorm: the residual differs from the plain one")
+            _, e_ = torch.frexp(hr_.float())
+            diff = (h_.float() - hr_.float()).abs()
+            check(bool((diff <= torch.ldexp(torch.ones_like(diff), e_ - 8) + 1e-5).all()),
+                  "add_layernorm: h beyond one bf16 ulp of the plain one")
+            errs.append(float(diff.max()))
+        del r_, h_, rr_, hr_, diff, e_
+        rows["add_layernorm"] = dict(
+            source="reverso_tpu_torch/csrc/add_layernorm.cu",
+            replaces="none: XLA fuses the JAX tower's residual adds and LayerNorms "
+                     "(reverso_tpu/models/vit.py); added for the port's plain passes",
+            max_abs_err=max(errs), shape="T=36928 W=1024 bf16, residual + LayerScale",
+            ms=cuda_ms(lambda: add_layernorm(xn, yn, lw, lb, gamma=gam)),
+            plain_ms=cuda_ms(lambda: add_layernorm_ref(xn, yn, lw, lb, gamma=gam)),
+            norm_alone_ms=cuda_ms(lambda: add_layernorm(xn, None, lw, lb)),
+            library="none: no single PyTorch call", library_ms=None)
+    rows["add_layernorm"]["bound_ms"], rows["add_layernorm"]["bound_by"] = bound(
+        4 * t_norm * w * 2 + 3 * w * 4, 0, "bfloat16")
+    rows["add_layernorm"]["norm_alone_bound_ms"] = bound(2 * t_norm * w * 2 + 2 * w * 4, 0,
+                                                         "bfloat16")[0]
+    del xn, yn
+    # fp32, the fp32 tower's B = 8 forward (T = 4616): r bit for bit, h
+    # within 1e-5 of max(1, |h|) (the order of the fp32 sums)
+    t32 = 8 * 577
+    xf, yf = randn(t32, w, dtype=torch.float32, scale=3.0), randn(t32, w, dtype=torch.float32)
+    errs32 = []
+    with torch.inference_mode():
+        for y_, g_ in ((None, None), (yf, None), (yf, gam)):
+            t0 = kernels.launches["add_layernorm"]
+            r_, h_ = add_layernorm(xf, y_, lw, lb, gamma=g_)
+            check(kernels.launches["add_layernorm"] == t0 + 1,
+                  "add_layernorm fp32: not the kernel")
+            rr_, hr_ = add_layernorm_ref(xf, y_, lw, lb, gamma=g_)
+            torch.cuda.synchronize()
+            check(torch.equal(r_, rr_), "add_layernorm fp32: the residual differs")
+            diff = (h_ - hr_).abs()
+            check(bool((diff <= 1e-5 * hr_.abs().clamp(min=1.0)).all()),
+                  "add_layernorm fp32: h beyond 1e-5 of the plain one")
+            errs32.append(float(diff.max()))
+        rows["add_layernorm"].update(
+            max_abs_err_f32=max(errs32), shape_f32="T=4616 W=1024 fp32, residual + LayerScale",
+            ms_f32=cuda_ms(lambda: add_layernorm(xf, yf, lw, lb, gamma=gam)),
+            plain_ms_f32=cuda_ms(lambda: add_layernorm_ref(xf, yf, lw, lb, gamma=gam)))
+    del r_, h_, rr_, hr_, diff, xf, yf
+    rows["add_layernorm"]["bound_ms_f32"] = bound(4 * t32 * w * 4 + 3 * w * 4, 0, "float32")[0]
+    r = rows["add_layernorm"]
+    print(f"add_layernorm: max abs err {errs}; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+          f"bound {r['bound_ms']:.4f}); alone {r['norm_alone_ms']:.4f} "
+          f"(bound {r['norm_alone_bound_ms']:.4f}); fp32 T=4616 err {errs32}, "
+          f"{r['ms_f32']:.4f} ms (plain {r['plain_ms_f32']:.4f}, bound {r['bound_ms_f32']:.4f})",
+          flush=True)
+
     # K4 in fp32 on the split GEMMs (the fp32 tower): T = 2 * 577, the
     # depth-2 tower's forward (`tower_check`), and T = 4616, the full-depth
     # B = 8 forward's; the weights' parts made once by the split pass, as
@@ -1599,8 +1670,14 @@ def slice_run(root: str) -> dict:
                  if k[0] in ("flash_heads_tc", "fused_mlp_tc")}
     print(f"launches on the direct-embed path: {launches}; K1 by shape "
           f"{[(k[1], n) for k, n in topk_shapes.items()]}", flush=True)
-    for name in ("flash_heads", "fused_mlp", "topk_stream"):
+    for name in ("flash_heads", "fused_mlp", "topk_stream", "add_layernorm"):
         check(launches[name] > 0, f"kernel {name} never launched on the direct-embed path")
+    check(kernels.plain_dispatches["norm_shape"] == 0,
+          "a norm site of the direct-embed path took the plain composition")
+    depth = engine.encoder.cfg.depth   # K3 launches a forward: one a block
+    check(launches["add_layernorm"] * depth == (2 * depth + 2) * launches["flash_heads"],
+          f"add_layernorm: {launches['add_layernorm']} launches on the direct-embed path, "
+          f"not {2 * depth + 2} a forward of {launches['flash_heads'] / depth:g}")
     check(launches["flash_heads_tc"] == launches["flash_heads"],
           "a bf16 attention of the direct-embed path missed the tensor-core kernel")
     check(launches["fused_mlp_tc"] == launches["fused_mlp"],
@@ -4422,14 +4499,17 @@ def plain_tower():
     """The tower's attention and MLP on their plain versions
     (`flash_attention_heads_ref`, `mlp_ref`) with PyTorch's autograd, each
     recomputed in the backward (`torch.utils.checkpoint`) so that 24 blocks
-    of [B, H, S, S] scores fit on the card: the harness's plain reference
-    for phase T's witness, not a route of the port."""
+    of [B, H, S, S] scores fit on the card, and its norm sites on
+    `add_layernorm_ref`: the harness's plain reference for phase T's
+    witness, not a route of the port."""
     from torch.utils.checkpoint import checkpoint
     from reverso_tpu_torch.models import vit
     from reverso_tpu_torch.ops.attention import flash_attention_heads_ref
     from reverso_tpu_torch.ops.fused_mlp import mlp_ref
+    from reverso_tpu_torch.ops.norm import add_layernorm_ref
 
-    saved = vit.flash_attention_heads, vit.fused_mlp
+    saved = vit.flash_attention_heads, vit.fused_mlp, vit.add_layernorm
+    vit.add_layernorm = add_layernorm_ref
     vit.flash_attention_heads = lambda q, k, v, **kw: checkpoint(
         flash_attention_heads_ref, q, k, v, use_reentrant=False, **kw)
     vit.fused_mlp = lambda x, w1, b1, w2, b2, act, parts: checkpoint(
@@ -4437,7 +4517,7 @@ def plain_tower():
     try:
         yield
     finally:
-        vit.flash_attention_heads, vit.fused_mlp = saved
+        vit.flash_attention_heads, vit.fused_mlp, vit.add_layernorm = saved
 
 
 def heads_bwd_bound(b: int, s: int, w: int, heads: int, itemsize: int,
@@ -5003,6 +5083,11 @@ def train_run(root: str) -> tuple:
                                               f"times, not {5 * per_step}")
     check(launches["flash_attn"] == 0 and launches["fused_mlp_int8"] == 0,
           f"training: unexpected launches {launches}")
+    norms = 2 * (2 * cfg.depth + 2)   # two views, the norm sites of a forward
+    check(launches["add_layernorm"] == 5 * norms
+          and kernels.plain_dispatches["norm_shape"] == 0,
+          f"training: add_layernorm launched {launches['add_layernorm']} times, not "
+          f"{5 * norms}, norm_shape {kernels.plain_dispatches['norm_shape']}")
 
     # (d) checkpoint: save, restore into another seed's trainer, bit for bit
     path = os.path.join(root, "train_ckpt", "state.pt")
@@ -5164,6 +5249,10 @@ def f32_train_run(torch, cfg, va, vb) -> tuple:
               f"{F32_STEPS * per_step}")
     for name in ("flash_heads_tc", "fused_mlp_tc", "flash_heads_bwd_tc", "fused_mlp_bwd_tc"):
         check(launches[name] == 0, f"fp32 training: {name} launched {launches[name]} times")
+    norms = 2 * (2 * cfg.depth + 2)   # two views, the norm sites of a forward
+    check(launches["add_layernorm"] == F32_STEPS * norms,
+          f"fp32 training: add_layernorm launched {launches['add_layernorm']} times, not "
+          f"{F32_STEPS * norms}")
     # the first step against the plain tower's
     diff = sum(float((grads_k[n] - g).double().square().sum()) for n, g in grads_p.items())
     norm = sum(float(g.double().square().sum()) for g in grads_p.values())
@@ -5323,9 +5412,15 @@ def mesh_train_run(root: str) -> tuple:
             ("fused_mlp_tc", (b * s, cfg.width, hid, "gelu")),
             ("flash_heads_bwd", (b, s, w, heads, True, bf)),
             ("fused_mlp_bwd", (b * s, cfg.width, hid, "gelu", bf))}
-    check(set(run_shapes) == want and all(n == TM_STEPS * per_step for n in run_shapes.values()),
+    tower_shapes = {k: n for k, n in run_shapes.items() if k[0] != "add_layernorm"}
+    check(set(tower_shapes) == want
+          and all(n == TM_STEPS * per_step for n in tower_shapes.values()),
           f"mesh training: launches by shape {dict(run_shapes)}, not {TM_STEPS * per_step} "
           f"at each of {want}")
+    # the norm sites run once a data shard, at full width on its home device
+    norms = TM_STEPS * 2 * TM_SIZES[0] * (2 * cfg.depth + 2)
+    check(run["add_layernorm"] == norms and kernels.plain_dispatches["norm_shape"] == 0,
+          f"mesh training: add_layernorm launched {run['add_layernorm']} times, not {norms}")
     for name in ("flash_heads", "flash_heads_tc", "flash_heads_bwd", "flash_heads_bwd_tc",
                  "fused_mlp", "fused_mlp_tc", "fused_mlp_bwd", "fused_mlp_bwd_tc"):
         check(run[name] == TM_STEPS * per_step,
@@ -6102,7 +6197,9 @@ def main() -> int:
                "flash_heads_bwd_f32": train_f32_launches["flash_heads_bwd_split"]
                + mesh_launches["flash_heads_bwd_split"],
                "fused_mlp_bwd_f32": train_f32_launches["fused_mlp_bwd_split"]
-               + mesh_launches["fused_mlp_bwd_split"], **probe_launches}
+               + mesh_launches["fused_mlp_bwd_split"],
+               "add_layernorm": direct_launches["add_layernorm"]
+               + entry_launches["add_layernorm"], **probe_launches}
     print(f"phases: {json.dumps(phases)}; total {time.perf_counter() - t_all:.1f} s "
           f"after the build", flush=True)
     for name in ("flash_heads", "fused_mlp", "fused_mlp_f32", "flash_heads_f32",

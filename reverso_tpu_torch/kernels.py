@@ -77,6 +77,8 @@ _SIGNATURES = {
     "rv_flash_attn_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, bh, bw, o, BH, Sq, Skv, D, G, kv_valid, scale, stream
     "rv_flash_attn_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, y, gamma, w, b, r, h, mean, rstd, rows, W, eps, dtype, stream
+    "rv_add_layernorm": [_P] * 9 + [_I, _I, _F, _I, _P],
     # value, levels, loc, attw, out, B, Lv, Lq, H, D, L, P, dtype, stream
     "rv_ms_deform": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # the hardware probes (probes/): db, n_tiles, tile, n_bufs, streams, d,
@@ -129,6 +131,8 @@ ptxas_log: dict[str, str] = {}
 # kernels a call; K4's the split pass of x and dY, then the kernel).
 # `probe_dma`, `probe_mxu`, `probe_scan`, `probe_dyn_dma` and
 # `probe_gather` count the hardware probes' kernels (`probes/`, P1-P5).
+# `add_layernorm` counts the tower's fused residual + LayerNorm passes
+# (`ops/norm.py`, one a norm site).
 launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_attn": 0, "flash_attn_relbias": 0, "ms_deform": 0,
             "topk_masked": 0, "topk_int8": 0, "topk_binary": 0, "ivf_scan": 0,
@@ -139,7 +143,7 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
             "flash_heads_bwd": 0, "fused_mlp_bwd": 0, "flash_heads_bwd_tc": 0,
             "flash_heads_bwd_split": 0, "fused_mlp_bwd_tc": 0, "fused_mlp_bwd_split": 0,
             "probe_dma": 0, "probe_mxu": 0, "probe_scan": 0, "probe_dyn_dma": 0,
-            "probe_gather": 0}
+            "probe_gather": 0, "add_layernorm": 0}
 # Launches per (kernel, shape) of the kernels whose time depends most on the
 # call's shape, so that a run can weigh each launch at the shape it ran
 # at: {("fused_mlp_int8", (T, W, H, dtype)): n, ("fused_mlp_split", (T, W,
@@ -148,16 +152,18 @@ launches = {"flash_heads": 0, "fused_mlp": 0, "topk_stream": 0,
 # ("flash_heads_split", (B, S, W, heads)): n, ("flash_heads_tc", (B, S, W,
 # heads, rope)): n, ("ms_deform", (B,
 # Lq, level shapes, H, D, P, dtype)): n, (top-k counter, (Q, n_valid, d, k,
-# masked)): n, ("ivf_scan", (Q, nprobe, d, k, masked, mode)): n}, fp32-row top-k
+# masked)): n, ("ivf_scan", (Q, nprobe, d, k, masked, mode)): n,
+# ("add_layernorm", (T, W, dtype, residual, scaled)): n}, fp32-row top-k
 # launches under "topk_stream_f32"
 # (`ops/topk.py::launch_key`). Counted beside `launches`, which stays the
 # per-kernel count.
 shape_launches: collections.Counter = collections.Counter()
 # Shape-rule dispatches of CUDA tensors to a plain version: k above the
 # top-k kernel's cap; int8 k above the cap or d above the exactness bound
-# (1040); binary k above the cap; an IVF fetch (2k under spill) above it.
+# (1040); binary k above the cap; an IVF fetch (2k under spill) above it;
+# a norm site whose dtype or width the fused pass does not take.
 plain_dispatches = {"topk_above_cap": 0, "int8_above_cap_or_wide": 0,
-                    "binary_above_cap": 0, "ivf_fetch_above_cap": 0}
+                    "binary_above_cap": 0, "ivf_fetch_above_cap": 0, "norm_shape": 0}
 
 
 def reset_counts() -> None:

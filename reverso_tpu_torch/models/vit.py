@@ -4,7 +4,8 @@ A config-driven tower covering both the PE-Core layout (2D RoPE, attention
 pooling, LayerScale) and the HF CLIP layout (absolute positions, CLS
 pooling, quick-GELU, pre-LN, no patch bias), with the JAX package's
 numerics: fp32 parameters cast to the activation dtype at use, fp32
-LayerNorms cast back to the activation dtype, attention through the
+LayerNorms cast back to the activation dtype (each fused with the residual
+add before it, `ops/norm.py::add_layernorm`), attention through the
 heads-in-lanes kernel (or, past its envelope, the [B, H, S, D] flash
 kernel) and the MLP through the fused kernel (its int8 mode under
 `ModelConfig.quant="int8"`; the projections stay in the activation dtype,
@@ -36,6 +37,7 @@ from ..config import ModelConfig
 from ..ops.attention import attention_ref, flash_attention, flash_attention_heads
 from ..ops.fused_mlp import (fused_mlp, fused_mlp_int8, quantize_mlp_weights,
                              split_mlp_weights)
+from ..ops.norm import add_layernorm
 from ..ops.rope import apply_rope_2d, rope_2d_tables
 
 # sequences the heads-in-lanes kernel takes (ViT-L/14-336 is 577 tokens);
@@ -76,17 +78,25 @@ def _linear(x, weight, bias=None):
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm computed in `compute_dtype` (fp32 by default), cast back
-    to the input dtype."""
+    to the input dtype (`ops/norm.py::add_layernorm` without a residual)."""
 
     def __init__(self, dim: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=1e-5)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        cd = self.compute_dtype
-        return F.layer_norm(x.to(cd), self.normalized_shape,
-                            self.weight.to(cd), self.bias.to(cd),
-                            self.eps).to(x.dtype)
+        return _add_norm(x, None, None, self)[1]
+
+
+def _add_norm(x, y, ls, ln):
+    """One norm site: (r, h) with r = x + ls(y) (x where y is None) and h =
+    ln(r), in one pass of `add_layernorm`; h is None where `ln` is None
+    (the residual's add alone)."""
+    gamma = None if ls is None else ls.gamma
+    if ln is None:
+        return x + (y if ls is None else ls(y)), None
+    return add_layernorm(x, y, ln.weight, ln.bias, gamma=gamma, eps=ln.eps,
+                         compute_dtype=ln.compute_dtype)
 
 
 class MHA(nn.Module):
@@ -224,6 +234,9 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
+    """A pre-LN block. The tower runs it through `sublayers`, with its
+    residual adds fused into the norm sites that follow them."""
+
     def __init__(self, cfg: ModelConfig, act: str = "gelu"):
         super().__init__()
         norm_dtype = getattr(torch, cfg.norm_dtype)
@@ -237,15 +250,14 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x, rope=None, kv_valid: Optional[int] = None, tp=None):
-        y = self.attn(self.ln1(x), rope, kv_valid, tp)
-        if self.ls1 is not None:
-            y = self.ls1(y)
-        x = x + y
-        y = self.mlp(self.ln2(x), tp)
-        if self.ls2 is not None:
-            y = self.ls2(y)
-        return x + y
+    def sublayers(self, x, h, rope=None, kv_valid: Optional[int] = None, tp=None):
+        """The block from h = ln1(x) on: attention, its residual add fused
+        with ln2, the MLP. Returns (x, y): the residual after attention and
+        the MLP's output, whose add (with ls2) the caller fuses with the
+        next norm site."""
+        y = self.attn(h, rope, kv_valid, tp)
+        x, h = _add_norm(x, y, self.ls1, self.ln2)
+        return x, self.mlp(h, tp)
 
 
 class AttentionPool(nn.Module):
@@ -391,13 +403,20 @@ class VisionTransformer(nn.Module):
         if cfg.use_rope:   # with tp: the tables on each model shard's device
             rope = (self._rope(x.shape[1], x.device) if tp is None
                     else [self._rope(x.shape[1], dev) for dev in tp.devices])
-        for blk in self.blocks:
-            x = blk(x, rope, kv_valid, tp)
+        # each block's end fuses with the next block's ln1, the last one's
+        # with ln_post where it normalises every token (the attention pool)
+        post = self.ln_post if cfg.pool_type == "attn" else None
+        first = self.blocks[0].ln1 if len(self.blocks) else post
+        h = first(x) if first is not None else None
+        for i, blk in enumerate(self.blocks):
+            x, y = blk.sublayers(x, h, rope, kv_valid, tp)
+            nxt = self.blocks[i + 1].ln1 if i + 1 < len(self.blocks) else post
+            x, h = _add_norm(x, y, blk.ls2, nxt)
 
         tokens = x
         region_emb = None
         if cfg.pool_type == "attn":
-            tokens_n = self.ln_post(tokens) if self.ln_post is not None else tokens
+            tokens_n = tokens if post is None else h
             if kv_valid is None:
                 pooled = self.attn_pool(tokens_n)
             else:

@@ -1570,3 +1570,227 @@ def test_probe_gather_kernel(dev, n, iters):
     tab, idx = seeded(n, "cuda", gen)
     idx = idx - n // 2
     assert torch.equal(gather(tab, idx, iters), gather_ref(tab, idx, iters))
+
+
+# ---- the tower's fused residual + LayerNorm pass (csrc/add_layernorm.cu) ----
+
+def _bf16_ulp(t):
+    """One ulp of each bf16 value of t, as fp32 (8 significant bits)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("mode", ["norm", "residual", "scaled"])
+@pytest.mark.parametrize("t,w,dtype", [
+    (36928, 1024, torch.bfloat16),   # a B = 64 PE / CLIP batch's tokens
+    (1001, 1024, torch.bfloat16),    # ragged T
+    (577, 1536, torch.bfloat16),     # PE-G14's width: 6 vectors a lane
+    (300, 64, torch.bfloat16),       # test-tiny's width: part of a warp
+    (257, 200, torch.bfloat16),      # 25 vectors, no power of two
+    (4616, 1024, torch.float32),     # the fp32 tower
+    (33, 1536, torch.float32),       # fp32 at the widest bucket
+])
+def test_add_layernorm_kernel(dev, mode, t, w, dtype):
+    """One launch against `add_layernorm_ref` on the card: r bit for bit,
+    h within one bf16 ulp (fp32: within 1e-5 of max(1, |h|), the order of
+    the fp32 sums), plus 1e-5 in bf16 where h is near 0: there the affine's
+    fp32 terms, up to ~20 here, cancel, and their few-ulp differences
+    exceed h's own ulp. A LayerNorm alone writes h only."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.norm import add_layernorm, add_layernorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(t + w)
+    x = _randn(gen, t, w, dtype=dtype, scale=3.0) + 0.5
+    y = None if mode == "norm" else _randn(gen, t, w, dtype=dtype)
+    lw, lb = 1 + 0.3 * _randn(gen, w, dtype=torch.float32), _randn(gen, w, dtype=torch.float32)
+    gamma = 0.1 + 0.05 * _randn(gen, w, dtype=torch.float32) if mode == "scaled" else None
+    n0, plain0 = kernels.launches["add_layernorm"], kernels.plain_dispatches["norm_shape"]
+    with torch.inference_mode():
+        r, h = add_layernorm(x, y, lw, lb, gamma=gamma)
+        rr, hr = add_layernorm_ref(x, y, lw, lb, gamma=gamma)
+    torch.cuda.synchronize()
+    assert kernels.launches["add_layernorm"] == n0 + 1
+    assert kernels.plain_dispatches["norm_shape"] == plain0
+    key = ("add_layernorm", (t, w, str(dtype).split(".")[-1], y is not None, gamma is not None))
+    assert kernels.shape_launches[key] >= 1
+    assert r.dtype == h.dtype == dtype and torch.equal(r, rr)
+    if y is None:
+        assert r is x
+    diff = (h.float() - hr.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((diff <= _bf16_ulp(hr) + 1e-5).all()), float((diff - _bf16_ulp(hr)).max())
+    else:
+        assert bool((diff <= 1e-5 * hr.float().abs().clamp(min=1.0)).all()), float(diff.max())
+
+
+def test_add_layernorm_routes(dev):
+    """The route from what the call observes: under grad the kernel too
+    (through `AddLayerNormFunction`), and an unaligned base is copied to
+    an aligned one; a width the kernel does not take (W % 8 != 0, W above
+    3072 in bf16), fp16 or a bf16 compute dtype is counted in
+    `plain_dispatches["norm_shape"]` and computed plainly."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.norm import add_layernorm, add_layernorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lw = torch.ones(4096, device="cuda")
+    lb = torch.zeros(4096, device="cuda")
+    x = _randn(gen, 8, 1024, dtype=torch.bfloat16)
+    n0, plain0 = kernels.launches["add_layernorm"], kernels.plain_dispatches["norm_shape"]
+    with torch.enable_grad():
+        xg = x.clone().requires_grad_()
+        r, h = add_layernorm(xg, x, lw[:1024], lb[:1024])
+        assert r.requires_grad and h.requires_grad
+    base = torch.empty(8 * 1024 + 1, dtype=torch.bfloat16, device="cuda")
+    with torch.inference_mode():
+        r, h = add_layernorm(base[1:].view(8, 1024).copy_(x), x, lw[:1024], lb[:1024])
+        assert torch.equal(r, add_layernorm_ref(x, x, lw[:1024], lb[:1024])[0])
+    assert kernels.launches["add_layernorm"] == n0 + 2
+    assert kernels.plain_dispatches["norm_shape"] == plain0
+    cases = [(_randn(gen, 8, 1028, dtype=torch.bfloat16), {}),
+             (_randn(gen, 8, 4096, dtype=torch.bfloat16), {}),
+             (_randn(gen, 8, 1024, dtype=torch.float16), {}),
+             (x, {"compute_dtype": torch.bfloat16})]
+    with torch.inference_mode():
+        for i, (xi, kw) in enumerate(cases):
+            w = xi.shape[-1]
+            r, h = add_layernorm(xi, xi, lw[:w], lb[:w], **kw)
+            rr, hr = add_layernorm_ref(xi, xi, lw[:w], lb[:w], **kw)
+            assert torch.equal(r, rr) and torch.equal(h, hr)
+            assert kernels.plain_dispatches["norm_shape"] == plain0 + i + 1
+    assert kernels.launches["add_layernorm"] == n0 + 2
+
+
+@pytest.mark.parametrize("mode", ["norm", "residual", "scaled"])
+@pytest.mark.parametrize("t,dtype", [(16 * 577, torch.bfloat16),   # a training view's tokens
+                                     (4 * 577, torch.float32)])    # the fp32 run's
+def test_add_layernorm_grad(dev, mode, t, dtype):
+    """Under autograd, one launch forward (`AddLayerNormFunction`) against
+    the plain composition's autograd: r bit for bit, h as in the no-grad
+    test, and every input's gradient (r also used past the site, as the
+    next residual) within what the kernel's row statistics move: PyTorch's
+    layer_norm backward runs on both sides, and only its mean and 1 /
+    sqrt(var + eps) differ (two passes against Welford, in the last fp32
+    bits). So the fp32 gradients agree within 1e-5 of their largest
+    magnitude; in bf16, x's and y's are equal bit for bit in 99% of their
+    elements, and theirs and gamma's lie within one bf16 ulp of their
+    largest magnitude: the layer_norm part is rounded to bf16 before the
+    residual's gradient is added, so an ulp it moves can be several of a
+    sum that cancels."""
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.ops.norm import add_layernorm, add_layernorm_ref
+
+    w = 1024
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    x0 = _randn(gen, t, w, dtype=dtype, scale=3.0)
+    y0 = None if mode == "norm" else _randn(gen, t, w, dtype=dtype)
+    p0 = [1 + 0.3 * _randn(gen, w, dtype=torch.float32), _randn(gen, w, dtype=torch.float32),
+          0.1 + 0.05 * _randn(gen, w, dtype=torch.float32) if mode == "scaled" else None]
+    dr, dh = (_randn(gen, t, w, dtype=torch.float32) for _ in range(2))
+    outs, grads = [], []
+    for fn in (add_layernorm, add_layernorm_ref):
+        leaves = [None if v is None else v.clone().requires_grad_() for v in (x0, y0, *p0)]
+        x, y, lw, lb, g = leaves
+        n0 = kernels.launches["add_layernorm"]
+        with torch.enable_grad():
+            r, h = fn(x, y, lw, lb, gamma=g)
+            ((r.float() * dr).sum() + (h.float() * dh).sum()).backward()
+        torch.cuda.synchronize()
+        assert kernels.launches["add_layernorm"] == n0 + (fn is add_layernorm)
+        outs.append((r.detach(), h.detach()))
+        grads.append([None if v is None else v.grad for v in leaves])
+    (r, h), (rr, hr) = outs
+    assert torch.equal(r, rr)
+    diff = (h.float() - hr.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((diff <= _bf16_ulp(hr) + 1e-5).all()), float((diff - _bf16_ulp(hr)).max())
+    else:
+        assert bool((diff <= 1e-5 * hr.float().abs().clamp(min=1.0)).all()), float(diff.max())
+    for i, (a, c) in enumerate(zip(*grads)):
+        assert (a is None) == (c is None)
+        if a is None:
+            continue
+        assert a.dtype == c.dtype
+        diff, top = (a.float() - c.float()).abs(), c.float().abs().max()
+        equal = float((diff == 0).float().mean())
+        print(f"{mode} {dtype} leaf {i}: largest gap {float(diff.max()):.3e} of "
+              f"{float(top):.3e}, equal share {equal:.5f}")
+        if dtype == torch.bfloat16 and i in (0, 1, 4):   # x, y, gamma: rounded to bf16
+            assert bool((diff <= _bf16_ulp(top)).all()), (i, float(diff.max()), float(top))
+            assert i == 4 or equal >= 0.99, (i, equal)
+        else:
+            assert bool((diff <= 1e-5 * top).all()), (i, float(diff.max()), float(top))
+
+
+@pytest.mark.parametrize("family,gap", [("pe", 0.008), ("clip", 0.015)])
+def test_tower_fused_norms_vs_plain(dev, family, gap):
+    """A full-depth PE-Core-L14-336 / CLIP-L14-336 tower (B = 8, bf16, seeded
+    weights) under inference_mode: the fused norm sites (two launches a block,
+    PE's ln_post over every token, the pool's or CLIP's ln_post) against the
+    plain composition, unit embeddings within the benchmark cells'
+    `embed_gap` readings (PE 0.008, CLIP 0.015), the tokens within 5% of
+    their largest magnitude (bf16 roundings of h that differ by an ulp,
+    carried through 24 blocks)."""
+    import dataclasses
+
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS
+    from reverso_tpu_torch.models import vit
+    from reverso_tpu_torch.models.pe import PerceptionEncoder
+    from reverso_tpu_torch.ops.norm import add_layernorm_ref
+
+    cfg = MODEL_PRESETS["PE-Core-L14-336" if family == "pe" else "CLIP-L14-336"]
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    enc = PerceptionEncoder(cfg, family=family, seed=3, device="cuda")
+    x = torch.randn(8, 336, 336, 3, generator=torch.Generator().manual_seed(2)).cuda()
+    kernels.reset_counts()
+    with torch.inference_mode():
+        out, tokens = enc.module(x, return_tokens=True)
+        launches = kernels.launches["add_layernorm"]
+        fused = vit.add_layernorm
+        vit.add_layernorm = lambda *a, **kw: add_layernorm_ref(*a, **kw)
+        try:
+            ref, ref_tokens = enc.module(x, return_tokens=True)
+        finally:
+            vit.add_layernorm = fused
+    torch.cuda.synchronize()
+    # ln1 of block 0 (and CLIP's ln_pre), ln2 and each block's end with the
+    # next norm (PE's last with ln_post), the pool's norm or CLIP's ln_post
+    assert launches == 2 * cfg.depth + 2, launches
+    assert kernels.launches["add_layernorm"] == launches
+    assert kernels.plain_dispatches["norm_shape"] == 0
+    unit = lambda e: torch.nn.functional.normalize(e.float(), dim=-1)
+    dist = float((unit(out) - unit(ref)).norm(dim=-1).max())
+    print(f"{family}: fused vs plain norms, largest unit-embedding distance {dist:.3e}")
+    assert dist <= gap, dist
+    assert bool(torch.isfinite(tokens.float()).all())
+    assert float((tokens.float() - ref_tokens.float()).abs().max()) <= 0.05 * float(
+        ref_tokens.float().abs().max())
+
+
+def test_tp_forward_fused_norms(dev):
+    """The tensor-parallel tower (a 2 x 2 mesh of cuda:0, depth 2, bf16) under
+    inference_mode takes the fused pass on each data shard's home device and
+    embeds as the one-device tower does."""
+    import dataclasses
+
+    from reverso_tpu_torch import kernels
+    from reverso_tpu_torch.config import MODEL_PRESETS, MeshConfig
+    from reverso_tpu_torch.parallel import make_mesh
+    from reverso_tpu_torch.train import ClipTrainer
+
+    cfg = dataclasses.replace(MODEL_PRESETS["PE-Core-L14-336"], depth=2, dtype="bfloat16")
+    a = np.random.default_rng(8).standard_normal((4, 336, 336, 3)).astype(np.float32)
+    one = ClipTrainer(cfg, seed=4, device="cuda:0")
+    mesh = make_mesh(MeshConfig(axis_sizes=(2, 2)), devices=["cuda:0"] * 4)
+    tm = ClipTrainer(cfg, mesh, seed=4)
+    with torch.inference_mode():
+        e1 = one._embed(one.shard_batch(a))
+        kernels.reset_counts()
+        em = tm._embed(tm.shard_batch(a))
+    torch.cuda.synchronize()
+    # per data shard: ln1, ln2, the block end with ln1, ln2, the end with
+    # ln_post, the pool's norm
+    assert kernels.launches["add_layernorm"] == 2 * 6, dict(kernels.launches)
+    assert kernels.plain_dispatches["norm_shape"] == 0
+    assert float((em.float() - e1.float()).norm(dim=-1).max()) <= 2e-2
